@@ -9,15 +9,18 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
 2. Kernel checks at the slice's shapes (B=64, 224x224x3, K=15) with TF32
    off: each hand-written kernel against its plain PyTorch version on the
    same inputs, with its tolerance, then timed beside its bound, its plain
-   version and (for the blur) a cuDNN grouped convolution.
+   version and (for the blur) a cuDNN grouped convolution. B2 is also held
+   on a box kernel (225 equal taps) and in its random-mix epilogue mode.
 3. The slice at full width: ResUNet (64/128/256, 512) and VGG16-D (FC 4096,
    43 classes), random weights from a seed, bf16 compute. Seeded clean
-   batches go through the random mix (B1 -> B2 -> epilogue) and the fused
-   restore -> classify step, then one unified demo (its blur on B3). The
+   batches go through the random mix (B1 -> B2 with the epilogue in its
+   store) and the fused restore -> classify step, then one unified demo
+   (its blur on B3). The
    launch counts are zeroed just before and read just after: every kernel
    must have run. The mix's time is one synchronised window over the
    steady batches. A small CUDA-vs-CPU run of the same path, the mix
    under both blur backends, checks the output against the plain versions.
+   The profiled mix batch gives the device kernels per batch.
 4. One JSON line of the kernels, the card's line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -86,10 +89,11 @@ def card_line():
 
 
 def device_breakdown(fn, top=14):
-    """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    and the wall time of that call measured inside the profiled window;
-    returns (rows, busy_ms, wall_ms), or None if the profiler cannot start
-    or be read. A failure of ``fn`` itself always propagates."""
+    """Device time and launches by kernel name over one call of ``fn``
+    (torch.profiler), the number of device kernels that call ran, and its
+    wall time measured inside the profiled window; returns (rows of (name,
+    ms, launches), busy_ms, n_kernels, wall_ms), or None if the profiler
+    cannot start or be read. A failure of ``fn`` itself always propagates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -122,11 +126,13 @@ def device_breakdown(fn, top=14):
     events.sort(key=lambda e: e.time_range.start)
     events = events[len(events) // 2:]
     for e in events:
-        us = e.time_range.end - e.time_range.start
-        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
-    busy = sum(by_name.values())
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return rows, busy, wall_ms
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    rows = sorted(((name, ms, n) for name, (ms, n) in by_name.items()),
+                  key=lambda r: -r[1])[:top]
+    return rows, busy, len(events), wall_ms
 
 
 def kernel_checks(dev):
@@ -199,41 +205,70 @@ def kernel_checks(dev):
         tol=1e-6, ms=b1_ms, plain_ms=b1_plain, bound_ms=t_b, bound_by=by,
         library_ms=None))
 
-    # B2 / B3 on the mix's pre-blur batch (integers 0..255)
+    # B2 / B3 on the mix's pre-blur batch (integers 0..255), each held
+    # against the plain version with the full kernels: both are exact
     x = pre_n
     kerns = tblur.motion_blur_kernels(draws.degrees, draws.angles, K)
-    ntaps = kblur.default_max_taps(K)
-    masked = kblur.sparse_kernels(kerns, ntaps)
     b, h, w, c = x.shape
     pix = b * h * w * c
+    nnz = int((kerns != 0).sum())  # taps this run's kernels need
     xp = F.pad(x.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
                (K // 2, K - 1 - K // 2) * 2, mode="reflect")
-    for name, fn, ref_k, taps, source_line in (
-            ("B2 blur_sparse", kblur.filter2d_sparse, masked, ntaps,
+    weight = kerns.repeat_interleave(c, 0).reshape(b * c, 1, K, K)
+    lib = cuda_ms(lambda: F.conv2d(xp, weight, groups=b * c))
+    for name, fn, flops, source_line in (
+            ("B2 blur_sparse", kblur.filter2d_sparse, 2 * nnz * h * w * c,
              "tsr_tpu/kernels/blur_pallas.py:191"),
-            ("B3 blur_dense", kblur.filter2d_dense, kerns, K * K,
+            ("B3 blur_dense", kblur.filter2d_dense, 2 * K * K * pix,
              "tsr_tpu/kernels/blur_pallas.py:87")):
         out = fn(x, kerns)
-        ref = kblur.filter2d_plain(x, ref_k)
+        ref = kblur.filter2d_plain(x, kerns)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         check(err < 1e-3, f"{name} max err {err} >= 1e-3")
         ms = cuda_ms(lambda: fn(x, kerns))
-        plain = cuda_ms(lambda: kblur.filter2d_plain(x, ref_k))
-        weight = ref_k.repeat_interleave(c, 0).reshape(b * c, 1, K, K)
-        lib = cuda_ms(lambda: F.conv2d(xp, weight, groups=b * c))
-        if name.startswith("B2"):
-            nnz = int((kblur.sparse_taps(kerns, ntaps)[0] != 0).sum())
-            flops = 2 * nnz * h * w * c
-        else:
-            flops = 2 * K * K * pix
-        t_b, by = bound(2 * pix * 4 + b * taps * 12, flops)
-        print(f"{name}: max err {err:.3g} (tol 1e-3)")
+        plain = cuda_ms(lambda: kblur.filter2d_plain(x, kerns))
+        t_b, by = bound(2 * pix * 4 + b * K * K * 4, flops)
+        print(f"{name}: max err {err:.3g} (tol 1e-3); {ms:.4f} ms, bound "
+              f"{t_b:.4f} ms ({by}), {100 * t_b / ms:.0f} % of bound")
         rows.append(dict(
             name=name, route="cuda",
             source="tsr_tpu_torch/kernels/csrc/blur_taps.cu",
             replaces=source_line, max_abs_err=err, tol=1e-3, ms=ms,
             plain_ms=plain, bound_ms=t_b, bound_by=by, library_ms=lib))
+
+    # B2 on a box kernel: 225 equal taps, far above the TPU's 3K budget
+    box = torch.full((b, K, K), 1.0 / (K * K), device=dev)
+    err_box = (kblur.filter2d_sparse(x, box)
+               - kblur.filter2d_plain(x, box)).abs().max().item()
+    check(err_box < 1e-3, f"B2 box kernel max err {err_box} >= 1e-3")
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err_box)
+    print(f"B2 box kernel (225 equal taps): max err {err_box:.3g} (tol 1e-3)")
+
+    # B2 with the random mix's epilogue in its store, on B1's outputs
+    gate = draws.gate_blur
+    got = kblur.filter2d_sparse(x, kerns, f=f_n, gate_blur=gate)
+    ref = kblur.random_mix_epilogue_plain(kblur.filter2d_plain(x, kerns),
+                                          f_n, gate)
+    torch.cuda.synchronize()
+    diff = (got.int() - ref.int()).abs()
+    lsb, n_diff = int(diff.max()), int((diff != 0).sum())
+    check(lsb <= 1, f"B2+epilogue differs by {lsb} LSB")
+    ms = cuda_ms(lambda: kblur.filter2d_sparse(x, kerns, f=f_n,
+                                               gate_blur=gate))
+    plain = cuda_ms(lambda: kblur.random_mix_epilogue_plain(
+        kblur.filter2d_plain(x, kerns), f_n, gate))
+    n_on = int(gate.sum())
+    # gate on: the blur input is read; gate off: f is read; uint8 written
+    t_b, by = bound(pix * 4 + pix + b * K * K * 4,
+                    2 * int((kerns[gate] != 0).sum()) * h * w * c)
+    epilogue = dict(name="B2+epilogue blur_sparse", max_lsb=lsb,
+                    n_differ=n_diff, ms=ms, plain_ms=plain, bound_ms=t_b,
+                    bound_by=by, gates_on=n_on)
+    print(f"B2+epilogue: max {lsb} LSB (tol 1), {n_diff} of {pix} values "
+          f"differ; {ms:.4f} ms, bound {t_b:.4f} ms ({by}, {n_on} of {b} "
+          f"gates on), plain {plain:.4f} ms")
+    print("blur_epilogue: " + json.dumps(epilogue))
 
     # a shared even-sized kernel (the demo's K=10) through filter2d: B3
     k10 = tblur.motion_blur_kernel(10, 45.0, max_degree=10, device=dev)
@@ -451,11 +486,13 @@ def run(dev) -> None:
         breakdown = device_breakdown(fn)
         if breakdown is None:
             break
-        prof_rows, busy, wall = breakdown
+        prof_rows, busy, n_kernels, wall = breakdown
         print(f"profile of one {label} batch: device busy {busy:.3f} ms "
-              f"over {wall:.3f} ms wall")
-        for kname, ms in prof_rows:
-            print(f"  {ms:8.3f} ms  {kname[:110]}")
+              f"over {wall:.3f} ms wall; {n_kernels} device kernels")
+        if label == "random mix":
+            print(f"kernels per random-mix batch: {n_kernels}")
+        for kname, ms, n in prof_rows:
+            print(f"  {ms:8.3f} ms {n:4d}x  {kname[:110]}")
 
     small_reference_check(dev)
 

@@ -27,15 +27,16 @@ from tsr_tpu_torch.ops import distortions
 
 torch.set_num_threads(2)
 SHIM = Path(__file__).resolve().parent / "torch_port_cuda_emu.h"
-LAUNCH = re.compile(r"([\w<>:]+)<<<(.*?)>>>\((.*?)\);", re.S)
+LAUNCH = re.compile(r"([\w:]+(?:<[\w\s,:]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?float smem\[\];")
 
 
 def _translate(source: str) -> str:
     """A .cu source as C++ for the CPU stand-in."""
     src = (_build.CSRC / source).read_text()
     src = src.replace("#include <cuda_runtime.h>", f'#include "{SHIM}"')
-    src = src.replace("extern __shared__ float smem[];",
-                      "float* smem = emu_shared;")
+    src = src.replace("#include <cuda_pipeline_primitives.h>", "")
+    src = SHARED.sub("float* smem = emu_shared;", src)
 
     def launch(m):
         grid, block, smem, _stream = (p.strip() for p in m.group(2).split(","))
@@ -141,32 +142,79 @@ def test_fog_noise_kernel_noise_statistics(on_emulated_card):
         assert abs(d[i].std().item() - s) < 0.02
 
 
-@pytest.mark.parametrize("b,h,w,c,k", [(2, 20, 37, 3, 15), (1, 9, 9, 1, 5),
-                                       (2, 16, 16, 3, 10)])
-@pytest.mark.parametrize("variant", ["sparse", "dense"])
-def test_blur_taps_kernel_matches_plain(on_emulated_card, variant, b, h, w,
-                                        c, k):
-    """B2/B3 through their wrappers (ragged tiles, one channel, even K):
-    within 1e-3 of the plain version on inputs in 0..255."""
-    g = torch.Generator().manual_seed(2)
-    x = torch.randint(0, 256, (b, h, w, c), generator=g).to(torch.float32)
+def _blur_kernels(kind, b, k, g):
+    """Motion kernels, or one box kernel per sample, or motion kernels with
+    sample 0 all zeros."""
+    if kind == "box":
+        return torch.full((b, k, k), 1.0 / (k * k))
     kerns = tblur.motion_blur_kernels(
         torch.randint(max(2, k // 3), k + 1, (b,), generator=g),
         torch.randint(0, 361, (b,), generator=g).to(torch.float32), k)
-    if variant == "sparse":
-        got = kblur.filter2d_sparse(x, kerns)
-        ref = kblur.filter2d_plain(
-            x, kblur.sparse_kernels(kerns, kblur.default_max_taps(k)))
-    else:
-        got = kblur.filter2d_dense(x, kerns)
-        ref = kblur.filter2d_plain(x, kerns)
+    if kind == "zero-sample":
+        kerns[0] = 0.0
+    return kerns
+
+
+# ragged steps and bands (56-wide bands, 16-row steps, 7 steps a CTA, so
+# 130 rows take two CTAs down a band), C = 1 and 3, compile-time K (15, 10)
+# and run-time K (5)
+_SHAPES = [(2, 20, 37, 3, 15), (1, 9, 9, 1, 5), (2, 16, 16, 3, 10),
+           (1, 70, 60, 1, 15), (2, 18, 60, 3, 5), (1, 130, 20, 1, 15)]
+
+
+@pytest.mark.parametrize("b,h,w,c,k,kind", [
+    pytest.param(*shape, kind, id="-".join(
+        map(str, shape + ((kind,) if kind != "motion" else ()))))
+    for kind in ("motion", "box", "zero-sample") for shape in _SHAPES])
+@pytest.mark.parametrize("variant", ["sparse", "dense"])
+def test_blur_taps_kernel_matches_plain(on_emulated_card, variant, kind, b,
+                                        h, w, c, k):
+    """B2/B3 through their wrappers: within 1e-3 of the plain version on
+    inputs in 0..255, for motion kernels, box kernels (every tap equal) and
+    a sample whose kernel is all zeros; one launch counted per call."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randint(0, 256, (b, h, w, c), generator=g).to(torch.float32)
+    kerns = _blur_kernels(kind, b, k, g)
+    fn = kblur.filter2d_sparse if variant == "sparse" else kblur.filter2d_dense
+    got = fn(x, kerns)
+    ref = kblur.filter2d_plain(x, kerns)
     assert (got - ref).abs().max().item() < 1e-3
     assert _build.launch_counts()[f"blur_{variant}"] == 1
 
 
+@pytest.mark.parametrize("b,h,w,c,k", [(4, 20, 60, 3, 15), (4, 18, 37, 3, 5)],
+                         ids=["vector-rows", "scalar-rows"])
+@pytest.mark.parametrize("variant", ["sparse", "dense"])
+def test_blur_kernel_epilogue_matches_plain(on_emulated_card, variant, b, h,
+                                            w, c, k):
+    """The random mix's epilogue in the blur's store, gates mixed on and
+    off: a gate-off sample equals random_mix_epilogue_plain exactly (the
+    same float32 steps on f, clipping included); a gate-on sample within
+    1 LSB (the blur's cvRound can flip where float32 sums differ in order).
+    Rows of 60 x 3 floats go out four at a time, rows of 37 x 3 one by one."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(0, 256, (b, h, w, c), generator=g).to(torch.float32)
+    f = torch.rand((b, h, w, c), generator=g) * 1.2 - 0.1
+    f[1, 0, :5, 0] = torch.arange(5) / 255.0  # exact uint8 levels: the snap
+    kerns = _blur_kernels("motion", b, k, g)
+    gate = torch.tensor([True, False, True, False])
+    fn = kblur.filter2d_sparse if variant == "sparse" else kblur.filter2d_dense
+    got = fn(x, kerns, f=f, gate_blur=gate)
+    ref = kblur.random_mix_epilogue_plain(kblur.filter2d_plain(x, kerns), f,
+                                          gate)
+    assert got.dtype == torch.uint8 and got.shape == ref.shape
+    assert torch.equal(got[~gate], ref[~gate])
+    assert (got[gate].int() - ref[gate].int()).abs().max().item() <= 1
+    assert _build.launch_counts()[f"blur_{variant}"] == 1
+    with pytest.raises(ValueError, match="reflect-101"):
+        fn(x[:, :k // 2, :k // 2], kerns)
+    with pytest.raises(ValueError, match="gate_blur must be bool"):
+        fn(x, kerns, f=f, gate_blur=gate.to(torch.int32))
+
+
 def test_random_mix_on_kernels_matches_plain_path(on_emulated_card,
                                                   monkeypatch):
-    """The random mix through B1 -> B2 -> epilogue equals the plain path
+    """The random mix through B1 -> B2 with its epilogue equals the plain path
     within 1 LSB with the noise gates off (the Philox field has no CPU
     twin); a bad launch surfaces as an error, not a silent result."""
     g = torch.Generator().manual_seed(3)
@@ -184,4 +232,5 @@ def test_random_mix_on_kernels_matches_plain_path(on_emulated_card,
     diff = (got.to(torch.int32) - ref.to(torch.int32)).abs().max().item()
     assert diff <= 1
     with pytest.raises(RuntimeError, match="invalid argument"):
-        kblur.BLUR_DENSE.launch(0, 0, 0, 0, 1, 4, 4, 3, 3, 10, 0, None)
+        kblur.BLUR_DENSE.launch(0, 0, 0, 0, 0, 0, 0, 1, 4, 4, 3, 3, 0, 0,
+                                None)

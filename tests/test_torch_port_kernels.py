@@ -75,8 +75,9 @@ def test_fog_noise_cpu_draws_from_seed():
 
 @pytest.mark.parametrize("variant", ["sparse", "dense"])
 def test_blur_plain_matches_pallas_interpret(rng, variant):
-    """B2 (top-3K taps) and B3 (all K*K taps) plain versions vs the
-    interpreted Pallas kernels at 2x32x32x3, K=15, inputs in 0..255.
+    """B2 (every nonzero tap) and B3 (all K*K taps) plain versions vs the
+    interpreted Pallas kernels (B2's TPU kernel keeps the top 3K taps, which
+    cover a motion kernel's nonzeros) at 2x32x32x3, K=15, inputs in 0..255.
     Tolerance 1e-3: float32 sums in another order (tests/test_kernels.py)."""
     imgs = rng.uniform(0, 255, (2, 32, 32, 3)).astype(np.float32)
     kerns = _motion_kernels([5, 15], [30.0, 275.0])
@@ -101,6 +102,43 @@ def test_sparse_budget_covers_every_motion_kernel():
     kerns = tblur.motion_blur_kernels(degs, angs, 15)
     assert int((kerns > 0).sum(dim=(1, 2)).max()) <= 45
     assert torch.equal(kblur.sparse_kernels(kerns, 45), kerns)
+
+
+@pytest.mark.parametrize("kind", ["box", "dense"])
+def test_filter2d_matches_jax_for_any_kernel(rng, kind):
+    """Per-sample kernels with far more than 3K nonzero taps (a 15x15 box,
+    225 equal taps; random dense weights) through the port's filter2d vs
+    tsr_tpu's exact grouped convolution at 2x16x16x3, within 1e-3. A top-3K
+    tap list missed this by up to 14.86."""
+    imgs = rng.integers(0, 256, (2, 16, 16, 3)).astype(np.float32)
+    if kind == "box":
+        kerns = np.full((2, 15, 15), 1.0 / 225, np.float32)
+    else:
+        kerns = rng.uniform(0, 1, (2, 15, 15)).astype(np.float32)
+        kerns /= kerns.sum(axis=(1, 2), keepdims=True)
+    ref = np.asarray(jblur.filter2d(jnp.asarray(imgs), jnp.asarray(kerns)))
+    for backend in ("sparse", "dense"):
+        tblur.set_backend(backend)
+        try:
+            got = tblur.filter2d(torch.from_numpy(imgs),
+                                 torch.from_numpy(kerns)).numpy()
+        finally:
+            tblur.set_backend("sparse")
+        assert np.abs(got - ref).max() < 1e-3, backend
+
+
+def test_sparse_taps_ties_match_lax_top_k():
+    """On tied weights (a 15x15 box, budget 45) sparse_taps keeps the taps
+    lax.top_k keeps, the lowest flat indices, and so does sparse_kernels."""
+    kerns = np.full((2, 15, 15), 1.0 / 225, np.float32)
+    kerns[1, 3, 4] = 0.5  # one larger tap goes first
+    ref_w, ref_i = jax.lax.top_k(jnp.asarray(kerns.reshape(2, -1)), 45)
+    w, idx = kblur.sparse_taps(torch.from_numpy(kerns), 45)
+    assert np.array_equal(idx.numpy(), np.asarray(ref_i))
+    assert np.array_equal(w.numpy(), np.asarray(ref_w))
+    masked = kblur.sparse_kernels(torch.from_numpy(kerns), 45).numpy()
+    assert (masked.reshape(2, -1)[0, :45] > 0).all()
+    assert (masked.reshape(2, -1)[0, 45:] == 0).all()
 
 
 def test_filter2d_shared_k10_matches_jax(rng):

@@ -6,12 +6,16 @@
 // static buffer serves as the block's shared memory. The test rewrites
 // `kernel<<<grid, block, smem, stream>>>(args)` into
 // `emu_launch(grid, block, smem, [&] { kernel(args); })` and
-// `extern __shared__ float smem[];` into a pointer to that buffer. Only
-// what the port's sources use is provided.
+// `extern __shared__ float smem[];` into a pointer to that buffer. The
+// asynchronous copies of cuda_pipeline_primitives.h copy at once, so every
+// wait is already satisfied. Only what the port's sources use is provided.
 #pragma once
 #include <barrier>
 #include <cmath>
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
+#include <cstring>
 #include <functional>
 #include <stdexcept>
 #include <thread>
@@ -21,7 +25,8 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -29,6 +34,7 @@ struct dim3 {
 };
 struct uint4 { uint32_t x, y, z, w; };
 struct uint2 { uint32_t x, y; };
+struct int4 { int x, y, z, w; };
 struct uchar4 { uint8_t x, y, z, w; };
 struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
@@ -42,6 +48,25 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) {
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+using std::max;
+using std::min;
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline int atomicMin(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int old = a.load();
+  while (old > v && !a.compare_exchange_weak(old, v)) {}
+  return old;
+}
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {}
+  return old;
+}
+inline void __pipeline_wait_prior(size_t) {}
 inline void sincospif(float x, float* s, float* c) {
   *s = std::sin(static_cast<float>(M_PI) * x);
   *c = std::cos(static_cast<float>(M_PI) * x);
@@ -49,7 +74,7 @@ inline void sincospif(float x, float* s, float* c) {
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
-inline float emu_shared[1 << 16];
+alignas(16) inline float emu_shared[1 << 16];
 inline std::barrier<>* emu_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 
@@ -87,3 +112,4 @@ inline void emu_launch(dim3 grid, dim3 block, size_t smem,
         for (auto& t : threads) t.join();
       }
 }
+

@@ -1,33 +1,47 @@
-"""Per-sample motion-blur correlation: kernels B2 (sparse taps) and B3
-(dense taps), one CUDA kernel (``csrc/blur_taps.cu``) launched with two
-tap lists, plus their plain PyTorch version.
+"""Per-sample 2-D correlation: kernels B2 (sparse runs) and B3 (dense runs)
+in ``csrc/blur_taps.cu``, plus their plain PyTorch versions.
 
 Port of ``tsr_tpu/kernels/blur_pallas.py``. Semantics match
 ``tsr_tpu_torch.ops.blur.filter2d``: correlation (no kernel flip),
 reflect-101 border, anchor ``K // 2``.
 
-A motion-blur kernel is a rasterized line: of its K*K taps only the cells
-the bilinearly sampled line touches are nonzero (at most 41 at K=15 over
-degrees 5-15 and every angle). The sparse list keeps each sample's
-``min(K*K, 3K)`` largest taps, chosen with ``torch.topk`` outside the
-kernel as the TPU wrapper chooses them with ``lax.top_k``; it is exact
-whenever the budget covers the nonzeros.
+Both kernels are exact for any kernel. Each call first builds, on the card,
+a run list per sample from its ``[K, K]`` weights: B2 keeps each row's span
+from its first to its last nonzero tap and skips empty rows, B3 keeps every
+row whole. A motion-blur kernel is a rasterized line (at most 41 nonzeros
+at K=15 over degrees 5-15 and every angle), so B2 runs few taps. The TPU
+kernel instead keeps each sample's top ``min(K*K, 3K)`` taps by value
+(``lax.top_k``), which is exact only when they cover the nonzeros; it does
+for every kernel the random mix draws. :func:`sparse_taps` and
+:func:`sparse_kernels` reproduce that selection, ties broken as
+``lax.top_k`` breaks them (lowest index first).
+
+With ``f`` and ``gate_blur`` a kernel also runs the random mix's epilogue
+in its store and returns the mix's final uint8
+(:func:`random_mix_epilogue_plain`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from tsr_tpu_torch.kernels import _build
 from tsr_tpu_torch.kernels._build import Kernel
+from tsr_tpu_torch.ops import image as image_ops
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-             + [ctypes.c_void_p, ctypes.c_void_p])
-BLUR_SPARSE = Kernel("blur_sparse", "blur_taps.cu", "tsr_blur_taps", _ARGTYPES)
-BLUR_DENSE = Kernel("blur_dense", "blur_taps.cu", "tsr_blur_taps", _ARGTYPES)
+# x, kernels, kernel sample stride, runs, runs' words, f, gate, B, H, W, C,
+# K, out, out_u8, stream
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p,
+                                      ctypes.c_int64]
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p] * 3)
+BLUR_SPARSE = Kernel("blur_sparse", "blur_taps.cu", "tsr_blur_sparse",
+                     _ARGTYPES)
+BLUR_DENSE = Kernel("blur_dense", "blur_taps.cu", "tsr_blur_dense", _ARGTYPES)
 
 
 def default_max_taps(ksize: int) -> int:
@@ -35,19 +49,27 @@ def default_max_taps(ksize: int) -> int:
 
 
 def sparse_taps(kernels: torch.Tensor, max_taps: int):
-    """Each sample's ``max_taps`` largest taps: ``(w [B,T] f32, flat index
-    [B,T] int64)`` into the row-major ``K*K`` kernel (blur weights are >= 0)."""
+    """Each sample's ``max_taps`` largest taps, as the TPU kernel keeps
+    them: ``(w [B,T] f32, flat index [B,T] int64)`` into the row-major
+    ``K*K`` kernel (blur weights are >= 0). Equal weights keep the lower
+    index first, as ``lax.top_k`` does."""
     flat = kernels.reshape(kernels.shape[0], -1).to(torch.float32)
-    return torch.topk(flat, max_taps, dim=1)
+    w, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+    return w[:, :max_taps], idx[:, :max_taps]
 
 
 def sparse_kernels(kernels: torch.Tensor, max_taps: int) -> torch.Tensor:
     """The kernels with every tap outside the top ``max_taps`` set to zero:
-    the dense kernel whose correlation the sparse tap list computes."""
+    the dense kernel whose correlation the TPU's sparse kernel computes."""
     w, idx = sparse_taps(kernels, max_taps)
     flat = torch.zeros_like(kernels.reshape(kernels.shape[0], -1),
                             dtype=torch.float32)
     return flat.scatter(1, idx, w).reshape(kernels.shape)
+
+
+def run_words(ksize: int) -> int:
+    """32-bit words of one sample's run list (``run_words`` in the source)."""
+    return 4 + 4 * ksize + ksize * ((ksize + 3) // 4 * 4)
 
 
 def filter2d_plain(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
@@ -67,60 +89,94 @@ def filter2d_plain(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, c, h, w).permute(0, 2, 3, 1).contiguous()
 
 
-def _launch_taps(kernel: Kernel, images: torch.Tensor, tap_w: torch.Tensor,
-                 tap_idx: torch.Tensor, ksize: int) -> torch.Tensor:
+def random_mix_epilogue_plain(blurred: torch.Tensor, f: torch.Tensor,
+                              gate_blur: torch.Tensor) -> torch.Tensor:
+    """The random mix after its blur: cvRound/saturate the blur, keep it
+    where the sample's blur gate is on and ``f`` elsewhere, then
+    ``clip01_to_uint8`` (ref:14:56-64). Plain version of the kernels'
+    epilogue mode."""
+    blurred_u8f = image_ops.saturate_uint8(blurred, round=True).to(
+        torch.float32)
+    f = torch.where(gate_blur.reshape(-1, 1, 1, 1), blurred_u8f / 255.0, f)
+    return image_ops.clip01_to_uint8(f)
+
+
+def _launch(kernel: Kernel, images: torch.Tensor, kernels: torch.Tensor,
+            f: Optional[torch.Tensor], gate_blur: Optional[torch.Tensor]
+            ) -> torch.Tensor:
     if images.dtype != torch.float32 or images.ndim != 4:
         raise ValueError(f"images must be float32 [B,H,W,C], got "
                          f"{images.dtype} {tuple(images.shape)}")
     b, h, w, c = images.shape
     if not 1 <= c <= 4:
         raise ValueError(f"blur kernel takes 1-4 channels, got {c}")
-    if tap_w.shape != tap_idx.shape or tap_w.shape[0] != b:
-        raise ValueError("tap list must be [B, T] weights and indices")
+    if (kernels.dtype != torch.float32 or kernels.ndim != 3
+            or kernels.shape[0] != b or kernels.shape[1] != kernels.shape[2]):
+        raise ValueError(f"kernels must be float32 [{b},K,K], got "
+                         f"{kernels.dtype} {tuple(kernels.shape)}")
+    ksize = kernels.shape[-1]
+    if ksize // 2 >= min(h, w):
+        raise ValueError(f"reflect-101 border of a K={ksize} kernel needs "
+                         f"H and W above {ksize // 2}, got {h}x{w}")
+    dev = images.device
+    if kernels.device != dev:
+        raise ValueError("kernels and images on different devices")
     images = images.contiguous()
-    tap_w = tap_w.to(torch.float32).contiguous()
-    tap_di = torch.div(tap_idx, ksize, rounding_mode="floor").to(
-        torch.int32).contiguous()
-    tap_dj = torch.remainder(tap_idx, ksize).to(torch.int32).contiguous()
-    for t in (tap_w, tap_di, tap_dj):
-        if t.device != images.device:
-            raise ValueError("tap list and images on different devices")
-    out = torch.empty_like(images)
+    if kernels.stride()[1:] != (ksize, 1):  # a broadcast sample stride is kept
+        kernels = kernels.contiguous()
+    if (f is None) != (gate_blur is None):
+        raise ValueError("the epilogue needs both f and gate_blur")
+    runs = torch.empty(b * run_words(ksize), dtype=torch.float32, device=dev)
+    if f is None:
+        out = torch.empty_like(images)
+        ptrs = (0, 0, out.data_ptr(), 0)
+    else:
+        if (f.dtype != torch.float32 or f.shape != images.shape
+                or f.device != dev):
+            raise ValueError(f"f must be float32 {tuple(images.shape)} on "
+                             f"{dev}, got {f.dtype} {tuple(f.shape)}")
+        if (gate_blur.dtype != torch.bool or gate_blur.shape != (b,)
+                or gate_blur.device != dev):
+            raise ValueError(f"gate_blur must be bool [{b}] on {dev}")
+        f = f.contiguous()
+        gate_blur = gate_blur.contiguous()
+        out = torch.empty(images.shape, dtype=torch.uint8, device=dev)
+        ptrs = (f.data_ptr(), gate_blur.data_ptr(), 0, out.data_ptr())
     if out.numel() == 0:
         return out
-    kernel.launch(images.data_ptr(), tap_w.data_ptr(), tap_di.data_ptr(),
-                  tap_dj.data_ptr(), b, h, w, c, ksize, tap_w.shape[1],
-                  out.data_ptr(),
-                  torch.cuda.current_stream(images.device).cuda_stream)
+    kernel.launch(images.data_ptr(), kernels.data_ptr(), kernels.stride(0),
+                  runs.data_ptr(), runs.numel(), ptrs[0], ptrs[1], b, h, w,
+                  c, ksize, ptrs[2], ptrs[3],
+                  torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
-def filter2d_sparse(images: torch.Tensor, kernels: torch.Tensor
-                    ) -> torch.Tensor:
-    """Kernel B2: correlation over each sample's top ``min(K*K, 3K)`` taps.
+def _filter2d(kernel: Kernel, images, kernels, f, gate_blur):
+    if not _build.on_cuda(images):
+        out = filter2d_plain(images, kernels)
+        return out if f is None else random_mix_epilogue_plain(out, f,
+                                                               gate_blur)
+    return _launch(kernel, images, kernels, f, gate_blur)
+
+
+def filter2d_sparse(images: torch.Tensor, kernels: torch.Tensor,
+                    f: Optional[torch.Tensor] = None,
+                    gate_blur: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B2: correlation over each row's span of nonzero taps.
 
     Args:
       images: float32 ``[B, H, W, C]``.
       kernels: float32 ``[B, K, K]``.
+      f, gate_blur: optional float32 ``[B, H, W, C]`` and bool ``[B]``;
+        with them the result is the random mix's uint8
+        (:func:`random_mix_epilogue_plain`).
     """
-    ksize = kernels.shape[-1]
-    max_taps = default_max_taps(ksize)
-    if not _build.on_cuda(images):
-        return filter2d_plain(images, sparse_kernels(kernels, max_taps))
-    tap_w, tap_idx = sparse_taps(kernels, max_taps)
-    return _launch_taps(BLUR_SPARSE, images, tap_w, tap_idx, ksize)
+    return _filter2d(BLUR_SPARSE, images, kernels, f, gate_blur)
 
 
-def filter2d_dense(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
-    """Kernel B3: correlation over all K*K taps of each sample's kernel.
-
-    Args:
-      images: float32 ``[B, H, W, C]``.
-      kernels: float32 ``[B, K, K]``.
-    """
-    if not _build.on_cuda(images):
-        return filter2d_plain(images, kernels)
-    b, ksize = kernels.shape[0], kernels.shape[-1]
-    tap_w = kernels.reshape(b, ksize * ksize)
-    tap_idx = torch.arange(ksize * ksize, device=kernels.device).expand(b, -1)
-    return _launch_taps(BLUR_DENSE, images, tap_w, tap_idx, ksize)
+def filter2d_dense(images: torch.Tensor, kernels: torch.Tensor,
+                   f: Optional[torch.Tensor] = None,
+                   gate_blur: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B3: correlation over all K*K taps of each sample's kernel
+    (arguments as :func:`filter2d_sparse`)."""
+    return _filter2d(BLUR_DENSE, images, kernels, f, gate_blur)

@@ -8,15 +8,19 @@ sample of the implicit diagonal image, for a whole batch of per-sample
 ``degree``/``angle`` at once into a fixed ``max_degree`` buffer.
 
 ``filter2d`` has cv2 semantics: correlation (no kernel flip),
-BORDER_REFLECT_101, anchor ``k // 2``. A CPU tensor takes the plain
-PyTorch version; a CUDA tensor takes the hand-written tap kernel
-(``tsr_tpu_torch.kernels.blur``): the sparse tap list (B2) by default,
-all K*K taps (B3) after ``set_backend("dense")``.
+BORDER_REFLECT_101, anchor ``k // 2``, and is exact for any kernel, as
+``tsr_tpu.ops.blur.filter2d``'s grouped convolution is. A CPU tensor takes
+the plain PyTorch version; a CUDA tensor takes the hand-written kernels
+(``tsr_tpu_torch.kernels.blur``): B2 (each row's span of nonzero taps) by
+default, B3 (all K*K taps) after ``set_backend("dense")`` and for every
+shared kernel. Given the random mix's ``f`` and ``gate_blur``, the kernel
+also runs the mix's epilogue and returns its uint8.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -26,8 +30,9 @@ _BACKEND = "sparse"
 
 
 def set_backend(name: str) -> None:
-    """Select the per-sample blur kernel: ``"sparse"`` (top ``min(K*K, 3K)``
-    taps, the default) or ``"dense"`` (all K*K taps)."""
+    """Select the per-sample blur kernel: ``"sparse"`` (B2, each row's span
+    of nonzero taps, the default) or ``"dense"`` (B3, all K*K taps). Both
+    give the same correlation."""
     global _BACKEND
     if name not in ("sparse", "dense"):
         raise ValueError(f"unknown blur backend {name!r}")
@@ -99,23 +104,29 @@ def motion_blur_kernel(degree: int, angle: float, max_degree: int,
         max_degree)[0]
 
 
-def filter2d(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+def filter2d(images: torch.Tensor, kernels: torch.Tensor,
+             f: Optional[torch.Tensor] = None,
+             gate_blur: Optional[torch.Tensor] = None) -> torch.Tensor:
     """cv2.filter2D-parity correlation with per-sample or shared kernels.
 
     Args:
       images: float32 ``[B, H, W, C]``.
       kernels: ``[B, K, K]`` (one kernel per sample) or ``[K, K]`` (shared).
+      f, gate_blur: optional float32 ``[B, H, W, C]`` and bool ``[B]``: the
+        random mix's no-blur image and blur gates.
 
     Returns:
-      float32 ``[B, H, W, C]``, same spatial size (reflect-101 border).
+      float32 ``[B, H, W, C]``, same spatial size (reflect-101 border); with
+      ``f`` and ``gate_blur``, the random mix's uint8
+      (``kernels.blur.random_mix_epilogue_plain`` of the blur).
 
-    A shared kernel is broadcast and always takes the dense tap list: it is
-    the exact dense correlation, whatever its sparsity.
+    A shared kernel is broadcast and takes B3.
     """
     images = images.to(torch.float32)
+    kernels = kernels.to(torch.float32)
     if kernels.ndim == 2:
         kernels = kernels.expand(images.shape[0], *kernels.shape)
-        return blur_kernels.filter2d_dense(images, kernels)
+        return blur_kernels.filter2d_dense(images, kernels, f, gate_blur)
     if _BACKEND == "sparse":
-        return blur_kernels.filter2d_sparse(images, kernels)
-    return blur_kernels.filter2d_dense(images, kernels)
+        return blur_kernels.filter2d_sparse(images, kernels, f, gate_blur)
+    return blur_kernels.filter2d_dense(images, kernels, f, gate_blur)

@@ -84,7 +84,8 @@ def random_mix_from_draws(images_u8: torch.Tensor, draws: MixDraws,
     """The random mix's math for given draws: B1 (fog + noise + pre-blur
     round-trip) -> per-sample blur (B2, or B3 after
     ``ops.blur.set_backend("dense")``) -> cvRound/saturate -> gate select
-    -> uint8.
+    -> uint8. On the card the blur kernel runs the steps after the blur in
+    its store; on the CPU they are ``kernels.blur.random_mix_epilogue_plain``.
 
     ``noise`` (CPU only) is a pre-drawn N(0,1) field; without it the noise
     comes from B1's Philox stream keyed by ``draws.seed``.
@@ -95,12 +96,8 @@ def random_mix_from_draws(images_u8: torch.Tensor, draws: MixDraws,
         atmosphere=draws.atmosphere, noise=noise)
     kernels = blur_ops.motion_blur_kernels(draws.degrees, draws.angles,
                                            max_degree=MAX_BLUR_DEGREE)
-    blurred = blur_ops.filter2d(pre_blur, kernels)
-    blurred_u8f = image_ops.saturate_uint8(blurred, round=True).to(
-        torch.float32)
-    f = torch.where(draws.gate_blur.reshape(-1, 1, 1, 1),
-                    blurred_u8f / 255.0, f)
-    return image_ops.clip01_to_uint8(f)
+    return blur_ops.filter2d(pre_blur, kernels, f=f,
+                             gate_blur=draws.gate_blur)
 
 
 def _batched(images_u8, device):
