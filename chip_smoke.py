@@ -11,6 +11,10 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    same inputs, with its tolerance, then timed beside its bound, its plain
    version and (for the blur) a cuDNN grouped convolution. B2 is also held
    on a box kernel (225 equal taps) and in its random-mix epilogue mode.
+   B1 and B2 (epilogue mode) are checked and timed again at the training
+   mix's group shapes ``[4, s, s, 3]``, s in TRAIN_SCALES. B2+epilogue is
+   held with every blur gate on (so each shape's bands run their taps) and
+   with the draw's gates, and timed with the draw's.
 3. The slice at full width: ResUNet (64/128/256, 512) and VGG16-D (FC 4096,
    43 classes), random weights from a seed, bf16 compute. Seeded clean
    batches go through the random mix (B1 -> B2 with the epilogue in its
@@ -21,7 +25,17 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    steady batches. A small CUDA-vs-CPU run of the same path, the mix
    under both blur backends, checks the output against the plain versions.
    The profiled mix batch gives the device kernels per batch.
-4. One JSON line of the kernels, the card's line, and the final
+4. The unified trainer at full width, bf16 (``train.loops.
+   train_unified_on_device``): the multiscale random mix on B1/B2 ->
+   ResUNet in train mode -> L1 + 0.1 x perceptual loss on the frozen
+   VGG16-D's ``features[:16]`` -> AdamW with its cosine schedule, over a
+   seeded uint8 clean set on the card. One warm-up step, then a
+   synchronised window of TRAIN_STEPS steps at batch TRAIN_BATCH (the
+   ``train:`` line: images/s, losses, peak memory, B1/B2 launches, which
+   must be one per scale group per train or validation batch), then
+   REMAT_BATCH with the remat the trainer picks (``"vgg"``). A profiled
+   train step, and one small train step on CUDA vs the CPU's plain path.
+5. One JSON line of the kernels, the card's line, and the final
    ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -43,6 +57,10 @@ SEED = 0
 BATCH, SIZE, K = 64, 224, 15
 N_BATCHES = 21               # batch 0 is the warm-up
 NOISE_SE = 8                 # B1 noise statistics: tolerance in std errors
+# the train phase: UnifiedTrainConfig's batch and multiscale mix
+TRAIN_BATCH, TRAIN_SCALES = 16, (40, 56, 80, 112)
+TRAIN_STEPS = 20             # the timed window, after one warm-up step
+REMAT_BATCH, REMAT_STEPS = 128, 3   # auto-selected remat="vgg"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published peak
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 
@@ -91,9 +109,10 @@ def card_line():
 def device_breakdown(fn, top=14):
     """Device time and launches by kernel name over one call of ``fn``
     (torch.profiler), the number of device kernels that call ran, and its
-    wall time measured inside the profiled window; returns (rows of (name,
-    ms, launches), busy_ms, n_kernels, wall_ms), or None if the profiler
-    cannot start or be read. A failure of ``fn`` itself always propagates."""
+    wall time measured inside the profiled window; returns (the ``top``
+    rows of (name, ms, launches), busy_ms, n_kernels, wall_ms, every row),
+    or None if the profiler cannot start or be read. A failure of ``fn``
+    itself always propagates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -116,8 +135,11 @@ def device_breakdown(fn, top=14):
         raise
     try:
         prof.stop()
+        # a user annotation on the device's timeline (optimizer.step's
+        # range) spans kernels already counted: it is not a kernel
         events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
     except Exception as e:
         print(f"profiler unreadable: {type(e).__name__}: {e}")
         return None
@@ -131,28 +153,47 @@ def device_breakdown(fn, top=14):
                            n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     rows = sorted(((name, ms, n) for name, (ms, n) in by_name.items()),
-                  key=lambda r: -r[1])[:top]
-    return rows, busy, len(events), wall_ms
+                  key=lambda r: -r[1])
+    return rows[:top], busy, len(events), wall_ms, rows
 
 
-def kernel_checks(dev):
-    """Phase 2: each kernel against its plain version, then timed."""
+# kernel-name fragments of each kind of device work, first match wins: an
+# approximate split by name, with what matches none filed as "other"
+KINDS = (("hand-written mix kernels (B1, B2)", ("fog_noise_kernel",
+                                                "blur_runs", "build_runs")),
+         ("convolution and GEMM", ("xmma", "gemm", "convolve", "dgrad",
+                                   "wgrad", "cutlass", "sm90_")),
+         ("batch norm and its statistics", ("batchnorm", "batch_norm",
+                                            "bn_", "Welford")),
+         ("optimizer (multi-tensor)", ("multi_tensor", "Adam")),
+         ("reductions", ("reduce_kernel",)),
+         ("casts and copies", ("copy", "cat_")),
+         ("other elementwise", ("elementwise", "max_pool", "where")))
+
+
+def kinds_line(rows, busy):
+    """Device time by kind of work (KINDS, approximate), as ms and share of
+    ``busy``; "other" is always listed."""
+    sums = {"other": 0.0}
+    for name, ms, _ in rows:
+        kind = next((k for k, frags in KINDS
+                     if any(f in name for f in frags)), "other")
+        sums[kind] = sums.get(kind, 0.0) + ms
+    return "; ".join(f"{k} {ms:.3f} ms ({100 * ms / busy:.1f} %)"
+                     for k, ms in sorted(sums.items(), key=lambda r: -r[1]))
+
+
+def check_b1(clean, draws):
+    """B1 on ``clean`` with the mix's fog gates, held against its plain
+    version: the deterministic half (sigma = 0) exactly, the noise by its
+    statistics. Returns ``(f max err, noisy f, noisy pre_blur)``."""
     import torch
-    import torch.nn.functional as F
-    from tsr_tpu_torch import configs
-    from tsr_tpu_torch.kernels import blur as kblur
     from tsr_tpu_torch.kernels import distort as kdistort
-    from tsr_tpu_torch.ops import blur as tblur
-    from tsr_tpu_torch.ops import distortions
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    clean = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
-                          device=dev, generator=g)
-    draws = distortions.draw_random_mix(BATCH, g, configs.RandomMixConfig())
+    b = clean.shape[0]
+    dev = clean.device
     gate_fog = draws.gate_fog.to(torch.int32)
-    ones = torch.ones(BATCH, dtype=torch.int32, device=dev)
-    zeros = torch.zeros(BATCH, device=dev)
-    rows = []
-
+    ones = torch.ones(b, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(b, device=dev)
     # B1 deterministic half: sigma = 0, fog gates from the mix, noise on
     f, pre = kdistort.fused_fog_noise(clean, draws.seed, gate_fog, draws.t,
                                       ones, zeros)
@@ -172,7 +213,7 @@ def kernel_checks(dev):
     # kurtosis.
     f_n, pre_n = kdistort.fused_fog_noise(clean, draws.seed, gate_fog,
                                           draws.t, ones, draws.sigma)
-    z = (f_n - f).reshape(BATCH, -1) / draws.sigma.reshape(-1, 1)
+    z = (f_n - f).reshape(b, -1) / draws.sigma.reshape(-1, 1)
     n_px = z.shape[1]
     zc = z - z.mean(1, keepdim=True)
     kurtosis = (zc ** 4).mean(1) / (zc ** 2).mean(1) ** 2
@@ -184,26 +225,99 @@ def kernel_checks(dev):
     for stat, (err, se) in stats.items():
         check(err < NOISE_SE * se,
               f"B1 noise {stat} off by {err} ({err / se:.1f} standard errors)")
-    print(f"B1 fog_noise: f max err {b1_err:.3g} (tol 1e-6), pre_blur "
-          f"mismatches {pre_mismatch}; noise z = (f - fogged)/sigma, worst "
-          f"sample: " + ", ".join(
+    print(f"B1 fog_noise {list(clean.shape)}: f max err {b1_err:.3g} (tol "
+          f"1e-6), pre_blur mismatches {pre_mismatch}; noise z = (f - "
+          f"fogged)/sigma, worst sample: " + ", ".join(
               f"{stat} off by {err:.4g} ({err / se:.2f} SE)"
               for stat, (err, se) in stats.items())
           + f" (tol {NOISE_SE} SE)")
+    return b1_err, f_n, pre_n
 
+
+def b1_times(clean, draws):
+    """B1's time, its plain version's and its bound on ``clean``."""
+    import torch
+    from tsr_tpu_torch.kernels import distort as kdistort
+    b = clean.shape[0]
+    dev = clean.device
+    gate_fog = draws.gate_fog.to(torch.int32)
+    ones = torch.ones(b, dtype=torch.int32, device=dev)
     n = clean.numel()
     args = (clean, draws.seed, gate_fog, draws.t, ones, draws.sigma)
-    b1_ms = cuda_ms(lambda: kdistort.fused_fog_noise(*args))
+    ms = cuda_ms(lambda: kdistort.fused_fog_noise(*args))
     g_plain = torch.Generator(device=dev).manual_seed(SEED)
-    b1_plain = cuda_ms(lambda: kdistort.fog_noise_plain(
+    plain = cuda_ms(lambda: kdistort.fog_noise_plain(
         clean, gate_fog, draws.t, ones, draws.sigma, generator=g_plain))
-    t_b, by = bound(n * 1 + 2 * n * 4 + BATCH * 16 + 8, 10 * n)
+    t_b, by = bound(n * 1 + 2 * n * 4 + b * 16 + 8, 10 * n)
+    return dict(ms=ms, plain_ms=plain, bound_ms=t_b, bound_by=by)
+
+
+def b2_epilogue_lsb(x, kerns, f_n, gate):
+    """B2 with the random mix's epilogue in its store, on B1's outputs,
+    held within 1 LSB of its plain version; returns (max LSB, values that
+    differ)."""
+    import torch
+    from tsr_tpu_torch.kernels import blur as kblur
+    got = kblur.filter2d_sparse(x, kerns, f=f_n, gate_blur=gate)
+    ref = kblur.random_mix_epilogue_plain(kblur.filter2d_plain(x, kerns),
+                                          f_n, gate)
+    torch.cuda.synchronize()
+    diff = (got.int() - ref.int()).abs()
+    lsb, n_diff = int(diff.max()), int((diff != 0).sum())
+    check(lsb <= 1, f"B2+epilogue {list(x.shape)} ({int(gate.sum())} of "
+          f"{len(gate)} gates on) differs by {lsb} LSB")
+    return lsb, n_diff
+
+
+def check_b2_epilogue(x, kerns, f_n, gate):
+    """B2+epilogue held by :func:`b2_epilogue_lsb` with every blur gate on
+    (each sample runs its taps) and with ``gate``, then timed with
+    ``gate`` beside its bound."""
+    import torch
+    from tsr_tpu_torch.kernels import blur as kblur
+    lsb_on, n_on_diff = b2_epilogue_lsb(x, kerns, f_n, torch.ones_like(gate))
+    lsb, n_diff = b2_epilogue_lsb(x, kerns, f_n, gate)
+    ms = cuda_ms(lambda: kblur.filter2d_sparse(x, kerns, f=f_n,
+                                               gate_blur=gate))
+    plain = cuda_ms(lambda: kblur.random_mix_epilogue_plain(
+        kblur.filter2d_plain(x, kerns), f_n, gate))
+    b, h, w, c = x.shape
+    pix = x.numel()
+    k = kerns.shape[-1]
+    n_on = int(gate.sum())
+    # gate on: the blur input is read; gate off: f is read; uint8 written
+    t_b, by = bound(pix * 4 + pix + b * k * k * 4,
+                    2 * int((kerns[gate] != 0).sum()) * h * w * c)
+    print(f"B2+epilogue {list(x.shape)}: every gate on, max {lsb_on} LSB "
+          f"(tol 1), {n_on_diff} of {pix} values differ; the draw's gates "
+          f"({n_on} of {b} on), max {lsb} LSB, {n_diff} differ; {ms:.4f} ms, "
+          f"bound {t_b:.4f} ms ({by}), plain {plain:.4f} ms")
+    return dict(name="B2+epilogue blur_sparse", max_lsb=max(lsb, lsb_on),
+                n_differ=n_diff, n_differ_all_gates_on=n_on_diff,
+                ms=ms, plain_ms=plain, bound_ms=t_b, bound_by=by,
+                gates_on=n_on)
+
+
+def kernel_checks(dev):
+    """Phase 2: each kernel against its plain version, then timed."""
+    import torch
+    import torch.nn.functional as F
+    from tsr_tpu_torch import configs
+    from tsr_tpu_torch.kernels import blur as kblur
+    from tsr_tpu_torch.ops import blur as tblur
+    from tsr_tpu_torch.ops import distortions
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    clean = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+                          device=dev, generator=g)
+    draws = distortions.draw_random_mix(BATCH, g, configs.RandomMixConfig())
+    rows = []
+
+    b1_err, f_n, pre_n = check_b1(clean, draws)
     rows.append(dict(
         name="B1 fog_noise", route="cuda",
         source="tsr_tpu_torch/kernels/csrc/fog_noise.cu",
         replaces="tsr_tpu/kernels/distort.py:131", max_abs_err=b1_err,
-        tol=1e-6, ms=b1_ms, plain_ms=b1_plain, bound_ms=t_b, bound_by=by,
-        library_ms=None))
+        tol=1e-6, **b1_times(clean, draws), library_ms=None))
 
     # B2 / B3 on the mix's pre-blur batch (integers 0..255), each held
     # against the plain version with the full kernels: both are exact
@@ -245,29 +359,7 @@ def kernel_checks(dev):
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err_box)
     print(f"B2 box kernel (225 equal taps): max err {err_box:.3g} (tol 1e-3)")
 
-    # B2 with the random mix's epilogue in its store, on B1's outputs
-    gate = draws.gate_blur
-    got = kblur.filter2d_sparse(x, kerns, f=f_n, gate_blur=gate)
-    ref = kblur.random_mix_epilogue_plain(kblur.filter2d_plain(x, kerns),
-                                          f_n, gate)
-    torch.cuda.synchronize()
-    diff = (got.int() - ref.int()).abs()
-    lsb, n_diff = int(diff.max()), int((diff != 0).sum())
-    check(lsb <= 1, f"B2+epilogue differs by {lsb} LSB")
-    ms = cuda_ms(lambda: kblur.filter2d_sparse(x, kerns, f=f_n,
-                                               gate_blur=gate))
-    plain = cuda_ms(lambda: kblur.random_mix_epilogue_plain(
-        kblur.filter2d_plain(x, kerns), f_n, gate))
-    n_on = int(gate.sum())
-    # gate on: the blur input is read; gate off: f is read; uint8 written
-    t_b, by = bound(pix * 4 + pix + b * K * K * 4,
-                    2 * int((kerns[gate] != 0).sum()) * h * w * c)
-    epilogue = dict(name="B2+epilogue blur_sparse", max_lsb=lsb,
-                    n_differ=n_diff, ms=ms, plain_ms=plain, bound_ms=t_b,
-                    bound_by=by, gates_on=n_on)
-    print(f"B2+epilogue: max {lsb} LSB (tol 1), {n_diff} of {pix} values "
-          f"differ; {ms:.4f} ms, bound {t_b:.4f} ms ({by}, {n_on} of {b} "
-          f"gates on), plain {plain:.4f} ms")
+    epilogue = check_b2_epilogue(x, kerns, f_n, draws.gate_blur)
     print("blur_epilogue: " + json.dumps(epilogue))
 
     # a shared even-sized kernel (the demo's K=10) through filter2d: B3
@@ -279,6 +371,27 @@ def kernel_checks(dev):
     check(err10 < 1e-3, f"shared K=10 filter2d max err {err10} >= 1e-3")
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], err10)
     print(f"B3 shared K=10 via filter2d: max err {err10:.3g} (tol 1e-3)")
+
+    # B1 and B2 (epilogue mode) at the training mix's group shapes
+    rows[0]["train_shapes"], rows[1]["train_shapes"] = {}, {}
+    n = TRAIN_BATCH // len(TRAIN_SCALES)
+    for s in TRAIN_SCALES:
+        clean = torch.randint(0, 256, (n, s, s, 3), dtype=torch.uint8,
+                              device=dev, generator=g)
+        draws = distortions.draw_random_mix(n, g, configs.RandomMixConfig())
+        err, f_n, pre_n = check_b1(clean, draws)
+        rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], err)
+        rows[0]["train_shapes"][s] = b1_times(clean, draws)
+        kerns = tblur.motion_blur_kernels(draws.degrees, draws.angles, K)
+        ep = check_b2_epilogue(pre_n, kerns, f_n, draws.gate_blur)
+        rows[1]["train_shapes"][s] = {k: ep[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_lsb",
+            "gates_on")}
+        t1 = rows[0]["train_shapes"][s]
+        print(f"times at [{n}, {s}, {s}, 3]: B1 {t1['ms']:.4f} ms (plain "
+              f"{t1['plain_ms']:.4f}, bound {t1['bound_ms']:.5f}); "
+              f"B2+epilogue {ep['ms']:.4f} ms (plain {ep['plain_ms']:.4f}, "
+              f"bound {ep['bound_ms']:.5f})")
     return rows
 
 
@@ -337,6 +450,207 @@ def small_reference_check(dev):
           f"on B2, {lsbs['dense']} LSB on B3 (tol 1), "
           f"confidence max diff {conf.item():.3g} (tol 1e-3), PSNR max diff "
           f"{psnr.item():.3g} dB (tol 1e-2), pred agreement {agree.item()}")
+
+
+def _grads_close(name, got, ref, rtol):
+    """Gradients of two copies of one model: each within ``rtol`` of its
+    tensor's largest plus ``rtol`` / 100 of the model's largest gradient;
+    a convolution bias that feeds a batch norm (exact gradient 0) below
+    ``rtol`` / 10 of the model's largest on both sides. Returns the worst
+    error relative to its tensor's largest."""
+    from tsr_tpu_torch.models.layers import batchnorm_fed_biases
+    ref = {n: p.grad.cpu() for n, p in ref.named_parameters()}
+    top = max(g.abs().max().item() for g in ref.values())
+    fed = batchnorm_fed_biases(got)
+    check(len(fed) > 0, f"{name}: no convolution bias feeds a batch norm")
+    worst = 0.0
+    for n, p in got.named_parameters():
+        g, r = p.grad.cpu(), ref[n]
+        if n in fed:
+            check(max(g.abs().max().item(), r.abs().max().item())
+                  <= rtol / 10 * top, f"{name}: {n} gradient not ~0")
+            continue
+        err = (g - r).abs().max().item()
+        check(err <= rtol * r.abs().max().item() + rtol / 100 * top,
+              f"{name}: {n} gradient differs by {err}")
+        worst = max(worst, err / max(r.abs().max().item(), 1e-30))
+    return worst
+
+
+def small_train_check(dev):
+    """One unified train step on CUDA vs the CPU's plain path: fp32, TF32
+    off, small widths, the multiscale mix (scales 16 and 24 of 32) with
+    the noise gates off. The mix within 1 LSB (B1 and B2 once per group on
+    the card); on the CPU's training pair, the loss within 1e-5 relative,
+    the gradients as ``_grads_close`` holds them at 1e-4 and the running
+    statistics within 1e-5 of the layer's largest (and at least 1)."""
+    import torch
+    from tsr_tpu_torch import configs, losses
+    from tsr_tpu_torch.kernels import _build
+    from tsr_tpu_torch.models import ResUNet, VGG16
+    from tsr_tpu_torch.ops import distortions
+    from tsr_tpu_torch.ops import image as timage
+    from tsr_tpu_torch.train import common
+    torch.manual_seed(SEED)
+    r_cpu = ResUNet((8, 16, 32), 64).train()
+    v_cpu = VGG16(num_classes=5, cfg=(16, 16, "M", 32, 32, "M", 32, 32, 32,
+                                      "M"), fc_width=32, input_size=32)
+    r_gpu = copy.deepcopy(r_cpu).to(dev)
+    v_gpu = copy.deepcopy(v_cpu).to(dev)
+    scales = (16, 24)
+    cfg = configs.RandomMixConfig(apply_scales=scales)
+    g = torch.Generator().manual_seed(SEED + 9)
+    clean = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8,
+                          generator=g)
+    draws = distortions.draw_random_mix(8, g, cfg, n_seeds=len(scales))
+    draws = dataclasses.replace(draws,
+                                gate_noise=torch.zeros(8, dtype=torch.bool))
+    bad_cpu = distortions.random_mix_multiscale_from_draws(clean, draws,
+                                                           scales)
+    _build.reset_launch_counts()
+    bad_gpu = distortions.random_mix_multiscale_from_draws(
+        clean.to(dev), draws.to(dev), scales)
+    counts = _build.launch_counts()
+    check(counts["fog_noise"] == counts["blur_sparse"] == len(scales)
+          and counts["blur_dense"] == 0, f"multiscale mix launched {counts}")
+    lsb = int((bad_gpu.cpu().int() - bad_cpu.int()).abs().max())
+    check(lsb <= 1, f"multiscale mix CUDA vs CPU differs by {lsb} LSB")
+    pair = (timage.to_float01(bad_cpu), timage.to_float01(clean))
+    out = {}
+    for name, r, v, d in (("cpu", r_cpu, v_cpu, torch.device("cpu")),
+                          ("gpu", r_gpu, v_gpu, dev)):
+        loss, _ = common.unified_loss(r, *(t.to(d) for t in pair), 0.1,
+                                      losses.perceptual_features(v))
+        loss.backward()
+        out[name] = loss.item()
+    rel = abs(out["gpu"] - out["cpu"]) / abs(out["cpu"])
+    check(rel <= 1e-5, f"train step loss differs by {rel} relative")
+    worst = _grads_close("train step CUDA vs CPU", r_gpu, r_cpu, 1e-4)
+    stats = 0.0
+    for (n, a), (_, b) in zip(r_cpu.named_buffers(), r_gpu.named_buffers()):
+        if n.endswith(("running_mean", "running_var")):
+            err = (b.cpu() - a).abs().max().item()
+            check(err <= 1e-5 * max(1.0, a.abs().max().item()),
+                  f"train step {n} differs by {err}")
+            stats = max(stats, err)
+    print(f"train-step reference check (fp32, 8x32x32, scales {scales}): mix "
+          f"max {lsb} LSB (tol 1), loss {out['gpu']:.6g} vs "
+          f"{out['cpu']:.6g} ({rel:.3g} relative, tol 1e-5), worst gradient "
+          f"{worst:.3g} of its tensor's largest (tol 1e-4), running stats "
+          f"max diff {stats:.3g} (tol 1e-5)")
+
+
+def train_phase(dev, vgg):
+    """The unified trainer at full width, bf16: ResUNet (64/128/256, 512)
+    from a seed, the frozen ``vgg`` as the perceptual net, a seeded uint8
+    clean set on the card. One warm-up step, then a synchronised window of
+    TRAIN_STEPS steps at TRAIN_BATCH; then REMAT_BATCH with the remat the
+    trainer picks. Launch counts are zeroed just before each trainer call
+    and read just after."""
+    import torch
+    from tsr_tpu_torch import configs, losses
+    from tsr_tpu_torch.kernels import _build
+    from tsr_tpu_torch.models import ResUNet
+    from tsr_tpu_torch.train import common, loops
+    torch.manual_seed(SEED + 2)
+    with torch.device(dev):
+        model = ResUNet((64, 128, 256), 512, dtype="bf16")
+    model = model.to(memory_format=torch.channels_last)
+    vgg_apply = losses.perceptual_features(vgg)
+    cfg = configs.UnifiedTrainConfig(
+        batch_size=TRAIN_BATCH, epochs=1,
+        mix=configs.RandomMixConfig(apply_scales=TRAIN_SCALES))
+    n_clean = max(TRAIN_STEPS * TRAIN_BATCH, REMAT_STEPS * REMAT_BATCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    clean = torch.randint(0, 256, (n_clean + REMAT_BATCH, SIZE, SIZE, 3),
+                          dtype=torch.uint8, device=dev, generator=g)
+    va_idx = torch.arange(n_clean, n_clean + TRAIN_BATCH).numpy()
+    state = common.create_unified_state(model, cfg, TRAIN_STEPS)
+    before = {k: v.clone() for k, v in model.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    quiet = lambda line: None  # noqa: E731
+    n_groups = len(TRAIN_SCALES)
+
+    def fit(cfg, tr_idx, va_idx):
+        _build.reset_launch_counts()
+        _, hist = loops.train_unified_on_device(
+            state, clean, tr_idx, va_idx, cfg, vgg_apply, log=quiet,
+            device=dev)
+        return hist[-1], _build.launch_counts()
+
+    warm, _ = fit(cfg, torch.arange(TRAIN_BATCH).numpy(), va_idx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec, counts = fit(cfg, torch.arange(TRAIN_STEPS * TRAIN_BATCH).numpy(),
+                      va_idx)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    expect = n_groups * (TRAIN_STEPS + 1)  # every train and val batch
+    check(counts["fog_noise"] == counts["blur_sparse"] == expect
+          and counts["blur_dense"] == 0,
+          f"train window launched {counts}, expected {expect} of B1 and B2 "
+          f"({n_groups} groups x ({TRAIN_STEPS} steps + 1 val batch))")
+    losses_all = (warm["step_loss"] + rec["step_loss"] + rec["pixel_loss"]
+                  + rec["perceptual_loss"] + [warm["val_loss"],
+                                              rec["val_loss"]])
+    check(all(math.isfinite(v) for v in losses_all), "finite train losses")
+    after = model.state_dict()
+    moved = {k: not torch.equal(v, after[k]) for k, v in before.items()}
+    check(all(moved.values()), "every parameter and running statistic "
+          f"moved: {[k for k, m in moved.items() if not m]}")
+    check(state.step == TRAIN_STEPS + 1, f"{state.step} steps taken")
+
+    # batch REMAT_BATCH: the trainer picks remat="vgg"; one warm-up step,
+    # then REMAT_STEPS steps
+    big = dataclasses.replace(cfg, batch_size=REMAT_BATCH)
+    remat = loops.auto_remat(big, vgg_apply)
+    check(remat == "vgg", f"auto remat at batch {REMAT_BATCH}: {remat}")
+    va_big = torch.arange(n_clean, n_clean + REMAT_BATCH).numpy()
+    fit(big, torch.arange(REMAT_BATCH).numpy(), va_big)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec_big, counts_big = fit(
+        big, torch.arange(REMAT_STEPS * REMAT_BATCH).numpy(), va_big)
+    peak_big = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(all(math.isfinite(v) for v in rec_big["step_loss"]),
+          "finite batch-128 losses")
+    check(counts_big["fog_noise"] == n_groups * (REMAT_STEPS + 1),
+          f"batch-{REMAT_BATCH} window launched {counts_big}")
+    summary = {
+        "path": "multiscale mix (B1, B2) -> ResUNet train -> L1 + 0.1 VGG "
+                "perceptual -> AdamW cosine", "dtype": "bf16", "size": SIZE,
+        "batch": TRAIN_BATCH, "scales": list(TRAIN_SCALES),
+        "window_steps": TRAIN_STEPS,
+        "images_per_sec": rec["images_per_sec"],
+        "window_seconds": rec["train_seconds"],
+        "first_loss": warm["step_loss"][0], "last_loss": rec["step_loss"][-1],
+        "pixel_loss_last": rec["pixel_loss"][-1],
+        "perceptual_loss_last": rec["perceptual_loss"][-1],
+        "val_loss": rec["val_loss"], "peak_memory_gib": peak,
+        "launches_window": counts, "launches_expected": expect,
+        "params_and_stats_moved": True,
+        "remat_batch": REMAT_BATCH, "remat": remat,
+        "remat_window_steps": REMAT_STEPS,
+        "remat_images_per_sec": rec_big["images_per_sec"],
+        "remat_peak_memory_gib": peak_big,
+        "remat_last_loss": rec_big["step_loss"][-1]}
+    print("train: " + json.dumps(summary))
+
+    # where the device time of one train step goes (diagnostic only)
+    step = common.make_unified_train_step(cfg.mix, cfg.perceptual_weight,
+                                          vgg_apply)
+    batch = clean[:TRAIN_BATCH]
+    breakdown = device_breakdown(lambda: step(
+        state, batch, torch.Generator(device=dev).manual_seed(SEED)))
+    if breakdown is not None:
+        prof_rows, busy, n_kernels, wall, all_rows = breakdown
+        print(f"profile of one train step (batch {TRAIN_BATCH}): device "
+              f"busy {busy:.3f} ms over {wall:.3f} ms wall; {n_kernels} "
+              f"device kernels")
+        print("  by kind (approximate, by kernel name): "
+              + kinds_line(all_rows, busy))
+        for kname, ms, n in prof_rows:
+            print(f"  {ms:8.3f} ms {n:4d}x  {kname[:110]}")
+    return counts
 
 
 def main() -> int:
@@ -486,7 +800,7 @@ def run(dev) -> None:
         breakdown = device_breakdown(fn)
         if breakdown is None:
             break
-        prof_rows, busy, n_kernels, wall = breakdown
+        prof_rows, busy, n_kernels, wall, _ = breakdown
         print(f"profile of one {label} batch: device busy {busy:.3f} ms "
               f"over {wall:.3f} ms wall; {n_kernels} device kernels")
         if label == "random mix":
@@ -496,10 +810,15 @@ def run(dev) -> None:
 
     small_reference_check(dev)
 
+    # -- 4. the unified trainer at full width --------------------------------
+    train_counts = train_phase(dev, judge)
+    small_train_check(dev)
+
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
                "B3": "blur_dense"}[row["name"][:2]]
         row["launches"] = counts[key]
+        row["launches_train"] = train_counts[key]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

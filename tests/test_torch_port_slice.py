@@ -29,6 +29,8 @@ from tsr_tpu_torch.device import resolve_device
 from tsr_tpu_torch.models import ResUNet, VGG16
 from tsr_tpu_torch.ops import distortions as tdist
 from tsr_tpu_torch.ops import image as timage
+from tsr_tpu_torch.train import common as tcommon
+from tsr_tpu_torch.train import loops as tloops
 
 torch.set_num_threads(2)
 HI = jax.lax.Precision.HIGHEST
@@ -271,6 +273,8 @@ def test_import_pulls_in_no_jax():
         "import tsr_tpu_torch, tsr_tpu_torch.eval, tsr_tpu_torch.pipeline\n"
         "import tsr_tpu_torch.checkpoint, tsr_tpu_torch.ops.distortions\n"
         "import tsr_tpu_torch.models, tsr_tpu_torch.kernels._build\n"
+        "import tsr_tpu_torch.losses, tsr_tpu_torch.train.common\n"
+        "import tsr_tpu_torch.train.loops\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tsr_tpu')]\n"
         "assert not bad, bad\n"
@@ -285,6 +289,7 @@ def _entry_points():
     img = np.zeros((2, 32, 32, 3), np.uint8)
     tr = ResUNet(widths=(8, 16, 32), bottleneck_width=64)
     tj = VGG16(num_classes=5, cfg=SMALL_CFG, fc_width=32, input_size=32)
+    train_cfg = configs.UnifiedTrainConfig(batch_size=2, epochs=1)
     return {
         "apply_random_distortions": lambda: tdist.apply_random_distortions(
             img, torch.Generator()),
@@ -292,6 +297,11 @@ def _entry_points():
         "evaluate_batches": lambda: teval.evaluate_batches(
             lambda *a: None, [(img, np.zeros(2))]),
         "unified_demo": lambda: tpipeline.unified_demo(img, tr, tj),
+        "make_training_pair": lambda: tdist.make_training_pair(
+            img, torch.Generator()),
+        "train_unified_on_device": lambda: tloops.train_unified_on_device(
+            tcommon.create_unified_state(tr, train_cfg, 1), img,
+            np.arange(2), np.arange(2), train_cfg),
     }
 
 
@@ -324,6 +334,12 @@ def test_configs_match_jax():
     assert configs.EvalConfig().batch_size == jconfigs.EvalConfig().batch_size
     for ours, ref in ((configs.CompoundConfig(), jconfigs.CompoundConfig()),
                       (configs.RandomMixConfig(),
-                       jconfigs.RandomMixConfig())):
+                       jconfigs.RandomMixConfig()),
+                      (configs.UnifiedTrainConfig(),
+                       jconfigs.UnifiedTrainConfig()),
+                      (configs.UnifiedTrainConfig().mix,
+                       jconfigs.UnifiedTrainConfig().mix)):
         for k, v in vars(ours).items():
-            assert getattr(ref, k) == v, k
+            if k != "mix":  # compared field by field as its own pair
+                assert getattr(ref, k) == v, k
+    assert configs.UnifiedTrainConfig().mix.apply_scales == (40, 56, 80, 112)

@@ -1,9 +1,10 @@
 """tsr_tpu_torch — the PyTorch/CUDA port of tsr_tpu for NVIDIA Hopper.
 
 The port mirrors the JAX package's module names (``ops/image.py``,
-``ops/blur.py``, ``ops/distortions.py``, ``models/``, ``eval.py``,
-``pipeline.py``) so each module's counterpart is easy to find. It imports
-torch and numpy only: nothing of JAX and nothing of ``tsr_tpu``.
+``ops/blur.py``, ``ops/distortions.py``, ``models/``, ``losses.py``,
+``train/``, ``eval.py``, ``pipeline.py``) so each module's counterpart is
+easy to find. It imports torch and numpy only: nothing of JAX and nothing
+of ``tsr_tpu``.
 
 Every TPU kernel of the JAX package has a hand-written CUDA C++ kernel
 for ``sm_90a`` here (``kernels/csrc``), built with ``nvcc`` on first use.

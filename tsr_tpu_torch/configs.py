@@ -1,8 +1,9 @@
-"""Configuration constants and presets the serving slice needs.
+"""Configuration constants and presets the port needs.
 
 The port's own copy of ``tsr_tpu/configs.py`` (image size, class count,
-ImageNet statistics, the compound chain, the random mix and the eval
-batch), with the reference scripts' values as defaults.
+ImageNet statistics, the compound chain, the random mix, the unified
+trainer and the eval batch), with the reference scripts' values as
+defaults.
 """
 
 from __future__ import annotations
@@ -41,6 +42,31 @@ class RandomMixConfig:
     noise_var: Tuple[float, float] = (0.01, 0.03)     # ref:14:47
     blur_degree: Tuple[int, int] = (5, 15)            # ref:14:54 (inclusive)
     blur_angle: Tuple[int, int] = (0, 360)            # ref:14:55 (inclusive)
+    # Emulated native resolutions for distortion application. The reference
+    # distorts native images BEFORE Resize(224) (ref:14:79-92), so blur
+    # radius / noise grain scale with the upsample factor. The default ()
+    # means no emulation (distort at the stored resolution);
+    # UnifiedTrainConfig.mix enables (40, 56, 80, 112), spanning the
+    # stand-in's (and GTSRB's) native crop sizes.
+    apply_scales: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class UnifiedTrainConfig:
+    """Unified ResUNet on dynamic mixed distortions (ref:14:14-27, 219-223)."""
+    batch_size: int = 16
+    epochs: int = 25
+    learning_rate: float = 2e-4
+    weight_decay: float = 1e-4
+    perceptual_weight: float = 0.1   # ref:14:242
+    train_split: float = 0.95        # ref:14:209-211
+    cosine_t_max: int = 25           # ref:14:223
+    # native-resolution emulation ON for unified training (ref:14 distorts
+    # native files; the stand-in ships 40-104 px crops)
+    mix: RandomMixConfig = dataclasses.field(
+        default_factory=lambda: RandomMixConfig(
+            apply_scales=(40, 56, 80, 112)))
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,7 +7,9 @@ when channels change, fused by ReLU(a+b)) at ``widths``, a
 ``bottleneck`` of three blocks, ConvTranspose(k=2, s=2) upsampling and
 channel-concat skips. The reference's ``F.interpolate`` shape fix before
 each concat is a no-op at spatial sizes divisible by 8, which the
-forward checks instead.
+forward checks instead. In train mode its batch norms normalize with batch
+statistics and update their running statistics by Flax's rule
+(``models/layers.py``).
 """
 
 from __future__ import annotations

@@ -21,6 +21,8 @@ from tsr_tpu_torch.models.layers import BatchNorm2d, Conv2d, Linear
 VGG16_CFG: Tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
                     512, 512, 512, "M", 512, 512, 512, "M")
 
+PERCEPTUAL_TAP = 15   # end of features[:16] == relu3_3 (ref:07adv:102-103)
+
 
 class VGG16(nn.Module):
     """VGG16-D with a classifier head.
@@ -101,3 +103,12 @@ class VGG16(nn.Module):
         if return_features:
             return logits, feats.to(orig_dtype)
         return logits
+
+
+def feature_slice_apply(vgg: VGG16, x: torch.Tensor,
+                        upto: int = PERCEPTUAL_TAP + 1) -> torch.Tensor:
+    """Run ``features[:upto]`` (plain-vgg16 torch indexing), i.e. tap at
+    ``upto - 1`` translated for batch-norm variants by ``tap_index``. The
+    perceptual loss uses ``upto=16`` (ref:07adv:102-103). The module's own
+    mode (eval for a frozen net) decides its batch norms' statistics."""
+    return vgg(x, tap_layer=vgg.tap_index(upto - 1))

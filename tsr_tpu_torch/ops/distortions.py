@@ -1,10 +1,12 @@
-"""Batched distortion simulators for the serving slice.
+"""Batched distortion simulators for the serving and training slices.
 
-Port of the random mix and the demo's compound chain of
-``tsr_tpu/ops/distortions.py``:
+Port of the random mix, its multiscale training form and the demo's
+compound chain of ``tsr_tpu/ops/distortions.py``:
 
 - per-sample random mix (ref:14:31-64, Fog -> Noise -> Blur, p=0.5 each),
   on kernels B1 (fog + noise) and B2/B3 (blur);
+- the same mix at emulated native resolutions, and the training pair built
+  from it (ref:14:75-93);
 - demo compound chain (ref:15:93-120, Fog -> Noise -> Blur).
 
 Public functions take uint8 ``[B, H, W, C]`` batches (a single ``[H, W,
@@ -18,7 +20,7 @@ inject the JAX reference's draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,7 +43,7 @@ class MixDraws:
     gate_blur: torch.Tensor   # bool
     degrees: torch.Tensor     # int blur length
     angles: torch.Tensor      # float32 blur angle, degrees
-    seed: torch.Tensor        # int64 [1]: keys B1's noise stream
+    seed: torch.Tensor        # int64 [S]: each keys one B1 noise stream
     atmosphere: float = 0.9
 
     def to(self, device) -> "MixDraws":
@@ -49,12 +51,19 @@ class MixDraws:
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self) if f.name != "atmosphere"})
 
+    def group(self, start: int, stop: int, index: int) -> "MixDraws":
+        """Samples ``start:stop``, their noise keyed by seed ``index``."""
+        return dataclasses.replace(self, seed=self.seed[index:index + 1], **{
+            f.name: getattr(self, f.name)[start:stop]
+            for f in dataclasses.fields(self)
+            if f.name not in ("seed", "atmosphere")})
+
 
 def draw_random_mix(batch: int, generator: torch.Generator,
-                    cfg: configs.RandomMixConfig = configs.RandomMixConfig()
-                    ) -> MixDraws:
+                    cfg: configs.RandomMixConfig = configs.RandomMixConfig(),
+                    n_seeds: int = 1) -> MixDraws:
     """Per-sample gates and parameters (ref:14:38-55), drawn on the
-    generator's device."""
+    generator's device, with ``n_seeds`` noise seeds (one per B1 call)."""
     dev = generator.device
 
     def uniform(lo=0.0, hi=1.0):
@@ -69,7 +78,7 @@ def draw_random_mix(batch: int, generator: torch.Generator,
     t = 1.0 - uniform(*cfg.fog_intensity) * uniform(*cfg.fog_t_jitter)
     gate_noise = uniform() < cfg.prob_noise
     sigma = torch.sqrt(uniform(*cfg.noise_var))
-    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+    seed = torch.randint(0, 2 ** 31 - 1, (n_seeds,), generator=generator,
                          device=dev)
     gate_blur = uniform() < cfg.prob_blur
     degrees = randint(*cfg.blur_degree)
@@ -79,7 +88,8 @@ def draw_random_mix(batch: int, generator: torch.Generator,
 
 
 def random_mix_from_draws(images_u8: torch.Tensor, draws: MixDraws,
-                          noise: Optional[torch.Tensor] = None
+                          noise: Optional[torch.Tensor] = None,
+                          kernels: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """The random mix's math for given draws: B1 (fog + noise + pre-blur
     round-trip) -> per-sample blur (B2, or B3 after
@@ -88,14 +98,16 @@ def random_mix_from_draws(images_u8: torch.Tensor, draws: MixDraws,
     its store; on the CPU they are ``kernels.blur.random_mix_epilogue_plain``.
 
     ``noise`` (CPU only) is a pre-drawn N(0,1) field; without it the noise
-    comes from B1's Philox stream keyed by ``draws.seed``.
+    comes from B1's Philox stream keyed by ``draws.seed[0]``. ``kernels``
+    are the draws' motion kernels when the caller has built them already.
     """
     f, pre_blur = distort_kernels.fused_fog_noise(
-        images_u8, draws.seed, draws.gate_fog.to(torch.int32), draws.t,
+        images_u8, draws.seed[:1], draws.gate_fog.to(torch.int32), draws.t,
         draws.gate_noise.to(torch.int32), draws.sigma,
         atmosphere=draws.atmosphere, noise=noise)
-    kernels = blur_ops.motion_blur_kernels(draws.degrees, draws.angles,
-                                           max_degree=MAX_BLUR_DEGREE)
+    if kernels is None:
+        kernels = blur_ops.motion_blur_kernels(draws.degrees, draws.angles,
+                                               max_degree=MAX_BLUR_DEGREE)
     return blur_ops.filter2d(pre_blur, kernels, f=f,
                              gate_blur=draws.gate_blur)
 
@@ -120,6 +132,95 @@ def apply_random_distortions(
     draws = draw_random_mix(x.shape[0], generator, cfg).to(device)
     out = random_mix_from_draws(x, draws)
     return out[0] if squeeze else out
+
+
+def scale_groups(batch: int, scales: Sequence[int]
+                 ) -> List[Tuple[int, int, int, int]]:
+    """``(index, start, stop, scale)`` of each non-empty group: ``batch //
+    len(scales)`` samples each by position, the last taking the remainder
+    (ref ``apply_random_distortions_multiscale``)."""
+    n_g = len(scales)
+    g = batch // n_g
+    groups = []
+    for i, s in enumerate(scales):
+        n = g + (batch - g * n_g if i == n_g - 1 else 0)
+        if n:
+            groups.append((i, i * g, i * g + n, s))
+    return groups
+
+
+def random_mix_multiscale_from_draws(
+        images_u8: torch.Tensor, draws: MixDraws, scales: Sequence[int],
+        noise: Optional[Sequence[Optional[torch.Tensor]]] = None
+        ) -> torch.Tensor:
+    """The multiscale mix's math for given draws: each group of
+    :func:`scale_groups` is downsampled to its scale (``resize_linear``,
+    then ``clip01_to_uint8``), put through :func:`random_mix_from_draws`,
+    and upsampled back; a scale at or above the batch's size distorts the
+    group as it is.
+
+    ``draws`` cover the whole batch, with one seed per scale (group ``i``
+    keys B1's noise with ``draws.seed[i]``); the motion kernels are built
+    once for the batch and sliced. ``noise`` (CPU only) holds one N(0,1)
+    field per scale, at that scale (``None`` for an empty group).
+    """
+    h, w = images_u8.shape[1:3]
+    kernels = blur_ops.motion_blur_kernels(draws.degrees, draws.angles,
+                                           max_degree=MAX_BLUR_DEGREE)
+    outs = []
+    for i, start, stop, s in scale_groups(images_u8.shape[0], scales):
+        sub = images_u8[start:stop]
+        args = (draws.group(start, stop, i), None if noise is None
+                else noise[i], kernels[start:stop])
+        if s >= h:
+            outs.append(random_mix_from_draws(sub, *args))
+            continue
+        small = image_ops.resize_linear(image_ops.to_float01(sub), s)
+        bad = random_mix_from_draws(
+            image_ops.clip01_to_uint8(small).contiguous(), *args)
+        up = image_ops.resize_linear(image_ops.to_float01(bad), (h, w))
+        outs.append(image_ops.clip01_to_uint8(up))
+    return torch.cat(outs, dim=0)
+
+
+def apply_random_distortions_multiscale(
+        images_u8, generator: torch.Generator,
+        cfg: configs.RandomMixConfig, device="cuda") -> torch.Tensor:
+    """Random mix applied at emulated native resolutions (ref:14:79-92
+    distorts the native file before its resize to 224).
+
+    The batch splits into ``len(cfg.apply_scales)`` groups by position
+    (training batches arrive freshly permuted, so per-sample scales are
+    effectively random); each is downsampled to its scale, distorted there
+    with the uint8 round-trip kept, and upsampled back. The gates and
+    parameters of the whole batch are drawn once from ``generator``, so
+    the mix runs B1 and B2 once per group.
+    """
+    device = resolve_device(device)
+    x, squeeze = _batched(images_u8, device)
+    draws = draw_random_mix(x.shape[0], generator, cfg,
+                            n_seeds=len(cfg.apply_scales)).to(device)
+    out = random_mix_multiscale_from_draws(x, draws, cfg.apply_scales)
+    return out[0] if squeeze else out
+
+
+def make_training_pair(
+        clean_u8, generator: torch.Generator,
+        cfg: configs.RandomMixConfig = configs.RandomMixConfig(),
+        device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(clean uint8 batch, generator) -> (bad float01, clean float01), both
+    ``[B, H, W, C]`` on ``device``: the on-device counterpart of the
+    reference's ``DynamicDistortionDataset.__getitem__`` (ref:14:75-93).
+    With ``cfg.apply_scales`` set the mix runs at emulated native
+    resolutions (:func:`apply_random_distortions_multiscale`)."""
+    device = resolve_device(device)
+    clean = as_tensor(clean_u8, device)
+    if cfg.apply_scales:
+        bad = apply_random_distortions_multiscale(clean, generator, cfg,
+                                                  device)
+    else:
+        bad = apply_random_distortions(clean, generator, cfg, device)
+    return image_ops.to_float01(bad), image_ops.to_float01(clean)
 
 
 def make_compound_distortion(

@@ -1,4 +1,5 @@
-"""Image dtype round-trips, normalization and quality metrics (NHWC).
+"""Image dtype round-trips, resizing, normalization and quality metrics
+(NHWC).
 
 Port of ``tsr_tpu/ops/image.py``. The reference round-trips through uint8
 between distortion stages with numpy-cast semantics (truncation toward
@@ -50,6 +51,19 @@ def saturate_uint8(x: torch.Tensor, round: bool = False) -> torch.Tensor:
 def clip01_to_uint8(x01: torch.Tensor) -> torch.Tensor:
     """``np.clip(x*255, 0, 255).astype(np.uint8)`` (ref:04:30, 14:64, 16:37)."""
     return saturate_uint8(scale255(x01), round=False)
+
+
+def resize_linear(x: torch.Tensor, size) -> torch.Tensor:
+    """``jax.image.resize(x, ..., "linear")`` on a float ``[B, H, W, C]``
+    batch: bilinear with half-pixel centres, and a triangle filter widened
+    by the scale when downsampling (antialiasing), which is what
+    ``antialias=True`` selects here; without it a downsample differs by
+    0.3-0.5. ``size`` is an int (square) or ``(height, width)``."""
+    if isinstance(size, int):
+        size = (size, size)
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size),
+                        mode="bilinear", align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
 
 
 def imagenet_normalize(x01: torch.Tensor) -> torch.Tensor:
