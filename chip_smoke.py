@@ -35,8 +35,20 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    must be one per scale group per train or validation batch), then
    REMAT_BATCH with the remat the trainer picks (``"vgg"``). A profiled
    train step, and one small train step on CUDA vs the CPU's plain path.
-5. One JSON line of the kernels, the card's line, and the final
-   ``{"ok": true, ...}`` line.
+5. The file-tree pipeline at full width (``trees_phase``), in a
+   temporary directory: a seeded clean tree of TREE_IMAGES .ppm files at
+   GTSRB's native sizes; ``offline.generate_tree`` for each of the seven
+   kinds at batch TREE_BATCH (B3 for blur and compound, B2 for blur_rand;
+   launch counts zeroed just before each call and read just after); B2/B3
+   held against their plain versions at every bucket shape, three shapes
+   a kind timed; the blur tree made on the card and on the CPU, compared
+   file by file; ``infer.restore_tree`` with device and host resize (PNG
+   round trip, metrics, host time by stage, the device's busy share);
+   ``eval.evaluate_directory`` with host resize, then device resize twice;
+   the device resize alone per canvas, against the CPU's.
+6. One JSON line of the kernels (with ``launches_trees`` and
+   ``tree_shapes``), the card's line, and the final ``{"ok": true, ...}``
+   line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -61,6 +73,16 @@ NOISE_SE = 8                 # B1 noise statistics: tolerance in std errors
 TRAIN_BATCH, TRAIN_SCALES = 16, (40, 56, 80, 112)
 TRAIN_STEPS = 20             # the timed window, after one warm-up step
 REMAT_BATCH, REMAT_STEPS = 128, 3   # auto-selected remat="vgg"
+# the trees phase: a seeded clean tree at GTSRB's native sizes
+TREE_CLASSES, TREE_IMAGES = 43, 1344   # 21 restore batches of 64
+TREE_BATCH = 256             # generate_tree's default batch
+# (share, least side, largest side) of the clean tree's native sizes: most
+# 25-64 px, some 65-192, a few device-resized in the 224 bucket, a few
+# host-resized (a side >= 224)
+TREE_SIDES = ((0.78, 25, 64), (0.16, 65, 192), (0.03, 193, 223),
+              (0.03, 224, 260))
+BLUR_CPU_FILES = 96          # the blur tree made on the card and the CPU
+RESIZE_CANVASES = (64, 128, 192, 224)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published peak
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 
@@ -653,6 +675,417 @@ def train_phase(dev, vgg):
     return counts
 
 
+def write_clean_tree(root):
+    """TREE_IMAGES seeded images in TREE_CLASSES class folders as .ppm
+    (the port's writer), native sides drawn from TREE_SIDES, often not
+    square: a coarse random field upsampled plus grain. Returns the
+    ``(h, w)`` of each file, in file order."""
+    import numpy as np
+    from tsr_tpu_torch import native
+    rng = np.random.default_rng(SEED)
+    shares = [s for s, _, _ in TREE_SIDES]
+    paths, images = [], []
+    for i in range(TREE_IMAGES):
+        _, lo, hi = TREE_SIDES[rng.choice(len(TREE_SIDES), p=shares)]
+        h = int(rng.integers(lo, hi + 1))
+        w = int(np.clip(round(h * rng.uniform(0.8, 1.25)), lo, hi))
+        coarse = rng.integers(0, 256, (h // 8 + 1, w // 8 + 1, 3))
+        img = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:h, :w]
+        img = np.clip(img + rng.integers(-20, 21, img.shape), 0, 255)
+        cls = root / f"{i % TREE_CLASSES:05d}"
+        cls.mkdir(parents=True, exist_ok=True)
+        paths.append(str(cls / f"{i // TREE_CLASSES:05d}.ppm"))
+        images.append(img.astype(np.uint8))
+    native.write_images(paths, images)
+    order = sorted(range(TREE_IMAGES), key=lambda i: paths[i])
+    return [images[i].shape[:2] for i in order]
+
+
+def tree_buckets(sides, halo):
+    """``{(bh, bw): images}`` of generate_tree's buckets for natives
+    ``sides``."""
+    from tsr_tpu_torch import offline
+    seen = {}
+    for h, w in sides:
+        b = (offline._bucket_with_room(h, halo),
+             offline._bucket_with_room(w, halo))
+        seen[b] = seen.get(b, 0) + 1
+    return seen
+
+
+def check_blur_at_buckets(dev, clean_dir, rows):
+    """B3 (blur's shared K=12, compound's shared K=10) and B2 (blur_rand's
+    per-sample K=15) on the first padded batch of each of their buckets,
+    against filter2d_plain on the same batch: max error < 1e-3, and the
+    uint8 after cvRound/saturate compared value by value. Three shapes a
+    kind are timed beside their bound and their plain version: the batch
+    with the most pixels, the smallest canvas and the largest. Adds
+    ``tree_times`` to the B2 and B3 rows."""
+    import torch
+    from tsr_tpu_torch import offline
+    from tsr_tpu_torch.kernels import blur as kblur
+    from tsr_tpu_torch.ops import blur as tblur
+    from tsr_tpu_torch.ops import distortions
+    files = offline.tree_files(str(clean_dir))
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows[1]["tree_times"], rows[2]["tree_times"] = {}, {}
+    for kind, row, fn in (("blur", rows[2], kblur.filter2d_dense),
+                          ("compound", rows[2], kblur.filter2d_dense),
+                          ("blur_rand", rows[1], kblur.filter2d_sparse)):
+        firsts = {}
+        for bucket, _, batch in offline.bucketed_batches(
+                files, TREE_BATCH, offline.HALO[kind]):
+            firsts.setdefault(bucket, batch)
+        held = []
+        for batch in firsts.values():
+            x = torch.from_numpy(batch).to(dev).to(torch.float32)
+            b = x.shape[0]
+            if kind == "blur_rand":
+                k = distortions.MAX_BLUR_DEGREE
+                kerns = tblur.motion_blur_kernels(
+                    torch.randint(4, k + 1, (b,), generator=g, device=dev),
+                    torch.rand(b, generator=g, device=dev) * 360.0, k)
+            else:
+                k = 12 if kind == "blur" else 10
+                kerns = tblur.motion_blur_kernel(
+                    k, 45.0, max_degree=k, device=dev).expand(b, k, k)
+            got = fn(x, kerns)
+            ref = kblur.filter2d_plain(x, kerns)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            n_u8 = int((torch.round(got).clamp(0, 255)
+                        != torch.round(ref).clamp(0, 255)).sum())
+            check(err < 1e-3, f"{row['name']} at {list(x.shape)} K={k} "
+                  f"({kind}) max err {err} >= 1e-3")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            held.append((x, kerns, k, err, n_u8))
+        print(f"{row['name']} {kind}: held at the first batch of each of "
+              f"{len(held)} buckets (K={held[0][2]}): max err "
+              f"{max(e for *_, e, _ in held):.3g} (tol 1e-3), cvRound/"
+              f"saturate differs at {sum(n for *_, n in held)} of "
+              f"{sum(x.numel() for x, *_ in held)} values")
+        timed = {id(h): h for h in (
+            max(held, key=lambda h: h[0].numel()),
+            min(held, key=lambda h: h[0].shape[1] * h[0].shape[2]),
+            max(held, key=lambda h: h[0].shape[1] * h[0].shape[2]))}
+        for x, kerns, k, err, n_u8 in timed.values():
+            b, h, w, c = x.shape
+            flops = (2 * int((kerns != 0).sum()) * h * w * c
+                     if kind == "blur_rand" else 2 * k * k * x.numel())
+            ms = cuda_ms(lambda: fn(x, kerns))
+            plain = cuda_ms(lambda: kblur.filter2d_plain(x, kerns))
+            t_b, by = bound(2 * x.numel() * 4 + b * k * k * 4, flops)
+            row["tree_times"][f"{kind} {b}x{h}x{w}x{c} K={k}"] = dict(
+                max_abs_err=err, u8_differ=n_u8, ms=ms, plain_ms=plain,
+                bound_ms=t_b, bound_by=by)
+            print(f"  {kind} {list(x.shape)} K={k}: {ms:.4f} ms, bound "
+                  f"{t_b:.5f} ms ({by}), plain {plain:.4f} ms")
+
+
+def blur_tree_card_vs_cpu(dev, clean_dir, work):
+    """The deterministic blur kind over BLUR_CPU_FILES files of the tree,
+    on the card (B3) and on the CPU (plain versions): the files compared
+    value by value. A blur value at a cvRound tie may round the other way
+    where float32 sums differ in order, and the min-max epilogue magnifies
+    such a difference; the differences are counted."""
+    import numpy as np
+    from tsr_tpu_torch import native, offline
+    files = offline.tree_files(str(clean_dir))[:BLUR_CPU_FILES]
+    sub = work / "blur_subset"
+    for p in files:
+        dst = sub / p.relative_to(clean_dir)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(p.read_bytes())
+    quiet = lambda line: None  # noqa: E731
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        offline.generate_tree(str(sub), str(work / f"blur_{name}"), "blur",
+                              seed=SEED, batch_size=TREE_BATCH, log=quiet,
+                              device=d)
+    n_files = n_vals = n_diff = max_diff = files_diff = 0
+    for p in offline.tree_files(str(work / "blur_card")):
+        rel = p.relative_to(work / "blur_card")
+        a = native.decode(str(p)).astype(int)
+        b = native.decode(str(work / "blur_cpu" / rel)).astype(int)
+        d = np.abs(a - b)
+        n_files += 1
+        n_vals += d.size
+        n_diff += int((d > 0).sum())
+        files_diff += int(d.max() > 0)
+        max_diff = max(max_diff, int(d.max()))
+    check(n_files == len(files), f"blur subset wrote {n_files} files")
+    check(n_diff <= 1e-3 * n_vals,
+          f"blur tree card vs CPU: {n_diff} of {n_vals} values differ")
+    print(f"blur tree card vs CPU ({n_files} files): {files_diff} files "
+          f"differ, {n_diff} of {n_vals} values, max {max_diff} LSB after "
+          f"the min-max epilogue (tol: under 0.1 % of values)")
+    return dict(files=n_files, files_differ=files_diff, values=n_vals,
+                values_differ=n_diff, max_lsb=max_diff)
+
+
+def preds_by_file(step, data_dir, resize, dev):
+    """Per-file predictions of the fused step over ``data_dir``, in file
+    order, through the same loaders as ``evaluate_directory``."""
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import infer
+    from tsr_tpu_torch.data import gtsrb
+    ds = gtsrb.ImageFolder(str(data_dir), size=SIZE)
+    paths = [p for p, _ in ds.samples]
+    labels = np.asarray([lab for _, lab in ds.samples])
+    preds = np.full(len(paths), -1)
+    if resize == "host":
+        for s in range(0, len(paths), BATCH):
+            imgs, labs = ds.load_batch(np.arange(s, min(s + BATCH,
+                                                        len(paths))))
+            preds[s:s + len(labs)] = step(imgs, labs)["pred"].cpu().numpy()
+    else:
+        for padded, sizes, _, idxs in infer.native_batches(
+                paths, SIZE, BATCH, pad_batch=False, device=dev):
+            out = step((padded, sizes), torch.from_numpy(labels[idxs]))
+            preds[idxs] = out["pred"].cpu().numpy()
+    check((preds >= 0).all(), "a prediction for every file")
+    return preds
+
+
+def png_round_trip(dev, resunet, bad_dir, out_dir, resize):
+    """The first batch of a restore walk rebuilt as ``restore_tree`` builds
+    it and restored again; the PNGs the walk wrote for those files, decoded
+    back, must equal it exactly. Returns (files compared, the batch's
+    restore-step device ms)."""
+    import numpy as np
+    from tsr_tpu_torch import infer, native, offline
+    from tsr_tpu_torch.data import gtsrb
+    files = offline.tree_files(str(bad_dir))
+    if resize == "device":
+        step = infer.make_native_restore_step(resunet, SIZE, device=dev)
+        walk = infer.native_batches([str(p) for p in files], SIZE, BATCH,
+                                    device=dev)
+        padded, sizes, _, idxs = next(walk)
+        walk.close()  # stops its producer thread
+        out = step(padded, sizes)[:len(idxs)].cpu().numpy()
+        ms = cuda_ms(lambda: step(padded, sizes), iters=5, warmup=1)
+    else:
+        step = infer.make_restore_step(resunet, device=dev)
+        idxs = list(range(BATCH))
+        batch = gtsrb._decode_resize_batch([str(files[i]) for i in idxs],
+                                           SIZE)
+        out = step(batch).cpu().numpy()
+        ms = cuda_ms(lambda: step(batch), iters=5, warmup=1)
+    for j, i in enumerate(idxs):
+        png = (out_dir / files[i].relative_to(bad_dir)).with_suffix(".png")
+        check(np.array_equal(native.decode(str(png)), out[j]),
+              f"{resize} walk's PNG {png} differs from the device output")
+    return len(idxs), ms
+
+
+def resize_numbers(dev, resunet, judge):
+    """resize_from_padded at B=64 on each canvas of RESIZE_CANVASES: card
+    ms beside its bytes bound, the card against the CPU on the same inputs,
+    and the fused native-size step's images/s on that canvas."""
+    import torch
+    from tsr_tpu_torch import configs
+    from tsr_tpu_torch import eval as teval
+    from tsr_tpu_torch.ops import image as timage
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    step = teval.make_fused_eval_step(resunet, judge, native_size=SIZE,
+                                      device=dev)
+    labels = torch.randint(0, configs.NUM_CLASSES, (BATCH,), device=dev,
+                           generator=g)
+    out = {}
+    for canvas in RESIZE_CANVASES:
+        padded = torch.randint(0, 256, (BATCH, canvas, canvas, 3),
+                               dtype=torch.uint8, device=dev, generator=g)
+        # natives that native_batches puts on this canvas
+        lo = max([c for c in RESIZE_CANVASES if c < canvas], default=0) + 1
+        sizes = torch.randint(lo, canvas + 1, (BATCH, 2), device=dev,
+                              generator=g, dtype=torch.int32)
+        got = timage.resize_from_padded(padded, sizes, SIZE)
+        ref = timage.resize_from_padded(padded.cpu(), sizes.cpu(), SIZE)
+        d = (got.cpu().int() - ref.int()).abs()
+        lsb, share = int(d.max()), float((d > 0).float().mean())
+        check(lsb <= 1, f"resize_from_padded card vs CPU {lsb} LSB at "
+              f"canvas {canvas}")
+        ms = cuda_ms(lambda: timage.resize_from_padded(padded, sizes, SIZE))
+        t_b, by = bound(padded.numel() + sizes.numel() * 4 + got.numel(),
+                        6 * got.numel())
+        step_ms = cuda_ms(lambda: step((padded, sizes), labels), iters=5,
+                          warmup=2)
+        ips = BATCH / step_ms * 1e3
+        out[canvas] = dict(resize_ms=ms, bound_ms=t_b, bound_by=by,
+                           card_vs_cpu_max_lsb=lsb,
+                           card_vs_cpu_share_differ=share,
+                           fused_native_images_per_sec=ips)
+        print(f"resize_from_padded [{BATCH}, {canvas}, {canvas}, 3] -> "
+              f"{SIZE}: {ms:.4f} ms, bound {t_b:.5f} ms ({by}); card vs "
+              f"CPU max {lsb} LSB (tol 1), {share:.3g} of values differ; "
+              f"fused native step {ips:.1f} images/s")
+    return out
+
+
+def trees_phase(dev, resunet, judge, rows, fused_ips):
+    """Phase 5: the file-tree pipeline at full width. A seeded clean tree;
+    generate_tree for each of the seven kinds (B3 for blur and compound, B2
+    for blur_rand, launch counts zeroed just before each call and read just
+    after); the blur kernels held at every bucket shape; the blur tree on
+    the card against the CPU; restore_tree (device and host resize) and
+    evaluate_directory (host and device) on the compound tree; the device
+    resize alone; where the walk's time goes. Returns the B2/B3 launches of
+    the generate_tree runs and the buckets each ran at."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import eval as teval
+    from tsr_tpu_torch import infer, native, offline
+    from tsr_tpu_torch.kernels import _build
+    quiet = lambda line: None  # noqa: E731
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trees_") as tmp:
+        work = Path(tmp)
+        clean = work / "clean"
+        t0 = time.perf_counter()
+        sides = write_clean_tree(clean)
+        print(f"clean tree: {TREE_IMAGES} .ppm files in {TREE_CLASSES} "
+              f"classes, written in {time.perf_counter() - t0:.2f} s; "
+              f"max side <= 64: {sum(max(s) <= 64 for s in sides)}, 65-192: "
+              f"{sum(64 < max(s) <= 192 for s in sides)}, 193-223: "
+              f"{sum(192 < max(s) < 224 for s in sides)}, >= 224: "
+              f"{sum(max(s) >= 224 for s in sides)}; non-square "
+              f"{sum(h != w for h, w in sides)}")
+
+        launches = {"blur_sparse": 0, "blur_dense": 0, "fog_noise": 0}
+        shapes = {"blur_sparse": set(), "blur_dense": set()}
+        gen = {}
+        for kind in offline.KINDS:
+            buckets = tree_buckets(sides, offline.HALO.get(kind, 0))
+            n_batches = sum(-(-n // TREE_BATCH) for n in buckets.values())
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            n = offline.generate_tree(str(clean), str(work / kind), kind,
+                                      seed=SEED, batch_size=TREE_BATCH,
+                                      log=quiet, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            check(n == TREE_IMAGES, f"{kind} wrote {n} images")
+            want = {"blur_dense": n_batches if kind in ("blur", "compound")
+                    else 0,
+                    "blur_sparse": n_batches if kind == "blur_rand" else 0,
+                    "fog_noise": 0}
+            check(counts == want, f"{kind} launched {counts}, expected "
+                  f"{want}")
+            for k, v in counts.items():
+                launches[k] += v
+                if v:
+                    shapes[k].update(f"{bh}x{bw}" for bh, bw in buckets)
+            gen[kind] = dict(images_per_sec=n / dt, seconds=dt,
+                             batches=n_batches, launches=counts,
+                             buckets={f"{bh}x{bw}": m for (bh, bw), m
+                                      in sorted(buckets.items())})
+            print(f"generate_tree {kind}: {n / dt:.1f} images/s ({dt:.3f} "
+                  f"s), {n_batches} batches, B2 {counts['blur_sparse']} / "
+                  f"B3 {counts['blur_dense']} launches; buckets "
+                  + json.dumps(gen[kind]["buckets"]))
+        check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
+              "B2 and B3 launched on the trees path")
+
+        check_blur_at_buckets(dev, clean, rows)
+        blur_cpu = blur_tree_card_vs_cpu(dev, clean, work)
+
+        bad = work / "compound"
+        walks = {}
+        for resize in ("device", "host"):
+            out = work / f"restored_{resize}"
+            _build.reset_launch_counts()
+            res = infer.restore_tree(resunet, str(bad), str(out),
+                                     clean_dir=str(clean), batch_size=BATCH,
+                                     size=SIZE, resize=resize, log=quiet,
+                                     device=dev)
+            written = len(list(out.glob("*/*.png")))
+            check(res["images"] == written == TREE_IMAGES,
+                  f"restore_tree {resize}: {res['images']} images, "
+                  f"{written} files")
+            check(math.isfinite(res["psnr"]) and 0 <= res["ssim"] <= 1,
+                  f"restore_tree {resize} metrics finite")
+            check(sum(_build.launch_counts().values()) == 0,
+                  "restore_tree launches no blur or B1 kernel")
+            n_png, step_ms = png_round_trip(dev, resunet, bad, out, resize)
+            res["png_round_trip_files"] = n_png
+            res["step_ms_first_batch"] = step_ms
+            res["device_busy_share"] = (step_ms * res["batches"]
+                                        / (res["seconds"] * 1e3))
+            walks[resize] = res
+            print(f"restore_tree resize={resize}: {res['images_per_sec']:.1f}"
+                  f" images/s ({res['seconds']:.3f} s, {res['batches']} "
+                  f"batches), {written} files, PSNR {res['psnr']:.4f} dB, "
+                  f"SSIM {res['ssim']:.5f}; PNG round trip exact on "
+                  f"{n_png} files; restore step {step_ms:.3f} ms a batch, "
+                  f"device busy about {100 * res['device_busy_share']:.1f} % "
+                  f"of the walk; host seconds by stage (summed over "
+                  f"threads) " + json.dumps(res["host_seconds"]))
+        n_px = n_diff = max_diff = 0
+        for p in (work / "restored_device").glob("*/*.png"):
+            a = native.decode(str(p)).astype(int)
+            b = native.decode(str(work / "restored_host"
+                                  / p.relative_to(work / "restored_device"))
+                              ).astype(int)
+            d = np.abs(a - b)
+            n_px += d.size
+            n_diff += int((d > 0).sum())
+            max_diff = max(max_diff, int(d.max()))
+        modes_share = n_diff / n_px
+        print(f"restore_tree device vs host resize: {n_diff} of {n_px} "
+              f"output values differ ({100 * modes_share:.3f} %), max "
+              f"{max_diff} LSB")
+
+        evals = {}
+        # device resize twice: its bucket tails (pad_batch=False) give the
+        # models batch sizes they meet first in the first run
+        for name, resize in (("host", "host"), ("device", "device"),
+                             ("device, second run", "device")):
+            res = teval.evaluate_directory(judge, str(bad), batch_size=BATCH,
+                                           size=SIZE, restorer=resunet,
+                                           resize=resize, device=dev)
+            check(res["n"] == TREE_IMAGES and 0 <= res["top1"] <= 1
+                  and math.isfinite(res["confidence"]),
+                  f"evaluate_directory {name}: {res}")
+            evals[name] = res
+        steps = {
+            "host": teval.make_fused_eval_step(resunet, judge, device=dev),
+            "device": teval.make_fused_eval_step(resunet, judge,
+                                                 native_size=SIZE,
+                                                 device=dev)}
+        preds = {r: preds_by_file(s, bad, r, dev) for r, s in steps.items()}
+        agree = float((preds["host"] == preds["device"]).mean())
+        for name, res in evals.items():
+            print(f"evaluate_directory resize={name}: "
+                  f"{res['images_per_sec']:.1f} images/s, n {res['n']}, "
+                  f"top-1 {res['top1']:.4f} (random weights)")
+        print(f"evaluate_directory: host and device resize agree on "
+              f"{100 * agree:.2f} % of predictions")
+
+        resize_stats = resize_numbers(dev, resunet, judge)
+        print(f"fused step at 224x224 (phase 3): {fused_ips:.1f} images/s")
+
+    summary = {
+        "path": "generate_tree -> restore_tree -> evaluate_directory",
+        "images": TREE_IMAGES, "classes": TREE_CLASSES,
+        "generate_batch": TREE_BATCH, "batch": BATCH, "size": SIZE,
+        "generate_tree": {k: {f: v for f, v in r.items() if f != "buckets"}
+                          for k, r in gen.items()},
+        "blur_card_vs_cpu": blur_cpu,
+        "restore_tree": walks,
+        "restore_modes_values_differ_share": modes_share,
+        "restore_modes_max_lsb": max_diff,
+        "evaluate_directory": {r: {k: v for k, v in res.items()}
+                               for r, res in evals.items()},
+        "evaluate_modes_agree": agree, "resize_from_padded": resize_stats,
+        "fused_224_images_per_sec": fused_ips}
+    print("trees: " + json.dumps(summary))
+    return launches, {k: sorted(v) for k, v in shapes.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -814,11 +1247,17 @@ def run(dev) -> None:
     train_counts = train_phase(dev, judge)
     small_train_check(dev)
 
+    # -- 5. the file-tree pipeline at full width -----------------------------
+    tree_counts, tree_shapes = trees_phase(dev, resunet, judge, rows,
+                                           restored["images_per_sec"])
+
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
                "B3": "blur_dense"}[row["name"][:2]]
         row["launches"] = counts[key]
         row["launches_train"] = train_counts[key]
+        row["launches_trees"] = tree_counts[key]
+        row["tree_shapes"] = tree_shapes.get(key, [])
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

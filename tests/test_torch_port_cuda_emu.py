@@ -182,6 +182,27 @@ def test_blur_taps_kernel_matches_plain(on_emulated_card, variant, kind, b,
     assert _build.launch_counts()[f"blur_{variant}"] == 1
 
 
+@pytest.mark.parametrize("b,h,w,c,k", [(2, 32, 48, 3, 12), (2, 48, 96, 3, 12)],
+                         ids=["32x48-K12", "48x96-K12"])
+@pytest.mark.parametrize("variant", ["sparse", "dense"])
+def test_blur_taps_kernel_at_offline_bucket_shapes(on_emulated_card, variant,
+                                                   b, h, w, c, k):
+    """B2/B3 at offline bucket shapes (one partial 48-wide band; a band of
+    56 and one of 40) with the offline blur's shared K=12 kernel, which
+    takes the run-time-K instance: within 1e-3 of the plain version, and
+    the same uint8 after cvRound/saturate."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 256, (b, h, w, c), generator=g).to(torch.float32)
+    kerns = tblur.motion_blur_kernel(k, 45.0, max_degree=k).expand(b, k, k)
+    fn = kblur.filter2d_sparse if variant == "sparse" else kblur.filter2d_dense
+    got = fn(x, kerns)
+    ref = kblur.filter2d_plain(x, kerns)
+    assert (got - ref).abs().max().item() < 1e-3
+    assert torch.equal(torch.round(got).clamp(0, 255),
+                       torch.round(ref).clamp(0, 255))
+    assert _build.launch_counts()[f"blur_{variant}"] == 1
+
+
 @pytest.mark.parametrize("b,h,w,c,k", [(4, 20, 60, 3, 15), (4, 18, 37, 3, 5)],
                          ids=["vector-rows", "scalar-rows"])
 @pytest.mark.parametrize("variant", ["sparse", "dense"])

@@ -24,6 +24,8 @@ from tsr_tpu.ops import distortions as jdist
 from tsr_tpu.ops import image as jimage
 from tsr_tpu_torch import checkpoint, configs
 from tsr_tpu_torch import eval as teval
+from tsr_tpu_torch import infer as tinfer
+from tsr_tpu_torch import offline as toffline
 from tsr_tpu_torch import pipeline as tpipeline
 from tsr_tpu_torch.device import resolve_device
 from tsr_tpu_torch.models import ResUNet, VGG16
@@ -267,16 +269,19 @@ def test_unified_demo_matches_jax(shared_models):
 # ------------------------------------------------------ package boundary
 
 def test_import_pulls_in_no_jax():
-    """Importing every module of the port loads neither jax nor tsr_tpu."""
+    """Importing every module of the port loads neither jax nor tsr_tpu,
+    nor cv2 or PIL (the port's codec is its own IO library)."""
     code = (
         "import sys\n"
         "import tsr_tpu_torch, tsr_tpu_torch.eval, tsr_tpu_torch.pipeline\n"
         "import tsr_tpu_torch.checkpoint, tsr_tpu_torch.ops.distortions\n"
         "import tsr_tpu_torch.models, tsr_tpu_torch.kernels._build\n"
         "import tsr_tpu_torch.losses, tsr_tpu_torch.train.common\n"
-        "import tsr_tpu_torch.train.loops\n"
+        "import tsr_tpu_torch.train.loops, tsr_tpu_torch.native\n"
+        "import tsr_tpu_torch.data.gtsrb, tsr_tpu_torch.offline\n"
+        "import tsr_tpu_torch.infer\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'tsr_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'tsr_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -302,6 +307,9 @@ def _entry_points():
         "train_unified_on_device": lambda: tloops.train_unified_on_device(
             tcommon.create_unified_state(tr, train_cfg, 1), img,
             np.arange(2), np.arange(2), train_cfg),
+        "generate_tree": lambda: toffline.generate_tree("a", "b", "blur"),
+        "restore_tree": lambda: tinfer.restore_tree(tr, "a", "b"),
+        "evaluate_directory": lambda: teval.evaluate_directory(tj, "a"),
     }
 
 
@@ -332,7 +340,10 @@ def test_configs_match_jax():
     assert configs.IMAGENET_MEAN == jconfigs.IMAGENET_MEAN
     assert configs.IMAGENET_STD == jconfigs.IMAGENET_STD
     assert configs.EvalConfig().batch_size == jconfigs.EvalConfig().batch_size
-    for ours, ref in ((configs.CompoundConfig(), jconfigs.CompoundConfig()),
+    for ours, ref in ((configs.NoiseConfig(), jconfigs.NoiseConfig()),
+                      (configs.BlurConfig(), jconfigs.BlurConfig()),
+                      (configs.FogConfig(), jconfigs.FogConfig()),
+                      (configs.CompoundConfig(), jconfigs.CompoundConfig()),
                       (configs.RandomMixConfig(),
                        jconfigs.RandomMixConfig()),
                       (configs.UnifiedTrainConfig(),

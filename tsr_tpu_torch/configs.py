@@ -1,15 +1,15 @@
 """Configuration constants and presets the port needs.
 
 The port's own copy of ``tsr_tpu/configs.py`` (image size, class count,
-ImageNet statistics, the compound chain, the random mix, the unified
-trainer and the eval batch), with the reference scripts' values as
-defaults.
+ImageNet statistics, the single distortions, the compound chain, the
+random mix, the unified trainer and the eval batch), with the reference
+scripts' values as defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 IMAGE_SIZE = 224          # all reference paths resize to 224x224 (ref:05:25, 07:126)
 NUM_CLASSES = 43          # GTSRB classes (ref:05:54)
@@ -17,6 +17,30 @@ NUM_CLASSES = 43          # GTSRB classes (ref:05:54)
 # ImageNet normalization used by every judge path (ref:05:27-29, 06:35-38)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseConfig:
+    """AWGN in [0,1] space (ref:02:12-27)."""
+    var: float = 0.02            # ref:02:44
+    mean: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class BlurConfig:
+    """Linear motion blur: rotated diag(ones(degree)) kernel (ref:03:11-30)."""
+    degree: int = 12             # ref:03:41
+    angle: float = 45.0          # ref:03:41
+    minmax_normalize: bool = True  # only the offline generator renormalizes (ref:03:29)
+
+
+@dataclasses.dataclass(frozen=True)
+class FogConfig:
+    """Atmospheric scattering I = J*t + A*(1-t) (ref:04:12-31)."""
+    intensity: float = 0.8       # ref:04:42
+    atmosphere: float = 0.9      # A, ref:04:19
+    t_jitter: Tuple[float, float] = (0.8, 1.2)  # ref:04:24
+    t_clip: Optional[Tuple[float, float]] = (0.1, 0.9)  # ref:04:25
 
 
 @dataclasses.dataclass(frozen=True)

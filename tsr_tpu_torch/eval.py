@@ -1,11 +1,14 @@
-"""Evaluation: the fused restore -> classify step and its batch harness.
+"""Evaluation: the fused restore -> classify step, its batch harness and
+the directory harness.
 
-Port of ``tsr_tpu/eval.py``. One step runs
+Port of ``tsr_tpu/eval.py`` (without ``evaluate_directory``'s ``mesh``).
+One step runs
 
     uint8 batch -> [0,1] -> ResUNet -> clamp -> (uint8 quantize) ->
     ImageNet-normalize -> VGG16 judge -> top-1
 
-on one device with no host round trip. ``quantize=True`` keeps the
+on one device with no host round trip (with ``native_size``, a device
+resize from native resolution first). ``quantize=True`` keeps the
 reference's save-to-PNG uint8 quantization (ref:08:96-98) for exact
 parity. Batches are NHWC; the models are NCHW, so the step permutes once
 at each model boundary (a view: the batch stays channels-last in memory).
@@ -20,7 +23,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from tsr_tpu_torch.device import as_tensor, resolve_device
+from tsr_tpu_torch import configs
+from tsr_tpu_torch.data import gtsrb
+from tsr_tpu_torch.device import Transfers, as_tensor, resolve_device
 from tsr_tpu_torch.ops import image as image_ops
 
 
@@ -44,6 +49,7 @@ def restore_batch(restorer: nn.Module, bad01: torch.Tensor,
 
 def make_fused_eval_step(restorer: Optional[nn.Module], judge: nn.Module,
                          quantize: bool = True, with_metrics: bool = False,
+                         native_size: Optional[int] = None,
                          device="cuda") -> Callable:
     """Build the fused (restore ->) classify step on ``device``.
 
@@ -53,6 +59,11 @@ def make_fused_eval_step(restorer: Optional[nn.Module], judge: nn.Module,
     Pass ``restorer=None`` for classify-only evaluation (ref:06). Inputs
     may be numpy arrays or tensors; results stay on ``device``. The models
     are switched to eval mode and must already live on ``device``.
+
+    With ``native_size=S`` (the device-resize serving path), ``images_u8``
+    is a pair ``(padded_u8 [B, Hp, Wp, 3], sizes_hw [B, 2])`` of
+    native-resolution pixels, resized to ``S`` on the device
+    (``ops.image.resize_from_padded``): only native bytes cross to the card.
     """
     device = resolve_device(device)
     if restorer is not None:
@@ -61,6 +72,11 @@ def make_fused_eval_step(restorer: Optional[nn.Module], judge: nn.Module,
 
     @torch.inference_mode()
     def step(images_u8, labels, clean_u8=None) -> Dict[str, torch.Tensor]:
+        if native_size is not None:
+            padded, sizes = images_u8
+            images_u8 = image_ops.resize_from_padded(
+                as_tensor(padded, device), as_tensor(sizes, device),
+                native_size)
         x01 = image_ops.to_float01(as_tensor(images_u8, device))
         labels = as_tensor(labels, device)
         out = {}
@@ -134,3 +150,69 @@ def evaluate_batches(step: Callable, batch_iter: Iterable,
         res["psnr"] = mean(psnrs)
         res["ssim"] = mean(ssims)
     return res
+
+
+def evaluate_directory(judge: nn.Module, data_dir: str, batch_size: int = 64,
+                       size: int = configs.IMAGE_SIZE,
+                       restorer: Optional[nn.Module] = None,
+                       quantize: bool = True, resize: str = "host",
+                       device="cuda") -> Dict[str, float]:
+    """Directory top-1 evaluation (ref:06:23-59): ``ImageFolder`` over
+    ``data_dir``, optional fused restoration before the judge.
+
+    ``resize="host"`` (the default: the reference's input semantics)
+    decodes and resizes on host threads; the prefetch thread uploads each
+    batch through pinned memory on a copy stream, so the upload of batch
+    k+1 overlaps the device work of batch k. ``resize="device"`` uploads
+    native-resolution pixels and resizes them on the card
+    (``ops.image.resize_from_padded``, within 1 LSB of cv2).
+    """
+    device = resolve_device(device)
+    ds = gtsrb.ImageFolder(data_dir, size=size)
+    if resize == "device":
+        return _evaluate_directory_native(ds, judge, batch_size, size,
+                                          restorer, quantize, device)
+    if resize != "host":
+        raise ValueError(f"resize must be 'host' or 'device', got {resize!r}")
+    step = make_fused_eval_step(restorer, judge, quantize=quantize,
+                                device=device)
+    xfer = Transfers(device)
+
+    def arrived(gen):
+        for tensors, event in gen:
+            xfer.arrive(tensors, event)
+            yield tuple(tensors)
+
+    it = gtsrb.batches(ds, batch_size=batch_size, shuffle=False,
+                       drop_remainder=False, epochs=1,
+                       transform=lambda item: xfer.up(*item))
+    return evaluate_batches(step, arrived(it), device=device)
+
+
+def _evaluate_directory_native(ds, judge, batch_size, size, restorer,
+                               quantize, device):
+    """Device-resize variant of the directory harness: the bucketing
+    producer (``infer.native_batches``) uploads native-resolution pixels
+    and the fused step resizes them on the card. ``pad_batch=False``: the
+    labels count real rows only."""
+    from tsr_tpu_torch import infer
+
+    labels_all = np.asarray([lab for _, lab in ds.samples], np.int64)
+    paths = [p for p, _ in ds.samples]
+    step = make_fused_eval_step(restorer, judge, quantize=quantize,
+                                native_size=size, device=device)
+    xfer = Transfers(device)
+
+    def labels_of(idxs):
+        # uploaded in the producer like the pixels: a copy from pageable
+        # memory here would wait for the device and stall the dispatch
+        return xfer.up(labels_all[idxs])
+
+    def gen():
+        for padded, sizes, (labels, event), _ in infer.native_batches(
+                paths, size, batch_size, aux_fn=labels_of, pad_batch=False,
+                device=device):
+            xfer.arrive(labels, event)
+            yield (padded, sizes), labels[0]
+
+    return evaluate_batches(step, gen(), device=device)

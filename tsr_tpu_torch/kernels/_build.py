@@ -42,10 +42,17 @@ def nvcc() -> str:
     return found
 
 
+def hashed_library(source: Path, flags: Sequence[str], build_dir: Path) -> Path:
+    """Library path of ``source`` built with ``flags``: its name carries a
+    hash of both, so an edited source or a new flag never loads a stale
+    build."""
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
+    return build_dir / f"{source.stem}-{digest[:12]}.so"
+
+
 def library_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{digest[:12]}.so"
+    return hashed_library(CSRC / source, NVCC_FLAGS, BUILD_DIR)
 
 
 def build(sources: Iterable[str]) -> Dict[str, dict]:

@@ -1,8 +1,10 @@
-"""Batched distortion simulators for the serving and training slices.
+"""Batched distortion simulators.
 
-Port of the random mix, its multiscale training form and the demo's
-compound chain of ``tsr_tpu/ops/distortions.py``:
+Port of ``tsr_tpu/ops/distortions.py`` without the ``mild_*`` variants:
 
+- AWGN (ref:02:12-27), motion blur (ref:03:11-30) and fog (ref:04:12-31),
+  the offline generator's single distortions;
+- the offline compound chain (ref:16:14-37, Blur -> Fog -> Noise);
 - per-sample random mix (ref:14:31-64, Fog -> Noise -> Blur, p=0.5 each),
   on kernels B1 (fog + noise) and B2/B3 (blur);
 - the same mix at emulated native resolutions, and the training pair built
@@ -11,10 +13,10 @@ compound chain of ``tsr_tpu/ops/distortions.py``:
 
 Public functions take uint8 ``[B, H, W, C]`` batches (a single ``[H, W,
 C]`` image is promoted) and return uint8, preserving the reference's
-uint8 round-trip semantics between stages. Randomness comes from an
-explicit ``torch.Generator``. The draws are split from the math
-(:func:`draw_random_mix`, :func:`random_mix_from_draws`) so a test can
-inject the JAX reference's draws.
+uint8 round-trip semantics between stages. A shared blur kernel runs on
+B3 on the card. Randomness comes from an explicit ``torch.Generator``;
+each function also takes its draws injected (``noise=``, ``jitter=``,
+:func:`random_mix_from_draws`) so a test can hand it the JAX reference's.
 """
 
 from __future__ import annotations
@@ -223,6 +225,130 @@ def make_training_pair(
     return image_ops.to_float01(bad), image_ops.to_float01(clean)
 
 
+def _normal(shape, generator, device, noise) -> torch.Tensor:
+    """The injected N(0,1) field ``noise``, or one drawn from
+    ``generator``."""
+    if noise is None:
+        return torch.randn(shape, generator=generator, device=device)
+    return as_tensor(noise, device).to(torch.float32)
+
+
+def _std(var):
+    """``sqrt(var)`` in float32: a Python float for a scalar variance (as
+    ``jnp.sqrt`` of a weak-typed scalar), a tensor for a per-image one."""
+    if isinstance(var, torch.Tensor):
+        return torch.sqrt(var.to(torch.float32))
+    return torch.sqrt(torch.tensor(var, dtype=torch.float32)).item()
+
+
+def _per_image(v, device):
+    """A scalar as it is, a per-image value as ``[B, 1, 1, 1]`` float32."""
+    if isinstance(v, (int, float)):
+        return v
+    return as_tensor(v, device).to(torch.float32).reshape(-1, 1, 1, 1)
+
+
+def add_gaussian_noise(images_u8, generator: Optional[torch.Generator] = None,
+                       var=0.02, mean: float = 0.0, device="cuda",
+                       noise=None) -> torch.Tensor:
+    """Additive Gaussian noise in [0,1] space with the reference's cast
+    semantics (ref:02:12-27): ``img/255 + mean + sqrt(var) * N(0,1)``; the
+    lower clip bound is ``-1`` where any value of the image went negative,
+    else ``0``; then ``np.uint8(out*255)``, which *wraps* negatives.
+
+    ``var`` is a float or a per-image ``[B]`` tensor; ``noise`` an optional
+    pre-drawn N(0,1) field, else drawn from ``generator``.
+    """
+    device = resolve_device(device)
+    x, squeeze = _batched(images_u8, device)
+    f = image_ops.to_float01(x)
+    out = f + (mean + _std(_per_image(var, device))
+               * _normal(f.shape, generator, device, noise))
+    any_neg = out.amin(dim=(1, 2, 3), keepdim=True) < 0
+    low = torch.where(any_neg, -1.0, 0.0)
+    out = torch.minimum(torch.maximum(out, low), torch.ones_like(out))
+    out = image_ops.numpy_uint8_cast(image_ops.scale255(out))
+    return out[0] if squeeze else out
+
+
+def apply_motion_blur(images_u8, degree: int = 12, angle: float = 45.0,
+                      minmax_normalize: bool = True,
+                      device="cuda") -> torch.Tensor:
+    """Linear motion blur on uint8 images (ref:03:11-30): one shared
+    ``max(degree, 3)``-sized kernel, so kernel B3 on the card, then cvRound
+    and saturate. ``minmax_normalize`` applies the offline generator's
+    final ``cv2.normalize(..., NORM_MINMAX)`` (ref:03:29); the online paths
+    (ref:13, 14, 16) skip it."""
+    device = resolve_device(device)
+    x, squeeze = _batched(images_u8, device)
+    kernel = blur_ops.motion_blur_kernel(degree, angle,
+                                         max_degree=max(int(degree), 3),
+                                         device=device)
+    blurred = blur_ops.filter2d(x.to(torch.float32), kernel)
+    out = image_ops.saturate_uint8(blurred, round=True)
+    if minmax_normalize:
+        out = image_ops.minmax_normalize_u8(out.to(torch.float32))
+    return out[0] if squeeze else out
+
+
+def add_fog(images_u8, generator: Optional[torch.Generator] = None,
+            fog_intensity=0.8, atmosphere: float = 0.9,
+            t_jitter: Optional[Tuple[float, float]] = (0.8, 1.2),
+            t_clip: Optional[Tuple[float, float]] = (0.1, 0.9),
+            device="cuda", jitter=None) -> torch.Tensor:
+    """Atmospheric scattering ``I = J*t + A*(1-t)`` (ref:04:12-31).
+
+    ``t = 1 - intensity * U(t_jitter)`` per image, clipped to ``t_clip``;
+    ``t_jitter=None`` takes ``U = 1`` (the fixed chains, ref:16:28,
+    13:51). ``fog_intensity`` is a float or a per-image ``[B]`` tensor;
+    ``jitter`` an optional pre-drawn ``[B]`` of U(t_jitter), else drawn
+    from ``generator``.
+    """
+    device = resolve_device(device)
+    x, squeeze = _batched(images_u8, device)
+    f = image_ops.to_float01(x)
+    b = f.shape[0]
+    if t_jitter is None:
+        jit_u = torch.ones((b, 1, 1, 1), device=device)
+    elif jitter is not None:
+        jit_u = _per_image(jitter, device)
+    else:
+        if generator is None:
+            raise ValueError("add_fog with t_jitter needs a generator")
+        u = torch.rand((b, 1, 1, 1), generator=generator, device=device)
+        jit_u = u * (t_jitter[1] - t_jitter[0]) + t_jitter[0]
+    t = 1.0 - _per_image(fog_intensity, device) * jit_u
+    if t_clip is not None:
+        t = t.clamp(t_clip[0], t_clip[1])
+    out = f * t + atmosphere * (1.0 - t)
+    out = image_ops.clip01_to_uint8(out)
+    return out[0] if squeeze else out
+
+
+def apply_compound_distortion(
+        images_u8, generator: Optional[torch.Generator] = None,
+        cfg: configs.CompoundConfig = configs.CompoundConfig(),
+        device="cuda", noise=None) -> torch.Tensor:
+    """The offline compound generator's chain (ref:16:14-37): blur(10, 45)
+    on uint8 (a shared K=10 kernel, B3 on the card; cvRound + saturate) ->
+    fog with fixed ``t = 1 - 0.5`` -> AWGN(0.02) with no clip in between ->
+    ``clip(x*255, 0, 255).astype(uint8)`` (no negative wrap here).
+    ``noise`` is an optional pre-drawn N(0,1) field, else drawn from
+    ``generator``."""
+    device = resolve_device(device)
+    x, squeeze = _batched(images_u8, device)
+    kernel = blur_ops.motion_blur_kernel(cfg.blur_degree, cfg.blur_angle,
+                                         max_degree=cfg.blur_degree,
+                                         device=device)
+    blurred = blur_ops.filter2d(x.to(torch.float32), kernel)
+    f = image_ops.saturate_uint8(blurred, round=True).to(torch.float32) / 255.0
+    t = 1.0 - cfg.fog_intensity
+    f = f * t + cfg.fog_atmosphere * (1.0 - t)
+    f = f + _std(cfg.noise_var) * _normal(f.shape, generator, device, noise)
+    out = image_ops.clip01_to_uint8(f)
+    return out[0] if squeeze else out
+
+
 def make_compound_distortion(
         images_u8, generator: Optional[torch.Generator] = None,
         cfg: configs.CompoundConfig = configs.CompoundConfig(),
@@ -239,10 +365,7 @@ def make_compound_distortion(
     f = image_ops.to_float01(x)
     t = 1.0 - cfg.fog_intensity
     f = f * t + cfg.fog_atmosphere * (1.0 - t)
-    if noise is None:
-        noise = torch.randn(f.shape, generator=generator, device=device)
-    std = torch.sqrt(torch.tensor(cfg.noise_var, dtype=torch.float32))
-    f = f + std.item() * as_tensor(noise, device).to(torch.float32)
+    f = f + _std(cfg.noise_var) * _normal(f.shape, generator, device, noise)
     f = f.clamp(0.0, 1.0)
     u8 = torch.trunc(image_ops.scale255(f)).to(torch.uint8)  # ref:15:110
     kernel = blur_ops.motion_blur_kernel(

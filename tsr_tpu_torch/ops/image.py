@@ -53,6 +53,86 @@ def clip01_to_uint8(x01: torch.Tensor) -> torch.Tensor:
     return saturate_uint8(scale255(x01), round=False)
 
 
+def minmax_normalize_u8(images_f32: torch.Tensor) -> torch.Tensor:
+    """``cv2.normalize(x, x, 0, 255, NORM_MINMAX)`` on a uint8 batch
+    (ref:03:29): joint min/max over all pixels *and* channels per image,
+    scaled to [0,255] with cvRound + saturation; a constant image becomes 0.
+
+    Args:
+      images_f32: ``[B, H, W, C]`` float32 holding integral uint8 values.
+    Returns:
+      uint8 ``[B, H, W, C]``.
+    """
+    lo = images_f32.amin(dim=(1, 2, 3), keepdim=True)
+    hi = images_f32.amax(dim=(1, 2, 3), keepdim=True)
+    scale = torch.where(hi > lo, 255.0 / (hi - lo), torch.zeros_like(hi))
+    return saturate_uint8((images_f32 - lo) * scale, round=True)
+
+
+def _bilinear_taps(native: torch.Tensor, out: int):
+    """Per-image two-tap bilinear sampling of one axis for native extents
+    ``native`` ``[B]`` (half-pixel centres, edge clamp, no antialias: the
+    cv2.INTER_LINEAR convention): ``(i0, i1, w)`` ``[B, out]``, output ``o``
+    being ``x[i0]*(1-w) + x[i1]*w``. At the clamped edge ``i0 == i1`` and
+    ``w == 0``."""
+    n = native.to(torch.float32).reshape(-1, 1)
+    o = torch.arange(out, dtype=torch.float32, device=native.device)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, an ulp off the CPU's (and the reference's) quotient
+    src = (o + 0.5) * (n / torch.full_like(n, out)) - 0.5
+    src = torch.minimum(src.clamp_min(0.0), n - 1.0)
+    i0f = torch.floor(src)
+    w = src - i0f
+    i0 = i0f.to(torch.int64)
+    i1 = torch.minimum(i0 + 1, native.to(torch.int64).reshape(-1, 1) - 1)
+    return i0, i1, w
+
+
+def resize_from_padded(padded_u8: torch.Tensor, sizes_hw: torch.Tensor,
+                       out_size: int) -> torch.Tensor:
+    """Per-image bilinear resize of native-size images on a padded canvas.
+
+    Args:
+      padded_u8: ``[B, Hp, Wp, C]`` uint8, image ``b`` in its top-left
+        ``sizes_hw[b]`` corner (the rest is never sampled).
+      sizes_hw: ``[B, 2]`` integer native (height, width), on the device of
+        ``padded_u8``; it is never read back to the host.
+      out_size: output side.
+    Returns:
+      ``[B, out_size, out_size, C]`` uint8, ``clip(rint(.))`` of the float32
+      resize: within 1 LSB of cv2.resize(INTER_LINEAR), whose fixed-point
+      coefficients differ; an exact copy where the native size equals
+      ``out_size``.
+
+    Port of ``tsr_tpu/ops/image.py::resize_from_padded``, which contracts
+    each axis with a dense one-hot weight matrix for the TPU's matrix unit.
+    Each output row and column has two nonzero weights, so here each axis is
+    a gather of its two source lines and a lerp (rows, then columns) from
+    index tensors computed on the device: the same float32 products and sum,
+    with no matrix product that TF32 could round.
+    """
+    b, _, _, c = padded_u8.shape
+    x = padded_u8.to(torch.float32)
+    sizes = sizes_hw.to(padded_u8.device)
+    i0, i1, w = _bilinear_taps(sizes[:, 0], out_size)  # rows [B, out]
+
+    def rows(idx):
+        return torch.gather(x, 1, idx[:, :, None, None].expand(
+            -1, -1, x.shape[2], c))
+
+    wy = w[:, :, None, None]
+    t = rows(i0) * (1.0 - wy) + rows(i1) * wy       # [B, out, Wp, C]
+    j0, j1, wx = _bilinear_taps(sizes[:, 1], out_size)  # columns [B, out]
+
+    def cols(idx):
+        return torch.gather(t, 2, idx[:, None, :, None].expand(
+            -1, out_size, -1, c))
+
+    wx = wx[:, None, :, None]
+    out = cols(j0) * (1.0 - wx) + cols(j1) * wx     # [B, out, out, C]
+    return torch.round(out).clamp(0.0, 255.0).to(torch.uint8)
+
+
 def resize_linear(x: torch.Tensor, size) -> torch.Tensor:
     """``jax.image.resize(x, ..., "linear")`` on a float ``[B, H, W, C]``
     batch: bilinear with half-pixel centres, and a triangle filter widened
