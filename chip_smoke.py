@@ -46,9 +46,27 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    round trip, metrics, host time by stage, the device's busy share);
    ``eval.evaluate_directory`` with host resize, then device resize twice;
    the device resize alone per canvas, against the CPU's.
-6. One JSON line of the kernels (with ``launches_trees`` and
-   ``tree_shapes``), the card's line, and the final ``{"ok": true, ...}``
-   line.
+6. The specialized SimpleUNet restorers and the cascade stress test at
+   full width (``cascade_phase``), on the trees phase's clean tree and its
+   noise / blur / fog trees: ``data.gtsrb.PairedFolder`` at 224, one
+   epoch of ``train.loops.train_restorer_on_device`` per task (MSE, Adam
+   1e-3, batch 32, fp32, ``checkpoint_every=1``, provenance from the
+   tree's ``.distortion`` marker), the advanced restorer (L1 + 0.1 x
+   perceptual on the judge's ``features[:16]``, Adam 2e-4) for
+   ADVANCED_STEPS steps, a bf16 rerun, one epoch with TF32 convolutions
+   (PyTorch's default), resume through ``zoo.load_train_state``; then the
+   three checkpoints through ``zoo.load_model`` and ``cascade_variant``,
+   and ``pipeline.cascade_stress`` on a batch of CASCADE_BATCH and on
+   CASCADE_NATIVE images distorted one by one at their native sizes and
+   resized on the card (script 13's flow): the mild blur on B3 at
+   run-time K=5, launch counts zeroed just before and read just after. B3
+   at K=5 is then held against its plain version at the batch's shape and
+   at every native shape the phase ran, and timed beside its bound, its
+   plain version and cuDNN's grouped convolution; a small fp32 cascade on
+   the card against the CPU.
+7. One JSON line of the kernels (with ``launches_trees``, ``tree_shapes``,
+   ``launches_cascade`` and ``cascade_shapes``), the card's line, and the
+   final ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -63,7 +81,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 SEED = 0
 BATCH, SIZE, K = 64, 224, 15
@@ -83,6 +103,17 @@ TREE_SIDES = ((0.78, 25, 64), (0.16, 65, 192), (0.03, 193, 223),
               (0.03, 224, 260))
 BLUR_CPU_FILES = 96          # the blur tree made on the card and the CPU
 RESIZE_CANVASES = (64, 128, 192, 224)
+# the cascade phase: the specialized SimpleUNet restorers, trained on the
+# trees phase's noise / blur / fog trees at RestorationTrainConfig's batch
+# 32 and 0.9 split (37 steps an epoch on 1344 pairs), then the cascade
+RESTORER_TASKS = ("noise", "blur", "fog")
+RESTORER_EPOCHS = 1
+RESTORER_BATCH = 32          # RestorationTrainConfig / AdvancedTrainConfig
+ADVANCED_STEPS = 5           # the advanced (perceptual) restorer's steps
+BF16_EPOCHS = 2              # the bf16 rerun: epoch 2 is timed warm
+RESUME_STEPS = 2
+CASCADE_BATCH = 64           # the batched cascade (EvalConfig's batch)
+CASCADE_NATIVE = 10          # script 13's --num-samples, at native sizes
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published peak
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 
@@ -184,12 +215,14 @@ def device_breakdown(fn, top=14):
 KINDS = (("hand-written mix kernels (B1, B2)", ("fog_noise_kernel",
                                                 "blur_runs", "build_runs")),
          ("convolution and GEMM", ("xmma", "gemm", "convolve", "dgrad",
-                                   "wgrad", "cutlass", "sm90_")),
+                                   "wgrad", "cutlass", "sm90_", "fft",
+                                   "_complex", "DSE::")),
          ("batch norm and its statistics", ("batchnorm", "batch_norm",
                                             "bn_", "Welford")),
          ("optimizer (multi-tensor)", ("multi_tensor", "Adam")),
          ("reductions", ("reduce_kernel",)),
-         ("casts and copies", ("copy", "cat_")),
+         ("casts and copies", ("copy", "cat_", "Memcpy", "nchwToNhwc",
+                               "nhwcToNchw")),
          ("other elementwise", ("elementwise", "max_pool", "where")))
 
 
@@ -922,151 +955,147 @@ def resize_numbers(dev, resunet, judge):
     return out
 
 
-def trees_phase(dev, resunet, judge, rows, fused_ips):
-    """Phase 5: the file-tree pipeline at full width. A seeded clean tree;
-    generate_tree for each of the seven kinds (B3 for blur and compound, B2
-    for blur_rand, launch counts zeroed just before each call and read just
-    after); the blur kernels held at every bucket shape; the blur tree on
-    the card against the CPU; restore_tree (device and host resize) and
-    evaluate_directory (host and device) on the compound tree; the device
-    resize alone; where the walk's time goes. Returns the B2/B3 launches of
-    the generate_tree runs and the buckets each ran at."""
-    import tempfile
-    from pathlib import Path
-
+def trees_phase(dev, resunet, judge, rows, fused_ips, work):
+    """Phase 5: the file-tree pipeline at full width, in the directory
+    ``work`` (its trees stay there for the cascade phase). A seeded clean
+    tree; generate_tree for each of the seven kinds (B3 for blur and
+    compound, B2 for blur_rand, launch counts zeroed just before each call
+    and read just after); the blur kernels held at every bucket shape; the
+    blur tree on the card against the CPU; restore_tree (device and host
+    resize) and evaluate_directory (host and device) on the compound tree;
+    the device resize alone; where the walk's time goes. Returns the B2/B3
+    launches of the generate_tree runs and the buckets each ran at."""
     import numpy as np
     import torch
     from tsr_tpu_torch import eval as teval
     from tsr_tpu_torch import infer, native, offline
     from tsr_tpu_torch.kernels import _build
     quiet = lambda line: None  # noqa: E731
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_trees_") as tmp:
-        work = Path(tmp)
-        clean = work / "clean"
+    clean = work / "clean"
+    t0 = time.perf_counter()
+    sides = write_clean_tree(clean)
+    print(f"clean tree: {TREE_IMAGES} .ppm files in {TREE_CLASSES} "
+          f"classes, written in {time.perf_counter() - t0:.2f} s; "
+          f"max side <= 64: {sum(max(s) <= 64 for s in sides)}, 65-192: "
+          f"{sum(64 < max(s) <= 192 for s in sides)}, 193-223: "
+          f"{sum(192 < max(s) < 224 for s in sides)}, >= 224: "
+          f"{sum(max(s) >= 224 for s in sides)}; non-square "
+          f"{sum(h != w for h, w in sides)}")
+
+    launches = {"blur_sparse": 0, "blur_dense": 0, "fog_noise": 0}
+    shapes = {"blur_sparse": set(), "blur_dense": set()}
+    gen = {}
+    for kind in offline.KINDS:
+        buckets = tree_buckets(sides, offline.HALO.get(kind, 0))
+        n_batches = sum(-(-n // TREE_BATCH) for n in buckets.values())
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
         t0 = time.perf_counter()
-        sides = write_clean_tree(clean)
-        print(f"clean tree: {TREE_IMAGES} .ppm files in {TREE_CLASSES} "
-              f"classes, written in {time.perf_counter() - t0:.2f} s; "
-              f"max side <= 64: {sum(max(s) <= 64 for s in sides)}, 65-192: "
-              f"{sum(64 < max(s) <= 192 for s in sides)}, 193-223: "
-              f"{sum(192 < max(s) < 224 for s in sides)}, >= 224: "
-              f"{sum(max(s) >= 224 for s in sides)}; non-square "
-              f"{sum(h != w for h, w in sides)}")
+        n = offline.generate_tree(str(clean), str(work / kind), kind,
+                                  seed=SEED, batch_size=TREE_BATCH,
+                                  log=quiet, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        check(n == TREE_IMAGES, f"{kind} wrote {n} images")
+        want = {"blur_dense": n_batches if kind in ("blur", "compound")
+                else 0,
+                "blur_sparse": n_batches if kind == "blur_rand" else 0,
+                "fog_noise": 0}
+        check(counts == want, f"{kind} launched {counts}, expected "
+              f"{want}")
+        for k, v in counts.items():
+            launches[k] += v
+            if v:
+                shapes[k].update(f"{bh}x{bw}" for bh, bw in buckets)
+        gen[kind] = dict(images_per_sec=n / dt, seconds=dt,
+                         batches=n_batches, launches=counts,
+                         buckets={f"{bh}x{bw}": m for (bh, bw), m
+                                  in sorted(buckets.items())})
+        print(f"generate_tree {kind}: {n / dt:.1f} images/s ({dt:.3f} "
+              f"s), {n_batches} batches, B2 {counts['blur_sparse']} / "
+              f"B3 {counts['blur_dense']} launches; buckets "
+              + json.dumps(gen[kind]["buckets"]))
+    check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
+          "B2 and B3 launched on the trees path")
 
-        launches = {"blur_sparse": 0, "blur_dense": 0, "fog_noise": 0}
-        shapes = {"blur_sparse": set(), "blur_dense": set()}
-        gen = {}
-        for kind in offline.KINDS:
-            buckets = tree_buckets(sides, offline.HALO.get(kind, 0))
-            n_batches = sum(-(-n // TREE_BATCH) for n in buckets.values())
-            torch.cuda.synchronize()
-            _build.reset_launch_counts()
-            t0 = time.perf_counter()
-            n = offline.generate_tree(str(clean), str(work / kind), kind,
-                                      seed=SEED, batch_size=TREE_BATCH,
-                                      log=quiet, device=dev)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            counts = _build.launch_counts()
-            check(n == TREE_IMAGES, f"{kind} wrote {n} images")
-            want = {"blur_dense": n_batches if kind in ("blur", "compound")
-                    else 0,
-                    "blur_sparse": n_batches if kind == "blur_rand" else 0,
-                    "fog_noise": 0}
-            check(counts == want, f"{kind} launched {counts}, expected "
-                  f"{want}")
-            for k, v in counts.items():
-                launches[k] += v
-                if v:
-                    shapes[k].update(f"{bh}x{bw}" for bh, bw in buckets)
-            gen[kind] = dict(images_per_sec=n / dt, seconds=dt,
-                             batches=n_batches, launches=counts,
-                             buckets={f"{bh}x{bw}": m for (bh, bw), m
-                                      in sorted(buckets.items())})
-            print(f"generate_tree {kind}: {n / dt:.1f} images/s ({dt:.3f} "
-                  f"s), {n_batches} batches, B2 {counts['blur_sparse']} / "
-                  f"B3 {counts['blur_dense']} launches; buckets "
-                  + json.dumps(gen[kind]["buckets"]))
-        check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
-              "B2 and B3 launched on the trees path")
+    check_blur_at_buckets(dev, clean, rows)
+    blur_cpu = blur_tree_card_vs_cpu(dev, clean, work)
 
-        check_blur_at_buckets(dev, clean, rows)
-        blur_cpu = blur_tree_card_vs_cpu(dev, clean, work)
+    bad = work / "compound"
+    walks = {}
+    for resize in ("device", "host"):
+        out = work / f"restored_{resize}"
+        _build.reset_launch_counts()
+        res = infer.restore_tree(resunet, str(bad), str(out),
+                                 clean_dir=str(clean), batch_size=BATCH,
+                                 size=SIZE, resize=resize, log=quiet,
+                                 device=dev)
+        written = len(list(out.glob("*/*.png")))
+        check(res["images"] == written == TREE_IMAGES,
+              f"restore_tree {resize}: {res['images']} images, "
+              f"{written} files")
+        check(math.isfinite(res["psnr"]) and 0 <= res["ssim"] <= 1,
+              f"restore_tree {resize} metrics finite")
+        check(sum(_build.launch_counts().values()) == 0,
+              "restore_tree launches no blur or B1 kernel")
+        n_png, step_ms = png_round_trip(dev, resunet, bad, out, resize)
+        res["png_round_trip_files"] = n_png
+        res["step_ms_first_batch"] = step_ms
+        res["device_busy_share"] = (step_ms * res["batches"]
+                                    / (res["seconds"] * 1e3))
+        walks[resize] = res
+        print(f"restore_tree resize={resize}: {res['images_per_sec']:.1f}"
+              f" images/s ({res['seconds']:.3f} s, {res['batches']} "
+              f"batches), {written} files, PSNR {res['psnr']:.4f} dB, "
+              f"SSIM {res['ssim']:.5f}; PNG round trip exact on "
+              f"{n_png} files; restore step {step_ms:.3f} ms a batch, "
+              f"device busy about {100 * res['device_busy_share']:.1f} % "
+              f"of the walk; host seconds by stage (summed over "
+              f"threads) " + json.dumps(res["host_seconds"]))
+    n_px = n_diff = max_diff = 0
+    for p in (work / "restored_device").glob("*/*.png"):
+        a = native.decode(str(p)).astype(int)
+        b = native.decode(str(work / "restored_host"
+                              / p.relative_to(work / "restored_device"))
+                          ).astype(int)
+        d = np.abs(a - b)
+        n_px += d.size
+        n_diff += int((d > 0).sum())
+        max_diff = max(max_diff, int(d.max()))
+    modes_share = n_diff / n_px
+    print(f"restore_tree device vs host resize: {n_diff} of {n_px} "
+          f"output values differ ({100 * modes_share:.3f} %), max "
+          f"{max_diff} LSB")
 
-        bad = work / "compound"
-        walks = {}
-        for resize in ("device", "host"):
-            out = work / f"restored_{resize}"
-            _build.reset_launch_counts()
-            res = infer.restore_tree(resunet, str(bad), str(out),
-                                     clean_dir=str(clean), batch_size=BATCH,
-                                     size=SIZE, resize=resize, log=quiet,
-                                     device=dev)
-            written = len(list(out.glob("*/*.png")))
-            check(res["images"] == written == TREE_IMAGES,
-                  f"restore_tree {resize}: {res['images']} images, "
-                  f"{written} files")
-            check(math.isfinite(res["psnr"]) and 0 <= res["ssim"] <= 1,
-                  f"restore_tree {resize} metrics finite")
-            check(sum(_build.launch_counts().values()) == 0,
-                  "restore_tree launches no blur or B1 kernel")
-            n_png, step_ms = png_round_trip(dev, resunet, bad, out, resize)
-            res["png_round_trip_files"] = n_png
-            res["step_ms_first_batch"] = step_ms
-            res["device_busy_share"] = (step_ms * res["batches"]
-                                        / (res["seconds"] * 1e3))
-            walks[resize] = res
-            print(f"restore_tree resize={resize}: {res['images_per_sec']:.1f}"
-                  f" images/s ({res['seconds']:.3f} s, {res['batches']} "
-                  f"batches), {written} files, PSNR {res['psnr']:.4f} dB, "
-                  f"SSIM {res['ssim']:.5f}; PNG round trip exact on "
-                  f"{n_png} files; restore step {step_ms:.3f} ms a batch, "
-                  f"device busy about {100 * res['device_busy_share']:.1f} % "
-                  f"of the walk; host seconds by stage (summed over "
-                  f"threads) " + json.dumps(res["host_seconds"]))
-        n_px = n_diff = max_diff = 0
-        for p in (work / "restored_device").glob("*/*.png"):
-            a = native.decode(str(p)).astype(int)
-            b = native.decode(str(work / "restored_host"
-                                  / p.relative_to(work / "restored_device"))
-                              ).astype(int)
-            d = np.abs(a - b)
-            n_px += d.size
-            n_diff += int((d > 0).sum())
-            max_diff = max(max_diff, int(d.max()))
-        modes_share = n_diff / n_px
-        print(f"restore_tree device vs host resize: {n_diff} of {n_px} "
-              f"output values differ ({100 * modes_share:.3f} %), max "
-              f"{max_diff} LSB")
+    evals = {}
+    # device resize twice: its bucket tails (pad_batch=False) give the
+    # models batch sizes they meet first in the first run
+    for name, resize in (("host", "host"), ("device", "device"),
+                         ("device, second run", "device")):
+        res = teval.evaluate_directory(judge, str(bad), batch_size=BATCH,
+                                       size=SIZE, restorer=resunet,
+                                       resize=resize, device=dev)
+        check(res["n"] == TREE_IMAGES and 0 <= res["top1"] <= 1
+              and math.isfinite(res["confidence"]),
+              f"evaluate_directory {name}: {res}")
+        evals[name] = res
+    steps = {
+        "host": teval.make_fused_eval_step(resunet, judge, device=dev),
+        "device": teval.make_fused_eval_step(resunet, judge,
+                                             native_size=SIZE,
+                                             device=dev)}
+    preds = {r: preds_by_file(s, bad, r, dev) for r, s in steps.items()}
+    agree = float((preds["host"] == preds["device"]).mean())
+    for name, res in evals.items():
+        print(f"evaluate_directory resize={name}: "
+              f"{res['images_per_sec']:.1f} images/s, n {res['n']}, "
+              f"top-1 {res['top1']:.4f} (random weights)")
+    print(f"evaluate_directory: host and device resize agree on "
+          f"{100 * agree:.2f} % of predictions")
 
-        evals = {}
-        # device resize twice: its bucket tails (pad_batch=False) give the
-        # models batch sizes they meet first in the first run
-        for name, resize in (("host", "host"), ("device", "device"),
-                             ("device, second run", "device")):
-            res = teval.evaluate_directory(judge, str(bad), batch_size=BATCH,
-                                           size=SIZE, restorer=resunet,
-                                           resize=resize, device=dev)
-            check(res["n"] == TREE_IMAGES and 0 <= res["top1"] <= 1
-                  and math.isfinite(res["confidence"]),
-                  f"evaluate_directory {name}: {res}")
-            evals[name] = res
-        steps = {
-            "host": teval.make_fused_eval_step(resunet, judge, device=dev),
-            "device": teval.make_fused_eval_step(resunet, judge,
-                                                 native_size=SIZE,
-                                                 device=dev)}
-        preds = {r: preds_by_file(s, bad, r, dev) for r, s in steps.items()}
-        agree = float((preds["host"] == preds["device"]).mean())
-        for name, res in evals.items():
-            print(f"evaluate_directory resize={name}: "
-                  f"{res['images_per_sec']:.1f} images/s, n {res['n']}, "
-                  f"top-1 {res['top1']:.4f} (random weights)")
-        print(f"evaluate_directory: host and device resize agree on "
-              f"{100 * agree:.2f} % of predictions")
-
-        resize_stats = resize_numbers(dev, resunet, judge)
-        print(f"fused step at 224x224 (phase 3): {fused_ips:.1f} images/s")
+    resize_stats = resize_numbers(dev, resunet, judge)
+    print(f"fused step at 224x224 (phase 3): {fused_ips:.1f} images/s")
 
     summary = {
         "path": "generate_tree -> restore_tree -> evaluate_directory",
@@ -1084,6 +1113,442 @@ def trees_phase(dev, resunet, judge, rows, fused_ips):
         "fused_224_images_per_sec": fused_ips}
     print("trees: " + json.dumps(summary))
     return launches, {k: sorted(v) for k, v in shapes.items()}
+
+
+def restorer_provenance(distorted_dir, input_minmax):
+    """A restorer checkpoint's config as the reference's training scripts
+    write it: no identity anchor, ``input_minmax`` when set, and the
+    severity read from the tree's ``.distortion`` marker."""
+    cfg = {"identity_frac": 0.0}
+    if input_minmax:
+        cfg["input_minmax"] = True
+    kind = json.loads((distorted_dir / ".distortion").read_text())["kind"]
+    cfg["severity"] = "jittered" if kind.endswith("_rand") else "reference"
+    return cfg
+
+
+def model_flops():
+    """Forward FLOPs of one SIZE x SIZE image through SimpleUNet, VGG16-D
+    and its perceptual ``features[:16]`` (``torch.utils.flop_counter`` on
+    the meta device: shapes only, the same on any card)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from tsr_tpu_torch.models import SimpleUNet, VGG16
+    with torch.device("meta"):
+        unet = SimpleUNet()
+        vgg = VGG16(num_classes=43, input_size=SIZE)
+        x = torch.zeros(1, 3, SIZE, SIZE)
+    out = {}
+    for name, fn in (("simple_unet", lambda: unet(x)),
+                     ("vgg16", lambda: vgg(x)),
+                     ("vgg16_features_16", lambda: vgg(x, tap_layer=15))):
+        with FlopCounterMode(display=False) as counter:
+            fn()
+        out[name] = counter.get_total_flops()
+    return out
+
+
+def fit_restorer(dev, pairs, splits, ckpt=None, provenance=None,
+                 dtype="fp32", epochs=1, input_minmax=False, vgg_apply=None,
+                 seed=0):
+    """One restorer trained by ``train_restorer_on_device`` on ``pairs``
+    (uint8 distorted and clean trees) from a seed: the specialized recipe
+    (MSE, Adam 1e-3), or with ``vgg_apply`` the advanced one (L1 + 0.1 x
+    perceptual, Adam 2e-4); with ``ckpt``, checkpointed there every epoch
+    with ``provenance`` as its config. Checks finite losses, the step count
+    and that every parameter moved. Returns (state, last epoch's record,
+    peak GiB)."""
+    import torch
+    from tsr_tpu_torch import configs, zoo
+    from tsr_tpu_torch.train import common, loops
+    if vgg_apply is None:
+        cfg, pixel, weight = configs.RestorationTrainConfig(), "mse", 0.0
+    else:
+        cfg = configs.AdvancedTrainConfig()
+        pixel, weight = "l1", cfg.perceptual_weight
+    torch.manual_seed(SEED + seed)
+    state = common.create_restoration_state(
+        zoo.build_simple_unet(dtype, input_minmax, device=dev), cfg)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    tr_idx, va_idx = splits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, hist = loops.train_restorer_on_device(
+        state, *pairs, tr_idx, va_idx, epochs, cfg.batch_size, pixel=pixel,
+        perceptual_weight=weight, vgg_apply=vgg_apply,
+        save_path=None if ckpt is None else str(ckpt),
+        checkpoint_every=1 if ckpt is not None else 0,
+        ckpt_config=provenance, log=lambda line: None, seed=cfg.seed,
+        device=dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    steps = len(tr_idx) // cfg.batch_size
+    vals = [v for r in hist for v in r["step_loss"] + r["pixel_loss"]
+            + r["perceptual_loss"] + [r["val_loss"]]]
+    check(all(math.isfinite(v) for v in vals), "finite restorer losses")
+    check(state.step == epochs * steps, f"restorer took {state.step} steps")
+    after = state.model.state_dict()
+    still = [k for k, v in before.items() if torch.equal(v, after[k])]
+    check(not still, f"restorer parameters that did not move: {still}")
+    return state, hist[-1], peak
+
+
+def native_stages(dev, files, generator):
+    """Script 13's phase 1 for each file: the native image on the card,
+    mild blur (B3 at run-time K=5 on ``[1, h, w, 3]``), mild fog and mild
+    noise, each stage resized to SIZE on the card (``resize_from_padded``,
+    the cv2 convention). Returns the four stages as ``(name, [N, SIZE,
+    SIZE, 3] uint8)`` and the native shapes."""
+    import torch
+    from tsr_tpu_torch import native
+    from tsr_tpu_torch.ops import distortions
+    from tsr_tpu_torch.ops import image as timage
+    names = ("Clean", "+ Blur", "+ Fog", "+ Noise (final bad)")
+    stages = {n: [] for n in names}
+    shapes = []
+    for f in files:
+        x = torch.from_numpy(native.decode(str(f))).to(dev)
+        h, w = x.shape[:2]
+        shapes.append((h, w))
+        blur = distortions.mild_blur(x, device=dev)
+        fog = distortions.mild_fog(blur, device=dev)
+        noise = distortions.mild_noise(fog, generator, device=dev)
+        hw = torch.tensor([[h, w]], device=dev)
+        for n, img in zip(names, (x, blur, fog, noise)):
+            stages[n].append(timage.resize_from_padded(img[None], hw, SIZE))
+    return [(n, torch.cat(v)) for n, v in stages.items()], shapes
+
+
+def check_b3_k5(dev, shapes, gen):
+    """B3 with the cascade's shared K=5 kernel against filter2d_plain on
+    seeded integer images at each of ``shapes`` (``[B, H, W, 3]``): max
+    error < 1e-3, and the uint8 after cvRound/saturate compared value by
+    value; each timed beside its bound, its plain version and cuDNN's
+    grouped convolution. Returns ``{shape: numbers}`` and the worst
+    error."""
+    import torch
+    import torch.nn.functional as F
+    from tsr_tpu_torch.kernels import blur as kblur
+    from tsr_tpu_torch.ops import blur as tblur
+    k = 5
+    k5 = tblur.motion_blur_kernel(k, 45.0, max_degree=k, device=dev)
+    out, worst = {}, 0.0
+    for shape in shapes:
+        b, h, w, c = shape
+        x = torch.randint(0, 256, shape, generator=gen, device=dev).to(
+            torch.float32)
+        kerns = k5.expand(b, k, k)
+        got = kblur.filter2d_dense(x, kerns)
+        ref = kblur.filter2d_plain(x, kerns)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        n_u8 = int((torch.round(got).clamp(0, 255)
+                    != torch.round(ref).clamp(0, 255)).sum())
+        check(err < 1e-3, f"B3 K=5 at {list(shape)} max err {err} >= 1e-3")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: kblur.filter2d_dense(x, kerns))
+        plain = cuda_ms(lambda: kblur.filter2d_plain(x, kerns))
+        xp = F.pad(x.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
+                   (k // 2, k - 1 - k // 2) * 2, mode="reflect")
+        weight = kerns.repeat_interleave(c, 0).reshape(b * c, 1, k, k)
+        lib = cuda_ms(lambda: F.conv2d(xp, weight, groups=b * c))
+        t_b, by = bound(2 * x.numel() * 4 + b * k * k * 4,
+                        2 * k * k * x.numel())
+        out[f"{b}x{h}x{w}x{c} K=5"] = dict(
+            max_abs_err=err, u8_differ=n_u8, ms=ms, plain_ms=plain,
+            library_ms=lib, bound_ms=t_b, bound_by=by)
+        print(f"B3 K=5 {list(shape)}: max err {err:.3g} (tol 1e-3), "
+              f"cvRound/saturate differs at {n_u8} of {x.numel()} values; "
+              f"{ms:.4f} ms, bound {t_b:.5f} ms ({by}), plain {plain:.4f} "
+              f"ms, cuDNN grouped conv {lib:.4f} ms")
+    return out, worst
+
+
+def small_cascade_check(dev):
+    """A small fp32 cascade on the card against the CPU (TF32 off): small
+    SimpleUNets (the fog one with input_minmax) and a narrow judge copied
+    to both, the same injected noise. The distorted stages within 1 LSB
+    (B3 on the card, the plain blur on the CPU); then, on the CPU's
+    distorted stages, preds equal at all 7 stages, confidences and the
+    restored stages within 1e-4."""
+    import torch
+    from tsr_tpu_torch import pipeline
+    from tsr_tpu_torch.models import SimpleUNet, VGG16
+    torch.manual_seed(SEED + 11)
+    cpu = {t: SimpleUNet((8, 16), input_minmax=t == "fog").eval()
+           for t in pipeline.RESTORATION_ORDER}
+    j_cpu = VGG16(num_classes=5, cfg=(16, "M", 32, "M", 32, "M"),
+                  fc_width=64, input_size=32).eval()
+    gpu = {t: copy.deepcopy(m).to(dev) for t, m in cpu.items()}
+    j_gpu = copy.deepcopy(j_cpu).to(dev)
+    g = torch.Generator().manual_seed(SEED + 12)
+    clean = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8,
+                          generator=g)
+    noise = torch.randn(clean.shape, generator=g)
+    ref = pipeline.cascade_stress(clean, cpu, j_cpu, noise=noise,
+                                  device="cpu")
+    drawn = pipeline.cascade_stress(clean, gpu, j_gpu, noise=noise,
+                                    device=dev)
+    lsb = max(int(abs(a.astype(int) - b.astype(int)).max())
+              for (_, a), (_, b) in zip(drawn["stages"][:4],
+                                        ref["stages"][:4]))
+    check(lsb <= 1, f"cascade distorted stages card vs CPU {lsb} LSB")
+    got = pipeline.cascade_stress(clean, gpu, j_gpu, device=dev,
+                                  precomputed_stages=ref["stages"][:4])
+    conf = max(float(abs(a - b).max()) for a, b in
+               zip(got["confidences"], ref["confidences"]))
+    rest = max(float(abs(a - b).max()) for (_, a), (_, b) in
+               zip(got["stages"][4:], ref["stages"][4:]))
+    same = all((a == b).all() for a, b in zip(got["preds"], ref["preds"]))
+    check(same, "cascade preds card vs CPU")
+    check(conf <= 1e-4, f"cascade confidence card vs CPU differs by {conf}")
+    check(rest <= 1e-4, f"cascade restored stages differ by {rest}")
+    print(f"cascade reference check (fp32, TF32 off, 8x32x32): distorted "
+          f"stages max {lsb} LSB (tol 1), preds equal at 7 stages, "
+          f"confidence max diff {conf:.3g} (tol 1e-4), restored stages max "
+          f"diff {rest:.3g} (tol 1e-4)")
+    return dict(distorted_max_lsb=lsb, confidence_max_diff=conf,
+                restored_max_diff=rest)
+
+
+def cascade_phase(dev, judge, rows, work):
+    """Phase 6: the specialized SimpleUNet restorers, trained and
+    checkpointed, then the cascade at full width, on the trees phase's
+    clean tree and its noise / blur / fog trees in ``work`` (made again if
+    missing). ``judge`` (the serving VGG16-D) goes through a ``.pth`` and
+    ``zoo.load_model`` in fp32, as scripts 07adv and 13 load it. Returns
+    the kernels' launches over the cascade runs; adds ``cascade_times``
+    and ``cascade_shapes`` to B3's row."""
+    import random
+
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import configs, losses, offline, pipeline, zoo
+    from tsr_tpu_torch.data import gtsrb
+    from tsr_tpu_torch.kernels import _build
+    from tsr_tpu_torch.train import common, loops
+    quiet = lambda line: None  # noqa: E731
+    clean_dir = work / "clean"
+    if not clean_dir.exists():
+        write_clean_tree(clean_dir)
+    for task in RESTORER_TASKS:
+        if not (work / task / ".distortion").exists():
+            offline.generate_tree(str(clean_dir), str(work / task), task,
+                                  seed=SEED, batch_size=TREE_BATCH,
+                                  log=quiet, device=dev)
+    pth = work / "vgg16_judge.pth"
+    torch.save(judge.state_dict(), pth)
+    judge32 = zoo.load_model("vgg16", str(pth), size=SIZE, device=dev)
+    check(judge32.dtype == torch.float32 and not judge32.training,
+          "the fp32 judge from zoo.load_model")
+
+    # -- the three specialized restorers (MSE, Adam 1e-3, fp32) -----------
+    train = {}
+    states = {}
+    for i, task in enumerate(RESTORER_TASKS):
+        t0 = time.perf_counter()
+        ds = gtsrb.PairedFolder(str(clean_dir), str(work / task), size=SIZE)
+        pairs = ds.load_batch(range(len(ds)))
+        load_s = time.perf_counter() - t0
+        check(len(ds) == TREE_IMAGES, f"{task}: {len(ds)} pairs")
+        splits = gtsrb.train_val_split(
+            len(ds), configs.RestorationTrainConfig().train_split, SEED)
+        ckpt = work / "ckpt" / task
+        state, rec, peak = fit_restorer(
+            dev, pairs, splits, ckpt,
+            restorer_provenance(work / task, task == "fog"),
+            epochs=RESTORER_EPOCHS, input_minmax=task == "fog", seed=i)
+        states[task] = (state, pairs, splits)
+        check((ckpt / "model").exists() and (ckpt / "train").exists(),
+              f"{task} checkpoint written")
+        train[task] = dict(images_per_sec=rec["images_per_sec"],
+                           seconds=rec["train_seconds"],
+                           steps=state.step, first_loss=rec["step_loss"][0],
+                           last_loss=rec["step_loss"][-1],
+                           val_loss=rec["val_loss"], peak_memory_gib=peak,
+                           pairs_load_seconds=load_s,
+                           config=zoo.checkpoint_config(str(ckpt)))
+        print(f"restorer {task} (fp32, TF32 off, batch 32, MSE, Adam 1e-3): "
+              f"{rec['images_per_sec']:.1f} images/s over {state.step} "
+              f"steps, loss {rec['step_loss'][0]:.5f} -> "
+              f"{rec['step_loss'][-1]:.5f}, val {rec['val_loss']:.5f}, peak "
+              f"{peak:.3f} GiB; pairs decoded in {load_s:.2f} s; config "
+              + json.dumps(train[task]["config"]))
+
+    # -- resume: the noise checkpoint continues its step count ------------
+    noise_state, pairs, (tr_idx, va_idx) = states["noise"]
+    torch.manual_seed(SEED + 20)
+    resumed = zoo.load_train_state(
+        str(work / "ckpt" / "noise"), common.create_restoration_state(
+            zoo.build_simple_unet(device=dev),
+            configs.RestorationTrainConfig()))
+    check(resumed.step == noise_state.step,
+          f"resumed at step {resumed.step}, saved {noise_state.step}")
+    for (n, a), (_, b) in zip(noise_state.model.state_dict().items(),
+                              resumed.model.state_dict().items()):
+        check(torch.equal(a, b), f"resumed weight {n}")
+    for a, b in zip(noise_state.optimizer.state.values(),
+                    resumed.optimizer.state.values()):
+        check(torch.equal(a["exp_avg_sq"], b["exp_avg_sq"]),
+              "resumed Adam moments")
+    resumed, _ = loops.train_restorer_on_device(
+        resumed, *pairs, tr_idx[:RESUME_STEPS * RESTORER_BATCH], va_idx, 1,
+        RESTORER_BATCH,
+        log=quiet, device=dev)
+    check(resumed.step == noise_state.step + RESUME_STEPS,
+          f"resume continued to step {resumed.step}")
+    print(f"resume: zoo.load_train_state at step {noise_state.step}, weights "
+          f"and Adam moments equal, {RESUME_STEPS} more steps -> step "
+          f"{resumed.step}")
+    del states, resumed
+
+    # -- bf16, TF32 (PyTorch's default), the advanced restorer ------------
+    bf16 = fit_restorer(dev, pairs, (tr_idx, va_idx), dtype="bf16",
+                        epochs=BF16_EPOCHS, seed=7)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = fit_restorer(dev, pairs, (tr_idx, va_idx), seed=8)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    vgg_apply = losses.perceptual_features(judge32)
+    adv = fit_restorer(dev, pairs,
+                       (tr_idx[:ADVANCED_STEPS * RESTORER_BATCH], va_idx),
+                       vgg_apply=vgg_apply, seed=9)
+    for name, (st, rec, peak) in (("bf16", bf16), ("fp32 TF32", tf32),
+                                  ("advanced", adv)):
+        train[name] = dict(images_per_sec=rec["images_per_sec"],
+                           seconds=rec["train_seconds"], steps=st.step,
+                           last_loss=rec["step_loss"][-1],
+                           val_loss=rec["val_loss"], peak_memory_gib=peak)
+        print(f"restorer {name} (noise pairs): {rec['images_per_sec']:.1f} "
+              f"images/s over the last epoch's {len(rec['step_loss'])} "
+              f"steps, last loss {rec['step_loss'][-1]:.5f}, peak "
+              f"{peak:.3f} GiB")
+    del bf16, tf32, adv
+    # where the device time of one specialized train step goes (diagnostic)
+    torch.manual_seed(SEED + 21)
+    st = common.create_restoration_state(zoo.build_simple_unet(device=dev),
+                                         configs.RestorationTrainConfig())
+    xb, yb = (torch.from_numpy(a[:RESTORER_BATCH]).to(dev) for a in pairs)
+    step = common.make_restoration_train_step("mse")
+    breakdowns = {"restorer train step (batch 32, fp32)": device_breakdown(
+        lambda: step(st, xb, yb))}
+    del st, xb, yb, pairs
+    check(train["advanced"]["steps"] == ADVANCED_STEPS, "advanced steps")
+
+    # -- load the checkpoints, label the variant --------------------------
+    restorers, cfgs = {}, {}
+    for task in RESTORER_TASKS:
+        path = str(work / "ckpt" / task)
+        restorers[task] = zoo.load_model("simple_unet", path, device=dev)
+        cfgs[task] = zoo.checkpoint_config(path)
+    check(restorers["fog"].input_minmax and not restorers["noise"]
+          .input_minmax, "input_minmax from config.json")
+    variant = pipeline.cascade_variant(cfgs)
+    print(f"cascade variant {variant[0]}: {variant[1]}")
+
+    # -- the cascade: a batch at 224, then script 13's native-size flow ---
+    folder = gtsrb.ImageFolder(str(clean_dir), size=SIZE)
+    batch = folder.load_batch(range(CASCADE_BATCH))[0]
+    files = sorted(offline.tree_files(str(clean_dir)))
+    picks = random.Random(SEED).sample(files, CASCADE_NATIVE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    pipeline.cascade_stress(batch, restorers, judge32, g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline.cascade_stress(batch, restorers, judge32, g, device=dev)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    peak_batch = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    stages, shapes = native_stages(dev, picks, g)
+    torch.cuda.synchronize()
+    stages_s = time.perf_counter() - t0
+    out_native = pipeline.cascade_stress(stages[0][1], restorers, judge32,
+                                         precomputed_stages=stages,
+                                         device=dev)
+    torch.cuda.synchronize()
+    native_s = time.perf_counter() - t0
+    peak_native = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    counts = _build.launch_counts()
+    check(counts == {"fog_noise": 0, "blur_sparse": 0,
+                     "blur_dense": 2 + CASCADE_NATIVE},
+          f"cascade launched {counts}, expected B3 once a batched cascade "
+          f"and once a native image")
+    for name, res, n in (("batched", out, CASCADE_BATCH),
+                         ("native", out_native, CASCADE_NATIVE)):
+        names = [s for s, _ in res["stages"]]
+        check(len(names) == 7 and all(
+            img.shape == (n, SIZE, SIZE, 3) for _, img in res["stages"]),
+            f"{name} cascade stages")
+        check([img.dtype for _, img in res["stages"]]
+              == [np.uint8] * 4 + [np.float32] * 3,
+              f"{name} cascade stage dtypes")
+        check(all(np.isfinite(c).all() for c in res["confidences"]),
+              f"{name} cascade confidences finite")
+    print(f"cascade batched ({CASCADE_BATCH} at {SIZE}, fp32): "
+          f"{CASCADE_BATCH / batch_s:.1f} images/s ({batch_s:.3f} s), peak "
+          f"{peak_batch:.3f} GiB; mean confidence "
+          + json.dumps(out["mean_confidence"]))
+    print(f"cascade native ({CASCADE_NATIVE} images distorted at native "
+          f"sizes {shapes}, resized on the card): {native_s:.3f} s "
+          f"({stages_s:.3f} s of it decode, distort and resize), peak "
+          f"{peak_native:.3f} GiB; mean confidence "
+          + json.dumps(out_native["mean_confidence"]))
+
+    # -- B3 at K=5, at every shape the phase ran --------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    k5_shapes = [(CASCADE_BATCH, SIZE, SIZE, 3)] + [
+        (1, h, w, 3) for h, w in shapes]
+    times, err = check_b3_k5(dev, k5_shapes, gen)
+    rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], err)
+    rows[2]["cascade_times"] = times
+    rows[2]["cascade_shapes"] = [f"{b}x{h}x{w}x{c}"
+                                 for b, h, w, c in k5_shapes]
+    breakdowns[f"batched cascade ({CASCADE_BATCH} at {SIZE}, fp32)"] = \
+        device_breakdown(lambda: pipeline.cascade_stress(
+            batch, restorers, judge32, g, device=dev))
+    profiles = {}
+    for label, breakdown in breakdowns.items():
+        if breakdown is None:
+            continue
+        prof_rows, busy, n_kernels, wall, all_rows = breakdown
+        profiles[label] = dict(busy_ms=busy, wall_ms=wall,
+                               kernels=n_kernels)
+        print(f"profile of one {label}: device busy {busy:.3f} ms over "
+              f"{wall:.3f} ms wall; {n_kernels} device kernels")
+        print("  by kind (approximate, by kernel name): "
+              + kinds_line(all_rows, busy))
+        for kname, ms, n in prof_rows[:8]:
+            print(f"  {ms:8.3f} ms {n:4d}x  {kname[:110]}")
+    reference = small_cascade_check(dev)
+    flops = model_flops()
+    print("forward FLOPs of one image: " + json.dumps(flops))
+
+    summary = {
+        "path": "PairedFolder -> train_restorer_on_device (noise, blur, "
+                "fog; bf16; TF32; advanced) -> checkpoints -> "
+                "zoo.load_model -> cascade_stress (batched, native)",
+        "size": SIZE, "batch": RESTORER_BATCH, "epochs": RESTORER_EPOCHS,
+        "train": train, "variant": variant[0],
+        "cascade_batch": CASCADE_BATCH,
+        "cascade_batched_images_per_sec": CASCADE_BATCH / batch_s,
+        "cascade_batched_seconds": batch_s,
+        "cascade_batched_peak_memory_gib": peak_batch,
+        "cascade_native_images": CASCADE_NATIVE,
+        "cascade_native_seconds": native_s,
+        "cascade_native_stages_seconds": stages_s,
+        "cascade_native_peak_memory_gib": peak_native,
+        "native_shapes": shapes,
+        "mean_confidence_batched": out["mean_confidence"],
+        "mean_confidence_native": out_native["mean_confidence"],
+        "launches": counts, "card_vs_cpu": reference, "profiles": profiles,
+        "forward_flops_per_image": flops}
+    print("cascade: " + json.dumps(summary))
+    return counts
 
 
 def main() -> int:
@@ -1247,9 +1712,12 @@ def run(dev) -> None:
     train_counts = train_phase(dev, judge)
     small_train_check(dev)
 
-    # -- 5. the file-tree pipeline at full width -----------------------------
-    tree_counts, tree_shapes = trees_phase(dev, resunet, judge, rows,
-                                           restored["images_per_sec"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # -- 5. the file-tree pipeline at full width -------------------------
+        tree_counts, tree_shapes = trees_phase(
+            dev, resunet, judge, rows, restored["images_per_sec"], Path(tmp))
+        # -- 6. the SimpleUNet restorers and the cascade ---------------------
+        cascade_counts = cascade_phase(dev, judge, rows, Path(tmp))
 
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
@@ -1258,6 +1726,8 @@ def run(dev) -> None:
         row["launches_train"] = train_counts[key]
         row["launches_trees"] = tree_counts[key]
         row["tree_shapes"] = tree_shapes.get(key, [])
+        row["launches_cascade"] = cascade_counts[key]
+        row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

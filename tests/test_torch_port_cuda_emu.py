@@ -203,6 +203,28 @@ def test_blur_taps_kernel_at_offline_bucket_shapes(on_emulated_card, variant,
     assert _build.launch_counts()[f"blur_{variant}"] == 1
 
 
+@pytest.mark.parametrize("b,h,w,c", [(1, 37, 29, 3), (1, 3, 17, 3),
+                                     (2, 61, 58, 3)],
+                         ids=["ragged-native", "3px-side", "two-bands"])
+def test_blur_dense_k5_at_cascade_shapes(on_emulated_card, b, h, w, c):
+    """B3 through ops.blur.filter2d with the cascade's shared K=5 kernel
+    (mild_blur: degree 5 at 45 degrees), which takes the run-time-K
+    instance: at a ragged native shape, at a 3-pixel side (the smallest
+    the reflect-101 border allows for K=5) and across two column bands,
+    within 1e-3 of the plain version, the same uint8 after
+    cvRound/saturate, one B3 launch a call."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randint(0, 256, (b, h, w, c), generator=g).to(torch.float32)
+    k5 = tblur.motion_blur_kernel(5, 45.0, max_degree=5)
+    got = tblur.filter2d(x, k5)
+    ref = kblur.filter2d_plain(x, k5.expand(b, 5, 5))
+    assert (got - ref).abs().max().item() < 1e-3
+    assert torch.equal(torch.round(got).clamp(0, 255),
+                       torch.round(ref).clamp(0, 255))
+    assert _build.launch_counts() == {"fog_noise": 0, "blur_sparse": 0,
+                                      "blur_dense": 1}
+
+
 @pytest.mark.parametrize("b,h,w,c,k", [(4, 20, 60, 3, 15), (4, 18, 37, 3, 5)],
                          ids=["vector-rows", "scalar-rows"])
 @pytest.mark.parametrize("variant", ["sparse", "dense"])

@@ -22,7 +22,7 @@ from tsr_tpu.models import ResUNet as JResUNet
 from tsr_tpu.models import VGG16 as JVGG16
 from tsr_tpu.ops import distortions as jdist
 from tsr_tpu.ops import image as jimage
-from tsr_tpu_torch import checkpoint, configs
+from tsr_tpu_torch import checkpoint, configs, zoo
 from tsr_tpu_torch import eval as teval
 from tsr_tpu_torch import infer as tinfer
 from tsr_tpu_torch import offline as toffline
@@ -279,7 +279,8 @@ def test_import_pulls_in_no_jax():
         "import tsr_tpu_torch.losses, tsr_tpu_torch.train.common\n"
         "import tsr_tpu_torch.train.loops, tsr_tpu_torch.native\n"
         "import tsr_tpu_torch.data.gtsrb, tsr_tpu_torch.offline\n"
-        "import tsr_tpu_torch.infer\n"
+        "import tsr_tpu_torch.infer, tsr_tpu_torch.models.unet\n"
+        "import tsr_tpu_torch.zoo\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tsr_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
@@ -310,6 +311,14 @@ def _entry_points():
         "generate_tree": lambda: toffline.generate_tree("a", "b", "blur"),
         "restore_tree": lambda: tinfer.restore_tree(tr, "a", "b"),
         "evaluate_directory": lambda: teval.evaluate_directory(tj, "a"),
+        "mild_blur": lambda: tdist.mild_blur(img),
+        "cascade_stress": lambda: tpipeline.cascade_stress(
+            img, {t: tr for t in tpipeline.RESTORATION_ORDER}, tj),
+        "train_restorer_on_device": lambda: tloops.train_restorer_on_device(
+            tcommon.create_restoration_state(
+                tr, configs.RestorationTrainConfig()), img, img,
+            np.arange(2), np.arange(2), 1, 2),
+        "load_model": lambda: zoo.load_model("simple_unet", None),
     }
 
 
@@ -334,7 +343,9 @@ def test_default_cuda_device_names_the_current_card(monkeypatch):
 
 
 def test_configs_match_jax():
-    """The port's own copy of the configuration carries the same values."""
+    """The port's own copy of the configuration carries the same values,
+    field for field (the cascade's mild distortions and the specialized
+    and advanced restorer trainers included)."""
     assert configs.IMAGE_SIZE == jconfigs.IMAGE_SIZE
     assert configs.NUM_CLASSES == jconfigs.NUM_CLASSES
     assert configs.IMAGENET_MEAN == jconfigs.IMAGENET_MEAN
@@ -348,6 +359,11 @@ def test_configs_match_jax():
                        jconfigs.RandomMixConfig()),
                       (configs.UnifiedTrainConfig(),
                        jconfigs.UnifiedTrainConfig()),
+                      (configs.MildConfig(), jconfigs.MildConfig()),
+                      (configs.RestorationTrainConfig(),
+                       jconfigs.RestorationTrainConfig()),
+                      (configs.AdvancedTrainConfig(),
+                       jconfigs.AdvancedTrainConfig()),
                       (configs.UnifiedTrainConfig().mix,
                        jconfigs.UnifiedTrainConfig().mix)):
         for k, v in vars(ours).items():

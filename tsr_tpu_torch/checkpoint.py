@@ -83,6 +83,22 @@ def resunet_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def simple_unet_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``tsr_tpu.models.SimpleUNet`` variables -> ``tsr_tpu_torch``
+    SimpleUNet state dict (the reference's torch names, ref:07:75-120:
+    ``enc1.0.weight``, ``up2.weight``, ``final.bias``, ...)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in variables["params"].items():
+        if re.fullmatch(r"up\d+", name):
+            _add(sd, name, _conv_t(p))
+        elif name == "final":
+            _add(sd, name, _conv(p))
+        else:  # a DoubleConv: Sequential(conv, relu, conv, relu)
+            _add(sd, f"{name}.0", _conv(p["conv1"]))
+            _add(sd, f"{name}.2", _conv(p["conv2"]))
+    return sd
+
+
 def vgg16_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``tsr_tpu.models.VGG16`` variables -> ``tsr_tpu_torch`` VGG16 state
     dict (torchvision names; the bn variant's BN layers included)."""

@@ -2,8 +2,9 @@
 
 The port's own copy of ``tsr_tpu/configs.py`` (image size, class count,
 ImageNet statistics, the single distortions, the compound chain, the
-random mix, the unified trainer and the eval batch), with the reference
-scripts' values as defaults.
+random mix, the cascade's mild distortions, the specialized, advanced and
+unified trainers and the eval batch), with the reference scripts' values
+as defaults.
 """
 
 from __future__ import annotations
@@ -73,6 +74,40 @@ class RandomMixConfig:
     # UnifiedTrainConfig.mix enables (40, 56, 80, 112), spanning the
     # stand-in's (and GTSRB's) native crop sizes.
     apply_scales: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class MildConfig:
+    """Milder step-by-step params for the cascade stress test (ref:13:33-56)."""
+    noise_var: float = 0.01      # ref:13:36
+    blur_degree: int = 5         # ref:13:41
+    blur_angle: float = 45.0
+    fog_intensity: float = 0.1   # ref:13:51 (t = 1 - intensity, no jitter)
+    fog_atmosphere: float = 0.9
+
+
+@dataclasses.dataclass(frozen=True)
+class RestorationTrainConfig:
+    """Specialized per-task SimpleUNet trainer, MSE + Adam (ref:07:17-21, 07:142-143)."""
+    task: str = "noise"          # 'noise' | 'blur' | 'fog' (ref:07:15)
+    batch_size: int = 32
+    epochs: int = 15
+    learning_rate: float = 1e-3
+    train_split: float = 0.9     # ref:07:133-135
+    checkpoint_every: int = 5    # ref:07:177
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AdvancedTrainConfig:
+    """Perceptual-loss SimpleUNet trainer (ref:07adv:19-23, 150-154)."""
+    task: str = "blur"
+    batch_size: int = 32
+    epochs: int = 15
+    learning_rate: float = 2e-4  # ref:07adv:19
+    perceptual_weight: float = 0.1  # ref:07adv:23
+    train_split: float = 0.9
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,9 @@ runs:
   the cv2.INTER_LINEAR convention, within 1 LSB of ``cv2.resize``);
 - :class:`ImageFolder`: torchvision ``ImageFolder`` semantics (ref:05:32,
   06:39), classes the sorted subdirectory names, samples sorted per class;
+- :class:`PairedFolder`: the restorers' (distorted, clean) pairs, matched
+  by relative path with a ``.png`` fallback (ref:07:35-72), and
+  :func:`train_val_split`;
 - :func:`batches`: an epoch-based batch iterator with a background
   prefetch thread, standing in for DataLoader workers (ref:05:39, 07:137).
 
@@ -74,6 +77,53 @@ class ImageFolder:
         paths = [self.samples[i][0] for i in indices]
         labels = np.asarray([self.samples[i][1] for i in indices], np.int32)
         return _decode_resize_batch(paths, self.size), labels
+
+
+class PairedFolder:
+    """(distorted, clean) pairs matched by relative path with ``.png``
+    fallback (ref:07:44-55)."""
+
+    def __init__(self, clean_root: str, distorted_root: str,
+                 size: int = configs.IMAGE_SIZE,
+                 exts: Sequence[str] = (".ppm",)):
+        self.size = size
+        clean_root = Path(clean_root)
+        distorted_root = Path(distorted_root)
+        clean_files: List[Path] = []
+        for ext in exts:
+            clean_files += list(clean_root.glob(f"*/*{ext}"))
+        self.pairs: List[Tuple[str, str]] = []
+        for c_path in sorted(clean_files):
+            rel = c_path.relative_to(clean_root)
+            d_path = distorted_root / rel
+            if not d_path.exists():
+                d_path = d_path.with_suffix(".png")
+            if d_path.exists():
+                self.pairs.append((str(d_path), str(c_path)))
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def load(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        d, c = self.pairs[idx]
+        return (_decode_resize(d, self.size), _decode_resize(c, self.size))
+
+    def load_batch(self, indices) -> Tuple[np.ndarray, np.ndarray]:
+        """``(distorted, clean)`` uint8 ``[N, size, size, 3]`` batches."""
+        d_paths = [self.pairs[i][0] for i in indices]
+        c_paths = [self.pairs[i][1] for i in indices]
+        return (_decode_resize_batch(d_paths, self.size),
+                _decode_resize_batch(c_paths, self.size))
+
+
+def train_val_split(n: int, train_frac: float, seed: int = 0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Random index split like torch.random_split (ref:05:35-37): numpy's
+    ``default_rng(seed).permutation(n)``, the first ``int(train_frac *
+    n)`` for training."""
+    perm = np.random.default_rng(seed).permutation(n)
+    k = int(train_frac * n)
+    return perm[:k], perm[k:]
 
 
 def batches(

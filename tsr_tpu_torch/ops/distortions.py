@@ -1,6 +1,6 @@
 """Batched distortion simulators.
 
-Port of ``tsr_tpu/ops/distortions.py`` without the ``mild_*`` variants:
+Port of ``tsr_tpu/ops/distortions.py``:
 
 - AWGN (ref:02:12-27), motion blur (ref:03:11-30) and fog (ref:04:12-31),
   the offline generator's single distortions;
@@ -9,7 +9,8 @@ Port of ``tsr_tpu/ops/distortions.py`` without the ``mild_*`` variants:
   on kernels B1 (fog + noise) and B2/B3 (blur);
 - the same mix at emulated native resolutions, and the training pair built
   from it (ref:14:75-93);
-- demo compound chain (ref:15:93-120, Fog -> Noise -> Blur).
+- demo compound chain (ref:15:93-120, Fog -> Noise -> Blur);
+- the cascade stress test's mild step-wise variants (ref:13:33-56).
 
 Public functions take uint8 ``[B, H, W, C]`` batches (a single ``[H, W,
 C]`` image is promoted) and return uint8, preserving the reference's
@@ -374,3 +375,38 @@ def make_compound_distortion(
     blurred = blur_ops.filter2d(u8.to(torch.float32), kernel)
     out = image_ops.saturate_uint8(blurred, round=True)
     return out[0] if squeeze else out
+
+
+# --------------------------------------------------------------------------
+# Mild step-wise variants for the cascade stress test (ref:13:33-56)
+# --------------------------------------------------------------------------
+
+def mild_noise(images_u8, generator: Optional[torch.Generator] = None,
+               cfg: configs.MildConfig = configs.MildConfig(),
+               device="cuda", noise=None) -> torch.Tensor:
+    """ref:13:33-38: ``img/255 + sqrt(var) * N(0,1)``, clipped to [0, 1]
+    and trunc-cast (no wrap quirk). ``noise`` is an optional pre-drawn
+    N(0,1) field, else drawn from ``generator``."""
+    device = resolve_device(device)
+    x, squeeze = _batched(images_u8, device)
+    f = image_ops.to_float01(x)
+    out = f + _std(cfg.noise_var) * _normal(f.shape, generator, device, noise)
+    out = torch.trunc(image_ops.scale255(out.clamp(0.0, 1.0))).to(torch.uint8)
+    return out[0] if squeeze else out
+
+
+def mild_blur(images_u8, cfg: configs.MildConfig = configs.MildConfig(),
+              device="cuda") -> torch.Tensor:
+    """ref:13:40-47: filter2D with one shared degree-5 kernel (B3 on the
+    card, at run-time K), no renormalize, stays uint8."""
+    return apply_motion_blur(images_u8, cfg.blur_degree, cfg.blur_angle,
+                             minmax_normalize=False, device=device)
+
+
+def mild_fog(images_u8, cfg: configs.MildConfig = configs.MildConfig(),
+             device="cuda") -> torch.Tensor:
+    """ref:13:49-55: fog with a fixed ``t = 1 - intensity`` (no jitter,
+    no clip)."""
+    return add_fog(images_u8, fog_intensity=cfg.fog_intensity,
+                   atmosphere=cfg.fog_atmosphere, t_jitter=None, t_clip=None,
+                   device=device)

@@ -1,2 +1,2 @@
-"""Training: the unified ResUNet step (``common``) and its trainer
+"""Training: the restorers' train steps (``common``) and their trainers
 (``loops``)."""

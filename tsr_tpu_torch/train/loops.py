@@ -1,24 +1,32 @@
-"""The unified ResUNet trainer with the clean set on the device.
+"""The restorers' trainers with their data on the device.
 
-Port of ``tsr_tpu/train/loops.py::train_unified_on_device`` (ref:14:227-267):
-the clean uint8 set is uploaded once, each epoch gathers its batches on the
-device from a fresh permutation, the random mix runs on the device inside
-each step, and the validation loss is summed over a padded, masked val set.
-Best/periodic checkpoints and resume are not ported yet: the trainer returns
-its state and the per-epoch losses.
+Port of ``tsr_tpu/train/loops.py``'s device-resident restorer loops:
+
+- :func:`train_restorer_on_device` (ref:07:122-181, ref:07adv:115-182):
+  the specialized and advanced SimpleUNets on stored (distorted, clean)
+  uint8 pairs, both trees uploaded once, with periodic and best
+  checkpoints (``zoo.save_checkpoint``);
+- :func:`train_unified_on_device` (ref:14:227-267): the clean uint8 set
+  uploaded once, the random mix on the device inside each step; it returns
+  its state and per-epoch losses and writes no checkpoint.
+
+Each epoch gathers its batches on the device from a fresh permutation, and
+the validation loss is summed over a padded, masked val set.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tsr_tpu_torch import configs
+from tsr_tpu_torch import configs, zoo
 from tsr_tpu_torch.device import as_tensor, resolve_device
 from tsr_tpu_torch.ops import distortions
+from tsr_tpu_torch.ops import image as image_ops
 from tsr_tpu_torch.train import common
 
 
@@ -54,6 +62,124 @@ def _per_sample_restoration_loss(pred, clean01, pixel, perceptual_weight,
         d = vgg_apply(pred) - vgg_apply(clean01)
         pix = pix + perceptual_weight * (d ** 2).mean(dim=(1, 2, 3))
     return pix
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _epoch_record(epoch: int, per_step: Dict[str, List[float]],
+                  val_loss: float, seconds: float, images: int) -> Dict:
+    """One epoch's entry of a trainer's history."""
+    return {"epoch": epoch + 1,
+            "train_loss": float(np.mean(per_step["loss"])),
+            "step_loss": per_step["loss"],
+            "pixel_loss": per_step["pixel_loss"],
+            "perceptual_loss": per_step.get("perceptual_loss", []),
+            "val_loss": val_loss, "train_seconds": seconds,
+            "images_per_sec": images / max(seconds, 1e-9)}
+
+
+def train_restorer_on_device(
+    state: common.TrainState,
+    bad_u8,
+    clean_u8,
+    tr_idx,
+    va_idx,
+    epochs: int,
+    batch_size: int,
+    pixel: str = "mse",
+    perceptual_weight: float = 0.1,
+    vgg_apply: Optional[Callable] = None,
+    save_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    save_best: bool = False,
+    log: Callable[[str], None] = print,
+    ckpt_config: Optional[dict] = None,
+    seed: int = 0,
+    device="cuda",
+) -> Tuple[common.TrainState, List[Dict]]:
+    """Specialized (MSE / Adam, ref:07:122-181) or advanced (L1 +
+    perceptual / Adam, ref:07adv:115-182) restorer training with both
+    uint8 trees on ``device``. ``state.model`` (and ``vgg_apply``'s net)
+    must already live there.
+
+    Each epoch takes a permutation of ``tr_idx`` from one host generator
+    seeded with ``seed`` (the same order on any device) and runs
+    ``len(tr_idx) // batch_size`` steps, the remainder dropped. With
+    ``save_path``: ``checkpoint_every`` writes the state through to disk
+    every that many epochs (ref:07:177-178); ``save_best`` snapshots the
+    state with the lowest validation loss on the device and writes it once
+    at the end (ref:14:265-267); with neither, the final state is written.
+
+    Returns ``(state, history)``: one dict per epoch with ``train_loss``
+    (mean over steps), the per-step ``step_loss`` (and ``pixel_loss`` /
+    ``perceptual_loss``) lists, ``val_loss`` (mean per validation image,
+    model in eval mode), ``train_seconds`` (the epoch's steps, closed by a
+    device synchronise) and ``images_per_sec`` over them.
+    """
+    device = resolve_device(device)
+    bs = batch_size
+    bad_d = as_tensor(bad_u8, device)
+    clean_d = as_tensor(clean_u8, device)
+    tr_idx = torch.as_tensor(np.asarray(tr_idx, np.int64))
+    steps = len(tr_idx) // bs
+    if steps == 0:
+        raise ValueError(f"fewer than one batch: {len(tr_idx)} < {bs}")
+    va_pad, va_mask = _val_wrap_pad(va_idx, bs)
+    n_val = len(va_idx)
+    va_pad_d = torch.as_tensor(va_pad, device=device)
+    va_mask_d = torch.as_tensor(va_mask, device=device)
+
+    step_fn = common.make_restoration_train_step(pixel, perceptual_weight,
+                                                 vgg_apply)
+    host = torch.Generator().manual_seed(seed)
+    best_loss, best_tree = float("inf"), None
+    history = []
+    for epoch in range(epochs):
+        perm = torch.randperm(len(tr_idx), generator=host)
+        batches = tr_idx[perm[:steps * bs]].reshape(steps, bs).to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        auxes = [step_fn(state, bad_d.index_select(0, b),
+                         clean_d.index_select(0, b)) for b in batches]
+        per_step = {k: torch.stack([a[k] for a in auxes]).tolist()
+                    for k in auxes[0]}  # one device synchronise
+        dt = time.perf_counter() - t0
+
+        state.model.eval()
+        tot = torch.zeros((), device=device)
+        with torch.no_grad():
+            for bidx, mask in zip(va_pad_d, va_mask_d):
+                xb = image_ops.to_float01(bad_d.index_select(0, bidx))
+                yb = image_ops.to_float01(clean_d.index_select(0, bidx))
+                pred = state.model(xb.permute(0, 3, 1, 2))
+                ls = _per_sample_restoration_loss(
+                    pred, yb.permute(0, 3, 1, 2), pixel, perceptual_weight,
+                    vgg_apply)
+                tot += (ls * mask).sum()
+        state.model.train()
+        vl = tot.item() / n_val
+        rec = _epoch_record(epoch, per_step, vl, dt, steps * bs)
+        history.append(rec)
+        log(f"Epoch {epoch + 1}/{epochs} train loss {rec['train_loss']:.6f} "
+            f"({rec['images_per_sec']:.1f} img/s, train steps only)")
+        log(f"  val loss {vl:.6f}")
+        if save_path:
+            if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+                zoo.save_checkpoint(save_path, state, ckpt_config)
+            if save_best and vl < best_loss:
+                best_loss = vl
+                best_tree = copy.deepcopy(zoo.state_tree(state))
+                log("  new best (val loss)")
+    if save_path:
+        if save_best and best_tree is not None:
+            zoo.save_checkpoint(save_path, best_tree, ckpt_config)
+            log(f"saved best checkpoint (val loss {best_loss:.6f})")
+        elif not save_best:
+            zoo.save_checkpoint(save_path, state, ckpt_config)
+    return state, history
 
 
 def auto_remat(cfg: configs.UnifiedTrainConfig, vgg_apply) -> object:
@@ -112,13 +238,9 @@ def train_unified_on_device(
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=host))
         return torch.Generator(device=device).manual_seed(seed)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     history = []
     for epoch in range(cfg.epochs):
-        sync()
+        _sync(device)
         t0 = time.perf_counter()
         perm = torch.randperm(len(tr_idx_d), generator=child(), device=device)
         batches = tr_idx_d[perm[:steps * bs]].reshape(steps, bs)
@@ -144,13 +266,7 @@ def train_unified_on_device(
                 tot += (ls * mask).sum()
         state.model.train()
         vl = tot.item() / n_val
-        rec = {"epoch": epoch + 1,
-               "train_loss": float(np.mean(per_step["loss"])),
-               "step_loss": per_step["loss"],
-               "pixel_loss": per_step["pixel_loss"],
-               "perceptual_loss": per_step.get("perceptual_loss", []),
-               "val_loss": vl, "train_seconds": dt,
-               "images_per_sec": steps * bs / max(dt, 1e-9)}
+        rec = _epoch_record(epoch, per_step, vl, dt, steps * bs)
         history.append(rec)
         log(f"Epoch {epoch + 1}/{cfg.epochs} train loss "
             f"{rec['train_loss']:.5f} ({rec['images_per_sec']:.1f} img/s, "
