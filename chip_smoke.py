@@ -64,9 +64,31 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    at every native shape the phase ran, and timed beside its bound, its
    plain version and cuDNN's grouped convolution; a small fp32 cascade on
    the card against the CPU.
-7. One JSON line of the kernels (with ``launches_trees``, ``tree_shapes``,
-   ``launches_cascade`` and ``cascade_shapes``), the card's line, and the
-   final ``{"ok": true, ...}`` line.
+7. The judge's trainers and the interpretability arm (``judge_phase``,
+   scripts 05 -> 11 -> 12), on the trees phase's clean tree, its noise /
+   blur / fog trees and the cascade phase's restorer checkpoints, with
+   launch counts zeroed just before and read just after (none of its
+   modules runs a TPU kernel): ``data.gtsrb.ImageFolder.load_batch`` and
+   ``train_val_split(0.8)``; ``train.loops.train_judge_on_device`` on
+   VGG16-D (FC 4096, 43 classes, 224) in bf16 with AdamW 3e-4, warmup and
+   clipping at batch 64 (bench.py's judge shape) for JUDGE_EPOCHS epochs
+   with a best checkpoint, its log lines and a synchronised window per
+   epoch, then bench.py's measure (a JUDGE_WINDOW_STEPS-step window) and
+   a profiled step; one epoch of the reference recipe (SGD 1e-3, momentum
+   0.9, fp32) and one of a batch-norm judge in bf16 (profiled); one
+   host-streamed epoch of ``train.loops.train_judge`` on
+   ``data.gtsrb.batches``; resume through ``zoo.load_train_state`` and
+   the best checkpoint through ``zoo.load_model``; one small judge step on
+   the card against the CPU; ``infer.restore_tree`` on script 12's
+   sampled files of each task, script 11's {clean, distorted, restored}
+   heatmaps at ``tap_index(HIDDEN_STATE_TAP)`` on the card and the CPU;
+   script 12's UMAP_SAMPLES files of 7 modes through
+   ``interpret.collect_mode_embeddings``, ``project_2d("umap")`` and
+   ``export_embeddings_pt``, reloaded against the fixture's schema.
+   ``judge:`` and ``interpret:`` JSON lines.
+8. One JSON line of the kernels (with ``launches_trees``, ``tree_shapes``,
+   ``launches_cascade``, ``cascade_shapes`` and ``launches_judge``), the
+   card's line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -114,6 +136,13 @@ BF16_EPOCHS = 2              # the bf16 rerun: epoch 2 is timed warm
 RESUME_STEPS = 2
 CASCADE_BATCH = 64           # the batched cascade (EvalConfig's batch)
 CASCADE_NATIVE = 10          # script 13's --num-samples, at native sizes
+# the judge phase: script 05 at bench.py's judge shape (batch 64, AdamW
+# 3e-4 with warmup and clipping, bf16) on the trees cell's clean tree, then
+# scripts 11 and 12
+JUDGE_BATCH, JUDGE_LR = 64, 3e-4
+JUDGE_EPOCHS = 3             # in place of script 05's 10
+JUDGE_WINDOW_STEPS = 10      # bench.py's train-step window
+UMAP_SAMPLES = 100           # script 12's --samples-per-mode
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published peak
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 
@@ -1551,6 +1580,440 @@ def cascade_phase(dev, judge, rows, work):
     return counts
 
 
+def small_judge_check(dev):
+    """One judge train step on CUDA vs the CPU's plain path: fp32, TF32
+    off, a narrow batch-norm judge at 8x32x32 with dropout off, copied to
+    both. The loss within 1e-5 relative, the gradients as ``_grads_close``
+    holds them at 1e-4 and the running statistics within 1e-5 of the
+    layer's largest (and at least 1)."""
+    import torch
+    from tsr_tpu_torch.models import VGG16
+    from tsr_tpu_torch.train import common
+
+    class Capture(torch.optim.SGD):
+        """Leaves the parameters as they are; keeps the step's gradients."""
+
+        def __init__(self, params):
+            super().__init__(params, lr=0.0)
+            self.grads = None
+
+        def step(self, closure=None):
+            self.grads = [p.grad.clone() for g in self.param_groups
+                          for p in g["params"]]
+
+    torch.manual_seed(SEED + 30)
+    cpu = VGG16(num_classes=5, cfg=(16, "M", 32, "M"), fc_width=32,
+                input_size=32, use_batchnorm=True, dropout_rate=0.0)
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(SEED + 31)
+    images = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8,
+                           generator=g)
+    labels = torch.randint(0, 5, (8,), generator=g)
+    step = common.make_judge_train_step()
+    out = {}
+    for name, model, d in (("cpu", cpu, torch.device("cpu")),
+                           ("gpu", gpu, dev)):
+        opt = Capture(model.parameters())
+        state = common.TrainState(model, opt, torch.optim.lr_scheduler.
+                                  LambdaLR(opt, lambda c: 1.0))
+        out[name] = step(state, images.to(d), labels.to(d))["loss"].item()
+        for p, grad in zip(model.parameters(), opt.grads):
+            p.grad = grad
+    rel = abs(out["gpu"] - out["cpu"]) / abs(out["cpu"])
+    check(rel <= 1e-5, f"judge step loss differs by {rel} relative")
+    worst = _grads_close("judge step CUDA vs CPU", gpu, cpu, 1e-4)
+    stats = 0.0
+    for (n, a), (_, b) in zip(cpu.named_buffers(), gpu.named_buffers()):
+        if n.endswith(("running_mean", "running_var")):
+            err = (b.cpu() - a).abs().max().item()
+            check(err <= 1e-5 * max(1.0, a.abs().max().item()),
+                  f"judge step {n} differs by {err}")
+            stats = max(stats, err)
+    print(f"judge-step reference check (fp32, TF32 off, bn judge, 8x32x32): "
+          f"loss {out['gpu']:.6g} vs {out['cpu']:.6g} ({rel:.3g} relative, "
+          f"tol 1e-5), worst gradient {worst:.3g} of its tensor's largest "
+          f"(tol 1e-4), running stats max diff {stats:.3g} (tol 1e-5)")
+    return dict(loss_rel=rel, worst_grad=worst, stats_max_diff=stats)
+
+
+def fit_judge(dev, folder_arrays, splits, cfg, dtype, use_batchnorm=False,
+              ckpt=None, seed=0):
+    """A VGG16-D judge from a seed trained by ``train_judge_on_device``
+    with ``cfg`` (checkpointed to ``ckpt`` with script 05's config when
+    given). Checks finite losses, the step count, that every parameter got
+    a nonzero gradient into its optimizer state and, under AdamW, moved
+    (SGD at 1e-3 may move a parameter by less than its float32 spacing);
+    a conv bias that feeds a batch norm, whose gradient is exactly 0, is
+    left out. Returns (state, best_acc, record): the
+    trainer's log lines, each epoch's images/s from its log line and from
+    a synchronised window between log lines (the epoch's steps and
+    validation: the trainer reads its metrics back at the end of each
+    epoch), the losses and the peak memory."""
+    import re
+
+    import torch
+    from tsr_tpu_torch import zoo
+    from tsr_tpu_torch.train import common, loops
+    images, labels = folder_arrays
+    tr_idx, va_idx = splits
+    torch.manual_seed(SEED + seed)
+    judge = zoo.build_judge(TREE_CLASSES, use_batchnorm, dtype, SIZE,
+                            device=dev)
+    state = common.create_judge_state(judge, cfg)
+    before = {k: v.clone() for k, v in judge.state_dict().items()
+              if v.is_floating_point()}
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stamps.append((time.perf_counter(), "start"))
+    state, best = loops.train_judge_on_device(
+        state, images, labels, tr_idx, va_idx, cfg,
+        save_path=None if ckpt is None else str(ckpt),
+        log=lambda line: stamps.append((time.perf_counter(), line)),
+        ckpt_config={"kind": "vgg16", "num_classes": TREE_CLASSES,
+                     "use_batchnorm": use_batchnorm}, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    lines = [line for _, line in stamps[1:]]
+    steps = len(tr_idx) // cfg.batch_size
+    epoch_at = [i for i, (_, line) in enumerate(stamps)
+                if line.startswith("Epoch ")]
+    window = [steps * cfg.batch_size / (stamps[i][0] - stamps[i - 1][0])
+              for i in epoch_at]
+    logged = [float(re.search(r"\(([\d.]+) img/s\)", stamps[i][1]).group(1))
+              for i in epoch_at]
+    losses_ = [float(re.search(r"train loss (\S+)", stamps[i][1]).group(1))
+               for i in epoch_at]
+    best_epoch = max((k + 1 for k, i in enumerate(epoch_at)
+                      if i + 2 < len(stamps)
+                      and "new best" in stamps[i + 2][1]), default=0)
+    check(len(losses_) == cfg.epochs and all(map(math.isfinite, losses_)),
+          f"finite judge losses {losses_}")
+    check(state.step == cfg.epochs * steps, f"judge took {state.step} steps")
+    from tsr_tpu_torch.models.layers import batchnorm_fed_biases
+    fed = batchnorm_fed_biases(state.model)
+    after = state.model.state_dict()
+    still = [k for k, v in before.items()
+             if k not in fed and torch.equal(v, after[k])]
+    moment = "exp_avg_sq" if cfg.optimizer == "adamw" else "momentum_buffer"
+    unreached = [n for n, p in state.model.named_parameters() if n not in fed
+                 and not state.optimizer.state[p][moment].any().item()]
+    check(not unreached, f"judge parameters with no gradient: {unreached}")
+    check(not still or cfg.optimizer != "adamw",
+          f"judge parameters that did not move: {still}")
+    check(0.0 <= best <= 1.0, f"best val acc {best}")
+    return state, best, dict(unmoved=still,
+        log=lines, images_per_sec_logged=logged,
+        images_per_sec_window=window, train_loss=losses_, best_acc=best,
+        best_epoch=best_epoch, steps=state.step, peak_memory_gib=peak)
+
+
+def train_step_window(dev, state, images, labels, steps):
+    """bench.py's judge number: images/s of ``steps`` judge train steps on
+    batches already on the card (one warm-up step, then a window closed by
+    a CUDA synchronise)."""
+    import torch
+    from tsr_tpu_torch.train import common
+    bs = JUDGE_BATCH
+    idx = torch.arange(bs * (steps + 1)) % len(images)
+    x = torch.from_numpy(images)[idx].to(dev)
+    y = torch.from_numpy(labels.astype("int64"))[idx].to(dev)
+    step = common.make_judge_train_step()
+    step(state, x[:bs], y[:bs])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [step(state, x[bs * (k + 1):bs * (k + 2)],
+                y[bs * (k + 1):bs * (k + 2)]) for k in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(all(math.isfinite(m["loss"].item()) for m in out),
+          "finite train-step losses")
+    return steps * bs / dt
+
+
+def profile_judge_step(label, state, images, labels):
+    """Device time by kind of kernel over one judge train step on a batch
+    already on the card (diagnostic only); None where the profiler cannot
+    run."""
+    import torch
+    from tsr_tpu_torch.train import common
+    dev = next(state.model.parameters()).device
+    x = torch.from_numpy(images[:JUDGE_BATCH]).to(dev)
+    y = torch.from_numpy(labels[:JUDGE_BATCH].astype("int64")).to(dev)
+    step = common.make_judge_train_step()
+    breakdown = device_breakdown(lambda: step(state, x, y))
+    if breakdown is None:
+        return None
+    prof_rows, busy, n_kernels, wall, all_rows = breakdown
+    print(f"profile of one {label}: device busy {busy:.3f} ms over "
+          f"{wall:.3f} ms wall; {n_kernels} device kernels")
+    print("  by kind (approximate, by kernel name): "
+          + kinds_line(all_rows, busy))
+    for kname, ms, n in prof_rows[:8]:
+        print(f"  {ms:8.3f} ms {n:4d}x  {kname[:110]}")
+    return dict(busy_ms=busy, wall_ms=wall, kernels=n_kernels)
+
+
+def judge_phase(dev, work):
+    """Phase 7: script 05 (the judge's trainers), 11 (hidden-state
+    heatmaps) and 12 (GAP -> UMAP -> ``umap_embeddings.pt``) on the trees
+    phase's clean tree and its noise / blur / fog trees, with the cascade
+    phase's three restorer checkpoints, in ``work``. Returns the kernels'
+    launches over the phase (none of its modules runs a TPU kernel)."""
+    import random
+    import re
+
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import configs, infer, interpret, zoo
+    from tsr_tpu_torch.data import gtsrb
+    from tsr_tpu_torch.kernels import _build
+    from tsr_tpu_torch.models.vgg import GAP_TAP, HIDDEN_STATE_TAP
+    from tsr_tpu_torch.train import common, loops
+    quiet = lambda line: None  # noqa: E731
+    clean_dir = work / "clean"
+    for task in RESTORER_TASKS:
+        check((work / "ckpt" / task / "model").exists(),
+              f"the cascade phase's {task} restorer checkpoint")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # -- script 05: the device-resident trainer, three recipes -------------
+    t0 = time.perf_counter()
+    folder = gtsrb.ImageFolder(str(clean_dir), size=SIZE)
+    arrays = folder.load_batch(range(len(folder)))
+    load_s = time.perf_counter() - t0
+    check(len(folder) == TREE_IMAGES
+          and len(folder.classes) == TREE_CLASSES, "the clean tree")
+    adamw = configs.JudgeTrainConfig(
+        optimizer="adamw", learning_rate=JUDGE_LR, batch_size=JUDGE_BATCH,
+        epochs=JUDGE_EPOCHS)
+    splits = gtsrb.train_val_split(len(folder), adamw.train_split,
+                                   adamw.seed)
+    ckpt = work / "ckpt" / "judge"
+    runs = {}
+    bf16_state, _, runs["bf16 AdamW"] = fit_judge(
+        dev, arrays, splits, adamw, "bf16", ckpt=ckpt)
+    for line in runs["bf16 AdamW"]["log"]:
+        print(f"  judge (bf16, AdamW {JUDGE_LR:g}, batch {JUDGE_BATCH}): "
+              + line)
+    step_ips = train_step_window(dev, bf16_state, *arrays,
+                                 JUDGE_WINDOW_STEPS)
+    profiles = {"bf16 AdamW": profile_judge_step(
+        f"judge train step (bf16 AdamW, batch {JUDGE_BATCH})", bf16_state,
+        *arrays)}
+    del bf16_state
+    sgd = configs.JudgeTrainConfig(batch_size=JUDGE_BATCH, epochs=1)
+    _, _, runs["fp32 SGD"] = fit_judge(dev, arrays, splits, sgd, "fp32",
+                                       seed=1)
+    bn_state, _, runs["bf16 AdamW bn"] = fit_judge(
+        dev, arrays, splits, dataclasses.replace(adamw, epochs=1), "bf16",
+        use_batchnorm=True, seed=2)
+    profiles["bf16 AdamW bn"] = profile_judge_step(
+        f"batch-norm judge train step (bf16 AdamW, batch {JUDGE_BATCH})",
+        bn_state, *arrays)
+    del bn_state
+    for name, rec in runs.items():
+        print(f"judge {name}: images/s by epoch {rec['images_per_sec_window']}"
+              f" (window between log lines; logged "
+              f"{rec['images_per_sec_logged']}), losses {rec['train_loss']},"
+              f" best val acc {rec['best_acc']:.4f}, {rec['steps']} steps, "
+              f"peak {rec['peak_memory_gib']:.3f} GiB")
+    print(f"judge train steps (bf16 AdamW, batch {JUDGE_BATCH}, "
+          f"{JUDGE_WINDOW_STEPS}-step window, bench.py's measure): "
+          f"{step_ips:.1f} images/s")
+
+    # -- script 05 --host-stream: train_judge on data.gtsrb.batches --------
+    torch.manual_seed(SEED + 3)
+    judge = zoo.build_judge(TREE_CLASSES, False, "bf16", SIZE, device=dev)
+    stream_cfg = dataclasses.replace(adamw, epochs=1)
+    tr_idx, va_idx = splits
+    lines = []
+    t0 = time.perf_counter()
+    streamed, stream_best = loops.train_judge(
+        common.create_judge_state(judge, stream_cfg),
+        lambda ep: gtsrb.batches(folder, tr_idx, JUDGE_BATCH,
+                                 seed=stream_cfg.seed + ep),
+        lambda: gtsrb.batches(folder, va_idx, JUDGE_BATCH, shuffle=False,
+                              drop_remainder=False),
+        stream_cfg, log=lines.append, device=dev)
+    stream_s = time.perf_counter() - t0
+    stream_ips = float(re.search(r"\(([\d.]+) img/s\)", lines[0]).group(1))
+    stream_loss = float(re.search(r"train loss (\S+)", lines[0]).group(1))
+    check(streamed.step == len(tr_idx) // JUDGE_BATCH and stream_best == 0.0
+          and math.isfinite(stream_loss), "host-streamed judge epoch")
+    print(f"judge host-streamed (train_judge, bf16 AdamW, decode on the "
+          f"host per batch): {' | '.join(lines)}; {stream_s:.2f} s in all")
+    del streamed, judge
+
+    # -- resume and reload -------------------------------------------------
+    saved = torch.load(ckpt / "train", weights_only=True)["step"]
+    rec = runs["bf16 AdamW"]
+    steps = len(tr_idx) // JUDGE_BATCH
+    check(saved == rec["best_epoch"] * steps,
+          f"checkpoint at step {saved}, best epoch {rec['best_epoch']}")
+    torch.manual_seed(SEED + 4)
+    resumed = zoo.load_train_state(str(ckpt), common.create_judge_state(
+        zoo.build_judge(TREE_CLASSES, False, "bf16", SIZE, device=dev),
+        adamw))
+    check(resumed.step == saved, f"resumed at {resumed.step}, saved {saved}")
+    resumed, _ = loops.train_judge_on_device(
+        resumed, *arrays, tr_idx[:RESUME_STEPS * JUDGE_BATCH], va_idx,
+        dataclasses.replace(adamw, epochs=1), log=quiet, device=dev)
+    check(resumed.step == saved + RESUME_STEPS,
+          f"resume continued to step {resumed.step}")
+    del resumed
+    judge32 = zoo.load_model("vgg16", str(ckpt), size=SIZE, device=dev)
+    model_file = torch.load(ckpt / "model", weights_only=True)
+    check(judge32.dtype == torch.float32 and not judge32.training
+          and not judge32.use_batchnorm and all(
+              torch.equal(v.cpu(), model_file[k])
+              for k, v in judge32.state_dict().items()),
+          "zoo.load_model of the best judge checkpoint")
+    print(f"judge resume: zoo.load_train_state at step {saved} (best epoch "
+          f"{rec['best_epoch']}), {RESUME_STEPS} more steps -> step "
+          f"{saved + RESUME_STEPS}; zoo.load_model: fp32 VGG16-D, "
+          f"{TREE_CLASSES} classes, config "
+          + json.dumps(zoo.checkpoint_config(str(ckpt))))
+    reference = small_judge_check(dev)
+
+    # -- script 08 on the sampled files, then script 11 --------------------
+    files = sorted(f for f in clean_dir.glob("*/*")
+                   if f.suffix.lower() in gtsrb.IMG_EXTENSIONS)
+    random.seed(42)  # scripts/12_generate_umap_pt.py:51-53
+    picks = random.sample(files, UMAP_SAMPLES)
+    sample = files[0]  # script 11's default sample
+    rels = sorted({p.relative_to(clean_dir) for p in picks + [sample]})
+
+    def twin(root, rel):
+        path = root / rel
+        return path if path.exists() else path.with_suffix(".png")
+
+    restore = {}
+    for task in RESTORER_TASKS:
+        subset = work / "sampled" / task
+        for rel in rels:
+            src = twin(work / task, rel)
+            dst = subset / rel.parent / src.name
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            dst.write_bytes(src.read_bytes())
+        restorer = zoo.load_model("simple_unet", str(work / "ckpt" / task),
+                                  device=dev)
+        res = infer.restore_tree(restorer, str(subset),
+                                 str(work / "restored" / task),
+                                 str(clean_dir), batch_size=JUDGE_BATCH,
+                                 log=quiet, device=dev)
+        check(res["images"] == len(rels), f"{task}: restored {res['images']}")
+        restore[task] = dict(images_per_sec=res["images_per_sec"],
+                             psnr=res["psnr"], ssim=res["ssim"])
+        del restorer
+
+    tap_layer = judge32.tap_index(HIDDEN_STATE_TAP)
+    tap = interpret.make_tap_fn(judge32, tap_layer)
+    judge_cpu = zoo.load_model("vgg16", str(ckpt), size=SIZE, device="cpu")
+    tap_cpu = interpret.make_tap_fn(judge_cpu, tap_layer)
+    rel = sample.relative_to(clean_dir)
+    hm_diff, heat = 0.0, {}
+    for task in RESTORER_TASKS:
+        imgs = gtsrb._decode_resize_batch(
+            [str(sample), str(twin(work / task, rel)),
+             str((work / "restored" / task / rel).with_suffix(".png"))],
+            SIZE)
+        feats = tap(imgs)
+        hms = interpret.heatmap(feats)
+        check(tuple(feats.shape) == (3, 64, SIZE, SIZE)
+              and hms.shape == (3, SIZE, SIZE) and np.isfinite(hms).all()
+              and hms.min() >= 0.0 and hms.max() <= 1.0,
+              f"{task} heatmaps {hms.shape}")
+        diff = float(np.abs(hms - interpret.heatmap(tap_cpu(imgs))).max())
+        check(diff <= 1e-4, f"{task} heatmaps card vs CPU differ by {diff}")
+        hm_diff = max(hm_diff, diff)
+        heat[task] = [float(h.mean()) for h in hms]
+    del judge_cpu, tap_cpu
+    print(f"script 11 (tap {HIDDEN_STATE_TAP}, fp32 judge from the "
+          f"checkpoint): {{clean, distorted, restored}} heatmaps [3, {SIZE},"
+          f" {SIZE}] in [0, 1] for {rel}, card vs CPU max diff {hm_diff:.3g} "
+          f"(tol 1e-4); restore_tree on the {len(rels)} sampled files "
+          + json.dumps(restore))
+
+    # -- script 12: GAP features of 7 modes -> UMAP -> umap_embeddings.pt --
+    modes = {"Clean": clean_dir}
+    for task in RESTORER_TASKS:
+        name = task.capitalize()
+        modes[f"{name} (Bad)"] = work / task
+        modes[f"{name} (Restored)"] = work / "restored" / task
+    t0 = time.perf_counter()
+    mode_batches = {
+        mode: gtsrb._decode_resize_batch(
+            [str(twin(root, p.relative_to(clean_dir))) for p in picks], SIZE)
+        for mode, root in modes.items()}
+    decode_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = interpret.collect_mode_embeddings(
+        judge32, mode_batches, tap_layer=judge32.tap_index(GAP_TAP))
+    gap_s = time.perf_counter() - t0
+    all_feats = np.concatenate([feats[m] for m in mode_batches])
+    all_labels = sum(([m] * len(feats[m]) for m in mode_batches), [])
+    check(all_feats.shape == (7 * UMAP_SAMPLES, 512)
+          and np.isfinite(all_feats).all(), f"GAP features {all_feats.shape}")
+    t0 = time.perf_counter()
+    emb = interpret.project_2d(all_feats, method="umap", seed=42)
+    umap_s = time.perf_counter() - t0
+    out_pt = work / "umap_embeddings.pt"
+    interpret.export_embeddings_pt(str(out_pt), emb, all_labels, all_feats)
+    back = torch.load(out_pt, weights_only=False)
+    check(list(back) == ["embeddings", "labels", "original_features"]
+          and back["embeddings"].dtype == torch.float32
+          and tuple(back["embeddings"].shape) == (7 * UMAP_SAMPLES, 2)
+          and back["original_features"].dtype == torch.float32
+          and tuple(back["original_features"].shape)
+          == (7 * UMAP_SAMPLES, 512)
+          and back["labels"] == all_labels
+          and torch.isfinite(back["embeddings"]).all().item(),
+          "umap_embeddings.pt has the fixture's schema")
+    gap_ips = 7 * UMAP_SAMPLES / gap_s
+    print(f"script 12: {len(modes)} modes x {UMAP_SAMPLES} files decoded in "
+          f"{decode_s:.2f} s; GAP features (fp32 judge, TF32 off) "
+          f"{gap_ips:.1f} images/s; UMAP of {all_feats.shape} "
+          f"{umap_s:.2f} s; umap_embeddings.pt reloaded with the fixture's "
+          f"keys, dtypes and shapes")
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    counts = _build.launch_counts()
+    check(not any(counts.values()),
+          f"phase 7 launched {counts}: none of its modules has a TPU kernel")
+
+    print("judge: " + json.dumps({
+        "path": "ImageFolder.load_batch -> train_judge_on_device (bf16 "
+                "AdamW, fp32 SGD, bf16 AdamW bn) | train_judge on "
+                "data.gtsrb.batches -> zoo checkpoint -> load_train_state, "
+                "load_model",
+        "size": SIZE, "batch": JUDGE_BATCH, "images": TREE_IMAGES,
+        "classes": TREE_CLASSES, "train": len(tr_idx), "val": len(va_idx),
+        "decode_seconds": load_s, "runs": {
+            k: {kk: vv for kk, vv in v.items() if kk != "log"}
+            for k, v in runs.items()},
+        "train_step_images_per_sec": step_ips,
+        "train_step_window_steps": JUDGE_WINDOW_STEPS,
+        "host_streamed_images_per_sec": stream_ips,
+        "host_streamed_seconds": stream_s,
+        "resume": {"saved_step": saved, "resumed_to": saved + RESUME_STEPS},
+        "card_vs_cpu": reference, "profiles": profiles}))
+    print("interpret: " + json.dumps({
+        "path": "restore_tree (sampled files) -> make_tap_fn -> heatmap | "
+                "collect_mode_embeddings -> project_2d(umap) -> "
+                "export_embeddings_pt",
+        "hidden_state_tap": HIDDEN_STATE_TAP, "heatmap_means": heat,
+        "heatmap_card_vs_cpu_max_diff": hm_diff, "restore": restore,
+        "modes": len(modes), "samples_per_mode": UMAP_SAMPLES,
+        "decode_seconds": decode_s, "gap_images_per_sec": gap_ips,
+        "gap_seconds": gap_s, "umap_seconds": umap_s,
+        "phase_seconds": phase_s, "launches": counts}))
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1718,6 +2181,8 @@ def run(dev) -> None:
             dev, resunet, judge, rows, restored["images_per_sec"], Path(tmp))
         # -- 6. the SimpleUNet restorers and the cascade ---------------------
         cascade_counts = cascade_phase(dev, judge, rows, Path(tmp))
+        # -- 7. the judge's trainers and the interpretability arm ------------
+        judge_counts = judge_phase(dev, Path(tmp))
 
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
@@ -1727,6 +2192,7 @@ def run(dev) -> None:
         row["launches_trees"] = tree_counts[key]
         row["tree_shapes"] = tree_shapes.get(key, [])
         row["launches_cascade"] = cascade_counts[key]
+        row["launches_judge"] = judge_counts[key]
         row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -2,8 +2,8 @@
 
 The port's own copy of ``tsr_tpu/configs.py`` (image size, class count,
 ImageNet statistics, the single distortions, the compound chain, the
-random mix, the cascade's mild distortions, the specialized, advanced and
-unified trainers and the eval batch), with the reference scripts' values
+random mix, the cascade's mild distortions, the judge's, specialized,
+advanced and unified trainers and the eval batch), with the reference scripts' values
 as defaults.
 """
 
@@ -84,6 +84,26 @@ class MildConfig:
     blur_angle: float = 45.0
     fog_intensity: float = 0.1   # ref:13:51 (t = 1 - intensity, no jitter)
     fog_atmosphere: float = 0.9
+
+
+@dataclasses.dataclass(frozen=True)
+class JudgeTrainConfig:
+    """VGG16 judge fine-tune (ref:05:11-13, 05:60)."""
+    batch_size: int = 64
+    epochs: int = 10
+    learning_rate: float = 1e-3
+    momentum: float = 0.9
+    # 'sgd' is the reference recipe (ref:05:60) and assumes ImageNet init;
+    # 'adamw' is the from-scratch alternative (ImageNet weights cannot be
+    # fetched offline, and 1k SGD steps from random init leave VGG16 far
+    # from convergence)
+    optimizer: str = "sgd"
+    weight_decay: float = 1e-4   # adamw only
+    warmup_steps: int = 300      # adamw only: linear warmup from 0
+    train_split: float = 0.8     # ref:05:35-37
+    from_scratch: bool = True    # ImageNet weights unobtainable offline
+    label_smoothing: float = 0.0
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,7 @@ Port of ``tsr_tpu/losses.py``:
   frozen VGG16 (ref:07adv:95-112, ref:14:189-196). Reference quirk preserved:
   the perceptual network receives **un-normalized [0,1] images**, no
   ImageNet normalization (ref:07adv:150-151, ref:14:239).
+- Cross-entropy for the judge (ref:05:59).
 
 Images are NCHW here, as the port's models take them; every loss is a mean
 over all elements, so the layout does not change its value.
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from tsr_tpu_torch.models import vgg as vgg_mod
 
@@ -28,6 +30,16 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (pred - target).abs().mean()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean softmax cross-entropy of ``[B, C]`` logits against integer
+    labels. With ``label_smoothing`` = a the target is optax's
+    ``smooth_labels``: ``onehot * (1 - a) + a / C``, the formula
+    ``F.cross_entropy`` uses too."""
+    return F.cross_entropy(logits, labels.long(),
+                           label_smoothing=label_smoothing)
 
 
 def freeze(vgg: vgg_mod.VGG16) -> vgg_mod.VGG16:

@@ -3,8 +3,9 @@
 Port of ``tsr_tpu/models/vgg.py`` with torchvision's layout and names
 (``features.N`` / ``classifier.N``), so torchvision-format state dicts load
 unchanged and ``tap_layer=k`` returns the activation right after
-``features[k]`` (15 = relu3_3, the end of the perceptual slice
-``features[:16]``; 30 = the final pool).
+``features[k]`` (2 = conv1_2, the hidden-state heatmaps' tap; 15 =
+relu3_3, the end of the perceptual slice ``features[:16]``; 30 = the final
+pool, the GAP embeddings' tap).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ VGG16_CFG: Tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
                     512, 512, 512, "M", 512, 512, 512, "M")
 
 PERCEPTUAL_TAP = 15   # end of features[:16] == relu3_3 (ref:07adv:102-103)
+HIDDEN_STATE_TAP = 2  # conv1_2 pre-activation output (ref:11:93)
+GAP_TAP = 30          # final pool -> [B, 512, 7, 7] (ref:12:37-44)
 
 
 class VGG16(nn.Module):

@@ -1,2 +1,2 @@
-"""Training: the restorers' train steps (``common``) and their trainers
-(``loops``)."""
+"""Training: the judge's and the restorers' train steps (``common``) and
+their trainers (``loops``)."""

@@ -1,6 +1,10 @@
-"""The restorers' train steps and their state.
+"""The judge's and the restorers' train steps and their state.
 
-Port of ``tsr_tpu/train/common.py``'s restorer paths: the unified one,
+Port of ``tsr_tpu/train/common.py``: the judge's path, ``judge_optimizer``
+(SGD with momentum, or AdamW on a linear warmup behind global-norm
+clipping) with ``make_judge_train_step`` (ImageNet-normalized uint8
+batches -> VGG16 in train mode -> cross-entropy) and
+``make_judge_eval_step``; the restorers' paths: the unified one,
 ``unified_optimizer`` (AdamW + a per-step cosine schedule) and
 ``make_unified_train_step`` (random mix on the device -> ResUNet in train
 mode -> L1 + 0.1 x VGG perceptual loss -> AdamW), and the specialized and
@@ -46,6 +50,66 @@ class TrainState:
         self.schedule.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
+
+
+class ClippedAdamW(torch.optim.AdamW):
+    """``optax.chain(clip_by_global_norm(1.0), adamw(...))``: each step
+    first scales every gradient by ``max_norm / norm`` when the global
+    norm is at least ``max_norm``. ``torch.nn.utils.clip_grad_norm_``
+    divides by ``norm + 1e-6`` instead, so the clip is done here, on the
+    device, with no host synchronise."""
+
+    max_norm = 1.0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        grads = [p.grad for group in self.param_groups
+                 for p in group["params"] if p.grad is not None]
+        if grads:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g, dtype=torch.float32)
+                 for g in grads]))
+            scale = torch.where(norm < self.max_norm, 1.0,
+                                self.max_norm / norm)
+            for g in grads:
+                g.mul_(scale.to(g.dtype))
+        return super().step(closure)
+
+
+def judge_optimizer(params, cfg: configs.JudgeTrainConfig):
+    """SGD(lr=1e-3, momentum=0.9) (ref:05:60), or for
+    ``cfg.optimizer == "adamw"`` the from-scratch path: global-norm
+    clipping at 1.0 and AdamW(lr, wd) on a linear warmup from 0 over
+    ``cfg.warmup_steps`` (a constant rate when that is 0). Returns
+    ``(optimizer, schedule)``.
+
+    The warmup is optax's ``linear_schedule(0, lr, warmup)`` evaluated at
+    the count before each update, so the first update has rate 0 (weight
+    decay included) while Adam's moments still take its gradient. optax's
+    ``trace`` momentum (``m = g + mu * m``) is torch's SGD without
+    dampening or Nesterov.
+    """
+    if cfg.optimizer == "adamw":
+        opt = ClippedAdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999),
+                           eps=1e-8, weight_decay=cfg.weight_decay)
+        warmup = max(1, cfg.warmup_steps)
+
+        def factor(count):
+            return min(count / warmup, 1.0) if cfg.warmup_steps else 1.0
+    elif cfg.optimizer == "sgd":
+        opt = torch.optim.SGD(params, lr=cfg.learning_rate,
+                              momentum=cfg.momentum)
+
+        def factor(count):
+            return 1.0
+    else:
+        raise ValueError(f"unknown judge optimizer {cfg.optimizer!r}")
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+
+def create_judge_state(model: nn.Module, cfg: configs.JudgeTrainConfig
+                       ) -> TrainState:
+    return TrainState(model, *judge_optimizer(model.parameters(), cfg))
 
 
 def unified_optimizer(params, cfg: configs.UnifiedTrainConfig,
@@ -230,5 +294,57 @@ def make_restoration_eval_step(pixel: str = "mse",
         finally:
             state.model.train(was_training)
         return aux
+
+    return step
+
+
+def judge_input(images_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[B, H, W, 3]`` -> ImageNet-normalized float ``[B, 3, H, W]``."""
+    x = image_ops.imagenet_normalize(image_ops.to_float01(images_u8))
+    return x.permute(0, 3, 1, 2)
+
+
+def make_judge_train_step(label_smoothing: float = 0.0) -> Callable:
+    """Judge fine-tune step: ImageNet-normalized input, CE loss
+    (ref:05:75-87).
+
+    Returns ``step(state, images_u8, labels) -> {"loss", "accuracy"}``:
+    a uint8 ``[B, H, W, 3]`` batch and its integer labels on the judge's
+    device, the judge in train mode (dropout; a ``use_batchnorm`` judge's
+    batch norms on batch statistics, their running statistics moved by
+    Flax's rule), :func:`losses.cross_entropy_loss`, backward and one
+    optimizer update. The metrics are detached and left on the device.
+    Dropout draws from torch's generator of the device.
+    """
+
+    def step(state: TrainState, images_u8: torch.Tensor,
+             labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        state.model.train()
+        logits = state.model(judge_input(images_u8))
+        loss = losses.cross_entropy_loss(logits, labels, label_smoothing)
+        loss.backward()
+        state.apply_gradients()
+        acc = (logits.detach().argmax(-1) == labels).float().mean()
+        return {"loss": loss.detach(), "accuracy": acc}
+
+    return step
+
+
+def make_judge_eval_step() -> Callable:
+    """Top-1 correctness count (ref:06:49-55): ``step(state, images_u8,
+    labels) -> (correct count, logits)`` with the judge in eval mode and
+    no gradients, both left on the device; the judge's mode is restored
+    after."""
+
+    @torch.no_grad()
+    def step(state: TrainState, images_u8: torch.Tensor,
+             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        was_training = state.model.training
+        state.model.eval()
+        try:
+            logits = state.model(judge_input(images_u8))
+        finally:
+            state.model.train(was_training)
+        return (logits.argmax(-1) == labels).sum(), logits
 
     return step
