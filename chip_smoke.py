@@ -86,9 +86,30 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    ``interpret.collect_mode_embeddings``, ``project_2d("umap")`` and
    ``export_embeddings_pt``, reloaded against the fixture's schema.
    ``judge:`` and ``interpret:`` JSON lines.
-8. One JSON line of the kernels (with ``launches_trees``, ``tree_shapes``,
-   ``launches_cascade``, ``cascade_shapes`` and ``launches_judge``), the
-   card's line, and the final ``{"ok": true, ...}`` line.
+8. int8 serving and the streamed trainers (``int8_phase``), with launch
+   counts zeroed just before and read just after: ``quant.quantized_
+   restorer`` / ``quantized_judge`` on the card against the CPU (a narrow
+   pair on 4 images at 32 and the full-width pair on 2 at SIZE, within one
+   bf16 ulp of each output's largest value, preds equal); phase 3's
+   ResUNet and VGG16-D quantized and run in ``eval.make_fused_eval_step``
+   against the bf16 step on one random-mix batch of 64 (B1/B2): logit
+   correlation, top-1 agreement and the restorer's relative error against
+   float32, reported and not gated (random weights); int8 and bf16 fused
+   images/s at batch 64 (CUDA events over the step) and at bench.py's 512
+   x 8 chunks (best of 3), peak memory, and the int8 step's device time
+   by kind (``INT8_KINDS``); one epoch of the host-streamed
+   ``train.loops.train_restorer`` on ``PairedFolder`` batches of the noise
+   tree (fp32, ``save_best`` and ``checkpoint_every=1``) and of
+   ``train_unified`` on ``data.gtsrb.batches`` of the clean tree (bf16,
+   perceptual, B1/B2 launches one per scale group of each batch); then
+   ``train_unified_on_device`` for UNIFIED_CKPT_EPOCHS epochs with
+   ``save_path``: the checkpoint equals the best epoch's snapshot,
+   ``zoo.load_model`` gives its fused-step preds, ``zoo.load_train_state``
+   continues its step count. An ``int8:`` JSON line.
+9. One JSON line of the kernels (with ``launches_trees``, ``tree_shapes``,
+   ``launches_cascade``, ``cascade_shapes``, ``launches_judge`` and
+   ``launches_int8``), the card's line, and the final ``{"ok": true,
+   ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -143,8 +164,15 @@ JUDGE_BATCH, JUDGE_LR = 64, 3e-4
 JUDGE_EPOCHS = 3             # in place of script 05's 10
 JUDGE_WINDOW_STEPS = 10      # bench.py's train-step window
 UMAP_SAMPLES = 100           # script 12's --samples-per-mode
+# the int8 phase: bench.py's int8 numbers (the fused step at batch 64,
+# then 512 x 8 chunks, best of 3) and the unified trainer's checkpoints
+INT8_BATCH = 64
+INT8_STEP_ITERS = 5          # CUDA-event window of the batch-64 step
+INT8_BENCH_BATCH, INT8_BENCH_CHUNKS, INT8_BENCH_REPS = 512, 8, 3
+UNIFIED_CKPT_EPOCHS = 2
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published peak
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
+INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
 
 
 def check(cond, msg):
@@ -1157,18 +1185,21 @@ def restorer_provenance(distorted_dir, input_minmax):
 
 
 def model_flops():
-    """Forward FLOPs of one SIZE x SIZE image through SimpleUNet, VGG16-D
-    and its perceptual ``features[:16]`` (``torch.utils.flop_counter`` on
-    the meta device: shapes only, the same on any card)."""
+    """Forward FLOPs of one SIZE x SIZE image through SimpleUNet, ResUNet,
+    VGG16-D and its perceptual ``features[:16]`` (``torch.utils.
+    flop_counter`` on the meta device: shapes only, the same on any
+    card)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
-    from tsr_tpu_torch.models import SimpleUNet, VGG16
+    from tsr_tpu_torch.models import ResUNet, SimpleUNet, VGG16
     with torch.device("meta"):
         unet = SimpleUNet()
+        resunet = ResUNet()
         vgg = VGG16(num_classes=43, input_size=SIZE)
         x = torch.zeros(1, 3, SIZE, SIZE)
     out = {}
     for name, fn in (("simple_unet", lambda: unet(x)),
+                     ("resunet", lambda: resunet(x)),
                      ("vgg16", lambda: vgg(x)),
                      ("vgg16_features_16", lambda: vgg(x, tap_layer=15))):
         with FlopCounterMode(display=False) as counter:
@@ -2014,6 +2045,473 @@ def judge_phase(dev, work):
     return counts
 
 
+class _CleanOnly:
+    """An ``ImageFolder`` whose batches are 1-tuples ``(images,)``: the
+    clean batches of script 14's host-streamed loop."""
+
+    def __init__(self, folder):
+        self.folder = folder
+
+    def __len__(self):
+        return len(self.folder)
+
+    def load_batch(self, indices):
+        return (self.folder.load_batch(indices)[0],)
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at ``t``'s largest magnitude."""
+    top = float(t.abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def int8_card_vs_cpu(dev):
+    """The int8 ResUNet and judge quantized and run on the card and on the
+    CPU: narrow (the CPU tests' sizes, 4 images at 32) and full width (2
+    images at SIZE). Restorer outputs and logits must agree within one
+    bf16 ulp of their tensor's largest value, preds exactly. Returns the
+    measured differences."""
+    import torch
+    from tsr_tpu_torch import quant
+    from tsr_tpu_torch.models import ResUNet, VGG16
+    from tsr_tpu_torch.ops import image as image_ops
+    out = {}
+    for name, widths, judge_arch, n, size in (
+            ("narrow", ((8, 16, 24), 32), dict(cfg=(8, "M", 16, "M"),
+                                               fc_width=32), 4, 32),
+            ("full", ((64, 128, 256), 512), {}, 2, SIZE)):
+        torch.manual_seed(SEED + 30)
+        r_cpu = ResUNet(*widths).eval()
+        j_cpu = VGG16(num_classes=43, input_size=size, **judge_arch).eval()
+        x = torch.rand(n, 3, size, size,
+                       generator=torch.Generator().manual_seed(SEED + 31))
+        xn = image_ops.imagenet_normalize(x.permute(0, 2, 3, 1)).permute(
+            0, 3, 1, 2)
+        with torch.inference_mode():
+            rc = quant.quantized_restorer(r_cpu)(x)
+            lc = quant.quantized_judge(j_cpu)(xn)
+            rg = quant.quantized_restorer(copy.deepcopy(r_cpu).to(dev))(
+                x.to(dev)).cpu()
+            lg = quant.quantized_judge(copy.deepcopy(j_cpu).to(dev))(
+                xn.to(dev)).cpu()
+        check(rg.dtype == rc.dtype == torch.bfloat16
+              and lg.dtype == lc.dtype == torch.float32,
+              "int8 restorer bf16 and logits float32")
+        dr = float((rg.float() - rc.float()).abs().max())
+        dl = float((lg - lc).abs().max())
+        check(dr <= bf16_ulp(rc) and dl <= bf16_ulp(lc),
+              f"int8 {name} card vs CPU: restorer {dr} (ulp "
+              f"{bf16_ulp(rc)}), logits {dl} (ulp {bf16_ulp(lc)})")
+        check(torch.equal(lg.argmax(-1), lc.argmax(-1)),
+              f"int8 {name} preds card vs CPU")
+        out[name] = {"restorer_max_diff": dr, "restorer_ulp": bf16_ulp(rc),
+                     "logits_max_diff": dl, "logits_ulp": bf16_ulp(lc),
+                     "images": n, "size": size}
+    return out
+
+
+# each kind of the int8 forwards' device work and the quant helpers that
+# do it (their ranges are recorded only while int8_breakdown profiles)
+INT8_KINDS = (("_int_mm", ("_int8_product",)),
+              ("im2col and padding copies", ("_columns", "_pad_hw",
+                                             "_pad_operand")),
+              ("activation quantizer", ("quantize_act",)),
+              ("dequantize, activation, bf16 store", ("_dequantize",
+                                                      "_prelu",
+                                                      "_residual")),
+              ("pooling", ("_maxpool2",)))
+
+
+def int8_breakdown(fn):
+    """Device time of one call of ``fn`` by kind of int8 work: each helper
+    of INT8_KINDS is wrapped in a ``record_function`` range for the
+    profiled calls only, and a range's device time (its kernels and its
+    children's) goes to its kind, nested ranges counted once; the rest of
+    the busy time is "other" (the concats, the pixel shuffle, the fused
+    step's own work). Returns ({kind: ms}, busy_ms, wall_ms, kernels) or
+    None if the profiler cannot start or be read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from tsr_tpu_torch import quant
+    kind_of = {n: k for k, names in INT8_KINDS for n in names}
+    originals = {n: getattr(quant, n) for n in kind_of}
+
+    def ranged(name, f):
+        def inner(*args, **kwargs):
+            with record_function(f"int8::{name}"):
+                return f(*args, **kwargs)
+        return inner
+
+    for n, f in originals.items():
+        setattr(quant, n, ranged(n, f))
+    try:
+        fn()
+        torch.cuda.synchronize()
+        try:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
+        except Exception as e:
+            print(f"profiler unavailable: {type(e).__name__}: {e}")
+            return None
+        try:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        except BaseException:
+            with contextlib.suppress(Exception):
+                prof.stop()
+            raise
+        try:
+            prof.stop()
+            events = list(prof.events())
+        except Exception as e:
+            print(f"profiler unreadable: {type(e).__name__}: {e}")
+            return None
+    finally:
+        for n, f in originals.items():
+            setattr(quant, n, f)
+
+    def outermost(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name.startswith("int8::"):
+                return False
+            p = p.cpu_parent
+        return True
+
+    def kernel_us(e):
+        """The device time of the kernels launched inside CPU event ``e``
+        (the ranges' own device-side spans left out)."""
+        return (sum(k.duration for k in e.kernels
+                    if not k.name.startswith("int8::"))
+                + sum(kernel_us(c) for c in e.cpu_children))
+
+    ms = {k: 0.0 for k, _ in INT8_KINDS}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("int8::") and outermost(e)):
+            ms[kind_of[e.name[6:]]] += kernel_us(e) / 1e3
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+    ms["other"] = busy - sum(ms.values())
+    return ms, busy, wall_ms, len(kernels)
+
+
+def int8_phase(dev, resunet, judge, work):
+    """Phase 8: int8 serving (``quant.quantized_restorer`` /
+    ``quantized_judge`` in ``eval.make_fused_eval_step``) against the bf16
+    step at full width, then the host-streamed trainers and the unified
+    trainer's checkpoints, on the trees phase's clean and noise trees in
+    ``work``. ``resunet`` and ``judge`` are phase 3's bf16 models. Returns
+    the kernels' launches over the phase (B1/B2 in the mix batch and the
+    unified trainers)."""
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import configs, losses, quant, zoo
+    from tsr_tpu_torch import eval as teval
+    from tsr_tpu_torch.data import gtsrb
+    from tsr_tpu_torch.kernels import _build
+    from tsr_tpu_torch.models import ResUNet
+    from tsr_tpu_torch.ops import distortions
+    from tsr_tpu_torch.ops import image as image_ops
+    from tsr_tpu_torch.train import common, loops
+    clean_dir = work / "clean"
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t_phase = time.perf_counter()
+    result = {"card": card_line()}
+
+    # -- 1. the int8 forwards on the card against the CPU ------------------
+    result["card_vs_cpu"] = int8_card_vs_cpu(dev)
+    print("int8 card vs CPU (tol one bf16 ulp of the largest value): "
+          + json.dumps(result["card_vs_cpu"]))
+
+    # -- 2. int8 against bf16 at full width on one random-mix batch --------
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    clean = torch.randint(0, 256, (INT8_BATCH, SIZE, SIZE, 3),
+                          dtype=torch.uint8, device=dev, generator=g)
+    label = torch.randint(0, configs.NUM_CLASSES, (INT8_BATCH,), device=dev,
+                          generator=g)
+    bad = distortions.apply_random_distortions(clean, g, device=dev)
+    t0 = time.perf_counter()
+    q_res = quant.quantized_restorer(resunet)
+    q_judge = quant.quantized_judge(judge)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    step8 = teval.make_fused_eval_step(q_res, q_judge, device=dev)
+    step16 = teval.make_fused_eval_step(resunet, judge, device=dev)
+    with torch.device(dev):
+        resunet32 = ResUNet(resunet.widths, 512)
+    resunet32.load_state_dict(resunet.state_dict())
+    resunet32.eval()
+    with torch.inference_mode():
+        o8, o16 = step8(bad, label), step16(bad, label)
+        x01 = image_ops.to_float01(bad)
+        nchw = x01.permute(0, 3, 1, 2)
+        raw8, raw16 = q_res(nchw).float(), resunet(nchw).float()
+        raw32 = resunet32(nchw)
+        l8 = q_judge(image_ops.imagenet_normalize(
+            teval.restore_batch(q_res, x01)).permute(0, 3, 1, 2))
+        l16 = judge(image_ops.imagenet_normalize(
+            teval.restore_batch(resunet, x01)).permute(0, 3, 1, 2)).float()
+    check(torch.isfinite(raw8).all().item() and torch.isfinite(l8).all()
+          .item() and raw8.shape == raw32.shape
+          and l8.shape == (INT8_BATCH, configs.NUM_CLASSES),
+          "int8 restorer output and logits finite, of the bf16 shapes")
+    check(torch.equal(o8["pred"], l8.argmax(-1)),
+          "the int8 fused step's preds are its judge's argmax")
+
+    def rel_err(ref, got):
+        return float((got - ref).pow(2).mean().sqrt() / ref.std())
+
+    corr = float(np.corrcoef(l8.double().cpu().numpy().ravel(),
+                             l16.double().cpu().numpy().ravel())[0, 1])
+    result["accuracy"] = {
+        "logit_correlation_int8_vs_bf16": corr,
+        "top1_agreement_int8_vs_bf16":
+            (o8["pred"] == o16["pred"]).float().mean().item(),
+        "restorer_rel_err_int8_vs_fp32": rel_err(raw32, raw8),
+        "restorer_rel_err_bf16_vs_fp32": rel_err(raw32, raw16),
+        "confidence_int8": o8["confidence"].mean().item(),
+        "confidence_bf16": o16["confidence"].mean().item(),
+        "quantize_seconds": quantize_s}
+    print("int8 vs bf16 (random weights: reported, not gated): "
+          + json.dumps(result["accuracy"]))
+    del resunet32, raw8, raw16, raw32, l8, l16, x01, nchw
+
+    # -- 3. throughput: batch 64 (CUDA events), then bench.py's shape ------
+    flops = sum(model_flops()[k] for k in ("resunet", "vgg16"))
+    ms8 = cuda_ms(lambda: step8(bad, label), iters=INT8_STEP_ITERS,
+                  warmup=1)
+    ms16 = cuda_ms(lambda: step16(bad, label), iters=INT8_STEP_ITERS,
+                   warmup=1)
+    # each input byte and each stored weight read once, the preds and
+    # confidences written once; the operations at the int8 peak
+    weight_bytes = sum(b.numel() * b.element_size() for m in (q_res, q_judge)
+                       for b in m.buffers())
+    bound8 = max(INT8_BATCH * flops / INT8_OPS_PER_S,
+                 (INT8_BATCH * (SIZE * SIZE * 3 + 12) + weight_bytes)
+                 / HBM_BYTES_PER_S) * 1e3
+    result["batch64"] = {
+        "int8_images_per_sec": INT8_BATCH / ms8 * 1e3, "int8_ms": ms8,
+        "bf16_images_per_sec": INT8_BATCH / ms16 * 1e3, "bf16_ms": ms16,
+        "flops_per_image": flops, "int8_bound_ms": bound8,
+        "int8_share_of_bound": bound8 / ms8}
+    chunks = [torch.randint(0, 256, (INT8_BENCH_BATCH, SIZE, SIZE, 3),
+                            dtype=torch.uint8, device=dev, generator=g)
+              for _ in range(INT8_BENCH_CHUNKS)]
+    chunk_labels = torch.zeros(INT8_BENCH_BATCH, dtype=torch.int64,
+                               device=dev)
+
+    def bench(step):
+        """bench.py's measure: the chunks back to back, a warm-up pass,
+        then the best of INT8_BENCH_REPS synchronised passes."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(1 + INT8_BENCH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for c in chunks:
+                step(c, chunk_labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        n = INT8_BENCH_BATCH * INT8_BENCH_CHUNKS
+        return {"images_per_sec": n / min(times[1:]),
+                "seconds_each": times[1:],
+                "peak_memory_gib": torch.cuda.max_memory_allocated(dev)
+                / 2 ** 30}
+
+    result["bench_shape"] = {"batch": INT8_BENCH_BATCH,
+                             "chunks": INT8_BENCH_CHUNKS,
+                             "int8": bench(step8), "bf16": bench(step16)}
+    del chunks
+    print("int8 throughput: " + json.dumps({
+        k: result[k] for k in ("batch64", "bench_shape")}))
+    breakdown = int8_breakdown(lambda: step8(bad, label))
+    if breakdown is not None:
+        kinds, busy, wall, n_kernels = breakdown
+        result["breakdown_batch64"] = {"ms_by_kind": kinds, "busy_ms": busy,
+                                       "wall_ms": wall,
+                                       "kernels": n_kernels}
+        print(f"profile of one int8 fused step (batch {INT8_BATCH}): device "
+              f"busy {busy:.3f} ms over {wall:.3f} ms wall; {n_kernels} "
+              "device kernels; by kind: " + "; ".join(
+                  f"{k} {v:.3f} ms ({100 * v / max(busy, 1e-9):.1f} %)"
+                  for k, v in sorted(kinds.items(), key=lambda r: -r[1])))
+
+    # -- 4. the host-streamed trainers -------------------------------------
+    quiet = lambda line: None  # noqa: E731
+    rcfg = configs.RestorationTrainConfig()
+    pairs = gtsrb.PairedFolder(str(clean_dir), str(work / "noise"),
+                               size=SIZE)
+    tr_idx, va_idx = gtsrb.train_val_split(len(pairs), rcfg.train_split,
+                                           SEED)
+    torch.manual_seed(SEED + 33)
+    state = common.create_restoration_state(
+        zoo.build_simple_unet(device=dev), rcfg)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    ckpt = work / "ckpt" / "noise_streamed"
+    lines = []
+    t0 = time.perf_counter()
+    state, hist = loops.train_restorer(
+        state, lambda ep: gtsrb.batches(pairs, tr_idx, rcfg.batch_size,
+                                        seed=rcfg.seed + ep),
+        lambda: gtsrb.batches(pairs, va_idx, rcfg.batch_size,
+                              shuffle=False, drop_remainder=False),
+        1, common.make_restoration_train_step("mse"),
+        common.make_restoration_eval_step("mse"), save_path=str(ckpt),
+        checkpoint_every=1, save_best=True, log=lines.append,
+        ckpt_config={"identity_frac": 0.0}, device=dev)
+    restorer_s = time.perf_counter() - t0
+    rec = hist[-1]
+    steps = len(tr_idx) // rcfg.batch_size
+    check(state.step == steps and all(math.isfinite(v) for v in
+                                      rec["step_loss"] + [rec["val_loss"]]),
+          f"streamed restorer: {state.step} steps, finite losses")
+    after = state.model.state_dict()
+    check(all(not torch.equal(v, after[k]) for k, v in before.items()),
+          "every streamed restorer parameter moved")
+    check(torch.load(ckpt / "train", weights_only=True)["step"] == steps
+          and any("saved best checkpoint" in ln for ln in lines),
+          "streamed restorer wrote its best checkpoint last")
+    result["train_restorer"] = {
+        "images_per_sec": rec["images_per_sec"], "steps": state.step,
+        "seconds": restorer_s, "first_loss": rec["step_loss"][0],
+        "last_loss": rec["step_loss"][-1], "val_loss": rec["val_loss"],
+        "log": lines}
+    del state, before, after
+
+    folder = gtsrb.ImageFolder(str(clean_dir), size=SIZE)
+    clean_only = _CleanOnly(folder)
+    ucfg = configs.UnifiedTrainConfig(epochs=1)
+    utr, uva = gtsrb.train_val_split(len(folder), ucfg.train_split,
+                                     ucfg.seed)
+    usteps = len(utr) // ucfg.batch_size
+    vgg_apply = losses.perceptual_features(judge)
+
+    def unified_state(seed, steps_per_epoch):
+        torch.manual_seed(SEED + seed)
+        with torch.device(dev):
+            model = ResUNet((64, 128, 256), 512, dtype="bf16")
+        model = model.to(memory_format=torch.channels_last)
+        return common.create_unified_state(model, ucfg, steps_per_epoch)
+
+    state = unified_state(34, usteps)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    val_sizes = [len(uva[i:i + ucfg.batch_size])
+                 for i in range(0, len(uva), ucfg.batch_size)]
+    groups = sum(len(distortions.scale_groups(n, ucfg.mix.apply_scales))
+                 for n in [ucfg.batch_size] * usteps + val_sizes)
+    counts0 = _build.launch_counts()
+    lines = []
+    t0 = time.perf_counter()
+    state, hist = loops.train_unified(
+        state, lambda ep: gtsrb.batches(clean_only, utr, ucfg.batch_size,
+                                        seed=ucfg.seed + ep),
+        lambda: gtsrb.batches(clean_only, uva, ucfg.batch_size,
+                              shuffle=False, drop_remainder=False),
+        ucfg, vgg_apply, save_path=str(work / "ckpt" / "unified_streamed"),
+        log=lines.append, ckpt_config={"kind": "resunet"}, device=dev)
+    unified_s = time.perf_counter() - t0
+    counts1 = _build.launch_counts()
+    launched = {k: counts1[k] - counts0[k] for k in counts1}
+    rec = hist[-1]
+    check(state.step == usteps and all(math.isfinite(v) for v in
+                                       rec["step_loss"] + [rec["val_loss"]]),
+          f"streamed unified: {state.step} steps, finite losses")
+    check(launched["fog_noise"] == launched["blur_sparse"] == groups
+          and launched["blur_dense"] == 0,
+          f"streamed unified launched {launched}, expected {groups} of B1 "
+          "and B2 (one per scale group of each train and val batch)")
+    after = state.model.state_dict()
+    still = [k for k, v in before.items() if torch.equal(v, after[k])]
+    check(not still, f"streamed unified parameters that did not move: "
+          f"{still}")
+    check((work / "ckpt" / "unified_streamed" / "model").exists(),
+          "streamed unified checkpoint written")
+    result["train_unified"] = {
+        "images_per_sec": rec["images_per_sec"], "steps": state.step,
+        "seconds": unified_s, "first_loss": rec["step_loss"][0],
+        "last_loss": rec["step_loss"][-1], "val_loss": rec["val_loss"],
+        "launches": launched, "log": lines}
+    del state, before, after
+    print("int8 phase streamed trainers: " + json.dumps({
+        k: {kk: vv for kk, vv in result[k].items() if kk != "log"}
+        for k in ("train_restorer", "train_unified")}))
+
+    # -- 5. the unified trainer's checkpoints ------------------------------
+    images = folder.load_batch(range(len(folder)))[0]
+    ccfg = dataclasses.replace(ucfg, epochs=UNIFIED_CKPT_EPOCHS)
+    state = unified_state(35, usteps)
+    ckpt = work / "ckpt" / "unified"
+    snapshot = {}
+    lines = []
+
+    def log(line):
+        lines.append(line)
+        if line == "  new best (val loss)":
+            snapshot["weights"] = copy.deepcopy(state.model.state_dict())
+            snapshot["step"] = state.step
+
+    state, hist = loops.train_unified_on_device(
+        state, images, utr, uva, ccfg, vgg_apply, save_path=str(ckpt),
+        log=log, ckpt_config={"kind": "resunet", "dtype": "bf16"},
+        device=dev)
+    saved = torch.load(ckpt / "train", weights_only=True)["step"]
+    check(saved == snapshot["step"] and state.step == 2 * usteps,
+          f"unified checkpoint at step {saved}, snapshot "
+          f"{snapshot['step']}")
+    loaded = zoo.load_model("resunet", str(ckpt), dtype="bf16", device=dev)
+    with torch.device(dev):
+        snap = ResUNet((64, 128, 256), 512, dtype="bf16")
+    snap.load_state_dict(snapshot["weights"])
+    out_loaded = teval.make_fused_eval_step(loaded, judge, device=dev)(
+        bad, label)
+    out_snap = teval.make_fused_eval_step(snap.eval(), judge, device=dev)(
+        bad, label)
+    check(torch.equal(out_loaded["pred"], out_snap["pred"]),
+          "zoo.load_model of the unified checkpoint gives the snapshot's "
+          "fused-step preds")
+    conf_diff = float((out_loaded["confidence"]
+                       - out_snap["confidence"]).abs().max())
+    resumed = zoo.load_train_state(str(ckpt), unified_state(36, usteps))
+    check(resumed.step == saved, f"resumed at {resumed.step}, saved {saved}")
+    resumed, _ = loops.train_unified_on_device(
+        resumed, images, utr[:RESUME_STEPS * ucfg.batch_size], uva,
+        dataclasses.replace(ucfg, epochs=1), vgg_apply, log=quiet,
+        device=dev)
+    check(resumed.step == saved + RESUME_STEPS,
+          f"resume continued to step {resumed.step}")
+    result["unified_checkpoint"] = {
+        "epochs": UNIFIED_CKPT_EPOCHS, "val_loss": [r["val_loss"]
+                                                    for r in hist],
+        "images_per_sec": [r["images_per_sec"] for r in hist],
+        "saved_step": saved, "resumed_to": resumed.step,
+        "fused_preds_equal": True, "fused_confidence_max_diff": conf_diff,
+        "config": zoo.checkpoint_config(str(ckpt)), "log": lines}
+    print("int8 phase unified checkpoint: " + " | ".join(lines)
+          + f"; saved step {saved}, load_model preds equal (confidence max "
+          f"diff {conf_diff:.3g}), resumed to {resumed.step}")
+    del state, loaded, snap, resumed, images
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    check(counts["fog_noise"] > 0 and counts["blur_sparse"] > 0,
+          f"phase 8 launched {counts}: B1 and B2 in the mix and trainers")
+    result["launches"] = counts
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    print("int8: " + json.dumps({k: v for k, v in result.items()
+                                 if k not in ("train_restorer",
+                                              "train_unified",
+                                              "unified_checkpoint")}))
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2183,6 +2681,8 @@ def run(dev) -> None:
         cascade_counts = cascade_phase(dev, judge, rows, Path(tmp))
         # -- 7. the judge's trainers and the interpretability arm ------------
         judge_counts = judge_phase(dev, Path(tmp))
+        # -- 8. int8 serving and the streamed trainers -----------------------
+        int8_counts = int8_phase(dev, resunet, judge, Path(tmp))
 
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
@@ -2193,6 +2693,7 @@ def run(dev) -> None:
         row["tree_shapes"] = tree_shapes.get(key, [])
         row["launches_cascade"] = cascade_counts[key]
         row["launches_judge"] = judge_counts[key]
+        row["launches_int8"] = int8_counts[key]
         row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -11,13 +11,19 @@ restorer loops:
   the specialized and advanced SimpleUNets on stored (distorted, clean)
   uint8 pairs, both trees uploaded once, with periodic and best
   checkpoints (``zoo.save_checkpoint``);
+- :func:`train_restorer` (ref:07:122-181, ref:07adv:115-182), the same
+  restorers on host-streamed (distorted, clean) batches, with the
+  reference's periodic and best checkpoints;
 - :func:`train_unified_on_device` (ref:14:227-267): the clean uint8 set
-  uploaded once, the random mix on the device inside each step; it returns
-  its state and per-epoch losses and writes no checkpoint.
+  uploaded once, the random mix on the device inside each step, a
+  best-validation snapshot written once at the end; :func:`train_unified`,
+  the same recipe on host-streamed clean batches, checkpointing at each
+  better epoch.
 
 The device-resident loops gather each epoch's batches on the device from a
 fresh permutation, and sum the validation loss or hits over a padded,
-masked val set.
+masked val set. The restorer loops return ``(state, history)``: one dict
+per epoch (:func:`_epoch_record`).
 """
 
 from __future__ import annotations
@@ -76,16 +82,43 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _mean(values) -> float:
+    """The mean of a list of floats (in float64); nan for none."""
+    return float(np.mean(values)) if len(values) else float("nan")
+
+
 def _epoch_record(epoch: int, per_step: Dict[str, List[float]],
                   val_loss: float, seconds: float, images: int) -> Dict:
     """One epoch's entry of a trainer's history."""
     return {"epoch": epoch + 1,
-            "train_loss": float(np.mean(per_step["loss"])),
+            "train_loss": _mean(per_step["loss"]),
             "step_loss": per_step["loss"],
             "pixel_loss": per_step["pixel_loss"],
             "perceptual_loss": per_step.get("perceptual_loss", []),
             "val_loss": val_loss, "train_seconds": seconds,
             "images_per_sec": images / max(seconds, 1e-9)}
+
+
+def _stack_steps(auxes: List[Dict[str, torch.Tensor]]
+                 ) -> Dict[str, List[float]]:
+    """Per-step aux dicts -> per-key lists, in one device synchronise."""
+    if not auxes:
+        return {"loss": [], "pixel_loss": []}
+    return {k: torch.stack([a[k] for a in auxes]).tolist() for k in auxes[0]}
+
+
+def _child_generators(seed: int, device: torch.device
+                      ) -> Callable[[], torch.Generator]:
+    """``child()`` gives a new generator on ``device`` seeded from one host
+    generator seeded with ``seed``: reproducible draws that never wait for
+    the device."""
+    host = torch.Generator().manual_seed(seed)
+
+    def child() -> torch.Generator:
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=host))
+        return torch.Generator(device=device).manual_seed(seed)
+
+    return child
 
 
 @contextlib.contextmanager
@@ -302,8 +335,7 @@ def train_restorer_on_device(
         t0 = time.perf_counter()
         auxes = [step_fn(state, bad_d.index_select(0, b),
                          clean_d.index_select(0, b)) for b in batches]
-        per_step = {k: torch.stack([a[k] for a in auxes]).tolist()
-                    for k in auxes[0]}  # one device synchronise
+        per_step = _stack_steps(auxes)
         dt = time.perf_counter() - t0
 
         state.model.eval()
@@ -353,13 +385,20 @@ def train_unified_on_device(
     va_idx,
     cfg: configs.UnifiedTrainConfig,
     vgg_apply: Optional[Callable] = None,
+    save_path: Optional[str] = None,
     log: Callable[[str], None] = print,
+    ckpt_config: Optional[dict] = None,
     remat=None,
     device="cuda",
 ) -> Tuple[common.TrainState, List[Dict]]:
     """Unified ResUNet training (ref:14:227-267) with the clean set on
     ``device``. ``state.model`` (and ``vgg_apply``'s net) must already
     live there.
+
+    With ``save_path``, the state of each epoch whose validation loss is
+    the lowest so far is snapshotted on the device, and the best one is
+    written once at the end through ``zoo.save_checkpoint`` (with
+    ``ckpt_config``), as the reference does.
 
     Randomness comes from ``cfg.seed``: a host generator seeds each epoch's
     permutation generator and each step's mix generator on ``device``, so
@@ -390,13 +429,10 @@ def train_unified_on_device(
 
     step_fn = common.make_unified_train_step(
         cfg.mix, cfg.perceptual_weight, vgg_apply, remat=remat)
-    host = torch.Generator().manual_seed(cfg.seed)
-
-    def child() -> torch.Generator:
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=host))
-        return torch.Generator(device=device).manual_seed(seed)
+    child = _child_generators(cfg.seed, device)
 
     history = []
+    best_loss, best_tree = float("inf"), None
     for epoch in range(cfg.epochs):
         _sync(device)
         t0 = time.perf_counter()
@@ -406,8 +442,7 @@ def train_unified_on_device(
         for s in range(steps):
             cb = clean_d.index_select(0, batches[s])
             auxes.append(step_fn(state, cb, child()))
-        per_step = {k: torch.stack([a[k] for a in auxes]).tolist()
-                    for k in auxes[0]}  # one device synchronise
+        per_step = _stack_steps(auxes)
         dt = time.perf_counter() - t0
 
         state.model.eval()
@@ -430,4 +465,169 @@ def train_unified_on_device(
             f"{rec['train_loss']:.5f} ({rec['images_per_sec']:.1f} img/s, "
             "train steps only)")
         log(f"  val loss {vl:.5f}")
+        if save_path and vl < best_loss:
+            best_loss = vl
+            best_tree = copy.deepcopy(zoo.state_tree(state))
+            log("  new best (val loss)")
+    if save_path and best_tree is not None:
+        zoo.save_checkpoint(save_path, best_tree, ckpt_config)
+        log(f"saved best checkpoint (val loss {best_loss:.5f})")
+    return state, history
+
+
+def _host_float01(x):
+    """A host uint8 batch (numpy or a CPU tensor) as float32 / 255, on the
+    host."""
+    if isinstance(x, np.ndarray):
+        return x.astype(np.float32) / 255.0
+    return x.to(torch.float32) / 255.0
+
+
+def train_restorer(
+    state: common.TrainState,
+    train_batches: Callable[[int], Iterable],
+    val_batches: Callable[[], Iterable],
+    epochs: int,
+    step_fn: Callable,
+    eval_fn: Callable,
+    save_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    save_best: bool = False,
+    log: Callable[[str], None] = print,
+    batch_to_float: bool = False,
+    ckpt_config: Optional[dict] = None,
+    device="cuda",
+) -> Tuple[common.TrainState, List[Dict]]:
+    """The specialized and advanced restorers' loop on host-streamed
+    batches (ref:07:122-181, ref:07adv:115-182; scripts 07 and 07adv
+    ``--host-stream``). ``train_batches(epoch)`` and ``val_batches()``
+    yield ``(bad, clean)`` batches (numpy or CPU tensors), each uploaded
+    to ``device`` as it comes, uint8 (converted on the device by the
+    steps) or, with ``batch_to_float``, converted to float32 / 255 on the
+    host first. ``step_fn(state, bad, clean)`` and ``eval_fn(state, bad,
+    clean)`` are :func:`common.make_restoration_train_step` /
+    ``make_restoration_eval_step``'s; ``state.model`` must already live on
+    ``device``.
+
+    Checkpoints through ``zoo.save_checkpoint``, as the reference writes
+    them, only with ``save_path``:
+
+    - ``checkpoint_every``: the live state every that many epochs;
+    - ``save_best``: the live state at once at each epoch whose validation
+      loss (the mean of the batches' losses) is the lowest so far, a copy
+      of it kept only when ``checkpoint_every`` is set;
+    - at the end: the final state without ``save_best``; the best copy,
+      written last, with ``save_best`` and ``checkpoint_every`` (a
+      periodic write may have overwritten it); nothing more with
+      ``save_best`` alone.
+
+    Returns ``(state, history)`` as :func:`train_restorer_on_device`;
+    ``train_seconds`` covers the epoch's steps, closed by their losses'
+    fetch, as the log line's images/s does.
+    """
+    device = resolve_device(device)
+
+    def feed(bad, clean):
+        if batch_to_float:
+            bad, clean = _host_float01(bad), _host_float01(clean)
+        return as_tensor(bad, device), as_tensor(clean, device)
+
+    best_loss, best_tree = float("inf"), None
+    history = []
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        auxes, n_img = [], 0
+        for bad, clean in train_batches(epoch):
+            auxes.append(step_fn(state, *feed(bad, clean)))
+            n_img += len(bad)
+        per_step = _stack_steps(auxes)
+        dt = time.perf_counter() - t0
+        vlosses = [eval_fn(state, *feed(bad, clean))["loss"]
+                   for bad, clean in val_batches()]
+        vl = _mean(torch.stack(vlosses).tolist() if vlosses else [])
+        rec = _epoch_record(epoch, per_step, vl, dt, n_img)
+        history.append(rec)
+        log(f"Epoch {epoch + 1}/{epochs} train loss {rec['train_loss']:.6f} "
+            f"({rec['images_per_sec']:.1f} img/s)")
+        log(f"  val loss {vl:.6f}")
+        if save_path:
+            if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+                zoo.save_checkpoint(save_path, state, ckpt_config)
+            if save_best and vl < best_loss:
+                best_loss = vl
+                if checkpoint_every:
+                    best_tree = copy.deepcopy(zoo.state_tree(state))
+                zoo.save_checkpoint(save_path, state, ckpt_config)
+                log("  saved best (val loss)")
+    if save_path:
+        if not save_best:
+            zoo.save_checkpoint(save_path, state, ckpt_config)
+        elif best_tree is not None and checkpoint_every:
+            zoo.save_checkpoint(save_path, best_tree, ckpt_config)
+            log(f"saved best checkpoint (val loss {best_loss:.6f})")
+    return state, history
+
+
+def train_unified(
+    state: common.TrainState,
+    clean_batches: Callable[[int], Iterable],
+    val_clean_batches: Callable[[], Iterable],
+    cfg: configs.UnifiedTrainConfig,
+    vgg_apply: Optional[Callable] = None,
+    save_path: Optional[str] = None,
+    log: Callable[[str], None] = print,
+    ckpt_config: Optional[dict] = None,
+    device="cuda",
+) -> Tuple[common.TrainState, List[Dict]]:
+    """Unified ResUNet loop on host-streamed clean batches (ref:14:227-267;
+    script 14 ``--host-stream``). ``clean_batches(epoch)`` and
+    ``val_clean_batches()`` yield 1-tuples ``(clean_u8,)`` (numpy or CPU
+    tensors), each uploaded to ``device``; each train batch is mixed on
+    the device inside :func:`common.make_unified_train_step` (kernels B1
+    and B2 on the card), and each validation batch's pair comes from
+    ``ops.distortions.make_training_pair`` on the device, its loss from
+    :func:`common.make_restoration_eval_step` (L1 + perceptual).
+    ``state.model`` (and ``vgg_apply``'s net) must already live on
+    ``device``.
+
+    Randomness comes from ``cfg.seed`` as in :func:`train_unified_on_device`:
+    one generator on the device, seeded from a host generator, for each
+    step's and each validation batch's mix. With ``save_path`` the live
+    state is written through ``zoo.save_checkpoint`` at each epoch whose
+    validation loss is the lowest so far, as the reference does (no
+    snapshot, no final write). Returns ``(state, history)``.
+    """
+    device = resolve_device(device)
+    step_fn = common.make_unified_train_step(cfg.mix, cfg.perceptual_weight,
+                                             vgg_apply)
+    eval_fn = common.make_restoration_eval_step(
+        pixel="l1", perceptual_weight=cfg.perceptual_weight,
+        vgg_apply=vgg_apply)
+    child = _child_generators(cfg.seed, device)
+
+    best_loss = float("inf")
+    history = []
+    for epoch in range(cfg.epochs):
+        t0 = time.perf_counter()
+        auxes, n_img = [], 0
+        for (clean,) in clean_batches(epoch):
+            auxes.append(step_fn(state, as_tensor(clean, device), child()))
+            n_img += len(clean)
+        per_step = _stack_steps(auxes)
+        dt = time.perf_counter() - t0
+        vlosses = []
+        for (clean,) in val_clean_batches():
+            bad01, clean01 = distortions.make_training_pair(
+                as_tensor(clean, device), child(), cfg.mix, device=device)
+            vlosses.append(eval_fn(state, bad01, clean01)["loss"])
+        vl = _mean(torch.stack(vlosses).tolist() if vlosses else [])
+        rec = _epoch_record(epoch, per_step, vl, dt, n_img)
+        history.append(rec)
+        log(f"Epoch {epoch + 1}/{cfg.epochs} train loss "
+            f"{rec['train_loss']:.5f} ({rec['images_per_sec']:.1f} img/s)")
+        log(f"  val loss {vl:.5f}")
+        if save_path and vl < best_loss:
+            best_loss = vl
+            zoo.save_checkpoint(save_path, state, ckpt_config)
+            log("  saved best (val loss)")
     return state, history
