@@ -106,10 +106,33 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    ``save_path``: the checkpoint equals the best epoch's snapshot,
    ``zoo.load_model`` gives its fused-step preds, ``zoo.load_train_state``
    continues its step count. An ``int8:`` JSON line.
-9. One JSON line of the kernels (with ``launches_trees``, ``tree_shapes``,
-   ``launches_cascade``, ``cascade_shapes``, ``launches_judge`` and
-   ``launches_int8``), the card's line, and the final ``{"ok": true,
-   ...}`` line.
+9. The CLI on the card (``cli_phase``), in a temporary directory: one
+   subprocess ``python3 -m tsr_tpu_torch --help`` (all 19 commands
+   listed), then the README's Quickstart through each script's
+   ``main([...])`` in process, at full width and ``--image-size 224`` on
+   the card (the scripts' default device): ``download --synthetic`` (43
+   classes x 8), ``gen-noise``, ``gen-blur``, ``gen-blur
+   --strength-jitter``, ``gen-fog`` (as the one subprocess ``python3 -m
+   tsr_tpu_torch gen-fog``), ``gen-compound``, ``train-judge`` (1 epoch,
+   AdamW, bf16), ``eval-baseline``, ``train-restorer`` (noise) and
+   ``train-restorer-advanced`` (blur), ``train-unified`` (1 epoch, bf16),
+   ``restore``, ``eval-restoration --fused`` and ``--int8``,
+   ``restore-unified --metrics``, ``eval-unified --fused`` and ``--int8``,
+   ``embeddings``; then the figure scripts (10, 11, 13, 15) where
+   matplotlib is installed, else one line saying they were not run. One
+   ``cli:`` line per command (wall seconds, the images/s it printed, the
+   kernels' launches, zeroed just before and read just after): B3 must
+   launch in ``gen-blur`` and ``gen-compound``, B2 in ``gen-blur
+   --strength-jitter``, B1 and B2 in ``train-unified``. Every checkpoint
+   loads through ``zoo.load_model``, every tree has the clean tree's file
+   count, every report parses. Then ``eval-baseline`` and ``eval-unified
+   --fused`` with the same seeded ``.pth`` weights on a 2 x 4 tree at 64
+   px, on the card and with ``--device cpu`` (TF32 off): equal
+   accuracies. A ``cli:`` JSON line.
+10. One JSON line of the kernels (with ``launches_trees``,
+   ``tree_shapes``, ``launches_cascade``, ``cascade_shapes``,
+   ``launches_judge``, ``launches_int8`` and ``launches_cli``), the card's
+   line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -120,8 +143,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
+import os
+import re
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -170,6 +197,12 @@ INT8_BATCH = 64
 INT8_STEP_ITERS = 5          # CUDA-event window of the batch-64 step
 INT8_BENCH_BATCH, INT8_BENCH_CHUNKS, INT8_BENCH_REPS = 512, 8, 3
 UNIFIED_CKPT_EPOCHS = 2
+# the CLI phase: the Quickstart on the README's synthetic tree (43 classes x
+# 8 images at GTSRB-like native sizes), one epoch each, at full width and
+# 224; then card vs CPU on a 2 x 4 tree at 64 px
+CLI_CLASSES, CLI_PER_CLASS = 43, 8
+CLI_EMBED_SAMPLES = 20       # embeddings --samples-per-mode
+CLI_PARITY_SIZE = 64
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published peak
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
@@ -2512,6 +2545,328 @@ def int8_phase(dev, resunet, judge, work):
     return counts
 
 
+REPO = Path(__file__).resolve().parent
+ACC_RE = re.compile(r"Result \[(.+?)\] Accuracy: ([0-9.]+)%")
+
+
+def cli_commands():
+    """``{command: script file}`` from ``tsr_tpu_torch.__main__``."""
+    from tsr_tpu_torch.__main__ import COMMANDS
+    return COMMANDS
+
+
+def cli_subprocess(args, cwd):
+    """``python3 -m tsr_tpu_torch <args>`` in ``cwd`` with the checkout on
+    PYTHONPATH; raises with its output on a non-zero exit. Returns its
+    standard output and wall seconds."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "tsr_tpu_torch", *args],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0,
+          f"python -m tsr_tpu_torch {' '.join(args)} exited "
+          f"{out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def cli_main(command, argv):
+    """Run ``command``'s script in process (its ``main(argv)``), its
+    standard output captured, the kernels' launch counts zeroed just before
+    and read just after. Returns (output, wall seconds, counts)."""
+    import torch
+    from tsr_tpu_torch.kernels import _build
+    script = REPO / "tsr_tpu_torch" / "scripts" / cli_commands()[command]
+    main = runpy.run_path(str(script), run_name="chip_smoke_cli")["main"]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(list(argv))
+        torch.cuda.synchronize()
+    except BaseException:
+        print(f"cli {command} failed; its output:\n{buf.getvalue()[-3000:]}")
+        raise
+    return buf.getvalue(), time.perf_counter() - t0, _build.launch_counts()
+
+
+def printed_rates(text):
+    """Every images/s figure a command printed, as [what, rate] pairs:
+    ``what`` is the ``Result [...]`` label of an evaluation line (the
+    models that ran on that tree), else the start of the line."""
+    rates = []
+    for line in text.splitlines():
+        m = re.search(r"\(([0-9.eE+-]+) img/s", line)
+        if m:
+            label = re.match(r"Result \[(.+?)\]", line)
+            what = (label.group(1) if label
+                    else line[:m.start()].strip()[:48])
+            rates.append([what, float(m.group(1))])
+    return rates
+
+
+def parse_accuracy_report(text, title):
+    """The rows of the accuracy table titled ``title`` as {name: percent};
+    each must equal its ``Result [...]`` line."""
+    lines = text.splitlines()
+    check(title in lines, f"report {title!r} printed")
+    i = lines.index(title)
+    check(lines[i + 2].startswith("Dataset") and lines[i + 3] == "-" * 32,
+          f"report {title!r} header")
+    rows = {}
+    for line in lines[i + 4:]:
+        if line == "=" * 30:
+            break
+        name, acc = line.rsplit(" | ", 1)
+        rows[name.strip()] = float(acc.rstrip("%"))
+    results = {n: float(a) for n, a in ACC_RE.findall(text)}
+    check(rows and rows == {n: results[n] for n in rows},
+          f"report {title!r} rows {rows} match the Result lines {results}")
+    return rows
+
+
+def cli_parity(dev, work):
+    """eval-baseline and eval-unified --fused with the same seeded .pth
+    weights (full-width VGG16-D with 2 classes, ResUNet) on a 2 x 4 tree at
+    CLI_PARITY_SIZE, on the card and with --device cpu, TF32 off (as
+    ``run`` sets it): equal accuracy reports, each with a row off the
+    single-class 50 %. The weights come from ``tsr_tpu_torch.parity``: the
+    ResUNet passes its input through plus ``parity.OFFSET``, and the
+    judge's head is the nearest-centroid rule over its own features of the
+    three trees and of the restored compound tree (fitted on the CPU);
+    plain random weights read 50 % on every tree.
+    Returns {command: {device: report}}."""
+    import torch
+    from tsr_tpu_torch import parity
+    from tsr_tpu_torch.models import ResUNet, VGG16
+    root = work / "cli_parity"
+    root.mkdir()
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        common = ["--clean-dir", "data/gtsrb/GTSRB/Training", "--synthetic",
+                  "--synthetic-classes", "2", "--synthetic-per-class", "4",
+                  "--image-size", str(CLI_PARITY_SIZE)]
+        for command in ("download", "gen-noise", "gen-compound"):
+            cli_main(command, common)
+        torch.manual_seed(SEED + 8)
+        resunet = parity.pass_through(ResUNet())
+        compound = "data/processed/Compound"
+        judge = parity.spread_judge(
+            VGG16(num_classes=2, input_size=CLI_PARITY_SIZE),
+            [("data/gtsrb/GTSRB/Training", None),
+             ("data/processed/Noise", None), (compound, None),
+             (compound, resunet)], CLI_PARITY_SIZE)
+        torch.save(judge.state_dict(), "judge.pth")
+        torch.save(resunet.state_dict(), "unified.pth")
+        out = {}
+        for command, title, extra in (
+                ("eval-baseline", "Final Test Report (Baseline 1)", []),
+                ("eval-unified", "Final Test Report (Unified Model)",
+                 ["--fused", "--unified", "unified.pth"])):
+            reports = {}
+            for device in ("cuda", "cpu"):
+                text, _, _ = cli_main(command, common + extra + [
+                    "--batch-size", "4", "--model", "judge.pth",
+                    "--device", device])
+                reports[device] = parse_accuracy_report(text, title)
+            check(reports["cuda"] == reports["cpu"],
+                  f"{command} card {reports['cuda']} != CPU {reports['cpu']}")
+            check(any(v != 50.0 for v in reports["cuda"].values()),
+                  f"{command}: every row reads 50 %, as a judge that gives "
+                  f"every image one class does: {reports['cuda']}")
+            print(f"cli card vs CPU {command}: {reports['cuda']} on both")
+            out[command] = reports
+        return out
+    finally:
+        os.chdir(cwd)
+
+
+def cli_phase(dev, work):
+    """Phase 9: the port's commands (``python -m tsr_tpu_torch``) on the
+    card, in ``work/cli``. Returns the kernels' launches summed over the
+    in-process commands."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import zoo
+    from tsr_tpu_torch.data import gtsrb
+    t_phase = time.perf_counter()
+    figures = importlib.util.find_spec("matplotlib") is not None
+    cli_dir = work / "cli"
+    cli_dir.mkdir()
+
+    # -- 1. the entry point itself -----------------------------------------
+    text, secs = cli_subprocess(["--help"], cli_dir)
+    listed = re.findall(r"^  (\S+)\s+-> tsr_tpu_torch/scripts/(\S+)$", text,
+                        re.M)
+    check(dict(listed) == cli_commands() and len(listed) == 19,
+          f"--help lists the 19 commands: {listed}")
+    print(f"cli: python -m tsr_tpu_torch --help listed {len(listed)} "
+          f"commands ({secs:.1f} s)")
+
+    clean = "data/gtsrb/GTSRB/Training"
+    common = ["--clean-dir", clean, "--ckpt-dir", "checkpoints",
+              "--synthetic", "--synthetic-classes", str(CLI_CLASSES),
+              "--synthetic-per-class", str(CLI_PER_CLASS),
+              "--image-size", str(SIZE)]
+    # the Quickstart's order; the default device (cuda) throughout
+    steps = [
+        ("download", []),
+        ("gen-noise", []),
+        ("gen-blur", []),
+        ("gen-blur", ["--strength-jitter", "--dst",
+                      "data/processed/BlurJitter"]),
+        ("gen-fog", None),   # the subprocess
+        ("gen-compound", []),
+        ("train-judge", ["--epochs", "1", "--optimizer", "adamw", "--bf16"]),
+        ("eval-baseline", []),
+        ("train-restorer", ["--task", "noise", "--epochs", "1"]),
+        ("train-restorer-advanced", ["--task", "blur", "--epochs", "1"]),
+        ("train-unified", ["--epochs", "1", "--bf16"]),
+        ("restore", ["--tasks", "noise", "blur"]),
+        ("eval-restoration", ["--fused"]),
+        ("eval-restoration", ["--fused", "--int8"]),
+        ("restore-unified", ["--metrics"]),
+        ("eval-unified", ["--fused"]),
+        ("eval-unified", ["--fused", "--int8"]),
+        ("embeddings", ["--samples-per-mode", str(CLI_EMBED_SAMPLES)]),
+    ]
+    if figures:
+        # script 13 chains all three specialized restorers
+        steps += [("train-restorer", ["--task", "fog", "--epochs", "1"]),
+                  ("visualize", []), ("hidden-states", []),
+                  ("stress-test", ["--num-samples", "4"]),
+                  ("demo-unified", [])]
+    else:
+        print("cli: visualize, hidden-states, stress-test and demo-unified "
+              "not run: matplotlib is not installed on this machine, and "
+              "they draw figures with it")
+
+    # a user's process has PyTorch's defaults: TF32 convolutions on, TF32
+    # matmuls off (phases 2-8 turn both off)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cwd = os.getcwd()
+    os.chdir(cli_dir)
+    runs, totals = [], {}
+    try:
+        for command, extra in steps:
+            if extra is None:
+                text, secs = cli_subprocess([command, *common], cli_dir)
+                counts = None
+            else:
+                text, secs, counts = cli_main(command, common + extra)
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+            rates = printed_rates(text)
+            label = " ".join([command] + (extra or []))
+            runs.append({"command": label, "seconds": secs,
+                         "images_per_sec": rates, "launches": counts,
+                         "output": text})
+            print(f"cli {label}: {secs:.2f} s; images/s printed "
+                  f"{[(what, round(r, 1)) for what, r in rates]}; launches "
+                  f"{counts if counts is not None else 'subprocess'}")
+
+        def launched(label, key):
+            counts = next(r["launches"] for r in runs
+                          if r["command"] == label)
+            return counts[key]
+
+        check(launched("gen-blur", "blur_dense") > 0, "B3 in gen-blur")
+        check(launched("gen-compound", "blur_dense") > 0,
+              "B3 in gen-compound")
+        check(launched("gen-blur --strength-jitter --dst "
+                       "data/processed/BlurJitter", "blur_sparse") > 0,
+              "B2 in gen-blur --strength-jitter")
+        for key in ("fog_noise", "blur_sparse"):
+            check(launched("train-unified --epochs 1 --bf16", key) > 0,
+                  f"{key} in train-unified")
+
+        # -- artifacts ------------------------------------------------------
+        n_clean = len(gtsrb.ImageFolder(clean))
+        check(n_clean == CLI_CLASSES * CLI_PER_CLASS, "the synthetic tree")
+        trees = ["data/processed/" + t for t in
+                 ("Noise", "Blur", "BlurJitter", "Fog", "Compound")]
+        trees += ["data/restored/" + t for t in ("Noise", "Blur", "Compound")]
+        for tree in trees:
+            n = len([p for p in Path(tree).glob("*/*")
+                     if p.suffix in gtsrb.IMG_EXTENSIONS])
+            check(n == n_clean, f"{tree} holds {n} of {n_clean} files")
+        loaded = {}
+        for kind, name in (("vgg16", "vgg16_baseline"),
+                           ("simple_unet", "restoration_noise"),
+                           ("simple_unet", "restoration_blur"),
+                           ("resunet", "restoration_unified_resnet")):
+            model = zoo.load_model(kind, f"checkpoints/{name}", SIZE,
+                                   device=dev)
+            n_params = sum(p.numel() for p in model.parameters())
+            check(all(bool(torch.isfinite(p).all())
+                      for p in model.parameters()), f"{name} finite")
+            loaded[name] = n_params
+        reports = {}
+        for label, title in (
+                ("eval-baseline", "Final Test Report (Baseline 1)"),
+                ("eval-restoration --fused",
+                 "Final Test Report (Restoration)"),
+                ("eval-restoration --fused --int8",
+                 "Final Test Report (Restoration)"),
+                ("eval-unified --fused", "Final Test Report (Unified Model)"),
+                ("eval-unified --fused --int8",
+                 "Final Test Report (Unified Model)")):
+            text = next(r["output"] for r in runs if r["command"] == label)
+            reports[label] = parse_accuracy_report(text, title)
+        check(len(reports["eval-baseline"]) == 4, "eval-baseline: 4 trees")
+        metrics = {}
+        for label in ("restore --tasks noise blur", "restore-unified "
+                      "--metrics"):
+            text = next(r["output"] for r in runs if r["command"] == label)
+            psnr = [float(x) for x in re.findall(r"Average PSNR: ([0-9.]+)",
+                                                 text)]
+            ssim = [float(x) for x in re.findall(
+                r"Average SSIM: (-?[0-9.]+)", text)]
+            check(psnr and len(psnr) == len(ssim)
+                  and all(math.isfinite(v) for v in psnr + ssim),
+                  f"{label} PSNR/SSIM printed: {psnr} {ssim}")
+            metrics[label] = {"psnr": psnr, "ssim": ssim}
+        emb = torch.load("umap_embeddings.pt", weights_only=False)
+        check(emb["embeddings"].shape[1] == 2
+              and emb["original_features"].shape[1] == 512
+              and len(emb["labels"]) == emb["embeddings"].shape[0]
+              and bool(np.isfinite(emb["embeddings"].numpy()).all()),
+              "umap_embeddings.pt schema")
+        if figures:
+            for fig in ("result_visualization.png",
+                        "hidden_state_visualization.png",
+                        "unified_test_result.png"):
+                check(Path(fig).exists(), f"{fig} written")
+            check(len(list(Path("pipeline_results").glob("*.png"))) == 4,
+                  "stress-test figures")
+    finally:
+        os.chdir(cwd)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+    # -- card against CPU ---------------------------------------------------
+    parity = cli_parity(dev, work)
+    summary = {
+        "card": card_line(), "tree": [CLI_CLASSES, CLI_PER_CLASS],
+        "size": SIZE, "figures_run": figures,
+        "commands": [{k: r[k] for k in ("command", "seconds",
+                                        "images_per_sec", "launches")}
+                     for r in runs],
+        "reports": reports, "restore_metrics": metrics,
+        "checkpoint_params": loaded, "card_vs_cpu": parity,
+        "launches": totals,
+        "phase_seconds": time.perf_counter() - t_phase}
+    print("cli: " + json.dumps(summary))
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -2683,6 +3038,8 @@ def run(dev) -> None:
         judge_counts = judge_phase(dev, Path(tmp))
         # -- 8. int8 serving and the streamed trainers -----------------------
         int8_counts = int8_phase(dev, resunet, judge, Path(tmp))
+        # -- 9. the CLI on the card ------------------------------------------
+        cli_counts = cli_phase(dev, Path(tmp))
 
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
@@ -2694,6 +3051,7 @@ def run(dev) -> None:
         row["launches_cascade"] = cascade_counts[key]
         row["launches_judge"] = judge_counts[key]
         row["launches_int8"] = int8_counts[key]
+        row["launches_cli"] = cli_counts.get(key, 0)
         row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)

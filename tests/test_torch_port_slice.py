@@ -8,6 +8,7 @@ handed to both sides, so the comparisons are exact up to float32 order.
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -269,10 +270,12 @@ def test_unified_demo_matches_jax(shared_models):
 # ------------------------------------------------------ package boundary
 
 def test_import_pulls_in_no_jax():
-    """Importing every module of the port loads neither jax nor tsr_tpu,
-    nor cv2 or PIL (the port's codec is its own IO library)."""
+    """Importing every module of the port, its entry point, each of its
+    scripts and chip_smoke.py loads neither jax nor tsr_tpu, nor cv2 or
+    PIL (the port's codec is its own IO library), nor matplotlib (the
+    figures import it when they are drawn)."""
     code = (
-        "import sys\n"
+        "import glob, runpy, sys\n"
         "import tsr_tpu_torch, tsr_tpu_torch.eval, tsr_tpu_torch.pipeline\n"
         "import tsr_tpu_torch.checkpoint, tsr_tpu_torch.ops.distortions\n"
         "import tsr_tpu_torch.models, tsr_tpu_torch.kernels._build\n"
@@ -280,13 +283,26 @@ def test_import_pulls_in_no_jax():
         "import tsr_tpu_torch.train.loops, tsr_tpu_torch.native\n"
         "import tsr_tpu_torch.data.gtsrb, tsr_tpu_torch.offline\n"
         "import tsr_tpu_torch.infer, tsr_tpu_torch.models.unet\n"
-        "import tsr_tpu_torch.zoo\n"
+        "import tsr_tpu_torch.zoo, tsr_tpu_torch.quant\n"
+        "import tsr_tpu_torch.parity\n"
+        "import tsr_tpu_torch.interpret, tsr_tpu_torch.viz\n"
+        "import tsr_tpu_torch.__main__, tsr_tpu_torch.scripts._common\n"
+        "import tsr_tpu_torch.utils.reporting\n"
+        "import tsr_tpu_torch.utils.profiling\n"
+        "import tsr_tpu_torch.ops.image_host, tsr_tpu_torch.data.synthetic\n"
+        "import chip_smoke\n"
+        "scripts = sorted(glob.glob('tsr_tpu_torch/scripts/[01]*.py'))\n"
+        "assert len(scripts) == 19, scripts\n"
+        "for s in scripts:\n"
+        "    runpy.run_path(s, run_name='imported')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'tsr_tpu', 'cv2', 'PIL')]\n"
+        "('jax', 'jaxlib', 'flax', 'tsr_tpu', 'cv2', 'PIL', "
+        "'matplotlib')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120,
+                         cwd=str(Path(__file__).resolve().parents[1]))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
 

@@ -1,12 +1,15 @@
 """GTSRB-style image trees on the host: decode, resize, batch, prefetch.
 
-Port of the part of ``tsr_tpu/data/gtsrb.py`` that the file-tree pipeline
-runs:
+Port of ``tsr_tpu/data/gtsrb.py``:
 
+- :func:`download_gtsrb` (ref:01:5-18): fetch and unpack the training
+  split, or raise with instructions where there is no network;
 - :data:`IMG_EXTENSIONS`, the suffixes a tree walk collects;
 - :func:`_decode_resize` / :func:`_decode_resize_batch`: decode and
-  bilinear-resize through the port's IO library (``tsr_tpu_torch.native``,
-  the cv2.INTER_LINEAR convention, within 1 LSB of ``cv2.resize``);
+  bilinear-resize through the port's IO library (``tsr_tpu_torch.native``)
+  with the :data:`RESIZE_BACKEND` that :func:`set_resize_backend` picks:
+  ``"cv2"`` (the cv2.INTER_LINEAR convention, within 1 LSB of
+  ``cv2.resize``) or ``"pil"`` (bit-equal to PIL's BILINEAR);
 - :class:`ImageFolder`: torchvision ``ImageFolder`` semantics (ref:05:32,
   06:39), classes the sorted subdirectory names, samples sorted per class;
 - :class:`PairedFolder`: the restorers' (distorted, clean) pairs, matched
@@ -32,17 +35,70 @@ from tsr_tpu_torch import configs, native
 
 IMG_EXTENSIONS = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 
+DEFAULT_ROOT = "./data/gtsrb/GTSRB/Training"
+GTSRB_URL = (
+    "https://sid.erda.dk/public/archives/"
+    "daaeac0d7ce1152aea9b61d9f1e19370/GTSRB-Training_fixed.zip"
+)
+
+
+def download_gtsrb(root: str = "./data") -> str:
+    """Fetch and extract the GTSRB training split (ref:01:5-18).
+
+    Returns the Training-tree path; an existing tree is returned without
+    any network call. Without a network this raises with instructions
+    rather than failing mysteriously.
+    """
+    target = Path(root) / "gtsrb" / "GTSRB" / "Training"
+    if target.exists():
+        return str(target)
+    import io
+    import urllib.request
+    import zipfile
+
+    try:
+        with urllib.request.urlopen(GTSRB_URL, timeout=60) as r:
+            data = r.read()
+    except Exception as e:
+        raise RuntimeError(
+            f"Could not download GTSRB ({e}). If you have a copy, place the "
+            f"class folders under {target} (ref layout: "
+            "<Training>/<class>/<img>.ppm)."
+        ) from e
+    with zipfile.ZipFile(io.BytesIO(data)) as zf:
+        zf.extractall(Path(root) / "gtsrb")
+    return str(target)
+
+
+# Host resize backend: "cv2" (the default, INTER_LINEAR's convention) or
+# "pil" (PIL's BILINEAR, bit-equal: the reference's torchvision
+# transforms.Resize, ref:05:24-29, 07:124-126). The two agree within 1 LSB
+# on upscales (GTSRB is mostly 30-60 px -> 224), but PIL antialiases a
+# DOWNSCALE where cv2 INTER_LINEAR does not (PARITY.md "Resize parity"):
+# parity runs on trees holding sources larger than the model input should
+# set "pil".
+RESIZE_BACKEND = "cv2"
+
+
+def set_resize_backend(backend: str) -> None:
+    if backend not in ("cv2", "pil"):
+        raise ValueError(f"unknown resize backend {backend!r}")
+    global RESIZE_BACKEND
+    RESIZE_BACKEND = backend
+
 
 def _decode_resize(path: str, size: int) -> np.ndarray:
     """One image as uint8 ``[size, size, 3]`` RGB."""
-    return native.load_batch([path], size, threads=1)[0]
+    return native.load_batch([path], size, threads=1,
+                             resize=RESIZE_BACKEND)[0]
 
 
 def _decode_resize_batch(paths: Sequence[str], size: int,
                          threads: int = 8) -> np.ndarray:
     """``paths`` as a uint8 ``[N, size, size, 3]`` RGB batch, decoded and
     resized on ``threads`` native threads."""
-    return native.load_batch(list(paths), size, threads=threads)
+    return native.load_batch(list(paths), size, threads=threads,
+                             resize=RESIZE_BACKEND)
 
 
 class ImageFolder:
@@ -50,11 +106,14 @@ class ImageFolder:
 
     ``classes`` are the sorted subdirectory names (the reference's label
     indexing, ref:05:32); ``samples`` is a list of (path, label).
+    ``threads`` native threads decode each :meth:`load_batch`.
     """
 
-    def __init__(self, root: str, size: int = configs.IMAGE_SIZE):
+    def __init__(self, root: str, size: int = configs.IMAGE_SIZE,
+                 threads: int = 8):
         self.root = Path(root)
         self.size = size
+        self.threads = threads
         if not self.root.exists():
             raise FileNotFoundError(f"{root} does not exist")
         self.classes = sorted(
@@ -76,17 +135,19 @@ class ImageFolder:
     def load_batch(self, indices) -> Tuple[np.ndarray, np.ndarray]:
         paths = [self.samples[i][0] for i in indices]
         labels = np.asarray([self.samples[i][1] for i in indices], np.int32)
-        return _decode_resize_batch(paths, self.size), labels
+        return _decode_resize_batch(paths, self.size, self.threads), labels
 
 
 class PairedFolder:
     """(distorted, clean) pairs matched by relative path with ``.png``
-    fallback (ref:07:44-55)."""
+    fallback (ref:07:44-55); ``threads`` native threads decode each
+    :meth:`load_batch`."""
 
     def __init__(self, clean_root: str, distorted_root: str,
                  size: int = configs.IMAGE_SIZE,
-                 exts: Sequence[str] = (".ppm",)):
+                 exts: Sequence[str] = (".ppm",), threads: int = 8):
         self.size = size
+        self.threads = threads
         clean_root = Path(clean_root)
         distorted_root = Path(distorted_root)
         clean_files: List[Path] = []
@@ -112,8 +173,8 @@ class PairedFolder:
         """``(distorted, clean)`` uint8 ``[N, size, size, 3]`` batches."""
         d_paths = [self.pairs[i][0] for i in indices]
         c_paths = [self.pairs[i][1] for i in indices]
-        return (_decode_resize_batch(d_paths, self.size),
-                _decode_resize_batch(c_paths, self.size))
+        return (_decode_resize_batch(d_paths, self.size, self.threads),
+                _decode_resize_batch(c_paths, self.size, self.threads))
 
 
 def train_val_split(n: int, train_frac: float, seed: int = 0

@@ -2,7 +2,8 @@
 
 The port's own copy of ``tsr_tpu/native`` and its only codec (no module of
 the port imports cv2 or PIL): PNG/PPM/BMP decode at native size, a
-cv2.INTER_LINEAR-convention bilinear resize (within 1 LSB of cv2), header
+cv2.INTER_LINEAR-convention bilinear resize (within 1 LSB of cv2) or PIL's
+BILINEAR resize (bit-equal to PIL), header
 probes and whole batches decoded into padded canvases on native threads
 (one call a batch, so the tree walks' Python threads stay off the
 interpreter lock), and threaded PNG and PPM writers (:func:`write_png_batch`,
@@ -32,6 +33,7 @@ BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 LIBS = ("-lz",)
 _FORMATS = {"png": 0, "ppm": 1}
+_RESIZE_MODES = {"cv2": 0, "pil": 1}
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -72,7 +74,7 @@ def _lib() -> ctypes.CDLL:
             lib.tsrio_load_batch.restype = ctypes.c_int
             lib.tsrio_load_batch.argtypes = [
                 ctypes.c_char_p, ctypes.c_int, ctypes.c_int, u8p,
-                ctypes.c_int]
+                ctypes.c_int, ctypes.c_int]
             lib.tsrio_decode.restype = ctypes.c_int
             lib.tsrio_decode.argtypes = [
                 ctypes.c_char_p, u8p, ctypes.c_long,
@@ -115,16 +117,23 @@ def decode(path: str, max_side: int = 4096) -> np.ndarray:
     return buf[:w * h * 3].reshape(h, w, 3).copy()
 
 
-def load_batch(paths: Sequence[str], size: int, threads: int = 8
-               ) -> np.ndarray:
+def load_batch(paths: Sequence[str], size: int, threads: int = 8,
+               resize: str = "cv2") -> np.ndarray:
     """Decode and bilinear-resize ``paths`` into a uint8 ``[N, size, size,
-    3]`` RGB batch; raises if any image fails."""
+    3]`` RGB batch; raises if any image fails. ``resize`` is ``"cv2"``
+    (cv2.INTER_LINEAR's convention, within 1 LSB of cv2) or ``"pil"``
+    (bit-equal to PIL's ``Image.resize(..., BILINEAR)``, which
+    antialiases a downscale)."""
+    if resize not in _RESIZE_MODES:
+        raise ValueError(f"unknown resize {resize!r}; one of "
+                         f"{tuple(_RESIZE_MODES)}")
     out = np.empty((len(paths), size, size, 3), np.uint8)
     if not len(paths):
         return out
     ok = _lib().tsrio_load_batch(
         _joined(paths), len(paths), size,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), threads)
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), threads,
+        _RESIZE_MODES[resize])
     if ok != len(paths):
         raise RuntimeError(f"tsrio decoded {ok}/{len(paths)} images")
     return out

@@ -12,8 +12,9 @@
 // write in this pipeline).
 //
 // Exposed C ABI (used via ctypes from tsr_tpu_torch.native):
-//   tsrio_load_batch(paths, n, size, out, threads) -> images loaded
+//   tsrio_load_batch(paths, n, size, out, threads, mode) -> images loaded
 //     paths: '\n'-joined file paths; out: uint8[n, size, size, 3]
+//     mode 0 resizes as cv2.INTER_LINEAR, mode 1 as PIL's BILINEAR.
 //     Failed decodes leave their slot zeroed and are counted out.
 //   tsrio_decode(path, out, cap, dims) -> 1 on success
 //   tsrio_probe(paths, n, dims, threads) -> files probed
@@ -32,7 +33,8 @@
 //     level 1, filter 0), format 1 is PPM (P6). Both are lossless, so
 //     pixel parity with cv2's encoder is exact by construction.
 //
-// Resize matches cv2.INTER_LINEAR (half-pixel centers, clamped edges).
+// Resize matches cv2.INTER_LINEAR (half-pixel centers, clamped edges), or
+// bit for bit PIL's Image.resize(..., BILINEAR) (resize_pil).
 
 #include <zlib.h>
 
@@ -358,6 +360,123 @@ void resize_bilinear(const Image& src, int size, uint8_t* dst) {
   }
 }
 
+// PIL's Image.resize(..., BILINEAR) on 8-bit RGB, bit for bit: the
+// two-pass fixed-point resampler of Pillow's src/libImaging/Resample.c.
+// Per axis, output i takes the input taps [xmin, xmin + n) around
+// center = (i + 0.5) * scale with triangle weights widened by the scale on
+// a downscale (antialiasing), normalised in double and rounded half away
+// from zero to PRECISION_BITS of fixed point. The horizontal pass runs
+// over the rows the vertical pass reads, into a temporary image; each pass
+// accumulates in int32 from 1 << (PRECISION_BITS - 1) and clips
+// acc >> PRECISION_BITS to [0, 255]. An axis of equal size is not
+// resampled; a same-size resize is a copy.
+constexpr int kPrecisionBits = 32 - 8 - 2;
+
+struct PilCoeffs {
+  int ksize = 0;
+  std::vector<int> bounds;  // (xmin, n) per output
+  std::vector<int32_t> k;   // [out, ksize]
+};
+
+PilCoeffs pil_coeffs(int in_size, int out_size) {
+  PilCoeffs c;
+  const double scale = static_cast<double>(in_size) / out_size;
+  const double filterscale = scale < 1.0 ? 1.0 : scale;
+  const double support = 1.0 * filterscale;  // the bilinear filter's support
+  c.ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
+  c.bounds.resize(2 * static_cast<size_t>(out_size));
+  c.k.assign(static_cast<size_t>(out_size) * c.ksize, 0);
+  std::vector<double> w(c.ksize);
+  const double ss = 1.0 / filterscale;
+  for (int xx = 0; xx < out_size; xx++) {
+    const double center = (xx + 0.5) * scale;
+    int xmin = static_cast<int>(center - support + 0.5);
+    if (xmin < 0) xmin = 0;
+    int xmax = static_cast<int>(center + support + 0.5);
+    if (xmax > in_size) xmax = in_size;
+    xmax -= xmin;
+    double ww = 0.0;
+    for (int x = 0; x < xmax; x++) {
+      double t = (x + xmin - center + 0.5) * ss;
+      if (t < 0.0) t = -t;
+      w[x] = t < 1.0 ? 1.0 - t : 0.0;
+      ww += w[x];
+    }
+    int32_t* k = c.k.data() + static_cast<size_t>(xx) * c.ksize;
+    for (int x = 0; x < xmax; x++) {
+      const double v = ww != 0.0 ? w[x] / ww : w[x];
+      k[x] = static_cast<int32_t>(v < 0 ? -0.5 + v * (1 << kPrecisionBits)
+                                        : 0.5 + v * (1 << kPrecisionBits));
+    }
+    c.bounds[2 * xx] = xmin;
+    c.bounds[2 * xx + 1] = xmax;
+  }
+  return c;
+}
+
+inline uint8_t pil_clip8(int32_t in) {
+  if (in >= (1 << kPrecisionBits << 8)) return 255;
+  if (in <= 0) return 0;
+  return static_cast<uint8_t>(in >> kPrecisionBits);
+}
+
+void resize_pil(const Image& src, int size, uint8_t* dst) {
+  const size_t row_out = static_cast<size_t>(size) * 3;
+  if (src.w == size && src.h == size) {
+    std::memcpy(dst, src.rgb.data(), row_out * size);
+    return;
+  }
+  const PilCoeffs ch = pil_coeffs(src.w, size);
+  PilCoeffs cv = pil_coeffs(src.h, size);
+  // rows of the source the vertical pass reads
+  const int y_first = cv.bounds[0];
+  const int y_last = cv.bounds[2 * size - 2] + cv.bounds[2 * size - 1];
+  const uint8_t* tmp = src.rgb.data();
+  int tmp_w = src.w;
+  std::vector<uint8_t> hbuf;
+  if (src.w != size) {
+    const int rows = y_last - y_first;
+    hbuf.resize(static_cast<size_t>(rows) * row_out);
+    for (int y = 0; y < rows; y++) {
+      const uint8_t* in = src.rgb.data() +
+                          static_cast<size_t>(y + y_first) * src.w * 3;
+      uint8_t* out = hbuf.data() + static_cast<size_t>(y) * row_out;
+      for (int xx = 0; xx < size; xx++) {
+        const int xmin = ch.bounds[2 * xx], n = ch.bounds[2 * xx + 1];
+        const int32_t* k = ch.k.data() + static_cast<size_t>(xx) * ch.ksize;
+        int32_t s0 = 1 << (kPrecisionBits - 1), s1 = s0, s2 = s0;
+        for (int x = 0; x < n; x++) {
+          const uint8_t* p = in + (x + xmin) * 3;
+          s0 += p[0] * k[x];
+          s1 += p[1] * k[x];
+          s2 += p[2] * k[x];
+        }
+        out[xx * 3 + 0] = pil_clip8(s0);
+        out[xx * 3 + 1] = pil_clip8(s1);
+        out[xx * 3 + 2] = pil_clip8(s2);
+      }
+    }
+    for (int i = 0; i < size; i++) cv.bounds[2 * i] -= y_first;
+    tmp = hbuf.data();
+    tmp_w = size;
+  }
+  const size_t row_tmp = static_cast<size_t>(tmp_w) * 3;
+  if (src.h == size) {  // no vertical pass: the horizontal one's rows
+    std::memcpy(dst, tmp, row_out * size);
+    return;
+  }
+  for (int yy = 0; yy < size; yy++) {
+    const int ymin = cv.bounds[2 * yy], n = cv.bounds[2 * yy + 1];
+    const int32_t* k = cv.k.data() + static_cast<size_t>(yy) * cv.ksize;
+    uint8_t* out = dst + static_cast<size_t>(yy) * row_out;
+    for (size_t i = 0; i < row_out; i++) {
+      int32_t s = 1 << (kPrecisionBits - 1);
+      for (int y = 0; y < n; y++) s += tmp[(y + ymin) * row_tmp + i] * k[y];
+      out[i] = pil_clip8(s);
+    }
+  }
+}
+
 // --- PNG encode (8-bit RGB, color type 2, filter 0 scanlines) ---
 void put_be32(std::vector<uint8_t>& v, uint32_t x) {
   v.push_back((x >> 24) & 0xff);
@@ -573,16 +692,20 @@ int parallel_count(int n, int threads, Fn fn) {
 
 extern "C" {
 
-// Decode + resize n images into out[n, size, size, 3]; a failed slot is
-// zeroed. Returns the number of successfully loaded images.
+// Decode + resize n images into out[n, size, size, 3], mode 0 as
+// cv2.INTER_LINEAR, mode 1 as PIL's BILINEAR; a failed slot is zeroed.
+// Returns the number of successfully loaded images.
 int tsrio_load_batch(const char* joined_paths, int n, int size,
-                     uint8_t* out, int threads) {
+                     uint8_t* out, int threads, int mode) {
   const auto paths = split_paths(joined_paths, n);
   const size_t per = static_cast<size_t>(size) * size * 3;
   return parallel_count(static_cast<int>(paths.size()), threads, [&](int i) {
     Image img;
     if (decode_file(paths[i].c_str(), img)) {
-      resize_bilinear(img, size, out + per * i);
+      if (mode == 1)
+        resize_pil(img, size, out + per * i);
+      else
+        resize_bilinear(img, size, out + per * i);
       return true;
     }
     std::memset(out + per * i, 0, per);

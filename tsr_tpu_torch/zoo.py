@@ -104,10 +104,18 @@ def load_model(kind: str, path: Optional[str],
 
 
 def _model_path(path: str) -> str:
-    """Accept either the checkpoint base path or its model file."""
-    if os.path.basename(path) == "model":
-        return path
-    return os.path.join(path, "model")
+    """Accept either the checkpoint base path or its model file; refuse an
+    orbax checkpoint (its ``model`` is a directory)."""
+    model = path if os.path.basename(path) == "model" else os.path.join(
+        path, "model")
+    if os.path.isdir(model):
+        raise ValueError(
+            f"{path} is an orbax checkpoint written by the JAX package "
+            "(tsr_tpu), which the port cannot read. Export its weights "
+            "with tsr_tpu.checkpoint's *_to_state_dict and save_pth, then "
+            "pass the .pth file or put it at <dir>/model beside the "
+            "checkpoint's config.json (README, 'The PyTorch/CUDA port').")
+    return model
 
 
 def state_tree(state: common.TrainState) -> dict:
@@ -152,9 +160,10 @@ def load_train_state(base_path: str, state: common.TrainState
     """Resume: load a checkpoint's model weights, optimizer and schedule
     state and step count into ``state`` (built like the one saved, on its
     device), and return it."""
+    weights = _model_path(base_path)
     tree = torch.load(os.path.join(base_path, "train"), map_location="cpu",
                       weights_only=True)
-    state.model.load_state_dict(torch.load(_model_path(base_path),
+    state.model.load_state_dict(torch.load(weights,
                                            map_location="cpu",
                                            weights_only=True))
     state.optimizer.load_state_dict(tree["optimizer"])
