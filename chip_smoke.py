@@ -129,10 +129,32 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    --fused`` with the same seeded ``.pth`` weights on a 2 x 4 tree at 64
    px, on the card and with ``--device cpu`` (TF32 off): equal
    accuracies. A ``cli:`` JSON line.
-10. One JSON line of the kernels (with ``launches_trees``,
+10. The multi-device layer (``mesh_phase``, ``tsr_tpu_torch.parallel``)
+   on this one card, so it shows the code on the card, not a scaling: B1
+   on a [BATCH, SIZE, SIZE, 3] batch split at MESH_SPLIT into three calls
+   with their ``row0``, bit-equal to the whole call; ``parallel.dryrun.
+   dryrun_multichip(2)`` at full width (two ranks sharing the card over
+   gloo on the mesh (data=1, model=2), the loss within 1e-3 of one
+   process, the TP weights halved); the data-parallel unified step at the
+   training cell (batch TRAIN_BATCH, bf16, the multiscale mix) on
+   MESH_RANKS ranks sharing the card over gloo, a warm-up step and
+   MESH_STEPS more, each loss within MESH_RTOL of the one-process steps
+   from the same weights and draws, B1/B2 launches counted on each rank
+   (launch counts zeroed just before and read just after, in each rank)
+   and summed, images/s and peak memory per rank printed, not gated; a
+   world of one over NCCL (its first loss equal to the step without a
+   mesh); then, on phase 9's tree, ``train-unified --mesh data=2`` for one
+   epoch against the command without (in float32 with TF32 off, both
+   losses within MESH_CLI_RTOL; with ``--bf16``, the train loss within it
+   and the validation loss reported beside the spread of two runs without
+   a mesh, ``mesh_cli`` says why) and
+   ``eval-baseline --mesh data=2`` (the same report). A ``mesh:`` JSON
+   line.
+11. One JSON line of the kernels (with ``launches_trees``,
    ``tree_shapes``, ``launches_cascade``, ``cascade_shapes``,
-   ``launches_judge``, ``launches_int8`` and ``launches_cli``), the card's
-   line, and the final ``{"ok": true, ...}`` line.
+   ``launches_judge``, ``launches_int8``, ``launches_cli`` and
+   ``launches_mesh``), the card's line, and the final ``{"ok": true,
+   ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -204,6 +226,12 @@ CLI_CLASSES, CLI_PER_CLASS = 43, 8
 CLI_EMBED_SAMPLES = 20       # embeddings --samples-per-mode
 CLI_PARITY_SIZE = 64
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published peak
+# phase 10: multi-device (parallel/), ranks sharing this one card over gloo
+MESH_SPLIT = (16, 40)        # B1's [BATCH, SIZE, SIZE, 3] cut into 3 calls
+MESH_RANKS = 2               # the data-parallel step and the CLI's --mesh
+MESH_STEPS = 5               # after one warm-up step, at TRAIN_BATCH
+MESH_RTOL = 1e-3             # per-step loss against one process
+MESH_CLI_RTOL = 2e-3         # the reference's bound for the mesh loop
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
 
@@ -2555,11 +2583,12 @@ def cli_commands():
     return COMMANDS
 
 
-def cli_subprocess(args, cwd):
+def cli_subprocess(args, cwd, **env):
     """``python3 -m tsr_tpu_torch <args>`` in ``cwd`` with the checkout on
-    PYTHONPATH; raises with its output on a non-zero exit. Returns its
-    standard output and wall seconds."""
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    PYTHONPATH (and ``env`` added to the environment); raises with its
+    output on a non-zero exit. Returns its standard output and wall
+    seconds."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), **env)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "tsr_tpu_torch", *args],
                          cwd=cwd, env=env, capture_output=True, text=True,
@@ -2867,6 +2896,223 @@ def cli_phase(dev, work):
     return totals
 
 
+def b1_split_check(dev):
+    """B1 on a [BATCH, SIZE, SIZE, 3] batch with every noise gate on, once
+    whole and once as three calls split at MESH_SPLIT with their ``row0``:
+    f and pre_blur equal bit for bit (the split calls draw the whole
+    call's Philox stream). Comparison launches, not a path."""
+    import torch
+    from tsr_tpu_torch.kernels import distort as kdistort
+    from tsr_tpu_torch.ops import distortions
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    clean = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+                          device=dev, generator=g)
+    d = distortions.draw_random_mix(BATCH, g)
+    args = (d.gate_fog.to(torch.int32), d.t,
+            torch.ones(BATCH, dtype=torch.int32, device=dev), d.sigma)
+    f, pre = kdistort.fused_fog_noise(clean, d.seed[:1], *args)
+    cuts = (0, *MESH_SPLIT, BATCH)
+    parts = [kdistort.fused_fog_noise(
+        clean[a:b], d.seed[:1], *(v[a:b] for v in args), row0=a,
+        group_rows=BATCH) for a, b in zip(cuts, cuts[1:])]
+    f_split = torch.cat([p[0] for p in parts])
+    pre_split = torch.cat([p[1] for p in parts])
+    torch.cuda.synchronize()
+    diff = {"f": int((f_split != f).sum()), "pre_blur":
+            int((pre_split != pre).sum())}
+    check(diff == {"f": 0, "pre_blur": 0},
+          f"B1 split at {MESH_SPLIT} with row0 differs from the whole call "
+          f"at {diff} values")
+    print(f"mesh: B1 on {list(clean.shape)} split at rows {MESH_SPLIT} "
+          f"into 3 calls with row0: f and pre_blur equal to the whole call "
+          f"bit for bit")
+    return {"shape": list(clean.shape), "split": list(MESH_SPLIT),
+            "mismatches": diff}
+
+
+def mesh_cli(work):
+    """On phase 9's tree: train-unified (one epoch) and eval-baseline, each
+    once with ``--mesh data=MESH_RANKS`` (ranks the command starts on this
+    card, gloo) and once without (train-unified then on the host-streamed
+    loop the mesh takes), as subprocesses. In float32 with TF32 off
+    (``NVIDIA_TF32_OVERRIDE=0``) both the train and the validation loss
+    are held to MESH_CLI_RTOL. In bf16 (``--bf16``) the train loss is held
+    to it, and the validation loss is reported beside the spread of two
+    runs of the command without a mesh: Adam moves the convolution biases
+    that feed a batch norm (exact gradient 0) by about its rate each step
+    in the sign of rounding noise, and only the eval-mode loss sees them
+    (PERF.md, section 6)."""
+    cli_dir = work / "cli"
+    common = ["--clean-dir", "data/gtsrb/GTSRB/Training", "--ckpt-dir",
+              "checkpoints", "--image-size", str(SIZE)]
+    mesh = ["--mesh", f"data={MESH_RANKS}"]
+    fp32 = {"NVIDIA_TF32_OVERRIDE": "0"}
+    out = {}
+
+    def train(extra, save, **env):
+        text, secs = cli_subprocess(
+            ["train-unified", *common, "--epochs", "1", *extra, "--save",
+             f"checkpoints/{save}"], cli_dir, **env)
+        losses = [float(x) for x in re.findall(r"loss (\d+\.\d+)", text)]
+        check(len(losses) == 2, f"train and val losses printed: {losses}")
+        return text, secs, losses
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    one, t_one, a = train(["--host-stream"], "mesh_one", **fp32)
+    two, t_two, b = train(mesh, "mesh_two", **fp32)
+    line = re.search(r"^Mesh: .*$", two, re.M)
+    check(line and "backend gloo" in line.group(0)
+          and f"over {MESH_RANKS} ranks" in line.group(0),
+          f"train-unified --mesh names gloo and the devices: {line}")
+    worst = max(rel(x, y) for x, y in zip(b, a))
+    check(worst <= MESH_CLI_RTOL,
+          f"train-unified --mesh losses {b} vs {a}: {worst} > "
+          f"{MESH_CLI_RTOL}")
+    check(two.count("Done. Checkpoint at") == 1, "only the first rank prints")
+    out["train_unified"] = {"losses": a, "mesh_losses": b, "max_rel": worst,
+                            "seconds": t_one, "mesh_seconds": t_two,
+                            "mesh_line": line.group(0),
+                            "images_per_sec": printed_rates(one),
+                            "mesh_images_per_sec": printed_rates(two)}
+    print(f"mesh: cli train-unified --mesh data={MESH_RANKS} (fp32, TF32 "
+          f"off): losses {b} vs {a} without (max rel {worst:.3g}, tol "
+          f"{MESH_CLI_RTOL})")
+
+    # bf16: the train loss gated, the validation loss beside two runs
+    # without a mesh
+    _, t_a1, a1 = train(["--host-stream", "--bf16"], "bf16_one_a")
+    _, _, a2 = train(["--host-stream", "--bf16"], "bf16_one_b")
+    mtext, t_m, m = train(mesh + ["--bf16"], "bf16_mesh")
+    train_rel = rel(m[0], a1[0])
+    check(train_rel <= MESH_CLI_RTOL,
+          f"train-unified --mesh --bf16 train loss {m[0]} vs {a1[0]}: "
+          f"{train_rel} > {MESH_CLI_RTOL}")
+    out["train_unified_bf16"] = {
+        "losses_run_a": a1, "losses_run_b": a2, "mesh_losses": m,
+        "train_rel": train_rel,
+        "val_rel_two_runs_without_mesh": rel(a2[1], a1[1]),
+        "val_rel_mesh": rel(m[1], a1[1]),
+        "train_rel_two_runs_without_mesh": rel(a2[0], a1[0]),
+        "seconds": t_a1, "mesh_seconds": t_m,
+        "mesh_images_per_sec": printed_rates(mtext)}
+    print(f"mesh: cli train-unified --mesh data={MESH_RANKS} --bf16: train "
+          f"loss {m[0]} vs {a1[0]} without (rel {train_rel:.3g}, tol "
+          f"{MESH_CLI_RTOL}); not gated: validation loss {m[1]} (rel "
+          f"{rel(m[1], a1[1]):.3g}) against two runs without a mesh "
+          f"{a1[1]} and {a2[1]} (rel {rel(a2[1], a1[1]):.3g}; their train "
+          f"losses {a1[0]} and {a2[0]})")
+
+    title = "Final Test Report (Baseline 1)"
+    e1, _ = cli_subprocess(["eval-baseline", *common], cli_dir, **fp32)
+    e2, _ = cli_subprocess(["eval-baseline", *common, *mesh], cli_dir,
+                           **fp32)
+    r1, r2 = (parse_accuracy_report(t, title) for t in (e1, e2))
+    check(r1 == r2, f"eval-baseline --mesh {r2} != without {r1}")
+    out["eval_baseline"] = r1
+    print(f"mesh: cli eval-baseline --mesh data={MESH_RANKS} report {r2} "
+          f"equals the one without")
+    return out
+
+
+def mesh_phase(dev, work):
+    """Phase 10: the multi-device layer (``tsr_tpu_torch.parallel``) on
+    this one card. Returns the kernels' launches of its main path (the
+    data-parallel steps on the ranks, summed, and the NCCL world of one)."""
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import configs
+    from tsr_tpu_torch.parallel import checks, launch
+    from tsr_tpu_torch.parallel.dryrun import dryrun_multichip
+    t_phase = time.perf_counter()
+    result = {"card": card_line(), "b1_split": b1_split_check(dev)}
+
+    # -- the flagship step on (data=1, model=2): two ranks, one card ------
+    t0 = time.perf_counter()
+    records = dryrun_multichip(2, device="cuda")
+    check(records[0]["mesh"] == {"data": 1, "model": 2}
+          and records[0]["backend"] == "gloo", f"dryrun mesh {records[0]}")
+    result["dryrun"] = dict(records[0], seconds=time.perf_counter() - t0)
+
+    # -- the data-parallel step at the training cell ----------------------
+    clean = np.random.default_rng(SEED + 11).integers(
+        0, 256, (TRAIN_BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    kw = dict(arch=dict(widths=(64, 128, 256), bottleneck_width=512,
+                        dtype="bf16"),
+              judge_arch=dict(num_classes=configs.NUM_CLASSES,
+                              input_size=SIZE, dtype="bf16"),
+              seed=SEED + 12, clean_u8=clean,
+              gen_seeds=list(range(SEED + 100, SEED + 101 + MESH_STEPS)))
+    one = checks.unified_train_steps(**kw, device=dev)
+    ranks = [r[0] for r in launch.spawn(
+        checks.run, MESH_RANKS,
+        ([("unified_train_steps", dict(kw, data=MESH_RANKS))],),
+        device="cuda")]
+    counts = {k: sum(r["launches"][k] for r in ranks)
+              for k in ranks[0]["launches"]}
+    n_groups = len(configs.UnifiedTrainConfig().mix.apply_scales)
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda"),
+              f"ranks sharing one card run gloo on it: {r['backend']} "
+              f"{r['device']}")
+        check(r["losses"] == ranks[0]["losses"], "ranks log the same loss")
+        for key in ("fog_noise", "blur_sparse"):
+            check(r["launches"][key] > 0, f"{key} launched on each rank")
+    rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                               one["losses"])]
+    check(max(rel) <= MESH_RTOL, f"data-parallel losses "
+          f"{ranks[0]['losses']} vs one process {one['losses']}")
+    for key in ("fog_noise", "blur_sparse"):
+        check(counts[key] == one["launches"][key]
+              == n_groups * len(kw["gen_seeds"]),
+              f"{key}: {counts[key]} launches over the ranks, "
+              f"{one['launches'][key]} in one process")
+    result["data_parallel"] = {
+        "batch": TRAIN_BATCH, "size": SIZE, "dtype": "bf16",
+        "ranks": MESH_RANKS, "steps": MESH_STEPS, "losses": ranks[0]["losses"],
+        "one_process_losses": one["losses"], "max_rel": max(rel),
+        "images_per_sec_two_ranks_one_card": ranks[0]["images_per_sec"],
+        "images_per_sec_one_process": one["images_per_sec"],
+        "peak_memory_gib_per_rank": [r["peak_memory_gib"] for r in ranks],
+        "launches_per_rank": [r["launches"] for r in ranks]}
+    per_rank = [(r["launches"]["fog_noise"], r["launches"]["blur_sparse"])
+                for r in ranks]
+    print(f"mesh: data-parallel unified step, {MESH_RANKS} ranks sharing "
+          f"one card (gloo), batch {TRAIN_BATCH} at {SIZE} bf16: losses "
+          f"{ranks[0]['losses']} vs one process {one['losses']} (max rel "
+          f"{max(rel):.3g}, tol {MESH_RTOL}); B1/B2 launches per rank "
+          f"{per_rank}; "
+          f"not gated: {ranks[0]['images_per_sec']:.1f} images/s for the "
+          f"{MESH_RANKS} ranks sharing one card (no scaling measured) "
+          f"against {one['images_per_sec']:.1f} in one process, peak "
+          f"memory per rank {[round(r['peak_memory_gib'], 3) for r in ranks]}"
+          f" GiB")
+
+    # -- a world of one over NCCL ------------------------------------------
+    nccl = launch.spawn(checks.run, 1, ([("unified_train_steps", dict(
+        kw, data=1, gen_seeds=kw["gen_seeds"][:2]))],), device="cuda")[0][0]
+    check(nccl["backend"] == "nccl", f"one rank on one card: {nccl}")
+    check(nccl["losses"][0] == one["losses"][0],
+          f"NCCL world of one: first step {nccl['losses'][0]} != "
+          f"{one['losses'][0]} without a mesh")
+    nrel = max(abs(a - b) / abs(b) for a, b in zip(nccl["losses"],
+                                                   one["losses"]))
+    check(nrel <= MESH_RTOL, f"NCCL world of one {nccl['losses']}")
+    for k, v in nccl["launches"].items():
+        counts[k] += v
+    result["nccl_world_of_one"] = {"losses": nccl["losses"],
+                                   "max_rel": nrel}
+    check(counts["blur_dense"] == 0, "no shared blur (B3) on the mesh path")
+
+    # -- the commands' --mesh on phase 9's tree -----------------------------
+    result["cli"] = mesh_cli(work)
+    result["launches"] = counts
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    print("mesh: " + json.dumps(result))
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3040,6 +3286,8 @@ def run(dev) -> None:
         int8_counts = int8_phase(dev, resunet, judge, Path(tmp))
         # -- 9. the CLI on the card ------------------------------------------
         cli_counts = cli_phase(dev, Path(tmp))
+        # -- 10. multi-device, ranks sharing the card ------------------------
+        mesh_counts = mesh_phase(dev, Path(tmp))
 
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
@@ -3052,6 +3300,7 @@ def run(dev) -> None:
         row["launches_judge"] = judge_counts[key]
         row["launches_int8"] = int8_counts[key]
         row["launches_cli"] = cli_counts.get(key, 0)
+        row["launches_mesh"] = mesh_counts.get(key, 0)
         row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)

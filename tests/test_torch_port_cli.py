@@ -1,8 +1,9 @@
 """The port's command line (``python -m tsr_tpu_torch``) against the JAX
 package's (``python -m tsr_tpu``) on the CPU: the same commands, the same
 options in every script (plus ``--device``), the same ``--synthetic``
-tree, the partial-tree rebuild, and the port's refusals (``--mesh``, a
-missing card).
+tree, the partial-tree rebuild, ``--mesh`` (run on ranks the command
+starts, refused by the commands without a multi-device path), and the
+port's refusal of a missing card.
 
 The parsers are read in process: ``ArgumentParser.parse_args`` is patched
 to raise with the parser, so neither script's ``main`` runs further.
@@ -125,11 +126,44 @@ def test_default_device_raises_without_cuda(command, tmp_path):
     assert not (tmp_path / "none").exists()
 
 
-def test_mesh_refused(tmp_path):
+def test_mesh_refused(tmp_path, capfd, monkeypatch):
+    """``eval-baseline --mesh data=2 --device cpu`` now runs: the command
+    starts two gloo ranks (the first prints, the Mesh line names the
+    backend and devices) and exits 0 with the report of the command
+    without --mesh. A command with no multi-device path (gen-noise) still
+    refuses --mesh."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    tree = tmp_path / "tree"
+    jsynthetic.write_image_tree(str(tree), num_classes=2, per_class=5,
+                                size=16)
+    torch.manual_seed(0)
+    from tsr_tpu_torch.models import VGG16
+    torch.save(VGG16(num_classes=2, cfg=(8, "M", 16, "M"), fc_width=32,
+                     input_size=16).state_dict(), tmp_path / "judge.pth")
+    zoo_cfg = {"kind": "vgg16", "num_classes": 2, "cfg": [8, "M", 16, "M"],
+               "fc_width": 32}
+    (tmp_path / "judge").mkdir()
+    (tmp_path / "judge" / "config.json").write_text(json.dumps(zoo_cfg))
+    (tmp_path / "judge" / "model").write_bytes(
+        (tmp_path / "judge.pth").read_bytes())
+    argv = ["--clean-dir", str(tree), "--image-size", "16", "--device",
+            "cpu", "--model", str(tmp_path / "judge"), "--batch-size", "4"]
+    _port_main("eval-baseline")(argv)
+    one = capfd.readouterr().out
     with pytest.raises(SystemExit) as e:
-        _port_main("eval-baseline")(["--mesh", "data=2", "--device", "cpu",
-                                     "--clean-dir", str(tmp_path)])
-    assert "ROADMAP queue A item 10" in str(e.value.code)
+        _port_main("eval-baseline")(argv + ["--mesh", "data=2"])
+    assert e.value.code == 0
+    two = capfd.readouterr().out
+    assert ("Mesh: {'data': 2, 'model': 1} over 2 ranks, backend gloo, "
+            "devices ['cpu', 'cpu']") in two
+    report = one[one.index("=" * 30):]
+    assert report in two and two.count("Final Test Report") == 1
+    with pytest.raises(SystemExit) as e:
+        _port_main("gen-noise")(["--mesh", "data=2", "--device", "cpu",
+                                 "--clean-dir", str(tmp_path)])
+    assert "no multi-device path" in str(e.value.code)
 
 
 def _read_tree(root):

@@ -290,6 +290,10 @@ def test_import_pulls_in_no_jax():
         "import tsr_tpu_torch.utils.reporting\n"
         "import tsr_tpu_torch.utils.profiling\n"
         "import tsr_tpu_torch.ops.image_host, tsr_tpu_torch.data.synthetic\n"
+        "import tsr_tpu_torch.parallel.mesh, tsr_tpu_torch.parallel.launch\n"
+        "import tsr_tpu_torch.parallel.distributed\n"
+        "import tsr_tpu_torch.parallel.collectives\n"
+        "import tsr_tpu_torch.parallel.checks, tsr_tpu_torch.parallel.dryrun\n"
         "import chip_smoke\n"
         "scripts = sorted(glob.glob('tsr_tpu_torch/scripts/[01]*.py'))\n"
         "assert len(scripts) == 19, scripts\n"

@@ -3,8 +3,8 @@
 The port's own copy of ``tsr_tpu/configs.py`` (image size, class count,
 ImageNet statistics, the single distortions, the compound chain, the
 random mix, the cascade's mild distortions, the judge's, specialized,
-advanced and unified trainers and the eval batch), with the reference scripts' values
-as defaults.
+advanced and unified trainers, the eval batch and the mesh layout), with the
+reference scripts' values as defaults.
 """
 
 from __future__ import annotations
@@ -152,3 +152,17 @@ class UnifiedTrainConfig:
 class EvalConfig:
     """Accuracy harness (ref:06:11, 06:41)."""
     batch_size: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh layout for sharded training/eval (``parallel.mesh``).
+
+    The workload is data-parallel at heart (the reference has no parallelism
+    at all, SURVEY.md §2), but the VGG judge's 4096-wide FC layers and the
+    ResUNet bottleneck shard cleanly on a model axis too.
+    """
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1   # -1: all remaining ranks
+    model_parallel: int = 1

@@ -1,8 +1,7 @@
 """Evaluation: the fused restore -> classify step, its batch harness and
 the directory harness.
 
-Port of ``tsr_tpu/eval.py`` (without ``evaluate_directory``'s ``mesh``).
-One step runs
+Port of ``tsr_tpu/eval.py``. One step runs
 
     uint8 batch -> [0,1] -> ResUNet -> clamp -> (uint8 quantize) ->
     ImageNet-normalize -> VGG16 judge -> top-1
@@ -156,7 +155,7 @@ def evaluate_directory(judge: nn.Module, data_dir: str, batch_size: int = 64,
                        size: int = configs.IMAGE_SIZE,
                        restorer: Optional[nn.Module] = None,
                        quantize: bool = True, resize: str = "host",
-                       device="cuda") -> Dict[str, float]:
+                       device="cuda", mesh=None) -> Dict[str, float]:
     """Directory top-1 evaluation (ref:06:23-59): ``ImageFolder`` over
     ``data_dir``, optional fused restoration before the judge.
 
@@ -166,16 +165,32 @@ def evaluate_directory(judge: nn.Module, data_dir: str, batch_size: int = 64,
     k+1 overlaps the device work of batch k. ``resize="device"`` uploads
     native-resolution pixels and resizes them on the card
     (``ops.image.resize_from_padded``, within 1 LSB of cv2).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) runs the harness data-parallel on
+    the mesh's device: the models are replicated from its first rank and
+    each batch is split over its data axis, the uneven tail batch computed
+    whole on every rank and counted once; the counts (and confidences)
+    are reduced over the axis, so every rank returns the one-device
+    result, with the global images/s. As in the reference, a mesh takes
+    the host-resize path whatever ``resize`` says.
     """
-    device = resolve_device(device)
+    if resize not in ("host", "device"):
+        raise ValueError(f"resize must be 'host' or 'device', got {resize!r}")
+    device = mesh.device if mesh is not None else resolve_device(device)
     ds = gtsrb.ImageFolder(data_dir, size=size)
-    if resize == "device":
+    if resize == "device" and mesh is None:
         return _evaluate_directory_native(ds, judge, batch_size, size,
                                           restorer, quantize, device)
-    if resize != "host":
-        raise ValueError(f"resize must be 'host' or 'device', got {resize!r}")
+    if mesh is not None:
+        from tsr_tpu_torch.parallel import mesh as pmesh
+
+        for m in (judge, restorer):
+            if m is not None:
+                pmesh.shard_variables(m, mesh)
     step = make_fused_eval_step(restorer, judge, quantize=quantize,
                                 device=device)
+    if mesh is not None:
+        step = _mesh_step(step, mesh)
     xfer = Transfers(device)
 
     def arrived(gen):
@@ -187,6 +202,26 @@ def evaluate_directory(judge: nn.Module, data_dir: str, batch_size: int = 64,
                        drop_remainder=False, epochs=1,
                        transform=lambda item: xfer.up(*item))
     return evaluate_batches(step, arrived(it), device=device)
+
+
+def _mesh_step(step, mesh):
+    """``step`` on this rank's rows of every global batch (or on the whole
+    uneven tail), with the count summed and the confidences gathered over
+    the data axis, so :func:`evaluate_batches` sees the global batch's."""
+    from tsr_tpu_torch.parallel import mesh as pmesh
+    from tsr_tpu_torch.parallel.collectives import all_gather_cat
+
+    def mesh_step(images, labels, clean=None):
+        (images, labels), split = pmesh.shard_batch_or_replicate(
+            (images, labels), mesh)
+        out = step(images, labels)
+        if split:
+            out["correct"] = mesh.data_sum(out["correct"])
+            out["confidence"] = all_gather_cat(out["confidence"], 0,
+                                               mesh.data_group)
+        return out
+
+    return mesh_step
 
 
 def _evaluate_directory_native(ds, judge, batch_size, size, restorer,

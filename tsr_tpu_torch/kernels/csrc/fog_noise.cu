@@ -16,7 +16,10 @@
 // prefetch to port), and keeps nothing else in memory.
 //
 // Randomness: counter-based Philox4x32-10 keyed by the 64-bit seed, with
-// counter (quad index, sample). One call gives 4 uniforms in
+// counter (quad index, row0 + sample): row0 is the call's first sample in
+// its noise group, so a batch split into calls (a rank's rows) draws the
+// whole batch's stream, and row0 = 0 is the stream of one whole call. One
+// call gives 4 uniforms in
 // [2^-24, 1 - 2^-24] (never 0, so log never sees 0) and Box-Muller turns
 // them into 4 normals. The stream differs from the TPU's on-chip PRNG by
 // design; only its distribution is held to the reference.
@@ -74,7 +77,7 @@ fog_noise_kernel(const uint8_t* __restrict__ clean,
                  const int32_t* __restrict__ gate_noise,
                  const float* __restrict__ sigma,
                  const int64_t* __restrict__ seed, float atmosphere,
-                 int64_t n, float* __restrict__ f_out,
+                 int64_t n, int64_t row0, float* __restrict__ f_out,
                  float* __restrict__ pre_out) {
   const int b = blockIdx.y;
   const int64_t quad = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -95,7 +98,7 @@ fog_noise_kernel(const uint8_t* __restrict__ clean,
     const uint4 bits = philox4x32_10(
         make_uint4(static_cast<uint32_t>(quad),
                    static_cast<uint32_t>(quad >> 32),
-                   static_cast<uint32_t>(b), 0u),
+                   static_cast<uint32_t>(b + row0), 0u),
         make_uint2(static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32)));
     box_muller(bits.x, bits.y, &nz[0], &nz[1]);
     box_muller(bits.z, bits.w, &nz[2], &nz[3]);
@@ -141,7 +144,8 @@ extern "C" int tsr_fog_noise(const void* clean, const void* gate_fog,
                              const void* t, const void* gate_noise,
                              const void* sigma, const void* seed,
                              float atmosphere, int batch, int64_t n,
-                             void* f_out, void* pre_out, void* stream) {
+                             int64_t row0, void* f_out, void* pre_out,
+                             void* stream) {
   if (batch <= 0 || n <= 0 || batch > 65535) return cudaErrorInvalidValue;
   const int64_t quads = (n + 3) / 4;
   const dim3 grid(static_cast<unsigned>((quads + kThreads - 1) / kThreads),
@@ -161,10 +165,10 @@ extern "C" int tsr_fog_noise(const void* clean, const void* gate_fog,
   auto* p = static_cast<float*>(pre_out);
   if (vec) {
     fog_noise_kernel<true><<<grid, kThreads, 0, s>>>(c, gf, tt, gn, sg, sd,
-                                                     atmosphere, n, f, p);
+                                                     atmosphere, n, row0, f, p);
   } else {
     fog_noise_kernel<false><<<grid, kThreads, 0, s>>>(c, gf, tt, gn, sg, sd,
-                                                      atmosphere, n, f, p);
+                                                      atmosphere, n, row0, f, p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,8 +24,8 @@ from tsr_tpu_torch.kernels._build import Kernel
 
 FOG_NOISE = Kernel(
     "fog_noise", "fog_noise.cu", "tsr_fog_noise",
-    [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int64]
-    + [ctypes.c_void_p] * 3)
+    [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int64,
+                             ctypes.c_int64] + [ctypes.c_void_p] * 3)
 
 
 def fog_noise_plain(clean_u8, gate_fog, t, gate_noise, sigma,
@@ -52,7 +52,8 @@ def fog_noise_plain(clean_u8, gate_fog, t, gate_noise, sigma,
 
 
 def fused_fog_noise(clean_u8, seed, gate_fog, t, gate_noise, sigma,
-                    atmosphere: float = 0.9, noise=None):
+                    atmosphere: float = 0.9, noise=None, row0: int = 0,
+                    group_rows=None):
     """Run the fused fog + noise prologue.
 
     Args:
@@ -63,19 +64,36 @@ def fused_fog_noise(clean_u8, seed, gate_fog, t, gate_noise, sigma,
       gate_fog / gate_noise: int32 ``[B]`` (0/1).
       t: float32 ``[B]`` fog transmission.
       sigma: float32 ``[B]`` noise stddev.
-      noise: CPU only, a pre-drawn N(0,1) field; the CUDA kernel draws
-        its own.
+      noise: CPU only, a pre-drawn N(0,1) field for the group (rows
+        ``row0:row0 + B`` are used); the CUDA kernel draws its own.
+      row0: the global index of the call's first sample in its noise
+        group (a rank's rows of a batch): the kernel keys sample ``b``'s
+        Philox counter with ``b + row0``, so split calls with their
+        ``row0`` draw the unsplit call's noise. 0 keeps the stream of a
+        whole batch.
+      group_rows: the group's sample count (default ``row0 + B``); the
+        CPU version draws the group's field from ``seed`` and takes its
+        rows.
 
     Returns:
       ``(f_noblur, pre_blur)``, both float32 ``[B, H, W, C]``.
     """
+    b = clean_u8.shape[0]
+    group_rows = row0 + b if group_rows is None else group_rows
+    if not 0 <= row0 <= group_rows - b:
+        raise ValueError(f"rows {row0}:{row0 + b} outside a group of "
+                         f"{group_rows}")
     if not _build.on_cuda(clean_u8):
-        generator = None
         if noise is None:
             generator = torch.Generator().manual_seed(
                 int(torch.as_tensor(seed).reshape(-1)[0]))
+            noise = torch.randn((group_rows, *clean_u8.shape[1:]),
+                                generator=generator)
+        elif noise.shape[0] < row0 + b:
+            raise ValueError(f"noise has {noise.shape[0]} rows; rows "
+                             f"{row0}:{row0 + b} are needed")
         return fog_noise_plain(clean_u8, gate_fog, t, gate_noise, sigma,
-                               atmosphere, noise, generator)
+                               atmosphere, noise[row0:row0 + b])
     if noise is not None:
         raise ValueError("the CUDA kernel draws its own noise from `seed`; "
                          "`noise` is for the CPU version")
@@ -83,7 +101,6 @@ def fused_fog_noise(clean_u8, seed, gate_fog, t, gate_noise, sigma,
         raise ValueError(f"clean_u8 must be uint8 [B,H,W,C], got "
                          f"{clean_u8.dtype} {tuple(clean_u8.shape)}")
     dev = clean_u8.device
-    b = clean_u8.shape[0]
     clean_u8 = clean_u8.contiguous()
     seed = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
     params = []
@@ -102,6 +119,7 @@ def fused_fog_noise(clean_u8, seed, gate_fog, t, gate_noise, sigma,
     FOG_NOISE.launch(clean_u8.data_ptr(), params[0].data_ptr(),
                      params[1].data_ptr(), params[2].data_ptr(),
                      params[3].data_ptr(), seed.data_ptr(), float(atmosphere),
-                     b, clean_u8[0].numel(), f.data_ptr(), pre.data_ptr(),
+                     b, clean_u8[0].numel(), int(row0), f.data_ptr(),
+                     pre.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
     return f, pre

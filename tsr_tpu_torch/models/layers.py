@@ -50,9 +50,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics are updated here, from the mean and ``1/sqrt(var + eps)``
     that the normalization already computed. ``update_stats = False`` (see
     :func:`frozen_running_stats`) normalizes without updating them.
+
+    Under a mesh's data axis (``sync_group``, set by
+    ``parallel.mesh.shard_variables``) the statistics cover the global
+    batch, as XLA's do under a sharded jit: the float32 sum, sum of
+    squares and count over the rank's rows go through one all-reduce over
+    the group, with the matching backward, and the variance is Flax's
+    ``E[x^2] - E[x]^2`` (clamped at 0). ``torch.nn.SyncBatchNorm`` would
+    move the running variance toward the unbiased variance.
     """
 
     update_stats = True
+    sync_group = None
 
     def forward(self, x):
         if not self.training:
@@ -60,15 +69,37 @@ class BatchNorm2d(nn.BatchNorm2d):
                              self.running_var, self.weight, self.bias, False,
                              0.0, self.eps)
             return y.to(x.dtype)
-        y, mean, invstd = torch.native_batch_norm(
-            x.to(torch.float32), self.weight, self.bias, None, None, True,
-            0.0, self.eps)
+        if self.sync_group is not None:
+            y, mean, var = self._synced(x.to(torch.float32))
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x.to(torch.float32), self.weight, self.bias, None, None,
+                True, 0.0, self.eps)
+            var = invstd.detach().pow(-2) - self.eps
         if self.update_stats:
             with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(invstd.pow(-2) - self.eps,
-                                       self.momentum)
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
         return y.to(x.dtype)
+
+    def _synced(self, x):
+        """Normalize float32 ``x`` with the statistics of the global batch:
+        returns ``(y, mean, biased var)``."""
+        from tsr_tpu_torch.parallel.collectives import sum_over_group
+
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype,
+                           device=x.device)
+        totals = sum_over_group(
+            torch.cat([x.sum(dims), (x * x).sum(dims), count]),
+            self.sync_group)
+        mean = totals[:c] / totals[-1]
+        var = torch.clamp_min(totals[c:2 * c] / totals[-1] - mean * mean, 0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * scale
+        return (x * scale[None, :, None, None]
+                + shift[None, :, None, None]), mean, var
 
 
 def batchnorm_fed_biases(module: nn.Module) -> set:

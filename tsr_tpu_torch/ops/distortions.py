@@ -92,7 +92,8 @@ def draw_random_mix(batch: int, generator: torch.Generator,
 
 def random_mix_from_draws(images_u8: torch.Tensor, draws: MixDraws,
                           noise: Optional[torch.Tensor] = None,
-                          kernels: Optional[torch.Tensor] = None
+                          kernels: Optional[torch.Tensor] = None,
+                          row0: int = 0, group_rows: Optional[int] = None
                           ) -> torch.Tensor:
     """The random mix's math for given draws: B1 (fog + noise + pre-blur
     round-trip) -> per-sample blur (B2, or B3 after
@@ -103,11 +104,16 @@ def random_mix_from_draws(images_u8: torch.Tensor, draws: MixDraws,
     ``noise`` (CPU only) is a pre-drawn N(0,1) field; without it the noise
     comes from B1's Philox stream keyed by ``draws.seed[0]``. ``kernels``
     are the draws' motion kernels when the caller has built them already.
+    ``images_u8`` and ``draws`` may be rows ``row0:`` of a group of
+    ``group_rows`` samples that share one noise stream (a rank's rows):
+    B1 draws their rows of the group's noise (``noise`` is then the
+    group's field).
     """
     f, pre_blur = distort_kernels.fused_fog_noise(
         images_u8, draws.seed[:1], draws.gate_fog.to(torch.int32), draws.t,
         draws.gate_noise.to(torch.int32), draws.sigma,
-        atmosphere=draws.atmosphere, noise=noise)
+        atmosphere=draws.atmosphere, noise=noise, row0=row0,
+        group_rows=group_rows)
     if kernels is None:
         kernels = blur_ops.motion_blur_kernels(draws.degrees, draws.angles,
                                                max_degree=MAX_BLUR_DEGREE)
@@ -122,18 +128,36 @@ def _batched(images_u8, device):
     return x, False
 
 
+def _rows(rows, n: int) -> Tuple[int, int]:
+    """``(row0, total)``: the batch as rows of a global batch (a rank's
+    rows), or the whole batch."""
+    row0, total = rows if rows is not None else (0, n)
+    if not 0 <= row0 <= total - n:
+        raise ValueError(f"rows {row0}:{row0 + n} outside a global batch "
+                         f"of {total}")
+    return row0, total
+
+
 def apply_random_distortions(
         images_u8, generator: torch.Generator,
         cfg: configs.RandomMixConfig = configs.RandomMixConfig(),
-        device="cuda") -> torch.Tensor:
+        device="cuda", rows: Optional[Tuple[int, int]] = None
+        ) -> torch.Tensor:
     """Per-sample random distortion mix, Fog -> Noise -> Blur, each with its
     own probability (ref:14:31-64). Every sample draws independent gates
     and parameters from ``generator``; the whole batch stays on ``device``.
+
+    ``rows=(row0, total)``: the batch is rows ``row0:`` of a global batch of
+    ``total`` (a rank's rows); the draws are made for the global batch and
+    these rows mixed as the whole batch's mix would mix them.
     """
     device = resolve_device(device)
     x, squeeze = _batched(images_u8, device)
-    draws = draw_random_mix(x.shape[0], generator, cfg).to(device)
-    out = random_mix_from_draws(x, draws)
+    row0, total = _rows(rows, x.shape[0])
+    draws = draw_random_mix(total, generator, cfg).to(device)
+    out = random_mix_from_draws(
+        x, draws.group(row0, row0 + x.shape[0], 0), row0=row0,
+        group_rows=total)
     return out[0] if squeeze else out
 
 
@@ -154,8 +178,8 @@ def scale_groups(batch: int, scales: Sequence[int]
 
 def random_mix_multiscale_from_draws(
         images_u8: torch.Tensor, draws: MixDraws, scales: Sequence[int],
-        noise: Optional[Sequence[Optional[torch.Tensor]]] = None
-        ) -> torch.Tensor:
+        noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        row0: int = 0) -> torch.Tensor:
     """The multiscale mix's math for given draws: each group of
     :func:`scale_groups` is downsampled to its scale (``resize_linear``,
     then ``clip01_to_uint8``), put through :func:`random_mix_from_draws`,
@@ -166,21 +190,31 @@ def random_mix_multiscale_from_draws(
     keys B1's noise with ``draws.seed[i]``); the motion kernels are built
     once for the batch and sliced. ``noise`` (CPU only) holds one N(0,1)
     field per scale, at that scale (``None`` for an empty group).
+
+    ``images_u8`` may be rows ``row0:`` of the batch ``draws`` cover (a
+    rank's rows): the groups keep their positions in that batch, a group
+    cut by the rank's rows runs on the part it holds (B1 on its rows of
+    the group's noise), and the result is those rows of the whole batch's.
     """
     h, w = images_u8.shape[1:3]
+    n = images_u8.shape[0]
     kernels = blur_ops.motion_blur_kernels(draws.degrees, draws.angles,
                                            max_degree=MAX_BLUR_DEGREE)
     outs = []
-    for i, start, stop, s in scale_groups(images_u8.shape[0], scales):
-        sub = images_u8[start:stop]
-        args = (draws.group(start, stop, i), None if noise is None
-                else noise[i], kernels[start:stop])
+    for i, start, stop, s in scale_groups(draws.t.shape[0], scales):
+        lo, hi = max(start, row0), min(stop, row0 + n)
+        if lo >= hi:
+            continue
+        sub = images_u8[lo - row0:hi - row0]
+        args = (draws.group(lo, hi, i), None if noise is None
+                else noise[i], kernels[lo:hi])
+        kw = dict(row0=lo - start, group_rows=stop - start)
         if s >= h:
-            outs.append(random_mix_from_draws(sub, *args))
+            outs.append(random_mix_from_draws(sub, *args, **kw))
             continue
         small = image_ops.resize_linear(image_ops.to_float01(sub), s)
         bad = random_mix_from_draws(
-            image_ops.clip01_to_uint8(small).contiguous(), *args)
+            image_ops.clip01_to_uint8(small).contiguous(), *args, **kw)
         up = image_ops.resize_linear(image_ops.to_float01(bad), (h, w))
         outs.append(image_ops.clip01_to_uint8(up))
     return torch.cat(outs, dim=0)
@@ -188,7 +222,8 @@ def random_mix_multiscale_from_draws(
 
 def apply_random_distortions_multiscale(
         images_u8, generator: torch.Generator,
-        cfg: configs.RandomMixConfig, device="cuda") -> torch.Tensor:
+        cfg: configs.RandomMixConfig, device="cuda",
+        rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Random mix applied at emulated native resolutions (ref:14:79-92
     distorts the native file before its resize to 224).
 
@@ -197,32 +232,42 @@ def apply_random_distortions_multiscale(
     effectively random); each is downsampled to its scale, distorted there
     with the uint8 round-trip kept, and upsampled back. The gates and
     parameters of the whole batch are drawn once from ``generator``, so
-    the mix runs B1 and B2 once per group.
+    the mix runs B1 and B2 once per group. ``rows=(row0, total)``: the
+    batch is rows ``row0:`` of a global batch of ``total``, whose groups
+    and draws are used (:func:`random_mix_multiscale_from_draws`).
     """
     device = resolve_device(device)
     x, squeeze = _batched(images_u8, device)
-    draws = draw_random_mix(x.shape[0], generator, cfg,
+    row0, total = _rows(rows, x.shape[0])
+    draws = draw_random_mix(total, generator, cfg,
                             n_seeds=len(cfg.apply_scales)).to(device)
-    out = random_mix_multiscale_from_draws(x, draws, cfg.apply_scales)
+    out = random_mix_multiscale_from_draws(x, draws, cfg.apply_scales,
+                                           row0=row0)
     return out[0] if squeeze else out
 
 
 def make_training_pair(
         clean_u8, generator: torch.Generator,
         cfg: configs.RandomMixConfig = configs.RandomMixConfig(),
-        device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+        device="cuda", rows: Optional[Tuple[int, int]] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(clean uint8 batch, generator) -> (bad float01, clean float01), both
     ``[B, H, W, C]`` on ``device``: the on-device counterpart of the
     reference's ``DynamicDistortionDataset.__getitem__`` (ref:14:75-93).
     With ``cfg.apply_scales`` set the mix runs at emulated native
-    resolutions (:func:`apply_random_distortions_multiscale`)."""
+    resolutions (:func:`apply_random_distortions_multiscale`).
+
+    ``rows=(row0, total)``: ``clean_u8`` is a rank's rows ``row0:`` of a
+    global batch of ``total``; the pair is those rows of the global
+    batch's pair (draws for the global batch from a generator seeded
+    alike on every rank, groups at their global positions)."""
     device = resolve_device(device)
     clean = as_tensor(clean_u8, device)
     if cfg.apply_scales:
         bad = apply_random_distortions_multiscale(clean, generator, cfg,
-                                                  device)
+                                                  device, rows)
     else:
-        bad = apply_random_distortions(clean, generator, cfg, device)
+        bad = apply_random_distortions(clean, generator, cfg, device, rows)
     return image_ops.to_float01(bad), image_ops.to_float01(clean)
 
 

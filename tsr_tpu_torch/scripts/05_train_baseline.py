@@ -16,7 +16,8 @@ import torch
 from tsr_tpu_torch import configs, zoo
 from tsr_tpu_torch.data import gtsrb
 from tsr_tpu_torch.scripts._common import (base_parser, ensure_clean_tree,
-                                           judge_ckpt_path, parse)
+                                           judge_ckpt_path, mesh_from_args,
+                                           parse)
 from tsr_tpu_torch.train import common, loops
 
 
@@ -60,7 +61,7 @@ def main(argv=None):
     p.add_argument("--host-stream", action="store_true",
                    help="stream batches from host per step instead of the "
                         "device-resident loop (automatic for datasets too "
-                        "big for device memory)")
+                        "big for device memory or when --mesh is set)")
     p.add_argument("--init-pth", default=None,
                    help="torchvision-format VGG16 .pth to start from")
     p.add_argument("--save", default=None)
@@ -68,7 +69,7 @@ def main(argv=None):
                    help="resume from --save (params+opt state+step)")
     p.add_argument("--workers", type=int, default=8,
                    help="native decode threads of the host-streamed loader")
-    args = parse(p, argv)
+    args = parse(p, argv, mesh_script=__file__)
     args.save = args.save or judge_ckpt_path(args)
     cfg = configs.JudgeTrainConfig(
         batch_size=args.batch_size, epochs=args.epochs,
@@ -94,9 +95,10 @@ def main(argv=None):
 
     ckpt_config = {"kind": "vgg16", "num_classes": len(ds.classes),
                    "use_batchnorm": args.batchnorm}
+    mesh = mesh_from_args(args)
     # device-resident when the uint8 tree fits comfortably in memory
     fits = len(ds) * args.image_size ** 2 * 3 < 8e9
-    if fits and not args.host_stream:
+    if fits and mesh is None and not args.host_stream:
         images, labels = ds.load_batch(range(len(ds)))
         loops.train_judge_on_device(
             state, images, labels, tr_idx, va_idx, cfg,
@@ -110,7 +112,7 @@ def main(argv=None):
             val_batches=lambda: mk(indices=va_idx, shuffle=False,
                                    drop_remainder=False),
             cfg=cfg, save_path=args.save, ckpt_config=ckpt_config,
-            device=args.device)
+            device=args.device, mesh=mesh)
     print(f"Done. Checkpoint at {args.save}")
 
 

@@ -8,7 +8,7 @@ from tsr_tpu_torch.scripts._common import (CHECKPOINT_HELP, PROCESSED,
                                            add_int8_flag, add_resize_flag,
                                            base_parser, ensure_clean_tree,
                                            judge_ckpt_path, maybe_int8_judge,
-                                           num_classes, parse)
+                                           mesh_from_args, num_classes, parse)
 from tsr_tpu_torch.utils import reporting
 
 
@@ -20,7 +20,7 @@ def main(argv=None):
     p.add_argument("--batchnorm", action="store_true")
     add_int8_flag(p)
     add_resize_flag(p)
-    args = parse(p, argv)
+    args = parse(p, argv, mesh_script=__file__)
     args.model = args.model or judge_ckpt_path(args)
     clean = ensure_clean_tree(args)
 
@@ -41,7 +41,8 @@ def main(argv=None):
             continue
         r = tsr_eval.evaluate_directory(
             judge, path, batch_size=args.batch_size, size=args.image_size,
-            resize=args.resize, device=args.device)
+            resize=args.resize, device=args.device,
+            mesh=mesh_from_args(args))
         results[name] = r["top1"]
         print(f"Result [{name}] Accuracy: {r['top1'] * 100:.2f}% "
               f"({r['images_per_sec']} img/s)")

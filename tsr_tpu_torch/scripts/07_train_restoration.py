@@ -14,7 +14,8 @@ from tsr_tpu_torch import configs, zoo
 from tsr_tpu_torch.data import gtsrb
 from tsr_tpu_torch.scripts._common import (ANCHOR_WARNING, PROCESSED,
                                            base_parser, ensure_clean_tree,
-                                           identity_anchor, parse,
+                                           identity_anchor, mesh_from_args,
+                                           parse,
                                            restorer_ckpt_path,
                                            restorer_provenance)
 from tsr_tpu_torch.train import common, loops
@@ -33,7 +34,7 @@ def main(argv=None):
                    help="bfloat16 compute (params stay f32)")
     p.add_argument("--host-stream", action="store_true",
                    help="stream batches from host per step instead of the "
-                        "device-resident loop")
+                        "device-resident loop (automatic with --mesh)")
     p.add_argument("--workers", type=int, default=8,
                    help="native decode threads of the host-streamed loader")
     p.add_argument("--identity-frac", type=float, default=0.0,
@@ -49,7 +50,7 @@ def main(argv=None):
                         "load path); recommended for --task fog, a global "
                         "affine map the UNet's receptive field cannot "
                         "estimate")
-    args = parse(p, argv)
+    args = parse(p, argv, mesh_script=__file__)
     cfg = configs.RestorationTrainConfig(
         task=args.task, batch_size=args.batch_size, epochs=args.epochs,
         learning_rate=args.lr, seed=args.seed)
@@ -77,7 +78,8 @@ def main(argv=None):
     # both trees resident, plus the identity anchor's duplicates
     n_eff = len(ds) * (1.0 + args.identity_frac * cfg.train_split)
     fits = 2 * n_eff * args.image_size ** 2 * 3 < 8e9
-    resident = fits and not args.host_stream
+    mesh = mesh_from_args(args)
+    resident = fits and mesh is None and not args.host_stream
     if args.identity_frac > 0 and not resident:
         print(ANCHOR_WARNING)
     if resident:
@@ -101,7 +103,7 @@ def main(argv=None):
                                    drop_remainder=False),
             epochs=cfg.epochs, step_fn=step, eval_fn=evalf, save_path=save,
             checkpoint_every=cfg.checkpoint_every, ckpt_config=ckpt_config,
-            device=args.device)
+            device=args.device, mesh=mesh)
     print(f"Done. Checkpoint at {save}")
 
 

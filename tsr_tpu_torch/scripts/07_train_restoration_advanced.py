@@ -14,7 +14,8 @@ from tsr_tpu_torch.data import gtsrb
 from tsr_tpu_torch.scripts._common import (ANCHOR_WARNING, CHECKPOINT_HELP,
                                            PROCESSED, base_parser,
                                            ensure_clean_tree, identity_anchor,
-                                           judge_ckpt_path, num_classes, parse,
+                                           judge_ckpt_path, mesh_from_args,
+                                           num_classes, parse,
                                            restorer_ckpt_path,
                                            restorer_provenance)
 from tsr_tpu_torch.train import common, loops
@@ -37,7 +38,7 @@ def main(argv=None):
                    help="bfloat16 compute (params stay f32)")
     p.add_argument("--host-stream", action="store_true",
                    help="stream batches from host per step instead of the "
-                        "device-resident loop")
+                        "device-resident loop (automatic with --mesh)")
     p.add_argument("--workers", type=int, default=8,
                    help="native decode threads of the host-streamed loader")
     p.add_argument("--identity-frac", type=float, default=0.0,
@@ -47,7 +48,7 @@ def main(argv=None):
     p.add_argument("--input-minmax", action="store_true",
                    help="per-image min-max stretch in front of the UNet "
                         "(see script 07; recommended for --task fog)")
-    args = parse(p, argv)
+    args = parse(p, argv, mesh_script=__file__)
     if args.judge is None:
         args.judge = judge_ckpt_path(args)
     cfg = configs.AdvancedTrainConfig(
@@ -84,7 +85,8 @@ def main(argv=None):
     # resident size includes the identity anchor's duplicates (see 07)
     n_eff = len(ds) * (1.0 + args.identity_frac * cfg.train_split)
     fits = 2 * n_eff * args.image_size ** 2 * 3 < 8e9
-    resident = fits and not args.host_stream
+    mesh = mesh_from_args(args)
+    resident = fits and mesh is None and not args.host_stream
     if args.identity_frac > 0 and not resident:
         print(ANCHOR_WARNING)
     if resident:
@@ -112,7 +114,7 @@ def main(argv=None):
             val_batches=lambda: mk(indices=va_idx, shuffle=False,
                                    drop_remainder=False),
             epochs=cfg.epochs, step_fn=step, eval_fn=evalf, save_path=save,
-            ckpt_config=ckpt_config, device=args.device)
+            ckpt_config=ckpt_config, device=args.device, mesh=mesh)
     print(f"Done. Checkpoint at {save}")
 
 

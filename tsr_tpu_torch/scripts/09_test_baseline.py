@@ -13,8 +13,9 @@ from tsr_tpu_torch.scripts._common import (CHECKPOINT_HELP, PROCESSED,
                                            add_resize_flag, base_parser,
                                            ensure_clean_tree, judge_ckpt_path,
                                            maybe_int8_judge,
-                                           maybe_int8_restorer, num_classes,
-                                           parse, restorer_ckpt_path)
+                                           maybe_int8_restorer, mesh_from_args,
+                                           num_classes, parse,
+                                           restorer_ckpt_path)
 from tsr_tpu_torch.utils import reporting
 
 
@@ -29,7 +30,7 @@ def main(argv=None):
                         "data/restored from disk")
     add_int8_flag(p)
     add_resize_flag(p)
-    args = parse(p, argv)
+    args = parse(p, argv, mesh_script=__file__)
     args.model = args.model or judge_ckpt_path(args)
     clean = ensure_clean_tree(args)
 
@@ -45,7 +46,8 @@ def main(argv=None):
             return
         r = tsr_eval.evaluate_directory(
             judge, path, batch_size=args.batch_size, size=args.image_size,
-            restorer=restorer, resize=args.resize, device=args.device)
+            restorer=restorer, resize=args.resize, device=args.device,
+            mesh=mesh_from_args(args))
         results[name] = r["top1"]
         print(f"Result [{name}] Accuracy: {r['top1'] * 100:.2f}% "
               f"({r['images_per_sec']} img/s)")

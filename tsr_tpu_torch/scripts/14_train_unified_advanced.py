@@ -16,7 +16,7 @@ from tsr_tpu_torch import configs, losses, zoo
 from tsr_tpu_torch.data import gtsrb
 from tsr_tpu_torch.scripts._common import (CHECKPOINT_HELP, base_parser,
                                            ensure_clean_tree, judge_ckpt_path,
-                                           num_classes, parse,
+                                           mesh_from_args, num_classes, parse,
                                            unified_ckpt_path)
 from tsr_tpu_torch.train import common, loops
 
@@ -48,10 +48,10 @@ def main(argv=None):
                    help="bfloat16 compute (params stay f32)")
     p.add_argument("--host-stream", action="store_true",
                    help="stream clean batches from host per step instead "
-                        "of the device-resident loop")
+                        "of the device-resident loop (automatic with --mesh)")
     p.add_argument("--workers", type=int, default=8,
                    help="native decode threads of the host-streamed loader")
-    args = parse(p, argv)
+    args = parse(p, argv, mesh_script=__file__)
     if args.judge is None:
         args.judge = judge_ckpt_path(args)
     args.save = args.save or unified_ckpt_path(args)
@@ -87,8 +87,9 @@ def main(argv=None):
         state = zoo.load_train_state(args.save, state)
         print(f"Resumed from {args.save} at step {int(state.step)}")
 
+    mesh = mesh_from_args(args)
     fits = len(ds) * args.image_size ** 2 * 3 < 8e9
-    if fits and not args.host_stream:
+    if fits and mesh is None and not args.host_stream:
         (clean_arr,) = ds.load_batch(range(len(ds)))
         loops.train_unified_on_device(
             state, clean_arr, tr_idx, va_idx, cfg, vgg_apply=vgg_apply,
@@ -101,7 +102,7 @@ def main(argv=None):
             val_clean_batches=lambda: mk(indices=va_idx, shuffle=False,
                                          drop_remainder=False),
             cfg=cfg, vgg_apply=vgg_apply, save_path=args.save,
-            device=args.device)
+            device=args.device, mesh=mesh)
     print(f"Done. Checkpoint at {args.save}")
 
 

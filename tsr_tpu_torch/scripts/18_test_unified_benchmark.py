@@ -10,8 +10,9 @@ from tsr_tpu_torch.scripts._common import (CHECKPOINT_HELP, PROCESSED,
                                            add_resize_flag, base_parser,
                                            ensure_clean_tree, judge_ckpt_path,
                                            maybe_int8_judge,
-                                           maybe_int8_restorer, num_classes,
-                                           parse, unified_ckpt_path)
+                                           maybe_int8_restorer, mesh_from_args,
+                                           num_classes, parse,
+                                           unified_ckpt_path)
 from tsr_tpu_torch.utils import reporting
 
 
@@ -26,7 +27,7 @@ def main(argv=None):
                         "of reading data/restored from disk")
     add_int8_flag(p)
     add_resize_flag(p)
-    args = parse(p, argv)
+    args = parse(p, argv, mesh_script=__file__)
     args.model = args.model or judge_ckpt_path(args)
     args.unified = args.unified or unified_ckpt_path(args)
     clean = ensure_clean_tree(args)
@@ -39,7 +40,8 @@ def main(argv=None):
     def evaluate(path, restorer=None):
         return tsr_eval.evaluate_directory(
             judge, path, batch_size=args.batch_size, size=args.image_size,
-            restorer=restorer, resize=args.resize, device=args.device)
+            restorer=restorer, resize=args.resize, device=args.device,
+            mesh=mesh_from_args(args))
 
     results = {}
     for name, path in (("Clean", clean),

@@ -11,8 +11,14 @@ Two flags differ from the JAX package's scripts:
 - ``--device`` (default ``cuda``) picks the device through
   ``device.resolve_device``, which raises where CUDA is asked for and
   absent: no script falls back to the CPU on its own;
-- ``--mesh`` is accepted but refused: the port has no multi-device path
-  yet (ROADMAP queue A item 10).
+- ``--mesh`` (scripts 05, 06, 07, 07adv, 09, 14 and 18, as in the
+  reference; the others refuse it) runs the command on ``data x model``
+  ranks, one device each (``parallel.mesh``). Under torchrun the ranks
+  join its group, and its world size must be ``data x model``; otherwise
+  the command starts the ranks itself (``parallel.launch``, the spawn
+  method). Backend: NCCL when every rank has a card of its own, gloo on
+  the CPU and when ranks share a card; the ``Mesh:`` line names the
+  backend and every rank's device. Only the first rank prints.
 
 Checkpoints: the scripts write the port's checkpoint directories
 (``zoo.save_checkpoint``) and read those and reference-format ``.pth``
@@ -26,9 +32,14 @@ import argparse
 import json
 import os
 import shutil
+import sys
 from pathlib import Path
 
 from tsr_tpu_torch.device import resolve_device
+
+MESH_COMMANDS = ("train-judge", "eval-baseline", "train-restorer",
+                 "train-restorer-advanced", "eval-restoration",
+                 "train-unified", "eval-unified")
 
 DATA_ROOT = "./data"
 CLEAN_DIR = "./data/gtsrb/GTSRB/Training"
@@ -63,27 +74,114 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "Resize (matters only for >image-size sources; "
                         "see PARITY.md 'Resize parity')")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="device mesh for sharding, e.g. 'data=8'; not "
-                        "supported by the port yet (ROADMAP queue A item "
-                        "10): any value exits with an error")
+                   help="run on data x model ranks, e.g. 'data=8' or "
+                        "'data=4,model=2' (under torchrun: its ranks; "
+                        "else started here); only the commands "
+                        + ", ".join(MESH_COMMANDS) + " take it")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'; the port never falls "
                         "back to the CPU on its own")
     return p
 
 
-def parse(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse ``argv`` (None: the command line), refuse ``--mesh`` and
-    resolve ``--device`` into a ``torch.device`` (raises where CUDA is
-    asked for and absent)."""
+def parse(p: argparse.ArgumentParser, argv=None,
+          mesh_script=None) -> argparse.Namespace:
+    """Parse ``argv`` (None: the command line) and resolve ``--device``
+    into a ``torch.device`` (raises where CUDA is asked for and absent).
+
+    ``--mesh`` is taken only by a script that passes its own path as
+    ``mesh_script``, and refused by the others. In a rank (under
+    torchrun, or started here) it joins the group: ``args.mesh`` is the
+    rank's ``parallel.mesh.Mesh`` and ``args.device`` its device.
+    Otherwise this process starts the ranks, each running the script's
+    ``main(argv)``, and exits with their status. ``args.mesh`` is None
+    without ``--mesh``. Torch's generators are seeded from ``--seed``, so
+    a command's fresh weights are the same from run to run (the reference
+    initializes from a fixed key), with or without ``--mesh``."""
+    import torch
+
     args = p.parse_args(argv)
-    if args.mesh:
+    torch.manual_seed(args.seed)
+    if args.mesh and mesh_script is None:
         raise SystemExit(
-            f"--mesh {args.mesh}: the PyTorch port has no multi-device path "
-            "yet (ROADMAP queue A item 10, parallel/ and the mesh= "
-            "arguments); run on one device without --mesh")
-    args.device = resolve_device(args.device)
+            f"--mesh {args.mesh}: this command has no multi-device path; "
+            "the commands that take --mesh are " + ", ".join(MESH_COMMANDS))
+    if args.mesh:
+        args.mesh = _join_mesh(args, sys.argv[1:] if argv is None
+                               else list(argv), mesh_script)
+        args.device = args.mesh.device
+    else:
+        args.mesh = None
+        args.device = resolve_device(args.device)
     return args
+
+
+def _mesh_axes(spec: str, world=None) -> tuple:
+    """``(data, model)`` of a ``--mesh`` spec; ``data=-1`` takes ``world``
+    (the torchrun world, else the visible cards)."""
+    import torch
+
+    from tsr_tpu_torch.parallel import mesh as pmesh
+
+    try:
+        axes = pmesh.parse_mesh_spec(spec)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}") from None
+    data, model = axes["data"], axes["model"]
+    if data == -1:
+        if world is None:
+            world = torch.cuda.device_count() if torch.cuda.is_available() \
+                else 0
+        if not world or world % model:
+            raise SystemExit(
+                f"--mesh {spec}: data=-1 needs a world (torchrun's "
+                f"WORLD_SIZE, or the visible cards: {world}) that divides "
+                f"by model={model}")
+        data = world // model
+    if data < 1 or model < 1:
+        raise SystemExit(f"--mesh {spec}: axis sizes must be positive")
+    return data, model
+
+
+def _join_mesh(args, argv, script):
+    """The rank's mesh (joining its group), or, outside a rank, start the
+    ranks and exit with their status."""
+    import torch
+    import torch.distributed as dist
+
+    from tsr_tpu_torch.parallel import distributed, launch
+    from tsr_tpu_torch.parallel import mesh as pmesh
+
+    device_type = torch.device(args.device).type
+    if not launch.in_torchrun_env():
+        data, model = _mesh_axes(args.mesh)
+        distributed.rank_placement(device_type, 0, data * model)  # checks
+        print(f"--mesh {args.mesh}: starting {data * model} ranks on "
+              f"{device_type} (torch.multiprocessing, spawn)", flush=True)
+        raise SystemExit(launch.run_script(script, argv, data * model,
+                                           device_type))
+    world = int(os.environ["WORLD_SIZE"])
+    data, model = _mesh_axes(args.mesh, world)
+    if data * model != world:
+        raise SystemExit(
+            f"--mesh {args.mesh} needs data x model = {data} x {model} = "
+            f"{data * model} ranks, but the world has WORLD_SIZE={world}")
+    backend = distributed.initialize(device=device_type)
+    mesh = pmesh.mesh_from_spec(args.mesh)
+    devices = [None] * world
+    dist.all_gather_object(devices, str(mesh.device))
+    if mesh.is_main:
+        print(f"Mesh: {mesh.shape} over {world} ranks, backend {backend}, "
+              f"devices {devices}", flush=True)
+    else:
+        sys.stdout = open(os.devnull, "w")
+    return mesh
+
+
+def mesh_from_args(args):
+    """The rank's ``parallel.mesh.Mesh`` requested by ``--mesh`` (joined by
+    :func:`parse`), or None."""
+    return getattr(args, "mesh", None)
 
 
 def add_resize_flag(p):
@@ -125,10 +223,24 @@ def maybe_int8_restorer(args, model):
 
 
 def ensure_clean_tree(args) -> str:
+    """The clean tree's path, written first with ``--synthetic`` when it
+    is missing or incomplete. On a mesh the first rank checks and writes
+    it while the others wait."""
     if getattr(args, "resize_backend", "cv2") != "cv2":
         from tsr_tpu_torch.data import gtsrb
 
         gtsrb.set_resize_backend(args.resize_backend)
+    mesh = getattr(args, "mesh", None)
+    if mesh is not None and not mesh.is_main:
+        mesh.barrier()
+        return args.clean_dir
+    _write_clean_tree(args)
+    if mesh is not None:
+        mesh.barrier()
+    return args.clean_dir
+
+
+def _write_clean_tree(args) -> None:
     root = Path(args.clean_dir)
     if args.synthetic and root.exists() and (root / ".synthetic").exists():
         # a previous --synthetic run was interrupted mid-write: the marker
@@ -158,7 +270,6 @@ def ensure_clean_tree(args) -> str:
             raise SystemExit(
                 f"{args.clean_dir} not found. Run python -m tsr_tpu_torch "
                 "download or pass --synthetic.")
-    return args.clean_dir
 
 
 def num_classes(args, clean) -> int:
@@ -191,7 +302,7 @@ def restorer_provenance(distorted_dir: str, identity_frac: float,
 
 ANCHOR_WARNING = (
     "WARNING: --identity-frac only applies to the device-resident loop; "
-    "this run streams from host (doesn't fit device memory, or "
+    "this run streams from host (doesn't fit device memory, --mesh, or "
     "--host-stream) and trains WITHOUT the identity anchor.")
 
 

@@ -14,6 +14,12 @@ L1 + 0.1 x perceptual, on stored (distorted, clean) pairs) and
 ``make_restoration_eval_step``. The JAX state is a pytree threaded through
 a jitted step; here it is the module, its optimizer and schedule, and a
 step count, updated in place.
+
+On a mesh (``parallel.mesh.shard_state`` sets ``state.mesh``) every step
+runs on the rank's rows of the global batch: each rank's loss is its rows'
+mean, the gradients are averaged over the data axis before the update (so
+they are those of the global mean), the returned metrics are the global
+batch's, and the unified step mixes its rows of the global batch's draws.
 """
 
 from __future__ import annotations
@@ -42,14 +48,47 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     schedule: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    mesh: Optional[object] = None
 
     def apply_gradients(self) -> None:
         """One optimizer update from the gradients in ``.grad``, then the
-        schedule's next learning rate; the gradients are cleared."""
+        schedule's next learning rate; the gradients are cleared. On a mesh
+        the gradients are first averaged over its data axis (one
+        all-reduce, also for a data axis of one rank)."""
+        if self.mesh is not None:
+            _average_gradients(self.model, self.mesh)
         self.optimizer.step()
         self.schedule.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
+
+
+def _average_gradients(model: nn.Module, mesh) -> None:
+    """Average every gradient over ``mesh``'s data axis in one flat
+    all-reduce."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = mesh.data_mean(torch.cat([g.reshape(-1) for g in grads]))
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
+def global_metrics(state: TrainState, aux: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """Detached per-rank metrics (means over the rank's rows) -> the
+    global batch's (their mean over the data axis), left on the device."""
+    aux = {k: v.detach() for k, v in aux.items()}
+    if state.mesh is None or not aux:
+        return aux
+    vals = state.mesh.data_mean(torch.stack([v.float() for v in
+                                             aux.values()]))
+    return dict(zip(aux, vals.unbind()))
+
+
+def _local(x):
+    """The rank's rows of a ``DTensor`` batch, else ``x``."""
+    return x.to_local() if hasattr(x, "to_local") else x
 
 
 class ClippedAdamW(torch.optim.AdamW):
@@ -57,18 +96,41 @@ class ClippedAdamW(torch.optim.AdamW):
     first scales every gradient by ``max_norm / norm`` when the global
     norm is at least ``max_norm``. ``torch.nn.utils.clip_grad_norm_``
     divides by ``norm + 1e-6`` instead, so the clip is done here, on the
-    device, with no host synchronise."""
+    device, with no host synchronise.
+
+    Under a model axis (``model_group``, set by ``parallel.mesh.
+    shard_state``) the squared norms of split parameters (``tp_dim``) are
+    summed over the axis and each replicated one counted once, so the norm
+    is the one device's."""
 
     max_norm = 1.0
+    model_group = None
+
+    def _norm(self, params) -> torch.Tensor:
+        from tsr_tpu_torch.parallel.collectives import all_reduce_sum
+
+        def sq(ps):
+            return sum((torch.linalg.vector_norm(p.grad, dtype=torch.float32)
+                        ** 2 for p in ps),
+                       torch.zeros((), device=params[0].grad.device))
+
+        split = [p for p in params if getattr(p, "tp_dim", None) is not None]
+        whole = [p for p in params if getattr(p, "tp_dim", None) is None]
+        return torch.sqrt(sq(whole)
+                          + all_reduce_sum(sq(split), self.model_group))
 
     @torch.no_grad()
     def step(self, closure=None):
-        grads = [p.grad for group in self.param_groups
-                 for p in group["params"] if p.grad is not None]
-        if grads:
+        params = [p for group in self.param_groups
+                  for p in group["params"] if p.grad is not None]
+        grads = [p.grad for p in params]
+        if grads and self.model_group is not None:
+            norm = self._norm(params)
+        elif grads:
             norm = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g, dtype=torch.float32)
                  for g in grads]))
+        if grads:
             scale = torch.where(norm < self.max_norm, 1.0,
                                 self.max_norm / norm)
             for g in grads:
@@ -225,20 +287,28 @@ def make_unified_train_step(mix_cfg: configs.RandomMixConfig,
     detached ``loss``, ``pixel_loss`` and (with ``vgg_apply``)
     ``perceptual_loss``, left on the device.
 
+    On a mesh ``clean_u8`` is the rank's rows of the global batch (or a
+    ``DTensor`` of them); ``generator`` must be seeded alike on every rank,
+    and the rank mixes its rows of the global batch's draws
+    (``make_training_pair``'s ``rows``).
+
     ``remat`` selects the rematerialization placement: ``False`` none;
     ``"vgg"`` the perceptual VGG on the prediction; ``True`` the ResUNet.
     """
 
     def step(state: TrainState, clean_u8: torch.Tensor,
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        clean_u8 = _local(clean_u8)
+        rows = ({} if state.mesh is None
+                else {"rows": state.mesh.rows(clean_u8.shape[0])})
         bad01, clean01 = distortions.make_training_pair(
-            clean_u8, generator, mix_cfg, device=clean_u8.device)
+            clean_u8, generator, mix_cfg, device=clean_u8.device, **rows)
         state.model.train()
         loss, aux = unified_loss(state.model, bad01, clean01,
                                  perceptual_weight, vgg_apply, remat)
         loss.backward()
         state.apply_gradients()
-        return {k: v.detach() for k, v in aux.items()}
+        return global_metrics(state, aux)
 
     return step
 
@@ -265,11 +335,12 @@ def make_restoration_train_step(pixel: str = "mse",
     def step(state: TrainState, bad: torch.Tensor,
              clean: torch.Tensor) -> Dict[str, torch.Tensor]:
         state.model.train()
-        loss, aux = unified_loss(state.model, _float01(bad), _float01(clean),
-                                 perceptual_weight, vgg_apply, pixel=pixel)
+        loss, aux = unified_loss(state.model, _float01(_local(bad)),
+                                 _float01(_local(clean)), perceptual_weight,
+                                 vgg_apply, pixel=pixel)
         loss.backward()
         state.apply_gradients()
-        return {k: v.detach() for k, v in aux.items()}
+        return global_metrics(state, aux)
 
     return step
 
@@ -320,12 +391,13 @@ def make_judge_train_step(label_smoothing: float = 0.0) -> Callable:
     def step(state: TrainState, images_u8: torch.Tensor,
              labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         state.model.train()
+        images_u8, labels = _local(images_u8), _local(labels)
         logits = state.model(judge_input(images_u8))
         loss = losses.cross_entropy_loss(logits, labels, label_smoothing)
         loss.backward()
         state.apply_gradients()
         acc = (logits.detach().argmax(-1) == labels).float().mean()
-        return {"loss": loss.detach(), "accuracy": acc}
+        return global_metrics(state, {"loss": loss, "accuracy": acc})
 
     return step
 

@@ -24,6 +24,16 @@ The device-resident loops gather each epoch's batches on the device from a
 fresh permutation, and sum the validation loss or hits over a padded,
 masked val set. The restorer loops return ``(state, history)``: one dict
 per epoch (:func:`_epoch_record`).
+
+The host-streamed loops take ``mesh=`` (a ``parallel.mesh.Mesh``): the
+state is placed on it (the judge's FC layers or the restorer's bottleneck
+split over a model axis of more than one rank), every rank walks the same
+global batches and trains on its rows of each (a train batch must divide
+by the data axis), validation splits each batch the same way or, for the
+uneven tail, computes it whole on every rank and counts it once. The
+logged and returned metrics and images/s are the global batch's; only the
+mesh's first rank logs and writes checkpoints, which hold the split
+parameters gathered whole (what one device would write).
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch
 
 from tsr_tpu_torch import configs, zoo
 from tsr_tpu_torch.device import as_tensor, resolve_device
+from tsr_tpu_torch.parallel import mesh as pmesh
 from tsr_tpu_torch.ops import distortions
 from tsr_tpu_torch.ops import image as image_ops
 from tsr_tpu_torch.train import common
@@ -121,6 +132,61 @@ def _child_generators(seed: int, device: torch.device
     return child
 
 
+def _on_mesh(state, mesh, device, tp_rules, log):
+    """``(device, log)`` of a host-streamed loop: without a mesh the
+    resolved ``device`` and ``log``; with one, the state placed on it
+    (``tp_rules`` when the model axis has more than one rank), the mesh's
+    device, and ``log`` on its first rank only."""
+    if mesh is None:
+        return resolve_device(device), log
+    pmesh.shard_state(state, mesh, tp_rules if mesh.model > 1 else ())
+    return mesh.device, (log if mesh.is_main else lambda s: None)
+
+
+def _train_rows(batch, mesh):
+    """A train batch as this rank's rows; it must divide by the data
+    axis."""
+    if mesh is None:
+        return batch
+    n = len(batch[0])
+    if n % mesh.data:
+        raise ValueError(
+            f"global batch {n} not divisible by mesh data axis {mesh.data}")
+    return pmesh.shard_batch(batch, mesh)
+
+
+def _val_rows(batch, mesh):
+    """``(batch, split)``: a validation batch as this rank's rows (``split``
+    True: its per-rank result is then reduced over the data axis), or the
+    whole batch for no mesh and for an uneven tail (computed alike on every
+    rank and counted once)."""
+    if mesh is None:
+        return batch, False
+    return pmesh.shard_batch_or_replicate(batch, mesh)
+
+
+def _save(save_path, state, config, mesh) -> None:
+    """``zoo.save_checkpoint`` of a state or a :func:`_snapshot`; on a mesh
+    the split parameters are gathered first (every rank calls this) and
+    the mesh's first rank writes."""
+    if mesh is None:
+        zoo.save_checkpoint(save_path, state, config)
+        return
+    tree = (state if isinstance(state, dict)
+            else pmesh.gathered_state_tree(state, mesh))
+    if mesh.is_main:
+        zoo.save_checkpoint(save_path, tree, config)
+    mesh.barrier()
+
+
+def _snapshot(state, mesh) -> dict:
+    """A copy of what a checkpoint of ``state`` holds (gathered whole on a
+    mesh)."""
+    if mesh is None:
+        return copy.deepcopy(zoo.state_tree(state))
+    return copy.deepcopy(pmesh.gathered_state_tree(state, mesh))
+
+
 @contextlib.contextmanager
 def _seeded_dropout(device: torch.device, seed: int):
     """Inside, torch's generators (the CPU's and ``device``'s, which
@@ -141,6 +207,7 @@ def train_judge(
     log: Callable[[str], None] = print,
     ckpt_config: Optional[dict] = None,
     device="cuda",
+    mesh=None,
 ) -> Tuple[common.TrainState, float]:
     """Judge fine-tune loop on host-streamed batches (ref:05:65-118).
     ``train_batches(epoch)`` and ``val_batches()`` yield ``(images_u8,
@@ -154,8 +221,13 @@ def train_judge(
     ``save_path`` the returned best accuracy is 0.0. The log line's
     images/s covers the epoch's train steps, closed by their metrics'
     fetch. Returns ``(state, best_acc)``.
+
+    ``mesh`` shards the loop (module docstring): data-parallel batches and,
+    with a model axis, Megatron TP on the 4096-wide FC layers
+    (``parallel.mesh.VGG_TP_RULES``). Dropout masks are drawn for the
+    global batch and full width and sliced (``parallel.mesh.MeshDropout``).
     """
-    device = resolve_device(device)
+    device, log = _on_mesh(state, mesh, device, pmesh.VGG_TP_RULES, log)
     step_fn = common.make_judge_train_step(cfg.label_smoothing)
     eval_fn = common.make_judge_eval_step()
     best_acc = 0.0
@@ -163,11 +235,12 @@ def train_judge(
         for epoch in range(cfg.epochs):
             t0 = time.perf_counter()
             metrics, n_img = [], 0
-            for images, labels in train_batches(epoch):
+            for batch in train_batches(epoch):
+                images, labels = _train_rows(batch, mesh)
                 m = step_fn(state, as_tensor(images, device),
                             as_tensor(labels, device))
                 metrics.append(torch.stack([m["loss"], m["accuracy"]]))
-                n_img += len(labels)
+                n_img += len(batch[1])
             loss, acc = (torch.stack(metrics).mean(0).tolist() if metrics
                          else (float("nan"), float("nan")))
             dt = time.perf_counter() - t0
@@ -176,16 +249,17 @@ def train_judge(
 
             correct = torch.zeros((), dtype=torch.int64, device=device)
             total = 0
-            for images, labels in val_batches():
+            for batch in val_batches():
+                (images, labels), split = _val_rows(batch, mesh)
                 c, _ = eval_fn(state, as_tensor(images, device),
                                as_tensor(labels, device))
-                correct += c
-                total += len(labels)
+                correct += mesh.data_sum(c) if split else c
+                total += len(batch[1])
             val_acc = correct.item() / max(total, 1)
             log(f"  val acc {val_acc:.4f}")
             if val_acc > best_acc and save_path:
                 best_acc = val_acc
-                zoo.save_checkpoint(save_path, state, ckpt_config)
+                _save(save_path, state, ckpt_config, mesh)
                 log(f"  saved best (val acc {best_acc:.4f})")
     return state, best_acc
 
@@ -497,6 +571,7 @@ def train_restorer(
     batch_to_float: bool = False,
     ckpt_config: Optional[dict] = None,
     device="cuda",
+    mesh=None,
 ) -> Tuple[common.TrainState, List[Dict]]:
     """The specialized and advanced restorers' loop on host-streamed
     batches (ref:07:122-181, ref:07adv:115-182; scripts 07 and 07adv
@@ -524,26 +599,35 @@ def train_restorer(
     Returns ``(state, history)`` as :func:`train_restorer_on_device`;
     ``train_seconds`` covers the epoch's steps, closed by their losses'
     fetch, as the log line's images/s does.
+
+    ``mesh`` shards the loop (module docstring): data-parallel batches and,
+    with a model axis, the bottleneck's channels split
+    (``parallel.mesh.RESTORER_TP_RULES``).
     """
-    device = resolve_device(device)
+    device, log = _on_mesh(state, mesh, device, pmesh.RESTORER_TP_RULES,
+                           log)
 
     def feed(bad, clean):
         if batch_to_float:
             bad, clean = _host_float01(bad), _host_float01(clean)
         return as_tensor(bad, device), as_tensor(clean, device)
 
+    def val_loss(batch):
+        batch, split = _val_rows(batch, mesh)
+        loss = eval_fn(state, *feed(*batch))["loss"]
+        return mesh.data_mean(loss) if split else loss
+
     best_loss, best_tree = float("inf"), None
     history = []
     for epoch in range(epochs):
         t0 = time.perf_counter()
         auxes, n_img = [], 0
-        for bad, clean in train_batches(epoch):
-            auxes.append(step_fn(state, *feed(bad, clean)))
-            n_img += len(bad)
+        for batch in train_batches(epoch):
+            auxes.append(step_fn(state, *feed(*_train_rows(batch, mesh))))
+            n_img += len(batch[0])
         per_step = _stack_steps(auxes)
         dt = time.perf_counter() - t0
-        vlosses = [eval_fn(state, *feed(bad, clean))["loss"]
-                   for bad, clean in val_batches()]
+        vlosses = [val_loss(batch) for batch in val_batches()]
         vl = _mean(torch.stack(vlosses).tolist() if vlosses else [])
         rec = _epoch_record(epoch, per_step, vl, dt, n_img)
         history.append(rec)
@@ -552,18 +636,18 @@ def train_restorer(
         log(f"  val loss {vl:.6f}")
         if save_path:
             if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
-                zoo.save_checkpoint(save_path, state, ckpt_config)
+                _save(save_path, state, ckpt_config, mesh)
             if save_best and vl < best_loss:
                 best_loss = vl
                 if checkpoint_every:
-                    best_tree = copy.deepcopy(zoo.state_tree(state))
-                zoo.save_checkpoint(save_path, state, ckpt_config)
+                    best_tree = _snapshot(state, mesh)
+                _save(save_path, state, ckpt_config, mesh)
                 log("  saved best (val loss)")
     if save_path:
         if not save_best:
-            zoo.save_checkpoint(save_path, state, ckpt_config)
+            _save(save_path, state, ckpt_config, mesh)
         elif best_tree is not None and checkpoint_every:
-            zoo.save_checkpoint(save_path, best_tree, ckpt_config)
+            _save(save_path, best_tree, ckpt_config, mesh)
             log(f"saved best checkpoint (val loss {best_loss:.6f})")
     return state, history
 
@@ -578,6 +662,7 @@ def train_unified(
     log: Callable[[str], None] = print,
     ckpt_config: Optional[dict] = None,
     device="cuda",
+    mesh=None,
 ) -> Tuple[common.TrainState, List[Dict]]:
     """Unified ResUNet loop on host-streamed clean batches (ref:14:227-267;
     script 14 ``--host-stream``). ``clean_batches(epoch)`` and
@@ -596,8 +681,15 @@ def train_unified(
     state is written through ``zoo.save_checkpoint`` at each epoch whose
     validation loss is the lowest so far, as the reference does (no
     snapshot, no final write). Returns ``(state, history)``.
+
+    ``mesh`` shards the loop (module docstring): each rank mixes its rows
+    of each clean batch from the global batch's draws (every rank's
+    generators are seeded alike from ``cfg.seed``), so the mesh's step is
+    the one-device step; with a model axis the bottleneck's channels split
+    (``parallel.mesh.RESTORER_TP_RULES``).
     """
-    device = resolve_device(device)
+    device, log = _on_mesh(state, mesh, device, pmesh.RESTORER_TP_RULES,
+                           log)
     step_fn = common.make_unified_train_step(cfg.mix, cfg.perceptual_weight,
                                              vgg_apply)
     eval_fn = common.make_restoration_eval_step(
@@ -610,16 +702,21 @@ def train_unified(
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
         auxes, n_img = [], 0
-        for (clean,) in clean_batches(epoch):
+        for batch in clean_batches(epoch):
+            (clean,) = _train_rows(batch, mesh)
             auxes.append(step_fn(state, as_tensor(clean, device), child()))
-            n_img += len(clean)
+            n_img += len(batch[0])
         per_step = _stack_steps(auxes)
         dt = time.perf_counter() - t0
         vlosses = []
-        for (clean,) in val_clean_batches():
+        for batch in val_clean_batches():
+            (clean,), split = _val_rows(batch, mesh)
+            rows = {"rows": mesh.rows(len(clean))} if split else {}
             bad01, clean01 = distortions.make_training_pair(
-                as_tensor(clean, device), child(), cfg.mix, device=device)
-            vlosses.append(eval_fn(state, bad01, clean01)["loss"])
+                as_tensor(clean, device), child(), cfg.mix, device=device,
+                **rows)
+            loss = eval_fn(state, bad01, clean01)["loss"]
+            vlosses.append(mesh.data_mean(loss) if split else loss)
         vl = _mean(torch.stack(vlosses).tolist() if vlosses else [])
         rec = _epoch_record(epoch, per_step, vl, dt, n_img)
         history.append(rec)
@@ -628,6 +725,6 @@ def train_unified(
         log(f"  val loss {vl:.5f}")
         if save_path and vl < best_loss:
             best_loss = vl
-            zoo.save_checkpoint(save_path, state, ckpt_config)
+            _save(save_path, state, ckpt_config, mesh)
             log("  saved best (val loss)")
     return state, history
