@@ -150,11 +150,28 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    a mesh, ``mesh_cli`` says why) and
    ``eval-baseline --mesh data=2`` (the same report). A ``mesh:`` JSON
    line.
-11. One JSON line of the kernels (with ``launches_trees``,
+11. The port's own JPEG codec (``jpeg_phase``), in the same temporary
+   directory on the trees phase's clean tree: the committed fixtures
+   (``tests/data/jpeg``: the port's decode equal to their ``cv2.imread``
+   arrays, its encode equal to ``cv2.imwrite``'s bytes; the card's machine
+   has no cv2); the clean tree written as .jpg by ``native.write_images``
+   and its decoded pixels as a .png twin; host decode images/s (``probe`` +
+   ``load_canvas``, and ``load_batch`` at 224) on the .jpg and .ppm trees;
+   ``generate_tree`` on the .jpg tree for noise, blur, fog, compound and
+   blur_rand at batch TREE_BATCH (launch counts zeroed just before and
+   read just after each call: B3 in blur and compound, B2 in blur_rand),
+   and for blur and compound on the twin: compound's .png files equal, the
+   blur .jpg files decode equal to the port's encode of the twin's output;
+   ``infer.restore_tree`` on the .jpg noise tree with its .jpg clean twin
+   (metrics on, device and host resize) and ``eval.evaluate_directory`` on
+   the .jpg clean and noise trees with phase 3's models, the restored files,
+   metrics and per-file preds equal to those on the .png twins. A ``jpeg:``
+   JSON line.
+12. One JSON line of the kernels (with ``launches_trees``,
    ``tree_shapes``, ``launches_cascade``, ``cascade_shapes``,
-   ``launches_judge``, ``launches_int8``, ``launches_cli`` and
-   ``launches_mesh``), the card's line, and the final ``{"ok": true,
-   ...}`` line.
+   ``launches_judge``, ``launches_int8``, ``launches_cli``,
+   ``launches_mesh`` and ``launches_jpeg``), the card's line, and the
+   final ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -232,6 +249,11 @@ MESH_RANKS = 2               # the data-parallel step and the CLI's --mesh
 MESH_STEPS = 5               # after one warm-up step, at TRAIN_BATCH
 MESH_RTOL = 1e-3             # per-step loss against one process
 MESH_CLI_RTOL = 2e-3         # the reference's bound for the mesh loop
+# phase 11: the port's JPEG codec on the trees phase's clean tree
+JPEG_KINDS = ("noise", "blur", "fog", "compound", "blur_rand")
+JPEG_TWIN_KINDS = ("blur", "compound")   # also made from the PNG twin
+JPEG_DECODE_REPS = 3         # host decode rates: best of 3 passes
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
 
@@ -3113,6 +3135,263 @@ def mesh_phase(dev, work):
     return counts
 
 
+def twin_tree(src, dst, suffix):
+    """Every file of the tree ``src`` decoded by the port's IO library and
+    written under ``dst`` with ``suffix``: the same pixels in another
+    format. Returns the written paths, in file order."""
+    from tsr_tpu_torch import native, offline
+    files = offline.tree_files(str(src))
+    written = []
+    for _, chunk, batch in offline.bucketed_batches(files, TREE_BATCH):
+        paths, crops = [], []
+        for (p, (h, w)), img in zip(chunk, batch):
+            out = (dst / p.relative_to(src)).with_suffix(suffix)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            paths.append(str(out))
+            crops.append(img[:h, :w])
+        native.write_images(paths, crops)
+        written += paths
+    return sorted(written)
+
+
+def check_jpeg_fixtures(work):
+    """The committed fixtures (``tests/data/jpeg``, written by cv2 and PIL):
+    each .jpg decoded by the port equals its ``cv2.imread`` array, and each
+    encoder input written as .jpg by the port equals ``cv2.imwrite``'s
+    bytes. The card's machine has no cv2: these files are the yardstick."""
+    import numpy as np
+    from tsr_tpu_torch import native
+    want = np.load(JPEG_FIXTURES / "expected.npz")
+    names = sorted(p.stem for p in JPEG_FIXTURES.glob("*.jpg"))
+    check(len(names) >= 12, f"{len(names)} fixture JPEGs")
+    for name in names:
+        got = native.decode(str(JPEG_FIXTURES / f"{name}.jpg"))
+        check(np.array_equal(got, want[f"decoded__{name}"]),
+              f"fixture {name}.jpg decodes unlike cv2.imread")
+    inputs = sorted(k for k in want.files if k.startswith("encode_input__"))
+    for key in inputs:
+        k = key.split("__")[1]
+        out = work / f"fixture_{k}.jpg"
+        native.write_images([str(out)], [want[key]])
+        check(out.read_bytes() == want[f"encode_bytes__{k}"].tobytes(),
+              f"fixture encode {k} differs from cv2.imwrite's bytes")
+    return {"decoded": len(names), "encoded": len(inputs)}
+
+
+def host_decode_rates(trees):
+    """Images/s of the host decode paths over each tree ``{name: dir}``,
+    best of JPEG_DECODE_REPS passes: ``native.probe`` + ``load_canvas``
+    (``offline.bucketed_batches``, generate_tree's reader) and
+    ``load_batch`` at SIZE in chunks of TREE_BATCH."""
+    from tsr_tpu_torch import native, offline
+    rates = {}
+    for name, root in trees.items():
+        files = offline.tree_files(str(root))
+        paths = [str(p) for p in files]
+        canvas, resized = [], []
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            for _ in offline.bucketed_batches(files, TREE_BATCH):
+                pass
+            canvas.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for s in range(0, len(paths), TREE_BATCH):
+                native.load_batch(paths[s:s + TREE_BATCH], SIZE)
+            resized.append(time.perf_counter() - t0)
+        rates[name] = {"images": len(paths),
+                       "probe_load_canvas_images_per_sec":
+                       len(paths) / min(canvas),
+                       "load_batch_224_images_per_sec":
+                       len(paths) / min(resized),
+                       "seconds_canvas": canvas, "seconds_load_batch":
+                       resized}
+    return rates
+
+
+def jpeg_phase(dev, resunet, judge, work):
+    """Phase 11: the port's JPEG codec on the card's machine, in ``work``
+    (the trees phase's clean tree): the committed fixtures against cv2's
+    pixels and bytes; the clean tree written as .jpg by the port's encoder
+    and its decoded pixels as a .png twin; host decode rates on the .jpg
+    and .ppm trees; generate_tree on the .jpg tree for JPEG_KINDS (B3 in
+    blur and compound, B2 in blur_rand, launch counts zeroed just before
+    and read just after each call) and on the twin for JPEG_TWIN_KINDS,
+    compared; restore_tree (host and device resize, metrics on) and
+    evaluate_directory on the .jpg trees against their .png twins. Returns
+    the kernels' launches."""
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import eval as teval
+    from tsr_tpu_torch import infer, native, offline
+    from tsr_tpu_torch.kernels import _build
+    quiet = lambda line: None  # noqa: E731
+    t_phase = time.perf_counter()
+    result = {"card": card_line(), "host_cpus": os.cpu_count()}
+    result["fixtures"] = check_jpeg_fixtures(work)
+    print("jpeg fixtures: " + json.dumps(result["fixtures"]) + " equal to "
+          "cv2's pixels and bytes")
+
+    jroot, proot = work / "jpeg", work / "jpeg_png"
+    t0 = time.perf_counter()
+    jpg = twin_tree(work / "clean", jroot / "clean", ".jpg")
+    result["write_jpeg_tree_seconds"] = time.perf_counter() - t0
+    png = twin_tree(jroot / "clean", proot / "clean", ".png")
+    check(len(jpg) == len(png) == TREE_IMAGES, "the JPEG tree and its twin")
+    result["jpeg_tree_bytes"] = sum(Path(p).stat().st_size for p in jpg)
+    rates = host_decode_rates({"jpg": jroot / "clean",
+                               "ppm": work / "clean"})
+    result["host_decode"] = rates
+    print(f"jpeg tree: {len(jpg)} .jpg files ({result['jpeg_tree_bytes']} "
+          f"bytes) written in {result['write_jpeg_tree_seconds']:.3f} s; "
+          "host decode images/s (best of "
+          f"{JPEG_DECODE_REPS}, {result['host_cpus']} CPUs, beside "
+          f"{result['card']}): " + ", ".join(
+              f"{k} probe+load_canvas "
+              f"{v['probe_load_canvas_images_per_sec']:.1f}, load_batch@224 "
+              f"{v['load_batch_224_images_per_sec']:.1f}"
+              for k, v in rates.items()))
+
+    sides = [tuple(d) for d in native.probe(jpg).tolist()]
+    launches = {"blur_sparse": 0, "blur_dense": 0, "fog_noise": 0}
+    gen = {}
+    for tree, root, kinds in (("jpg", jroot, JPEG_KINDS),
+                              ("png", proot, JPEG_TWIN_KINDS)):
+        for kind in kinds:
+            buckets = tree_buckets(sides, offline.HALO.get(kind, 0))
+            n_batches = sum(-(-n // TREE_BATCH) for n in buckets.values())
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            n = offline.generate_tree(str(root / "clean"), str(root / kind),
+                                      kind, seed=SEED,
+                                      batch_size=TREE_BATCH, log=quiet,
+                                      device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            want = {"blur_dense": n_batches if kind in ("blur", "compound")
+                    else 0,
+                    "blur_sparse": n_batches if kind == "blur_rand" else 0,
+                    "fog_noise": 0}
+            check(n == TREE_IMAGES, f"{tree} {kind} wrote {n} images")
+            check(counts == want, f"{tree} {kind} launched {counts}, "
+                  f"expected {want}")
+            suffix = ".png" if kind == "compound" else f".{tree}"
+            n_files = len(list((root / kind).glob(f"*/*{suffix}")))
+            check(n_files == TREE_IMAGES, f"{tree} {kind}: {n_files} "
+                  f"{suffix} files")
+            for k, v in counts.items():
+                launches[k] += v
+            gen[f"{tree} {kind}"] = dict(images_per_sec=n / dt, seconds=dt,
+                                         batches=n_batches, launches=counts)
+            print(f"generate_tree {kind} on the {tree} tree: "
+                  f"{n / dt:.1f} images/s ({dt:.3f} s), {n_batches} "
+                  f"batches, B2 {counts['blur_sparse']} / B3 "
+                  f"{counts['blur_dense']} launches, {n_files} {suffix}")
+    result["generate_tree"] = gen
+    check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
+          "B2 and B3 launched on the JPEG path")
+
+    # the twin's outputs: compound .png equal file for file; blur .jpg
+    # equal to the port's JPEG encode of the twin's .png blur output
+    same_png = same_jpg = 0
+    reenc = work / "jpeg_reenc"
+    for p in offline.tree_files(str(proot / "compound")):
+        rel = p.relative_to(proot / "compound")
+        check(p.read_bytes() == (jroot / "compound" / rel).read_bytes(),
+              f"compound {rel}: the .jpg tree's and the twin's differ")
+        same_png += 1
+    blur_png = offline.tree_files(str(proot / "blur"))
+    reenc_paths = [str(reenc / p.relative_to(proot / "blur")
+                       .with_suffix(".jpg")) for p in blur_png]
+    for q in reenc_paths:
+        Path(q).parent.mkdir(parents=True, exist_ok=True)
+    native.write_images(reenc_paths, [native.decode(str(p))
+                                      for p in blur_png])
+    for p, q in zip(blur_png, reenc_paths):
+        rel = p.relative_to(proot / "blur").with_suffix(".jpg")
+        mine = jroot / "blur" / rel
+        check(np.array_equal(native.decode(str(mine)), native.decode(q)),
+              f"blur {rel}: the .jpg output and the twin's re-encoded one "
+              "decode differently")
+        same_jpg += mine.read_bytes() == Path(q).read_bytes()
+    result["twins"] = {"compound_png_equal": same_png,
+                       "blur_jpg_decoded_equal": len(blur_png),
+                       "blur_jpg_bytes_equal": same_jpg}
+    print("jpeg twins: " + json.dumps(result["twins"]))
+
+    noise_png = twin_tree(jroot / "noise", proot / "noise_decoded", ".png")
+    check(len(noise_png) == TREE_IMAGES, "the noise tree's PNG twin")
+    trees = {"jpg": (jroot / "noise", jroot / "clean"),
+             "png": (proot / "noise_decoded", proot / "clean")}
+    walks = {}
+    _build.reset_launch_counts()
+    for resize in ("device", "host"):
+        outs = {}
+        for tree, (bad, clean) in trees.items():
+            out = work / f"jpeg_restored_{tree}_{resize}"
+            res = infer.restore_tree(resunet, str(bad), str(out),
+                                     clean_dir=str(clean),
+                                     batch_size=BATCH, size=SIZE,
+                                     resize=resize, log=quiet, device=dev)
+            check(res["images"] == TREE_IMAGES and math.isfinite(res["psnr"])
+                  and 0 <= res["ssim"] <= 1,
+                  f"restore_tree {tree} {resize}: {res}")
+            outs[tree] = (out, res)
+            walks[f"{tree} {resize}"] = {
+                k: res[k] for k in ("images_per_sec", "seconds", "batches",
+                                    "psnr", "ssim", "host_seconds")}
+        (a, ra), (b, rb) = outs["jpg"], outs["png"]
+        files = sorted(a.glob("*/*.png"))
+        check(len(files) == TREE_IMAGES and all(
+            p.read_bytes() == (b / p.relative_to(a)).read_bytes()
+            for p in files), f"restore_tree {resize}: the .jpg tree's "
+              "restored files differ from its .png twin's")
+        check(ra["psnr"] == rb["psnr"] and ra["ssim"] == rb["ssim"],
+              f"restore_tree {resize}: metrics differ from the twin's")
+        print(f"restore_tree resize={resize} on the jpg noise tree: "
+              f"{ra['images_per_sec']:.1f} images/s (png twin "
+              f"{rb['images_per_sec']:.1f}), PSNR {ra['psnr']:.4f} dB, SSIM "
+              f"{ra['ssim']:.5f}, restored files equal to the twin's")
+    result["restore_tree"] = walks
+    evals = {}
+    for name in ("clean", "noise"):
+        res = teval.evaluate_directory(judge, str(jroot / name),
+                                       batch_size=BATCH, size=SIZE,
+                                       restorer=resunet, resize="host",
+                                       device=dev)
+        check(res["n"] == TREE_IMAGES and 0 <= res["top1"] <= 1
+              and math.isfinite(res["confidence"]),
+              f"evaluate_directory on the jpg {name} tree: {res}")
+        evals[name] = res
+        print(f"evaluate_directory on the jpg {name} tree: "
+              f"{res['images_per_sec']:.1f} images/s, n {res['n']}, top-1 "
+              f"{res['top1']:.4f} (random weights)")
+    check(sum(_build.launch_counts().values()) == 0,
+          "the walks launch no blur or B1 kernel")
+    result["evaluate_directory"] = evals
+    steps = {"host": teval.make_fused_eval_step(resunet, judge, device=dev),
+             "device": teval.make_fused_eval_step(resunet, judge,
+                                                  native_size=SIZE,
+                                                  device=dev)}
+    agree = {}
+    for name, jdir, pdir, modes in (
+            ("clean", jroot / "clean", proot / "clean", ("host",)),
+            ("noise", jroot / "noise", proot / "noise_decoded",
+             ("host", "device"))):
+        for resize in modes:
+            a = preds_by_file(steps[resize], jdir, resize, dev)
+            b = preds_by_file(steps[resize], pdir, resize, dev)
+            check(np.array_equal(a, b), f"preds on the jpg {name} tree "
+                  f"({resize} resize) differ from its png twin's")
+            agree[f"{name} {resize}"] = len(a)
+    result["preds_equal_to_png_twin"] = agree
+    result["launches"] = launches
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    print("jpeg: " + json.dumps(result))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3288,6 +3567,8 @@ def run(dev) -> None:
         cli_counts = cli_phase(dev, Path(tmp))
         # -- 10. multi-device, ranks sharing the card ------------------------
         mesh_counts = mesh_phase(dev, Path(tmp))
+        # -- 11. the port's JPEG codec through the tree pipeline -------------
+        jpeg_counts = jpeg_phase(dev, resunet, judge, Path(tmp))
 
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
@@ -3301,6 +3582,7 @@ def run(dev) -> None:
         row["launches_int8"] = int8_counts[key]
         row["launches_cli"] = cli_counts.get(key, 0)
         row["launches_mesh"] = mesh_counts.get(key, 0)
+        row["launches_jpeg"] = jpeg_counts[key]
         row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -42,17 +42,19 @@ def nvcc() -> str:
     return found
 
 
-def hashed_library(source: Path, flags: Sequence[str], build_dir: Path) -> Path:
-    """Library path of ``source`` built with ``flags``: its name carries a
-    hash of both, so an edited source or a new flag never loads a stale
-    build."""
-    digest = hashlib.sha256(source.read_bytes()
+def hashed_library(sources: Sequence[Path], flags: Sequence[str],
+                   build_dir: Path) -> Path:
+    """Library path of ``sources`` (every file the build reads, headers
+    included) built with ``flags``, named after the first: its name carries
+    a hash of all of them, so an edited file or a new flag never loads a
+    stale build."""
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in sources)
                             + " ".join(flags).encode()).hexdigest()
-    return build_dir / f"{source.stem}-{digest[:12]}.so"
+    return build_dir / f"{sources[0].stem}-{digest[:12]}.so"
 
 
 def library_path(source: str) -> Path:
-    return hashed_library(CSRC / source, NVCC_FLAGS, BUILD_DIR)
+    return hashed_library([CSRC / source], NVCC_FLAGS, BUILD_DIR)
 
 
 def build(sources: Iterable[str]) -> Dict[str, dict]:

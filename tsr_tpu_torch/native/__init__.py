@@ -1,17 +1,27 @@
-"""The port's image IO: ``tsrio.cpp`` bound with ``ctypes``.
+"""The port's image IO: ``tsrio.cpp`` and ``jpeg.cpp`` bound with ``ctypes``.
 
 The port's own copy of ``tsr_tpu/native`` and its only codec (no module of
-the port imports cv2 or PIL): PNG/PPM/BMP decode at native size, a
-cv2.INTER_LINEAR-convention bilinear resize (within 1 LSB of cv2) or PIL's
-BILINEAR resize (bit-equal to PIL), header
-probes and whole batches decoded into padded canvases on native threads
-(one call a batch, so the tree walks' Python threads stay off the
-interpreter lock), and threaded PNG and PPM writers (:func:`write_png_batch`,
-:func:`write_images`). ``g++`` builds the source on first use into
-``build/tsr_tpu_torch_native/`` at the root of the checkout; the library's
-name carries a hash of the source and the flags (``kernels/_build.py``).
-The flags leave out ``-march=native``, so a library built on one x86-64
-host loads on another. A failed build, decode or write raises.
+the port imports cv2 or PIL, and the library links nothing but zlib). It
+reads every file the reference reads through ``cv2.imread`` with cv2's
+pixels: PNG of any bit depth, color type and interlacing, binary PPM/PGM
+(P6, P5) of any maxval, uncompressed BMP (24/32-bit, 1/4/8-bit palette)
+and JPEG (baseline and progressive; EXIF orientation applied, in PNG's
+eXIf too). It writes ``.ppm``, ``.bmp`` and ``.jpg``/``.jpeg`` files
+byte-equal to ``cv2.imwrite``'s at its defaults, and ``.png`` files
+pixel-equal to cv2's. Around the
+codecs: a cv2.INTER_LINEAR-convention bilinear resize (within 1 LSB of
+cv2) or PIL's BILINEAR resize (bit-equal to PIL), header probes and whole
+batches decoded into padded canvases on native threads (one call a batch,
+so the tree walks' Python threads stay off the interpreter lock), and
+threaded writers (:func:`write_png_batch`, :func:`write_images`).
+
+A JPEG that uses a feature the codec does not implement (:data:`FEATURES`)
+raises a ``RuntimeError`` that names it. ``g++`` builds the sources on
+first use into ``build/tsr_tpu_torch_native/`` at the root of the
+checkout; the library's name carries a hash of every source, the shared
+header and the flags (``kernels/_build.py``). The flags leave out
+``-march=native``, so a library built on one x86-64 host loads on
+another. A failed build, decode or write raises.
 """
 
 from __future__ import annotations
@@ -28,11 +38,25 @@ import numpy as np
 
 from tsr_tpu_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parent / "tsrio.cpp"
+_HERE = Path(__file__).resolve().parent
+SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp")
+HEADERS = (_HERE / "codec.h",)
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 LIBS = ("-lz",)
-_FORMATS = {"png": 0, "ppm": 1}
+# suffix -> the writer's format code
+_FORMATS = {".png": 0, ".ppm": 1, ".jpg": 2, ".jpeg": 2, ".bmp": 3}
+# a failed decode's or probe's negative status -> the JPEG feature it
+# names, in codec.h's order (0 is a file that does not parse)
+FEATURES = (
+    "arithmetic coding",
+    "a sample precision other than 8 bits (12-bit JPEG)",
+    "lossless JPEG",
+    "4-component JPEG (CMYK/YCCK)",
+    "hierarchical JPEG",
+    "a component count other than 1, 3 or 4",
+    "progressive data that leaves coefficients incomplete (block smoothing)",
+)
 _RESIZE_MODES = {"cv2": 0, "pil": 1}
 
 _LOCK = threading.Lock()
@@ -42,7 +66,8 @@ Images = Union[np.ndarray, Sequence[np.ndarray]]
 
 
 def library_path() -> Path:
-    return _build.hashed_library(SOURCE, CXX_FLAGS + LIBS, BUILD_DIR)
+    return _build.hashed_library(SOURCES + HEADERS, CXX_FLAGS + LIBS,
+                                 BUILD_DIR)
 
 
 def build() -> Path:
@@ -56,11 +81,11 @@ def build() -> Path:
         raise RuntimeError("g++ not found: the IO library cannot be built")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE),
-                           *LIBS], capture_output=True, text=True,
-                          timeout=300)
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
+                           *map(str, SOURCES), *LIBS], capture_output=True,
+                          text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed for {SOURCES}:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -103,16 +128,38 @@ def _joined(paths: Sequence[str]) -> bytes:
     return "\n".join(paths).encode()
 
 
+def _failure(path, status: int) -> RuntimeError:
+    """The error of a decode or probe of ``path`` that gave ``status``."""
+    if status < 0:
+        return RuntimeError(f"tsrio cannot decode {path}: it uses "
+                            f"{FEATURES[-status - 1]}, which the port's "
+                            "JPEG decoder does not implement")
+    return RuntimeError(f"tsrio failed to decode {path}")
+
+
+def _first_failure(paths: Sequence[str], decoded: int) -> RuntimeError:
+    """The error of a batch decode that decoded ``decoded`` of ``paths``,
+    with the error of the first path that fails to decode alone."""
+    for p in paths:
+        try:
+            decode(p)
+        except RuntimeError as e:
+            return RuntimeError(f"tsrio decoded {decoded}/{len(paths)} "
+                                f"images: {e}")
+    return RuntimeError(f"tsrio decoded {decoded}/{len(paths)} images")
+
+
 def decode(path: str, max_side: int = 4096) -> np.ndarray:
-    """Decode one PNG/PPM/BMP at native size -> uint8 ``[H, W, 3]`` RGB."""
+    """Decode one image at native size -> uint8 ``[H, W, 3]`` RGB, as
+    ``cv2.imread(path)[:, :, ::-1]`` decodes it."""
     cap = max_side * max_side * 3
     buf = np.empty(cap, np.uint8)
     dims = (ctypes.c_int * 2)()
-    ok = _lib().tsrio_decode(
+    status = _lib().tsrio_decode(
         os.fspath(path).encode(),
         buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap, dims)
-    if not ok:
-        raise RuntimeError(f"tsrio failed to decode {path}")
+    if status != 1:
+        raise _failure(path, status)
     w, h = dims[0], dims[1]
     return buf[:w * h * 3].reshape(h, w, 3).copy()
 
@@ -135,13 +182,17 @@ def load_batch(paths: Sequence[str], size: int, threads: int = 8,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), threads,
         _RESIZE_MODES[resize])
     if ok != len(paths):
-        raise RuntimeError(f"tsrio decoded {ok}/{len(paths)} images")
+        raise _first_failure(paths, ok)
     return out
 
 
-def probe(paths: Sequence[str], threads: int = 8) -> np.ndarray:
-    """``(h, w)`` of each image from its file header alone, as int32
-    ``[N, 2]``; raises if any header does not parse."""
+def probe(paths: Sequence[str], threads: int = 8,
+          skip_unreadable: bool = False) -> np.ndarray:
+    """``(h, w)`` of each image as :func:`decode` gives it (EXIF
+    orientation applied), from its file header alone, as int32 ``[N, 2]``.
+    Raises if a header does not parse, or, with ``skip_unreadable``, gives
+    such a file the row ``(0, 0)``; a JPEG that uses a feature the decoder
+    does not implement raises either way."""
     dims = np.zeros((len(paths), 2), np.int32)
     if not len(paths):
         return dims
@@ -149,7 +200,11 @@ def probe(paths: Sequence[str], threads: int = 8) -> np.ndarray:
         _joined(paths), len(paths),
         dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), threads)
     if ok != len(paths):
-        raise RuntimeError(f"tsrio probed {ok}/{len(paths)} image headers")
+        for p, (h, status) in zip(paths, dims.tolist()):
+            if h == 0 and (status < 0 or not skip_unreadable):
+                raise RuntimeError(f"tsrio probed {ok}/{len(paths)} image "
+                                   f"headers: {_failure(p, status)}")
+        dims[dims[:, 0] == 0] = 0
     return dims
 
 
@@ -176,6 +231,10 @@ def load_canvas(paths: Sequence[str], out: np.ndarray, resize_to: int = 0,
         int(reflect), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), threads)
     if ok != len(paths):
+        for p, (h, status) in zip(paths, dims.tolist()):
+            if h == 0 and status < 0:
+                raise RuntimeError(f"tsrio loaded {ok}/{len(paths)} images:"
+                                   f" {_failure(p, status)}")
         raise RuntimeError(f"tsrio loaded {ok}/{len(paths)} images into "
                            f"[{out.shape[1]}, {out.shape[2]}] slots")
     return dims
@@ -183,6 +242,8 @@ def load_canvas(paths: Sequence[str], out: np.ndarray, resize_to: int = 0,
 
 def _write(paths: Sequence[str], images: Images, fmt: str,
            threads: int) -> None:
+    """Writes ``images`` to ``paths`` in format ``fmt`` (a suffix of
+    :data:`_FORMATS`)."""
     images = [np.ascontiguousarray(im, np.uint8) for im in images]
     if len(images) != len(paths):
         raise ValueError(f"{len(images)} images for {len(paths)} paths")
@@ -204,19 +265,21 @@ def write_png_batch(paths: Sequence[str], images: Images,
     """Threaded PNG encode + write of uint8 RGB images (a ``[N, H, W, 3]``
     batch or a sequence of ``[h, w, 3]`` arrays of any sizes). Parent
     directories must exist; raises on any failure."""
-    _write(paths, images, "png", threads)
+    _write(paths, images, ".png", threads)
 
 
 def write_images(paths: Sequence[str], images: Images,
                  threads: int = 8) -> None:
-    """Write each image in the format its path's suffix names: ``.png`` or
-    binary ``.ppm`` (P6); any other suffix raises."""
+    """Write each image in the format its path's suffix names: ``.png``,
+    binary ``.ppm`` (P6), ``.bmp`` (24-bit) or ``.jpg``/``.jpeg`` (baseline
+    JFIF, quality 95, 4:2:0), each byte-equal to what ``cv2.imwrite``
+    writes at its defaults (PNG: pixel-equal); any other suffix raises."""
     groups = {}
     for p, im in zip(paths, images):
-        fmt = Path(p).suffix.lower()[1:]
+        fmt = Path(p).suffix.lower()
         if fmt not in _FORMATS:
-            raise ValueError(f"cannot write {p}: the port writes .png and "
-                             ".ppm only")
+            raise ValueError(f"cannot write {p}: the port writes "
+                             f"{', '.join(sorted(_FORMATS))} only")
         groups.setdefault(fmt, ([], []))
         groups[fmt][0].append(p)
         groups[fmt][1].append(im)

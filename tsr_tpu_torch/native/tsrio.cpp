@@ -1,24 +1,34 @@
-// tsrio — the port's image IO: PNG/PPM(P6)/BMP decode, bilinear resize,
-// threaded batch assembly, and threaded PNG/PPM encode + write.
+// tsrio — the port's image IO: PNG/PPM/BMP/JPEG decode, bilinear resize,
+// threaded batch assembly, and threaded PNG/PPM/JPEG/BMP encode + write.
 //
-// The port's own copy of tsr_tpu/native/tsrio.cpp, with a writer that
-// takes images of different sizes and writes PPM as well as PNG. It is
-// the port's only codec: no module of the port imports cv2 or PIL. GTSRB
-// ships as P6 .ppm files, which need no external codec; the distorted and
-// restored trees are .png (ref:16:55 writes compound trees with
-// cv2.imwrite, and every restored-tree consumer re-reads PNGs,
-// ref:09:15-26), decoded here with zlib inflate + scanline unfilter
-// (8-bit depth, color types 0/2/3/4/6, non-interlaced: everything cv2/PIL
-// write in this pipeline).
+// The port's own copy of tsr_tpu/native/tsrio.cpp, grown to read every
+// file the reference's paths read through cv2.imread and to write every
+// file they write through cv2.imwrite, with the same pixels and bytes. It
+// is the port's only codec: no module of the port imports cv2 or PIL, and
+// it links nothing but zlib. Decoded, with cv2.imread's pixels:
+//   - PNG: every bit depth (16 bits keep the high byte, 1/2/4-bit gray is
+//     scaled to 8 bits), gray, RGB, palette, gray+alpha and RGBA (alpha
+//     dropped), Adam7 interlacing, and an eXIf orientation before IDAT;
+//   - PPM/PGM: binary P6 and P5, maxval below 256 read as stored, above
+//     as the high byte of each 16-bit sample (cv2 does not rescale);
+//   - BMP: 24/32-bit and 1/4/8-bit palette, uncompressed;
+//   - JPEG: jpeg.cpp (baseline and progressive, EXIF orientation).
+// Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
+// (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
+// by construction), PPM (P6), BMP (cv2's 24-bit layout) and JPEG
+// (jpeg.cpp: cv2's defaults, quality 95 and 4:2:0).
 //
 // Exposed C ABI (used via ctypes from tsr_tpu_torch.native):
 //   tsrio_load_batch(paths, n, size, out, threads, mode) -> images loaded
 //     paths: '\n'-joined file paths; out: uint8[n, size, size, 3]
 //     mode 0 resizes as cv2.INTER_LINEAR, mode 1 as PIL's BILINEAR.
 //     Failed decodes leave their slot zeroed and are counted out.
-//   tsrio_decode(path, out, cap, dims) -> 1 on success
+//   tsrio_decode(path, out, cap, dims) -> 1 on success, else a Status
+//     (codec.h: 0 unreadable, negative an unimplemented feature)
 //   tsrio_probe(paths, n, dims, threads) -> files probed
-//     (h, w) of each image from its header alone, into dims[n, 2].
+//     (h, w) of each image as it decodes (EXIF orientation applied) from
+//     its header alone, into dims[n, 2]; a file that fails gets (0, its
+//     Status).
 //   tsrio_load_canvas(paths, n, ch, cw, resize_to, reflect, out, dims,
 //                     threads) -> images loaded
 //     Each image at native size into the top-left of its [ch, cw, 3] slot
@@ -29,9 +39,8 @@
 //     generator (reflect) and of the native-upload walk (zeros).
 //   tsrio_write_batch(paths, n, dims, data, format, threads) -> written
 //     Threaded encode+write of n uint8 RGB images, image i of dims[2i] rows
-//     and dims[2i+1] columns at data[i]; format 0 is PNG (8-bit RGB, zlib
-//     level 1, filter 0), format 1 is PPM (P6). Both are lossless, so
-//     pixel parity with cv2's encoder is exact by construction.
+//     and dims[2i+1] columns at data[i]; format 0 is PNG, 1 PPM, 2 JPEG,
+//     3 BMP.
 //
 // Resize matches cv2.INTER_LINEAR (half-pixel centers, clamped edges), or
 // bit for bit PIL's Image.resize(..., BILINEAR) (resize_pil).
@@ -44,16 +53,16 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <exception>
 #include <string>
 #include <thread>
 #include <vector>
 
+#include "codec.h"
+
 namespace {
 
-struct Image {
-  int w = 0, h = 0;
-  std::vector<uint8_t> rgb;  // HWC
-};
+using tsrio::Image;
 
 // The whole file, or its first `limit` bytes when limit > 0.
 bool read_file(const char* path, std::vector<uint8_t>& buf, long limit = 0) {
@@ -70,11 +79,14 @@ bool read_file(const char* path, std::vector<uint8_t>& buf, long limit = 0) {
   return got == buf.size();
 }
 
-// --- PPM (P6, 8-bit) ---
-// Parses "P6 <w> <h> <maxval>" (comments allowed) and leaves `pos` at the
-// first pixel byte.
-bool ppm_header(const std::vector<uint8_t>& buf, int& w, int& h, size_t& pos) {
-  if (buf.size() < 10 || buf[0] != 'P' || buf[1] != '6') return false;
+// --- PPM / PGM (binary P6 and P5) ---
+// Parses "P6|P5 <w> <h> <maxval>" (comments allowed) and leaves `pos` at
+// the first sample byte; `channels` is 3 for P6, 1 for P5.
+bool ppm_header(const std::vector<uint8_t>& buf, int& w, int& h,
+                int& channels, int& maxval, size_t& pos) {
+  if (buf.size() < 10 || buf[0] != 'P' || (buf[1] != '6' && buf[1] != '5'))
+    return false;
+  channels = buf[1] == '6' ? 3 : 1;
   pos = 2;
   auto next_int = [&](int& out) -> bool {
     // skip whitespace + comments
@@ -90,207 +102,304 @@ bool ppm_header(const std::vector<uint8_t>& buf, int& w, int& h, size_t& pos) {
     long v = 0;
     while (pos < buf.size() && std::isdigit(buf[pos])) {
       v = v * 10 + (buf[pos] - '0');
+      if (v > (1L << 30)) return false;
       pos++;
     }
     out = static_cast<int>(v);
     return true;
   };
-  int maxv;
-  if (!next_int(w) || !next_int(h) || !next_int(maxv)) return false;
-  if (maxv != 255 || w <= 0 || h <= 0) return false;
+  if (!next_int(w) || !next_int(h) || !next_int(maxval)) return false;
+  if (maxval < 1 || maxval > 65535 || w <= 0 || h <= 0) return false;
   pos++;  // single whitespace after maxval
   return true;
 }
 
+// Samples as stored where maxval < 256, the high byte of each big-endian
+// 16-bit sample above: cv2.imread does not rescale to maxval.
 bool decode_ppm(const std::vector<uint8_t>& buf, Image& img) {
-  int w, h;
+  int w, h, ch, maxval;
   size_t pos;
-  if (!ppm_header(buf, w, h, pos)) return false;
-  size_t need = static_cast<size_t>(w) * h * 3;
-  if (pos > buf.size() || buf.size() - pos < need) return false;
+  if (!ppm_header(buf, w, h, ch, maxval, pos)) return false;
+  const size_t bytes = maxval < 256 ? 1 : 2;
+  const size_t n = static_cast<size_t>(w) * h;
+  if (pos > buf.size() || (buf.size() - pos) / bytes / ch < n) return false;
   img.w = w;
   img.h = h;
-  img.rgb.assign(buf.begin() + pos, buf.begin() + pos + need);
+  img.rgb.resize(n * 3);
+  const uint8_t* p = buf.data() + pos;
+  for (size_t i = 0; i < n; i++)
+    for (int c = 0; c < 3; c++)
+      img.rgb[3 * i + c] = p[(i * ch + (ch == 3 ? c : 0)) * bytes];
   return true;
 }
 
-// --- BMP (24/32-bit uncompressed, bottom-up or top-down) ---
-bool decode_bmp(const std::vector<uint8_t>& buf, Image& img) {
+// --- BMP (uncompressed: 24/32-bit, 1/4/8-bit palette; bottom-up or
+// top-down) ---
+struct BmpHeader {
+  int32_t data_off, w, h;  // h > 0: bottom-up
+  int bpp;
+  size_t palette_off, colors;
+};
+
+bool bmp_header(const std::vector<uint8_t>& buf, BmpHeader& hd) {
   if (buf.size() < 54 || buf[0] != 'B' || buf[1] != 'M') return false;
   auto rd32 = [&](size_t o) {
     return static_cast<int32_t>(buf[o] | (buf[o + 1] << 8) |
                                 (buf[o + 2] << 16) | (buf[o + 3] << 24));
   };
   auto rd16 = [&](size_t o) { return buf[o] | (buf[o + 1] << 8); };
-  int32_t data_off = rd32(10);
-  int32_t w = rd32(18), h_raw = rd32(22);
-  int bpp = rd16(28);
-  int32_t comp = rd32(30);
-  // h_raw == 0 would pass the buffer-size check with an empty pixel
-  // buffer and send h=0 into resize_bilinear (reads at src.h-1 == -1);
-  // INT32_MIN can't be negated. Reject both along with bad offsets.
-  if (comp != 0 || (bpp != 24 && bpp != 32) || w <= 0 || h_raw == 0 ||
-      h_raw == INT32_MIN || data_off < 54)
+  hd.data_off = rd32(10);
+  const int32_t info = rd32(14);
+  hd.w = rd32(18);
+  hd.h = rd32(22);
+  hd.bpp = rd16(28);
+  const int32_t comp = rd32(30);
+  // h == 0 would send an empty image into the resizers; INT32_MIN can't
+  // be negated. Reject both along with bad offsets.
+  if (comp != 0 || hd.w <= 0 || hd.h == 0 || hd.h == INT32_MIN ||
+      hd.data_off < 54 || info < 40 ||
+      static_cast<int64_t>(hd.w) * (hd.h < 0 ? -static_cast<int64_t>(hd.h)
+                                              : hd.h) > (64LL << 20))
     return false;
-  bool bottom_up = h_raw > 0;
-  int h = bottom_up ? h_raw : -h_raw;
-  int stride = ((w * (bpp / 8)) + 3) & ~3;
-  if (buf.size() < static_cast<size_t>(data_off) +
-                       static_cast<size_t>(stride) * h)
+  if (hd.bpp == 24 || hd.bpp == 32) {
+    hd.colors = 0;
+    return true;
+  }
+  if (hd.bpp != 1 && hd.bpp != 4 && hd.bpp != 8) return false;
+  const int32_t used = rd32(46);
+  hd.colors = used > 0 && used <= (1 << hd.bpp) ? used : (1u << hd.bpp);
+  hd.palette_off = 14 + static_cast<size_t>(info);
+  return hd.palette_off + 4 * hd.colors <= buf.size();
+}
+
+bool decode_bmp(const std::vector<uint8_t>& buf, Image& img) {
+  BmpHeader hd;
+  if (!bmp_header(buf, hd)) return false;
+  const bool bottom_up = hd.h > 0;
+  const int w = hd.w, h = bottom_up ? hd.h : -hd.h;
+  const size_t stride = ((static_cast<size_t>(w) * hd.bpp + 31) / 32) * 4;
+  if (buf.size() < static_cast<size_t>(hd.data_off) + stride * h)
     return false;
+  // palette entries are B, G, R, 0; an index past them reads black
+  uint8_t palette[256][3] = {};
+  for (size_t i = 0; i < hd.colors; i++)
+    for (int c = 0; c < 3; c++)
+      palette[i][c] = buf[hd.palette_off + 4 * i + 2 - c];
   img.w = w;
   img.h = h;
   img.rgb.resize(static_cast<size_t>(w) * h * 3);
   for (int y = 0; y < h; y++) {
     int sy = bottom_up ? (h - 1 - y) : y;
-    const uint8_t* row = buf.data() + data_off + sy * stride;
+    const uint8_t* row = buf.data() + hd.data_off + sy * stride;
     uint8_t* out = img.rgb.data() + static_cast<size_t>(y) * w * 3;
     for (int x = 0; x < w; x++) {
-      const uint8_t* px = row + x * (bpp / 8);
-      out[x * 3 + 0] = px[2];  // BGR -> RGB
-      out[x * 3 + 1] = px[1];
-      out[x * 3 + 2] = px[0];
+      if (hd.bpp >= 24) {
+        const uint8_t* px = row + x * (hd.bpp / 8);
+        out[x * 3 + 0] = px[2];  // BGR -> RGB
+        out[x * 3 + 1] = px[1];
+        out[x * 3 + 2] = px[0];
+      } else {
+        const int bit = x * hd.bpp;
+        const int idx = (row[bit / 8] >> (8 - hd.bpp - bit % 8)) &
+                        ((1 << hd.bpp) - 1);
+        std::memcpy(out + x * 3, palette[idx], 3);
+      }
     }
   }
   return true;
 }
 
-// --- PNG (8-bit depth, color types 0/2/3/4/6, interlace 0) ---
-// zlib-inflate the IDAT stream, reverse the per-scanline filters (spec
-// 4.5.2: None/Sub/Up/Average/Paeth), expand to RGB. This covers every PNG
-// cv2.imwrite/PIL produce for this pipeline; 16-bit depth, interlacing and
-// sub-byte palettes fail, and the caller raises.
-bool decode_png(const std::vector<uint8_t>& buf, Image& img) {
+// --- PNG (every bit depth and color type, Adam7 or not) ---
+// zlib-inflate the IDAT stream, reverse each pass's per-scanline filters
+// (spec 4.5.2: None/Sub/Up/Average/Paeth), expand to 8-bit RGB as
+// cv2.imread's libpng setup does: strip 16 bits to the high byte, scale
+// 1/2/4-bit gray to 8 bits, look palette indices up (black past the
+// palette), drop alpha. An eXIf chunk before IDAT orients the result.
+
+uint32_t be32(const uint8_t* p) {
+  return (static_cast<uint32_t>(p[0]) << 24) | (static_cast<uint32_t>(p[1]) << 16) |
+         (static_cast<uint32_t>(p[2]) << 8) | p[3];
+}
+
+int png_channels(int ctype, int depth) {
+  switch (ctype) {
+    case 0: return depth == 1 || depth == 2 || depth == 4 || depth == 8 ||
+                   depth == 16 ? 1 : 0;
+    case 3: return depth == 1 || depth == 2 || depth == 4 || depth == 8
+                   ? 1 : 0;
+    case 2: return depth == 8 || depth == 16 ? 3 : 0;
+    case 4: return depth == 8 || depth == 16 ? 2 : 0;
+    case 6: return depth == 8 || depth == 16 ? 4 : 0;
+    default: return 0;
+  }
+}
+
+struct PngInfo {
+  int w = 0, h = 0, depth = 0, ctype = 0, interlace = 0, orientation = 1;
+};
+
+// IHDR's fields and the orientation of an eXIf chunk before the first
+// IDAT, from the chunks of `buf` (a whole file or its start); false where
+// IHDR is missing or holds a combination libpng refuses.
+bool png_info(const uint8_t* buf, size_t n, PngInfo& info) {
   static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
-  if (buf.size() < 57 || std::memcmp(buf.data(), sig, 8) != 0) return false;
-  auto rd32 = [&](size_t o) {
-    return (static_cast<uint32_t>(buf[o]) << 24) |
-           (static_cast<uint32_t>(buf[o + 1]) << 16) |
-           (static_cast<uint32_t>(buf[o + 2]) << 8) | buf[o + 3];
-  };
-  int w = 0, h = 0, depth = 0, ctype = 0;
-  std::vector<uint8_t> idat, plte;
-  bool have_ihdr = false;
-  size_t pos = 8;
-  while (pos + 12 <= buf.size()) {
-    uint32_t len = rd32(pos);
-    if (len > buf.size() || pos + 12 + len > buf.size()) return false;
-    const uint8_t* tag = buf.data() + pos + 4;
-    const uint8_t* data = buf.data() + pos + 8;
-    if (!std::memcmp(tag, "IHDR", 4)) {
-      if (len != 13) return false;
-      w = static_cast<int>(rd32(pos + 8));
-      h = static_cast<int>(rd32(pos + 12));
-      depth = data[8];
-      ctype = data[9];
-      if (data[10] != 0 || data[11] != 0 || data[12] != 0)
-        return false;  // non-default compression/filter or interlaced
-      have_ihdr = true;
-    } else if (!std::memcmp(tag, "PLTE", 4)) {
-      plte.assign(data, data + len);
-    } else if (!std::memcmp(tag, "IDAT", 4)) {
-      idat.insert(idat.end(), data, data + len);
-    } else if (!std::memcmp(tag, "IEND", 4)) {
-      break;
-    }
+  if (n < 33 || std::memcmp(buf, sig, 8) != 0 ||
+      std::memcmp(buf + 12, "IHDR", 4) != 0 || be32(buf + 8) != 13)
+    return false;
+  const uint8_t* d = buf + 16;
+  info.w = static_cast<int>(be32(d));
+  info.h = static_cast<int>(be32(d + 4));
+  info.depth = d[8];
+  info.ctype = d[9];
+  info.interlace = d[12];
+  if (info.w <= 0 || info.h <= 0 || d[10] != 0 || d[11] != 0 ||
+      info.interlace > 1 || !png_channels(info.ctype, info.depth))
+    return false;
+  for (size_t pos = 33; pos + 12 <= n;) {
+    const uint32_t len = be32(buf + pos);
+    if (len > n - pos - 12) break;
+    const uint8_t* tag = buf + pos + 4;
+    if (!std::memcmp(tag, "IDAT", 4) || !std::memcmp(tag, "IEND", 4)) break;
+    if (!std::memcmp(tag, "eXIf", 4))
+      info.orientation = tsrio::tiff_orientation(buf + pos + 8, len);
     pos += 12 + len;
   }
-  if (!have_ihdr || w <= 0 || h <= 0 || depth != 8 || idat.empty())
-    return false;
-  if (static_cast<int64_t>(w) * h > (64LL << 20)) return false;
-  int ch;
-  switch (ctype) {
-    case 0: ch = 1; break;  // gray
-    case 2: ch = 3; break;  // RGB
-    case 3: ch = 1; break;  // palette index
-    case 4: ch = 2; break;  // gray+alpha
-    case 6: ch = 4; break;  // RGBA
-    default: return false;
-  }
-  if (ctype == 3 && plte.size() < 3) return false;
+  return true;
+}
 
-  const size_t stride = static_cast<size_t>(w) * ch;
-  std::vector<uint8_t> raw((stride + 1) * h);
+bool unfilter_row(uint8_t f, const uint8_t* src, uint8_t* cur,
+                  const uint8_t* up, size_t stride, size_t uch) {
+  switch (f) {  // one filter per scanline: specialize the hot loops
+    case 0:
+      std::memcpy(cur, src, stride);
+      break;
+    case 1:  // Sub
+      for (size_t x = 0; x < uch && x < stride; x++) cur[x] = src[x];
+      for (size_t x = uch; x < stride; x++)
+        cur[x] = static_cast<uint8_t>(src[x] + cur[x - uch]);
+      break;
+    case 2:  // Up
+      for (size_t x = 0; x < stride; x++)
+        cur[x] = static_cast<uint8_t>(src[x] + up[x]);
+      break;
+    case 3:  // Average
+      for (size_t x = 0; x < uch && x < stride; x++)
+        cur[x] = static_cast<uint8_t>(src[x] + (up[x] >> 1));
+      for (size_t x = uch; x < stride; x++)
+        cur[x] = static_cast<uint8_t>(src[x] + ((cur[x - uch] + up[x]) >> 1));
+      break;
+    case 4:  // Paeth
+      for (size_t x = 0; x < uch && x < stride; x++)
+        cur[x] = static_cast<uint8_t>(src[x] + up[x]);  // a=c=0 -> b
+      for (size_t x = uch; x < stride; x++) {
+        const int a = cur[x - uch], b = up[x], c = up[x - uch];
+        const int p = a + b - c;
+        const int pa = std::abs(p - a), pb = std::abs(p - b),
+                  pc = std::abs(p - c);
+        cur[x] = static_cast<uint8_t>(
+            src[x] + ((pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c)));
+      }
+      break;
+    default:
+      return false;
+  }
+  return true;
+}
+
+bool decode_png(const std::vector<uint8_t>& buf, Image& img) {
+  PngInfo info;
+  if (!png_info(buf.data(), buf.size(), info)) return false;
+  const int w = info.w, h = info.h, depth = info.depth, ctype = info.ctype;
+  if (static_cast<int64_t>(w) * h > (64LL << 20)) return false;
+  std::vector<uint8_t> idat, plte;
+  for (size_t pos = 8; pos + 12 <= buf.size();) {
+    const uint32_t len = be32(buf.data() + pos);
+    if (len > buf.size() - pos - 12) return false;
+    const uint8_t* tag = buf.data() + pos + 4;
+    const uint8_t* data = buf.data() + pos + 8;
+    if (!std::memcmp(tag, "PLTE", 4)) plte.assign(data, data + len);
+    else if (!std::memcmp(tag, "IDAT", 4)) idat.insert(idat.end(), data, data + len);
+    else if (!std::memcmp(tag, "IEND", 4)) break;
+    pos += 12 + len;
+  }
+  if (idat.empty() || (ctype == 3 && plte.size() < 3)) return false;
+  const int ch = png_channels(ctype, depth);
+  const size_t bits = static_cast<size_t>(ch) * depth;  // per pixel
+  const size_t uch = bits < 8 ? 1 : bits / 8;          // filter unit
+
+  // Adam7 passes (x0, y0, dx, dy), or one pass over the whole image
+  static const int adam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8},
+                                  {2, 0, 4, 4}, {0, 2, 2, 4}, {1, 0, 2, 2},
+                                  {0, 1, 1, 2}};
+  static const int whole[1][4] = {{0, 0, 1, 1}};
+  const int (*passes)[4] = info.interlace ? adam7 : whole;
+  const int npass = info.interlace ? 7 : 1;
+  size_t raw_size = 0;
+  for (int p = 0; p < npass; p++) {
+    const int pw = (w - passes[p][0] + passes[p][2] - 1) / passes[p][2];
+    const int ph = (h - passes[p][1] + passes[p][3] - 1) / passes[p][3];
+    if (pw > 0 && ph > 0) raw_size += ph * (1 + (pw * bits + 7) / 8);
+  }
+  std::vector<uint8_t> raw(raw_size);
   uLongf rawlen = static_cast<uLongf>(raw.size());
   if (uncompress(raw.data(), &rawlen, idat.data(),
                  static_cast<uLong>(idat.size())) != Z_OK ||
       rawlen != raw.size())
     return false;
 
-  std::vector<uint8_t> pix(stride * h);
-  const std::vector<uint8_t> zero_row(stride, 0);
-  const size_t uch = static_cast<size_t>(ch);
-  for (int y = 0; y < h; y++) {
-    const uint8_t f = raw[(stride + 1) * y];
-    if (f > 4) return false;
-    const uint8_t* src = raw.data() + (stride + 1) * y + 1;
-    uint8_t* cur = pix.data() + stride * y;
-    const uint8_t* up = y ? pix.data() + stride * (y - 1) : zero_row.data();
-    switch (f) {  // one filter per scanline: specialize the hot loops
-      case 0:
-        std::memcpy(cur, src, stride);
-        break;
-      case 1:  // Sub
-        for (size_t x = 0; x < uch && x < stride; x++) cur[x] = src[x];
-        for (size_t x = uch; x < stride; x++)
-          cur[x] = static_cast<uint8_t>(src[x] + cur[x - uch]);
-        break;
-      case 2:  // Up
-        for (size_t x = 0; x < stride; x++)
-          cur[x] = static_cast<uint8_t>(src[x] + up[x]);
-        break;
-      case 3:  // Average
-        for (size_t x = 0; x < uch && x < stride; x++)
-          cur[x] = static_cast<uint8_t>(src[x] + (up[x] >> 1));
-        for (size_t x = uch; x < stride; x++)
-          cur[x] = static_cast<uint8_t>(src[x] +
-                                        ((cur[x - uch] + up[x]) >> 1));
-        break;
-      case 4:  // Paeth
-        for (size_t x = 0; x < uch && x < stride; x++)
-          cur[x] = static_cast<uint8_t>(src[x] + up[x]);  // a=c=0 -> b
-        for (size_t x = uch; x < stride; x++) {
-          const int a = cur[x - uch], b = up[x], c = up[x - uch];
-          const int p = a + b - c;
-          const int pa = std::abs(p - a), pb = std::abs(p - b),
-                    pc = std::abs(p - c);
-          cur[x] = static_cast<uint8_t>(
-              src[x] + ((pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c)));
-        }
-        break;
-    }
-  }
-
   img.w = w;
   img.h = h;
-  img.rgb.resize(static_cast<size_t>(w) * h * 3);
-  const size_t n = static_cast<size_t>(w) * h;
-  switch (ctype) {
-    case 0:
-      for (size_t i = 0; i < n; i++)
-        img.rgb[i * 3] = img.rgb[i * 3 + 1] = img.rgb[i * 3 + 2] = pix[i];
-      break;
-    case 2:
-      img.rgb.assign(pix.begin(), pix.end());
-      break;
-    case 3: {
-      const size_t ncolors = plte.size() / 3;
-      for (size_t i = 0; i < n; i++) {
-        const size_t idx = pix[i] < ncolors ? pix[i] : 0;
-        std::memcpy(&img.rgb[i * 3], &plte[idx * 3], 3);
+  img.rgb.assign(static_cast<size_t>(w) * h * 3, 0);
+  const size_t ncolors = plte.size() / 3;
+  const int gray_scale = depth < 8 ? 255 / ((1 << depth) - 1) : 1;
+  const size_t step = depth == 16 ? 2 : 1;  // bytes a sample (>= 8 bits)
+  const uint8_t* src = raw.data();
+  for (int p = 0; p < npass; p++) {
+    const int x0 = passes[p][0], y0 = passes[p][1];
+    const int dx = passes[p][2], dy = passes[p][3];
+    const int pw = (w - x0 + dx - 1) / dx, ph = (h - y0 + dy - 1) / dy;
+    if (pw <= 0 || ph <= 0) continue;
+    const size_t stride = (pw * bits + 7) / 8;
+    std::vector<uint8_t> rows(2 * stride, 0);
+    uint8_t* prev = rows.data();
+    uint8_t* cur = rows.data() + stride;
+    for (int r = 0; r < ph; r++, src += stride + 1) {
+      if (!unfilter_row(src[0], src + 1, cur, prev, stride, uch))
+        return false;
+      uint8_t* out = img.rgb.data() +
+                     (static_cast<size_t>(y0 + r * dy) * w + x0) * 3;
+      for (int i = 0; i < pw; i++, out += 3 * dx) {
+        if (depth < 8) {
+          const size_t bit = static_cast<size_t>(i) * depth;
+          const int v = (cur[bit / 8] >> (8 - depth - bit % 8)) &
+                        ((1 << depth) - 1);
+          if (ctype == 3) {
+            if (static_cast<size_t>(v) < ncolors)
+              std::memcpy(out, &plte[3 * v], 3);
+          } else {
+            out[0] = out[1] = out[2] = static_cast<uint8_t>(v * gray_scale);
+          }
+          continue;
+        }
+        const uint8_t* px = cur + static_cast<size_t>(i) * ch * step;
+        switch (ctype) {
+          case 3:
+            if (px[0] < ncolors) std::memcpy(out, &plte[3 * px[0]], 3);
+            break;
+          case 0:
+          case 4:
+            out[0] = out[1] = out[2] = px[0];
+            break;
+          default:  // 2, 6
+            out[0] = px[0];
+            out[1] = px[step];
+            out[2] = px[2 * step];
+        }
       }
-      break;
+      std::swap(prev, cur);
     }
-    case 4:
-      for (size_t i = 0; i < n; i++)
-        img.rgb[i * 3] = img.rgb[i * 3 + 1] = img.rgb[i * 3 + 2] =
-            pix[i * 2];
-      break;
-    case 6:
-      for (size_t i = 0; i < n; i++)
-        std::memcpy(&img.rgb[i * 3], &pix[i * 4], 3);
-      break;
   }
+  tsrio::apply_orientation(img, info.orientation);
   return true;
 }
 
@@ -548,14 +657,50 @@ void encode_ppm(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out) {
   out.insert(out.end(), rgb, rgb + static_cast<size_t>(w) * h * 3);
 }
 
+// --- BMP encode (cv2.imwrite's layout: BITMAPINFOHEADER, 24-bit BGR,
+// bottom-up rows padded to 4 bytes, no palette) ---
+void encode_bmp(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out) {
+  const size_t row = static_cast<size_t>(w) * 3;
+  const size_t stride = (row + 3) & ~static_cast<size_t>(3);
+  const uint32_t size = static_cast<uint32_t>(54 + stride * h);
+  out.assign(54, 0);
+  auto put32 = [&](size_t o, uint32_t v) {
+    for (int i = 0; i < 4; i++) out[o + i] = static_cast<uint8_t>(v >> (8 * i));
+  };
+  out[0] = 'B';
+  out[1] = 'M';
+  put32(2, size);
+  put32(10, 54);
+  put32(14, 40);
+  put32(18, static_cast<uint32_t>(w));
+  put32(22, static_cast<uint32_t>(h));
+  out[26] = 1;   // planes
+  out[28] = 24;  // bits per pixel; compression and the rest stay 0
+  out.resize(size, 0);
+  for (int y = 0; y < h; y++) {
+    const uint8_t* in = rgb + row * (h - 1 - y);
+    uint8_t* o = out.data() + 54 + stride * y;
+    for (int x = 0; x < w; x++) {
+      o[3 * x] = in[3 * x + 2];
+      o[3 * x + 1] = in[3 * x + 1];
+      o[3 * x + 2] = in[3 * x];
+    }
+  }
+}
+
 bool write_one(const char* path, const uint8_t* rgb, int w, int h, int format) {
-  std::vector<uint8_t> out;
-  if (format == 0) {
-    if (!encode_png(rgb, w, h, out)) return false;
-  } else if (format == 1) {
-    encode_ppm(rgb, w, h, out);
-  } else {
+  // cv2 writes no empty image, and JPEG holds sides up to 65535
+  if (w <= 0 || h <= 0 || (format == 2 && (w > 65535 || h > 65535)))
     return false;
+  std::vector<uint8_t> out;
+  switch (format) {
+    case 0:
+      if (!encode_png(rgb, w, h, out)) return false;
+      break;
+    case 1: encode_ppm(rgb, w, h, out); break;
+    case 2: tsrio::encode_jpeg(rgb, w, h, out); break;
+    case 3: encode_bmp(rgb, w, h, out); break;
+    default: return false;
   }
   FILE* f = std::fopen(path, "wb");
   if (!f) return false;
@@ -564,45 +709,99 @@ bool write_one(const char* path, const uint8_t* rgb, int w, int h, int format) {
   return put == out.size();
 }
 
-bool decode_file(const char* path, Image& img) {
-  std::vector<uint8_t> buf;
-  if (!read_file(path, buf)) return false;
-  return decode_png(buf, img) || decode_ppm(buf, img) || decode_bmp(buf, img);
+// The signature and the chunks before the first IDAT of an open PNG, the
+// data of each read only for IHDR and eXIf (the rest skipped): what
+// png_info needs, however far an eXIf lies into the file.
+std::vector<uint8_t> png_head(FILE* f) {
+  std::vector<uint8_t> head(8);
+  if (std::fseek(f, 0, SEEK_SET) != 0 ||
+      std::fread(head.data(), 1, 8, f) != 8)
+    return {};
+  uint8_t hdr[8];
+  while (std::fread(hdr, 1, 8, f) == 8) {
+    const uint32_t len = be32(hdr);
+    if (!std::memcmp(hdr + 4, "IDAT", 4) || !std::memcmp(hdr + 4, "IEND", 4))
+      break;
+    if (std::memcmp(hdr + 4, "IHDR", 4) && std::memcmp(hdr + 4, "eXIf", 4)) {
+      if (len > (1u << 31) || std::fseek(f, len + 4, SEEK_CUR) != 0) break;
+      continue;
+    }
+    if (len > (1u << 24)) break;
+    const size_t at = head.size();
+    head.resize(at + 12 + len);
+    std::memcpy(&head[at], hdr, 8);
+    if (std::fread(&head[at + 8], 1, len + 4, f) != len + 4) {
+      head.resize(at);
+      break;
+    }
+  }
+  return head;
 }
 
-// (h, w) from the file's header alone: PNG's IHDR (the first chunk), the
-// PPM header, or the BMP info header.
-bool probe_one(const char* path, int* dims) {
-  std::vector<uint8_t> buf;
-  if (!read_file(path, buf, 4096)) return false;
-  static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
-  int w = 0, h = 0;
-  size_t pos;
-  if (buf.size() >= 24 && std::memcmp(buf.data(), sig, 8) == 0 &&
-      std::memcmp(buf.data() + 12, "IHDR", 4) == 0) {
-    auto rd32 = [&](size_t o) {
-      return static_cast<int>((static_cast<uint32_t>(buf[o]) << 24) |
-                              (static_cast<uint32_t>(buf[o + 1]) << 16) |
-                              (static_cast<uint32_t>(buf[o + 2]) << 8) |
-                              buf[o + 3]);
-    };
-    w = rd32(16);
-    h = rd32(20);
-  } else if (!ppm_header(buf, w, h, pos)) {
-    if (buf.size() < 26 || buf[0] != 'B' || buf[1] != 'M') return false;
-    auto rd32 = [&](size_t o) {
-      return static_cast<int32_t>(buf[o] | (buf[o + 1] << 8) |
-                                  (buf[o + 2] << 16) | (buf[o + 3] << 24));
-    };
-    w = rd32(18);
-    const int32_t hr = rd32(22);
-    if (hr == INT32_MIN) return false;
-    h = hr < 0 ? -hr : hr;
+// 1 (kOk) on success, else a Status: kUnreadable, or the unimplemented
+// JPEG feature the file uses.
+int decode_file(const char* path, Image& img) {
+  try {  // an allocation that fails must not unwind into ctypes
+    std::vector<uint8_t> buf;
+    if (!read_file(path, buf)) return tsrio::kUnreadable;
+    if (tsrio::is_jpeg(buf.data(), buf.size()))
+      return tsrio::decode_jpeg(buf.data(), buf.size(), img);
+    return decode_png(buf, img) || decode_ppm(buf, img) ||
+                   decode_bmp(buf, img)
+               ? tsrio::kOk
+               : tsrio::kUnreadable;
+  } catch (const std::exception&) {
+    return tsrio::kUnreadable;
   }
-  if (w <= 0 || h <= 0) return false;
+}
+
+// (h, w) as the file decodes, from its header alone: a JPEG's markers up
+// to its first scan (however long its APP segments), PNG's IHDR and any
+// eXIf before IDAT, the PPM header, or the BMP info header. A failure
+// writes (0, its Status).
+int probe_one(const char* path, int* dims) {
+  dims[0] = 0;
+  dims[1] = tsrio::kUnreadable;
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return tsrio::kUnreadable;
+  std::vector<uint8_t> buf(4096);
+  buf.resize(std::fread(buf.data(), 1, buf.size(), f));
+  int st = tsrio::kUnreadable, h = 0, w = 0;
+  if (tsrio::is_jpeg(buf.data(), buf.size())) {
+    int hw[2];
+    st = tsrio::probe_jpeg(f, hw);
+    h = hw[0];
+    w = hw[1];
+  } else {
+    PngInfo png;
+    int ch, maxval;
+    size_t pos;
+    BmpHeader bmp;
+    if (buf.size() >= 33 && buf[0] == 137) {
+      const std::vector<uint8_t> head = png_head(f);
+      if (png_info(head.data(), head.size(), png)) {
+        st = tsrio::kOk;
+        const bool swap = png.orientation >= 5;
+        h = swap ? png.w : png.h;
+        w = swap ? png.h : png.w;
+      }
+    } else if (ppm_header(buf, w, h, ch, maxval, pos)) {
+      st = tsrio::kOk;
+    } else if (bmp_header(buf, bmp)) {
+      st = tsrio::kOk;
+      w = bmp.w;
+      h = bmp.h < 0 ? -bmp.h : bmp.h;
+    }
+  }
+  std::fclose(f);
+  if (st != tsrio::kOk) {
+    dims[1] = st;
+    return st;
+  }
+  if (w <= 0 || h <= 0) return tsrio::kUnreadable;
   dims[0] = h;
   dims[1] = w;
-  return true;
+  return tsrio::kOk;
 }
 
 // Reflect-101 source index of j >= 0 on a side of n: periodic with period
@@ -620,7 +819,12 @@ inline int reflect101_index(int j, int n) {
 bool load_canvas_one(const char* path, int ch, int cw, int resize_to,
                      int reflect, uint8_t* slot, int* dims) {
   Image img;
-  if (!decode_file(path, img)) return false;
+  const int st = decode_file(path, img);
+  if (st != tsrio::kOk) {
+    dims[0] = 0;
+    dims[1] = st;
+    return false;
+  }
   if (resize_to > 0 && (img.h >= resize_to || img.w >= resize_to)) {
     if (ch != resize_to || cw != resize_to) return false;
     resize_bilinear(img, resize_to, slot);
@@ -701,7 +905,7 @@ int tsrio_load_batch(const char* joined_paths, int n, int size,
   const size_t per = static_cast<size_t>(size) * size * 3;
   return parallel_count(static_cast<int>(paths.size()), threads, [&](int i) {
     Image img;
-    if (decode_file(paths[i].c_str(), img)) {
+    if (decode_file(paths[i].c_str(), img) == tsrio::kOk) {
       if (mode == 1)
         resize_pil(img, size, out + per * i);
       else
@@ -718,7 +922,11 @@ int tsrio_load_batch(const char* joined_paths, int n, int size,
 int tsrio_probe(const char* joined_paths, int n, int* dims, int threads) {
   const auto paths = split_paths(joined_paths, n);
   return parallel_count(static_cast<int>(paths.size()), threads, [&](int i) {
-    return probe_one(paths[i].c_str(), dims + 2 * i);
+    try {
+      return probe_one(paths[i].c_str(), dims + 2 * i) == tsrio::kOk;
+    } catch (const std::exception&) {
+      return false;
+    }
   });
 }
 
@@ -743,16 +951,22 @@ int tsrio_write_batch(const char* joined_paths, int n, const int* dims,
                       const uint8_t* const* data, int format, int threads) {
   const auto paths = split_paths(joined_paths, n);
   return parallel_count(static_cast<int>(paths.size()), threads, [&](int i) {
-    return write_one(paths[i].c_str(), data[i], dims[2 * i + 1], dims[2 * i],
-                     format);
+    try {
+      return write_one(paths[i].c_str(), data[i], dims[2 * i + 1],
+                       dims[2 * i], format);
+    } catch (const std::exception&) {
+      return false;
+    }
   });
 }
 
 // Decode a single image without resize; returns 1 on success and writes
-// (w, h) to dims. Caller passes a buffer of cap bytes; fails if too small.
+// (w, h) to dims, else the Status of the failure (0 also where the caller's
+// buffer of cap bytes is too small).
 int tsrio_decode(const char* path, uint8_t* out, long cap, int* dims) {
   Image img;
-  if (!decode_file(path, img)) return 0;
+  const int st = decode_file(path, img);
+  if (st != tsrio::kOk) return st;
   long need = static_cast<long>(img.rgb.size());
   if (need > cap) return 0;
   std::memcpy(out, img.rgb.data(), img.rgb.size());

@@ -4,8 +4,9 @@ Port of ``tsr_tpu/offline.py`` (the reference's offline generators,
 ref:02/03/04 and ref:16): read each ``<class>/<img>`` of the clean tree,
 distort it at **native resolution** (the reference distorts before its
 transforms resize, so blur strength is relative to native pixels), and
-write it to a mirrored tree (``.ppm`` kept for noise/blur/fog per
-ref:02:47-54; ``.png`` for compound per ref:16:55).
+write it to a mirrored tree (the source's suffix kept for noise/blur/fog
+and the ``*_rand`` kinds per ref:02:47-54, so a ``.jpg`` tree gives
+``.jpg`` trees; ``.png`` for compound per ref:16:55).
 
 Native sizes vary per image, so images are **bucketed**: reflect-101-padded
 up to the next bucket size, distorted as a batch on the device, and cropped
@@ -15,7 +16,10 @@ border (the kernels B2/B3 on the card) where the pad is 0 or at least the
 kernel's bottom/right halo, so a blurring kind takes the next bucket that
 leaves that room (``_bucket_with_room``) and the cropped result equals
 native-size processing. Decoding and writing go through the port's IO
-library (``tsr_tpu_torch.native``), which writes ``.ppm`` and ``.png``.
+library (``tsr_tpu_torch.native``), which reads and writes every suffix of
+``gtsrb.IMG_EXTENSIONS`` as cv2 does (JPEG at cv2.imwrite's defaults). A
+file whose header the library cannot parse is skipped, as the reference
+skips a file cv2.imread cannot read.
 """
 
 from __future__ import annotations
@@ -203,15 +207,17 @@ def tree_files(src_dir: str) -> List[Path]:
 
 
 def bucketed_batches(files: List[Path], batch_size: int, halo: int = 0,
-                     threads: int = 8
+                     threads: int = 8, dims: Optional[np.ndarray] = None
                      ) -> Iterator[Tuple[Tuple[int, int], list, np.ndarray]]:
     """Group ``files`` by ``(bh, bw) = (_bucket_with_room(h, halo),
-    _bucket_with_room(w, halo))`` of their native sizes (read from the
-    headers) and yield ``((bh, bw), [(path, (h, w))], padded uint8 [n, bh,
-    bw, 3])`` for each chunk of ``batch_size``, buckets in sorted order.
-    Each chunk is decoded straight into its canvas on native threads, the
-    pad filled as :func:`_pad_reflect` fills it; a failure raises."""
-    dims = native.probe([str(p) for p in files], threads=threads)
+    _bucket_with_room(w, halo))`` of their native sizes (``dims``, or read
+    from the headers) and yield ``((bh, bw), [(path, (h, w))], padded uint8
+    [n, bh, bw, 3])`` for each chunk of ``batch_size``, buckets in sorted
+    order. Each chunk is decoded straight into its canvas on native
+    threads, the pad filled as :func:`_pad_reflect` fills it; a failure
+    raises."""
+    if dims is None:
+        dims = native.probe([str(p) for p in files], threads=threads)
     groups: Dict[Tuple[int, int], list] = {}
     for p, (h, w) in zip(files, dims.tolist()):
         groups.setdefault((_bucket_with_room(h, halo),
@@ -235,7 +241,10 @@ def generate_tree(
     device="cuda",
 ) -> int:
     """Distort every image under ``src_dir`` into ``dst_dir`` (class tree
-    preserved) on ``device``. Returns the number of images written.
+    preserved) on ``device``. Returns the number of images written: a file
+    whose header does not parse is skipped and counted in the log, as the
+    reference skips a file cv2.imread cannot read; a JPEG that uses a
+    feature the IO library does not implement raises.
 
     One generator seeded with ``seed`` draws a seed for each batch's own
     generator on ``device`` (the reference splits its key per batch), so a
@@ -250,13 +259,20 @@ def generate_tree(
     dst = Path(dst_dir)
     files = tree_files(src_dir)
     log(f"Found {len(files)} images, generating '{kind}' data...")
+    dims = native.probe([str(p) for p in files], skip_unreadable=True)
+    readable = dims[:, 0] > 0
+    if not readable.all():
+        log(f"Skipped {int((~readable).sum())} unreadable files")
+        files = [p for p, ok in zip(files, readable) if ok]
+        dims = dims[readable]
     root = torch.Generator().manual_seed(seed)
     written = 0
     # the next batch's device work overlaps the last one's encode + write
     with cf.ThreadPoolExecutor(1) as writer:
         pending = []
         for _, chunk, batch in bucketed_batches(files, batch_size,
-                                                HALO.get(kind, 0)):
+                                                HALO.get(kind, 0),
+                                                dims=dims):
             sub = int(torch.randint(2 ** 62, (1,), generator=root))
             g = torch.Generator(device=device).manual_seed(sub)
             out = fn(as_tensor(batch, device), g).cpu().numpy()
