@@ -167,11 +167,28 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    the .jpg clean and noise trees with phase 3's models, the restored files,
    metrics and per-file preds equal to those on the .png twins. A ``jpeg:``
    JSON line.
-12. One JSON line of the kernels (with ``launches_trees``,
+12. The JPEG data cv2 reads with a warning, or rarely
+   (``jpeg_features_phase``), from the committed fixtures: scans cut short
+   and corrupt (block smoothing among them), CMYK and YCCK, lossless gray
+   and RGB, arithmetic coding, each decoded equal to ``expected.npz`` (what
+   the reference reads: cv2.imread, or PIL for the lossless gray file),
+   and the files neither reads raising with their feature named; host
+   decode images/s by path (one thread) beside cv2-written baseline files;
+   ``probe`` of phase 11's .jpg tree by header and as cv2 reads (the cost
+   of generate_tree's skip rule);
+   ``generate_tree`` on a tree of them plus the skip-class files for blur,
+   compound and blur_rand (launch counts zeroed just before and read just
+   after each call: B3 in blur and compound, B2 in blur_rand; the written
+   count equal to the reference's, as make_fixtures.py recorded it);
+   ``restore_tree`` (device and host resize, and device asked under the
+   PIL resize backend, which runs the host path as the reference does)
+   and ``evaluate_directory`` over the readable files with phase 3's
+   models. A ``jpeg_features:`` JSON line.
+13. One JSON line of the kernels (with ``launches_trees``,
    ``tree_shapes``, ``launches_cascade``, ``cascade_shapes``,
    ``launches_judge``, ``launches_int8``, ``launches_cli``,
-   ``launches_mesh`` and ``launches_jpeg``), the card's line, and the
-   final ``{"ok": true, ...}`` line.
+   ``launches_mesh``, ``launches_jpeg`` and ``launches_jpeg_features``),
+   the card's line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -254,6 +271,28 @@ JPEG_KINDS = ("noise", "blur", "fog", "compound", "blur_rand")
 JPEG_TWIN_KINDS = ("blur", "compound")   # also made from the PNG twin
 JPEG_DECODE_REPS = 3         # host decode rates: best of 3 passes
 JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+# phase 12: the JPEG data cv2 reads with a warning, or rarely, from the
+# committed fixtures (tests/data/jpeg/make_fixtures.py's FEATURE_CASES and
+# SKIP_CASES), by decode path; "baseline" is cv2-written baseline files
+JPEG_FEATURE_GROUPS = {
+    "baseline": ("s444_q95", "s422_q75_w7", "s420_default", "s440_q10",
+                 "s411_q75", "optimized_q95", "restart2_s422"),
+    "cut": ("cut_baseline", "cut_progressive_dc", "cut_progressive_scan3",
+            "cut_progressive_rst", "no_eoi_progressive"),
+    "corrupt": ("corrupt_huffman", "corrupt_bytes", "rst_replaced"),
+    "cmyk_ycck": ("cmyk", "ycck"),
+    "lossless": ("lossless_gray", "lossless_rgb"),
+    "arithmetic": ("arith_sequential", "arith_progressive",
+                   "arith_relabelled"),
+}
+# skip/<name>.jpg -> the feature its RuntimeError names
+JPEG_SKIP_FIXTURES = {
+    "precision12": "sample precision", "hierarchical": "hierarchical",
+    "two_components": "component count", "cut_in_header": "failed to decode",
+    "lossless_ycc": "lossless JPEG in YCbCr",
+    "lossless_arith": "lossless arithmetic"}
+JPEG_FEATURE_KINDS = ("blur", "compound", "blur_rand")
+JPEG_FEATURE_DECODES = 1024  # decodes a timed pass of each group, 1 thread
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
 
@@ -3155,10 +3194,12 @@ def twin_tree(src, dst, suffix):
 
 
 def check_jpeg_fixtures(work):
-    """The committed fixtures (``tests/data/jpeg``, written by cv2 and PIL):
-    each .jpg decoded by the port equals its ``cv2.imread`` array, and each
-    encoder input written as .jpg by the port equals ``cv2.imwrite``'s
-    bytes. The card's machine has no cv2: these files are the yardstick."""
+    """The committed fixtures (``tests/data/jpeg``, written by cv2, PIL and
+    ``jpeg_writers.py``): each .jpg decoded by the port equals what the
+    reference reads from it (its ``cv2.imread`` array, or PIL's where cv2
+    gives None), and each encoder input written as .jpg by the port equals
+    ``cv2.imwrite``'s bytes. The card's machine has neither cv2 nor PIL:
+    these files are the yardstick."""
     import numpy as np
     from tsr_tpu_torch import native
     want = np.load(JPEG_FIXTURES / "expected.npz")
@@ -3229,7 +3270,7 @@ def jpeg_phase(dev, resunet, judge, work):
     result = {"card": card_line(), "host_cpus": os.cpu_count()}
     result["fixtures"] = check_jpeg_fixtures(work)
     print("jpeg fixtures: " + json.dumps(result["fixtures"]) + " equal to "
-          "cv2's pixels and bytes")
+          "the reference's pixels and cv2's bytes")
 
     jroot, proot = work / "jpeg", work / "jpeg_png"
     t0 = time.perf_counter()
@@ -3389,6 +3430,216 @@ def jpeg_phase(dev, resunet, judge, work):
     result["launches"] = launches
     result["phase_seconds"] = time.perf_counter() - t_phase
     print("jpeg: " + json.dumps(result))
+    return launches
+
+
+def group_decode_rates(groups):
+    """Host decode images/s and megapixels/s of each fixture group
+    ``{name: [paths]}``: JPEG_FEATURE_DECODES decodes a pass (the group's
+    files in turn) through ``native.load_canvas`` at native size on one
+    thread, best of JPEG_DECODE_REPS passes."""
+    import numpy as np
+    from tsr_tpu_torch import native
+    rates = {}
+    for name, paths in groups.items():
+        dims = [native.decode(p).shape[:2] for p in paths]
+        reps = -(-JPEG_FEATURE_DECODES // len(paths))
+        batch = (paths * reps)[:JPEG_FEATURE_DECODES]
+        pixels = sum(h * w for h, w in (dims * reps)[:len(batch)])
+        out = np.empty((len(batch), max(h for h, _ in dims),
+                        max(w for _, w in dims), 3), np.uint8)
+        best = math.inf
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            native.load_canvas(batch, out, threads=1)
+            best = min(best, time.perf_counter() - t0)
+        rates[name] = {"files": len(paths), "images_per_sec":
+                       len(batch) / best, "megapixels_per_sec":
+                       pixels / best / 1e6, "seconds": best}
+    return rates
+
+
+def jpeg_features_phase(dev, resunet, judge, work):
+    """Phase 12: the JPEG data cv2 reads with a warning, or rarely, from
+    the committed fixtures (the card's machine has neither cv2 nor PIL),
+    in ``work``: every JPEG_FEATURE_GROUPS fixture decoded equal to
+    ``expected.npz`` and every JPEG_SKIP_FIXTURES file raising with its
+    feature named; host decode rates by group; generate_tree on the
+    fixtures plus the skip files for JPEG_FEATURE_KINDS (B3 in blur and
+    compound, B2 in blur_rand, launch counts zeroed just before and read
+    just after each call; the written count the reference's);
+    restore_tree and evaluate_directory over the readable fixtures in
+    both resize modes and under the PIL resize backend. Returns the
+    kernels' launches."""
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import eval as teval
+    from tsr_tpu_torch import infer, native, offline
+    from tsr_tpu_torch.data import gtsrb
+    from tsr_tpu_torch.kernels import _build
+    quiet = lambda line: None  # noqa: E731
+    t_phase = time.perf_counter()
+    result = {"card": card_line(), "host_cpus": os.cpu_count()}
+    want = np.load(JPEG_FIXTURES / "expected.npz")
+    groups = {g: [str(JPEG_FIXTURES / f"{n}.jpg") for n in names]
+              for g, names in JPEG_FEATURE_GROUPS.items()}
+    for g, paths in groups.items():
+        for p in paths:
+            check(np.array_equal(native.decode(p),
+                                 want[f"decoded__{Path(p).stem}"]),
+                  f"fixture {Path(p).name} ({g}) decodes unlike the "
+                  "reference's read")
+    for name, feature in JPEG_SKIP_FIXTURES.items():
+        try:
+            native.decode(str(JPEG_FIXTURES / "skip" / f"{name}.jpg"))
+        except RuntimeError as e:
+            check(feature in str(e), f"skip/{name}.jpg: {e}")
+        else:
+            check(False, f"skip/{name}.jpg decoded; cv2 and PIL refuse it")
+    result["fixtures"] = {g: len(p) for g, p in groups.items()}
+    result["skip_fixtures"] = len(JPEG_SKIP_FIXTURES)
+    print("jpeg features: " + json.dumps(result["fixtures"]) + " fixtures "
+          "equal to expected.npz; " + str(len(JPEG_SKIP_FIXTURES)) +
+          " skip-class files raise naming their feature")
+    rates = group_decode_rates(groups)
+    result["host_decode"] = rates
+    print(f"host decode by path (one thread of {result['host_cpus']} CPUs,"
+          f" best of {JPEG_DECODE_REPS} passes of {JPEG_FEATURE_DECODES} "
+          f"decodes, beside {result['card']}): " + ", ".join(
+              f"{g} {v['images_per_sec']:.0f} images/s "
+              f"({v['megapixels_per_sec']:.2f} MP/s)"
+              for g, v in rates.items()))
+
+    # what generate_tree's skip rule costs: the header probe against the
+    # probe as cv2 reads (markers and entropy data) on phase 11's .jpg tree
+    jpg_tree = [str(p) for p in offline.tree_files(str(work / "jpeg" /
+                                                       "clean"))]
+    check(len(jpg_tree) == TREE_IMAGES, "phase 11's .jpg tree")
+    probe_s = {}
+    for reader in ("port", "cv2"):
+        best = math.inf
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            dims = native.probe(jpg_tree, reader=reader)
+            best = min(best, time.perf_counter() - t0)
+        check(int((dims[:, 0] > 0).sum()) == len(jpg_tree),
+              f"probe(reader={reader!r}) of the .jpg tree")
+        probe_s[reader] = best
+    result["probe_jpg_tree_seconds"] = probe_s
+    print(f"probe of phase 11's {len(jpg_tree)}-file .jpg tree (8 threads, "
+          f"best of {JPEG_DECODE_REPS}): headers {probe_s['port']:.4f} s, "
+          f"as cv2 reads {probe_s['cv2']:.4f} s")
+
+    root = work / "jpeg_features"
+    readable, mixed = root / "readable", root / "mixed"
+    names = [n for g, ns in JPEG_FEATURE_GROUPS.items() if g != "baseline"
+             for n in ns]
+    files = [JPEG_FIXTURES / f"{n}.jpg" for n in names]
+    skips = [JPEG_FIXTURES / "skip" / f"{n}.jpg" for n in JPEG_SKIP_FIXTURES]
+    for k, p in enumerate(files + skips):
+        for tree in ((readable, mixed) if p in files else (mixed,)):
+            out = tree / f"c{k % 3}" / p.name
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_bytes(p.read_bytes())
+    written = int(want["generate_tree_written"])
+    dims = native.probe([str(p) for p in offline.tree_files(str(mixed))],
+                        reader="cv2")
+    sides = [tuple(d) for d in dims.tolist() if d[0] > 0]
+    check(len(sides) == written, f"probe(reader='cv2') reads {len(sides)} "
+          f"files; the reference reads {written}")
+    launches = {"blur_sparse": 0, "blur_dense": 0, "fog_noise": 0}
+    gen = {}
+    for kind in JPEG_FEATURE_KINDS:
+        buckets = tree_buckets(sides, offline.HALO.get(kind, 0))
+        n_batches = sum(-(-n // TREE_BATCH) for n in buckets.values())
+        lines = []
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = offline.generate_tree(str(mixed), str(root / kind), kind,
+                                  seed=SEED, batch_size=TREE_BATCH,
+                                  log=lines.append, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        want_counts = {
+            "blur_dense": n_batches if kind in ("blur", "compound") else 0,
+            "blur_sparse": n_batches if kind == "blur_rand" else 0,
+            "fog_noise": 0}
+        skipped = len(files) + len(skips) - written
+        check(n == written, f"generate_tree {kind} wrote {n}; the "
+              f"reference writes {written}")
+        check(f"Skipped {skipped} unreadable files" in lines,
+              f"generate_tree {kind} log: {lines}")
+        check(counts == want_counts, f"generate_tree {kind} launched "
+              f"{counts}, expected {want_counts}")
+        n_files = len(list((root / kind).glob("*/*")))
+        check(n_files == written, f"generate_tree {kind}: {n_files} files")
+        for k, v in counts.items():
+            launches[k] += v
+        gen[kind] = dict(images_per_sec=n / dt, seconds=dt, written=n,
+                         skipped=skipped, batches=n_batches,
+                         launches=counts)
+        print(f"generate_tree {kind} on the feature fixtures: {n} written, "
+              f"{skipped} skipped as the reference skips them, "
+              f"{n / dt:.1f} images/s, {n_batches} batches, B2 "
+              f"{counts['blur_sparse']} / B3 {counts['blur_dense']} "
+              "launches")
+    result["generate_tree"] = gen
+    check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
+          "B2 and B3 launched on the JPEG features path")
+
+    n_readable = len(files)
+    walks, evals = {}, {}
+    _build.reset_launch_counts()
+    old_backend = gtsrb.RESIZE_BACKEND
+    try:
+        for backend, resize in (("cv2", "device"), ("cv2", "host"),
+                                ("pil", "device"), ("pil", "host")):
+            gtsrb.set_resize_backend(backend)
+            out = root / f"restored_{backend}_{resize}"
+            res = infer.restore_tree(resunet, str(readable), str(out),
+                                     clean_dir=str(readable),
+                                     batch_size=BATCH, size=SIZE,
+                                     resize=resize, log=quiet, device=dev)
+            check(res["images"] == n_readable and math.isfinite(res["psnr"])
+                  and 0 <= res["ssim"] <= 1,
+                  f"restore_tree {backend} {resize}: {res}")
+            ev = teval.evaluate_directory(judge, str(readable),
+                                          batch_size=BATCH, size=SIZE,
+                                          restorer=resunet, resize=resize,
+                                          device=dev)
+            check(ev["n"] == n_readable and 0 <= ev["top1"] <= 1
+                  and math.isfinite(ev["confidence"]),
+                  f"evaluate_directory {backend} {resize}: {ev}")
+            key = f"{backend} {resize}"
+            walks[key] = {k: res[k] for k in ("images_per_sec", "psnr",
+                                              "ssim", "batches")}
+            evals[key] = {k: ev[k] for k in ("n", "top1", "confidence",
+                                             "images_per_sec")}
+            print(f"restore_tree / evaluate_directory, {backend} backend, "
+                  f"resize={resize}: {res['images']} images, PSNR "
+                  f"{res['psnr']:.4f} dB, SSIM {res['ssim']:.5f}; top-1 "
+                  f"{ev['top1']:.4f}, confidence {ev['confidence']:.6f}")
+    finally:
+        gtsrb.set_resize_backend(old_backend)
+    a, b = root / "restored_pil_device", root / "restored_pil_host"
+    check(all(p.read_bytes() == (b / p.relative_to(a)).read_bytes()
+              for p in a.glob("*/*.png")) and len(list(a.glob("*/*.png")))
+          == n_readable, "the PIL backend's device-asked restore_tree "
+          "differs from its host run")
+    dev_ev, host_ev = evals["pil device"], evals["pil host"]
+    check(walks["pil device"]["psnr"] == walks["pil host"]["psnr"]
+          and dev_ev["top1"] == host_ev["top1"]
+          and abs(dev_ev["confidence"] - host_ev["confidence"]) <= 1e-6,
+          "the PIL backend's device-asked walks differ from the host runs")
+    check(sum(_build.launch_counts().values()) == 0,
+          "the walks launch no blur or B1 kernel")
+    result["restore_tree"] = walks
+    result["evaluate_directory"] = evals
+    result["launches"] = launches
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    print("jpeg_features: " + json.dumps(result))
     return launches
 
 
@@ -3569,6 +3820,8 @@ def run(dev) -> None:
         mesh_counts = mesh_phase(dev, Path(tmp))
         # -- 11. the port's JPEG codec through the tree pipeline -------------
         jpeg_counts = jpeg_phase(dev, resunet, judge, Path(tmp))
+        # -- 12. the JPEG data cv2 reads with a warning, or rarely ----------
+        feature_counts = jpeg_features_phase(dev, resunet, judge, Path(tmp))
 
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
@@ -3583,6 +3836,7 @@ def run(dev) -> None:
         row["launches_cli"] = cli_counts.get(key, 0)
         row["launches_mesh"] = mesh_counts.get(key, 0)
         row["launches_jpeg"] = jpeg_counts[key]
+        row["launches_jpeg_features"] = feature_counts[key]
         row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -2,7 +2,8 @@
 (every sampling factor cv2 writes, qualities, progressive, optimized
 Huffman, restart intervals, gray, EXIF orientation, Adobe RGB), JPEG and
 BMP encode, the PNG/PPM/BMP variants cv2.imread reads, the features the
-decoder does not implement, the committed fixtures, and JPEG trees through
+decoder once refused (read now where cv2 or PIL reads them), the committed
+fixtures, and JPEG trees through
 generate_tree, ImageFolder / PairedFolder, restore_tree and
 evaluate_directory.
 
@@ -343,26 +344,46 @@ def test_decode_resize_matches_reference(tmp_path, resize):
         jgtsrb.set_resize_backend(old[1])
 
 
-# ------------------------------------------------- what the port refuses
+# ------------------------------------------- the features the port refused
 
 def _sos_offsets(data: bytes):
     return [i for i in range(len(data) - 1)
             if data[i] == 0xFF and data[i + 1] == 0xDA]
 
 
+_writers_spec = importlib.util.spec_from_file_location(
+    "jpeg_writers", FIXTURES / "jpeg_writers.py")
+jpeg_writers = importlib.util.module_from_spec(_writers_spec)
+_writers_spec.loader.exec_module(jpeg_writers)
+
+# the features the decoder refused before it read damaged data, block
+# smoothing, CMYK/YCCK, lossless and arithmetic coding: each keeps its case
+FORMER_FEATURES = (
+    "arithmetic coding",
+    "a sample precision other than 8 bits (12-bit JPEG)",
+    "lossless JPEG",
+    "4-component JPEG (CMYK/YCCK)",
+    "hierarchical JPEG",
+    "a component count other than 1, 3 or 4",
+    "progressive data that leaves coefficients incomplete (block smoothing)",
+)
+
+
 def _unsupported(kind, rng) -> bytes:
-    """A JPEG that uses ``kind``, made from cv2's or PIL's by hand."""
+    """A JPEG that uses ``kind``, made from cv2's or PIL's by hand (the
+    lossless and two-component files by tests/data/jpeg/jpeg_writers.py)."""
     ok, enc = cv2.imencode(".jpg", smooth(rng, 20, 28))
     base = enc.tobytes()
     sof = base.index(b"\xff\xc0")
-    if kind in ("arithmetic coding", "lossless JPEG", "hierarchical JPEG"):
-        code = {"arithmetic coding": 0xC9, "lossless JPEG": 0xC3,
-                "hierarchical JPEG": 0xC5}[kind]
+    if kind in ("arithmetic coding", "hierarchical JPEG"):
+        code = {"arithmetic coding": 0xC9, "hierarchical JPEG": 0xC5}[kind]
         return base[:sof + 1] + bytes([code]) + base[sof + 2:]
+    if kind == "lossless JPEG":  # gray: cv2 gives None, PIL reads it
+        return jpeg_writers.lossless([smooth(rng, 20, 28)[:, :, 1]], psv=6)
     if kind.startswith("a sample precision"):
         return base[:sof + 4] + bytes([12]) + base[sof + 5:]
     if kind.startswith("a component count"):
-        return base[:sof + 9] + bytes([2]) + base[sof + 10:]
+        return jpeg_writers.two_components(20, 28)
     if kind.startswith("4-component"):
         buf = io.BytesIO()
         Image.fromarray(smooth(rng, 20, 28)).convert("CMYK").save(buf,
@@ -376,32 +397,59 @@ def _unsupported(kind, rng) -> bytes:
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("feature", native.FEATURES)
+def _reference_read(path):
+    """The reference's reader: cv2.imread as RGB, else PIL's
+    convert("RGB"); None where both refuse."""
+    img = cv2.imread(str(path))
+    if img is not None:
+        return img[:, :, ::-1]
+    try:
+        return np.asarray(Image.open(path).convert("RGB"))
+    except Exception:
+        return None
+
+
+@pytest.mark.parametrize("feature", FORMER_FEATURES)
 def test_unsupported_jpeg_features_raise_naming_them(tmp_path, feature):
-    """Arithmetic coding, 12-bit, lossless, hierarchical, CMYK, 2
-    components and incomplete progressive data raise a RuntimeError that
-    names the
-    feature in decode and load_batch, and (where the header shows it) in
-    probe, also with skip_unreadable; nothing returns zeros."""
+    """Each feature the decoder once refused: arithmetic coding, lossless
+    JPEG (gray, which cv2 leaves to PIL), CMYK and incomplete progressive
+    data (block smoothing) now decode equal to what the reference reads
+    (cv2.imread, or PIL where cv2 gives None), in decode and load_batch,
+    and probe gives their size (reader="cv2" gives the lossless file
+    (0, 0), as cv2 refuses it); 12-bit, hierarchical and two components,
+    which neither cv2 nor PIL reads, still raise a RuntimeError that names
+    the feature in decode and load_batch, and in probe, and reader="cv2"
+    gives them (0, 0); nothing returns zeros."""
     p = tmp_path / "x.jpg"
     p.write_bytes(_unsupported(feature, np.random.default_rng(31)))
-    with pytest.raises(RuntimeError, match="it uses " + feature[:12]):
-        native.decode(str(p))
-    with pytest.raises(RuntimeError, match="decoded 0/1.*" + feature[:12]):
-        native.load_batch([str(p)], SIZE)
-    if feature.startswith("progressive data"):  # its header is complete
+    want = _reference_read(p)
+    cv2_reads = cv2.imread(str(p)) is not None
+    if want is not None:
+        np.testing.assert_array_equal(native.decode(str(p)), want)
+        assert native.load_batch([str(p)], SIZE).shape == (1, SIZE, SIZE, 3)
         assert native.probe([str(p)]).tolist() == [[20, 28]]
+        assert native.probe([str(p)], reader="cv2").tolist() == (
+            [[20, 28]] if cv2_reads else [[0, 0]])
+        assert feature in ("arithmetic coding", "lossless JPEG",
+                           "4-component JPEG (CMYK/YCCK)") or (
+            feature.startswith("progressive data"))
         return
-    for skip in (False, True):
-        with pytest.raises(RuntimeError, match="probed 0/1.*"
-                           + feature[:12]):
-            native.probe([str(p)], skip_unreadable=skip)
+    name = feature[:12]
+    with pytest.raises(RuntimeError, match="it uses " + name):
+        native.decode(str(p))
+    with pytest.raises(RuntimeError, match="decoded 0/1.*" + name):
+        native.load_batch([str(p)], SIZE)
+    with pytest.raises(RuntimeError, match="probed 0/1.*" + name):
+        native.probe([str(p)])
+    assert native.probe([str(p)], reader="cv2").tolist() == [[0, 0]]
 
 
 def test_truncated_or_corrupt_jpeg_raises(tmp_path):
-    """A JPEG cut short in its scan (cv2 would fill it with grey) raises;
-    so does one whose scan data is not Huffman code, and one whose DHT
-    holds more codes of a length than fit (cv2 refuses that too)."""
+    """A JPEG cut short in its scan (cv2 fills the rest with grey) and one
+    whose scan data is not Huffman code (cv2 reads it as bad codes) decode
+    equal to cv2.imread; one whose DHT holds more codes of a length than
+    fit raises, as cv2 refuses it: probe passes its header, and
+    reader="cv2" gives it (0, 0)."""
     ok, enc = cv2.imencode(".jpg", smooth(np.random.default_rng(32), 40,
                                            56))
     data = enc.tobytes()
@@ -417,29 +465,50 @@ def test_truncated_or_corrupt_jpeg_raises(tmp_path):
     table = tmp_path / "table.jpg"
     table.write_bytes(data[:dht + 5] + bytes(counts) + data[dht + 21:])
     assert cv2.imread(str(table)) is None
-    for p in (cut, junk, table):
-        with pytest.raises(RuntimeError, match="failed to decode"):
-            native.decode(str(p))
-        assert native.probe([str(p)]).tolist() == [[40, 56]]
+    for p in (cut, junk):
+        _assert_reads_as_cv2(p)
+        assert native.probe([str(p)], reader="cv2").tolist() == [[40, 56]]
+    with pytest.raises(RuntimeError, match="failed to decode"):
+        native.decode(str(table))
+    assert native.probe([str(table)]).tolist() == [[40, 56]]
+    assert native.probe([str(table)], reader="cv2").tolist() == [[0, 0]]
 
 
 # ------------------------------------------------------------- fixtures
 
 def test_fixtures_equal_cv2_and_the_port(tmp_path):
-    """The committed fixtures still equal what cv2 gives here (rewritten
-    into a temporary directory by make_fixtures), and the port decodes and
-    encodes them equally: chip_smoke.py holds the port to these files on
-    the card's machine, which has no cv2."""
+    """The committed fixtures still equal what cv2 and PIL give here
+    (rewritten into a temporary directory by make_fixtures), and the port
+    decodes and encodes them equally: the cv2-written cases, the damaged
+    and rarer files of FEATURE_CASES (equal to cv2.imread, or to PIL for
+    the lossless gray file), the SKIP_CASES files (which the port refuses,
+    as cv2 and PIL do), and the reference's generate_tree count over them.
+    chip_smoke.py holds the port to these files on the card's machine,
+    which has neither cv2 nor PIL."""
     want = np.load(FIXTURES / "expected.npz")
     fresh = make_fixtures.make(tmp_path)
     assert sorted(fresh) == sorted(want.files)
     for key in want.files:
         np.testing.assert_array_equal(fresh[key], want[key], err_msg=key)
-    for name, _, _ in make_fixtures.CASES:
+    names = [name for name, _, _ in make_fixtures.CASES] + [
+        name for name, _ in make_fixtures.FEATURE_CASES]
+    for name in names:
         p = FIXTURES / f"{name}.jpg"
         assert p.read_bytes() == (tmp_path / f"{name}.jpg").read_bytes()
         np.testing.assert_array_equal(native.decode(str(p)),
                                       want[f"decoded__{name}"])
+    for name in make_fixtures.SKIP_CASES:
+        p = FIXTURES / "skip" / f"{name}.jpg"
+        assert p.read_bytes() == (tmp_path / "skip" / f"{name}.jpg"
+                                  ).read_bytes()
+        with pytest.raises(RuntimeError, match="decode"):
+            native.decode(str(p))
+    tree = [FIXTURES / f"{name}.jpg" for name, _ in
+            make_fixtures.FEATURE_CASES] + [
+        FIXTURES / "skip" / f"{name}.jpg" for name in make_fixtures.SKIP_CASES]
+    read = native.probe([str(p) for p in tree], reader="cv2")[:, 0] > 0
+    assert read.sum() == want["generate_tree_written"] == sum(
+        cv2.imread(str(p)) is not None for p in tree)
     for k in range(len(make_fixtures.ENCODE_SIZES)):
         out = tmp_path / f"enc{k}.jpg"
         native.write_images([str(out)], [want[f"encode_input__{k}"]])

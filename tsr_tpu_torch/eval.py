@@ -164,7 +164,9 @@ def evaluate_directory(judge: nn.Module, data_dir: str, batch_size: int = 64,
     batch through pinned memory on a copy stream, so the upload of batch
     k+1 overlaps the device work of batch k. ``resize="device"`` uploads
     native-resolution pixels and resizes them on the card
-    (``ops.image.resize_from_padded``, within 1 LSB of cv2).
+    (``ops.image.resize_from_padded``, within 1 LSB of cv2); it needs the
+    cv2 resize backend, and under ``"pil"`` the host path runs, as in the
+    reference.
 
     ``mesh`` (a ``parallel.mesh.Mesh``) runs the harness data-parallel on
     the mesh's device: the models are replicated from its first rank and
@@ -178,7 +180,8 @@ def evaluate_directory(judge: nn.Module, data_dir: str, batch_size: int = 64,
         raise ValueError(f"resize must be 'host' or 'device', got {resize!r}")
     device = mesh.device if mesh is not None else resolve_device(device)
     ds = gtsrb.ImageFolder(data_dir, size=size)
-    if resize == "device" and mesh is None:
+    if (resize == "device" and mesh is None
+            and gtsrb.RESIZE_BACKEND == "cv2"):
         return _evaluate_directory_native(ds, judge, batch_size, size,
                                           restorer, quantize, device)
     if mesh is not None:

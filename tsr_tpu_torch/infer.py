@@ -290,7 +290,9 @@ def restore_tree(
     download + write pool, ``max_inflight`` bounds the batches in flight
     (device memory about ``max_inflight * batch * size^2 * 3`` bytes of
     outputs). ``resize`` is ``"device"`` (native upload, device resize) or
-    ``"host"`` (resize on the host, upload at ``size``).
+    ``"host"`` (resize on the host, upload at ``size``); under the ``"pil"``
+    resize backend the host path runs whatever ``resize`` says, as in the
+    reference (only the host resize is PIL's).
 
     Returns ``images``, ``images_per_sec`` and, where clean twins exist,
     ``psnr`` and ``ssim``; also ``seconds`` (the walk's wall time),
@@ -302,6 +304,8 @@ def restore_tree(
     device = resolve_device(device)
     if resize not in ("device", "host"):
         raise ValueError(f"resize must be 'device' or 'host', got {resize!r}")
+    if gtsrb.RESIZE_BACKEND != "cv2":
+        resize = "host"
     distorted = Path(distorted_dir)
     restored = Path(restored_dir)
     files = sorted(p for p in distorted.glob("*/*")

@@ -5,10 +5,13 @@ the port imports cv2 or PIL, and the library links nothing but zlib). It
 reads every file the reference reads through ``cv2.imread`` with cv2's
 pixels: PNG of any bit depth, color type and interlacing, binary PPM/PGM
 (P6, P5) of any maxval, uncompressed BMP (24/32-bit, 1/4/8-bit palette)
-and JPEG (baseline and progressive; EXIF orientation applied, in PNG's
-eXIf too). It writes ``.ppm``, ``.bmp`` and ``.jpg``/``.jpeg`` files
-byte-equal to ``cv2.imwrite``'s at its defaults, and ``.png`` files
-pixel-equal to cv2's. Around the
+and JPEG (baseline, progressive and arithmetic coded, CMYK and YCCK, data
+cut short or corrupt as libjpeg recovers it, lossless; EXIF orientation
+applied, in PNG's eXIf too); a gray lossless JPEG, which cv2.imread does
+not read, with the pixels of PIL, which the reference falls back to. It
+writes ``.ppm``, ``.bmp`` and ``.jpg``/``.jpeg`` files byte-equal to
+``cv2.imwrite``'s at its defaults, and ``.png`` files pixel-equal to
+cv2's. Around the
 codecs: a cv2.INTER_LINEAR-convention bilinear resize (within 1 LSB of
 cv2) or PIL's BILINEAR resize (bit-equal to PIL), header probes and whole
 batches decoded into padded canvases on native threads (one call a batch,
@@ -49,14 +52,13 @@ _FORMATS = {".png": 0, ".ppm": 1, ".jpg": 2, ".jpeg": 2, ".bmp": 3}
 # a failed decode's or probe's negative status -> the JPEG feature it
 # names, in codec.h's order (0 is a file that does not parse)
 FEATURES = (
-    "arithmetic coding",
     "a sample precision other than 8 bits (12-bit JPEG)",
-    "lossless JPEG",
-    "4-component JPEG (CMYK/YCCK)",
     "hierarchical JPEG",
     "a component count other than 1, 3 or 4",
-    "progressive data that leaves coefficients incomplete (block smoothing)",
+    "lossless arithmetic coding",
+    "a lossless JPEG in YCbCr or YCCK (a color transform)",
 )
+_READERS = {"port": 0, "cv2": 1}
 _RESIZE_MODES = {"cv2": 0, "pil": 1}
 
 _LOCK = threading.Lock()
@@ -107,7 +109,7 @@ def _lib() -> ctypes.CDLL:
             lib.tsrio_probe.restype = ctypes.c_int
             lib.tsrio_probe.argtypes = [
                 ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                ctypes.c_int]
+                ctypes.c_int, ctypes.c_int]
             lib.tsrio_load_canvas.restype = ctypes.c_int
             lib.tsrio_load_canvas.argtypes = [
                 ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -187,23 +189,34 @@ def load_batch(paths: Sequence[str], size: int, threads: int = 8,
 
 
 def probe(paths: Sequence[str], threads: int = 8,
-          skip_unreadable: bool = False) -> np.ndarray:
+          reader: str = "port") -> np.ndarray:
     """``(h, w)`` of each image as :func:`decode` gives it (EXIF
-    orientation applied), from its file header alone, as int32 ``[N, 2]``.
-    Raises if a header does not parse, or, with ``skip_unreadable``, gives
-    such a file the row ``(0, 0)``; a JPEG that uses a feature the decoder
-    does not implement raises either way."""
+    orientation applied), as int32 ``[N, 2]``.
+
+    ``reader="port"`` reads each file's header alone and raises if one
+    does not parse or names a feature of :data:`FEATURES`.
+    ``reader="cv2"`` never raises: it gives ``(0, 0)`` where ``cv2.imread``
+    gives None, decoding a JPEG whole short of its pixels (a header that
+    does not parse, damage libjpeg refuses, a feature of
+    :data:`FEATURES`, and gray lossless JPEG, which the port reads as PIL
+    does) and reading the other formats' headers."""
+    if reader not in _READERS:
+        raise ValueError(f"unknown reader {reader!r}; one of "
+                         f"{tuple(_READERS)}")
     dims = np.zeros((len(paths), 2), np.int32)
     if not len(paths):
         return dims
     ok = _lib().tsrio_probe(
         _joined(paths), len(paths),
-        dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), threads)
+        dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), threads,
+        _READERS[reader])
     if ok != len(paths):
-        for p, (h, status) in zip(paths, dims.tolist()):
-            if h == 0 and (status < 0 or not skip_unreadable):
-                raise RuntimeError(f"tsrio probed {ok}/{len(paths)} image "
-                                   f"headers: {_failure(p, status)}")
+        if reader == "port":
+            for p, (h, status) in zip(paths, dims.tolist()):
+                if h == 0:
+                    raise RuntimeError(f"tsrio probed {ok}/{len(paths)} "
+                                       f"image headers: "
+                                       f"{_failure(p, status)}")
         dims[dims[:, 0] == 0] = 0
     return dims
 

@@ -12,7 +12,9 @@
 //   - PPM/PGM: binary P6 and P5, maxval below 256 read as stored, above
 //     as the high byte of each 16-bit sample (cv2 does not rescale);
 //   - BMP: 24/32-bit and 1/4/8-bit palette, uncompressed;
-//   - JPEG: jpeg.cpp (baseline and progressive, EXIF orientation).
+//   - JPEG: jpeg.cpp (baseline, progressive and arithmetic coded, CMYK and
+//     YCCK, damaged data as libjpeg recovers it, EXIF orientation; lossless
+//     JPEG as PIL reads it, where the reference falls back to PIL).
 // Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
 // (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
 // by construction), PPM (P6), BMP (cv2's 24-bit layout) and JPEG
@@ -25,10 +27,12 @@
 //     Failed decodes leave their slot zeroed and are counted out.
 //   tsrio_decode(path, out, cap, dims) -> 1 on success, else a Status
 //     (codec.h: 0 unreadable, negative an unimplemented feature)
-//   tsrio_probe(paths, n, dims, threads) -> files probed
-//     (h, w) of each image as it decodes (EXIF orientation applied) from
-//     its header alone, into dims[n, 2]; a file that fails gets (0, its
-//     Status).
+//   tsrio_probe(paths, n, dims, threads, reader) -> files probed
+//     (h, w) of each image as it decodes (EXIF orientation applied) into
+//     dims[n, 2]; a file that fails gets (0, its Status). Reader 0 reads
+//     the header alone; reader 1 decodes a JPEG whole as cv2.imread
+//     would (short of its pixels), so it fails exactly where cv2.imread
+//     gives None (damage libjpeg refuses, gray lossless JPEG).
 //   tsrio_load_canvas(paths, n, ch, cw, resize_to, reflect, out, dims,
 //                     threads) -> images loaded
 //     Each image at native size into the top-left of its [ch, cw, 3] slot
@@ -757,9 +761,10 @@ int decode_file(const char* path, Image& img) {
 
 // (h, w) as the file decodes, from its header alone: a JPEG's markers up
 // to its first scan (however long its APP segments), PNG's IHDR and any
-// eXIf before IDAT, the PPM header, or the BMP info header. A failure
-// writes (0, its Status).
-int probe_one(const char* path, int* dims) {
+// eXIf before IDAT, the PPM header, or the BMP info header; with
+// cv2_reader, a JPEG from a whole decode as cv2.imread's, short of the
+// pixels (check_jpeg). A failure writes (0, its Status).
+int probe_one(const char* path, int* dims, bool cv2_reader) {
   dims[0] = 0;
   dims[1] = tsrio::kUnreadable;
   FILE* f = std::fopen(path, "rb");
@@ -768,8 +773,15 @@ int probe_one(const char* path, int* dims) {
   buf.resize(std::fread(buf.data(), 1, buf.size(), f));
   int st = tsrio::kUnreadable, h = 0, w = 0;
   if (tsrio::is_jpeg(buf.data(), buf.size())) {
-    int hw[2];
-    st = tsrio::probe_jpeg(f, hw);
+    int hw[2] = {0, 0};
+    if (cv2_reader) {
+      std::vector<uint8_t> whole;
+      st = read_file(path, whole)
+               ? tsrio::check_jpeg(whole.data(), whole.size(), hw)
+               : tsrio::kUnreadable;
+    } else {
+      st = tsrio::probe_jpeg(f, hw);
+    }
     h = hw[0];
     w = hw[1];
   } else {
@@ -917,13 +929,15 @@ int tsrio_load_batch(const char* joined_paths, int n, int size,
   });
 }
 
-// (h, w) of n images from their headers into dims[n, 2]. Returns the
-// number of files probed.
-int tsrio_probe(const char* joined_paths, int n, int* dims, int threads) {
+// (h, w) of n images from their headers (reader 1: a JPEG as cv2.imread
+// decodes it) into dims[n, 2]. Returns the number of files probed.
+int tsrio_probe(const char* joined_paths, int n, int* dims, int threads,
+                int reader) {
   const auto paths = split_paths(joined_paths, n);
   return parallel_count(static_cast<int>(paths.size()), threads, [&](int i) {
     try {
-      return probe_one(paths[i].c_str(), dims + 2 * i) == tsrio::kOk;
+      return probe_one(paths[i].c_str(), dims + 2 * i, reader == 1) ==
+             tsrio::kOk;
     } catch (const std::exception&) {
       return false;
     }

@@ -18,8 +18,8 @@ leaves that room (``_bucket_with_room``) and the cropped result equals
 native-size processing. Decoding and writing go through the port's IO
 library (``tsr_tpu_torch.native``), which reads and writes every suffix of
 ``gtsrb.IMG_EXTENSIONS`` as cv2 does (JPEG at cv2.imwrite's defaults). A
-file whose header the library cannot parse is skipped, as the reference
-skips a file cv2.imread cannot read.
+file that cv2.imread would not read is skipped, as the reference skips it
+(``native.probe(..., reader="cv2")``).
 """
 
 from __future__ import annotations
@@ -242,9 +242,11 @@ def generate_tree(
 ) -> int:
     """Distort every image under ``src_dir`` into ``dst_dir`` (class tree
     preserved) on ``device``. Returns the number of images written: a file
-    whose header does not parse is skipped and counted in the log, as the
-    reference skips a file cv2.imread cannot read; a JPEG that uses a
-    feature the IO library does not implement raises.
+    cv2.imread would not read (a header that does not parse; a JPEG with
+    damage libjpeg refuses, 12-bit, hierarchical or gray lossless, of 2
+    components) is skipped and counted in the log, as the reference skips
+    it: ``native.probe(..., reader="cv2")`` runs a JPEG's markers and
+    entropy data first, then each batch is decoded into its canvas.
 
     One generator seeded with ``seed`` draws a seed for each batch's own
     generator on ``device`` (the reference splits its key per batch), so a
@@ -259,7 +261,7 @@ def generate_tree(
     dst = Path(dst_dir)
     files = tree_files(src_dir)
     log(f"Found {len(files)} images, generating '{kind}' data...")
-    dims = native.probe([str(p) for p in files], skip_unreadable=True)
+    dims = native.probe([str(p) for p in files], reader="cv2")
     readable = dims[:, 0] > 0
     if not readable.all():
         log(f"Skipped {int((~readable).sum())} unreadable files")
