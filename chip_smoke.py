@@ -184,11 +184,24 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    PIL resize backend, which runs the host path as the reference does)
    and ``evaluate_directory`` over the readable files with phase 3's
    models. A ``jpeg_features:`` JSON line.
-13. One JSON line of the kernels (with ``launches_trees``,
+13. The PNG, PNM, PAM and BMP files cv2 reads and the port once refused,
+   and the damaged ones cv2 gives None for (``image_formats_phase``), from
+   the committed fixtures (``tests/data/images``): each decoded equal to
+   ``expected.npz`` (cv2's pixels, or PIL's for the damaged files PIL
+   reads) and probed as cv2 reads it, the rest raising (GIF, TIFF and WebP
+   data named); host decode rates by format; the whole-file probe of
+   generate_tree's skip rule timed on phase 5's .ppm and phase 11's .png
+   trees; ``generate_tree`` on the fixtures plus the skip files for blur,
+   compound and blur_rand (launch counts zeroed just before and read just
+   after each call; the written count the reference's) with B3/B2 held at
+   its buckets; ``restore_tree`` and ``evaluate_directory`` over the
+   readable files in both resize modes. An ``image_formats:`` JSON line.
+14. One JSON line of the kernels (with ``launches_trees``,
    ``tree_shapes``, ``launches_cascade``, ``cascade_shapes``,
    ``launches_judge``, ``launches_int8``, ``launches_cli``,
-   ``launches_mesh``, ``launches_jpeg`` and ``launches_jpeg_features``),
-   the card's line, and the final ``{"ok": true, ...}`` line.
+   ``launches_mesh``, ``launches_jpeg``, ``launches_jpeg_features``,
+   ``launches_image_formats`` and ``image_format_times``), the card's
+   line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero without CUDA or outside a checkout.
@@ -293,6 +306,17 @@ JPEG_SKIP_FIXTURES = {
     "lossless_arith": "lossless arithmetic"}
 JPEG_FEATURE_KINDS = ("blur", "compound", "blur_rand")
 JPEG_FEATURE_DECODES = 1024  # decodes a timed pass of each group, 1 thread
+# phase 13: the PNG, PNM, PAM and BMP files of tests/data/images
+# (make_fixtures.py): the variants cv2 reads at the top, the files it gives
+# None for (and GIF/TIFF/WebP data the port does not decode) under skip/
+IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
+IMAGE_FOREIGN = {"gif.png": "GIF", "tiff.jpg": "TIFF", "webp.png": "WebP"}
+# decode groups by file-name prefix
+IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
+                "p5_", "p6_"), "pam": ("pam_",), "bmp_rle": ("bmp_rle",),
+                "bmp_bitfields_core": ("bmp16", "bmp32", "bmp_core"),
+                "png": ("png_",)}
+IMAGE_KINDS = ("blur", "compound", "blur_rand")
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
 
@@ -925,22 +949,22 @@ def tree_buckets(sides, halo):
     return seen
 
 
-def check_blur_at_buckets(dev, clean_dir, rows):
+def check_blur_at_buckets(dev, files, rows, key="tree_times"):
     """B3 (blur's shared K=12, compound's shared K=10) and B2 (blur_rand's
-    per-sample K=15) on the first padded batch of each of their buckets,
-    against filter2d_plain on the same batch: max error < 1e-3, and the
-    uint8 after cvRound/saturate compared value by value. Three shapes a
-    kind are timed beside their bound and their plain version: the batch
-    with the most pixels, the smallest canvas and the largest. Adds
-    ``tree_times`` to the B2 and B3 rows."""
+    per-sample K=15) on the first padded batch of each of their buckets
+    over ``files`` (generate_tree's batches), against filter2d_plain on the
+    same batch: max error < 1e-3, and the uint8 after cvRound/saturate
+    compared value by value. Three shapes a kind are timed beside their
+    bound and their plain version: the batch with the most pixels, the
+    smallest canvas and the largest. Adds ``key`` (those times) to the B2
+    and B3 rows."""
     import torch
     from tsr_tpu_torch import offline
     from tsr_tpu_torch.kernels import blur as kblur
     from tsr_tpu_torch.ops import blur as tblur
     from tsr_tpu_torch.ops import distortions
-    files = offline.tree_files(str(clean_dir))
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    rows[1]["tree_times"], rows[2]["tree_times"] = {}, {}
+    rows[1][key], rows[2][key] = {}, {}
     for kind, row, fn in (("blur", rows[2], kblur.filter2d_dense),
                           ("compound", rows[2], kblur.filter2d_dense),
                           ("blur_rand", rows[1], kblur.filter2d_sparse)):
@@ -987,7 +1011,7 @@ def check_blur_at_buckets(dev, clean_dir, rows):
             ms = cuda_ms(lambda: fn(x, kerns))
             plain = cuda_ms(lambda: kblur.filter2d_plain(x, kerns))
             t_b, by = bound(2 * x.numel() * 4 + b * k * k * 4, flops)
-            row["tree_times"][f"{kind} {b}x{h}x{w}x{c} K={k}"] = dict(
+            row[key][f"{kind} {b}x{h}x{w}x{c} K={k}"] = dict(
                 max_abs_err=err, u8_differ=n_u8, ms=ms, plain_ms=plain,
                 bound_ms=t_b, bound_by=by)
             print(f"  {kind} {list(x.shape)} K={k}: {ms:.4f} ms, bound "
@@ -1198,7 +1222,7 @@ def trees_phase(dev, resunet, judge, rows, fused_ips, work):
     check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
           "B2 and B3 launched on the trees path")
 
-    check_blur_at_buckets(dev, clean, rows)
+    check_blur_at_buckets(dev, offline.tree_files(str(clean)), rows)
     blur_cpu = blur_tree_card_vs_cpu(dev, clean, work)
 
     bad = work / "compound"
@@ -3459,6 +3483,25 @@ def group_decode_rates(groups):
     return rates
 
 
+def probe_seconds(paths):
+    """Best of JPEG_DECODE_REPS ``native.probe`` calls on ``paths`` (8
+    threads) by header and as cv2 reads (the whole file: generate_tree's
+    skip rule); each must read every file."""
+    from tsr_tpu_torch import native
+    out = {}
+    for reader in ("port", "cv2"):
+        best = math.inf
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            dims = native.probe(paths, reader=reader)
+            best = min(best, time.perf_counter() - t0)
+        check(int((dims[:, 0] > 0).sum()) == len(paths),
+              f"probe(reader={reader!r}) reads {int((dims[:, 0] > 0).sum())}"
+              f" of {len(paths)} files")
+        out[reader] = best
+    return out
+
+
 def jpeg_features_phase(dev, resunet, judge, work):
     """Phase 12: the JPEG data cv2 reads with a warning, or rarely, from
     the committed fixtures (the card's machine has neither cv2 nor PIL),
@@ -3515,16 +3558,7 @@ def jpeg_features_phase(dev, resunet, judge, work):
     jpg_tree = [str(p) for p in offline.tree_files(str(work / "jpeg" /
                                                        "clean"))]
     check(len(jpg_tree) == TREE_IMAGES, "phase 11's .jpg tree")
-    probe_s = {}
-    for reader in ("port", "cv2"):
-        best = math.inf
-        for _ in range(JPEG_DECODE_REPS):
-            t0 = time.perf_counter()
-            dims = native.probe(jpg_tree, reader=reader)
-            best = min(best, time.perf_counter() - t0)
-        check(int((dims[:, 0] > 0).sum()) == len(jpg_tree),
-              f"probe(reader={reader!r}) of the .jpg tree")
-        probe_s[reader] = best
+    probe_s = probe_seconds(jpg_tree)
     result["probe_jpg_tree_seconds"] = probe_s
     print(f"probe of phase 11's {len(jpg_tree)}-file .jpg tree (8 threads, "
           f"best of {JPEG_DECODE_REPS}): headers {probe_s['port']:.4f} s, "
@@ -3640,6 +3674,185 @@ def jpeg_features_phase(dev, resunet, judge, work):
     result["launches"] = launches
     result["phase_seconds"] = time.perf_counter() - t_phase
     print("jpeg_features: " + json.dumps(result))
+    return launches
+
+
+def image_formats_phase(dev, resunet, judge, rows, work):
+    """Phase 13: the PNG, PNM, PAM and BMP files cv2 reads and the port
+    once refused (C5, C6), and the damaged ones cv2 gives None for (C4),
+    from the committed fixtures (the card's machine has neither cv2 nor
+    PIL), in ``work``: each top-level fixture decoded equal to
+    ``expected.npz`` and probed as cv2 reads it; each skip/ file probed
+    (0, 0) as cv2 refuses it, decoded as PIL where PIL reads it, raising
+    otherwise (naming GIF/TIFF/WebP data); host decode rates by group; the
+    whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
+    generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
+    just before and read just after each call, the written count the
+    reference's), B3/B2 held at its buckets; restore_tree and
+    evaluate_directory over the readable files in both resize modes.
+    Returns the kernels' launches."""
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import eval as teval
+    from tsr_tpu_torch import infer, native, offline
+    from tsr_tpu_torch.kernels import _build
+    quiet = lambda line: None  # noqa: E731
+    t_phase = time.perf_counter()
+    result = {"card": card_line(), "host_cpus": os.cpu_count()}
+    want = np.load(IMAGE_FIXTURES / "expected.npz")
+    cases = sorted(p for p in IMAGE_FIXTURES.iterdir()
+                   if p.suffix in (".png", ".ppm", ".bmp"))
+    skips = sorted((IMAGE_FIXTURES / "skip").iterdir())
+    check(len(cases) == int(want["generate_tree_written"]) >= 20,
+          f"{len(cases)} image fixtures")
+    for p in cases:
+        img = native.decode(str(p))
+        check(np.array_equal(img, want[f"decoded__{p.name}"]),
+              f"fixture {p.name} decodes unlike cv2.imread")
+        check(native.probe([str(p)], reader="cv2").tolist()
+              == [list(img.shape[:2])], f"fixture {p.name}: cv2 probe")
+    pil_read = []
+    for p in skips:
+        check(native.probe([str(p)], reader="cv2").tolist() == [[0, 0]],
+              f"skip/{p.name}: probe(reader='cv2') reads what cv2 refuses")
+        key = f"decoded_skip__{p.name}"
+        if key in want.files:
+            check(np.array_equal(native.decode(str(p)), want[key]),
+                  f"skip/{p.name} decodes unlike PIL")
+            pil_read.append(p)
+            continue
+        try:
+            native.decode(str(p))
+        except RuntimeError as e:
+            fmt = IMAGE_FOREIGN.get(p.name)
+            check((f"holds {fmt} data" if fmt else "failed to decode")
+                  in str(e), f"skip/{p.name}: {e}")
+        else:
+            check(False, f"skip/{p.name} decoded; cv2 and PIL refuse it")
+    result["fixtures"] = {"cv2_reads": len(cases), "skip": len(skips),
+                          "skip_pil_reads": len(pil_read),
+                          "foreign": len(IMAGE_FOREIGN)}
+    print("image formats: " + json.dumps(result["fixtures"]) + ": fixtures "
+          "equal to expected.npz, skip/ files refused by the cv2 probe, "
+          "decoded as PIL or raising (GIF/TIFF/WebP named)")
+    groups = {g: [str(p) for p in cases if p.name.startswith(prefixes)]
+              for g, prefixes in IMAGE_GROUPS.items()}
+    rates = group_decode_rates(groups)
+    result["host_decode"] = rates
+    print(f"host decode by format (one thread of {result['host_cpus']} CPUs,"
+          f" best of {JPEG_DECODE_REPS} passes of {JPEG_FEATURE_DECODES} "
+          f"decodes, beside {result['card']}): " + ", ".join(
+              f"{g} {v['images_per_sec']:.0f} images/s "
+              f"({v['megapixels_per_sec']:.2f} MP/s)"
+              for g, v in rates.items()))
+
+    # generate_tree's skip rule reads whole files now: its cost on the
+    # trees of phases 5 (.ppm) and 11 (.png twin)
+    probes = {}
+    for name, root in (("phase 5 .ppm", work / "clean"),
+                       ("phase 11 .png", work / "jpeg_png" / "clean")):
+        paths = [str(p) for p in offline.tree_files(str(root))]
+        check(len(paths) == TREE_IMAGES, f"{name} tree")
+        probes[name] = probe_seconds(paths)
+    result["probe_tree_seconds"] = probes
+    print(f"probe of {TREE_IMAGES}-file trees (8 threads, best of "
+          f"{JPEG_DECODE_REPS}, beside {result['card']}): " + ", ".join(
+              f"{k}: headers {v['port']:.4f} s, as cv2 reads "
+              f"{v['cv2']:.4f} s" for k, v in probes.items()))
+
+    root = work / "image_formats"
+    readable, mixed = root / "readable", root / "mixed"
+    for k, p in enumerate(cases + [q for q in skips
+                                   if q.name not in IMAGE_FOREIGN]):
+        for tree in ((readable, mixed) if p in cases else (mixed,)):
+            out = tree / f"c{k % 3}" / p.name
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_bytes(p.read_bytes())
+    for k, p in enumerate(pil_read):  # the reference's PIL fallback reads it
+        out = readable / f"c{k % 3}" / p.name
+        out.write_bytes(p.read_bytes())
+    written = int(want["generate_tree_written"])
+    mixed_files = offline.tree_files(str(mixed))
+    dims = native.probe([str(p) for p in mixed_files], reader="cv2")
+    kept = [p for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]
+    check(len(kept) == written, f"probe(reader='cv2') reads {len(kept)} "
+          f"files; the reference reads {written}")
+    sides = [tuple(d) for d in dims.tolist() if d[0] > 0]
+    launches = {"blur_sparse": 0, "blur_dense": 0, "fog_noise": 0}
+    gen = {}
+    for kind in IMAGE_KINDS:
+        buckets = tree_buckets(sides, offline.HALO.get(kind, 0))
+        n_batches = sum(-(-n // TREE_BATCH) for n in buckets.values())
+        lines = []
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = offline.generate_tree(str(mixed), str(root / kind), kind,
+                                  seed=SEED, batch_size=TREE_BATCH,
+                                  log=lines.append, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        want_counts = {
+            "blur_dense": n_batches if kind in ("blur", "compound") else 0,
+            "blur_sparse": n_batches if kind == "blur_rand" else 0,
+            "fog_noise": 0}
+        skipped = len(mixed_files) - written
+        check(n == written, f"generate_tree {kind} wrote {n}; the "
+              f"reference writes {written}")
+        check(f"Skipped {skipped} unreadable files" in lines,
+              f"generate_tree {kind} log: {lines}")
+        check(counts == want_counts, f"generate_tree {kind} launched "
+              f"{counts}, expected {want_counts}")
+        n_files = len(list((root / kind).glob("*/*")))
+        check(n_files == written, f"generate_tree {kind}: {n_files} files")
+        for k, v in counts.items():
+            launches[k] += v
+        gen[kind] = dict(images_per_sec=n / dt, seconds=dt, written=n,
+                         skipped=skipped, batches=n_batches,
+                         buckets=len(buckets), launches=counts)
+        print(f"generate_tree {kind} on the image fixtures: {n} written, "
+              f"{skipped} skipped as the reference skips them, "
+              f"{n / dt:.1f} images/s, {n_batches} batches, B2 "
+              f"{counts['blur_sparse']} / B3 {counts['blur_dense']} "
+              "launches")
+    result["generate_tree"] = gen
+    check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
+          "B2 and B3 launched on the image formats path")
+    check_blur_at_buckets(dev, kept, rows, key="image_format_times")
+
+    n_readable = len(cases) + len(pil_read)
+    walks, evals = {}, {}
+    _build.reset_launch_counts()
+    for resize in ("device", "host"):
+        res = infer.restore_tree(resunet, str(readable),
+                                 str(root / f"restored_{resize}"),
+                                 clean_dir=str(readable), batch_size=BATCH,
+                                 size=SIZE, resize=resize, log=quiet,
+                                 device=dev)
+        check(res["images"] == n_readable and math.isfinite(res["psnr"])
+              and 0 <= res["ssim"] <= 1, f"restore_tree {resize}: {res}")
+        ev = teval.evaluate_directory(judge, str(readable), batch_size=BATCH,
+                                      size=SIZE, restorer=resunet,
+                                      resize=resize, device=dev)
+        check(ev["n"] == n_readable and 0 <= ev["top1"] <= 1
+              and math.isfinite(ev["confidence"]),
+              f"evaluate_directory {resize}: {ev}")
+        walks[resize] = {k: res[k] for k in ("images_per_sec", "psnr",
+                                             "ssim", "batches")}
+        evals[resize] = {k: ev[k] for k in ("n", "top1", "confidence",
+                                            "images_per_sec")}
+        print(f"restore_tree / evaluate_directory, resize={resize}: "
+              f"{res['images']} images, PSNR {res['psnr']:.4f} dB, SSIM "
+              f"{res['ssim']:.5f}; top-1 {ev['top1']:.4f}, confidence "
+              f"{ev['confidence']:.6f}")
+    check(sum(_build.launch_counts().values()) == 0,
+          "the walks launch no blur or B1 kernel")
+    result["restore_tree"] = walks
+    result["evaluate_directory"] = evals
+    result["launches"] = launches
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    print("image_formats: " + json.dumps(result))
     return launches
 
 
@@ -3822,6 +4035,9 @@ def run(dev) -> None:
         jpeg_counts = jpeg_phase(dev, resunet, judge, Path(tmp))
         # -- 12. the JPEG data cv2 reads with a warning, or rarely ----------
         feature_counts = jpeg_features_phase(dev, resunet, judge, Path(tmp))
+        # -- 13. PNG / PNM / PAM / BMP as cv2 reads them, damaged ones too --
+        format_counts = image_formats_phase(dev, resunet, judge, rows,
+                                            Path(tmp))
 
     for row in rows:
         key = {"B1": "fog_noise", "B2": "blur_sparse",
@@ -3837,6 +4053,7 @@ def run(dev) -> None:
         row["launches_mesh"] = mesh_counts.get(key, 0)
         row["launches_jpeg"] = jpeg_counts[key]
         row["launches_jpeg_features"] = feature_counts[key]
+        row["launches_image_formats"] = format_counts[key]
         row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)

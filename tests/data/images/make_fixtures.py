@@ -1,0 +1,467 @@
+"""Writes the PNG, PNM, PAM and BMP fixtures of
+``tests/test_torch_port_image_formats.py`` and of ``chip_smoke.py``'s image
+formats phase into this directory, with cv2, PIL and the byte writers below
+(neither library writes ASCII PNM, PAM, RLE or bitfield BMP as needed):
+
+- ``<case>``: CASES, files cv2.imread reads: the PNM family outside P5/P6
+  (ASCII P1-P3, bitmap P4, PAM P7 of every TUPLTYPE), the BMP variants
+  (16-bit, BI_BITFIELDS, the OS/2 core header, RLE8, RLE4) and PNGs that
+  libpng reads with a warning (a bad ancillary CRC, a split zlib stream,
+  bytes after IEND);
+- ``skip/<case>``: SKIP_CASES, files cv2.imread gives None for (cut,
+  corrupt, a refused variant), some of which PIL reads; and FOREIGN, GIF,
+  TIFF and WebP data under .png and .jpg names (formats cv2 reads by
+  signature and the port does not decode);
+- ``expected.npz``: ``decoded__<case>`` = what the reference's readers give
+  for each CASES file as RGB (``cv2.imread``; the pixels cv2 leaves
+  unwritten, see ``cv2_written``, set to 0), ``decoded_skip__<case>`` =
+  PIL's ``convert("RGB")`` of each SKIP_CASES file PIL reads, and
+  ``generate_tree_written`` = how many files of the CASES + SKIP_CASES
+  tree the reference's ``generate_tree`` writes (those cv2 reads; FOREIGN
+  files stay out of it, as the port does not decode them).
+
+Run from the root of the checkout: ``python tests/data/images/make_fixtures.py``.
+The tests check that the committed files still equal what cv2 and PIL give.
+"""
+
+import io
+import re
+import struct
+import zlib
+from pathlib import Path
+
+import cv2
+import numpy as np
+from PIL import Image
+
+HERE = Path(__file__).resolve().parent
+SEED = 12
+
+
+def smooth(rng, h, w):
+    """A smooth random RGB image (a coarse field upsampled, plus grain)."""
+    coarse = rng.integers(0, 256, (h // 6 + 2, w // 6 + 2, 3))
+    img = cv2.resize(coarse.astype(np.float32), (w, h),
+                     interpolation=cv2.INTER_CUBIC)
+    return np.clip(img + rng.normal(0, 10, img.shape), 0,
+                   255).astype(np.uint8)
+
+
+def gray(img):
+    return img.mean(axis=2).astype(np.uint8)
+
+
+# ------------------------------------------------------------- writers
+
+def pnm_ascii(kind, samples, maxval=None, comment=b"", per_line=12,
+              sep=b" ", tail=b"\n"):
+    """P1/P2/P3 text: ``samples`` [h, w] or [h, w, 3] integers."""
+    h, w = samples.shape[:2]
+    head = b"P%d\n" % kind + comment + b"%d %d\n" % (w, h)
+    if maxval is not None:
+        head += b"%d\n" % maxval
+    vals = [b"%d" % v for v in samples.reshape(-1).tolist()]
+    lines = [sep.join(vals[i:i + per_line])
+             for i in range(0, len(vals), per_line)]
+    return head + b"\n".join(lines) + tail
+
+
+def pam(samples, maxval, tupltype, comment=b""):
+    """P7: ``samples`` [h, w, depth]."""
+    h, w, depth = samples.shape
+    head = (b"P7\n" + comment + b"WIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\n"
+            % (w, h, depth, maxval))
+    if tupltype is not None:
+        head += b"TUPLTYPE " + tupltype + b"\n"
+    dtype = ">u2" if maxval > 255 else np.uint8
+    return head + b"ENDHDR\n" + samples.astype(dtype).tobytes()
+
+
+def bmp(info, pixels, extra=b""):
+    """A BMP of the info header ``info``, then ``extra`` (masks, palette),
+    then ``pixels``; the data offset points past ``extra``."""
+    off = 14 + len(info) + len(extra)
+    return (b"BM" + struct.pack("<IHHI", off + len(pixels), 0, 0, off)
+            + info + extra + pixels)
+
+
+def info40(w, h, bpp, comp, nbytes, used=0, size=40, masks=()):
+    """BITMAPINFOHEADER, or a V2-V5 header of ``size`` bytes with
+    ``masks`` (R, G, B[, A]) in it."""
+    head = struct.pack("<IiiHHIIiiII", size, w, h, 1, bpp, comp, nbytes,
+                       2835, 2835, used, 0)
+    if size > 40:
+        head += struct.pack(f"<{len(masks)}I", *masks)
+        if size >= 108:
+            head += b"BGRs"
+        head += bytes(size - len(head))
+    return head
+
+
+def rows_bgr(img, bpp):
+    """Bottom-up rows of RGB ``img`` as 24/32-bit BGR, padded to 4."""
+    h, w = img.shape[:2]
+    px = img[::-1, :, ::-1]
+    if bpp == 32:
+        px = np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], 2)
+    stride = (w * bpp // 8 + 3) & ~3
+    out = np.zeros((h, stride), np.uint8)
+    out[:, :w * bpp // 8] = px.reshape(h, -1)
+    return out.tobytes()
+
+
+def rows16(img, layout):
+    """Bottom-up 16-bit rows: 5-5-5 or 5-6-5 of RGB ``img``."""
+    h, w = img.shape[:2]
+    r, g, b = (img[::-1, :, c].astype(np.uint16) for c in range(3))
+    if layout == 565:
+        v = (r >> 3) << 11 | (g >> 2) << 5 | b >> 3
+    else:
+        v = (r >> 3) << 10 | (g >> 3) << 5 | b >> 3
+    stride = (2 * w + 3) & ~3
+    out = np.zeros((h, stride), np.uint8)
+    out[:, :2 * w] = v.astype("<u2").view(np.uint8).reshape(h, -1)
+    return out.tobytes()
+
+
+def palette_of(img, colors):
+    """(indices [h, w], palette [colors, 3] RGB): PIL's quantize."""
+    q = Image.fromarray(img).quantize(colors=colors)
+    pal = np.array(q.getpalette()[:3 * colors], np.uint8).reshape(-1, 3)
+    return np.asarray(q), pal
+
+
+def rle_row(row, rle4):
+    """One row's RLE8/RLE4 codes: runs of 3 or more, absolute runs of 3 or
+    more others, single pixels as runs of 1."""
+    out, x, w = bytearray(), 0, len(row)
+    while x < w:
+        run = 1
+        while x + run < w and run < 254 and row[x + run] == row[x]:
+            run += 1
+        if run >= 3 or w - x < 3:
+            out += bytes([run, row[x] * 17 if rle4 else row[x]])
+            x += run
+            continue
+        j = x
+        while j < w and j - x < 254 and not (
+                j + 2 < w and row[j] == row[j + 1] == row[j + 2]):
+            j += 1
+        if j - x < 3:
+            out += bytes([1, row[x] * 17 if rle4 else row[x]])
+            x += 1
+            continue
+        vals = row[x:j]
+        if rle4:
+            nib = list(vals) + [0] * (len(vals) % 2)
+            data = bytes(nib[i] << 4 | nib[i + 1] for i in range(0, len(nib), 2))
+        else:
+            data = bytes(vals)
+        out += bytes([0, j - x]) + data + b"\0" * (len(data) % 2)
+        x = j
+    return out
+
+
+def rle(idx, rle4, delta=None, short_rows=()):
+    """The RLE stream of bottom-up ``idx`` rows, each ending in EOL and the
+    last in EOB. ``delta`` = (row, dy): in that stream row a delta of (3,
+    dy) after 5 pixels, the stream resumed after the jump (cv2's RLE4 reads
+    no dy); each row of ``short_rows`` ends 4 pixels early (its EOL fills
+    with entry 0)."""
+    rows = idx[::-1]
+    out, y = bytearray(), 0
+    while y < len(rows):
+        row = rows[y]
+        if delta is not None and y == delta[0]:
+            dy = delta[1]
+            out += rle_row(row[:5], rle4) + bytes([0, 2, 3, dy])
+            out += rle_row(rows[y + dy][8:], rle4) + b"\0\0"
+            y += 1 + dy
+            continue
+        out += rle_row(row[:-4] if y in short_rows else row, rle4) + b"\0\0"
+        y += 1
+    return bytes(out[:-2]) + b"\0\1"
+
+
+def bmp_palette(pal, size=4):
+    """BGR(0) entries of an RGB palette."""
+    ent = np.zeros((len(pal), size), np.uint8)
+    ent[:, :3] = pal[:, ::-1]
+    return ent.tobytes()
+
+
+def chunk(tag, data):
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def png_chunks(data):
+    """[(tag, data)] of a PNG file."""
+    out, pos = [], 8
+    while pos + 12 <= len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        out.append((data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]))
+        pos += 12 + n
+    return out
+
+
+def png_encode(img):
+    ok, enc = cv2.imencode(".png", img[:, :, ::-1])
+    assert ok
+    return enc.tobytes()
+
+
+def png_with(img, edit):
+    """cv2's PNG of ``img`` with its chunks passed through ``edit``."""
+    chunks = png_chunks(png_encode(img))
+    return b"\x89PNG\r\n\x1a\n" + b"".join(edit(chunks))
+
+
+def flip_crc(blob):
+    return blob[:-1] + bytes([blob[-1] ^ 1])
+
+
+def idat_stream(img):
+    return zlib.decompress(b"".join(d for t, d in png_chunks(png_encode(img))
+                                    if t == b"IDAT"))
+
+
+# ---------------------------------------------------------------- cases
+
+def cases(rng):
+    """{name: bytes} of the files cv2.imread reads."""
+    out = {}
+    img = smooth(rng, 28, 20)
+    out["p1_ascii.ppm"] = pnm_ascii(1, (gray(img) < 128).astype(int),
+                                    comment=b"# a bitmap\n", per_line=35)
+    img = smooth(rng, 24, 33)
+    out["p1_packed.ppm"] = pnm_ascii(1, (gray(img) < 110).astype(int),
+                                     per_line=70, sep=b"")
+    img = smooth(rng, 30, 26)
+    out["p2_max15.ppm"] = pnm_ascii(2, gray(img) >> 4, 15)
+    img = smooth(rng, 22, 31)
+    out["p2_comments.ppm"] = pnm_ascii(
+        2, gray(img), 255, comment=b"# made by hand\n# two lines\n",
+        per_line=9, sep=b" \t ")
+    img = smooth(rng, 25, 28)
+    out["p3_max1000.ppm"] = pnm_ascii(3, img.astype(int) * 1000 // 255, 1000)
+    img = smooth(rng, 20, 29)
+    out["p3_max255.ppm"] = pnm_ascii(3, img, 255, per_line=17)
+    img = smooth(rng, 27, 37)
+    bits = (gray(img) < 128).astype(np.uint8)
+    out["p4_bitmap.ppm"] = (b"P4\n37 27\n"
+                            + np.packbits(bits, axis=1).tobytes())
+    img = smooth(rng, 21, 30)
+    out["p5_max15.ppm"] = b"P5\n30 21\n15\n" + (gray(img) >> 4).tobytes()
+    img = smooth(rng, 23, 24).astype(np.uint16) * 257
+    out["p6_max65535.ppm"] = (b"P6\n24 23\n65535\n"
+                              + img.astype(">u2").tobytes())
+
+    img = smooth(rng, 26, 34)
+    out["pam_rgb.ppm"] = pam(img, 255, b"RGB", comment=b"# netpbm\n")
+    img = smooth(rng, 29, 23)
+    out["pam_gray.ppm"] = pam(gray(img)[:, :, None], 255, b"GRAYSCALE")
+    img = smooth(rng, 20, 40)
+    out["pam_bw.ppm"] = pam((gray(img) < 128).astype(np.uint8)[:, :, None],
+                            1, b"BLACKANDWHITE")
+    img = smooth(rng, 24, 28)
+    ga = np.concatenate([gray(img)[:, :, None],
+                         np.full((24, 28, 1), 200, np.uint8)], 2)
+    out["pam_gray_alpha.ppm"] = pam(ga, 255, b"GRAYSCALE_ALPHA")
+    img = smooth(rng, 22, 36)
+    rgba = np.concatenate([img, np.full((22, 36, 1), 255, np.uint8)], 2)
+    out["pam_rgb_alpha.ppm"] = pam(rgba, 255, b"RGB_ALPHA")
+    img = smooth(rng, 21, 27).astype(np.uint16) * 257 + 3
+    out["pam_rgb16.ppm"] = pam(img, 65535, b"RGB")
+    img = smooth(rng, 28, 25)
+    out["pam_no_tupltype.ppm"] = pam(img, 255, None)
+
+    img = smooth(rng, 24, 31)
+    out["bmp16_555.bmp"] = bmp(info40(31, 24, 16, 0, 0), rows16(img, 555))
+    img = smooth(rng, 27, 22)
+    out["bmp16_565_bitfields.bmp"] = bmp(
+        info40(22, 27, 16, 3, 0), rows16(img, 565),
+        struct.pack("<III", 0xF800, 0x07E0, 0x001F))
+    img = smooth(rng, 30, 33)
+    out["bmp32_bitfields_v5.bmp"] = bmp(  # GIMP's RGBA layout
+        info40(33, 30, 32, 3, 0, size=124,
+               masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)), rows_bgr(img, 32))
+    img = smooth(rng, 25, 26)
+    idx, pal = palette_of(img, 200)
+    px = np.zeros((25, 28), np.uint8)
+    px[:, :26] = idx[::-1]
+    out["bmp_core_8bit.bmp"] = bmp(struct.pack("<IHHHH", 12, 26, 25, 1, 8),
+                                   px.tobytes(),
+                                   bmp_palette(np.pad(pal, ((0, 56), (0, 0))),
+                                               3))
+    img = smooth(rng, 21, 23)
+    out["bmp_core_24bit.bmp"] = bmp(struct.pack("<IHHHH", 12, 23, 21, 1, 24),
+                                    rows_bgr(img, 24))
+    img = smooth(rng, 32, 40)
+    idx, pal = palette_of(img, 24)
+    data = rle(idx, False, delta=(6, 1), short_rows=(3, 11))
+    out["bmp_rle8.bmp"] = bmp(info40(40, 32, 8, 1, len(data), 24), data,
+                              bmp_palette(pal))
+    img = smooth(rng, 26, 38)
+    idx, pal = palette_of(img, 16)
+    data = rle(idx, True, delta=(9, 0), short_rows=(2,))
+    out["bmp_rle4.bmp"] = bmp(info40(38, 26, 4, 2, len(data), 16), data,
+                              bmp_palette(pal))
+    img = smooth(rng, 24, 30)
+    idx, pal = palette_of(img, 40)
+    data = rle(idx[::-1], False)
+    out["bmp_rle8_topdown.bmp"] = bmp(info40(30, -24, 8, 1, len(data), 40),
+                                      data, bmp_palette(pal))
+
+    img = smooth(rng, 28, 32)
+    out["png_text_bad_crc.png"] = png_with(img, lambda c: [
+        chunk(*c[0]), flip_crc(chunk(b"tEXt", b"Comment\0cv2 ignores me"))]
+        + [chunk(*x) for x in c[1:]])
+    img = smooth(rng, 34, 27)
+    out["png_after_iend.png"] = png_encode(img) + b"trailing bytes"
+    img = smooth(rng, 26, 30)
+    comp = zlib.compress(idat_stream(img), 9)
+    out["png_split_idat.png"] = png_with(img, lambda c: [chunk(*c[0])] + [
+        chunk(b"IDAT", comp[:40]), chunk(b"IDAT", comp[40:-4]),
+        chunk(b"IDAT", comp[-4:]), chunk(b"IEND", b"")])
+    img = smooth(rng, 23, 29)
+    comp = zlib.compress(idat_stream(img) + bytes(50))
+    out["png_extra_zlib_data.png"] = png_with(img, lambda c: [
+        chunk(*c[0]), chunk(b"IDAT", comp), flip_crc(chunk(b"IEND", b""))])
+    return out
+
+
+def skip_cases(rng):
+    """{name: bytes} of files cv2.imread gives None for."""
+    out = {}
+    png = png_encode(smooth(rng, 30, 36))
+    out["png_cut.png"] = png[:len(png) * 6 // 10]
+    out["png_cut_in_iend.png"] = png[:-2]
+    out["png_no_iend.png"] = png[:-12]
+    img = smooth(rng, 27, 25)
+    out["png_idat_crc.png"] = png_with(img, lambda c: [
+        flip_crc(chunk(*x)) if x[0] == b"IDAT" else chunk(*x) for x in c])
+    out["png_ihdr_crc.png"] = png_with(img, lambda c: [
+        flip_crc(chunk(*x)) if x[0] == b"IHDR" else chunk(*x) for x in c])
+    raw = bytearray(idat_stream(img))
+    raw[(25 * 3 + 1) * 7] = 5
+    out["png_bad_filter.png"] = png_with(img, lambda c: [
+        chunk(b"IDAT", zlib.compress(bytes(raw))) if x[0] == b"IDAT"
+        else chunk(*x) for x in c])
+    comp = bytearray(zlib.compress(idat_stream(img)))
+    comp[-1] ^= 1
+    out["png_bad_adler.png"] = png_with(img, lambda c: [
+        chunk(b"IDAT", bytes(comp)) if x[0] == b"IDAT" else chunk(*x)
+        for x in c])
+    out["png_unknown_critical.png"] = png_with(img, lambda c: [
+        chunk(*c[0]), chunk(b"ABCD", b"not a chunk libpng knows")]
+        + [chunk(*x) for x in c[1:]])
+
+    img = smooth(rng, 24, 28)
+    p6 = b"P6\n28 24\n255\n" + img.tobytes()
+    out["p6_cut.ppm"] = p6[:len(p6) // 2]
+    p2 = pnm_ascii(2, gray(img), 255)
+    out["p2_cut.ppm"] = p2[:len(p2) * 6 // 10]
+    out["p2_no_final_newline.ppm"] = p2[:-1]
+    out["p2_glued_comment.ppm"] = p2.replace(b"\n", b"# note\n", 3).replace(
+        b"P2# note", b"P2", 1)
+    out["pam_cut.ppm"] = pam(img, 255, b"RGB")[:300]
+    out["pam_unknown_tupltype.ppm"] = pam(img, 255, b"RGB_PLUS")
+    out["p1_bad_digit.ppm"] = pnm_ascii(1, (gray(img) < 128).astype(int)
+                                        ).replace(b"0 ", b"x ", 1)
+
+    img = smooth(rng, 26, 30)
+    b24 = bmp(info40(30, 26, 24, 0, 0), rows_bgr(img, 24))
+    out["bmp_cut.bmp"] = b24[:len(b24) * 9 // 10]
+    idx, pal = palette_of(img, 24)
+    data = rle(idx, False)
+    out["bmp_rle8_cut.bmp"] = bmp(info40(30, 26, 8, 1, len(data), 24),
+                                  data[:len(data) // 2], bmp_palette(pal))
+    out["bmp16_565_v5.bmp"] = bmp(
+        info40(30, 26, 16, 3, 0, size=124,
+               masks=(0xF800, 0x07E0, 0x001F, 0)), rows16(img, 565))
+    idx, pal = palette_of(img, 16)
+    data = rle(idx, True)[:-2]  # no end code: RLE4 needs one after a row
+    out["bmp_rle4_no_end.bmp"] = bmp(info40(30, 26, 4, 2, len(data), 16),
+                                     bytes(data), bmp_palette(pal))
+    return out
+
+
+def foreign(rng):
+    """GIF, TIFF and WebP data under .png and .jpg names."""
+    out = {}
+    for name, fmt, h, w in (("gif.png", "GIF", 24, 30),
+                            ("tiff.jpg", "TIFF", 28, 22),
+                            ("webp.png", "WEBP", 26, 32)):
+        buf = io.BytesIO()
+        Image.fromarray(smooth(rng, h, w)).save(buf, fmt)
+        out[name] = buf.getvalue()
+    return out
+
+
+def cv2_written(data, shape):
+    """[h, w] bool: the pixels cv2.imread writes when it reads ``data``.
+    OpenCV's PAM decoder converts a row of 2 or 4 samples a pixel
+    (GRAYSCALE_ALPHA, RGB_ALPHA) pixel by pixel over the row's first
+    ``width`` samples only, and leaves the rest of its image
+    uninitialised; every other file is written whole."""
+    h, w = shape
+    mask = np.ones((h, w), bool)
+    if data.startswith(b"P7"):
+        head = data[:data.find(b"ENDHDR")].decode("latin-1")
+        depth = re.search(r"DEPTH[ \t\v\f]+(\d+)", head)
+        if depth and int(depth[1]) in (2, 4):
+            mask[:] = np.arange(w) * int(depth[1]) < w
+    return mask
+
+
+def reference_read(path):
+    """What the reference's readers give for ``path`` as RGB:
+    ``cv2.imread``, else PIL's ``convert("RGB")``; None where both
+    refuse."""
+    img = cv2.imread(str(path))
+    if img is not None:
+        return img[:, :, ::-1].copy()
+    try:
+        return np.asarray(Image.open(path).convert("RGB"))
+    except Exception:
+        return None
+
+
+def make(out: Path = HERE) -> dict:
+    """Writes the fixtures into ``out``; returns the npz's arrays."""
+    rng = np.random.default_rng(SEED)
+    arrays = {}
+    (out / "skip").mkdir(parents=True, exist_ok=True)
+    written = 0
+    for name, data in cases(rng).items():
+        p = out / name
+        p.write_bytes(data)
+        img = cv2.imread(str(p))
+        assert img is not None, name
+        img = img[:, :, ::-1].copy()
+        img[~cv2_written(data, img.shape[:2])] = 0
+        arrays[f"decoded__{name}"] = img
+        written += 1
+    for name, data in {**skip_cases(rng), **foreign(rng)}.items():
+        p = out / "skip" / name
+        p.write_bytes(data)
+        assert cv2.imread(str(p)) is None or name in FOREIGN, name
+        img = None if name in FOREIGN else reference_read(p)
+        if img is not None:
+            arrays[f"decoded_skip__{name}"] = img
+    arrays["generate_tree_written"] = np.array(written)
+    np.savez_compressed(out / "expected.npz", **arrays)
+    return arrays
+
+
+def _names():
+    rng = np.random.default_rng(SEED)
+    return tuple(cases(rng)), tuple(skip_cases(rng))
+
+
+CASES, SKIP_CASES = _names()
+FOREIGN = ("gif.png", "tiff.jpg", "webp.png")
+
+if __name__ == "__main__":
+    make()

@@ -2,14 +2,17 @@
 
 The port's own copy of ``tsr_tpu/native`` and its only codec (no module of
 the port imports cv2 or PIL, and the library links nothing but zlib). It
-reads every file the reference reads through ``cv2.imread`` with cv2's
-pixels: PNG of any bit depth, color type and interlacing, binary PPM/PGM
-(P6, P5) of any maxval, uncompressed BMP (24/32-bit, 1/4/8-bit palette)
-and JPEG (baseline, progressive and arithmetic coded, CMYK and YCCK, data
-cut short or corrupt as libjpeg recovers it, lossless; EXIF orientation
-applied, in PNG's eXIf too); a gray lossless JPEG, which cv2.imread does
-not read, with the pixels of PIL, which the reference falls back to. It
-writes ``.ppm``, ``.bmp`` and ``.jpg``/``.jpeg`` files byte-equal to
+reads every file the reference reads, as the reference does: with
+``cv2.imread``'s pixels, else, where cv2 gives None, with those of PIL's
+``convert("RGB")``, the reference's fallback. PNG of any bit depth, color
+type and interlacing; PNM (ASCII P1-P3, binary P4-P6, any maxval) and PAM
+(P7); BMP (palette, 16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core
+header); JPEG (baseline, progressive and arithmetic coded, CMYK and YCCK,
+data cut short or corrupt as libjpeg recovers it, lossless); EXIF
+orientation applied as cv2 applies it, in PNG's eXIf too. Damaged files
+read as cv2 or PIL read them (``formats.cpp`` copies both readers). Data
+of a format cv2 reads and the port does not decode (:data:`FORMATS`:
+GIF, TIFF, WebP, ...) raises naming the format. It writes ``.ppm``, ``.bmp`` and ``.jpg``/``.jpeg`` files byte-equal to
 ``cv2.imwrite``'s at its defaults, and ``.png`` files pixel-equal to
 cv2's. Around the
 codecs: a cv2.INTER_LINEAR-convention bilinear resize (within 1 LSB of
@@ -42,7 +45,7 @@ import numpy as np
 from tsr_tpu_torch.kernels import _build
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp")
+SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp")
 HEADERS = (_HERE / "codec.h",)
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
@@ -58,6 +61,10 @@ FEATURES = (
     "lossless arithmetic coding",
     "a lossless JPEG in YCbCr or YCCK (a color transform)",
 )
+# the formats cv2.imread reads and the port does not decode, told by their
+# signatures, in codec.h's order after FEATURES
+FORMATS = ("GIF", "TIFF", "WebP", "Sun raster", "PFM", "Radiance HDR",
+           "JPEG 2000", "AVIF")
 _READERS = {"port": 0, "cv2": 1}
 _RESIZE_MODES = {"cv2": 0, "pil": 1}
 
@@ -132,10 +139,14 @@ def _joined(paths: Sequence[str]) -> bytes:
 
 def _failure(path, status: int) -> RuntimeError:
     """The error of a decode or probe of ``path`` that gave ``status``."""
-    if status < 0:
+    if -len(FEATURES) <= status < 0:
         return RuntimeError(f"tsrio cannot decode {path}: it uses "
                             f"{FEATURES[-status - 1]}, which the port's "
                             "JPEG decoder does not implement")
+    if status < 0:
+        return RuntimeError(f"tsrio cannot decode {path}: it holds "
+                            f"{FORMATS[-status - 1 - len(FEATURES)]} data, "
+                            "which the port does not decode")
     return RuntimeError(f"tsrio failed to decode {path}")
 
 
@@ -193,13 +204,34 @@ def probe(paths: Sequence[str], threads: int = 8,
     """``(h, w)`` of each image as :func:`decode` gives it (EXIF
     orientation applied), as int32 ``[N, 2]``.
 
-    ``reader="port"`` reads each file's header alone and raises if one
-    does not parse or names a feature of :data:`FEATURES`.
-    ``reader="cv2"`` never raises: it gives ``(0, 0)`` where ``cv2.imread``
-    gives None, decoding a JPEG whole short of its pixels (a header that
-    does not parse, damage libjpeg refuses, a feature of
-    :data:`FEATURES`, and gray lossless JPEG, which the port reads as PIL
-    does) and reading the other formats' headers."""
+    ``reader="port"`` reads each file's header alone (cv2's header, else
+    PIL's) and raises if one does not parse, names a feature of
+    :data:`FEATURES` or a format of :data:`FORMATS`.
+    ``reader="cv2"`` never raises: it gives ``(0, 0)`` exactly where
+    ``cv2.imread`` gives None, reading each whole file as cv2 does, short of
+    storing its pixels:
+
+    - JPEG: its markers and entropy data (a header that does not parse,
+      damage libjpeg refuses, a feature of :data:`FEATURES`, and gray
+      lossless JPEG, which the port reads as PIL does);
+    - PNG: libpng's rules: a bad CRC on IHDR, PLTE (palette images) or
+      IDAT, an unknown critical chunk or a chunk name that is not letters,
+      a zlib stream that errs or ends before the last row (after it, its
+      errors and extra data are warnings), a filter type past 4, IDATs
+      that are not consecutive, and a missing or cut IEND (its CRC
+      unchecked; bytes after it ignored) refuse the file; a bad ancillary
+      CRC does not;
+    - PNM and PAM: every sample the header promises (an ASCII number but
+      a P1 digit must be followed by a byte; a binary body may not be
+      short), cv2's header rules (PAM: "P7" then a line break, known
+      fields, a TUPLTYPE that fits DEPTH);
+    - BMP: every row of the body, padding included, or an RLE stream that
+      reaches the last row (RLE4 needs an end-of-line code after it);
+      cv2's header rules (a 16-bit BI_BITFIELDS file takes its masks from
+      after the header, so one with them only inside a V2-V5 header is
+      refused);
+    - any format of :data:`FORMATS` is refused (cv2 reads it; the port
+      does not decode it)."""
     if reader not in _READERS:
         raise ValueError(f"unknown reader {reader!r}; one of "
                          f"{tuple(_READERS)}")

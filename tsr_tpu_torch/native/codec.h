@@ -1,6 +1,7 @@
-// codec.h — what tsrio.cpp and jpeg.cpp share: the decoded image, the
-// status codes a decode or a header probe returns, the JPEG codec's entry
-// points and the EXIF orientation both JPEG and PNG carry.
+// codec.h — what tsrio.cpp, jpeg.cpp and formats.cpp share: the decoded
+// image, the status codes a decode or a header probe returns, the JPEG
+// codec's entry points, the PNG/PNM/PAM/BMP readers and the EXIF
+// orientation both JPEG and PNG carry.
 #pragma once
 
 #include <cstddef>
@@ -16,11 +17,13 @@ struct Image {
 };
 
 // A decode's or a probe's outcome. kOk and kUnreadable (not an image the
-// library knows, or data libjpeg refuses) are the first two; each negative
-// code names a feature of a valid file that the library does not
-// implement (neither cv2.imread nor PIL reads any of them).
-// tsr_tpu_torch/native/__init__.py mirrors the negative codes in FEATURES,
-// in this order.
+// library knows, or data that neither cv2.imread nor PIL reads) are the
+// first two; each negative code down to kLosslessColor names a feature of
+// a valid JPEG that the library does not implement (neither cv2.imread nor
+// PIL reads any of them), and each below it a format, told by its
+// signature, that cv2.imread reads and the library does not decode.
+// tsr_tpu_torch/native/__init__.py mirrors the negative codes in FEATURES
+// and FORMATS, in this order.
 enum Status : int {
   kOk = 1,
   kUnreadable = 0,
@@ -29,6 +32,14 @@ enum Status : int {
   kComponents = -3,          // a JPEG of 2 or more than 4 components
   kLosslessArithmetic = -4,  // lossless JPEG, arithmetic coded (SOF11)
   kLosslessColor = -5,       // lossless JPEG in YCbCr or YCCK
+  kGif = -6,
+  kTiff = -7,
+  kWebp = -8,
+  kSunRaster = -9,
+  kPfm = -10,
+  kHdr = -11,                // Radiance RGBE
+  kJpeg2000 = -12,
+  kAvif = -13,
 };
 
 // True where `data` starts as a JPEG file does (SOI, then a marker).
@@ -55,6 +66,21 @@ int probe_jpeg(FILE* f, int* dims);
 // cv2.imwrite(path, bgr)'s bytes for an RGB image: baseline JFIF at
 // quality 95, 4:2:0, standard Huffman tables (libjpeg-turbo's defaults).
 void encode_jpeg(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out);
+
+// PNG, PNM (P1-P6), PAM (P7) and BMP as cv2.imread reads them
+// (formats.cpp): kOk with the (h, w) it gives in dims (EXIF orientation
+// applied) and, with img, its pixels as RGB; kUnreadable where cv2.imread
+// gives None. `head` reads the header alone.
+int read_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+
+// The same formats as PIL's Image.open(path).convert("RGB") reads them
+// (no EXIF orientation): kOk or kUnreadable where PIL raises. `head` reads
+// the header alone (not of a PNG).
+int read_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+
+// The Status of a format cv2.imread reads and the library does not decode
+// (kGif ... kAvif), from the file's signature; kUnreadable for any other.
+int foreign_format(const uint8_t* data, size_t n);
 
 // Orientation (1-8, 1 where there is none or it does not parse) of a TIFF
 // stream: the IFD0 tag 0x0112 of an EXIF block.

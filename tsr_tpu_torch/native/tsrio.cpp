@@ -1,20 +1,21 @@
-// tsrio — the port's image IO: PNG/PPM/BMP/JPEG decode, bilinear resize,
-// threaded batch assembly, and threaded PNG/PPM/JPEG/BMP encode + write.
+// tsrio — the port's image IO: decode, bilinear resize, threaded batch
+// assembly, and threaded PNG/PPM/JPEG/BMP encode + write.
 //
 // The port's own copy of tsr_tpu/native/tsrio.cpp, grown to read every
-// file the reference's paths read through cv2.imread and to write every
-// file they write through cv2.imwrite, with the same pixels and bytes. It
-// is the port's only codec: no module of the port imports cv2 or PIL, and
-// it links nothing but zlib. Decoded, with cv2.imread's pixels:
-//   - PNG: every bit depth (16 bits keep the high byte, 1/2/4-bit gray is
-//     scaled to 8 bits), gray, RGB, palette, gray+alpha and RGBA (alpha
-//     dropped), Adam7 interlacing, and an eXIf orientation before IDAT;
-//   - PPM/PGM: binary P6 and P5, maxval below 256 read as stored, above
-//     as the high byte of each 16-bit sample (cv2 does not rescale);
-//   - BMP: 24/32-bit and 1/4/8-bit palette, uncompressed;
+// file the reference's paths read, with the same pixels: cv2.imread's,
+// else PIL's convert("RGB") where cv2 gives None and PIL reads the file
+// (the reference's fallback); and to write every file they write through
+// cv2.imwrite, with the same bytes. It is the port's only codec: no module
+// of the port imports cv2 or PIL, and it links nothing but zlib. Decoded:
+//   - PNG, PNM (P1-P6, ASCII and binary), PAM (P7) and BMP (palette,
+//     16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core header):
+//     formats.cpp, with cv2's reader and PIL's each copied, damaged files
+//     included;
 //   - JPEG: jpeg.cpp (baseline, progressive and arithmetic coded, CMYK and
 //     YCCK, damaged data as libjpeg recovers it, EXIF orientation; lossless
 //     JPEG as PIL reads it, where the reference falls back to PIL).
+// A file of a format cv2 reads and the port does not decode (GIF, TIFF,
+// WebP, ...) fails with a Status naming it (codec.h).
 // Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
 // (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
 // by construction), PPM (P6), BMP (cv2's 24-bit layout) and JPEG
@@ -30,9 +31,9 @@
 //   tsrio_probe(paths, n, dims, threads, reader) -> files probed
 //     (h, w) of each image as it decodes (EXIF orientation applied) into
 //     dims[n, 2]; a file that fails gets (0, its Status). Reader 0 reads
-//     the header alone; reader 1 decodes a JPEG whole as cv2.imread
-//     would (short of its pixels), so it fails exactly where cv2.imread
-//     gives None (damage libjpeg refuses, gray lossless JPEG).
+//     the header alone (cv2's header, else PIL's); reader 1 reads the
+//     whole file as cv2.imread would (short of its pixels), so it fails
+//     exactly where cv2.imread gives None.
 //   tsrio_load_canvas(paths, n, ch, cw, resize_to, reflect, out, dims,
 //                     threads) -> images loaded
 //     Each image at native size into the top-left of its [ch, cw, 3] slot
@@ -52,7 +53,6 @@
 #include <zlib.h>
 
 #include <atomic>
-#include <cctype>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -81,330 +81,6 @@ bool read_file(const char* path, std::vector<uint8_t>& buf, long limit = 0) {
   size_t got = std::fread(buf.data(), 1, buf.size(), f);
   std::fclose(f);
   return got == buf.size();
-}
-
-// --- PPM / PGM (binary P6 and P5) ---
-// Parses "P6|P5 <w> <h> <maxval>" (comments allowed) and leaves `pos` at
-// the first sample byte; `channels` is 3 for P6, 1 for P5.
-bool ppm_header(const std::vector<uint8_t>& buf, int& w, int& h,
-                int& channels, int& maxval, size_t& pos) {
-  if (buf.size() < 10 || buf[0] != 'P' || (buf[1] != '6' && buf[1] != '5'))
-    return false;
-  channels = buf[1] == '6' ? 3 : 1;
-  pos = 2;
-  auto next_int = [&](int& out) -> bool {
-    // skip whitespace + comments
-    while (pos < buf.size()) {
-      if (std::isspace(buf[pos])) { pos++; continue; }
-      if (buf[pos] == '#') {
-        while (pos < buf.size() && buf[pos] != '\n') pos++;
-        continue;
-      }
-      break;
-    }
-    if (pos >= buf.size() || !std::isdigit(buf[pos])) return false;
-    long v = 0;
-    while (pos < buf.size() && std::isdigit(buf[pos])) {
-      v = v * 10 + (buf[pos] - '0');
-      if (v > (1L << 30)) return false;
-      pos++;
-    }
-    out = static_cast<int>(v);
-    return true;
-  };
-  if (!next_int(w) || !next_int(h) || !next_int(maxval)) return false;
-  if (maxval < 1 || maxval > 65535 || w <= 0 || h <= 0) return false;
-  pos++;  // single whitespace after maxval
-  return true;
-}
-
-// Samples as stored where maxval < 256, the high byte of each big-endian
-// 16-bit sample above: cv2.imread does not rescale to maxval.
-bool decode_ppm(const std::vector<uint8_t>& buf, Image& img) {
-  int w, h, ch, maxval;
-  size_t pos;
-  if (!ppm_header(buf, w, h, ch, maxval, pos)) return false;
-  const size_t bytes = maxval < 256 ? 1 : 2;
-  const size_t n = static_cast<size_t>(w) * h;
-  if (pos > buf.size() || (buf.size() - pos) / bytes / ch < n) return false;
-  img.w = w;
-  img.h = h;
-  img.rgb.resize(n * 3);
-  const uint8_t* p = buf.data() + pos;
-  for (size_t i = 0; i < n; i++)
-    for (int c = 0; c < 3; c++)
-      img.rgb[3 * i + c] = p[(i * ch + (ch == 3 ? c : 0)) * bytes];
-  return true;
-}
-
-// --- BMP (uncompressed: 24/32-bit, 1/4/8-bit palette; bottom-up or
-// top-down) ---
-struct BmpHeader {
-  int32_t data_off, w, h;  // h > 0: bottom-up
-  int bpp;
-  size_t palette_off, colors;
-};
-
-bool bmp_header(const std::vector<uint8_t>& buf, BmpHeader& hd) {
-  if (buf.size() < 54 || buf[0] != 'B' || buf[1] != 'M') return false;
-  auto rd32 = [&](size_t o) {
-    return static_cast<int32_t>(buf[o] | (buf[o + 1] << 8) |
-                                (buf[o + 2] << 16) | (buf[o + 3] << 24));
-  };
-  auto rd16 = [&](size_t o) { return buf[o] | (buf[o + 1] << 8); };
-  hd.data_off = rd32(10);
-  const int32_t info = rd32(14);
-  hd.w = rd32(18);
-  hd.h = rd32(22);
-  hd.bpp = rd16(28);
-  const int32_t comp = rd32(30);
-  // h == 0 would send an empty image into the resizers; INT32_MIN can't
-  // be negated. Reject both along with bad offsets.
-  if (comp != 0 || hd.w <= 0 || hd.h == 0 || hd.h == INT32_MIN ||
-      hd.data_off < 54 || info < 40 ||
-      static_cast<int64_t>(hd.w) * (hd.h < 0 ? -static_cast<int64_t>(hd.h)
-                                              : hd.h) > (64LL << 20))
-    return false;
-  if (hd.bpp == 24 || hd.bpp == 32) {
-    hd.colors = 0;
-    return true;
-  }
-  if (hd.bpp != 1 && hd.bpp != 4 && hd.bpp != 8) return false;
-  const int32_t used = rd32(46);
-  hd.colors = used > 0 && used <= (1 << hd.bpp) ? used : (1u << hd.bpp);
-  hd.palette_off = 14 + static_cast<size_t>(info);
-  return hd.palette_off + 4 * hd.colors <= buf.size();
-}
-
-bool decode_bmp(const std::vector<uint8_t>& buf, Image& img) {
-  BmpHeader hd;
-  if (!bmp_header(buf, hd)) return false;
-  const bool bottom_up = hd.h > 0;
-  const int w = hd.w, h = bottom_up ? hd.h : -hd.h;
-  const size_t stride = ((static_cast<size_t>(w) * hd.bpp + 31) / 32) * 4;
-  if (buf.size() < static_cast<size_t>(hd.data_off) + stride * h)
-    return false;
-  // palette entries are B, G, R, 0; an index past them reads black
-  uint8_t palette[256][3] = {};
-  for (size_t i = 0; i < hd.colors; i++)
-    for (int c = 0; c < 3; c++)
-      palette[i][c] = buf[hd.palette_off + 4 * i + 2 - c];
-  img.w = w;
-  img.h = h;
-  img.rgb.resize(static_cast<size_t>(w) * h * 3);
-  for (int y = 0; y < h; y++) {
-    int sy = bottom_up ? (h - 1 - y) : y;
-    const uint8_t* row = buf.data() + hd.data_off + sy * stride;
-    uint8_t* out = img.rgb.data() + static_cast<size_t>(y) * w * 3;
-    for (int x = 0; x < w; x++) {
-      if (hd.bpp >= 24) {
-        const uint8_t* px = row + x * (hd.bpp / 8);
-        out[x * 3 + 0] = px[2];  // BGR -> RGB
-        out[x * 3 + 1] = px[1];
-        out[x * 3 + 2] = px[0];
-      } else {
-        const int bit = x * hd.bpp;
-        const int idx = (row[bit / 8] >> (8 - hd.bpp - bit % 8)) &
-                        ((1 << hd.bpp) - 1);
-        std::memcpy(out + x * 3, palette[idx], 3);
-      }
-    }
-  }
-  return true;
-}
-
-// --- PNG (every bit depth and color type, Adam7 or not) ---
-// zlib-inflate the IDAT stream, reverse each pass's per-scanline filters
-// (spec 4.5.2: None/Sub/Up/Average/Paeth), expand to 8-bit RGB as
-// cv2.imread's libpng setup does: strip 16 bits to the high byte, scale
-// 1/2/4-bit gray to 8 bits, look palette indices up (black past the
-// palette), drop alpha. An eXIf chunk before IDAT orients the result.
-
-uint32_t be32(const uint8_t* p) {
-  return (static_cast<uint32_t>(p[0]) << 24) | (static_cast<uint32_t>(p[1]) << 16) |
-         (static_cast<uint32_t>(p[2]) << 8) | p[3];
-}
-
-int png_channels(int ctype, int depth) {
-  switch (ctype) {
-    case 0: return depth == 1 || depth == 2 || depth == 4 || depth == 8 ||
-                   depth == 16 ? 1 : 0;
-    case 3: return depth == 1 || depth == 2 || depth == 4 || depth == 8
-                   ? 1 : 0;
-    case 2: return depth == 8 || depth == 16 ? 3 : 0;
-    case 4: return depth == 8 || depth == 16 ? 2 : 0;
-    case 6: return depth == 8 || depth == 16 ? 4 : 0;
-    default: return 0;
-  }
-}
-
-struct PngInfo {
-  int w = 0, h = 0, depth = 0, ctype = 0, interlace = 0, orientation = 1;
-};
-
-// IHDR's fields and the orientation of an eXIf chunk before the first
-// IDAT, from the chunks of `buf` (a whole file or its start); false where
-// IHDR is missing or holds a combination libpng refuses.
-bool png_info(const uint8_t* buf, size_t n, PngInfo& info) {
-  static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
-  if (n < 33 || std::memcmp(buf, sig, 8) != 0 ||
-      std::memcmp(buf + 12, "IHDR", 4) != 0 || be32(buf + 8) != 13)
-    return false;
-  const uint8_t* d = buf + 16;
-  info.w = static_cast<int>(be32(d));
-  info.h = static_cast<int>(be32(d + 4));
-  info.depth = d[8];
-  info.ctype = d[9];
-  info.interlace = d[12];
-  if (info.w <= 0 || info.h <= 0 || d[10] != 0 || d[11] != 0 ||
-      info.interlace > 1 || !png_channels(info.ctype, info.depth))
-    return false;
-  for (size_t pos = 33; pos + 12 <= n;) {
-    const uint32_t len = be32(buf + pos);
-    if (len > n - pos - 12) break;
-    const uint8_t* tag = buf + pos + 4;
-    if (!std::memcmp(tag, "IDAT", 4) || !std::memcmp(tag, "IEND", 4)) break;
-    if (!std::memcmp(tag, "eXIf", 4))
-      info.orientation = tsrio::tiff_orientation(buf + pos + 8, len);
-    pos += 12 + len;
-  }
-  return true;
-}
-
-bool unfilter_row(uint8_t f, const uint8_t* src, uint8_t* cur,
-                  const uint8_t* up, size_t stride, size_t uch) {
-  switch (f) {  // one filter per scanline: specialize the hot loops
-    case 0:
-      std::memcpy(cur, src, stride);
-      break;
-    case 1:  // Sub
-      for (size_t x = 0; x < uch && x < stride; x++) cur[x] = src[x];
-      for (size_t x = uch; x < stride; x++)
-        cur[x] = static_cast<uint8_t>(src[x] + cur[x - uch]);
-      break;
-    case 2:  // Up
-      for (size_t x = 0; x < stride; x++)
-        cur[x] = static_cast<uint8_t>(src[x] + up[x]);
-      break;
-    case 3:  // Average
-      for (size_t x = 0; x < uch && x < stride; x++)
-        cur[x] = static_cast<uint8_t>(src[x] + (up[x] >> 1));
-      for (size_t x = uch; x < stride; x++)
-        cur[x] = static_cast<uint8_t>(src[x] + ((cur[x - uch] + up[x]) >> 1));
-      break;
-    case 4:  // Paeth
-      for (size_t x = 0; x < uch && x < stride; x++)
-        cur[x] = static_cast<uint8_t>(src[x] + up[x]);  // a=c=0 -> b
-      for (size_t x = uch; x < stride; x++) {
-        const int a = cur[x - uch], b = up[x], c = up[x - uch];
-        const int p = a + b - c;
-        const int pa = std::abs(p - a), pb = std::abs(p - b),
-                  pc = std::abs(p - c);
-        cur[x] = static_cast<uint8_t>(
-            src[x] + ((pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c)));
-      }
-      break;
-    default:
-      return false;
-  }
-  return true;
-}
-
-bool decode_png(const std::vector<uint8_t>& buf, Image& img) {
-  PngInfo info;
-  if (!png_info(buf.data(), buf.size(), info)) return false;
-  const int w = info.w, h = info.h, depth = info.depth, ctype = info.ctype;
-  if (static_cast<int64_t>(w) * h > (64LL << 20)) return false;
-  std::vector<uint8_t> idat, plte;
-  for (size_t pos = 8; pos + 12 <= buf.size();) {
-    const uint32_t len = be32(buf.data() + pos);
-    if (len > buf.size() - pos - 12) return false;
-    const uint8_t* tag = buf.data() + pos + 4;
-    const uint8_t* data = buf.data() + pos + 8;
-    if (!std::memcmp(tag, "PLTE", 4)) plte.assign(data, data + len);
-    else if (!std::memcmp(tag, "IDAT", 4)) idat.insert(idat.end(), data, data + len);
-    else if (!std::memcmp(tag, "IEND", 4)) break;
-    pos += 12 + len;
-  }
-  if (idat.empty() || (ctype == 3 && plte.size() < 3)) return false;
-  const int ch = png_channels(ctype, depth);
-  const size_t bits = static_cast<size_t>(ch) * depth;  // per pixel
-  const size_t uch = bits < 8 ? 1 : bits / 8;          // filter unit
-
-  // Adam7 passes (x0, y0, dx, dy), or one pass over the whole image
-  static const int adam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8},
-                                  {2, 0, 4, 4}, {0, 2, 2, 4}, {1, 0, 2, 2},
-                                  {0, 1, 1, 2}};
-  static const int whole[1][4] = {{0, 0, 1, 1}};
-  const int (*passes)[4] = info.interlace ? adam7 : whole;
-  const int npass = info.interlace ? 7 : 1;
-  size_t raw_size = 0;
-  for (int p = 0; p < npass; p++) {
-    const int pw = (w - passes[p][0] + passes[p][2] - 1) / passes[p][2];
-    const int ph = (h - passes[p][1] + passes[p][3] - 1) / passes[p][3];
-    if (pw > 0 && ph > 0) raw_size += ph * (1 + (pw * bits + 7) / 8);
-  }
-  std::vector<uint8_t> raw(raw_size);
-  uLongf rawlen = static_cast<uLongf>(raw.size());
-  if (uncompress(raw.data(), &rawlen, idat.data(),
-                 static_cast<uLong>(idat.size())) != Z_OK ||
-      rawlen != raw.size())
-    return false;
-
-  img.w = w;
-  img.h = h;
-  img.rgb.assign(static_cast<size_t>(w) * h * 3, 0);
-  const size_t ncolors = plte.size() / 3;
-  const int gray_scale = depth < 8 ? 255 / ((1 << depth) - 1) : 1;
-  const size_t step = depth == 16 ? 2 : 1;  // bytes a sample (>= 8 bits)
-  const uint8_t* src = raw.data();
-  for (int p = 0; p < npass; p++) {
-    const int x0 = passes[p][0], y0 = passes[p][1];
-    const int dx = passes[p][2], dy = passes[p][3];
-    const int pw = (w - x0 + dx - 1) / dx, ph = (h - y0 + dy - 1) / dy;
-    if (pw <= 0 || ph <= 0) continue;
-    const size_t stride = (pw * bits + 7) / 8;
-    std::vector<uint8_t> rows(2 * stride, 0);
-    uint8_t* prev = rows.data();
-    uint8_t* cur = rows.data() + stride;
-    for (int r = 0; r < ph; r++, src += stride + 1) {
-      if (!unfilter_row(src[0], src + 1, cur, prev, stride, uch))
-        return false;
-      uint8_t* out = img.rgb.data() +
-                     (static_cast<size_t>(y0 + r * dy) * w + x0) * 3;
-      for (int i = 0; i < pw; i++, out += 3 * dx) {
-        if (depth < 8) {
-          const size_t bit = static_cast<size_t>(i) * depth;
-          const int v = (cur[bit / 8] >> (8 - depth - bit % 8)) &
-                        ((1 << depth) - 1);
-          if (ctype == 3) {
-            if (static_cast<size_t>(v) < ncolors)
-              std::memcpy(out, &plte[3 * v], 3);
-          } else {
-            out[0] = out[1] = out[2] = static_cast<uint8_t>(v * gray_scale);
-          }
-          continue;
-        }
-        const uint8_t* px = cur + static_cast<size_t>(i) * ch * step;
-        switch (ctype) {
-          case 3:
-            if (px[0] < ncolors) std::memcpy(out, &plte[3 * px[0]], 3);
-            break;
-          case 0:
-          case 4:
-            out[0] = out[1] = out[2] = px[0];
-            break;
-          default:  // 2, 6
-            out[0] = px[0];
-            out[1] = px[step];
-            out[2] = px[2 * step];
-        }
-      }
-      std::swap(prev, cur);
-    }
-  }
-  tsrio::apply_orientation(img, info.orientation);
-  return true;
 }
 
 // cv2.INTER_LINEAR-compatible bilinear resize (half-pixel centers).
@@ -713,9 +389,14 @@ bool write_one(const char* path, const uint8_t* rgb, int w, int h, int format) {
   return put == out.size();
 }
 
+uint32_t be32(const uint8_t* p) {
+  return (static_cast<uint32_t>(p[0]) << 24) | (static_cast<uint32_t>(p[1]) << 16) |
+         (static_cast<uint32_t>(p[2]) << 8) | p[3];
+}
+
 // The signature and the chunks before the first IDAT of an open PNG, the
-// data of each read only for IHDR and eXIf (the rest skipped): what
-// png_info needs, however far an eXIf lies into the file.
+// data of each read only for IHDR and eXIf (the rest skipped): what its
+// header probe needs, however far an eXIf lies into the file.
 std::vector<uint8_t> png_head(FILE* f) {
   std::vector<uint8_t> head(8);
   if (std::fseek(f, 0, SEEK_SET) != 0 ||
@@ -742,38 +423,40 @@ std::vector<uint8_t> png_head(FILE* f) {
   return head;
 }
 
-// 1 (kOk) on success, else a Status: kUnreadable, or the unimplemented
-// JPEG feature the file uses.
+// 1 (kOk) on success, else a Status: kUnreadable, the unimplemented JPEG
+// feature the file uses, or the format it holds that the port does not
+// decode. The reference's reader: cv2.imread, else PIL.
 int decode_file(const char* path, Image& img) {
   try {  // an allocation that fails must not unwind into ctypes
     std::vector<uint8_t> buf;
     if (!read_file(path, buf)) return tsrio::kUnreadable;
-    if (tsrio::is_jpeg(buf.data(), buf.size()))
-      return tsrio::decode_jpeg(buf.data(), buf.size(), img);
-    return decode_png(buf, img) || decode_ppm(buf, img) ||
-                   decode_bmp(buf, img)
-               ? tsrio::kOk
-               : tsrio::kUnreadable;
+    const uint8_t* d = buf.data();
+    const size_t n = buf.size();
+    if (tsrio::is_jpeg(d, n)) return tsrio::decode_jpeg(d, n, img);
+    if (tsrio::read_cv2(d, n, &img, nullptr, false) == tsrio::kOk ||
+        tsrio::read_pil(d, n, &img, nullptr, false) == tsrio::kOk)
+      return tsrio::kOk;
+    return tsrio::foreign_format(d, n);
   } catch (const std::exception&) {
     return tsrio::kUnreadable;
   }
 }
 
-// (h, w) as the file decodes, from its header alone: a JPEG's markers up
-// to its first scan (however long its APP segments), PNG's IHDR and any
-// eXIf before IDAT, the PPM header, or the BMP info header; with
-// cv2_reader, a JPEG from a whole decode as cv2.imread's, short of the
-// pixels (check_jpeg). A failure writes (0, its Status).
+// (h, w) as the file decodes. By header: a JPEG's markers up to its first
+// scan (however long its APP segments), PNG's IHDR and any eXIf before
+// IDAT, or the PNM/PAM/BMP header as cv2 parses it (else as PIL does).
+// With cv2_reader, from the whole file as cv2.imread reads it, short of
+// the pixels (check_jpeg, read_cv2). A failure writes (0, its Status).
 int probe_one(const char* path, int* dims, bool cv2_reader) {
   dims[0] = 0;
   dims[1] = tsrio::kUnreadable;
   FILE* f = std::fopen(path, "rb");
   if (!f) return tsrio::kUnreadable;
-  std::vector<uint8_t> buf(4096);
+  std::vector<uint8_t> buf(65536);
   buf.resize(std::fread(buf.data(), 1, buf.size(), f));
   int st = tsrio::kUnreadable, h = 0, w = 0;
+  int hw[2] = {0, 0};
   if (tsrio::is_jpeg(buf.data(), buf.size())) {
-    int hw[2] = {0, 0};
     if (cv2_reader) {
       std::vector<uint8_t> whole;
       st = read_file(path, whole)
@@ -782,29 +465,25 @@ int probe_one(const char* path, int* dims, bool cv2_reader) {
     } else {
       st = tsrio::probe_jpeg(f, hw);
     }
-    h = hw[0];
-    w = hw[1];
-  } else {
-    PngInfo png;
-    int ch, maxval;
-    size_t pos;
-    BmpHeader bmp;
-    if (buf.size() >= 33 && buf[0] == 137) {
-      const std::vector<uint8_t> head = png_head(f);
-      if (png_info(head.data(), head.size(), png)) {
-        st = tsrio::kOk;
-        const bool swap = png.orientation >= 5;
-        h = swap ? png.w : png.h;
-        w = swap ? png.h : png.w;
-      }
-    } else if (ppm_header(buf, w, h, ch, maxval, pos)) {
-      st = tsrio::kOk;
-    } else if (bmp_header(buf, bmp)) {
-      st = tsrio::kOk;
-      w = bmp.w;
-      h = bmp.h < 0 ? -bmp.h : bmp.h;
+  } else if (cv2_reader) {
+    std::vector<uint8_t> whole;
+    if (read_file(path, whole)) {
+      st = tsrio::read_cv2(whole.data(), whole.size(), nullptr, hw, false);
+      if (st != tsrio::kOk)
+        st = tsrio::foreign_format(whole.data(), whole.size());
     }
+  } else {
+    static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
+    const bool png = buf.size() >= 8 && !std::memcmp(buf.data(), sig, 8);
+    const std::vector<uint8_t> head = png ? png_head(f) : buf;
+    st = tsrio::read_cv2(head.data(), head.size(), nullptr, hw, true);
+    if (st != tsrio::kOk)
+      st = tsrio::read_pil(head.data(), head.size(), nullptr, hw, true);
+    if (st != tsrio::kOk)
+      st = tsrio::foreign_format(buf.data(), buf.size());
   }
+  h = hw[0];
+  w = hw[1];
   std::fclose(f);
   if (st != tsrio::kOk) {
     dims[1] = st;

@@ -18,14 +18,16 @@ leaves that room (``_bucket_with_room``) and the cropped result equals
 native-size processing. Decoding and writing go through the port's IO
 library (``tsr_tpu_torch.native``), which reads and writes every suffix of
 ``gtsrb.IMG_EXTENSIONS`` as cv2 does (JPEG at cv2.imwrite's defaults). A
-file that cv2.imread would not read is skipped, as the reference skips it
-(``native.probe(..., reader="cv2")``).
+file that cv2.imread would not read, damaged or not, is skipped, as the
+reference skips it (``native.probe(..., reader="cv2")``, a whole read of
+each file).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import json
+from collections import Counter
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -242,11 +244,19 @@ def generate_tree(
 ) -> int:
     """Distort every image under ``src_dir`` into ``dst_dir`` (class tree
     preserved) on ``device``. Returns the number of images written: a file
-    cv2.imread would not read (a header that does not parse; a JPEG with
-    damage libjpeg refuses, 12-bit, hierarchical or gray lossless, of 2
-    components) is skipped and counted in the log, as the reference skips
-    it: ``native.probe(..., reader="cv2")`` runs a JPEG's markers and
-    entropy data first, then each batch is decoded into its canvas.
+    cv2.imread would not read is skipped and counted in the log (with the
+    skipped files' suffixes), as the reference skips it:
+    ``native.probe(..., reader="cv2")`` reads each whole file as cv2 does
+    first, then each batch is decoded into its canvas. Skipped: a header
+    that does not parse; a JPEG with damage libjpeg refuses, 12-bit,
+    hierarchical or gray lossless, of 2 components; a PNG, PNM, PAM or BMP
+    cut short anywhere (a PNG up to the end of IEND), a PNG with a bad
+    CRC on IHDR, PLTE (palette) or IDAT, a damaged zlib stream or filter
+    byte, an unknown critical chunk; an ASCII PNM with a byte past its
+    numbers missing or a comment glued to one; an RLE BMP whose stream stops
+    before its last row; a 16-bit BMP with a V2-V5 header; data of a format
+    the port does not decode (GIF, TIFF, WebP, ...). PIL reads some of
+    them, and the reader paths decode those as PIL does.
 
     One generator seeded with ``seed`` draws a seed for each batch's own
     generator on ``device`` (the reference splits its key per batch), so a
@@ -265,6 +275,10 @@ def generate_tree(
     readable = dims[:, 0] > 0
     if not readable.all():
         log(f"Skipped {int((~readable).sum())} unreadable files")
+        skipped = Counter(p.suffix.lower() for p, ok in zip(files, readable)
+                          if not ok)
+        log("  by suffix: " + ", ".join(f"{k} {n}" for k, n in
+                                        sorted(skipped.items())))
         files = [p for p, ok in zip(files, readable) if ok]
         dims = dims[readable]
     root = torch.Generator().manual_seed(seed)
