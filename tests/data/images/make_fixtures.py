@@ -1,17 +1,24 @@
-"""Writes the PNG, PNM, PAM and BMP fixtures of
+"""Writes the PNG, PNM, PAM, BMP, GIF and Sun raster fixtures of
 ``tests/test_torch_port_image_formats.py`` and of ``chip_smoke.py``'s image
 formats phase into this directory, with cv2, PIL and the byte writers below
-(neither library writes ASCII PNM, PAM, RLE or bitfield BMP as needed):
+(neither library writes ASCII PNM, PAM, RLE or bitfield BMP, GIF's every
+variant or any Sun raster but raw 24-bit as needed):
 
 - ``<case>``: CASES, files cv2.imread reads: the PNM family outside P5/P6
   (ASCII P1-P3, bitmap P4, PAM P7 of every TUPLTYPE), the BMP variants
-  (16-bit, BI_BITFIELDS, the OS/2 core header, RLE8, RLE4) and PNGs that
+  (16-bit, BI_BITFIELDS, the OS/2 core header, RLE8, RLE4), PNGs that
   libpng reads with a warning (a bad ancillary CRC, a split zlib stream,
-  bytes after IEND);
+  bytes after IEND), GIFs (``gif_*.png``: interlaced, local and global
+  colour tables, transparency, a frame inside a larger screen, two frames,
+  LZW code sizes 2 and 8, clear codes mid-stream, a full code table, a gray
+  palette, extensions) and Sun rasters (``sun_*.ppm``: 1, 8, 24 and 32
+  bits, colour maps, RT_OLD, an odd width);
 - ``skip/<case>``: SKIP_CASES, files cv2.imread gives None for (cut,
-  corrupt, a refused variant), some of which PIL reads; and FOREIGN, GIF,
-  TIFF and WebP data under .png and .jpg names (formats cv2 reads by
-  signature and the port does not decode);
+  corrupt, a refused variant), some of which PIL reads (a GIF without its
+  trailer, a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB, which
+  OpenCV 5 refuses); and FOREIGN, PFM, TIFF and WebP data under .png and
+  .jpg names (formats cv2 reads by signature and the port does not
+  decode);
 - ``expected.npz``: ``decoded__<case>`` = what the reference's readers give
   for each CASES file as RGB (``cv2.imread``; the pixels cv2 leaves
   unwritten, see ``cv2_written``, set to 0), ``decoded_skip__<case>`` =
@@ -36,6 +43,7 @@ from PIL import Image
 
 HERE = Path(__file__).resolve().parent
 SEED = 12
+GIF_SEED = 14  # the GIF and Sun raster files draw from their own stream
 
 
 def smooth(rng, h, w):
@@ -128,7 +136,7 @@ def palette_of(img, colors):
     """(indices [h, w], palette [colors, 3] RGB): PIL's quantize."""
     q = Image.fromarray(img).quantize(colors=colors)
     pal = np.array(q.getpalette()[:3 * colors], np.uint8).reshape(-1, 3)
-    return np.asarray(q), pal
+    return np.array(q), pal
 
 
 def rle_row(row, rle4):
@@ -181,6 +189,137 @@ def rle(idx, rle4, delta=None, short_rows=()):
         out += rle_row(row[:-4] if y in short_rows else row, rle4) + b"\0\0"
         y += 1
     return bytes(out[:-2]) + b"\0\1"
+
+
+def lzw_codes(idx, bits, clear_at=(), clear_when_full=True):
+    """GIF's LZW codes [(code, width)] of the indices ``idx`` at minimum
+    code size ``bits``: a clear code first, one before each position of
+    ``clear_at``, and, where ``clear_when_full``, one when the 4096-entry
+    table fills (else the table stays full), then the end code."""
+    clear = 1 << bits
+    size, nxt = bits + 1, clear + 2
+    table = {(i,): i for i in range(clear)}
+    codes, word = [(clear, size)], ()
+    for pos, k in enumerate(int(v) for v in idx):
+        if pos in clear_at and word:
+            codes += [(table[word], size), (clear, size)]
+            table = {(i,): i for i in range(clear)}
+            size, nxt, word = bits + 1, clear + 2, ()
+        if word + (k,) in table:
+            word += (k,)
+            continue
+        codes.append((table[word], size))
+        if nxt < 4096:
+            table[word + (k,)] = nxt
+            nxt += 1
+            if nxt > 1 << size and size < 12:
+                size += 1
+        elif clear_when_full:
+            codes.append((clear, size))
+            table = {(i,): i for i in range(clear)}
+            size, nxt = bits + 1, clear + 2
+        word = (k,)
+    return codes + [(table[word], size), (clear + 1, size)]
+
+
+def pack_codes(codes):
+    """LSB-first bit packing of [(code, width)]."""
+    out, acc, nbits = bytearray(), 0, 0
+    for code, width in codes:
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    return bytes(out) + (bytes([acc]) if nbits else b"")
+
+
+def sub_blocks(data, size=255):
+    """``data`` in GIF sub-blocks, then the block terminator."""
+    return b"".join(bytes([len(data[i:i + size])]) + data[i:i + size]
+                    for i in range(0, len(data), size)) + b"\0"
+
+
+def colour_table(pal, bits):
+    """A GIF colour table of 2**bits entries from RGB rows ``pal``."""
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[:len(pal)] = pal[:1 << bits]
+    return table.tobytes()
+
+
+def gce(transparent=None, disposal=0):
+    """A graphic control extension."""
+    flags = disposal << 2 | (transparent is not None)
+    return b"!\xf9\x04" + struct.pack("<BHB", flags, 0, transparent or 0) + b"\0"
+
+
+def gif_frame(idx, x=0, y=0, lct=None, interlace=False, bits=None, pre=b"",
+              **lzw):
+    """An image descriptor (with ``pre``, its extensions, before it) and the
+    LZW data of indices ``idx`` [h, w]."""
+    h, w = idx.shape
+    bits = bits or max(2, int(idx.max()).bit_length())
+    rows = (list(range(0, h, 8)) + list(range(4, h, 8)) + list(range(2, h, 4))
+            + list(range(1, h, 2))) if interlace else range(h)
+    flags, table = 0x40 * interlace, b""
+    if lct is not None:
+        tbits = max(1, (len(lct) - 1).bit_length())
+        flags |= 0x80 | (tbits - 1)
+        table = colour_table(lct, tbits)
+    data = pack_codes(lzw_codes(np.concatenate([idx[r] for r in rows]), bits,
+                                **lzw))
+    return (pre + b"," + struct.pack("<HHHHB", x, y, w, h, flags) + table
+            + bytes([bits]) + sub_blocks(data))
+
+
+def gif(w, h, frames, gct=None, bg=0, version=b"GIF89a", ext=b"",
+        trailer=True):
+    """A GIF of logical screen ``w`` x ``h``: the global colour table
+    ``gct`` (RGB rows) and background index ``bg``, extensions ``ext``,
+    then ``frames``."""
+    flags, table = 0, b""
+    if gct is not None:
+        tbits = max(1, (len(gct) - 1).bit_length())
+        flags = 0xF0 | (tbits - 1)
+        table = colour_table(gct, tbits)
+    return (version + struct.pack("<HHBBB", w, h, flags, bg, 0) + table + ext
+            + b"".join(frames) + b";" * trailer)
+
+
+def sun_rle(data):
+    """RT_BYTE_ENCODED: runs of 3 or more (and any 0x80) as 0x80, count - 1,
+    value; 0x80 alone as 0x80, 0."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        run = 1
+        while i + run < len(data) and data[i + run] == data[i] and run < 256:
+            run += 1
+        if data[i] == 0x80 and run == 1:
+            out += b"\x80\0"
+        elif run >= 3 or data[i] == 0x80:
+            out += bytes([0x80, run - 1, data[i]])
+        else:
+            out.append(data[i])
+            run = 1
+        i += run
+    return bytes(out)
+
+
+def sun(rows, w, depth, ras_type=1, cmap=None):
+    """A Sun raster of ``rows`` (uint8 [h, row bytes]) at ``depth`` bits,
+    type ``ras_type`` (0 RT_OLD, 1 RT_STANDARD, 2 RT_BYTE_ENCODED over the
+    padded rows, 3 RT_FORMAT_RGB) and an RMT_EQUAL_RGB map ``cmap`` (RGB
+    rows, stored as three planes)."""
+    rows = np.asarray(rows, np.uint8)
+    pitch = (w * depth + 15) // 16 * 2
+    body = np.pad(rows, ((0, 0), (0, pitch - rows.shape[1]))).tobytes()
+    if ras_type == 2:
+        body = sun_rle(body)
+    cm = b"" if cmap is None else np.asarray(cmap, np.uint8).T.tobytes()
+    length = 0 if ras_type == 0 else len(body)
+    return (struct.pack(">8I", 0x59A66A95, w, len(rows), depth, length,
+                        ras_type, int(cmap is not None), len(cm)) + cm + body)
 
 
 def bmp_palette(pal, size=4):
@@ -387,14 +526,119 @@ def skip_cases(rng):
     return out
 
 
-def foreign(rng):
-    """GIF, TIFF and WebP data under .png and .jpg names."""
+def gif_sun_cases(rng):
+    """{name: bytes} of the GIF and Sun raster files cv2.imread reads."""
     out = {}
-    for name, fmt, h, w in (("gif.png", "GIF", 24, 30),
+    img, pal = palette_of(smooth(rng, 24, 30), 64)
+    buf = io.BytesIO()
+    Image.fromarray(smooth(rng, 24, 30)).save(buf, "GIF")  # PIL's writer
+    out["gif_pil.png"] = buf.getvalue()
+    out["gif_interlaced.png"] = gif(30, 24, [gif_frame(img, interlace=True)],
+                                    pal)
+    idx, lpal = palette_of(smooth(rng, 22, 27), 32)
+    out["gif_local_table.png"] = gif(27, 22, [gif_frame(idx, lct=lpal)],
+                                     pal[:8], version=b"GIF87a")
+    idx, tpal = palette_of(smooth(rng, 20, 26), 16)
+    idx[3:9, 4:12] = 5
+    out["gif_transparent.png"] = gif(26, 20, [gif_frame(idx, pre=gce(5))],
+                                     tpal, bg=9)
+    idx, opal = palette_of(smooth(rng, 14, 17), 16)
+    out["gif_frame_offset.png"] = gif(  # cv2 paints the rest background
+        31, 25, [gif_frame(idx, x=9, y=6, pre=gce(2, disposal=1))], opal,
+        bg=11)
+    idx2, _ = palette_of(smooth(rng, 10, 12), 16)
+    out["gif_two_frames.png"] = gif(24, 21, [
+        gif_frame(palette_of(smooth(rng, 21, 24), 16)[0], pre=gce()),
+        gif_frame(idx2, x=5, y=4, pre=gce(3, disposal=2))], opal)
+    idx, cpal = palette_of(smooth(rng, 23, 29), 4)
+    out["gif_code2.png"] = gif(29, 23, [gif_frame(idx, bits=2)], cpal)
+    noise = rng.integers(0, 256, (48, 64))
+    out["gif_code8.png"] = gif(64, 48, [gif_frame(noise)],
+                               rng.integers(0, 256, (256, 3)))
+    noise = rng.integers(0, 256, (45, 80))
+    out["gif_full_table.png"] = gif(  # the table stays full (no clear)
+        80, 45, [gif_frame(noise, clear_when_full=False)],
+        rng.integers(0, 256, (256, 3)))
+    idx, mpal = palette_of(smooth(rng, 26, 33), 32)
+    out["gif_mid_clear.png"] = gif(33, 26, [gif_frame(
+        idx, clear_at=(100, 101, 500))], mpal)
+    ramp = np.repeat(np.arange(0, 256, 4, dtype=np.uint8)[:, None], 3, 1)
+    out["gif_gray.png"] = gif(28, 21, [gif_frame(
+        gray(smooth(rng, 21, 28)) >> 2, interlace=True)], ramp)
+    idx, epal = palette_of(smooth(rng, 19, 25), 16)
+    out["gif_extensions.png"] = gif(25, 19, [gif_frame(
+        idx, pre=b"!\xfe\x0ea comment here\0" + gce(7))], epal, ext=(
+        b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\0"
+        b"!\x01\x0c" + bytes(12) + b"\x04text\0"))
+
+    img = smooth(rng, 22, 29)
+    bits = np.packbits(gray(img) < 128, axis=1)
+    out["sun_1bit.ppm"] = sun(bits, 29, 1)
+    out["sun_1bit_map.ppm"] = sun(bits, 29, 1,
+                                  cmap=[[20, 40, 200], [250, 230, 10]])
+    img = smooth(rng, 21, 27)
+    out["sun_8bit_gray.ppm"] = sun(gray(img), 27, 8)
+    idx, spal = palette_of(smooth(rng, 24, 31), 200)
+    out["sun_8bit_map.ppm"] = sun(idx, 31, 8,
+                                  cmap=spal)
+    img = smooth(rng, 23, 25)  # an odd width: rows padded to 16 bits
+    out["sun_24bit.ppm"] = sun(img[:, :, ::-1].reshape(23, -1), 25, 24)
+    img = smooth(rng, 20, 26)
+    out["sun_24bit_old.ppm"] = sun(img[:, :, ::-1].reshape(20, -1), 26, 24,
+                                   ras_type=0)
+    xbgr = np.concatenate([np.full((22, 21, 1), 255, np.uint8),
+                           smooth(rng, 22, 21)[:, :, ::-1]], 2)
+    out["sun_32bit.ppm"] = sun(xbgr.reshape(22, -1), 21, 32)
+    return out
+
+
+def gif_sun_skip_cases(rng):
+    """{name: bytes} of GIF and Sun raster files cv2.imread gives None
+    for."""
+    out = {}
+    idx, pal = palette_of(smooth(rng, 22, 28), 32)
+    whole = gif(28, 22, [gif_frame(idx)], pal)
+    out["gif_cut.png"] = whole[:len(whole) * 6 // 10]
+    out["gif_no_trailer.png"] = whole[:-1]  # PIL reads it
+    codes = lzw_codes(idx.reshape(-1), 5)
+    head = b"," + struct.pack("<HHHHB", 0, 0, 28, 22, 0) + b"\x05"
+    out["gif_bad_lzw.png"] = gif(28, 22, [head + sub_blocks(pack_codes(
+        codes[:10] + [(63, codes[10][1])] + codes[10:]))], pal)  # past the table
+    half = len(codes) // 2
+    out["gif_early_end.png"] = gif(28, 22, [head + sub_blocks(pack_codes(
+        codes[:half] + [(33, codes[half][1])]))], pal)
+    out["gif_frame_outside.png"] = gif(20, 16, [gif_frame(idx)], pal)
+    out["gif_disposal7.png"] = gif(28, 22, [gif_frame(idx, pre=gce(
+        disposal=7))], pal)
+
+    img = smooth(rng, 20, 23)
+    raw = sun(img[:, :, ::-1].reshape(20, -1), 23, 24)
+    out["sun_cut.ppm"] = raw[:len(raw) // 2]
+    runs = np.repeat(gray(smooth(rng, 21, 8)), 4, axis=1)
+    rle = sun(runs, 32, 8, ras_type=2)
+    out["sun_rle8.ppm"] = rle  # RT_BYTE_ENCODED: PIL reads it
+    out["sun_rle_cut.ppm"] = rle[:len(rle) * 7 // 10]
+    out["sun_rle8_map.ppm"] = sun(runs, 32, 8, ras_type=2,
+                                  cmap=palette_of(smooth(rng, 8, 8), 100)[1])
+    img = smooth(rng, 19, 24)
+    out["sun_rgb24.ppm"] = sun(img.reshape(19, -1), 24, 24, ras_type=3)
+    return out
+
+
+def foreign(rng):
+    """PFM, TIFF and WebP data under .png and .jpg names."""
+    out = {}
+    for name, fmt, h, w in (("pfm.png", "PFM", 24, 30),
                             ("tiff.jpg", "TIFF", 28, 22),
                             ("webp.png", "WEBP", 26, 32)):
+        img = smooth(rng, h, w)
+        if fmt == "PFM":  # cv2 writes it (PIL does not)
+            ok, enc = cv2.imencode(".pfm", img.astype(np.float32) / 255)
+            assert ok
+            out[name] = enc.tobytes()
+            continue
         buf = io.BytesIO()
-        Image.fromarray(smooth(rng, h, w)).save(buf, fmt)
+        Image.fromarray(img).save(buf, fmt)
         out[name] = buf.getvalue()
     return out
 
@@ -434,7 +678,8 @@ def make(out: Path = HERE) -> dict:
     arrays = {}
     (out / "skip").mkdir(parents=True, exist_ok=True)
     written = 0
-    for name, data in cases(rng).items():
+    gif_rng = np.random.default_rng(GIF_SEED)
+    for name, data in {**cases(rng), **gif_sun_cases(gif_rng)}.items():
         p = out / name
         p.write_bytes(data)
         img = cv2.imread(str(p))
@@ -443,7 +688,8 @@ def make(out: Path = HERE) -> dict:
         img[~cv2_written(data, img.shape[:2])] = 0
         arrays[f"decoded__{name}"] = img
         written += 1
-    for name, data in {**skip_cases(rng), **foreign(rng)}.items():
+    for name, data in {**skip_cases(rng), **foreign(rng),
+                       **gif_sun_skip_cases(gif_rng)}.items():
         p = out / "skip" / name
         p.write_bytes(data)
         assert cv2.imread(str(p)) is None or name in FOREIGN, name
@@ -457,11 +703,13 @@ def make(out: Path = HERE) -> dict:
 
 def _names():
     rng = np.random.default_rng(SEED)
-    return tuple(cases(rng)), tuple(skip_cases(rng))
+    gif_rng = np.random.default_rng(GIF_SEED)
+    found = tuple(cases(rng)) + tuple(gif_sun_cases(gif_rng))
+    return found, tuple(skip_cases(rng)) + tuple(gif_sun_skip_cases(gif_rng))
 
 
 CASES, SKIP_CASES = _names()
-FOREIGN = ("gif.png", "tiff.jpg", "webp.png")
+FOREIGN = ("pfm.png", "tiff.jpg", "webp.png")
 
 if __name__ == "__main__":
     make()

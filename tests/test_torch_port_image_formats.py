@@ -1,6 +1,6 @@
-"""The PNG, PNM, PAM and BMP files the reference reads (cv2.imread, else
-PIL's convert("RGB")) and the port once refused or read differently,
-against cv2, PIL and tsr_tpu on the CPU:
+"""The PNG, PNM, PAM, BMP, GIF and Sun raster files the reference reads
+(cv2.imread, else PIL's convert("RGB")) and the port once refused or read
+differently, against cv2, PIL and tsr_tpu on the CPU:
 
 - C5: ASCII P1-P3 (rescaled to 8 bits), bitmap P4 and PAM P7 of every
   TUPLTYPE, with cv2's quirks;
@@ -11,13 +11,18 @@ against cv2, PIL and tsr_tpu on the CPU:
   stream, a cut ASCII body or RLE stream...), and decode gives cv2's
   pixels, else PIL's, else raises; generate_tree skips what the reference
   skips;
-- C7: GIF, TIFF and WebP data under .png/.jpg names raise naming their
+- C7, part 1: GIF (OpenCV's own decoder: the whole file walked, the canvas
+  in the background colour, a transparent pixel keeping it) and Sun raster
+  (cv2's 1/8/24/32-bit raw files, PIL's RT_BYTE_ENCODED and RT_FORMAT_RGB,
+  which OpenCV 5 refuses), cut and mutated too;
+- C7: PFM, TIFF and WebP data under .png/.jpg names raise naming their
   format (the port does not decode them).
 
-The fixtures are tests/data/images (make_fixtures.py): 20x28 to 48x40.
+The fixtures are tests/data/images (make_fixtures.py): 19x21 to 45x80.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import cv2
@@ -121,7 +126,7 @@ def test_skip_class_reads_as_reference(name):
             native.load_batch([p], SIZE)
 
 
-@pytest.mark.parametrize("name,fmt", [("gif.png", "GIF"), ("tiff.jpg", "TIFF"),
+@pytest.mark.parametrize("name,fmt", [("pfm.png", "PFM"), ("tiff.jpg", "TIFF"),
                                       ("webp.png", "WebP")])
 def test_foreign_format_raises_naming_it(name, fmt):
     """C7: data of a format cv2 reads by its signature and the port does
@@ -164,12 +169,77 @@ def test_committed_fixtures_equal_cv2_and_pil(tmp_path):
                if p.is_file()) < 400 * 1024
 
 
+# ------------------------------------------------------ C7: GIF and Sun
+
+# fixtures where cv2's rule and PIL's give different pixels: the port
+# gives cv2's (PIL paints a transparent index and the area outside the
+# frame in palette colours, reads a 1-bit Sun raster inverted and a 32-bit
+# one's bytes 0-2)
+DIFFERING = ("gif_transparent.png", "gif_frame_offset.png", "sun_1bit.ppm",
+             "sun_32bit.ppm")
+
+
+@pytest.mark.parametrize("name", DIFFERING)
+def test_gif_and_sun_follow_cv2_where_pil_differs(name):
+    """decode equals cv2.imread's pixels on files where PIL's differ (so
+    the fixture tells the two rules apart), max diff 0."""
+    p = str(FIXTURES / name)
+    want = cv2.imread(p)[:, :, ::-1]
+    pil = np.asarray(Image.open(p).convert("RGB"))
+    assert pil.shape != want.shape or not np.array_equal(pil, want)
+    np.testing.assert_array_equal(native.decode(p), want)
+
+
+GIF_SUN = [n for n in CASES if n.startswith(("gif_", "sun_"))] + [
+    "skip/" + n for n in SKIPS if n.startswith(("gif_", "sun_"))
+    and f"decoded_skip__{n}" in EXPECTED.files]
+
+
+@pytest.mark.parametrize("name", GIF_SUN)
+def test_gif_and_sun_load_canvas_and_probe(name):
+    """Each readable GIF and Sun raster (cv2's, and PIL's where cv2
+    refuses): load_canvas puts decode's pixels at the top-left of its slot
+    and zeros around them; the header probe gives the decoded (h, w) where
+    cv2 reads the file (it reads cv2's header first, so a GIF whose frame
+    leaves the screen probes at the screen's size)."""
+    p = str(FIXTURES / name)
+    img = native.decode(p)
+    h, w = img.shape[:2]
+    out = np.full((1, h + 3, w + 5, 3), 7, np.uint8)
+    assert native.load_canvas([p], out).tolist() == [[h, w]]
+    np.testing.assert_array_equal(out[0, :h, :w], img)
+    assert not out[0, h:].any() and not out[0, :, w:].any()
+    if not name.startswith("skip/"):
+        assert native.probe([p]).tolist() == [[h, w]]
+
+
+def test_foreign_formats_match_codec_header():
+    """native.FORMATS names codec.h's foreign-format statuses in their
+    order (after FEATURES), so _failure names the format a status means;
+    GIF and Sun raster are gone from both."""
+    header = (Path(native.__file__).parent / "codec.h").read_text()
+    start = header.index("enum Status")
+    enum = header[start:header.index("};", start)]
+    codes = [int(v) for v in re.findall(r"= (-\d+),", enum)]
+    assert codes == list(range(-1, -len(native.FEATURES)
+                               - len(native.FORMATS) - 1, -1))
+    assert native.FORMATS == ("TIFF", "WebP", "PFM", "Radiance HDR",
+                              "JPEG 2000", "AVIF")
+    assert "kGif" not in enum and "kSunRaster" not in enum
+    for status, fmt in enumerate(native.FORMATS, len(native.FEATURES) + 1):
+        assert f"holds {fmt} data" in str(native._failure("x", -status))
+
+
 # ------------------------------------------------------------ C4: cuts
 
-# one file of each class: PNG, PNM ASCII, PAM, BMP raw and RLE
+# one file of each class: PNG, PNM ASCII, PAM, BMP raw and RLE, GIF (plain,
+# interlaced with a transparent index, a frame inside a larger screen) and
+# Sun raster (raw, and the RLE PIL reads)
 CUT_FILES = ("png_text_bad_crc.png", "p3_max255.ppm", "p1_ascii.ppm",
              "pam_rgb.ppm", "bmp16_565_bitfields.bmp", "bmp_rle8.bmp",
-             "bmp_rle4.bmp")
+             "bmp_rle4.bmp", "gif_mid_clear.png", "gif_transparent.png",
+             "gif_frame_offset.png", "sun_8bit_map.ppm",
+             "skip/sun_rle8.ppm")
 
 
 def _cut_cases():
@@ -187,10 +257,11 @@ def test_cut_file_reads_as_reference(tmp_path, name, cut):
     """A fixture cut short: probe(reader="cv2") is (0, 0) exactly where
     cv2.imread gives None (a cut PNG anywhere before IEND's end, a cut
     ASCII body, an RLE stream that stops before its last row is done, a
-    raw body short of its last row's padding), and decode equals cv2, else
-    PIL (which reads a PNG cut after its image data, a BMP short of the
-    last row's padding), else raises."""
-    p = tmp_path / name
+    raw body short of its last row's padding, a GIF cut anywhere before its
+    trailer), and decode equals cv2, else PIL (which reads a PNG cut after
+    its image data, a BMP or Sun raster short of the last row's padding, a
+    GIF cut after its first frame), else raises."""
+    p = tmp_path / Path(name).name
     p.write_bytes((FIXTURES / name).read_bytes()[:cut])
     _reads_as_reference(p)
 

@@ -1,4 +1,5 @@
-"""The port's image IO: ``tsrio.cpp`` and ``jpeg.cpp`` bound with ``ctypes``.
+"""The port's image IO: ``tsrio.cpp``, ``jpeg.cpp``, ``formats.cpp`` and
+``gif.cpp`` bound with ``ctypes``.
 
 The port's own copy of ``tsr_tpu/native`` and its only codec (no module of
 the port imports cv2 or PIL, and the library links nothing but zlib). It
@@ -7,12 +8,16 @@ reads every file the reference reads, as the reference does: with
 ``convert("RGB")``, the reference's fallback. PNG of any bit depth, color
 type and interlacing; PNM (ASCII P1-P3, binary P4-P6, any maxval) and PAM
 (P7); BMP (palette, 16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core
-header); JPEG (baseline, progressive and arithmetic coded, CMYK and YCCK,
-data cut short or corrupt as libjpeg recovers it, lossless); EXIF
-orientation applied as cv2 applies it, in PNG's eXIf too. Damaged files
-read as cv2 or PIL read them (``formats.cpp`` copies both readers). Data
-of a format cv2 reads and the port does not decode (:data:`FORMATS`:
-GIF, TIFF, WebP, ...) raises naming the format. It writes ``.ppm``, ``.bmp`` and ``.jpg``/``.jpeg`` files byte-equal to
+header); GIF (the first frame, as OpenCV's own decoder composes it) and
+Sun raster (1/8/24/32-bit; run-length encoded and RGB-ordered ones as PIL
+reads them, which OpenCV refuses); JPEG (baseline, progressive and
+arithmetic coded, CMYK and YCCK, data cut short or corrupt as libjpeg
+recovers it, lossless); EXIF orientation applied as cv2 applies it, in
+PNG's eXIf too. Damaged files read as cv2 or PIL read them
+(``formats.cpp`` and ``gif.cpp`` copy both readers). Data of a format cv2
+reads and the port does not decode (:data:`FORMATS`: TIFF, WebP, PFM, ...)
+raises naming the format. It writes ``.ppm``, ``.bmp`` and
+``.jpg``/``.jpeg`` files byte-equal to
 ``cv2.imwrite``'s at its defaults, and ``.png`` files pixel-equal to
 cv2's. Around the
 codecs: a cv2.INTER_LINEAR-convention bilinear resize (within 1 LSB of
@@ -45,7 +50,8 @@ import numpy as np
 from tsr_tpu_torch.kernels import _build
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp")
+SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp",
+           _HERE / "gif.cpp")
 HEADERS = (_HERE / "codec.h",)
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
@@ -63,8 +69,7 @@ FEATURES = (
 )
 # the formats cv2.imread reads and the port does not decode, told by their
 # signatures, in codec.h's order after FEATURES
-FORMATS = ("GIF", "TIFF", "WebP", "Sun raster", "PFM", "Radiance HDR",
-           "JPEG 2000", "AVIF")
+FORMATS = ("TIFF", "WebP", "PFM", "Radiance HDR", "JPEG 2000", "AVIF")
 _READERS = {"port": 0, "cv2": 1}
 _RESIZE_MODES = {"cv2": 0, "pil": 1}
 
@@ -230,6 +235,17 @@ def probe(paths: Sequence[str], threads: int = 8,
       cv2's header rules (a 16-bit BI_BITFIELDS file takes its masks from
       after the header, so one with them only inside a V2-V5 header is
       refused);
+    - GIF: every block up to the trailer (a byte between blocks that is
+      none of ``!``, ``,`` and ``;`` refuses the file), then the first
+      frame: a graphic control extension of 4 bytes and a disposal method
+      of 0-3, a frame inside the logical screen, a minimum code size of
+      2-11, an LZW stream that fills the frame exactly (a code past the
+      table, a string past the last pixel, or data after it that does not
+      end its block refuses it), every index in a colour table;
+    - Sun raster: RT_OLD or RT_STANDARD (RT_BYTE_ENCODED and RT_FORMAT_RGB,
+      which PIL reads, are refused), 1, 8, 24 or 32 bits, no map or an
+      RMT_EQUAL_RGB map of at most 2^depth entries (1 and 8 bits), every
+      row padded to 16 bits;
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
       does not decode it)."""
     if reader not in _READERS:

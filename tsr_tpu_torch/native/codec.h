@@ -1,7 +1,7 @@
-// codec.h — what tsrio.cpp, jpeg.cpp and formats.cpp share: the decoded
-// image, the status codes a decode or a header probe returns, the JPEG
-// codec's entry points, the PNG/PNM/PAM/BMP readers and the EXIF
-// orientation both JPEG and PNG carry.
+// codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp and gif.cpp share: the
+// decoded image, the status codes a decode or a header probe returns, the
+// JPEG codec's entry points, the PNG/PNM/PAM/BMP/Sun raster and GIF readers
+// and the EXIF orientation both JPEG and PNG carry.
 #pragma once
 
 #include <cstddef>
@@ -15,6 +15,9 @@ struct Image {
   int w = 0, h = 0;
   std::vector<uint8_t> rgb;  // HWC
 };
+
+// Images past 64 Mpixels are refused (a decode would need 192 MiB).
+constexpr int64_t kMaxPixels = 64LL << 20;
 
 // A decode's or a probe's outcome. kOk and kUnreadable (not an image the
 // library knows, or data that neither cv2.imread nor PIL reads) are the
@@ -32,14 +35,12 @@ enum Status : int {
   kComponents = -3,          // a JPEG of 2 or more than 4 components
   kLosslessArithmetic = -4,  // lossless JPEG, arithmetic coded (SOF11)
   kLosslessColor = -5,       // lossless JPEG in YCbCr or YCCK
-  kGif = -6,
-  kTiff = -7,
-  kWebp = -8,
-  kSunRaster = -9,
-  kPfm = -10,
-  kHdr = -11,                // Radiance RGBE
-  kJpeg2000 = -12,
-  kAvif = -13,
+  kTiff = -6,
+  kWebp = -7,
+  kPfm = -8,
+  kHdr = -9,                 // Radiance RGBE
+  kJpeg2000 = -10,
+  kAvif = -11,
 };
 
 // True where `data` starts as a JPEG file does (SOI, then a marker).
@@ -67,10 +68,10 @@ int probe_jpeg(FILE* f, int* dims);
 // quality 95, 4:2:0, standard Huffman tables (libjpeg-turbo's defaults).
 void encode_jpeg(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out);
 
-// PNG, PNM (P1-P6), PAM (P7) and BMP as cv2.imread reads them
-// (formats.cpp): kOk with the (h, w) it gives in dims (EXIF orientation
-// applied) and, with img, its pixels as RGB; kUnreadable where cv2.imread
-// gives None. `head` reads the header alone.
+// PNG, PNM (P1-P6), PAM (P7), BMP, Sun raster and GIF as cv2.imread reads
+// them (formats.cpp, gif.cpp): kOk with the (h, w) it gives in dims (EXIF
+// orientation applied) and, with img, its pixels as RGB; kUnreadable where
+// cv2.imread gives None. `head` reads the header alone.
 int read_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // The same formats as PIL's Image.open(path).convert("RGB") reads them
@@ -78,8 +79,16 @@ int read_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 // the header alone (not of a PNG).
 int read_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
+// GIF's first frame as cv2.imread reads it (OpenCV's own decoder) and as
+// PIL's GifImagePlugin and convert("RGB") read it (gif.cpp); the arguments
+// and results of read_cv2 and read_pil. is_gif_data: a GIF87a/GIF89a
+// signature.
+bool is_gif_data(const uint8_t* data, size_t n);
+int gif_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+int gif_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+
 // The Status of a format cv2.imread reads and the library does not decode
-// (kGif ... kAvif), from the file's signature; kUnreadable for any other.
+// (kTiff ... kAvif), from the file's signature; kUnreadable for any other.
 int foreign_format(const uint8_t* data, size_t n);
 
 // Orientation (1-8, 1 where there is none or it does not parse) of a TIFF

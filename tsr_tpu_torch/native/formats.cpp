@@ -1,20 +1,23 @@
-// formats.cpp — PNG, PNM (P1-P6), PAM (P7) and BMP, read as the reference
-// reads them: cv2.imread first, else PIL's Image.open(path).convert("RGB").
+// formats.cpp — PNG, PNM (P1-P6), PAM (P7), BMP and Sun raster, read as the
+// reference reads them: cv2.imread first, else PIL's
+// Image.open(path).convert("RGB"). GIF's readers are in gif.cpp.
 //
 // Two readers of each format, each a copy of what its library does:
 //   - read_cv2: OpenCV 5's decoders (libpng 1.6 for PNG; OpenCV's own PxM,
-//     PAM and BMP code), with the images they accept and the pixels they
-//     give, quirks included: an ASCII PNM sample is rescaled to 8 bits and a
-//     binary one is not, a cut ASCII body or an RLE stream that stops short
-//     of the last row refuses the file, a 16-bit BMP keeps 5 bits << 3, a
-//     32-bit BI_BITFIELDS BMP takes its masks from a V3-V5 header only, a
-//     PNG with a bad CRC on IHDR, PLTE (palette images) or IDAT, a damaged
-//     zlib stream, a missing or cut IEND refuses the file;
+//     PAM, BMP and Sun raster code), with the images they accept and the
+//     pixels they give, quirks included: an ASCII PNM sample is rescaled to
+//     8 bits and a binary one is not, a cut ASCII body or an RLE stream
+//     that stops short of the last row refuses the file, a 16-bit BMP keeps
+//     5 bits << 3, a 32-bit BI_BITFIELDS BMP takes its masks from a V3-V5
+//     header only, a PNG with a bad CRC on IHDR, PLTE (palette images) or
+//     IDAT, a damaged zlib stream, a missing or cut IEND refuses the file,
+//     a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB is refused;
 //   - read_pil: Pillow 12's plugins (PngImagePlugin with its zlib row
-//     decoder, PpmImagePlugin, BmpImagePlugin) and convert("RGB"), for the
-//     files cv2 refuses: a PNG whose IDAT CRC is wrong, a P2 without its
-//     last newline, a 16-bit BMP with a V2-V5 header (5-bit samples scaled
-//     by 255/31), ... PIL applies no EXIF orientation there.
+//     decoder, PpmImagePlugin, BmpImagePlugin, SunImagePlugin) and
+//     convert("RGB"), for the files cv2 refuses: a PNG whose IDAT CRC is
+//     wrong, a P2 without its last newline, a 16-bit BMP with a V2-V5
+//     header (5-bit samples scaled by 255/31), a run-length encoded Sun
+//     raster, ... PIL applies no EXIF orientation there.
 // Each runs on a whole file in memory; without an output image it checks
 // the file and gives its (h, w), short of storing pixels (the probe of
 // generate_tree's skip rule).
@@ -37,9 +40,6 @@
 
 namespace tsrio {
 namespace {
-
-// images past 64 Mpixels are refused (a decode would need 192 MiB)
-constexpr int64_t kMaxPixels = 64LL << 20;
 
 // imread's validateInputImageSize (past it cv2 raises), and the cap above
 bool cv2_size_ok(int64_t w, int64_t h) {
@@ -1027,6 +1027,169 @@ int pil_bmp(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   return kOk;
 }
 
+// ----------------------------------------------------------- Sun raster
+
+bool is_sun(const uint8_t* d, size_t n) {
+  return n >= 4 && be32(d) == 0x59a66a95u;
+}
+
+// cv2: OpenCV's SunRasterDecoder. It reads types RT_OLD and RT_STANDARD only
+// (its header check compares RT_BYTE_ENCODED and RT_FORMAT_RGB with the
+// image's Mat type instead of the file's type, so it refuses both) at 1, 8,
+// 24 or 32 bits: no colour map, or an RMT_EQUAL_RGB map of at most 2^depth
+// entries (1 and 8 bits); rows padded to 16 bits, every one present. A
+// 1-bit file without a map reads 1 as white; a 32-bit pixel's bytes 1-3
+// are its B, G and R; map entries past the map's length read black.
+int cv2_sun(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
+  if (!is_sun(d, n) || n < 32) return kUnreadable;
+  const int32_t w = static_cast<int32_t>(be32(d + 4)),
+                h = static_cast<int32_t>(be32(d + 8));
+  const uint32_t bpp = be32(d + 12), type = be32(d + 20),
+                 maptype = be32(d + 24);
+  const int32_t maplength = static_cast<int32_t>(be32(d + 28));
+  const int32_t palsize = bpp - 1 < 8 ? 3 << bpp : 0;
+  if (type > 1 || maptype > 1 || w <= 0 || h <= 0 ||
+      (bpp != 1 && bpp != 8 && bpp != 24 && bpp != 32))
+    return kUnreadable;
+  if (maptype == 0 ? maplength != 0
+                   : maplength <= 0 || maplength > palsize || bpp > 8 ||
+                         n - 32 < static_cast<size_t>(maplength))
+    return kUnreadable;
+  if (!cv2_size_ok(w, h)) return kUnreadable;
+  dims[0] = h;
+  dims[1] = w;
+  if (head) return kOk;
+  const size_t pitch = ((static_cast<size_t>(w) * bpp + 7) / 8 + 1) & ~size_t{1};
+  const size_t body = 32 + static_cast<size_t>(maplength);
+  if ((n - body) / pitch < static_cast<size_t>(h)) return kUnreadable;
+  Out out;
+  if (!out.init(img, w, h)) return kUnreadable;
+  if (!img) return kOk;
+  Rgb pal[256];
+  if (maplength) {
+    const int k = maplength / 3;
+    for (int i = 0; i < k; i++)
+      pal[i] = {d[32 + i], d[32 + i + k], d[32 + i + 2 * k]};
+  } else if (bpp == 1) {
+    pal[1] = {255, 255, 255};
+  } else {
+    for (int i = 0; i < 256; i++)
+      pal[i] = {static_cast<uint8_t>(i), static_cast<uint8_t>(i), static_cast<uint8_t>(i)};
+  }
+  for (int y = 0; y < h; y++) {
+    const uint8_t* row = d + body + pitch * y;
+    for (int x = 0; x < w; x++) {
+      if (bpp == 1 || bpp == 8) {
+        const Rgb& c = pal[bpp == 1 ? (row[x >> 3] >> (7 - (x & 7))) & 1 : row[x]];
+        out.put(x, y, c.r, c.g, c.b);
+      } else {
+        const uint8_t* px = row + static_cast<size_t>(x) * (bpp / 8) + (bpp == 32);
+        out.put(x, y, px[2], px[1], px[0]);
+      }
+    }
+  }
+  return kOk;
+}
+
+// PIL: SunImagePlugin and convert("RGB"): types 0-5 but RT_BYTE_ENCODED read
+// raw, RT_BYTE_ENCODED through its run decoder (SunRleDecode.c: rows not
+// padded, a run may span rows); 1-bit (0 white), 4-bit (gray * 17, or a
+// palette index) and 8-bit gray, or palette indices where a map is given
+// (its type must be 1, at most 768 bytes); 24/32-bit BGR(X), RGB(X) for type
+// 3; raw rows padded to 16 bits, the last row's padding not needed.
+int pil_sun(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
+  if (!is_sun(d, n) || n < 32) return kUnreadable;
+  const uint32_t w = be32(d + 4), h = be32(d + 8), depth = be32(d + 12),
+                 type = be32(d + 20), ptype = be32(d + 24), plen = be32(d + 28);
+  if (depth != 1 && depth != 4 && depth != 8 && depth != 24 && depth != 32)
+    return kUnreadable;
+  const size_t pal_bytes = std::min<size_t>(plen, n - 32);
+  // a palette on a 1, 24 or 32-bit image: putpalette's "wrong mode"; past
+  // 256 entries: "invalid palette size"
+  if (plen && (plen > 1024 || ptype != 1 || depth > 8 || depth == 1 ||
+               pal_bytes / 3 > 256))
+    return kUnreadable;
+  if (type > 5 || w == 0 || h == 0 || static_cast<uint64_t>(w) * h > kMaxPixels)
+    return kUnreadable;
+  dims[0] = static_cast<int>(h);
+  dims[1] = static_cast<int>(w);
+  if (head) return kOk;
+  const size_t row_bytes = (static_cast<size_t>(w) * depth + 7) / 8;
+  const size_t stride = (static_cast<size_t>(w) * depth + 15) / 16 * 2;
+  const size_t offset = 32 + static_cast<size_t>(plen);
+  std::vector<uint8_t> rows(row_bytes * h);
+  if (type != 2) {  // raw
+    if (offset > n || (n - offset) < stride * (h - 1) + row_bytes) return kUnreadable;
+    for (uint32_t y = 0; y < h; y++)
+      std::memcpy(&rows[row_bytes * y], d + offset + stride * y, row_bytes);
+  } else {  // sun_rle
+    size_t pos = offset, x = 0, y = 0;
+    uint8_t* line = rows.data();
+    auto advance = [&](size_t k) {  // k bytes written at x; false when done
+      x += k;
+      if (x >= row_bytes) {
+        x = 0;
+        if (++y >= h) return false;
+        line += row_bytes;
+      }
+      return true;
+    };
+    for (bool more = true; more;) {
+      if (pos >= n) return kUnreadable;  // "image file is truncated"
+      if (d[pos] != 0x80) {
+        line[x] = d[pos++];
+        more = advance(1);
+        continue;
+      }
+      if (n - pos < 2) return kUnreadable;
+      if (d[pos + 1] == 0) {
+        line[x] = 0x80;
+        pos += 2;
+        more = advance(1);
+        continue;
+      }
+      if (n - pos < 3) return kUnreadable;
+      size_t run = d[pos + 1] + 1;
+      const uint8_t v = d[pos + 2];
+      pos += 3;
+      while (run && more) {  // a run spanning rows fills each in turn
+        const size_t k = std::min(run, row_bytes - x);
+        std::memset(line + x, v, k);
+        run -= k;
+        more = advance(k);
+      }
+    }
+  }
+  Out out;
+  if (!out.init(img, w, h)) return kUnreadable;
+  Rgb pal[256];
+  const size_t k = pal_bytes / 3;
+  for (size_t i = 0; i < k; i++)
+    pal[i] = {d[32 + i], d[32 + i + k], d[32 + i + 2 * k]};
+  for (uint32_t y = 0; y < h; y++) {
+    const uint8_t* row = &rows[row_bytes * y];
+    for (uint32_t x = 0; x < w; x++) {
+      Rgb c;
+      if (depth == 24 || depth == 32) {
+        const uint8_t* px = row + static_cast<size_t>(x) * (depth / 8);
+        c = type == 3 ? Rgb{px[0], px[1], px[2]} : Rgb{px[2], px[1], px[0]};
+      } else {
+        int v = depth == 1 ? (row[x >> 3] >> (7 - (x & 7))) & 1
+                : depth == 4 ? (row[x >> 1] >> (x & 1 ? 0 : 4)) & 15
+                             : row[x];
+        if (plen) {
+          c = pal[v];
+        } else {
+          v = depth == 1 ? (v ? 0 : 255) : depth == 4 ? v * 17 : v;
+          c = {static_cast<uint8_t>(v), static_cast<uint8_t>(v), static_cast<uint8_t>(v)};
+        }
+      }
+      out.put(x, y, c.r, c.g, c.b);
+    }
+  }
+  return kOk;
+}
+
 // ------------------------------------------------------------------ PNG
 
 const uint8_t kPngSig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
@@ -1463,12 +1626,10 @@ int foreign(const uint8_t* d, size_t n) {
   auto at = [&](size_t o, const char* s, size_t k) {
     return n >= o + k && !std::memcmp(d + o, s, k);
   };
-  if (at(0, "GIF87a", 6) || at(0, "GIF89a", 6)) return kGif;
   if (at(0, "II*\0", 4) || at(0, "MM\0*", 4) || at(0, "II+\0", 4) ||
       at(0, "MM\0+", 4))
     return kTiff;
   if (at(0, "RIFF", 4) && at(8, "WEBP", 4)) return kWebp;
-  if (at(0, "\x59\xa6\x6a\x95", 4)) return kSunRaster;
   if ((at(0, "PF", 2) || at(0, "Pf", 2)) && n > 2 && c_space(d[2])) return kPfm;
   if (at(0, "#?RADIANCE", 10) || at(0, "#?RGBE", 6)) return kHdr;
   if (at(0, "\0\0\0\x0cjP  \r\n\x87\n", 12) || at(0, "\xff\x4f\xff\x51", 4))
@@ -1491,6 +1652,8 @@ int read_cv2(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     if (is_cv2_pnm(d, n)) return cv2_pnm(d, n, img, out, head);
     if (n >= 3 && d[0] == 'P' && d[1] == '7' && c_space(d[2]))
       return cv2_pam(d, n, img, out, head);
+    if (is_sun(d, n)) return cv2_sun(d, n, img, out, head);
+    if (is_gif_data(d, n)) return gif_cv2(d, n, img, out, head);
   } catch (const Eof&) {
   }
   return kUnreadable;
@@ -1503,6 +1666,8 @@ int read_pil(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     return head ? kUnreadable : pil_png(d, n, img, out);
   if (n >= 2 && d[0] == 'B' && d[1] == 'M') return pil_bmp(d, n, img, out, head);
   if (n >= 2 && d[0] == 'P') return pil_pnm(d, n, img, out, head);
+  if (is_sun(d, n)) return pil_sun(d, n, img, out, head);
+  if (is_gif_data(d, n)) return gif_pil(d, n, img, out, head);
   return kUnreadable;
 }
 

@@ -557,7 +557,7 @@ struct Decoder {
     if (ncomp != 1 && ncomp != 3 && ncomp != 4) return kComponents;
     if (lossless && ari) return kLosslessArithmetic;
     if (width > 65500 || height > 65500 ||
-        static_cast<int64_t>(width) * height > (64LL << 20))
+        static_cast<int64_t>(width) * height > kMaxPixels)
       return kUnreadable;
     for (int i = 0; i < ncomp; i++) {
       Component& c = comp[i];

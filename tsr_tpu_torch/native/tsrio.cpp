@@ -7,15 +7,15 @@
 // (the reference's fallback); and to write every file they write through
 // cv2.imwrite, with the same bytes. It is the port's only codec: no module
 // of the port imports cv2 or PIL, and it links nothing but zlib. Decoded:
-//   - PNG, PNM (P1-P6, ASCII and binary), PAM (P7) and BMP (palette,
-//     16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core header):
-//     formats.cpp, with cv2's reader and PIL's each copied, damaged files
-//     included;
+//   - PNG, PNM (P1-P6, ASCII and binary), PAM (P7), BMP (palette,
+//     16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core header) and Sun
+//     raster: formats.cpp; GIF (the first frame): gif.cpp; each with cv2's
+//     reader and PIL's copied, damaged files included;
 //   - JPEG: jpeg.cpp (baseline, progressive and arithmetic coded, CMYK and
 //     YCCK, damaged data as libjpeg recovers it, EXIF orientation; lossless
 //     JPEG as PIL reads it, where the reference falls back to PIL).
-// A file of a format cv2 reads and the port does not decode (GIF, TIFF,
-// WebP, ...) fails with a Status naming it (codec.h).
+// A file of a format cv2 reads and the port does not decode (TIFF, WebP,
+// PFM, ...) fails with a Status naming it (codec.h).
 // Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
 // (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
 // by construction), PPM (P6), BMP (cv2's 24-bit layout) and JPEG

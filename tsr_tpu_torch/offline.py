@@ -254,9 +254,14 @@ def generate_tree(
     CRC on IHDR, PLTE (palette) or IDAT, a damaged zlib stream or filter
     byte, an unknown critical chunk; an ASCII PNM with a byte past its
     numbers missing or a comment glued to one; an RLE BMP whose stream stops
-    before its last row; a 16-bit BMP with a V2-V5 header; data of a format
-    the port does not decode (GIF, TIFF, WebP, ...). PIL reads some of
-    them, and the reader paths decode those as PIL does.
+    before its last row; a 16-bit BMP with a V2-V5 header; a GIF cut
+    anywhere before its trailer, with a byte between blocks that is no
+    block, a first frame outside the screen, a disposal method past 3, a
+    broken or short LZW stream or an index past its colour tables; a Sun
+    raster cut short, run-length encoded (RT_BYTE_ENCODED) or of type
+    RT_FORMAT_RGB; data of a format the port does not decode (TIFF, WebP,
+    PFM, ...). PIL reads some of them, and the reader paths decode those as
+    PIL does.
 
     One generator seeded with ``seed`` draws a seed for each batch's own
     generator on ``device`` (the reference splits its key per batch), so a
