@@ -184,13 +184,14 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    PIL resize backend, which runs the host path as the reference does)
    and ``evaluate_directory`` over the readable files with phase 3's
    models. A ``jpeg_features:`` JSON line.
-13. The PNG, PNM, PAM, BMP, GIF and Sun raster files cv2 reads and the
-   port once refused, and the damaged ones cv2 gives None for
-   (``image_formats_phase``), from the committed fixtures
+13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance HDR files
+   cv2 reads and the port once refused, and the damaged ones cv2 gives
+   None for (``image_formats_phase``), from the committed fixtures
    (``tests/data/images``): each decoded equal to ``expected.npz`` (cv2's
-   pixels, or PIL's for the damaged files PIL reads) and probed as cv2
-   reads it, the rest raising (PFM, TIFF and WebP data named); host decode
-   rates by format, GIF and Sun raster among them; the whole-file probe of
+   pixels, or PIL's for the damaged files and the gray PFM PIL reads) and
+   probed as cv2 reads it, the rest raising (AVIF, TIFF and WebP data
+   named); host decode rates by format, GIF, Sun raster, PFM and HDR among
+   them; the whole-file probe of
    generate_tree's skip rule timed on phase 5's .ppm and phase 11's .png
    trees; ``generate_tree`` on the fixtures plus the skip files for blur,
    compound and blur_rand (launch counts zeroed just before and read just
@@ -307,17 +308,20 @@ JPEG_SKIP_FIXTURES = {
     "lossless_arith": "lossless arithmetic"}
 JPEG_FEATURE_KINDS = ("blur", "compound", "blur_rand")
 JPEG_FEATURE_DECODES = 1024  # decodes a timed pass of each group, 1 thread
-# phase 13: the PNG, PNM, PAM, BMP, GIF and Sun raster files of
-# tests/data/images (make_fixtures.py): the variants cv2 reads at the top,
-# the files it gives None for (and PFM/TIFF/WebP data the port does not
-# decode) under skip/
+# phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance HDR
+# files of tests/data/images (make_fixtures.py): the variants cv2 reads at
+# the top, the files it gives None for (and AVIF/TIFF/WebP data the port
+# does not decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
-IMAGE_FOREIGN = {"pfm.png": "PFM", "tiff.jpg": "TIFF", "webp.png": "WebP"}
+IMAGE_FOREIGN = {"avif.png": "AVIF", "tiff.jpg": "TIFF", "webp.png": "WebP"}
 # decode groups by file-name prefix
 IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "p5_", "p6_"), "pam": ("pam_",), "bmp_rle": ("bmp_rle",),
                 "bmp_bitfields_core": ("bmp16", "bmp32", "bmp_core"),
-                "png": ("png_",), "gif": ("gif_",), "sun_raster": ("sun_",)}
+                "png": ("png_",), "gif": ("gif_",), "sun_raster": ("sun_",),
+                "pfm": ("pfm",), "hdr": ("hdr_",)}
+# the slices of C7 by file-name prefix, counted apart in phase 13's line
+IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_")}
 IMAGE_KINDS = ("blur", "compound", "blur_rand")
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
@@ -3680,13 +3684,14 @@ def jpeg_features_phase(dev, resunet, judge, work):
 
 
 def image_formats_phase(dev, resunet, judge, rows, work):
-    """Phase 13: the PNG, PNM, PAM, BMP, GIF and Sun raster files cv2 reads
-    and the port once refused (C5, C6, C7), and the damaged ones cv2 gives
-    None for (C4), from the committed fixtures (the card's machine has
-    neither cv2 nor PIL), in ``work``: each top-level fixture decoded equal
-    to ``expected.npz`` and probed as cv2 reads it; each skip/ file probed
-    (0, 0) as cv2 refuses it, decoded as PIL where PIL reads it, raising
-    otherwise (naming PFM/TIFF/WebP data); host decode rates by group; the
+    """Phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance
+    HDR files cv2 reads and the port once refused (C5, C6, C7), and the
+    damaged ones cv2 gives None for (C4), from the committed fixtures (the
+    card's machine has neither cv2 nor PIL), in ``work``: each top-level
+    fixture decoded equal to ``expected.npz`` and probed as cv2 reads it;
+    each skip/ file probed (0, 0) as cv2 refuses it, decoded as PIL where
+    PIL reads it (the gray PFM among them), raising otherwise (naming
+    AVIF/TIFF/WebP data); host decode rates by group; the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
     generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
     just before and read just after each call, the written count the
@@ -3731,17 +3736,19 @@ def image_formats_phase(dev, resunet, judge, rows, work):
                   in str(e), f"skip/{p.name}: {e}")
         else:
             check(False, f"skip/{p.name} decoded; cv2 and PIL refuse it")
-    new = ("gif_", "sun_")  # C7's first part
     result["fixtures"] = {
         "cv2_reads": len(cases), "skip": len(skips),
-        "skip_pil_reads": len(pil_read), "foreign": len(IMAGE_FOREIGN),
-        "gif_sun_cv2_reads": sum(p.name.startswith(new) for p in cases),
-        "gif_sun_skip": sum(p.name.startswith(new) for p in skips),
-        "gif_sun_skip_pil_reads": sum(p.name.startswith(new)
-                                      for p in pil_read)}
+        "skip_pil_reads": len(pil_read), "foreign": len(IMAGE_FOREIGN)}
+    for name, prefixes in IMAGE_SLICES.items():
+        for key, files in (("cv2_reads", cases), ("skip", skips),
+                           ("skip_pil_reads", pil_read)):
+            result["fixtures"][f"{name}_{key}"] = sum(
+                p.name.startswith(prefixes) for p in files)
+    check(result["fixtures"]["pfm_hdr_skip_pil_reads"] >= 1,
+          "the gray PFM PIL reads is among the skip/ files")
     print("image formats: " + json.dumps(result["fixtures"]) + ": fixtures "
           "equal to expected.npz, skip/ files refused by the cv2 probe, "
-          "decoded as PIL or raising (PFM/TIFF/WebP named)")
+          "decoded as PIL or raising (AVIF/TIFF/WebP named)")
     groups = {g: [str(p) for p in cases if p.name.startswith(prefixes)]
               for g, prefixes in IMAGE_GROUPS.items()}
     rates = group_decode_rates(groups)
@@ -3826,6 +3833,20 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     result["generate_tree"] = gen
     check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
           "B2 and B3 launched on the image formats path")
+    # the buckets only this slice's PFM and HDR files bring: B3 and B2 are
+    # held at the first batch of every bucket below, these among them
+    this_slice = [p.name.startswith(IMAGE_SLICES["pfm_hdr"])
+                  for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]
+    result["pfm_hdr_buckets"] = {}
+    for kind in IMAGE_KINDS:
+        halo = offline.HALO.get(kind, 0)
+        mine = tree_buckets([s for s, m in zip(sides, this_slice) if m], halo)
+        rest = tree_buckets([s for s, m in zip(sides, this_slice) if not m],
+                            halo)
+        result["pfm_hdr_buckets"][kind] = sorted(
+            list(b) for b in set(mine) - set(rest))
+    print("buckets only the PFM and HDR files bring: "
+          + json.dumps(result["pfm_hdr_buckets"]))
     check_blur_at_buckets(dev, kept, rows, key="image_format_times")
 
     n_readable = len(cases) + len(pil_read)

@@ -1,8 +1,10 @@
-"""Writes the PNG, PNM, PAM, BMP, GIF and Sun raster fixtures of
-``tests/test_torch_port_image_formats.py`` and of ``chip_smoke.py``'s image
-formats phase into this directory, with cv2, PIL and the byte writers below
-(neither library writes ASCII PNM, PAM, RLE or bitfield BMP, GIF's every
-variant or any Sun raster but raw 24-bit as needed):
+"""Writes the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance HDR
+fixtures of ``tests/test_torch_port_image_formats.py`` and of
+``chip_smoke.py``'s image formats phase into this directory, with cv2, PIL
+and the byte writers below (neither library writes ASCII PNM, PAM, RLE or
+bitfield BMP, GIF's every variant, any Sun raster but raw 24-bit, a
+big-endian PFM, a PFM scale other than -1 or an HDR header other than
+cv2's, as needed):
 
 - ``<case>``: CASES, files cv2.imread reads: the PNM family outside P5/P6
   (ASCII P1-P3, bitmap P4, PAM P7 of every TUPLTYPE), the BMP variants
@@ -11,14 +13,19 @@ variant or any Sun raster but raw 24-bit as needed):
   bytes after IEND), GIFs (``gif_*.png``: interlaced, local and global
   colour tables, transparency, a frame inside a larger screen, two frames,
   LZW code sizes 2 and 8, clear codes mid-stream, a full code table, a gray
-  palette, extensions) and Sun rasters (``sun_*.ppm``: 1, 8, 24 and 32
-  bits, colour maps, RT_OLD, an odd width);
+  palette, extensions), Sun rasters (``sun_*.ppm``: 1, 8, 24 and 32
+  bits, colour maps, RT_OLD, an odd width), PFM (``pfm*``: cv2's writer,
+  big endian, scales 0.5 and 3, samples past 255, negative, NaN and
+  infinite, ties, odd header whitespace) and Radiance HDR (``hdr_*.png``:
+  cv2's run-length and flat writers, the ``#?RGBE`` signature, EXPOSURE
+  and other header lines, a width under 8, zero exponents, values past 1,
+  runs and literals of every length, a scanline that falls back to flat);
 - ``skip/<case>``: SKIP_CASES, files cv2.imread gives None for (cut,
   corrupt, a refused variant), some of which PIL reads (a GIF without its
   trailer, a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB, which
-  OpenCV 5 refuses); and FOREIGN, PFM, TIFF and WebP data under .png and
-  .jpg names (formats cv2 reads by signature and the port does not
-  decode);
+  OpenCV 5 refuses, a gray PFM, which cv2 refuses under IMREAD_COLOR); and
+  FOREIGN, AVIF, TIFF and WebP data under .png and .jpg names (formats cv2
+  reads by signature and the port does not decode);
 - ``expected.npz``: ``decoded__<case>`` = what the reference's readers give
   for each CASES file as RGB (``cv2.imread``; the pixels cv2 leaves
   unwritten, see ``cv2_written``, set to 0), ``decoded_skip__<case>`` =
@@ -44,6 +51,7 @@ from PIL import Image
 HERE = Path(__file__).resolve().parent
 SEED = 12
 GIF_SEED = 14  # the GIF and Sun raster files draw from their own stream
+PFM_HDR_SEED = 15  # and the PFM and Radiance HDR files from theirs
 
 
 def smooth(rng, h, w):
@@ -320,6 +328,70 @@ def sun(rows, w, depth, ras_type=1, cmap=None):
     length = 0 if ras_type == 0 else len(body)
     return (struct.pack(">8I", 0x59A66A95, w, len(rows), depth, length,
                         ras_type, int(cmap is not None), len(cm)) + cm + body)
+
+
+def pfm(samples, scale=b"-1.0", seps=(b"\n", b" ", b"\n", b"\n")):
+    """A PFM of float ``samples`` ([h, w, 3]: "PF"; [h, w]: "Pf"): the
+    magic, width, height and scale each followed by its byte of ``seps``,
+    then the rows bottom to top, big endian unless ``scale`` is
+    negative."""
+    h, w = samples.shape[:2]
+    big = not scale.startswith(b"-")
+    body = np.ascontiguousarray(samples[::-1]).astype(">f4" if big else "<f4")
+    return ((b"PF" if samples.ndim == 3 else b"Pf") + seps[0] + b"%d" % w
+            + seps[1] + b"%d" % h + seps[2] + scale + seps[3]
+            + body.tobytes())
+
+
+def rgbe(img):
+    """Radiance's float2rgbe of float RGB ``img`` [h, w, 3] -> uint8 [h, w,
+    4]: the mantissas of the largest channel's exponent, and the exponent
+    + 128 (0 for a pixel below 1e-32)."""
+    v = img.max(axis=2)
+    m, e = np.frexp(v)
+    keep = v >= 1e-32
+    out = np.zeros(img.shape[:2] + (4,), np.uint8)
+    scale = np.where(keep, m * 256.0 / np.where(keep, v, 1), 0)
+    out[..., :3] = (img * scale[..., None]).astype(np.uint8)
+    out[..., 3] = np.where(keep, e + 128, 0)
+    return out
+
+
+def hdr_channel(vals):
+    """One channel of a new-style RLE scanline: runs of 3 or more as 128 +
+    count (at most 127) and the byte, the rest as literal pieces of at
+    most 128 bytes."""
+    out, i, n = bytearray(), 0, len(vals)
+    while i < n:
+        run = 1
+        while i + run < n and vals[i + run] == vals[i] and run < 127:
+            run += 1
+        if run >= 3:
+            out += bytes([128 + run, vals[i]])
+            i += run
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (
+                j + 2 < n and vals[j] == vals[j + 1] == vals[j + 2]):
+            j += 1
+        out += bytes([j - i]) + bytes(vals[i:j])
+        i = j
+    return bytes(out)
+
+
+def hdr(px, head=b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n", res=None,
+        rle_rows=None):
+    """A Radiance HDR of RGBE pixels ``px`` (uint8 [h, w, 4]): ``head``,
+    the resolution line ``res`` (default "-Y h +X w"), then the first
+    ``rle_rows`` scanlines (default all) run-length encoded and the rest
+    flat."""
+    h, w = px.shape[:2]
+    rle_rows = h if rle_rows is None else rle_rows
+    body = b"".join(bytes([2, 2, w >> 8, w & 255]) + b"".join(
+        hdr_channel(px[y, :, c].tobytes()) for c in range(4))
+        for y in range(rle_rows))
+    return (head + (res or b"-Y %d +X %d\n" % (h, w)) + body
+            + px[rle_rows:].tobytes())
 
 
 def bmp_palette(pal, size=4):
@@ -625,15 +697,107 @@ def gif_sun_skip_cases(rng):
     return out
 
 
-def foreign(rng):
-    """PFM, TIFF and WebP data under .png and .jpg names."""
+def pfm_hdr_cases(rng):
+    """{name: bytes} of the PFM and Radiance HDR files cv2.imread reads."""
     out = {}
-    for name, fmt, h, w in (("pfm.png", "PFM", 24, 30),
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    ok, enc = cv2.imencode(".pfm", f32(smooth(rng, 24, 30))[:, :, ::-1])
+    assert ok
+    out["pfm.png"] = enc.tobytes()  # cv2's writer: little endian, -1
+    out["pfm_big_endian.ppm"] = pfm(f32(smooth(rng, 16, 21)), b"1.0")
+    out["pfm_scale_half.png"] = pfm(f32(smooth(rng, 15, 19)) / 2, b"-0.5")
+    out["pfm_scale_3.ppm"] = pfm(f32(smooth(rng, 17, 18)) * 3, b"3")
+    img = f32(smooth(rng, 12, 14))
+    img[::2] = img[::2] * 40 + 256  # past 255, up to past 2^31
+    img[1, :4, 1] = [2.1e9, 2.2e9, 3e9, 1e30]
+    out["pfm_above_255.png"] = pfm(img)
+    img = f32(smooth(rng, 12, 13)) - 128
+    img[0, :4, 0] = [-0.5, -1e-30, -3e9, -0.0]
+    out["pfm_negative.png"] = pfm(img)
+    img = f32(smooth(rng, 11, 13))
+    img[::3, ::2] = np.nan
+    img[1::3, ::2] = np.inf
+    img[2::3, ::2] = -np.inf
+    out["pfm_nan_inf.png"] = pfm(img, b"1")
+    img = np.floor(f32(smooth(rng, 10, 16))) + 0.5  # ties: half to even
+    out["pfm_ties.png"] = pfm(img)
+    out["pfm_odd_header.png"] = pfm(  # any whitespace ends a field
+        f32(smooth(rng, 13, 15)), b"-1e0", (b"\n", b"\t", b"\r", b"\x0b"))
+
+    x = f32(smooth(rng, 24, 32)) / 255 * 1.5
+    ok, enc = cv2.imencode(".hdr", x[:, :, ::-1])  # run-length encoded
+    assert ok
+    out["hdr_rle.png"] = enc.tobytes()
+    x = f32(smooth(rng, 20, 26)) / 255
+    ok, enc = cv2.imencode(".hdr", x[:, :, ::-1], [
+        cv2.IMWRITE_HDR_COMPRESSION, cv2.IMWRITE_HDR_COMPRESSION_NONE])
+    assert ok
+    out["hdr_flat.png"] = enc.tobytes()
+    out["hdr_rgbe_signature.png"] = hdr(
+        rgbe(smooth(rng, 18, 24) / 255), b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n")
+    out["hdr_exposure.png"] = hdr(rgbe(smooth(rng, 16, 20) / 255), (
+        b"#?RADIANCE\n# made by hand\nGAMMA=2.2\nFORMAT=32-bit_rle_rgbe\n"
+        b"EXPOSURE=2.0\nPRIMARIES=0.64 0.33 0.3 0.6 0.15 0.06 0.3 0.33\n\n"))
+    out["hdr_narrow.png"] = hdr(rgbe(smooth(rng, 21, 6) / 255))  # flat
+    px = rgbe(smooth(rng, 14, 18) / 255)
+    px[3:9, 2:12, 3] = 0  # a zero exponent reads black whatever R, G, B
+    out["hdr_zero_exponent.png"] = hdr(px)
+    px = rgbe(smooth(rng, 14, 16) / 255 * 4)  # past 1: 255
+    px[::3, :, 3] = 152  # R, G or B past 128: past 2^31 after x 255, so 0
+    px[1::3, :8, 3] = 143
+    out["hdr_above_1.png"] = hdr(px)
+    px = rgbe(smooth(rng, 12, 20) / 255)
+    out["hdr_flat_fallback.png"] = hdr(px, rle_rows=5)
+    px = np.repeat(rgbe(smooth(rng, 4, 400) / 255)[:, ::3], 3, axis=1)[:, :400]
+    px[:, 60:200] = rgbe(smooth(rng, 4, 140) / 255)  # a 128-byte literal
+    px[:, 200:] = px[:, 200:201]  # a run of 127
+    out["hdr_runs.png"] = hdr(px)
+    return out
+
+
+def pfm_hdr_skip_cases(rng):
+    """{name: bytes} of PFM and Radiance HDR files cv2.imread gives None
+    for."""
+    out = {}
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    img = f32(smooth(rng, 18, 22))
+    out["pfm_gray.png"] = pfm(gray(img).astype(np.float32)
+                              + 0.7)  # PIL reads it: truncated
+    g = f32(smooth(rng, 17, 15))[:, :, 0] * 1.2 - 20  # < 0 and > 255
+    g[2, :5] = [np.nan, np.inf, -np.inf, 254.99, 0.5]
+    out["pfm_gray_big_endian.ppm"] = pfm(g, b"2")
+    whole = pfm(f32(smooth(rng, 16, 20))[:, :, 0])
+    out["pfm_gray_cut.png"] = whole[:len(whole) * 2 // 3]
+    whole = pfm(f32(smooth(rng, 15, 18)))
+    out["pfm_cut.png"] = whole[:len(whole) * 2 // 3]
+    out["pfm_scale_zero.png"] = pfm(f32(smooth(rng, 14, 16)), b"0")
+    out["pfm_no_line_feed.png"] = pfm(f32(smooth(rng, 12, 14)), b"-1",
+                                      (b" ", b" ", b"\n", b"\n"))
+
+    px = rgbe(smooth(rng, 16, 22) / 255)
+    whole = hdr(px)
+    out["hdr_cut.png"] = whole[:len(whole) * 2 // 3]
+    out["hdr_plus_y.png"] = hdr(px, res=b"+Y 16 +X 22\n")
+    out["hdr_x_first.png"] = hdr(px, res=b"+X 22 -Y 16\n")
+    out["hdr_xyze.png"] = hdr(px, b"#?RADIANCE\nFORMAT=32-bit_rle_xyze\n\n")
+    line = bytearray(hdr(px[:1], head=b"", res=b"\n")[1:])
+    line[4:6] = bytes([128 + 30, line[5]])  # a run past the channel's end
+    out["hdr_overrun.png"] = (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+                              b"-Y 16 +X 22\n" + bytes(line)
+                              + hdr(px[1:], head=b"", res=b"\n")[1:])
+    out["hdr_wrong_width.png"] = hdr(px, res=b"-Y 16 +X 21\n")
+    return out
+
+
+def foreign(rng):
+    """AVIF, TIFF and WebP data under .png and .jpg names."""
+    out = {}
+    for name, fmt, h, w in (("avif.png", "AVIF", 24, 30),
                             ("tiff.jpg", "TIFF", 28, 22),
                             ("webp.png", "WEBP", 26, 32)):
         img = smooth(rng, h, w)
-        if fmt == "PFM":  # cv2 writes it (PIL does not)
-            ok, enc = cv2.imencode(".pfm", img.astype(np.float32) / 255)
+        if fmt == "AVIF":  # cv2's writer
+            ok, enc = cv2.imencode(".avif", img[:, :, ::-1])
             assert ok
             out[name] = enc.tobytes()
             continue
@@ -679,7 +843,9 @@ def make(out: Path = HERE) -> dict:
     (out / "skip").mkdir(parents=True, exist_ok=True)
     written = 0
     gif_rng = np.random.default_rng(GIF_SEED)
-    for name, data in {**cases(rng), **gif_sun_cases(gif_rng)}.items():
+    pfm_rng = np.random.default_rng(PFM_HDR_SEED)
+    for name, data in {**cases(rng), **gif_sun_cases(gif_rng),
+                       **pfm_hdr_cases(pfm_rng)}.items():
         p = out / name
         p.write_bytes(data)
         img = cv2.imread(str(p))
@@ -689,7 +855,8 @@ def make(out: Path = HERE) -> dict:
         arrays[f"decoded__{name}"] = img
         written += 1
     for name, data in {**skip_cases(rng), **foreign(rng),
-                       **gif_sun_skip_cases(gif_rng)}.items():
+                       **gif_sun_skip_cases(gif_rng),
+                       **pfm_hdr_skip_cases(pfm_rng)}.items():
         p = out / "skip" / name
         p.write_bytes(data)
         assert cv2.imread(str(p)) is None or name in FOREIGN, name
@@ -704,12 +871,15 @@ def make(out: Path = HERE) -> dict:
 def _names():
     rng = np.random.default_rng(SEED)
     gif_rng = np.random.default_rng(GIF_SEED)
-    found = tuple(cases(rng)) + tuple(gif_sun_cases(gif_rng))
-    return found, tuple(skip_cases(rng)) + tuple(gif_sun_skip_cases(gif_rng))
+    pfm_rng = np.random.default_rng(PFM_HDR_SEED)
+    found = (tuple(cases(rng)) + tuple(gif_sun_cases(gif_rng))
+             + tuple(pfm_hdr_cases(pfm_rng)))
+    return found, (tuple(skip_cases(rng)) + tuple(gif_sun_skip_cases(gif_rng))
+                   + tuple(pfm_hdr_skip_cases(pfm_rng)))
 
 
 CASES, SKIP_CASES = _names()
-FOREIGN = ("pfm.png", "tiff.jpg", "webp.png")
+FOREIGN = ("avif.png", "tiff.jpg", "webp.png")
 
 if __name__ == "__main__":
     make()

@@ -1,6 +1,6 @@
-"""The PNG, PNM, PAM, BMP, GIF and Sun raster files the reference reads
-(cv2.imread, else PIL's convert("RGB")) and the port once refused or read
-differently, against cv2, PIL and tsr_tpu on the CPU:
+"""The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance HDR files the
+reference reads (cv2.imread, else PIL's convert("RGB")) and the port once
+refused or read differently, against cv2, PIL and tsr_tpu on the CPU:
 
 - C5: ASCII P1-P3 (rescaled to 8 bits), bitmap P4 and PAM P7 of every
   TUPLTYPE, with cv2's quirks;
@@ -15,10 +15,15 @@ differently, against cv2, PIL and tsr_tpu on the CPU:
   in the background colour, a transparent pixel keeping it) and Sun raster
   (cv2's 1/8/24/32-bit raw files, PIL's RT_BYTE_ENCODED and RT_FORMAT_RGB,
   which OpenCV 5 refuses), cut and mutated too;
-- C7: PFM, TIFF and WebP data under .png/.jpg names raise naming their
+- C7, part 2: PFM (cv2's colour "PF": big or little endian by the scale's
+  sign, divided by its magnitude, rounded half to even with NaN, infinities
+  and values past the int range reading 0; PIL's gray "Pf", which cv2
+  refuses under IMREAD_COLOR: truncated) and Radiance HDR (run-length
+  encoded and flat, x 255 and rounded), cut and mutated too;
+- C7: AVIF, TIFF and WebP data under .png/.jpg names raise naming their
   format (the port does not decode them).
 
-The fixtures are tests/data/images (make_fixtures.py): 19x21 to 45x80.
+The fixtures are tests/data/images (make_fixtures.py): sides 4 to 400.
 """
 
 import importlib.util
@@ -126,7 +131,8 @@ def test_skip_class_reads_as_reference(name):
             native.load_batch([p], SIZE)
 
 
-@pytest.mark.parametrize("name,fmt", [("pfm.png", "PFM"), ("tiff.jpg", "TIFF"),
+@pytest.mark.parametrize("name,fmt", [("avif.png", "AVIF"),
+                                      ("tiff.jpg", "TIFF"),
                                       ("webp.png", "WebP")])
 def test_foreign_format_raises_naming_it(name, fmt):
     """C7: data of a format cv2 reads by its signature and the port does
@@ -195,13 +201,10 @@ GIF_SUN = [n for n in CASES if n.startswith(("gif_", "sun_"))] + [
     and f"decoded_skip__{n}" in EXPECTED.files]
 
 
-@pytest.mark.parametrize("name", GIF_SUN)
-def test_gif_and_sun_load_canvas_and_probe(name):
-    """Each readable GIF and Sun raster (cv2's, and PIL's where cv2
-    refuses): load_canvas puts decode's pixels at the top-left of its slot
-    and zeros around them; the header probe gives the decoded (h, w) where
-    cv2 reads the file (it reads cv2's header first, so a GIF whose frame
-    leaves the screen probes at the screen's size)."""
+def _canvas_and_probe(name):
+    """load_canvas puts decode's pixels at the top-left of the slot and
+    zeros around them; the header probe gives the decoded (h, w) where cv2
+    reads the file."""
     p = str(FIXTURES / name)
     img = native.decode(p)
     h, w = img.shape[:2]
@@ -213,19 +216,104 @@ def test_gif_and_sun_load_canvas_and_probe(name):
         assert native.probe([p]).tolist() == [[h, w]]
 
 
+@pytest.mark.parametrize("name", GIF_SUN)
+def test_gif_and_sun_load_canvas_and_probe(name):
+    """Each readable GIF and Sun raster (cv2's, and PIL's where cv2
+    refuses): load_canvas puts decode's pixels at the top-left of its slot
+    and zeros around them; the header probe gives the decoded (h, w) where
+    cv2 reads the file (it reads cv2's header first, so a GIF whose frame
+    leaves the screen probes at the screen's size)."""
+    _canvas_and_probe(name)
+
+
+# -------------------------------------------------- C7: PFM and Radiance
+
+PFM_HDR = [n for n in CASES if n.startswith(("pfm", "hdr_"))] + [
+    "skip/" + n for n in SKIPS if n.startswith(("pfm", "hdr_"))
+    and f"decoded_skip__{n}" in EXPECTED.files]
+
+
+@pytest.mark.parametrize("name", PFM_HDR)
+def test_pfm_and_hdr_load_canvas_and_probe(name):
+    """Each readable PFM and Radiance HDR (cv2's, and the gray PFM PIL
+    reads where cv2 refuses it): load_canvas puts decode's pixels at the
+    top-left of its slot and zeros around them; the header probe gives the
+    decoded (h, w) where cv2 reads the file."""
+    _canvas_and_probe(name)
+
+
+def _cv2_u8(v):
+    """cv::saturate_cast<uchar>(float): half to even, NaN, infinities and
+    values past the int range 0."""
+    v = np.asarray(v, np.float32)
+    inside = (v > -2.0 ** 31) & (v < 2.0 ** 31)
+    return np.where(inside, np.clip(np.rint(np.where(inside, v, 0)), 0, 255),
+                    0).astype(np.uint8)
+
+
+def _pfm_model(data):
+    """A PFM file's pixels as the two readers' arithmetic gives them, from
+    numpy: colour "PF" as cv2 (samples x (float)(1 / |scale|), rounded);
+    gray "Pf" as PIL's convert("RGB") (truncated, clamped, NaN 0)."""
+    fields = re.match(rb"P([Ff])\n(\S+)\s(\S+)\s(\S+)\s", data)
+    w, h, scale = int(fields[2]), int(fields[3]), float(fields[4])
+    ch = 3 if fields[1] == b"F" else 1
+    body = np.frombuffer(data, ">f4" if scale >= 0 else "<f4",
+                         w * h * ch, fields.end()).reshape(h, w, ch)[::-1]
+    if ch == 3:
+        return _cv2_u8(body * np.float32(1 / abs(scale)))
+    with np.errstate(invalid="ignore"):
+        gray = np.where(np.isnan(body), 0, np.clip(body, 0, 255))
+    return np.repeat(gray.astype(np.uint8), 3, axis=2)
+
+
+def _hdr_flat_model(data):
+    """A flat Radiance HDR's pixels as cv2's arithmetic gives them, from
+    numpy: R, G, B x (float)2^(e - 136), x 255, rounded (0 where e is
+    0)."""
+    head, res = re.match(rb"(.*?\n\n)(-Y (\d+) \+X (\d+)\n)", data,
+                         re.S).groups()[:2]
+    h, w = map(int, re.match(rb"-Y (\d+) \+X (\d+)", res).groups())
+    px = np.frombuffer(data, np.uint8, w * h * 4, len(head) + len(res))
+    px = px.reshape(h, w, 4)
+    f = np.ldexp(1.0, px[..., 3:].astype(int) - 136).astype(np.float32)
+    v = px[..., :3].astype(np.float32) * f * np.float32(255)
+    return np.where(px[..., 3:] > 0, _cv2_u8(v), 0).astype(np.uint8)
+
+
+PFM_HDR_ARITHMETIC = [n for n in CASES if n.startswith("pfm")] + [
+    "hdr_flat.png", "hdr_narrow.png", "skip/pfm_gray.png",
+    "skip/pfm_gray_big_endian.ppm"]
+
+
+@pytest.mark.parametrize("name", PFM_HDR_ARITHMETIC)
+def test_pfm_and_hdr_arithmetic(name):
+    """decode equals the readers' arithmetic rebuilt in numpy from the
+    file's bytes: cv2 scales a PFM by 1 / |scale| and a Radiance HDR by 255
+    (so a PFM of samples 0-255 reads back whole), rounds half to even and
+    reads NaN, infinities and values past 2^31 as 0; PIL truncates a gray
+    PFM; and the fixture's pixels are not all 0 and 1."""
+    data = (FIXTURES / name).read_bytes()
+    want = _pfm_model(data) if data.startswith(b"P") else _hdr_flat_model(
+        data)
+    got = native.decode(str(FIXTURES / name))
+    np.testing.assert_array_equal(got, want)
+    assert got.max() > 1
+
+
 def test_foreign_formats_match_codec_header():
     """native.FORMATS names codec.h's foreign-format statuses in their
     order (after FEATURES), so _failure names the format a status means;
-    GIF and Sun raster are gone from both."""
+    GIF, Sun raster, PFM and Radiance HDR are gone from both."""
     header = (Path(native.__file__).parent / "codec.h").read_text()
     start = header.index("enum Status")
     enum = header[start:header.index("};", start)]
     codes = [int(v) for v in re.findall(r"= (-\d+),", enum)]
     assert codes == list(range(-1, -len(native.FEATURES)
                                - len(native.FORMATS) - 1, -1))
-    assert native.FORMATS == ("TIFF", "WebP", "PFM", "Radiance HDR",
-                              "JPEG 2000", "AVIF")
+    assert native.FORMATS == ("TIFF", "WebP", "JPEG 2000", "AVIF")
     assert "kGif" not in enum and "kSunRaster" not in enum
+    assert "kPfm" not in enum and "kHdr" not in enum
     for status, fmt in enumerate(native.FORMATS, len(native.FEATURES) + 1):
         assert f"holds {fmt} data" in str(native._failure("x", -status))
 
@@ -233,13 +321,15 @@ def test_foreign_formats_match_codec_header():
 # ------------------------------------------------------------ C4: cuts
 
 # one file of each class: PNG, PNM ASCII, PAM, BMP raw and RLE, GIF (plain,
-# interlaced with a transparent index, a frame inside a larger screen) and
-# Sun raster (raw, and the RLE PIL reads)
+# interlaced with a transparent index, a frame inside a larger screen), Sun
+# raster (raw, and the RLE PIL reads), PFM (cv2's colour, PIL's gray) and
+# Radiance HDR (run-length encoded, flat, and RLE falling back to flat)
 CUT_FILES = ("png_text_bad_crc.png", "p3_max255.ppm", "p1_ascii.ppm",
              "pam_rgb.ppm", "bmp16_565_bitfields.bmp", "bmp_rle8.bmp",
              "bmp_rle4.bmp", "gif_mid_clear.png", "gif_transparent.png",
              "gif_frame_offset.png", "sun_8bit_map.ppm",
-             "skip/sun_rle8.ppm")
+             "skip/sun_rle8.ppm", "pfm_big_endian.ppm", "skip/pfm_gray.png",
+             "hdr_rle.png", "hdr_narrow.png", "hdr_flat_fallback.png")
 
 
 def _cut_cases():
@@ -275,18 +365,26 @@ def test_mutated_files_read_as_reference(tmp_path, seed):
     parsers care about: where cv2 reads one, the port's probe and decode
     equal it; where only PIL does, decode equals PIL and the probe refuses
     it; where neither does, both refuse it."""
-    rng = np.random.default_rng(2000 + seed)
     seeds = [p for p in sorted(FIXTURES.glob("*.*")) + sorted(
         (FIXTURES / "skip").glob("*.*"))
         if p.suffix != ".py" and p.suffix != ".npz"
         and p.name not in make_fixtures.FOREIGN]
+    _mutate_and_check(tmp_path, np.random.default_rng(2000 + seed), seeds,
+                      [0, 255, 32, 10, 35, 48, 49], 160)
+
+
+def _mutate_and_check(tmp_path, rng, seeds, values, head_bytes, words=()):
+    """60 files from ``seeds``: bytes overwritten, flipped, cut, inserted or
+    deleted, set to one of ``values`` or, with ``words``, one of them
+    inserted (half of them in the first ``head_bytes``), each read as the
+    reference reads it."""
     for k in range(60):
         src = seeds[int(rng.integers(len(seeds)))]
         data = bytearray(src.read_bytes())
-        kind = int(rng.integers(6))
-        head = rng.integers(2) == 0  # half of them in the first 160 bytes
+        kind = int(rng.integers(7 if words else 6))
+        head = rng.integers(2) == 0
         for _ in range(int(rng.integers(1, 4))):
-            i = int(rng.integers(2, min(len(data), 160) if head
+            i = int(rng.integers(2, min(len(data), head_bytes) if head
                                  else len(data)))
             if kind == 0:
                 data[i] = int(rng.integers(256))
@@ -299,11 +397,33 @@ def test_mutated_files_read_as_reference(tmp_path, seed):
                                                dtype=np.uint8))
             elif kind == 4:
                 del data[i:i + 1 + int(rng.integers(16))]
+            elif kind == 5:
+                data[i] = int(rng.choice(values))
             else:
-                data[i] = int(rng.choice([0, 255, 32, 10, 35, 48, 49]))
+                data[i:i] = words[int(rng.integers(len(words)))]
         p = tmp_path / f"m{k}{src.suffix}"
         p.write_bytes(bytes(data))
         _reads_as_reference(p)
+
+
+# the header words and bytes the PFM and Radiance readers care about
+PFM_HDR_WORDS = (b"FORMAT=32-bit_rle_rgbe\n", b"\n", b"#", b"-Y ", b"+X ",
+                 b" ", b"nan", b"inf", b"-", b"\0", b"1e5", b"_", b"\r",
+                 b"\t", b"\x02\x02", b"\x81")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_mutated_pfm_and_hdr_read_as_reference(tmp_path, seed):
+    """60 files a seed, each a PFM or Radiance HDR fixture (readable or
+    damaged) mutated as above, or with a header word inserted (a FORMAT
+    line, a line feed, a sign, NaN, a NUL, an RLE scanline start...): the
+    port's probe and decode read it as the reference reads it."""
+    seeds = [p for p in sorted(FIXTURES.glob("*.*")) + sorted(
+        (FIXTURES / "skip").glob("*.*"))
+        if p.name.startswith(("pfm", "hdr_"))]
+    _mutate_and_check(tmp_path, np.random.default_rng(3000 + seed), seeds,
+                      [0, 255, 32, 10, 13, 35, 48, 49, 2, 128, 129, 45],
+                      60, PFM_HDR_WORDS)
 
 
 # ------------------------------------------------------- generate_tree

@@ -1,5 +1,5 @@
-"""The port's image IO: ``tsrio.cpp``, ``jpeg.cpp``, ``formats.cpp`` and
-``gif.cpp`` bound with ``ctypes``.
+"""The port's image IO: ``tsrio.cpp``, ``jpeg.cpp``, ``formats.cpp``,
+``gif.cpp`` and ``hdr.cpp`` bound with ``ctypes``.
 
 The port's own copy of ``tsr_tpu/native`` and its only codec (no module of
 the port imports cv2 or PIL, and the library links nothing but zlib). It
@@ -10,13 +10,16 @@ type and interlacing; PNM (ASCII P1-P3, binary P4-P6, any maxval) and PAM
 (P7); BMP (palette, 16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core
 header); GIF (the first frame, as OpenCV's own decoder composes it) and
 Sun raster (1/8/24/32-bit; run-length encoded and RGB-ordered ones as PIL
-reads them, which OpenCV refuses); JPEG (baseline, progressive and
-arithmetic coded, CMYK and YCCK, data cut short or corrupt as libjpeg
-recovers it, lossless); EXIF orientation applied as cv2 applies it, in
-PNG's eXIf too. Damaged files read as cv2 or PIL read them
-(``formats.cpp`` and ``gif.cpp`` copy both readers). Data of a format cv2
-reads and the port does not decode (:data:`FORMATS`: TIFF, WebP, PFM, ...)
-raises naming the format. It writes ``.ppm``, ``.bmp`` and
+reads them, which OpenCV refuses); PFM (colour as cv2 reads it: either byte
+order, divided by the scale's magnitude, rounded to 8 bits; gray as PIL
+reads it, which cv2 refuses) and Radiance HDR (run-length encoded or flat,
+x 255 and rounded); JPEG (baseline, progressive and arithmetic coded, CMYK
+and YCCK, data cut short or corrupt as libjpeg recovers it, lossless); EXIF
+orientation applied as cv2 applies it, in PNG's eXIf too. Damaged files
+read as cv2 or PIL read them (``formats.cpp`` and ``gif.cpp`` copy both
+readers, ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads
+and the port does not decode (:data:`FORMATS`: TIFF, WebP, JPEG 2000 and
+AVIF) raises naming the format. It writes ``.ppm``, ``.bmp`` and
 ``.jpg``/``.jpeg`` files byte-equal to
 ``cv2.imwrite``'s at its defaults, and ``.png`` files pixel-equal to
 cv2's. Around the
@@ -51,7 +54,7 @@ from tsr_tpu_torch.kernels import _build
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp",
-           _HERE / "gif.cpp")
+           _HERE / "gif.cpp", _HERE / "hdr.cpp")
 HEADERS = (_HERE / "codec.h",)
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
@@ -69,7 +72,7 @@ FEATURES = (
 )
 # the formats cv2.imread reads and the port does not decode, told by their
 # signatures, in codec.h's order after FEATURES
-FORMATS = ("TIFF", "WebP", "PFM", "Radiance HDR", "JPEG 2000", "AVIF")
+FORMATS = ("TIFF", "WebP", "JPEG 2000", "AVIF")
 _READERS = {"port": 0, "cv2": 1}
 _RESIZE_MODES = {"cv2": 0, "pil": 1}
 
@@ -246,8 +249,20 @@ def probe(paths: Sequence[str], threads: int = 8,
       which PIL reads, are refused), 1, 8, 24 or 32 bits, no map or an
       RMT_EQUAL_RGB map of at most 2^depth entries (1 and 8 bits), every
       row padded to 16 bits;
+    - PFM: colour "PF" only (a gray "Pf", which PIL reads and the port
+      decodes as PIL does, is refused), a line feed after the magic, each
+      field ended by one whitespace byte and no byte past 127 in it, a
+      nonzero scale, every row of the body;
+    - Radiance HDR: a "FORMAT=32-bit_rle_rgbe" line before the blank line
+      that ends the header, a "-Y h +X w" resolution line (any other
+      orientation is refused), every scanline present, each run or literal
+      inside its scanline and each RLE scanline of the header's width;
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
-      does not decode it)."""
+      does not decode it).
+
+    A PFM whose header gives a side of 0 or past 2^20 makes cv2.imread
+    raise, so the reference reads no pixels of it: it probes ``(0, 0)``
+    and does not decode, though PIL reads a gray one."""
     if reader not in _READERS:
         raise ValueError(f"unknown reader {reader!r}; one of "
                          f"{tuple(_READERS)}")

@@ -1,9 +1,11 @@
-// codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp and gif.cpp share: the
-// decoded image, the status codes a decode or a header probe returns, the
-// JPEG codec's entry points, the PNG/PNM/PAM/BMP/Sun raster and GIF readers
-// and the EXIF orientation both JPEG and PNG carry.
+// codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp, gif.cpp and hdr.cpp
+// share: the decoded image, the status codes a decode or a header probe
+// returns, the JPEG codec's entry points, the PNG/PNM/PFM/PAM/BMP/Sun
+// raster, GIF and Radiance HDR readers and the EXIF orientation both JPEG
+// and PNG carry.
 #pragma once
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstdio>
@@ -19,15 +21,32 @@ struct Image {
 // Images past 64 Mpixels are refused (a decode would need 192 MiB).
 constexpr int64_t kMaxPixels = 64LL << 20;
 
+// imread's validateInputImageSize (past it cv2 raises), and the cap above.
+inline bool cv2_size_ok(int64_t w, int64_t h) {
+  return w > 0 && h > 0 && w <= (1 << 20) && h <= (1 << 20) &&
+         w * h <= kMaxPixels;
+}
+
+// cv::saturate_cast<uchar>(float), cvRound's half to even then clamped;
+// NaN, infinities and values past the int range convert to INT_MIN, so
+// read 0 (PFM and Radiance HDR samples on their way to 8 bits).
+inline uint8_t cv2_u8(float v) {
+  if (!(v > -2147483648.0f && v < 2147483648.0f)) return 0;
+  const float r = std::nearbyint(v);
+  return r <= 0.0f ? 0 : r >= 255.0f ? 255 : static_cast<uint8_t>(r);
+}
+
 // A decode's or a probe's outcome. kOk and kUnreadable (not an image the
 // library knows, or data that neither cv2.imread nor PIL reads) are the
-// first two; each negative code down to kLosslessColor names a feature of
+// first two (kRaises stays inside the library: decodes and probes give
+// kUnreadable for it); each negative code down to kLosslessColor names a feature of
 // a valid JPEG that the library does not implement (neither cv2.imread nor
 // PIL reads any of them), and each below it a format, told by its
 // signature, that cv2.imread reads and the library does not decode.
 // tsr_tpu_torch/native/__init__.py mirrors the negative codes in FEATURES
 // and FORMATS, in this order.
 enum Status : int {
+  kRaises = 2,  // cv2.imread raises: the reference reads no pixels
   kOk = 1,
   kUnreadable = 0,
   kPrecision = -1,           // JPEG sample precision other than 8 bits
@@ -37,10 +56,8 @@ enum Status : int {
   kLosslessColor = -5,       // lossless JPEG in YCbCr or YCCK
   kTiff = -6,
   kWebp = -7,
-  kPfm = -8,
-  kHdr = -9,                 // Radiance RGBE
-  kJpeg2000 = -10,
-  kAvif = -11,
+  kJpeg2000 = -8,
+  kAvif = -9,
 };
 
 // True where `data` starts as a JPEG file does (SOI, then a marker).
@@ -68,15 +85,18 @@ int probe_jpeg(FILE* f, int* dims);
 // quality 95, 4:2:0, standard Huffman tables (libjpeg-turbo's defaults).
 void encode_jpeg(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out);
 
-// PNG, PNM (P1-P6), PAM (P7), BMP, Sun raster and GIF as cv2.imread reads
-// them (formats.cpp, gif.cpp): kOk with the (h, w) it gives in dims (EXIF
-// orientation applied) and, with img, its pixels as RGB; kUnreadable where
-// cv2.imread gives None. `head` reads the header alone.
+// PNG, PNM (P1-P6), PFM, PAM (P7), BMP, Sun raster, GIF and Radiance HDR
+// as cv2.imread reads them (formats.cpp, gif.cpp, hdr.cpp): kOk with the
+// (h, w) it gives in dims (EXIF orientation applied) and, with img, its
+// pixels as RGB; kUnreadable where cv2.imread gives None, kRaises where it
+// raises (the reference's readers then raise too, so PIL is not tried).
+// `head` reads the header alone.
 int read_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // The same formats as PIL's Image.open(path).convert("RGB") reads them
-// (no EXIF orientation): kOk or kUnreadable where PIL raises. `head` reads
-// the header alone (not of a PNG).
+// (no EXIF orientation; of PFM the gray "Pf" alone; no Radiance HDR): kOk
+// or kUnreadable where PIL raises. `head` reads the header alone (not of a
+// PNG).
 int read_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // GIF's first frame as cv2.imread reads it (OpenCV's own decoder) and as
@@ -86,6 +106,12 @@ int read_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 bool is_gif_data(const uint8_t* data, size_t n);
 int gif_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int gif_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+
+// Radiance RGBE as cv2.imread reads it (OpenCV's HdrDecoder and rgbe.cpp,
+// hdr.cpp); the arguments and results of read_cv2. PIL reads no Radiance
+// HDR. is_hdr_data: a "#?RGBE" or "#?RADIANCE" signature.
+bool is_hdr_data(const uint8_t* data, size_t n);
+int hdr_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // The Status of a format cv2.imread reads and the library does not decode
 // (kTiff ... kAvif), from the file's signature; kUnreadable for any other.

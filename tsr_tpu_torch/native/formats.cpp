@@ -1,23 +1,25 @@
-// formats.cpp — PNG, PNM (P1-P6), PAM (P7), BMP and Sun raster, read as the
-// reference reads them: cv2.imread first, else PIL's
-// Image.open(path).convert("RGB"). GIF's readers are in gif.cpp.
+// formats.cpp — PNG, PNM (P1-P6), PFM, PAM (P7), BMP and Sun raster, read as
+// the reference reads them: cv2.imread first, else PIL's
+// Image.open(path).convert("RGB"). GIF's readers are in gif.cpp, Radiance
+// HDR's in hdr.cpp.
 //
 // Two readers of each format, each a copy of what its library does:
 //   - read_cv2: OpenCV 5's decoders (libpng 1.6 for PNG; OpenCV's own PxM,
-//     PAM, BMP and Sun raster code), with the images they accept and the
+//     PFM, PAM, BMP and Sun raster code), with the images they accept and the
 //     pixels they give, quirks included: an ASCII PNM sample is rescaled to
 //     8 bits and a binary one is not, a cut ASCII body or an RLE stream
 //     that stops short of the last row refuses the file, a 16-bit BMP keeps
 //     5 bits << 3, a 32-bit BI_BITFIELDS BMP takes its masks from a V3-V5
 //     header only, a PNG with a bad CRC on IHDR, PLTE (palette images) or
 //     IDAT, a damaged zlib stream, a missing or cut IEND refuses the file,
-//     a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB is refused;
+//     a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB is refused, a
+//     PFM is divided by its scale's magnitude and a gray one refused;
 //   - read_pil: Pillow 12's plugins (PngImagePlugin with its zlib row
 //     decoder, PpmImagePlugin, BmpImagePlugin, SunImagePlugin) and
 //     convert("RGB"), for the files cv2 refuses: a PNG whose IDAT CRC is
 //     wrong, a P2 without its last newline, a 16-bit BMP with a V2-V5
 //     header (5-bit samples scaled by 255/31), a run-length encoded Sun
-//     raster, ... PIL applies no EXIF orientation there.
+//     raster, a gray PFM ... PIL applies no EXIF orientation there.
 // Each runs on a whole file in memory; without an output image it checks
 // the file and gives its (h, w), short of storing pixels (the probe of
 // generate_tree's skip rule).
@@ -29,9 +31,11 @@
 #include <zlib.h>
 
 #include <algorithm>
+#include <cctype>
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <string>
 #include <vector>
@@ -40,12 +44,6 @@
 
 namespace tsrio {
 namespace {
-
-// imread's validateInputImageSize (past it cv2 raises), and the cap above
-bool cv2_size_ok(int64_t w, int64_t h) {
-  return w > 0 && h > 0 && w <= (1 << 20) && h <= (1 << 20) &&
-         w * h <= kMaxPixels;
-}
 
 inline bool c_space(int c) { return c == ' ' || (c >= 9 && c <= 13); }
 inline bool c_digit(int c) { return c >= '0' && c <= '9'; }
@@ -208,10 +206,144 @@ int cv2_pnm(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   return kOk;
 }
 
-// PIL: PpmImagePlugin (magic "P1"-"P6" up to whitespace, tokens of at most
-// 10 bytes, '#' comments; samples scaled to 8 bits by round(v / maxval *
-// 255) unless maxval is 255; gray past 255 is mode "I", clipped by
-// convert).
+// ------------------------------------------------------------------ PFM
+// cv2: OpenCV's PFMDecoder (signature "PF" or "Pf", then whitespace). Its
+// header is "P", "F" or "f", a line feed, then width, height and scale,
+// each field the bytes up to one whitespace byte (that byte consumed, no
+// other skipped; a byte past 127 refuses the file) read by atoi, atoi and
+// atof. Rows are stored bottom to top, big endian where the scale is >= 0;
+// the samples are multiplied by (float)(1.0 / |scale|) (a scale of 0 or NaN
+// refuses the file after its body is read), then rounded to 8 bits as
+// cv::saturate_cast<uchar>(float) rounds. Under IMREAD_COLOR a gray "Pf"
+// file fails imread's check that readData wrote into its 3-channel image,
+// so cv2 reads "PF" alone. A header that parses with a side <= 0 or past
+// 2^20 makes imread raise (kRaises), not give None.
+
+bool is_pfm(const uint8_t* d, size_t n) {
+  return n >= 3 && d[0] == 'P' && (d[1] == 'F' || d[1] == 'f') && c_space(d[2]);
+}
+
+// read_number: at most 2048 bytes up to a whitespace byte; the field is
+// the C string of the bytes before it (up to a NUL).
+bool cv2_pfm_field(Stream& s, std::string& out) {
+  out.clear();
+  bool nul = false;
+  for (int i = 0; i < 2048; i++) {
+    const int c = s.byte();
+    if (c >= 128) return false;  // CV_Assert(intc >= -128 && intc < 128)
+    if (c_space(c)) break;
+    nul = nul || c == 0;
+    if (!nul) out += static_cast<char>(c);
+  }
+  return true;
+}
+
+inline float pfm_sample(const uint8_t* p, bool big) {
+  const uint32_t u = big ? be32(p) : le32(p);
+  float v;
+  std::memcpy(&v, &u, 4);
+  return v;
+}
+
+int cv2_pfm(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
+  if (d[2] != '\n') return kUnreadable;
+  Stream s{d, n, 3};
+  std::string field;
+  if (!cv2_pfm_field(s, field)) return kUnreadable;
+  const int w = static_cast<int>(std::strtol(field.c_str(), nullptr, 10));
+  if (!cv2_pfm_field(s, field)) return kUnreadable;
+  const int h = static_cast<int>(std::strtol(field.c_str(), nullptr, 10));
+  if (!cv2_pfm_field(s, field)) return kUnreadable;
+  const double scale = std::strtod(field.c_str(), nullptr);
+  // validateInputImageSize, between readHeader and readData, raises
+  if (w <= 0 || h <= 0 || w > (1 << 20) || h > (1 << 20) ||
+      static_cast<int64_t>(w) * h > (1LL << 30))
+    return kRaises;
+  if (d[1] == 'f' || !cv2_size_ok(w, h) || !(std::fabs(scale) > 0.0))
+    return kUnreadable;
+  dims[0] = h;
+  dims[1] = w;
+  if (head) return kOk;
+  const size_t pitch = static_cast<size_t>(w) * 12;
+  if ((n - s.pos) / pitch < static_cast<size_t>(h)) return kUnreadable;
+  Out out;
+  if (!out.init(img, w, h)) return kUnreadable;
+  if (!img) return kOk;
+  const bool big = scale >= 0.0;
+  const float mul = static_cast<float>(1.0 / std::fabs(scale));
+  for (int y = 0; y < h; y++) {
+    const uint8_t* row = d + s.pos + pitch * (h - 1 - y);
+    for (int x = 0; x < w; x++, row += 12)
+      out.put(x, y, cv2_u8(pfm_sample(row, big) * mul),
+              cv2_u8(pfm_sample(row + 4, big) * mul),
+              cv2_u8(pfm_sample(row + 8, big) * mul));
+  }
+  return kOk;
+}
+
+// PIL: PpmImagePlugin reads gray "Pf" alone (mode F; "PF" is no PPM magic):
+// the scale a Python float, nonzero and finite, its sign the byte order
+// (negative: little endian), its magnitude unused; rows bottom to top; the
+// body whole. convert("RGB") goes through L: a sample <= 0 (and NaN) reads
+// 0, >= 255 reads 255, any other is truncated.
+
+// Python's float() of an ASCII token: a sign, then "inf", "infinity" or
+// "nan" in any case, or a decimal with single underscores between digits.
+bool py_float(const std::string& t, double& v) {
+  size_t i = t.empty() || (t[0] != '+' && t[0] != '-') ? 0 : 1;
+  std::string word;
+  for (size_t k = i; k < t.size(); k++)
+    word += static_cast<char>(std::tolower(static_cast<uint8_t>(t[k])));
+  if (word == "inf" || word == "infinity" || word == "nan") {
+    v = word == "nan" ? NAN : INFINITY;
+    if (i && t[0] == '-') v = -v;
+    return true;
+  }
+  std::string clean = t.substr(0, i);
+  auto digits = [&](bool& any) {  // digits with single underscores between
+    any = false;
+    while (i < t.size() && (c_digit(t[i]) || t[i] == '_')) {
+      if (t[i] == '_' &&
+          (!any || i + 1 >= t.size() || !c_digit(t[i + 1])))
+        return false;
+      if (t[i] != '_') {
+        clean += t[i];
+        any = true;
+      }
+      i++;
+    }
+    return true;
+  };
+  bool whole, frac = false;
+  if (!digits(whole)) return false;
+  if (i < t.size() && t[i] == '.') {
+    clean += t[i++];
+    if (!digits(frac)) return false;
+  }
+  if (!whole && !frac) return false;
+  if (i < t.size() && (t[i] == 'e' || t[i] == 'E')) {
+    clean += t[i++];
+    if (i < t.size() && (t[i] == '+' || t[i] == '-')) clean += t[i++];
+    bool exp;
+    if (!digits(exp) || !exp) return false;
+  }
+  if (i != t.size()) return false;
+  v = std::strtod(clean.c_str(), nullptr);
+  return true;
+}
+
+// F -> L (Convert.c's f2l)
+inline uint8_t pil_f2l(float v) {
+  if (v <= 0.0f) return 0;
+  if (v >= 255.0f) return 255;
+  return v == v ? static_cast<uint8_t>(v) : 0;
+}
+
+// ------------------------------------------------------------ PNM (PIL)
+// PIL: PpmImagePlugin (magic "P1"-"P6" or "Pf" up to whitespace, tokens of
+// at most 10 bytes, '#' comments; samples scaled to 8 bits by round(v /
+// maxval * 255) unless maxval is 255; gray past 255 is mode "I", clipped
+// by convert; "Pf" as the PFM section says).
 
 // Python's int() of an ASCII token: a sign, digits, single underscores
 // between digits.
@@ -235,8 +367,9 @@ bool py_int(const std::string& t, int64_t& v) {
 }
 
 struct PilPnm {
-  int kind = 0;
+  int kind = 0;  // 1-6, or 0 for "Pf"
   int64_t w = 0, h = 0, maxval = 1;
+  bool little = false;  // "Pf": a negative scale
   size_t data = 0;
 };
 
@@ -250,11 +383,12 @@ bool pil_pnm_head(const uint8_t* d, size_t n, PilPnm& hd) {
     if (c_space(c)) break;
     magic += static_cast<char>(c);
   }
-  if (magic.size() != 2 || magic[0] != 'P' || magic[1] < '1' || magic[1] > '6')
+  if (magic != "Pf" && (magic.size() != 2 || magic[0] != 'P' ||
+                        magic[1] < '1' || magic[1] > '6'))
     return false;
-  hd.kind = magic[1] - '0';
-  auto token = [&](int64_t& v) {
-    std::string t;
+  hd.kind = magic == "Pf" ? 0 : magic[1] - '0';
+  auto token = [&](std::string& t) {
+    t.clear();
     while (t.size() <= 10) {
       if (pos >= n) break;
       const int c = d[pos++];
@@ -271,11 +405,20 @@ bool pil_pnm_head(const uint8_t* d, size_t n, PilPnm& hd) {
       }
       t += static_cast<char>(c);
     }
-    return !t.empty() && t.size() <= 10 && py_int(t, v);
+    return !t.empty() && t.size() <= 10;
   };
-  if (!token(hd.w) || !token(hd.h)) return false;
-  if (hd.kind != 1 && hd.kind != 4) {
-    if (!token(hd.maxval) || hd.maxval <= 0 || hd.maxval >= 65536)
+  std::string t;
+  if (!token(t) || !py_int(t, hd.w) || !token(t) || !py_int(t, hd.h))
+    return false;
+  if (hd.kind == 0) {
+    double scale;
+    if (!token(t) || !py_float(t, scale) || scale == 0.0 ||
+        !std::isfinite(scale))
+      return false;
+    hd.little = scale < 0.0;
+  } else if (hd.kind != 1 && hd.kind != 4) {
+    if (!token(t) || !py_int(t, hd.maxval) || hd.maxval <= 0 ||
+        hd.maxval >= 65536)
       return false;
   }
   hd.data = pos;
@@ -338,6 +481,19 @@ int pil_pnm(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   dims[1] = out.w;
   if (head) return kOk;
   const int w = out.w, h = out.h;
+  if (hd.kind == 0) {  // raw "F;32F" or "F;32BF", rows bottom to top
+    const size_t pitch = static_cast<size_t>(w) * 4;
+    if (hd.data > n || (n - hd.data) / pitch < static_cast<size_t>(h))
+      return kUnreadable;
+    for (int y = 0; y < h; y++) {
+      const uint8_t* row = d + hd.data + pitch * (h - 1 - y);
+      for (int x = 0; x < w; x++) {
+        const uint8_t v = pil_f2l(pfm_sample(row + 4 * x, !hd.little));
+        out.put(x, y, v, v, v);
+      }
+    }
+    return kOk;
+  }
   const bool plain = hd.kind <= 3;
   const int bands = hd.kind == 3 || hd.kind == 6 ? 3 : 1;
   const bool bitmap = hd.kind == 1 || hd.kind == 4;
@@ -1630,8 +1786,6 @@ int foreign(const uint8_t* d, size_t n) {
       at(0, "MM\0+", 4))
     return kTiff;
   if (at(0, "RIFF", 4) && at(8, "WEBP", 4)) return kWebp;
-  if ((at(0, "PF", 2) || at(0, "Pf", 2)) && n > 2 && c_space(d[2])) return kPfm;
-  if (at(0, "#?RADIANCE", 10) || at(0, "#?RGBE", 6)) return kHdr;
   if (at(0, "\0\0\0\x0cjP  \r\n\x87\n", 12) || at(0, "\xff\x4f\xff\x51", 4))
     return kJpeg2000;
   if (at(4, "ftyp", 4) && (at(8, "avif", 4) || at(8, "avis", 4)))
@@ -1650,10 +1804,12 @@ int read_cv2(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     if (n >= 2 && d[0] == 'B' && (d[1] == 'M' || d[1] == 'A'))
       return cv2_bmp(d, n, img, out, head);
     if (is_cv2_pnm(d, n)) return cv2_pnm(d, n, img, out, head);
+    if (is_pfm(d, n)) return cv2_pfm(d, n, img, out, head);
     if (n >= 3 && d[0] == 'P' && d[1] == '7' && c_space(d[2]))
       return cv2_pam(d, n, img, out, head);
     if (is_sun(d, n)) return cv2_sun(d, n, img, out, head);
     if (is_gif_data(d, n)) return gif_cv2(d, n, img, out, head);
+    if (is_hdr_data(d, n)) return hdr_cv2(d, n, img, out, head);
   } catch (const Eof&) {
   }
   return kUnreadable;

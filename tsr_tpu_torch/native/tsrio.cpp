@@ -7,15 +7,16 @@
 // (the reference's fallback); and to write every file they write through
 // cv2.imwrite, with the same bytes. It is the port's only codec: no module
 // of the port imports cv2 or PIL, and it links nothing but zlib. Decoded:
-//   - PNG, PNM (P1-P6, ASCII and binary), PAM (P7), BMP (palette,
+//   - PNG, PNM (P1-P6, ASCII and binary), PFM, PAM (P7), BMP (palette,
 //     16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core header) and Sun
-//     raster: formats.cpp; GIF (the first frame): gif.cpp; each with cv2's
-//     reader and PIL's copied, damaged files included;
+//     raster: formats.cpp; GIF (the first frame): gif.cpp; Radiance HDR:
+//     hdr.cpp; each with cv2's reader and PIL's copied (PIL reads no HDR),
+//     damaged files included;
 //   - JPEG: jpeg.cpp (baseline, progressive and arithmetic coded, CMYK and
 //     YCCK, damaged data as libjpeg recovers it, EXIF orientation; lossless
 //     JPEG as PIL reads it, where the reference falls back to PIL).
 // A file of a format cv2 reads and the port does not decode (TIFF, WebP,
-// PFM, ...) fails with a Status naming it (codec.h).
+// JPEG 2000, AVIF) fails with a Status naming it (codec.h).
 // Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
 // (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
 // by construction), PPM (P6), BMP (cv2's 24-bit layout) and JPEG
@@ -433,8 +434,10 @@ int decode_file(const char* path, Image& img) {
     const uint8_t* d = buf.data();
     const size_t n = buf.size();
     if (tsrio::is_jpeg(d, n)) return tsrio::decode_jpeg(d, n, img);
-    if (tsrio::read_cv2(d, n, &img, nullptr, false) == tsrio::kOk ||
-        tsrio::read_pil(d, n, &img, nullptr, false) == tsrio::kOk)
+    const int cv2 = tsrio::read_cv2(d, n, &img, nullptr, false);
+    if (cv2 == tsrio::kOk ||
+        (cv2 != tsrio::kRaises &&
+         tsrio::read_pil(d, n, &img, nullptr, false) == tsrio::kOk))
       return tsrio::kOk;
     return tsrio::foreign_format(d, n);
   } catch (const std::exception&) {
@@ -477,7 +480,7 @@ int probe_one(const char* path, int* dims, bool cv2_reader) {
     const bool png = buf.size() >= 8 && !std::memcmp(buf.data(), sig, 8);
     const std::vector<uint8_t> head = png ? png_head(f) : buf;
     st = tsrio::read_cv2(head.data(), head.size(), nullptr, hw, true);
-    if (st != tsrio::kOk)
+    if (st != tsrio::kOk && st != tsrio::kRaises)
       st = tsrio::read_pil(head.data(), head.size(), nullptr, hw, true);
     if (st != tsrio::kOk)
       st = tsrio::foreign_format(buf.data(), buf.size());

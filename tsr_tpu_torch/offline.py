@@ -259,9 +259,13 @@ def generate_tree(
     block, a first frame outside the screen, a disposal method past 3, a
     broken or short LZW stream or an index past its colour tables; a Sun
     raster cut short, run-length encoded (RT_BYTE_ENCODED) or of type
-    RT_FORMAT_RGB; data of a format the port does not decode (TIFF, WebP,
-    PFM, ...). PIL reads some of them, and the reader paths decode those as
-    PIL does.
+    RT_FORMAT_RGB; a gray PFM ("Pf"), a PFM cut short or of scale 0 or
+    without a line feed after its magic; a Radiance HDR cut short, without
+    its FORMAT=32-bit_rle_rgbe line, in any orientation but "-Y h +X w",
+    with a run past its scanline or a scanline width not the header's; data
+    of a format the port does not decode (TIFF, WebP, JPEG 2000, AVIF). PIL
+    reads some of them (a gray PFM among them), and the reader paths decode
+    those as PIL does.
 
     One generator seeded with ``seed`` draws a seed for each batch's own
     generator on ``device`` (the reference splits its key per batch), so a
