@@ -308,20 +308,27 @@ JPEG_SKIP_FIXTURES = {
     "lossless_arith": "lossless arithmetic"}
 JPEG_FEATURE_KINDS = ("blur", "compound", "blur_rand")
 JPEG_FEATURE_DECODES = 1024  # decodes a timed pass of each group, 1 thread
-# phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance HDR
-# files of tests/data/images (make_fixtures.py): the variants cv2 reads at
-# the top, the files it gives None for (and AVIF/TIFF/WebP data the port
-# does not decode) under skip/
+# phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
+# TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
+# at the top, the files it gives None for (and AVIF, JPEG 2000, WebP and
+# 16-bit TIFF data the port does not decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
-IMAGE_FOREIGN = {"avif.png": "AVIF", "tiff.jpg": "TIFF", "webp.png": "WebP"}
+IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
+                 "tiff16_gray.png": "TIFF", "webp.png": "WebP"}
 # decode groups by file-name prefix
 IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "p5_", "p6_"), "pam": ("pam_",), "bmp_rle": ("bmp_rle",),
                 "bmp_bitfields_core": ("bmp16", "bmp32", "bmp_core"),
                 "png": ("png_",), "gif": ("gif_",), "sun_raster": ("sun_",),
-                "pfm": ("pfm",), "hdr": ("hdr_",)}
+                "pfm": ("pfm",), "hdr": ("hdr_",), "tiff": ("tiff_",)}
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
-IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_")}
+IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
+                "tiff": ("tiff",)}
+# C9 and C10 in phase 13: a PNG past the old 64 Mpx cap, and headers whose
+# size makes cv2.imread raise (built at run time from zlib and struct)
+BIG_PNG_SIDE = 8200
+RAISING_HEADERS = {"png_40000x30000.png": (40000, 30000),
+                   "tiff_2000000x1.png": (2000000, 1)}
 IMAGE_KINDS = ("blur", "compound", "blur_rand")
 FP32_FLOPS = 67e12           # H100 SXM non-tensor fp32, published peak
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
@@ -3683,21 +3690,123 @@ def jpeg_features_phase(dev, resunet, judge, work):
     return launches
 
 
+def _png_chunk(tag, data):
+    import struct
+    import zlib
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data)))
+
+
+def gray_png(w, h, rows=None):
+    """A gray 8-bit PNG of ``rows`` (uint8 [h, w]), or with no rows its
+    header alone (IHDR, then an IDAT of one filter byte, then IEND)."""
+    import struct
+    import zlib
+    raw = b"\0" if rows is None else b"".join(
+        b"\0" + rows[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw, 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def tiff_header(w, h):
+    """A gray TIFF of ``w`` x ``h`` whose one strip holds 4 bytes."""
+    import struct
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1),
+               (262, 3, 1), (273, 4, 8 + 2 + 12 * 9 + 4), (277, 3, 1),
+               (278, 4, h), (279, 4, 4)]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHII" if t == 4 else "<HHIH2x", tag, t, 1, v)
+        for tag, t, v in entries) + struct.pack("<I", 0)
+    return b"II*\0" + struct.pack("<I", 8) + ifd + bytes(4)
+
+
+def image_size_checks(dev, work):
+    """C9 and C10 on files built here (the card's machine has no cv2): a
+    BIG_PNG_SIDE-square gray PNG probes at its size by both readers, is
+    kept by generate_tree's cv2 probe, decodes equal to its pixels and
+    loads resized; each RAISING_HEADERS file is marked by
+    probe(reader="cv2", raises=True), makes decode raise, and makes
+    generate_tree over a tree that holds it raise a RuntimeError naming it
+    before anything is written. Returns the numbers for phase 13's line."""
+    import numpy as np
+    from tsr_tpu_torch import native, offline
+    root = work / "image_sizes"
+    root.mkdir(parents=True, exist_ok=True)
+    side = BIG_PNG_SIDE
+    x = np.arange(side, dtype=np.uint32)
+    pixels = ((x[None, :] * 7 + x[:, None] * 3) % 251).astype(np.uint8)
+    big = root / "big.png"
+    t0 = time.perf_counter()
+    big.write_bytes(gray_png(side, side, pixels))
+    write_s = time.perf_counter() - t0
+    for reader in ("port", "cv2"):
+        got = native.probe([str(big)], reader=reader).tolist()
+        check(got == [[side, side]], f"{side}-square PNG: probe({reader!r})"
+              f" gives {got}")
+    dims, raised = native.probe([str(big)], reader="cv2", raises=True)
+    check(dims.tolist() == [[side, side]] and not raised.any(),
+          "generate_tree's cv2 probe keeps the big PNG")
+    t0 = time.perf_counter()
+    img = native.decode(str(big))
+    decode_s = time.perf_counter() - t0
+    check(img.shape == (side, side, 3) and all(
+        np.array_equal(img[:, :, c], pixels) for c in range(3)),
+        f"{side}-square PNG decodes unlike its pixels: {img.shape}")
+    del img
+    batch = native.load_batch([str(big)], SIZE)
+    check(batch.shape == (1, SIZE, SIZE, 3), "load_batch of the big PNG")
+    out = {"big_png": {"side": side, "bytes": big.stat().st_size,
+                       "write_s": write_s, "decode_s": decode_s}}
+    for name, (w, h) in RAISING_HEADERS.items():
+        src = root / name.split(".")[0] / "src"
+        bad = src / "00000" / name
+        ok = src / "00001" / "ok.png"
+        for d in (bad.parent, ok.parent):
+            d.mkdir(parents=True, exist_ok=True)
+        bad.write_bytes(gray_png(w, h) if name.startswith("png")
+                        else tiff_header(w, h))
+        native.write_images([str(ok)], [np.zeros((20, 24, 3), np.uint8)])
+        dims, raised = native.probe([str(bad)], reader="cv2", raises=True)
+        check(raised.tolist() == [True] and dims.tolist() == [[0, 0]],
+              f"{name}: the cv2 probe does not mark cv2's raise")
+        try:
+            native.decode(str(bad))
+        except RuntimeError as e:
+            check("cv2.imread raises on it" in str(e), f"{name}: {e}")
+        else:
+            check(False, f"{name} decoded; cv2.imread raises on it")
+        dst = src.parent / "dst"
+        try:
+            offline.generate_tree(str(src), str(dst), "blur",
+                                  log=lambda line: None, device=dev)
+        except RuntimeError as e:
+            check(name in str(e) and not dst.exists(),
+                  f"generate_tree over {name}: {e}")
+        else:
+            check(False, f"generate_tree wrote a tree holding {name}")
+        out[name] = {"w": w, "h": h, "probe_marks_raise": True,
+                     "decode_raises": True, "generate_tree_raises": True}
+    return out
+
+
 def image_formats_phase(dev, resunet, judge, rows, work):
-    """Phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance
-    HDR files cv2 reads and the port once refused (C5, C6, C7), and the
-    damaged ones cv2 gives None for (C4), from the committed fixtures (the
-    card's machine has neither cv2 nor PIL), in ``work``: each top-level
-    fixture decoded equal to ``expected.npz`` and probed as cv2 reads it;
-    each skip/ file probed (0, 0) as cv2 refuses it, decoded as PIL where
-    PIL reads it (the gray PFM among them), raising otherwise (naming
-    AVIF/TIFF/WebP data); host decode rates by group; the
+    """Phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance
+    HDR and TIFF files cv2 reads and the port once refused (C5, C6, C7), and
+    the damaged ones cv2 gives None for (C4), from the committed fixtures
+    (the card's machine has neither cv2 nor PIL), in ``work``: each
+    top-level fixture decoded equal to ``expected.npz`` and probed as cv2
+    reads it; each skip/ file probed (0, 0) as cv2 refuses it, decoded as
+    PIL where PIL reads it (the gray PFM and the TIFFs of orientation 5 and
+    6 among them), raising otherwise (naming AVIF, JPEG 2000, 16-bit TIFF
+    and WebP data); host decode rates by group; the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
     generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
     just before and read just after each call, the written count the
     reference's), B3/B2 held at its buckets; restore_tree and
-    evaluate_directory over the readable files in both resize modes.
-    Returns the kernels' launches."""
+    evaluate_directory over the readable files in both resize modes; then
+    C9 and C10 (image_size_checks). Returns the kernels' launches."""
     import numpy as np
     import torch
     from tsr_tpu_torch import eval as teval
@@ -3746,9 +3855,12 @@ def image_formats_phase(dev, resunet, judge, rows, work):
                 p.name.startswith(prefixes) for p in files)
     check(result["fixtures"]["pfm_hdr_skip_pil_reads"] >= 1,
           "the gray PFM PIL reads is among the skip/ files")
+    check(result["fixtures"]["tiff_cv2_reads"] >= 20
+          and result["fixtures"]["tiff_skip_pil_reads"] >= 2,
+          f"TIFF fixtures: {result['fixtures']}")
     print("image formats: " + json.dumps(result["fixtures"]) + ": fixtures "
           "equal to expected.npz, skip/ files refused by the cv2 probe, "
-          "decoded as PIL or raising (AVIF/TIFF/WebP named)")
+          "decoded as PIL or raising (AVIF, JPEG 2000, TIFF, WebP named)")
     groups = {g: [str(p) for p in cases if p.name.startswith(prefixes)]
               for g, prefixes in IMAGE_GROUPS.items()}
     rates = group_decode_rates(groups)
@@ -3833,20 +3945,23 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     result["generate_tree"] = gen
     check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
           "B2 and B3 launched on the image formats path")
-    # the buckets only this slice's PFM and HDR files bring: B3 and B2 are
-    # held at the first batch of every bucket below, these among them
-    this_slice = [p.name.startswith(IMAGE_SLICES["pfm_hdr"])
-                  for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]
-    result["pfm_hdr_buckets"] = {}
-    for kind in IMAGE_KINDS:
-        halo = offline.HALO.get(kind, 0)
-        mine = tree_buckets([s for s, m in zip(sides, this_slice) if m], halo)
-        rest = tree_buckets([s for s, m in zip(sides, this_slice) if not m],
-                            halo)
-        result["pfm_hdr_buckets"][kind] = sorted(
-            list(b) for b in set(mine) - set(rest))
-    print("buckets only the PFM and HDR files bring: "
-          + json.dumps(result["pfm_hdr_buckets"]))
+    # the buckets only each slice's files bring: B3 and B2 are held at the
+    # first batch of every bucket below, these among them
+    result["slice_buckets"] = {}
+    for name, prefixes in IMAGE_SLICES.items():
+        this_slice = [p.name.startswith(prefixes)
+                      for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]
+        result["slice_buckets"][name] = {}
+        for kind in IMAGE_KINDS:
+            halo = offline.HALO.get(kind, 0)
+            mine = tree_buckets([s for s, m in zip(sides, this_slice) if m],
+                                halo)
+            rest = tree_buckets([s for s, m in zip(sides, this_slice)
+                                 if not m], halo)
+            result["slice_buckets"][name][kind] = sorted(
+                list(b) for b in set(mine) - set(rest))
+    print("buckets only each slice's files bring: "
+          + json.dumps(result["slice_buckets"]))
     check_blur_at_buckets(dev, kept, rows, key="image_format_times")
 
     n_readable = len(cases) + len(pil_read)
@@ -3878,6 +3993,10 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           "the walks launch no blur or B1 kernel")
     result["restore_tree"] = walks
     result["evaluate_directory"] = evals
+    t0 = time.perf_counter()
+    result["image_sizes"] = image_size_checks(dev, work)
+    result["image_sizes"]["seconds"] = time.perf_counter() - t0
+    print("image sizes (C9, C10): " + json.dumps(result["image_sizes"]))
     result["launches"] = launches
     result["phase_seconds"] = time.perf_counter() - t_phase
     print("image_formats: " + json.dumps(result))

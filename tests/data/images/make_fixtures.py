@@ -1,4 +1,4 @@
-"""Writes the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance HDR
+"""Writes the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and TIFF
 fixtures of ``tests/test_torch_port_image_formats.py`` and of
 ``chip_smoke.py``'s image formats phase into this directory, with cv2, PIL
 and the byte writers below (neither library writes ASCII PNM, PAM, RLE or
@@ -19,13 +19,15 @@ cv2's, as needed):
   infinite, ties, odd header whitespace) and Radiance HDR (``hdr_*.png``:
   cv2's run-length and flat writers, the ``#?RGBE`` signature, EXPOSURE
   and other header lines, a width under 8, zero exponents, values past 1,
-  runs and literals of every length, a scanline that falls back to flat);
+  runs and literals of every length, a scanline that falls back to flat)
+  and TIFF (``tiff_*``: see ``tiff_cases``);
 - ``skip/<case>``: SKIP_CASES, files cv2.imread gives None for (cut,
   corrupt, a refused variant), some of which PIL reads (a GIF without its
   trailer, a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB, which
-  OpenCV 5 refuses, a gray PFM, which cv2 refuses under IMREAD_COLOR); and
-  FOREIGN, AVIF, TIFF and WebP data under .png and .jpg names (formats cv2
-  reads by signature and the port does not decode);
+  OpenCV 5 refuses, a gray PFM, which cv2 refuses under IMREAD_COLOR, TIFFs
+  of orientation 5 and 6); and FOREIGN, AVIF, JPEG 2000 and WebP data under
+  .png and .jpg names and a 16-bit TIFF (what cv2 reads and the port does
+  not decode);
 - ``expected.npz``: ``decoded__<case>`` = what the reference's readers give
   for each CASES file as RGB (``cv2.imread``; the pixels cv2 leaves
   unwritten, see ``cv2_written``, set to 0), ``decoded_skip__<case>`` =
@@ -52,6 +54,7 @@ HERE = Path(__file__).resolve().parent
 SEED = 12
 GIF_SEED = 14  # the GIF and Sun raster files draw from their own stream
 PFM_HDR_SEED = 15  # and the PFM and Radiance HDR files from theirs
+TIFF_SEED = 16  # and the TIFF files from theirs
 
 
 def smooth(rng, h, w):
@@ -789,11 +792,243 @@ def pfm_hdr_skip_cases(rng):
     return out
 
 
-def foreign(rng):
-    """AVIF, TIFF and WebP data under .png and .jpg names."""
+# ----------------------------------------------------------------- TIFF
+
+def packbits(row):
+    """PackBits of one row's bytes: runs of 2-128 equal bytes, literals of
+    1-128 others."""
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1), row[i]])
+            i = j + 1
+            continue
+        j = i
+        while (j + 1 < n and j - i < 127
+               and (j + 2 >= n or row[j + 1] != row[j + 2])):
+            j += 1
+        out += bytes([j - i]) + bytes(row[i:j + 1])
+        i = j + 1
+    return bytes(out)
+
+
+def lzw(data, old=False):
+    """TIFF LZW of ``data``: MSB-first codes that widen one code early (as
+    libtiff writes them), or, with ``old``, the old-style LSB-first codes
+    that widen on time."""
+    table = {bytes([i]): i for i in range(256)}
+    codes, nxt, width, w = [(256, 9)], 258, 9, b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], width))
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:
+            codes.append((256, width))
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        elif nxt >= (1 << width) + (1 if old else 0):
+            width += 1
+        w = bytes([c])
+    if w:
+        codes.append((table[w], width))
+    codes.append((257, width))
+    out, acc, bits = bytearray(), 0, 0
+    for code, width in codes:
+        if old:
+            acc |= code << bits
+            bits += width
+            while bits >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                bits -= 8
+        else:
+            acc = (acc << width) | code
+            bits += width
+            while bits >= 8:
+                out.append((acc >> (bits - 8)) & 255)
+                bits -= 8
+    if bits:
+        out.append(acc & 255 if old else (acc << (8 - bits)) & 255)
+    return bytes(out)
+
+
+def tiff_file(img, photometric=None, compression=1, rps=None, predictor=1,
+              cmap=None, orientation=None, big=False, ifd_first=True,
+              tags=None, drop=(), strips=None):
+    """A classic TIFF of uint8 ``img`` ([h, w] gray or palette indices, or
+    [h, w, 3] RGB): one IFD of SHORT and LONG tags in ascending order, its
+    values after it, the strips of ``rps`` rows compressed with
+    ``compression`` (1, 5 LZW, 8 or 32946 deflate, 32773 PackBits) after
+    the header and IFD (``ifd_first``) or before them; ``tags`` {tag:
+    (type, values)} added or replaced, ``drop`` tags left out,
+    ``strips`` the strips' bytes in place of the encoded ones."""
+    e = ">" if big else "<"
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    spp = 1 if img.ndim == 2 else img.shape[2]
+    rps = h if rps is None else rps
+    rows = img.reshape(h, w * spp)
+    if strips is None:
+        strips = []
+        for y in range(0, h, rps):
+            s = rows[y:y + rps]
+            if predictor == 2:
+                s = s.reshape(len(s), w, spp).astype(np.int16)
+                s[:, 1:] -= s[:, :-1].copy()
+                s = (s & 255).astype(np.uint8).reshape(len(s), -1)
+            raw = s.tobytes()
+            strips.append(
+                raw if compression == 1 else
+                b"".join(packbits(r.tobytes()) for r in s)
+                if compression == 32773 else
+                lzw(raw) if compression == 5 else zlib.compress(raw))
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp),
+               259: (3, [compression]),
+               262: (3, [(1 if spp == 1 else 2) if photometric is None
+                         else photometric]),
+               273: (4, [0] * len(strips)), 277: (3, [spp]), 278: (4, [rps]),
+               279: (4, [len(s) for s in strips])}
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if cmap is not None:
+        entries[320] = (3, list(cmap))
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    entries.update(tags or {})
+    for t in drop:
+        entries.pop(t, None)
+
+    def ifd(at, strip_at):
+        ents = sorted(entries.items())
+        values_at = at + 2 + 12 * len(ents) + 4
+        body, values = bytearray(struct.pack(e + "H", len(ents))), bytearray()
+        offsets = list(np.cumsum([strip_at] + [len(s) for s in strips]))
+        for tag, (typ, v) in ents:
+            if tag == 273:
+                v = [int(o) for o in offsets[:len(v)]]
+            raw = struct.pack(e + ("H" if typ == 3 else "I") * len(v), *v)
+            if len(raw) <= 4:
+                body += struct.pack(e + "HHI", tag, typ, len(v)) + raw.ljust(4, b"\0")
+            else:
+                body += struct.pack(e + "HHII", tag, typ, len(v),
+                                    values_at + len(values))
+                values += raw + b"\0" * (len(raw) % 2)
+        return bytes(body + struct.pack(e + "I", 0) + values)
+
+    head = b"MM\0*" if big else b"II*\0"
+    data = b"".join(strips)
+    if ifd_first:
+        size = len(ifd(8, 0))
+        return head + struct.pack(e + "I", 8) + ifd(8, 8 + size) + data
+    at = 8 + len(data) + len(data) % 2
+    return (head + struct.pack(e + "I", at) + data + b"\0" * (len(data) % 2)
+            + ifd(at, 8))
+
+
+def pil_tiff(img, mode, **kw):
+    """Pillow's TIFF of RGB ``img`` converted to ``mode``."""
+    buf = io.BytesIO()
+    Image.fromarray(img).convert(mode).save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+def tiff_cases(rng):
+    """{name: bytes} of TIFF files cv2.imread reads: Pillow's writer (no
+    compression, PackBits, LZW, deflate both ways; RGB, L, P; one strip or
+    many), cv2's (LZW with predictor 2), and files built here where
+    neither writer gives one (big endian, the IFD first, an 8-bit
+    ColorMap, old-style LZW codes, orientation 3, no StripByteCounts, an
+    LZW strip that breaks off, a wide strip image in a bucket of its
+    own)."""
     out = {}
+    for comp, mode, ss in (("raw", "RGB", 200), ("packbits", "L", None),
+                           ("tiff_lzw", "P", None),
+                           ("tiff_adobe_deflate", "RGB", None),
+                           ("tiff_deflate", "L", 100), ("raw", "P", None),
+                           ("packbits", "RGB", 150), ("tiff_lzw", "RGB", 64)):
+        kw = {"compression": comp}
+        if ss:
+            kw["strip_size"] = ss
+        name = f"tiff_pil_{comp.replace('tiff_', '')}_{mode.lower()}"
+        out[name + ("_strips" if ss else "") + ".png"] = pil_tiff(
+            smooth(rng, 14 + len(out) % 4, 18), mode, **kw)
+    ok, enc = cv2.imencode(".tif", smooth(rng, 15, 19)[:, :, ::-1])
+    assert ok and enc[:4].tobytes() == b"II*\0"
+    out["tiff_cv2_lzw_predictor.ppm"] = enc.tobytes()
+    ok, enc = cv2.imencode(".tif", gray(smooth(rng, 13, 17)))
+    out["tiff_cv2_gray.ppm"] = enc.tobytes()
+    cmap = rng.integers(0, 65536, 768)
+    out["tiff_be_raw_rgb.bmp"] = tiff_file(smooth(rng, 14, 17), rps=4,
+                                           big=True)
+    out["tiff_be_lzw_gray_predictor.bmp"] = tiff_file(
+        gray(smooth(rng, 13, 16)), compression=5, predictor=2, rps=5,
+        big=True)
+    out["tiff_be_deflate_palette.bmp"] = tiff_file(
+        gray(smooth(rng, 12, 18)), photometric=3, cmap=cmap, compression=8,
+        rps=7, big=True, ifd_first=False)
+    out["tiff_ifd_first_packbits_rgb.png"] = tiff_file(
+        smooth(rng, 13, 19), compression=32773, rps=3)
+    out["tiff_ifd_first_deflate_predictor_rgb.png"] = tiff_file(
+        smooth(rng, 12, 15), compression=32946, predictor=2, rps=5)
+    out["tiff_colormap_8bit.png"] = tiff_file(  # no entry past 255
+        gray(smooth(rng, 14, 15)), photometric=3,
+        cmap=rng.integers(0, 256, 768), rps=6)
+    img = smooth(rng, 13, 17)
+    out["tiff_old_style_lzw.png"] = tiff_file(
+        img, compression=5, strips=[lzw(img.tobytes(), old=True)])
+    out["tiff_orientation_3.png"] = tiff_file(smooth(rng, 12, 16),
+                                              orientation=3, rps=5)
+    out["tiff_no_byte_counts.png"] = tiff_file(smooth(rng, 11, 14),
+                                               drop=(279,))
+    out["tiff_wide_lzw_gray_predictor.ppm"] = tiff_file(  # its own bucket
+        gray(smooth(rng, 22, 150)), compression=5, predictor=2, rps=8)
+    img = gray(smooth(rng, 14, 16))
+    broken = bytearray(lzw(img.tobytes()))
+    broken[len(broken) // 2:] = bytes(len(broken) - len(broken) // 2)
+    out["tiff_lzw_broken_strip.png"] = tiff_file(  # cv2 keeps what decoded
+        img, compression=5, strips=[bytes(broken)])
+    return out
+
+
+def tiff_skip_cases(rng):
+    """{name: bytes} of TIFF files cv2.imread gives None for: orientation
+    6 and 5 (PIL reads them rotated; a gray image of one uncompressed strip
+    PIL maps at the rotated size first), a strip byte count of 0 (PIL
+    reads the strips whole whatever their counts), a file cut in its
+    strips, predictor 3 on 8-bit samples."""
+    out = {}
+    out["tiff_orientation_6.png"] = tiff_file(smooth(rng, 12, 17),
+                                              orientation=6, rps=4)
+    out["tiff_orientation_5_gray.png"] = tiff_file(gray(smooth(rng, 11, 14)),
+                                                   orientation=5)
+    img = smooth(rng, 13, 15)
+    out["tiff_byte_count_0.png"] = tiff_file(img, rps=5,
+                                             tags={279: (4, [225, 0, 135])})
+    whole = tiff_file(smooth(rng, 14, 16), compression=32773, rps=4)
+    out["tiff_cut.png"] = whole[:len(whole) * 2 // 3]
+    out["tiff_predictor_3.png"] = tiff_file(smooth(rng, 12, 13),
+                                            compression=5, predictor=3)
+    return out
+
+
+def foreign(rng):
+    """AVIF, JPEG 2000 and WebP data under .png and .jpg names, and a
+    16-bit gray TIFF (a TIFF layout the port does not decode)."""
+    out = {}
+    img = np.asarray(Image.fromarray(smooth(np.random.default_rng(
+        TIFF_SEED + 1), 18, 21)).convert("L"), np.uint16) * 257
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "TIFF")  # mode I;16
+    out["tiff16_gray.png"] = buf.getvalue()
     for name, fmt, h, w in (("avif.png", "AVIF", 24, 30),
-                            ("tiff.jpg", "TIFF", 28, 22),
+                            ("jp2.jpg", "JPEG2000", 28, 22),
                             ("webp.png", "WEBP", 26, 32)):
         img = smooth(rng, h, w)
         if fmt == "AVIF":  # cv2's writer
@@ -844,8 +1079,10 @@ def make(out: Path = HERE) -> dict:
     written = 0
     gif_rng = np.random.default_rng(GIF_SEED)
     pfm_rng = np.random.default_rng(PFM_HDR_SEED)
+    tiff_rng = np.random.default_rng(TIFF_SEED)
     for name, data in {**cases(rng), **gif_sun_cases(gif_rng),
-                       **pfm_hdr_cases(pfm_rng)}.items():
+                       **pfm_hdr_cases(pfm_rng),
+                       **tiff_cases(tiff_rng)}.items():
         p = out / name
         p.write_bytes(data)
         img = cv2.imread(str(p))
@@ -856,7 +1093,8 @@ def make(out: Path = HERE) -> dict:
         written += 1
     for name, data in {**skip_cases(rng), **foreign(rng),
                        **gif_sun_skip_cases(gif_rng),
-                       **pfm_hdr_skip_cases(pfm_rng)}.items():
+                       **pfm_hdr_skip_cases(pfm_rng),
+                       **tiff_skip_cases(tiff_rng)}.items():
         p = out / "skip" / name
         p.write_bytes(data)
         assert cv2.imread(str(p)) is None or name in FOREIGN, name
@@ -872,14 +1110,16 @@ def _names():
     rng = np.random.default_rng(SEED)
     gif_rng = np.random.default_rng(GIF_SEED)
     pfm_rng = np.random.default_rng(PFM_HDR_SEED)
+    tiff_rng = np.random.default_rng(TIFF_SEED)
     found = (tuple(cases(rng)) + tuple(gif_sun_cases(gif_rng))
-             + tuple(pfm_hdr_cases(pfm_rng)))
+             + tuple(pfm_hdr_cases(pfm_rng)) + tuple(tiff_cases(tiff_rng)))
     return found, (tuple(skip_cases(rng)) + tuple(gif_sun_skip_cases(gif_rng))
-                   + tuple(pfm_hdr_skip_cases(pfm_rng)))
+                   + tuple(pfm_hdr_skip_cases(pfm_rng))
+                   + tuple(tiff_skip_cases(tiff_rng)))
 
 
 CASES, SKIP_CASES = _names()
-FOREIGN = ("avif.png", "tiff.jpg", "webp.png")
+FOREIGN = ("avif.png", "jp2.jpg", "tiff16_gray.png", "webp.png")
 
 if __name__ == "__main__":
     make()

@@ -20,8 +20,9 @@ refused or read differently, against cv2, PIL and tsr_tpu on the CPU:
   and values past the int range reading 0; PIL's gray "Pf", which cv2
   refuses under IMREAD_COLOR: truncated) and Radiance HDR (run-length
   encoded and flat, x 255 and rounded), cut and mutated too;
-- C7: AVIF, TIFF and WebP data under .png/.jpg names raise naming their
-  format (the port does not decode them).
+- C7: AVIF, JPEG 2000 and WebP data under .png/.jpg names, and a 16-bit
+  TIFF, raise naming their format (the port does not decode them); the
+  TIFF fixtures themselves are tests/test_torch_port_tiff.py's.
 
 The fixtures are tests/data/images (make_fixtures.py): sides 4 to 400.
 """
@@ -132,12 +133,13 @@ def test_skip_class_reads_as_reference(name):
 
 
 @pytest.mark.parametrize("name,fmt", [("avif.png", "AVIF"),
-                                      ("tiff.jpg", "TIFF"),
+                                      ("jp2.jpg", "JPEG 2000"),
+                                      ("tiff16_gray.png", "TIFF"),
                                       ("webp.png", "WebP")])
 def test_foreign_format_raises_naming_it(name, fmt):
     """C7: data of a format cv2 reads by its signature and the port does
-    not decode raises naming the format on every reader path; the probes
-    refuse it."""
+    not decode, or a TIFF layout it does not decode (16-bit samples), raises
+    naming the format on every reader path; the probes refuse it."""
     p = str(FIXTURES / "skip" / name)
     assert cv2.imread(p) is not None
     match = f"holds {fmt} data, which the port does not decode"
@@ -368,7 +370,8 @@ def test_mutated_files_read_as_reference(tmp_path, seed):
     seeds = [p for p in sorted(FIXTURES.glob("*.*")) + sorted(
         (FIXTURES / "skip").glob("*.*"))
         if p.suffix != ".py" and p.suffix != ".npz"
-        and p.name not in make_fixtures.FOREIGN]
+        and p.name not in make_fixtures.FOREIGN
+        and not p.name.startswith("tiff")]  # test_torch_port_tiff.py's
     _mutate_and_check(tmp_path, np.random.default_rng(2000 + seed), seeds,
                       [0, 255, 32, 10, 35, 48, 49], 160)
 

@@ -19,9 +19,11 @@ Port of ``tsr_tpu/data/gtsrb.py``:
   prefetch thread, standing in for DataLoader workers (ref:05:39, 07:137).
 
 The IO library reads every suffix of :data:`IMG_EXTENSIONS` with
-cv2.imread's pixels: PPM/PGM (P6, P5, any maxval), PNG (any bit depth,
-color type and interlacing), BMP (24/32-bit, 1/4/8-bit palette) and JPEG
-(baseline and progressive, EXIF orientation applied), so a JPEG tree loads
+cv2.imread's pixels (else PIL's, the reference's fallback), whatever the
+data under it: PPM/PGM (P6, P5, any maxval), PNG (any bit depth, color
+type and interlacing), BMP (24/32-bit, 1/4/8-bit palette), GIF, TIFF and
+the rest ``tsr_tpu_torch.native`` lists, and JPEG (baseline and
+progressive, EXIF orientation applied), so a JPEG tree loads
 as a PPM tree does, and ``PairedFolder(exts=(".jpg",))`` pairs a ``.jpg``
 distorted file with its ``.jpg`` clean twin. A file it cannot decode
 raises when it is loaded, and a JPEG that uses a feature the decoder does

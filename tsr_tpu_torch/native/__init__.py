@@ -1,5 +1,5 @@
 """The port's image IO: ``tsrio.cpp``, ``jpeg.cpp``, ``formats.cpp``,
-``gif.cpp`` and ``hdr.cpp`` bound with ``ctypes``.
+``gif.cpp``, ``hdr.cpp`` and ``tiff.cpp`` bound with ``ctypes``.
 
 The port's own copy of ``tsr_tpu/native`` and its only codec (no module of
 the port imports cv2 or PIL, and the library links nothing but zlib). It
@@ -13,13 +13,20 @@ Sun raster (1/8/24/32-bit; run-length encoded and RGB-ordered ones as PIL
 reads them, which OpenCV refuses); PFM (colour as cv2 reads it: either byte
 order, divided by the scale's magnitude, rounded to 8 bits; gray as PIL
 reads it, which cv2 refuses) and Radiance HDR (run-length encoded or flat,
-x 255 and rounded); JPEG (baseline, progressive and arithmetic coded, CMYK
-and YCCK, data cut short or corrupt as libjpeg recovers it, lossless); EXIF
-orientation applied as cv2 applies it, in PNG's eXIf too. Damaged files
-read as cv2 or PIL read them (``formats.cpp`` and ``gif.cpp`` copy both
-readers, ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads
-and the port does not decode (:data:`FORMATS`: TIFF, WebP, JPEG 2000 and
-AVIF) raises naming the format. It writes ``.ppm``, ``.bmp`` and
+x 255 and rounded); TIFF (classic, either byte order, the first IFD,
+strips of 8-bit gray, RGB or palette samples, uncompressed, PackBits, LZW
+or deflate, orientations 1-4 as cv2 applies them, 5-8 as PIL does); JPEG
+(baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
+or corrupt as libjpeg recovers it, lossless); EXIF orientation applied as
+cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
+them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
+``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
+port does not decode (:data:`FORMATS`: WebP, JPEG 2000, AVIF, and TIFF of
+another layout: tiles, samples of other than 8 bits, BigTIFF...) raises
+naming the format. Image sizes follow the reference's rules: cv2's (where
+``cv2.imread`` raises, the port raises too, and never falls back to PIL),
+and Pillow's limit on the files only PIL reads. It writes ``.ppm``,
+``.bmp`` and
 ``.jpg``/``.jpeg`` files byte-equal to
 ``cv2.imwrite``'s at its defaults, and ``.png`` files pixel-equal to
 cv2's. Around the
@@ -54,7 +61,7 @@ from tsr_tpu_torch.kernels import _build
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp",
-           _HERE / "gif.cpp", _HERE / "hdr.cpp")
+           _HERE / "gif.cpp", _HERE / "hdr.cpp", _HERE / "tiff.cpp")
 HEADERS = (_HERE / "codec.h",)
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
@@ -119,8 +126,11 @@ def _lib() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int]
             lib.tsrio_decode.restype = ctypes.c_int
             lib.tsrio_decode.argtypes = [
-                ctypes.c_char_p, u8p, ctypes.c_long,
-                ctypes.POINTER(ctypes.c_int)]
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_void_p)]
+            lib.tsrio_release.restype = None
+            lib.tsrio_release.argtypes = [ctypes.c_void_p]
             lib.tsrio_probe.restype = ctypes.c_int
             lib.tsrio_probe.argtypes = [
                 ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -145,8 +155,15 @@ def _joined(paths: Sequence[str]) -> bytes:
     return "\n".join(paths).encode()
 
 
+RAISES = 2  # codec.h's kRaises: cv2.imread raises on the file
+
+
 def _failure(path, status: int) -> RuntimeError:
     """The error of a decode or probe of ``path`` that gave ``status``."""
+    if status == RAISES:
+        return RuntimeError(f"tsrio refuses {path}: cv2.imread raises on it "
+                            "(its header gives a side of 0 or past 2^20, "
+                            "or more than 2^30 pixels)")
     if -len(FEATURES) <= status < 0:
         return RuntimeError(f"tsrio cannot decode {path}: it uses "
                             f"{FEATURES[-status - 1]}, which the port's "
@@ -170,19 +187,26 @@ def _first_failure(paths: Sequence[str], decoded: int) -> RuntimeError:
     return RuntimeError(f"tsrio decoded {decoded}/{len(paths)} images")
 
 
-def decode(path: str, max_side: int = 4096) -> np.ndarray:
+def decode(path: str) -> np.ndarray:
     """Decode one image at native size -> uint8 ``[H, W, 3]`` RGB, as
-    ``cv2.imread(path)[:, :, ::-1]`` decodes it."""
-    cap = max_side * max_side * 3
-    buf = np.empty(cap, np.uint8)
+    ``cv2.imread(path)[:, :, ::-1]`` decodes it (else as PIL's
+    ``convert("RGB")``, the reference's fallback), into an array sized from
+    the decoded image; raises a ``RuntimeError`` where it fails (an image
+    too large for the host's memory among them)."""
     dims = (ctypes.c_int * 2)()
-    status = _lib().tsrio_decode(
-        os.fspath(path).encode(),
-        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap, dims)
+    handle, pixels = ctypes.c_void_p(), ctypes.c_void_p()
+    lib = _lib()
+    status = lib.tsrio_decode(os.fspath(path).encode(), dims,
+                              ctypes.byref(handle), ctypes.byref(pixels))
     if status != 1:
         raise _failure(path, status)
-    w, h = dims[0], dims[1]
-    return buf[:w * h * 3].reshape(h, w, 3).copy()
+    try:
+        w, h = dims[0], dims[1]
+        out = np.empty((h, w, 3), np.uint8)
+        ctypes.memmove(out.ctypes.data, pixels, out.nbytes)
+    finally:
+        lib.tsrio_release(handle)
+    return out
 
 
 def load_batch(paths: Sequence[str], size: int, threads: int = 8,
@@ -207,8 +231,8 @@ def load_batch(paths: Sequence[str], size: int, threads: int = 8,
     return out
 
 
-def probe(paths: Sequence[str], threads: int = 8,
-          reader: str = "port") -> np.ndarray:
+def probe(paths: Sequence[str], threads: int = 8, reader: str = "port",
+          raises: bool = False):
     """``(h, w)`` of each image as :func:`decode` gives it (EXIF
     orientation applied), as int32 ``[N, 2]``.
 
@@ -257,22 +281,46 @@ def probe(paths: Sequence[str], threads: int = 8,
       that ends the header, a "-Y h +X w" resolution line (any other
       orientation is refused), every scanline present, each run or literal
       inside its scanline and each RLE scanline of the header's width;
+    - TIFF (classic, the first IFD): libtiff's directory rules (the first
+      of duplicate tags wins; a bad ImageWidth, ImageLength,
+      RowsPerStrip, SamplesPerPixel, Compression, BitsPerSample,
+      SampleFormat or PlanarConfiguration, or no StripOffsets, refuses the
+      file; a palette without a usable ColorMap reads gray; a missing or
+      implausible StripByteCounts is estimated), then OpenCV's: a
+      Photometric tag, 8-bit samples, a layout libtiff's RGBA reader takes,
+      every strip's byte count nonzero and inside the file (a strip that
+      fails to decode reads as far as it decoded, the rest 0), and an
+      orientation of 1-4 (5-8 give None; the port decodes them as PIL
+      does, rotated); a layout the port does not decode (tiles, samples of
+      other than 8 bits, MINISWHITE, CMYK, YCbCr, extra samples, planar
+      configuration 2, another compression) is refused;
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
       does not decode it).
 
-    A PFM whose header gives a side of 0 or past 2^20 makes cv2.imread
-    raise, so the reference reads no pixels of it: it probes ``(0, 0)``
-    and does not decode, though PIL reads a gray one."""
+    A header whose size imread's validateInputImageSize refuses (a side of
+    0 or past 2^20, more than 2^30 pixels; checked once the format's own
+    header parser has accepted the numbers: a PNG's chunks up to its first
+    IDAT, a JPEG's markers up to its first SOS, a GIF's every block, a
+    TIFF's directory) makes cv2.imread raise, not give None: the reference
+    reads no pixels of the file and does not fall back to PIL. The cv2
+    probe gives ``(0, 0)`` for it too; with ``raises=True`` it returns
+    ``(dims, raised)``, ``raised`` a bool ``[N]`` array that marks these
+    files (``reader="cv2"`` only). The reader paths raise on them, and on
+    an image past PIL's limit (2 x ``Image.MAX_IMAGE_PIXELS``) that cv2
+    does not read."""
     if reader not in _READERS:
         raise ValueError(f"unknown reader {reader!r}; one of "
                          f"{tuple(_READERS)}")
+    if raises and reader != "cv2":
+        raise ValueError("raises=True needs reader='cv2'")
     dims = np.zeros((len(paths), 2), np.int32)
     if not len(paths):
-        return dims
+        return (dims, np.zeros(0, bool)) if raises else dims
     ok = _lib().tsrio_probe(
         _joined(paths), len(paths),
         dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), threads,
         _READERS[reader])
+    raised = (dims[:, 0] == 0) & (dims[:, 1] == RAISES)
     if ok != len(paths):
         if reader == "port":
             for p, (h, status) in zip(paths, dims.tolist()):
@@ -281,7 +329,7 @@ def probe(paths: Sequence[str], threads: int = 8,
                                        f"image headers: "
                                        f"{_failure(p, status)}")
         dims[dims[:, 0] == 0] = 0
-    return dims
+    return (dims, raised) if raises else dims
 
 
 def load_canvas(paths: Sequence[str], out: np.ndarray, resize_to: int = 0,
@@ -308,7 +356,7 @@ def load_canvas(paths: Sequence[str], out: np.ndarray, resize_to: int = 0,
         dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), threads)
     if ok != len(paths):
         for p, (h, status) in zip(paths, dims.tolist()):
-            if h == 0 and status < 0:
+            if h == 0 and status not in (0, 1):
                 raise RuntimeError(f"tsrio loaded {ok}/{len(paths)} images:"
                                    f" {_failure(p, status)}")
         raise RuntimeError(f"tsrio loaded {ok}/{len(paths)} images into "

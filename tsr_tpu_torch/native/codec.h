@@ -1,8 +1,8 @@
-// codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp, gif.cpp and hdr.cpp
-// share: the decoded image, the status codes a decode or a header probe
-// returns, the JPEG codec's entry points, the PNG/PNM/PFM/PAM/BMP/Sun
-// raster, GIF and Radiance HDR readers and the EXIF orientation both JPEG
-// and PNG carry.
+// codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp, gif.cpp, hdr.cpp and
+// tiff.cpp share: the decoded image, the image-size rules, the status codes
+// a decode or a header probe returns, the JPEG codec's entry points, the
+// PNG/PNM/PFM/PAM/BMP/Sun raster, GIF, Radiance HDR and TIFF readers and
+// the EXIF orientation JPEG, PNG and TIFF carry.
 #pragma once
 
 #include <cmath>
@@ -18,13 +18,19 @@ struct Image {
   std::vector<uint8_t> rgb;  // HWC
 };
 
-// Images past 64 Mpixels are refused (a decode would need 192 MiB).
-constexpr int64_t kMaxPixels = 64LL << 20;
-
-// imread's validateInputImageSize (past it cv2 raises), and the cap above.
+// imread's validateInputImageSize: each side 1 to 2^20 and at most 2^30
+// pixels. It runs once the format's own header parser has accepted the
+// numbers; past it cv2.imread raises (kRaises), it does not give None.
 inline bool cv2_size_ok(int64_t w, int64_t h) {
   return w > 0 && h > 0 && w <= (1 << 20) && h <= (1 << 20) &&
-         w * h <= kMaxPixels;
+         w * h <= (int64_t{1} << 30);
+}
+
+// Pillow's Image.open raises DecompressionBombError past 2 x
+// Image.MAX_IMAGE_PIXELS (89,478,485): the PIL readers refuse such images.
+constexpr int64_t kPilMaxPixels = 2 * 89478485LL;
+inline bool pil_size_ok(int64_t w, int64_t h) {
+  return w > 0 && h > 0 && w * h <= kPilMaxPixels;
 }
 
 // cv::saturate_cast<uchar>(float), cvRound's half to even then clamped;
@@ -38,8 +44,10 @@ inline uint8_t cv2_u8(float v) {
 
 // A decode's or a probe's outcome. kOk and kUnreadable (not an image the
 // library knows, or data that neither cv2.imread nor PIL reads) are the
-// first two (kRaises stays inside the library: decodes and probes give
-// kUnreadable for it); each negative code down to kLosslessColor names a feature of
+// first two; kRaises marks a file on which cv2.imread raises (a header
+// whose size imread's validateInputImageSize refuses): the reference reads
+// no pixels of it and does not fall back to PIL. Each negative code down to
+// kLosslessColor names a feature of
 // a valid JPEG that the library does not implement (neither cv2.imread nor
 // PIL reads any of them), and each below it a format, told by its
 // signature, that cv2.imread reads and the library does not decode.
@@ -85,18 +93,20 @@ int probe_jpeg(FILE* f, int* dims);
 // quality 95, 4:2:0, standard Huffman tables (libjpeg-turbo's defaults).
 void encode_jpeg(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out);
 
-// PNG, PNM (P1-P6), PFM, PAM (P7), BMP, Sun raster, GIF and Radiance HDR
-// as cv2.imread reads them (formats.cpp, gif.cpp, hdr.cpp): kOk with the
-// (h, w) it gives in dims (EXIF orientation applied) and, with img, its
-// pixels as RGB; kUnreadable where cv2.imread gives None, kRaises where it
-// raises (the reference's readers then raise too, so PIL is not tried).
+// PNG, PNM (P1-P6), PFM, PAM (P7), BMP, Sun raster, GIF, Radiance HDR and
+// TIFF as cv2.imread reads them (formats.cpp, gif.cpp, hdr.cpp, tiff.cpp):
+// kOk with the (h, w) it gives in dims (EXIF orientation applied) and, with
+// img, its pixels as RGB; kUnreadable where cv2.imread gives None, kRaises
+// where it raises (the reference's readers then raise too, so PIL is not
+// tried), kTiff for a TIFF layout cv2 reads and the port does not decode.
 // `head` reads the header alone.
 int read_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // The same formats as PIL's Image.open(path).convert("RGB") reads them
-// (no EXIF orientation; of PFM the gray "Pf" alone; no Radiance HDR): kOk
-// or kUnreadable where PIL raises. `head` reads the header alone (not of a
-// PNG).
+// (no EXIF orientation but a TIFF's; of PFM the gray "Pf" alone; no
+// Radiance HDR): kOk, kUnreadable where PIL raises (past Pillow's size
+// limit too), kTiff for a TIFF layout PIL may read and the port does not
+// decode. `head` reads the header alone (not of a PNG).
 int read_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // GIF's first frame as cv2.imread reads it (OpenCV's own decoder) and as
@@ -112,6 +122,19 @@ int gif_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 // HDR. is_hdr_data: a "#?RGBE" or "#?RADIANCE" signature.
 bool is_hdr_data(const uint8_t* data, size_t n);
 int hdr_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+
+// TIFF (classic, either byte order, the first IFD; strips of 8-bit gray,
+// RGB or palette samples, uncompressed, PackBits, LZW or deflate) as
+// cv2.imread reads it (OpenCV's TiffDecoder over libtiff's RGBA reader,
+// tiff.cpp) and as PIL's TiffImagePlugin and convert("RGB") read it; the
+// arguments and results of read_cv2 and read_pil. A TIFF of any other
+// layout gives kTiff. is_tiff_data: an "II*\0" or "MM\0*" signature.
+// probe_tiff: (h, w) from an open file's header and first IFD, wherever it
+// lies (cv2's rules, else PIL's), or a Status.
+bool is_tiff_data(const uint8_t* data, size_t n);
+int tiff_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+int tiff_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+int probe_tiff(FILE* f, int* dims);
 
 // The Status of a format cv2.imread reads and the library does not decode
 // (kTiff ... kAvif), from the file's signature; kUnreadable for any other.

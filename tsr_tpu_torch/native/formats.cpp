@@ -61,7 +61,8 @@ struct Out {
   Image* img = nullptr;
   int w = 0, h = 0;
   bool init(Image* im, int64_t w_, int64_t h_) {
-    if (w_ <= 0 || h_ <= 0 || w_ * h_ > kMaxPixels) return false;
+    // both readers' size rules (cv2_size_ok, pil_size_ok) lie within this
+    if (w_ <= 0 || h_ <= 0 || w_ * h_ > (int64_t{1} << 30)) return false;
     img = im;
     w = static_cast<int>(w_);
     h = static_cast<int>(h_);
@@ -153,7 +154,8 @@ bool cv2_pnm_head(Stream& s, PnmHead& hd) {
 int cv2_pnm(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   Stream s{d, n, 0};
   PnmHead hd;
-  if (!cv2_pnm_head(s, hd) || !cv2_size_ok(hd.w, hd.h)) return kUnreadable;
+  if (!cv2_pnm_head(s, hd)) return kUnreadable;
+  if (!cv2_size_ok(hd.w, hd.h)) return kRaises;
   dims[0] = hd.h;
   dims[1] = hd.w;
   if (head) return kOk;
@@ -256,11 +258,8 @@ int cv2_pfm(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   if (!cv2_pfm_field(s, field)) return kUnreadable;
   const double scale = std::strtod(field.c_str(), nullptr);
   // validateInputImageSize, between readHeader and readData, raises
-  if (w <= 0 || h <= 0 || w > (1 << 20) || h > (1 << 20) ||
-      static_cast<int64_t>(w) * h > (1LL << 30))
-    return kRaises;
-  if (d[1] == 'f' || !cv2_size_ok(w, h) || !(std::fabs(scale) > 0.0))
-    return kUnreadable;
+  if (!cv2_size_ok(w, h)) return kRaises;
+  if (d[1] == 'f' || !(std::fabs(scale) > 0.0)) return kUnreadable;
   dims[0] = h;
   dims[1] = w;
   if (head) return kOk;
@@ -474,7 +473,7 @@ std::string strip_comments(std::string block, bool& spans,
 
 int pil_pnm(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   PilPnm hd;
-  if (!pil_pnm_head(d, n, hd)) return kUnreadable;
+  if (!pil_pnm_head(d, n, hd) || !pil_size_ok(hd.w, hd.h)) return kUnreadable;
   Out out;
   if (!out.init(head ? nullptr : img, hd.w, hd.h)) return kUnreadable;
   dims[0] = out.h;
@@ -713,7 +712,8 @@ bool cv2_pam_head(Stream& s, PamHead& hd) {
 int cv2_pam(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   Stream s{d, n, 0};
   PamHead hd;
-  if (!cv2_pam_head(s, hd) || !cv2_size_ok(hd.w, hd.h)) return kUnreadable;
+  if (!cv2_pam_head(s, hd)) return kUnreadable;
+  if (!cv2_size_ok(hd.w, hd.h)) return kRaises;  // a side of 0 too
   dims[0] = hd.h;
   dims[1] = hd.w;
   if (head) return kOk;
@@ -817,7 +817,8 @@ int cv2_bmp(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     }
     const bool bottom_up = hh > 0;
     const int64_t h = hh < 0 ? -hh : hh;
-    if (!cv2_size_ok(w, h) || offset < 0) return kUnreadable;
+    if (!cv2_size_ok(w, h)) return kRaises;
+    if (offset < 0) return kUnreadable;
     dims[0] = static_cast<int>(h);
     dims[1] = static_cast<int>(w);
     if (head) return kOk;
@@ -1070,6 +1071,7 @@ int pil_bmp(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   }
   Out out;
   if (w == 0 || h == 0 || w > (1u << 20) || h > (1u << 20) ||
+      !pil_size_ok(static_cast<int64_t>(w), static_cast<int64_t>(h)) ||
       !out.init(head ? nullptr : img, static_cast<int64_t>(w),
                 static_cast<int64_t>(h)))
     return kUnreadable;
@@ -1211,7 +1213,7 @@ int cv2_sun(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
                    : maplength <= 0 || maplength > palsize || bpp > 8 ||
                          n - 32 < static_cast<size_t>(maplength))
     return kUnreadable;
-  if (!cv2_size_ok(w, h)) return kUnreadable;
+  if (!cv2_size_ok(w, h)) return kRaises;
   dims[0] = h;
   dims[1] = w;
   if (head) return kOk;
@@ -1265,8 +1267,7 @@ int pil_sun(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   if (plen && (plen > 1024 || ptype != 1 || depth > 8 || depth == 1 ||
                pal_bytes / 3 > 256))
     return kUnreadable;
-  if (type > 5 || w == 0 || h == 0 || static_cast<uint64_t>(w) * h > kMaxPixels)
-    return kUnreadable;
+  if (type > 5 || !pil_size_ok(w, h)) return kUnreadable;
   dims[0] = static_cast<int>(h);
   dims[1] = static_cast<int>(w);
   if (head) return kOk;
@@ -1551,14 +1552,14 @@ int cv2_png(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   PngHead hd;
   if (!ihdr_fields(c.data, hd) || hd.w <= 0 || hd.h <= 0 ||
       hd.w > 1000000 || hd.h > 1000000 || c.data[10] != 0 ||
-      c.data[11] != 0 || hd.interlace > 1 ||
-      static_cast<int64_t>(hd.w) * hd.h > kMaxPixels)
-    return kUnreadable;
+      c.data[11] != 0 || hd.interlace > 1)
+    return kUnreadable;  // libpng's own limits: 1,000,000 a side
   hd.orientation = png_orientation(d, n);
   const bool swap = hd.orientation >= 5;
   dims[0] = swap ? hd.w : hd.h;
   dims[1] = swap ? hd.h : hd.w;
-  if (head) return kOk;
+  const bool size_ok = cv2_size_ok(hd.w, hd.h);
+  if (head) return size_ok ? kOk : kRaises;
   Rows rows;
   rows.init(hd.w, hd.h, png_channels(hd.ctype, hd.depth) * hd.depth,
             hd.interlace == 1);
@@ -1595,6 +1596,9 @@ int cv2_png(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     }
     if (is_type(c.type, "IDAT")) {
       if (hd.ctype == 3 && !have_plte) return kUnreadable;
+      // readHeader ends at the first whole IDAT (its CRC unchecked), then
+      // validateInputImageSize raises
+      if (!size_ok) return kRaises;
       have_idat = true;
       if (!c.crc_ok) return kUnreadable;
       if (after_idat || ended) continue;  // extra data: warnings
@@ -1709,9 +1713,7 @@ int pil_png(const uint8_t* d, size_t n, Image* img, int* dims) {
       return kUnreadable;
     pos += 4;
   }
-  if (!have_ihdr || hd.w <= 0 || hd.h <= 0 ||
-      static_cast<int64_t>(hd.w) * hd.h > kMaxPixels)
-    return kUnreadable;
+  if (!have_ihdr || !pil_size_ok(hd.w, hd.h)) return kUnreadable;
   Rows rows;
   rows.init(hd.w, hd.h, png_channels(hd.ctype, hd.depth) * hd.depth,
             hd.interlace != 0);
@@ -1782,9 +1784,7 @@ int foreign(const uint8_t* d, size_t n) {
   auto at = [&](size_t o, const char* s, size_t k) {
     return n >= o + k && !std::memcmp(d + o, s, k);
   };
-  if (at(0, "II*\0", 4) || at(0, "MM\0*", 4) || at(0, "II+\0", 4) ||
-      at(0, "MM\0+", 4))
-    return kTiff;
+  if (at(0, "II+\0", 4) || at(0, "MM\0+", 4)) return kTiff;  // BigTIFF
   if (at(0, "RIFF", 4) && at(8, "WEBP", 4)) return kWebp;
   if (at(0, "\0\0\0\x0cjP  \r\n\x87\n", 12) || at(0, "\xff\x4f\xff\x51", 4))
     return kJpeg2000;
@@ -1810,6 +1810,7 @@ int read_cv2(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     if (is_sun(d, n)) return cv2_sun(d, n, img, out, head);
     if (is_gif_data(d, n)) return gif_cv2(d, n, img, out, head);
     if (is_hdr_data(d, n)) return hdr_cv2(d, n, img, out, head);
+    if (is_tiff_data(d, n)) return tiff_cv2(d, n, img, out, head);
   } catch (const Eof&) {
   }
   return kUnreadable;
@@ -1824,6 +1825,7 @@ int read_pil(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   if (n >= 2 && d[0] == 'P') return pil_pnm(d, n, img, out, head);
   if (is_sun(d, n)) return pil_sun(d, n, img, out, head);
   if (is_gif_data(d, n)) return gif_pil(d, n, img, out, head);
+  if (is_tiff_data(d, n)) return tiff_pil(d, n, img, out, head);
   return kUnreadable;
 }
 

@@ -34,10 +34,6 @@
 namespace tsrio {
 namespace {
 
-bool size_ok(int64_t w, int64_t h) {
-  return w > 0 && h > 0 && w * h <= kMaxPixels;
-}
-
 bool is_gif(const uint8_t* d, size_t n) {
   return n >= 6 && (!std::memcmp(d, "GIF87a", 6) || !std::memcmp(d, "GIF89a", 6));
 }
@@ -247,12 +243,12 @@ int gif_cv2_impl(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     for (int i = 0; i < 3 * gsize; i++) gct[i] = static_cast<uint8_t>(s.byte());
     if (bg >= gsize) return kUnreadable;
   }
-  if (!size_ok(sw, sh)) return kUnreadable;
   dims[0] = sh;
   dims[1] = sw;
-  if (head) return kOk;
+  if (head) return cv2_size_ok(sw, sh) ? kOk : kRaises;
   const size_t frames = s.pos;
-  cv2_walk(s);
+  cv2_walk(s);  // readHeader; then validateInputImageSize raises
+  if (!cv2_size_ok(sw, sh)) return kRaises;
   s.pos = frames;
   // readExtensions: the graphic control extension of the first frame
   bool transparent = false;
@@ -544,7 +540,7 @@ bool pil_open(const uint8_t* d, size_t n, PilGif& g) {
 
 int gif_pil_impl(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   PilGif g;
-  if (!pil_open(d, n, g) || !size_ok(g.w, g.h)) return kUnreadable;
+  if (!pil_open(d, n, g) || !pil_size_ok(g.w, g.h)) return kUnreadable;
   dims[0] = g.h;
   dims[1] = g.w;
   if (head) return kOk;

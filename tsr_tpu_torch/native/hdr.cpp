@@ -115,8 +115,8 @@ bool is_hdr_data(const uint8_t* d, size_t n) {
 int hdr_cv2(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   File f{d, n, 0};
   int w = 0, h = 0;
-  if (!is_hdr_data(d, n) || !read_header(f, w, h) || !cv2_size_ok(w, h))
-    return kUnreadable;
+  if (!is_hdr_data(d, n) || !read_header(f, w, h)) return kUnreadable;
+  if (!cv2_size_ok(w, h)) return kRaises;
   dims[0] = h;
   dims[1] = w;
   if (head) return kOk;

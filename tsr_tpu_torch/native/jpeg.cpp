@@ -556,9 +556,7 @@ struct Decoder {
     if (precision != 8) return kPrecision;
     if (ncomp != 1 && ncomp != 3 && ncomp != 4) return kComponents;
     if (lossless && ari) return kLosslessArithmetic;
-    if (width > 65500 || height > 65500 ||
-        static_cast<int64_t>(width) * height > kMaxPixels)
-      return kUnreadable;
+    if (width > 65500 || height > 65500) return kUnreadable;  // libjpeg's
     for (int i = 0; i < ncomp; i++) {
       Component& c = comp[i];
       c.id = src.byte();
@@ -670,6 +668,12 @@ struct Decoder {
   // get_sos, then the checks of jdinput.c and the entropy decoder's
   // start_pass
   int read_sos(Scan& sc) {
+    const int st = get_sos(sc);
+    return st == kOk ? start_scan(sc) : st;
+  }
+
+  // jdmarker.c get_sos: the SOS segment
+  int get_sos(Scan& sc) {
     if (!have_frame) return kUnreadable;
     const int len = src.u16();
     sc.n = src.byte();
@@ -694,6 +698,12 @@ struct Decoder {
     scans++;
     next_rst = 0;
     if (scans == 1) multi_scan = sc.n < ncomp || progressive;
+    return kOk;
+  }
+
+  // the scan's checks when its decode starts (jdinput.c, the entropy
+  // decoder's start_pass)
+  int start_scan(Scan& sc) {
     int blocks = 0;
     for (int i = 0; i < sc.n; i++) blocks += sc.c[i]->h * sc.c[i]->v;
     if (sc.n > 1 && blocks > 10) return kUnreadable;
@@ -1205,6 +1215,12 @@ struct Decoder {
         spec.defined = true;
       }
     }
+    // jpeg_read_header ends with the first SOS segment; then imread's
+    // validateInputImageSize raises
+    Scan first;
+    st = get_sos(first);
+    if (st != kOk) return st;
+    if (!cv2_size_ok(width, height)) return kRaises;
     if (lossless) {
       // libjpeg-turbo refuses a color conversion that is not lossless; and
       // cv2.imread asks gray for BGR, so it gives None where PIL reads it
@@ -1212,9 +1228,14 @@ struct Decoder {
       if (cs == kYcc || cs == kYcck) return kLosslessColor;
       if (cv2_reader && cs == kGray) return kUnreadable;
     }
-    while (true) {
+    for (bool is_first = true;; is_first = false) {
       Scan sc;
-      st = read_sos(sc);
+      if (is_first) {
+        sc = first;
+        st = start_scan(sc);
+      } else {
+        st = read_sos(sc);
+      }
       if (st != kOk) return st;
       st = decode_scan(sc);
       if (st != kOk) return st;
@@ -1920,7 +1941,9 @@ int probe_jpeg(FILE* f, int* dims) {
       return kUnreadable;
     }
   }
-  if (!have_frame || h <= 0 || w <= 0) return kUnreadable;
+  if (!have_frame || h <= 0 || w <= 0 || h > 65500 || w > 65500)
+    return kUnreadable;
+  if (!cv2_size_ok(w, h)) return kRaises;
   if (d.lossless && (d.color() == Decoder::kYcc ||
                      d.color() == Decoder::kYcck))
     return kLosslessColor;

@@ -10,13 +10,15 @@
 //   - PNG, PNM (P1-P6, ASCII and binary), PFM, PAM (P7), BMP (palette,
 //     16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core header) and Sun
 //     raster: formats.cpp; GIF (the first frame): gif.cpp; Radiance HDR:
-//     hdr.cpp; each with cv2's reader and PIL's copied (PIL reads no HDR),
-//     damaged files included;
+//     hdr.cpp; TIFF (strips of 8-bit gray, RGB or palette samples):
+//     tiff.cpp; each with cv2's reader and PIL's copied (PIL reads no
+//     HDR), damaged files included;
 //   - JPEG: jpeg.cpp (baseline, progressive and arithmetic coded, CMYK and
 //     YCCK, damaged data as libjpeg recovers it, EXIF orientation; lossless
 //     JPEG as PIL reads it, where the reference falls back to PIL).
-// A file of a format cv2 reads and the port does not decode (TIFF, WebP,
-// JPEG 2000, AVIF) fails with a Status naming it (codec.h).
+// A file of a format cv2 reads and the port does not decode (TIFF of
+// another layout, WebP, JPEG 2000, AVIF) fails with a Status naming it
+// (codec.h), and one on which cv2.imread raises with kRaises.
 // Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
 // (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
 // by construction), PPM (P6), BMP (cv2's 24-bit layout) and JPEG
@@ -27,14 +29,18 @@
 //     paths: '\n'-joined file paths; out: uint8[n, size, size, 3]
 //     mode 0 resizes as cv2.INTER_LINEAR, mode 1 as PIL's BILINEAR.
 //     Failed decodes leave their slot zeroed and are counted out.
-//   tsrio_decode(path, out, cap, dims) -> 1 on success, else a Status
-//     (codec.h: 0 unreadable, negative an unimplemented feature)
+//   tsrio_decode(path, dims, handle, pixels) -> 1 on success, else a
+//     Status (codec.h: 0 unreadable or out of memory, 2 cv2.imread raises,
+//     negative an unimplemented feature or a foreign format); the
+//     image's (w, h) into dims, its pixels handed over at *pixels until
+//     tsrio_release(*handle)
 //   tsrio_probe(paths, n, dims, threads, reader) -> files probed
 //     (h, w) of each image as it decodes (EXIF orientation applied) into
 //     dims[n, 2]; a file that fails gets (0, its Status). Reader 0 reads
 //     the header alone (cv2's header, else PIL's); reader 1 reads the
 //     whole file as cv2.imread would (short of its pixels), so it fails
-//     exactly where cv2.imread gives None.
+//     exactly where cv2.imread gives None, and with kRaises where it
+//     raises.
 //   tsrio_load_canvas(paths, n, ch, cw, resize_to, reflect, out, dims,
 //                     threads) -> images loaded
 //     Each image at native size into the top-left of its [ch, cw, 3] slot
@@ -59,6 +65,7 @@
 #include <cstdio>
 #include <cstring>
 #include <exception>
+#include <new>
 #include <string>
 #include <thread>
 #include <vector>
@@ -424,9 +431,10 @@ std::vector<uint8_t> png_head(FILE* f) {
   return head;
 }
 
-// 1 (kOk) on success, else a Status: kUnreadable, the unimplemented JPEG
-// feature the file uses, or the format it holds that the port does not
-// decode. The reference's reader: cv2.imread, else PIL.
+// 1 (kOk) on success, else a Status: kUnreadable (an allocation that fails
+// too), kRaises (cv2.imread raises: no fallback to PIL), the unimplemented
+// JPEG feature the file uses, or the format it holds that the port does
+// not decode. The reference's reader: cv2.imread, else PIL.
 int decode_file(const char* path, Image& img) {
   try {  // an allocation that fails must not unwind into ctypes
     std::vector<uint8_t> buf;
@@ -434,11 +442,11 @@ int decode_file(const char* path, Image& img) {
     const uint8_t* d = buf.data();
     const size_t n = buf.size();
     if (tsrio::is_jpeg(d, n)) return tsrio::decode_jpeg(d, n, img);
+    // kOk, kRaises, or a layout cv2 reads and the port does not decode
     const int cv2 = tsrio::read_cv2(d, n, &img, nullptr, false);
-    if (cv2 == tsrio::kOk ||
-        (cv2 != tsrio::kRaises &&
-         tsrio::read_pil(d, n, &img, nullptr, false) == tsrio::kOk))
-      return tsrio::kOk;
+    if (cv2 != tsrio::kUnreadable) return cv2;
+    const int pil = tsrio::read_pil(d, n, &img, nullptr, false);
+    if (pil != tsrio::kUnreadable) return pil;
     return tsrio::foreign_format(d, n);
   } catch (const std::exception&) {
     return tsrio::kUnreadable;
@@ -472,17 +480,19 @@ int probe_one(const char* path, int* dims, bool cv2_reader) {
     std::vector<uint8_t> whole;
     if (read_file(path, whole)) {
       st = tsrio::read_cv2(whole.data(), whole.size(), nullptr, hw, false);
-      if (st != tsrio::kOk)
+      if (st == tsrio::kUnreadable)
         st = tsrio::foreign_format(whole.data(), whole.size());
     }
+  } else if (tsrio::is_tiff_data(buf.data(), buf.size())) {
+    st = tsrio::probe_tiff(f, hw);  // its IFD may lie anywhere
   } else {
     static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
     const bool png = buf.size() >= 8 && !std::memcmp(buf.data(), sig, 8);
     const std::vector<uint8_t> head = png ? png_head(f) : buf;
     st = tsrio::read_cv2(head.data(), head.size(), nullptr, hw, true);
-    if (st != tsrio::kOk && st != tsrio::kRaises)
+    if (st == tsrio::kUnreadable)
       st = tsrio::read_pil(head.data(), head.size(), nullptr, hw, true);
-    if (st != tsrio::kOk)
+    if (st == tsrio::kUnreadable)
       st = tsrio::foreign_format(buf.data(), buf.size());
   }
   h = hw[0];
@@ -656,19 +666,29 @@ int tsrio_write_batch(const char* joined_paths, int n, const int* dims,
   });
 }
 
-// Decode a single image without resize; returns 1 on success and writes
-// (w, h) to dims, else the Status of the failure (0 also where the caller's
-// buffer of cap bytes is too small).
-int tsrio_decode(const char* path, uint8_t* out, long cap, int* dims) {
-  Image img;
-  const int st = decode_file(path, img);
-  if (st != tsrio::kOk) return st;
-  long need = static_cast<long>(img.rgb.size());
-  if (need > cap) return 0;
-  std::memcpy(out, img.rgb.data(), img.rgb.size());
-  dims[0] = img.w;
-  dims[1] = img.h;
+// Decode a single image without resize; returns 1 on success, writes (w,
+// h) to dims and hands over the decoded image: *handle (free it with
+// tsrio_release) holding w * h * 3 bytes at *pixels; else the Status of
+// the failure and a null handle.
+int tsrio_decode(const char* path, int* dims, void** handle,
+                 const uint8_t** pixels) {
+  *handle = nullptr;
+  *pixels = nullptr;
+  Image* img = new (std::nothrow) Image;
+  if (!img) return tsrio::kUnreadable;
+  const int st = decode_file(path, *img);
+  if (st != tsrio::kOk) {
+    delete img;
+    return st;
+  }
+  dims[0] = img->w;
+  dims[1] = img->h;
+  *handle = img;
+  *pixels = img->rgb.data();
   return 1;
 }
+
+// Frees an image tsrio_decode handed over.
+void tsrio_release(void* handle) { delete static_cast<Image*>(handle); }
 
 }  // extern "C"

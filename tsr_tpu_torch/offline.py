@@ -262,10 +262,21 @@ def generate_tree(
     RT_FORMAT_RGB; a gray PFM ("Pf"), a PFM cut short or of scale 0 or
     without a line feed after its magic; a Radiance HDR cut short, without
     its FORMAT=32-bit_rle_rgbe line, in any orientation but "-Y h +X w",
-    with a run past its scanline or a scanline width not the header's; data
-    of a format the port does not decode (TIFF, WebP, JPEG 2000, AVIF). PIL
-    reads some of them (a gray PFM among them), and the reader paths decode
-    those as PIL does.
+    with a run past its scanline or a scanline width not the header's; a
+    TIFF whose directory libtiff refuses, without a Photometric tag, with a
+    strip whose byte count is 0 or that runs past the end of the file, or of
+    orientation 5-8; data of a format or TIFF layout the port does not
+    decode (TIFF tiles and samples of other than 8 bits, BigTIFF, WebP,
+    JPEG 2000, AVIF). PIL reads some of them (a gray PFM, a TIFF of
+    orientation 5-8 among them), and the reader paths decode those as PIL
+    does.
+
+    A file on which cv2.imread raises (a header whose size imread's
+    validateInputImageSize refuses: a side of 0 or past 2^20, more than
+    2^30 pixels) stops the reference's generate_tree with a cv2.error after
+    it has written the buckets that sort before that file's. This one
+    raises a ``RuntimeError`` that names the file before it writes
+    anything: ``dst_dir`` stays as it was.
 
     One generator seeded with ``seed`` draws a seed for each batch's own
     generator on ``device`` (the reference splits its key per batch), so a
@@ -280,7 +291,15 @@ def generate_tree(
     dst = Path(dst_dir)
     files = tree_files(src_dir)
     log(f"Found {len(files)} images, generating '{kind}' data...")
-    dims = native.probe([str(p) for p in files], reader="cv2")
+    dims, raised = native.probe([str(p) for p in files], reader="cv2",
+                                raises=True)
+    if raised.any():
+        bad = [str(p) for p, r in zip(files, raised) if r]
+        raise RuntimeError(
+            f"cv2.imread raises on {bad[0]} (its header gives a side of 0 or "
+            "past 2^20, or more than 2^30 pixels), so the reference's "
+            f"generate_tree stops there; {len(bad)} such file(s), nothing "
+            "written")
     readable = dims[:, 0] > 0
     if not readable.all():
         log(f"Skipped {int((~readable).sum())} unreadable files")
