@@ -311,16 +311,33 @@ JPEG_FEATURE_DECODES = 1024  # decodes a timed pass of each group, 1 thread
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
 # at the top, the files it gives None for (and AVIF, JPEG 2000, WebP and
-# 16-bit TIFF data the port does not decode) under skip/
+# JPEG-compressed TIFF data the port does not decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
+IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
-                 "tiff16_gray.png": "TIFF", "webp.png": "WebP"}
-# decode groups by file-name prefix
+                 "tiff_jpeg.png": "TIFF", "webp.png": "WebP"}
+# decode groups by file-name prefix; "tiff" is TIFF part 1 (8-bit strips),
+# the files of no tiff_* group below it
 IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "p5_", "p6_"), "pam": ("pam_",), "bmp_rle": ("bmp_rle",),
                 "bmp_bitfields_core": ("bmp16", "bmp32", "bmp_core"),
                 "png": ("png_",), "gif": ("gif_",), "sun_raster": ("sun_",),
-                "pfm": ("pfm",), "hdr": ("hdr_",), "tiff": ("tiff_",)}
+                "pfm": ("pfm",), "hdr": ("hdr_",), "tiff": ("tiff",),
+                "tiff_16bit": ("tiff16", "tiff_cv2_rgb16", "tiff_miniswhite_16",
+                               "tiff_extra_1_16", "tiff_extra_2_16"),
+                "tiff_1_4bit": ("tiff_1bit", "tiff_4bit", "tiff_pil_1bit"),
+                "tiff_alpha_extra": ("tiff_pil_la", "tiff_pil_rgba",
+                                     "tiff_cv2_rgba", "tiff_extra_0",
+                                     "tiff_gray_two"),
+                "tiff_planar_fillorder": ("tiff_planar2", "tiff_fillorder2",
+                                          "tiff_miniswhite_sample"),
+                "tiff_tiles": ("tiff_tile", "tiff_orientation_6_sq"),
+                "tiff_bigtiff": ("tiff_bigtiff",)}
+# phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
+# of deflate strips and a big-endian tiled file, each of this RGB size,
+# decoded this many times a timed pass
+BUILT_TIFF_SIZE = (480, 640)
+BUILT_TIFF_DECODES = 20
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
                 "tiff": ("tiff",)}
@@ -3722,6 +3739,107 @@ def tiff_header(w, h):
     return b"II*\0" + struct.pack("<I", 8) + ifd + bytes(4)
 
 
+def tiff_bytes(img, tile=None, bigtiff=False, big=False):
+    """A TIFF of uint8 RGB ``img`` [h, w, 3]: deflate strips of 16 rows, or
+    deflate ``tile`` = (width, length) tiles (edge tiles zero-padded);
+    classic or BigTIFF, little or big endian; the IFD first."""
+    import struct
+    import zlib
+    import numpy as np
+    e = ">" if big else "<"
+    h, w = img.shape[:2]
+    if tile is None:
+        chunks = [img[y:y + 16] for y in range(0, h, 16)]
+    else:
+        tw, th = tile
+        chunks = []
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                block = np.zeros((th, tw, 3), np.uint8)
+                part = img[y:y + th, x:x + tw]
+                block[:part.shape[0], :part.shape[1]] = part
+                chunks.append(block)
+    data = [zlib.compress(np.ascontiguousarray(c).tobytes()) for c in chunks]
+    word, long_type = ("Q", 16) if bigtiff else ("I", 4)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]),
+            259: (3, [8]), 262: (3, [2]), 277: (3, [3])}
+    if tile is None:
+        tags.update({273: (long_type, None), 278: (4, [16]),
+                     279: (long_type, [len(d) for d in data])})
+    else:
+        tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]),
+                     324: (long_type, None),
+                     325: (long_type, [len(d) for d in data])})
+    chars = {3: "H", 4: "I", 16: "Q"}
+    inline = 8 if bigtiff else 4
+    head = 16 if bigtiff else 8
+    n = len(tags)
+    values_at = head + (8 if bigtiff else 2) + n * (20 if bigtiff else 12) + inline
+    arrays = {t: (v if v is not None else [0] * len(data))
+              for t, (_, v) in tags.items()}
+    sizes = {t: struct.calcsize(e + chars[tags[t][0]] * len(v))
+             for t, v in arrays.items()}
+    extra = sum(z for z in sizes.values() if z > inline)
+    offset, offsets = values_at + extra, []
+    for d in data:
+        offsets.append(offset)
+        offset += len(d)
+    arrays[273 if tile is None else 324] = offsets
+    ifd, values = [struct.pack(e + ("Q" if bigtiff else "H"), n)], b""
+    for tag in sorted(tags):
+        typ, v = tags[tag][0], arrays[tag]
+        raw = struct.pack(e + chars[typ] * len(v), *v)
+        if len(raw) <= inline:
+            field = raw.ljust(inline, b"\0")
+        else:
+            field = struct.pack(e + word, values_at + len(values))
+            values += raw
+        ifd.append(struct.pack(e + "HH" + word, tag, typ, len(v)) + field)
+    ifd.append(struct.pack(e + word, 0))
+    start = ((b"MM\0+" if big else b"II+\0") + struct.pack(e + "HHQ", 8, 0, 16)
+             if bigtiff else (b"MM\0*" if big else b"II*\0")
+             + struct.pack(e + "I", 8))
+    return start + b"".join(ifd) + values + b"".join(data)
+
+
+def built_tiff_checks(work):
+    """TIFF part 2a on files built here: a little-endian BigTIFF of deflate
+    strips and a big-endian tiled file (16 x 16 deflate tiles, edge tiles
+    at the right and bottom) of BUILT_TIFF_SIZE RGB pixels, each decoded
+    equal to the array it was built from and probed at its size; their host
+    decode rates (BUILT_TIFF_DECODES decodes on one thread, best of
+    JPEG_DECODE_REPS passes). Returns the numbers for phase 13's line."""
+    import numpy as np
+    from tsr_tpu_torch import native
+    root = work / "built_tiff"
+    root.mkdir(parents=True, exist_ok=True)
+    h, w = BUILT_TIFF_SIZE
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([(x * 3 + y) % 256, (y * 5) % 256, (x ^ y) % 256],
+                   -1).astype(np.uint8)
+    out = {}
+    for name, kw in (("bigtiff_strips.png", {"bigtiff": True}),
+                     ("tiles_big_endian.ppm", {"tile": (16, 16), "big": True})):
+        p = root / name
+        p.write_bytes(tiff_bytes(img, **kw))
+        got = native.decode(str(p))
+        check(got.shape == img.shape and np.array_equal(got, img),
+              f"{name} decodes unlike the array it was built from")
+        for reader in ("port", "cv2"):
+            check(native.probe([str(p)], reader=reader).tolist() == [[h, w]],
+                  f"{name}: probe({reader!r})")
+        best = math.inf
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            for _ in range(BUILT_TIFF_DECODES):
+                native.decode(str(p))
+            best = min(best, time.perf_counter() - t0)
+        out[name] = {"bytes": p.stat().st_size, "images_per_sec":
+                     BUILT_TIFF_DECODES / best, "megapixels_per_sec":
+                     BUILT_TIFF_DECODES * h * w / best / 1e6}
+    return out
+
+
 def image_size_checks(dev, work):
     """C9 and C10 on files built here (the card's machine has no cv2): a
     BIG_PNG_SIDE-square gray PNG probes at its size by both readers, is
@@ -3798,15 +3916,17 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     (the card's machine has neither cv2 nor PIL), in ``work``: each
     top-level fixture decoded equal to ``expected.npz`` and probed as cv2
     reads it; each skip/ file probed (0, 0) as cv2 refuses it, decoded as
-    PIL where PIL reads it (the gray PFM and the TIFFs of orientation 5 and
-    6 among them), raising otherwise (naming AVIF, JPEG 2000, 16-bit TIFF
-    and WebP data); host decode rates by group; the
+    PIL where PIL reads it (the gray PFM, the TIFFs of orientation 5 and
+    6 and of 2 and 4-bit gray among them), raising otherwise (naming AVIF,
+    JPEG 2000, JPEG-compressed TIFF and WebP data); host decode rates by
+    group (TIFF by layout); the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
     generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
     just before and read just after each call, the written count the
     reference's), B3/B2 held at its buckets; restore_tree and
     evaluate_directory over the readable files in both resize modes; then
-    C9 and C10 (image_size_checks). Returns the kernels' launches."""
+    C9 and C10 (image_size_checks) and the TIFFs built at run time
+    (built_tiff_checks). Returns the kernels' launches."""
     import numpy as np
     import torch
     from tsr_tpu_torch import eval as teval
@@ -3817,7 +3937,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     result = {"card": card_line(), "host_cpus": os.cpu_count()}
     want = np.load(IMAGE_FIXTURES / "expected.npz")
     cases = sorted(p for p in IMAGE_FIXTURES.iterdir()
-                   if p.suffix in (".png", ".ppm", ".bmp"))
+                   if p.suffix in IMAGE_SUFFIXES)
     skips = sorted((IMAGE_FIXTURES / "skip").iterdir())
     check(len(cases) == int(want["generate_tree_written"]) >= 20,
           f"{len(cases)} image fixtures")
@@ -3855,14 +3975,17 @@ def image_formats_phase(dev, resunet, judge, rows, work):
                 p.name.startswith(prefixes) for p in files)
     check(result["fixtures"]["pfm_hdr_skip_pil_reads"] >= 1,
           "the gray PFM PIL reads is among the skip/ files")
-    check(result["fixtures"]["tiff_cv2_reads"] >= 20
-          and result["fixtures"]["tiff_skip_pil_reads"] >= 2,
+    check(result["fixtures"]["tiff_cv2_reads"] >= 45
+          and result["fixtures"]["tiff_skip_pil_reads"] >= 11,
           f"TIFF fixtures: {result['fixtures']}")
     print("image formats: " + json.dumps(result["fixtures"]) + ": fixtures "
           "equal to expected.npz, skip/ files refused by the cv2 probe, "
           "decoded as PIL or raising (AVIF, JPEG 2000, TIFF, WebP named)")
     groups = {g: [str(p) for p in cases if p.name.startswith(prefixes)]
               for g, prefixes in IMAGE_GROUPS.items()}
+    part2a = {q for g, paths in groups.items() if g.startswith("tiff_")
+              for q in paths}
+    groups["tiff"] = [q for q in groups["tiff"] if q not in part2a]
     rates = group_decode_rates(groups)
     result["host_decode"] = rates
     print(f"host decode by format (one thread of {result['host_cpus']} CPUs,"
@@ -3997,6 +4120,12 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     result["image_sizes"] = image_size_checks(dev, work)
     result["image_sizes"]["seconds"] = time.perf_counter() - t0
     print("image sizes (C9, C10): " + json.dumps(result["image_sizes"]))
+    t0 = time.perf_counter()
+    result["built_tiff"] = built_tiff_checks(work)
+    result["built_tiff"]["seconds"] = time.perf_counter() - t0
+    print(f"built TIFFs (BigTIFF strips, big-endian tiles, "
+          f"{BUILT_TIFF_SIZE[1]} x {BUILT_TIFF_SIZE[0]} RGB, beside "
+          f"{result['card']}): " + json.dumps(result["built_tiff"]))
     result["launches"] = launches
     result["phase_seconds"] = time.perf_counter() - t_phase
     print("image_formats: " + json.dumps(result))

@@ -20,9 +20,14 @@ refused or read differently, against cv2, PIL and tsr_tpu on the CPU:
   and values past the int range reading 0; PIL's gray "Pf", which cv2
   refuses under IMREAD_COLOR: truncated) and Radiance HDR (run-length
   encoded and flat, x 255 and rounded), cut and mutated too;
-- C7: AVIF, JPEG 2000 and WebP data under .png/.jpg names, and a 16-bit
-  TIFF, raise naming their format (the port does not decode them); the
-  TIFF fixtures themselves are tests/test_torch_port_tiff.py's.
+- C7: AVIF, JPEG 2000 and WebP data under .png/.jpg names, and a
+  JPEG-compressed TIFF, raise naming their format (the port does not
+  decode them); the TIFF fixtures themselves are
+  tests/test_torch_port_tiff.py's;
+- C8, the first step: the formats only Pillow reads (its own writers'
+  files, named .png) raise naming the format where Pillow's checks of the
+  first bytes tell it (TGA and XBM, which have none the port copies, raise
+  unnamed); the cv2 probe gives (0, 0).
 
 The fixtures are tests/data/images (make_fixtures.py): sides 4 to 400.
 """
@@ -134,11 +139,11 @@ def test_skip_class_reads_as_reference(name):
 
 @pytest.mark.parametrize("name,fmt", [("avif.png", "AVIF"),
                                       ("jp2.jpg", "JPEG 2000"),
-                                      ("tiff16_gray.png", "TIFF"),
+                                      ("tiff_jpeg.png", "TIFF"),
                                       ("webp.png", "WebP")])
 def test_foreign_format_raises_naming_it(name, fmt):
     """C7: data of a format cv2 reads by its signature and the port does
-    not decode, or a TIFF layout it does not decode (16-bit samples), raises
+    not decode, or a TIFF layout it does not decode (JPEG compression), raises
     naming the format on every reader path; the probes refuse it."""
     p = str(FIXTURES / "skip" / name)
     assert cv2.imread(p) is not None
@@ -313,11 +318,49 @@ def test_foreign_formats_match_codec_header():
     codes = [int(v) for v in re.findall(r"= (-\d+),", enum)]
     assert codes == list(range(-1, -len(native.FEATURES)
                                - len(native.FORMATS) - 1, -1))
-    assert native.FORMATS == ("TIFF", "WebP", "JPEG 2000", "AVIF")
+    assert native.FORMATS == ("TIFF", "WebP", "JPEG 2000", "AVIF", "PCX",
+                              "SGI", "ICO/CUR", "DDS", "QOI", "ICNS", "MSP",
+                              "IM", "SPIDER")
     assert "kGif" not in enum and "kSunRaster" not in enum
     assert "kPfm" not in enum and "kHdr" not in enum
     for status, fmt in enumerate(native.FORMATS, len(native.FEATURES) + 1):
         assert f"holds {fmt} data" in str(native._failure("x", -status))
+
+
+# ----------------------------------------------- C8: Pillow-only formats
+
+# C8's record: Pillow's writers, each file named .png; the name the port
+# gives (None: "failed to decode", no check of Pillow's that the port
+# copies tells the format)
+PIL_ONLY = {"TGA": None, "PCX": "PCX", "SGI": "SGI", "ICO": "ICO/CUR",
+            "IM": "IM", "DDS": "DDS", "MSP": "MSP", "XBM": None,
+            "SPIDER": "SPIDER", "QOI": "QOI", "ICNS": "ICNS"}
+
+
+@pytest.mark.parametrize("fmt", sorted(PIL_ONLY))
+def test_pil_only_format_raises_naming_it(tmp_path, fmt):
+    """A 20 x 24 image saved by Pillow in a format cv2 does not read and
+    the port does not decode: cv2 gives None, PIL reads it, the cv2 probe
+    gives (0, 0), and decode, load_batch and the header probe raise naming
+    the format where Pillow's own check of the first bytes tells it."""
+    img = Image.fromarray(make_fixtures.smooth(np.random.default_rng(60),
+                                               20, 24))
+    img = img.convert({"MSP": "1", "XBM": "1", "SPIDER": "F"}.get(fmt, "RGB"))
+    p = tmp_path / f"{fmt.lower()}.png"
+    img.save(p, fmt)
+    assert cv2.imread(str(p)) is None
+    assert Image.open(p).format == fmt
+    Image.open(p).convert("RGB")
+    name = PIL_ONLY[fmt]
+    match = (f"holds {name} data, which the port does not decode" if name
+             else "failed to decode")
+    with pytest.raises(RuntimeError, match=match):
+        native.decode(str(p))
+    with pytest.raises(RuntimeError, match=match):
+        native.load_batch([str(p)], SIZE)
+    with pytest.raises(RuntimeError, match=match if name else "image headers"):
+        native.probe([str(p)])
+    assert native.probe([str(p)], reader="cv2").tolist() == [[0, 0]]
 
 
 # ------------------------------------------------------------ C4: cuts

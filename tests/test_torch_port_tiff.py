@@ -1,24 +1,31 @@
-"""TIFF (C7, TIFF part 1): classic TIFF, the first IFD, strips of 8-bit
-gray, RGB or palette samples, uncompressed, PackBits, LZW (old-style codes
-too) or deflate, with or without the horizontal predictor, read by the port
-as the reference reads it (cv2.imread, else PIL's convert("RGB")), against
-cv2, PIL and tsr_tpu on the CPU:
+"""TIFF (C7, TIFF parts 1 and 2a): classic TIFF and BigTIFF, the first
+IFD, strips or tiles of gray (1, 2, 4, 8, 16 bits, MINISBLACK or
+MINISWHITE), RGB (8, 16 bits) or palette (1, 2, 4, 8 bits) samples with any
+extra samples, either planar configuration and fill order, uncompressed,
+PackBits, LZW (old-style codes too) or deflate, with or without the
+horizontal predictor, read by the port as the reference reads it
+(cv2.imread, else PIL's convert("RGB")), against cv2, PIL and tsr_tpu on
+the CPU:
 
 - every TIFF fixture of tests/data/images (Pillow's and cv2's writers, and
-  files built by make_fixtures.tiff_file: big endian, the IFD first, an
+  files built by image_writers.tiff_file: big endian, the IFD first, an
   8-bit ColorMap, old-style LZW, orientation 3, no StripByteCounts, an LZW
-  strip that breaks off) decodes equal to cv2.imread, max diff 0;
-- orientations 1-8: cv2 flips 2-4 and gives None for 5-8, which PIL reads
-  rotated (a gray or palette image of one uncompressed strip as Pillow
-  maps it: at the rotated size first);
+  strip that breaks off; the part 2a layouts) decodes equal to cv2.imread,
+  max diff 0;
+- orientations 1-8: cv2 flips 2-4 and gives None for 5-8 but of a square
+  image, which it transposes; PIL reads them rotated (a raw image of one
+  tile in a mode Pillow maps from the file: at the rotated size first);
 - every cut point of files whose IFD comes first, and seeded mutations of
-  the IFD, the strip table and the compressed data: probe(reader="cv2")
-  gives (0, 0) exactly where cv2.imread gives None, and decode equals cv2,
-  else PIL, else raises; a mutation that makes a layout the port does not
-  decode (TIFF part 2: other bits, Photometric, compression, planar
-  configuration, extra samples, tiles, as Pillow parses the IFD) raises
-  naming TIFF;
-- the layouts of TIFF part 2 raise naming TIFF and probe (0, 0);
+  the IFD, the strip or tile table and the compressed data:
+  probe(reader="cv2") gives (0, 0) exactly where cv2.imread gives None, and
+  decode equals cv2, else PIL, else raises; a mutation that makes a layout
+  the port does not decode (TIFF part 2b: CMYK, YCbCr, another compression,
+  Pillow's 32-bit and float modes, as Pillow or libtiff parse the IFD)
+  raises naming TIFF;
+- libtiff's 16 to 8-bit rules (gray v >> 8, RGB (v + 128) // 257) over
+  every value, and its premultiplying of unassociated alpha at every
+  (value, alpha) pair;
+- the layouts of TIFF part 2b raise naming TIFF and probe (0, 0);
 - load_canvas, both probes and generate_tree through both packages.
 
 Max diff 0 throughout.
@@ -47,8 +54,8 @@ _spec.loader.exec_module(make_fixtures)
 torch.set_num_threads(2)
 SIZE = 32
 EXPECTED = np.load(FIXTURES / "expected.npz")
-TIFFS = [n for n in make_fixtures.CASES if n.startswith("tiff_")]
-TIFF_SKIPS = [n for n in make_fixtures.SKIP_CASES if n.startswith("tiff_")]
+TIFFS = [n for n in make_fixtures.CASES if n.startswith("tiff")]
+TIFF_SKIPS = [n for n in make_fixtures.SKIP_CASES if n.startswith("tiff")]
 quiet = lambda s: None  # noqa: E731
 
 
@@ -68,28 +75,82 @@ def _reference(path):
         return "none", None
 
 
+def _ifd(data):
+    """{tag: (type, values)} of the first IFD as libtiff reads it (classic
+    or BigTIFF, the first of duplicate tags; the integers of integer
+    types), or None where it does not parse."""
+    e = ">" if data[:2] == b"MM" else "<"
+    big = data[2:4] in (b"+\0", b"\0+")
+    fmt = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}
+    try:
+        at = struct.unpack(e + ("Q" if big else "I"),
+                           data[8:16] if big else data[4:8])[0]
+        n = struct.unpack(e + ("Q" if big else "H"),
+                          data[at:at + (8 if big else 2)])[0]
+        out = {}
+        for k in range(min(n, 4096)):
+            pos = at + (8 if big else 2) + (20 if big else 12) * k
+            tag, typ = struct.unpack(e + "HH", data[pos:pos + 4])
+            count = struct.unpack(e + ("Q" if big else "I"),
+                                  data[pos + 4:pos + (12 if big else 8)])[0]
+            if tag in out or typ not in fmt or count > len(data):
+                continue
+            size = struct.calcsize(fmt[typ]) * count
+            field = data[pos + (12 if big else 8):pos + (20 if big else 12)]
+            if size > len(field):
+                off = struct.unpack(e + ("Q" if big else "I"), field)[0]
+                field = data[off:off + size]
+            if len(field) < size:
+                continue
+            out[tag] = (typ, struct.unpack(e + fmt[typ] * count, field[:size]))
+        return out
+    except (struct.error, ValueError):
+        return None
+
+
+PART1_COMPRESSIONS = (1, 5, 8, 32773, 32946)
+DECODED_MODES = ("1", "L", "LA", "P", "PA", "I;16", "I;16B", "RGB", "RGBA")
+
+
 def _part2(data):
-    """True where Pillow's parse of the first IFD shows a layout the port
-    does not decode (TIFF part 2); False where it shows one it decodes or
-    does not parse."""
+    """True where the first IFD shows a layout the port does not decode
+    (TIFF part 2b): as Pillow parses it (the last of duplicate tags), a mode
+    of Pillow's other than 1, L, LA, P, PA, I;16 and RGB(A), or 12-bit
+    samples, or another compression; or as libtiff parses it (the first of
+    duplicates), another compression or a Photometric past palette."""
+    first = _ifd(data) or {}
+    if (first.get(259, (3, (1,)))[1][0] not in PART1_COMPRESSIONS
+            or first.get(262, (3, (1,)))[1][0] > 3):
+        return True
     try:
         f = io.BytesIO(data)
-        ifd = TiffImagePlugin.ImageFileDirectory_v2(f.read(8))
+        head = f.read(8)
+        if head[2] == 43:
+            head += f.read(8)
+        ifd = TiffImagePlugin.ImageFileDirectory_v2(head)
         f.seek(ifd.next)
         ifd.load(f)
     except Exception:
         return False
     get = ifd.get
-    bps, sf = get(258, (1,)), get(339, (1,))
-    bps = bps if isinstance(bps, tuple) else (bps,)
+    if get(259, 1) not in PART1_COMPRESSIONS:
+        return True
+    sf, bps = get(339, (1,)), get(258, (1,))
     sf = sf if isinstance(sf, tuple) else (sf,)
+    bps = bps if isinstance(bps, tuple) else (bps,)
+    if len(sf) > 1 and max(sf) == min(sf) == 1:
+        sf = (1,)
     spp = get(277, 1)
-    part1 = (get(259, 1) in (1, 5, 8, 32773, 32946)
-             and (get(262), spp) in ((1, 1), (2, 3), (3, 1))
-             and set(bps) == {8} and len(bps) in (1, spp)
-             and not get(338, ()) and get(284, 1) == 1 and get(266, 1) == 1
-             and set(sf) == {1} and 322 not in ifd and 323 not in ifd)
-    return not part1
+    if not isinstance(spp, int):
+        return False
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) and len(bps) == 1:
+        bps = bps * spp
+    key = (ifd.prefix, get(262, 0), sf, get(266, 1), bps, get(338, ()))
+    mode = TiffImagePlugin.OPEN_INFO.get(key)
+    return mode is not None and (mode[0] not in DECODED_MODES
+                                 or mode[1] == "I;12")
 
 
 def _reads_as_reference(path):
@@ -105,9 +166,9 @@ def _reads_as_reference(path):
     except RuntimeError as e:
         got, err = None, str(e)
     if "holds TIFF data" in err:  # raising, as the reference does, or
-        assert dims.tolist() == [0, 0] and not raised  # on a part 2 layout
+        assert dims.tolist() == [0, 0] and not raised  # on a part 2b layout
         assert reader == "none" or _part2(data), (reader, path)
-        return "tiff part 2"
+        return "tiff part 2b"
     assert dims.tolist() == (list(want.shape[:2]) if reader == "cv2"
                              else [0, 0]), (reader, path)
     assert bool(raised) == (reader == "raise")
@@ -143,32 +204,56 @@ def test_fixture_decodes_as_cv2(name):
 
 
 def test_fixtures_cover_the_layouts():
-    """The fixtures hold both byte orders, every compression (none,
-    PackBits, LZW, both deflates), predictor 2, gray, RGB and palette, one
-    strip and many, the IFD first and last, and the 8-bit ColorMap rule
-    (where PIL's pixels differ from cv2's)."""
+    """The fixtures hold both byte orders, classic TIFF and BigTIFF of both,
+    every compression (none, PackBits, LZW, both deflates), predictor 2,
+    gray, MINISWHITE, RGB and palette, samples of 1, 4, 8 and 16 bits,
+    SampleFormat 2, ExtraSamples 0, 1 and 2 and two extra samples, planar
+    configuration 2, FillOrder 2, one strip and many, tiles (a size no
+    multiple of 16, one larger than the image), the IFD first and last, and
+    the rules where PIL's pixels differ from cv2's (an 8-bit ColorMap,
+    16-bit samples, unassociated alpha)."""
     seen = set()
     for name in TIFFS:
         data = (FIXTURES / name).read_bytes()
-        f = io.BytesIO(data)
-        ifd = TiffImagePlugin.ImageFileDirectory_v2(f.read(8))
-        at = ifd.next
-        f.seek(at)
-        ifd.load(f)
-        seen |= {("order", data[:2]), ("compression", ifd[259]),
-                 ("photometric", ifd[262]), ("predictor", ifd.get(317, 1)),
-                 ("strips", len(ifd[273]) > 1),
-                 ("ifd_first", at < min(ifd[273]))}
-    for key in (("order", b"II"), ("order", b"MM"), ("compression", 1),
+        ifd = {tag: v for tag, (_, v) in _ifd(data).items()}
+        big = data[2:4] in (b"+\0", b"\0+")
+        offsets = ifd.get(273, ifd.get(324))
+        at = struct.unpack(("<" if data[:2] == b"II" else ">")
+                           + ("Q" if big else "I"),
+                           data[8:16] if big else data[4:8])[0]
+        seen |= {("order", data[:2]), ("bigtiff", data[:2], big),
+                 ("compression", ifd[259][0]),
+                 ("photometric", ifd[262][0]),
+                 ("predictor", ifd.get(317, (1,))[0]),
+                 ("bits", ifd.get(258, (1,))[0]),
+                 ("sampleformat", ifd.get(339, (1,))[0]),
+                 ("extra", ifd.get(338, ())), ("planar", ifd.get(284, (1,))[0]),
+                 ("fillorder", ifd.get(266, (1,))[0]),
+                 ("tiles", 322 in ifd), ("chunks", len(offsets) > 1),
+                 ("ifd_first", at < min(offsets))}
+        if 322 in ifd:
+            seen |= {("tile_not_16", ifd[322][0] % 16 != 0 or ifd[323][0] % 16 != 0),
+                     ("tile_past_image", ifd[322][0] > ifd[256][0]
+                      and ifd[323][0] > ifd[257][0])}
+    for key in (("order", b"II"), ("order", b"MM"), ("bigtiff", b"II", True),
+                ("bigtiff", b"MM", True), ("compression", 1),
                 ("compression", 5), ("compression", 8),
                 ("compression", 32773), ("compression", 32946),
-                ("photometric", 1), ("photometric", 2), ("photometric", 3),
-                ("predictor", 2), ("strips", True), ("strips", False),
-                ("ifd_first", True), ("ifd_first", False)):
+                ("photometric", 0), ("photometric", 1), ("photometric", 2),
+                ("photometric", 3), ("predictor", 2), ("bits", 1),
+                ("bits", 4), ("bits", 8), ("bits", 16), ("sampleformat", 2),
+                ("extra", (0,)), ("extra", (1,)), ("extra", (2,)),
+                ("extra", (2, 0)), ("planar", 2), ("fillorder", 2),
+                ("tiles", True), ("tiles", False), ("chunks", True),
+                ("chunks", False), ("ifd_first", True), ("ifd_first", False),
+                ("tile_not_16", True), ("tile_past_image", True)):
         assert key in seen, key
-    p = FIXTURES / "tiff_colormap_8bit.png"
-    pil = np.asarray(Image.open(p).convert("RGB"))
-    assert not np.array_equal(pil, native.decode(str(p)))
+    for name in ("tiff_colormap_8bit.png", "tiff16_gray.png",
+                 "tiff_cv2_rgb16.ppm", "tiff_pil_rgba.png",
+                 "tiff_tiles_16bit_gray.png"):
+        p = FIXTURES / name
+        pil = np.asarray(Image.open(p).convert("RGB"))
+        assert not np.array_equal(pil, native.decode(str(p))), name
 
 
 @pytest.mark.parametrize("name", TIFF_SKIPS)
@@ -236,7 +321,8 @@ CUT_FILES = ("tiff_be_raw_rgb.bmp", "tiff_be_lzw_gray_predictor.bmp",
              "tiff_ifd_first_packbits_rgb.png",
              "tiff_ifd_first_deflate_predictor_rgb.png",
              "tiff_colormap_8bit.png", "tiff_old_style_lzw.png",
-             "tiff_orientation_3.png", "skip/tiff_orientation_6.png")
+             "tiff_orientation_3.png", "skip/tiff_orientation_6.png",
+             "tiff_tiles_odd_width.png", "tiff_bigtiff_lzw.png")
 
 
 @pytest.mark.parametrize("name", CUT_FILES)
@@ -291,41 +377,67 @@ def _mutations(rng, seeds, n, spans):
 
 
 def _spans(where):
-    """The [lo, hi) byte spans of a file's IFD, of its strip table (the
-    StripOffsets and StripByteCounts entries, and their arrays where they
-    lie outside the IFD) or of its strips."""
+    """The [lo, hi) byte spans of a file's header and IFD (classic or
+    BigTIFF), of its strip or tile table (the offsets' and byte counts'
+    entries, and their arrays where they lie outside the IFD) or of its
+    strips or tiles."""
     def spans(data):
         e = ">" if data[:2] == b"MM" else "<"
-        at = struct.unpack(e + "I", data[4:8])[0]
-        n = struct.unpack(e + "H", data[at:at + 2])[0]
+        big = data[2:4] in (b"+\0", b"\0+")
+        word, entry, count = ("Q", 20, 8) if big else ("I", 12, 2)
+        at = struct.unpack(e + word, data[8:16] if big else data[4:8])[0]
+        n = struct.unpack(e + ("Q" if big else "H"), data[at:at + count])[0]
         if where == "ifd":
-            return [(at, at + 2 + 12 * n + 4)]
+            return [(at, at + count + entry * n + struct.calcsize(word))] + (
+                [(2, 16)] if big else [])
         table, arrays = [], {}
         for k in range(n):
-            pos = at + 2 + 12 * k
-            tag, typ, count, value = struct.unpack(e + "HHII",
-                                                   data[pos:pos + 12])
-            if tag not in (273, 279):
+            pos = at + count + entry * k
+            tag, typ, num = struct.unpack(e + "HH" + word,
+                                          data[pos:pos + 4 + struct.calcsize(word)])
+            if tag not in (273, 279, 324, 325):
                 continue
-            fmt = e + ("H" if typ == 3 else "I") * count
+            fmt = e + {3: "H", 4: "I", 16: "Q"}[typ] * num
             size = struct.calcsize(fmt)
-            table.append((pos, pos + 12))
-            if size > 4:
+            field = pos + entry - struct.calcsize(word)
+            table.append((pos, pos + entry))
+            if size > struct.calcsize(word):
+                value = struct.unpack(e + word, data[field:field + struct.calcsize(word)])[0]
                 table.append((value, value + size))
-                arrays[tag] = struct.unpack(fmt, data[value:value + size])
+                arrays[tag in (279, 325)] = struct.unpack(
+                    fmt, data[value:value + size])
             else:
-                arrays[tag] = struct.unpack(fmt, data[pos + 8:pos + 8 + size])
+                arrays[tag in (279, 325)] = struct.unpack(
+                    fmt, data[field:field + size])
         if where == "strip table":
             return table
-        if 279 not in arrays:  # the counts estimated: to the file's end
-            return [(min(arrays[273]), len(data))]
-        return [(o, o + c) for o, c in zip(arrays[273], arrays[279])]
+        if True not in arrays:  # the counts estimated: to the file's end
+            return [(min(arrays[False]), len(data))]
+        return [(o, o + c) for o, c in zip(arrays[False], arrays[True])]
     return spans
 
 
 MUTATION_SEEDS = sorted(FIXTURES / n for n in TIFFS) + sorted(
     FIXTURES / "skip" / n for n in ("tiff_orientation_6.png",
                                     "tiff_byte_count_0.png"))
+
+
+@pytest.mark.parametrize("where", ["ifd", "strip table", "strips"])
+@pytest.mark.parametrize("seed", range(2))
+def test_mutated_tiles_and_bigtiff_read_as_reference(tmp_path, where, seed):
+    """60 files a seed and region from a tiled file and a BigTIFF, each
+    with its header and IFD (8-byte counts and offsets), its tile or strip
+    table (LONG8 arrays) or its tiles and strips mutated: the port's probe
+    and decode read each as the reference does."""
+    rng = np.random.default_rng(4100 + 10 * seed + ["ifd", "strip table",
+                                                    "strips"].index(where))
+    p = tmp_path / "m.png"
+    seeds = [FIXTURES / "tiff_tiles_odd_width.png",
+             FIXTURES / "tiff_bigtiff_lzw.png",
+             FIXTURES / "tiff_bigtiff_be_tiles.bmp"]
+    for data in _mutations(rng, seeds, 60, _spans(where)):
+        p.write_bytes(data)
+        _reads_as_reference(p)
 
 
 @pytest.mark.parametrize("where", ["ifd", "strip table", "strips"])
@@ -343,33 +455,116 @@ def test_mutated_files_read_as_reference(tmp_path, where, seed):
         _reads_as_reference(p)
 
 
-# ---------------------------------------------------------- TIFF part 2
+# ------------------------------------------------------- libtiff's rules
 
-def _part2_files():
+def test_sixteen_bit_ramps_read_as_cv2(tmp_path):
+    """Every 16-bit value, as gray (big and little endian, MINISBLACK and
+    MINISWHITE) and as RGB: cv2 keeps a gray sample's high byte and rounds
+    an RGB one to (v + 128) // 257 (libtiff's two rules), and the port reads
+    each file as cv2 does; PIL clips gray at 255 and keeps RGB's high
+    byte."""
+    ramp = np.arange(65536, dtype=np.uint16).reshape(256, 256)
+    rgb = np.dstack([ramp, ramp.T, ramp[::-1]])
+    p = tmp_path / "ramp.png"
+    for kw in ({"photometric": 1}, {"photometric": 0, "big": True},
+               {"compression": 5, "predictor": 2}):
+        p.write_bytes(make_fixtures.tiff_file(ramp, bits=16, rps=64, **kw))
+        want = 255 - (ramp >> 8) if kw.get("photometric") == 0 else ramp >> 8
+        np.testing.assert_array_equal(cv2.imread(str(p))[:, :, 0], want)
+        assert _reads_as_reference(p) == "cv2"
+    for kw in ({}, {"big": True, "compression": 8, "predictor": 2}):
+        p.write_bytes(make_fixtures.tiff_file(rgb, bits=16, rps=64, **kw))
+        np.testing.assert_array_equal(cv2.imread(str(p))[:, :, ::-1],
+                                      (rgb.astype(int) + 128) // 257)
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(p).convert("RGB")), rgb >> 8)
+        assert _reads_as_reference(p) == "cv2"
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("extra", [0, 1, 2, 999])
+def test_alpha_at_every_value_reads_as_cv2(tmp_path, bits, extra):
+    """RGB plus one extra sample at every (value, alpha) pair: ExtraSamples
+    2 (and Corel's 999) is unassociated alpha, which libtiff premultiplies
+    as (v x a + 127) // 255; 1 and 0 (unspecified, past 3 samples) are
+    associated and kept. The port reads each as cv2 does, planar too."""
+    v, a = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    img = np.dstack([v, 255 - v, (v * 7) % 256, a])
+    want = (img[:, :, :3] * a[:, :, None] + 127) // 255 if extra in (2, 999) \
+        else img[:, :, :3]
+    scale = 257 if bits == 16 else 1
+    p = tmp_path / "alpha.png"
+    for planar in (1, 2):
+        p.write_bytes(make_fixtures.tiff_file(
+            img * scale, bits=bits, extra=[extra], rps=64, planar=planar))
+        np.testing.assert_array_equal(cv2.imread(str(p))[:, :, ::-1], want)
+        assert _reads_as_reference(p) == "cv2"
+
+
+# --------------------------------------------------------- TIFF part 2a
+
+def _part2a_files():
+    """The layouts the port did not decode before TIFF part 2a (each a
+    case that its test held against a raise), and more."""
     rng = np.random.default_rng(50)
     img = make_fixtures.smooth(rng, 12, 16)
+    g = make_fixtures.gray(img)
     out = {}
-    for mode in ("1", "RGBA", "CMYK", "I;16"):
+    for mode in ("1", "RGBA", "I;16", "LA"):
         out[mode] = make_fixtures.pil_tiff(img, mode)
-    out["jpeg"] = make_fixtures.pil_tiff(img, "RGB", compression="jpeg")
-    out["minisWhite"] = make_fixtures.tiff_file(make_fixtures.gray(img),
-                                                photometric=0)
-    out["planar 2"] = make_fixtures.tiff_file(
-        make_fixtures.gray(img), tags={284: (3, [2])})
-    out["bigtiff"] = b"II+\0" + bytes(12)
+    out["minisWhite"] = make_fixtures.tiff_file(g, photometric=0)
+    out["planar 2"] = make_fixtures.tiff_file(g, tags={284: (3, [2])})
+    out["bigtiff"] = make_fixtures.tiff_file(img, bigtiff=True, rps=5)
+    out["bigtiff be"] = make_fixtures.tiff_file(img, bigtiff=True, big=True,
+                                                compression=8)
+    out["tiles"] = make_fixtures.tiff_file(img, tile=(16, 16), compression=5)
+    out["fillorder 2"] = make_fixtures.tiff_file(g, fillorder=2,
+                                                 compression=32773)
+    out["2-bit"] = make_fixtures.tiff_file(g >> 6, bits=2)
+    out["4-bit palette"] = make_fixtures.tiff_file(
+        g >> 4, bits=4, photometric=3, cmap=rng.integers(0, 65536, 48))
     return out
 
 
-@pytest.mark.parametrize("name", sorted(_part2_files()))
+@pytest.mark.parametrize("name", sorted(_part2a_files()))
+def test_part2a_layouts_read_as_reference(tmp_path, name):
+    """1-bit, RGBA (unassociated alpha), 16-bit gray, gray + alpha,
+    MINISWHITE, planar configuration 2, BigTIFF of both byte orders, tiles,
+    FillOrder 2 and 4-bit palettes: cv2 reads each and the port gives its
+    pixels and size; 2-bit gray only PIL reads, and the port gives PIL's."""
+    p = tmp_path / "p2a.png"
+    p.write_bytes(_part2a_files()[name])
+    reader = _reads_as_reference(p)
+    assert reader == ("pil" if name == "2-bit" else "cv2")
+    img = native.decode(str(p))
+    assert native.probe([str(p)]).tolist() == [list(img.shape[:2])]
+
+
+def _part2b_files():
+    rng = np.random.default_rng(50)
+    img = make_fixtures.smooth(rng, 12, 16)
+    out = {"CMYK": make_fixtures.pil_tiff(img, "CMYK"),
+           "LAB": make_fixtures.pil_tiff(img, "LAB"),
+           "YCbCr": make_fixtures.tiff_file(img, photometric=6, compression=8,
+                                            tags={530: (3, [1, 1])}),
+           "jpeg": make_fixtures.pil_tiff(img, "RGB", compression="jpeg"),
+           "group4": make_fixtures.pil_tiff(img, "1", compression="group4"),
+           "int32": make_fixtures.pil_tiff(img, "I"),
+           "float32": make_fixtures.pil_tiff(img, "F")}
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_part2b_files()))
 def test_part2_layouts_raise_naming_tiff(tmp_path, name):
-    """1-bit, RGBA (an extra sample), CMYK, 16-bit, JPEG-compressed,
-    MINISWHITE, planar configuration 2 and BigTIFF data: cv2 reads each
-    (the planar file as gray), the port does not decode it: decode and the
-    header probe raise naming TIFF, the cv2 probe gives (0, 0)."""
+    """CMYK, CIELAB, YCbCr, JPEG-compressed, CCITT group 4, 32-bit integer
+    and float data (TIFF part 2b): cv2 reads each but the last two, which PIL
+    reads; the port does not decode them: decode and the header probe raise
+    naming TIFF, the cv2 probe gives (0, 0)."""
     p = tmp_path / "p2.png"
-    p.write_bytes(_part2_files()[name])
-    if name != "bigtiff":
-        assert cv2.imread(str(p)) is not None
+    p.write_bytes(_part2b_files()[name])
+    assert (cv2.imread(str(p)) is None) == (name in ("int32", "float32"))
+    Image.open(p).convert("RGB")
+    assert _part2(p.read_bytes())
     with pytest.raises(RuntimeError, match="holds TIFF data"):
         native.decode(str(p))
     with pytest.raises(RuntimeError, match="holds TIFF data"):

@@ -13,16 +13,20 @@ Sun raster (1/8/24/32-bit; run-length encoded and RGB-ordered ones as PIL
 reads them, which OpenCV refuses); PFM (colour as cv2 reads it: either byte
 order, divided by the scale's magnitude, rounded to 8 bits; gray as PIL
 reads it, which cv2 refuses) and Radiance HDR (run-length encoded or flat,
-x 255 and rounded); TIFF (classic, either byte order, the first IFD,
-strips of 8-bit gray, RGB or palette samples, uncompressed, PackBits, LZW
-or deflate, orientations 1-4 as cv2 applies them, 5-8 as PIL does); JPEG
+x 255 and rounded); TIFF (classic or BigTIFF, either byte order, the
+first IFD, strips or tiles of gray, RGB or palette samples of 1 to 16 bits
+with any extra samples, either planar configuration and fill order,
+uncompressed, PackBits, LZW or deflate, orientations as cv2 applies them,
+else as PIL does); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
 or corrupt as libjpeg recovers it, lossless); EXIF orientation applied as
 cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
 port does not decode (:data:`FORMATS`: WebP, JPEG 2000, AVIF, and TIFF of
-another layout: tiles, samples of other than 8 bits, BigTIFF...) raises
+another layout: CMYK, YCbCr, JPEG or CCITT compression...), or that only
+PIL reads and the port does not decode (PCX, SGI, ICO/CUR, DDS, QOI, ICNS,
+MSP, IM, SPIDER, told by Pillow's own checks of the first bytes), raises
 naming the format. Image sizes follow the reference's rules: cv2's (where
 ``cv2.imread`` raises, the port raises too, and never falls back to PIL),
 and Pillow's limit on the files only PIL reads. It writes ``.ppm``,
@@ -78,8 +82,10 @@ FEATURES = (
     "a lossless JPEG in YCbCr or YCCK (a color transform)",
 )
 # the formats cv2.imread reads and the port does not decode, told by their
-# signatures, in codec.h's order after FEATURES
-FORMATS = ("TIFF", "WebP", "JPEG 2000", "AVIF")
+# signatures, then those only PIL reads (by Pillow's own checks of the first
+# bytes), in codec.h's order after FEATURES
+FORMATS = ("TIFF", "WebP", "JPEG 2000", "AVIF", "PCX", "SGI", "ICO/CUR",
+           "DDS", "QOI", "ICNS", "MSP", "IM", "SPIDER")
 _READERS = {"port": 0, "cv2": 1}
 _RESIZE_MODES = {"cv2": 0, "pil": 1}
 
@@ -281,19 +287,20 @@ def probe(paths: Sequence[str], threads: int = 8, reader: str = "port",
       that ends the header, a "-Y h +X w" resolution line (any other
       orientation is refused), every scanline present, each run or literal
       inside its scanline and each RLE scanline of the header's width;
-    - TIFF (classic, the first IFD): libtiff's directory rules (the first
-      of duplicate tags wins; a bad ImageWidth, ImageLength,
-      RowsPerStrip, SamplesPerPixel, Compression, BitsPerSample,
-      SampleFormat or PlanarConfiguration, or no StripOffsets, refuses the
-      file; a palette without a usable ColorMap reads gray; a missing or
-      implausible StripByteCounts is estimated), then OpenCV's: a
-      Photometric tag, 8-bit samples, a layout libtiff's RGBA reader takes,
-      every strip's byte count nonzero and inside the file (a strip that
-      fails to decode reads as far as it decoded, the rest 0), and an
-      orientation of 1-4 (5-8 give None; the port decodes them as PIL
-      does, rotated); a layout the port does not decode (tiles, samples of
-      other than 8 bits, MINISWHITE, CMYK, YCbCr, extra samples, planar
-      configuration 2, another compression) is refused;
+    - TIFF (classic or BigTIFF, the first IFD): libtiff's directory rules
+      (the first of duplicate tags wins; a bad ImageWidth, ImageLength,
+      RowsPerStrip, TileWidth, TileLength, SamplesPerPixel, Compression,
+      BitsPerSample, SampleFormat, PlanarConfiguration or ExtraSamples, or
+      no strip or tile offsets, refuses the file; a palette without a
+      usable ColorMap reads gray; a missing or implausible byte count is
+      estimated), then OpenCV's: a Photometric tag, samples of 1, 8 or 16
+      bits (4 of a palette), at most 4 a pixel, a layout libtiff's RGBA
+      reader takes, the first plane's strips or tiles each with a nonzero
+      byte count inside the file (an uncompressed tile of its exact size;
+      a chunk that fails to decode reads as far as it decoded, the rest
+      0), and an orientation of 1-4 (5-8 give None but for a square image;
+      the port decodes them as PIL does, rotated); a layout the port does
+      not decode (CMYK, YCbCr, CIELAB, another compression) is refused;
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
       does not decode it).
 

@@ -49,8 +49,9 @@ inline uint8_t cv2_u8(float v) {
 // no pixels of it and does not fall back to PIL. Each negative code down to
 // kLosslessColor names a feature of
 // a valid JPEG that the library does not implement (neither cv2.imread nor
-// PIL reads any of them), and each below it a format, told by its
-// signature, that cv2.imread reads and the library does not decode.
+// PIL reads any of them), each below it down to kAvif a format, told by its
+// signature, that cv2.imread reads and the library does not decode, and
+// each below that one that only PIL reads.
 // tsr_tpu_torch/native/__init__.py mirrors the negative codes in FEATURES
 // and FORMATS, in this order.
 enum Status : int {
@@ -66,6 +67,17 @@ enum Status : int {
   kWebp = -7,
   kJpeg2000 = -8,
   kAvif = -9,
+  // formats only PIL reads, which the library does not decode (told by
+  // Pillow's own checks of their first bytes)
+  kPcx = -10,
+  kSgi = -11,
+  kIco = -12,  // ICO or CUR
+  kDds = -13,
+  kQoi = -14,
+  kIcns = -15,
+  kMsp = -16,
+  kIm = -17,
+  kSpider = -18,
 };
 
 // True where `data` starts as a JPEG file does (SOI, then a marker).
@@ -123,21 +135,23 @@ int gif_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 bool is_hdr_data(const uint8_t* data, size_t n);
 int hdr_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
-// TIFF (classic, either byte order, the first IFD; strips of 8-bit gray,
-// RGB or palette samples, uncompressed, PackBits, LZW or deflate) as
-// cv2.imread reads it (OpenCV's TiffDecoder over libtiff's RGBA reader,
-// tiff.cpp) and as PIL's TiffImagePlugin and convert("RGB") read it; the
-// arguments and results of read_cv2 and read_pil. A TIFF of any other
-// layout gives kTiff. is_tiff_data: an "II*\0" or "MM\0*" signature.
-// probe_tiff: (h, w) from an open file's header and first IFD, wherever it
-// lies (cv2's rules, else PIL's), or a Status.
+// TIFF (classic or BigTIFF, either byte order, the first IFD; strips or
+// tiles of gray, RGB or palette samples of 1 to 16 bits, any extra samples,
+// either planar configuration and fill order, uncompressed, PackBits, LZW
+// or deflate) as cv2.imread reads it (OpenCV's TiffDecoder over libtiff's
+// RGBA reader, tiff.cpp) and as PIL's TiffImagePlugin and convert("RGB")
+// read it; the arguments and results of read_cv2 and read_pil. A TIFF of
+// any other layout gives kTiff. is_tiff_data: an "II*\0", "MM\0*", "II+\0"
+// or "MM\0+" signature. probe_tiff: (h, w) from an open file's header and
+// first IFD, wherever it lies (cv2's rules, else PIL's), or a Status.
 bool is_tiff_data(const uint8_t* data, size_t n);
 int tiff_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int tiff_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int probe_tiff(FILE* f, int* dims);
 
 // The Status of a format cv2.imread reads and the library does not decode
-// (kTiff ... kAvif), from the file's signature; kUnreadable for any other.
+// (kWebp ... kAvif), or of one only PIL reads (kPcx ... kSpider), from the
+// file's first bytes; kUnreadable for any other.
 int foreign_format(const uint8_t* data, size_t n);
 
 // Orientation (1-8, 1 where there is none or it does not parse) of a TIFF

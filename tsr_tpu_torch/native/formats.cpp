@@ -1779,17 +1779,57 @@ int pil_png(const uint8_t* d, size_t n, Image* img, int* dims) {
 
 // ----------------------------------------------------------------- C7
 
-// A format cv2.imread reads that the port does not decode, by signature.
+// SpiderImagePlugin.isSpiderHeader over the first 27 floats (big or
+// little endian): header values 1, 2, 5, 12, 13, 22 and 23 integers, an
+// iform of 1, 3, -11, -12, -21 or -22, and labbyt = labrec x lenbyt.
+bool spider_header(const uint8_t* d, size_t n, bool big) {
+  if (n < 27 * 4) return false;
+  double h[28];
+  for (int i = 0; i < 27; i++) {
+    uint32_t u = 0;
+    for (int k = 0; k < 4; k++)
+      u |= uint32_t{d[4 * i + (big ? k : 3 - k)]} << (24 - 8 * k);
+    float f;
+    std::memcpy(&f, &u, 4);
+    h[i + 1] = f;
+  }
+  for (int i : {1, 2, 5, 12, 13, 22, 23})
+    if (!std::isfinite(h[i]) || h[i] != std::trunc(h[i])) return false;
+  const double iform = h[5];
+  if (iform != 1 && iform != 3 && iform != -11 && iform != -12 &&
+      iform != -21 && iform != -22)
+    return false;
+  // int() of the values, compared as Python's unbounded integers
+  return h[22] == h[13] * h[23] && h[22] != 0;
+}
+
+// A format cv2.imread reads that the port does not decode, or one only PIL
+// reads, by its first bytes.
 int foreign(const uint8_t* d, size_t n) {
   auto at = [&](size_t o, const char* s, size_t k) {
     return n >= o + k && !std::memcmp(d + o, s, k);
   };
-  if (at(0, "II+\0", 4) || at(0, "MM\0+", 4)) return kTiff;  // BigTIFF
   if (at(0, "RIFF", 4) && at(8, "WEBP", 4)) return kWebp;
   if (at(0, "\0\0\0\x0cjP  \r\n\x87\n", 12) || at(0, "\xff\x4f\xff\x51", 4))
     return kJpeg2000;
   if (at(4, "ftyp", 4) && (at(8, "avif", 4) || at(8, "avis", 4)))
     return kAvif;
+  // Pillow's _accept checks (IM and SPIDER: the header checks of _open)
+  if (n >= 2 && d[0] == 10 && (d[1] == 0 || d[1] == 2 || d[1] == 3 || d[1] == 5))
+    return kPcx;
+  if (n >= 2 && d[0] == 0x01 && d[1] == 0xDA) return kSgi;
+  // (ICO and CUR: with at least one entry, or Pillow tries on)
+  if ((at(0, "\0\0\1\0", 4) || at(0, "\0\0\2\0", 4)) && n >= 6 &&
+      (d[4] | d[5] << 8) != 0)
+    return kIco;
+  if (at(0, "DDS ", 4)) return kDds;
+  if (at(0, "qoif", 4)) return kQoi;
+  if (at(0, "icns", 4)) return kIcns;
+  if (at(0, "DanM", 4) || at(0, "LinS", 4)) return kMsp;
+  if (at(0, "Image type:", 11) &&
+      std::memchr(d, '\n', std::min<size_t>(n, 100)) != nullptr)
+    return kIm;
+  if (spider_header(d, n, true) || spider_header(d, n, false)) return kSpider;
   return kUnreadable;
 }
 

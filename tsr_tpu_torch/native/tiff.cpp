@@ -1,42 +1,56 @@
 // tiff.cpp — TIFF read as the reference reads it: cv2.imread first, else
 // PIL's Image.open(path).convert("RGB").
 //
-// Classic TIFF (either byte order), the first IFD, strips of 8-bit samples:
-// MINISBLACK gray, RGB and PALETTE (a 16-bit ColorMap), uncompressed,
-// PackBits, LZW (old-style codes too) or deflate, with or without the
-// horizontal predictor. Two readers, each a copy of what its library does:
+// Classic TIFF and BigTIFF (either byte order), the first IFD, strips or
+// tiles of gray (MINISBLACK or MINISWHITE), RGB or palette samples with any
+// extra samples, of either planar configuration and fill order,
+// uncompressed, PackBits, LZW (old-style codes too) or deflate, with or
+// without the horizontal predictor. Two readers, each a copy of what its
+// library does:
 //   - tiff_cv2: OpenCV 5's TiffDecoder over libtiff 4.7. The directory is
 //     read by libtiff's rules (TIFFReadDirectory: the first of duplicate
 //     tags wins, a bad required tag refuses the file, a bad optional one is
 //     dropped, a palette without a usable ColorMap becomes gray, a missing
-//     or implausible StripByteCounts is estimated; OpenCV's build does not
-//     chop a large strip into smaller ones); OpenCV then needs the
-//     Photometric tag, 8-bit samples of format 1 or 2 and what libtiff's
-//     RGBA reader accepts, and reads each strip through TIFFReadRGBAStrip.
-//     That reader refuses the whole image where a strip's byte count is 0
-//     or runs past the end of the file, but keeps what a damaged strip
-//     decoded before its error (the rest of the strip 0, the predictor not
-//     applied). Orientations 2-4 flip the image; 5-8 make imread give None.
-//     A ColorMap with no entry past 255 is taken as 8-bit.
+//     or implausible strip or tile byte count is estimated; OpenCV's build
+//     does not chop a large strip into smaller ones); OpenCV then needs the
+//     Photometric tag, samples of 1, 8 or 16 bits (4 of a palette), at most
+//     4 a pixel, and what libtiff's RGBA reader accepts, and reads each
+//     strip or tile through TIFFReadRGBAStrip / TIFFReadRGBATile. The
+//     reader's put routines are copied with their pointer arithmetic (gray
+//     and palette rows skip bytes where RGB rows skip pixels, which reads
+//     the edge tiles of some layouts askew) and tables: a 16-bit gray
+//     sample's high byte, an RGB one's (v + 128) / 257, unassociated alpha
+//     premultiplied (v x a + 127) / 255, separate gray planes read as RGB
+//     (MINISWHITE not inverted). It refuses the image where the first plane's
+//     chunk cannot be read (a byte count of 0, past the end of the file, an
+//     uncompressed tile of the wrong size), but keeps what a damaged chunk
+//     decoded before its error (the rest 0, the predictor not applied, the
+//     bytes unswapped). Orientations 2-4 flip the image as the reader and
+//     OpenCV flip it (tiles each on their own); 5-8 make imread give None
+//     but for a square image, which it transposes.
 //   - tiff_pil: Pillow 12's TiffImagePlugin and convert("RGB"), for the
 //     files cv2 refuses: its own IFD parser (the last of duplicate tags
-//     wins; a tag whose data lies past the end of the file ends the IFD),
-//     its own reader of uncompressed strips (every strip whole, bytes
-//     counts ignored) and libtiff for compressed ones (every strip must
-//     decode without error), orientation applied as ImageOps.exif_transpose
-//     applies it, a ColorMap always 16-bit.
-// Any other layout that the reader would accept (tiles, 1-bit or 16-bit
-// samples, MINISWHITE, CMYK, YCbCr, extra samples, planar configuration 2,
-// another compression or fill order, a sample format other than 1) gives
-// kTiff: the port does not decode it. Each runs on a whole file in memory,
-// or, for the header probe, on an open file read where its IFD points.
+//     wins; a tag whose data lies past the end of the file ends the IFD; a
+//     big-endian BigTIFF read as classic), OPEN_INFO's modes and rawmodes,
+//     its own reader of uncompressed strips and tiles (one layer a plane,
+//     every tile whole from its offset, byte counts ignored, one tile of a
+//     mode it maps from the file mapped at the size as oriented) and
+//     libtiff for compressed ones (every chunk must decode without error,
+//     Pillow's checks of libtiff's sizes), orientation applied as
+//     ImageOps.exif_transpose applies it.
+// Any other layout that the reader would accept (CMYK, YCbCr, CIELAB,
+// another compression, Pillow's 32-bit and float modes) gives kTiff: the
+// port does not decode it. Each runs on a whole file in memory, or, for
+// the header probe, on an open file read where its IFD points.
 
 #include <zlib.h>
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <string>
 #include <vector>
 
 #include "codec.h"
@@ -67,7 +81,8 @@ struct Src {
   const uint8_t* d = nullptr;
   FILE* f = nullptr;
   uint64_t n = 0;
-  bool be = false;  // "MM": big endian
+  bool be = false;   // "MM": big endian
+  bool big = false;  // BigTIFF: 8-byte offsets and counts
   bool read(uint64_t off, uint64_t len, uint8_t* out) const {
     if (off > n || len > n - off) return false;
     if (!len) return true;
@@ -93,8 +108,8 @@ struct Src {
 
 struct Entry {
   uint16_t tag = 0, type = 0;
-  uint32_t count = 0;
-  uint8_t raw[4] = {0, 0, 0, 0};
+  uint64_t count = 0;
+  uint8_t raw[8] = {};  // the value or offset field (4 bytes in classic TIFF)
   bool ignore = false;
 };
 
@@ -113,12 +128,14 @@ int type_width(int t) {
 // fits in 4 bytes, else at its offset.
 bool entry_bytes(const Src& s, const Entry& e, uint64_t count,
                  std::vector<uint8_t>& out) {
-  const uint64_t size = count * type_width(e.type);
-  if (uint64_t{e.count} * type_width(e.type) <= 4) {
-    out.assign(e.raw, e.raw + size);
+  const int tw = type_width(e.type);
+  if (!tw || e.count <= (s.big ? 8u : 4u) / tw) {
+    out.assign(e.raw, e.raw + count * tw);
     return true;
   }
-  const uint64_t off = s.u32(e.raw);
+  if (count > s.n) return false;  // more bytes than the file holds
+  const uint64_t size = count * tw;
+  const uint64_t off = s.big ? s.u64(e.raw) : s.u32(e.raw);
   if (off > s.n || size > s.n - off) return false;  // before allocating
   out.resize(size);
   return s.read(off, size, out.data());
@@ -136,8 +153,8 @@ Err int_at(const Src& s, int type, const uint8_t* p, uint64_t max,
   switch (type) {
     case 1: v = p[0]; break;
     case 3: v = s.u16(p); break;
-    case 4: case 13: v = s.u32(p); break;
-    case 16: case 18: v = s.u64(p); break;
+    case 4: v = s.u32(p); break;
+    case 16: v = s.u64(p); break;
     case 6: sv = static_cast<int8_t>(p[0]); goto is_signed;
     case 8: sv = static_cast<int16_t>(s.u16(p)); goto is_signed;
     case 9: sv = static_cast<int32_t>(s.u32(p)); goto is_signed;
@@ -151,16 +168,16 @@ is_signed:
   return v > max ? kErrRange : kErrOk;
 }
 
-bool int_type(int t, bool ifd) {
+// The integer types libtiff's readers take (not IFD or IFD8).
+bool int_type(int t) {
   return t == 1 || t == 3 || t == 4 || t == 6 || t == 8 || t == 9 ||
-         t == 16 || t == 17 || (ifd && (t == 13 || t == 18));
+         t == 16 || t == 17;
 }
 
 // TIFFReadDirEntryShort / Long: one value.
-Err read_one(const Src& s, const Entry& e, uint64_t max, uint64_t& v,
-             bool ifd = false) {
+Err read_one(const Src& s, const Entry& e, uint64_t max, uint64_t& v) {
   if (e.count != 1) return kErrCount;
-  if (!int_type(e.type, ifd)) return kErrType;
+  if (!int_type(e.type)) return kErrType;
   std::vector<uint8_t> b;
   if (!entry_bytes(s, e, 1, b)) return kErrIo;
   return int_at(s, e.type, b.data(), max, v);
@@ -168,10 +185,9 @@ Err read_one(const Src& s, const Entry& e, uint64_t max, uint64_t& v,
 
 // TIFFReadDirEntryShortArray / Long8Array: up to `limit` values.
 Err read_array(const Src& s, const Entry& e, uint64_t max,
-               std::vector<uint64_t>& v, uint64_t limit = UINT64_MAX,
-               bool ifd = false) {
+               std::vector<uint64_t>& v, uint64_t limit = UINT64_MAX) {
   v.clear();
-  if (!int_type(e.type, ifd)) return kErrType;
+  if (!int_type(e.type)) return kErrType;
   if (e.count == 0) return kErrOk;
   const uint64_t count = std::min<uint64_t>(e.count, limit);
   std::vector<uint8_t> b;
@@ -189,15 +205,19 @@ struct Dir {
   Src src;
   std::vector<Entry> entries;
   uint32_t w = 0, h = 0, rps = 0xFFFFFFFFu;
+  uint32_t tw = 0, th = 0;  // TileWidth, TileLength
   bool dims_set = false, rps_set = false, tiled = false, photo_set = false;
   bool cmap_set = false;
   uint16_t spp = 1, bps = 1, compression = 1, photometric = 0, planar = 1;
   uint16_t orientation = 1, predictor = 1, fillorder = 1, sampleformat = 1;
-  uint16_t extrasamples = 0;
-  std::vector<uint16_t> cmap;  // 3 x 256 for 8-bit samples
-  uint32_t nstrips = 0;
+  uint16_t extrasamples = 0, sampleinfo0 = 0;  // the first ExtraSamples value
+  std::vector<uint16_t> cmap;  // 3 x 2^bps
+  uint32_t nstrips = 0;        // strips or tiles, of all planes
+  uint32_t per_plane = 0;      // strips or tiles of one plane
   std::vector<uint64_t> offsets, counts;
-  uint64_t scanline = 0;
+  uint64_t scanline = 0;    // bytes of an image row (of one plane, planar 2)
+  uint64_t chunk_row = 0;   // bytes of a strip's or a tile's row
+  uint64_t chunk_size = 0;  // TIFFStripSize or TIFFTileSize
 };
 
 uint32_t howmany32(uint32_t x, uint32_t y) {
@@ -209,7 +229,7 @@ uint32_t howmany32(uint32_t x, uint32_t y) {
 // fails the directory.
 bool strip_thing(const Dir& t, const Entry* e, std::vector<uint64_t>& v) {
   v.clear();
-  if (e && read_array(t.src, *e, UINT64_MAX, v, t.nstrips, true) != kErrOk)
+  if (e && read_array(t.src, *e, UINT64_MAX, v, t.nstrips) != kErrOk)
     return false;
   // a short array is padded only up to 1,000,000 strips
   if (e && e->count < t.nstrips && t.nstrips > 1000000) return false;
@@ -217,8 +237,10 @@ bool strip_thing(const Dir& t, const Entry* e, std::vector<uint64_t>& v) {
   return true;
 }
 
+// TIFFScanlineSize64 (0 where the product overflows)
 uint64_t file_scanline(const Dir& t) {
   const uint64_t samples = uint64_t{t.w} * (t.planar == 2 ? 1 : t.spp);
+  if (t.bps && samples > UINT64_MAX / t.bps) return 0;
   return (samples * t.bps + 7) / 8;
 }
 
@@ -234,23 +256,34 @@ int color_channels(int photometric) {
 // TIFFClientOpen + TIFFReadDirectory: false where libtiff refuses the file.
 bool read_dir(Dir& t) {
   const Src& s = t.src;
-  uint8_t hd[8];
-  if (!s.read(0, 8, hd) || s.u16(hd + 2) != 42) return false;
-  const uint64_t off = s.u32(hd + 4);
-  uint8_t c2[2];
-  if (!s.read(off, 2, c2)) return false;
-  const uint16_t n = s.u16(c2);
-  if (n == 0 || n > 4096) return false;
-  std::vector<uint8_t> raw(12 * size_t{n});
-  if (!s.read(off + 2, raw.size(), raw.data())) return false;
+  // the header: classic, or BigTIFF's (offset size 8, then 0)
+  uint8_t hd[16];
+  if (!s.read(0, 8, hd)) return false;
+  uint64_t off;
+  if (s.big) {
+    if (!s.read(8, 8, hd + 8) || s.u16(hd + 4) != 8 || s.u16(hd + 6) != 0)
+      return false;
+    off = s.u64(hd + 8);
+  } else {
+    off = s.u32(hd + 4);
+  }
+  // the entry count (4096 at most), then entries of 12 or 20 bytes
+  const int count_size = s.big ? 8 : 2, entry_size = s.big ? 20 : 12;
+  uint8_t cb[8];
+  if (!s.read(off, count_size, cb)) return false;
+  const uint64_t n64 = s.big ? s.u64(cb) : s.u16(cb);
+  if (n64 == 0 || n64 > 4096) return false;
+  const int n = static_cast<int>(n64);
+  std::vector<uint8_t> raw(size_t{static_cast<size_t>(entry_size)} * n);
+  if (!s.read(off + count_size, raw.size(), raw.data())) return false;
   t.entries.resize(n);
   for (int i = 0; i < n; i++) {
     Entry& e = t.entries[i];
-    const uint8_t* p = &raw[12 * i];
+    const uint8_t* p = &raw[size_t{static_cast<size_t>(entry_size)} * i];
     e.tag = s.u16(p);
     e.type = s.u16(p + 2);
-    e.count = s.u32(p + 4);
-    std::memcpy(e.raw, p + 8, 4);
+    e.count = s.big ? s.u64(p + 4) : s.u32(p + 4);
+    std::memcpy(e.raw, p + (s.big ? 12 : 8), s.big ? 8 : 4);
     for (int k = 0; k < i && !e.ignore; k++)
       e.ignore = t.entries[k].tag == e.tag;  // the first of duplicates
   }
@@ -307,7 +340,12 @@ bool read_dir(Dir& t) {
           if (v == 0) return false;
           t.rps = static_cast<uint32_t>(v);
           t.rps_set = true;
+          if (!t.tiled) {  // a tile of the strip, until a tile tag comes
+            t.th = t.rps;
+            t.tw = t.w;
+          }
         } else if (e.tag == kTileWidth || e.tag == kTileLength) {
+          (e.tag == kTileWidth ? t.tw : t.th) = static_cast<uint32_t>(v);
           t.tiled = true;
         }
         e.ignore = true;
@@ -325,6 +363,7 @@ bool read_dir(Dir& t) {
         for (uint64_t x : a)
           if (x > 2 && x != 999) return false;
         t.extrasamples = static_cast<uint16_t>(a.size());
+        t.sampleinfo0 = a.empty() ? 0 : a[0] == 999 ? 2 : static_cast<uint16_t>(a[0]);
         e.ignore = true;
         break;
       }
@@ -336,12 +375,24 @@ bool read_dir(Dir& t) {
     }
   }
   if (!t.dims_set) return false;
-  if (t.tiled) return true;  // classified by the caller: tiles are not decoded
-  t.nstrips = t.rps == 0xFFFFFFFFu ? 1 : howmany32(t.h, t.rps);
-  if (t.planar == 2) t.nstrips *= t.spp;
+  // TIFFNumberOfStrips or TIFFNumberOfTiles (0 where the product overflows)
+  auto mul32 = [](uint64_t a, uint64_t b) {
+    return a * b > 0xFFFFFFFFu ? uint32_t{0} : static_cast<uint32_t>(a * b);
+  };
+  if (t.tiled) {
+    const uint32_t dx = t.tw == 0xFFFFFFFFu ? t.w : t.tw;
+    const uint32_t dy = t.th == 0xFFFFFFFFu ? t.h : t.th;
+    t.per_plane = dx == 0 || dy == 0
+                      ? 0 : mul32(howmany32(t.w, dx), howmany32(t.h, dy));
+  } else {
+    t.per_plane = t.rps == 0xFFFFFFFFu ? 1 : howmany32(t.h, t.rps);
+  }
+  t.nstrips = t.planar == 2 ? mul32(t.per_plane, t.spp) : t.per_plane;
   if (t.nstrips == 0 || !offsets_set) return false;
+  t.per_plane = t.planar == 2 ? t.nstrips / t.spp : t.nstrips;
   // second pass: the rest, in the IFD's order
   bool bps_read = false;
+  uint64_t datasize_read = 0;
   for (Entry& e : t.entries) {
     if (e.ignore) continue;
     switch (e.tag) {
@@ -366,11 +417,18 @@ bool read_dir(Dir& t) {
         break;
       }
       case kStripOffsets: case kTileOffsets:
-        offsets_e = &e;
+      case kStripByteCounts: case kTileByteCounts: {
+        (e.tag == kStripOffsets || e.tag == kTileOffsets ? offsets_e : counts_e) = &e;
+        // EvaluateIFDdatasizeReading: a BigTIFF count whose size overflows
+        const uint64_t tw = type_width(e.type);
+        if (tw && e.count > UINT64_MAX / tw) return false;
+        const uint64_t size = e.count * tw;
+        if (size > (s.big ? 8u : 4u)) {
+          if (size > UINT64_MAX - datasize_read) return false;
+          datasize_read += size;
+        }
         break;
-      case kStripByteCounts: case kTileByteCounts:
-        counts_e = &e;
-        break;
+      }
       case kColorMap: case kTransfer: {
         if (!bps_read || t.bps > 24) break;
         const uint64_t per = uint64_t{1} << t.bps;
@@ -422,27 +480,40 @@ bool read_dir(Dir& t) {
   auto offset = [&](uint32_t i) { return t.offsets.empty() ? 0 : t.offsets[i]; };
   auto count = [&](uint32_t i) { return t.counts.empty() ? 0 : t.counts[i]; };
   t.scanline = file_scanline(t);
+  if (t.tiled) {  // TIFFTileRowSize64, TIFFTileSize64 (0 on overflow)
+    const uint64_t samples = t.planar == 2 ? 1 : t.spp;
+    const uint64_t bits = uint64_t{t.bps} * t.tw;
+    const uint64_t row_bits =
+        samples && bits > UINT64_MAX / samples ? 0 : bits * samples;
+    t.chunk_row = (row_bits + 7) / 8;
+    t.chunk_size = t.chunk_row && t.th > UINT64_MAX / t.chunk_row
+                       ? 0 : t.chunk_row * t.th;
+  }
   const uint64_t filesize = s.n;
   // EstimateStripByteCounts
   auto estimate = [&]() {
     std::vector<uint64_t> est(t.nstrips);
     if (t.compression != 1) {
-      uint64_t space = 8 + 2 + 12 * uint64_t{n} + 4;
+      uint64_t space = s.big ? 16 + 8 + 20 * uint64_t{static_cast<uint64_t>(n)} + 8
+                             : 8 + 2 + 12 * uint64_t{static_cast<uint64_t>(n)} + 4;
       for (const Entry& e : t.entries) {
         const int tw = type_width(e.type);
-        if (!tw) return false;
-        const uint64_t size = uint64_t{e.count} * tw;
-        space += size <= 4 ? 0 : size;
+        if (!tw || e.count > UINT64_MAX / tw) return false;
+        const uint64_t size = e.count * tw;
+        if (size > (s.big ? 8u : 4u) && space > UINT64_MAX - size) return false;
+        space += size <= (s.big ? 8u : 4u) ? 0 : size;
       }
       space = filesize < space ? filesize : filesize - space;
       if (t.planar == 2) space /= t.spp;
       std::fill(est.begin(), est.end(), space);
       const uint32_t last = t.nstrips - 1;
+      if (offset(last) > UINT64_MAX - est[last]) return false;
       if (offset(last) + est[last] > filesize)
         est[last] = offset(last) >= filesize ? 0 : filesize - offset(last);
+    } else if (t.tiled) {
+      std::fill(est.begin(), est.end(), t.chunk_size);
     } else {
-      const uint32_t per_image = t.planar == 2 ? t.nstrips / t.spp : t.nstrips;
-      const uint64_t rows = per_image ? t.h / per_image : 0;
+      const uint64_t rows = t.h / t.per_plane;
       std::fill(est.begin(), est.end(), t.scanline * rows);
     }
     if (t.offsets.empty()) t.offsets.assign(t.nstrips, 0);
@@ -455,7 +526,7 @@ bool read_dir(Dir& t) {
         (t.planar == 2 && t.nstrips != t.spp))
       return false;
     if (!estimate()) return false;
-  } else if (t.nstrips == 1 && [&] {  // ByteCountLooksBad
+  } else if (t.nstrips == 1 && !t.tiled && [&] {  // ByteCountLooksBad
                const uint64_t bc = count(0), of = offset(0);
                if (of == 0) return false;
                if (bc == 0) return true;
@@ -470,12 +541,16 @@ bool read_dir(Dir& t) {
   }
   if (t.offsets.empty()) t.offsets.assign(t.nstrips, 0);
   if (t.counts.empty()) t.counts.assign(t.nstrips, 0);
-  // "Cannot handle zero scanline size", "... zero strip size" (a strip
-  // past INT64_MAX bytes reads as size 0 too)
+  // "Cannot handle zero scanline size", "... zero tile size", "... zero
+  // strip size" (a strip or tile past INT64_MAX bytes reads as size 0 too)
+  if (t.scanline == 0) return false;
+  if (t.tiled)
+    return t.chunk_size && t.chunk_size <= static_cast<uint64_t>(INT64_MAX);
   const uint64_t strip_rows = std::min<uint64_t>(t.rps, t.h);
-  if (t.scanline == 0 || t.h == 0 ||
-      t.scanline > static_cast<uint64_t>(INT64_MAX) / strip_rows)
+  if (t.h == 0 || t.scanline > static_cast<uint64_t>(INT64_MAX) / strip_rows)
     return false;
+  t.chunk_row = t.scanline;
+  t.chunk_size = t.scanline * strip_rows;
   return true;
 }
 
@@ -642,17 +717,29 @@ bool deflate_strip(const uint8_t* in, size_t cc, uint8_t* op, size_t occ) {
   return ok && occ == 0;
 }
 
-// libtiff picks its LZW decoder once, at the first strip it reads (strip
-// 0): the old-style one where that strip starts 0x00 then an odd byte.
-bool lzw_compat(const Dir& t) {
-  uint8_t b[2];
-  return t.compression == 5 && t.nstrips && t.counts[0] >= 2 &&
-         t.src.read(t.offsets[0], 2, b) && b[0] == 0 && (b[1] & 1);
+uint8_t reversed(uint8_t b) {
+  b = static_cast<uint8_t>((b & 0xF0) >> 4 | (b & 0x0F) << 4);
+  b = static_cast<uint8_t>((b & 0xCC) >> 2 | (b & 0x33) << 2);
+  return static_cast<uint8_t>((b & 0xAA) >> 1 | (b & 0x55) << 1);
 }
 
-// One strip's bytes as libtiff's decodestrip gives them: false on a
-// decoder error (what it wrote stays), the predictor applied on success.
-bool decode_strip(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
+// libtiff picks its LZW decoder once, at the first strip or tile it reads
+// (chunk 0): the old-style one where that chunk's bytes (bits reversed for
+// FillOrder 2) start 0x00 then an odd byte.
+bool lzw_compat(const Dir& t) {
+  uint8_t b[2];
+  if (t.compression != 5 || !t.nstrips || t.counts[0] < 2 ||
+      !t.src.read(t.offsets[0], 2, b))
+    return false;
+  if (t.fillorder == 2) b[0] = reversed(b[0]), b[1] = reversed(b[1]);
+  return b[0] == 0 && (b[1] & 1);
+}
+
+// One strip's or tile's bytes as libtiff's decoder gives them: false on a
+// decoder error (what it wrote stays, unswapped), else 16-bit samples of a
+// big-endian file swapped to the host's order and the horizontal
+// predictor applied row by row.
+bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
                   size_t occ, bool compat) {
   bool ok;
   switch (t.compression) {
@@ -664,39 +751,58 @@ bool decode_strip(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
     case 5: ok = lzw(in, cc, out, occ, compat); break;
     default: ok = deflate_strip(in, cc, out, occ); break;
   }
-  if (ok && t.predictor == 2 && t.compression != 1 && t.compression != 32773) {
-    const size_t row = t.scanline, stride = t.spp;
-    for (size_t r = 0; r + row <= occ; r += row)
-      for (size_t i = stride; i < row; i++)
-        out[r + i] = static_cast<uint8_t>(out[r + i] + out[r + i - stride]);
+  if (!ok) return false;
+  if (t.bps == 16 && t.src.be)
+    for (size_t i = 0; i + 1 < occ; i += 2) std::swap(out[i], out[i + 1]);
+  if (t.predictor == 2 && t.compression != 1 && t.compression != 32773) {
+    const size_t row = t.chunk_row, stride = t.planar == 2 ? 1 : t.spp;
+    for (size_t r = 0; r + row <= occ; r += row) {
+      uint8_t* p = out + r;
+      if (t.bps == 8) {
+        for (size_t i = stride; i < row; i++)
+          p[i] = static_cast<uint8_t>(p[i] + p[i - stride]);
+      } else {
+        for (size_t i = stride; i < row / 2; i++) {
+          const unsigned v = (p[2 * i] | p[2 * i + 1] << 8) +
+                             (p[2 * (i - stride)] | p[2 * (i - stride) + 1] << 8);
+          p[2 * i] = static_cast<uint8_t>(v);
+          p[2 * i + 1] = static_cast<uint8_t>(v >> 8);
+        }
+      }
+    }
   }
-  return ok;
+  return true;
 }
 
-// TIFFFillStrip and the decoder's setup: the strip's place in the file
-// (offset, byte count), or false where libtiff refuses to read it.
-bool strip_at(const Dir& t, uint32_t strip, uint64_t& off, uint64_t& bc) {
-  if (strip >= t.nstrips) return false;
-  bc = t.counts[strip];
+// TIFFFillStrip / TIFFFillTile and the decoder's setup: the chunk's place
+// in the file (offset, byte count), or false where libtiff refuses to
+// read it.
+bool chunk_at(const Dir& t, uint32_t chunk, uint64_t& off, uint64_t& bc) {
+  if (chunk >= t.nstrips) return false;
+  bc = t.counts[chunk];
   if (bc == 0 || bc > uint64_t{INT64_MAX}) return false;
-  if (bc > 1024 * 1024) {  // "Too large strip byte count"
-    const uint64_t rps = std::min<uint64_t>(t.rps, t.h);
-    const uint64_t size = rps * t.scanline;
+  if (bc > 1024 * 1024) {  // "Too large strip (tile) byte count"
+    const uint64_t size = t.chunk_size;
     if (size && (bc - 4096) / 10 > size) bc = size * 10 + 4096;
   }
-  off = t.offsets[strip];
+  off = t.offsets[chunk];
   if (bc > t.src.n || off > t.src.n - bc) return false;
-  // the codec's setup: a predictor other than none or horizontal fails
+  // the codec's setup: the horizontal predictor works on 8 or 16 bits (of
+  // the sizes decoded here); any other predictor fails
   return t.compression == 1 || t.compression == 32773 || t.predictor == 1 ||
-         t.predictor == 2;
+         (t.predictor == 2 && (t.bps == 8 || t.bps == 16));
 }
 
-// The strip's raw bytes, or false where libtiff refuses to read it.
-bool strip_bytes(const Dir& t, uint32_t strip, std::vector<uint8_t>& raw) {
+// The chunk's raw bytes (bits reversed for FillOrder 2), or false where
+// libtiff refuses to read it.
+bool chunk_bytes(const Dir& t, uint32_t chunk, std::vector<uint8_t>& raw) {
   uint64_t off, bc;
-  if (!strip_at(t, strip, off, bc)) return false;
+  if (!chunk_at(t, chunk, off, bc)) return false;
   raw.resize(bc);
-  return t.src.read(off, bc, raw.data());
+  if (!t.src.read(off, bc, raw.data())) return false;
+  if (t.fillorder == 2)
+    for (uint8_t& b : raw) b = reversed(b);
+  return true;
 }
 
 // An RGB image, row-major, or nothing where only the check runs.
@@ -707,36 +813,254 @@ void set_image(Image* img, int w, int h) {
   img->rgb.assign(static_cast<size_t>(w) * h * 3, 0);
 }
 
-// The samples of rows [y0, y0 + rows) into img as RGB: gray, RGB or palette
-// indices through `pal` (3 x 256 8-bit values).
-void put_rows(const Dir& t, const uint8_t* buf, uint32_t y0, uint32_t rows,
-              const uint8_t* pal, Image& img) {
-  for (uint32_t r = 0; r < rows; r++) {
-    const uint8_t* p = buf + r * t.scanline;
-    uint8_t* o = &img.rgb[(size_t{y0 + r} * t.w) * 3];
-    for (uint32_t x = 0; x < t.w; x++, o += 3) {
-      if (t.photometric == 2) {
-        std::memcpy(o, p + size_t{x} * 3, 3);
-      } else if (t.photometric == 3) {
-        const uint8_t v = p[x];
-        o[0] = pal[v];
-        o[1] = pal[256 + v];
-        o[2] = pal[512 + v];
-      } else {
-        o[0] = o[1] = o[2] = p[x];
-      }
+// ------------------------------------------------- libtiff's RGBA reader
+
+// TIFFRGBAImage's routines that put a chunk's samples into its raster, by
+// the samples' bits: contiguous gray (8 bits, with or without alpha; 16
+// bits, the high byte) or bilevel (1 bit), palette (8, 4 or 1 bits), RGB (8
+// or 16 bits), and separate planes of RGB (gray read as R = G = B); RGB's
+// unassociated alpha premultiplied.
+enum Put { kPutNone, kGrey, kBw, kCmap, kRgb, kSepRgb };
+
+// The reader's state over one file: its routine and tables, as
+// TIFFRGBAImageBegin sets them up, and the raw buffer libtiff keeps.
+struct Rgba {
+  const Dir& t;
+  Put put = kPutNone;
+  bool premultiply = false;  // unassociated alpha (RGB)
+  bool alpha = false;        // an alpha plane to read (separate planes)
+  int colors = 3;            // planes of colour (separate planes)
+  uint8_t grey[256];         // BWmap of 8/16-bit gray (MINISWHITE inverted)
+  uint8_t bw[2];             // of 1-bit gray
+  uint8_t pal[3][256];       // the palette as 8-bit values
+  bool compat = false;
+  uint64_t rawdatasize = 0;  // tif_rawdatasize, for uncompressed tiles
+  explicit Rgba(const Dir& dir) : t(dir) {}
+};
+
+uint8_t to8(unsigned v) { return static_cast<uint8_t>((v + 128) / 257); }
+uint8_t premul(unsigned v, unsigned a) {
+  return static_cast<uint8_t>((v * a + 127) / 255);
+}
+
+// TIFFRGBAImageOK's and TIFFRGBAImageBegin's choice (PickContigCase,
+// PickSeparateCase): false where libtiff "can not handle image".
+bool pick(Rgba& g) {
+  const Dir& t = g.t;
+  // the alpha: ExtraSamples' first value (unspecified is associated alpha
+  // past 3 samples)
+  int alpha = 0;
+  if (t.extrasamples >= 1)
+    alpha = t.sampleinfo0 == 0 ? (t.spp > 3 ? 1 : 0) : t.sampleinfo0;
+  const int b = t.bps;
+  for (int x = 0; x < 256; x++)
+    g.grey[x] = static_cast<uint8_t>(t.photometric == 0 ? 255 - x : x);
+  g.bw[0] = t.photometric == 0 ? 255 : 0;
+  g.bw[1] = t.photometric == 0 ? 0 : 255;
+  if (t.planar == 2 && t.spp > 1) {
+    if (t.photometric > 2 || (b != 8 && b != 16)) return false;
+    g.put = kSepRgb;
+    g.colors = t.photometric == 2 ? 3 : 1;
+    g.alpha = alpha != 0;
+    g.premultiply = alpha == 2;
+    return true;
+  }
+  switch (t.photometric) {
+    case 2:
+      if ((b == 8 || b == 16) && t.spp >= 3) g.put = kRgb;
+      g.premultiply = alpha == 2 && t.spp >= 4;
+      break;
+    case 3: {
+      if (b != 8 && b != 4 && b != 1) break;
+      // checkcmap: a map with no entry past 255 is taken as 8-bit
+      const size_t n = size_t{1} << b;
+      bool wide = false;
+      for (int c = 0; c < 3; c++)
+        for (size_t i = 0; i < n; i++) wide |= t.cmap[c * n + i] >= 256;
+      for (int c = 0; c < 3; c++)
+        for (size_t i = 0; i < n; i++)
+          g.pal[c][i] = static_cast<uint8_t>(wide ? t.cmap[c * n + i] >> 8
+                                                  : t.cmap[c * n + i] & 0xff);
+      g.put = kCmap;
+      break;
     }
+    case 0: case 1:
+      g.put = b == 16 || b == 8 ? kGrey : b == 1 ? kBw : kPutNone;
+      break;
+    default:
+      break;
+  }
+  return g.put != kPutNone;
+}
+
+// The routine over a chunk's bytes (planes p[0..3] for separate planes), w
+// x h pixels into the raster from index ci, each row then skipping
+// `fromskew` pixels of the chunk and `toskew` of the raster, with libtiff's
+// own pointer arithmetic (its gray and palette routines skip `fromskew`
+// bytes, not pixels; its 1 and 4-bit ones a whole number of bytes).
+void put_chunk(const Rgba& g, std::vector<uint32_t>& raster, int64_t ci,
+               uint32_t w, uint32_t h, int64_t fromskew, int64_t toskew,
+               const uint8_t* const* p) {
+  const Dir& t = g.t;
+  const int64_t spp = t.spp;
+  const bool wide = t.bps == 16;
+  auto pack = [](unsigned r, unsigned gg, unsigned b) {
+    return r | gg << 8 | b << 16;
+  };
+  auto word = [](const uint8_t* q) { return unsigned(q[0] | q[1] << 8); };
+  auto sample = [&](const uint8_t* q, int k) {
+    return wide ? to8(word(q + 2 * k)) : unsigned{q[k]};
+  };
+  const uint8_t* pp = p[0];
+  int64_t pi = 0;  // into pp (into each plane, for separate planes)
+  if ((g.put == kBw || g.put == kCmap) && t.bps < 8) {
+    const int bits = t.bps, per = 8 / bits;
+    fromskew /= per;
+    for (; h > 0; --h) {
+      for (uint32_t x = 0; x < w;) {
+        const uint8_t byte = pp[pi++];
+        for (int k = 0; k < per && x < w; k++, x++) {
+          const int v = byte >> (8 - bits * (k + 1)) & ((1 << bits) - 1);
+          raster[ci++] = g.put == kBw ? pack(g.bw[v], g.bw[v], g.bw[v])
+                                      : pack(g.pal[0][v], g.pal[1][v], g.pal[2][v]);
+        }
+      }
+      ci += toskew;
+      pi += fromskew;
+    }
+    return;
+  }
+  if (g.put == kGrey || g.put == kCmap) {
+    for (; h > 0; --h) {
+      for (uint32_t x = 0; x < w; x++, pi += wide ? 2 * spp : spp) {
+        const unsigned v = wide ? word(pp + pi) >> 8 : pp[pi];
+        raster[ci++] = g.put == kGrey ? pack(g.grey[v], g.grey[v], g.grey[v])
+                                      : pack(g.pal[0][v], g.pal[1][v], g.pal[2][v]);
+      }
+      ci += toskew;
+      pi += fromskew;
+    }
+    return;
+  }
+  // RGB: contiguous samples `spp` apart, or one a plane
+  const int64_t step = g.put == kRgb ? spp : 1;
+  const int64_t unit = wide ? 2 : 1;
+  fromskew *= step;
+  for (; h > 0; --h) {
+    for (uint32_t x = 0; x < w; x++, pi += step * unit) {
+      unsigned v[4];
+      for (int k = 0; k < (g.premultiply ? 4 : 3); k++)
+        v[k] = g.put == kRgb ? sample(pp + pi, k) : sample(p[k] + pi, 0);
+      if (g.premultiply)
+        for (int k = 0; k < 3; k++) v[k] = premul(v[k], v[3]);
+      raster[ci++] = pack(v[0], v[1], v[2]);
+    }
+    ci += toskew;
+    pi += fromskew * unit;
   }
 }
 
-// True where the directory holds what the port decodes.
-bool part1(const Dir& t) {
-  const bool layout = (t.photometric == 1 && t.spp == 1) ||
-                      (t.photometric == 2 && t.spp == 3) ||
-                      (t.photometric == 3 && t.spp == 1);
-  return !t.tiled && t.bps == 8 && layout && t.extrasamples == 0 &&
-         t.planar == 1 && t.fillorder == 1 && t.sampleformat == 1 &&
-         part1_compression(t.compression);
+// One chunk read into `buf` (zeroed, of the chunk's size) as the reader
+// reads it: -1 where it is refused before its bytes are read (libtiff's
+// TIFFFillStrip / TIFFFillTile fail, or an uncompressed tile of the wrong
+// size in the first plane's read), else 0, what the decoder wrote kept.
+int read_chunk(Rgba& g, uint32_t chunk, bool first, uint8_t* buf,
+               size_t occ, bool decode) {
+  const Dir& t = g.t;
+  uint64_t off, bc;
+  if (!chunk_at(t, chunk, off, bc)) return -1;
+  // the raw buffer: the file's mapping, or one grown to a multiple of
+  // 1 KiB where the bits are reversed
+  if (t.fillorder == 2) {
+    if (bc > g.rawdatasize) g.rawdatasize = (bc + 1023) / 1024 * 1024;
+  } else {
+    g.rawdatasize = bc;
+  }
+  if (first && t.tiled) {
+    if (t.compression == 1 && g.rawdatasize != t.chunk_size)
+      return -1;  // "Invalid tile byte count"
+    // a buffer past 100 MB for data under a thousandth of the tile
+    const uint64_t buffer = t.chunk_size * (t.planar == 2 && t.spp > 1
+                                                ? (g.alpha ? 4 : 3) : 1);
+    if (t.compression != 1 && buffer > 100000000 &&
+        g.rawdatasize < t.chunk_size / 1000)
+      return -1;
+  }
+  if (!decode) return 0;
+  std::vector<uint8_t> raw;
+  chunk_bytes(t, chunk, raw);
+  decode_chunk(t, raw.data(), raw.size(), buf, occ, g.compat);
+  return 0;
+}
+
+// TIFFReadRGBAStrip(y0) or TIFFReadRGBATile(x0, y0) as OpenCV calls it, and
+// OpenCV's copy of its raster into img (orientations 3 and 4 upside down):
+// false where the call fails. Without `img`, the chunks' checks alone.
+bool read_rgba(Rgba& g, uint32_t x0, uint32_t y0, Image* img) {
+  const Dir& t = g.t;
+  const bool decode = img != nullptr;
+  const uint32_t cw = t.tiled ? t.tw : t.w;
+  const uint32_t ch = t.tiled ? t.th : std::min(t.rps, t.h);
+  const uint32_t w = std::min<uint64_t>(cw, t.w - x0);
+  const uint32_t h = std::min<uint64_t>(t.tiled ? t.th : t.rps, t.h - y0);
+  // the chunk's index in each plane
+  const uint32_t across = t.tiled ? howmany32(t.w, t.tw) : 1;
+  const uint32_t index = t.tiled ? y0 / t.th * across + x0 / t.tw : y0 / t.rps;
+  const bool contig = !(t.planar == 2 && t.spp > 1);
+  // the rows a strip holds (the last strip fewer)
+  const uint64_t rows = t.tiled ? t.th : std::min<uint64_t>(ch, t.h - uint64_t{index} * ch);
+  const size_t occ = rows * t.chunk_row;
+  const size_t size = t.chunk_size;
+  const int planes = contig ? 1 : g.colors + (g.alpha ? 1 : 0);
+  std::vector<uint8_t> buf(decode ? size * (contig ? 1 : (g.alpha ? 4 : 3)) + 16 : 0);
+  const uint8_t* p[4];
+  for (int k = 0; k < planes; k++) {
+    // planes 0..colors-1, then alpha at sample `colors`; gray: R = G = B
+    uint8_t* dst = decode ? buf.data() + size * (contig || g.colors == 1 ? (k == 0 ? 0 : 3) : k) : nullptr;
+    const uint32_t sample = static_cast<uint32_t>(k);
+    const uint32_t chunk = index + sample * t.per_plane;
+    const int st = read_chunk(g, chunk, k == 0, dst, occ, decode);
+    if (st < 0 && k == 0) return false;
+  }
+  if (!decode) return true;
+  if (contig) {
+    p[0] = buf.data();
+  } else {
+    p[0] = buf.data();
+    p[1] = g.colors == 1 ? p[0] : p[0] + size;
+    p[2] = g.colors == 1 ? p[0] : p[0] + 2 * size;
+    p[3] = p[0] + 3 * size;
+  }
+  // setorientation against the reader's bottom-left origin (5-8 as 1-4)
+  const int o = t.orientation > 4 ? t.orientation - 4 : t.orientation;
+  const bool flip_v = o == 1 || o == 2, flip_h = o == 2 || o == 3;
+  std::vector<uint32_t> raster(size_t{w} * h);
+  const int64_t toskew = flip_v ? -2 * int64_t{w} : 0;
+  put_chunk(g, raster, flip_v ? int64_t{h - 1} * w : 0, w, h,
+            int64_t{cw} - w, toskew, p);
+  if (flip_h)
+    for (uint32_t r = 0; r < h; r++)
+      std::reverse(raster.begin() + size_t{r} * w, raster.begin() + size_t{r + 1} * w);
+  // OpenCV: raster row i is image row y + h - 1 - i
+  const bool vert = o == 3 || o == 4;
+  const uint32_t img_y = vert ? t.h - y0 - h : y0;
+  for (uint32_t i = 0; i < h; i++) {
+    uint8_t* out = &img->rgb[(size_t{img_y + h - 1 - i} * t.w + x0) * 3];
+    for (uint32_t x = 0; x < w; x++) {
+      const uint32_t v = raster[size_t{i} * w + x];
+      out[3 * x] = static_cast<uint8_t>(v);
+      out[3 * x + 1] = static_cast<uint8_t>(v >> 8);
+      out[3 * x + 2] = static_cast<uint8_t>(v >> 16);
+    }
+  }
+  return true;
+}
+
+// True where the directory holds a layout the port decodes: strips or
+// tiles of gray, RGB or palette samples, with any extra samples, either
+// planar configuration or fill order, compressed as TIFF part 1.
+bool decoded_layout(const Dir& t) {
+  return t.photometric <= 3 && part1_compression(t.compression);
 }
 
 // ------------------------------------------------------------------ cv2
@@ -749,18 +1073,20 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
   if (!t.photo_set) return kUnreadable;
   const int b = t.bps;
   if (b != 1 && b != 8 && b != 10 && b != 12 && b != 14 && b != 16 &&
-      b != 32 && b != 64)
+      b != 32 && b != 64 && !(b == 4 && t.photometric == 3))
     return kUnreadable;
-  if ((b == 1 || b == 8) && t.sampleformat != 1 && t.sampleformat != 2)
+  if (b <= 16 && t.sampleformat != 1 && t.sampleformat != 2)
     return kUnreadable;
   if (t.spp > 4) return kUnreadable;  // normalizeChannelsNumber
   if (!cv2_size_ok(t.w, t.h)) return kRaises;  // validateInputImageSize
-  // readData
-  if (t.tiled) return kTiff;
-  const uint64_t tile_h = !t.rps_set || t.rps == 0xFFFFFFFFu ? t.h : t.rps;
-  if (tile_h > (1u << 24) || tile_h == 0) return kUnreadable;
+  // readData: the strip's or tile's size
+  uint64_t tile_w = t.tiled ? t.tw : t.w;
+  uint64_t tile_h = t.tiled ? t.th : (!t.rps_set || t.rps == 0xFFFFFFFFu ? t.h : t.rps);
+  if (tile_w == 0) tile_w = t.w;
+  if (tile_h == 0) tile_h = t.h;
+  if (tile_w > (1u << 24) || tile_h > (1u << 24)) return kUnreadable;
   // TIFFRGBAImageOK and TIFFRGBAImageBegin
-  if (b != 1 && b != 8 && b != 16) return kUnreadable;
+  if (b != 1 && b != 4 && b != 8 && b != 16) return kUnreadable;
   if (t.sampleformat == 3) return kUnreadable;
   const int colors = t.spp - t.extrasamples;
   switch (t.photometric) {
@@ -780,41 +1106,40 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
     default:
       return kUnreadable;
   }
-  if (4 * tile_h * t.w >= (uint64_t{1} << 30)) return kUnreadable;
-  if (!part1(t)) return kTiff;
-  if (t.orientation >= 5) return kUnreadable;
+  if (4 * tile_h * tile_w >= (uint64_t{1} << 30)) return kUnreadable;
+  if (!decoded_layout(t)) return kTiff;
+  Rgba g(t);
+  if (!pick(g)) return kUnreadable;
+  // 5-8: imread transposes what the decoder gives, which fails but for a
+  // square image
+  if (t.orientation >= 5 && t.w != t.h) return kUnreadable;
   dims[0] = static_cast<int>(t.h);
   dims[1] = static_cast<int>(t.w);
   if (head) return kOk;
-  // the palette as libtiff's RGBA reader maps it
-  uint8_t pal[768] = {};
-  if (t.photometric == 3) {
-    const bool wide = std::any_of(t.cmap.begin(), t.cmap.end(),
-                                  [](uint16_t c) { return c >= 256; });
-    for (int i = 0; i < 768; i++)
-      pal[i] = static_cast<uint8_t>(wide ? t.cmap[i] >> 8 : t.cmap[i] & 0xff);
+  // every call: a chunk libtiff refuses refuses the image (checked before
+  // the image is allocated)
+  for (int pass = 0; pass < (img ? 2 : 1); pass++) {
+    g.rawdatasize = 0;
+    if (pass) {
+      set_image(img, static_cast<int>(t.w), static_cast<int>(t.h));
+      g.compat = lzw_compat(t);
+    }
+    for (uint64_t y = 0; y < t.h; y += tile_h)
+      for (uint64_t x = 0; x < t.w; x += tile_w)
+        if (!read_rgba(g, static_cast<uint32_t>(x), static_cast<uint32_t>(y),
+                       pass ? img : nullptr))
+          return kUnreadable;
   }
-  // TIFFReadRGBAStrip for each strip: any strip libtiff refuses to read
-  // refuses the image (checked before the image is allocated)
-  uint64_t off, bc;
-  for (uint64_t y = 0; y < t.h; y += tile_h)
-    if (!strip_at(t, static_cast<uint32_t>(y / t.rps), off, bc))
-      return kUnreadable;
-  if (!img) return kOk;
-  set_image(img, static_cast<int>(t.w), static_cast<int>(t.h));
-  const uint32_t rps = static_cast<uint32_t>(std::min<uint64_t>(t.rps, t.h));
-  std::vector<uint8_t> raw, buf;
-  const bool compat = lzw_compat(t);
-  for (uint64_t y = 0; y < t.h; y += tile_h) {
-    strip_bytes(t, static_cast<uint32_t>(y / t.rps), raw);
-    const uint32_t rows =
-        static_cast<uint32_t>(std::min<uint64_t>(rps, t.h - y));
-    buf.assign(size_t{rps} * t.scanline, 0);
-    decode_strip(t, raw.data(), raw.size(), buf.data(), rows * t.scanline,
-                 compat);
-    put_rows(t, buf.data(), static_cast<uint32_t>(y), rows, pal, *img);
+  if (img && t.orientation >= 5) {  // transposed (5, 7) or anti-transposed
+    const Image in = *img;
+    const size_t n = t.w;
+    for (size_t y = 0; y < n; y++)
+      for (size_t x = 0; x < n; x++) {
+        const size_t from = t.orientation % 2 ? x * n + y
+                                              : (n - 1 - x) * n + (n - 1 - y);
+        std::memcpy(&img->rgb[3 * (y * n + x)], &in.rgb[3 * from], 3);
+      }
   }
-  apply_orientation(*img, t.orientation);  // 1-4: flips
   return kOk;
 }
 
@@ -826,12 +1151,25 @@ struct PilTag {
   bool present = false, ints = false;
   std::vector<int64_t> v;  // ints, or the bytes of a BYTE/UNDEFINED tag
   int type = 0;
+  // a number of any numeric type (integer, rational, float), as the
+  // integer it equals in Python, or kNoInt: keys and comparisons take it
+  std::vector<int64_t> num;
+  std::vector<std::pair<int64_t, int64_t>> rat;  // a rational's terms
 };
 
+constexpr int64_t kNoInt = INT64_MIN;
+
+// The integer a double equals, or kNoInt.
+int64_t as_int(double x) {
+  return std::isfinite(x) && x == std::trunc(x) && std::fabs(x) < 9.2e18
+             ? static_cast<int64_t>(x) : kNoInt;
+}
+
 // Pillow's ImageFileDirectory_v2 of the first IFD: its tags in the order
-// first seen, each with the value last seen.
+// first seen, each with the value last seen. Only a little-endian BigTIFF
+// is one to Pillow: it reads "MM\0+" as classic TIFF.
 struct Pil {
-  bool be = false;
+  bool be = false, big = false;
   uint64_t ifd = 0;
   std::vector<std::pair<uint16_t, PilTag>> tags;  // the last of duplicates
   const PilTag* get(uint16_t tag) const {
@@ -853,30 +1191,39 @@ int pil_unit(int type) {
 
 // ImageFileDirectory_v2.load: false where TiffImageFile._open raises.
 bool pil_open(const Src& s, Pil& p) {
-  uint8_t hd[8];
+  uint8_t hd[16];
   if (!s.read(0, 8, hd)) return false;
   p.be = hd[0] == 'M';
-  p.ifd = s.u32(hd + 4);
-  if (p.ifd == 0) return false;  // "no more images in TIFF file"
-  uint8_t c2[2];
-  if (!s.read(p.ifd, 2, c2)) return true;  // a warning: no tags
-  const uint16_t n = s.u16(c2);
-  for (uint32_t i = 0; i < n; i++) {
-    uint8_t e[12];
-    if (!s.read(p.ifd + 2 + 12 * i, 12, e)) return true;
+  p.big = hd[2] == 43;
+  if (p.big && !s.read(8, 8, hd + 8)) return false;
+  p.ifd = p.big ? s.u64(hd + 8) : s.u32(hd + 4);
+  // "no more images in TIFF file", "Unable to seek to frame"
+  if (p.ifd == 0 || p.ifd >= (uint64_t{1} << 63)) return false;
+  const int count_size = p.big ? 8 : 2, entry_size = p.big ? 20 : 12;
+  const uint64_t inline_size = p.big ? 8 : 4;
+  uint8_t cb[8];
+  if (!s.read(p.ifd, count_size, cb)) return true;  // a warning: no tags
+  const uint64_t n = p.big ? s.u64(cb) : s.u16(cb);
+  for (uint64_t i = 0; i < n; i++) {
+    uint8_t e[20];
+    if (p.ifd + count_size + entry_size * (i + 1) > s.n ||
+        !s.read(p.ifd + count_size + entry_size * i, entry_size, e))
+      return true;
     const uint16_t tag = s.u16(e), type = s.u16(e + 2);
-    const uint32_t count = s.u32(e + 4);
+    const uint64_t count = p.big ? s.u64(e + 4) : s.u32(e + 4);
+    const uint8_t* field = e + (p.big ? 12 : 8);
     const int unit = pil_unit(type);
     if (!unit) continue;  // an unsupported type
-    const uint64_t size = uint64_t{count} * unit;
+    if (count > s.n) return true;  // its data cannot be in the file
+    const uint64_t size = count * unit;
     std::vector<uint8_t> data;
-    if (size > 4) {
-      const uint64_t off = s.u32(e + 8);
+    if (size > inline_size) {
+      const uint64_t off = p.big ? s.u64(field) : s.u32(field);
       if (off > s.n || size > s.n - off) return true;  // the IFD ends here
       data.resize(size);
       s.read(off, size, data.data());
     } else {
-      data.assign(e + 8, e + 8 + size);
+      data.assign(field, field + size);
     }
     if (size == 0) continue;
     PilTag t;
@@ -885,8 +1232,8 @@ bool pil_open(const Src& s, Pil& p) {
     t.ints = type == 3 || type == 4 || type == 6 || type == 8 || type == 9 ||
              type == 13 || type == 16;
     if (t.ints) {
-      for (uint32_t k = 0; k < count; k++) {
-        const uint8_t* q = &data[size_t{k} * unit];
+      for (uint64_t k = 0; k < count; k++) {
+        const uint8_t* q = &data[k * unit];
         int64_t v;
         switch (type) {
           case 3: v = s.u16(q); break;
@@ -900,6 +1247,31 @@ bool pil_open(const Src& s, Pil& p) {
       }
     } else if (type == 1 || type == 7) {
       t.v.assign(data.begin(), data.end());
+    }
+    if (t.ints) {
+      t.num = t.v;
+    } else if (type == 5 || type == 10 || type == 11 || type == 12) {
+      for (uint64_t k = 0; k < count; k++) {
+        const uint8_t* q = &data[k * unit];
+        double x;
+        if (type == 11 || type == 12) {
+          if (type == 11) {
+            const uint32_t u = s.u32(q);
+            float f;
+            std::memcpy(&f, &u, 4);
+            x = f;
+          } else {
+            const uint64_t u = s.u64(q);
+            std::memcpy(&x, &u, 8);
+          }
+        } else {  // IFDRational: nan over a denominator of 0
+          const int64_t n = type == 5 ? int64_t{s.u32(q)} : static_cast<int32_t>(s.u32(q));
+          const int64_t d = type == 5 ? int64_t{s.u32(q + 4)} : static_cast<int32_t>(s.u32(q + 4));
+          t.rat.emplace_back(n, d);
+          x = d == 0 ? NAN : static_cast<double>(n) / static_cast<double>(d);
+        }
+        t.num.push_back(as_int(x));
+      }
     }
     bool replaced = false;
     for (auto& old : p.tags)
@@ -920,15 +1292,240 @@ bool pil_int(const Pil& p, uint16_t tag, int64_t& v) {
   return true;
 }
 
+// A tag's values as the numbers Python compares (kNoInt for a number that
+// equals no integer), or false where it holds no number (bytes, text).
+bool pil_nums(const Pil& p, uint16_t tag, std::vector<int64_t>& v) {
+  const PilTag* t = p.get(tag);
+  if (!t || t->num.empty()) return false;
+  v = t->num;
+  return true;
+}
+
+// Pillow's OPEN_INFO for gray, RGB and palette: (byte orders: 1 "II", 2
+// "MM", 3 both; Photometric, SampleFormat, FillOrder, BitsPerSample,
+// ExtraSamples) -> (mode, rawmode).
+struct OpenInfo {
+  int prefix, photo, sf, fill;
+  std::vector<int64_t> bps, extra;
+  const char* mode;
+  const char* raw;
+};
+
+const std::vector<OpenInfo>& open_info() {
+  static const std::vector<OpenInfo> table = {
+    {3, 0, 1, 1, {1}, {}, "1", "1;I"},
+    {3, 0, 1, 2, {1}, {}, "1", "1;IR"},
+    {3, 0, 1, 1, {2}, {}, "L", "L;2I"},
+    {3, 0, 1, 2, {2}, {}, "L", "L;2IR"},
+    {3, 0, 1, 1, {4}, {}, "L", "L;4I"},
+    {3, 0, 1, 2, {4}, {}, "L", "L;4IR"},
+    {3, 0, 1, 1, {8}, {}, "L", "L;I"},
+    {3, 0, 1, 2, {8}, {}, "L", "L;IR"},
+    {1, 0, 1, 1, {16}, {}, "I;16", "I;16"},
+    {1, 0, 3, 1, {32}, {}, "F", "F;32F"},
+    {2, 0, 3, 1, {32}, {}, "F", "F;32BF"},
+    {3, 1, 1, 1, {1}, {}, "1", "1"},
+    {3, 1, 1, 2, {1}, {}, "1", "1;R"},
+    {3, 1, 1, 1, {2}, {}, "L", "L;2"},
+    {3, 1, 1, 2, {2}, {}, "L", "L;2R"},
+    {3, 1, 1, 1, {4}, {}, "L", "L;4"},
+    {3, 1, 1, 2, {4}, {}, "L", "L;4R"},
+    {3, 1, 1, 1, {8}, {}, "L", "L"},
+    {3, 1, 1, 2, {8}, {}, "L", "L;R"},
+    {3, 1, 2, 1, {8}, {}, "L", "L"},
+    {3, 1, 1, 1, {8, 8}, {2}, "LA", "LA"},
+    {1, 1, 1, 1, {12}, {}, "I;16", "I;12"},
+    {1, 1, 1, 1, {16}, {}, "I;16", "I;16"},
+    {2, 1, 1, 1, {16}, {}, "I;16B", "I;16B"},
+    {1, 1, 1, 2, {16}, {}, "I;16", "I;16R"},
+    {1, 1, 2, 1, {16}, {}, "I", "I;16S"},
+    {2, 1, 2, 1, {16}, {}, "I", "I;16BS"},
+    {1, 1, 1, 1, {32}, {}, "I", "I;32N"},
+    {1, 1, 2, 1, {32}, {}, "I", "I;32S"},
+    {2, 1, 2, 1, {32}, {}, "I", "I;32BS"},
+    {1, 1, 3, 1, {32}, {}, "F", "F;32F"},
+    {2, 1, 3, 1, {32}, {}, "F", "F;32BF"},
+    {3, 2, 1, 1, {8, 8, 8}, {}, "RGB", "RGB"},
+    {3, 2, 1, 2, {8, 8, 8}, {}, "RGB", "RGB;R"},
+    {3, 2, 1, 1, {8, 8, 8, 8}, {}, "RGBA", "RGBA"},
+    {3, 2, 1, 1, {8, 8, 8, 8}, {0}, "RGB", "RGBX"},
+    {3, 2, 1, 1, {8, 8, 8, 8}, {1}, "RGBA", "RGBa"},
+    {3, 2, 1, 1, {8, 8, 8, 8}, {2}, "RGBA", "RGBA"},
+    {3, 2, 1, 1, {8, 8, 8, 8}, {999}, "RGBA", "RGBA"},
+    {3, 2, 1, 1, {8, 8, 8, 8, 8}, {0, 0}, "RGB", "RGBXX"},
+    {3, 2, 1, 1, {8, 8, 8, 8, 8}, {1, 0}, "RGBA", "RGBaX"},
+    {3, 2, 1, 1, {8, 8, 8, 8, 8}, {2, 0}, "RGBA", "RGBAX"},
+    {3, 2, 1, 1, {8, 8, 8, 8, 8, 8}, {0, 0, 0}, "RGB", "RGBXXX"},
+    {3, 2, 1, 1, {8, 8, 8, 8, 8, 8}, {1, 0, 0}, "RGBA", "RGBaXX"},
+    {3, 2, 1, 1, {8, 8, 8, 8, 8, 8}, {2, 0, 0}, "RGBA", "RGBAXX"},
+    {1, 2, 1, 1, {16, 16, 16}, {}, "RGB", "RGB;16L"},
+    {2, 2, 1, 1, {16, 16, 16}, {}, "RGB", "RGB;16B"},
+    {1, 2, 1, 1, {16, 16, 16, 16}, {}, "RGBA", "RGBA;16L"},
+    {2, 2, 1, 1, {16, 16, 16, 16}, {}, "RGBA", "RGBA;16B"},
+    {1, 2, 1, 1, {16, 16, 16, 16}, {0}, "RGB", "RGBX;16L"},
+    {2, 2, 1, 1, {16, 16, 16, 16}, {0}, "RGB", "RGBX;16B"},
+    {1, 2, 1, 1, {16, 16, 16, 16}, {1}, "RGBA", "RGBa;16L"},
+    {2, 2, 1, 1, {16, 16, 16, 16}, {1}, "RGBA", "RGBa;16B"},
+    {1, 2, 1, 1, {16, 16, 16, 16}, {2}, "RGBA", "RGBA;16L"},
+    {2, 2, 1, 1, {16, 16, 16, 16}, {2}, "RGBA", "RGBA;16B"},
+    {3, 3, 1, 1, {1}, {}, "P", "P;1"},
+    {3, 3, 1, 2, {1}, {}, "P", "P;1R"},
+    {3, 3, 1, 1, {2}, {}, "P", "P;2"},
+    {3, 3, 1, 2, {2}, {}, "P", "P;2R"},
+    {3, 3, 1, 1, {4}, {}, "P", "P;4"},
+    {3, 3, 1, 2, {4}, {}, "P", "P;4R"},
+    {3, 3, 1, 1, {8}, {}, "P", "P"},
+    {3, 3, 1, 2, {8}, {}, "P", "P;R"},
+    {3, 3, 1, 1, {8, 8}, {0}, "P", "PX"},
+    {3, 3, 1, 1, {8, 8}, {2}, "PA", "PA"},
+  };
+  return table;
+}
+
+// The modes the port decodes (Pillow's "I" and "F" are TIFF part 2b).
+bool decoded_mode(const std::string& mode) {
+  return mode == "1" || mode == "L" || mode == "LA" || mode == "P" ||
+         mode == "PA" || mode == "I;16" || mode == "I;16B" || mode == "RGB" ||
+         mode == "RGBA";
+}
+
+// The bits a pixel of one of Pillow's unpackers (rawmodes) reads, or 0
+// where Pillow has no such unpacker for the mode.
+int raw_bits(const std::string& mode, const std::string& raw) {
+  static const std::pair<const char*, int> known[] = {
+      {"1", 1}, {"1;I", 1}, {"1;R", 1}, {"1;IR", 1}, {"L;2", 2}, {"L;2I", 2},
+      {"L;2R", 2}, {"L;2IR", 2}, {"L;4", 4}, {"L;4I", 4}, {"L;4R", 4},
+      {"L;4IR", 4}, {"L", 8}, {"L;I", 8}, {"L;R", 8}, {"LA", 16},
+      {"I;16", 16}, {"I;16B", 16}, {"I;16R", 16}, {"I;16N", 16},
+      {"P;1", 1}, {"P;2", 2}, {"P;4", 4}, {"P", 8}, {"P;R", 8}, {"PX", 16},
+      {"PA", 16}, {"RGB", 24}, {"RGB;R", 24}, {"RGBX", 32}, {"RGBXX", 40},
+      {"RGBXXX", 48}, {"RGBA", 32}, {"RGBAX", 40}, {"RGBAXX", 48},
+      {"RGBa", 32}, {"RGBaX", 40}, {"RGBaXX", 48}, {"RGB;16L", 48},
+      {"RGB;16B", 48}, {"RGB;16N", 48}, {"RGBA;16L", 64}, {"RGBA;16B", 64},
+      {"RGBA;16N", 64}, {"RGBX;16L", 64}, {"RGBX;16B", 64},
+      {"RGBX;16N", 64}, {"RGBa;16L", 64}, {"RGBa;16B", 64},
+      {"RGBa;16N", 64}, {"R", 8}, {"G", 8}, {"B", 8}, {"A", 8},
+      {"R;16N", 16}, {"G;16N", 16}, {"B;16N", 16}, {"A;16N", 16}};
+  // one band: the planes of planar files (8 or 16 bits of an RGB(A) band),
+  // or a whole one-band mode
+  const bool band16 = raw.size() == 5 && raw.compare(1, 4, ";16N") == 0 &&
+                      std::string("RGBA").find(raw[0]) != std::string::npos;
+  if (raw.size() == 1 || band16) {
+    const char c = raw[0];
+    if ((c == 'R' || c == 'G' || c == 'B') && (mode == "RGB" || mode == "RGBA"))
+      return raw.size() == 1 ? 8 : 16;
+    if (c == 'A' && mode == "RGBA") return raw.size() == 1 ? 8 : 16;
+    if (raw != mode) return 0;
+  }
+  for (const auto& k : known)
+    if (raw == k.first) return k.second;
+  return 0;
+}
+
+// A pixel of Pillow's image in the mode: bands 0-3 (an I;16 value in band
+// 0, a palette index in band 0).
+struct Px {
+  uint16_t v[4] = {0, 0, 0, 0};
+};
+
+uint8_t unpremul(unsigned c, unsigned a) {
+  return a == 0 ? 0 : static_cast<uint8_t>(std::min(255u, c * 255 / a));
+}
+
+// Pillow's unpacker `raw` over n pixels of `in` into px.
+void unpack(const std::string& raw, const uint8_t* in, size_t n, Px* px) {
+  const bool rev = raw.size() > 1 && raw.back() == 'R' && raw != "I;16R";
+  const bool inv = raw.find('I') != std::string::npos && raw[0] != 'I' &&
+                   raw != "1" && raw.find("I;") == std::string::npos;
+  auto byte = [&](size_t i) { return rev ? reversed(in[i]) : in[i]; };
+  if (raw[0] == '1' || (raw.size() > 2 && (raw[0] == 'L' || raw[0] == 'P') &&
+                        raw[1] == ';' && raw[2] >= '1' && raw[2] <= '4')) {
+    const int bits = raw[0] == '1' ? 1 : raw[2] - '0';
+    const int per = 8 / bits, max = (1 << bits) - 1;
+    for (size_t x = 0; x < n; x++) {
+      const int v = byte(x / per) >> (8 - bits * (x % per + 1)) & max;
+      if (raw[0] == 'P') {
+        px[x].v[0] = static_cast<uint16_t>(v);
+      } else {
+        const int l = v * (255 / max);
+        px[x].v[0] = static_cast<uint16_t>(inv ? 255 - l : l);
+      }
+    }
+    return;
+  }
+  if (raw == "L" || raw == "L;I" || raw == "L;R" || raw == "P" || raw == "P;R") {
+    for (size_t x = 0; x < n; x++)
+      px[x].v[0] = static_cast<uint16_t>(inv ? 255 - byte(x) : byte(x));
+    return;
+  }
+  if (raw == "LA" || raw == "PA" || raw == "PX") {
+    for (size_t x = 0; x < n; x++) {
+      px[x].v[0] = in[2 * x];
+      if (raw != "PX") px[x].v[3] = in[2 * x + 1];
+    }
+    return;
+  }
+  if (raw.rfind("I;16", 0) == 0) {
+    for (size_t x = 0; x < n; x++) {
+      const uint8_t a = in[2 * x], b = in[2 * x + 1];
+      px[x].v[0] = static_cast<uint16_t>(raw == "I;16B" ? a << 8 | b
+                                         : raw == "I;16R" ? reversed(a) | reversed(b) << 8
+                                                          : a | b << 8);
+    }
+    return;
+  }
+  if (raw.size() == 1 || (raw.size() == 5 && raw.compare(1, 4, ";16N") == 0)) {
+    // one band, 8 or 16 bits
+    const int band = raw[0] == 'R' || raw[0] == 'L' || raw[0] == 'P' || raw[0] == '1'
+                         ? 0 : raw[0] == 'G' ? 1 : raw[0] == 'B' ? 2 : 3;
+    for (size_t x = 0; x < n; x++)
+      px[x].v[band] = raw.size() == 1 ? in[x] : in[2 * x + 1];
+    return;
+  }
+  // RGB and RGBA, 8 or 16 bits (the high byte), X samples skipped
+  const bool wide = raw.find(";16") != std::string::npos;
+  const bool big = raw.back() == 'B';
+  const std::string base = raw.substr(0, raw.find(';'));
+  const size_t step = (wide ? 2 : 1) * base.size();
+  const bool alpha = base.size() > 3 && (base[3] == 'A' || base[3] == 'a');
+  for (size_t x = 0; x < n; x++) {
+    const uint8_t* q = in + x * step;
+    for (int k = 0; k < (alpha ? 4 : 3); k++)
+      px[x].v[k] = wide ? q[2 * k + (big ? 0 : 1)] : rev ? reversed(q[k]) : q[k];
+    if (base.size() > 3 && base[3] == 'a')
+      for (int k = 0; k < 3; k++) px[x].v[k] = unpremul(px[x].v[k], px[x].v[3]);
+  }
+}
+
+// Image.convert("RGB") of a pixel of `mode`.
+void to_rgb(const std::string& mode, const Px& px, const std::vector<uint8_t>& pal,
+            uint8_t* o) {
+  if (mode == "P" || mode == "PA") {
+    const size_t n = pal.size() / 3, v = px.v[0];
+    if (v < n) {
+      o[0] = pal[v];
+      o[1] = pal[n + v];
+      o[2] = pal[2 * n + v];
+    } else {
+      o[0] = o[1] = o[2] = 0;
+    }
+  } else if (mode == "RGB" || mode == "RGBA") {
+    for (int k = 0; k < 3; k++) o[k] = static_cast<uint8_t>(px.v[k]);
+  } else {  // 1, L, LA, I;16 (clipped)
+    o[0] = o[1] = o[2] = static_cast<uint8_t>(std::min<unsigned>(px.v[0], 255));
+  }
+}
+
 int pil_impl(const Src& src, Image* img, int* dims, bool head) {
   Pil p;
   if (!pil_open(src, p)) return kUnreadable;
   if (p.get(0xBC01)) return kUnreadable;
-  // COMPRESSION_INFO
+  // COMPRESSION_INFO (a dict: any number equal to a key finds it)
   int64_t comp = 1;
-  if (const PilTag* t = p.get(kCompression)) {
-    if (!t->ints) return kUnreadable;
-    comp = t->v[0];
+  std::vector<int64_t> n;
+  if (p.get(kCompression)) {
+    if (!pil_nums(p, kCompression, n)) return kUnreadable;
+    comp = n[0];
     static const int64_t known[] = {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773,
                                     32809, 32946, 34676, 34677, 34925,
                                     50000, 50001};
@@ -938,220 +1535,356 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
   }
   int64_t planar = 1, photo = 0, fillorder = 1, w, h, orientation = 0;
   const PilTag* tp;
-  if ((tp = p.get(kPlanar)) && tp->ints) planar = tp->v[0];
-  // a value of no integer type makes a key of no mode
-  if ((tp = p.get(kPhotometric))) {
-    if (!tp->ints) return kUnreadable;
-    photo = tp->v[0];
+  if (pil_nums(p, kPlanar, n)) planar = n[0];
+  // a value of no number makes a key of no mode
+  if (p.get(kPhotometric)) {
+    if (!pil_nums(p, kPhotometric, n)) return kUnreadable;
+    photo = n[0];
   }
   if (comp == 6) photo = 6;
-  if ((tp = p.get(kFillOrder))) {
-    if (!tp->ints) return kUnreadable;
-    fillorder = tp->v[0];
+  if (p.get(kFillOrder)) {
+    if (!pil_nums(p, kFillOrder, n)) return kUnreadable;
+    fillorder = n[0];
   }
   if (!pil_int(p, kWidth, w) || !pil_int(p, kLength, h)) return kUnreadable;
-  if (p.get(kOrientation) && !pil_int(p, kOrientation, orientation))
-    orientation = 0;
+  if (pil_nums(p, kOrientation, n)) orientation = n[0];
   const bool swap = orientation >= 5 && orientation <= 8;
   // sample format, bits, extra samples, samples a pixel
   std::vector<int64_t> sf = {1}, bps = {1}, extra;
-  if ((tp = p.get(kSampleFormat))) {
-    if (!tp->ints) return kUnreadable;
-    sf = tp->v;
-    if (sf.size() > 1 && *std::max_element(sf.begin(), sf.end()) == 1 &&
-        *std::min_element(sf.begin(), sf.end()) == 1)
+  if (p.get(kSampleFormat)) {
+    if (!pil_nums(p, kSampleFormat, sf)) return kUnreadable;
+    if (sf.size() > 1 && std::all_of(sf.begin(), sf.end(),
+                                     [](int64_t x) { return x == 1; }))
       sf = {1};
   }
-  if ((tp = p.get(kBps))) {
-    if (!tp->ints) return kUnreadable;
-    bps = tp->v;
-  }
-  if ((tp = p.get(kExtraSamples))) {
-    if (!tp->ints) return kUnreadable;
-    extra = tp->v;
-  }
+  if (p.get(kBps) && !pil_nums(p, kBps, bps)) return kUnreadable;
+  if (p.get(kExtraSamples) && !pil_nums(p, kExtraSamples, extra))
+    return kUnreadable;
   int64_t spp = 1;
   if ((tp = p.get(kSpp))) {
-    if (!tp->ints) return kUnreadable;
-    spp = tp->v[0];
+    if (!pil_nums(p, kSpp, n)) return kUnreadable;
+    spp = n[0];
+    // a number of no integer type slices or repeats no tuple
+    if (!tp->ints && spp != static_cast<int64_t>(bps.size()))
+      return kUnreadable;
   } else if (comp == 6 && (photo == 2 || photo == 6)) {
     spp = 3;
   }
+  if (spp == kNoInt) return kUnreadable;
   if (spp > 6) return kUnreadable;  // MAX_SAMPLESPERPIXEL
   if (spp < static_cast<int64_t>(bps.size())) bps.resize(std::max<int64_t>(spp, 0));
   else if (spp > static_cast<int64_t>(bps.size()) && bps.size() == 1)
     bps.assign(spp, bps[0]);
   if (static_cast<int64_t>(bps.size()) != spp) return kUnreadable;
-  // OPEN_INFO: the modes the port decodes
-  int mode;  // 0 L, 1 RGB, 2 P
-  const bool fo = fillorder == 1 && extra.empty();
-  if (fo && photo == 1 && bps == std::vector<int64_t>{8} &&
-      (sf == std::vector<int64_t>{1} || sf == std::vector<int64_t>{2}))
-    mode = 0;
-  else if (fo && photo == 2 && bps == std::vector<int64_t>{8, 8, 8} &&
-           sf == std::vector<int64_t>{1})
-    mode = 1;
-  else if (fo && photo == 3 && bps == std::vector<int64_t>{8} &&
-           sf == std::vector<int64_t>{1})
-    mode = 2;
-  else
-    return kTiff;  // another mode, or none: the port does not decode it
+  // OPEN_INFO: (mode, rawmode), or "unknown pixel mode"
+  auto lookup = [&](int64_t fill) -> const OpenInfo* {
+    if (sf.size() != 1) return nullptr;
+    for (const OpenInfo& e : open_info())
+      if ((e.prefix & (p.be ? 2 : 1)) && e.photo == photo && e.sf == sf[0] &&
+          e.fill == fill && e.bps == bps && e.extra == extra)
+        return &e;
+    return nullptr;
+  };
+  const OpenInfo* info = lookup(fillorder);
+  if (!info) return kUnreadable;
+  const std::string mode = info->mode;
+  if (!decoded_mode(mode) || std::string(info->raw) == "I;12") return kTiff;
   const bool raw = comp == 1;
   if (!raw && !part1_compression(static_cast<int>(comp))) return kTiff;
-  if (planar != 1) return kTiff;
-  // tiles, strips
+  const int bps_count = (photo == 2 || photo == 6 || photo == 8 ? 3 : photo == 5 ? 4 : 1) +
+                        static_cast<int>(extra.size());
+  int64_t bps_sum = 0;
+  for (int64_t b : bps) bps_sum += b;
+  // the tiles Pillow's own reader decodes: strips or tiles, one layer a
+  // plane (planar configuration 2), each (offset, extent, rawmode, stride)
+  struct Tile {
+    int64_t off, x0, y0, x1, y1;
+    std::string raw;
+    int64_t stride;
+  };
+  std::vector<Tile> tiles;
   const PilTag* offs = p.get(kStripOffsets);
-  if (p.get(kTileOffsets) && !offs) return kTiff;
+  const bool strips = offs != nullptr;
+  if (!offs) offs = p.get(kTileOffsets);
   if (raw && !offs) return kUnreadable;  // "unknown data organization"
-  // the palette: every value // 256
+  if (raw) {
+    // the bytes of a BYTE entry iterate as integers
+    if (!offs->ints && offs->type != 1) return kUnreadable;
+    int64_t tw = w, th = h;
+    if (strips) {
+      if ((tp = p.get(kRps))) {
+        if (!tp->ints || tp->v[0] < 0) return kUnreadable;
+        th = tp->v[0];
+      }
+    } else {  // "Invalid tile dimensions"
+      if (!pil_int(p, kTileWidth, tw) || !pil_int(p, kTileLength, th))
+        return kUnreadable;
+    }
+    std::vector<int64_t> offsets = offs->v;
+    if (tw == w && th == h && planar != 2) offsets = {offsets.back()};
+    int64_t x = 0, y = 0;
+    size_t layer = 0;
+    for (int64_t o : offsets) {
+      double stride = x + tw > w ? tw * static_cast<double>(bps_sum) / 8 : 0;
+      std::string r = info->raw;
+      if (planar == 2) {
+        if (layer >= r.size()) return kUnreadable;  // IndexError
+        r = r.substr(layer, 1);
+        stride /= bps_count;
+      }
+      tiles.push_back({o, x, y, std::min(x + tw, w), std::min(y + th, h), r,
+                       static_cast<int64_t>(stride)});
+      x += tw;
+      if (x >= w) {
+        x = 0;
+        y += th;
+        if (y >= h) {
+          y = 0;
+          layer++;
+        }
+      }
+    }
+  }
+  // the palette: every value // 256 (floored; bytes, the integers and
+  // rationals take it, UNDEFINED data and floats raise)
   std::vector<uint8_t> pal;
-  if (mode == 2) {
+  if (mode == "P" || mode == "PA") {
     const PilTag* cm = p.get(kColorMap);
-    if (!cm || (!cm->ints && cm->type != 1 && cm->type != 7))
+    if (!cm || !(cm->ints || cm->type == 1 || !cm->rat.empty()))
       return kUnreadable;
     for (int64_t v : cm->v) pal.push_back(static_cast<uint8_t>((v >> 8) & 255));
+    for (auto [num, den] : cm->rat) {
+      if (den == 0) return kUnreadable;
+      const int64_t q = num * (den < 0 ? -1 : 1), d = 256 * std::abs(den);
+      pal.push_back(static_cast<uint8_t>((q >= 0 ? q / d : -((-q + d - 1) / d)) & 255));
+    }
   }
   if (w <= 0 || h <= 0 || w > INT32_MAX || h > INT32_MAX) return kUnreadable;
   if (!pil_size_ok(w, h)) return kUnreadable;  // DecompressionBombError
-  // the single strip of a gray or palette image is memory mapped, at the
-  // size as oriented: 5-8 read its bytes as an image of w rows of h
-  // (the bytes of a BYTE entry iterate as integers)
-  const bool offs_ok = offs && (offs->ints || offs->type == 1);
-  const std::vector<int64_t> offsets = offs_ok ? offs->v : std::vector<int64_t>{};
-  int64_t rps = h;
-  if ((tp = p.get(kRps))) {
-    if (!tp->ints || tp->v[0] < 0) return kUnreadable;
-    rps = tp->v[0];
-  }
-  const bool one_tile = raw && (offsets.size() == 1 || rps == h);
-  const bool mapped = one_tile && mode != 1;
+  // one raw tile of a mode Pillow maps from the file is mapped at the size
+  // as oriented: 5-8 read its bytes as an image of w rows of h
+  const bool mappable =
+      raw && tiles.size() == 1 && tiles[0].raw == mode &&
+      (mode == "L" || mode == "P" || mode == "RGBA" || mode == "I;16" ||
+       mode == "I;16B");
+  const int64_t sw = swap ? h : w, sh = swap ? w : h;
+  const bool mapped =
+      mappable && !(tiles[0].off + sh * tiles[0].stride > static_cast<int64_t>(src.n));
   const bool remap = mapped && swap;
   dims[0] = static_cast<int>(swap && !remap ? w : h);
   dims[1] = static_cast<int>(swap && !remap ? h : w);
   if (head) return kOk;
-  const size_t row = static_cast<size_t>(w) * (mode == 1 ? 3 : 1);
-  std::vector<uint8_t> samples;  // allocated once the data is known to be there
-  if (raw) {
-    if (!offs_ok) return kUnreadable;
-    if (mapped) {
-      const int64_t off = offsets.back();
-      if (off < 0 || static_cast<uint64_t>(off) > src.n ||
-          row * h > src.n - off)
-        return kUnreadable;  // "buffer is not large enough"
-      samples.resize(row * h);
-      src.read(off, samples.size(), samples.data());
-    } else {
-      // one tile a strip: sorted by offset, consecutive ones of the same
-      // rows the last; each decoded whole from its offset
-      struct Tile { int64_t off, y0, y1; };
-      std::vector<Tile> tiles;
-      int64_t y = 0;
-      // every tile the whole image: the last offset alone
-      const std::vector<int64_t> used =
-          rps == h ? std::vector<int64_t>{offsets.back()} : offsets;
-      for (int64_t o : used) {
-        tiles.push_back({o, y, std::min(y + rps, h)});
-        y += rps;
-        if (y >= h) y = 0;
+  // load's putpalette: at most 256 entries ("invalid palette size")
+  if (pal.size() / 3 > 256) return kUnreadable;
+  // the image in its mode, at the size Pillow allocates
+  const int64_t iw = mapped ? sw : w, ih = mapped ? sh : h;
+  std::vector<Px> px(static_cast<size_t>(iw * ih));
+  if (mapped) {
+    const Tile& t = tiles[0];
+    const int64_t unit = mode == "L" || mode == "P" ? 1 : mode == "RGBA" ? 4 : 2;
+    const int64_t stride = t.stride > 0 ? t.stride : iw * unit;
+    // "buffer is not large enough"
+    if (t.off < 0 || t.off > static_cast<int64_t>(src.n) ||
+        stride * ih > static_cast<int64_t>(src.n) - t.off)
+      return kUnreadable;
+    // rows `stride` apart, each of iw pixels (past the file's end, the
+    // mapping's zeros)
+    std::vector<uint8_t> row(static_cast<size_t>(iw * unit));
+    for (int64_t r = 0; r < ih; r++) {
+      const uint64_t at = t.off + r * stride;
+      std::fill(row.begin(), row.end(), 0);
+      src.read(at, std::min<uint64_t>(row.size(), src.n - at), row.data());
+      unpack(mode, row.data(), static_cast<size_t>(iw), &px[r * iw]);
+    }
+  } else if (raw) {
+    // sorted by offset, consecutive ones of the same extent and rawmode the
+    // last; each decoded from its offset, every row in the file
+    std::stable_sort(tiles.begin(), tiles.end(),
+                     [](const Tile& a, const Tile& b) { return a.off < b.off; });
+    std::vector<Tile> kept;
+    for (const Tile& t : tiles) {
+      if (!kept.empty() && kept.back().x0 == t.x0 && kept.back().y0 == t.y0 &&
+          kept.back().x1 == t.x1 && kept.back().y1 == t.y1 &&
+          kept.back().raw == t.raw && kept.back().stride == t.stride)
+        kept.back() = t;
+      else
+        kept.push_back(t);
+    }
+    // ImageFile.load: a tile whose stride is shorter than its rows is a
+    // decoder error that only the last tile's raises (each tile's error
+    // code replaces the one before); the others raise at once
+    std::vector<bool> decoded(kept.size(), true);
+    for (Tile& t : kept)
+      if (t.x0 == 0 && t.x1 == 0) {  // setimage: the whole image
+        t.x1 = iw;
+        t.y0 = 0;
+        t.y1 = ih;
       }
-      std::stable_sort(tiles.begin(), tiles.end(),
-                       [](const Tile& a, const Tile& b) { return a.off < b.off; });
-      std::vector<Tile> kept;
-      for (const Tile& t : tiles) {
-        if (!kept.empty() && kept.back().y0 == t.y0 && kept.back().y1 == t.y1)
-          kept.back() = t;
-        else
-          kept.push_back(t);
+    for (size_t i = 0; i < kept.size(); i++) {
+      const Tile& t = kept[i];
+      const int bits = raw_bits(mode, t.raw);
+      if (!bits) return kUnreadable;  // "unknown raw mode"
+      // "tile cannot extend outside image"
+      if (t.x1 <= t.x0 || t.y1 <= t.y0 || t.off < 0) return kUnreadable;
+      const int64_t xs = t.x1 - t.x0, ys = t.y1 - t.y0;
+      const int64_t bytes = (xs * bits + 7) / 8;
+      const int64_t skip = t.stride ? t.stride - bytes : 0;
+      const int64_t left = static_cast<int64_t>(src.n) - t.off;
+      if (left <= 0) return kUnreadable;  // "image file is truncated"
+      if (skip < 0) {
+        if (i + 1 == kept.size()) return kUnreadable;
+        decoded[i] = false;
+        continue;
       }
-      for (const Tile& t : kept) {
-        // "tile cannot extend outside image", "image file is truncated"
-        if (t.off < 0 || t.y1 <= t.y0 || static_cast<uint64_t>(t.off) > src.n ||
-            (t.y1 - t.y0) * row > src.n - t.off)
-          return kUnreadable;
+      if (ys * bytes + (ys - 1) * skip > left) return kUnreadable;
+    }
+    std::vector<uint8_t> row;
+    for (size_t i = 0; i < kept.size(); i++) {
+      if (!decoded[i]) continue;
+      const Tile& t = kept[i];
+      const int64_t xs = t.x1 - t.x0, ys = t.y1 - t.y0;
+      const int64_t bytes = (xs * raw_bits(mode, t.raw) + 7) / 8;
+      const int64_t pitch = t.stride ? t.stride : bytes;
+      row.resize(static_cast<size_t>(bytes));
+      for (int64_t r = 0; r < ys; r++) {
+        src.read(t.off + r * pitch, bytes, row.data());
+        unpack(t.raw, row.data(), static_cast<size_t>(xs), &px[(t.y0 + r) * iw + t.x0]);
       }
-      samples.assign(row * h, 0);
-      for (const Tile& t : kept)
-        src.read(t.off, (t.y1 - t.y0) * row, &samples[t.y0 * row]);
     }
   } else {
-    // libtiff: its directory, then every strip decoded without an error
+    // libtiff: its directory, then every strip or tile decoded without an
+    // error, unpacked in Pillow's rawmode (native 16-bit words, bits in
+    // order: libtiff reverses them for FillOrder 2)
     Dir t;
     t.src = src;
-    // (libtiff's own Photometric and sample layout do not matter: Pillow
-    // unpacks the rows it decodes in its own mode)
-    if (!read_dir(t) || t.tiled || t.w != w || t.h != h ||
-        !part1_compression(t.compression) || t.scanline < row)
+    if (!read_dir(t) || t.w != w || t.h != h || !part1_compression(t.compression))
       return kUnreadable;
-    const uint32_t prps = t.rps_set && t.rps != 0xFFFFFFFFu ? t.rps
-                                                            : static_cast<uint32_t>(h);
-    // RowsPerStrip as a signed int (a negative one is no strip buffer)
-    if (prps > INT32_MAX) return kUnreadable;
-    uint64_t off, bc;
-    for (uint64_t y = 0; y < static_cast<uint64_t>(h); y += prps)
-      if (!strip_at(t, static_cast<uint32_t>(y / t.rps), off, bc))
-        return kUnreadable;
-    samples.assign(row * h, 0);
-    std::vector<uint8_t> raw_bytes, buf;
+    if (t.photometric == 6) return kTiff;  // read as RGBA by Pillow
+    std::string r = fillorder == 2 ? lookup(1)->raw : info->raw;
+    if (r == "I;16") r = "I;16N";
+    else if (r.size() > 4 && (r.substr(r.size() - 4) == ";16B" || r.substr(r.size() - 4) == ";16L"))
+      r = r.substr(0, r.size() - 1) + "N";
+    const int bits = raw_bits(mode, r);
+    if (!bits) return kUnreadable;
+    const int bands = mode == "RGB" ? 3 : mode == "RGBA" ? 4 : mode == "LA" || mode == "PA" ? 2 : 1;
+    const bool separate = t.planar == 2 && bands > 1;
+    if (separate && t.bps != 8 && t.bps != 16) return kUnreadable;
+    const int planes = separate ? bands : 1;
+    auto unpacker = [&](int plane) {
+      if (!separate) return r;
+      const std::string band(1, "RGBA"[plane]);
+      return t.bps == 16 ? band + ";16N" : band;
+    };
+    std::vector<uint8_t> buf, raw_bytes;
     const bool compat = lzw_compat(t);
-    for (uint64_t y = 0; y < static_cast<uint64_t>(h); y += prps) {
-      const uint32_t strip = static_cast<uint32_t>(y / t.rps);
-      strip_bytes(t, strip, raw_bytes);
-      const uint64_t rows = std::min<uint64_t>(std::min<uint64_t>(t.rps, t.h),
-                                               t.h - strip * uint64_t{t.rps});
-      buf.assign(rows * t.scanline, 0);
-      if (!decode_strip(t, raw_bytes.data(), raw_bytes.size(), buf.data(),
-                        buf.size(), compat))
-        return kUnreadable;  // "decoder error -2"
-      const uint64_t n = std::min<uint64_t>(prps, h - y);
-      for (uint64_t r = 0; r < n && r < rows; r++)
-        std::memcpy(&samples[(y + r) * row], &buf[r * t.scanline], row);
-    }
-  }
-  if (!img) return kOk;
-  // the image as Pillow holds it (mapped and swapped for 5-8), to RGB
-  const int iw = static_cast<int>(remap ? h : w), ih = static_cast<int>(remap ? w : h);
-  set_image(img, iw, ih);
-  for (size_t i = 0; i < size_t{static_cast<size_t>(iw)} * ih; i++) {
-    uint8_t* o = &img->rgb[3 * i];
-    if (mode == 1) {
-      std::memcpy(o, &samples[3 * i], 3);
-    } else if (mode == 2) {
-      const size_t v = samples[i], n = pal.size() / 3;
-      if (v < n) {
-        o[0] = pal[v];
-        o[1] = pal[n + v];
-        o[2] = pal[2 * n + v];
-      }
+    // TIFFReadEncodedStrip / TIFFReadTile: the chunk whole, or an error
+    // (zeros past the chunk: an unpacker that reads more bytes a row than
+    // libtiff's row holds reads on into them)
+    const size_t pad = (static_cast<size_t>(std::max<int64_t>(w, t.tw)) * 64 + 7) / 8;
+    auto read = [&](uint32_t chunk, size_t size) {
+      if (!chunk_bytes(t, chunk, raw_bytes)) return false;
+      buf.assign(size + pad, 0);
+      return decode_chunk(t, raw_bytes.data(), raw_bytes.size(), buf.data(), size, compat);
+    };
+    if (!t.tiled) {
+      const int64_t prps = t.rps_set && t.rps != 0xFFFFFFFFu ? t.rps : h;
+      if (prps > INT32_MAX) return kUnreadable;
+      const int64_t row = static_cast<int64_t>(t.scanline);
+      // Pillow's checks: libtiff's row as long as the unpacker's, libtiff's
+      // strip (TIFFStripSize) no larger than the unpacker's rows (a 32-bit
+      // unsigned product in Pillow)
+      const int64_t unpacked = (w * bits / planes + 7) / 8;
+      const int64_t strip_size = row * std::min<int64_t>(t.rps, h);
+      if (row <= 0 || row < unpacked ||
+          strip_size > static_cast<uint32_t>(static_cast<uint32_t>(unpacked) *
+                                             static_cast<uint32_t>(prps)))
+        return kUnreadable;
+      const uint64_t srps = std::min<uint64_t>(t.rps, t.h);
+      for (int64_t y = 0; y < h; y += prps)
+        for (int plane = 0; plane < planes; plane++) {
+          const uint32_t strip = static_cast<uint32_t>(y / t.rps) +
+                                 (t.planar == 2 ? plane * t.per_plane : 0);
+          if (strip >= t.nstrips) return kUnreadable;
+          const uint64_t in_plane = strip % t.per_plane;
+          const uint64_t rows = std::min<uint64_t>(srps, t.h - in_plane * srps);
+          if (!read(strip, std::min<uint64_t>(rows, prps) * row))
+            return kUnreadable;  // "decoder error -2"
+          buf.resize(std::max<size_t>(buf.size(), strip_size + pad), 0);
+          const std::string u = unpacker(plane);
+          for (int64_t k = 0; k < std::min<int64_t>(prps, h - y); k++)
+            unpack(u, &buf[k * row], static_cast<size_t>(w), &px[(y + k) * w]);
+        }
     } else {
-      o[0] = o[1] = o[2] = samples[i];
+      const int64_t tw = t.tw, th = t.th, row = static_cast<int64_t>(t.chunk_row);
+      // Pillow's checks (the first with the tile's length where its
+      // width belongs)
+      if (tw > INT32_MAX || th > INT32_MAX || !t.chunk_size ||
+          t.chunk_size > static_cast<uint32_t>(
+              (static_cast<uint32_t>(th) * bits / planes + 7) / 8 *
+              static_cast<uint32_t>(tw)) ||
+          !row || row > static_cast<int64_t>(t.chunk_size) ||
+          t.chunk_size > INT32_MAX - 1)
+        return kUnreadable;
+      const uint32_t across = howmany32(t.w, t.tw);
+      for (int64_t y = 0; y < h; y += th)
+        for (int plane = 0; plane < planes; plane++)
+          for (int64_t x = 0; x < w; x += tw) {
+            if (t.planar == 2 && plane >= t.spp) return kUnreadable;
+            const uint32_t tile = static_cast<uint32_t>(y / th * across + x / tw) +
+                                  (t.planar == 2 ? plane * t.per_plane : 0);
+            if (tile >= t.nstrips || !read(tile, t.chunk_size)) return kUnreadable;
+            const std::string u = unpacker(plane);
+            const int64_t cw = std::min(tw, w - x), cl = std::min(th, h - y);
+            for (int64_t k = 0; k < cl; k++)
+              unpack(u, &buf[k * row], static_cast<size_t>(cw), &px[(y + k) * w + x]);
+          }
     }
+    // separate RGBA planes of associated or unspecified alpha: RGBa
+    if (planes > 3 && mode == "RGBA" && t.extrasamples >= 1 &&
+        (t.sampleinfo0 == 0 || t.sampleinfo0 == 1))
+      for (Px& q : px)
+        for (int k = 0; k < 3; k++) q.v[k] = unpremul(q.v[k], q.v[3]);
   }
-  if (orientation >= 2 && orientation <= 8) apply_orientation(*img, static_cast<int>(orientation));
+  // the image as Pillow holds it (mapped and swapped for 5-8), to RGB
+  Image local;
+  Image& out = img ? *img : local;
+  out.w = static_cast<int>(iw);
+  out.h = static_cast<int>(ih);
+  out.rgb.assign(static_cast<size_t>(iw * ih) * 3, 0);
+  for (size_t i = 0; i < px.size(); i++) to_rgb(mode, px[i], pal, &out.rgb[3 * i]);
+  if (img && orientation >= 2 && orientation <= 8)
+    apply_orientation(*img, static_cast<int>(orientation));
   return kOk;
 }
 
 }  // namespace
 
 bool is_tiff_data(const uint8_t* d, size_t n) {
-  return n >= 4 && (!std::memcmp(d, "II*\0", 4) || !std::memcmp(d, "MM\0*", 4));
+  return n >= 4 && (!std::memcmp(d, "II*\0", 4) || !std::memcmp(d, "MM\0*", 4) ||
+                    !std::memcmp(d, "II+\0", 4) || !std::memcmp(d, "MM\0+", 4));
 }
 
-int tiff_cv2(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
-  if (!is_tiff_data(d, n)) return kUnreadable;
+namespace {
+
+Src memory_src(const uint8_t* d, size_t n) {
   Src s;
   s.d = d;
   s.n = n;
   s.be = d[0] == 'M';
-  return cv2_impl(s, img, dims, head);
+  s.big = d[2] == '+' || d[3] == '+';
+  return s;
+}
+
+}  // namespace
+
+int tiff_cv2(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
+  if (!is_tiff_data(d, n)) return kUnreadable;
+  return cv2_impl(memory_src(d, n), img, dims, head);
 }
 
 int tiff_pil(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   if (!is_tiff_data(d, n)) return kUnreadable;
-  Src s;
-  s.d = d;
-  s.n = n;
-  s.be = d[0] == 'M';
-  return pil_impl(s, img, dims, head);
+  return pil_impl(memory_src(d, n), img, dims, head);
 }
 
 int probe_tiff(FILE* f, int* dims) {
@@ -1162,6 +1895,7 @@ int probe_tiff(FILE* f, int* dims) {
   s.n = static_cast<uint64_t>(ftello(f));
   if (!s.read(0, 4, sig) || !is_tiff_data(sig, 4)) return kUnreadable;
   s.be = sig[0] == 'M';
+  s.big = sig[2] == '+' || sig[3] == '+';
   const int st = cv2_impl(s, nullptr, dims, true);
   if (st == kOk || st == kRaises || st == kTiff) return st;
   const int pil = pil_impl(s, nullptr, dims, true);
