@@ -311,11 +311,11 @@ JPEG_FEATURE_DECODES = 1024  # decodes a timed pass of each group, 1 thread
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
 # at the top, the files it gives None for (and AVIF, JPEG 2000, WebP and
-# JPEG-compressed TIFF data the port does not decode) under skip/
+# CCITT group 4 TIFF data the port does not decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
-                 "tiff_jpeg.png": "TIFF", "webp.png": "WebP"}
+                 "tiff_group4.png": "TIFF", "webp.png": "WebP"}
 # decode groups by file-name prefix; "tiff" is TIFF part 1 (8-bit strips),
 # the files of no tiff_* group below it
 IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
@@ -332,11 +332,15 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_planar_fillorder": ("tiff_planar2", "tiff_fillorder2",
                                           "tiff_miniswhite_sample"),
                 "tiff_tiles": ("tiff_tile", "tiff_orientation_6_sq"),
-                "tiff_bigtiff": ("tiff_bigtiff",)}
+                "tiff_bigtiff": ("tiff_bigtiff",),
+                "tiff_color_jpeg": ("tiff_cmyk", "tiff_ycbcr", "tiff_jpeg",
+                                    "tiff_unknown", "tiff_cielab")}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
-# of deflate strips and a big-endian tiled file, each of this RGB size,
-# decoded this many times a timed pass
+# of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
+# file (4:2:0 streams), each of this RGB size and rows a strip, decoded
+# this many times a timed pass
 BUILT_TIFF_SIZE = (480, 640)
+BUILT_TIFF_ROWS = 16
 BUILT_TIFF_DECODES = 20
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
@@ -3739,17 +3743,21 @@ def tiff_header(w, h):
     return b"II*\0" + struct.pack("<I", 8) + ifd + bytes(4)
 
 
-def tiff_bytes(img, tile=None, bigtiff=False, big=False):
-    """A TIFF of uint8 RGB ``img`` [h, w, 3]: deflate strips of 16 rows, or
-    deflate ``tile`` = (width, length) tiles (edge tiles zero-padded);
-    classic or BigTIFF, little or big endian; the IFD first."""
+def tiff_bytes(img, tile=None, bigtiff=False, big=False, jpeg=None):
+    """A TIFF of uint8 RGB ``img`` [h, w, 3]: deflate strips of
+    BUILT_TIFF_ROWS rows, or deflate ``tile`` = (width, length) tiles (edge
+    tiles zero-padded); classic or BigTIFF, little or big endian; the IFD
+    first. With ``jpeg``, a list of whole JPEG streams at 4:2:0, one a
+    strip: JPEG compression (7) of YCbCr (photometric 6,
+    YCbCrSubsampling 2, 2)."""
     import struct
     import zlib
     import numpy as np
     e = ">" if big else "<"
     h, w = img.shape[:2]
     if tile is None:
-        chunks = [img[y:y + 16] for y in range(0, h, 16)]
+        chunks = [img[y:y + BUILT_TIFF_ROWS]
+                  for y in range(0, h, BUILT_TIFF_ROWS)]
     else:
         tw, th = tile
         chunks = []
@@ -3763,8 +3771,11 @@ def tiff_bytes(img, tile=None, bigtiff=False, big=False):
     word, long_type = ("Q", 16) if bigtiff else ("I", 4)
     tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]),
             259: (3, [8]), 262: (3, [2]), 277: (3, [3])}
+    if jpeg is not None:
+        data = list(jpeg)
+        tags.update({259: (3, [7]), 262: (3, [6]), 530: (3, [2, 2])})
     if tile is None:
-        tags.update({273: (long_type, None), 278: (4, [16]),
+        tags.update({273: (long_type, None), 278: (4, [BUILT_TIFF_ROWS]),
                      279: (long_type, [len(d) for d in data])})
     else:
         tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]),
@@ -3803,12 +3814,17 @@ def tiff_bytes(img, tile=None, bigtiff=False, big=False):
 
 
 def built_tiff_checks(work):
-    """TIFF part 2a on files built here: a little-endian BigTIFF of deflate
-    strips and a big-endian tiled file (16 x 16 deflate tiles, edge tiles
-    at the right and bottom) of BUILT_TIFF_SIZE RGB pixels, each decoded
-    equal to the array it was built from and probed at its size; their host
-    decode rates (BUILT_TIFF_DECODES decodes on one thread, best of
-    JPEG_DECODE_REPS passes). Returns the numbers for phase 13's line."""
+    """TIFF parts 2a and 2b on files built here: a little-endian BigTIFF of
+    deflate strips and a big-endian tiled file (16 x 16 deflate tiles, edge
+    tiles at the right and bottom) of BUILT_TIFF_SIZE RGB pixels, each
+    decoded equal to the array it was built from, and a JPEG-compressed
+    YCbCr file whose strips are whole 4:2:0 streams of the port's own JPEG
+    writer (cv2.imwrite's bytes), decoded equal to the port's decode of
+    each stream, stacked (libtiff hands libjpeg the stream and lets it turn
+    YCbCr into RGB); each probed at its size; their host decode rates
+    (BUILT_TIFF_DECODES decodes on one thread, best of JPEG_DECODE_REPS
+    passes), the JPEG file's beside the plain decodes of its streams.
+    Returns the numbers for phase 13's line."""
     import numpy as np
     from tsr_tpu_torch import native
     root = work / "built_tiff"
@@ -3817,14 +3833,25 @@ def built_tiff_checks(work):
     y, x = np.mgrid[:h, :w]
     img = np.stack([(x * 3 + y) % 256, (y * 5) % 256, (x ^ y) % 256],
                    -1).astype(np.uint8)
+    # the JPEG streams of the YCbCr file's strips, and their plain decodes
+    rows = range(0, h, BUILT_TIFF_ROWS)
+    streams = [root / f"strip_{y:04d}.jpg" for y in rows]
+    native.write_images([str(q) for q in streams],
+                        [img[y:y + BUILT_TIFF_ROWS] for y in rows])
+    stacked = np.concatenate([native.decode(str(q)) for q in streams])
     out = {}
     for name, kw in (("bigtiff_strips.png", {"bigtiff": True}),
-                     ("tiles_big_endian.ppm", {"tile": (16, 16), "big": True})):
+                     ("tiles_big_endian.ppm", {"tile": (16, 16), "big": True}),
+                     ("jpeg_ycbcr_420.bmp", {"jpeg": [q.read_bytes()
+                                                      for q in streams]})):
         p = root / name
         p.write_bytes(tiff_bytes(img, **kw))
         got = native.decode(str(p))
-        check(got.shape == img.shape and np.array_equal(got, img),
-              f"{name} decodes unlike the array it was built from")
+        want = stacked if "jpeg" in kw else img
+        check(got.shape == img.shape and np.array_equal(got, want),
+              f"{name} decodes unlike "
+              + ("its streams' decodes" if "jpeg" in kw
+                 else "the array it was built from"))
         for reader in ("port", "cv2"):
             check(native.probe([str(p)], reader=reader).tolist() == [[h, w]],
                   f"{name}: probe({reader!r})")
@@ -3837,6 +3864,16 @@ def built_tiff_checks(work):
         out[name] = {"bytes": p.stat().st_size, "images_per_sec":
                      BUILT_TIFF_DECODES / best, "megapixels_per_sec":
                      BUILT_TIFF_DECODES * h * w / best / 1e6}
+    best = math.inf
+    for _ in range(JPEG_DECODE_REPS):
+        t0 = time.perf_counter()
+        for _ in range(BUILT_TIFF_DECODES):
+            for q in streams:
+                native.decode(str(q))
+        best = min(best, time.perf_counter() - t0)
+    out["jpeg_streams_plain"] = {
+        "streams": len(streams), "images_per_sec": BUILT_TIFF_DECODES / best,
+        "megapixels_per_sec": BUILT_TIFF_DECODES * h * w / best / 1e6}
     return out
 
 
@@ -3916,9 +3953,9 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     (the card's machine has neither cv2 nor PIL), in ``work``: each
     top-level fixture decoded equal to ``expected.npz`` and probed as cv2
     reads it; each skip/ file probed (0, 0) as cv2 refuses it, decoded as
-    PIL where PIL reads it (the gray PFM, the TIFFs of orientation 5 and
-    6 and of 2 and 4-bit gray among them), raising otherwise (naming AVIF,
-    JPEG 2000, JPEG-compressed TIFF and WebP data); host decode rates by
+    PIL where PIL reads it (the gray PFM, the TIFFs of orientation 5 to 8
+    and of 2 and 4-bit gray among them), raising otherwise (naming AVIF,
+    JPEG 2000, CCITT group 4 TIFF and WebP data); host decode rates by
     group (TIFF by layout); the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
     generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
@@ -3975,17 +4012,17 @@ def image_formats_phase(dev, resunet, judge, rows, work):
                 p.name.startswith(prefixes) for p in files)
     check(result["fixtures"]["pfm_hdr_skip_pil_reads"] >= 1,
           "the gray PFM PIL reads is among the skip/ files")
-    check(result["fixtures"]["tiff_cv2_reads"] >= 45
-          and result["fixtures"]["tiff_skip_pil_reads"] >= 11,
+    check(result["fixtures"]["tiff_cv2_reads"] >= 66
+          and result["fixtures"]["tiff_skip_pil_reads"] >= 14,
           f"TIFF fixtures: {result['fixtures']}")
     print("image formats: " + json.dumps(result["fixtures"]) + ": fixtures "
           "equal to expected.npz, skip/ files refused by the cv2 probe, "
           "decoded as PIL or raising (AVIF, JPEG 2000, TIFF, WebP named)")
     groups = {g: [str(p) for p in cases if p.name.startswith(prefixes)]
               for g, prefixes in IMAGE_GROUPS.items()}
-    part2a = {q for g, paths in groups.items() if g.startswith("tiff_")
+    layouts = {q for g, paths in groups.items() if g.startswith("tiff_")
               for q in paths}
-    groups["tiff"] = [q for q in groups["tiff"] if q not in part2a]
+    groups["tiff"] = [q for q in groups["tiff"] if q not in layouts]
     rates = group_decode_rates(groups)
     result["host_decode"] = rates
     print(f"host decode by format (one thread of {result['host_cpus']} CPUs,"
@@ -4123,7 +4160,8 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     t0 = time.perf_counter()
     result["built_tiff"] = built_tiff_checks(work)
     result["built_tiff"]["seconds"] = time.perf_counter() - t0
-    print(f"built TIFFs (BigTIFF strips, big-endian tiles, "
+    print(f"built TIFFs (BigTIFF strips, big-endian tiles, JPEG YCbCr "
+          f"4:2:0 beside a plain decode of its streams, "
           f"{BUILT_TIFF_SIZE[1]} x {BUILT_TIFF_SIZE[0]} RGB, beside "
           f"{result['card']}): " + json.dumps(result["built_tiff"]))
     result["launches"] = launches

@@ -1,0 +1,664 @@
+"""The cases of ``tests/data/images/make_fixtures.py`` (which writes them
+and their ``expected.npz``): each function gives ``{name: bytes}`` from
+the seeded stream it is handed (``cases`` and ``skip_cases`` from
+make_fixtures' SEED, the others from their own). They live beside the byte writers, out of the fixture directory,
+whose size a test bounds.
+
+What they hold: the PNM family outside P5/P6 (ASCII P1-P3, bitmap P4, PAM
+P7 of every TUPLTYPE), the BMP variants (16-bit, BI_BITFIELDS, the OS/2
+core header, RLE8, RLE4), PNGs that libpng reads with a warning (a bad
+ancillary CRC, a split zlib stream, bytes after IEND), GIFs (``gif_*.png``:
+interlaced, local and global colour tables, transparency, a frame inside a
+larger screen, two frames, LZW code sizes 2 and 8, clear codes mid-stream,
+a full code table, a gray palette, extensions), Sun rasters
+(``sun_*.ppm``: 1, 8, 24 and 32 bits, colour maps, RT_OLD, an odd width),
+PFM (``pfm*``: cv2's writer, big endian, scales 0.5 and 3, samples past
+255, negative, NaN and infinite, ties, odd header whitespace), Radiance HDR
+(``hdr_*.png``: cv2's run-length and flat writers, the ``#?RGBE``
+signature, EXPOSURE and other header lines, a width under 8, zero
+exponents, values past 1, runs and literals of every length, a scanline
+that falls back to flat) and TIFF (``tiff_*``: parts 1, 2a and 2b); the
+skip cases are what cv2 refuses, some of which PIL reads (a GIF without its
+trailer, a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB, which
+OpenCV 5 refuses, a gray PFM, which cv2 refuses under IMREAD_COLOR, TIFFs
+of orientations 5 to 8).
+"""
+
+import importlib.util
+import io
+import struct
+import zlib
+from pathlib import Path
+
+import cv2
+import numpy as np
+from PIL import Image
+
+GIF_SEED = 14  # the GIF and Sun raster files draw from their own stream
+PFM_HDR_SEED = 15  # and the PFM and Radiance HDR files from theirs
+TIFF_SEED = 16  # and the TIFF files from theirs
+TIFF2_SEED = 17  # and the TIFF part 2a files from theirs
+TIFF2B_SEED = 19  # and the TIFF part 2b files from theirs
+
+_spec = importlib.util.spec_from_file_location(
+    "image_writers", Path(__file__).resolve().parent / "image_writers.py")
+writers = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(writers)
+globals().update({name: getattr(writers, name) for name in writers.__all__})
+
+def cases(rng):
+    """{name: bytes} of the files cv2.imread reads."""
+    out = {}
+    img = smooth(rng, 28, 20)
+    out["p1_ascii.ppm"] = pnm_ascii(1, (gray(img) < 128).astype(int),
+                                    comment=b"# a bitmap\n", per_line=35)
+    img = smooth(rng, 24, 33)
+    out["p1_packed.ppm"] = pnm_ascii(1, (gray(img) < 110).astype(int),
+                                     per_line=70, sep=b"")
+    img = smooth(rng, 30, 26)
+    out["p2_max15.ppm"] = pnm_ascii(2, gray(img) >> 4, 15)
+    img = smooth(rng, 22, 31)
+    out["p2_comments.ppm"] = pnm_ascii(
+        2, gray(img), 255, comment=b"# made by hand\n# two lines\n",
+        per_line=9, sep=b" \t ")
+    img = smooth(rng, 25, 28)
+    out["p3_max1000.ppm"] = pnm_ascii(3, img.astype(int) * 1000 // 255, 1000)
+    img = smooth(rng, 20, 29)
+    out["p3_max255.ppm"] = pnm_ascii(3, img, 255, per_line=17)
+    img = smooth(rng, 27, 37)
+    bits = (gray(img) < 128).astype(np.uint8)
+    out["p4_bitmap.ppm"] = (b"P4\n37 27\n"
+                            + np.packbits(bits, axis=1).tobytes())
+    img = smooth(rng, 21, 30)
+    out["p5_max15.ppm"] = b"P5\n30 21\n15\n" + (gray(img) >> 4).tobytes()
+    img = smooth(rng, 23, 24).astype(np.uint16) * 257
+    out["p6_max65535.ppm"] = (b"P6\n24 23\n65535\n"
+                              + img.astype(">u2").tobytes())
+
+    img = smooth(rng, 26, 34)
+    out["pam_rgb.ppm"] = pam(img, 255, b"RGB", comment=b"# netpbm\n")
+    img = smooth(rng, 29, 23)
+    out["pam_gray.ppm"] = pam(gray(img)[:, :, None], 255, b"GRAYSCALE")
+    img = smooth(rng, 20, 40)
+    out["pam_bw.ppm"] = pam((gray(img) < 128).astype(np.uint8)[:, :, None],
+                            1, b"BLACKANDWHITE")
+    img = smooth(rng, 24, 28)
+    ga = np.concatenate([gray(img)[:, :, None],
+                         np.full((24, 28, 1), 200, np.uint8)], 2)
+    out["pam_gray_alpha.ppm"] = pam(ga, 255, b"GRAYSCALE_ALPHA")
+    img = smooth(rng, 22, 36)
+    rgba = np.concatenate([img, np.full((22, 36, 1), 255, np.uint8)], 2)
+    out["pam_rgb_alpha.ppm"] = pam(rgba, 255, b"RGB_ALPHA")
+    img = smooth(rng, 21, 27).astype(np.uint16) * 257 + 3
+    out["pam_rgb16.ppm"] = pam(img, 65535, b"RGB")
+    img = smooth(rng, 28, 25)
+    out["pam_no_tupltype.ppm"] = pam(img, 255, None)
+
+    img = smooth(rng, 24, 31)
+    out["bmp16_555.bmp"] = bmp(info40(31, 24, 16, 0, 0), rows16(img, 555))
+    img = smooth(rng, 27, 22)
+    out["bmp16_565_bitfields.bmp"] = bmp(
+        info40(22, 27, 16, 3, 0), rows16(img, 565),
+        struct.pack("<III", 0xF800, 0x07E0, 0x001F))
+    img = smooth(rng, 30, 33)
+    out["bmp32_bitfields_v5.bmp"] = bmp(  # GIMP's RGBA layout
+        info40(33, 30, 32, 3, 0, size=124,
+               masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)), rows_bgr(img, 32))
+    img = smooth(rng, 25, 26)
+    idx, pal = palette_of(img, 200)
+    px = np.zeros((25, 28), np.uint8)
+    px[:, :26] = idx[::-1]
+    out["bmp_core_8bit.bmp"] = bmp(struct.pack("<IHHHH", 12, 26, 25, 1, 8),
+                                   px.tobytes(),
+                                   bmp_palette(np.pad(pal, ((0, 56), (0, 0))),
+                                               3))
+    img = smooth(rng, 21, 23)
+    out["bmp_core_24bit.bmp"] = bmp(struct.pack("<IHHHH", 12, 23, 21, 1, 24),
+                                    rows_bgr(img, 24))
+    img = smooth(rng, 32, 40)
+    idx, pal = palette_of(img, 24)
+    data = rle(idx, False, delta=(6, 1), short_rows=(3, 11))
+    out["bmp_rle8.bmp"] = bmp(info40(40, 32, 8, 1, len(data), 24), data,
+                              bmp_palette(pal))
+    img = smooth(rng, 26, 38)
+    idx, pal = palette_of(img, 16)
+    data = rle(idx, True, delta=(9, 0), short_rows=(2,))
+    out["bmp_rle4.bmp"] = bmp(info40(38, 26, 4, 2, len(data), 16), data,
+                              bmp_palette(pal))
+    img = smooth(rng, 24, 30)
+    idx, pal = palette_of(img, 40)
+    data = rle(idx[::-1], False)
+    out["bmp_rle8_topdown.bmp"] = bmp(info40(30, -24, 8, 1, len(data), 40),
+                                      data, bmp_palette(pal))
+
+    img = smooth(rng, 28, 32)
+    out["png_text_bad_crc.png"] = png_with(img, lambda c: [
+        chunk(*c[0]), flip_crc(chunk(b"tEXt", b"Comment\0cv2 ignores me"))]
+        + [chunk(*x) for x in c[1:]])
+    img = smooth(rng, 34, 27)
+    out["png_after_iend.png"] = png_encode(img) + b"trailing bytes"
+    img = smooth(rng, 26, 30)
+    comp = zlib.compress(idat_stream(img), 9)
+    out["png_split_idat.png"] = png_with(img, lambda c: [chunk(*c[0])] + [
+        chunk(b"IDAT", comp[:40]), chunk(b"IDAT", comp[40:-4]),
+        chunk(b"IDAT", comp[-4:]), chunk(b"IEND", b"")])
+    img = smooth(rng, 23, 29)
+    comp = zlib.compress(idat_stream(img) + bytes(50))
+    out["png_extra_zlib_data.png"] = png_with(img, lambda c: [
+        chunk(*c[0]), chunk(b"IDAT", comp), flip_crc(chunk(b"IEND", b""))])
+    return out
+
+
+def skip_cases(rng):
+    """{name: bytes} of files cv2.imread gives None for."""
+    out = {}
+    png = png_encode(smooth(rng, 30, 36))
+    out["png_cut.png"] = png[:len(png) * 6 // 10]
+    out["png_cut_in_iend.png"] = png[:-2]
+    out["png_no_iend.png"] = png[:-12]
+    img = smooth(rng, 27, 25)
+    out["png_idat_crc.png"] = png_with(img, lambda c: [
+        flip_crc(chunk(*x)) if x[0] == b"IDAT" else chunk(*x) for x in c])
+    out["png_ihdr_crc.png"] = png_with(img, lambda c: [
+        flip_crc(chunk(*x)) if x[0] == b"IHDR" else chunk(*x) for x in c])
+    raw = bytearray(idat_stream(img))
+    raw[(25 * 3 + 1) * 7] = 5
+    out["png_bad_filter.png"] = png_with(img, lambda c: [
+        chunk(b"IDAT", zlib.compress(bytes(raw))) if x[0] == b"IDAT"
+        else chunk(*x) for x in c])
+    comp = bytearray(zlib.compress(idat_stream(img)))
+    comp[-1] ^= 1
+    out["png_bad_adler.png"] = png_with(img, lambda c: [
+        chunk(b"IDAT", bytes(comp)) if x[0] == b"IDAT" else chunk(*x)
+        for x in c])
+    out["png_unknown_critical.png"] = png_with(img, lambda c: [
+        chunk(*c[0]), chunk(b"ABCD", b"not a chunk libpng knows")]
+        + [chunk(*x) for x in c[1:]])
+
+    img = smooth(rng, 24, 28)
+    p6 = b"P6\n28 24\n255\n" + img.tobytes()
+    out["p6_cut.ppm"] = p6[:len(p6) // 2]
+    p2 = pnm_ascii(2, gray(img), 255)
+    out["p2_cut.ppm"] = p2[:len(p2) * 6 // 10]
+    out["p2_no_final_newline.ppm"] = p2[:-1]
+    out["p2_glued_comment.ppm"] = p2.replace(b"\n", b"# note\n", 3).replace(
+        b"P2# note", b"P2", 1)
+    out["pam_cut.ppm"] = pam(img, 255, b"RGB")[:300]
+    out["pam_unknown_tupltype.ppm"] = pam(img, 255, b"RGB_PLUS")
+    out["p1_bad_digit.ppm"] = pnm_ascii(1, (gray(img) < 128).astype(int)
+                                        ).replace(b"0 ", b"x ", 1)
+
+    img = smooth(rng, 26, 30)
+    b24 = bmp(info40(30, 26, 24, 0, 0), rows_bgr(img, 24))
+    out["bmp_cut.bmp"] = b24[:len(b24) * 9 // 10]
+    idx, pal = palette_of(img, 24)
+    data = rle(idx, False)
+    out["bmp_rle8_cut.bmp"] = bmp(info40(30, 26, 8, 1, len(data), 24),
+                                  data[:len(data) // 2], bmp_palette(pal))
+    out["bmp16_565_v5.bmp"] = bmp(
+        info40(30, 26, 16, 3, 0, size=124,
+               masks=(0xF800, 0x07E0, 0x001F, 0)), rows16(img, 565))
+    idx, pal = palette_of(img, 16)
+    data = rle(idx, True)[:-2]  # no end code: RLE4 needs one after a row
+    out["bmp_rle4_no_end.bmp"] = bmp(info40(30, 26, 4, 2, len(data), 16),
+                                     bytes(data), bmp_palette(pal))
+    return out
+
+
+def gif_sun_cases(rng):
+    """{name: bytes} of the GIF and Sun raster files cv2.imread reads."""
+    out = {}
+    img, pal = palette_of(smooth(rng, 24, 30), 64)
+    buf = io.BytesIO()
+    Image.fromarray(smooth(rng, 24, 30)).save(buf, "GIF")  # PIL's writer
+    out["gif_pil.png"] = buf.getvalue()
+    out["gif_interlaced.png"] = gif(30, 24, [gif_frame(img, interlace=True)],
+                                    pal)
+    idx, lpal = palette_of(smooth(rng, 22, 27), 32)
+    out["gif_local_table.png"] = gif(27, 22, [gif_frame(idx, lct=lpal)],
+                                     pal[:8], version=b"GIF87a")
+    idx, tpal = palette_of(smooth(rng, 20, 26), 16)
+    idx[3:9, 4:12] = 5
+    out["gif_transparent.png"] = gif(26, 20, [gif_frame(idx, pre=gce(5))],
+                                     tpal, bg=9)
+    idx, opal = palette_of(smooth(rng, 14, 17), 16)
+    out["gif_frame_offset.png"] = gif(  # cv2 paints the rest background
+        31, 25, [gif_frame(idx, x=9, y=6, pre=gce(2, disposal=1))], opal,
+        bg=11)
+    idx2, _ = palette_of(smooth(rng, 10, 12), 16)
+    out["gif_two_frames.png"] = gif(24, 21, [
+        gif_frame(palette_of(smooth(rng, 21, 24), 16)[0], pre=gce()),
+        gif_frame(idx2, x=5, y=4, pre=gce(3, disposal=2))], opal)
+    idx, cpal = palette_of(smooth(rng, 23, 29), 4)
+    out["gif_code2.png"] = gif(29, 23, [gif_frame(idx, bits=2)], cpal)
+    noise = rng.integers(0, 256, (48, 64))
+    out["gif_code8.png"] = gif(64, 48, [gif_frame(noise)],
+                               rng.integers(0, 256, (256, 3)))
+    noise = rng.integers(0, 256, (45, 80))
+    out["gif_full_table.png"] = gif(  # the table stays full (no clear)
+        80, 45, [gif_frame(noise, clear_when_full=False)],
+        rng.integers(0, 256, (256, 3)))
+    idx, mpal = palette_of(smooth(rng, 26, 33), 32)
+    out["gif_mid_clear.png"] = gif(33, 26, [gif_frame(
+        idx, clear_at=(100, 101, 500))], mpal)
+    ramp = np.repeat(np.arange(0, 256, 4, dtype=np.uint8)[:, None], 3, 1)
+    out["gif_gray.png"] = gif(28, 21, [gif_frame(
+        gray(smooth(rng, 21, 28)) >> 2, interlace=True)], ramp)
+    idx, epal = palette_of(smooth(rng, 19, 25), 16)
+    out["gif_extensions.png"] = gif(25, 19, [gif_frame(
+        idx, pre=b"!\xfe\x0ea comment here\0" + gce(7))], epal, ext=(
+        b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\0"
+        b"!\x01\x0c" + bytes(12) + b"\x04text\0"))
+
+    img = smooth(rng, 22, 29)
+    bits = np.packbits(gray(img) < 128, axis=1)
+    out["sun_1bit.ppm"] = sun(bits, 29, 1)
+    out["sun_1bit_map.ppm"] = sun(bits, 29, 1,
+                                  cmap=[[20, 40, 200], [250, 230, 10]])
+    img = smooth(rng, 21, 27)
+    out["sun_8bit_gray.ppm"] = sun(gray(img), 27, 8)
+    idx, spal = palette_of(smooth(rng, 24, 31), 200)
+    out["sun_8bit_map.ppm"] = sun(idx, 31, 8,
+                                  cmap=spal)
+    img = smooth(rng, 23, 25)  # an odd width: rows padded to 16 bits
+    out["sun_24bit.ppm"] = sun(img[:, :, ::-1].reshape(23, -1), 25, 24)
+    img = smooth(rng, 20, 26)
+    out["sun_24bit_old.ppm"] = sun(img[:, :, ::-1].reshape(20, -1), 26, 24,
+                                   ras_type=0)
+    xbgr = np.concatenate([np.full((22, 21, 1), 255, np.uint8),
+                           smooth(rng, 22, 21)[:, :, ::-1]], 2)
+    out["sun_32bit.ppm"] = sun(xbgr.reshape(22, -1), 21, 32)
+    return out
+
+
+def gif_sun_skip_cases(rng):
+    """{name: bytes} of GIF and Sun raster files cv2.imread gives None
+    for."""
+    out = {}
+    idx, pal = palette_of(smooth(rng, 22, 28), 32)
+    whole = gif(28, 22, [gif_frame(idx)], pal)
+    out["gif_cut.png"] = whole[:len(whole) * 6 // 10]
+    out["gif_no_trailer.png"] = whole[:-1]  # PIL reads it
+    codes = lzw_codes(idx.reshape(-1), 5)
+    head = b"," + struct.pack("<HHHHB", 0, 0, 28, 22, 0) + b"\x05"
+    out["gif_bad_lzw.png"] = gif(28, 22, [head + sub_blocks(pack_codes(
+        codes[:10] + [(63, codes[10][1])] + codes[10:]))], pal)  # past the table
+    half = len(codes) // 2
+    out["gif_early_end.png"] = gif(28, 22, [head + sub_blocks(pack_codes(
+        codes[:half] + [(33, codes[half][1])]))], pal)
+    out["gif_frame_outside.png"] = gif(20, 16, [gif_frame(idx)], pal)
+    out["gif_disposal7.png"] = gif(28, 22, [gif_frame(idx, pre=gce(
+        disposal=7))], pal)
+
+    img = smooth(rng, 20, 23)
+    raw = sun(img[:, :, ::-1].reshape(20, -1), 23, 24)
+    out["sun_cut.ppm"] = raw[:len(raw) // 2]
+    runs = np.repeat(gray(smooth(rng, 21, 8)), 4, axis=1)
+    rle = sun(runs, 32, 8, ras_type=2)
+    out["sun_rle8.ppm"] = rle  # RT_BYTE_ENCODED: PIL reads it
+    out["sun_rle_cut.ppm"] = rle[:len(rle) * 7 // 10]
+    out["sun_rle8_map.ppm"] = sun(runs, 32, 8, ras_type=2,
+                                  cmap=palette_of(smooth(rng, 8, 8), 100)[1])
+    img = smooth(rng, 19, 24)
+    out["sun_rgb24.ppm"] = sun(img.reshape(19, -1), 24, 24, ras_type=3)
+    return out
+
+
+def pfm_hdr_cases(rng):
+    """{name: bytes} of the PFM and Radiance HDR files cv2.imread reads."""
+    out = {}
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    ok, enc = cv2.imencode(".pfm", f32(smooth(rng, 24, 30))[:, :, ::-1])
+    assert ok
+    out["pfm.png"] = enc.tobytes()  # cv2's writer: little endian, -1
+    out["pfm_big_endian.ppm"] = pfm(f32(smooth(rng, 16, 21)), b"1.0")
+    out["pfm_scale_half.png"] = pfm(f32(smooth(rng, 15, 19)) / 2, b"-0.5")
+    out["pfm_scale_3.ppm"] = pfm(f32(smooth(rng, 17, 18)) * 3, b"3")
+    img = f32(smooth(rng, 12, 14))
+    img[::2] = img[::2] * 40 + 256  # past 255, up to past 2^31
+    img[1, :4, 1] = [2.1e9, 2.2e9, 3e9, 1e30]
+    out["pfm_above_255.png"] = pfm(img)
+    img = f32(smooth(rng, 12, 13)) - 128
+    img[0, :4, 0] = [-0.5, -1e-30, -3e9, -0.0]
+    out["pfm_negative.png"] = pfm(img)
+    img = f32(smooth(rng, 11, 13))
+    img[::3, ::2] = np.nan
+    img[1::3, ::2] = np.inf
+    img[2::3, ::2] = -np.inf
+    out["pfm_nan_inf.png"] = pfm(img, b"1")
+    img = np.floor(f32(smooth(rng, 10, 16))) + 0.5  # ties: half to even
+    out["pfm_ties.png"] = pfm(img)
+    out["pfm_odd_header.png"] = pfm(  # any whitespace ends a field
+        f32(smooth(rng, 13, 15)), b"-1e0", (b"\n", b"\t", b"\r", b"\x0b"))
+
+    x = f32(smooth(rng, 24, 32)) / 255 * 1.5
+    ok, enc = cv2.imencode(".hdr", x[:, :, ::-1])  # run-length encoded
+    assert ok
+    out["hdr_rle.png"] = enc.tobytes()
+    x = f32(smooth(rng, 20, 26)) / 255
+    ok, enc = cv2.imencode(".hdr", x[:, :, ::-1], [
+        cv2.IMWRITE_HDR_COMPRESSION, cv2.IMWRITE_HDR_COMPRESSION_NONE])
+    assert ok
+    out["hdr_flat.png"] = enc.tobytes()
+    out["hdr_rgbe_signature.png"] = hdr(
+        rgbe(smooth(rng, 18, 24) / 255), b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n")
+    out["hdr_exposure.png"] = hdr(rgbe(smooth(rng, 16, 20) / 255), (
+        b"#?RADIANCE\n# made by hand\nGAMMA=2.2\nFORMAT=32-bit_rle_rgbe\n"
+        b"EXPOSURE=2.0\nPRIMARIES=0.64 0.33 0.3 0.6 0.15 0.06 0.3 0.33\n\n"))
+    out["hdr_narrow.png"] = hdr(rgbe(smooth(rng, 21, 6) / 255))  # flat
+    px = rgbe(smooth(rng, 14, 18) / 255)
+    px[3:9, 2:12, 3] = 0  # a zero exponent reads black whatever R, G, B
+    out["hdr_zero_exponent.png"] = hdr(px)
+    px = rgbe(smooth(rng, 14, 16) / 255 * 4)  # past 1: 255
+    px[::3, :, 3] = 152  # R, G or B past 128: past 2^31 after x 255, so 0
+    px[1::3, :8, 3] = 143
+    out["hdr_above_1.png"] = hdr(px)
+    px = rgbe(smooth(rng, 12, 20) / 255)
+    out["hdr_flat_fallback.png"] = hdr(px, rle_rows=5)
+    px = np.repeat(rgbe(smooth(rng, 4, 400) / 255)[:, ::3], 3, axis=1)[:, :400]
+    px[:, 60:200] = rgbe(smooth(rng, 4, 140) / 255)  # a 128-byte literal
+    px[:, 200:] = px[:, 200:201]  # a run of 127
+    out["hdr_runs.png"] = hdr(px)
+    return out
+
+
+def pfm_hdr_skip_cases(rng):
+    """{name: bytes} of PFM and Radiance HDR files cv2.imread gives None
+    for."""
+    out = {}
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    img = f32(smooth(rng, 18, 22))
+    out["pfm_gray.png"] = pfm(gray(img).astype(np.float32)
+                              + 0.7)  # PIL reads it: truncated
+    g = f32(smooth(rng, 17, 15))[:, :, 0] * 1.2 - 20  # < 0 and > 255
+    g[2, :5] = [np.nan, np.inf, -np.inf, 254.99, 0.5]
+    out["pfm_gray_big_endian.ppm"] = pfm(g, b"2")
+    whole = pfm(f32(smooth(rng, 16, 20))[:, :, 0])
+    out["pfm_gray_cut.png"] = whole[:len(whole) * 2 // 3]
+    whole = pfm(f32(smooth(rng, 15, 18)))
+    out["pfm_cut.png"] = whole[:len(whole) * 2 // 3]
+    out["pfm_scale_zero.png"] = pfm(f32(smooth(rng, 14, 16)), b"0")
+    out["pfm_no_line_feed.png"] = pfm(f32(smooth(rng, 12, 14)), b"-1",
+                                      (b" ", b" ", b"\n", b"\n"))
+
+    px = rgbe(smooth(rng, 16, 22) / 255)
+    whole = hdr(px)
+    out["hdr_cut.png"] = whole[:len(whole) * 2 // 3]
+    out["hdr_plus_y.png"] = hdr(px, res=b"+Y 16 +X 22\n")
+    out["hdr_x_first.png"] = hdr(px, res=b"+X 22 -Y 16\n")
+    out["hdr_xyze.png"] = hdr(px, b"#?RADIANCE\nFORMAT=32-bit_rle_xyze\n\n")
+    line = bytearray(hdr(px[:1], head=b"", res=b"\n")[1:])
+    line[4:6] = bytes([128 + 30, line[5]])  # a run past the channel's end
+    out["hdr_overrun.png"] = (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+                              b"-Y 16 +X 22\n" + bytes(line)
+                              + hdr(px[1:], head=b"", res=b"\n")[1:])
+    out["hdr_wrong_width.png"] = hdr(px, res=b"-Y 16 +X 21\n")
+    return out
+
+
+def tiff_cases(rng):
+    """{name: bytes} of TIFF files cv2.imread reads: Pillow's writer (no
+    compression, PackBits, LZW, deflate both ways; RGB, L, P; one strip or
+    many), cv2's (LZW with predictor 2), and files built here where
+    neither writer gives one (big endian, the IFD first, an 8-bit
+    ColorMap, old-style LZW codes, orientation 3, no StripByteCounts, an
+    LZW strip that breaks off, a wide strip image in a bucket of its
+    own)."""
+    out = {}
+    for comp, mode, ss in (("raw", "RGB", 200), ("packbits", "L", None),
+                           ("tiff_lzw", "P", None),
+                           ("tiff_adobe_deflate", "RGB", None),
+                           ("tiff_deflate", "L", 100), ("raw", "P", None),
+                           ("packbits", "RGB", 150), ("tiff_lzw", "RGB", 64)):
+        kw = {"compression": comp}
+        if ss:
+            kw["strip_size"] = ss
+        name = f"tiff_pil_{comp.replace('tiff_', '')}_{mode.lower()}"
+        out[name + ("_strips" if ss else "") + ".png"] = pil_tiff(
+            smooth(rng, 14 + len(out) % 4, 18), mode, **kw)
+    ok, enc = cv2.imencode(".tif", smooth(rng, 15, 19)[:, :, ::-1])
+    assert ok and enc[:4].tobytes() == b"II*\0"
+    out["tiff_cv2_lzw_predictor.ppm"] = enc.tobytes()
+    ok, enc = cv2.imencode(".tif", gray(smooth(rng, 13, 17)))
+    out["tiff_cv2_gray.ppm"] = enc.tobytes()
+    cmap = rng.integers(0, 65536, 768)
+    out["tiff_be_raw_rgb.bmp"] = tiff_file(smooth(rng, 14, 17), rps=4,
+                                           big=True)
+    out["tiff_be_lzw_gray_predictor.bmp"] = tiff_file(
+        gray(smooth(rng, 13, 16)), compression=5, predictor=2, rps=5,
+        big=True)
+    out["tiff_be_deflate_palette.bmp"] = tiff_file(
+        gray(smooth(rng, 12, 18)), photometric=3, cmap=cmap, compression=8,
+        rps=7, big=True, ifd_first=False)
+    out["tiff_ifd_first_packbits_rgb.png"] = tiff_file(
+        smooth(rng, 13, 19), compression=32773, rps=3)
+    out["tiff_ifd_first_deflate_predictor_rgb.png"] = tiff_file(
+        smooth(rng, 12, 15), compression=32946, predictor=2, rps=5)
+    out["tiff_colormap_8bit.png"] = tiff_file(  # no entry past 255
+        gray(smooth(rng, 14, 15)), photometric=3,
+        cmap=rng.integers(0, 256, 768), rps=6)
+    img = smooth(rng, 13, 17)
+    out["tiff_old_style_lzw.png"] = tiff_file(
+        img, compression=5, strips=[lzw(img.tobytes(), old=True)])
+    out["tiff_orientation_3.png"] = tiff_file(smooth(rng, 12, 16),
+                                              orientation=3, rps=5)
+    out["tiff_no_byte_counts.png"] = tiff_file(smooth(rng, 11, 14),
+                                               drop=(279,))
+    out["tiff_wide_lzw_gray_predictor.ppm"] = tiff_file(  # its own bucket
+        gray(smooth(rng, 22, 150)), compression=5, predictor=2, rps=8)
+    img = gray(smooth(rng, 14, 16))
+    broken = bytearray(lzw(img.tobytes()))
+    broken[len(broken) // 2:] = bytes(len(broken) - len(broken) // 2)
+    out["tiff_lzw_broken_strip.png"] = tiff_file(  # cv2 keeps what decoded
+        img, compression=5, strips=[bytes(broken)])
+    return out
+
+
+def tiff_skip_cases(rng):
+    """{name: bytes} of TIFF files cv2.imread gives None for: orientation
+    6 and 5 (PIL reads them rotated; a gray image of one uncompressed strip
+    PIL maps at the rotated size first), a strip byte count of 0 (PIL
+    reads the strips whole whatever their counts), a file cut in its
+    strips, predictor 3 on 8-bit samples."""
+    out = {}
+    out["tiff_orientation_6.png"] = tiff_file(smooth(rng, 12, 17),
+                                              orientation=6, rps=4)
+    out["tiff_orientation_5_gray.png"] = tiff_file(gray(smooth(rng, 11, 14)),
+                                                   orientation=5)
+    img = smooth(rng, 13, 15)
+    out["tiff_byte_count_0.png"] = tiff_file(img, rps=5,
+                                             tags={279: (4, [225, 0, 135])})
+    whole = tiff_file(smooth(rng, 14, 16), compression=32773, rps=4)
+    out["tiff_cut.png"] = whole[:len(whole) * 2 // 3]
+    out["tiff_predictor_3.png"] = tiff_file(smooth(rng, 12, 13),
+                                            compression=5, predictor=3)
+    return out
+
+
+def tiff2_cases(rng):
+    """{name: bytes} of the TIFF part 2a files cv2.imread reads: Pillow's
+    writer (modes 1, LA, RGBA, I;16), cv2's (16-bit RGB, RGBA), and files
+    built here: 1, 4 (palette) and 16-bit samples, MINISWHITE, SampleFormat
+    2, ExtraSamples 0, 1 and 2 and two extra samples, planar configuration
+    2, FillOrder 2, tiles (edge tiles, sizes that are no multiple of 16, a
+    tile larger than the image, 16-bit gray edge tiles that libtiff reads
+    askew), BigTIFF of both byte orders, and a square image of
+    orientation 6 (cv2 rotates it; one of any other shape gives None)."""
+    out = {}
+    img = np.asarray(Image.fromarray(smooth(np.random.default_rng(
+        TIFF_SEED + 1), 18, 21)).convert("L"), np.uint16) * 257
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "TIFF")  # mode I;16
+    out["tiff16_gray.png"] = buf.getvalue()
+    for name, mode in (("tiff_pil_1bit.png", "1"), ("tiff_pil_la.ppm", "LA")):
+        out[name] = pil_tiff(smooth(rng, 5, 6), mode)
+    buf = io.BytesIO()  # RGBA: unassociated alpha, which cv2 premultiplies
+    Image.fromarray(np.dstack([smooth(rng, 5, 6), rng.integers(
+        0, 256, (5, 6), np.uint8)]), "RGBA").save(buf, "TIFF")
+    out["tiff_pil_rgba.png"] = buf.getvalue()
+    wide = (smooth(rng, 5, 6).astype(np.uint16) * 257
+            + rng.integers(0, 257, (5, 6, 3))).astype(np.uint16)
+    ok, enc = cv2.imencode(".tif", wide[:, :, ::-1])  # LZW, predictor 2
+    assert ok
+    out["tiff_cv2_rgb16.ppm"] = enc.tobytes()
+    rgba = np.dstack([smooth(rng, 5, 6), rng.integers(0, 256, (5, 6), np.uint8)])
+    ok, enc = cv2.imencode(".tif", rgba[:, :, [2, 1, 0, 3]])  # no ExtraSamples
+    out["tiff_cv2_rgba.jpeg"] = enc.tobytes()
+    bits = (gray(smooth(rng, 6, 11)) > 128).astype(np.uint8)
+    out["tiff_1bit_miniswhite_packbits.bmp"] = tiff_file(
+        bits, bits=1, photometric=0, compression=32773, rps=4, big=True)
+    out["tiff_1bit_palette_lzw.png"] = tiff_file(
+        bits, bits=1, photometric=3, cmap=rng.integers(0, 65536, 6),
+        compression=5, fillorder=2)
+    out["tiff_4bit_palette.png"] = tiff_file(
+        gray(smooth(rng, 5, 7)) >> 4, bits=4, photometric=3,
+        cmap=rng.integers(0, 65536, 48), compression=8)
+    out["tiff_miniswhite_sampleformat_2.png"] = tiff_file(
+        gray(smooth(rng, 5, 6)), photometric=0, compression=8, predictor=2,
+        tags={339: (3, [2])})
+    out["tiff_miniswhite_16bit.bmp"] = tiff_file(
+        wide[:, :, 0], bits=16, photometric=0, big=True)
+    out["tiff_extra_0.png"] = tiff_file(
+        np.dstack([smooth(rng, 5, 6), rng.integers(0, 256, (5, 6))]),
+        extra=[0], compression=32773)
+    out["tiff_extra_1_16bit.png"] = tiff_file(
+        np.dstack([wide, wide[:, :, 1]]), bits=16, extra=[1],
+        compression=5, predictor=2)
+    out["tiff_extra_2_16bit.bmp"] = tiff_file(
+        np.dstack([wide, wide[:, :, 2]]), bits=16, extra=[2], big=True)
+    out["tiff_gray_two_extra.png"] = tiff_file(
+        np.dstack([gray(smooth(rng, 5, 6))] + [rng.integers(0, 256, (5, 6))] * 2),
+        photometric=1, extra=[2, 0])
+    out["tiff_planar2_gray.png"] = tiff_file(gray(smooth(rng, 5, 6)), planar=2)
+    out["tiff_planar2_rgba_tiles.png"] = tiff_file(
+        np.dstack([smooth(rng, 5, 17), rng.integers(0, 256, (5, 17))]),
+        planar=2, extra=[2], tile=(16, 8), compression=5, predictor=2)
+    out["tiff_fillorder2_gray.png"] = tiff_file(gray(smooth(rng, 5, 6)),
+                                                fillorder=2)
+    out["tiff_tiles_odd_width.png"] = tiff_file(
+        gray(smooth(rng, 9, 13)), tile=(10, 6), compression=8)
+    out["tiff_tile_larger_than_image.ppm"] = tiff_file(
+        smooth(rng, 5, 6), tile=(32, 16), compression=8)
+    out["tiff_tiles_16bit_gray.png"] = tiff_file(  # libtiff's edge skew
+        (gray(smooth(rng, 5, 19)).astype(np.uint16) * 251), bits=16,
+        tile=(16, 8), compression=8)
+    out["tiff_bigtiff_lzw.png"] = tiff_file(
+        smooth(rng, 5, 6), bigtiff=True, compression=5, rps=3)
+    out["tiff_bigtiff_be_tiles.bmp"] = tiff_file(
+        gray(smooth(rng, 5, 17)), bigtiff=True, big=True, tile=(16, 8),
+        compression=32773)
+    out["tiff_orientation_6_square.png"] = tiff_file(
+        smooth(rng, 5, 5), orientation=6, tile=(16, 16), compression=8)
+    return out
+
+
+def tiff2_skip_cases(rng):
+    """{name: bytes} of TIFF part 2a files cv2.imread gives None for: 2 and
+    4-bit gray and 2-bit palette samples (PIL reads them), unassociated
+    alpha of orientation 6 (PIL reads it rotated, alpha dropped), FillOrder
+    2 on uncompressed tiles (libtiff refuses a raw buffer of another size
+    than the tile), a TileByteCounts shorter than the tiles (PIL reads
+    every tile whole), a BigTIFF of orientation 5 and planar 16-bit gray of
+    orientation 8."""
+    out = {}
+    out["tiff_2bit_gray.png"] = tiff_file(gray(smooth(rng, 5, 6)) >> 6, bits=2)
+    out["tiff_4bit_gray_fillorder2.png"] = tiff_file(
+        gray(smooth(rng, 5, 6)) >> 4, bits=4, fillorder=2, compression=5)
+    out["tiff_2bit_palette.png"] = tiff_file(
+        gray(smooth(rng, 5, 6)) >> 6, bits=2, photometric=3,
+        cmap=rng.integers(0, 65536, 12))
+    out["tiff_orientation_6_rgba.png"] = tiff_file(
+        np.dstack([smooth(rng, 5, 6), rng.integers(0, 256, (5, 6))]),
+        extra=[2], orientation=6)
+    out["tiff_fillorder2_raw_tiles.png"] = tiff_file(
+        gray(smooth(rng, 5, 17)), tile=(16, 8), fillorder=2)
+    out["tiff_tiles_short_byte_counts.png"] = tiff_file(
+        gray(smooth(rng, 5, 17)), tile=(16, 8), tags={325: (4, [128])})
+    out["tiff_bigtiff_orientation_5.png"] = tiff_file(
+        smooth(rng, 5, 6), bigtiff=True, orientation=5, compression=8)
+    out["tiff_planar2_16bit_orientation_8.png"] = tiff_file(
+        gray(smooth(rng, 5, 6)).astype(np.uint16) * 300, bits=16, planar=2,
+        orientation=8, compression=32773)
+    return out
+
+
+def tiff2b_cases(rng):
+    """TIFF part 2b, each read by cv2: CMYK (Pillow's, and 4 separate
+    planes with K), YCbCr (Pillow's, and libtiff's packed blocks at every
+    subsampling its reader puts: 2 x 1, 2 x 2, 4 x 1, 4 x 2, 4 x 4 on a
+    width of odd blocks, 1 x 2; tiles with ReferenceBlackWhite and Rec. 709
+    coefficients; separate planes), JPEG (Pillow's RGB, gray, YCbCr and
+    tiled CMYK with JPEGTables; whole cv2 streams at 4:2:0 in strips, 4:2:2
+    in tiles, and 4:4:4 without the subsampling tag), an unknown
+    compression (zeros), and CIELAB of 8 and 16 bits (Pillow's LAB writer
+    goes through LittleCMS, whose bytes differ from run to run)."""
+    out = {}
+    out["tiff_cmyk_pil_lzw.png"] = pil_tiff(smooth(rng, 6, 7), "CMYK",
+                                            compression="tiff_lzw")
+    out["tiff_cmyk_k_planar.bmp"] = tiff_file(
+        rng.integers(0, 256, (5, 6, 4)), photometric=5, planar=2,
+        compression=32773)
+    out["tiff_ycbcr_pil.png"] = pil_tiff(smooth(rng, 5, 6), "YCbCr")
+    for name, size, kw in (
+            ("21.png", (7, 9), {"ycc": (2, 1), "rps": 3}),
+            ("22_lzw.ppm", (9, 11), {"ycc": (2, 2), "rps": 4, "compression": 5}),
+            ("41_deflate.png", (6, 13), {"ycc": (4, 1), "compression": 8}),
+            ("42.bmp", (7, 10), {"ycc": (4, 2), "rps": 4}),
+            ("44_odd.png", (9, 9), {"ycc": (4, 4), "rps": 8}),
+            ("12_packbits.png", (7, 6), {"ycc": (1, 2), "compression": 32773}),
+            ("tiles_refbw.png", (16, 20), {
+                "ycc": (2, 2), "tile": (16, 16), "compression": 8,
+                "tags": {532: (5, [16, 235, 128, 240, 128, 240]),
+                         529: (5, [0.2126, 0.7152, 0.0722])}}),
+            ("planar.png", (5, 7), {"photometric": 6, "planar": 2,
+                                    "tags": {530: (3, [1, 1])}})):
+        out["tiff_ycbcr_" + name] = tiff_file(
+            rng.integers(0, 256, size + (3,)), **kw)
+    out["tiff_jpeg.png"] = pil_tiff(smooth(np.random.default_rng(
+        TIFF2_SEED + 1), 16, 16), "RGB", compression="jpeg")
+    out["tiff_jpeg_pil_gray.ppm"] = pil_tiff(smooth(rng, 8, 16), "L",
+                                             compression="jpeg")
+    out["tiff_jpeg_pil_ycbcr.png"] = pil_tiff(smooth(rng, 16, 16), "YCbCr",
+                                              compression="jpeg")
+    out["tiff_jpeg_cmyk_tile.bmp"] = tiff_file(
+        np.dstack([smooth(rng, 16, 16), smooth(rng, 16, 16)[:, :, :1]]),
+        photometric=5, tile=(16, 16), jpeg=jpeg_stream)
+    out["tiff_jpeg_420.png"] = tiff_file(
+        smooth(rng, 20, 16), photometric=6, rps=16,
+        jpeg=lambda b: jpeg_stream(b, (2, 2)), tags={530: (3, [2, 2])})
+    out["tiff_jpeg_422_tiles.png"] = tiff_file(
+        smooth(rng, 16, 20), photometric=6, tile=(16, 16),
+        jpeg=lambda b: jpeg_stream(b, (2, 1)), tags={530: (3, [2, 1])})
+    out["tiff_jpeg_444_no_tag.ppm"] = tiff_file(
+        smooth(rng, 10, 12), photometric=6,
+        jpeg=lambda b: jpeg_stream(b, (1, 1)))
+    out["tiff_unknown_compression.png"] = tiff_file(
+        smooth(rng, 4, 5), tags={259: (3, [99])})
+    out["tiff_cielab.png"] = tiff_file(rng.integers(0, 256, (6, 7, 3)),
+                                       photometric=8, compression=5)
+    out["tiff_cielab16.bmp"] = tiff_file(rng.integers(0, 65536, (4, 5, 3)),
+                                         photometric=8, bits=16)
+    return out
+
+
+def tiff2b_skip_cases(rng):
+    """TIFF part 2b files cv2.imread gives None for: orientations 6, 5 and
+    7 of a non-square image (PIL reads LZW YCbCr through libtiff's RGBA
+    reader, a raw CMYK strip mapped at the rotated size, JPEG YCbCr as
+    RGB); a 4:2:0 stream under photometric RGB and a 2 x 4 subsampling,
+    which neither reads."""
+    out = {}
+    out["tiff_ycbcr_lzw_orientation_6.png"] = tiff_file(
+        rng.integers(0, 256, (6, 9, 3)), ycc=(2, 2), compression=5,
+        orientation=6)
+    out["tiff_cmyk_orientation_5.png"] = tiff_file(
+        rng.integers(0, 256, (6, 8, 4)), photometric=5, orientation=5)
+    out["tiff_jpeg_orientation_7.png"] = tiff_file(
+        smooth(rng, 16, 24), photometric=6, orientation=7,
+        jpeg=lambda b: jpeg_stream(b, (2, 2)), tags={530: (3, [2, 2])})
+    out["tiff_jpeg_rgb_420.png"] = tiff_file(
+        smooth(rng, 16, 16), photometric=2,
+        jpeg=lambda b: jpeg_stream(b, (2, 2)))
+    out["tiff_ycbcr_24.png"] = tiff_file(rng.integers(0, 256, (8, 6, 3)),
+                                         ycc=(2, 4))
+    return out

@@ -8,12 +8,13 @@ needed; a smooth random image to fill them."""
 import io
 import struct
 import zlib
+from fractions import Fraction
 
 import cv2
 import numpy as np
 from PIL import Image
 
-__all__ = ['smooth', 'gray', 'pnm_ascii', 'pam', 'bmp', 'info40', 'rows_bgr', 'rows16', 'palette_of', 'rle_row', 'rle', 'lzw_codes', 'pack_codes', 'sub_blocks', 'colour_table', 'gce', 'gif_frame', 'gif', 'sun_rle', 'sun', 'pfm', 'rgbe', 'hdr_channel', 'hdr', 'bmp_palette', 'chunk', 'png_chunks', 'png_encode', 'png_with', 'flip_crc', 'idat_stream', 'packbits', 'lzw', 'pack_rows', 'reverse_bits', 'tiff_file', 'pil_tiff']
+__all__ = ['smooth', 'gray', 'pnm_ascii', 'pam', 'bmp', 'info40', 'rows_bgr', 'rows16', 'palette_of', 'rle_row', 'rle', 'lzw_codes', 'pack_codes', 'sub_blocks', 'colour_table', 'gce', 'gif_frame', 'gif', 'sun_rle', 'sun', 'pfm', 'rgbe', 'hdr_channel', 'hdr', 'bmp_palette', 'chunk', 'png_chunks', 'png_encode', 'png_with', 'flip_crc', 'idat_stream', 'packbits', 'lzw', 'pack_rows', 'reverse_bits', 'ycc_blocks', 'jpeg_stream', 'tiff_file', 'pil_tiff']
 
 
 def smooth(rng, h, w):
@@ -492,10 +493,53 @@ def reverse_bits(data):
     return bytes(data).translate(table)
 
 
+def ycc_blocks(block, hs, vs):
+    """libtiff's packed YCbCr of ``block`` ([n, cols, 3] Y, Cb, Cr): for
+    each hs x vs block, left to right then down, its Y samples row by row,
+    then the Cb and Cr of its top-left sample; rows and columns past the
+    block's repeat its last ones."""
+    n, cols = block.shape[:2]
+    rows = -(-n // vs) * vs
+    width = -(-cols // hs) * hs
+    idx_r = np.minimum(np.arange(rows), n - 1)
+    idx_c = np.minimum(np.arange(width), cols - 1)
+    b = block[idx_r][:, idx_c].astype(np.uint8)
+    y = b[:, :, 0].reshape(rows // vs, vs, width // hs, hs).transpose(0, 2, 1, 3)
+    y = y.reshape(rows // vs, width // hs, vs * hs)
+    c = b[::vs, ::hs, 1:]
+    return np.concatenate([y, c], axis=2).tobytes()
+
+
+def jpeg_stream(block, sampling=(2, 2), quality=95):
+    """cv2's JPEG of ``block`` ([n, cols, 3] RGB, or [n, cols] gray) with the
+    given luma sampling (cv2's IMWRITE_JPEG_SAMPLING_FACTOR); of [n, cols,
+    4] CMYK, Pillow's; whole from SOI to EOI."""
+    if block.ndim == 3 and block.shape[2] == 4:  # Pillow's CMYK, as stored
+        buf = io.BytesIO()
+        Image.frombytes("CMYK", block.shape[1::-1],
+                        np.ascontiguousarray(block, np.uint8).tobytes()).save(
+            buf, "JPEG", quality=quality)
+        return buf.getvalue()
+    if block.ndim == 2 or block.shape[2] == 1:
+        ok, enc = cv2.imencode(".jpg", block.reshape(block.shape[:2]),
+                               [cv2.IMWRITE_JPEG_QUALITY, quality])
+        return enc.tobytes()
+    factor = {(1, 1): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+              (2, 1): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+              (2, 2): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+              (1, 2): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+              (4, 1): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}[sampling]
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality,
+              cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor]
+    ok, enc = cv2.imencode(".jpg", np.ascontiguousarray(block[:, :, ::-1]),
+                           params)
+    return enc.tobytes()
+
+
 def tiff_file(img, photometric=None, compression=1, rps=None, predictor=1,
               cmap=None, orientation=None, big=False, ifd_first=True,
               tags=None, drop=(), strips=None, bits=8, planar=1, tile=None,
-              bigtiff=False, fillorder=1, extra=None):
+              bigtiff=False, fillorder=1, extra=None, ycc=None, jpeg=None):
     """A TIFF of ``img`` ([h, w] gray or palette indices, or [h, w, spp]
     samples; uint16 for ``bits=16``): one IFD of SHORT and LONG tags in
     ascending order (LONG8 offsets and counts in a ``bigtiff``), its values
@@ -508,7 +552,10 @@ def tiff_file(img, photometric=None, compression=1, rps=None, predictor=1,
     (``ifd_first``) or before them; ``big`` a big-endian file, ``extra``
     the ExtraSamples values, ``tags`` {tag: (type, values)} added or
     replaced, ``drop`` tags left out, ``strips`` the strips' or tiles'
-    bytes in place of the encoded ones."""
+    bytes in place of the encoded ones. ``ycc`` = (hs, vs): ``img`` holds
+    Y, Cb, Cr, packed in sampling blocks (``ycc_blocks``) with photometric
+    6 and the YCbCrSubsampling tag. ``jpeg``: a function of each strip's
+    or tile's block that gives its JPEG stream (compression 7)."""
     e = ">" if big else "<"
     img = np.asarray(img).astype(np.uint16 if bits == 16 else np.uint8)
     h, w = img.shape[:2]
@@ -524,8 +571,13 @@ def tiff_file(img, photometric=None, compression=1, rps=None, predictor=1,
             d = block.astype(np.int64)
             d[:, 1:] -= d[:, :-1].copy()
             block = d & ((1 << bits) - 1)
+        if jpeg is not None:
+            return jpeg(block)
         rows = pack_rows(block.reshape(n, cols * c), bits, e)
         raw = b"".join(rows)
+        if ycc is not None:
+            raw = ycc_blocks(block, *ycc)
+            rows = [raw]
         data = (raw if compression == 1 else
                 b"".join(packbits(r) for r in rows) if compression == 32773
                 else lzw(raw) if compression == 5 else zlib.compress(raw))
@@ -568,12 +620,26 @@ def tiff_file(img, photometric=None, compression=1, rps=None, predictor=1,
         entries[266] = (3, [fillorder])
     if extra is not None:
         entries[338] = (3, list(extra))
+    if ycc is not None:
+        entries[262], entries[530] = (3, [6]), (3, list(ycc))
+    if jpeg is not None:
+        entries[259] = (3, [7])
     entries.update(tags or {})
     for t in drop:
         entries.pop(t, None)
     count, inline, head_size = ("Q", 8, 16) if bigtiff else ("H", 4, 8)
     word = "Q" if bigtiff else "I"
-    chars = {1: "B", 3: "H", 4: "I", 16: "Q"}
+    chars = {1: "B", 3: "H", 4: "I", 16: "Q", 5: "II", 10: "ii", 11: "f",
+             12: "d", 7: "B"}
+
+    def numbers(typ, v):  # rationals as (numerator, denominator) pairs
+        if typ not in (5, 10):
+            return list(v)
+        out = []
+        for x in v:
+            f = x if isinstance(x, tuple) else Fraction(x).limit_denominator(1 << 16)
+            out += list(f) if isinstance(f, tuple) else [f.numerator, f.denominator]
+        return out
 
     def ifd(at, strip_at):
         ents = sorted(entries.items())
@@ -584,7 +650,7 @@ def tiff_file(img, photometric=None, compression=1, rps=None, predictor=1,
         for tag, (typ, v) in ents:
             if tag == offsets_tag:
                 v = [int(o) for o in offsets[:len(v)]]
-            raw = struct.pack(e + chars[typ] * len(v), *v)
+            raw = struct.pack(e + chars[typ] * len(v), *numbers(typ, v))
             if len(raw) <= inline:
                 body += (struct.pack(e + "HH" + word, tag, typ, len(v))
                          + raw.ljust(inline, b"\0"))

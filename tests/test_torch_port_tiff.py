@@ -1,17 +1,19 @@
-"""TIFF (C7, TIFF parts 1 and 2a): classic TIFF and BigTIFF, the first
+"""TIFF (C7, TIFF parts 1, 2a and 2b): classic TIFF and BigTIFF, the first
 IFD, strips or tiles of gray (1, 2, 4, 8, 16 bits, MINISBLACK or
 MINISWHITE), RGB (8, 16 bits) or palette (1, 2, 4, 8 bits) samples with any
-extra samples, either planar configuration and fill order, uncompressed,
-PackBits, LZW (old-style codes too) or deflate, with or without the
-horizontal predictor, read by the port as the reference reads it
+extra samples, CMYK (8 bits), YCbCr (8 bits, every subsampling libtiff's
+RGBA reader puts) or CIELAB (8, 16 bits), either planar configuration and
+fill order, uncompressed, PackBits, LZW (old-style codes too), deflate or
+JPEG, with or without the horizontal predictor, or a compression that
+names no codec (zeros), read by the port as the reference reads it
 (cv2.imread, else PIL's convert("RGB")), against cv2, PIL and tsr_tpu on
 the CPU:
 
 - every TIFF fixture of tests/data/images (Pillow's and cv2's writers, and
   files built by image_writers.tiff_file: big endian, the IFD first, an
   8-bit ColorMap, old-style LZW, orientation 3, no StripByteCounts, an LZW
-  strip that breaks off; the part 2a layouts) decodes equal to cv2.imread,
-  max diff 0;
+  strip that breaks off; the part 2a and 2b layouts) decodes equal to
+  cv2.imread, max diff 0;
 - orientations 1-8: cv2 flips 2-4 and gives None for 5-8 but of a square
   image, which it transposes; PIL reads them rotated (a raw image of one
   tile in a mode Pillow maps from the file: at the rotated size first);
@@ -19,13 +21,14 @@ the CPU:
   the IFD, the strip or tile table and the compressed data:
   probe(reader="cv2") gives (0, 0) exactly where cv2.imread gives None, and
   decode equals cv2, else PIL, else raises; a mutation that makes a layout
-  the port does not decode (TIFF part 2b: CMYK, YCbCr, another compression,
-  Pillow's 32-bit and float modes, as Pillow or libtiff parse the IFD)
-  raises naming TIFF;
+  the port does not decode (TIFF part 2c: CCITT, NeXT, ThunderScan, SGILog
+  and Pillow's other compressions, Pillow's 32-bit, float and LAB modes,
+  as Pillow or libtiff parse the IFD) raises naming TIFF;
 - libtiff's 16 to 8-bit rules (gray v >> 8, RGB (v + 128) // 257) over
   every value, and its premultiplying of unassociated alpha at every
-  (value, alpha) pair;
-- the layouts of TIFF part 2b raise naming TIFF and probe (0, 0);
+  (value, alpha) pair; its CMYK, YCbCr and CIELAB conversions over tables
+  of values; the Compression tag's three sets of numbers;
+- the layouts of TIFF part 2c raise naming TIFF and probe (0, 0);
 - load_canvas, both probes and generate_tree through both packages.
 
 Max diff 0 throughout.
@@ -108,19 +111,22 @@ def _ifd(data):
         return None
 
 
-PART1_COMPRESSIONS = (1, 5, 8, 32773, 32946)
-DECODED_MODES = ("1", "L", "LA", "P", "PA", "I;16", "I;16B", "RGB", "RGBA")
+DECODED_COMPRESSIONS = (1, 5, 7, 8, 32773, 32946)
+# libtiff's codecs that cv2's build has and the port does not decode
+PART2C_CODECS = (2, 3, 4, 32766, 32771, 32809, 34676, 34677)
+DECODED_MODES = ("1", "L", "LA", "P", "PA", "I;16", "I;16B", "RGB", "RGBA",
+                 "CMYK")
 
 
 def _part2(data):
     """True where the first IFD shows a layout the port does not decode
-    (TIFF part 2b): as Pillow parses it (the last of duplicate tags), a mode
-    of Pillow's other than 1, L, LA, P, PA, I;16 and RGB(A), or 12-bit
-    samples, or another compression; or as libtiff parses it (the first of
-    duplicates), another compression or a Photometric past palette."""
+    (TIFF part 2c): as Pillow parses it (the last of duplicate tags), a mode
+    of Pillow's other than 1, L, LA, P, PA, I;16, RGB(A) and CMYK, or
+    12-bit samples, or a compression other than part 1's and JPEG; or as
+    libtiff parses it (the first of duplicates), CCITT, NeXT, ThunderScan
+    or SGILog."""
     first = _ifd(data) or {}
-    if (first.get(259, (3, (1,)))[1][0] not in PART1_COMPRESSIONS
-            or first.get(262, (3, (1,)))[1][0] > 3):
+    if first.get(259, (3, (1,)))[1][0] in PART2C_CODECS:
         return True
     try:
         f = io.BytesIO(data)
@@ -133,7 +139,7 @@ def _part2(data):
     except Exception:
         return False
     get = ifd.get
-    if get(259, 1) not in PART1_COMPRESSIONS:
+    if get(259, 1) not in DECODED_COMPRESSIONS:
         return True
     sf, bps = get(339, (1,)), get(258, (1,))
     sf = sf if isinstance(sf, tuple) else (sf,)
@@ -153,11 +159,90 @@ def _part2(data):
                                  or mode[1] == "I;12")
 
 
+def _jpeg_rows(stream):
+    """(rows, columns) of the first frame of a JPEG stream, or None."""
+    for m in (b"\xff\xc0", b"\xff\xc1", b"\xff\xc2", b"\xff\xc3",
+              b"\xff\xc9", b"\xff\xca"):
+        at = stream.find(m)
+        if at >= 0 and len(stream) >= at + 9:
+            return struct.unpack(">HH", stream[at + 5:at + 9])
+    return None
+
+
+def _ifd_values(data, tag, limit):
+    """The first ``limit`` integer values of ``tag`` in the first IFD, as
+    libtiff reads a strip or tile table (however many the entry's count
+    claims), or ()."""
+    e = ">" if data[:2] == b"MM" else "<"
+    big = data[2:4] in (b"+\0", b"\0+")
+    word, entry, head = ("Q", 20, 8) if big else ("I", 12, 2)
+    fmt = {3: "H", 4: "I", 16: "Q"}
+    try:
+        at = struct.unpack(e + word, data[8:16] if big else data[4:8])[0]
+        n = struct.unpack(e + ("Q" if big else "H"), data[at:at + head])[0]
+        for k in range(min(n, 4096)):
+            pos = at + head + entry * k
+            t, typ = struct.unpack(e + "HH", data[pos:pos + 4])
+            if t != tag:
+                continue
+            if typ not in fmt:
+                return ()
+            wide = struct.calcsize(word)
+            count = struct.unpack(e + word, data[pos + 4:pos + 4 + wide])[0]
+            size = struct.calcsize(fmt[typ])
+            field = pos + 4 + wide
+            if count * size > wide:
+                field = struct.unpack(e + word, data[field:field + wide])[0]
+            count = min(count, limit)
+            raw = data[field:field + count * size]
+            return struct.unpack(e + fmt[typ] * (len(raw) // size), raw)
+    except (struct.error, ValueError):
+        pass
+    return ()
+
+
+def _pil_reads_unwritten(data):
+    """True where a JPEG strip's or tile's frame has fewer rows or columns
+    than Pillow unpacks of the strip or tile it stands for: Pillow decodes
+    it into a buffer it does not zero, so its pixels there are whatever
+    memory held, which no reader can give again (the port refuses such a
+    file)."""
+    ifd = _ifd(data) or {}
+
+    def first(tag, default):
+        values = ifd.get(tag, (0, ()))[1]
+        return values[0] if values else default
+
+    w, h = first(256, 0), first(257, 0)
+    if first(259, 1) != 7 or not w or not h:
+        return False
+    tiled = 322 in ifd
+    tw = first(322, 0) if tiled else w
+    th = first(323, 0) if tiled else first(278, h)
+    if not tw or not th:
+        return False
+    across = -(-w // tw) if tiled else 1
+    chunks = across * -(-h // th) * (first(277, 1) if first(284, 1) == 2
+                                     else 1)
+    offsets = _ifd_values(data, 324 if tiled else 273, chunks)
+    counts = _ifd_values(data, 325 if tiled else 279, chunks) or [
+        len(data)] * len(offsets)  # estimated: to the end of the file
+    for i, (o, c) in enumerate(zip(offsets, counts)):
+        frame = _jpeg_rows(data[o:o + c])
+        if frame is None:
+            continue
+        k = i % (across * -(-h // th))
+        y, x = k // across * th, k % across * tw
+        if frame[0] < min(th, h - y) or frame[1] < min(tw, w - x):
+            return True
+    return False
+
+
 def _reads_as_reference(path):
     """probe(reader="cv2") is cv2's (h, w), (0, 0) where cv2 gives None or
     raises (and marked where it raises); decode equals cv2, else PIL, max
     diff 0, else raises; where the port raises naming TIFF, the layout is
-    one of TIFF part 2. Returns the reader."""
+    one of TIFF part 2c. Returns the reader."""
     data = Path(path).read_bytes()
     reader, want = _reference(path)
     (dims,), (raised,) = native.probe([str(path)], reader="cv2", raises=True)
@@ -166,15 +251,17 @@ def _reads_as_reference(path):
     except RuntimeError as e:
         got, err = None, str(e)
     if "holds TIFF data" in err:  # raising, as the reference does, or
-        assert dims.tolist() == [0, 0] and not raised  # on a part 2b layout
+        assert dims.tolist() == [0, 0] and not raised  # on a part 2c layout
         assert reader == "none" or _part2(data), (reader, path)
-        return "tiff part 2b"
+        return "tiff part 2c"
     assert dims.tolist() == (list(want.shape[:2]) if reader == "cv2"
                              else [0, 0]), (reader, path)
     assert bool(raised) == (reader == "raise")
     if want is None:
         assert got is None, path
         return reader
+    if got is None and reader == "pil" and _pil_reads_unwritten(data):
+        return "pil, unwritten memory"
     assert got is not None, (reader, err)
     np.testing.assert_array_equal(got, want, err_msg=str(path))
     return reader
@@ -209,9 +296,12 @@ def test_fixtures_cover_the_layouts():
     gray, MINISWHITE, RGB and palette, samples of 1, 4, 8 and 16 bits,
     SampleFormat 2, ExtraSamples 0, 1 and 2 and two extra samples, planar
     configuration 2, FillOrder 2, one strip and many, tiles (a size no
-    multiple of 16, one larger than the image), the IFD first and last, and
-    the rules where PIL's pixels differ from cv2's (an 8-bit ColorMap,
-    16-bit samples, unassociated alpha)."""
+    multiple of 16, one larger than the image), the IFD first and last;
+    CMYK, YCbCr at each subsampling libtiff's reader puts, CIELAB, JPEG
+    compression of gray, RGB, YCbCr and CMYK data in strips and tiles, a
+    compression that names no codec; and the rules where PIL's pixels
+    differ from cv2's (an 8-bit ColorMap, 16-bit samples, unassociated
+    alpha, CMYK with K, CIELAB)."""
     seen = set()
     for name in TIFFS:
         data = (FIXTURES / name).read_bytes()
@@ -235,6 +325,10 @@ def test_fixtures_cover_the_layouts():
             seen |= {("tile_not_16", ifd[322][0] % 16 != 0 or ifd[323][0] % 16 != 0),
                      ("tile_past_image", ifd[322][0] > ifd[256][0]
                       and ifd[323][0] > ifd[257][0])}
+        if ifd[262][0] == 6 and ifd[259][0] != 7:
+            seen.add(("subsampling", ifd.get(530, (2, 2))))
+        if ifd[259][0] == 7:
+            seen.add(("jpeg", ifd[262][0], 322 in ifd))
     for key in (("order", b"II"), ("order", b"MM"), ("bigtiff", b"II", True),
                 ("bigtiff", b"MM", True), ("compression", 1),
                 ("compression", 5), ("compression", 8),
@@ -246,11 +340,19 @@ def test_fixtures_cover_the_layouts():
                 ("extra", (2, 0)), ("planar", 2), ("fillorder", 2),
                 ("tiles", True), ("tiles", False), ("chunks", True),
                 ("chunks", False), ("ifd_first", True), ("ifd_first", False),
-                ("tile_not_16", True), ("tile_past_image", True)):
+                ("tile_not_16", True), ("tile_past_image", True),
+                ("photometric", 5), ("photometric", 6), ("photometric", 8),
+                ("compression", 7), ("compression", 99),
+                ("subsampling", (1, 1)), ("subsampling", (2, 1)),
+                ("subsampling", (2, 2)), ("subsampling", (4, 1)),
+                ("subsampling", (4, 2)), ("subsampling", (4, 4)),
+                ("subsampling", (1, 2)), ("jpeg", 1, False), ("jpeg", 2, False),
+                ("jpeg", 6, False), ("jpeg", 6, True), ("jpeg", 5, True)):
         assert key in seen, key
     for name in ("tiff_colormap_8bit.png", "tiff16_gray.png",
                  "tiff_cv2_rgb16.ppm", "tiff_pil_rgba.png",
-                 "tiff_tiles_16bit_gray.png"):
+                 "tiff_tiles_16bit_gray.png", "tiff_cmyk_k_planar.bmp",
+                 "tiff_cielab.png"):
         p = FIXTURES / name
         pil = np.asarray(Image.open(p).convert("RGB"))
         assert not np.array_equal(pil, native.decode(str(p))), name
@@ -322,7 +424,9 @@ CUT_FILES = ("tiff_be_raw_rgb.bmp", "tiff_be_lzw_gray_predictor.bmp",
              "tiff_ifd_first_deflate_predictor_rgb.png",
              "tiff_colormap_8bit.png", "tiff_old_style_lzw.png",
              "tiff_orientation_3.png", "skip/tiff_orientation_6.png",
-             "tiff_tiles_odd_width.png", "tiff_bigtiff_lzw.png")
+             "tiff_tiles_odd_width.png", "tiff_bigtiff_lzw.png",
+             "tiff_jpeg_420.png", "tiff_jpeg_pil_ycbcr.png",
+             "tiff_ycbcr_22_lzw.ppm", "tiff_cmyk_k_planar.bmp")
 
 
 @pytest.mark.parametrize("name", CUT_FILES)
@@ -441,6 +545,26 @@ def test_mutated_tiles_and_bigtiff_read_as_reference(tmp_path, where, seed):
 
 
 @pytest.mark.parametrize("where", ["ifd", "strip table", "strips"])
+@pytest.mark.parametrize("seed", range(2))
+def test_mutated_ycbcr_and_jpeg_read_as_reference(tmp_path, where, seed):
+    """60 files a seed and region from a JPEG-compressed YCbCr 4:2:0 file
+    (whole streams a strip), Pillow's JPEG YCbCr file (a JPEGTables tag and
+    abbreviated streams) and subsampled YCbCr (2 x 2 blocks, LZW), each
+    with its IFD (the subsampling, the tables), its strip table or its
+    streams and blocks mutated: the port's probe and decode read each as
+    the reference does."""
+    rng = np.random.default_rng(4200 + 10 * seed + ["ifd", "strip table",
+                                                    "strips"].index(where))
+    p = tmp_path / "m.png"
+    seeds = [FIXTURES / "tiff_jpeg_420.png",
+             FIXTURES / "tiff_jpeg_pil_ycbcr.png",
+             FIXTURES / "tiff_ycbcr_22_lzw.ppm"]
+    for data in _mutations(rng, seeds, 60, _spans(where)):
+        p.write_bytes(data)
+        _reads_as_reference(p)
+
+
+@pytest.mark.parametrize("where", ["ifd", "strip table", "strips"])
 @pytest.mark.parametrize("seed", range(4))
 def test_mutated_files_read_as_reference(tmp_path, where, seed):
     """60 files a seed and region, each a TIFF fixture with its IFD, its
@@ -540,29 +664,86 @@ def test_part2a_layouts_read_as_reference(tmp_path, name):
     assert native.probe([str(p)]).tolist() == [list(img.shape[:2])]
 
 
+def _jpeg_stream(sampling):
+    return lambda block: make_fixtures.jpeg_stream(block, sampling)
+
+
 def _part2b_files():
+    """The layouts of TIFF part 2b (the first four each a case that an
+    earlier test held against a raise), as cv2 reads each."""
     rng = np.random.default_rng(50)
     img = make_fixtures.smooth(rng, 12, 16)
+    ycc = rng.integers(0, 256, (11, 13, 3))
+    cmyk = rng.integers(0, 256, (11, 13, 4))
+    tiff = make_fixtures.tiff_file
     out = {"CMYK": make_fixtures.pil_tiff(img, "CMYK"),
            "LAB": make_fixtures.pil_tiff(img, "LAB"),
-           "YCbCr": make_fixtures.tiff_file(img, photometric=6, compression=8,
-                                            tags={530: (3, [1, 1])}),
+           "YCbCr": tiff(img, photometric=6, compression=8,
+                         tags={530: (3, [1, 1])}),
            "jpeg": make_fixtures.pil_tiff(img, "RGB", compression="jpeg"),
-           "group4": make_fixtures.pil_tiff(img, "1", compression="group4"),
-           "int32": make_fixtures.pil_tiff(img, "I"),
-           "float32": make_fixtures.pil_tiff(img, "F")}
+           "CMYK separate": tiff(cmyk, photometric=5, planar=2, rps=4),
+           "CMYK tiles": tiff(cmyk, photometric=5, tile=(16, 16),
+                              compression=5, predictor=2),
+           "YCbCr separate": tiff(ycc, photometric=6, planar=2,
+                                  tags={530: (3, [1, 1])}, compression=5),
+           "CIELAB 16-bit": tiff(rng.integers(0, 65536, (5, 7, 3)),
+                                 photometric=8, bits=16, big=True),
+           "unknown compression": tiff(img, tags={259: (3, [40000])}),
+           "jpeg gray": tiff(make_fixtures.gray(img), rps=8,
+                             jpeg=lambda b: make_fixtures.jpeg_stream(b[:, :, 0])),
+           "jpeg RGB": make_fixtures.pil_tiff(img[:9], "RGB",
+                                              compression="jpeg"),
+           "jpeg YCbCr 4:2:0": tiff(img, photometric=6, rps=8,
+                                    jpeg=_jpeg_stream((2, 2)),
+                                    tags={530: (3, [2, 2])}),
+           "jpeg YCbCr 4:2:0 no tag": tiff(img, photometric=6, rps=8,
+                                           jpeg=_jpeg_stream((2, 2))),
+           "jpeg CMYK": make_fixtures.pil_tiff(img, "CMYK",
+                                               compression="jpeg"),
+           "jpeg tiled": tiff(img, photometric=6, tile=(16, 16),
+                              jpeg=_jpeg_stream((2, 1)),
+                              tags={530: (3, [2, 1])})}
+    for hs, vs in ((1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2)):
+        out[f"YCbCr {hs}x{vs}"] = tiff(ycc, ycc=(hs, vs), rps=4)
+        out[f"YCbCr {hs}x{vs} tiles"] = tiff(ycc, ycc=(hs, vs), tile=(16, 16),
+                                             compression=32773)
     return out
 
 
 @pytest.mark.parametrize("name", sorted(_part2b_files()))
-def test_part2_layouts_raise_naming_tiff(tmp_path, name):
-    """CMYK, CIELAB, YCbCr, JPEG-compressed, CCITT group 4, 32-bit integer
-    and float data (TIFF part 2b): cv2 reads each but the last two, which PIL
-    reads; the port does not decode them: decode and the header probe raise
-    naming TIFF, the cv2 probe gives (0, 0)."""
-    p = tmp_path / "p2.png"
+def test_part2b_layouts_read_as_reference(tmp_path, name):
+    """CMYK (Pillow's, separate planes, an extra sample), CIELAB (8 and
+    16 bits), YCbCr (separate planes, and packed in blocks at every
+    subsampling libtiff's RGBA reader puts, in strips and tiles), JPEG
+    compression (gray, RGB, YCbCr 4:2:0 with the subsampling tag and
+    without it, CMYK, tiles) and a compression that names no codec: cv2
+    reads each, and the port gives its pixels and size by both probes."""
+    p = tmp_path / "p2b.png"
     p.write_bytes(_part2b_files()[name])
-    assert (cv2.imread(str(p)) is None) == (name in ("int32", "float32"))
+    assert _reads_as_reference(p) == "cv2"
+    img = native.decode(str(p))
+    assert native.probe([str(p)]).tolist() == [list(img.shape[:2])]
+
+
+def _part2c_files():
+    rng = np.random.default_rng(50)
+    img = make_fixtures.smooth(rng, 12, 16)
+    return {"group4": make_fixtures.pil_tiff(img, "1", compression="group4"),
+            "int32": make_fixtures.pil_tiff(img, "I"),
+            "float32": make_fixtures.pil_tiff(img, "F"),
+            "LAB separate": make_fixtures.tiff_file(img, photometric=8,
+                                                    planar=2)}
+
+
+@pytest.mark.parametrize("name", sorted(_part2c_files()))
+def test_part2_layouts_raise_naming_tiff(tmp_path, name):
+    """CCITT group 4, 32-bit integer and float data, and CIELAB in
+    separate planes (TIFF part 2c): cv2 reads group 4, PIL the rest (LAB
+    through LittleCMS); the port does not decode them: decode and the
+    header probe raise naming TIFF, the cv2 probe gives (0, 0)."""
+    p = tmp_path / "p2.png"
+    p.write_bytes(_part2c_files()[name])
+    assert (cv2.imread(str(p)) is None) == (name != "group4")
     Image.open(p).convert("RGB")
     assert _part2(p.read_bytes())
     with pytest.raises(RuntimeError, match="holds TIFF data"):
@@ -570,6 +751,91 @@ def test_part2_layouts_raise_naming_tiff(tmp_path, name):
     with pytest.raises(RuntimeError, match="holds TIFF data"):
         native.probe([str(p)])
     assert native.probe([str(p)], reader="cv2").tolist() == [[0, 0]]
+
+
+# ------------------------------------------------ libtiff's colour rules
+
+def test_cmyk_ramp_reads_as_cv2(tmp_path):
+    """Every (C, K) pair, with M and Y moved along: libtiff turns CMYK into
+    RGB as k (255 - C) // 255 with k = 255 - K; PIL's cmyk2rgb rounds
+    instead. The port reads it as cv2 does, contiguous and planar."""
+    c, k = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    cmyk = np.dstack([c, (c * 3 + k) % 256, 255 - c, k])
+    want = (255 - cmyk[:, :, 3:]) * (255 - cmyk[:, :, :3]) // 255
+    p = tmp_path / "cmyk.png"
+    for planar in (1, 2):
+        p.write_bytes(make_fixtures.tiff_file(cmyk, photometric=5, rps=64,
+                                              planar=planar))
+        np.testing.assert_array_equal(cv2.imread(str(p))[:, :, ::-1], want)
+        assert _reads_as_reference(p) == "cv2"
+    assert not np.array_equal(np.asarray(Image.open(p).convert("RGB")), want)
+
+
+@pytest.mark.parametrize("refbw", [None, (16, 235, 128, 240, 128, 240),
+                                   (0, 100, 30, 200, 90, 91)])
+def test_ycbcr_grid_reads_as_cv2(tmp_path, refbw):
+    """Every Y against a grid of Cb and Cr, under libtiff's default
+    ReferenceBlackWhite and two others, with Rec. 601 and Rec. 709
+    coefficients: libtiff's fixed-point tables (TIFFYCbCrToRGBInit) give
+    cv2's pixels, and the port reads each file as cv2 does."""
+    y, cb, cr = np.meshgrid(np.arange(256), np.r_[0:256:5, 255],
+                            np.r_[0:256:5, 255], indexing="ij")
+    ycc = np.dstack([y.reshape(256, -1), cb.reshape(256, -1),
+                     cr.reshape(256, -1)])
+    p = tmp_path / "ycc.png"
+    for luma in (None, (0.2126, 0.7152, 0.0722)):
+        tags = {}
+        if refbw is not None:
+            tags[532] = (5, list(refbw))
+        if luma is not None:
+            tags[529] = (5, list(luma))
+        p.write_bytes(make_fixtures.tiff_file(ycc, ycc=(1, 1), rps=64,
+                                              tags=tags))
+        assert _reads_as_reference(p) == "cv2"
+
+
+def test_cielab_grid_reads_as_cv2(tmp_path):
+    """Every L* against a grid of signed a* and b*, 8-bit, under the D50
+    white point and D65's: libtiff's float conversion (TIFFCIELabToXYZ,
+    TIFFXYZToRGB) gives cv2's pixels, and the port reads each as cv2
+    does."""
+    lab = np.meshgrid(np.arange(256), np.r_[0:256:3], np.r_[0:256:3],
+                      indexing="ij")
+    lab = np.dstack([c.reshape(256, -1) for c in lab])
+    p = tmp_path / "lab.png"
+    for tags in ({}, {318: (5, [0.3127, 0.329])}):
+        p.write_bytes(make_fixtures.tiff_file(lab, photometric=8, rps=64,
+                                              tags=tags))
+        assert _reads_as_reference(p) == "cv2"
+
+
+# a sample of the sweep of the Compression tag over 0-65535 (one small
+# uncompressed file in cv2.imread): numbers that name no codec (zeros),
+# codecs cv2's libtiff leaves out (None), codecs of part 2c (None on this
+# 8-bit RGB file), and part 1's and JPEG (decoded as the data allows)
+SWEEP = {"no codec": (0, 9, 99, 300, 32767, 32908, 34660, 40000, 50002,
+                      65535),
+         "not configured": (6, 32909, 34661, 34887, 34925, 50000, 50001),
+         "part 2c": (2, 3, 4, 32766, 32771, 32809, 34676, 34677),
+         "decoded": (1, 5, 7, 8, 32773, 32946)}
+
+
+@pytest.mark.parametrize("kind", sorted(SWEEP))
+def test_compression_numbers_read_as_cv2(tmp_path, kind):
+    """The Compression tag set to each number of a sample of each set: a
+    number that names no codec reads as zeros of the image's size, a codec
+    left out of cv2's build or of part 2c gives None, and the port reads
+    each file as the reference does."""
+    img = make_fixtures.smooth(np.random.default_rng(51), 4, 5)
+    p = tmp_path / "c.png"
+    for c in SWEEP[kind]:
+        p.write_bytes(make_fixtures.tiff_file(img, tags={259: (3, [c])}))
+        got = cv2.imread(str(p))
+        if kind == "no codec":
+            assert got is not None and got.shape == (4, 5, 3) and not got.any()
+        elif kind != "decoded":
+            assert got is None, c
+        _reads_as_reference(p)
 
 
 # --------------------------------------------------------- generate_tree

@@ -105,6 +105,39 @@ int probe_jpeg(FILE* f, int* dims);
 // quality 95, 4:2:0, standard Huffman tables (libjpeg-turbo's defaults).
 void encode_jpeg(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out);
 
+// JPEG-in-TIFF as libtiff's JPEG codec drives libjpeg-turbo (tif_jpeg.c):
+// one decompressor a file, whose quantisation and Huffman tables carry from
+// stream to stream. Each stream decodes as decode_jpeg decodes a file (no
+// EXIF orientation), its components as stored, or YCbCr turned to RGB.
+class TiffJpeg {
+ public:
+  struct Frame {
+    int w = 0, h = 0, ncomp = 0;
+    int hs[4] = {}, vs[4] = {};  // each component's sampling factors
+  };
+  TiffJpeg();
+  ~TiffJpeg();
+  TiffJpeg(const TiffJpeg&) = delete;
+  TiffJpeg& operator=(const TiffJpeg&) = delete;
+  // The JPEGTables stream (jpeg_read_header(FALSE)): false where it is no
+  // tables-only stream ("Bogus JPEGTables field").
+  bool tables(const uint8_t* data, size_t n);
+  // A strip's or tile's stream up to its first scan (jpeg_read_header(TRUE));
+  // false where libjpeg fails.
+  bool header(const uint8_t* data, size_t n, Frame& f);
+  // jpeg_start_decompress and every row of the stream whose header was
+  // read: the frame's samples, interleaved (RGB from YCbCr where `rgb`);
+  // false where libjpeg fails first.
+  bool decode(bool rgb, std::vector<uint8_t>& out);
+  // jpeg_finish_decompress: reads on to EOI (tables it meets are kept; an
+  // error there, which libtiff ignores, stops it).
+  void finish();
+
+ private:
+  struct Impl;
+  Impl* p_;
+};
+
 // PNG, PNM (P1-P6), PFM, PAM (P7), BMP, Sun raster, GIF, Radiance HDR and
 // TIFF as cv2.imread reads them (formats.cpp, gif.cpp, hdr.cpp, tiff.cpp):
 // kOk with the (h, w) it gives in dims (EXIF orientation applied) and, with
@@ -137,11 +170,12 @@ int hdr_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // TIFF (classic or BigTIFF, either byte order, the first IFD; strips or
 // tiles of gray, RGB or palette samples of 1 to 16 bits, any extra samples,
-// either planar configuration and fill order, uncompressed, PackBits, LZW
-// or deflate) as cv2.imread reads it (OpenCV's TiffDecoder over libtiff's
-// RGBA reader, tiff.cpp) and as PIL's TiffImagePlugin and convert("RGB")
-// read it; the arguments and results of read_cv2 and read_pil. A TIFF of
-// any other layout gives kTiff. is_tiff_data: an "II*\0", "MM\0*", "II+\0"
+// CMYK, YCbCr and CIELAB, either planar configuration and fill order,
+// uncompressed, PackBits, LZW, deflate or JPEG, or a number that names no
+// codec) as cv2.imread reads it (OpenCV's TiffDecoder over libtiff's RGBA
+// reader, tiff.cpp) and as PIL's TiffImagePlugin and convert("RGB") read
+// it; the arguments and results of read_cv2 and read_pil. A TIFF of any
+// other layout (TIFF part 2c) gives kTiff. is_tiff_data: an "II*\0", "MM\0*", "II+\0"
 // or "MM\0+" signature. probe_tiff: (h, w) from an open file's header and
 // first IFD, wherever it lies (cv2's rules, else PIL's), or a Status.
 bool is_tiff_data(const uint8_t* data, size_t n);

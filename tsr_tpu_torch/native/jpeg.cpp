@@ -10,7 +10,11 @@
 // an Adobe APP14 transform flag 0 means RGB; four components are CMYK, or
 // YCCK under an Adobe transform other than 0, turned to RGB as cv2.imread
 // turns them. EXIF orientation from the first APP1 is applied as
-// cv2.imread applies it.
+// cv2.imread applies it. TiffJpeg (codec.h) decodes the streams of a
+// JPEG-compressed TIFF as libtiff drives libjpeg: a JPEGTables stream read
+// as tables only, the quantisation and Huffman tables kept from stream to
+// stream, each stream's components as stored or YCbCr turned to RGB, no
+// EXIF orientation, reading on to EOI after a one-pass decode.
 //
 // Damaged data reads as libjpeg reads it, with its warnings and without
 // failing: the file is followed by fake EOI markers (jdatasrc.c), a scan
@@ -39,6 +43,7 @@
 #include <algorithm>
 #include <climits>
 #include <cstring>
+#include <memory>
 
 #include "codec.h"
 
@@ -581,10 +586,6 @@ struct Decoder {
       c.hib = (c.dh + bs - 1) / bs;
       c.gw = mcux * c.h;
       c.gh = mcuy * c.v;
-      if (lossless)
-        c.samples.assign(static_cast<size_t>(c.gw) * c.gh, 0);
-      else
-        c.coef.assign(static_cast<size_t>(c.gw) * c.gh * 64, 0);
       for (int& b : c.bits) b = -1;
       for (int& b : c.prev_bits) b = -1;
     }
@@ -1193,33 +1194,41 @@ struct Decoder {
     return lossless ? kRgb : kYcc;
   }
 
-  int decode_all() {
+  // jdhuff.c jinit_huff_decoder: tables 0 and 1 still undefined at the
+  // first scan are Annex K's (motion JPEG frames leave them out)
+  void std_tables() {
+    if (progressive || lossless || arith) return;
+    const uint8_t* std[4][2] = {
+        {kDcLumaBits, kDcLumaVals}, {kAcLumaBits, kAcLumaVals},
+        {kDcChromaBits, kDcChromaVals}, {kAcChromaBits, kAcChromaVals}};
+    for (int t = 0; t < 4; t++) {
+      HuffSpec& spec = t & 1 ? ac_spec[t >> 1] : dc_spec[t >> 1];
+      if (spec.defined) continue;
+      int n = 0;
+      for (int i = 0; i < 16; i++) n += std[t][0][i];
+      std::memcpy(spec.counts, std[t][0], 16);
+      std::memset(spec.vals, 0, sizeof(spec.vals));
+      std::memcpy(spec.vals, std[t][1], n);
+      spec.defined = true;
+    }
+  }
+
+  // jpeg_read_header: SOI, the markers, the first SOS segment
+  int header(Scan& first) {
     if (src.byte() != 0xFF || src.byte() != 0xD8) return kUnreadable;
-    int st = read_markers();
+    const int st = read_markers();
     if (st == kEoi) return kUnreadable;  // no image
     if (st != kSos) return st;
-    if (!progressive && !lossless && !arith) {
-      // jdhuff.c jinit_huff_decoder: tables 0 and 1 still undefined at the
-      // first scan are Annex K's (motion JPEG frames leave them out)
-      const uint8_t* std_tables[4][2] = {
-          {kDcLumaBits, kDcLumaVals}, {kAcLumaBits, kAcLumaVals},
-          {kDcChromaBits, kDcChromaVals}, {kAcChromaBits, kAcChromaVals}};
-      for (int t = 0; t < 4; t++) {
-        HuffSpec& spec = t & 1 ? ac_spec[t >> 1] : dc_spec[t >> 1];
-        if (spec.defined) continue;
-        int n = 0;
-        for (int i = 0; i < 16; i++) n += std_tables[t][0][i];
-        std::memcpy(spec.counts, std_tables[t][0], 16);
-        std::memset(spec.vals, 0, sizeof(spec.vals));
-        std::memcpy(spec.vals, std_tables[t][1], n);
-        spec.defined = true;
-      }
-    }
+    return get_sos(first);
+  }
+
+  int decode_all() {
+    Scan first;
+    const int st = header(first);
+    if (st != kOk) return st;
+    std_tables();
     // jpeg_read_header ends with the first SOS segment; then imread's
     // validateInputImageSize raises
-    Scan first;
-    st = get_sos(first);
-    if (st != kOk) return st;
     if (!cv2_size_ok(width, height)) return kRaises;
     if (lossless) {
       // libjpeg-turbo refuses a color conversion that is not lossless; and
@@ -1228,8 +1237,25 @@ struct Decoder {
       if (cs == kYcc || cs == kYcck) return kLosslessColor;
       if (cv2_reader && cs == kGray) return kUnreadable;
     }
+    return read_scans(first, false);
+  }
+
+  // Every scan from the first (jpeg_start_decompress); `stream_only`: a
+  // JPEG-in-TIFF stream, which libjpeg decodes as any other (not PIL's
+  // rule for a gray lossless file).
+  int read_scans(Scan first, bool stream_only) {
+    // the coefficient (lossless: sample) buffers, which libjpeg allocates
+    // in jpeg_start_decompress, past the header's checks
+    for (int i = 0; i < ncomp; i++) {
+      Component& c = comp[i];
+      if (lossless)
+        c.samples.assign(static_cast<size_t>(c.gw) * c.gh, 0);
+      else
+        c.coef.assign(static_cast<size_t>(c.gw) * c.gh * 64, 0);
+    }
     for (bool is_first = true;; is_first = false) {
       Scan sc;
+      int st;
       if (is_first) {
         sc = first;
         st = start_scan(sc);
@@ -1242,7 +1268,7 @@ struct Decoder {
       // a gray lossless file is read by PIL, through a source that
       // suspends at the file's end: a scan whose data runs past it is
       // "image file is truncated"
-      if (lossless && ncomp == 1) {
+      if (lossless && ncomp == 1 && !stream_only) {
         if (src.pos > src.size) return kUnreadable;
         // jpeg_finish_decompress reads on to EOI: an error there fails
         // PIL's read, a suspension at the file's end does not
@@ -1261,6 +1287,12 @@ struct Decoder {
       if (st == kEoi) return kOk;
       if (st != kSos) return st;
     }
+  }
+
+  // jpeg_finish_decompress after a one-pass decode: the markers on to EOI
+  // (another SOS is "EOI expected", an error)
+  void finish() {
+    if (!multi_scan) read_markers();
   }
 };
 
@@ -1588,18 +1620,14 @@ void idct_smoothed(const Decoder& d, const Component& c, const int* latch,
   }
 }
 
-int decode_into(const uint8_t* data, size_t n, Image& img) {
-  Decoder d;
-  d.src.data = data;
-  d.src.size = n;
-  const int st = d.decode_all();
-  if (st != kOk) return st;
+// The output stage up to color conversion: each component IDCT'd (or its
+// lossless samples, block-smoothed where libjpeg smooths) and upsampled to
+// the frame's width x height.
+void full_planes(const Decoder& d, std::vector<std::vector<uint8_t>>& full) {
   const int W = d.width, H = d.height;
   int latch[4][10], prev[4][10];
   const bool smooth = smoothing_ok(d, latch, prev);
-  // each component: IDCT (lossless: its samples) into its grid's plane,
-  // then upsampled to full size
-  std::vector<std::vector<uint8_t>> full(d.ncomp);
+  full.assign(d.ncomp, {});
   for (int i = 0; i < d.ncomp; i++) {
     const Component& c = d.comp[i];
     full[i].resize(static_cast<size_t>(W) * H);
@@ -1622,6 +1650,17 @@ int decode_into(const uint8_t* data, size_t n, Image& img) {
     upsample(c, plane.data(), stride, d.maxh, d.maxv, W, H, true,
              full[i].data());
   }
+}
+
+int decode_into(const uint8_t* data, size_t n, Image& img) {
+  Decoder d;
+  d.src.data = data;
+  d.src.size = n;
+  const int st = d.decode_all();
+  if (st != kOk) return st;
+  const int W = d.width, H = d.height;
+  std::vector<std::vector<uint8_t>> full;
+  full_planes(d, full);
   img.w = W;
   img.h = H;
   img.rgb.resize(static_cast<size_t>(W) * H * 3);
@@ -1951,6 +1990,105 @@ int probe_jpeg(FILE* f, int* dims) {
   dims[0] = swap ? w : h;
   dims[1] = swap ? h : w;
   return kOk;
+}
+
+// ---- JPEG-in-TIFF
+
+// What one libjpeg decompressor keeps from stream to stream (the
+// quantisation and Huffman tables: jpeg_abort and SOI reset the rest), and
+// the stream being read.
+struct TiffJpeg::Impl {
+  uint16_t qt[4][64];
+  bool qt_defined[4] = {};
+  HuffSpec dc[4], ac[4];
+  std::unique_ptr<Decoder> d;
+  Decoder::Scan first;
+  void load(Decoder& x) const {
+    std::memcpy(x.qt, qt, sizeof(qt));
+    std::memcpy(x.qt_defined, qt_defined, sizeof(qt_defined));
+    for (int i = 0; i < 4; i++) x.dc_spec[i] = dc[i], x.ac_spec[i] = ac[i];
+  }
+  void save(const Decoder& x) {
+    std::memcpy(qt, x.qt, sizeof(qt));
+    std::memcpy(qt_defined, x.qt_defined, sizeof(qt_defined));
+    for (int i = 0; i < 4; i++) dc[i] = x.dc_spec[i], ac[i] = x.ac_spec[i];
+  }
+  Decoder& start(const uint8_t* data, size_t n) {
+    d = std::make_unique<Decoder>();
+    load(*d);
+    d->src.data = data;
+    d->src.size = n;
+    return *d;
+  }
+};
+
+TiffJpeg::TiffJpeg() : p_(new Impl) {}
+TiffJpeg::~TiffJpeg() { delete p_; }
+
+bool TiffJpeg::tables(const uint8_t* data, size_t n) {
+  Decoder& d = p_->start(data, n);
+  // jpeg_read_header(FALSE): SOI, then markers to EOI (a frame without a
+  // scan is an error); a scan makes it no tables-only stream
+  const bool ok = d.src.byte() == 0xFF && d.src.byte() == 0xD8 &&
+                  d.read_markers() == Decoder::kEoi && !d.have_frame;
+  p_->save(d);
+  p_->d.reset();
+  return ok;
+}
+
+bool TiffJpeg::header(const uint8_t* data, size_t n, Frame& f) {
+  Decoder& d = p_->start(data, n);
+  const int st = d.header(p_->first);
+  p_->save(d);
+  if (st != kOk) {
+    p_->d.reset();
+    return false;
+  }
+  f.w = d.width;
+  f.h = d.height;
+  f.ncomp = d.ncomp;
+  for (int i = 0; i < d.ncomp; i++) {
+    f.hs[i] = d.comp[i].h;
+    f.vs[i] = d.comp[i].v;
+  }
+  return true;
+}
+
+bool TiffJpeg::decode(bool rgb, std::vector<uint8_t>& out) {
+  if (!p_->d) return false;
+  Decoder& d = *p_->d;
+  d.std_tables();
+  // libjpeg-turbo converts no lossless data, and YCbCr needs 3 components
+  int st = (rgb && (d.lossless || d.ncomp != 3)) ? kUnreadable : kOk;
+  if (st == kOk) st = d.read_scans(p_->first, true);
+  p_->save(d);
+  if (st != kOk) return false;
+  std::vector<std::vector<uint8_t>> full;
+  full_planes(d, full);
+  const size_t npx = static_cast<size_t>(d.width) * d.height;
+  const int nc = d.ncomp;
+  out.resize(npx * nc);
+  uint8_t* o = out.data();
+  if (rgb) {
+    static const YccTables t;
+    for (size_t k = 0; k < npx; k++) {
+      const int y = full[0][k], cb = full[1][k], cr = full[2][k];
+      o[3 * k] = static_cast<uint8_t>(clamp255(y + t.cr_r[cr]));
+      o[3 * k + 1] = static_cast<uint8_t>(
+          clamp255(y + ((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+      o[3 * k + 2] = static_cast<uint8_t>(clamp255(y + t.cb_b[cb]));
+    }
+  } else {
+    for (size_t k = 0; k < npx; k++)
+      for (int c = 0; c < nc; c++) o[nc * k + c] = full[c][k];
+  }
+  return true;
+}
+
+void TiffJpeg::finish() {
+  if (!p_->d) return;
+  p_->d->finish();
+  p_->save(*p_->d);
 }
 
 void encode_jpeg(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out) {

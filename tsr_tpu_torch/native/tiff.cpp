@@ -2,32 +2,42 @@
 // PIL's Image.open(path).convert("RGB").
 //
 // Classic TIFF and BigTIFF (either byte order), the first IFD, strips or
-// tiles of gray (MINISBLACK or MINISWHITE), RGB or palette samples with any
-// extra samples, of either planar configuration and fill order,
-// uncompressed, PackBits, LZW (old-style codes too) or deflate, with or
-// without the horizontal predictor. Two readers, each a copy of what its
-// library does:
+// tiles of gray (MINISBLACK or MINISWHITE), RGB, palette, CMYK, YCbCr or
+// CIELAB samples with any extra samples, of either planar configuration
+// and fill order, uncompressed, PackBits, LZW (old-style codes too),
+// deflate or JPEG, with or without the horizontal predictor, or with a
+// Compression number that names no codec. Two readers, each a copy of what
+// its library does:
 //   - tiff_cv2: OpenCV 5's TiffDecoder over libtiff 4.7. The directory is
 //     read by libtiff's rules (TIFFReadDirectory: the first of duplicate
 //     tags wins, a bad required tag refuses the file, a bad optional one is
 //     dropped, a palette without a usable ColorMap becomes gray, a missing
-//     or implausible strip or tile byte count is estimated; OpenCV's build
-//     does not chop a large strip into smaller ones); OpenCV then needs the
-//     Photometric tag, samples of 1, 8 or 16 bits (4 of a palette), at most
-//     4 a pixel, and what libtiff's RGBA reader accepts, and reads each
-//     strip or tile through TIFFReadRGBAStrip / TIFFReadRGBATile. The
-//     reader's put routines are copied with their pointer arithmetic (gray
-//     and palette rows skip bytes where RGB rows skip pixels, which reads
-//     the edge tiles of some layouts askew) and tables: a 16-bit gray
-//     sample's high byte, an RGB one's (v + 128) / 257, unassociated alpha
-//     premultiplied (v x a + 127) / 255, separate gray planes read as RGB
-//     (MINISWHITE not inverted). It refuses the image where the first plane's
-//     chunk cannot be read (a byte count of 0, past the end of the file, an
-//     uncompressed tile of the wrong size), but keeps what a damaged chunk
-//     decoded before its error (the rest 0, the predictor not applied, the
-//     bytes unswapped). Orientations 2-4 flip the image as the reader and
-//     OpenCV flip it (tiles each on their own); 5-8 make imread give None
-//     but for a square image, which it transposes.
+//     or implausible strip or tile byte count is estimated, packed YCbCr
+//     sizes its strips and tiles in sampling blocks, JPEG's YCbCr takes its
+//     subsampling from the first frame where the tag is missing; OpenCV's
+//     build does not chop a large strip into smaller ones); OpenCV then
+//     needs the Photometric tag, samples of 1, 8 or 16 bits (4 of a
+//     palette), at most 4 a pixel, a codec its build has, and what
+//     libtiff's RGBA reader accepts, and reads each strip or tile through
+//     TIFFReadRGBAStrip / TIFFReadRGBATile. The reader's put routines are
+//     copied with their pointer arithmetic (gray and palette rows skip bytes
+//     where RGB rows skip pixels, which reads the edge tiles of some layouts
+//     askew) and tables: a 16-bit gray sample's high byte, an RGB one's
+//     (v + 128) / 257, unassociated alpha premultiplied (v x a + 127) / 255,
+//     separate gray planes read as RGB (MINISWHITE not inverted), CMYK as k
+//     (255 - C) / 255 with k = 255 - K, YCbCr through TIFFYCbCrToRGBInit's
+//     fixed-point tables block by block, CIELAB through libtiff's float
+//     conversion to XYZ and its sRGB display's gamma table. JPEG strips and
+//     tiles go through libtiff's JPEG codec (jpeg_chunk, with jpeg.cpp's
+//     TiffJpeg): contiguous YCbCr turned to RGB by libjpeg, everything else
+//     as stored. It refuses the image where the first plane's chunk cannot
+//     be read (a byte count of 0, past the end of the file, an uncompressed
+//     tile of the wrong size, a JPEG stream libtiff's checks refuse), but
+//     keeps what a damaged chunk decoded before its error (the rest 0, the
+//     predictor not applied, the bytes unswapped); a number that names no
+//     codec decodes nothing, so reads as zeros. Orientations 2-4 flip the
+//     image as the reader and OpenCV flip it (tiles each on their own); 5-8
+//     make imread give None but for a square image, which it transposes.
 //   - tiff_pil: Pillow 12's TiffImagePlugin and convert("RGB"), for the
 //     files cv2 refuses: its own IFD parser (the last of duplicate tags
 //     wins; a tag whose data lies past the end of the file ends the IFD; a
@@ -36,10 +46,14 @@
 //     every tile whole from its offset, byte counts ignored, one tile of a
 //     mode it maps from the file mapped at the size as oriented) and
 //     libtiff for compressed ones (every chunk must decode without error,
-//     Pillow's checks of libtiff's sizes), orientation applied as
-//     ImageOps.exif_transpose applies it.
-// Any other layout that the reader would accept (CMYK, YCbCr, CIELAB,
-// another compression, Pillow's 32-bit and float modes) gives kTiff: the
+//     Pillow's checks of libtiff's sizes; YCbCr but contiguous JPEG through
+//     libtiff's RGBA reader a strip or a row of tiles at a time; a JPEG
+//     frame that leaves part of Pillow's unzeroed buffer unwritten is
+//     refused, as its pixels there are whatever memory held), CMYK by
+//     Pillow's cmyk2rgb, orientation applied as ImageOps.exif_transpose
+//     applies it.
+// Any other layout that a reader would accept (CCITT and the other codecs
+// of TIFF part 2c, Pillow's 32-bit, float and LAB modes) gives kTiff: the
 // port does not decode it. Each runs on a whole file in memory, or, for
 // the header probe, on an open file read where its IFD points.
 
@@ -63,15 +77,35 @@ enum Tag : uint16_t {
   kPhotometric = 262, kFillOrder = 266, kStripOffsets = 273,
   kOrientation = 274, kSpp = 277, kRps = 278, kStripByteCounts = 279,
   kMinSample = 280, kMaxSample = 281, kPlanar = 284, kTransfer = 301,
-  kPredictor = 317, kColorMap = 320, kTileWidth = 322, kTileLength = 323,
-  kTileOffsets = 324, kTileByteCounts = 325, kExtraSamples = 338,
-  kSampleFormat = 339, kSMinSample = 340, kSMaxSample = 341,
+  kPredictor = 317, kWhitePoint = 318, kColorMap = 320, kTileWidth = 322,
+  kTileLength = 323, kTileOffsets = 324, kTileByteCounts = 325,
+  kInkSet = 332, kExtraSamples = 338, kSampleFormat = 339,
+  kSMinSample = 340, kSMaxSample = 341, kJpegTables = 347,
+  kYccCoefficients = 529, kYccSubsampling = 530, kRefBlackWhite = 532,
   kDataType = 32996, kImageDepth = 32997, kTileDepth = 32998,
 };
 
-// The compressions the port decodes
+// The compressions of TIFF part 1: none, LZW, deflate, PackBits
 bool part1_compression(int c) {
   return c == 1 || c == 5 || c == 8 || c == 32773 || c == 32946;
+}
+
+// libtiff's codecs, as a sweep of the Compression tag over 0-65535 on one
+// small uncompressed RGB file in cv2.imread sorted them: the ones OpenCV's
+// build leaves out, which TIFFRGBAImageOK refuses ("requested compression
+// method is not configured": old-style JPEG, PixarLog, JBIG, LERC, LZMA,
+// ZSTD, WebP), and the ones it has that the port does not decode (TIFF
+// part 2c: CCITT RLE, group 3 and 4, RLE/W, NeXT, ThunderScan, SGILog).
+// Every other number but part 1's and JPEG (7) names no codec: libtiff
+// opens the file, its strips decode to nothing ("decoding is not
+// implemented") and the image reads as zeros.
+bool not_configured(int c) {
+  return c == 6 || c == 32909 || c == 34661 || c == 34887 || c == 34925 ||
+         c == 50000 || c == 50001;
+}
+bool part2c_codec(int c) {
+  return (c >= 2 && c <= 4) || c == 32766 || c == 32771 || c == 32809 ||
+         c == 34676 || c == 34677;
 }
 
 // ------------------------------------------------------------- the file
@@ -211,6 +245,22 @@ struct Dir {
   uint16_t spp = 1, bps = 1, compression = 1, photometric = 0, planar = 1;
   uint16_t orientation = 1, predictor = 1, fillorder = 1, sampleformat = 1;
   uint16_t extrasamples = 0, sampleinfo0 = 0;  // the first ExtraSamples value
+  uint16_t inkset = 1;
+  // YCbCrSubsampling (2, 2 without the tag; JPEG's fixup may set it from
+  // the first strip's frame), YCbCrCoefficients, ReferenceBlackWhite
+  // (unset: libtiff's default for the photometric), WhitePoint (D50)
+  uint16_t sub[2] = {2, 2};
+  bool sub_set = false;
+  float luma[3] = {0.299f, 0.587f, 0.114f};
+  float refbw[6] = {};
+  bool refbw_set = false;
+  float white[2] = {96.4250f / (96.4250f + 100.0f + 82.4680f),
+                    100.0f / (96.4250f + 100.0f + 82.4680f)};
+  std::vector<uint8_t> jpegtables;  // JPEGTables, where set (JPEG only)
+  bool tables_set = false;
+  // JPEGCOLORMODE_RGB: libjpeg turns contiguous YCbCr JPEG data into RGB,
+  // and libtiff's sizes count it upsampled
+  bool up = false;
   std::vector<uint16_t> cmap;  // 3 x 2^bps
   uint32_t nstrips = 0;        // strips or tiles, of all planes
   uint32_t per_plane = 0;      // strips or tiles of one plane
@@ -237,11 +287,138 @@ bool strip_thing(const Dir& t, const Entry* e, std::vector<uint64_t>& v) {
   return true;
 }
 
-// TIFFScanlineSize64 (0 where the product overflows)
+// Packed YCbCr (contiguous, not upsampled): one Cb and one Cr for every
+// sub[0] x sub[1] block of Y samples. libtiff's sizes take 1, 2 and 4
+// alone.
+bool ycc_packed(const Dir& t) {
+  return t.planar == 1 && t.photometric == 6 && !t.up;
+}
+bool sub_ok(const Dir& t) {
+  auto ok = [](int v) { return v == 1 || v == 2 || v == 4; };
+  return ok(t.sub[0]) && ok(t.sub[1]);
+}
+
+// The bytes of one row of sampling blocks across `width` samples.
+uint64_t ycc_row(const Dir& t, uint64_t width) {
+  const uint64_t blocks = (width + t.sub[0] - 1) / t.sub[0];
+  return (blocks * (t.sub[0] * t.sub[1] + 2) * t.bps + 7) / 8;
+}
+
+// TIFFScanlineSize64 (0 where the product overflows or libtiff refuses
+// the subsampling)
 uint64_t file_scanline(const Dir& t) {
+  if (ycc_packed(t) && t.spp == 3)
+    return sub_ok(t) ? ycc_row(t, t.w) / t.sub[1] : 0;
   const uint64_t samples = uint64_t{t.w} * (t.planar == 2 ? 1 : t.spp);
   if (t.bps && samples > UINT64_MAX / t.bps) return 0;
   return (samples * t.bps + 7) / 8;
+}
+
+// TIFFVStripSize64: the bytes of a strip of `rows` rows (0 as libtiff's)
+uint64_t strip_size(const Dir& t, uint64_t rows) {
+  if (ycc_packed(t)) {
+    if (t.spp != 3 || !sub_ok(t)) return 0;
+    return ycc_row(t, t.w) * ((rows + t.sub[1] - 1) / t.sub[1]);
+  }
+  const uint64_t line = file_scanline(t);
+  return line && rows > UINT64_MAX / line ? 0 : line * rows;
+}
+
+// TIFFTileRowSize64, TIFFVTileSize64 (0 where the product overflows)
+uint64_t tile_row(const Dir& t) {
+  const uint64_t samples = t.planar == 2 ? 1 : t.spp;
+  const uint64_t bits = uint64_t{t.bps} * t.tw;
+  const uint64_t row_bits =
+      samples && bits > UINT64_MAX / samples ? 0 : bits * samples;
+  return (row_bits + 7) / 8;
+}
+uint64_t tile_size(const Dir& t, uint64_t rows) {
+  if (!t.tw || !t.th) return 0;
+  if (ycc_packed(t) && t.spp == 3) {
+    if (!sub_ok(t)) return 0;
+    return ycc_row(t, t.tw) * ((rows + t.sub[1] - 1) / t.sub[1]);
+  }
+  const uint64_t row = tile_row(t);
+  return row && rows > UINT64_MAX / row ? 0 : row * rows;
+}
+
+// The sizes libtiff caches: a row of the image, of a strip or a tile, and
+// a whole strip (TIFFStripSize) or tile.
+void set_sizes(Dir& t) {
+  t.scanline = file_scanline(t);
+  if (t.tiled) {
+    t.chunk_row = tile_row(t);
+    t.chunk_size = tile_size(t, t.th);
+  } else {
+    t.chunk_row = t.scanline;
+    t.chunk_size = strip_size(t, std::min<uint64_t>(t.rps, t.h));
+  }
+}
+
+// TIFFReadDirEntryFloatArray of exactly `want` values (TIFFFetchNormalTag's
+// arrays of a fixed count): false where libtiff drops the tag.
+bool read_floats(const Src& s, const Entry& e, uint64_t want, float* out) {
+  if (e.count != want) return false;
+  const int tw = type_width(e.type);
+  if (e.type == 2 || e.type == 7 || e.type == 13 || e.type == 18 || !tw)
+    return false;
+  std::vector<uint8_t> b;
+  if (!entry_bytes(s, e, want, b)) return false;
+  for (uint64_t i = 0; i < want; i++) {
+    const uint8_t* p = &b[i * tw];
+    switch (e.type) {
+      case 1: out[i] = p[0]; break;
+      case 6: out[i] = static_cast<int8_t>(p[0]); break;
+      case 3: out[i] = s.u16(p); break;
+      case 8: out[i] = static_cast<int16_t>(s.u16(p)); break;
+      case 4: out[i] = static_cast<float>(s.u32(p)); break;
+      case 9: out[i] = static_cast<float>(static_cast<int32_t>(s.u32(p))); break;
+      case 16: out[i] = static_cast<float>(s.u64(p)); break;
+      case 17: out[i] = static_cast<float>(static_cast<int64_t>(s.u64(p))); break;
+      case 5: case 10: {  // a denominator of 0 reads 0
+        const uint32_t den = s.u32(p + 4);
+        const float num = e.type == 5 ? static_cast<float>(s.u32(p))
+                                      : static_cast<float>(static_cast<int32_t>(s.u32(p)));
+        out[i] = den == 0 ? 0.0f : num / static_cast<float>(den);
+        break;
+      }
+      case 11: {
+        const uint32_t u = s.u32(p);
+        std::memcpy(&out[i], &u, 4);
+        break;
+      }
+      default: {  // a double, clamped to the floats
+        const uint64_t u = s.u64(p);
+        double x;
+        std::memcpy(&x, &u, 8);
+        out[i] = x > 3.4028234663852886e38 ? 3.4028234663852886e38f
+                 : x < -3.4028234663852886e38 ? -3.4028234663852886e38f
+                                              : static_cast<float>(x);
+        break;
+      }
+    }
+  }
+  return true;
+}
+
+// TIFFReadDirEntryByteArray: bytes, or integers of 0 to 255.
+bool read_byte_array(const Src& s, const Entry& e, std::vector<uint8_t>& out) {
+  out.clear();
+  if (e.type == 1 || e.type == 2 || e.type == 7) {
+    return entry_bytes(s, e, e.count, out);
+  }
+  std::vector<uint64_t> v;
+  if (e.type == 6) {
+    std::vector<uint8_t> b;
+    if (!entry_bytes(s, e, e.count, b)) return false;
+    for (uint8_t x : b)
+      if (x & 0x80) return false;
+    out = b;
+    return true;
+  }
+  if (read_array(s, e, 255, v) != kErrOk) return false;
+  out.assign(v.begin(), v.end());
+  return true;
 }
 
 int color_channels(int photometric) {
@@ -250,6 +427,90 @@ int color_channels(int photometric) {
     case 2: case 6: case 8: case 9: case 10: case 32845: return 3;
     case 5: case 4: return 4;
     default: return 0;
+  }
+}
+
+// JPEGFixupTagsSubsampling: the markers of chunk 0 (its byte count of the
+// file, read through a buffer of 2048 bytes that must each lie in the
+// file) up to its frame, whose first component's sampling factors become
+// YCbCrSubsampling where every other component's are 1 x 1 and both are 1,
+// 2 or 4.
+void jpeg_fixup(Dir& t) {
+  const Src& s = t.src;
+  uint64_t off = t.offsets[0], left = t.counts[0];
+  if (off == 0) return;
+  uint8_t buf[2048];
+  uint64_t have = 0, at = 0;  // bytes in the buffer, the next one's index
+  auto byte = [&](uint8_t& b) {
+    if (!have) {
+      if (!left) return false;
+      const uint64_t m = std::min<uint64_t>(2048, left);
+      if (!s.read(off, m, buf)) return false;
+      have = m;
+      at = 0;
+      off += m;
+      left -= m;
+    }
+    b = buf[at++];
+    have--;
+    return true;
+  };
+  auto word = [&](uint16_t& w) {
+    uint8_t a, b;
+    if (!byte(a) || !byte(b)) return false;
+    w = static_cast<uint16_t>(a << 8 | b);
+    return true;
+  };
+  auto skip = [&](uint64_t n) {
+    if (n <= have) {
+      at += n;
+      have -= n;
+      return;
+    }
+    const uint64_t m = n - have;
+    have = 0;
+    if (m <= left) {
+      off += m;
+      left -= m;
+    } else {
+      left = 0;
+    }
+  };
+  for (;;) {
+    uint8_t m;
+    do {
+      if (!byte(m)) return;
+    } while (m != 255);
+    do {
+      if (!byte(m)) return;
+    } while (m == 255);
+    if (m == 0xD8) continue;
+    if (m == 0xFE || (m >= 0xE0 && m <= 0xEF) || m == 0xDB || m == 0xDA ||
+        m == 0xC4 || m == 0xDD) {
+      uint16_t n;
+      if (!word(n) || n < 2) return;
+      skip(n - 2);
+      continue;
+    }
+    if (m != 0xC0 && m != 0xC1 && m != 0xC2 && m != 0xC9 && m != 0xCA) return;
+    uint16_t n;
+    uint8_t p;
+    if (!word(n) || n != 8 + t.spp * 3) return;
+    skip(7);
+    if (!byte(p)) return;
+    const int ph = p >> 4, pv = p & 15;
+    skip(1);
+    for (int o = 1; o < t.spp; o++) {
+      skip(1);
+      if (!byte(p)) return;
+      if (p != 0x11) return;
+      skip(1);
+    }
+    auto ok = [](int v) { return v == 1 || v == 2 || v == 4; };
+    if (!ok(ph) || !ok(pv)) return;
+    t.sub[0] = static_cast<uint16_t>(ph);
+    t.sub[1] = static_cast<uint16_t>(pv);
+    return;
   }
 }
 
@@ -461,6 +722,37 @@ bool read_dir(Dir& t) {
         if (read_one(s, e, 0xFFFF, v) == kErrOk)
           t.predictor = static_cast<uint16_t>(v);
         break;
+      case kInkSet:
+        if (read_one(s, e, 0xFFFF, v) == kErrOk)
+          t.inkset = static_cast<uint16_t>(v);
+        break;
+      case kYccSubsampling: {
+        std::vector<uint64_t> a;
+        if (e.count == 2 && read_array(s, e, 0xFFFF, a) == kErrOk) {
+          t.sub[0] = static_cast<uint16_t>(a[0]);
+          t.sub[1] = static_cast<uint16_t>(a[1]);
+          t.sub_set = true;
+        }
+        break;
+      }
+      case kYccCoefficients: {
+        float f[3];
+        if (read_floats(s, e, 3, f)) std::copy(f, f + 3, t.luma);
+        break;
+      }
+      case kRefBlackWhite:
+        if (read_floats(s, e, 6, t.refbw)) t.refbw_set = true;
+        break;
+      case kWhitePoint: {
+        float f[2];
+        if (read_floats(s, e, 2, f)) std::copy(f, f + 2, t.white);
+        break;
+      }
+      case kJpegTables:  // a field of the JPEG codec alone
+        if (t.compression == 7 && e.count <= 0xFFFFFFFFu && e.count > 0 &&
+            read_byte_array(s, e, t.jpegtables))
+          t.tables_set = true;
+        break;
       default:
         break;
     }
@@ -479,16 +771,7 @@ bool read_dir(Dir& t) {
     return false;
   auto offset = [&](uint32_t i) { return t.offsets.empty() ? 0 : t.offsets[i]; };
   auto count = [&](uint32_t i) { return t.counts.empty() ? 0 : t.counts[i]; };
-  t.scanline = file_scanline(t);
-  if (t.tiled) {  // TIFFTileRowSize64, TIFFTileSize64 (0 on overflow)
-    const uint64_t samples = t.planar == 2 ? 1 : t.spp;
-    const uint64_t bits = uint64_t{t.bps} * t.tw;
-    const uint64_t row_bits =
-        samples && bits > UINT64_MAX / samples ? 0 : bits * samples;
-    t.chunk_row = (row_bits + 7) / 8;
-    t.chunk_size = t.chunk_row && t.th > UINT64_MAX / t.chunk_row
-                       ? 0 : t.chunk_row * t.th;
-  }
+  set_sizes(t);
   const uint64_t filesize = s.n;
   // EstimateStripByteCounts
   auto estimate = [&]() {
@@ -541,17 +824,16 @@ bool read_dir(Dir& t) {
   }
   if (t.offsets.empty()) t.offsets.assign(t.nstrips, 0);
   if (t.counts.empty()) t.counts.assign(t.nstrips, 0);
+  // JPEGFixupTags: contiguous 3-sample YCbCr JPEG without the subsampling
+  // tag takes it from the first strip's or tile's frame
+  if (t.compression == 7 && t.photometric == 6 && t.planar == 1 &&
+      t.spp == 3 && !t.sub_set)
+    jpeg_fixup(t);
   // "Cannot handle zero scanline size", "... zero tile size", "... zero
   // strip size" (a strip or tile past INT64_MAX bytes reads as size 0 too)
-  if (t.scanline == 0) return false;
-  if (t.tiled)
-    return t.chunk_size && t.chunk_size <= static_cast<uint64_t>(INT64_MAX);
-  const uint64_t strip_rows = std::min<uint64_t>(t.rps, t.h);
-  if (t.h == 0 || t.scanline > static_cast<uint64_t>(INT64_MAX) / strip_rows)
-    return false;
-  t.chunk_row = t.scanline;
-  t.chunk_size = t.scanline * strip_rows;
-  return true;
+  set_sizes(t);
+  if (t.scanline == 0 || (!t.tiled && t.h == 0)) return false;
+  return t.chunk_size && t.chunk_size <= static_cast<uint64_t>(INT64_MAX);
 }
 
 // ------------------------------------------------------------ decoders
@@ -736,9 +1018,11 @@ bool lzw_compat(const Dir& t) {
 }
 
 // One strip's or tile's bytes as libtiff's decoder gives them: false on a
-// decoder error (what it wrote stays, unswapped), else 16-bit samples of a
-// big-endian file swapped to the host's order and the horizontal
-// predictor applied row by row.
+// decoder error (what it wrote stays, unswapped; PackBits, LZW and deflate
+// zero the rest, an uncompressed chunk too short or a number that names no
+// codec leave the buffer as it was), else 16-bit samples of a big-endian
+// file swapped to the host's order and the horizontal predictor applied
+// row by row.
 bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
                   size_t occ, bool compat) {
   bool ok;
@@ -747,9 +1031,20 @@ bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
       ok = cc >= occ;
       if (ok) std::memcpy(out, in, occ);
       break;
-    case 32773: ok = packbits(in, cc, out, occ); break;
-    case 5: ok = lzw(in, cc, out, occ, compat); break;
-    default: ok = deflate_strip(in, cc, out, occ); break;
+    // the others zero what they leave undecoded
+    case 32773:
+      std::memset(out, 0, occ);
+      ok = packbits(in, cc, out, occ);
+      break;
+    case 5:
+      std::memset(out, 0, occ);
+      ok = lzw(in, cc, out, occ, compat);
+      break;
+    case 8: case 32946:
+      std::memset(out, 0, occ);
+      ok = deflate_strip(in, cc, out, occ);
+      break;
+    default: ok = false; break;  // no codec: "decoding is not implemented"
   }
   if (!ok) return false;
   if (t.bps == 16 && t.src.be)
@@ -793,6 +1088,11 @@ bool chunk_at(const Dir& t, uint32_t chunk, uint64_t& off, uint64_t& bc) {
          (t.predictor == 2 && (t.bps == 8 || t.bps == 16));
 }
 
+// FillOrder 2 reverses the raw bytes' bits, but for JPEG (TIFF_NOBITREV).
+bool bits_reversed(const Dir& t) {
+  return t.fillorder == 2 && t.compression != 7;
+}
+
 // The chunk's raw bytes (bits reversed for FillOrder 2), or false where
 // libtiff refuses to read it.
 bool chunk_bytes(const Dir& t, uint32_t chunk, std::vector<uint8_t>& raw) {
@@ -800,7 +1100,7 @@ bool chunk_bytes(const Dir& t, uint32_t chunk, std::vector<uint8_t>& raw) {
   if (!chunk_at(t, chunk, off, bc)) return false;
   raw.resize(bc);
   if (!t.src.read(off, bc, raw.data())) return false;
-  if (t.fillorder == 2)
+  if (bits_reversed(t))
     for (uint8_t& b : raw) b = reversed(b);
   return true;
 }
@@ -813,17 +1113,210 @@ void set_image(Image* img, int w, int h) {
   img->rgb.assign(static_cast<size_t>(w) * h * 3, 0);
 }
 
+// ------------------------------------------------------------ JPEG (7)
+
+// libtiff's JPEG codec over one chunk (tif_jpeg.c: JPEGSetupDecode once
+// the JPEGTables stream reads, JPEGPreDecode, JPEGDecode) into `out`, occ
+// bytes, zeroed: -1 where libtiff fails before decoding (the tables; the
+// stream's header; a frame larger than the strip or tile, its component
+// count, precision or sampling factors; libjpeg's start), else 1 (libjpeg
+// recovers damaged data, and the JPEG decoder fails on nothing after its
+// start). `frame`, where given, gets the stream's width and height.
+struct JpegCodec {
+  TiffJpeg jpeg;
+  bool setup = false;
+};
+
+int jpeg_chunk(JpegCodec& jc, const Dir& t, uint32_t chunk,
+               const uint8_t* in, size_t cc, uint8_t* out, size_t occ,
+               int* frame = nullptr) {
+  if (!jc.setup) {
+    if (t.tables_set &&
+        !jc.jpeg.tables(t.jpegtables.data(), t.jpegtables.size()))
+      return -1;  // "Bogus JPEGTables field"
+    jc.setup = true;
+  }
+  TiffJpeg::Frame f;
+  if (!jc.jpeg.header(in, cc, f)) return -1;
+  // the strip's or tile's size (planes past the first of separate YCbCr
+  // planes subsampled)
+  const uint32_t plane = chunk / t.per_plane;
+  const uint64_t hsamp = t.photometric == 6 ? t.sub[0] : 1;
+  const uint64_t vsamp = t.photometric == 6 ? t.sub[1] : 1;
+  uint64_t sw = t.tiled ? t.tw : t.w, sh = t.th, row = 0;
+  if (!t.tiled) {
+    row = uint64_t{chunk % t.per_plane} * t.rps;
+    sh = std::min<uint64_t>(t.h - row, t.rps);
+  }
+  if (t.planar == 2 && plane > 0) {
+    if (!hsamp || !vsamp) return -1;
+    sw = (sw + hsamp - 1) / hsamp;
+    sh = (sh + vsamp - 1) / vsamp;
+  }
+  // a last strip whose frame runs past the image passes
+  const bool long_last = uint64_t{static_cast<uint32_t>(f.w)} == sw &&
+                         static_cast<uint64_t>(f.h) > sh && row + sh == t.h &&
+                         !t.tiled;
+  if (!long_last && (static_cast<uint64_t>(f.w) > sw ||
+                     static_cast<uint64_t>(f.h) > sh))
+    return -1;
+  if (f.ncomp != (t.planar == 1 ? t.spp : 1)) return -1;
+  if (t.bps != 8) return -1;  // "Improper JPEG data precision"
+  if (t.planar == 1) {
+    if (static_cast<uint64_t>(f.hs[0]) != hsamp ||
+        static_cast<uint64_t>(f.vs[0]) != vsamp)
+      return -1;  // "Improper JPEG sampling factors"
+    for (int c = 1; c < f.ncomp; c++)
+      if (f.hs[c] != 1 || f.vs[c] != 1) return -1;
+  } else if (f.hs[0] != 1 || f.vs[0] != 1) {
+    return -1;
+  }
+  std::vector<uint8_t> px;
+  if (!jc.jpeg.decode(t.up, px)) return -1;
+  // JPEGDecode: whole rows of the strip's or tile's row size, at most the
+  // frame's
+  const uint64_t line = t.tiled ? t.chunk_row : t.scanline;
+  if (!line) return 0;
+  const uint64_t rows = std::min<uint64_t>(occ / line, f.h);
+  const size_t width = static_cast<size_t>(f.w) * (t.up ? 3 : f.ncomp);
+  for (uint64_t r = 0; r < rows; r++)
+    std::memcpy(out + r * line, &px[r * width], width);
+  if (frame) {
+    frame[0] = f.w;
+    frame[1] = f.h;
+  }
+  // jpeg_finish_decompress reads on to EOI once every row is out; libtiff
+  // counts its failure (CALLJPEG's -1) as success
+  if (rows == static_cast<uint64_t>(f.h)) jc.jpeg.finish();
+  return 1;
+}
+
 // ------------------------------------------------- libtiff's RGBA reader
 
 // TIFFRGBAImage's routines that put a chunk's samples into its raster, by
 // the samples' bits: contiguous gray (8 bits, with or without alpha; 16
 // bits, the high byte) or bilevel (1 bit), palette (8, 4 or 1 bits), RGB (8
 // or 16 bits), and separate planes of RGB (gray read as R = G = B); RGB's
-// unassociated alpha premultiplied.
-enum Put { kPutNone, kGrey, kBw, kCmap, kRgb, kSepRgb };
+// unassociated alpha premultiplied; 8-bit CMYK (contiguous, or 4 separate
+// planes), 8-bit YCbCr (contiguous in sampling blocks of 1, 2 or 4 x 1, 2
+// or 4, or separate 1 x 1), CIELAB of 8 or 16 bits.
+enum Put { kPutNone, kGrey, kBw, kCmap, kRgb, kSepRgb, kCmyk, kSepCmyk,
+           kYcc, kSepYcc, kLab };
+
+// TIFFYCbCrToRGBInit's tables (tif_color.c) and TIFFYCbCrtoRGB.
+struct YccToRgb {
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256], y[256];
+  uint32_t pack(unsigned yy, unsigned cb, unsigned cr) const {
+    const int32_t yv = y[yy];
+    auto clamp = [](int32_t v) { return static_cast<uint32_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
+    const uint32_t r = clamp(yv + cr_r[cr]);
+    const uint32_t g = clamp(yv + ((cb_g[cb] + cr_g[cr]) >> 16));
+    const uint32_t b = clamp(yv + cb_b[cb]);
+    return r | g << 8 | b << 16;
+  }
+};
+
+// initYCbCrConversion: false where it refuses the coefficients (NaN, a
+// green of 0) or ReferenceBlackWhite (NaN, or past the int range).
+bool init_ycc(const Dir& t, YccToRgb& c) {
+  const float* luma = t.luma;
+  float rbw[6] = {0.0f, 255.0f, 128.0f, 255.0f, 128.0f, 255.0f};
+  if (t.refbw_set) std::copy(t.refbw, t.refbw + 6, rbw);
+  if (std::isnan(luma[0]) || std::isnan(luma[1]) || luma[1] == 0.0f ||
+      std::isnan(luma[2]))
+    return false;
+  for (float f : rbw)
+    if (!(f > static_cast<float>(-0x7FFFFFFF + 128) &&
+          f < static_cast<float>(0x7FFFFFFF)))
+      return false;
+  auto clampf = [](float f, float lo, float hi) {
+    return !(f >= lo) ? lo : f > hi ? hi : f;
+  };
+  auto fix = [](float x) {
+    return static_cast<int32_t>(x * static_cast<float>(1L << 16) + 0.5);
+  };
+  const float f1 = 2 - 2 * luma[0];
+  const int32_t d1 = fix(clampf(f1, 0.0f, 2.0f));
+  const float f2 = luma[0] * f1 / luma[1];
+  const int32_t d2 = -fix(clampf(f2, 0.0f, 2.0f));
+  const float f3 = 2 - 2 * luma[2];
+  const int32_t d3 = fix(clampf(f3, 0.0f, 2.0f));
+  const float f4 = luma[2] * f3 / luma[1];
+  const int32_t d4 = -fix(clampf(f4, 0.0f, 2.0f));
+  // Code2V, then clamped to +-4096
+  auto code2v = [](int32_t v, float rb, float rw, float cr) {
+    const float range = rw - rb != 0 ? rw - rb : 1;
+    return static_cast<float>(v - static_cast<int32_t>(rb)) * cr / range;
+  };
+  auto clampw = [](float f) {
+    return static_cast<int32_t>(f < -4096.0f ? -4096.0f : f > 4096.0f ? 4096.0f : f);
+  };
+  for (int i = 0, x = -128; i < 256; i++, x++) {
+    const int32_t cr = clampw(code2v(x, rbw[4] - 128.0f, rbw[5] - 128.0f, 127));
+    const int32_t cb = clampw(code2v(x, rbw[2] - 128.0f, rbw[3] - 128.0f, 127));
+    c.cr_r[i] = (d1 * cr + (1 << 15)) >> 16;
+    c.cb_b[i] = (d3 * cb + (1 << 15)) >> 16;
+    c.cr_g[i] = d2 * cr;
+    c.cb_g[i] = d4 * cb + (1 << 15);
+    c.y[i] = clampw(code2v(x + 128, rbw[0], rbw[1], 255));
+  }
+  return true;
+}
+
+// TIFFCIELabToRGBInit for the reader's display (sRGB, gamma 2.4) and the
+// file's white point, TIFFCIELab16ToXYZ and TIFFXYZToRGB, in floats.
+struct LabToRgb {
+  static constexpr int kRange = 1500;
+  float x0, y0, z0, step;
+  float table[kRange + 1];
+  // false where the white point's Y is 0
+  bool init(const float* white) {
+    if (white[1] == 0.0f) return false;
+    y0 = 100.0f;
+    x0 = white[0] / white[1] * y0;
+    z0 = (1.0f - white[0] - white[1]) / white[1] * y0;
+    step = (100.0f - 1.0f) / kRange;
+    const double gamma = 1.0 / 2.4f;
+    for (int i = 0; i <= kRange; i++)
+      table[i] = 255u * static_cast<float>(
+                            std::pow(static_cast<double>(i) / kRange, gamma));
+    return true;
+  }
+  uint32_t pack(uint32_t l16, int32_t a16, int32_t b16) const {
+    const float l = static_cast<float>(l16) * 100.0f / 65535.0f;
+    float cby, x, y, z;
+    if (l < 8.856f) {
+      y = (l * y0) / 903.292f;
+      cby = 7.787f * (y / y0) + 16.0f / 116.0f;
+    } else {
+      cby = (l + 16.0f) / 116.0f;
+      y = y0 * cby * cby * cby;
+    }
+    float tmp = static_cast<float>(a16) / 256.0f / 500.0f + cby;
+    x = tmp < 0.2069f ? x0 * (tmp - 0.13793f) / 7.787f : x0 * tmp * tmp * tmp;
+    tmp = cby - static_cast<float>(b16) / 256.0f / 200.0f;
+    z = tmp < 0.2069f ? z0 * (tmp - 0.13793f) / 7.787f : z0 * tmp * tmp * tmp;
+    static const float m[9] = {3.2410f, -1.5374f, -0.4986f, -0.9692f, 1.8760f,
+                               0.0416f, 0.0556f, -0.2040f, 1.0570f};
+    uint32_t out = 0;
+    for (int k = 0; k < 3; k++) {
+      float v = m[3 * k] * x + m[3 * k + 1] * y + m[3 * k + 2] * z;
+      v = std::max(v, 1.0f);
+      v = std::min(v, 100.0f);
+      int i = static_cast<int>((v - 1.0f) / step);
+      i = std::min(kRange, i);
+      const float f = table[i];
+      uint32_t c = static_cast<uint32_t>(f > 0 ? f + 0.5 : f - 0.5);
+      c = std::min<uint32_t>(c, 255);
+      out |= c << (8 * k);
+    }
+    return out;
+  }
+};
 
 // The reader's state over one file: its routine and tables, as
-// TIFFRGBAImageBegin sets them up, and the raw buffer libtiff keeps.
+// TIFFRGBAImageBegin sets them up, the raw buffer libtiff keeps, and the
+// JPEG codec.
 struct Rgba {
   const Dir& t;
   Put put = kPutNone;
@@ -833,8 +1326,20 @@ struct Rgba {
   uint8_t grey[256];         // BWmap of 8/16-bit gray (MINISWHITE inverted)
   uint8_t bw[2];             // of 1-bit gray
   uint8_t pal[3][256];       // the palette as 8-bit values
+  int hs = 1, vs = 1;        // a YCbCr sampling block
+  YccToRgb ycc;
+  LabToRgb lab;
   bool compat = false;
   uint64_t rawdatasize = 0;  // tif_rawdatasize, for uncompressed tiles
+  bool two_pass = true;      // OpenCV's reads: checked, then decoded
+  JpegCodec jpeg;
+  // each JPEG chunk as the checking pass decoded it, for the decoding pass
+  struct Chunk {
+    int st;
+    std::vector<uint8_t> bytes;
+  };
+  std::vector<Chunk> decoded;
+  size_t next = 0;
   explicit Rgba(const Dir& dir) : t(dir) {}
 };
 
@@ -844,7 +1349,8 @@ uint8_t premul(unsigned v, unsigned a) {
 }
 
 // TIFFRGBAImageOK's and TIFFRGBAImageBegin's choice (PickContigCase,
-// PickSeparateCase): false where libtiff "can not handle image".
+// PickSeparateCase): false where libtiff "can not handle image". Contiguous
+// YCbCr JPEG data is read as RGB (libjpeg converts it).
 bool pick(Rgba& g) {
   const Dir& t = g.t;
   // the alpha: ExtraSamples' first value (unspecified is associated alpha
@@ -857,15 +1363,29 @@ bool pick(Rgba& g) {
     g.grey[x] = static_cast<uint8_t>(t.photometric == 0 ? 255 - x : x);
   g.bw[0] = t.photometric == 0 ? 255 : 0;
   g.bw[1] = t.photometric == 0 ? 0 : 255;
+  const int photometric = t.up ? 2 : t.photometric;
   if (t.planar == 2 && t.spp > 1) {
-    if (t.photometric > 2 || (b != 8 && b != 16)) return false;
+    if (photometric == 5) {
+      if (b == 8 && t.spp == 4) {
+        g.put = kSepCmyk;
+        g.alpha = true;  // K read as the fourth plane
+      }
+      return g.put != kPutNone;
+    }
+    if (photometric == 6) {
+      if (b == 8 && t.spp == 3 && init_ycc(t, g.ycc) && t.sub[0] == 1 &&
+          t.sub[1] == 1)
+        g.put = kSepYcc;
+      return g.put != kPutNone;
+    }
+    if (photometric > 2 || (b != 8 && b != 16)) return false;
     g.put = kSepRgb;
-    g.colors = t.photometric == 2 ? 3 : 1;
+    g.colors = photometric == 2 ? 3 : 1;
     g.alpha = alpha != 0;
     g.premultiply = alpha == 2;
     return true;
   }
-  switch (t.photometric) {
+  switch (photometric) {
     case 2:
       if ((b == 8 || b == 16) && t.spp >= 3) g.put = kRgb;
       g.premultiply = alpha == 2 && t.spp >= 4;
@@ -887,10 +1407,53 @@ bool pick(Rgba& g) {
     case 0: case 1:
       g.put = b == 16 || b == 8 ? kGrey : b == 1 ? kBw : kPutNone;
       break;
+    case 5:
+      if (t.spp >= 4 && b == 8) g.put = kCmyk;
+      break;
+    case 6: {
+      if (b != 8 || t.spp != 3 || !init_ycc(t, g.ycc)) break;
+      const int key = t.sub[0] << 4 | t.sub[1];
+      if (key == 0x44 || key == 0x42 || key == 0x41 || key == 0x22 ||
+          key == 0x21 || key == 0x12 || key == 0x11) {
+        g.put = kYcc;
+        g.hs = t.sub[0];
+        g.vs = t.sub[1];
+      }
+      break;
+    }
+    case 8:
+      if (t.spp == 3 && (b == 8 || b == 16) && g.lab.init(t.white))
+        g.put = kLab;
+      break;
     default:
       break;
   }
   return g.put != kPutNone;
+}
+
+// The YCbCr routines (putcontig8bitYCbCr44tile ... 11tile): blocks of hs x
+// vs Y samples, then Cb and Cr; a block at the right or bottom edge puts
+// the pixels that lie in the image. After each row of blocks the chunk
+// skips (fromskew / hs) blocks, of 4 x 2 + 2 bytes in the 4 x 4 routine
+// (libtiff's own slip, which skews clipped tiles).
+void put_ycc(const Rgba& g, std::vector<uint32_t>& raster, int64_t ci,
+             uint32_t w, uint32_t h, int64_t fromskew, int64_t toskew,
+             const uint8_t* pp) {
+  const int hs = g.hs, vs = g.vs, block = hs * vs + 2;
+  const int64_t skip = fromskew / hs * (hs == 4 && vs == 4 ? 10 : block);
+  const int64_t line = int64_t{w} + toskew;
+  for (uint32_t y = 0; y < h; y += vs) {
+    const uint32_t rows = std::min<uint32_t>(vs, h - y);
+    for (uint32_t x = 0; x < w; x += hs, pp += block) {
+      const uint32_t cols = std::min<uint32_t>(hs, w - x);
+      const unsigned cb = pp[hs * vs], cr = pp[hs * vs + 1];
+      for (uint32_t dy = 0; dy < rows; dy++)
+        for (uint32_t dx = 0; dx < cols; dx++)
+          raster[ci + (int64_t{y} + dy) * line + x + dx] =
+              g.ycc.pack(pp[dy * hs + dx], cb, cr);
+    }
+    pp += skip;
+  }
 }
 
 // The routine over a chunk's bytes (planes p[0..3] for separate planes), w
@@ -908,11 +1471,15 @@ void put_chunk(const Rgba& g, std::vector<uint32_t>& raster, int64_t ci,
     return r | gg << 8 | b << 16;
   };
   auto word = [](const uint8_t* q) { return unsigned(q[0] | q[1] << 8); };
-  auto sample = [&](const uint8_t* q, int k) {
-    return wide ? to8(word(q + 2 * k)) : unsigned{q[k]};
+  auto raw = [&](const uint8_t* q, int k) {
+    return wide ? word(q + 2 * k) : unsigned{q[k]};
   };
   const uint8_t* pp = p[0];
   int64_t pi = 0;  // into pp (into each plane, for separate planes)
+  if (g.put == kYcc) {
+    put_ycc(g, raster, ci, w, h, fromskew, toskew, pp);
+    return;
+  }
   if ((g.put == kBw || g.put == kCmap) && t.bps < 8) {
     const int bits = t.bps, per = 8 / bits;
     fromskew /= per;
@@ -942,18 +1509,44 @@ void put_chunk(const Rgba& g, std::vector<uint32_t>& raster, int64_t ci,
     }
     return;
   }
-  // RGB: contiguous samples `spp` apart, or one a plane
-  const int64_t step = g.put == kRgb ? spp : 1;
+  // RGB, CMYK, CIELAB: contiguous samples `spp` apart; separate RGB, CMYK
+  // and YCbCr: one a plane
+  const bool contig = g.put == kRgb || g.put == kCmyk || g.put == kLab;
+  const int64_t step = contig ? spp : 1;
   const int64_t unit = wide ? 2 : 1;
+  const int n = g.put == kCmyk || g.put == kSepCmyk || g.premultiply ? 4 : 3;
   fromskew *= step;
   for (; h > 0; --h) {
     for (uint32_t x = 0; x < w; x++, pi += step * unit) {
       unsigned v[4];
-      for (int k = 0; k < (g.premultiply ? 4 : 3); k++)
-        v[k] = g.put == kRgb ? sample(pp + pi, k) : sample(p[k] + pi, 0);
-      if (g.premultiply)
-        for (int k = 0; k < 3; k++) v[k] = premul(v[k], v[3]);
-      raster[ci++] = pack(v[0], v[1], v[2]);
+      for (int k = 0; k < n; k++)
+        v[k] = contig ? raw(pp + pi, k) : raw(p[k] + pi, 0);
+      uint32_t px;
+      switch (g.put) {
+        case kCmyk: case kSepCmyk: {  // k = 255 - K, r = k (255 - C) / 255
+          const unsigned k = 255 - v[3];
+          px = pack(k * (255 - v[0]) / 255, k * (255 - v[1]) / 255,
+                    k * (255 - v[2]) / 255);
+          break;
+        }
+        case kSepYcc:
+          px = g.ycc.pack(v[0], v[1], v[2]);
+          break;
+        case kLab:  // a* and b* signed; 8-bit values scaled to 16 bits
+          px = wide ? g.lab.pack(v[0], static_cast<int16_t>(v[1]),
+                                 static_cast<int16_t>(v[2]))
+                    : g.lab.pack(v[0] * 257, static_cast<int8_t>(v[1]) * 256,
+                                 static_cast<int8_t>(v[2]) * 256);
+          break;
+        default:
+          if (wide)
+            for (int k = 0; k < n; k++) v[k] = to8(v[k]);
+          if (g.premultiply)
+            for (int k = 0; k < 3; k++) v[k] = premul(v[k], v[3]);
+          px = pack(v[0], v[1], v[2]);
+          break;
+      }
+      raster[ci++] = px;
     }
     ci += toskew;
     pi += fromskew * unit;
@@ -962,32 +1555,59 @@ void put_chunk(const Rgba& g, std::vector<uint32_t>& raster, int64_t ci,
 
 // One chunk read into `buf` (zeroed, of the chunk's size) as the reader
 // reads it: -1 where it is refused before its bytes are read (libtiff's
-// TIFFFillStrip / TIFFFillTile fail, or an uncompressed tile of the wrong
-// size in the first plane's read), else 0, what the decoder wrote kept.
+// TIFFFillStrip / TIFFFillTile fail, an uncompressed tile of the wrong
+// size in the first plane's read, the JPEG codec's setup or start), else
+// 0, what the decoder wrote kept. The checking pass (`decode` false)
+// decodes JPEG chunks and keeps them for the decoding pass.
 int read_chunk(Rgba& g, uint32_t chunk, bool first, uint8_t* buf,
                size_t occ, bool decode) {
   const Dir& t = g.t;
-  uint64_t off, bc;
-  if (!chunk_at(t, chunk, off, bc)) return -1;
-  // the raw buffer: the file's mapping, or one grown to a multiple of
-  // 1 KiB where the bits are reversed
-  if (t.fillorder == 2) {
-    if (bc > g.rawdatasize) g.rawdatasize = (bc + 1023) / 1024 * 1024;
-  } else {
-    g.rawdatasize = bc;
+  if (decode && t.compression == 7 && g.two_pass) {
+    const Rgba::Chunk& c = g.decoded[g.next++];
+    std::memcpy(buf, c.bytes.data(), std::min(occ, c.bytes.size()));
+    return c.st < 0 ? -1 : 0;
   }
-  if (first && t.tiled) {
-    if (t.compression == 1 && g.rawdatasize != t.chunk_size)
-      return -1;  // "Invalid tile byte count"
-    // a buffer past 100 MB for data under a thousandth of the tile
-    const uint64_t buffer = t.chunk_size * (t.planar == 2 && t.spp > 1
-                                                ? (g.alpha ? 4 : 3) : 1);
-    if (t.compression != 1 && buffer > 100000000 &&
-        g.rawdatasize < t.chunk_size / 1000)
-      return -1;
-  }
-  if (!decode) return 0;
+  auto fill = [&]() {  // TIFFFillStrip / TIFFFillTile
+    uint64_t off, bc;
+    if (!chunk_at(t, chunk, off, bc)) return false;
+    // the raw buffer: the file's mapping, or one grown to a multiple of
+    // 1 KiB where the bits are reversed
+    if (bits_reversed(t)) {
+      if (bc > g.rawdatasize) g.rawdatasize = (bc + 1023) / 1024 * 1024;
+    } else {
+      g.rawdatasize = bc;
+    }
+    if (first && t.tiled) {
+      if (t.compression == 1 && g.rawdatasize != t.chunk_size)
+        return false;  // "Invalid tile byte count"
+      // a buffer past 100 MB for data under a thousandth of the tile
+      const uint64_t buffer = t.chunk_size * (t.planar == 2 && t.spp > 1
+                                                  ? (g.alpha ? 4 : 3) : 1);
+      if (t.compression != 1 && buffer > 100000000 &&
+          g.rawdatasize < t.chunk_size / 1000)
+        return false;
+    }
+    return true;
+  };
   std::vector<uint8_t> raw;
+  if (t.compression == 7) {
+    Rgba::Chunk c{-1, {}};
+    if (fill()) {
+      chunk_bytes(t, chunk, raw);
+      c.bytes.assign(occ, 0);
+      c.st = jpeg_chunk(g.jpeg, t, chunk, raw.data(), raw.size(),
+                        c.bytes.data(), occ);
+    }
+    const int st = c.st < 0 ? -1 : 0;
+    if (!g.two_pass) {  // Pillow's reads: straight into buf
+      if (st == 0) std::memcpy(buf, c.bytes.data(), occ);
+    } else {
+      g.decoded.push_back(std::move(c));
+    }
+    return st;
+  }
+  if (!fill()) return -1;
+  if (!decode) return 0;
   chunk_bytes(t, chunk, raw);
   decode_chunk(t, raw.data(), raw.size(), buf, occ, g.compat);
   return 0;
@@ -1007,9 +1627,19 @@ bool read_rgba(Rgba& g, uint32_t x0, uint32_t y0, Image* img) {
   const uint32_t across = t.tiled ? howmany32(t.w, t.tw) : 1;
   const uint32_t index = t.tiled ? y0 / t.th * across + x0 / t.tw : y0 / t.rps;
   const bool contig = !(t.planar == 2 && t.spp > 1);
-  // the rows a strip holds (the last strip fewer)
-  const uint64_t rows = t.tiled ? t.th : std::min<uint64_t>(ch, t.h - uint64_t{index} * ch);
-  const size_t occ = rows * t.chunk_row;
+  // gtStripContig reads whole rows of the (default) YCbCr sampling, which
+  // must not be 0; a strip's bytes (the last strip's fewer rows)
+  if (contig && !t.tiled && t.sub[1] == 0) return false;
+  size_t occ;
+  if (t.tiled) {
+    occ = t.chunk_size;
+  } else {
+    const uint64_t rows = std::min<uint64_t>(ch, t.h - uint64_t{index} * ch);
+    const uint64_t rows_read = contig ? (h + t.sub[1] - 1) / t.sub[1] * t.sub[1] : h;
+    occ = std::min<uint64_t>(strip_size(t, rows),
+                             rows_read > UINT64_MAX / std::max<uint64_t>(t.scanline, 1)
+                                 ? UINT64_MAX : rows_read * t.scanline);
+  }
   const size_t size = t.chunk_size;
   const int planes = contig ? 1 : g.colors + (g.alpha ? 1 : 0);
   std::vector<uint8_t> buf(decode ? size * (contig ? 1 : (g.alpha ? 4 : 3)) + 16 : 0);
@@ -1033,7 +1663,8 @@ bool read_rgba(Rgba& g, uint32_t x0, uint32_t y0, Image* img) {
   }
   // setorientation against the reader's bottom-left origin (5-8 as 1-4)
   const int o = t.orientation > 4 ? t.orientation - 4 : t.orientation;
-  const bool flip_v = o == 1 || o == 2, flip_h = o == 2 || o == 3;
+  const bool flip_v = o == 1 || o == 2;
+  const bool flip_h = o == 2 || o == 3;
   std::vector<uint32_t> raster(size_t{w} * h);
   const int64_t toskew = flip_v ? -2 * int64_t{w} : 0;
   put_chunk(g, raster, flip_v ? int64_t{h - 1} * w : 0, w, h,
@@ -1056,11 +1687,87 @@ bool read_rgba(Rgba& g, uint32_t x0, uint32_t y0, Image* img) {
   return true;
 }
 
+// Pillow's _decodeAsRGBA, one block of rows: TIFFRGBAImageGet of rows
+// [y0, y0 + h) at full width, as stored (Pillow's exif_transpose applies
+// the orientation afterwards), through gtStripContig or gtStripSeparate
+// over one strip, or gtTileContig or gtTileSeparate over a row of tiles,
+// which share one buffer (a tile that fails to decode puts what the buffer
+// holds past what it decoded), into the RGBA bytes of rows [y0, y0 + h):
+// false where the block's first read fails.
+bool read_band(Rgba& g, uint32_t y0, uint32_t h, std::vector<uint8_t>& rgba) {
+  const Dir& t = g.t;
+  const uint32_t W = t.w, cw = t.tiled ? t.tw : t.w;
+  const bool contig = !(t.planar == 2 && t.spp > 1);
+  if (contig && !t.tiled && t.sub[1] == 0) return false;
+  size_t occ = t.chunk_size;
+  if (!t.tiled) {
+    const uint64_t rows = std::min<uint64_t>(std::min(t.rps, t.h), t.h - y0);
+    const uint64_t rows_read = contig ? (h + t.sub[1] - 1) / t.sub[1] * t.sub[1] : h;
+    occ = std::min<uint64_t>(strip_size(t, rows), rows_read * t.scanline);
+  }
+  const size_t size = t.chunk_size;
+  const int planes = contig ? 1 : g.colors + (g.alpha ? 1 : 0);
+  std::vector<uint8_t> buf;
+  std::vector<uint32_t> raster(size_t{W} * h);
+  const uint32_t across = t.tiled ? howmany32(t.w, t.tw) : 1;
+  for (uint32_t x0 = 0; x0 < W; x0 += cw) {
+    const uint32_t w = std::min(cw, W - x0);
+    const uint32_t index = t.tiled ? y0 / t.th * across + x0 / t.tw : y0 / t.rps;
+    for (int k = 0; k < planes; k++) {
+      if (buf.empty()) {  // allocated once the first chunk's bytes read
+        std::vector<uint8_t> probe(occ + 16, 0);
+        if (read_chunk(g, index + k * t.per_plane, k == 0, probe.data(), occ, true) < 0)
+          return false;
+        buf.assign(size * (contig ? 1 : (g.alpha ? 4 : 3)) + 16, 0);
+        std::memcpy(buf.data(), probe.data(), occ);
+        continue;
+      }
+      // a chunk that fails to read zeroes what was asked of it
+      uint8_t* dst = buf.data() + size * (contig || g.colors == 1 ? (k == 0 ? 0 : 3) : k);
+      if (read_chunk(g, index + k * t.per_plane, k == 0, dst, occ, true) < 0)
+        std::memset(dst, 0, occ);
+    }
+    const uint8_t* p[4] = {buf.data(), buf.data(), buf.data(), buf.data() + 3 * size};
+    if (!contig && g.colors != 1) {
+      p[1] = buf.data() + size;
+      p[2] = buf.data() + 2 * size;
+    }
+    put_chunk(g, raster, x0, w, h, int64_t{cw} - w, int64_t{W} - w, p);
+  }
+  for (size_t i = 0; i < raster.size(); i++)  // PACK's opaque alpha
+    for (int k = 0; k < 4; k++)
+      rgba[(size_t{y0} * W + i) * 4 + k] =
+          static_cast<uint8_t>(k == 3 ? 255 : raster[i] >> (8 * k));
+  return true;
+}
+
 // True where the directory holds a layout the port decodes: strips or
-// tiles of gray, RGB or palette samples, with any extra samples, either
-// planar configuration or fill order, compressed as TIFF part 1.
+// tiles of gray, RGB, palette, CMYK, YCbCr or CIELAB samples, with any
+// extra samples, either planar configuration or fill order, compressed as
+// TIFF part 1, with JPEG, or with a number that names no codec.
 bool decoded_layout(const Dir& t) {
-  return t.photometric <= 3 && part1_compression(t.compression);
+  return !part2c_codec(t.compression);
+}
+
+// Every strip or tile through the RGBA reader, checked first (a chunk
+// libtiff refuses refuses the image before it is allocated), into img (or
+// the checks alone): false where a call fails.
+bool read_all(Rgba& g, uint64_t tile_w, uint64_t tile_h, Image* img) {
+  const Dir& t = g.t;
+  for (int pass = 0; pass < (img ? 2 : 1); pass++) {
+    g.rawdatasize = 0;
+    g.next = 0;
+    if (pass) {
+      set_image(img, static_cast<int>(t.w), static_cast<int>(t.h));
+      g.compat = lzw_compat(t);
+    }
+    for (uint64_t y = 0; y < t.h; y += tile_h)
+      for (uint64_t x = 0; x < t.w; x += tile_w)
+        if (!read_rgba(g, static_cast<uint32_t>(x), static_cast<uint32_t>(y),
+                       pass ? img : nullptr))
+          return false;
+  }
+  return true;
 }
 
 // ------------------------------------------------------------------ cv2
@@ -1086,6 +1793,7 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
   if (tile_h == 0) tile_h = t.h;
   if (tile_w > (1u << 24) || tile_h > (1u << 24)) return kUnreadable;
   // TIFFRGBAImageOK and TIFFRGBAImageBegin
+  if (not_configured(t.compression)) return kUnreadable;
   if (b != 1 && b != 4 && b != 8 && b != 16) return kUnreadable;
   if (t.sampleformat == 3) return kUnreadable;
   const int colors = t.spp - t.extrasamples;
@@ -1098,16 +1806,21 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
       break;
     case 6: break;
     case 5:
-      if (t.spp < 4) return kUnreadable;
+      if (t.inkset != 1 || t.spp < 4) return kUnreadable;
       break;
     case 8:
-      if (t.spp != 3 || colors != 3) return kUnreadable;
+      if (t.spp != 3 || colors != 3 || (b != 8 && b != 16)) return kUnreadable;
       break;
     default:
       return kUnreadable;
   }
   if (4 * tile_h * tile_w >= (uint64_t{1} << 30)) return kUnreadable;
   if (!decoded_layout(t)) return kTiff;
+  // TIFFRGBAImageBegin: libjpeg turns contiguous YCbCr JPEG into RGB
+  if (t.compression == 7 && t.photometric == 6 && t.planar == 1) {
+    t.up = true;
+    set_sizes(t);
+  }
   Rgba g(t);
   if (!pick(g)) return kUnreadable;
   // 5-8: imread transposes what the decoder gives, which fails but for a
@@ -1116,20 +1829,7 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
   dims[0] = static_cast<int>(t.h);
   dims[1] = static_cast<int>(t.w);
   if (head) return kOk;
-  // every call: a chunk libtiff refuses refuses the image (checked before
-  // the image is allocated)
-  for (int pass = 0; pass < (img ? 2 : 1); pass++) {
-    g.rawdatasize = 0;
-    if (pass) {
-      set_image(img, static_cast<int>(t.w), static_cast<int>(t.h));
-      g.compat = lzw_compat(t);
-    }
-    for (uint64_t y = 0; y < t.h; y += tile_h)
-      for (uint64_t x = 0; x < t.w; x += tile_w)
-        if (!read_rgba(g, static_cast<uint32_t>(x), static_cast<uint32_t>(y),
-                       pass ? img : nullptr))
-          return kUnreadable;
-  }
+  if (!read_all(g, tile_w, tile_h, img)) return kUnreadable;
   if (img && t.orientation >= 5) {  // transposed (5, 7) or anti-transposed
     const Image in = *img;
     const size_t n = t.w;
@@ -1301,9 +2001,9 @@ bool pil_nums(const Pil& p, uint16_t tag, std::vector<int64_t>& v) {
   return true;
 }
 
-// Pillow's OPEN_INFO for gray, RGB and palette: (byte orders: 1 "II", 2
-// "MM", 3 both; Photometric, SampleFormat, FillOrder, BitsPerSample,
-// ExtraSamples) -> (mode, rawmode).
+// Pillow's OPEN_INFO: (byte orders: 1 "II", 2 "MM", 3 both; Photometric,
+// SampleFormat, FillOrder, BitsPerSample, ExtraSamples) -> (mode,
+// rawmode).
 struct OpenInfo {
   int prefix, photo, sf, fill;
   std::vector<int64_t> bps, extra;
@@ -1378,15 +2078,24 @@ const std::vector<OpenInfo>& open_info() {
     {3, 3, 1, 2, {8}, {}, "P", "P;R"},
     {3, 3, 1, 1, {8, 8}, {0}, "P", "PX"},
     {3, 3, 1, 1, {8, 8}, {2}, "PA", "PA"},
+    {3, 5, 1, 1, {8, 8, 8, 8}, {}, "CMYK", "CMYK"},
+    {3, 5, 1, 1, {8, 8, 8, 8, 8}, {0}, "CMYK", "CMYKX"},
+    {3, 5, 1, 1, {8, 8, 8, 8, 8, 8}, {0, 0}, "CMYK", "CMYKXX"},
+    {1, 5, 1, 1, {16, 16, 16, 16}, {}, "CMYK", "CMYK;16L"},
+    {2, 5, 1, 1, {16, 16, 16, 16}, {}, "CMYK", "CMYK;16B"},
+    {3, 6, 1, 1, {8}, {}, "L", "L"},
+    {3, 6, 1, 1, {8, 8, 8}, {}, "RGB", "RGBX"},
+    {3, 8, 1, 1, {8, 8, 8}, {}, "LAB", "LAB"},
   };
   return table;
 }
 
-// The modes the port decodes (Pillow's "I" and "F" are TIFF part 2b).
+// The modes the port decodes (Pillow's "I" and "F", and "LAB", whose
+// convert("RGB") is LittleCMS's transform, are TIFF part 2c).
 bool decoded_mode(const std::string& mode) {
   return mode == "1" || mode == "L" || mode == "LA" || mode == "P" ||
          mode == "PA" || mode == "I;16" || mode == "I;16B" || mode == "RGB" ||
-         mode == "RGBA";
+         mode == "RGBA" || mode == "CMYK";
 }
 
 // The bits a pixel of one of Pillow's unpackers (rawmodes) reads, or 0
@@ -1405,7 +2114,10 @@ int raw_bits(const std::string& mode, const std::string& raw) {
       {"RGBA;16N", 64}, {"RGBX;16L", 64}, {"RGBX;16B", 64},
       {"RGBX;16N", 64}, {"RGBa;16L", 64}, {"RGBa;16B", 64},
       {"RGBa;16N", 64}, {"R", 8}, {"G", 8}, {"B", 8}, {"A", 8},
-      {"R;16N", 16}, {"G;16N", 16}, {"B;16N", 16}, {"A;16N", 16}};
+      {"R;16N", 16}, {"G;16N", 16}, {"B;16N", 16}, {"A;16N", 16},
+      {"CMYK", 32}, {"CMYKX", 40}, {"CMYKXX", 48}, {"CMYK;16L", 64},
+      {"CMYK;16B", 64}, {"CMYK;16N", 64}, {"C", 8}, {"M", 8}, {"Y", 8},
+      {"K", 8}};
   // one band: the planes of planar files (8 or 16 bits of an RGB(A) band),
   // or a whole one-band mode
   const bool band16 = raw.size() == 5 && raw.compare(1, 4, ";16N") == 0 &&
@@ -1414,6 +2126,9 @@ int raw_bits(const std::string& mode, const std::string& raw) {
     const char c = raw[0];
     if ((c == 'R' || c == 'G' || c == 'B') && (mode == "RGB" || mode == "RGBA"))
       return raw.size() == 1 ? 8 : 16;
+    if (raw.size() == 1 && mode == "CMYK" &&
+        std::string("CMYK").find(c) != std::string::npos)
+      return 8;
     if (c == 'A' && mode == "RGBA") return raw.size() == 1 ? 8 : 16;
     if (raw != mode) return 0;
   }
@@ -1476,14 +2191,25 @@ void unpack(const std::string& raw, const uint8_t* in, size_t n, Px* px) {
   }
   if (raw.size() == 1 || (raw.size() == 5 && raw.compare(1, 4, ";16N") == 0)) {
     // one band, 8 or 16 bits
-    const int band = raw[0] == 'R' || raw[0] == 'L' || raw[0] == 'P' || raw[0] == '1'
-                         ? 0 : raw[0] == 'G' ? 1 : raw[0] == 'B' ? 2 : 3;
+    const char c = raw[0];
+    const int band = c == 'R' || c == 'L' || c == 'P' || c == '1' || c == 'C'
+                         ? 0 : c == 'G' || c == 'M' ? 1
+                         : c == 'B' || c == 'Y' ? 2 : 3;
     for (size_t x = 0; x < n; x++)
       px[x].v[band] = raw.size() == 1 ? in[x] : in[2 * x + 1];
     return;
   }
-  // RGB and RGBA, 8 or 16 bits (the high byte), X samples skipped
+  // RGB, RGBA and CMYK, 8 or 16 bits (the high byte), X samples skipped
   const bool wide = raw.find(";16") != std::string::npos;
+  if (raw.rfind("CMYK", 0) == 0) {
+    const size_t step = (wide ? 2 : 1) * raw.substr(0, raw.find(';')).size();
+    const bool big = raw.back() == 'B';
+    for (size_t x = 0; x < n; x++) {
+      const uint8_t* q = in + x * step;
+      for (int k = 0; k < 4; k++) px[x].v[k] = wide ? q[2 * k + (big ? 0 : 1)] : q[k];
+    }
+    return;
+  }
   const bool big = raw.back() == 'B';
   const std::string base = raw.substr(0, raw.find(';'));
   const size_t step = (wide ? 2 : 1) * base.size();
@@ -1511,6 +2237,12 @@ void to_rgb(const std::string& mode, const Px& px, const std::vector<uint8_t>& p
     }
   } else if (mode == "RGB" || mode == "RGBA") {
     for (int k = 0; k < 3; k++) o[k] = static_cast<uint8_t>(px.v[k]);
+  } else if (mode == "CMYK") {  // cmyk2rgb: nk - round(v nk / 255)
+    const int nk = 255 - px.v[3];
+    for (int k = 0; k < 3; k++) {
+      const int tmp = px.v[k] * nk + 128;
+      o[k] = static_cast<uint8_t>(std::clamp(nk - (((tmp >> 8) + tmp) >> 8), 0, 255));
+    }
   } else {  // 1, L, LA, I;16 (clipped)
     o[0] = o[1] = o[2] = static_cast<uint8_t>(std::min<unsigned>(px.v[0], 255));
   }
@@ -1590,7 +2322,8 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
   const std::string mode = info->mode;
   if (!decoded_mode(mode) || std::string(info->raw) == "I;12") return kTiff;
   const bool raw = comp == 1;
-  if (!raw && !part1_compression(static_cast<int>(comp))) return kTiff;
+  if (!raw && !part1_compression(static_cast<int>(comp)) && comp != 7)
+    return kTiff;
   const int bps_count = (photo == 2 || photo == 6 || photo == 8 ? 3 : photo == 5 ? 4 : 1) +
                         static_cast<int>(extra.size());
   int64_t bps_sum = 0;
@@ -1665,8 +2398,8 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
   // as oriented: 5-8 read its bytes as an image of w rows of h
   const bool mappable =
       raw && tiles.size() == 1 && tiles[0].raw == mode &&
-      (mode == "L" || mode == "P" || mode == "RGBA" || mode == "I;16" ||
-       mode == "I;16B");
+      (mode == "L" || mode == "P" || mode == "RGBA" || mode == "CMYK" ||
+       mode == "I;16" || mode == "I;16B");
   const int64_t sw = swap ? h : w, sh = swap ? w : h;
   const bool mapped =
       mappable && !(tiles[0].off + sh * tiles[0].stride > static_cast<int64_t>(src.n));
@@ -1681,7 +2414,8 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
   std::vector<Px> px(static_cast<size_t>(iw * ih));
   if (mapped) {
     const Tile& t = tiles[0];
-    const int64_t unit = mode == "L" || mode == "P" ? 1 : mode == "RGBA" ? 4 : 2;
+    const int64_t unit = mode == "L" || mode == "P" ? 1
+                         : mode == "RGBA" || mode == "CMYK" ? 4 : 2;
     const int64_t stride = t.stride > 0 ? t.stride : iw * unit;
     // "buffer is not large enough"
     if (t.off < 0 || t.off > static_cast<int64_t>(src.n) ||
@@ -1757,16 +2491,47 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     // order: libtiff reverses them for FillOrder 2)
     Dir t;
     t.src = src;
-    if (!read_dir(t) || t.w != w || t.h != h || !part1_compression(t.compression))
+    if (!read_dir(t) || t.w != w || t.h != h ||
+        !(part1_compression(t.compression) || t.compression == 7))
       return kUnreadable;
-    if (t.photometric == 6) return kTiff;  // read as RGBA by Pillow
+    if (t.photometric == 6 && !(t.compression == 7 && t.planar == 1)) {
+      // _decodeAsRGBA: libtiff's RGBA reader, a strip or a row of tiles at
+      // a time, with a top-left origin
+      if (t.bps != 1 && t.bps != 2 && t.bps != 4 && t.bps != 8 && t.bps != 16)
+        return kUnreadable;
+      if (t.sampleformat == 3) return kUnreadable;
+      Rgba g(t);
+      g.two_pass = false;
+      if (!pick(g)) return kUnreadable;
+      g.compat = lzw_compat(t);
+      const uint32_t block = t.tiled ? t.th : t.rps == 0xFFFFFFFFu ? t.h : t.rps;
+      // a block's RGBA buffer past INT_MAX bytes is IMAGING_CODEC_MEMORY
+      if (INT32_MAX / 4 < t.w || INT32_MAX / (t.w * 4) < block) return kUnreadable;
+      std::vector<uint8_t> rgba(size_t{t.w} * t.h * 4);
+      for (uint32_t y = 0; y < t.h; y += block)
+        if (!read_band(g, y, std::min(block, t.h - y), rgba)) return kUnreadable;
+      // each row's RGBA bytes through Pillow's unpacker (RGBX; L takes
+      // them byte by byte)
+      for (int64_t y = 0; y < h; y++)
+        unpack(info->raw, &rgba[size_t(y * w) * 4], static_cast<size_t>(w), &px[y * w]);
+    } else {
+    // YCbCr JPEG in one plane: libjpeg gives RGB (JPEGCOLORMODE_RGB)
+    if (t.photometric == 6) {
+      t.up = true;
+      set_sizes(t);
+    }
     std::string r = fillorder == 2 ? lookup(1)->raw : info->raw;
+    if (photo == 6 && comp == 7 && planar == 1) {
+      if (mode != "RGB") return kUnreadable;  // no RGB unpacker of mode L
+      r = "RGB";
+    }
     if (r == "I;16") r = "I;16N";
     else if (r.size() > 4 && (r.substr(r.size() - 4) == ";16B" || r.substr(r.size() - 4) == ";16L"))
       r = r.substr(0, r.size() - 1) + "N";
     const int bits = raw_bits(mode, r);
     if (!bits) return kUnreadable;
-    const int bands = mode == "RGB" ? 3 : mode == "RGBA" ? 4 : mode == "LA" || mode == "PA" ? 2 : 1;
+    const int bands = mode == "RGB" ? 3 : mode == "RGBA" || mode == "CMYK" ? 4
+                  : mode == "LA" || mode == "PA" ? 2 : 1;
     const bool separate = t.planar == 2 && bands > 1;
     if (separate && t.bps != 8 && t.bps != 16) return kUnreadable;
     const int planes = separate ? bands : 1;
@@ -1781,9 +2546,19 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     // (zeros past the chunk: an unpacker that reads more bytes a row than
     // libtiff's row holds reads on into them)
     const size_t pad = (static_cast<size_t>(std::max<int64_t>(w, t.tw)) * 64 + 7) / 8;
-    auto read = [&](uint32_t chunk, size_t size) {
+    JpegCodec jpeg;
+    // a chunk, of which Pillow unpacks `cols` x `rows` pixels
+    auto read = [&](uint32_t chunk, size_t size, int64_t cols, int64_t rows) {
       if (!chunk_bytes(t, chunk, raw_bytes)) return false;
       buf.assign(size + pad, 0);
+      // Pillow's strip or tile buffer is not zeroed: where a JPEG frame
+      // leaves pixels it unpacks unwritten, Pillow's pixels are whatever
+      // memory held (refused)
+      int frame[2] = {0, 0};
+      if (t.compression == 7)
+        return jpeg_chunk(jpeg, t, chunk, raw_bytes.data(), raw_bytes.size(),
+                          buf.data(), size, frame) == 1 &&
+               frame[0] >= cols && frame[1] >= rows;
       return decode_chunk(t, raw_bytes.data(), raw_bytes.size(), buf.data(), size, compat);
     };
     if (!t.tiled) {
@@ -1807,7 +2582,8 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
           if (strip >= t.nstrips) return kUnreadable;
           const uint64_t in_plane = strip % t.per_plane;
           const uint64_t rows = std::min<uint64_t>(srps, t.h - in_plane * srps);
-          if (!read(strip, std::min<uint64_t>(rows, prps) * row))
+          if (!read(strip, std::min<uint64_t>(rows, prps) * row, w,
+                    std::min<int64_t>(prps, h - y)))
             return kUnreadable;  // "decoder error -2"
           buf.resize(std::max<size_t>(buf.size(), strip_size + pad), 0);
           const std::string u = unpacker(plane);
@@ -1832,9 +2608,10 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
             if (t.planar == 2 && plane >= t.spp) return kUnreadable;
             const uint32_t tile = static_cast<uint32_t>(y / th * across + x / tw) +
                                   (t.planar == 2 ? plane * t.per_plane : 0);
-            if (tile >= t.nstrips || !read(tile, t.chunk_size)) return kUnreadable;
-            const std::string u = unpacker(plane);
             const int64_t cw = std::min(tw, w - x), cl = std::min(th, h - y);
+            if (tile >= t.nstrips || !read(tile, t.chunk_size, cw, cl))
+              return kUnreadable;
+            const std::string u = unpacker(plane);
             for (int64_t k = 0; k < cl; k++)
               unpack(u, &buf[k * row], static_cast<size_t>(cw), &px[(y + k) * w + x]);
           }
@@ -1844,6 +2621,7 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
         (t.sampleinfo0 == 0 || t.sampleinfo0 == 1))
       for (Px& q : px)
         for (int k = 0; k < 3; k++) q.v[k] = unpremul(q.v[k], q.v[3]);
+    }
   }
   // the image as Pillow holds it (mapped and swapped for 5-8), to RGB
   Image local;
