@@ -308,14 +308,52 @@ JPEG_SKIP_FIXTURES = {
     "lossless_arith": "lossless arithmetic"}
 JPEG_FEATURE_KINDS = ("blur", "compound", "blur_rand")
 JPEG_FEATURE_DECODES = 1024  # decodes a timed pass of each group, 1 thread
+# phase 12's C11 files, built here with the port's JPEG writer (cv2.imwrite's
+# bytes) from a seeded C11_SIZE image: at each site c11_sites picks, the
+# byte before an FF 00 of the entropy data is set to FF, so the data reads
+# FF FF 00 (libjpeg-turbo's fast Huffman pass takes that for a marker, its
+# slow pass for an FF data byte; which one runs depends on what the stdio
+# source's 4096-byte buffer holds). C11_DIGESTS: SHA-256 of cv2.imread's
+# RGB pixels of each, by site (tests/test_torch_port_jpeg_fast.py checks
+# them against cv2).
+C11_SIZE = (200, 280)
+C11_SEED = 11
+C11_DIGESTS = {
+    688: "00509936f9374ec8ba86a397763413f2a43b8a317c24dbc0f2337939db3b60ef",
+    3429: "9e7e3cae300cafc9c3b7853adba05ff7d403550528a8c1581e7302d6d7680baa",
+    4369: "5ee2be31a354e842c82c2d8b28abfaacd5bfd2b2c7238e45fd9776550abf198f",
+    7602: "010d5a05547d375ee69285e550aa93bc58bd73d2f600dcc79594c1803448c662",
+    7971: "59a2093b550bdb87067256b13c1fdfc838d0b875e8f890744a9f6803ee1f0d45",
+    8951: "88a6092f229d27c4b21808ab5560cefc9df39212efcc204c677c300061881b3b",
+    11531: "cba0be39f8212d80485b8eae5614e0639b497a824b1dadd3df3c4e1d4666bb57",
+    12985: "475a3f63ded28ca774d0635be7d66839bdefdd80917bbd53e07b3c65aa4c6c94",
+    14257: "4afde3b80634776f38846b56a4fd228ab4ab05d807cd2f31801844ca59c60663",
+    16376: "d1b0b027e0244b71f95d40860730a48df764e6bd21f776d8205d0252af1eb958",
+    16384: "f21f1762674c181930434a7dacddf90c8c35847e3fd28a9108aec1afe0df1f2c",
+    16717: "e9118e9b9a5adb83d67b8c5113669475de3847871e71ad4a918627fdc00885fe",
+    19241: "9c80b0a8e0ab195e9fc9b77a55f2dc801479d29e5ad238eb42c6aa7dab279f6e",
+    19602: "d5c821773ab4b96afcba46a79b1c03be2d3ab765a42fa8838cca04f2f7c4a86a",
+    20612: "2b8352a27f4230caf809b4d17a8900464a83a9b9ee62dbab54a54dcc6387a426",
+    23967: "fef8dba92b9733861faa84ebe43ae7d34e30dc863597dc442dc7c05caf0ea550",
+    25009: "7c58594df95bd9f72b8fcdcef77d79410b24fa0bc3ee5ef498da242b8345555f",
+    26456: "125d877ebcc455c9087a9a12615f6ee7525f19b3ec86bb1438b0bd9f294dbb7f",
+    28289: "9cc8e8ee7dad5910db6f8277ac7e6d6cce7fc0f5052602a1c95cb0e2df11c73e",
+    29062: "0c5f7443d8aee38fdd709f93f830c8b2ca726d0ab9162544034941ab37635d0d",
+    31538: "0b1b81328e02f4c8b5d7dc97aa28885463d5da7478cd02d1f86ebd5e740ec2eb",
+    32763: "ca077b7ba95d5682202ae28290418000cbb2a4c1e1fc3e60d4ae38819976e969",
+    33037: "b9fdd30576a33194462b187c96224b1511de76e95d4be2d7ed780cf755731c3b",
+    33261: "4a83b836d401dae668b137c5ef03c1f951e3e41f945809ed086dba02eb190ba9",
+    36684: "051af30ac3e2a9de83579b68bc11a0392142832976a8ad6bf25e5eeaaae045b9",
+    37523: "eeff3dbe65f1d23e7f60dd53d58add3b31a0ee1273105eb2c07cf375f206371a",
+    38404: "edec3c4e6be3d7358bb679d19ad385e51178d350ab42a09555fb56af2f28c60c"}
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
-# at the top, the files it gives None for (and AVIF, JPEG 2000, WebP and
-# CCITT group 4 TIFF data the port does not decode) under skip/
+# at the top, the files it gives None for (and AVIF, JPEG 2000 and WebP
+# data and a ZSTD TIFF, which the port does not decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
-                 "tiff_group4.png": "TIFF", "webp.png": "WebP"}
+                 "tiff_zstd.png": "TIFF", "webp.png": "WebP"}
 # decode groups by file-name prefix; "tiff" is TIFF part 1 (8-bit strips),
 # the files of no tiff_* group below it
 IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
@@ -334,7 +372,8 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_tiles": ("tiff_tile", "tiff_orientation_6_sq"),
                 "tiff_bigtiff": ("tiff_bigtiff",),
                 "tiff_color_jpeg": ("tiff_cmyk", "tiff_ycbcr", "tiff_jpeg",
-                                    "tiff_unknown", "tiff_cielab")}
+                                    "tiff_unknown", "tiff_cielab"),
+                "tiff_ccitt": ("tiff_group4", "tiff_ccitt")}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -342,6 +381,11 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
 BUILT_TIFF_SIZE = (480, 640)
 BUILT_TIFF_ROWS = 16
 BUILT_TIFF_DECODES = 20
+# and a fax page (T.4's 1728 pixels a row, fine mode's 2292 rows, one
+# strip, MINISWHITE) as group 4 and as group 3 2-D (K = 4), written by
+# fax_code's T.6 and T.4 coder
+FAX_PAGE = (2292, 1728)
+FAX_K = 4
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
                 "tiff": ("tiff",)}
@@ -3541,13 +3585,16 @@ def jpeg_features_phase(dev, resunet, judge, work):
     the committed fixtures (the card's machine has neither cv2 nor PIL),
     in ``work``: every JPEG_FEATURE_GROUPS fixture decoded equal to
     ``expected.npz`` and every JPEG_SKIP_FIXTURES file raising with its
-    feature named; host decode rates by group; generate_tree on the
+    feature named; C11's files (c11_files) decoded to C11_DIGESTS; host
+    decode rates by group; generate_tree on the
     fixtures plus the skip files for JPEG_FEATURE_KINDS (B3 in blur and
     compound, B2 in blur_rand, launch counts zeroed just before and read
     just after each call; the written count the reference's);
     restore_tree and evaluate_directory over the readable fixtures in
     both resize modes and under the PIL resize backend. Returns the
     kernels' launches."""
+    import hashlib
+
     import numpy as np
     import torch
     from tsr_tpu_torch import eval as teval
@@ -3573,6 +3620,19 @@ def jpeg_features_phase(dev, resunet, judge, work):
             check(feature in str(e), f"skip/{name}.jpg: {e}")
         else:
             check(False, f"skip/{name}.jpg decoded; cv2 and PIL refuse it")
+    # C11: FF FF 00 in entropy data, read as libjpeg-turbo's fast and slow
+    # Huffman passes read it
+    c11 = c11_files(work / "c11")
+    check(sorted(c11) == sorted(C11_DIGESTS),
+          f"C11 sites {sorted(c11)}; the digests hold {sorted(C11_DIGESTS)}")
+    for site, p in c11.items():
+        got = np.ascontiguousarray(native.decode(str(p)))
+        check(hashlib.sha256(got.tobytes()).hexdigest() == C11_DIGESTS[site],
+              f"C11 file {p.name} decodes unlike cv2.imread")
+    result["c11_files"] = len(c11)
+    print(f"C11: {len(c11)} files built from the port's JPEG writer with FF "
+          "FF 00 in their entropy data decode to cv2.imread's pixels "
+          "(SHA-256)")
     result["fixtures"] = {g: len(p) for g, p in groups.items()}
     result["skip_fixtures"] = len(JPEG_SKIP_FIXTURES)
     print("jpeg features: " + json.dumps(result["fixtures"]) + " fixtures "
@@ -3813,6 +3873,256 @@ def tiff_bytes(img, tile=None, bigtiff=False, big=False, jpeg=None):
     return start + b"".join(ifd) + values + b"".join(data)
 
 
+# ITU-T T.4's run-length codes (Tables 2-4): the white and black terminating
+# codes of runs 0-63, their make-up codes of 64-1728, and the extended
+# make-up codes of 1792-2560, which both colours share
+FAX_WHITE = """00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111
+01000 001000 000011 110100 110101 101010 101011 0100111 0001100 0001000
+0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 00000010
+00000011 00011010 00011011 00010010 00010011 00010100 00010101 00010110
+00010111 00101000 00101001 00101010 00101011 00101100 00101101 00000100
+00000101 00001010 00001011 01010010 01010011 01010100 01010101 00100100
+00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010
+00110011 00110100 11011 10010 010111 0110111 00110110 00110111 01100100
+01100101 01101000 01100111 011001100 011001101 011010010 011010011
+011010100 011010101 011010110 011010111 011011000 011011001 011011010
+011011011 010011000 010011001 010011010 011000 010011011""".split()
+FAX_BLACK = """0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100
+0000101 0000111 00000100 00000111 000011000 0000010111 0000011000
+0000001000 00001100111 00001101000 00001101100 00000110111 00000101000
+00000010111 00000011000 000011001010 000011001011 000011001100
+000011001101 000001101000 000001101001 000001101010 000001101011
+000011010010 000011010011 000011010100 000011010101 000011010110
+000011010111 000001101100 000001101101 000011011010 000011011011
+000001010100 000001010101 000001010110 000001010111 000001100100
+000001100101 000001010010 000001010011 000000100100 000000110111
+000000111000 000000100111 000000101000 000001011000 000001011001
+000000101011 000000101100 000001011010 000001100110 000001100111
+0000001111 000011001000 000011001001 000001011011 000000110011
+000000110100 000000110101 0000001101100 0000001101101 0000001001010
+0000001001011 0000001001100 0000001001101 0000001110010 0000001110011
+0000001110100 0000001110101 0000001110110 0000001110111 0000001010010
+0000001010011 0000001010100 0000001010101 0000001011010 0000001011011
+0000001100100 0000001100101""".split()
+FAX_EXTENDED = """00000001000 00000001100 00000001101 000000010010 000000010011
+000000010100 000000010101 000000010110 000000010111 000000011100
+000000011101 000000011110 000000011111""".split()
+FAX_EOL = "000000000001"
+# T.4's two-dimensional modes: pass, horizontal, and vertical by a1 - b1
+FAX_PASS, FAX_HORIZONTAL = "0001", "001"
+FAX_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010",
+                -2: "000010", -3: "0000010"}
+
+
+def fax_run(run, black):
+    """One run's code: make-up codes, then a terminating one."""
+    table = FAX_BLACK if black else FAX_WHITE
+    out = []
+    while run >= 2560:
+        out.append(FAX_EXTENDED[-1])
+        run -= 2560
+    if run >= 64:
+        out.append(table[63 + run // 64] if run < 1792
+                   else FAX_EXTENDED[run // 64 - 28])
+    out.append(table[run % 64])
+    return "".join(out)
+
+
+def fax_changes(row):
+    """A row's changing elements (bool, True black): the columns where the
+    colour changes from the one before, the row starting white; an even
+    index turns black."""
+    import numpy as np
+    r = np.concatenate(([0], row.astype(np.int8)))
+    return np.flatnonzero(np.diff(r)).tolist()
+
+
+def fax_row_1d(a, w):
+    """T.4's one-dimensional coding of a row of changing elements ``a``:
+    white and black runs in turn, from a white one."""
+    out, x = [], 0
+    for k, p in enumerate(a + [w]):
+        out.append(fax_run(p - x, k % 2 == 1))
+        x = p
+    return "".join(out)
+
+
+def fax_row_2d(a, b, w):
+    """T.6's two-dimensional coding of a row's changing elements ``a``
+    against the reference row's ``b``: pass, vertical or horizontal mode
+    from a0 (before the row, white) to the row's end."""
+    import bisect
+    out, a0, color = [], -1, 0
+
+    def at(lst, i):
+        return lst[i] if i < len(lst) else w
+
+    while a0 < w:
+        i = bisect.bisect_right(a, a0)
+        a1, a2 = at(a, i), at(a, i + 1)
+        j = bisect.bisect_right(b, a0)
+        j += j % 2 != color  # b1 turns to the colour a0's is not
+        b1, b2 = at(b, j), at(b, j + 1)
+        if b2 < a1:
+            out.append(FAX_PASS)
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out.append(FAX_VERTICAL[a1 - b1])
+            a0, color = a1, 1 - color
+        else:
+            out.append(FAX_HORIZONTAL + fax_run(a1 - max(a0, 0), color == 1)
+                       + fax_run(a2 - a1, color == 0))
+            a0 = a2
+    return "".join(out)
+
+
+def fax_code(page, group4):
+    """``page`` (bool [h, w], True black) coded as T.6 (group 4: 2-D rows,
+    then EOFB) or as T.4 2-D (group 3: each row after an EOL and its tag
+    bit, one-dimensional every FAX_K-th), MSB first, zero padded."""
+    import numpy as np
+    h, w = page.shape
+    ref, bits = [], []
+    for y in range(h):
+        a = fax_changes(page[y])
+        if group4:
+            bits.append(fax_row_2d(a, ref, w))
+        elif y % FAX_K == 0:
+            bits.append(FAX_EOL + "1" + fax_row_1d(a, w))
+        else:
+            bits.append(FAX_EOL + "0" + fax_row_2d(a, ref, w))
+        ref = a
+    if group4:
+        bits.append(FAX_EOL * 2)
+    s = "".join(bits)
+    s += "0" * (-len(s) % 8)
+    return np.packbits(np.frombuffer(s.encode(), np.uint8) - 48).tobytes()
+
+
+def fax_tiff(page, group4):
+    """A little-endian TIFF of ``page`` (bool [h, w], True black): one
+    MINISWHITE strip coded by fax_code, Compression 4, or 3 with
+    Group3Options 1 (2-D)."""
+    import struct
+    h, w = page.shape
+    strip = fax_code(page, group4)
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 1), (259, 3, 4 if group4 else 3),
+            (262, 3, 0), (273, 4, 0), (277, 3, 1), (278, 4, h),
+            (279, 4, len(strip))]
+    if not group4:
+        tags.append((292, 4, 1))
+    at = 8 + 2 + 12 * len(tags) + 4
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHII" if t == 4 else "<HHIH2x", tag, t, 1,
+                    at if tag == 273 else v) for tag, t, v in tags)
+    return b"II*\0" + struct.pack("<I", 8) + ifd + struct.pack("<I", 0) + strip
+
+
+def fax_page(h, w, seed):
+    """A page of text-like black strokes on white (bool [h, w], True black):
+    lines of words, each word upright strokes of a few pixels' width,
+    under a rule at the top."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    page = np.zeros((h, w), bool)
+    page[80:84, 100:w - 100] = True
+    y = 140
+    while y + 32 < h - 100:
+        x = 100
+        while x < w - 160:
+            for _ in range(int(rng.integers(2, 9))):
+                sw, sh = int(rng.integers(2, 6)), int(rng.integers(12, 29))
+                page[y + 28 - sh:y + 28, x:x + sw] = True
+                x += sw + int(rng.integers(3, 9))
+            x += int(rng.integers(14, 30))
+        y += int(rng.integers(40, 56))
+    return page
+
+
+def built_ccitt_checks(work):
+    """CCITT on files built here (the card's machine has no cv2 or PIL): a
+    FAX_PAGE page (fax_page) as group 4 and as group 3 2-D (fax_tiff),
+    each decoded equal to its bitmap (white 255, black 0) and probed at its
+    size by both readers; their host decode rates (BUILT_TIFF_DECODES
+    decodes on one thread, best of JPEG_DECODE_REPS passes). Returns the
+    numbers for phase 13's line."""
+    import numpy as np
+    from tsr_tpu_torch import native
+    root = work / "built_ccitt"
+    root.mkdir(parents=True, exist_ok=True)
+    h, w = FAX_PAGE
+    page = fax_page(h, w, SEED)
+    want = np.repeat(np.where(page, 0, 255).astype(np.uint8)[:, :, None], 3,
+                     axis=2)
+    out = {"black_share": float(page.mean())}
+    for name, group4 in (("page_group4.png", True),
+                         ("page_group3_2d.png", False)):
+        p = root / name
+        t0 = time.perf_counter()
+        p.write_bytes(fax_tiff(page, group4))
+        write_s = time.perf_counter() - t0
+        check(np.array_equal(native.decode(str(p)), want),
+              f"{name} decodes unlike the page it was built from")
+        for reader in ("port", "cv2"):
+            check(native.probe([str(p)], reader=reader).tolist() == [[h, w]],
+                  f"{name}: probe({reader!r})")
+        best = math.inf
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            for _ in range(BUILT_TIFF_DECODES):
+                native.decode(str(p))
+            best = min(best, time.perf_counter() - t0)
+        out[name] = {"bytes": p.stat().st_size, "write_s": write_s,
+                     "images_per_sec": BUILT_TIFF_DECODES / best,
+                     "megapixels_per_sec":
+                         BUILT_TIFF_DECODES * h * w / best / 1e6}
+    return out
+
+
+def c11_image():
+    """The seeded C11_SIZE RGB image of phase 12's C11 files: gradients
+    under noise, whose JPEG data holds many FF bytes."""
+    import numpy as np
+    h, w = C11_SIZE
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([(x * 2 + y) % 256, (y * 3) % 256, (x * y // 64) % 256], -1)
+    noise = np.random.default_rng(C11_SEED).integers(0, 48, img.shape)
+    return np.clip(img + noise, 0, 255).astype(np.uint8)
+
+
+def c11_sites(data):
+    """The FF 00 pairs of ``data``'s entropy data whose byte before is set
+    to FF: the last before and the first after each 4096-byte boundary of
+    the file (just before one, the stdio source's buffer holds fewer bytes
+    than the fast pass of a 4:2:0 MCU needs, 3072; just after, more), and
+    8 spread over the rest."""
+    start = data.index(b"\xff\xda") + 2
+    sites = [i for i in range(start, len(data) - 2)
+             if data[i] == 0xFF and data[i + 1] == 0]
+    chosen = set(sites[::max(1, len(sites) // 8)])
+    for k in range(4096, len(data), 4096):
+        before = [i for i in sites if i < k]
+        after = [i for i in sites if i >= k]
+        chosen.update(before[-1:] + after[:1])
+    return sorted(chosen)
+
+
+def c11_files(root):
+    """{site: path} of phase 12's C11 files in ``root``: c11_image through
+    the port's JPEG writer, one byte set to FF at each c11_sites site."""
+    from tsr_tpu_torch import native
+    root.mkdir(parents=True, exist_ok=True)
+    src = root / "c11_source.jpg"
+    native.write_images([str(src)], [c11_image()])
+    data = src.read_bytes()
+    out = {}
+    for i in c11_sites(data):
+        p = root / f"c11_{i}.jpg"
+        p.write_bytes(data[:i - 1] + b"\xff" + data[i:])
+        out[i] = p
+    return out
+
+
 def built_tiff_checks(work):
     """TIFF parts 2a and 2b on files built here: a little-endian BigTIFF of
     deflate strips and a big-endian tiled file (16 x 16 deflate tiles, edge
@@ -3955,15 +4265,16 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     reads it; each skip/ file probed (0, 0) as cv2 refuses it, decoded as
     PIL where PIL reads it (the gray PFM, the TIFFs of orientation 5 to 8
     and of 2 and 4-bit gray among them), raising otherwise (naming AVIF,
-    JPEG 2000, CCITT group 4 TIFF and WebP data); host decode rates by
-    group (TIFF by layout); the
+    JPEG 2000, ZSTD TIFF and WebP data); host decode rates by group (TIFF
+    by layout, CCITT among them); the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
     generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
     just before and read just after each call, the written count the
     reference's), B3/B2 held at its buckets; restore_tree and
     evaluate_directory over the readable files in both resize modes; then
     C9 and C10 (image_size_checks) and the TIFFs built at run time
-    (built_tiff_checks). Returns the kernels' launches."""
+    (built_tiff_checks, built_ccitt_checks). Returns the kernels'
+    launches."""
     import numpy as np
     import torch
     from tsr_tpu_torch import eval as teval
@@ -4012,9 +4323,12 @@ def image_formats_phase(dev, resunet, judge, rows, work):
                 p.name.startswith(prefixes) for p in files)
     check(result["fixtures"]["pfm_hdr_skip_pil_reads"] >= 1,
           "the gray PFM PIL reads is among the skip/ files")
-    check(result["fixtures"]["tiff_cv2_reads"] >= 66
+    check(result["fixtures"]["tiff_cv2_reads"] >= 71
           and result["fixtures"]["tiff_skip_pil_reads"] >= 14,
           f"TIFF fixtures: {result['fixtures']}")
+    check(sum(p.name.startswith(IMAGE_GROUPS["tiff_ccitt"]) for p in cases)
+          == 5, "the CCITT fixtures (group 4, group 3 1-D and 2-D, RLE, "
+          "RLE/W) are among the files cv2 reads")
     print("image formats: " + json.dumps(result["fixtures"]) + ": fixtures "
           "equal to expected.npz, skip/ files refused by the cv2 probe, "
           "decoded as PIL or raising (AVIF, JPEG 2000, TIFF, WebP named)")
@@ -4164,6 +4478,12 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           f"4:2:0 beside a plain decode of its streams, "
           f"{BUILT_TIFF_SIZE[1]} x {BUILT_TIFF_SIZE[0]} RGB, beside "
           f"{result['card']}): " + json.dumps(result["built_tiff"]))
+    t0 = time.perf_counter()
+    result["built_ccitt"] = built_ccitt_checks(work)
+    result["built_ccitt"]["seconds"] = time.perf_counter() - t0
+    print(f"built fax page ({FAX_PAGE[1]} x {FAX_PAGE[0]}, group 4 and "
+          f"group 3 2-D, equal to its bitmap, one host thread, beside "
+          f"{result['card']}): " + json.dumps(result["built_ccitt"]))
     result["launches"] = launches
     result["phase_seconds"] = time.perf_counter() - t_phase
     print("image_formats: " + json.dumps(result))

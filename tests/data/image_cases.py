@@ -17,7 +17,8 @@ PFM (``pfm*``: cv2's writer, big endian, scales 0.5 and 3, samples past
 (``hdr_*.png``: cv2's run-length and flat writers, the ``#?RGBE``
 signature, EXPOSURE and other header lines, a width under 8, zero
 exponents, values past 1, runs and literals of every length, a scanline
-that falls back to flat) and TIFF (``tiff_*``: parts 1, 2a and 2b); the
+that falls back to flat) and TIFF (``tiff_*``: parts 1, 2a and 2b, and
+the CCITT codecs of part 2c); the
 skip cases are what cv2 refuses, some of which PIL reads (a GIF without its
 trailer, a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB, which
 OpenCV 5 refuses, a gray PFM, which cv2 refuses under IMREAD_COLOR, TIFFs
@@ -39,6 +40,7 @@ PFM_HDR_SEED = 15  # and the PFM and Radiance HDR files from theirs
 TIFF_SEED = 16  # and the TIFF files from theirs
 TIFF2_SEED = 17  # and the TIFF part 2a files from theirs
 TIFF2B_SEED = 19  # and the TIFF part 2b files from theirs
+TIFF2C_SEED = 20  # and the CCITT files from theirs
 
 _spec = importlib.util.spec_from_file_location(
     "image_writers", Path(__file__).resolve().parent / "image_writers.py")
@@ -661,4 +663,21 @@ def tiff2b_skip_cases(rng):
         jpeg=lambda b: jpeg_stream(b, (2, 2)))
     out["tiff_ycbcr_24.png"] = tiff_file(rng.integers(0, 256, (8, 6, 3)),
                                          ycc=(2, 4))
+    return out
+
+
+def tiff2c_cases(rng):
+    """The CCITT codecs of TIFF part 2c, each read by cv2: Pillow's group 4
+    (the file that stood for C7's TIFF data under skip/, its bytes kept),
+    group 3 1-D and 2-D (Group3Options 1), CCITT RLE and RLE/W (which
+    libtiff's own decoder reads damaged, as cv2 and PIL do), these four of
+    8 x 8 dithered pixels."""
+    out = {"tiff_group4.png": pil_tiff(smooth(np.random.default_rng(
+        TIFF2B_SEED + 1), 16, 16), "1", compression="group4")}
+    for name, kw in (("g3_1d.png", {"compression": "group3"}),
+                     ("g3_2d.ppm", {"compression": "group3",
+                                    "tiffinfo": {292: 1}}),
+                     ("rle.bmp", {"compression": "tiff_ccitt"}),
+                     ("rlew.png", {"compression": "tiff_raw_16"})):
+        out["tiff_ccitt_" + name] = pil_tiff(smooth(rng, 8, 8), "1", **kw)
     return out

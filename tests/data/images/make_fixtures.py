@@ -7,8 +7,9 @@ phase into this directory: the cases of ``tests/data/image_cases.py``
 - ``<case>``: CASES, files cv2.imread reads;
 - ``skip/<case>``: SKIP_CASES, files cv2.imread gives None for (cut,
   corrupt, a refused variant), some of which PIL reads; and FOREIGN, AVIF,
-  JPEG 2000 and WebP data under .png and .jpg names and a CCITT group 4
-  TIFF (what cv2 reads and the port does not decode);
+  JPEG 2000 and WebP data under .png and .jpg names (what cv2 reads and
+  the port does not decode) and a ZSTD-compressed TIFF (what PIL reads
+  and the port does not decode);
 - ``expected.npz``: ``decoded__<case>`` = what the reference's readers give
   for each CASES file as RGB (``cv2.imread``; the pixels cv2 leaves
   unwritten, see ``cv2_written``, set to 0), ``decoded_skip__<case>`` =
@@ -56,11 +57,12 @@ globals().update({name: getattr(image_cases, name) for name in dir(image_cases)
 
 
 def foreign(rng):
-    """AVIF, JPEG 2000 and WebP data under .png and .jpg names, and a
-    CCITT group 4 TIFF (a TIFF layout the port does not decode)."""
+    """AVIF, JPEG 2000 and WebP data under .png and .jpg names, and
+    Pillow's ZSTD-compressed TIFF (a TIFF layout the port does not
+    decode)."""
     out = {}
-    out["tiff_group4.png"] = pil_tiff(smooth(np.random.default_rng(
-        TIFF2B_SEED + 1), 16, 16), "1", compression="group4")
+    out["tiff_zstd.png"] = pil_tiff(smooth(np.random.default_rng(
+        TIFF2C_SEED + 1), 4, 6), "RGB", compression="zstd")
     for name, fmt, h, w in (("avif.png", "AVIF", 24, 30),
                             ("jp2.jpg", "JPEG2000", 28, 22),
                             ("webp.png", "WEBP", 26, 32)):
@@ -116,11 +118,13 @@ def make(out: Path = HERE) -> dict:
     tiff_rng = np.random.default_rng(TIFF_SEED)
     tiff2_rng = np.random.default_rng(TIFF2_SEED)
     tiff2b_rng = np.random.default_rng(TIFF2B_SEED)
+    tiff2c_rng = np.random.default_rng(TIFF2C_SEED)
     for name, data in {**cases(rng), **gif_sun_cases(gif_rng),
                        **pfm_hdr_cases(pfm_rng),
                        **tiff_cases(tiff_rng),
                        **tiff2_cases(tiff2_rng),
-                       **tiff2b_cases(tiff2b_rng)}.items():
+                       **tiff2b_cases(tiff2b_rng),
+                       **tiff2c_cases(tiff2c_rng)}.items():
         p = out / name
         p.write_bytes(data)
         img = cv2.imread(str(p))
@@ -147,13 +151,28 @@ def make(out: Path = HERE) -> dict:
 
 
 def save_arrays(path, arrays):
-    """np.savez's layout with each array LZMA-compressed (a third smaller
-    than savez_compressed's deflate here); np.load reads it."""
-    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_LZMA) as zf:
+    """np.savez's layout with each array compressed by LZMA, deflate or
+    bzip2, whichever gives it the fewest bytes (a third smaller than
+    savez_compressed's deflate here); np.load reads it."""
+    with zipfile.ZipFile(path, "w") as zf:
         for key, a in arrays.items():
-            with zf.open(key + ".npy", "w") as f:
-                np.lib.format.write_array(f, np.asanyarray(a),
-                                          allow_pickle=False)
+            buf = io.BytesIO()
+            np.lib.format.write_array(buf, np.asanyarray(a),
+                                      allow_pickle=False)
+            member = zipfile.ZipInfo(key + ".npy", (1980, 1, 1, 0, 0, 0))
+            packed = [(len(_compressed(buf.getvalue(), c)), c)
+                      for c in (zipfile.ZIP_LZMA, zipfile.ZIP_DEFLATED,
+                                zipfile.ZIP_BZIP2)]
+            zf.writestr(member, buf.getvalue(), compress_type=min(packed)[1],
+                        compresslevel=9)
+
+
+def _compressed(data, compression):
+    """``data`` as a zip member compressed with ``compression``."""
+    out = io.BytesIO()
+    with zipfile.ZipFile(out, "w") as zf:
+        zf.writestr("a", data, compress_type=compression, compresslevel=9)
+    return out.getvalue()
 
 
 def _names():
@@ -163,9 +182,11 @@ def _names():
     tiff_rng = np.random.default_rng(TIFF_SEED)
     tiff2_rng = np.random.default_rng(TIFF2_SEED)
     tiff2b_rng = np.random.default_rng(TIFF2B_SEED)
+    tiff2c_rng = np.random.default_rng(TIFF2C_SEED)
     found = (tuple(cases(rng)) + tuple(gif_sun_cases(gif_rng))
              + tuple(pfm_hdr_cases(pfm_rng)) + tuple(tiff_cases(tiff_rng))
-             + tuple(tiff2_cases(tiff2_rng)) + tuple(tiff2b_cases(tiff2b_rng)))
+             + tuple(tiff2_cases(tiff2_rng)) + tuple(tiff2b_cases(tiff2b_rng))
+             + tuple(tiff2c_cases(tiff2c_rng)))
     return found, (tuple(skip_cases(rng)) + tuple(gif_sun_skip_cases(gif_rng))
                    + tuple(pfm_hdr_skip_cases(pfm_rng))
                    + tuple(tiff_skip_cases(tiff_rng))
@@ -174,7 +195,7 @@ def _names():
 
 
 CASES, SKIP_CASES = _names()
-FOREIGN = ("avif.png", "jp2.jpg", "tiff_group4.png", "webp.png")
+FOREIGN = ("avif.png", "jp2.jpg", "tiff_zstd.png", "webp.png")
 
 if __name__ == "__main__":
     make()

@@ -21,7 +21,7 @@ the CPU:
   the IFD, the strip or tile table and the compressed data:
   probe(reader="cv2") gives (0, 0) exactly where cv2.imread gives None, and
   decode equals cv2, else PIL, else raises; a mutation that makes a layout
-  the port does not decode (TIFF part 2c: CCITT, NeXT, ThunderScan, SGILog
+  the port does not decode (TIFF part 2c: NeXT, ThunderScan, SGILog
   and Pillow's other compressions, Pillow's 32-bit, float and LAB modes,
   as Pillow or libtiff parse the IFD) raises naming TIFF;
 - libtiff's 16 to 8-bit rules (gray v >> 8, RGB (v + 128) // 257) over
@@ -111,9 +111,9 @@ def _ifd(data):
         return None
 
 
-DECODED_COMPRESSIONS = (1, 5, 7, 8, 32773, 32946)
+DECODED_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946)
 # libtiff's codecs that cv2's build has and the port does not decode
-PART2C_CODECS = (2, 3, 4, 32766, 32771, 32809, 34676, 34677)
+PART2C_CODECS = (32766, 32809, 34676, 34677)
 DECODED_MODES = ("1", "L", "LA", "P", "PA", "I;16", "I;16B", "RGB", "RGBA",
                  "CMYK")
 
@@ -122,9 +122,9 @@ def _part2(data):
     """True where the first IFD shows a layout the port does not decode
     (TIFF part 2c): as Pillow parses it (the last of duplicate tags), a mode
     of Pillow's other than 1, L, LA, P, PA, I;16, RGB(A) and CMYK, or
-    12-bit samples, or a compression other than part 1's and JPEG; or as
-    libtiff parses it (the first of duplicates), CCITT, NeXT, ThunderScan
-    or SGILog."""
+    12-bit samples, or a compression other than part 1's, CCITT's and
+    JPEG; or as libtiff parses it (the first of duplicates), NeXT,
+    ThunderScan or SGILog."""
     first = _ifd(data) or {}
     if first.get(259, (3, (1,)))[1][0] in PART2C_CODECS:
         return True
@@ -292,7 +292,8 @@ def test_fixture_decodes_as_cv2(name):
 
 def test_fixtures_cover_the_layouts():
     """The fixtures hold both byte orders, classic TIFF and BigTIFF of both,
-    every compression (none, PackBits, LZW, both deflates), predictor 2,
+    every compression (none, PackBits, LZW, both deflates, CCITT RLE, group
+    3 and 4, RLE/W), predictor 2,
     gray, MINISWHITE, RGB and palette, samples of 1, 4, 8 and 16 bits,
     SampleFormat 2, ExtraSamples 0, 1 and 2 and two extra samples, planar
     configuration 2, FillOrder 2, one strip and many, tiles (a size no
@@ -347,7 +348,9 @@ def test_fixtures_cover_the_layouts():
                 ("subsampling", (2, 2)), ("subsampling", (4, 1)),
                 ("subsampling", (4, 2)), ("subsampling", (4, 4)),
                 ("subsampling", (1, 2)), ("jpeg", 1, False), ("jpeg", 2, False),
-                ("jpeg", 6, False), ("jpeg", 6, True), ("jpeg", 5, True)):
+                ("jpeg", 6, False), ("jpeg", 6, True), ("jpeg", 5, True),
+                ("compression", 2), ("compression", 3), ("compression", 4),
+                ("compression", 32771)):
         assert key in seen, key
     for name in ("tiff_colormap_8bit.png", "tiff16_gray.png",
                  "tiff_cv2_rgb16.ppm", "tiff_pil_rgba.png",
@@ -728,7 +731,7 @@ def test_part2b_layouts_read_as_reference(tmp_path, name):
 def _part2c_files():
     rng = np.random.default_rng(50)
     img = make_fixtures.smooth(rng, 12, 16)
-    return {"group4": make_fixtures.pil_tiff(img, "1", compression="group4"),
+    return {"zstd": make_fixtures.pil_tiff(img, "RGB", compression="zstd"),
             "int32": make_fixtures.pil_tiff(img, "I"),
             "float32": make_fixtures.pil_tiff(img, "F"),
             "LAB separate": make_fixtures.tiff_file(img, photometric=8,
@@ -737,13 +740,13 @@ def _part2c_files():
 
 @pytest.mark.parametrize("name", sorted(_part2c_files()))
 def test_part2_layouts_raise_naming_tiff(tmp_path, name):
-    """CCITT group 4, 32-bit integer and float data, and CIELAB in
-    separate planes (TIFF part 2c): cv2 reads group 4, PIL the rest (LAB
-    through LittleCMS); the port does not decode them: decode and the
+    """ZSTD compression, 32-bit integer and float data, and CIELAB in
+    separate planes (TIFF part 2c): PIL reads them (LAB through
+    LittleCMS), cv2 none; the port does not decode them: decode and the
     header probe raise naming TIFF, the cv2 probe gives (0, 0)."""
     p = tmp_path / "p2.png"
     p.write_bytes(_part2c_files()[name])
-    assert (cv2.imread(str(p)) is None) == (name != "group4")
+    assert cv2.imread(str(p)) is None
     Image.open(p).convert("RGB")
     assert _part2(p.read_bytes())
     with pytest.raises(RuntimeError, match="holds TIFF data"):
@@ -811,8 +814,9 @@ def test_cielab_grid_reads_as_cv2(tmp_path):
 
 # a sample of the sweep of the Compression tag over 0-65535 (one small
 # uncompressed file in cv2.imread): numbers that name no codec (zeros),
-# codecs cv2's libtiff leaves out (None), codecs of part 2c (None on this
-# 8-bit RGB file), and part 1's and JPEG (decoded as the data allows)
+# codecs cv2's libtiff leaves out (None), codecs of part 2c, CCITT's among
+# them (None on this 8-bit RGB file: CCITT takes 1-bit samples), and part
+# 1's and JPEG (decoded as the data allows)
 SWEEP = {"no codec": (0, 9, 99, 300, 32767, 32908, 34660, 40000, 50002,
                       65535),
          "not configured": (6, 32909, 34661, 34887, 34925, 50000, 50001),

@@ -16,17 +16,19 @@ reads it, which cv2 refuses) and Radiance HDR (run-length encoded or flat,
 x 255 and rounded); TIFF (classic or BigTIFF, either byte order, the
 first IFD, strips or tiles of gray, RGB or palette samples of 1 to 16 bits
 with any extra samples, CMYK, YCbCr at any subsampling and CIELAB, either
-planar configuration and fill order, uncompressed, PackBits, LZW, deflate
-or JPEG, or a compression that names no codec, orientations as cv2 applies
-them, else as PIL does); JPEG
+planar configuration and fill order, uncompressed, PackBits, LZW, deflate,
+CCITT RLE, group 3, group 4, RLE/W or JPEG, or a compression that names no
+codec, orientations as cv2 applies them, else as PIL does); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
-or corrupt as libjpeg recovers it, lossless); EXIF orientation applied as
+or corrupt as libjpeg recovers it, FF FF 00 in entropy data as
+libjpeg-turbo's fast and slow Huffman passes read it, lossless); EXIF
+orientation applied as
 cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
 port does not decode (:data:`FORMATS`: WebP, JPEG 2000, AVIF, and TIFF of
-another layout: CCITT or old-style JPEG compression, 32-bit or float
-samples, Pillow's LAB...), or that only
+another layout: old-style JPEG, NeXT, ThunderScan, SGILog, LZMA, ZSTD or
+WebP compression, 32-bit or float samples, Pillow's LAB...), or that only
 PIL reads and the port does not decode (PCX, SGI, ICO/CUR, DDS, QOI, ICNS,
 MSP, IM, SPIDER, told by Pillow's own checks of the first bytes), raises
 naming the format. Image sizes follow the reference's rules: cv2's (where
@@ -303,8 +305,7 @@ def probe(paths: Sequence[str], threads: int = 8, reader: str = "port",
       0; a JPEG stream libtiff's checks refuse, a codec OpenCV's build
       leaves out), and an orientation of 1-4 (5-8 give None but for a
       square image; the port decodes them as PIL does, rotated); a layout
-      the port does not decode (CCITT, NeXT, ThunderScan, SGILog) is
-      refused;
+      the port does not decode (NeXT, ThunderScan, SGILog) is refused;
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
       does not decode it).
 

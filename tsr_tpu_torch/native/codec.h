@@ -171,8 +171,8 @@ int hdr_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 // TIFF (classic or BigTIFF, either byte order, the first IFD; strips or
 // tiles of gray, RGB or palette samples of 1 to 16 bits, any extra samples,
 // CMYK, YCbCr and CIELAB, either planar configuration and fill order,
-// uncompressed, PackBits, LZW, deflate or JPEG, or a number that names no
-// codec) as cv2.imread reads it (OpenCV's TiffDecoder over libtiff's RGBA
+// uncompressed, PackBits, LZW, deflate, CCITT or JPEG, or a number that
+// names no codec) as cv2.imread reads it (OpenCV's TiffDecoder over libtiff's RGBA
 // reader, tiff.cpp) and as PIL's TiffImagePlugin and convert("RGB") read
 // it; the arguments and results of read_cv2 and read_pil. A TIFF of any
 // other layout (TIFF part 2c) gives kTiff. is_tiff_data: an "II*\0", "MM\0*", "II+\0"

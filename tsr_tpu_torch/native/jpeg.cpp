@@ -16,6 +16,15 @@
 // stream, each stream's components as stored or YCbCr turned to RGB, no
 // EXIF orientation, reading on to EOI after a one-pass decode.
 //
+// Sequential Huffman data without restart intervals is read as
+// libjpeg-turbo reads it: an MCU goes through its fast pass
+// (decode_mcu_fast) wherever the source's buffer holds 512 bytes a block of
+// it and no marker is unread; that pass takes FF then any byte but 00 (FF
+// too) for a marker, and the MCU is decoded again by the slow pass, which
+// reads FF FF 00 as one FF data byte, over the fast pass's coefficients.
+// The buffer is cv2.imread's stdio source, refilled 4096 bytes at a time,
+// or, in a TIFF, the whole strip or tile.
+//
 // Damaged data reads as libjpeg reads it, with its warnings and without
 // failing: the file is followed by fake EOI markers (jdatasrc.c), a scan
 // cut short is fed zero bits and its later MCUs are left as they are
@@ -167,12 +176,23 @@ namespace {
 // The bytes libjpeg's stdio source manager hands the decoder: the file,
 // then a fake EOI (FF D9) for every read past its end (jdatasrc.c
 // fill_input_buffer), so a file cut short ends at an EOI wherever it stops.
+// `chunk` is the size of the source's refills: the stdio source's 4096
+// (a file), or 0 for data held whole in memory (libtiff's source over a
+// strip or tile).
 struct Source {
   const uint8_t* data = nullptr;
-  size_t size = 0, pos = 0;
-  int byte() {
-    const size_t i = pos++;
+  size_t size = 0, pos = 0, chunk = 0;
+  int at(size_t i) const {
     return i < size ? data[i] : ((i - size) & 1 ? 0xD9 : 0xFF);
+  }
+  int byte() { return at(pos++); }
+  // bytes_in_buffer: what the last refill holds past pos (a refill comes
+  // when a byte is wanted and the buffer is empty; the fake EOI's 2 bytes
+  // count as none)
+  size_t left() const {
+    if (pos >= size) return 0;
+    if (!chunk) return size - pos;
+    return std::min(size, (pos + chunk - 1) / chunk * chunk) - pos;
   }
   int u16() {
     const int hi = byte();
@@ -241,10 +261,14 @@ bool derive_huffman(const HuffSpec& s, int max_dc, Huffman& t) {
   return true;
 }
 
-// The entropy-coded bits of a Huffman scan (jdhuff.c's bit buffer): FF00 is
-// an FF data byte; at a marker (recorded in *unread, as libjpeg's
+// The entropy-coded bits of a Huffman scan (jdhuff.c's bit buffer, its
+// slow path jpeg_fill_bit_buffer): FF00 is an FF data byte, and FF then
+// more FFs are fill; at a marker (recorded in *unread, as libjpeg's
 // unread_marker) it feeds zero bits and counts them, so overrun() says the
-// decode has read past the data: libjpeg's insufficient_data.
+// decode has read past the data: libjpeg's insufficient_data. It fills
+// where libjpeg does (to 57 bits or more: for a code where fewer than 8
+// bits are held, HUFF_LOOKAHEAD, or a longer code needs more; for a value
+// where fewer than its size are), so it has read libjpeg's bytes.
 struct BitReader {
   Source* src = nullptr;
   int* unread = nullptr;
@@ -290,7 +314,70 @@ struct BitReader {
   // HUFF_DECODE / jpeg_huff_decode: a code that is none decodes as 0 after
   // 17 bits, with libjpeg's "bad Huffman code" warning
   int decode(const Huffman& t) {
-    if (n < 17) fill();
+    if (n < Huffman::kLook) fill();
+    const int look = static_cast<int>(acc >> (64 - Huffman::kLook));
+    int len = t.look_len[look];
+    if (len) {
+      acc <<= len;
+      n -= len;
+      return t.look_sym[look];
+    }
+    // jpeg_huff_decode: 9 bits at once, then one at a time
+    len = Huffman::kLook + 1;
+    int32_t code = get(len);
+    while (code > t.maxcode[len]) {
+      code = (code << 1) | get(1);
+      len++;
+    }
+    if (len > 16) return 0;
+    return t.vals[(code + t.valoffset[len]) & 0xFF];
+  }
+  bool overrun() const { return n < fake; }
+};
+
+// decode_mcu_fast's bit buffer (jdhuff.c), which libjpeg-turbo takes for an
+// MCU of a sequential scan with no restart interval where no marker is
+// unread and its source's buffer holds at least 512 bytes a block of the
+// MCU. It fills 6 bytes at once where 16 bits or fewer are held, reading
+// FF00 as FF; FF then any other byte (another FF too) is a marker: it
+// feeds a zero byte and stays at the FF. An MCU that met a marker is
+// decoded again by the slow path from the state before it, over the
+// coefficients the fast one wrote (those the slow one does not write
+// stay).
+struct FastReader {
+  const Source* src;
+  size_t pos;
+  uint64_t acc;
+  int n;
+  bool marker = false;
+
+  void fill() {  // FILL_BIT_BUFFER_FAST
+    if (n > 16) return;
+    for (int i = 0; i < 6; i++) {  // FILL_BYTE
+      int c = src->at(pos++);
+      if (c == 0xFF) {
+        if (src->at(pos) == 0) {
+          pos++;
+        } else {
+          marker = true;
+          pos--;
+          c = 0;
+        }
+      }
+      acc |= static_cast<uint64_t>(c) << (56 - n);
+      n += 8;
+    }
+  }
+  int get(int k) {
+    if (k == 0) return 0;
+    fill();
+    const int v = static_cast<int>(acc >> (64 - k));
+    acc <<= k;
+    n -= k;
+    return v;
+  }
+  int decode(const Huffman& t) {  // HUFF_DECODE_FAST
+    fill();
     const int look = static_cast<int>(acc >> (64 - Huffman::kLook));
     int len = t.look_len[look];
     if (len) {
@@ -309,7 +396,6 @@ struct BitReader {
     if (len > 16) return 0;
     return t.vals[(code + t.valoffset[len]) & 0xFF];
   }
-  bool overrun() const { return n < fake; }
 };
 
 // jaricom.c: Table D.2 of T.81, each entry Qe << 16 | Next_Index_MPS << 8
@@ -812,6 +898,22 @@ struct Decoder {
     const int rows = single ? sc.c[0]->hib : mcuy;
     const long total = static_cast<long>(cols) * rows;
     int left = restart;
+    // decode_mcu's fast path: sequential Huffman data, no restart interval
+    const bool fast = !arith && !progressive && !restart;
+    int blocks = 0;  // blocks_in_MCU
+    for (int i = 0; i < sc.n; i++) blocks += single ? 1 : sc.c[i]->h * sc.c[i]->v;
+    auto for_blocks = [&](int mr, int mc, auto&& f) {
+      for (int i = 0; i < sc.n; i++) {
+        Component& c = *sc.c[i];
+        const int bh = single ? 1 : c.v, bw = single ? 1 : c.h;
+        for (int by = 0; by < bh; by++)
+          for (int bx = 0; bx < bw; bx++) {
+            const int row = single ? mr : mr * c.v + by;
+            const int col = single ? mc : mc * c.h + bx;
+            f(c, i, c.coef.data() + (static_cast<size_t>(row) * c.gw + col) * 64);
+          }
+      }
+    };
     for (long m = 0; m < total; m++) {
       const int mr = static_cast<int>(m / cols);
       const int mc = static_cast<int>(m % cols);
@@ -835,36 +937,43 @@ struct Decoder {
         left--;
       }
       if (insufficient) continue;  // leave the MCU as it is
-      for (int i = 0; i < sc.n; i++) {
-        Component& c = *sc.c[i];
-        const int bh = single ? 1 : c.v, bw = single ? 1 : c.h;
-        for (int by = 0; by < bh; by++)
-          for (int bx = 0; bx < bw; bx++) {
-            const int row = single ? mr : mr * c.v + by;
-            const int col = single ? mc : mc * c.h + bx;
-            int16_t* blk = c.coef.data() +
-                           (static_cast<size_t>(row) * c.gw + col) * 64;
-            int st = kOk;
-            if (arith)
-              st = arith_block(ar, sc, c, blk, pred[i], dc_ctx[i]);
-            else if (!progressive)
-              block_sequential(br, blk, c, pred[i]);
-            else if (sc.ss == 0)
-              st = sc.ah == 0 ? dc_first(br, blk, c, pred[i], sc.al)
-                              : (dc_refine(br, blk, sc.al), kOk);
-            else if (sc.ah == 0)
-              ac_first(br, blk, c, sc, eobrun);
-            else
-              ac_refine(br, blk, c, sc, eobrun);
-            if (st != kOk) return st;
-          }
+      if (fast && !unread && src.left() >= 512 * static_cast<size_t>(blocks)) {
+        FastReader fr{&src, src.pos, br.acc, br.n};
+        int fpred[4] = {pred[0], pred[1], pred[2], pred[3]};
+        for_blocks(mr, mc, [&](Component& c, int i, int16_t* blk) {
+          block_sequential(fr, blk, c, fpred[i]);
+        });
+        if (!fr.marker) {
+          src.pos = fr.pos;
+          br.acc = fr.acc;
+          br.n = fr.n;
+          std::memcpy(pred, fpred, sizeof(pred));
+          continue;
+        }
       }
+      int st = kOk;
+      for_blocks(mr, mc, [&](Component& c, int i, int16_t* blk) {
+        if (st != kOk) return;
+        if (arith)
+          st = arith_block(ar, sc, c, blk, pred[i], dc_ctx[i]);
+        else if (!progressive)
+          block_sequential(br, blk, c, pred[i]);
+        else if (sc.ss == 0)
+          st = sc.ah == 0 ? dc_first(br, blk, c, pred[i], sc.al)
+                          : (dc_refine(br, blk, sc.al), kOk);
+        else if (sc.ah == 0)
+          ac_first(br, blk, c, sc, eobrun);
+        else
+          ac_refine(br, blk, c, sc, eobrun);
+      });
+      if (st != kOk) return st;
       if (!arith && br.overrun()) insufficient = true;
     }
     return kOk;
   }
 
-  void block_sequential(BitReader& br, int16_t* blk, const Component& c,
+  template <class Reader>
+  void block_sequential(Reader& br, int16_t* blk, const Component& c,
                         int& pred) {
     int s = br.decode(dc[c.td]);
     if (s) s = extend(br.get(s), s);
@@ -1656,6 +1765,7 @@ int decode_into(const uint8_t* data, size_t n, Image& img) {
   Decoder d;
   d.src.data = data;
   d.src.size = n;
+  d.src.chunk = 4096;  // cv2.imread's stdio source (jdatasrc.c)
   const int st = d.decode_all();
   if (st != kOk) return st;
   const int W = d.width, H = d.height;

@@ -5,9 +5,9 @@
 // tiles of gray (MINISBLACK or MINISWHITE), RGB, palette, CMYK, YCbCr or
 // CIELAB samples with any extra samples, of either planar configuration
 // and fill order, uncompressed, PackBits, LZW (old-style codes too),
-// deflate or JPEG, with or without the horizontal predictor, or with a
-// Compression number that names no codec. Two readers, each a copy of what
-// its library does:
+// deflate, CCITT (RLE, group 3 1-D and 2-D, group 4, RLE/W) or JPEG, with
+// or without the horizontal predictor, or with a Compression number that
+// names no codec. Two readers, each a copy of what its library does:
 //   - tiff_cv2: OpenCV 5's TiffDecoder over libtiff 4.7. The directory is
 //     read by libtiff's rules (TIFFReadDirectory: the first of duplicate
 //     tags wins, a bad required tag refuses the file, a bad optional one is
@@ -19,7 +19,9 @@
 //     needs the Photometric tag, samples of 1, 8 or 16 bits (4 of a
 //     palette), at most 4 a pixel, a codec its build has, and what
 //     libtiff's RGBA reader accepts, and reads each strip or tile through
-//     TIFFReadRGBAStrip / TIFFReadRGBATile. The reader's put routines are
+//     TIFFReadRGBAStrip / TIFFReadRGBATile (CCITT through libtiff's fax
+//     decoders, FaxDecoder, their no-EOL mode kept from chunk to chunk in
+//     the reader's order). The reader's put routines are
 //     copied with their pointer arithmetic (gray and palette rows skip bytes
 //     where RGB rows skip pixels, which reads the edge tiles of some layouts
 //     askew) and tables: a 16-bit gray sample's high byte, an RGB one's
@@ -52,9 +54,10 @@
 //     refused, as its pixels there are whatever memory held), CMYK by
 //     Pillow's cmyk2rgb, orientation applied as ImageOps.exif_transpose
 //     applies it.
-// Any other layout that a reader would accept (CCITT and the other codecs
-// of TIFF part 2c, Pillow's 32-bit, float and LAB modes) gives kTiff: the
-// port does not decode it. Each runs on a whole file in memory, or, for
+// Any other layout that a reader would accept (the other codecs of TIFF
+// part 2c: NeXT, ThunderScan, SGILog, and Pillow's LZMA, ZSTD and WebP;
+// Pillow's 32-bit, float and LAB modes) gives kTiff: the port does not
+// decode it. Each runs on a whole file in memory, or, for
 // the header probe, on an open file read where its IFD points.
 
 #include <zlib.h>
@@ -79,7 +82,8 @@ enum Tag : uint16_t {
   kMinSample = 280, kMaxSample = 281, kPlanar = 284, kTransfer = 301,
   kPredictor = 317, kWhitePoint = 318, kColorMap = 320, kTileWidth = 322,
   kTileLength = 323, kTileOffsets = 324, kTileByteCounts = 325,
-  kInkSet = 332, kExtraSamples = 338, kSampleFormat = 339,
+  kGroup3Options = 292, kInkSet = 332, kExtraSamples = 338,
+  kSampleFormat = 339,
   kSMinSample = 340, kSMaxSample = 341, kJpegTables = 347,
   kYccCoefficients = 529, kYccSubsampling = 530, kRefBlackWhite = 532,
   kDataType = 32996, kImageDepth = 32997, kTileDepth = 32998,
@@ -94,18 +98,17 @@ bool part1_compression(int c) {
 // small uncompressed RGB file in cv2.imread sorted them: the ones OpenCV's
 // build leaves out, which TIFFRGBAImageOK refuses ("requested compression
 // method is not configured": old-style JPEG, PixarLog, JBIG, LERC, LZMA,
-// ZSTD, WebP), and the ones it has that the port does not decode (TIFF
-// part 2c: CCITT RLE, group 3 and 4, RLE/W, NeXT, ThunderScan, SGILog).
-// Every other number but part 1's and JPEG (7) names no codec: libtiff
-// opens the file, its strips decode to nothing ("decoding is not
-// implemented") and the image reads as zeros.
+// ZSTD, WebP), and the ones it has that the port does not decode (the rest
+// of TIFF part 2c: NeXT, ThunderScan, SGILog). Every other number but part
+// 1's, CCITT's (2, 3, 4, 32771) and JPEG (7) names no codec: libtiff opens
+// the file, its strips decode to nothing ("decoding is not implemented")
+// and the image reads as zeros.
 bool not_configured(int c) {
   return c == 6 || c == 32909 || c == 34661 || c == 34887 || c == 34925 ||
          c == 50000 || c == 50001;
 }
 bool part2c_codec(int c) {
-  return (c >= 2 && c <= 4) || c == 32766 || c == 32771 || c == 32809 ||
-         c == 34676 || c == 34677;
+  return c == 32766 || c == 32809 || c == 34676 || c == 34677;
 }
 
 // ------------------------------------------------------------- the file
@@ -246,6 +249,7 @@ struct Dir {
   uint16_t orientation = 1, predictor = 1, fillorder = 1, sampleformat = 1;
   uint16_t extrasamples = 0, sampleinfo0 = 0;  // the first ExtraSamples value
   uint16_t inkset = 1;
+  uint32_t group3 = 0;  // Group3Options (Compression 3 only)
   // YCbCrSubsampling (2, 2 without the tag; JPEG's fixup may set it from
   // the first strip's frame), YCbCrCoefficients, ReferenceBlackWhite
   // (unset: libtiff's default for the photometric), WhitePoint (D50)
@@ -726,6 +730,10 @@ bool read_dir(Dir& t) {
         if (read_one(s, e, 0xFFFF, v) == kErrOk)
           t.inkset = static_cast<uint16_t>(v);
         break;
+      case kGroup3Options:  // a field of the group 3 codec alone
+        if (t.compression == 3 && read_one(s, e, 0xFFFFFFFFu, v) == kErrOk)
+          t.group3 = static_cast<uint32_t>(v);
+        break;
       case kYccSubsampling: {
         std::vector<uint64_t> a;
         if (e.count == 2 && read_array(s, e, 0xFFFF, a) == kErrOk) {
@@ -1005,6 +1013,482 @@ uint8_t reversed(uint8_t b) {
   return static_cast<uint8_t>((b & 0xAA) >> 1 | (b & 0x55) << 1);
 }
 
+// ------------------------------------------------ CCITT (2, 3, 4, 32771)
+
+// The run-length codes of ITU-T T.4 (Tables 2 and 3: the terminating codes
+// of runs 0-63 and the make-up codes of 64-1728, white and black; Table 4:
+// the extended make-up codes of 1792-2560, shared), bits in the order they
+// are sent.
+struct FaxCode {
+  uint16_t run;
+  const char* bits;
+};
+const FaxCode kWhiteCodes[] = {
+    {0, "00110101"}, {1, "000111"}, {2, "0111"}, {3, "1000"}, {4, "1011"},
+    {5, "1100"}, {6, "1110"}, {7, "1111"}, {8, "10011"}, {9, "10100"},
+    {10, "00111"}, {11, "01000"}, {12, "001000"}, {13, "000011"},
+    {14, "110100"}, {15, "110101"}, {16, "101010"}, {17, "101011"},
+    {18, "0100111"}, {19, "0001100"}, {20, "0001000"}, {21, "0010111"},
+    {22, "0000011"}, {23, "0000100"}, {24, "0101000"}, {25, "0101011"},
+    {26, "0010011"}, {27, "0100100"}, {28, "0011000"}, {29, "00000010"},
+    {30, "00000011"}, {31, "00011010"}, {32, "00011011"}, {33, "00010010"},
+    {34, "00010011"}, {35, "00010100"}, {36, "00010101"}, {37, "00010110"},
+    {38, "00010111"}, {39, "00101000"}, {40, "00101001"}, {41, "00101010"},
+    {42, "00101011"}, {43, "00101100"}, {44, "00101101"}, {45, "00000100"},
+    {46, "00000101"}, {47, "00001010"}, {48, "00001011"}, {49, "01010010"},
+    {50, "01010011"}, {51, "01010100"}, {52, "01010101"}, {53, "00100100"},
+    {54, "00100101"}, {55, "01011000"}, {56, "01011001"}, {57, "01011010"},
+    {58, "01011011"}, {59, "01001010"}, {60, "01001011"}, {61, "00110010"},
+    {62, "00110011"}, {63, "00110100"}, {64, "11011"}, {128, "10010"},
+    {192, "010111"}, {256, "0110111"}, {320, "00110110"}, {384, "00110111"},
+    {448, "01100100"}, {512, "01100101"}, {576, "01101000"},
+    {640, "01100111"}, {704, "011001100"}, {768, "011001101"},
+    {832, "011010010"}, {896, "011010011"}, {960, "011010100"},
+    {1024, "011010101"}, {1088, "011010110"}, {1152, "011010111"},
+    {1216, "011011000"}, {1280, "011011001"}, {1344, "011011010"},
+    {1408, "011011011"}, {1472, "010011000"}, {1536, "010011001"},
+    {1600, "010011010"}, {1664, "011000"}, {1728, "010011011"}};
+const FaxCode kBlackCodes[] = {
+    {0, "0000110111"}, {1, "010"}, {2, "11"}, {3, "10"}, {4, "011"},
+    {5, "0011"}, {6, "0010"}, {7, "00011"}, {8, "000101"}, {9, "000100"},
+    {10, "0000100"}, {11, "0000101"}, {12, "0000111"}, {13, "00000100"},
+    {14, "00000111"}, {15, "000011000"}, {16, "0000010111"},
+    {17, "0000011000"}, {18, "0000001000"}, {19, "00001100111"},
+    {20, "00001101000"}, {21, "00001101100"}, {22, "00000110111"},
+    {23, "00000101000"}, {24, "00000010111"}, {25, "00000011000"},
+    {26, "000011001010"}, {27, "000011001011"}, {28, "000011001100"},
+    {29, "000011001101"}, {30, "000001101000"}, {31, "000001101001"},
+    {32, "000001101010"}, {33, "000001101011"}, {34, "000011010010"},
+    {35, "000011010011"}, {36, "000011010100"}, {37, "000011010101"},
+    {38, "000011010110"}, {39, "000011010111"}, {40, "000001101100"},
+    {41, "000001101101"}, {42, "000011011010"}, {43, "000011011011"},
+    {44, "000001010100"}, {45, "000001010101"}, {46, "000001010110"},
+    {47, "000001010111"}, {48, "000001100100"}, {49, "000001100101"},
+    {50, "000001010010"}, {51, "000001010011"}, {52, "000000100100"},
+    {53, "000000110111"}, {54, "000000111000"}, {55, "000000100111"},
+    {56, "000000101000"}, {57, "000001011000"}, {58, "000001011001"},
+    {59, "000000101011"}, {60, "000000101100"}, {61, "000001011010"},
+    {62, "000001100110"}, {63, "000001100111"}, {64, "0000001111"},
+    {128, "000011001000"}, {192, "000011001001"}, {256, "000001011011"},
+    {320, "000000110011"}, {384, "000000110100"}, {448, "000000110101"},
+    {512, "0000001101100"}, {576, "0000001101101"}, {640, "0000001001010"},
+    {704, "0000001001011"}, {768, "0000001001100"}, {832, "0000001001101"},
+    {896, "0000001110010"}, {960, "0000001110011"}, {1024, "0000001110100"},
+    {1088, "0000001110101"}, {1152, "0000001110110"},
+    {1216, "0000001110111"}, {1280, "0000001010010"},
+    {1344, "0000001010011"}, {1408, "0000001010100"},
+    {1472, "0000001010101"}, {1536, "0000001011010"},
+    {1600, "0000001011011"}, {1664, "0000001100100"},
+    {1728, "0000001100101"}};
+const FaxCode kExtendedCodes[] = {
+    {1792, "00000001000"}, {1856, "00000001100"}, {1920, "00000001101"},
+    {1984, "000000010010"}, {2048, "000000010011"}, {2112, "000000010100"},
+    {2176, "000000010101"}, {2240, "000000010110"}, {2304, "000000010111"},
+    {2368, "000000011100"}, {2432, "000000011101"}, {2496, "000000011110"},
+    {2560, "000000011111"}};
+
+// tif_fax3.h's decoding states, and its tables (tif_fax3sm.c) built as
+// libtiff's mkg3states builds them: a code, read first bit lowest, fills
+// every entry whose low `width` bits it is (state, width, run or V
+// offset); the rest are S_Null of width 0. The 2-D modes' table reads 7
+// bits (an EOL's first 7 zeros), the white one 12 and the black one 13
+// (an EOL's first 11 zeros).
+enum FaxState : uint8_t {
+  kNull, kPass, kHoriz, kV0, kVR, kVL, kExt, kTermW, kTermB, kMakeUpW,
+  kMakeUpB, kMakeUp, kEol
+};
+struct FaxEnt {
+  uint8_t state = kNull, width = 0;
+  uint32_t param = 0;
+};
+struct FaxTables {
+  FaxEnt main[1 << 7], white[1 << 12], black[1 << 13];
+  static void put(FaxEnt* t, int size, const char* bits, uint32_t param,
+                  FaxState state) {
+    const int width = static_cast<int>(std::strlen(bits));
+    int code = 0;
+    for (int i = 0; i < width; i++) code |= (bits[i] == '1') << i;
+    for (int c = code; c < (1 << size); c += 1 << width)
+      t[c] = {state, static_cast<uint8_t>(width), param};
+  }
+  FaxTables() {
+    put(main, 7, "0001", 0, kPass);
+    put(main, 7, "001", 0, kHoriz);
+    put(main, 7, "1", 0, kV0);
+    put(main, 7, "011", 1, kVR);
+    put(main, 7, "000011", 2, kVR);
+    put(main, 7, "0000011", 3, kVR);
+    put(main, 7, "010", 1, kVL);
+    put(main, 7, "000010", 2, kVL);
+    put(main, 7, "0000010", 3, kVL);
+    put(main, 7, "0000001", 0, kExt);
+    put(main, 7, "0000000", 0, kEol);
+    for (const FaxCode& c : kWhiteCodes)
+      put(white, 12, c.bits, c.run, c.run < 64 ? kTermW : kMakeUpW);
+    for (const FaxCode& c : kBlackCodes)
+      put(black, 13, c.bits, c.run, c.run < 64 ? kTermB : kMakeUpB);
+    for (const FaxCode& c : kExtendedCodes) {
+      put(white, 12, c.bits, c.run, kMakeUp);
+      put(black, 13, c.bits, c.run, kMakeUp);
+    }
+    put(white, 12, "00000000000", 0, kEol);
+    put(black, 13, "00000000000", 0, kEol);
+  }
+};
+
+bool fax_codec(int c) { return (c >= 2 && c <= 4) || c == 32771; }
+
+// What libtiff's fax codec keeps from chunk to chunk of one file: the run
+// arrays (allocated and zeroed at its setup; a damaged row's reference
+// line can read past its runs into what earlier rows and chunks left) and
+// FAXMODE_NOEOL, which group 3 sets for good once it reads without EOLs.
+struct FaxCodec {
+  std::vector<uint32_t> runs;
+  bool noeol = false;
+};
+
+// libtiff's CCITT decoders (tif_fax3.c, tif_fax3.h) over one strip or tile:
+// Fax3DecodeRLE (Compression 2, rows byte-aligned; 32771, rows aligned to
+// 16-bit words of the file's mapping), Fax3Decode1D and Fax3Decode2D
+// (Compression 3, 2-D where Group3Options has bit 0; each row after an
+// EOL, fill before it skipped), Fax4Decode (4, ended by EOFB). Damage
+// reads as libtiff recovers it: a bad code ends the row, which
+// CLEANUP_RUNS pads or cuts to the row's width, a group 3 row starts at
+// the next EOL, the last bits are padded with zeros, and data that runs
+// out fills the row it is in and ends the chunk. Bits are read through
+// the fill order's bit-reversal table (TIFF_NOBITREV). Each row is put
+// as _TIFFFax3fillruns puts it: white runs 0, black 1, MSB first. Returns
+// the decoder's result: 1, or -1 where the data ran out (group 4: before
+// one row was done) or the run arrays would overflow.
+struct FaxDecoder {
+  static const FaxTables& tables() {
+    static const FaxTables t;
+    return t;
+  }
+  const uint8_t* cp;
+  const uint8_t* ep;
+  uint8_t bitmap[256];
+  uint32_t acc = 0;  // BitAcc
+  int avail = 0;     // BitsAvail
+  int eolcnt = 0;
+  int lastx;
+  uint32_t nruns;
+  uint32_t *thisrun, *pa, *pb, *curruns, *refruns;
+  int a0 = 0, b1 = 0, run_length = 0;
+  size_t written = 0;  // rows put
+  bool* noeol;
+
+  bool need8(int n) {  // NeedBits8: false for eoflab
+    if (avail < n) {
+      if (cp >= ep) {
+        if (avail == 0) return false;
+        avail = n;
+      } else {
+        acc |= static_cast<uint32_t>(bitmap[*cp++]) << avail;
+        avail += 8;
+      }
+    }
+    return true;
+  }
+  bool need16(int n) {  // NeedBits16
+    if (avail < n) {
+      if (cp >= ep) {
+        if (avail == 0) return false;
+        avail = n;
+      } else {
+        acc |= static_cast<uint32_t>(bitmap[*cp++]) << avail;
+        if ((avail += 8) < n) {
+          if (cp >= ep) {
+            avail = n;
+          } else {
+            acc |= static_cast<uint32_t>(bitmap[*cp++]) << avail;
+            avail += 8;
+          }
+        }
+      }
+    }
+    return true;
+  }
+  uint32_t bits(int n) const { return acc & ((1u << n) - 1); }
+  void clear(int n) {
+    avail -= n;
+    acc >>= n;
+  }
+  // LOOKUP8 / LOOKUP16: null where the data ran out
+  const FaxEnt* lookup(int wide, const FaxEnt* table, bool sixteen) {
+    if (!(sixteen ? need16(wide) : need8(wide))) return nullptr;
+    const FaxEnt* e = table + bits(wide);
+    clear(e->width);
+    return e;
+  }
+  static int add(int a, uint32_t b) {
+    return static_cast<int>(static_cast<uint32_t>(a) + b);
+  }
+  bool setvalue(uint32_t x) {  // SETVALUE, false on overflow
+    if (pa >= thisrun + nruns) return false;
+    *pa++ = static_cast<uint32_t>(run_length) + x;
+    a0 = add(a0, x);
+    run_length = 0;
+    return true;
+  }
+  bool cleanup() {  // CLEANUP_RUNS
+    if (run_length && !setvalue(0)) return false;
+    if (a0 != lastx) {
+      while (a0 > lastx && pa > thisrun) a0 = add(a0, 0u - *--pa);
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if (((pa - thisrun) & 1) && !setvalue(0)) return false;
+        if (!setvalue(static_cast<uint32_t>(lastx - a0))) return false;
+      } else if (a0 > lastx) {
+        if (!setvalue(static_cast<uint32_t>(lastx)) || !setvalue(0))
+          return false;
+      }
+    }
+    return true;
+  }
+  // how a step ends: done, the data ran out (eoflab), a bad code, no EOL
+  // before the data ran out (group 3's retry), the run arrays full
+  enum { kDone, kEof, kBad, kRetry, kOverflow };
+  // one run of a colour: make-up codes, then a terminating one (kBad: a
+  // code that is none, or, where `eol_ends`, the EOL that ends a 1-D row)
+  int run(bool black, bool eol_ends) {
+    const FaxTables& t = tables();
+    for (;;) {
+      const FaxEnt* e = black ? lookup(13, t.black, true)
+                              : lookup(12, t.white, true);
+      if (!e) return kEof;
+      if (e->state == (black ? kTermB : kTermW))
+        return setvalue(e->param) ? kDone : kOverflow;
+      if (e->state == (black ? kMakeUpB : kMakeUpW) || e->state == kMakeUp) {
+        a0 = add(a0, e->param);
+        run_length = add(run_length, e->param);
+        continue;
+      }
+      if (eol_ends && e->state == kEol) eolcnt = 1;
+      return kBad;  // "Bad code word"
+    }
+  }
+  int expand1d() {  // EXPAND1D
+    for (bool black = false;; black = !black) {
+      const int r = run(black, true);
+      if (r == kEof) goto eof;
+      if (r == kOverflow) return kOverflow;
+      if (r == kBad || a0 >= lastx) break;
+      if (black && *(pa - 1) == 0 && *(pa - 2) == 0) pa -= 2;
+    }
+    return cleanup() ? kDone : kOverflow;
+  eof:  // "Premature EOF"
+    return cleanup() ? kEof : kOverflow;
+  }
+  bool check_b1() {  // CHECK_b1
+    if (pa != thisrun)
+      while (b1 <= a0 && b1 < lastx) {
+        if (pb + 1 >= refruns + nruns) return false;
+        b1 = add(b1, pb[0] + pb[1]);
+        pb += 2;
+      }
+    return true;
+  }
+  int expand2d() {  // EXPAND2D
+    const FaxTables& t = tables();
+    while (a0 < lastx) {
+      if (pa >= thisrun + nruns) return kOverflow;
+      const FaxEnt* e = lookup(7, t.main, false);
+      if (!e) goto eof;
+      switch (e->state) {
+        case kPass:
+          if (!check_b1() || pb + 1 >= refruns + nruns) return kOverflow;
+          b1 = add(b1, *pb++);
+          run_length = add(run_length, static_cast<uint32_t>(b1 - a0));
+          a0 = b1;
+          b1 = add(b1, *pb++);
+          break;
+        case kHoriz: {
+          const bool black_first = (pa - thisrun) & 1;
+          for (int k = 0; k < 2; k++) {
+            const int r = run(black_first != (k == 1), false);
+            if (r == kEof) goto eof;
+            if (r == kOverflow) return kOverflow;
+            if (r == kBad) goto eol;
+          }
+          if (!check_b1()) return kOverflow;
+          break;
+        }
+        case kV0:
+        case kVR:
+          if (!check_b1() ||
+              !setvalue(static_cast<uint32_t>(b1 - a0) + e->param) ||
+              pb >= refruns + nruns)
+            return kOverflow;
+          b1 = add(b1, *pb++);
+          break;
+        case kVL:
+          if (!check_b1()) return kOverflow;
+          if (b1 < add(a0, e->param)) goto eol;  // "Bad code word"
+          if (!setvalue(static_cast<uint32_t>(b1 - a0) - e->param))
+            return kOverflow;
+          b1 = add(b1, 0u - *--pb);
+          break;
+        case kExt:  // uncompressed mode: not decoded, the row ends
+          *pa++ = static_cast<uint32_t>(lastx - a0);
+          goto eol;
+        case kEol:
+          *pa++ = static_cast<uint32_t>(lastx - a0);
+          if (!need8(4)) goto eof;
+          clear(4);
+          eolcnt = 1;
+          goto eol;
+        default:  // "Bad code word"
+          goto eol;
+      }
+    }
+    if (run_length) {
+      if (add(run_length, static_cast<uint32_t>(a0)) < lastx) {  // a final V0
+        if (!need8(1)) goto eof;
+        if (!bits(1)) goto eol;
+        clear(1);
+      }
+      if (!setvalue(0)) return kOverflow;
+    }
+  eol:
+    return cleanup() ? kDone : kOverflow;
+  eof:  // "Premature EOF"
+    return cleanup() ? kEof : kOverflow;
+  }
+  // SYNC_EOL: kDone at the row's first bit, kRetry where the data ran out
+  // before an EOL's last bit (retrywithouteol); nothing once the reader
+  // has taken the data to have no EOLs (FAXMODE_NOEOL)
+  int sync_eol() {
+    if (*noeol) return kDone;
+    if (eolcnt == 0)
+      for (;;) {
+        if (!need16(11)) return kRetry;
+        if (bits(11) == 0) break;
+        clear(1);
+      }
+    for (;;) {
+      if (!need8(8)) return kRetry;
+      if (bits(8)) break;
+      clear(8);
+    }
+    while (bits(1) == 0) clear(1);
+    clear(1);
+    eolcnt = 0;
+    return kDone;
+  }
+  // _TIFFFax3fillruns: white runs clear their bits, black ones set them,
+  // each clamped to the row
+  void fill(uint8_t* buf) {
+    written++;
+    uint32_t* erun = pa;
+    if ((erun - thisrun) & 1) *erun++ = 0;
+    uint32_t x = 0;
+    const uint32_t w = static_cast<uint32_t>(lastx);
+    for (uint32_t* r = thisrun; r < erun; r++) {
+      uint32_t n = *r;
+      if (x + n > w || n > w) n = *r = w - x;
+      const bool black = (r - thisrun) & 1;
+      for (uint32_t i = x; i < x + n; i++) {
+        if ((i & 7) == 0 && i + 8 <= x + n) {
+          buf[i >> 3] = black ? 0xFF : 0x00;
+          i += 7;
+          continue;
+        }
+        const uint8_t bit = static_cast<uint8_t>(0x80 >> (i & 7));
+        buf[i >> 3] = static_cast<uint8_t>(black ? buf[i >> 3] | bit
+                                                 : buf[i >> 3] & ~bit);
+      }
+      x += n;
+    }
+  }
+
+  int decode(const Dir& t, const uint8_t* in, size_t cc, bool odd,
+             FaxCodec& state, uint8_t* buf, size_t occ) {
+    noeol = &state.noeol;
+    // Fax3SetupState, Fax3PreDecode
+    const size_t rowbytes = t.chunk_row;
+    lastx = static_cast<int>(t.tiled ? t.tw : t.w);
+    const bool two_d = t.compression == 4 ||
+                       (t.compression == 3 && (t.group3 & 1));
+    nruns = (static_cast<uint32_t>(lastx) + 1 + 31) / 32 * 32 * (two_d ? 2 : 1);
+    if (state.runs.empty()) state.runs.assign(size_t{nruns} * 2 + 2, 0);
+    curruns = state.runs.data();
+    refruns = state.runs.data() + nruns;
+    refruns[0] = static_cast<uint32_t>(lastx);
+    refruns[1] = 0;
+    for (int b = 0; b < 256; b++)
+      bitmap[b] = t.fillorder == 2 ? static_cast<uint8_t>(b)
+                                   : reversed(static_cast<uint8_t>(b));
+    cp = in;
+    ep = in + cc;
+    if (!rowbytes || occ % rowbytes) return -1;  // "Fractional scanlines"
+    int line = 0;
+    thisrun = curruns;
+    while (occ > 0) {
+      a0 = run_length = 0;
+      if (t.compression == 4 || (t.compression == 3 && two_d)) {
+        pa = thisrun = curruns;
+        pb = refruns;
+        b1 = static_cast<int>(*pb++);
+      } else {
+        pa = thisrun;
+      }
+      int r = kDone;
+      if (t.compression == 3) {
+        const int sync = sync_eol();
+        if (sync == kRetry) {
+          // "Try to decode (read) fax Group 3 data without EOL": the row
+          // again, from the chunk's first byte
+          *noeol = true;
+          cp = in;
+          acc = 0;
+          avail = 0;
+          continue;
+        }
+        bool is1d = true;
+        if (two_d) {
+          if (!need8(1)) {
+            if (!cleanup()) return -1;
+            fill(buf);
+            return -1;
+          }
+          is1d = bits(1);
+          clear(1);
+        }
+        r = is1d ? expand1d() : expand2d();
+      } else if (t.compression == 4) {
+        r = expand2d();
+      } else {
+        r = expand1d();
+      }
+      if (r == kOverflow) return -1;
+      if (t.compression == 4 && (r == kEof || eolcnt)) {
+        need16(13);  // EOFB (or what is left)
+        clear(13);
+        fill(buf);
+        return line ? 1 : -1;  // a badly ended strip is no error
+      }
+      fill(buf);
+      if (r == kEof) return -1;
+      if (two_d) {  // an imaginary change past the row, for the next
+        if (t.compression == 4 || pa < thisrun + nruns)
+          if (!setvalue(0)) return -1;
+        std::swap(curruns, refruns);
+      }
+      if (t.compression == 2) {  // byte-aligned rows
+        clear(avail - (avail & ~7));
+      } else if (t.compression == 32771) {  // word-aligned rows
+        clear(avail - (avail & ~15));
+        if (avail == 0 && ((cp - in) & 1) != odd) cp++;
+      }
+      occ -= rowbytes;
+      buf += rowbytes;
+      line++;
+    }
+    return 1;
+  }
+};
+
 // libtiff picks its LZW decoder once, at the first strip or tile it reads
 // (chunk 0): the old-style one where that chunk's bytes (bits reversed for
 // FillOrder 2) start 0x00 then an odd byte.
@@ -1024,9 +1508,20 @@ bool lzw_compat(const Dir& t) {
 // file swapped to the host's order and the horizontal predictor applied
 // row by row.
 bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
-                  size_t occ, bool compat) {
+                  size_t occ, bool compat, bool odd = false,
+                  FaxCodec* state = nullptr) {
   bool ok;
   switch (t.compression) {
+    case 2: case 3: case 4: case 32771: {  // CCITT: rows of 1-bit samples
+      FaxCodec own;
+      FaxDecoder fax;
+      const int r = fax.decode(t, in, cc, odd, state ? *state : own, out, occ);
+      // the decoder's result (TIFFReadEncodedTile takes its -1 for
+      // success), and every row written: a group 4 strip may end early
+      // and succeed, which leaves Pillow's unzeroed buffer unwritten there
+      ok = (r > 0 || t.tiled) && fax.written * t.chunk_row == occ;
+      break;
+    }
     case 1:  // DumpModeDecode: all or nothing
       ok = cc >= occ;
       if (ok) std::memcpy(out, in, occ);
@@ -1082,15 +1577,19 @@ bool chunk_at(const Dir& t, uint32_t chunk, uint64_t& off, uint64_t& bc) {
   }
   off = t.offsets[chunk];
   if (bc > t.src.n || off > t.src.n - bc) return false;
-  // the codec's setup: the horizontal predictor works on 8 or 16 bits (of
-  // the sizes decoded here); any other predictor fails
+  // the codec's setup: CCITT takes 1-bit samples, one a pixel or in
+  // separate planes (Fax3SetupState); the horizontal predictor works on 8
+  // or 16 bits (of the sizes decoded here); any other predictor fails
+  if (fax_codec(t.compression))
+    return t.bps == 1 && (t.spp == 1 || t.planar == 2);
   return t.compression == 1 || t.compression == 32773 || t.predictor == 1 ||
          (t.predictor == 2 && (t.bps == 8 || t.bps == 16));
 }
 
-// FillOrder 2 reverses the raw bytes' bits, but for JPEG (TIFF_NOBITREV).
+// FillOrder 2 reverses the raw bytes' bits, but for JPEG and CCITT
+// (TIFF_NOBITREV: the fax decoders read through their own table).
 bool bits_reversed(const Dir& t) {
-  return t.fillorder == 2 && t.compression != 7;
+  return t.fillorder == 2 && t.compression != 7 && !fax_codec(t.compression);
 }
 
 // The chunk's raw bytes (bits reversed for FillOrder 2), or false where
@@ -1330,6 +1829,7 @@ struct Rgba {
   YccToRgb ycc;
   LabToRgb lab;
   bool compat = false;
+  FaxCodec fax;              // the fax codec's state over the file
   uint64_t rawdatasize = 0;  // tif_rawdatasize, for uncompressed tiles
   bool two_pass = true;      // OpenCV's reads: checked, then decoded
   JpegCodec jpeg;
@@ -1609,7 +2109,8 @@ int read_chunk(Rgba& g, uint32_t chunk, bool first, uint8_t* buf,
   if (!fill()) return -1;
   if (!decode) return 0;
   chunk_bytes(t, chunk, raw);
-  decode_chunk(t, raw.data(), raw.size(), buf, occ, g.compat);
+  decode_chunk(t, raw.data(), raw.size(), buf, occ, g.compat,
+               t.offsets[chunk] & 1, &g.fax);
   return 0;
 }
 
@@ -1744,7 +2245,8 @@ bool read_band(Rgba& g, uint32_t y0, uint32_t h, std::vector<uint8_t>& rgba) {
 // True where the directory holds a layout the port decodes: strips or
 // tiles of gray, RGB, palette, CMYK, YCbCr or CIELAB samples, with any
 // extra samples, either planar configuration or fill order, compressed as
-// TIFF part 1, with JPEG, or with a number that names no codec.
+// TIFF part 1, with CCITT RLE, group 3 or 4 or RLE/W, with JPEG, or with a
+// number that names no codec (not NeXT, ThunderScan or SGILog).
 bool decoded_layout(const Dir& t) {
   return !part2c_codec(t.compression);
 }
@@ -2322,7 +2824,8 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
   const std::string mode = info->mode;
   if (!decoded_mode(mode) || std::string(info->raw) == "I;12") return kTiff;
   const bool raw = comp == 1;
-  if (!raw && !part1_compression(static_cast<int>(comp)) && comp != 7)
+  if (!raw && !part1_compression(static_cast<int>(comp)) && comp != 7 &&
+      !fax_codec(static_cast<int>(comp)))
     return kTiff;
   const int bps_count = (photo == 2 || photo == 6 || photo == 8 ? 3 : photo == 5 ? 4 : 1) +
                         static_cast<int>(extra.size());
@@ -2492,7 +2995,8 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     Dir t;
     t.src = src;
     if (!read_dir(t) || t.w != w || t.h != h ||
-        !(part1_compression(t.compression) || t.compression == 7))
+        !(part1_compression(t.compression) || t.compression == 7 ||
+          fax_codec(t.compression)))
       return kUnreadable;
     if (t.photometric == 6 && !(t.compression == 7 && t.planar == 1)) {
       // _decodeAsRGBA: libtiff's RGBA reader, a strip or a row of tiles at
@@ -2542,6 +3046,7 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     };
     std::vector<uint8_t> buf, raw_bytes;
     const bool compat = lzw_compat(t);
+    FaxCodec fax;  // the fax codec's state, kept from chunk to chunk
     // TIFFReadEncodedStrip / TIFFReadTile: the chunk whole, or an error
     // (zeros past the chunk: an unpacker that reads more bytes a row than
     // libtiff's row holds reads on into them)
@@ -2552,14 +3057,15 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
       if (!chunk_bytes(t, chunk, raw_bytes)) return false;
       buf.assign(size + pad, 0);
       // Pillow's strip or tile buffer is not zeroed: where a JPEG frame
-      // leaves pixels it unpacks unwritten, Pillow's pixels are whatever
-      // memory held (refused)
+      // or a CCITT chunk that ends early leaves pixels it unpacks
+      // unwritten, Pillow's pixels are whatever memory held (refused)
       int frame[2] = {0, 0};
       if (t.compression == 7)
         return jpeg_chunk(jpeg, t, chunk, raw_bytes.data(), raw_bytes.size(),
                           buf.data(), size, frame) == 1 &&
                frame[0] >= cols && frame[1] >= rows;
-      return decode_chunk(t, raw_bytes.data(), raw_bytes.size(), buf.data(), size, compat);
+      return decode_chunk(t, raw_bytes.data(), raw_bytes.size(), buf.data(), size, compat,
+                          t.offsets[chunk] & 1, &fax);
     };
     if (!t.tiled) {
       const int64_t prps = t.rps_set && t.rps != 0xFFFFFFFFu ? t.rps : h;
