@@ -355,7 +355,8 @@ IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
                  "tiff_zstd.png": "TIFF", "webp.png": "WebP"}
 # decode groups by file-name prefix; "tiff" is TIFF part 1 (8-bit strips),
-# the files of no tiff_* group below it
+# the files of no tiff_* group below it; "tiff_thunder_sgilog" holds the
+# files built at run time (TIFF_2C_FILES)
 IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "p5_", "p6_"), "pam": ("pam_",), "bmp_rle": ("bmp_rle",),
                 "bmp_bitfields_core": ("bmp16", "bmp32", "bmp_core"),
@@ -373,7 +374,8 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_bigtiff": ("tiff_bigtiff",),
                 "tiff_color_jpeg": ("tiff_cmyk", "tiff_ycbcr", "tiff_jpeg",
                                     "tiff_unknown", "tiff_cielab"),
-                "tiff_ccitt": ("tiff_group4", "tiff_ccitt")}
+                "tiff_ccitt": ("tiff_group4", "tiff_ccitt"),
+                "tiff_thunder_sgilog": ("tiff_2c_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -381,6 +383,33 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
 BUILT_TIFF_SIZE = (480, 640)
 BUILT_TIFF_ROWS = 16
 BUILT_TIFF_DECODES = 20
+# and ThunderScan and SGILog files (TIFF part 2c), built by thunder_code
+# and sgilog_code from TIFF_2C_SEED: {name: (kind, h, w, rows a strip)},
+# the tiff_2c_ ones small enough to keep phase 13's tree in its buckets,
+# the rate_2c_ ones the size of the decode rates' files; TIFF_2C_DIGESTS:
+# SHA-256 of cv2.imread's RGB pixels of each (tests/test_torch_port_tiff_2c
+# .py checks them against cv2)
+TIFF_2C_FILES = {
+    "tiff_2c_thunder_palette.png": ("thunder", 12, 15, 5),
+    "tiff_2c_logl.png": ("logl", 10, 14, 4),
+    "tiff_2c_luv32.png": ("luv32", 16, 11, 6),
+    "tiff_2c_luv24.png": ("luv24", 9, 13, 9),
+    "rate_2c_thunder.png": ("thunder", *BUILT_TIFF_SIZE, BUILT_TIFF_ROWS),
+    "rate_2c_luv32.png": ("luv32", *BUILT_TIFF_SIZE, BUILT_TIFF_ROWS)}
+TIFF_2C_SEED = 19
+TIFF_2C_DIGESTS = {
+    "tiff_2c_thunder_palette.png":
+        "8c983ca3a93bb0d1271a6d597516950dc8e0cc556b0089400aff86b678b09b3e",
+    "tiff_2c_logl.png":
+        "35a9eb504e063c5afbad4693c83fbe927a0e8b1ff0ff68e1ebf15196bb268326",
+    "tiff_2c_luv32.png":
+        "24c9eba89cf21572532c9af343989b58022c86e9fd530fe68a58590807db2f80",
+    "tiff_2c_luv24.png":
+        "97c44282fa9eb673a0b914b21aee007415dedf094820aca327ccbee1f357d757",
+    "rate_2c_thunder.png":
+        "dddb3e032ad137c6821896b9c1817192185023a35a39447d2d9f582a95036e71",
+    "rate_2c_luv32.png":
+        "a9c20fc99ca7cacbe73a76de3929ee95809231e62e1ec9f3d2245502fafb10e3"}
 # and a fax page (T.4's 1728 pixels a row, fine mode's 2292 rows, one
 # strip, MINISWHITE) as group 4 and as group 3 2-D (K = 4), written by
 # fax_code's T.6 and T.4 coder
@@ -3810,10 +3839,8 @@ def tiff_bytes(img, tile=None, bigtiff=False, big=False, jpeg=None):
     first. With ``jpeg``, a list of whole JPEG streams at 4:2:0, one a
     strip: JPEG compression (7) of YCbCr (photometric 6,
     YCbCrSubsampling 2, 2)."""
-    import struct
     import zlib
     import numpy as np
-    e = ">" if big else "<"
     h, w = img.shape[:2]
     if tile is None:
         chunks = [img[y:y + BUILT_TIFF_ROWS]
@@ -3828,7 +3855,7 @@ def tiff_bytes(img, tile=None, bigtiff=False, big=False, jpeg=None):
                 block[:part.shape[0], :part.shape[1]] = part
                 chunks.append(block)
     data = [zlib.compress(np.ascontiguousarray(c).tobytes()) for c in chunks]
-    word, long_type = ("Q", 16) if bigtiff else ("I", 4)
+    long_type = 16 if bigtiff else 4
     tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]),
             259: (3, [8]), 262: (3, [2]), 277: (3, [3])}
     if jpeg is not None:
@@ -3841,6 +3868,17 @@ def tiff_bytes(img, tile=None, bigtiff=False, big=False, jpeg=None):
         tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]),
                      324: (long_type, None),
                      325: (long_type, [len(d) for d in data])})
+    return tiff_layout(tags, data, bigtiff, big)
+
+
+def tiff_layout(tags, data, bigtiff=False, big=False):
+    """A TIFF of one IFD of ``tags`` {tag: (type, values)} (SHORT, LONG or
+    LONG8 values; the tag whose values are None takes the offsets of the
+    ``data`` chunks), the IFD and its values first, then the chunks;
+    classic or BigTIFF, little or big endian."""
+    import struct
+    e = ">" if big else "<"
+    word = "Q" if bigtiff else "I"
     chars = {3: "H", 4: "I", 16: "Q"}
     inline = 8 if bigtiff else 4
     head = 16 if bigtiff else 8
@@ -3855,7 +3893,9 @@ def tiff_bytes(img, tile=None, bigtiff=False, big=False, jpeg=None):
     for d in data:
         offsets.append(offset)
         offset += len(d)
-    arrays[273 if tile is None else 324] = offsets
+    for t, (_, v) in tags.items():
+        if v is None:
+            arrays[t] = offsets
     ifd, values = [struct.pack(e + ("Q" if bigtiff else "H"), n)], b""
     for tag in sorted(tags):
         typ, v = tags[tag][0], arrays[tag]
@@ -4123,6 +4163,186 @@ def c11_files(root):
     return out
 
 
+def thunder_code(img):
+    """ThunderScan code words of 4-bit ``img`` [h, w], row by row from a
+    last pixel of 0: a run of the last pixel where 2 to 63 repeat it, two
+    3-bit deltas where the next two pixels lie within 3 of the one before,
+    three 2-bit deltas within 1 (the one deltas' codes, never a skip),
+    else a raw value."""
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    two = {0: 0, 1: 1, -1: 3}
+    out = bytearray()
+    for row in img.tolist():
+        last, i, n = 0, 0, len(row)
+        while i < n:
+            j = i
+            while j < n and j - i < 63 and row[j] == last:
+                j += 1
+            d = [(row[k] - (last if k == i else row[k - 1]) + 8) % 16 - 8
+                 for k in range(i, min(i + 3, n))]
+            if j - i >= 2:
+                out.append(j - i)
+                i = j
+                continue
+            if len(d) == 3 and all(x in two for x in d):
+                out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | two[d[2]])
+            elif len(d) >= 2 and d[0] in three and d[1] in three:
+                out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+                d = d[:2]
+            else:
+                out.append(0xC0 | row[i])
+                d = d[:1]
+            i += len(d)
+            last = row[i - 1]
+    return bytes(out)
+
+
+def sgilog_code(words, planes):
+    """SGILog byte planes of ``words`` [h, w] (uint32), each row on its own,
+    its high plane first: runs of 3 to 129 equal bytes (a byte of 126 plus
+    the count, then the byte), literal strings of at most 127 bytes (the
+    count, then the bytes) between them."""
+    import numpy as np
+    out = bytearray()
+    for row in words:
+        for k in range(planes - 1, -1, -1):
+            b = (row >> (8 * k) & 255).astype(np.uint8)
+            edges = np.flatnonzero(np.diff(b)) + 1
+            starts = [0] + edges.tolist()
+            ends = edges.tolist() + [len(b)]
+            lit = 0
+            for a, z in zip(starts, ends):
+                if z - a < 3:
+                    continue
+                for q in range(lit, a, 127):
+                    out.append(min(127, a - q))
+                    out += b[q:min(q + 127, a)].tobytes()
+                while z - a >= 3:
+                    m = min(129, z - a)
+                    out += bytes([m + 126, int(b[a])])
+                    a += m
+                lit = a
+            for q in range(lit, len(b), 127):
+                out.append(min(127, len(b) - q))
+                out += b[q:q + 127].tobytes()
+    return bytes(out)
+
+
+def tiff_2c_samples(kind, h, w, rng):
+    """Seeded samples of ``kind`` [h, w]: 4-bit palette indices of a
+    gradient with flat bands ("thunder"); LogL's sign and 15-bit log of Y
+    ("logl": 0, negative and past Y = 1 among them); LogLuv32 words of
+    that and 8-bit u', v' ("luv32"); LogLuv24 words of a 10-bit log and a
+    14-bit colour index ("luv24": indices past the table's 16289 among
+    them)."""
+    import numpy as np
+    y, x = np.mgrid[:h, :w]
+    if kind == "thunder":
+        img = (x * 16 // max(w, 2) + y // 3) % 16
+        img[:, w // 3:w // 2] = 7
+        return (img ^ (rng.random((h, w)) < 0.2)).astype(np.uint8)
+    if kind == "luv24":
+        L = (x * 1024 // w + y * 37 + rng.integers(0, 40, (h, w))) % 1024
+        L[0, :2] = 0, 1023
+        C = rng.integers(0, 16384, (h, w))
+        C[-1, -4:] = (16288, 16289, 16290, 16383)
+        return (L << 14 | C).astype(np.uint32)
+    L = 13800 + x * 1800 // w + y * 900 // h + rng.integers(0, 64, (h, w))
+    L[rng.random((h, w)) < 0.1] = 0
+    neg = rng.random((h, w)) < 0.1
+    L[neg] |= 0x8000
+    L[0, 0] = 0x7FFF
+    if kind == "logl":
+        return L.astype(np.uint32)
+    u = 60 + x * 110 // w + rng.integers(0, 8, (h, w))
+    v = 80 + y * 140 // h + rng.integers(0, 8, (h, w))
+    return (L << 16 | u << 8 | v).astype(np.uint32)
+
+
+def tiff_2c_bytes(kind, samples, rows):
+    """A little-endian TIFF of ``samples`` (tiff_2c_samples) in strips of
+    ``rows`` rows: ThunderScan (32809) 4-bit palette data of a fixed
+    ColorMap, or SGILog's LogL (32844 under 34676), LogLuv32 (32845 under
+    34676) or LogLuv24 (32845 under 34677) with the 16-bit signed samples
+    cv2.imwrite writes."""
+    import numpy as np
+    h, w = samples.shape
+    strips = []
+    for y in range(0, h, rows):
+        block = samples[y:y + rows]
+        strips.append(
+            thunder_code(block) if kind == "thunder"
+            else sgilog_code(block, 2 if kind == "logl" else 4)
+            if kind != "luv24" else np.stack(
+                [block >> 16, block >> 8, block], -1).astype(np.uint8).tobytes())
+    spp = 3 if kind.startswith("luv") else 1
+    tags = {256: (4, [w]), 257: (4, [h]), 273: (4, None), 277: (3, [spp]),
+            278: (4, [rows]), 279: (4, [len(d) for d in strips]),
+            284: (3, [1])}
+    if kind == "thunder":
+        k = np.arange(16)
+        cmap = np.concatenate([k * 4369, (15 - k) * 4369, (k * 7 % 16) * 4369])
+        tags.update({258: (3, [4]), 259: (3, [32809]), 262: (3, [3]),
+                     320: (3, cmap.tolist())})
+    else:
+        tags.update({258: (3, [16] * spp), 339: (3, [2] * spp),
+                     259: (3, [34677 if kind == "luv24" else 34676]),
+                     262: (3, [32844 if kind == "logl" else 32845])})
+    return tiff_layout(tags, strips)
+
+
+def tiff_2c_files(root):
+    """{name: path} of phase 13's ThunderScan and SGILog files in ``root``
+    (TIFF_2C_FILES: the small ones of its tree, and the BUILT_TIFF_SIZE
+    ones of its decode rates), from one seeded stream."""
+    import numpy as np
+    rng = np.random.default_rng(TIFF_2C_SEED)
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, (kind, h, w, rows) in TIFF_2C_FILES.items():
+        out[name] = root / name
+        out[name].write_bytes(tiff_2c_bytes(
+            kind, tiff_2c_samples(kind, h, w, rng), rows))
+    return out
+
+
+def built_tiff_2c_checks(work):
+    """ThunderScan and SGILog on files built here (tiff_2c_files; the
+    card's machine has no cv2 or PIL): each decoded to its TIFF_2C_DIGESTS
+    digest of cv2.imread's pixels and probed at its size by both readers;
+    the host decode rates of the rate_2c_ files (BUILT_TIFF_DECODES
+    decodes on one thread, best of JPEG_DECODE_REPS passes). Returns (the
+    tiff_2c_ files' paths, the numbers for phase 13's line)."""
+    import hashlib
+    from tsr_tpu_torch import native
+    t0 = time.perf_counter()
+    files = tiff_2c_files(work / "built_tiff_2c")
+    out = {"write_s": time.perf_counter() - t0}
+    check(sorted(files) == sorted(TIFF_2C_DIGESTS),
+          f"TIFF 2c files {sorted(files)}")
+    for name, p in files.items():
+        img = native.decode(str(p))
+        h, w = TIFF_2C_FILES[name][1:3]
+        check(img.shape == (h, w, 3) and hashlib.sha256(
+            img.tobytes()).hexdigest() == TIFF_2C_DIGESTS[name],
+            f"{name} decodes unlike cv2.imread")
+        for reader in ("port", "cv2"):
+            check(native.probe([str(p)], reader=reader).tolist() == [[h, w]],
+                  f"{name}: probe({reader!r})")
+        if not name.startswith("rate_2c_"):
+            continue
+        best = math.inf
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            for _ in range(BUILT_TIFF_DECODES):
+                native.decode(str(p))
+            best = min(best, time.perf_counter() - t0)
+        out[name] = {"bytes": p.stat().st_size, "images_per_sec":
+                     BUILT_TIFF_DECODES / best, "megapixels_per_sec":
+                     BUILT_TIFF_DECODES * h * w / best / 1e6}
+    return [p for n, p in files.items() if n.startswith("tiff_2c_")], out
+
+
 def built_tiff_checks(work):
     """TIFF parts 2a and 2b on files built here: a little-endian BigTIFF of
     deflate strips and a big-endian tiled file (16 x 16 deflate tiles, edge
@@ -4332,7 +4552,16 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     print("image formats: " + json.dumps(result["fixtures"]) + ": fixtures "
           "equal to expected.npz, skip/ files refused by the cv2 probe, "
           "decoded as PIL or raising (AVIF, JPEG 2000, TIFF, WebP named)")
-    groups = {g: [str(p) for p in cases if p.name.startswith(prefixes)]
+    t0 = time.perf_counter()
+    built_2c, result["built_tiff_2c"] = built_tiff_2c_checks(work)
+    result["built_tiff_2c"]["seconds"] = time.perf_counter() - t0
+    print(f"built ThunderScan and SGILog TIFFs ({len(built_2c)} for the "
+          f"tree, each equal to cv2.imread's digest; decode rates of "
+          f"{BUILT_TIFF_SIZE[1]} x {BUILT_TIFF_SIZE[0]} ThunderScan and "
+          f"LogLuv32 on one host thread, beside {result['card']}): "
+          + json.dumps(result["built_tiff_2c"]))
+    groups = {g: [str(p) for p in cases + built_2c
+                  if p.name.startswith(prefixes)]
               for g, prefixes in IMAGE_GROUPS.items()}
     layouts = {q for g, paths in groups.items() if g.startswith("tiff_")
               for q in paths}
@@ -4362,22 +4591,31 @@ def image_formats_phase(dev, resunet, judge, rows, work):
 
     root = work / "image_formats"
     readable, mixed = root / "readable", root / "mixed"
-    for k, p in enumerate(cases + [q for q in skips
-                                   if q.name not in IMAGE_FOREIGN]):
-        for tree in ((readable, mixed) if p in cases else (mixed,)):
+    readable_files = cases + built_2c
+    for k, p in enumerate(readable_files + [q for q in skips
+                                            if q.name not in IMAGE_FOREIGN]):
+        for tree in ((readable, mixed) if p in readable_files else (mixed,)):
             out = tree / f"c{k % 3}" / p.name
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_bytes(p.read_bytes())
     for k, p in enumerate(pil_read):  # the reference's PIL fallback reads it
         out = readable / f"c{k % 3}" / p.name
         out.write_bytes(p.read_bytes())
-    written = int(want["generate_tree_written"])
+    written = int(want["generate_tree_written"]) + len(built_2c)
     mixed_files = offline.tree_files(str(mixed))
     dims = native.probe([str(p) for p in mixed_files], reader="cv2")
     kept = [p for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]
     check(len(kept) == written, f"probe(reader='cv2') reads {len(kept)} "
           f"files; the reference reads {written}")
     sides = [tuple(d) for d in dims.tolist() if d[0] > 0]
+    built_sides = [tuple(TIFF_2C_FILES[p.name][1:3]) for p in built_2c]
+    for kind in IMAGE_KINDS:  # the built files bring no bucket of their own
+        halo = offline.HALO.get(kind, 0)
+        rest = list(sides)
+        for side in built_sides:
+            rest.remove(side)
+        check(set(tree_buckets(built_sides, halo)) <= set(
+            tree_buckets(rest, halo)), f"TIFF 2c files add a {kind} bucket")
     launches = {"blur_sparse": 0, "blur_dense": 0, "fog_noise": 0}
     gen = {}
     for kind in IMAGE_KINDS:
@@ -4438,7 +4676,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           + json.dumps(result["slice_buckets"]))
     check_blur_at_buckets(dev, kept, rows, key="image_format_times")
 
-    n_readable = len(cases) + len(pil_read)
+    n_readable = len(readable_files) + len(pil_read)
     walks, evals = {}, {}
     _build.reset_launch_counts()
     for resize in ("device", "host"):

@@ -21,9 +21,9 @@ the CPU:
   the IFD, the strip or tile table and the compressed data:
   probe(reader="cv2") gives (0, 0) exactly where cv2.imread gives None, and
   decode equals cv2, else PIL, else raises; a mutation that makes a layout
-  the port does not decode (TIFF part 2c: NeXT, ThunderScan, SGILog
-  and Pillow's other compressions, Pillow's 32-bit, float and LAB modes,
-  as Pillow or libtiff parse the IFD) raises naming TIFF;
+  the port does not decode (what is left of TIFF part 2c: Pillow's LZMA,
+  ZSTD and WebP compressions, its 32-bit, float and LAB modes, as Pillow
+  parses the IFD) raises naming TIFF;
 - libtiff's 16 to 8-bit rules (gray v >> 8, RGB (v + 128) // 257) over
   every value, and its premultiplying of unassociated alpha at every
   (value, alpha) pair; its CMYK, YCbCr and CIELAB conversions over tables
@@ -111,23 +111,20 @@ def _ifd(data):
         return None
 
 
-DECODED_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946)
-# libtiff's codecs that cv2's build has and the port does not decode
-PART2C_CODECS = (32766, 32809, 34676, 34677)
+# the compressions the port reads as the reference does (NeXT: refused as
+# both refuse it)
+DECODED_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32766, 32771, 32773, 32809,
+                        32946, 34676, 34677)
 DECODED_MODES = ("1", "L", "LA", "P", "PA", "I;16", "I;16B", "RGB", "RGBA",
                  "CMYK")
 
 
 def _part2(data):
     """True where the first IFD shows a layout the port does not decode
-    (TIFF part 2c): as Pillow parses it (the last of duplicate tags), a mode
+    (TIFF part 2c) as Pillow parses it (the last of duplicate tags): a mode
     of Pillow's other than 1, L, LA, P, PA, I;16, RGB(A) and CMYK, or
-    12-bit samples, or a compression other than part 1's, CCITT's and
-    JPEG; or as libtiff parses it (the first of duplicates), NeXT,
-    ThunderScan or SGILog."""
-    first = _ifd(data) or {}
-    if first.get(259, (3, (1,)))[1][0] in PART2C_CODECS:
-        return True
+    12-bit samples, or a compression other than part 1's, CCITT's, JPEG,
+    NeXT, ThunderScan and SGILog."""
     try:
         f = io.BytesIO(data)
         head = f.read(8)
@@ -814,13 +811,15 @@ def test_cielab_grid_reads_as_cv2(tmp_path):
 
 # a sample of the sweep of the Compression tag over 0-65535 (one small
 # uncompressed file in cv2.imread): numbers that name no codec (zeros),
-# codecs cv2's libtiff leaves out (None), codecs of part 2c, CCITT's among
-# them (None on this 8-bit RGB file: CCITT takes 1-bit samples), and part
-# 1's and JPEG (decoded as the data allows)
+# codecs cv2's libtiff leaves out (None), codecs whose setup refuses this
+# 8-bit RGB file (None: CCITT takes 1-bit samples, NeXT 2-bit, ThunderScan
+# 4-bit, SGILog LogL or LogLuv data), and part 1's and JPEG (decoded as
+# the data allows)
 SWEEP = {"no codec": (0, 9, 99, 300, 32767, 32908, 34660, 40000, 50002,
                       65535),
          "not configured": (6, 32909, 34661, 34887, 34925, 50000, 50001),
-         "part 2c": (2, 3, 4, 32766, 32771, 32809, 34676, 34677),
+         "setup refuses 8-bit RGB": (2, 3, 4, 32766, 32771, 32809, 34676,
+                                     34677),
          "decoded": (1, 5, 7, 8, 32773, 32946)}
 
 
@@ -828,8 +827,9 @@ SWEEP = {"no codec": (0, 9, 99, 300, 32767, 32908, 34660, 40000, 50002,
 def test_compression_numbers_read_as_cv2(tmp_path, kind):
     """The Compression tag set to each number of a sample of each set: a
     number that names no codec reads as zeros of the image's size, a codec
-    left out of cv2's build or of part 2c gives None, and the port reads
-    each file as the reference does."""
+    left out of cv2's build or whose setup refuses the file gives None (and
+    PIL refuses it too), and the port reads each file as the reference
+    does."""
     img = make_fixtures.smooth(np.random.default_rng(51), 4, 5)
     p = tmp_path / "c.png"
     for c in SWEEP[kind]:
@@ -839,7 +839,9 @@ def test_compression_numbers_read_as_cv2(tmp_path, kind):
             assert got is not None and got.shape == (4, 5, 3) and not got.any()
         elif kind != "decoded":
             assert got is None, c
-        _reads_as_reference(p)
+        reader = _reads_as_reference(p)
+        if kind == "setup refuses 8-bit RGB":
+            assert reader == "none", c
 
 
 # --------------------------------------------------------- generate_tree

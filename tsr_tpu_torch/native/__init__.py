@@ -17,8 +17,9 @@ x 255 and rounded); TIFF (classic or BigTIFF, either byte order, the
 first IFD, strips or tiles of gray, RGB or palette samples of 1 to 16 bits
 with any extra samples, CMYK, YCbCr at any subsampling and CIELAB, either
 planar configuration and fill order, uncompressed, PackBits, LZW, deflate,
-CCITT RLE, group 3, group 4, RLE/W or JPEG, or a compression that names no
-codec, orientations as cv2 applies them, else as PIL does); JPEG
+CCITT RLE, group 3, group 4, RLE/W, JPEG or ThunderScan, SGILog's LogL and
+LogLuv as cv2 reads them, or a compression that names no codec,
+orientations as cv2 applies them, else as PIL does); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
 or corrupt as libjpeg recovers it, FF FF 00 in entropy data as
 libjpeg-turbo's fast and slow Huffman passes read it, lossless); EXIF
@@ -27,8 +28,8 @@ cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
 port does not decode (:data:`FORMATS`: WebP, JPEG 2000, AVIF, and TIFF of
-another layout: old-style JPEG, NeXT, ThunderScan, SGILog, LZMA, ZSTD or
-WebP compression, 32-bit or float samples, Pillow's LAB...), or that only
+another layout: old-style JPEG, LZMA, ZSTD or WebP compression, 32-bit or
+float samples, Pillow's LAB...), or that only
 PIL reads and the port does not decode (PCX, SGI, ICO/CUR, DDS, QOI, ICNS,
 MSP, IM, SPIDER, told by Pillow's own checks of the first bytes), raises
 naming the format. Image sizes follow the reference's rules: cv2's (where
@@ -50,7 +51,9 @@ first use into ``build/tsr_tpu_torch_native/`` at the root of the
 checkout; the library's name carries a hash of every source, the shared
 header and the flags (``kernels/_build.py``). The flags leave out
 ``-march=native``, so a library built on one x86-64 host loads on
-another. A failed build, decode or write raises.
+another, and keep every floating-point step unfused
+(``-ffp-contract=off``), as libtiff's SGILog and CIELAB conversions take
+them. A failed build, decode or write raises.
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp",
            _HERE / "gif.cpp", _HERE / "hdr.cpp", _HERE / "tiff.cpp")
 HEADERS = (_HERE / "codec.h",)
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+             "-ffp-contract=off")
 LIBS = ("-lz",)
 # suffix -> the writer's format code
 _FORMATS = {".png": 0, ".ppm": 1, ".jpg": 2, ".jpeg": 2, ".bmp": 3}
@@ -298,14 +302,15 @@ def probe(paths: Sequence[str], threads: int = 8, reader: str = "port",
       no strip or tile offsets, refuses the file; a palette without a
       usable ColorMap reads gray; a missing or implausible byte count is
       estimated), then OpenCV's: a Photometric tag, samples of 1, 8 or 16
-      bits (4 of a palette), at most 4 a pixel, a layout libtiff's RGBA
-      reader takes, the first plane's strips or tiles each with a nonzero
+      bits (4 of a palette; LogLuv's of any that libtiff's RGBA reader
+      reads at 8), at most 4 a pixel, a layout libtiff's RGBA reader takes, the first plane's strips or tiles each with a nonzero
       byte count inside the file (an uncompressed tile of its exact size;
       a chunk that fails to decode reads as far as it decoded, the rest
       0; a JPEG stream libtiff's checks refuse, a codec OpenCV's build
-      leaves out), and an orientation of 1-4 (5-8 give None but for a
-      square image; the port decodes them as PIL does, rotated); a layout
-      the port does not decode (NeXT, ThunderScan, SGILog) is refused;
+      leaves out, a codec whose setup refuses the layout: NeXT at every
+      depth, ThunderScan of other than 4 bits, SGILog of other than LogL
+      or LogLuv data), and an orientation of 1-4 (5-8 give None
+      but for a square image; the port decodes them as PIL does, rotated);
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
       does not decode it).
 

@@ -171,11 +171,12 @@ int hdr_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 // TIFF (classic or BigTIFF, either byte order, the first IFD; strips or
 // tiles of gray, RGB or palette samples of 1 to 16 bits, any extra samples,
 // CMYK, YCbCr and CIELAB, either planar configuration and fill order,
-// uncompressed, PackBits, LZW, deflate, CCITT or JPEG, or a number that
-// names no codec) as cv2.imread reads it (OpenCV's TiffDecoder over libtiff's RGBA
-// reader, tiff.cpp) and as PIL's TiffImagePlugin and convert("RGB") read
-// it; the arguments and results of read_cv2 and read_pil. A TIFF of any
-// other layout (TIFF part 2c) gives kTiff. is_tiff_data: an "II*\0", "MM\0*", "II+\0"
+// uncompressed, PackBits, LZW, deflate, CCITT, JPEG or ThunderScan, SGILog,
+// or a number that names no codec) as cv2.imread reads it (OpenCV's
+// TiffDecoder over libtiff's RGBA reader, tiff.cpp) and as PIL's
+// TiffImagePlugin and convert("RGB") read it; the arguments and results of
+// read_cv2 and read_pil. A TIFF of a layout only PIL reads and the port
+// does not decode (what is left of TIFF part 2c) gives kTiff. is_tiff_data: an "II*\0", "MM\0*", "II+\0"
 // or "MM\0+" signature. probe_tiff: (h, w) from an open file's header and
 // first IFD, wherever it lies (cv2's rules, else PIL's), or a Status.
 bool is_tiff_data(const uint8_t* data, size_t n);

@@ -5,9 +5,10 @@
 // tiles of gray (MINISBLACK or MINISWHITE), RGB, palette, CMYK, YCbCr or
 // CIELAB samples with any extra samples, of either planar configuration
 // and fill order, uncompressed, PackBits, LZW (old-style codes too),
-// deflate, CCITT (RLE, group 3 1-D and 2-D, group 4, RLE/W) or JPEG, with
-// or without the horizontal predictor, or with a Compression number that
-// names no codec. Two readers, each a copy of what its library does:
+// deflate, CCITT (RLE, group 3 1-D and 2-D, group 4, RLE/W), JPEG or
+// ThunderScan, with or without the horizontal predictor, SGILog's LogL and
+// LogLuv, or with a Compression number that names no codec. Two readers,
+// each a copy of what its library does:
 //   - tiff_cv2: OpenCV 5's TiffDecoder over libtiff 4.7. The directory is
 //     read by libtiff's rules (TIFFReadDirectory: the first of duplicate
 //     tags wins, a bad required tag refuses the file, a bad optional one is
@@ -21,7 +22,9 @@
 //     libtiff's RGBA reader accepts, and reads each strip or tile through
 //     TIFFReadRGBAStrip / TIFFReadRGBATile (CCITT through libtiff's fax
 //     decoders, FaxDecoder, their no-EOL mode kept from chunk to chunk in
-//     the reader's order). The reader's put routines are
+//     the reader's order; SGILog at the 8-bit data format the reader sets,
+//     LogL as gray and LogLuv as RGB, whatever samples cv2's header sees
+//     of LogLuv). The reader's put routines are
 //     copied with their pointer arithmetic (gray and palette rows skip bytes
 //     where RGB rows skip pixels, which reads the edge tiles of some layouts
 //     askew) and tables: a 16-bit gray sample's high byte, an RGB one's
@@ -54,11 +57,14 @@
 //     refused, as its pixels there are whatever memory held), CMYK by
 //     Pillow's cmyk2rgb, orientation applied as ImageOps.exif_transpose
 //     applies it.
-// Any other layout that a reader would accept (the other codecs of TIFF
-// part 2c: NeXT, ThunderScan, SGILog, and Pillow's LZMA, ZSTD and WebP;
-// Pillow's 32-bit, float and LAB modes) gives kTiff: the port does not
-// decode it. Each runs on a whole file in memory, or, for
-// the header probe, on an open file read where its IFD points.
+// A layout the codec's setup refuses (NeXT, whose 2-bit samples neither
+// reader passes on; ThunderScan of other than 4 bits; SGILog of other than
+// LogL or LogLuv data, and so all of Pillow's) fails as libtiff fails it:
+// unreadable. Any other layout that PIL would read (what is left of TIFF
+// part 2c: Pillow's LZMA, ZSTD and WebP, its 32-bit, float and LAB modes)
+// gives kTiff: the port does not decode it. Each runs on a whole file in
+// memory, or, for the header probe, on an open file read where its IFD
+// points.
 
 #include <zlib.h>
 
@@ -98,17 +104,13 @@ bool part1_compression(int c) {
 // small uncompressed RGB file in cv2.imread sorted them: the ones OpenCV's
 // build leaves out, which TIFFRGBAImageOK refuses ("requested compression
 // method is not configured": old-style JPEG, PixarLog, JBIG, LERC, LZMA,
-// ZSTD, WebP), and the ones it has that the port does not decode (the rest
-// of TIFF part 2c: NeXT, ThunderScan, SGILog). Every other number but part
-// 1's, CCITT's (2, 3, 4, 32771) and JPEG (7) names no codec: libtiff opens
-// the file, its strips decode to nothing ("decoding is not implemented")
-// and the image reads as zeros.
+// ZSTD, WebP). Every other number but part 1's, CCITT's (2, 3, 4, 32771),
+// JPEG (7), NeXT (32766), ThunderScan (32809) and SGILog's (34676, 34677)
+// names no codec: libtiff opens the file, its strips decode to nothing
+// ("decoding is not implemented") and the image reads as zeros.
 bool not_configured(int c) {
   return c == 6 || c == 32909 || c == 34661 || c == 34887 || c == 34925 ||
          c == 50000 || c == 50001;
-}
-bool part2c_codec(int c) {
-  return c == 32766 || c == 32809 || c == 34676 || c == 34677;
 }
 
 // ------------------------------------------------------------- the file
@@ -265,6 +267,9 @@ struct Dir {
   // JPEGCOLORMODE_RGB: libjpeg turns contiguous YCbCr JPEG data into RGB,
   // and libtiff's sizes count it upsampled
   bool up = false;
+  // SGILog data read at SGILOGDATAFMT_8BIT: its Photometric (LogL or
+  // LogLuv), now 8-bit gray or RGB
+  uint16_t sgilog = 0;
   std::vector<uint16_t> cmap;  // 3 x 2^bps
   uint32_t nstrips = 0;        // strips or tiles, of all planes
   uint32_t per_plane = 0;      // strips or tiles of one plane
@@ -1489,6 +1494,305 @@ struct FaxDecoder {
   }
 };
 
+// ------------------------------------------------- ThunderScan (32809)
+
+// libtiff's ThunderScan decoder (tif_thunder.c), ThunderDecodeRow over one
+// strip ("Fractional scanlines cannot be read" where it is no whole number
+// of rows): each row decoded by ThunderDecode from where the last one
+// stopped into the image's width of 4-bit samples, from pixel 0 and a last
+// pixel of 0. Each byte's top two bits are its code: a run of the last
+// pixel (the low 6 bits its length), three 2-bit or two 3-bit deltas from
+// it (each with a skip code), or a raw 4-bit value. A row that decodes to
+// fewer or more pixels than its width ("Not enough" or "Too much" data)
+// zeroes what lies past the decoder's position in it and fails the chunk,
+// whose later rows stay as they were. Every row that succeeds is written
+// whole.
+bool thunder_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
+                   size_t occ) {
+  static const int kTwo[4] = {0, 1, 0, -1};
+  static const int kThree[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const size_t line = t.scanline;
+  if (!line || occ % line) return false;
+  const int64_t maxpixels = t.w;
+  for (uint8_t* row = out; occ > 0; occ -= line, row += line) {
+    uint8_t* op = row;
+    unsigned last = 0;
+    int64_t npixels = 0;
+    auto set = [&](int v) {  // SETPIXEL
+      last = static_cast<unsigned>(v) & 0xf;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1) *op++ |= static_cast<uint8_t>(last);
+        else op[0] = static_cast<uint8_t>(last << 4);
+      }
+    };
+    while (cc > 0 && npixels < maxpixels) {
+      int n = *in++;
+      cc--;
+      switch (n & 0xc0) {
+        case 0x00:  // THUNDER_RUN
+          n &= 0x3f;
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(last);
+            last = *op++;
+            npixels++;
+            n--;
+          } else {
+            last |= last << 4;
+          }
+          npixels += n;
+          if (npixels <= maxpixels)
+            for (; n > 0; n -= 2) *op++ = static_cast<uint8_t>(last);
+          if (n == -1) *--op &= 0xf0;
+          last &= 0xf;
+          break;
+        case 0x40:  // THUNDER_2BITDELTAS, 2 the skip code
+          for (int shift = 4; shift >= 0; shift -= 2) {
+            const int d = n >> shift & 3;
+            if (d != 2) set(static_cast<int>(last) + kTwo[d]);
+          }
+          break;
+        case 0x80:  // THUNDER_3BITDELTAS, 4 the skip code
+          for (int shift = 3; shift >= 0; shift -= 3) {
+            const int d = n >> shift & 7;
+            if (d != 4) set(static_cast<int>(last) + kThree[d]);
+          }
+          break;
+        default:  // THUNDER_RAW
+          set(n);
+          break;
+      }
+    }
+    if (npixels != maxpixels) {
+      uint8_t* end = row + (maxpixels + 1) / 2;
+      if (op < end) std::memset(op, 0, static_cast<size_t>(end - op));
+      return false;
+    }
+  }
+  return true;
+}
+
+// ---------------------------------------------- SGILog (34676, 34677)
+
+// uvcode.h's table of libtiff's LogLuv24 colour index: for each of the
+// 163 rows of (u', v') cells of UV_SQSIZ, from v' = UV_VSTART up, the u'
+// of its first cell, its number of cells and the cells below it.
+struct UvRow {
+  float ustart;
+  int16_t nus, ncum;
+};
+constexpr int kUvRows = 163, kUvCells = 16289;
+constexpr float kUvSize = 0.003500f, kUvStart = 0.016940f;
+const UvRow kUvRow[kUvRows] = {
+    {0.247663f, 4, 0}, {0.243779f, 6, 4}, {0.241684f, 7, 10},
+    {0.237874f, 9, 17}, {0.235906f, 10, 26}, {0.232153f, 12, 36},
+    {0.228352f, 14, 48}, {0.226259f, 15, 62}, {0.222371f, 17, 77},
+    {0.22041f, 18, 94}, {0.21471f, 21, 112}, {0.212714f, 22, 133},
+    {0.210721f, 23, 155}, {0.204976f, 26, 178}, {0.202986f, 27, 204},
+    {0.199245f, 29, 231}, {0.195525f, 31, 260}, {0.19356f, 32, 291},
+    {0.189878f, 34, 323}, {0.186216f, 36, 357}, {0.186216f, 36, 393},
+    {0.182592f, 38, 429}, {0.179003f, 40, 467}, {0.175466f, 42, 507},
+    {0.172001f, 44, 549}, {0.172001f, 44, 593}, {0.168612f, 46, 637},
+    {0.168612f, 46, 683}, {0.163575f, 49, 729}, {0.158642f, 52, 778},
+    {0.158642f, 52, 830}, {0.158642f, 52, 882}, {0.153815f, 55, 934},
+    {0.153815f, 55, 989}, {0.149097f, 58, 1044}, {0.149097f, 58, 1102},
+    {0.142746f, 62, 1160}, {0.142746f, 62, 1222}, {0.142746f, 62, 1284},
+    {0.13827f, 65, 1346}, {0.13827f, 65, 1411}, {0.13827f, 65, 1476},
+    {0.132166f, 69, 1541}, {0.132166f, 69, 1610}, {0.126204f, 73, 1679},
+    {0.126204f, 73, 1752}, {0.126204f, 73, 1825}, {0.120381f, 77, 1898},
+    {0.120381f, 77, 1975}, {0.120381f, 77, 2052}, {0.120381f, 77, 2129},
+    {0.112962f, 82, 2206}, {0.112962f, 82, 2288}, {0.112962f, 82, 2370},
+    {0.10745f, 86, 2452}, {0.10745f, 86, 2538}, {0.10745f, 86, 2624},
+    {0.10745f, 86, 2710}, {0.100343f, 91, 2796}, {0.100343f, 91, 2887},
+    {0.100343f, 91, 2978}, {0.095126f, 95, 3069}, {0.095126f, 95, 3164},
+    {0.095126f, 95, 3259}, {0.095126f, 95, 3354}, {0.088276f, 100, 3449},
+    {0.088276f, 100, 3549}, {0.088276f, 100, 3649}, {0.088276f, 100, 3749},
+    {0.081523f, 105, 3849}, {0.081523f, 105, 3954}, {0.081523f, 105, 4059},
+    {0.081523f, 105, 4164}, {0.074861f, 110, 4269}, {0.074861f, 110, 4379},
+    {0.074861f, 110, 4489}, {0.074861f, 110, 4599}, {0.06829f, 115, 4709},
+    {0.06829f, 115, 4824}, {0.06829f, 115, 4939}, {0.06829f, 115, 5054},
+    {0.063573f, 119, 5169}, {0.063573f, 119, 5288}, {0.063573f, 119, 5407},
+    {0.063573f, 119, 5526}, {0.057219f, 124, 5645}, {0.057219f, 124, 5769},
+    {0.057219f, 124, 5893}, {0.057219f, 124, 6017}, {0.050985f, 129, 6141},
+    {0.050985f, 129, 6270}, {0.050985f, 129, 6399}, {0.050985f, 129, 6528},
+    {0.050985f, 129, 6657}, {0.044859f, 134, 6786}, {0.044859f, 134, 6920},
+    {0.044859f, 134, 7054}, {0.044859f, 134, 7188}, {0.040571f, 138, 7322},
+    {0.040571f, 138, 7460}, {0.040571f, 138, 7598}, {0.040571f, 138, 7736},
+    {0.036339f, 142, 7874}, {0.036339f, 142, 8016}, {0.036339f, 142, 8158},
+    {0.036339f, 142, 8300}, {0.032139f, 146, 8442}, {0.032139f, 146, 8588},
+    {0.032139f, 146, 8734}, {0.032139f, 146, 8880}, {0.027947f, 150, 9026},
+    {0.027947f, 150, 9176}, {0.027947f, 150, 9326}, {0.023739f, 154, 9476},
+    {0.023739f, 154, 9630}, {0.023739f, 154, 9784}, {0.023739f, 154, 9938},
+    {0.019504f, 158, 10092}, {0.019504f, 158, 10250},
+    {0.019504f, 158, 10408}, {0.016976f, 161, 10566},
+    {0.016976f, 161, 10727}, {0.016976f, 161, 10888},
+    {0.016976f, 161, 11049}, {0.012639f, 165, 11210},
+    {0.012639f, 165, 11375}, {0.012639f, 165, 11540},
+    {0.009991f, 168, 11705}, {0.009991f, 168, 11873},
+    {0.009991f, 168, 12041}, {0.009016f, 170, 12209},
+    {0.009016f, 170, 12379}, {0.009016f, 170, 12549},
+    {0.006217f, 173, 12719}, {0.006217f, 173, 12892},
+    {0.005097f, 175, 13065}, {0.005097f, 175, 13240},
+    {0.005097f, 175, 13415}, {0.003909f, 177, 13590},
+    {0.003909f, 177, 13767}, {0.00234f, 177, 13944}, {0.002389f, 170, 14121},
+    {0.001068f, 164, 14291}, {0.001653f, 157, 14455},
+    {0.000717f, 150, 14612}, {0.001614f, 143, 14762}, {0.00027f, 136, 14905},
+    {0.000484f, 129, 15041}, {0.001103f, 123, 15170},
+    {0.001242f, 115, 15293}, {0.001188f, 109, 15408},
+    {0.001011f, 103, 15517}, {0.000709f, 97, 15620}, {0.000301f, 89, 15717},
+    {0.002416f, 82, 15806}, {0.003251f, 76, 15888}, {0.003246f, 69, 15964},
+    {0.004141f, 62, 16033}, {0.005963f, 55, 16095}, {0.008839f, 47, 16150},
+    {0.01049f, 40, 16197}, {0.016994f, 31, 16237}, {0.023659f, 21, 16268}
+};
+
+constexpr double kLn2 = 0.69314718055994530942;  // libtiff's M_LN2
+
+// LogL16toY, LogL10toY: luminance from a 16-bit (sign, 15-bit log) or
+// 10-bit log code
+double log_l16(int p16) {
+  const int le = p16 & 0x7fff;
+  if (!le) return 0.;
+  const double y = std::exp(kLn2 / 256. * (le + .5) - kLn2 * 64.);
+  return !(p16 & 0x8000) ? y : -y;
+}
+double log_l10(int p10) {
+  if (p10 == 0) return 0.;
+  return std::exp(kLn2 / 64. * (p10 + .5) - kLn2 * 12.);
+}
+
+// uv_decode: the centre of colour cell c (a binary search of the rows), or
+// false past the table
+bool uv_decode(double& u, double& v, int c) {
+  if (c < 0 || c >= kUvCells) return false;
+  int lower = 0, upper = kUvRows, ui, vi;
+  while (upper - lower > 1) {
+    vi = (lower + upper) >> 1;
+    ui = c - kUvRow[vi].ncum;
+    if (ui > 0) {
+      lower = vi;
+    } else if (ui < 0) {
+      upper = vi;
+    } else {
+      lower = vi;
+      break;
+    }
+  }
+  vi = lower;
+  ui = c - kUvRow[vi].ncum;
+  u = kUvRow[vi].ustart + (ui + .5) * kUvSize;
+  v = kUvStart + (vi + .5) * kUvSize;
+  return true;
+}
+
+// XYZ of luminance l and chromaticity (u', v'), in floats
+void luv_to_xyz(double l, double u, double v, float* xyz) {
+  const double s = 1. / (6. * u - 16. * v + 12.);
+  const double x = 9. * u * s;
+  const double y = 4. * v * s;
+  xyz[0] = static_cast<float>(x / y * l);
+  xyz[1] = static_cast<float>(l);
+  xyz[2] = static_cast<float>((1. - x - y) / y * l);
+}
+
+// LogLuv32toXYZ, LogLuv24toXYZ (an index past the table: the neutral
+// colour)
+void luv32_xyz(uint32_t p, float* xyz) {
+  const double l = log_l16(static_cast<int32_t>(p) >> 16);
+  if (l <= 0.) {
+    xyz[0] = xyz[1] = xyz[2] = 0.f;
+    return;
+  }
+  constexpr double kUvScale = 410.;
+  luv_to_xyz(l, 1. / kUvScale * ((p >> 8 & 0xff) + .5),
+             1. / kUvScale * ((p & 0xff) + .5), xyz);
+}
+void luv24_xyz(uint32_t p, float* xyz) {
+  const double l = log_l10(static_cast<int>(p >> 14 & 0x3ff));
+  if (l <= 0.) {
+    xyz[0] = xyz[1] = xyz[2] = 0.f;
+    return;
+  }
+  double u, v;
+  if (!uv_decode(u, v, static_cast<int>(p & 0x3fff))) {
+    u = 0.210526316;  // U_NEU, V_NEU
+    v = 0.473684211;
+  }
+  luv_to_xyz(l, u, v, xyz);
+}
+
+// sqrt's 2.0 gamma of a linear value to 8 bits, 0 and 1 clamped
+uint8_t gamma8(double c) {
+  return static_cast<uint8_t>(c <= 0. ? 0 : c >= 1. ? 255
+                                                    : static_cast<int>(256. * std::sqrt(c)));
+}
+
+// XYZtoRGB24: CCIR-709 primaries
+void xyz_to_rgb24(const float* xyz, uint8_t* rgb) {
+  const double r = 2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2];
+  const double g = -1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2];
+  const double b = 0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2];
+  rgb[0] = gamma8(r);
+  rgb[1] = gamma8(g);
+  rgb[2] = gamma8(b);
+}
+
+// libtiff's SGILog decoders (tif_luv.c) at SGILOGDATAFMT_8BIT, the data
+// format TIFFRGBAImageBegin sets, over one strip or tile: LogLuvDecodeStrip
+// / LogLuvDecodeTile, a row of the scanline (of the tile's row) at a time
+// from where the last one stopped, until a row fails ("Not enough data at
+// row"), which leaves it and the rest as they were. LogL16Decode (LogL, a
+// high and a low byte plane) and LogLuvDecode32 (LogLuv under 34676, four
+// planes) read each plane as runs (a byte past 127: 126 less than it
+// copies of the next byte) and literal strings (a byte of 0-127: that many
+// bytes, a string cut where the row fills, its rest read as codes);
+// LogLuvDecode24 (LogLuv under 34677) 3 bytes a pixel. A row that decodes
+// is turned to 8 bits by L16toGry (256 sqrt(Y)) or Luv32toRGB /
+// Luv24toRGB (XYZ, then XYZtoRGB24).
+bool sgilog_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
+                  size_t occ) {
+  const size_t rowlen = t.tiled ? t.chunk_row : t.scanline;
+  if (!rowlen || occ % rowlen) return false;
+  const bool gray = t.sgilog == 32844;
+  const size_t npixels = rowlen / (gray ? 1 : 3);
+  std::vector<uint32_t> tp(npixels);
+  const uint8_t* bp = in;
+  for (uint8_t* op = out; occ; op += rowlen, occ -= rowlen) {
+    size_t i = 0;
+    if (!gray && t.compression == 34677) {  // LogLuvDecode24
+      for (; i < npixels && cc >= 3; i++, bp += 3, cc -= 3)
+        tp[i] = uint32_t{bp[0]} << 16 | bp[1] << 8 | bp[2];
+      if (i != npixels) return false;
+    } else {  // LogL16Decode, LogLuvDecode32: byte planes, high first
+      std::fill(tp.begin(), tp.end(), 0u);
+      for (int shft = gray ? 8 : 24; shft >= 0; shft -= 8) {
+        for (i = 0; i < npixels && cc > 0;) {
+          if (*bp >= 128) {  // a run
+            if (cc < 2) break;
+            int rc = *bp++ + (2 - 128);
+            const uint32_t b = uint32_t{*bp++} << shft;
+            cc -= 2;
+            while (rc-- && i < npixels) tp[i++] |= b;
+          } else {  // a literal string (0 reads nothing)
+            int rc = *bp++;
+            while (--cc && rc-- && i < npixels) tp[i++] |= uint32_t{*bp++} << shft;
+          }
+        }
+        if (i != npixels) return false;
+      }
+    }
+    for (i = 0; i < npixels; i++) {
+      if (gray) {  // the 16 bits as LogL16Decode's int16_t
+        op[i] = gamma8(log_l16(static_cast<int16_t>(tp[i])));
+        continue;
+      }
+      float xyz[3];
+      if (t.compression == 34677) luv24_xyz(tp[i], xyz);
+      else luv32_xyz(tp[i], xyz);
+      xyz_to_rgb24(xyz, op + 3 * i);
+    }
+  }
+  return true;
+}
+
 // libtiff picks its LZW decoder once, at the first strip or tile it reads
 // (chunk 0): the old-style one where that chunk's bytes (bits reversed for
 // FillOrder 2) start 0x00 then an odd byte.
@@ -1539,6 +1843,13 @@ bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
       std::memset(out, 0, occ);
       ok = deflate_strip(in, cc, out, occ);
       break;
+    case 32809:  // strips alone ("ThunderScan tile decoding is not
+                 // implemented": a tile is left as it was)
+      ok = !t.tiled && thunder_chunk(t, in, cc, out, occ);
+      break;
+    case 34676: case 34677:
+      ok = sgilog_chunk(t, in, cc, out, occ);
+      break;
     default: ok = false; break;  // no codec: "decoding is not implemented"
   }
   if (!ok) return false;
@@ -1578,10 +1889,23 @@ bool chunk_at(const Dir& t, uint32_t chunk, uint64_t& off, uint64_t& bc) {
   off = t.offsets[chunk];
   if (bc > t.src.n || off > t.src.n - bc) return false;
   // the codec's setup: CCITT takes 1-bit samples, one a pixel or in
-  // separate planes (Fax3SetupState); the horizontal predictor works on 8
-  // or 16 bits (of the sizes decoded here); any other predictor fails
-  if (fax_codec(t.compression))
-    return t.bps == 1 && (t.spp == 1 || t.planar == 2);
+  // separate planes (Fax3SetupState); ThunderScan 4-bit samples
+  // (ThunderSetupDecode); NeXT 2-bit ones (NeXTPreDecode), which neither
+  // reader's header checks pass on; SGILog LogL data of one sample or
+  // contiguous LogLuv data ("Inappropriate photometric interpretation"
+  // else), which only TIFFRGBAImageBegin's data format reads here; the
+  // horizontal predictor works on 8 or 16 bits (of the sizes decoded
+  // here); any other predictor fails
+  switch (t.compression) {
+    case 2: case 3: case 4: case 32771:
+      return t.bps == 1 && (t.spp == 1 || t.planar == 2);
+    case 32809: return t.bps == 4;
+    case 32766: return false;
+    case 34676: case 34677:
+      return t.sgilog == 32844 ? t.spp == 1
+                               : t.sgilog == 32845 && t.planar == 1;
+    default: break;
+  }
   return t.compression == 1 || t.compression == 32773 || t.predictor == 1 ||
          (t.predictor == 2 && (t.bps == 8 || t.bps == 16));
 }
@@ -2242,15 +2566,6 @@ bool read_band(Rgba& g, uint32_t y0, uint32_t h, std::vector<uint8_t>& rgba) {
   return true;
 }
 
-// True where the directory holds a layout the port decodes: strips or
-// tiles of gray, RGB, palette, CMYK, YCbCr or CIELAB samples, with any
-// extra samples, either planar configuration or fill order, compressed as
-// TIFF part 1, with CCITT RLE, group 3 or 4 or RLE/W, with JPEG, or with a
-// number that names no codec (not NeXT, ThunderScan or SGILog).
-bool decoded_layout(const Dir& t) {
-  return !part2c_codec(t.compression);
-}
-
 // Every strip or tile through the RGBA reader, checked first (a chunk
 // libtiff refuses refuses the image before it is allocated), into img (or
 // the checks alone): false where a call fails.
@@ -2278,15 +2593,18 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
   Dir t;
   t.src = src;
   if (!read_dir(t)) return kUnreadable;
-  // readHeader: Photometric required; the samples' bits and format
+  // readHeader: Photometric required; LogLuv taken as float RGB whatever
+  // its samples, anything else by the samples' bits and format
   if (!t.photo_set) return kUnreadable;
   const int b = t.bps;
-  if (b != 1 && b != 8 && b != 10 && b != 12 && b != 14 && b != 16 &&
-      b != 32 && b != 64 && !(b == 4 && t.photometric == 3))
-    return kUnreadable;
-  if (b <= 16 && t.sampleformat != 1 && t.sampleformat != 2)
-    return kUnreadable;
-  if (t.spp > 4) return kUnreadable;  // normalizeChannelsNumber
+  if (t.photometric != 32845) {
+    if (b != 1 && b != 8 && b != 10 && b != 12 && b != 14 && b != 16 &&
+        b != 32 && b != 64 && !(b == 4 && t.photometric == 3))
+      return kUnreadable;
+    if (b <= 16 && t.sampleformat != 1 && t.sampleformat != 2)
+      return kUnreadable;
+    if (t.spp > 4) return kUnreadable;  // normalizeChannelsNumber
+  }
   if (!cv2_size_ok(t.w, t.h)) return kRaises;  // validateInputImageSize
   // readData: the strip's or tile's size
   uint64_t tile_w = t.tiled ? t.tw : t.w;
@@ -2296,7 +2614,7 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
   if (tile_w > (1u << 24) || tile_h > (1u << 24)) return kUnreadable;
   // TIFFRGBAImageOK and TIFFRGBAImageBegin
   if (not_configured(t.compression)) return kUnreadable;
-  if (b != 1 && b != 4 && b != 8 && b != 16) return kUnreadable;
+  if (b != 1 && b != 2 && b != 4 && b != 8 && b != 16) return kUnreadable;
   if (t.sampleformat == 3) return kUnreadable;
   const int colors = t.spp - t.extrasamples;
   switch (t.photometric) {
@@ -2313,14 +2631,31 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
     case 8:
       if (t.spp != 3 || colors != 3 || (b != 8 && b != 16)) return kUnreadable;
       break;
+    case 32844:  // LogL: "LogL data must have Compression=34676"
+      if (t.compression != 34676) return kUnreadable;
+      break;
+    case 32845:  // LogLuv: either SGILog, contiguous, 3 colour samples
+      if ((t.compression != 34676 && t.compression != 34677) ||
+          t.planar != 1 || t.spp != 3 || colors != 3)
+        return kUnreadable;
+      break;
     default:
       return kUnreadable;
   }
   if (4 * tile_h * tile_w >= (uint64_t{1} << 30)) return kUnreadable;
-  if (!decoded_layout(t)) return kTiff;
-  // TIFFRGBAImageBegin: libjpeg turns contiguous YCbCr JPEG into RGB
+  // TIFFRGBAImageBegin: libjpeg turns contiguous YCbCr JPEG into RGB;
+  // SGILog data is read at SGILOGDATAFMT_8BIT, which rewrites the
+  // directory's BitsPerSample and SampleFormat (LogLuvVSetField): LogL as
+  // 8-bit gray, LogLuv as 8-bit RGB
   if (t.compression == 7 && t.photometric == 6 && t.planar == 1) {
     t.up = true;
+    set_sizes(t);
+  }
+  if (t.photometric == 32844 || t.photometric == 32845) {
+    t.sgilog = t.photometric;
+    t.photometric = t.photometric == 32844 ? 1 : 2;
+    t.bps = 8;
+    t.sampleformat = 1;
     set_sizes(t);
   }
   Rgba g(t);
@@ -2822,10 +3157,20 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
   const OpenInfo* info = lookup(fillorder);
   if (!info) return kUnreadable;
   const std::string mode = info->mode;
+  // ThunderScan and SGILog data go through libtiff, whose codec setup
+  // takes 4-bit ThunderScan samples alone and SGILog data of none of the
+  // photometrics Pillow has a mode for
+  if (comp == 32809 || comp == 34676 || comp == 34677) {
+    Dir t;
+    t.src = src;
+    if (!read_dir(t) ||
+        (t.compression == comp && (comp != 32809 || t.bps != 4)))
+      return kUnreadable;
+  }
   if (!decoded_mode(mode) || std::string(info->raw) == "I;12") return kTiff;
   const bool raw = comp == 1;
   if (!raw && !part1_compression(static_cast<int>(comp)) && comp != 7 &&
-      !fax_codec(static_cast<int>(comp)))
+      !fax_codec(static_cast<int>(comp)) && comp != 32809)
     return kTiff;
   const int bps_count = (photo == 2 || photo == 6 || photo == 8 ? 3 : photo == 5 ? 4 : 1) +
                         static_cast<int>(extra.size());
@@ -2996,7 +3341,7 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     t.src = src;
     if (!read_dir(t) || t.w != w || t.h != h ||
         !(part1_compression(t.compression) || t.compression == 7 ||
-          fax_codec(t.compression)))
+          fax_codec(t.compression) || t.compression == 32809))
       return kUnreadable;
     if (t.photometric == 6 && !(t.compression == 7 && t.planar == 1)) {
       // _decodeAsRGBA: libtiff's RGBA reader, a strip or a row of tiles at
