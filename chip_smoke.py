@@ -220,6 +220,7 @@ import math
 import os
 import re
 import runpy
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -281,6 +282,11 @@ MESH_RANKS = 2               # the data-parallel step and the CLI's --mesh
 MESH_STEPS = 5               # after one warm-up step, at TRAIN_BATCH
 MESH_RTOL = 1e-3             # per-step loss against one process
 MESH_CLI_RTOL = 2e-3         # the reference's bound for the mesh loop
+MESH_CLI_PER_CLASS = 2       # images a class of phase 9's tree the
+                             # commands' --mesh runs take (its first ones)
+MESH_CLI_DISTORTED = ("data/processed/Noise", "data/processed/Blur",
+                      "data/processed/Fog")  # phase 9's trees eval-baseline
+                                             # reads beside the clean one
 # phase 11: the port's JPEG codec on the trees phase's clean tree
 JPEG_KINDS = ("noise", "blur", "fog", "compound", "blur_rand")
 JPEG_TWIN_KINDS = ("blur", "compound")   # also made from the PNG twin
@@ -355,8 +361,9 @@ IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
                  "tiff_zstd.png": "TIFF", "webp.png": "WebP"}
 # decode groups by file-name prefix; "tiff" is TIFF part 1 (8-bit strips),
-# the files of no tiff_* group below it; "tiff_thunder_sgilog" holds the
-# files built at run time (TIFF_2C_FILES)
+# the files of no tiff_* group below it; "tiff_thunder_sgilog" and
+# "tiff_modes" hold files built at run time (TIFF_2C_FILES,
+# TIFF_MODES_FILES)
 IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "p5_", "p6_"), "pam": ("pam_",), "bmp_rle": ("bmp_rle",),
                 "bmp_bitfields_core": ("bmp16", "bmp32", "bmp_core"),
@@ -375,7 +382,8 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_color_jpeg": ("tiff_cmyk", "tiff_ycbcr", "tiff_jpeg",
                                     "tiff_unknown", "tiff_cielab"),
                 "tiff_ccitt": ("tiff_group4", "tiff_ccitt"),
-                "tiff_thunder_sgilog": ("tiff_2c_",)}
+                "tiff_thunder_sgilog": ("tiff_2c_",),
+                "tiff_modes": ("tiff_modes_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -410,6 +418,47 @@ TIFF_2C_DIGESTS = {
         "dddb3e032ad137c6821896b9c1817192185023a35a39447d2d9f582a95036e71",
     "rate_2c_luv32.png":
         "a9c20fc99ca7cacbe73a76de3929ee95809231e62e1ec9f3d2245502fafb10e3"}
+# and TIFF part 2c-iii, which only PIL reads (cv2 refuses each): Pillow's
+# I;16S (at orientation 6), big-endian I;32S, F (NaN, infinities,
+# negatives and values past 255 among its samples), I;12, F deflate with
+# the floating-point predictor, and old-style JPEG (6) with the whole
+# stream at JPEGInterchangeFormat or its tables in tags, the streams the
+# port's own JPEG writer makes (cv2.imwrite's bytes), built by
+# tiff_mode_bytes from TIFF_MODES_SEED: {name: (kind, h, w)}, the
+# tiff_modes_ ones for the tree, the rate_modes_ ones the size of the
+# decode rates' files; TIFF_MODES_DIGESTS: SHA-256 of PIL's convert("RGB")
+# pixels of each (tests/test_torch_port_tiff_modes.py checks them against
+# PIL)
+TIFF_MODES_FILES = {
+    "tiff_modes_i16s.png": ("i16s", 12, 14),
+    "tiff_modes_i32s_be.png": ("i32s_be", 11, 13),
+    "tiff_modes_f.png": ("f", 10, 15),
+    "tiff_modes_i12.png": ("i12", 9, 11),
+    "tiff_modes_f_pred3.png": ("f_pred3", 13, 12),
+    "tiff_modes_ojpeg_stream.png": ("ojpeg_stream", 16, 16),
+    "tiff_modes_ojpeg_tables.png": ("ojpeg_tables", 14, 24),
+    "rate_modes_f_pred3.png": ("f_pred3", *BUILT_TIFF_SIZE),
+    "rate_modes_ojpeg.png": ("ojpeg_stream", *BUILT_TIFF_SIZE)}
+TIFF_MODES_SEED = 20
+TIFF_MODES_DIGESTS = {
+    "tiff_modes_i16s.png":
+        "78e878be84791273f3c6ace79fcbbca1f9fc4adcd7b5ef7faeb677353be149d5",
+    "tiff_modes_i32s_be.png":
+        "42dcdec4bfd86713f3b9a4b8fa6e2b8bc12fe11c52f1acad481732cdfbeb008c",
+    "tiff_modes_f.png":
+        "d3d9b58d6e2647d0592e040c2fd0b25f59bbb4a4fa9ed901a86a587073f5f30d",
+    "tiff_modes_i12.png":
+        "e74fb4def2f1847590eedbfa2706f048f4bf32d8618e65fc1b3e018af1e97da2",
+    "tiff_modes_f_pred3.png":
+        "c4e74645b8f23964c0b425f7575d1fe3e2cf3d33ef6f8c9744dc54b00e21813e",
+    "tiff_modes_ojpeg_stream.png":
+        "f729670d87473f05caab1db29cd31a5fd9098005b828eeb8b1a548ba51896822",
+    "tiff_modes_ojpeg_tables.png":
+        "e16dc376e7aff92bc67d0bf9b95f54c935adb93ce510fbbfe4fa4045df3b55b6",
+    "rate_modes_f_pred3.png":
+        "7a5a6e4916d9066261f1d340d87d06b69d6f2daa1081022824d0054f8b3ad556",
+    "rate_modes_ojpeg.png":
+        "e8b6c8ed757629e9255d0e12f44d98ffd34619a683d230ac2d1c59ad6d3734c4"}
 # and a fax page (T.4's 1728 pixels a row, fine mode's 2292 rows, one
 # strip, MINISWHITE) as group 4 and as group 3 2-D (K = 4), written by
 # fax_code's T.6 and T.4 coder
@@ -3122,11 +3171,46 @@ def b1_split_check(dev):
             "mismatches": diff}
 
 
+def cli_subprocesses(lanes, cwd):
+    """``cli_subprocess`` of each ``(args, env)`` job of ``lanes``: the
+    lanes start together, and each runs its jobs one after another.
+    Returns each job's standard output and wall seconds, lane by lane."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def lane(jobs):
+        return [cli_subprocess(args, cwd, **env) for args, env in jobs]
+
+    with ThreadPoolExecutor(len(lanes)) as pool:
+        futures = [pool.submit(lane, jobs) for jobs in lanes]
+        return [run for f in futures for run in f.result()]
+
+
+def mesh_cli_tree(work):
+    """A copy of phase 9's trees (``work / "cli"``: the clean one and the
+    noisy, blurred and foggy ones eval-baseline reads) with the first
+    MESH_CLI_PER_CLASS images of each class, beside its checkpoints (a
+    link): the directory the commands of mesh_cli run in."""
+    src = work / "cli"
+    dst = work / "mesh_cli"
+    for tree in map(Path, ("data/gtsrb/GTSRB/Training", *MESH_CLI_DISTORTED)):
+        for cls in sorted(p for p in (src / tree).iterdir() if p.is_dir()):
+            (dst / tree / cls.name).mkdir(parents=True)
+            for f in sorted(cls.iterdir())[:MESH_CLI_PER_CLASS]:
+                shutil.copyfile(f, dst / tree / cls.name / f.name)
+    (dst / "checkpoints").symlink_to((src / "checkpoints").resolve())
+    return dst
+
+
 def mesh_cli(work):
-    """On phase 9's tree: train-unified (one epoch) and eval-baseline, each
+    """On a smaller copy of phase 9's trees (mesh_cli_tree): train-unified
+    (one epoch) and eval-baseline, each
     once with ``--mesh data=MESH_RANKS`` (ranks the command starts on this
     card, gloo) and once without (train-unified then on the host-streamed
-    loop the mesh takes), as subprocesses. In float32 with TF32 off
+    loop the mesh takes), as subprocesses: the three with a mesh one after
+    another (each takes a free port for its group), beside the four
+    without, which start with them. Their seconds and rates (the keys
+    ending ``_concurrent``) are of runs that share the card and the host
+    with the others. In float32 with TF32 off
     (``NVIDIA_TF32_OVERRIDE=0``) both the train and the validation loss
     are held to MESH_CLI_RTOL. In bf16 (``--bf16``) the train loss is held
     to it, and the validation loss is reported beside the spread of two
@@ -3134,26 +3218,38 @@ def mesh_cli(work):
     that feed a batch norm (exact gradient 0) by about its rate each step
     in the sign of rounding noise, and only the eval-mode loss sees them
     (PERF.md, section 6)."""
-    cli_dir = work / "cli"
+    cli_dir = mesh_cli_tree(work)
     common = ["--clean-dir", "data/gtsrb/GTSRB/Training", "--ckpt-dir",
               "checkpoints", "--image-size", str(SIZE)]
     mesh = ["--mesh", f"data={MESH_RANKS}"]
     fp32 = {"NVIDIA_TF32_OVERRIDE": "0"}
-    out = {}
+    out = {"tree": [len(list((cli_dir / common[1]).iterdir())),
+                    MESH_CLI_PER_CLASS]}
 
-    def train(extra, save, **env):
-        text, secs = cli_subprocess(
-            ["train-unified", *common, "--epochs", "1", *extra, "--save",
-             f"checkpoints/{save}"], cli_dir, **env)
-        losses = [float(x) for x in re.findall(r"loss (\d+\.\d+)", text)]
-        check(len(losses) == 2, f"train and val losses printed: {losses}")
-        return text, secs, losses
+    def train_job(extra, save, **env):
+        return (["train-unified", *common, "--epochs", "1", *extra, "--save",
+                 f"checkpoints/{save}"], env)
+
+    def losses(text):
+        found = [float(x) for x in re.findall(r"loss (\d+\.\d+)", text)]
+        check(len(found) == 2, f"train and val losses printed: {found}")
+        return found
 
     def rel(x, y):
         return abs(x - y) / abs(y)
 
-    one, t_one, a = train(["--host-stream"], "mesh_one", **fp32)
-    two, t_two, b = train(mesh, "mesh_two", **fp32)
+    title = "Final Test Report (Baseline 1)"
+    runs = cli_subprocesses([
+        [train_job(mesh, "mesh_two", **fp32),
+         train_job(mesh + ["--bf16"], "bf16_mesh"),
+         (["eval-baseline", *common, *mesh], fp32)],
+        [train_job(["--host-stream"], "mesh_one", **fp32)],
+        [train_job(["--host-stream", "--bf16"], "bf16_one_a")],
+        [train_job(["--host-stream", "--bf16"], "bf16_one_b")],
+        [(["eval-baseline", *common], fp32)]], cli_dir)
+    ((two, t_two), (mtext, t_m), (e2, t_e2), (one, t_one), (atext, t_a1),
+     (btext, t_a2), (e1, t_e1)) = runs
+    a, b, a1, a2, m = map(losses, (one, two, atext, btext, mtext))
     line = re.search(r"^Mesh: .*$", two, re.M)
     check(line and "backend gloo" in line.group(0)
           and f"over {MESH_RANKS} ranks" in line.group(0),
@@ -3164,19 +3260,18 @@ def mesh_cli(work):
           f"{MESH_CLI_RTOL}")
     check(two.count("Done. Checkpoint at") == 1, "only the first rank prints")
     out["train_unified"] = {"losses": a, "mesh_losses": b, "max_rel": worst,
-                            "seconds": t_one, "mesh_seconds": t_two,
+                            "seconds_concurrent": t_one,
+                            "mesh_seconds_concurrent": t_two,
                             "mesh_line": line.group(0),
-                            "images_per_sec": printed_rates(one),
-                            "mesh_images_per_sec": printed_rates(two)}
+                            "images_per_sec_concurrent": printed_rates(one),
+                            "mesh_images_per_sec_concurrent":
+                                printed_rates(two)}
     print(f"mesh: cli train-unified --mesh data={MESH_RANKS} (fp32, TF32 "
           f"off): losses {b} vs {a} without (max rel {worst:.3g}, tol "
           f"{MESH_CLI_RTOL})")
 
     # bf16: the train loss gated, the validation loss beside two runs
     # without a mesh
-    _, t_a1, a1 = train(["--host-stream", "--bf16"], "bf16_one_a")
-    _, _, a2 = train(["--host-stream", "--bf16"], "bf16_one_b")
-    mtext, t_m, m = train(mesh + ["--bf16"], "bf16_mesh")
     train_rel = rel(m[0], a1[0])
     check(train_rel <= MESH_CLI_RTOL,
           f"train-unified --mesh --bf16 train loss {m[0]} vs {a1[0]}: "
@@ -3187,8 +3282,9 @@ def mesh_cli(work):
         "val_rel_two_runs_without_mesh": rel(a2[1], a1[1]),
         "val_rel_mesh": rel(m[1], a1[1]),
         "train_rel_two_runs_without_mesh": rel(a2[0], a1[0]),
-        "seconds": t_a1, "mesh_seconds": t_m,
-        "mesh_images_per_sec": printed_rates(mtext)}
+        "seconds_concurrent": t_a1, "seconds_run_b_concurrent": t_a2,
+        "mesh_seconds_concurrent": t_m,
+        "mesh_images_per_sec_concurrent": printed_rates(mtext)}
     print(f"mesh: cli train-unified --mesh data={MESH_RANKS} --bf16: train "
           f"loss {m[0]} vs {a1[0]} without (rel {train_rel:.3g}, tol "
           f"{MESH_CLI_RTOL}); not gated: validation loss {m[1]} (rel "
@@ -3196,13 +3292,14 @@ def mesh_cli(work):
           f"{a1[1]} and {a2[1]} (rel {rel(a2[1], a1[1]):.3g}; their train "
           f"losses {a1[0]} and {a2[0]})")
 
-    title = "Final Test Report (Baseline 1)"
-    e1, _ = cli_subprocess(["eval-baseline", *common], cli_dir, **fp32)
-    e2, _ = cli_subprocess(["eval-baseline", *common, *mesh], cli_dir,
-                           **fp32)
     r1, r2 = (parse_accuracy_report(t, title) for t in (e1, e2))
+    rows = ["Clean (Original)", "Noisy", "Blurred", "Foggy"]
+    check(list(r1) == rows and list(r2) == rows,
+          f"eval-baseline reports {list(r1)} and --mesh {list(r2)}: not "
+          f"the rows {rows}")
     check(r1 == r2, f"eval-baseline --mesh {r2} != without {r1}")
     out["eval_baseline"] = r1
+    out["eval_baseline_seconds_concurrent"] = [t_e1, t_e2]
     print(f"mesh: cli eval-baseline --mesh data={MESH_RANKS} report {r2} "
           f"equals the one without")
     return out
@@ -3874,7 +3971,8 @@ def tiff_bytes(img, tile=None, bigtiff=False, big=False, jpeg=None):
 def tiff_layout(tags, data, bigtiff=False, big=False):
     """A TIFF of one IFD of ``tags`` {tag: (type, values)} (SHORT, LONG or
     LONG8 values; the tag whose values are None takes the offsets of the
-    ``data`` chunks), the IFD and its values first, then the chunks;
+    ``data`` chunks, one whose values are a function takes what it gives
+    of the list of them), the IFD and its values first, then the chunks;
     classic or BigTIFF, little or big endian."""
     import struct
     e = ">" if big else "<"
@@ -3884,7 +3982,8 @@ def tiff_layout(tags, data, bigtiff=False, big=False):
     head = 16 if bigtiff else 8
     n = len(tags)
     values_at = head + (8 if bigtiff else 2) + n * (20 if bigtiff else 12) + inline
-    arrays = {t: (v if v is not None else [0] * len(data))
+    arrays = {t: (v(list(range(len(data)))) if callable(v) else
+                  v if v is not None else [0] * len(data))
               for t, (_, v) in tags.items()}
     sizes = {t: struct.calcsize(e + chars[tags[t][0]] * len(v))
              for t, v in arrays.items()}
@@ -3896,6 +3995,8 @@ def tiff_layout(tags, data, bigtiff=False, big=False):
     for t, (_, v) in tags.items():
         if v is None:
             arrays[t] = offsets
+        elif callable(v):
+            arrays[t] = v(offsets)
     ifd, values = [struct.pack(e + ("Q" if bigtiff else "H"), n)], b""
     for tag in sorted(tags):
         typ, v = tags[tag][0], arrays[tag]
@@ -4343,6 +4444,196 @@ def built_tiff_2c_checks(work):
     return [p for n, p in files.items() if n.startswith("tiff_2c_")], out
 
 
+def jpeg_segments(stream):
+    """A JPEG stream's marker segments up to its first scan, [(marker,
+    payload past the length)], then ("data", the bytes after the SOS
+    segment)."""
+    import struct
+    out, i = [], 2
+    while i + 4 <= len(stream):
+        m = stream[i + 1]
+        n = struct.unpack(">H", stream[i + 2:i + 4])[0]
+        out.append((m, stream[i + 4:i + 2 + n]))
+        i += 2 + n
+        if m == 0xDA:
+            out.append(("data", stream[i:]))
+            break
+    return out
+
+
+def ojpeg_bytes(stream, h, w, layout, rps=None, photometric=6, tags=None):
+    """A little-endian old-style JPEG TIFF (Compression 6) of the baseline
+    ``stream`` (its frame ``w`` x ``h``, 1 or 3 components): ``layout``
+    "stream" points JPEGInterchangeFormat and one strip at the whole
+    stream; "tables" puts the quantisation and Huffman tables (the first
+    and last of each kind: luma, then the chroma tables both chroma
+    components share) at JPEGQTables, JPEGDCTables and JPEGACTables and
+    the entropy-coded data in strips of ``rps`` rows, cut at its restart
+    markers (the codec writes them again); ``tags`` added or replaced."""
+    import re
+    segs = jpeg_segments(stream)
+    spp = next(p[5] for m, p in segs if m in (0xC0, 0xC1))
+    tags_ = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp),
+             259: (3, [6]), 262: (3, [photometric]), 277: (3, [spp])}
+    if layout == "stream":
+        chunks = [stream]
+        tags_.update({273: (4, lambda o: [o[0]]), 278: (4, [h]),
+                      279: (4, [len(stream)]), 513: (4, lambda o: [o[0]]),
+                      514: (4, [len(stream)])})
+    else:
+        data = segs[-1][1]
+        if data.endswith(b"\xff\xd9"):
+            data = data[:-2]
+        strips = re.split(rb"\xff[\xd0-\xd7]", data)
+        n = len(strips)
+        qts = [p[1:65] for m, p in segs if m == 0xDB]
+        dhts = [p for m, p in segs if m == 0xC4]
+        dc = [p[1:] for p in dhts if p[0] < 16]
+        ac = [p[1:] for p in dhts if p[0] >= 16]
+        chunks = strips + [qts[0], qts[-1], dc[0], dc[-1], ac[0], ac[-1]]
+        comp = [0] + [1] * (spp - 1)
+        tags_.update({
+            273: (4, lambda o: o[:n]), 278: (4, [rps or h]),
+            279: (4, [len(x) for x in strips]), 512: (3, [1]),
+            519: (4, lambda o: [o[n + k] for k in comp]),
+            520: (4, lambda o: [o[n + 2 + k] for k in comp]),
+            521: (4, lambda o: [o[n + 4 + k] for k in comp])})
+    tags_.update(tags or {})
+    return tiff_layout(tags_, chunks)
+
+
+def pack_i12(rows):
+    """Each row of 12-bit samples (``rows``, [n, w], 0..4095) packed most
+    significant bit first and padded to a byte: a list of n bytes."""
+    packed = []
+    for r in rows:
+        bits = "".join(f"{int(a):012b}" for a in r)
+        bits += "0" * (-len(bits) % 8)
+        packed.append(bytes(int(bits[i:i + 8], 2)
+                            for i in range(0, len(bits), 8)))
+    return packed
+
+
+def fp_predictor_bytes(block):
+    """``block`` ([n, w] floats) under TIFF's floating-point predictor
+    (3): each row's bytes split into planes, most significant first, and
+    differenced byte by byte."""
+    import numpy as np
+    n, w = block.shape
+    be = block.astype(block.dtype.newbyteorder(">"))
+    planes = be.view(np.uint8).reshape(n, w, be.itemsize).transpose(
+        0, 2, 1).reshape(n, -1)
+    d = planes.astype(np.int64)
+    d[:, 1:] -= planes[:, :-1]
+    return (d & 255).astype(np.uint8).tobytes()
+
+
+def tiff_mode_bytes(kind, h, w, rng, work):
+    """A TIFF of ``kind`` (TIFF_MODES_FILES) of ``h`` x ``w`` pixels, its
+    samples drawn from ``rng``: little-endian uncompressed strips of 5 rows
+    (I;16S at orientation 6, big-endian I;32S, F, I;12), F deflate strips
+    of BUILT_TIFF_ROWS rows with the floating-point predictor (its bytes
+    split into planes, most significant first, each row differenced byte
+    by byte), or old-style JPEG of an RGB image through the port's JPEG
+    writer (in ``work``)."""
+    import zlib
+    import numpy as np
+    y, x = np.mgrid[:h, :w]
+    if kind.startswith("ojpeg"):
+        from tsr_tpu_torch import native
+        img = np.stack([(x * 5 + y * 3) % 256, (y * 7 + 40) % 256,
+                        (x * y + rng.integers(0, 32, (h, w))) % 256],
+                       -1).astype(np.uint8)
+        path = work / f"{kind}_{h}x{w}.jpg"
+        native.write_images([str(path)], [img])
+        return ojpeg_bytes(path.read_bytes(), h, w, kind[6:])
+    ramp = (x * 37 + y * 23) % 600 - 150 + rng.integers(-20, 20, (h, w))
+    rows = 5 if kind != "f_pred3" else BUILT_TIFF_ROWS
+    tags = {256: (4, [w]), 257: (4, [h]), 259: (3, [1]), 262: (3, [1]),
+            273: (4, None), 277: (3, [1]), 278: (4, [rows])}
+    big = kind == "i32s_be"
+    if kind == "i12":
+        v = (ramp * 7) % 4096
+        tags[258] = (3, [12])
+        packed = pack_i12(v)
+        strips = [b"".join(packed[r:r + rows]) for r in range(0, h, rows)]
+    else:
+        fmt, sf = {"i16s": ("<i2", 2), "i32s_be": (">i4", 2), "f": ("<f4", 3),
+                   "f_pred3": ("<f4", 3)}[kind]
+        v = ramp.astype(np.float64)
+        if kind == "i32s_be":
+            v = v * 40000
+        elif kind.startswith("f"):
+            v = v + rng.random((h, w)) * 2 - 0.5
+            v.flat[:4] = [np.nan, np.inf, -np.inf, 255.5]
+        a = v.astype(fmt)
+        tags.update({258: (3, [8 * a.itemsize]), 339: (3, [sf])})
+        if kind == "i16s":
+            tags[274] = (3, [6])
+        strips = []
+        for r in range(0, h, rows):
+            block = a[r:r + rows]
+            if kind != "f_pred3":
+                strips.append(block.tobytes())
+                continue
+            strips.append(zlib.compress(fp_predictor_bytes(block)))
+        if kind == "f_pred3":
+            tags.update({259: (3, [8]), 317: (3, [3])})
+    tags[279] = (4, [len(b) for b in strips])
+    return tiff_layout(tags, strips, big=big)
+
+
+def tiff_modes_files(root):
+    """{name: path} of phase 13's TIFF part 2c-iii files in ``root``
+    (TIFF_MODES_FILES), from one seeded stream."""
+    import numpy as np
+    rng = np.random.default_rng(TIFF_MODES_SEED)
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, (kind, h, w) in TIFF_MODES_FILES.items():
+        out[name] = root / name
+        out[name].write_bytes(tiff_mode_bytes(kind, h, w, rng, root))
+    return out
+
+
+def built_tiff_modes_checks(work):
+    """Pillow's I, F and I;12 modes and old-style JPEG on files built here
+    (tiff_modes_files; the card's machine has no cv2 or PIL): each decoded
+    to its TIFF_MODES_DIGESTS digest of PIL's pixels, probed at that size
+    by the reader paths' probe and (0, 0) by cv2's; the host decode rates
+    of the rate_modes_ files (BUILT_TIFF_DECODES decodes on one thread,
+    best of JPEG_DECODE_REPS passes). Returns (the tiff_modes_ files'
+    paths, the numbers for phase 13's line)."""
+    import hashlib
+    from tsr_tpu_torch import native
+    t0 = time.perf_counter()
+    files = tiff_modes_files(work / "built_tiff_modes")
+    out = {"write_s": time.perf_counter() - t0}
+    check(sorted(files) == sorted(TIFF_MODES_DIGESTS),
+          f"TIFF mode files {sorted(files)}")
+    for name, p in files.items():
+        img = native.decode(str(p))
+        check(hashlib.sha256(img.tobytes()).hexdigest()
+              == TIFF_MODES_DIGESTS[name], f"{name} decodes unlike PIL")
+        check(native.probe([str(p)]).tolist() == [list(img.shape[:2])],
+              f"{name}: probe('port')")
+        check(native.probe([str(p)], reader="cv2").tolist() == [[0, 0]],
+              f"{name}: probe('cv2') reads what cv2 refuses")
+        if not name.startswith("rate_modes_"):
+            continue
+        h, w = img.shape[:2]
+        best = math.inf
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            for _ in range(BUILT_TIFF_DECODES):
+                native.decode(str(p))
+            best = min(best, time.perf_counter() - t0)
+        out[name] = {"bytes": p.stat().st_size, "images_per_sec":
+                     BUILT_TIFF_DECODES / best, "megapixels_per_sec":
+                     BUILT_TIFF_DECODES * h * w / best / 1e6}
+    return [p for n, p in files.items() if n.startswith("tiff_modes_")], out
+
+
 def built_tiff_checks(work):
     """TIFF parts 2a and 2b on files built here: a little-endian BigTIFF of
     deflate strips and a big-endian tiled file (16 x 16 deflate tiles, edge
@@ -4493,7 +4784,10 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     reference's), B3/B2 held at its buckets; restore_tree and
     evaluate_directory over the readable files in both resize modes; then
     C9 and C10 (image_size_checks) and the TIFFs built at run time
-    (built_tiff_checks, built_ccitt_checks). Returns the kernels'
+    (built_tiff_checks, built_ccitt_checks; built_tiff_2c_checks' files
+    join the trees cv2 reads, built_tiff_modes_checks' the walks' tree, as
+    PIL reads them, and generate_tree's, which skips them). Returns the
+    kernels'
     launches."""
     import numpy as np
     import torch
@@ -4560,7 +4854,17 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           f"{BUILT_TIFF_SIZE[1]} x {BUILT_TIFF_SIZE[0]} ThunderScan and "
           f"LogLuv32 on one host thread, beside {result['card']}): "
           + json.dumps(result["built_tiff_2c"]))
-    groups = {g: [str(p) for p in cases + built_2c
+    t0 = time.perf_counter()
+    built_modes, result["built_tiff_modes"] = built_tiff_modes_checks(work)
+    result["built_tiff_modes"]["seconds"] = time.perf_counter() - t0
+    print(f"built TIFFs of Pillow's I, F and I;12 modes and old-style JPEG "
+          f"({len(built_modes)} for the tree, each equal to PIL's digest, "
+          f"refused by the cv2 probe; decode rates of "
+          f"{BUILT_TIFF_SIZE[1]} x {BUILT_TIFF_SIZE[0]} F deflate with the "
+          f"floating-point predictor and old-style JPEG on one host thread, "
+          f"beside {result['card']}): "
+          + json.dumps(result["built_tiff_modes"]))
+    groups = {g: [str(p) for p in cases + built_2c + built_modes
                   if p.name.startswith(prefixes)]
               for g, prefixes in IMAGE_GROUPS.items()}
     layouts = {q for g, paths in groups.items() if g.startswith("tiff_")
@@ -4592,14 +4896,15 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     root = work / "image_formats"
     readable, mixed = root / "readable", root / "mixed"
     readable_files = cases + built_2c
-    for k, p in enumerate(readable_files + [q for q in skips
-                                            if q.name not in IMAGE_FOREIGN]):
+    for k, p in enumerate(readable_files + built_modes
+                          + [q for q in skips if q.name not in IMAGE_FOREIGN]):
         for tree in ((readable, mixed) if p in readable_files else (mixed,)):
             out = tree / f"c{k % 3}" / p.name
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_bytes(p.read_bytes())
-    for k, p in enumerate(pil_read):  # the reference's PIL fallback reads it
+    for k, p in enumerate(pil_read + built_modes):  # read by PIL's fallback
         out = readable / f"c{k % 3}" / p.name
+        out.parent.mkdir(parents=True, exist_ok=True)
         out.write_bytes(p.read_bytes())
     written = int(want["generate_tree_written"]) + len(built_2c)
     mixed_files = offline.tree_files(str(mixed))
@@ -4676,7 +4981,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           + json.dumps(result["slice_buckets"]))
     check_blur_at_buckets(dev, kept, rows, key="image_format_times")
 
-    n_readable = len(readable_files) + len(pil_read)
+    n_readable = len(readable_files) + len(pil_read) + len(built_modes)
     walks, evals = {}, {}
     _build.reset_launch_counts()
     for resize in ("device", "host"):

@@ -348,7 +348,15 @@ def test_pil_only_format_raises_naming_it(tmp_path, fmt):
                                                20, 24))
     img = img.convert({"MSP": "1", "XBM": "1", "SPIDER": "F"}.get(fmt, "RGB"))
     p = tmp_path / f"{fmt.lower()}.png"
-    img.save(p, fmt)
+    # Pillow's SPIDER writer registers the file's suffix (.png) as SPIDER
+    # for the rest of the process: later saves of .png files would write
+    # SPIDER; its table is put back as it was
+    extensions = dict(Image.EXTENSION)
+    try:
+        img.save(p, fmt)
+    finally:
+        Image.EXTENSION.clear()
+        Image.EXTENSION.update(extensions)
     assert cv2.imread(str(p)) is None
     assert Image.open(p).format == fmt
     Image.open(p).convert("RGB")

@@ -21,14 +21,15 @@ the CPU:
   the IFD, the strip or tile table and the compressed data:
   probe(reader="cv2") gives (0, 0) exactly where cv2.imread gives None, and
   decode equals cv2, else PIL, else raises; a mutation that makes a layout
-  the port does not decode (what is left of TIFF part 2c: Pillow's LZMA,
-  ZSTD and WebP compressions, its 32-bit, float and LAB modes, as Pillow
-  parses the IFD) raises naming TIFF;
+  the port does not decode (what is left of TIFF part 2c: Pillow's LZMA
+  and ZSTD compressions and its LAB mode, as Pillow parses the IFD) raises
+  naming TIFF;
 - libtiff's 16 to 8-bit rules (gray v >> 8, RGB (v + 128) // 257) over
   every value, and its premultiplying of unassociated alpha at every
   (value, alpha) pair; its CMYK, YCbCr and CIELAB conversions over tables
   of values; the Compression tag's three sets of numbers;
-- the layouts of TIFF part 2c raise naming TIFF and probe (0, 0);
+- the layouts still foreign (LZMA, ZSTD, Pillow's LAB) raise naming TIFF
+  and probe (0, 0);
 - load_canvas, both probes and generate_tree through both packages.
 
 Max diff 0 throughout.
@@ -36,6 +37,7 @@ Max diff 0 throughout.
 
 import importlib.util
 import io
+import lzma
 import struct
 from pathlib import Path
 
@@ -111,20 +113,20 @@ def _ifd(data):
         return None
 
 
-# the compressions the port reads as the reference does (NeXT: refused as
-# both refuse it)
-DECODED_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32766, 32771, 32773, 32809,
-                        32946, 34676, 34677)
-DECODED_MODES = ("1", "L", "LA", "P", "PA", "I;16", "I;16B", "RGB", "RGBA",
-                 "CMYK")
+# the compressions the port reads as the reference does (NeXT and WebP:
+# refused as both refuse them)
+DECODED_COMPRESSIONS = (1, 2, 3, 4, 5, 6, 7, 8, 32766, 32771, 32773, 32809,
+                        32946, 34676, 34677, 50001)
+DECODED_MODES = ("1", "L", "LA", "P", "PA", "I;16", "I;16B", "I", "F", "RGB",
+                 "RGBA", "CMYK")
 
 
 def _part2(data):
     """True where the first IFD shows a layout the port does not decode
     (TIFF part 2c) as Pillow parses it (the last of duplicate tags): a mode
-    of Pillow's other than 1, L, LA, P, PA, I;16, RGB(A) and CMYK, or
-    12-bit samples, or a compression other than part 1's, CCITT's, JPEG,
-    NeXT, ThunderScan and SGILog."""
+    of Pillow's other than 1, L, LA, P, PA, I;16, I, F, RGB(A) and CMYK, or
+    a compression other than part 1's, CCITT's, old-style and new JPEG,
+    NeXT, ThunderScan, SGILog and WebP."""
     try:
         f = io.BytesIO(data)
         head = f.read(8)
@@ -152,8 +154,7 @@ def _part2(data):
         bps = bps * spp
     key = (ifd.prefix, get(262, 0), sf, get(266, 1), bps, get(338, ()))
     mode = TiffImagePlugin.OPEN_INFO.get(key)
-    return mode is not None and (mode[0] not in DECODED_MODES
-                                 or mode[1] == "I;12")
+    return mode is not None and mode[0] not in DECODED_MODES
 
 
 def _jpeg_rows(stream):
@@ -729,18 +730,22 @@ def _part2c_files():
     rng = np.random.default_rng(50)
     img = make_fixtures.smooth(rng, 12, 16)
     return {"zstd": make_fixtures.pil_tiff(img, "RGB", compression="zstd"),
-            "int32": make_fixtures.pil_tiff(img, "I"),
-            "float32": make_fixtures.pil_tiff(img, "F"),
+            "lzma": make_fixtures.tiff_file(
+                img, compression=34925, strips=[lzma.compress(img.tobytes())]),
             "LAB separate": make_fixtures.tiff_file(img, photometric=8,
-                                                    planar=2)}
+                                                    planar=2),
+            "LAB orientation 5": make_fixtures.tiff_file(img, photometric=8,
+                                                         orientation=5)}
 
 
 @pytest.mark.parametrize("name", sorted(_part2c_files()))
 def test_part2_layouts_raise_naming_tiff(tmp_path, name):
-    """ZSTD compression, 32-bit integer and float data, and CIELAB in
-    separate planes (TIFF part 2c): PIL reads them (LAB through
-    LittleCMS), cv2 none; the port does not decode them: decode and the
-    header probe raise naming TIFF, the cv2 probe gives (0, 0)."""
+    """ZSTD and LZMA compression, and CIELAB in separate planes or at
+    orientation 5 (what is left of TIFF part 2c): PIL reads them (LAB
+    through LittleCMS), cv2 none; the port does not decode them: decode and
+    the header probe raise naming TIFF, the cv2 probe gives (0, 0). (The
+    32-bit integer and float cases this test held read since the port
+    decodes Pillow's I and F modes: tests/test_torch_port_tiff_modes.py.)"""
     p = tmp_path / "p2.png"
     p.write_bytes(_part2c_files()[name])
     assert cv2.imread(str(p)) is None

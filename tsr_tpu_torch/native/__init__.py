@@ -19,7 +19,9 @@ with any extra samples, CMYK, YCbCr at any subsampling and CIELAB, either
 planar configuration and fill order, uncompressed, PackBits, LZW, deflate,
 CCITT RLE, group 3, group 4, RLE/W, JPEG or ThunderScan, SGILog's LogL and
 LogLuv as cv2 reads them, or a compression that names no codec,
-orientations as cv2 applies them, else as PIL does); JPEG
+orientations as cv2 applies them, else as PIL does; Pillow's 32-bit,
+float, 16-bit signed and 12-bit modes and old-style JPEG as PIL reads
+them); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
 or corrupt as libjpeg recovers it, FF FF 00 in entropy data as
 libjpeg-turbo's fast and slow Huffman passes read it, lossless); EXIF
@@ -28,8 +30,7 @@ cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
 port does not decode (:data:`FORMATS`: WebP, JPEG 2000, AVIF, and TIFF of
-another layout: old-style JPEG, LZMA, ZSTD or WebP compression, 32-bit or
-float samples, Pillow's LAB...), or that only
+another layout: LZMA or ZSTD compression, Pillow's LAB...), or that only
 PIL reads and the port does not decode (PCX, SGI, ICO/CUR, DDS, QOI, ICNS,
 MSP, IM, SPIDER, told by Pillow's own checks of the first bytes), raises
 naming the format. Image sizes follow the reference's rules: cv2's (where

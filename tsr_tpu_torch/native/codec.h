@@ -138,6 +138,25 @@ class TiffJpeg {
   Impl* p_;
 };
 
+// Old-style JPEG in TIFF as libtiff's codec (tif_ojpeg.c) drives
+// libjpeg-turbo over the stream it writes itself from the file's tables
+// and data (`bounds`: the ends of the buffers it hands libjpeg; `dry`: the
+// data runs out with an error, not an EOI): -1 where jpeg_read_header or
+// jpeg_start_decompress fail, else 1 with the frame's sizes and samples.
+// `raw` (jpeg_read_raw_data): each component's plane through the IDCT, not
+// upsampled (`widths[c]` bytes a row, the MCU grid's rows), as libjpeg's
+// raw buffers hold them; else (jpeg_read_scanlines, no colour conversion)
+// the components upsampled and interleaved in planes[0]. `fail_row` is the
+// first iMCU row a wrong restart marker or a read past the data stopped
+// (-1: none).
+struct OjpegImage {
+  int w = 0, h = 0, ncomp = 0, maxh = 1, maxv = 1, imcu_rows = 0;
+  int fail_row = -1, stride = 0;
+  std::vector<int> widths;
+  std::vector<std::vector<uint8_t>> planes;
+};
+int ojpeg_decode(const uint8_t* data, size_t n, const std::vector<size_t>& bounds,
+                 bool dry, bool raw, OjpegImage& out);
 // PNG, PNM (P1-P6), PFM, PAM (P7), BMP, Sun raster, GIF, Radiance HDR and
 // TIFF as cv2.imread reads them (formats.cpp, gif.cpp, hdr.cpp, tiff.cpp):
 // kOk with the (h, w) it gives in dims (EXIF orientation applied) and, with

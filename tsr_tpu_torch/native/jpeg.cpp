@@ -178,12 +178,22 @@ namespace {
 // fill_input_buffer), so a file cut short ends at an EOI wherever it stops.
 // `chunk` is the size of the source's refills: the stdio source's 4096
 // (a file), or 0 for data held whole in memory (libtiff's source over a
-// strip or tile).
+// strip or tile). `bounds`, where set, are the ends of the refills in
+// place of `chunk`'s (libtiff's old-style JPEG codec hands libjpeg each
+// marker segment it writes, then the file 2048 bytes at a time); `dry`,
+// where set, is where the data runs out with an error in place of the fake
+// EOI (the codec's "Premature end of JPEG data"): a read there sets
+// `failed` (as the codec's error on a wrong restart marker does).
 struct Source {
   const uint8_t* data = nullptr;
   size_t size = 0, pos = 0, chunk = 0;
+  const std::vector<size_t>* bounds = nullptr;
+  size_t dry = SIZE_MAX;
+  mutable bool failed = false;
   int at(size_t i) const {
-    return i < size ? data[i] : ((i - size) & 1 ? 0xD9 : 0xFF);
+    if (i < size) return data[i];
+    if (i >= dry) failed = true;
+    return (i - size) & 1 ? 0xD9 : 0xFF;
   }
   int byte() { return at(pos++); }
   // bytes_in_buffer: what the last refill holds past pos (a refill comes
@@ -191,6 +201,10 @@ struct Source {
   // count as none)
   size_t left() const {
     if (pos >= size) return 0;
+    if (bounds) {
+      const auto it = std::upper_bound(bounds->begin(), bounds->end(), pos);
+      return (it == bounds->end() ? size : std::min(*it, size)) - pos;
+    }
     if (!chunk) return size - pos;
     return std::min(size, (pos + chunk - 1) / chunk * chunk) - pos;
   }
@@ -562,6 +576,11 @@ struct Decoder {
   int last_good_row = 0;   // master->last_good_iMCU_row
   bool insufficient = false;
   bool cv2_reader = false;  // refuse what cv2.imread refuses (gray lossless)
+  // libtiff's old-style JPEG codec: its resync_to_restart is an error, as
+  // is a read past the source's `dry` end; `fail_mcu` is the MCU of the
+  // scan that met either (the decode stops there), else -1
+  bool strict_restart = false;
+  long fail_mcu = -1;
 
   static constexpr int kSos = 2, kEoi = 3;
 
@@ -853,6 +872,10 @@ struct Decoder {
       unread = 0;
       return;
     }
+    if (strict_restart) {
+      src.failed = true;  // the decode stops at this MCU
+      return;
+    }
     for (;;) {
       const int m = unread;
       int action = 1;
@@ -936,6 +959,10 @@ struct Decoder {
         }
         left--;
       }
+      if (strict_restart && src.failed) {
+        fail_mcu = m;
+        return kOk;
+      }
       if (insufficient) continue;  // leave the MCU as it is
       if (fast && !unread && src.left() >= 512 * static_cast<size_t>(blocks)) {
         FastReader fr{&src, src.pos, br.acc, br.n};
@@ -967,6 +994,10 @@ struct Decoder {
           ac_refine(br, blk, c, sc, eobrun);
       });
       if (st != kOk) return st;
+      if (strict_restart && src.failed) {
+        fail_mcu = m;
+        return kOk;
+      }
       if (!arith && br.overrun()) insufficient = true;
     }
     return kOk;
@@ -2199,6 +2230,61 @@ void TiffJpeg::finish() {
   if (!p_->d) return;
   p_->d->finish();
   p_->save(*p_->d);
+}
+
+int ojpeg_decode(const uint8_t* data, size_t n, const std::vector<size_t>& bounds,
+                 bool dry, bool raw, OjpegImage& out) {
+  Decoder d;
+  d.src.data = data;
+  d.src.size = n;
+  d.src.bounds = &bounds;
+  if (dry) d.src.dry = n;
+  d.strict_restart = true;
+  Decoder::Scan first;
+  if (d.header(first) != kOk) return -1;  // jpeg_read_header
+  d.std_tables();
+  // jpeg_start_decompress (raw data of a lossless frame is not taken),
+  // then the scan
+  if (d.lossless || d.read_scans(first, true) != kOk) return -1;
+  out.w = d.width;
+  out.h = d.height;
+  out.ncomp = d.ncomp;
+  out.maxh = d.maxh;
+  out.maxv = d.maxv;
+  out.imcu_rows = d.mcuy;
+  const int cols = d.ncomp == 1 ? d.comp[0].wib : d.mcux;
+  out.fail_row = d.fail_mcu < 0 ? -1 : static_cast<int>(d.fail_mcu / cols);
+  out.planes.assign(d.ncomp, {});
+  if (!raw) {
+    std::vector<std::vector<uint8_t>> full;
+    full_planes(d, full);
+    const size_t npx = static_cast<size_t>(d.width) * d.height;
+    out.stride = d.width * d.ncomp;
+    out.planes[0].resize(npx * d.ncomp);
+    for (size_t k = 0; k < npx; k++)
+      for (int c = 0; c < d.ncomp; c++) out.planes[0][d.ncomp * k + c] = full[c][k];
+    return 1;
+  }
+  // jpeg_read_raw_data's planes: each block of image data through the IDCT
+  // (the MCUs' dummy blocks left as the buffer held them, zeros), the rows
+  // past the data in the last iMCU row still those of the row before
+  out.widths.assign(d.ncomp, 0);
+  for (int i = 0; i < d.ncomp; i++) {
+    const Component& c = d.comp[i];
+    const size_t stride = static_cast<size_t>(c.gw) * 8;
+    std::vector<uint8_t>& plane = out.planes[i];
+    plane.assign(stride * c.gh * 8, 0);
+    for (int by = 0; by < c.hib; by++)
+      for (int bx = 0; bx < c.wib; bx++)
+        idct_islow(c.coef.data() + (static_cast<size_t>(by) * c.gw + bx) * 64, c.q,
+                   plane.data() + stride * by * 8 + bx * 8, stride);
+    const size_t imcu = static_cast<size_t>(c.v) * 8;
+    for (size_t r = static_cast<size_t>(c.hib) * 8; r < static_cast<size_t>(c.gh) * 8; r++)
+      if (r >= imcu)
+        std::memcpy(&plane[r * stride], &plane[(r - imcu) * stride], stride);
+    out.widths[i] = static_cast<int>(stride);
+  }
+  return 1;
 }
 
 void encode_jpeg(const uint8_t* rgb, int w, int h, std::vector<uint8_t>& out) {

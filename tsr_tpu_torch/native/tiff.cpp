@@ -4,11 +4,13 @@
 // Classic TIFF and BigTIFF (either byte order), the first IFD, strips or
 // tiles of gray (MINISBLACK or MINISWHITE), RGB, palette, CMYK, YCbCr or
 // CIELAB samples with any extra samples, of either planar configuration
-// and fill order, uncompressed, PackBits, LZW (old-style codes too),
-// deflate, CCITT (RLE, group 3 1-D and 2-D, group 4, RLE/W), JPEG or
-// ThunderScan, with or without the horizontal predictor, SGILog's LogL and
-// LogLuv, or with a Compression number that names no codec. Two readers,
-// each a copy of what its library does:
+// and fill order, or Pillow's 16-bit signed, 32-bit integer, float and
+// 12-bit gray modes, uncompressed, PackBits, LZW (old-style codes too),
+// deflate, CCITT (RLE, group 3 1-D and 2-D, group 4, RLE/W), JPEG,
+// old-style JPEG or ThunderScan, with or without the horizontal or the
+// floating-point predictor, SGILog's LogL and LogLuv, or with a
+// Compression number that names no codec. Two readers, each a copy of what
+// its library does:
 //   - tiff_cv2: OpenCV 5's TiffDecoder over libtiff 4.7. The directory is
 //     read by libtiff's rules (TIFFReadDirectory: the first of duplicate
 //     tags wins, a bad required tag refuses the file, a bad optional one is
@@ -54,17 +56,23 @@
 //     Pillow's checks of libtiff's sizes; YCbCr but contiguous JPEG through
 //     libtiff's RGBA reader a strip or a row of tiles at a time; a JPEG
 //     frame that leaves part of Pillow's unzeroed buffer unwritten is
-//     refused, as its pixels there are whatever memory held), CMYK by
-//     Pillow's cmyk2rgb, orientation applied as ImageOps.exif_transpose
-//     applies it.
+//     refused, as its pixels there are whatever memory held; libtiff
+//     hands 16, 32 and 64-bit samples over in the host's order, which the
+//     rawmodes of big-endian I and F read swapped), old-style JPEG through
+//     libtiff's own codec (tif_ojpeg.c, which OpenCV's build leaves out:
+//     its header reader over the JPEGInterchangeFormat stream and the
+//     strips, the tables from tags, the stream it writes for libjpeg, raw
+//     YCbCr blocks into the RGBA reader), CMYK by Pillow's cmyk2rgb, I
+//     clipped and F truncated and clipped by convert("RGB"), orientation
+//     applied as ImageOps.exif_transpose applies it.
 // A layout the codec's setup refuses (NeXT, whose 2-bit samples neither
 // reader passes on; ThunderScan of other than 4 bits; SGILog of other than
-// LogL or LogLuv data, and so all of Pillow's) fails as libtiff fails it:
-// unreadable. Any other layout that PIL would read (what is left of TIFF
-// part 2c: Pillow's LZMA, ZSTD and WebP, its 32-bit, float and LAB modes)
-// gives kTiff: the port does not decode it. Each runs on a whole file in
-// memory, or, for the header probe, on an open file read where its IFD
-// points.
+// LogL or LogLuv data, and so all of Pillow's; WebP, which Pillow's
+// libtiff has no codec for) fails as libtiff fails it: unreadable. Any
+// other layout that PIL would read (what is left of TIFF part 2c: Pillow's
+// LZMA and ZSTD, its LAB mode) gives kTiff: the port does not decode it.
+// Each runs on a whole file in memory, or, for the header probe, on an
+// open file read where its IFD points.
 
 #include <zlib.h>
 
@@ -271,6 +279,17 @@ struct Dir {
   // LogLuv), now 8-bit gray or RGB
   uint16_t sgilog = 0;
   std::vector<uint16_t> cmap;  // 3 x 2^bps
+  // old-style JPEG (6): JPEGInterchangeFormat and its length, the restart
+  // interval, the tables' offsets (JPEGQTables, JPEGDCTables,
+  // JPEGACTables); `ojpeg`: the codec is built (Pillow's libtiff, not
+  // OpenCV's), and YCbCrSubsampling reads the sampling its first frame
+  // holds (oj_sub, oj_force: ojpeg_correct)
+  bool ojpeg = false;
+  uint64_t jif = 0, jif_len = 0;
+  uint16_t jpeg_ri = 0;
+  std::vector<uint64_t> jq, jdc, jac;
+  uint8_t oj_sub[2] = {2, 2};
+  bool oj_force = false;
   uint32_t nstrips = 0;        // strips or tiles, of all planes
   uint32_t per_plane = 0;      // strips or tiles of one plane
   std::vector<uint64_t> offsets, counts;
@@ -523,6 +542,337 @@ void jpeg_fixup(Dir& t) {
   }
 }
 
+// ------------------------------------------- old-style JPEG (6), input
+
+// tif_ojpeg.c's input: the JPEGInterchangeFormat stream (its length cut to
+// the file), then every strip or tile in turn (one of offset 0 or past the
+// file skipped, a byte count of 0 read to the file's end, one past it cut
+// there), read as one run of bytes through a buffer that the file fills
+// 2048 bytes of one piece at a time; a skip past the buffer moves on in
+// the file, and stops at the end of the piece. Pieces are copied from the
+// file as the reads reach them (`load`). `strile[i]`: piece i's strip or
+// tile, -1 for the stream.
+struct OjIn {
+  const Src& s;
+  struct Piece {
+    uint64_t off, len;
+    int64_t strile;
+  };
+  std::vector<Piece> pieces;
+  std::vector<uint8_t> bytes;  // the pieces loaded so far
+  std::vector<size_t> ends;
+  std::vector<int64_t> strile;
+  size_t pos = 0, buf_end = 0;  // the buffer holds [pos, buf_end)
+  explicit OjIn(const Dir& t) : s(t.src) {
+    if (t.jif && t.jif_len) pieces.push_back({t.jif, t.jif_len, -1});
+    for (uint32_t k = 0; k < t.nstrips; k++) {
+      const uint64_t off = k < t.offsets.size() ? t.offsets[k] : 0;
+      if (off == 0 || off >= s.n) continue;
+      const uint64_t bc = k < t.counts.size() ? t.counts[k] : 0;
+      pieces.push_back({off, bc == 0 || bc > s.n - off ? s.n - off : bc, k});
+    }
+  }
+  // the next piece appended to `bytes`: false where none is left
+  bool load() {
+    if (ends.size() == pieces.size()) return false;
+    const Piece& p = pieces[ends.size()];
+    const size_t at = bytes.size();
+    bytes.resize(at + p.len);
+    s.read(p.off, p.len, &bytes[at]);
+    ends.push_back(bytes.size());
+    strile.push_back(p.strile);
+    return true;
+  }
+  void load_all() {
+    while (load()) {
+    }
+  }
+  size_t piece_end(size_t at) const {
+    return *std::upper_bound(ends.begin(), ends.end(), at);
+  }
+  bool peek(uint8_t& b) {
+    while (pos >= bytes.size())
+      if (!load()) return false;
+    if (pos >= buf_end) buf_end = std::min(pos + 2048, piece_end(pos));
+    b = bytes[pos];
+    return true;
+  }
+  bool byte(uint8_t& b) {
+    if (!peek(b)) return false;
+    pos++;
+    return true;
+  }
+  bool word(uint16_t& w) {
+    uint8_t a, b;
+    if (!byte(a) || !byte(b)) return false;
+    w = static_cast<uint16_t>(a << 8 | b);
+    return true;
+  }
+  bool block(size_t n, uint8_t* out) {
+    for (size_t k = 0; k < n; k++)
+      if (!byte(out[k])) return false;
+    return true;
+  }
+  void skip(size_t n) {
+    const size_t held = buf_end > pos ? buf_end - pos : 0;
+    if (n <= held) {
+      pos += n;
+      return;
+    }
+    // the buffer's piece: the one its last byte read lies in
+    const size_t end = pos ? *std::lower_bound(ends.begin(), ends.end(), pos) : 0;
+    pos = std::max(pos, std::min(pos + n, end));
+    buf_end = pos;
+  }
+};
+
+// What OJPEGReadHeaderInfoSec reads: the marker segments it keeps to write
+// again (DQT and DHT whole, by table), the frame's and the scan's fields,
+// the restart interval; or, where the data starts with no marker, the
+// tables from the tags' offsets.
+struct OjHead {
+  std::vector<uint8_t> qt[4], dc[4], ac[4];
+  bool sof = false;
+  uint8_t sof_id = 0xC0, sof_c[3] = {0, 0, 0}, sof_hv[3] = {0, 0, 0},
+          sof_tq[3] = {0, 0, 0}, sos_cs[3] = {0, 0, 0}, sos_tda[3] = {0, 0, 0};
+  uint32_t sof_x = 0, sof_y = 0;
+  uint16_t restart = 0;
+  uint8_t hor = 2, ver = 2;
+  bool force = false;
+  // where the entropy-coded data starts in OjIn, and the end of the buffer
+  // that holds it where the frame came from the data (0: from the tags)
+  size_t sos_end = 0, buf_end = 0;
+};
+
+// The codec's frame of the file: strip or tile width, length and the
+// rows of all strips or tile rows; samples a pixel, a plane.
+struct OjFrame {
+  uint32_t w = 0, len = 0, total = 0;
+  uint8_t spp = 1, per_plane = 1;
+};
+
+OjFrame oj_frame(const Dir& t) {
+  OjFrame f;
+  if (t.tiled) {
+    f.w = t.tw;
+    f.len = t.th;
+    f.total = t.th ? (t.h + t.th - 1) / t.th * t.th : 0;
+  } else {
+    f.w = t.w;
+    f.len = t.rps == 0xFFFFFFFFu ? t.h : t.rps;
+    f.total = t.h;
+  }
+  f.spp = t.spp == 1 ? 1 : 3;
+  f.per_plane = t.spp == 1 || t.planar == 2 ? 1 : 3;
+  return f;
+}
+
+// OJPEGReadHeaderInfoSec: false where it fails. `correct`: the subsampling
+// correction's pass, which stops at the frame (or the scan) and keeps only
+// the first component's sampling (`force` where it has no TIFF equivalent).
+bool oj_read_sec(OjIn& in, const Dir& t, const OjFrame& f, bool correct,
+                 OjHead& h) {
+  const Src& s = t.src;
+  uint8_t m;
+  uint16_t n;
+  for (;;) {
+    if (!in.peek(m)) return false;
+    if (m != 255) break;
+    in.pos++;
+    do {
+      if (!in.byte(m)) return false;
+    } while (m == 255);
+    if (m == 0xD8) continue;
+    if (m == 0xFE || (m >= 0xE0 && m <= 0xEF)) {
+      if (!in.word(n) || n < 2) return false;
+      if (n > 2) in.skip(n - 2);
+      continue;
+    }
+    switch (m) {
+      case 0xDD:  // DRI
+        if (!in.word(n) || n != 4 || !in.word(n)) return false;
+        h.restart = n;
+        break;
+      case 0xDB: {  // DQT: each 65-byte table kept as a segment of its own
+        if (!in.word(n) || n <= 2) return false;
+        if (correct) {
+          in.skip(n - 2);
+          break;
+        }
+        for (int left = n - 2; left > 0; left -= 65) {
+          if (left < 65) return false;
+          std::vector<uint8_t> seg = {0xFF, 0xDB, 0, 67};
+          seg.resize(4 + 65);
+          if (!in.block(65, &seg[4])) return false;
+          const int o = seg[4] & 15;
+          if (o > 3) return false;
+          h.qt[o] = std::move(seg);
+        }
+        break;
+      }
+      case 0xC4: {  // DHT: the segment kept whole, by its first table
+        if (!in.word(n) || n <= 2) return false;
+        if (correct) {
+          in.skip(n - 2);
+          break;
+        }
+        std::vector<uint8_t> seg = {0xFF, 0xC4, static_cast<uint8_t>(n >> 8),
+                                    static_cast<uint8_t>(n)};
+        seg.resize(2 + n);
+        if (!in.block(n - 2, &seg[4])) return false;
+        const int o = seg[4];
+        if ((o & 0xF0) != 0 && (o & 0xF0) != 16) return false;
+        if ((o & 15) > 3) return false;
+        ((o & 0xF0) ? h.ac : h.dc)[o & 15] = std::move(seg);
+        break;
+      }
+      case 0xC0: case 0xC1: case 0xC3: {  // SOF
+        if (h.sof) return false;
+        if (!correct) h.sof_id = m;
+        if (!in.word(n) || n < 11 || (n - 8) % 3) return false;
+        const int comps = (n - 8) / 3;
+        if (!correct && comps != f.spp) return false;
+        uint8_t o;
+        if (!in.byte(o) || o != 8) return false;
+        if (correct) {
+          in.skip(4);
+        } else {
+          uint16_t y, x;
+          if (!in.word(y)) return false;
+          if (y < t.h && y < f.total) return false;
+          h.sof_y = y;
+          if (!in.word(x)) return false;
+          if ((x < t.w && x < f.w) || x > f.w) return false;
+          h.sof_x = x;
+        }
+        if (!in.byte(o) || o != comps) return false;
+        for (int q = 0; q < comps; q++) {
+          if (!in.byte(o)) return false;
+          if (!correct) h.sof_c[q] = o;
+          if (!in.byte(o)) return false;
+          if (correct) {
+            auto ok = [](int v) { return v == 1 || v == 2 || v == 4; };
+            if (q == 0) {
+              h.hor = o >> 4;
+              h.ver = o & 15;
+              if (!ok(h.hor) || !ok(h.ver)) h.force = true;
+            } else if (o != 17) {
+              h.force = true;
+            }
+          } else {
+            h.sof_hv[q] = o;
+            if (!h.force &&
+                (q == 0 ? o != (h.hor << 4 | h.ver) : o != 17))
+              return false;  // "unexpected subsampling values"
+          }
+          if (!in.byte(o)) return false;
+          if (!correct) h.sof_tq[q] = o;
+        }
+        if (correct) return true;
+        h.sof = true;
+        break;
+      }
+      case 0xDA: {  // SOS
+        if (correct) return true;
+        uint8_t o;
+        if (!h.sof || !in.word(n) || n != 6 + f.per_plane * 2 ||
+            !in.byte(o) || o != f.per_plane)
+          return false;
+        for (int q = 0; q < f.per_plane; q++)
+          if (!in.byte(h.sos_cs[q]) || !in.byte(h.sos_tda[q])) return false;
+        in.skip(3);  // Ss, Se, Ah and Al, unchecked
+        h.sos_end = in.pos;
+        h.buf_end = in.buf_end;
+        return true;
+      }
+      default:
+        return false;  // "Unknown marker type"
+    }
+  }
+  if (correct) return true;
+  h.sos_end = in.pos;
+  if (h.sof) return true;
+  // the frame and scan from the tags: OJPEGReadHeaderInfoSecTables*
+  auto table = [&](const std::vector<uint64_t>& offs, int kind) {
+    auto off = [&](int k) { return k < static_cast<int>(offs.size()) ? offs[k] : 0; };
+    if (off(0) == 0) return false;  // "Missing JPEG tables"
+    for (int k = 0; k < f.spp; k++) {
+      if (off(k) != 0 && (k == 0 || off(k) != off(k - 1))) {
+        for (int j = 0; j < k - 1; j++)
+          if (off(k) == off(j)) return false;  // "Corrupt ... tag value"
+        std::vector<uint8_t> seg;
+        if (kind == 0) {
+          seg = {0xFF, 0xDB, 0, 67, static_cast<uint8_t>(k)};
+          seg.resize(5 + 64);
+          if (!s.read(off(k), 64, &seg[5])) return false;
+          h.qt[k] = std::move(seg);
+          h.sof_tq[k] = static_cast<uint8_t>(k);
+        } else {
+          uint8_t counts[16];
+          if (!s.read(off(k), 16, counts)) return false;
+          int q = 0;
+          for (uint8_t c : counts) q += c;
+          seg = {0xFF, 0xC4, static_cast<uint8_t>((19 + q) >> 8),
+                 static_cast<uint8_t>(19 + q),
+                 static_cast<uint8_t>(kind == 1 ? k : 16 | k)};
+          seg.insert(seg.end(), counts, counts + 16);
+          seg.resize(seg.size() + q);
+          if (!s.read(off(k) + 16, q, &seg[21])) return false;
+          (kind == 1 ? h.dc : h.ac)[k] = std::move(seg);
+          h.sos_tda[k] = static_cast<uint8_t>(kind == 1 ? k << 4 : h.sos_tda[k] | k);
+        }
+      } else if (kind == 0) {
+        h.sof_tq[k] = h.sof_tq[k - 1];
+      } else {
+        h.sos_tda[k] = static_cast<uint8_t>(
+            kind == 1 ? h.sos_tda[k - 1] : h.sos_tda[k] | (h.sos_tda[k - 1] & 15));
+      }
+    }
+    return true;
+  };
+  if (!table(t.jq, 0)) return false;
+  h.sof_id = 0xC0;
+  for (int k = 0; k < f.spp; k++) {
+    h.sof_c[k] = static_cast<uint8_t>(k);
+    h.sof_hv[k] = k ? 17 : static_cast<uint8_t>(h.hor << 4 | h.ver);
+  }
+  h.sof_x = f.w;
+  h.sof_y = f.total;
+  h.sof = true;
+  if (!table(t.jdc, 1) || !table(t.jac, 2)) return false;
+  for (int k = 1; k < f.spp; k++) h.sos_cs[k] = static_cast<uint8_t>(k);
+  return true;
+}
+
+// OJPEGSubsamplingCorrect: YCbCr of 3 samples takes the first frame's
+// sampling (that of YCbCrSubsampling, else 2 x 2, where the frame cannot
+// be read before it); sampling with no TIFF equivalent is upsampled by
+// libjpeg (`force`, read as 1 x 1); anything else is 1 x 1. First the
+// JPEGInterchangeFormat stream as the codec takes it: an offset past the
+// file drops it, a length of 0 or past the file runs to its end.
+void ojpeg_correct(Dir& t) {
+  if (t.jif >= t.src.n) {
+    t.jif = t.jif_len = 0;
+  } else if (t.jif_len == 0 || t.jif_len > t.src.n - t.jif) {
+    t.jif_len = t.src.n - t.jif;
+  }
+  t.oj_sub[0] = t.sub_set ? static_cast<uint8_t>(t.sub[0]) : 2;
+  t.oj_sub[1] = t.sub_set ? static_cast<uint8_t>(t.sub[1]) : 2;
+  t.oj_force = false;
+  if (t.spp != 3 || (t.photometric != 6 && t.photometric != 10)) {
+    t.oj_sub[0] = t.oj_sub[1] = 1;
+    return;
+  }
+  OjHead h;
+  h.hor = t.oj_sub[0];
+  h.ver = t.oj_sub[1];
+  OjIn in(t);
+  oj_read_sec(in, t, oj_frame(t), true, h);
+  t.oj_sub[0] = h.force ? 1 : h.hor;
+  t.oj_sub[1] = h.force ? 1 : h.ver;
+  t.oj_force = h.force;
+}
+
 // TIFFClientOpen + TIFFReadDirectory: false where libtiff refuses the file.
 bool read_dir(Dir& t) {
   const Src& s = t.src;
@@ -563,9 +913,11 @@ bool read_dir(Dir& t) {
     return nullptr;
   };
   uint64_t v;
+  bool spp_set = false;
   if (Entry* e = find(kSpp)) {
     if (read_one(s, *e, 0xFFFF, v) != kErrOk || v == 0) return false;
     t.spp = static_cast<uint16_t>(v);
+    spp_set = true;
     e->ignore = true;
   }
   // Compression: one value, or one a sample (all equal)
@@ -645,6 +997,13 @@ bool read_dir(Dir& t) {
     }
   }
   if (!t.dims_set) return false;
+  // old-style JPEG in separate planes with one strip offset and one byte
+  // count is taken as contiguous
+  if (t.compression == 6 && t.planar == 2) {
+    const Entry* so = find(kStripOffsets);
+    const Entry* sc = find(kStripByteCounts);
+    if (so && so->count == 1 && sc && sc->count == 1) t.planar = 1;
+  }
   // TIFFNumberOfStrips or TIFFNumberOfTiles (0 where the product overflows)
   auto mul32 = [](uint64_t a, uint64_t b) {
     return a * b > 0xFFFFFFFFu ? uint32_t{0} : static_cast<uint32_t>(a * b);
@@ -658,7 +1017,11 @@ bool read_dir(Dir& t) {
     t.per_plane = t.rps == 0xFFFFFFFFu ? 1 : howmany32(t.h, t.rps);
   }
   t.nstrips = t.planar == 2 ? mul32(t.per_plane, t.spp) : t.per_plane;
-  if (t.nstrips == 0 || !offsets_set) return false;
+  // old-style JPEG of one strip may leave its offsets to the
+  // JPEGInterchangeFormat stream
+  if (t.nstrips == 0 ||
+      (!offsets_set && !(t.compression == 6 && !t.tiled && t.nstrips == 1)))
+    return false;
   t.per_plane = t.planar == 2 ? t.nstrips / t.spp : t.nstrips;
   // second pass: the rest, in the IFD's order
   bool bps_read = false;
@@ -761,6 +1124,21 @@ bool read_dir(Dir& t) {
         if (read_floats(s, e, 2, f)) std::copy(f, f + 2, t.white);
         break;
       }
+      case 513: case 514:  // fields of the old-style JPEG codec alone
+        if (t.compression == 6 && read_one(s, e, UINT64_MAX, v) == kErrOk)
+          (e.tag == 513 ? t.jif : t.jif_len) = v;
+        break;
+      case 515:
+        if (t.compression == 6 && read_one(s, e, 0xFFFF, v) == kErrOk)
+          t.jpeg_ri = static_cast<uint16_t>(v);
+        break;
+      case 519: case 520: case 521: {  // at most 3 offsets, else dropped
+        std::vector<uint64_t> a;
+        if (t.compression == 6 && read_array(s, e, UINT64_MAX, a) == kErrOk &&
+            !a.empty() && a.size() <= 3)
+          (e.tag == 519 ? t.jq : e.tag == 520 ? t.jdc : t.jac) = a;
+        break;
+      }
       case kJpegTables:  // a field of the JPEG codec alone
         if (t.compression == 7 && e.count <= 0xFFFFFFFFu && e.count > 0 &&
             read_byte_array(s, e, t.jpegtables))
@@ -769,6 +1147,16 @@ bool read_dir(Dir& t) {
       default:
         break;
     }
+  }
+  // old-style JPEG's guesses: YCbCr where the Photometric tag is missing
+  // or says RGB, 8 bits where BitsPerSample is missing, and without
+  // SamplesPerPixel 3 samples of YCbCr, 1 of gray
+  if (t.compression == 6) {
+    if (!t.photo_set || t.photometric == 2) t.photometric = 6;
+    t.photo_set = true;
+    if (!bps_read) t.bps = 8;
+    if (!spp_set && (t.photometric == 6 || t.photometric <= 1))
+      t.spp = t.photometric == 6 ? 3 : 1;
   }
   // non-color channels are extra samples
   const int cc = color_channels(t.photometric);
@@ -842,6 +1230,13 @@ bool read_dir(Dir& t) {
   if (t.compression == 7 && t.photometric == 6 && t.planar == 1 &&
       t.spp == 3 && !t.sub_set)
     jpeg_fixup(t);
+  // old-style JPEG: the sizes read YCbCrSubsampling through the codec,
+  // which takes it from the first frame
+  if (t.ojpeg && t.compression == 6) {
+    ojpeg_correct(t);
+    t.sub[0] = t.oj_sub[0];
+    t.sub[1] = t.oj_sub[1];
+  }
   // "Cannot handle zero scanline size", "... zero tile size", "... zero
   // strip size" (a strip or tile past INT64_MAX bytes reads as size 0 too)
   set_sizes(t);
@@ -1805,12 +2200,30 @@ bool lzw_compat(const Dir& t) {
   return b[0] == 0 && (b[1] & 1);
 }
 
+// The horizontal predictor over each whole row of `row` bytes: every
+// sample (in the host's order) plus the one `stride` samples before it.
+template <typename T>
+void hor_acc(uint8_t* out, size_t occ, size_t row, size_t stride) {
+  const size_t n = row / sizeof(T);
+  for (size_t r = 0; r + row <= occ; r += row) {
+    uint8_t* p = out + r;
+    for (size_t i = stride; i < n; i++) {
+      T a, b;
+      std::memcpy(&a, p + sizeof(T) * i, sizeof(T));
+      std::memcpy(&b, p + sizeof(T) * (i - stride), sizeof(T));
+      a = static_cast<T>(a + b);
+      std::memcpy(p + sizeof(T) * i, &a, sizeof(T));
+    }
+  }
+}
+
 // One strip's or tile's bytes as libtiff's decoder gives them: false on a
 // decoder error (what it wrote stays, unswapped; PackBits, LZW and deflate
 // zero the rest, an uncompressed chunk too short or a number that names no
-// codec leave the buffer as it was), else 16-bit samples of a big-endian
-// file swapped to the host's order and the horizontal predictor applied
-// row by row.
+// codec leave the buffer as it was), else 16, 32 and 64-bit samples of a
+// big-endian file swapped to the host's order and the horizontal predictor
+// applied row by row, or the floating-point predictor (which gives the
+// host's order itself).
 bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
                   size_t occ, bool compat, bool odd = false,
                   FaxCodec* state = nullptr) {
@@ -1853,23 +2266,37 @@ bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
     default: ok = false; break;  // no codec: "decoding is not implemented"
   }
   if (!ok) return false;
-  if (t.bps == 16 && t.src.be)
-    for (size_t i = 0; i + 1 < occ; i += 2) std::swap(out[i], out[i + 1]);
-  if (t.predictor == 2 && t.compression != 1 && t.compression != 32773) {
-    const size_t row = t.chunk_row, stride = t.planar == 2 ? 1 : t.spp;
+  const bool predicted = t.compression != 1 && t.compression != 32773;
+  const size_t row = t.chunk_row, stride = t.planar == 2 ? 1 : t.spp;
+  if (predicted && t.predictor == 3) {
+    // fpAcc: each row's bytes accumulated `stride` apart, then its byte
+    // planes (most significant first) gathered into samples of the
+    // host's order; no swap follows
+    const size_t bytes = t.bps / 8;
+    std::vector<uint8_t> tmp(row);
     for (size_t r = 0; r + row <= occ; r += row) {
       uint8_t* p = out + r;
-      if (t.bps == 8) {
-        for (size_t i = stride; i < row; i++)
-          p[i] = static_cast<uint8_t>(p[i] + p[i - stride]);
-      } else {
-        for (size_t i = stride; i < row / 2; i++) {
-          const unsigned v = (p[2 * i] | p[2 * i + 1] << 8) +
-                             (p[2 * (i - stride)] | p[2 * (i - stride) + 1] << 8);
-          p[2 * i] = static_cast<uint8_t>(v);
-          p[2 * i + 1] = static_cast<uint8_t>(v >> 8);
-        }
-      }
+      for (size_t i = stride; i < row; i++)
+        p[i] = static_cast<uint8_t>(p[i] + p[i - stride]);
+      std::memcpy(tmp.data(), p, row);
+      const size_t count = row / bytes;
+      for (size_t k = 0; k < count; k++)
+        for (size_t b = 0; b < bytes; b++)
+          p[bytes * k + b] = tmp[(bytes - b - 1) * count + k];
+    }
+    return true;
+  }
+  // samples of a big-endian file swapped to the host's order
+  if (t.src.be && (t.bps == 16 || t.bps == 32 || t.bps == 64)) {
+    const size_t unit = t.bps / 8;
+    for (size_t i = 0; i + unit <= occ; i += unit) std::reverse(out + i, out + i + unit);
+  }
+  if (predicted && t.predictor == 2) {
+    switch (t.bps) {  // horAcc8 / 16 / 32 / 64
+      case 8: hor_acc<uint8_t>(out, occ, row, stride); break;
+      case 16: hor_acc<uint16_t>(out, occ, row, stride); break;
+      case 32: hor_acc<uint32_t>(out, occ, row, stride); break;
+      default: hor_acc<uint64_t>(out, occ, row, stride); break;
     }
   }
   return true;
@@ -1894,8 +2321,9 @@ bool chunk_at(const Dir& t, uint32_t chunk, uint64_t& off, uint64_t& bc) {
   // reader's header checks pass on; SGILog LogL data of one sample or
   // contiguous LogLuv data ("Inappropriate photometric interpretation"
   // else), which only TIFFRGBAImageBegin's data format reads here; the
-  // horizontal predictor works on 8 or 16 bits (of the sizes decoded
-  // here); any other predictor fails
+  // horizontal predictor works on 8, 16, 32 or 64 bits, the floating-point
+  // one on floats of 16, 24, 32 or 64 bits (PredictorSetup); any other
+  // predictor fails
   switch (t.compression) {
     case 2: case 3: case 4: case 32771:
       return t.bps == 1 && (t.spp == 1 || t.planar == 2);
@@ -1906,8 +2334,10 @@ bool chunk_at(const Dir& t, uint32_t chunk, uint64_t& off, uint64_t& bc) {
                                : t.sgilog == 32845 && t.planar == 1;
     default: break;
   }
+  const bool bytes = t.bps == 16 || t.bps == 32 || t.bps == 64;
   return t.compression == 1 || t.compression == 32773 || t.predictor == 1 ||
-         (t.predictor == 2 && (t.bps == 8 || t.bps == 16));
+         (t.predictor == 2 && (t.bps == 8 || bytes)) ||
+         (t.predictor == 3 && t.sampleformat == 3 && (t.bps == 24 || bytes));
 }
 
 // FillOrder 2 reverses the raw bytes' bits, but for JPEG and CCITT
@@ -2011,6 +2441,204 @@ int jpeg_chunk(JpegCodec& jc, const Dir& t, uint32_t chunk,
   // jpeg_finish_decompress reads on to EOI once every row is out; libtiff
   // counts its failure (CALLJPEG's -1) as success
   if (rows == static_cast<uint64_t>(f.h)) jc.jpeg.finish();
+  return 1;
+}
+
+// ------------------------------------------------- old-style JPEG (6)
+
+// tif_ojpeg.c over one file: one libjpeg session across every strip or
+// tile (its restart interval one strip's or tile's MCUs where there are
+// several), fed the stream the codec writes (SOI, the kept tables, DRI,
+// SOF, SOS, then the data from the scan's start on, an RSTn after each
+// strip or tile but the last, then EOI; data that runs out before the
+// last strip or tile fails), read a strip or tile at a time: raw data of
+// YCbCr in packed sampling blocks (jpeg_read_raw_data: 8 rows of blocks an
+// iMCU row, no upsampling, rows past the frame left as the last), or the
+// scanlines of gray. Once a read fails (a wrong restart marker, data run
+// out) every later read fails too.
+struct Ojpeg {
+  int setup = 0;  // OJPEGPreDecode's first call: 1 passed, -1 failed
+  OjFrame f;
+  uint8_t hor = 1, ver = 1;
+  bool raw = false;
+  OjpegImage img;
+  size_t bpl = 0, lines = 0;  // bytes_per_line, lines_per_strile
+  uint32_t curstrile = 0;     // write_curstrile
+  int64_t read = 0;           // iMCU rows (raw) or scanlines read
+  int64_t cur = 0;            // the iMCU row the raw buffers hold
+  uint32_t state = 0;         // the raw buffers' next row of blocks
+  bool broken = false;
+};
+
+// OJPEGReadHeaderInfo and OJPEGWriteHeaderInfo: false where either fails.
+bool oj_setup(Ojpeg& oj, const Dir& t) {
+  oj.f = oj_frame(t);
+  const OjFrame& f = oj.f;
+  OjHead h;
+  h.hor = t.spp == 1 ? 1 : t.oj_sub[0];
+  h.ver = t.spp == 1 ? 1 : t.oj_sub[1];
+  h.force = t.oj_force;
+  h.restart = t.jpeg_ri;
+  if (t.spp != 1 && t.spp != 3) return false;
+  // separate planes read each plane's own scan (not decoded here)
+  if (f.per_plane != f.spp) return false;
+  if (f.len < t.h) {
+    auto ok = [](int v) { return v == 1 || v == 2 || v == 4; };
+    if (!ok(h.hor) || !ok(h.ver) || f.len % (h.ver * 8)) return false;
+    h.restart = static_cast<uint16_t>((f.w + h.hor * 8 - 1) / (h.hor * 8) *
+                                      (f.len / (h.ver * 8)));
+  }
+  OjIn in(t);
+  if (!oj_read_sec(in, t, f, false, h)) return false;
+  oj.hor = h.hor;
+  oj.ver = h.ver;
+  // the stream libjpeg reads, each marker segment and each of the codec's
+  // reads of the file (2048 bytes of a piece at most) a buffer of its own
+  std::vector<uint8_t> js;
+  std::vector<size_t> bounds;
+  auto put = [&](const std::vector<uint8_t>& seg) {
+    if (seg.empty()) return;
+    js.insert(js.end(), seg.begin(), seg.end());
+    bounds.push_back(js.size());
+  };
+  put({0xFF, 0xD8});
+  for (const auto* tables : {h.qt, h.dc, h.ac})
+    for (int k = 0; k < 4; k++) put(tables[k]);
+  if (h.restart)
+    put({0xFF, 0xDD, 0, 4, static_cast<uint8_t>(h.restart >> 8),
+         static_cast<uint8_t>(h.restart)});
+  std::vector<uint8_t> sof = {0xFF, h.sof_id, 0, static_cast<uint8_t>(8 + 3 * f.per_plane), 8,
+                              static_cast<uint8_t>(h.sof_y >> 8), static_cast<uint8_t>(h.sof_y),
+                              static_cast<uint8_t>(h.sof_x >> 8), static_cast<uint8_t>(h.sof_x),
+                              f.per_plane};
+  std::vector<uint8_t> sos = {0xFF, 0xDA, 0, static_cast<uint8_t>(6 + 2 * f.per_plane),
+                              f.per_plane};
+  for (int k = 0; k < f.per_plane; k++) {
+    sof.insert(sof.end(), {h.sof_c[k], h.sof_hv[k], h.sof_tq[k]});
+    sos.insert(sos.end(), {h.sos_cs[k], h.sos_tda[k]});
+  }
+  sos.insert(sos.end(), {0, 63, 0});
+  put(sof);
+  put(sos);
+  // the data: from the scan's start to the end of its piece, then each
+  // piece whole; the reads of the piece that holds the scan's start keep
+  // the grid of the header's reads where the frame came from the data, and
+  // start at the scan where it came from the tags
+  in.load_all();
+  bool done = false;
+  uint8_t rst = 0;
+  const size_t first = static_cast<size_t>(
+      std::upper_bound(in.ends.begin(), in.ends.end(), h.sos_end) - in.ends.begin());
+  for (size_t j = first; j < in.ends.size() && !done; j++) {
+    const size_t from = j == first ? h.sos_end : in.ends[j - 1];
+    size_t next = j == first && h.buf_end > from ? h.buf_end : from + 2048;
+    for (size_t at = from; at < in.ends[j]; next = at + 2048) {
+      next = std::min(next, in.ends[j]);
+      js.insert(js.end(), in.bytes.begin() + at, in.bytes.begin() + next);
+      bounds.push_back(js.size());
+      at = next;
+    }
+    if (in.strile[j] < 0) continue;
+    if (in.strile[j] + 1 < t.nstrips) {
+      put({0xFF, static_cast<uint8_t>(0xD0 + rst)});
+      rst = (rst + 1) & 7;
+    } else {
+      done = true;  // then EOI for every read
+    }
+  }
+  oj.raw = !t.oj_force && f.per_plane > 1;
+  if (ojpeg_decode(js.data(), js.size(), bounds, !done, oj.raw, oj.img) < 0)
+    return false;
+  // jpeg_start_decompress's frame against the codec's
+  if (oj.img.w != static_cast<int>(f.w) || oj.img.maxh != oj.hor ||
+      oj.img.maxv != oj.ver)
+    return false;
+  if (oj.raw) {
+    const size_t blocks = (f.w + oj.hor - 1) / oj.hor;
+    oj.bpl = blocks * (oj.hor * oj.ver + 2);
+    oj.lines = (f.len + oj.ver - 1) / oj.ver;
+  } else {
+    oj.bpl = size_t{f.per_plane} * f.w;
+    oj.lines = f.len;
+  }
+  return true;
+}
+
+// One iMCU row of raw data into the buffers, or one scanline into `line`
+// (a read past the frame leaves them as they were): false where the
+// session has failed.
+bool oj_next(Ojpeg& oj, uint8_t* line) {
+  const int64_t k = oj.read++;
+  const int64_t rows = oj.raw ? oj.img.imcu_rows : oj.img.h;
+  const int64_t fail = oj.img.fail_row < 0 ? INT64_MAX
+                       : oj.raw ? oj.img.fail_row
+                                : int64_t{oj.img.fail_row} * oj.img.maxv * 8;
+  if (oj.broken || (k >= fail && k < rows)) {
+    oj.broken = true;
+    return false;
+  }
+  if (k >= rows) return true;
+  if (oj.raw) {
+    oj.cur = k;
+  } else if (line) {
+    std::memcpy(line, &oj.img.planes[0][static_cast<size_t>(k) * oj.img.stride], oj.img.stride);
+  }
+  return true;
+}
+
+// One row of packed YCbCr blocks from the raw buffers (OJPEGDecodeRaw).
+void oj_block_row(const Ojpeg& oj, uint8_t* out) {
+  const OjpegImage& m = oj.img;
+  const size_t yrow = (static_cast<size_t>(oj.cur) * 8 + oj.state) * oj.ver;
+  const size_t crow = static_cast<size_t>(oj.cur) * 8 + oj.state;
+  const size_t blocks = (oj.f.w + oj.hor - 1) / oj.hor;
+  for (size_t q = 0; q < blocks; q++) {
+    for (int sy = 0; sy < oj.ver; sy++)
+      for (int sx = 0; sx < oj.hor; sx++)
+        *out++ = m.planes[0][(yrow + sy) * m.widths[0] + q * oj.hor + sx];
+    *out++ = m.planes[1][crow * m.widths[1] + q];
+    *out++ = m.planes[2][crow * m.widths[2] + q];
+  }
+}
+
+// TIFFReadEncodedStrip / TIFFReadTile of chunk `chunk`, `occ` bytes, into
+// `out`: -1 where OJPEGPreDecode fails (the header, libjpeg's start, or
+// reading on to this chunk after a failed one), 0 where OJPEGDecode fails
+// (the rows it wrote before kept), else 1.
+int ojpeg_chunk(Ojpeg& oj, const Dir& t, uint32_t chunk, uint8_t* out, size_t occ) {
+  if (!oj.setup) oj.setup = oj_setup(oj, t) ? 1 : -1;
+  if (oj.setup < 0) return -1;
+  if (chunk < oj.curstrile) {  // a new session, from the first chunk
+    oj.curstrile = 0;
+    oj.read = oj.cur = 0;
+    oj.broken = false;
+  }
+  oj.state = 0;
+  for (; oj.curstrile < chunk; oj.curstrile++) {  // skipped
+    if (!oj.raw) {
+      for (size_t k = 0; k < oj.lines; k++)
+        if (!oj_next(oj, nullptr)) return -1;
+      continue;
+    }
+    size_t m = oj.lines;
+    for (; m >= 8; m -= 8)
+      if (!oj_next(oj, nullptr)) return -1;
+    if (m > 0) {
+      if (!oj_next(oj, nullptr)) return -1;
+      oj.state = static_cast<uint32_t>(m);
+    }
+  }
+  if (!occ || occ % oj.bpl || oj.broken) return 0;  // "Fractional scanline"
+  for (size_t at = 0; at < occ; at += oj.bpl) {
+    if (!oj.raw) {
+      if (!oj_next(oj, out + at)) return 0;
+      continue;
+    }
+    if (oj.state == 0 && !oj_next(oj, nullptr)) return 0;
+    oj_block_row(oj, out + at);
+    oj.state = (oj.state + 1) % 8;
+  }
+  oj.curstrile++;  // OJPEGPostDecode
   return 1;
 }
 
@@ -2157,6 +2785,7 @@ struct Rgba {
   uint64_t rawdatasize = 0;  // tif_rawdatasize, for uncompressed tiles
   bool two_pass = true;      // OpenCV's reads: checked, then decoded
   JpegCodec jpeg;
+  Ojpeg ojpeg;
   // each JPEG chunk as the checking pass decoded it, for the decoding pass
   struct Chunk {
     int st;
@@ -2414,6 +3043,8 @@ int read_chunk(Rgba& g, uint32_t chunk, bool first, uint8_t* buf,
     return true;
   };
   std::vector<uint8_t> raw;
+  if (t.compression == 6)  // the codec reads the file itself
+    return ojpeg_chunk(g.ojpeg, t, chunk, buf, occ) < 0 ? -1 : 0;
   if (t.compression == 7) {
     Rgba::Chunk c{-1, {}};
     if (fill()) {
@@ -2927,12 +3558,12 @@ const std::vector<OpenInfo>& open_info() {
   return table;
 }
 
-// The modes the port decodes (Pillow's "I" and "F", and "LAB", whose
-// convert("RGB") is LittleCMS's transform, are TIFF part 2c).
+// The modes the port decodes (not "LAB", whose convert("RGB") is
+// LittleCMS's transform).
 bool decoded_mode(const std::string& mode) {
   return mode == "1" || mode == "L" || mode == "LA" || mode == "P" ||
-         mode == "PA" || mode == "I;16" || mode == "I;16B" || mode == "RGB" ||
-         mode == "RGBA" || mode == "CMYK";
+         mode == "PA" || mode == "I;16" || mode == "I;16B" || mode == "I" ||
+         mode == "F" || mode == "RGB" || mode == "RGBA" || mode == "CMYK";
 }
 
 // The bits a pixel of one of Pillow's unpackers (rawmodes) reads, or 0
@@ -2943,6 +3574,8 @@ int raw_bits(const std::string& mode, const std::string& raw) {
       {"L;2R", 2}, {"L;2IR", 2}, {"L;4", 4}, {"L;4I", 4}, {"L;4R", 4},
       {"L;4IR", 4}, {"L", 8}, {"L;I", 8}, {"L;R", 8}, {"LA", 16},
       {"I;16", 16}, {"I;16B", 16}, {"I;16R", 16}, {"I;16N", 16},
+      {"I;12", 12}, {"I;16S", 16}, {"I;16BS", 16}, {"I;32N", 32},
+      {"I;32S", 32}, {"I;32BS", 32}, {"F;32F", 32}, {"F;32BF", 32},
       {"P;1", 1}, {"P;2", 2}, {"P;4", 4}, {"P", 8}, {"P;R", 8}, {"PX", 16},
       {"PA", 16}, {"RGB", 24}, {"RGB;R", 24}, {"RGBX", 32}, {"RGBXX", 40},
       {"RGBXXX", 48}, {"RGBA", 32}, {"RGBAX", 40}, {"RGBAXX", 48},
@@ -2975,9 +3608,11 @@ int raw_bits(const std::string& mode, const std::string& raw) {
 }
 
 // A pixel of Pillow's image in the mode: bands 0-3 (an I;16 value in band
-// 0, a palette index in band 0).
+// 0, a palette index in band 0), or the value of an "I" or "F" pixel.
 struct Px {
   uint16_t v[4] = {0, 0, 0, 0};
+  int32_t i = 0;
+  float f = 0.0f;
 };
 
 uint8_t unpremul(unsigned c, unsigned a) {
@@ -3016,6 +3651,32 @@ void unpack(const std::string& raw, const uint8_t* in, size_t n, Px* px) {
       if (raw != "PX") px[x].v[3] = in[2 * x + 1];
     }
     return;
+  }
+  if (raw == "I;12") {  // unpackI12_I16: pairs of 12-bit values in 3 bytes
+    for (size_t x = 0; x < n; x++) {
+      const uint8_t* q = in + x / 2 * 3;
+      px[x].v[0] = static_cast<uint16_t>(x % 2 ? (q[1] & 15) << 8 | q[2]
+                                               : q[0] << 4 | q[1] >> 4);
+    }
+    return;
+  }
+  if (raw[0] == 'I' || raw[0] == 'F') {
+    // "I" and "F": 16-bit signed, 32-bit integer (I;32N unsigned, read as
+    // a signed INT32) or float, in either byte order
+    const bool be = raw.find('B') != std::string::npos;
+    const size_t unit = raw.find(";32") != std::string::npos ? 4 : 2;
+    if (unit == 4 || raw.back() == 'S') {
+      for (size_t x = 0; x < n; x++) {
+        const uint8_t* q = in + unit * x;
+        uint32_t u = 0;
+        for (size_t k = 0; k < unit; k++) u |= uint32_t{q[be ? unit - 1 - k : k]} << (8 * k);
+        if (raw[0] == 'F')
+          std::memcpy(&px[x].f, &u, 4);
+        else
+          px[x].i = unit == 4 ? static_cast<int32_t>(u) : static_cast<int16_t>(u);
+      }
+      return;
+    }
   }
   if (raw.rfind("I;16", 0) == 0) {
     for (size_t x = 0; x < n; x++) {
@@ -3080,6 +3741,11 @@ void to_rgb(const std::string& mode, const Px& px, const std::vector<uint8_t>& p
       const int tmp = px.v[k] * nk + 128;
       o[k] = static_cast<uint8_t>(std::clamp(nk - (((tmp >> 8) + tmp) >> 8), 0, 255));
     }
+  } else if (mode == "I") {  // clipped
+    o[0] = o[1] = o[2] = static_cast<uint8_t>(std::clamp(px.i, 0, 255));
+  } else if (mode == "F") {  // clipped, truncated; NaN gives 0
+    const float f = px.f;
+    o[0] = o[1] = o[2] = !(f > 0.0f) ? 0 : f >= 255.0f ? 255 : static_cast<uint8_t>(f);
   } else {  // 1, L, LA, I;16 (clipped)
     o[0] = o[1] = o[2] = static_cast<uint8_t>(std::min<unsigned>(px.v[0], 255));
   }
@@ -3101,6 +3767,9 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     if (std::find(std::begin(known), std::end(known), comp) ==
         std::end(known))
       return kUnreadable;
+    // WebP: Pillow's libtiff has no codec for it, so every strip and tile
+    // fails to decode ("WEBP compression support is not configured")
+    if (comp == 50001) return kUnreadable;
   }
   int64_t planar = 1, photo = 0, fillorder = 1, w, h, orientation = 0;
   const PilTag* tp;
@@ -3167,10 +3836,10 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
         (t.compression == comp && (comp != 32809 || t.bps != 4)))
       return kUnreadable;
   }
-  if (!decoded_mode(mode) || std::string(info->raw) == "I;12") return kTiff;
+  if (!decoded_mode(mode)) return kTiff;
   const bool raw = comp == 1;
-  if (!raw && !part1_compression(static_cast<int>(comp)) && comp != 7 &&
-      !fax_codec(static_cast<int>(comp)) && comp != 32809)
+  if (!raw && !part1_compression(static_cast<int>(comp)) && comp != 6 &&
+      comp != 7 && !fax_codec(static_cast<int>(comp)) && comp != 32809)
     return kTiff;
   const int bps_count = (photo == 2 || photo == 6 || photo == 8 ? 3 : photo == 5 ? 4 : 1) +
                         static_cast<int>(extra.size());
@@ -3339,9 +4008,10 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     // order: libtiff reverses them for FillOrder 2)
     Dir t;
     t.src = src;
+    t.ojpeg = true;
     if (!read_dir(t) || t.w != w || t.h != h ||
-        !(part1_compression(t.compression) || t.compression == 7 ||
-          fax_codec(t.compression) || t.compression == 32809))
+        !(part1_compression(t.compression) || t.compression == 6 ||
+          t.compression == 7 || fax_codec(t.compression) || t.compression == 32809))
       return kUnreadable;
     if (t.photometric == 6 && !(t.compression == 7 && t.planar == 1)) {
       // _decodeAsRGBA: libtiff's RGBA reader, a strip or a row of tiles at
@@ -3392,6 +4062,7 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     std::vector<uint8_t> buf, raw_bytes;
     const bool compat = lzw_compat(t);
     FaxCodec fax;  // the fax codec's state, kept from chunk to chunk
+    Ojpeg ojpeg;
     // TIFFReadEncodedStrip / TIFFReadTile: the chunk whole, or an error
     // (zeros past the chunk: an unpacker that reads more bytes a row than
     // libtiff's row holds reads on into them)
@@ -3399,6 +4070,10 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
     JpegCodec jpeg;
     // a chunk, of which Pillow unpacks `cols` x `rows` pixels
     auto read = [&](uint32_t chunk, size_t size, int64_t cols, int64_t rows) {
+      if (t.compression == 6) {  // the codec reads the file itself
+        buf.assign(size + pad, 0);
+        return ojpeg_chunk(ojpeg, t, chunk, buf.data(), size) == 1;
+      }
       if (!chunk_bytes(t, chunk, raw_bytes)) return false;
       buf.assign(size + pad, 0);
       // Pillow's strip or tile buffer is not zeroed: where a JPEG frame
