@@ -184,14 +184,16 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    PIL resize backend, which runs the host path as the reference does)
    and ``evaluate_directory`` over the readable files with phase 3's
    models. A ``jpeg_features:`` JSON line.
-13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM and Radiance HDR files
-   cv2 reads and the port once refused, and the damaged ones cv2 gives
-   None for (``image_formats_phase``), from the committed fixtures
-   (``tests/data/images``): each decoded equal to ``expected.npz`` (cv2's
-   pixels, or PIL's for the damaged files and the gray PFM PIL reads) and
-   probed as cv2 reads it, the rest raising (AVIF, TIFF and WebP data
-   named); host decode rates by format, GIF, Sun raster, PFM and HDR among
-   them; the whole-file probe of
+13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR, TIFF
+   and lossless WebP files cv2 reads and the port once refused, and the
+   damaged ones cv2 gives None for (``image_formats_phase``), from the
+   committed fixtures (``tests/data/images``, ``tests/data/webp``): each
+   decoded equal to its ``expected.npz`` (cv2's pixels, or PIL's for the
+   damaged files, the gray PFM and the 28-byte WebP PIL reads) and probed
+   as cv2 reads it, the rest raising (AVIF, TIFF and lossy WebP data
+   named); a 640 x 480 VP8L file built at run time (``webp_built``)
+   decoded equal to its source; host decode rates by format, GIF, Sun
+   raster, PFM, HDR and WebP among them; the whole-file probe of
    generate_tree's skip rule timed on phase 5's .ppm and phase 11's .png
    trees; ``generate_tree`` on the fixtures plus the skip files for blur,
    compound and blur_rand (launch counts zeroed just before and read just
@@ -383,7 +385,7 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                                     "tiff_unknown", "tiff_cielab"),
                 "tiff_ccitt": ("tiff_group4", "tiff_ccitt"),
                 "tiff_thunder_sgilog": ("tiff_2c_",),
-                "tiff_modes": ("tiff_modes_",)}
+                "tiff_modes": ("tiff_modes_",), "webp": ("webp_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -464,9 +466,18 @@ TIFF_MODES_DIGESTS = {
 # fax_code's T.6 and T.4 coder
 FAX_PAGE = (2292, 1728)
 FAX_K = 4
+# and WebP (tests/data/webp, make_fixtures.py): lossless files cv2 reads
+# at the top (decoded__ in its expected.npz), those it gives None for under
+# skip/, a 28-byte one PIL reads among them; and a VP8L file built at run
+# time by vp8l_bytes (webp_built) of this RGB size from its seed, decoded
+# this many times a timed pass
+WEBP_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "webp"
+WEBP_BUILT_SIZE = (480, 640)
+WEBP_BUILT_SEED = 22
+WEBP_BUILT_DECODES = 20
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
-                "tiff": ("tiff",)}
+                "tiff": ("tiff",), "webp": ("webp_",)}
 # C9 and C10 in phase 13: a PNG past the old 64 Mpx cap, and headers whose
 # size makes cv2.imread raise (built at run time from zlib and struct)
 BIG_PNG_SIDE = 8200
@@ -4528,6 +4539,578 @@ def fp_predictor_bytes(block):
     return (d & 255).astype(np.uint8).tobytes()
 
 
+# the WebP lossless distance map: (dx, dy) of distance codes 1-120
+VP8L_PLANE = (
+    (0, 1), (1, 0), (1, 1), (-1, 1), (0, 2), (2, 0), (1, 2), (-1, 2),
+    (2, 1), (-2, 1), (2, 2), (-2, 2), (0, 3), (3, 0), (1, 3), (-1, 3),
+    (3, 1), (-3, 1), (2, 3), (-2, 3), (3, 2), (-3, 2), (0, 4), (4, 0),
+    (1, 4), (-1, 4), (4, 1), (-4, 1), (3, 3), (-3, 3), (2, 4), (-2, 4),
+    (4, 2), (-4, 2), (0, 5), (3, 4), (-3, 4), (4, 3), (-4, 3), (5, 0),
+    (1, 5), (-1, 5), (5, 1), (-5, 1), (2, 5), (-2, 5), (5, 2), (-5, 2),
+    (4, 4), (-4, 4), (3, 5), (-3, 5), (5, 3), (-5, 3), (0, 6), (6, 0),
+    (1, 6), (-1, 6), (6, 1), (-6, 1), (2, 6), (-2, 6), (6, 2), (-6, 2),
+    (4, 5), (-4, 5), (5, 4), (-5, 4), (3, 6), (-3, 6), (6, 3), (-6, 3),
+    (0, 7), (7, 0), (1, 7), (-1, 7), (5, 5), (-5, 5), (7, 1), (-7, 1),
+    (4, 6), (-4, 6), (6, 4), (-6, 4), (2, 7), (-2, 7), (7, 2), (-7, 2),
+    (3, 7), (-3, 7), (7, 3), (-7, 3), (5, 6), (-5, 6), (6, 5), (-6, 5),
+    (8, 0), (4, 7), (-4, 7), (7, 4), (-7, 4), (8, 1), (8, 2), (6, 6),
+    (-6, 6), (8, 3), (5, 7), (-5, 7), (7, 5), (-7, 5), (8, 4), (6, 7),
+    (-6, 7), (7, 6), (-7, 6), (8, 5), (7, 7), (-7, 7), (8, 6), (8, 7))
+VP8L_CODE_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12,
+                   13, 14, 15)
+
+
+def vp8l_code_lengths(freq, limit):
+    """Lengths of a complete prefix code over the symbols of ``freq`` (a
+    list of counts) that occur, none over ``limit`` bits (Huffman's, its
+    counts halved until it fits); one symbol gets length 1."""
+    import heapq
+    used = [s for s, f in enumerate(freq) if f]
+    lens = [0] * len(freq)
+    if len(used) == 1:
+        lens[used[0]] = 1
+        return lens
+    weights = {s: freq[s] for s in used}
+    while True:
+        heap = [(w, i, (s,)) for i, (s, w) in enumerate(weights.items())]
+        heapq.heapify(heap)
+        depth = dict.fromkeys(used, 0)
+        tie = len(heap)
+        while len(heap) > 1:
+            w1, _, a = heapq.heappop(heap)
+            w2, _, b = heapq.heappop(heap)
+            for s in a + b:
+                depth[s] += 1
+            heapq.heappush(heap, (w1 + w2, tie, a + b))
+            tie += 1
+        if max(depth.values()) <= limit:
+            break
+        weights = {s: (w >> 1) | 1 for s, w in weights.items()}
+    for s, d in depth.items():
+        lens[s] = d
+    return lens
+
+
+def vp8l_canonical(lens):
+    """{symbol: (code, length)} of the canonical code of ``lens``, each code
+    bit-reversed, as a least-significant-bit-first writer puts it down."""
+    out, code, prev = {}, 0, 0
+    for length, s in sorted((l, s) for s, l in enumerate(lens) if l):
+        code <<= length - prev
+        prev = length
+        out[s] = (int(f"{code:0{length}b}"[::-1], 2), length)
+        code += 1
+    return out
+
+
+class VP8LBits:
+    """Values and their widths, least significant bit first."""
+
+    def __init__(self):
+        self.vals, self.widths = [], []
+
+    def put(self, value, width):
+        if width:
+            self.vals.append(int(value))
+            self.widths.append(int(width))
+
+    def put_many(self, values, widths):
+        import numpy as np
+        keep = np.asarray(widths) > 0
+        self.vals.extend(np.asarray(values)[keep].tolist())
+        self.widths.extend(np.asarray(widths)[keep].tolist())
+
+    def tobytes(self):
+        import numpy as np
+        vals = np.asarray(self.vals, np.uint64)
+        widths = np.asarray(self.widths, np.int64)
+        starts = np.cumsum(widths) - widths
+        bits = np.zeros(int(widths.sum()), np.uint8)
+        for lo in range(0, len(widths), 1 << 20):  # a million values a pass
+            w = widths[lo:lo + (1 << 20)]
+            at = np.repeat(starts[lo:lo + len(w)], w)
+            k = np.arange(len(at)) - np.repeat(np.cumsum(w) - w, w)
+            bits[at + k] = (np.repeat(vals[lo:lo + len(w)], w)
+                            >> k.astype(np.uint64)) & 1
+        return np.packbits(bits, bitorder="little").tobytes()
+
+
+def vp8l_prefix(v):
+    """(prefix symbol, extra bits, extra value) of a length or distance
+    code ``v`` >= 1."""
+    v -= 1
+    if v < 4:
+        return v, 0, 0
+    h = v.bit_length() - 1
+    second = (v >> (h - 1)) & 1
+    return 2 * h + second, h - 1, v & ((1 << (h - 1)) - 1)
+
+
+def vp8l_length_tokens(lens, last):
+    """Code lengths 0..``last`` as code-length symbols (symbol, extra bits,
+    extra value): literal lengths, 16 (the last nonzero length, at first
+    8, again 3-6 times), 17 (3-10 zeros) and 18 (11-138 zeros)."""
+    tokens, i, prev = [], 0, 8
+    while i <= last:
+        v, run = lens[i], 1
+        while i + run <= last and lens[i + run] == v:
+            run += 1
+        i += run
+        if v == 0:
+            while run >= 11:
+                k = min(run, 138)
+                tokens.append((18, 7, k - 11))
+                run -= k
+            if run >= 3:
+                tokens.append((17, 3, run - 3))
+                run = 0
+            tokens += [(0, 0, 0)] * run
+            continue
+        if v != prev:
+            tokens.append((v, 0, 0))
+            prev = v
+            run -= 1
+        while run >= 3:
+            k = min(run, 6)
+            tokens.append((16, 2, k - 3))
+            run -= k
+        tokens += [(v, 0, 0)] * run
+    return tokens
+
+
+def vp8l_write_code(bw, freq, simple=True, max_symbol=False, lens=None):
+    """A prefix code for the counts ``freq`` (its alphabet their length):
+    a simple code where one or two symbols below 256 occur (and
+    ``simple``), else a normal code of Huffman lengths under a code-length
+    code (its repeat codes 16, 17 and 18 where runs allow, ``max_symbol``
+    writes the number of code-length symbols read). Returns {symbol:
+    (code, length)}; an alphabet nothing uses gets symbol 0. ``lens``, where
+    given, are written as they are, valid or not."""
+    used = [s for s, f in enumerate(freq) if f]
+    if not used:
+        freq = [1] + list(freq[1:])
+        used = [0]
+    if lens is not None:
+        used = [s for s, n in enumerate(lens) if n] or [0]
+        simple = False
+    if simple and len(used) <= 2 and max(used) < 256:
+        bw.put(1, 1)
+        bw.put(len(used) - 1, 1)
+        if used[0] < 2:
+            bw.put(0, 1)
+            bw.put(used[0], 1)
+        else:
+            bw.put(1, 1)
+            bw.put(used[0], 8)
+        if len(used) == 2:
+            bw.put(used[1], 8)
+        if len(used) == 1:
+            return {used[0]: (0, 0)}
+        return {used[0]: (0, 1), used[1]: (1, 1)}
+    if lens is None:
+        lens = vp8l_code_lengths(freq, 15)
+    if len(used) == 1:
+        codes = {used[0]: (0, 0)}
+    else:
+        codes = vp8l_canonical(lens)
+    tokens = vp8l_length_tokens(lens, max(used) if max_symbol
+                                else len(lens) - 1)
+    if len(tokens) < 2:
+        max_symbol = False
+        tokens = vp8l_length_tokens(lens, len(lens) - 1)
+    cl_freq = [0] * 19
+    for s, _, _ in tokens:
+        cl_freq[s] += 1
+    cl_lens = vp8l_code_lengths(cl_freq, 7)
+    cl_codes = ({s: (0, 0) for s in range(19) if cl_freq[s]}
+                if sum(1 for f in cl_freq if f) == 1
+                else vp8l_canonical(cl_lens))
+    n = max(4, max(k + 1 for k, s in enumerate(VP8L_CODE_ORDER)
+                   if cl_lens[s]))
+    bw.put(0, 1)
+    bw.put(n - 4, 4)
+    for s in VP8L_CODE_ORDER[:n]:
+        bw.put(cl_lens[s], 3)
+    if max_symbol:
+        k = 0
+        while len(tokens) - 2 >= 1 << (2 + 2 * k):
+            k += 1
+        bw.put(1, 1)
+        bw.put(k, 3)
+        bw.put(len(tokens) - 2, 2 + 2 * k)
+    else:
+        bw.put(0, 1)
+    for s, nbits, extra in tokens:
+        bw.put(*cl_codes[s])
+        bw.put(extra, nbits)
+    return codes
+
+
+def vp8l_tokens(argb, w, cache_bits, lz77, dist_mode):
+    """The pixels ``argb`` (uint32, row-major, ``w`` wide) as literals,
+    backward references (greedy, the longest among the distance map's
+    distances and a few others, 3 to 4096 pixels, overlapping where the
+    distance is shorter) and colour cache hits: a list of ("lit", argb) /
+    ("copy", length, distance code) / ("cache", key), each with the pixel
+    index it starts at."""
+    import numpy as np
+    n = len(argb)
+    best_len = np.zeros(n, np.int64)
+    best_code = np.zeros(n, np.int64)
+    if lz77 and n > 3:
+        cands = {}
+        if dist_mode in ("map", "both"):
+            for c, (dx, dy) in enumerate(VP8L_PLANE, 1):
+                d = max(dx + dy * w, 1)
+                cands.setdefault(d, c)
+        if dist_mode in ("plain", "both"):
+            for d in (1, 2, 3, w, w + 1, 2 * w, 3 * w + 2, 7, 64):
+                if dist_mode == "plain" or d not in cands:
+                    cands[d] = d + 120
+        idx = np.arange(n)
+        for d, code in sorted(cands.items()):
+            if d >= n:
+                continue
+            match = np.zeros(n + 1, bool)
+            match[d:n] = argb[d:] == argb[:-d]
+            fail = np.where(~match, np.arange(n + 1), n + 1)
+            nxt = np.minimum.accumulate(fail[::-1])[::-1][:n]
+            run = np.minimum(nxt - idx, 4096)
+            better = run > best_len
+            best_len[better] = run[better]
+            best_code[better] = code
+    if cache_bits:
+        hashes = ((argb.astype(np.uint64) * 0x1e35a7bd) & 0xffffffff) >> (
+            32 - cache_bits)
+        hashes = hashes.astype(np.int64).tolist()
+        cache = [0] * (1 << cache_bits)
+    px = argb.tolist()
+    bl, bc = best_len.tolist(), best_code.tolist()
+    out, i, cached = [], 0, 0
+    while i < n:
+        if cache_bits:
+            for k in range(cached, i):
+                cache[hashes[k]] = px[k]
+            cached = i
+        if bl[i] >= 3:
+            out.append(("copy", i, min(bl[i], n - i), bc[i]))
+            i += out[-1][2]
+        elif cache_bits and cache[hashes[i]] == px[i]:
+            out.append(("cache", i, hashes[i]))
+            i += 1
+        else:
+            out.append(("lit", i, px[i]))
+            i += 1
+    return out
+
+
+def vp8l_image(bw, argb, w, h, level0, cache_bits=0, meta_bits=0,
+                meta_groups=1, lz77=True, dist_mode="map", simple=True,
+                max_symbol=False, tokens=None, code_lens=None):
+    """One VP8L image stream of ``argb`` (uint32 [h * w]): the colour cache
+    bit, the meta bit and entropy image (``level0`` only; block (by, bx)
+    of 2^meta_bits pixels takes group 3 x ((by x blocks + bx) mod
+    meta_groups), so groups between go unused), five prefix codes a group,
+    then the coded pixels: ``tokens`` ([("lit", argb) or ("copy", length,
+    distance code)]) in place of the matcher's, ``code_lens`` ({code:
+    lengths}) in place of group 0's Huffman lengths."""
+    import numpy as np
+    if cache_bits:
+        bw.put(1, 1)
+        bw.put(cache_bits, 4)
+    else:
+        bw.put(0, 1)
+    group_of = None
+    if level0:
+        if meta_bits:
+            bw.put(1, 1)
+            bw.put(meta_bits - 2, 3)
+            mw = -(-w // (1 << meta_bits))
+            mh = -(-h // (1 << meta_bits))
+            block = np.arange(mw * mh) % meta_groups * 3
+            vp8l_image(bw, (0xff000000 | (block >> 8) << 16
+                             | (block & 0xff) << 8).astype(np.uint32),
+                        mw, mh, False)
+            group_of = block.reshape(mh, mw)
+        else:
+            bw.put(0, 1)
+    if tokens is None:
+        tokens = vp8l_tokens(np.asarray(argb, np.uint32), w, cache_bits,
+                             lz77, dist_mode)
+    else:
+        placed, i = [], 0
+        for t in tokens:
+            placed.append((t[0], i) + tuple(t[1:]))
+            i += t[1] if t[0] == "copy" else 1
+        tokens = placed
+    n_groups = int(group_of.max()) + 1 if group_of is not None else 1
+    alphabet = (280 + ((1 << cache_bits) if cache_bits else 0), 256, 256,
+                256, 40)
+    hist = [[[0] * a for a in alphabet] for _ in range(n_groups)]
+    coded = []
+    for t in tokens:
+        i = t[1]
+        g = int(group_of[(i // w) >> meta_bits, (i % w) >> meta_bits]) if (
+            group_of is not None) else 0
+        hg = hist[g]
+        if t[0] == "lit":
+            p = t[2]
+            syms = ((p >> 8) & 0xff, (p >> 16) & 0xff, p & 0xff, p >> 24)
+            for j, s in enumerate(syms):
+                hg[j][s] += 1
+            coded.append((g, "lit", syms))
+        elif t[0] == "copy":
+            ls, lb, lv = vp8l_prefix(t[2])
+            ds, db, dv = vp8l_prefix(t[3])
+            hg[0][256 + ls] += 1
+            hg[4][ds] += 1
+            coded.append((g, "copy", (ls, lb, lv, ds, db, dv)))
+        else:
+            hg[0][280 + t[2]] += 1
+            coded.append((g, "cache", 280 + t[2]))
+    code_lens = code_lens or {}
+    codes = [[vp8l_write_code(bw, hist[g][j], simple, max_symbol,
+                              code_lens.get(j) if g == 0 else None)
+              for j in range(5)] for g in range(n_groups)]
+    vals, widths = [], []
+    for g, kind, v in coded:
+        c = codes[g]
+        if kind == "lit":
+            for j, s in zip((0, 1, 2, 3), v):
+                code, length = c[j][s]
+                vals.append(code)
+                widths.append(length)
+        elif kind == "copy":
+            ls, lb, lv, ds, db, dv = v
+            for code, length in (c[0][256 + ls], (lv, lb), c[4][ds], (dv, db)):
+                vals.append(code)
+                widths.append(length)
+        else:
+            code, length = c[0][v]
+            vals.append(code)
+            widths.append(length)
+    bw.put_many(vals, widths)
+
+
+def vp8l_argb(img):
+    import numpy as np
+    img = np.asarray(img, np.uint8)
+    if img.shape[2] == 3:
+        img = np.concatenate([img, np.full(img.shape[:2] + (1,), 255,
+                                           np.uint8)], 2)
+    a, r, g, b = (img[..., k].astype(np.uint32) for k in (3, 0, 1, 2))
+    return a << 24 | r << 16 | g << 8 | b
+
+
+def vp8l_bytes_of(argb):
+    """[..., 4] uint8 (B, G, R, A) of uint32 ARGB."""
+    import numpy as np
+    return np.ascontiguousarray(argb, np.uint32).view(np.uint8).reshape(
+        argb.shape + (4,))
+
+
+def vp8l_predict(mode, left, top, topright, topleft):
+    """lossless.c's predictor ``mode`` on [..., 4] int arrays (14, 15 and
+    0: opaque black)."""
+    import numpy as np
+    avg = lambda a, b: (a + b) >> 1  # noqa: E731
+    clip = lambda v: np.clip(v, 0, 255)  # noqa: E731
+    if mode == 1:
+        return left
+    if mode == 2:
+        return top
+    if mode == 3:
+        return topright
+    if mode == 4:
+        return topleft
+    if mode == 5:
+        return avg(avg(left, topright), top)
+    if mode == 6:
+        return avg(left, topleft)
+    if mode == 7:
+        return avg(left, top)
+    if mode == 8:
+        return avg(topleft, top)
+    if mode == 9:
+        return avg(top, topright)
+    if mode == 10:
+        return avg(avg(left, topleft), avg(top, topright))
+    if mode == 11:
+        pa = (np.abs(left - topleft) - np.abs(top - topleft)).sum(
+            -1, keepdims=True)
+        return np.where(pa <= 0, top, left)
+    if mode == 12:
+        return clip(left + top - topleft)
+    if mode == 13:
+        a = avg(left, top)
+        return clip(a + np.trunc((a - topleft) / 2).astype(a.dtype))
+    out = np.zeros_like(left)
+    out[..., 3] = 255
+    return out
+
+
+def vp8l_delta(pred, color):
+    import numpy as np
+    return (pred.astype(np.int64) * color.astype(np.int64)) >> 5
+
+
+def vp8l_bytes(img, transforms=(), cache_bits=0, meta_bits=0, meta_groups=2,
+               lz77=True, dist_mode="map", simple=True, max_symbol=False,
+               sub_cache_bits=0, tokens=None, code_lens=None):
+    """A WebP lossless (VP8L) bitstream of ``img`` (uint8 [h, w, 3] RGB or
+    [h, w, 4] RGBA), with the features asked for; it need not compress
+    well. ``transforms``, in the order written (each once): ("green",)
+    subtract-green; ("predictor", bits, modes) with ``modes`` an int array
+    of one mode (0-15) a 2^bits block; ("cross", bits, multipliers) with
+    ``multipliers`` an int array [blocks_y, blocks_x, 3] of int8
+    green-to-red, green-to-blue and red-to-blue; ("palette",) colour
+    indexing over the image's colours (256 at most), 1, 2, 4 or 8 pixels a
+    byte by their count. ``cache_bits`` (1-11) a colour cache on the main
+    image, ``sub_cache_bits`` one on each sub-image; ``meta_bits`` (2-9)
+    meta prefix codes, ``meta_groups`` of them; ``lz77`` backward
+    references, by the distance map's codes ("map"), plain distances
+    ("plain") or both; ``simple`` simple codes where one or two symbols
+    below 256 occur; ``max_symbol`` the code-length count written;
+    ``tokens`` and ``code_lens`` the main image's own (vp8l_image), to
+    write damaged streams."""
+    import numpy as np
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    argb = vp8l_argb(img)
+    bw = VP8LBits()
+    bw.put(0x2f, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(int((argb >> 24 != 255).any()), 1)  # the alpha hint
+    bw.put(0, 3)
+    sub = dict(cache_bits=sub_cache_bits, lz77=lz77, dist_mode=dist_mode,
+               simple=simple, max_symbol=max_symbol)
+    cur = argb
+    for t in transforms:
+        cw = cur.shape[1]
+        bw.put(1, 1)
+        if t[0] == "green":
+            bw.put(2, 2)
+            px = vp8l_bytes_of(cur).copy()
+            px[..., 0] -= px[..., 1]
+            px[..., 2] -= px[..., 1]
+            cur = px.view(np.uint32)[..., 0]
+        elif t[0] == "predictor":
+            _, bits, modes = t
+            modes = np.asarray(modes, np.int64)
+            bw.put(0, 2)
+            bw.put(bits - 2, 3)
+            vp8l_image(bw, (0xff000000 | modes.ravel() << 8).astype(
+                np.uint32), modes.shape[1], modes.shape[0], False, **sub)
+            p = vp8l_bytes_of(cur).astype(np.int64)
+            hh, ww = p.shape[:2]
+            left = np.zeros_like(p)
+            left[:, 1:] = p[:, :-1]
+            top = np.zeros_like(p)
+            top[1:] = p[:-1]
+            topleft = np.zeros_like(p)
+            topleft[1:, 1:] = p[:-1, :-1]
+            topright = np.zeros_like(p)
+            topright[1:, :-1] = p[:-1, 1:]
+            topright[1:, -1] = p[1:, 0]
+            pix_mode = np.repeat(np.repeat(modes, 1 << bits, 0), 1 << bits,
+                                 1)[:hh, :ww]
+            pred = np.zeros_like(p)
+            for m in np.unique(pix_mode):
+                sel = pix_mode == m
+                pred[sel] = vp8l_predict(int(m), left, top, topright,
+                                     topleft)[sel]
+            pred[1:, 0] = p[:-1, 0]
+            pred[0, 1:] = p[0, :-1]
+            pred[0, 0] = (0, 0, 0, 255)
+            cur = ((p - pred) & 255).astype(np.uint8).view(np.uint32)[..., 0]
+        elif t[0] == "cross":
+            _, bits, mult = t
+            mult = np.asarray(mult, np.int64)
+            bw.put(1, 2)
+            bw.put(bits - 2, 3)
+            g2r, g2b, r2b = (mult[..., k] & 255 for k in range(3))
+            vp8l_image(bw, (0xff000000 | r2b << 16 | g2b << 8 | g2r).ravel(
+            ).astype(np.uint32), mult.shape[1], mult.shape[0], False, **sub)
+            m = np.repeat(np.repeat(mult, 1 << bits, 0), 1 << bits,
+                          1)[:cur.shape[0], :cur.shape[1]].astype(np.int8)
+            px = vp8l_bytes_of(cur).copy()
+            green = px[..., 1].view(np.int8)
+            red = px[..., 2].view(np.int8)
+            new_red = (px[..., 2].astype(np.int64)
+                       - vp8l_delta(m[..., 0], green))
+            new_blue = (px[..., 0].astype(np.int64)
+                        - vp8l_delta(m[..., 1], green)
+                        - vp8l_delta(m[..., 2], red))
+            px[..., 2] = new_red & 255
+            px[..., 0] = new_blue & 255
+            cur = px.view(np.uint32)[..., 0]
+        elif t[0] == "palette":
+            colors, index = np.unique(cur, return_inverse=True)
+            index = index.reshape(cur.shape)
+            k = len(colors)
+            if k > 256:
+                raise ValueError(f"colour indexing of {k} colours")
+            bw.put(3, 2)
+            bw.put(k - 1, 8)
+            bits = 0 if k > 16 else 1 if k > 4 else 2 if k > 2 else 3
+            deltas = vp8l_bytes_of(colors).astype(np.int64)
+            deltas[1:] -= vp8l_bytes_of(colors)[:-1]
+            vp8l_image(bw, (deltas & 255).astype(np.uint8).view(
+                np.uint32)[:, 0], k, 1, False, **sub)
+            per = 1 << bits
+            pw = -(-cw // per)
+            padded = np.zeros((cur.shape[0], pw * per), np.int64)
+            padded[:, :cw] = index
+            shifts = (np.arange(per) * (8 >> bits)).astype(np.int64)
+            green = (padded.reshape(cur.shape[0], pw, per) << shifts).sum(-1)
+            cur = (0xff000000 | green << 8).astype(np.uint32)
+        else:
+            raise ValueError(f"unknown transform {t[0]!r}")
+    bw.put(0, 1)
+    vp8l_image(bw, cur.ravel(), cur.shape[1], cur.shape[0], True,
+                cache_bits=cache_bits, meta_bits=meta_bits,
+                meta_groups=meta_groups, lz77=lz77, dist_mode=dist_mode,
+                simple=simple, max_symbol=max_symbol, tokens=tokens,
+                code_lens=code_lens)
+    return bw.tobytes()
+
+
+def webp_riff(chunks):
+    """A RIFF WEBP file of ``chunks`` ([(fourcc, payload)]), each padded to
+    an even size."""
+    import struct
+    body = b"WEBP"
+    for tag, data in chunks:
+        body += tag + struct.pack("<I", len(data)) + data + b"\0" * (
+            len(data) & 1)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_built():
+    """(the RGB source, the file) of phase 13's built WebP: a simple RIFF
+    file of one VP8L stream of WEBP_BUILT_SIZE pixels (gradients, grain
+    and flat boxes from WEBP_BUILT_SEED) under subtract-green, a predictor
+    (every mode 0-13 over 32-pixel blocks) and cross-colour (random
+    multipliers), a 10-bit colour cache, meta prefix codes (3 groups over
+    64-pixel blocks) and backward references by the distance map."""
+    import numpy as np
+    rng = np.random.default_rng(WEBP_BUILT_SEED)
+    h, w = WEBP_BUILT_SIZE
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([x * 255 // w, y * 255 // h, (x + y) // 4 % 256], -1)
+    img = (img + rng.integers(0, 3, (h, w, 1))).clip(0, 255).astype(np.uint8)
+    img[100:200, 100:300] = (200, 30, 40)
+    img[300:420, 400:600] = rng.integers(0, 256, 3)
+    blocks = (-(-h // 32), -(-w // 32))
+    modes = np.arange(blocks[0] * blocks[1]).reshape(blocks) % 14
+    payload = vp8l_bytes(img, [
+        ("green",), ("predictor", 5, modes),
+        ("cross", 5, rng.integers(-40, 40, blocks + (3,)))],
+        cache_bits=10, meta_bits=6, meta_groups=3)
+    return img, webp_riff([(b"VP8L", payload)])
+
+
 def tiff_mode_bytes(kind, h, w, rng, work):
     """A TIFF of ``kind`` (TIFF_MODES_FILES) of ``h`` x ``w`` pixels, its
     samples drawn from ``rng``: little-endian uncompressed strips of 5 rows
@@ -4632,6 +5215,77 @@ def built_tiff_modes_checks(work):
                      BUILT_TIFF_DECODES / best, "megapixels_per_sec":
                      BUILT_TIFF_DECODES * h * w / best / 1e6}
     return [p for n, p in files.items() if n.startswith("tiff_modes_")], out
+
+
+def webp_checks(work):
+    """WebP in phase 13 (tests/data/webp; the card's machine has no cv2 or
+    PIL): each top-level fixture decoded equal to its expected.npz and
+    probed at that size by both probes; each skip/ file (0, 0) by the cv2
+    probe, decoded as PIL where PIL reads it (the 28-byte file, probed at
+    its size), raising "failed to decode" otherwise; the file webp_built
+    makes (in ``work``) decoded equal to its source and probed at its
+    size, and its host decode rate (WEBP_BUILT_DECODES decodes on one
+    thread, best of JPEG_DECODE_REPS passes). Returns (the fixtures cv2
+    reads, the skip/ files, those PIL reads, the numbers for phase 13's
+    line)."""
+    import numpy as np
+    from tsr_tpu_torch import native
+    want = np.load(WEBP_FIXTURES / "expected.npz")
+    cases = sorted(p for p in WEBP_FIXTURES.iterdir()
+                   if p.suffix in IMAGE_SUFFIXES)
+    skips = sorted((WEBP_FIXTURES / "skip").iterdir())
+    check(len(cases) == int(want["generate_tree_written"]) >= 40,
+          f"{len(cases)} WebP fixtures")
+    for p in cases:
+        img = native.decode(str(p))
+        check(np.array_equal(img, want[f"decoded__{p.name}"]),
+              f"WebP fixture {p.name} decodes unlike cv2.imread")
+        for reader in ("cv2", "port"):
+            check(native.probe([str(p)], reader=reader).tolist()
+                  == [list(img.shape[:2])], f"{p.name}: probe {reader}")
+    pil_read = []
+    for p in skips:
+        check(native.probe([str(p)], reader="cv2").tolist() == [[0, 0]],
+              f"skip/{p.name}: probe(reader='cv2') reads what cv2 refuses")
+        key = f"decoded_skip__{p.name}"
+        if key in want.files:
+            img = native.decode(str(p))
+            check(np.array_equal(img, want[key])
+                  and native.probe([str(p)]).tolist()
+                  == [list(img.shape[:2])], f"skip/{p.name} reads unlike PIL")
+            pil_read.append(p)
+            continue
+        try:
+            native.decode(str(p))
+        except RuntimeError as e:
+            check("failed to decode" in str(e), f"skip/{p.name}: {e}")
+        else:
+            check(False, f"skip/{p.name} decoded; cv2 and PIL refuse it")
+    check(len(pil_read) == 1, f"WebP files PIL reads: {pil_read}")
+    t0 = time.perf_counter()
+    img, data = webp_built()
+    out = {"cv2_reads": len(cases), "skip": len(skips),
+           "skip_pil_reads": len(pil_read),
+           "write_s": time.perf_counter() - t0}
+    path = work / "built_webp" / "webp_built.png"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
+    check(np.array_equal(native.decode(str(path)), img),
+          "the built WebP decodes unlike its source")
+    for reader in ("cv2", "port"):
+        check(native.probe([str(path)], reader=reader).tolist()
+              == [list(WEBP_BUILT_SIZE)], f"built WebP: probe {reader}")
+    h, w = WEBP_BUILT_SIZE
+    best = math.inf
+    for _ in range(JPEG_DECODE_REPS):
+        t0 = time.perf_counter()
+        for _ in range(WEBP_BUILT_DECODES):
+            native.decode(str(path))
+        best = min(best, time.perf_counter() - t0)
+    out["built"] = {"bytes": len(data), "images_per_sec":
+                    WEBP_BUILT_DECODES / best, "megapixels_per_sec":
+                    WEBP_BUILT_DECODES * h * w / best / 1e6}
+    return cases, skips, pil_read, out
 
 
 def built_tiff_checks(work):
@@ -4769,15 +5423,17 @@ def image_size_checks(dev, work):
 
 def image_formats_phase(dev, resunet, judge, rows, work):
     """Phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance
-    HDR and TIFF files cv2 reads and the port once refused (C5, C6, C7), and
-    the damaged ones cv2 gives None for (C4), from the committed fixtures
-    (the card's machine has neither cv2 nor PIL), in ``work``: each
-    top-level fixture decoded equal to ``expected.npz`` and probed as cv2
-    reads it; each skip/ file probed (0, 0) as cv2 refuses it, decoded as
-    PIL where PIL reads it (the gray PFM, the TIFFs of orientation 5 to 8
-    and of 2 and 4-bit gray among them), raising otherwise (naming AVIF,
-    JPEG 2000, ZSTD TIFF and WebP data); host decode rates by group (TIFF
-    by layout, CCITT among them); the
+    HDR, TIFF and lossless WebP files cv2 reads and the port once refused
+    (C5, C6, C7), and the damaged ones cv2 gives None for (C4), from the
+    committed fixtures (the card's machine has neither cv2 nor PIL), in
+    ``work``: each top-level fixture decoded equal to ``expected.npz`` and
+    probed as cv2 reads it; each skip/ file probed (0, 0) as cv2 refuses
+    it, decoded as PIL where PIL reads it (the gray PFM, the TIFFs of
+    orientation 5 to 8 and of 2 and 4-bit gray among them), raising
+    otherwise (naming AVIF, JPEG 2000, ZSTD TIFF and lossy WebP data); the
+    WebP fixtures and the built VP8L file (webp_checks), which join the
+    trees below; host decode rates by group (TIFF by layout, CCITT among
+    them, and WebP); the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
     generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
     just before and read just after each call, the written count the
@@ -4827,6 +5483,17 @@ def image_formats_phase(dev, resunet, judge, rows, work):
                   in str(e), f"skip/{p.name}: {e}")
         else:
             check(False, f"skip/{p.name} decoded; cv2 and PIL refuse it")
+    t0 = time.perf_counter()
+    webp_cases, webp_skips, webp_pil, result["webp"] = webp_checks(work)
+    result["webp"]["seconds"] = time.perf_counter() - t0
+    print("WebP (the RIFF container, lossless VP8L): "
+          + json.dumps(result["webp"]) + ": fixtures equal to their "
+          "expected.npz, skip/ files refused by the cv2 probe, decoded as "
+          f"PIL or failing; the built {WEBP_BUILT_SIZE[1]} x "
+          f"{WEBP_BUILT_SIZE[0]} VP8L file equal to its source, its decode "
+          f"rate on one host thread beside {result['card']}")
+    cases, skips = cases + webp_cases, skips + webp_skips
+    pil_read += webp_pil
     result["fixtures"] = {
         "cv2_reads": len(cases), "skip": len(skips),
         "skip_pil_reads": len(pil_read), "foreign": len(IMAGE_FOREIGN)}
@@ -4906,7 +5573,8 @@ def image_formats_phase(dev, resunet, judge, rows, work):
         out = readable / f"c{k % 3}" / p.name
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_bytes(p.read_bytes())
-    written = int(want["generate_tree_written"]) + len(built_2c)
+    written = int(want["generate_tree_written"]) + len(built_2c) + len(
+        webp_cases)
     mixed_files = offline.tree_files(str(mixed))
     dims = native.probe([str(p) for p in mixed_files], reader="cv2")
     kept = [p for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]

@@ -18,7 +18,11 @@ PFM (``pfm*``: cv2's writer, big endian, scales 0.5 and 3, samples past
 signature, EXPOSURE and other header lines, a width under 8, zero
 exponents, values past 1, runs and literals of every length, a scanline
 that falls back to flat) and TIFF (``tiff_*``: parts 1, 2a and 2b, and
-the CCITT codecs of part 2c); the
+the CCITT codecs of part 2c) and WebP (``webp_*``, written into
+tests/data/webp by its own make_fixtures.py: cv2's and Pillow's lossless
+files, few-colour and meta-code content, animations, EXIF orientations,
+extra chunks, and streams chip_smoke.vp8l_bytes writes with each VP8L
+feature); the
 skip cases are what cv2 refuses, some of which PIL reads (a GIF without its
 trailer, a Sun raster of type RT_BYTE_ENCODED or RT_FORMAT_RGB, which
 OpenCV 5 refuses, a gray PFM, which cv2 refuses under IMREAD_COLOR, TIFFs
@@ -41,12 +45,18 @@ TIFF_SEED = 16  # and the TIFF files from theirs
 TIFF2_SEED = 17  # and the TIFF part 2a files from theirs
 TIFF2B_SEED = 19  # and the TIFF part 2b files from theirs
 TIFF2C_SEED = 20  # and the CCITT files from theirs
+WEBP_SEED = 21  # and the WebP files from theirs
 
 _spec = importlib.util.spec_from_file_location(
     "image_writers", Path(__file__).resolve().parent / "image_writers.py")
 writers = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(writers)
 globals().update({name: getattr(writers, name) for name in writers.__all__})
+# the VP8L writer phase 13 of chip_smoke.py runs on the card
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[2] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 def cases(rng):
     """{name: bytes} of the files cv2.imread reads."""
@@ -680,4 +690,224 @@ def tiff2c_cases(rng):
                      ("rle.bmp", {"compression": "tiff_ccitt"}),
                      ("rlew.png", {"compression": "tiff_raw_16"})):
         out["tiff_ccitt_" + name] = pil_tiff(smooth(rng, 8, 8), "1", **kw)
+    return out
+
+
+# ------------------------------------------------------------------ WebP
+
+def webp_pil(img, **kw):
+    """Pillow's lossless WebP (VP8L) of ``img`` (RGB or RGBA)."""
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", lossless=True, **kw)
+    return buf.getvalue()
+
+
+def webp_cv2(img):
+    """cv2.imwrite's WebP of an RGB image at its defaults (VP8L)."""
+    ok, enc = cv2.imencode(".webp", np.ascontiguousarray(img[:, :, ::-1]))
+    assert ok
+    return enc.tobytes()
+
+
+def webp_chunks(data):
+    """[(fourcc, payload)] of a RIFF WEBP file's chunks."""
+    out, i = [], 12
+    while i + 8 <= len(data):
+        n = struct.unpack("<I", data[i + 4:i + 8])[0]
+        out.append((data[i:i + 4], data[i + 8:i + 8 + n]))
+        i += 8 + n + (n & 1)
+    return out
+
+
+def vp8x(w, h, flags, size=10):
+    """A VP8X chunk: ``flags`` (0x02 animation, 0x04 XMP, 0x08 EXIF, 0x10
+    alpha, 0x20 ICC), a ``w`` x ``h`` canvas, ``size`` - 10 bytes more."""
+    return (b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+            + (h - 1).to_bytes(3, "little") + bytes(size - 10))
+
+
+def anmf(x, y, w, h, chunks, flags=0):
+    """An ANMF chunk: the frame at (``x``, ``y``) (even), its ``w`` x
+    ``h``, then ``chunks`` ([(fourcc, payload)]), each padded."""
+    inner = chip_smoke.webp_riff(chunks)[12:]
+    return (b"ANMF", (x // 2).to_bytes(3, "little")
+            + (y // 2).to_bytes(3, "little") + (w - 1).to_bytes(3, "little")
+            + (h - 1).to_bytes(3, "little") + (100).to_bytes(3, "little")
+            + bytes([flags]) + inner)
+
+
+def exif_tiff(orientation, big=False):
+    """An EXIF chunk's TIFF stream: IFD0 with the Orientation tag alone."""
+    e = ">" if big else "<"
+    return ((b"MM\0*" if big else b"II*\0") + struct.pack(e + "IH", 8, 1)
+            + struct.pack(e + "HHIHH", 0x112, 3, 1, orientation, 0)
+            + bytes(4))
+
+
+def with_riff_size(data, delta):
+    """``data`` with its RIFF size off by ``delta``."""
+    n = struct.unpack("<I", data[4:8])[0]
+    return data[:4] + struct.pack("<I", n + delta) + data[8:]
+
+
+def webp_palette_image(rng, k, h, w):
+    """``k`` random colours, each used, over ``h`` x ``w`` pixels."""
+    pal = rng.integers(0, 256, (k, 3))
+    idx = rng.integers(0, k, (h, w))
+    idx.flat[:k] = np.arange(k)
+    return pal[idx].astype(np.uint8)
+
+
+def webp_writer_cases(rng):
+    """{name: VP8L payload} of chip_smoke.vp8l_bytes, one VP8L feature or
+    more each: every predictor mode (0-13, and 14 and 15, which predict
+    black), cross-colour, subtract-green, colour indexing at 8, 4, 2 and 1
+    pixels a byte, colour caches of 1 and 11 bits, meta prefix codes (with
+    unused groups between), simple codes of one and two symbols, normal
+    codes with the code-length count, plain and distance-map distances and
+    overlapping copies."""
+    vb = chip_smoke.vp8l_bytes
+    out = {}
+    img = smooth(rng, 16, 16)
+    out["predictor_modes"] = vb(img, [("predictor", 2, np.arange(16).reshape(
+        4, 4))])
+    out["cross_colour"] = vb(smooth(rng, 16, 20), [(
+        "cross", 2, rng.integers(-128, 128, (4, 5, 3)))])
+    out["subtract_green"] = vb(smooth(rng, 14, 18), [("green",)])
+    out["three_transforms"] = vb(smooth(rng, 20, 20), [
+        ("green",), ("predictor", 3, rng.integers(0, 14, (3, 3))),
+        ("cross", 3, rng.integers(-128, 128, (3, 3, 3)))])
+    for k, w in ((2, 20), (3, 18), (5, 19), (17, 16)):
+        out[f"palette_{k}"] = vb(webp_palette_image(rng, k, 12, w),
+                                 [("palette",)])
+    out["palette_predictor"] = vb(webp_palette_image(rng, 5, 16, 16), [
+        ("palette",), ("predictor", 2, rng.integers(0, 14, (4, 2)))],
+        sub_cache_bits=2)
+    rgba = np.concatenate([webp_palette_image(rng, 12, 16, 16),
+                           rng.integers(0, 2, (16, 16, 1)).astype(
+                               np.uint8) * 255], 2)
+    out["cache_1"] = vb(rgba, cache_bits=1)
+    out["cache_11"] = vb(smooth(rng, 16, 16), cache_bits=11)
+    out["meta_codes"] = vb(smooth(rng, 20, 20), meta_bits=2, meta_groups=3,
+                           cache_bits=3)
+    out["simple_1"] = vb(np.full((12, 12, 3), (200, 100, 50), np.uint8))
+    out["simple_2"] = vb(webp_palette_image(rng, 2, 10, 14), lz77=False)
+    out["normal_codes"] = vb(smooth(rng, 12, 12), simple=False,
+                             max_symbol=True)
+    tile = smooth(rng, 6, 7)
+    out["plain_distances"] = vb(np.tile(tile, (3, 3, 1)), dist_mode="plain")
+    out["map_distances"] = vb(np.tile(tile, (3, 3, 1)), dist_mode="map")
+    rows = np.repeat(rng.integers(0, 256, (16, 1, 3)), 20, 1).astype(
+        np.uint8)
+    out["overlapping_copies"] = vb(rows, dist_mode="both")
+    return out
+
+
+def webp_cases(rng):
+    """{name: bytes} of the WebP files cv2.imread reads (each lossless, so
+    cv2 and PIL give the same pixels but for the EXIF orientation, which
+    cv2 applies and PIL does not)."""
+    out = {"webp_cv2_smooth.png": webp_cv2(smooth(rng, 20, 24)),
+           "webp_cv2_noise.jpg": webp_cv2(rng.integers(0, 256, (12, 16, 3)
+                                                       ).astype(np.uint8)),
+           "webp_pil_rgb.png": webp_pil(smooth(rng, 18, 22))}
+    rgba = np.concatenate([smooth(rng, 16, 20), rng.integers(
+        0, 256, (16, 20, 1)).astype(np.uint8)], 2)
+    rgba[::3, :, 3] = 0
+    out["webp_pil_rgba.png"] = webp_pil(rgba)
+    out["webp_pil_rgba_exact.jpeg"] = webp_pil(rgba, exact=True)
+    for k in (2, 4, 16, 256):
+        out[f"webp_colours_{k}.png"] = webp_pil(webp_palette_image(
+            rng, k, 20, 24))
+    # large enough for Pillow's encoder to use meta prefix codes
+    img = cv2.resize(rng.integers(0, 256, (8, 8, 3)).astype(np.uint8),
+                     (48, 48), interpolation=cv2.INTER_NEAREST)
+    img[:24] = smooth(rng, 24, 48)
+    out["webp_meta_codes.png"] = webp_pil(img, method=6, quality=100)
+    frames = [Image.fromarray(smooth(rng, 12, 14)) for _ in range(3)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:],
+                   lossless=True)
+    out["webp_anim_3_frames.png"] = buf.getvalue()
+    frame = chip_smoke.vp8l_bytes(smooth(rng, 10, 12))
+    out["webp_anim_offset.png"] = chip_smoke.webp_riff([
+        vp8x(20, 16, 0x02), (b"ANIM", b"\x00\x00\xff\xff\x00\x00"),
+        anmf(4, 2, 12, 10, [(b"VP8L", frame)]),
+        anmf(0, 0, 6, 4, [(b"VP8L", chip_smoke.vp8l_bytes(
+            smooth(rng, 4, 6)))])])
+    still = chip_smoke.vp8l_bytes(smooth(rng, 10, 12))
+    for o in range(2, 9):
+        out[f"webp_exif_{o}.png"] = chip_smoke.webp_riff([
+            vp8x(12, 10, 0x08), (b"VP8L", still),
+            (b"EXIF", exif_tiff(o, big=o % 2 == 1))])
+    out["webp_iccp_unknown.png"] = chip_smoke.webp_riff([
+        vp8x(12, 10, 0x20), (b"ICCP", bytes(range(13))), (b"VP8L", still),
+        (b"ABCD", b"xyz")])
+    out["webp_trailing_bytes.png"] = webp_cv2(smooth(rng, 11, 13)) + bytes(7)
+    # an EXIF chunk whose size runs past the file (WebPDemux refuses it:
+    # cv2 reads the pixels unrotated), a reserved VP8X flag (the same)
+    f = chip_smoke.webp_riff([vp8x(12, 10, 0x08), (b"VP8L", still),
+                              (b"EXIF", exif_tiff(6))])
+    i = f.index(b"EXIF")
+    out["webp_exif_past_end.png"] = f[:i + 7] + b"\x01" + f[i + 8:]
+    out["webp_reserved_flag.png"] = chip_smoke.webp_riff([
+        vp8x(12, 10, 0x88), (b"VP8L", still),
+        (b"EXIF", exif_tiff(6))])
+    for name, payload in webp_writer_cases(rng).items():
+        out[f"webp_vp8l_{name}.png"] = chip_smoke.webp_riff([
+            (b"VP8L", payload)])
+    return out
+
+
+def webp_skip_cases(rng):
+    """{name: bytes} of the WebP files cv2.imread gives None for: a valid
+    1 x 1 file of 28 bytes (cv2 wants 32; PIL reads it), and layouts and
+    streams both readers refuse: a cut file, a canvas other than the
+    image's, a frame past its canvas, RIFF sizes too large and too small, a
+    later frame that is no image, a VP8L stream whose data ends early, of
+    version 1, with a prefix code incomplete or over-subscribed, a
+    distance before the first pixel, a copy past the last, a transform
+    twice, and a colour cache of 12 bits."""
+    vb = chip_smoke.vp8l_bytes
+    riff = chip_smoke.webp_riff
+    out = {"webp_tiny_28_bytes.png": riff([(b"VP8L", vb(np.array(
+        [[[1, 1, 0, 1]]], np.uint8)))])}
+    assert len(out["webp_tiny_28_bytes.png"]) == 28
+    f = webp_cv2(smooth(rng, 12, 14))
+    out["webp_cut.png"] = f[:len(f) * 2 // 3]
+    still = vb(smooth(rng, 10, 12))
+    out["webp_canvas_14x10.png"] = riff([vp8x(14, 10, 0), (b"VP8L", still)])
+    out["webp_canvas_12x11.png"] = riff([vp8x(12, 11, 0), (b"VP8L", still)])
+    out["webp_frame_overflow.png"] = riff([
+        vp8x(20, 16, 0x02), (b"ANIM", bytes(6)),
+        anmf(10, 8, 12, 10, [(b"VP8L", still)])])
+    plain = riff([(b"VP8L", still)])
+    out["webp_riff_plus_8.png"] = with_riff_size(plain, 8)
+    out["webp_riff_minus_2.png"] = with_riff_size(plain, -2)
+    broken = bytearray(vb(smooth(rng, 4, 6)))
+    broken[0] = 0x2e
+    out["webp_bad_later_frame.png"] = riff([
+        vp8x(12, 10, 0x02), (b"ANIM", bytes(6)),
+        anmf(0, 0, 12, 10, [(b"VP8L", still)]),
+        anmf(0, 0, 6, 4, [(b"VP8L", bytes(broken))])])
+    out["webp_data_short.png"] = riff([(b"VP8L", still[:len(still) // 2])])
+    v1 = bytearray(still)
+    v1[4] |= 0x20
+    out["webp_version_1.png"] = riff([(b"VP8L", bytes(v1))])
+    px = np.array([[[0, 0, 0, 255], [0, 1, 0, 255], [0, 2, 0, 255]]],
+                  np.uint8)
+    out["webp_code_incomplete.png"] = riff([(b"VP8L", vb(
+        px[:, :2], lz77=False, code_lens={0: [1, 2] + [0] * 278}))])
+    out["webp_code_oversubscribed.png"] = riff([(b"VP8L", vb(
+        px, lz77=False, code_lens={0: [1, 1, 1] + [0] * 277}))])
+    lit = [("lit", 0xff000000 | k << 8) for k in range(4)]
+    out["webp_distance_before_start.png"] = riff([(b"VP8L", vb(
+        np.zeros((1, 8, 3), np.uint8), tokens=lit[:2] + [("copy", 4, 124)]
+        + lit[:2]))])
+    out["webp_copy_past_end.png"] = riff([(b"VP8L", vb(
+        np.zeros((1, 8, 3), np.uint8), tokens=lit + [("copy", 6, 122)]))])
+    out["webp_transform_twice.png"] = riff([(b"VP8L", vb(
+        smooth(rng, 8, 8), [("green",), ("green",)]))])
+    out["webp_cache_12_bits.png"] = riff([(b"VP8L", vb(
+        smooth(rng, 8, 8), cache_bits=12))])
     return out

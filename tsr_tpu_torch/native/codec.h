@@ -1,8 +1,8 @@
-// codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp, gif.cpp, hdr.cpp and
-// tiff.cpp share: the decoded image, the image-size rules, the status codes
-// a decode or a header probe returns, the JPEG codec's entry points, the
-// PNG/PNM/PFM/PAM/BMP/Sun raster, GIF, Radiance HDR and TIFF readers and
-// the EXIF orientation JPEG, PNG and TIFF carry.
+// codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp, gif.cpp, hdr.cpp,
+// tiff.cpp and webp.cpp share: the decoded image, the image-size rules, the
+// status codes a decode or a header probe returns, the JPEG codec's entry
+// points, the PNG/PNM/PFM/PAM/BMP/Sun raster, GIF, Radiance HDR, TIFF and
+// WebP readers and the EXIF orientation JPEG, PNG, TIFF and WebP carry.
 #pragma once
 
 #include <cmath>
@@ -64,7 +64,7 @@ enum Status : int {
   kLosslessArithmetic = -4,  // lossless JPEG, arithmetic coded (SOF11)
   kLosslessColor = -5,       // lossless JPEG in YCbCr or YCCK
   kTiff = -6,
-  kWebp = -7,
+  kWebp = -7,  // a lossy (VP8) image: the port decodes lossless WebP alone
   kJpeg2000 = -8,
   kAvif = -9,
   // formats only PIL reads, which the library does not decode (told by
@@ -157,20 +157,22 @@ struct OjpegImage {
 };
 int ojpeg_decode(const uint8_t* data, size_t n, const std::vector<size_t>& bounds,
                  bool dry, bool raw, OjpegImage& out);
-// PNG, PNM (P1-P6), PFM, PAM (P7), BMP, Sun raster, GIF, Radiance HDR and
-// TIFF as cv2.imread reads them (formats.cpp, gif.cpp, hdr.cpp, tiff.cpp):
-// kOk with the (h, w) it gives in dims (EXIF orientation applied) and, with
-// img, its pixels as RGB; kUnreadable where cv2.imread gives None, kRaises
-// where it raises (the reference's readers then raise too, so PIL is not
-// tried), kTiff for a TIFF layout cv2 reads and the port does not decode.
-// `head` reads the header alone.
+// PNG, PNM (P1-P6), PFM, PAM (P7), BMP, Sun raster, GIF, Radiance HDR,
+// TIFF and WebP as cv2.imread reads them (formats.cpp, gif.cpp, hdr.cpp,
+// tiff.cpp, webp.cpp): kOk with the (h, w) it gives in dims (EXIF
+// orientation applied) and, with img, its pixels as RGB; kUnreadable where
+// cv2.imread gives None, kRaises where it raises (the reference's readers
+// then raise too, so PIL is not tried), kTiff for a TIFF layout and kWebp
+// for a lossy WebP image cv2 reads and the port does not decode. `head`
+// reads the header alone.
 int read_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // The same formats as PIL's Image.open(path).convert("RGB") reads them
 // (no EXIF orientation but a TIFF's; of PFM the gray "Pf" alone; no
 // Radiance HDR): kOk, kUnreadable where PIL raises (past Pillow's size
-// limit too), kTiff for a TIFF layout PIL may read and the port does not
-// decode. `head` reads the header alone (not of a PNG).
+// limit too), kTiff for a TIFF layout and kWebp for a lossy WebP image PIL
+// may read and the port does not decode. `head` reads the header alone
+// (not of a PNG).
 int read_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // GIF's first frame as cv2.imread reads it (OpenCV's own decoder) and as
@@ -203,8 +205,22 @@ int tiff_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int tiff_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int probe_tiff(FILE* f, int* dims);
 
+// WebP (the RIFF container: a still image, an animation's first frame on
+// its zeroed canvas; lossless VP8L data) as cv2.imread reads it (OpenCV's
+// WebPDecoder over libwebp: 32 bytes or more, a raw VP8L stream too, the
+// EXIF chunk's orientation) and as PIL's WebPImagePlugin and
+// convert("RGB") read it (WebPAnimDecoder, no orientation), webp.cpp; the
+// arguments and results of read_cv2 and read_pil, kWebp for a lossy image.
+// is_webp_data: a RIFF "WEBP" signature or a VP8L stream's first byte and
+// version. probe_webp: (h, w) of an open file, its chunks walked by
+// seeking (cv2's rules, else PIL's), or a Status.
+bool is_webp_data(const uint8_t* data, size_t n);
+int webp_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+int webp_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+int probe_webp(FILE* f, int* dims);
+
 // The Status of a format cv2.imread reads and the library does not decode
-// (kWebp ... kAvif), or of one only PIL reads (kPcx ... kSpider), from the
+// (kJpeg2000, kAvif), or of one only PIL reads (kPcx ... kSpider), from the
 // file's first bytes; kUnreadable for any other.
 int foreign_format(const uint8_t* data, size_t n);
 

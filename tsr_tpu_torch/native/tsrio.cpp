@@ -10,14 +10,14 @@
 //   - PNG, PNM (P1-P6, ASCII and binary), PFM, PAM (P7), BMP (palette,
 //     16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core header) and Sun
 //     raster: formats.cpp; GIF (the first frame): gif.cpp; Radiance HDR:
-//     hdr.cpp; TIFF (strips of 8-bit gray, RGB or palette samples):
-//     tiff.cpp; each with cv2's reader and PIL's copied (PIL reads no
-//     HDR), damaged files included;
+//     hdr.cpp; TIFF: tiff.cpp; lossless WebP (a still image or an
+//     animation's first frame): webp.cpp; each with cv2's reader and PIL's
+//     copied (PIL reads no HDR), damaged files included;
 //   - JPEG: jpeg.cpp (baseline, progressive and arithmetic coded, CMYK and
 //     YCCK, damaged data as libjpeg recovers it, EXIF orientation; lossless
 //     JPEG as PIL reads it, where the reference falls back to PIL).
 // A file of a format cv2 reads and the port does not decode (TIFF of
-// another layout, WebP, JPEG 2000, AVIF) fails with a Status naming it
+// another layout, lossy WebP, JPEG 2000, AVIF) fails with a Status naming it
 // (codec.h), and one on which cv2.imread raises with kRaises.
 // Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
 // (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
@@ -455,7 +455,8 @@ int decode_file(const char* path, Image& img) {
 
 // (h, w) as the file decodes. By header: a JPEG's markers up to its first
 // scan (however long its APP segments), PNG's IHDR and any eXIf before
-// IDAT, or the PNM/PAM/BMP header as cv2 parses it (else as PIL does).
+// IDAT, a TIFF's IFD or a WebP's chunks wherever they lie, or the
+// PNM/PAM/BMP header as cv2 parses it (else as PIL does).
 // With cv2_reader, from the whole file as cv2.imread reads it, short of
 // the pixels (check_jpeg, read_cv2). A failure writes (0, its Status).
 int probe_one(const char* path, int* dims, bool cv2_reader) {
@@ -485,6 +486,9 @@ int probe_one(const char* path, int* dims, bool cv2_reader) {
     }
   } else if (tsrio::is_tiff_data(buf.data(), buf.size())) {
     st = tsrio::probe_tiff(f, hw);  // its IFD may lie anywhere
+  } else if (tsrio::is_webp_data(buf.data(), buf.size()) &&
+             (st = tsrio::probe_webp(f, hw)) != tsrio::kUnreadable) {
+    // its EXIF chunk (cv2's orientation) may follow the image data
   } else {
     static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
     const bool png = buf.size() >= 8 && !std::memcmp(buf.data(), sig, 8);
