@@ -185,15 +185,18 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    and ``evaluate_directory`` over the readable files with phase 3's
    models. A ``jpeg_features:`` JSON line.
 13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR, TIFF
-   and lossless WebP files cv2 reads and the port once refused, and the
-   damaged ones cv2 gives None for (``image_formats_phase``), from the
-   committed fixtures (``tests/data/images``, ``tests/data/webp``): each
-   decoded equal to its ``expected.npz`` (cv2's pixels, or PIL's for the
-   damaged files, the gray PFM and the 28-byte WebP PIL reads) and probed
-   as cv2 reads it, the rest raising (AVIF, TIFF and lossy WebP data
-   named); a 640 x 480 VP8L file built at run time (``webp_built``)
-   decoded equal to its source; host decode rates by format, GIF, Sun
-   raster, PFM, HDR and WebP among them; the whole-file probe of
+   and WebP (lossless and lossy) files cv2 reads and the port once
+   refused, and the damaged ones cv2 gives None for
+   (``image_formats_phase``), from the committed fixtures
+   (``tests/data/images``, ``tests/data/webp``, ``tests/data/webp_lossy``):
+   each decoded equal to its ``expected.npz`` (cv2's pixels, or PIL's for
+   the damaged files, the gray PFM, the 28-byte WebP and the ALPH damage
+   PIL reads past) and probed as cv2 reads it, the rest raising (AVIF,
+   JPEG 2000 and TIFF data named); a 640 x 480 VP8L file built at run
+   time (``webp_built``) decoded equal to its source and the committed
+   640 x 480 lossy file to cv2's digest, with their decode rates; host
+   decode rates by format, GIF, Sun raster, PFM, HDR and lossless and
+   lossy WebP among them; the whole-file probe of
    generate_tree's skip rule timed on phase 5's .ppm and phase 11's .png
    trees; ``generate_tree`` on the fixtures plus the skip files for blur,
    compound and blur_rand (launch counts zeroed just before and read just
@@ -356,12 +359,12 @@ C11_DIGESTS = {
     38404: "edec3c4e6be3d7358bb679d19ad385e51178d350ab42a09555fb56af2f28c60c"}
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
-# at the top, the files it gives None for (and AVIF, JPEG 2000 and WebP
-# data and a ZSTD TIFF, which the port does not decode) under skip/
+# at the top, the files it gives None for (and AVIF and JPEG 2000 data and
+# a ZSTD TIFF, which the port does not decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
-                 "tiff_zstd.png": "TIFF", "webp.png": "WebP"}
+                 "tiff_zstd.png": "TIFF", "j2k.png": "JPEG 2000"}
 # decode groups by file-name prefix; "tiff" is TIFF part 1 (8-bit strips),
 # the files of no tiff_* group below it; "tiff_thunder_sgilog" and
 # "tiff_modes" hold files built at run time (TIFF_2C_FILES,
@@ -385,7 +388,8 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                                     "tiff_unknown", "tiff_cielab"),
                 "tiff_ccitt": ("tiff_group4", "tiff_ccitt"),
                 "tiff_thunder_sgilog": ("tiff_2c_",),
-                "tiff_modes": ("tiff_modes_",), "webp": ("webp_",)}
+                "tiff_modes": ("tiff_modes_",), "webp": ("webp_",),
+                "webp_lossy": ("webp_lossy_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -475,9 +479,20 @@ WEBP_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "webp"
 WEBP_BUILT_SIZE = (480, 640)
 WEBP_BUILT_SEED = 22
 WEBP_BUILT_DECODES = 20
+# phase 13's lossy WebP (VP8): the fixtures of tests/data/webp_lossy
+# (make_fixtures.py) as for WEBP_FIXTURES, among them a 640 x 480
+# quality-75 file of cv2's writer, checked by the SHA-256 of cv2.imread's
+# RGB and decoded WEBP_BUILT_DECODES times a timed pass
+WEBP_LOSSY_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / (
+    "webp_lossy")
+WEBP_LOSSY_BIG = "webp_lossy_640x480_q75.jpg"
+WEBP_LOSSY_BIG_SIZE = (480, 640)
+WEBP_LOSSY_BIG_DIGEST = (
+    "7167baf6b5cbb9eec9960d98d5dfeadc6be2ae84e36993acf7dfa4e4439be92f")
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
-                "tiff": ("tiff",), "webp": ("webp_",)}
+                "tiff": ("tiff",), "webp": ("webp_",),
+                "webp_lossy": ("webp_lossy_",)}
 # C9 and C10 in phase 13: a PNG past the old 64 Mpx cap, and headers whose
 # size makes cv2.imread raise (built at run time from zlib and struct)
 BIG_PNG_SIDE = 8200
@@ -5217,29 +5232,32 @@ def built_tiff_modes_checks(work):
     return [p for n, p in files.items() if n.startswith("tiff_modes_")], out
 
 
-def webp_checks(work):
-    """WebP in phase 13 (tests/data/webp; the card's machine has no cv2 or
-    PIL): each top-level fixture decoded equal to its expected.npz and
-    probed at that size by both probes; each skip/ file (0, 0) by the cv2
-    probe, decoded as PIL where PIL reads it (the 28-byte file, probed at
-    its size), raising "failed to decode" otherwise; the file webp_built
-    makes (in ``work``) decoded equal to its source and probed at its
-    size, and its host decode rate (WEBP_BUILT_DECODES decodes on one
-    thread, best of JPEG_DECODE_REPS passes). Returns (the fixtures cv2
-    reads, the skip/ files, those PIL reads, the numbers for phase 13's
-    line)."""
+def webp_fixture_checks(root, n_pil, digests=None):
+    """The WebP fixtures of ``root`` (the card's machine has no cv2 or PIL):
+    each top-level fixture decoded equal to its expected.npz (those named
+    in ``digests`` to the SHA-256 of cv2's pixels given there) and probed
+    at that size by both probes; each skip/ file (0, 0) by the cv2 probe,
+    decoded as PIL where PIL reads it (``n_pil`` of them, probed at their
+    size), raising "failed to decode" otherwise. Returns (the fixtures cv2
+    reads, the skip/ files, those PIL reads)."""
+    import hashlib
     import numpy as np
     from tsr_tpu_torch import native
-    want = np.load(WEBP_FIXTURES / "expected.npz")
-    cases = sorted(p for p in WEBP_FIXTURES.iterdir()
-                   if p.suffix in IMAGE_SUFFIXES)
-    skips = sorted((WEBP_FIXTURES / "skip").iterdir())
+    digests = digests or {}
+    want = np.load(root / "expected.npz")
+    cases = sorted(p for p in root.iterdir() if p.suffix in IMAGE_SUFFIXES)
+    skips = sorted((root / "skip").iterdir())
     check(len(cases) == int(want["generate_tree_written"]) >= 40,
-          f"{len(cases)} WebP fixtures")
+          f"{len(cases)} WebP fixtures in {root.name}")
     for p in cases:
         img = native.decode(str(p))
-        check(np.array_equal(img, want[f"decoded__{p.name}"]),
-              f"WebP fixture {p.name} decodes unlike cv2.imread")
+        if p.name in digests:
+            check(hashlib.sha256(img.tobytes()).hexdigest()
+                  == digests[p.name], f"{p.name} decodes unlike cv2.imread "
+                  "(its digest)")
+        else:
+            check(np.array_equal(img, want[f"decoded__{p.name}"]),
+                  f"WebP fixture {p.name} decodes unlike cv2.imread")
         for reader in ("cv2", "port"):
             check(native.probe([str(p)], reader=reader).tolist()
                   == [list(img.shape[:2])], f"{p.name}: probe {reader}")
@@ -5261,7 +5279,34 @@ def webp_checks(work):
             check("failed to decode" in str(e), f"skip/{p.name}: {e}")
         else:
             check(False, f"skip/{p.name} decoded; cv2 and PIL refuse it")
-    check(len(pil_read) == 1, f"WebP files PIL reads: {pil_read}")
+    check(len(pil_read) == n_pil, f"WebP files PIL reads: {pil_read}")
+    return cases, skips, pil_read
+
+
+def decode_rate(path, h, w):
+    """The host decode rate of one ``h`` x ``w`` file: WEBP_BUILT_DECODES
+    decodes on one thread, best of JPEG_DECODE_REPS passes."""
+    from tsr_tpu_torch import native
+    best = math.inf
+    for _ in range(JPEG_DECODE_REPS):
+        t0 = time.perf_counter()
+        for _ in range(WEBP_BUILT_DECODES):
+            native.decode(str(path))
+        best = min(best, time.perf_counter() - t0)
+    return {"bytes": path.stat().st_size, "images_per_sec":
+            WEBP_BUILT_DECODES / best, "megapixels_per_sec":
+            WEBP_BUILT_DECODES * h * w / best / 1e6}
+
+
+def webp_checks(work):
+    """WebP part 1 in phase 13: the fixtures of tests/data/webp
+    (webp_fixture_checks; the 28-byte file the one PIL reads), the file
+    webp_built makes (in ``work``) decoded equal to its source and probed
+    at its size, and its decode_rate. Returns (the fixtures cv2 reads, the
+    skip/ files, those PIL reads, the numbers for phase 13's line)."""
+    import numpy as np
+    from tsr_tpu_torch import native
+    cases, skips, pil_read = webp_fixture_checks(WEBP_FIXTURES, 1)
     t0 = time.perf_counter()
     img, data = webp_built()
     out = {"cv2_reads": len(cases), "skip": len(skips),
@@ -5275,17 +5320,22 @@ def webp_checks(work):
     for reader in ("cv2", "port"):
         check(native.probe([str(path)], reader=reader).tolist()
               == [list(WEBP_BUILT_SIZE)], f"built WebP: probe {reader}")
-    h, w = WEBP_BUILT_SIZE
-    best = math.inf
-    for _ in range(JPEG_DECODE_REPS):
-        t0 = time.perf_counter()
-        for _ in range(WEBP_BUILT_DECODES):
-            native.decode(str(path))
-        best = min(best, time.perf_counter() - t0)
-    out["built"] = {"bytes": len(data), "images_per_sec":
-                    WEBP_BUILT_DECODES / best, "megapixels_per_sec":
-                    WEBP_BUILT_DECODES * h * w / best / 1e6}
+    out["built"] = decode_rate(path, *WEBP_BUILT_SIZE)
     return cases, skips, pil_read, out
+
+
+def webp_lossy_checks():
+    """WebP part 2 in phase 13: the lossy fixtures of tests/data/webp_lossy
+    (webp_fixture_checks; the 640 x 480 file, WEBP_LOSSY_BIG, held to
+    WEBP_LOSSY_BIG_DIGEST; the three ALPH files PIL's demux reads past),
+    and the big file's decode_rate. Returns (the fixtures cv2 reads, the
+    skip/ files, those PIL reads, the numbers for phase 13's line)."""
+    cases, skips, pil_read = webp_fixture_checks(
+        WEBP_LOSSY_FIXTURES, 3, {WEBP_LOSSY_BIG: WEBP_LOSSY_BIG_DIGEST})
+    return cases, skips, pil_read, {
+        "cv2_reads": len(cases), "skip": len(skips),
+        "skip_pil_reads": len(pil_read), "big": decode_rate(
+            WEBP_LOSSY_FIXTURES / WEBP_LOSSY_BIG, *WEBP_LOSSY_BIG_SIZE)}
 
 
 def built_tiff_checks(work):
@@ -5423,17 +5473,18 @@ def image_size_checks(dev, work):
 
 def image_formats_phase(dev, resunet, judge, rows, work):
     """Phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance
-    HDR, TIFF and lossless WebP files cv2 reads and the port once refused
-    (C5, C6, C7), and the damaged ones cv2 gives None for (C4), from the
-    committed fixtures (the card's machine has neither cv2 nor PIL), in
-    ``work``: each top-level fixture decoded equal to ``expected.npz`` and
-    probed as cv2 reads it; each skip/ file probed (0, 0) as cv2 refuses
-    it, decoded as PIL where PIL reads it (the gray PFM, the TIFFs of
-    orientation 5 to 8 and of 2 and 4-bit gray among them), raising
-    otherwise (naming AVIF, JPEG 2000, ZSTD TIFF and lossy WebP data); the
-    WebP fixtures and the built VP8L file (webp_checks), which join the
-    trees below; host decode rates by group (TIFF by layout, CCITT among
-    them, and WebP); the
+    HDR, TIFF and WebP (lossless and lossy) files cv2 reads and the port
+    once refused (C5, C6, C7), and the damaged ones cv2 gives None for
+    (C4), from the committed fixtures (the card's machine has neither cv2
+    nor PIL), in ``work``: each top-level fixture decoded equal to
+    ``expected.npz`` and probed as cv2 reads it; each skip/ file probed
+    (0, 0) as cv2 refuses it, decoded as PIL where PIL reads it (the gray
+    PFM, the TIFFs of orientation 5 to 8 and of 2 and 4-bit gray among
+    them), raising otherwise (naming AVIF, JPEG 2000 and ZSTD TIFF data);
+    the WebP fixtures and the built VP8L file (webp_checks) and the lossy
+    WebP fixtures with the 640 x 480 file (webp_lossy_checks), which join
+    the trees below; host decode rates by group (TIFF by layout, CCITT
+    among them, lossless and lossy WebP); the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
     generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
     just before and read just after each call, the written count the
@@ -5492,8 +5543,19 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           f"PIL or failing; the built {WEBP_BUILT_SIZE[1]} x "
           f"{WEBP_BUILT_SIZE[0]} VP8L file equal to its source, its decode "
           f"rate on one host thread beside {result['card']}")
-    cases, skips = cases + webp_cases, skips + webp_skips
-    pil_read += webp_pil
+    t0 = time.perf_counter()
+    lossy_cases, lossy_skips, lossy_pil, result["webp_lossy"] = (
+        webp_lossy_checks())
+    result["webp_lossy"]["seconds"] = time.perf_counter() - t0
+    print("lossy WebP (VP8 with its ALPH chunk): "
+          + json.dumps(result["webp_lossy"]) + ": fixtures equal to their "
+          "expected.npz, skip/ files refused by the cv2 probe, decoded as "
+          f"PIL or failing; the {WEBP_LOSSY_BIG_SIZE[1]} x "
+          f"{WEBP_LOSSY_BIG_SIZE[0]} quality-75 file equal to cv2's digest, "
+          f"its decode rate on one host thread beside {result['card']}")
+    cases = cases + webp_cases + lossy_cases
+    skips = skips + webp_skips + lossy_skips
+    pil_read += webp_pil + lossy_pil
     result["fixtures"] = {
         "cv2_reads": len(cases), "skip": len(skips),
         "skip_pil_reads": len(pil_read), "foreign": len(IMAGE_FOREIGN)}
@@ -5512,7 +5574,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           "RLE/W) are among the files cv2 reads")
     print("image formats: " + json.dumps(result["fixtures"]) + ": fixtures "
           "equal to expected.npz, skip/ files refused by the cv2 probe, "
-          "decoded as PIL or raising (AVIF, JPEG 2000, TIFF, WebP named)")
+          "decoded as PIL or raising (AVIF, JPEG 2000, TIFF named)")
     t0 = time.perf_counter()
     built_2c, result["built_tiff_2c"] = built_tiff_2c_checks(work)
     result["built_tiff_2c"]["seconds"] = time.perf_counter() - t0
@@ -5532,11 +5594,14 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           f"beside {result['card']}): "
           + json.dumps(result["built_tiff_modes"]))
     groups = {g: [str(p) for p in cases + built_2c + built_modes
-                  if p.name.startswith(prefixes)]
+                  if p.name.startswith(prefixes)
+                  and p.name != WEBP_LOSSY_BIG]
               for g, prefixes in IMAGE_GROUPS.items()}
     layouts = {q for g, paths in groups.items() if g.startswith("tiff_")
               for q in paths}
     groups["tiff"] = [q for q in groups["tiff"] if q not in layouts]
+    groups["webp"] = [q for q in groups["webp"]
+                      if q not in groups["webp_lossy"]]
     rates = group_decode_rates(groups)
     result["host_decode"] = rates
     print(f"host decode by format (one thread of {result['host_cpus']} CPUs,"
@@ -5574,7 +5639,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_bytes(p.read_bytes())
     written = int(want["generate_tree_written"]) + len(built_2c) + len(
-        webp_cases)
+        webp_cases) + len(lossy_cases)
     mixed_files = offline.tree_files(str(mixed))
     dims = native.probe([str(p) for p in mixed_files], reader="cv2")
     kept = [p for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]

@@ -29,6 +29,7 @@ OpenCV 5 refuses, a gray PFM, which cv2 refuses under IMREAD_COLOR, TIFFs
 of orientations 5 to 8).
 """
 
+import ctypes
 import importlib.util
 import io
 import struct
@@ -910,4 +911,611 @@ def webp_skip_cases(rng):
         smooth(rng, 8, 8), [("green",), ("green",)]))])
     out["webp_cache_12_bits.png"] = riff([(b"VP8L", vb(
         smooth(rng, 8, 8), cache_bits=12))])
+    return out
+
+
+# ------------------------------------------------------------- lossy WebP
+
+WEBP_LOSSY_SEED = 23  # the lossy WebP files draw from their own stream
+
+
+def _vp8_tables():
+    """{name: list} of vp8.cpp's probability tables (RFC 6386's, in
+    libwebp's order of the 4x4 modes), read from the source: the VP8
+    writer codes with them, and cv2 judges what it writes."""
+    import re
+    src = (Path(__file__).resolve().parents[2] / "tsr_tpu_torch" / "native"
+           / "vp8.cpp").read_text()
+    out = {}
+    for name in ("kBModesProba", "kCoeffsProba0", "kCoeffsUpdateProba"):
+        body = re.search(name + r"\[[^]]*\] = \{([^}]*)\}", src).group(1)
+        out[name] = [int(v) for v in re.findall(r"\d+", body)]
+    return out
+
+
+class BoolWriter:
+    """RFC 6386's boolean encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob, bit):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xffffffff
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v, bits):
+        for k in range(bits - 1, -1, -1):
+            self.put(128, (v >> k) & 1)
+
+    def signed(self, v, bits):
+        self.value(abs(v), bits)
+        self.put(128, int(v < 0))
+
+    def flush(self):
+        for _ in range(32):  # libvpx's padding: any decoder reads past it
+            self.put(128, 0)
+        return bytes(self.out)
+
+
+VP8_ZIGZAG = (0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15)
+VP8_BANDS = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)
+VP8_CATS = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
+            (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
+
+
+def _vp8_large(bw, p, v):
+    """GetLargeValue's tree for a level v >= 2."""
+    if v <= 4:
+        bw.put(p[3], 0)
+        bw.put(p[4], int(v > 2))
+        if v > 2:
+            bw.put(p[5], v - 3)
+        return
+    bw.put(p[3], 1)
+    if v <= 10:
+        bw.put(p[6], 0)
+        bw.put(p[7], int(v > 6))
+        if v <= 6:
+            bw.put(159, v - 5)
+        else:
+            bw.put(165, (v - 7) >> 1)
+            bw.put(145, (v - 7) & 1)
+        return
+    bw.put(p[6], 1)
+    cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+    bw.put(p[8], cat >> 1)
+    bw.put(p[9 + (cat >> 1)], cat & 1)
+    extra = v - (3 + (8 << cat))
+    tab = VP8_CATS[cat]
+    for k, prob in enumerate(tab):
+        bw.put(prob, (extra >> (len(tab) - 1 - k)) & 1)
+
+
+def _vp8_tokens(bw, proba, ctx, levels, first):
+    """One block's levels (zigzag order) from coefficient ``first``, as
+    GetCoeffs reads them; True where one is non-zero."""
+    nonzero = [n for n in range(first, 16) if levels[n]]
+    last = nonzero[-1] if nonzero else -1
+    n, p = first, proba[VP8_BANDS[first]][ctx]
+    while n < 16:
+        if n > last:
+            bw.put(p[0], 0)
+            break
+        bw.put(p[0], 1)
+        while not levels[n]:
+            bw.put(p[1], 0)
+            n += 1
+            p = proba[VP8_BANDS[n]][0]
+        bw.put(p[1], 1)
+        v = abs(int(levels[n]))
+        if v == 1:
+            bw.put(p[2], 0)
+            nxt = proba[VP8_BANDS[n + 1]][1]
+        else:
+            bw.put(p[2], 1)
+            _vp8_large(bw, p, v)
+            nxt = proba[VP8_BANDS[n + 1]][2]
+        bw.put(128, int(levels[n] < 0))
+        n, p = n + 1, nxt
+    return last >= 0
+
+
+def vp8_bytes(w, h, mbs, profile=0, colorspace=0, clamp=0, scale=(0, 0),
+              segments=None, simple=False, level=20, sharpness=0,
+              lf_delta=None, partitions=0, q=(40, 0, 0, 0, 0, 0),
+              skip_prob=None, empty_last=False):
+    """A VP8 key frame (RFC 6386) of ``w`` x ``h`` pixels whose macroblocks
+    (raster order) are ``mbs``: dicts of ``ymode`` (0 DC, 1 TM, 2 V, 3 H,
+    or "B" with ``bmodes``, 16 of libwebp's 4x4 modes 0-9), ``uvmode``,
+    ``segment``, ``skip`` and ``levels`` ({"y2": 16, "y": 16 x 16, "u",
+    "v": 4 x 16}, quantised and in zigzag order; missing blocks zero). The
+    header's ``profile`` (0-7), colour-space and clamping bits, the sides'
+    2-bit ``scale``; ``segments`` a dict of ``update_map``, ``data``
+    (None, or (absolute, 4 quantizers, 4 filter levels)) and ``probs``;
+    the filter's type, level and sharpness and ``lf_delta`` (4 ref and 4
+    mode deltas, None for none); 2^``partitions`` token partitions (the
+    last written empty with ``empty_last``); ``q`` the base index and its
+    five deltas; ``skip_prob`` the skip flag's probability (None: no skip
+    flags). Tokens are coded on the default probabilities, the modes on
+    RFC 6386's key-frame trees."""
+    t = _vp8_tables()
+    coeff = np.array(t["kCoeffsProba0"]).reshape(4, 8, 3, 11)
+    bmodes_p = np.array(t["kBModesProba"]).reshape(10, 10, 9)
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    assert len(mbs) == mb_w * mb_h
+    hdr = BoolWriter()
+    hdr.put(128, colorspace)
+    hdr.put(128, clamp)
+    hdr.put(128, int(segments is not None))
+    seg_probs = (255, 255, 255)
+    if segments is not None:
+        hdr.put(128, int(segments["update_map"]))
+        data = segments.get("data")
+        hdr.put(128, int(data is not None))
+        if data is not None:
+            absolute, quants, filters = data
+            hdr.put(128, int(absolute))
+            for v, bits in [(v, 7) for v in quants] + [(v, 6) for v in filters]:
+                hdr.put(128, int(v != 0))
+                if v:
+                    hdr.signed(v, bits)
+        if segments["update_map"]:
+            seg_probs = segments.get("probs", (128, 128, 128))
+            for p in seg_probs:
+                hdr.put(128, int(p != 255))
+                if p != 255:
+                    hdr.value(p, 8)
+    hdr.put(128, int(simple))
+    hdr.value(level, 6)
+    hdr.value(sharpness, 3)
+    hdr.put(128, int(lf_delta is not None))
+    if lf_delta is not None:
+        hdr.put(128, 1)
+        for v in list(lf_delta[0]) + list(lf_delta[1]):
+            hdr.put(128, 1)
+            hdr.signed(v, 6)
+    hdr.value(partitions, 2)
+    hdr.value(q[0], 7)
+    for d in q[1:]:
+        hdr.put(128, int(d != 0))
+        if d:
+            hdr.signed(d, 4)
+    hdr.put(128, 0)  # refresh_entropy_probs
+    for p in t["kCoeffsUpdateProba"]:
+        hdr.put(p, 0)  # no coefficient probability updated
+    hdr.put(128, int(skip_prob is not None))
+    if skip_prob is not None:
+        hdr.value(skip_prob, 8)
+    parts = [BoolWriter() for _ in range(1 << partitions)]
+    intra_t = [0] * (4 * mb_w)
+    top_nz = [[0] * 9 for _ in range(mb_w)]  # 4 y, 2 u, 2 v, y2
+    for my in range(mb_h):
+        intra_l = [0] * 4
+        left_nz = [0] * 9
+        tok = parts[my % len(parts)]
+        for mx in range(mb_w):
+            mb = mbs[my * mb_w + mx]
+            seg = mb.get("segment", 0)
+            if segments is not None and segments["update_map"]:
+                hdr.put(seg_probs[0], seg >> 1)
+                hdr.put(seg_probs[1 + (seg >> 1)], seg & 1)
+            skip = bool(mb.get("skip")) and skip_prob is not None
+            if skip_prob is not None:
+                hdr.put(skip_prob, int(skip))
+            i4 = mb["ymode"] == "B"
+            hdr.put(145, int(not i4))
+            top = intra_t[4 * mx:4 * mx + 4]
+            if not i4:
+                m = mb["ymode"]
+                hdr.put(156, int(m in (1, 3)))
+                hdr.put(128 if m in (1, 3) else 163, int(m in (1, 2)))
+                top, intra_l = [m] * 4, [m] * 4
+            else:
+                modes = mb["bmodes"]
+                for y in range(4):
+                    for x in range(4):
+                        m = modes[4 * y + x]
+                        p = bmodes_p[top[x], intra_l[y]]
+                        # the tree: DC | TM | VE | (HE | (RD | VR)) |
+                        # (LD | (VL | (HD | HU)))
+                        path = {0: [(0, 0)], 1: [(0, 1), (1, 0)],
+                                2: [(0, 1), (1, 1), (2, 0)],
+                                3: [(0, 1), (1, 1), (2, 1), (3, 0), (4, 0)],
+                                4: [(0, 1), (1, 1), (2, 1), (3, 0), (4, 1),
+                                    (5, 0)],
+                                5: [(0, 1), (1, 1), (2, 1), (3, 0), (4, 1),
+                                    (5, 1)],
+                                6: [(0, 1), (1, 1), (2, 1), (3, 1), (6, 0)],
+                                7: [(0, 1), (1, 1), (2, 1), (3, 1), (6, 1),
+                                    (7, 0)],
+                                8: [(0, 1), (1, 1), (2, 1), (3, 1), (6, 1),
+                                    (7, 1), (8, 0)],
+                                9: [(0, 1), (1, 1), (2, 1), (3, 1), (6, 1),
+                                    (7, 1), (8, 1)]}[m]
+                        for node, bit in path:
+                            hdr.put(int(p[node]), bit)
+                        top[x] = intra_l[y] = m
+            intra_t[4 * mx:4 * mx + 4] = top
+            uv = mb.get("uvmode", 0)
+            hdr.put(142, int(uv != 0))
+            if uv:
+                hdr.put(114, int(uv != 2))
+                if uv != 2:
+                    hdr.put(183, int(uv == 1))
+            tnz = top_nz[mx]
+            if skip:
+                for k in range(8):
+                    tnz[k] = left_nz[k] = 0
+                if not i4:
+                    tnz[8] = left_nz[8] = 0
+                continue
+            lv = mb.get("levels", {})
+            zero = [0] * 16
+            first, ytype = 0, 3
+            if not i4:
+                nz = _vp8_tokens(tok, coeff[1], tnz[8] + left_nz[8],
+                                 lv.get("y2", zero), 0)
+                tnz[8] = left_nz[8] = int(nz)
+                first, ytype = 1, 0
+            ys = lv.get("y", [zero] * 16)
+            for y in range(4):
+                for x in range(4):
+                    nz = _vp8_tokens(tok, coeff[ytype], tnz[x] + left_nz[y],
+                                     ys[4 * y + x], first)
+                    tnz[x] = left_nz[y] = int(nz)
+            for c, base in (("u", 4), ("v", 6)):
+                blocks = lv.get(c, [zero] * 4)
+                for y in range(2):
+                    for x in range(2):
+                        nz = _vp8_tokens(tok, coeff[2],
+                                         tnz[base + x] + left_nz[base + y],
+                                         blocks[2 * y + x], 0)
+                        tnz[base + x] = left_nz[base + y] = int(nz)
+    first_part = hdr.flush()
+    datas = [p.flush() for p in parts]
+    if empty_last:
+        datas[-1] = b""
+    sizes = b"".join(len(d).to_bytes(3, "little") for d in datas[:-1])
+    tag = (profile << 1) | (1 << 4) | (len(first_part) << 5)
+    return (tag.to_bytes(3, "little") + b"\x9d\x01\x2a"
+            + (w | scale[0] << 14).to_bytes(2, "little")
+            + (h | scale[1] << 14).to_bytes(2, "little") + first_part + sizes
+            + b"".join(datas))
+
+
+def vp8_random_mbs(rng, w, h, i4_share=0.5, segments=1, skip_share=0.0,
+                   amp=3):
+    """Macroblocks for vp8_bytes: 16x16 or 4x4 prediction in random modes,
+    random segments, skip flags and small random levels (most zero)."""
+    out = []
+    for _ in range(((w + 15) // 16) * ((h + 15) // 16)):
+        def blk(n):
+            v = rng.integers(-amp, amp + 1, (n, 16))
+            v[rng.random((n, 16)) < 0.7] = 0
+            v[:, 6:] = np.where(rng.random((n, 10)) < 0.8, 0, v[:, 6:])
+            return v.tolist()
+        mb = {"uvmode": int(rng.integers(4)),
+              "segment": int(rng.integers(segments)),
+              "skip": bool(rng.random() < skip_share),
+              "levels": {"y2": blk(1)[0], "y": blk(16), "u": blk(4),
+                         "v": blk(4)}}
+        if rng.random() < i4_share:
+            mb["ymode"] = "B"
+            mb["bmodes"] = rng.integers(0, 10, 16).tolist()
+        else:
+            mb["ymode"] = int(rng.integers(4))
+        out.append(mb)
+    return out
+
+
+
+def _libwebp():
+    """Pillow's bundled libwebp (the encoder and decoder the readers use)
+    through ctypes."""
+    import PIL
+    libs = Path(PIL.__file__).resolve().parent.parent / "pillow.libs"
+    ctypes.CDLL(str(next(libs.glob("libsharpyuv*"))), mode=ctypes.RTLD_GLOBAL)
+    return ctypes.CDLL(str(next(libs.glob("libwebp-*"))))
+
+
+class WebPConfig(ctypes.Structure):
+    """libwebp's WebPConfig (encode.h)."""
+    _fields_ = [(n, ctypes.c_float if n in ("quality", "target_PSNR")
+                 else ctypes.c_int) for n in (
+        "lossless quality method image_hint target_size target_PSNR segments "
+        "sns_strength filter_strength filter_sharpness filter_type autofilter "
+        "alpha_compression alpha_filtering alpha_quality pass show_compressed "
+        "preprocessing partitions partition_limit emulate_jpeg_size "
+        "thread_level low_memory near_lossless exact use_delta_palette "
+        "use_sharp_yuv qmin qmax").split()]
+
+
+class WebPPicture(ctypes.Structure):
+    """libwebp's WebPPicture (encode.h)."""
+    _p, _i, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    _fields_ = [("use_argb", _i), ("colorspace", _i), ("width", _i),
+                ("height", _i), ("y", _p), ("u", _p), ("v", _p),
+                ("y_stride", _i), ("uv_stride", _i), ("a", _p),
+                ("a_stride", _i), ("pad1", _u * 2), ("argb", _p),
+                ("argb_stride", _i), ("pad2", _u * 3), ("writer", _p),
+                ("custom_ptr", _p), ("extra_info_type", _i),
+                ("extra_info", _p), ("stats", _p), ("error_code", _i),
+                ("progress_hook", _p), ("user_data", _p), ("pad3", _u * 3),
+                ("pad4", _p), ("pad5", _p), ("pad6", _u * 8),
+                ("memory_", _p), ("memory_argb_", _p), ("pad7", _p * 2)]
+
+
+class WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.c_void_p), ("size", ctypes.c_size_t),
+                ("max_size", ctypes.c_size_t), ("pad", ctypes.c_uint32)]
+
+
+ENCODER_ABI = 0x020f  # any 2.x: libwebp checks the major version alone
+
+
+def libwebp_encode(img, quality=75.0, **options):
+    """libwebp's WebPEncode of an RGB or RGBA image with WebPConfig's
+    ``options`` (segments, filter_type, filter_sharpness, filter_strength,
+    autofilter, partitions, alpha_compression, alpha_filtering,
+    alpha_quality, ...) over its default preset: a lossy RIFF file."""
+    lib = _libwebp()
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    cfg = WebPConfig()
+    assert lib.WebPConfigInitInternal(ctypes.byref(cfg), 0,
+                                      ctypes.c_float(quality), ENCODER_ABI)
+    for k, v in options.items():
+        setattr(cfg, k, v)
+    assert lib.WebPValidateConfig(ctypes.byref(cfg)), options
+    pic = WebPPicture()
+    assert lib.WebPPictureInitInternal(ctypes.byref(pic), ENCODER_ABI)
+    pic.width, pic.height = w, h
+    importer = lib.WebPPictureImportRGBA if c == 4 else lib.WebPPictureImportRGB
+    assert importer(ctypes.byref(pic), img.ctypes.data_as(ctypes.c_void_p),
+                    w * c)
+    mem = WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(mem))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p)
+    pic.custom_ptr = ctypes.cast(ctypes.byref(mem), ctypes.c_void_p)
+    ok = lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic))
+    out = ctypes.string_at(mem.mem, mem.size)
+    lib.WebPPictureFree(ctypes.byref(pic))
+    lib.WebPMemoryWriterClear(ctypes.byref(mem))
+    assert ok, pic.error_code
+    return out
+
+
+def webp_lossy_cv2(img, quality):
+    """cv2.imwrite's WebP of an RGB image at ``quality`` (<= 100: lossy)."""
+    ok, enc = cv2.imencode(".webp", np.ascontiguousarray(img[:, :, ::-1]),
+                           [cv2.IMWRITE_WEBP_QUALITY, quality])
+    assert ok
+    return enc.tobytes()
+
+
+def webp_lossy_pil(img, **kw):
+    """Pillow's WebP of ``img`` (RGB or RGBA) at its defaults (lossy)."""
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def grain(rng, h, w, amp=10):
+    """Gradients with grain of +-``amp`` and a flat box: content that uses
+    every kind of macroblock."""
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
+                    (x * 3 + y * 5) % 256], -1)
+    img = img + rng.integers(-amp, amp + 1, (h, w, 3))
+    img[h // 4:h // 2, w // 3:w // 2] = rng.integers(0, 256, 3)
+    return img.clip(0, 255).astype(np.uint8)
+
+
+def with_alpha_header(data, byte):
+    """``data`` (a RIFF file with an ALPH chunk) with the chunk's header
+    byte set to ``byte``."""
+    i = data.index(b"ALPH") + 8
+    return data[:i] + bytes([byte]) + data[i + 1:]
+
+
+def vp8_payload(data):
+    return dict(webp_chunks(data))[b"VP8 "]
+
+
+def webp_lossy_cases(rng):
+    """{name: bytes} of the lossy WebP files cv2.imread reads: cv2's and
+    Pillow's writers at odd sizes and qualities 5-100, libwebp's encoder
+    with 1-4 segments, simple and normal filters, sharpness 0-7, filter
+    strength 0 and 1, 2, 4 or 8 partitions, RGBA with ALPH methods 0 and
+    1, filters 0-3 and pre-processing (one whose VP8X has no alpha flag:
+    cv2 decodes the ALPH chunk, PIL does not), an animation's lossy first
+    frame at an offset, EXIF orientations 2-8, trailing bytes, a raw VP8
+    stream whose first partition ends inside 32 bytes, and frames the VP8
+    writer makes with what libwebp's encoder never writes (loop-filter
+    deltas, profile 3, the colour-space, clamping and scale bits, a
+    segment map without segment data, 8 partitions, skip flags)."""
+    riff = chip_smoke.webp_riff
+    out = {}
+    for (h, w), q in zip([(1, 1), (1, 37), (29, 1), (17, 33), (37, 51),
+                          (24, 40)], (5, 25, 50, 75, 90, 100)):
+        out[f"webp_lossy_cv2_{h}x{w}_q{q}.png"] = webp_lossy_cv2(
+            grain(rng, h, w), q)
+    out["webp_lossy_pil_rgb.jpg"] = webp_lossy_pil(grain(rng, 30, 44))
+    rgba = np.concatenate([grain(rng, 26, 34), rng.integers(
+        0, 256, (26, 34, 1)).astype(np.uint8)], 2)
+    rgba[::4, :, 3] = 255
+    out["webp_lossy_pil_rgba.png"] = webp_lossy_pil(rgba)
+    img = grain(rng, 32, 48)
+    for name, kw in (("segments_1", {"segments": 1}),
+                     ("segments_2", {"segments": 2}),
+                     ("segments_3", {"segments": 3}),
+                     ("segments_4_sharp_7", {"segments": 4,
+                                             "filter_sharpness": 7}),
+                     ("simple_filter", {"filter_type": 0,
+                                        "filter_strength": 70}),
+                     ("simple_sharp_3", {"filter_type": 0,
+                                         "filter_strength": 40,
+                                         "filter_sharpness": 3}),
+                     ("normal_sharp_5", {"filter_type": 1,
+                                         "filter_strength": 90,
+                                         "filter_sharpness": 5}),
+                     ("filter_off", {"filter_strength": 0, "autofilter": 0}),
+                     # (libwebp writes one partition where it buffers
+                     # tokens: methods 1-6 without low_memory)
+                     ("partitions_2", {"partitions": 1, "method": 0}),
+                     ("partitions_4", {"partitions": 2, "low_memory": 1}),
+                     ("partitions_8", {"partitions": 3, "method": 0,
+                                       "segments": 4})):
+        out[f"webp_lossy_enc_{name}.png"] = libwebp_encode(img, 60, **kw)
+    alpha = np.concatenate([grain(rng, 20, 26), (rng.integers(
+        0, 4, (20, 26, 1)) * 85).astype(np.uint8)], 2)
+    for name, kw in (("raw", {"alpha_compression": 0}),
+                     ("lossless", {"alpha_compression": 1,
+                                   "alpha_filtering": 0}),
+                     ("filter_fast", {"alpha_filtering": 1}),
+                     ("filter_best", {"alpha_filtering": 2}),
+                     ("levels", {"alpha_quality": 30})):
+        out[f"webp_lossy_alpha_{name}.png"] = libwebp_encode(alpha, 70, **kw)
+    base = libwebp_encode(alpha, 70, alpha_compression=0)
+    for f in range(4):  # each filter bit pattern (the alpha is dropped)
+        out[f"webp_lossy_alpha_filter_{f}.png"] = with_alpha_header(
+            base, f << 2)
+    chunks = dict(webp_chunks(base))
+    out["webp_lossy_alpha_no_flag.png"] = riff([
+        vp8x(26, 20, 0), (b"ALPH", chunks[b"ALPH"]), (b"VP8 ",
+                                                      chunks[b"VP8 "])])
+    frame = libwebp_encode(alpha, 50, alpha_compression=1)
+    fch = dict(webp_chunks(frame))
+    out["webp_lossy_anim_offset.png"] = riff([
+        vp8x(40, 30, 0x12), (b"ANIM", bytes(6)),
+        anmf(6, 4, 26, 20, [(b"ALPH", fch[b"ALPH"]), (b"VP8 ", fch[b"VP8 "])]),
+        anmf(0, 0, 8, 8, [(b"VP8 ", vp8_payload(libwebp_encode(
+            grain(rng, 8, 8), 50)))])])
+    frames = [Image.fromarray(grain(rng, 12, 16)) for _ in range(2)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:])
+    out["webp_lossy_anim_pil.jpg"] = buf.getvalue()
+    still = vp8_payload(libwebp_encode(grain(rng, 14, 18), 60))
+    for o in range(2, 9):
+        out[f"webp_lossy_exif_{o}.png"] = riff([
+            vp8x(18, 14, 0x08), (b"VP8 ", still),
+            (b"EXIF", exif_tiff(o, big=o % 2 == 1))])
+    out["webp_lossy_trailing_bytes.png"] = webp_lossy_cv2(
+        grain(rng, 15, 21), 70) + bytes(9)
+    flat = vp8_payload(libwebp_encode(np.full((64, 64, 3), (90, 140, 200),
+                                              np.uint8), 75))
+    assert (int.from_bytes(flat[:3], "little") >> 5) < 32 <= len(flat)
+    out["webp_lossy_raw_vp8.png"] = flat
+    wr = [("deltas", {"lf_delta": ((4, -3, 2, 1), (9, -4, 3, 2)),
+                      "level": 24, "sharpness": 2}),
+          ("deltas_simple", {"lf_delta": ((-6, 0, 0, 0), (12, 0, 0, 0)),
+                             "simple": True, "level": 30}),
+          ("profile_3", {"profile": 3, "level": 0}),
+          ("header_bits", {"profile": 1, "colorspace": 1, "clamp": 1,
+                           "scale": (2, 3)}),
+          ("map_without_data", {"segments": {"update_map": True,
+                                             "probs": (90, 160, 30)},
+                                "seg": 4}),
+          ("segment_data", {"segments": {
+              "update_map": True, "probs": (120, 255, 60),
+              "data": (False, (6, -12, 24, 40), (5, -8, 12, 30))},
+              "seg": 4}),
+          ("partitions_8", {"partitions": 3, "skip_prob": 90, "skip": 0.3}),
+          ("quant_deltas", {"q": (20, 4, -6, 8, -9, 5), "level": 40,
+                            "sharpness": 6})]
+    for name, kw in wr:
+        kw = dict(kw)
+        mbs = vp8_random_mbs(rng, 40, 36, segments=kw.pop("seg", 1),
+                             skip_share=kw.pop("skip", 0.0))
+        out[f"webp_lossy_writer_{name}.png"] = riff([(b"VP8 ", vp8_bytes(
+            40, 36, mbs, **kw))])
+    return out
+
+
+def webp_lossy_skip_cases(rng):
+    """{name: bytes} of the lossy WebP files cv2.imread gives None for:
+    those PIL reads (an ALPH chunk cv2's WebPDecode refuses in a VP8X
+    without the alpha flag, which WebPDemux drops: a reserved bit, method
+    3, pre-processing 2) and those both refuse: a raw VP8 stream under 32
+    bytes, one whose first partition does not end inside 32 bytes, a
+    cut file, a first partition or token partition cut short, an empty last
+    partition, a partition length past the chunk, a non-key frame, a
+    hidden frame, profile 4, a bad start code, a frame of another size
+    than its canvas, ALPH damage in a frame both read (a reserved bit, a
+    raw plane too short, a VP8L stream cut short or of a bad code)."""
+    riff = chip_smoke.webp_riff
+    out = {}
+    alpha = np.concatenate([grain(rng, 20, 26), (rng.integers(
+        0, 4, (20, 26, 1)) * 85).astype(np.uint8)], 2)
+    base = libwebp_encode(alpha, 70, alpha_compression=0)
+    ch = dict(webp_chunks(base))
+    vp8, alph = ch[b"VP8 "], ch[b"ALPH"]
+    for name, byte in (("reserved", 0x40), ("method_3", 0x03),
+                       ("preprocessing_2", 0x20)):
+        out[f"webp_lossy_alpha_{name}_no_flag.png"] = riff([
+            vp8x(26, 20, 0), (b"ALPH", bytes([byte]) + alph[1:]),
+            (b"VP8 ", vp8)])
+        out[f"webp_lossy_alpha_{name}.png"] = riff([
+            vp8x(26, 20, 0x10), (b"ALPH", bytes([byte]) + alph[1:]),
+            (b"VP8 ", vp8)])
+    out["webp_lossy_alpha_raw_short.png"] = riff([
+        vp8x(26, 20, 0x10), (b"ALPH", alph[:-1]), (b"VP8 ", vp8)])
+    lossless = chip_smoke.vp8l_bytes(np.stack([
+        np.zeros((20, 26), np.uint8), alpha[..., 3], np.zeros(
+            (20, 26), np.uint8)], -1))[5:]
+    out["webp_lossy_alpha_vp8l_cut.png"] = riff([
+        vp8x(26, 20, 0x10), (b"ALPH", b"\x01" + lossless[:len(lossless) // 2]),
+        (b"VP8 ", vp8)])
+    out["webp_lossy_alpha_vp8l_bad_code.png"] = riff([
+        vp8x(26, 20, 0x10), (b"ALPH", b"\x01\xff\xff\xff\xff" + lossless),
+        (b"VP8 ", vp8)])
+    tiny = vp8_payload(libwebp_encode(np.full((8, 8, 3), 77, np.uint8), 75))
+    assert len(tiny) < 32
+    out["webp_lossy_raw_under_32_bytes.png"] = tiny
+    big = vp8_payload(libwebp_encode(grain(rng, 48, 64), 75))
+    assert int.from_bytes(big[:3], "little") >> 5 >= 32
+    out["webp_lossy_raw_vp8_long_partition.png"] = big
+    f = webp_lossy_cv2(grain(rng, 24, 30), 80)
+    out["webp_lossy_cut.png"] = f[:len(f) * 3 // 4]
+    body = vp8_payload(f)
+    first = int.from_bytes(body[:3], "little") >> 5
+    out["webp_lossy_first_partition_cut.png"] = riff([
+        (b"VP8 ", body[:10 + first // 2])])
+    out["webp_lossy_tokens_cut.png"] = riff([
+        (b"VP8 ", body[:10 + first + (len(body) - 10 - first) // 3])])
+    mbs = vp8_random_mbs(rng, 40, 36)
+    out["webp_lossy_empty_last_partition.png"] = riff([(b"VP8 ", vp8_bytes(
+        40, 36, mbs, partitions=2, empty_last=True))])
+    tag = int.from_bytes(body[:3], "little")
+    for name, new in (("partition_past_chunk", (tag & 31) | (len(body) << 5)),
+                      ("inter_frame", tag | 1), ("hidden", tag & ~16),
+                      ("profile_4", (tag & ~14) | (4 << 1))):
+        out[f"webp_lossy_{name}.png"] = riff([
+            (b"VP8 ", new.to_bytes(3, "little") + body[3:])])
+    out["webp_lossy_start_code.png"] = riff([
+        (b"VP8 ", body[:3] + b"\x9d\x01\x2b" + body[6:])])
+    out["webp_lossy_canvas_other.png"] = riff([
+        vp8x(31, 24, 0), (b"VP8 ", body)])
     return out

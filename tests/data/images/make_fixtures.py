@@ -57,15 +57,15 @@ globals().update({name: getattr(image_cases, name) for name in dir(image_cases)
 
 
 def foreign(rng):
-    """AVIF, JPEG 2000 and WebP data under .png and .jpg names, and
-    Pillow's ZSTD-compressed TIFF (a TIFF layout the port does not
-    decode)."""
+    """AVIF and JPEG 2000 data (a JP2 file and a raw codestream) under .png
+    and .jpg names, and Pillow's ZSTD-compressed TIFF (a TIFF layout the
+    port does not decode)."""
     out = {}
     out["tiff_zstd.png"] = pil_tiff(smooth(np.random.default_rng(
         TIFF2C_SEED + 1), 4, 6), "RGB", compression="zstd")
     for name, fmt, h, w in (("avif.png", "AVIF", 24, 30),
                             ("jp2.jpg", "JPEG2000", 28, 22),
-                            ("webp.png", "WEBP", 26, 32)):
+                            ("j2k.png", "JPEG2000", 26, 32)):
         img = smooth(rng, h, w)
         if fmt == "AVIF":  # cv2's writer
             ok, enc = cv2.imencode(".avif", img[:, :, ::-1])
@@ -73,7 +73,11 @@ def foreign(rng):
             out[name] = enc.tobytes()
             continue
         buf = io.BytesIO()
-        Image.fromarray(img).save(buf, fmt)
+        if name == "j2k.png":  # a raw codestream, cut small: the directory's
+            # size is bounded
+            Image.fromarray(img[:8, :8]).save(buf, fmt, no_jp2=True)
+        else:
+            Image.fromarray(img).save(buf, fmt)
         out[name] = buf.getvalue()
     return out
 
@@ -195,7 +199,7 @@ def _names():
 
 
 CASES, SKIP_CASES = _names()
-FOREIGN = ("avif.png", "jp2.jpg", "tiff_zstd.png", "webp.png")
+FOREIGN = ("avif.png", "jp2.jpg", "tiff_zstd.png", "j2k.png")
 
 if __name__ == "__main__":
     make()

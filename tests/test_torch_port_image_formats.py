@@ -20,9 +20,9 @@ refused or read differently, against cv2, PIL and tsr_tpu on the CPU:
   and values past the int range reading 0; PIL's gray "Pf", which cv2
   refuses under IMREAD_COLOR: truncated) and Radiance HDR (run-length
   encoded and flat, x 255 and rounded), cut and mutated too;
-- C7: AVIF, JPEG 2000 and WebP data under .png/.jpg names, and a
-  JPEG-compressed TIFF, raise naming their format (the port does not
-  decode them); the TIFF fixtures themselves are
+- C7: AVIF and JPEG 2000 data (a JP2 file and a raw codestream) under
+  .png/.jpg names, and a ZSTD-compressed TIFF, raise naming their format
+  (the port does not decode them); the TIFF fixtures themselves are
   tests/test_torch_port_tiff.py's;
 - C8, the first step: the formats only Pillow reads (its own writers'
   files, named .png) raise naming the format where Pillow's checks of the
@@ -140,7 +140,7 @@ def test_skip_class_reads_as_reference(name):
 @pytest.mark.parametrize("name,fmt", [("avif.png", "AVIF"),
                                       ("jp2.jpg", "JPEG 2000"),
                                       ("tiff_zstd.png", "TIFF"),
-                                      ("webp.png", "WebP")])
+                                      ("j2k.png", "JPEG 2000")])
 def test_foreign_format_raises_naming_it(name, fmt):
     """C7: data of a format cv2 reads by its signature and the port does
     not decode, or a TIFF layout it does not decode (ZSTD, which only PIL
@@ -312,17 +312,18 @@ def test_pfm_and_hdr_arithmetic(name):
 def test_foreign_formats_match_codec_header():
     """native.FORMATS names codec.h's foreign-format statuses in their
     order (after FEATURES), so _failure names the format a status means;
-    GIF, Sun raster, PFM and Radiance HDR are gone from both."""
+    GIF, Sun raster, PFM, Radiance HDR and WebP are gone from both."""
     header = (Path(native.__file__).parent / "codec.h").read_text()
     start = header.index("enum Status")
     enum = header[start:header.index("};", start)]
     codes = [int(v) for v in re.findall(r"= (-\d+),", enum)]
     assert codes == list(range(-1, -len(native.FEATURES)
                                - len(native.FORMATS) - 1, -1))
-    assert native.FORMATS == ("TIFF", "WebP", "JPEG 2000", "AVIF", "PCX",
-                              "SGI", "ICO/CUR", "DDS", "QOI", "ICNS", "MSP",
-                              "IM", "SPIDER")
+    assert native.FORMATS == ("TIFF", "JPEG 2000", "AVIF", "PCX", "SGI",
+                              "ICO/CUR", "DDS", "QOI", "ICNS", "MSP", "IM",
+                              "SPIDER")
     assert "kGif" not in enum and "kSunRaster" not in enum
+    assert "kWebp" not in enum and "WebP" not in native.FORMATS
     assert "kPfm" not in enum and "kHdr" not in enum
     for status, fmt in enumerate(native.FORMATS, len(native.FEATURES) + 1):
         assert f"holds {fmt} data" in str(native._failure("x", -status))

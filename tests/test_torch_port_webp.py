@@ -13,7 +13,9 @@ refused as both refuse), max diff 0:
   chip_smoke.vp8l_bytes writes with each VP8L feature; under skip/ a valid
   1 x 1 file of 28 bytes (PIL reads it, cv2 wants 32) and the layouts and
   streams both readers refuse: decode raises "failed to decode", never
-  naming WebP, the cv2 probe gives (0, 0), load_batch raises;
+  naming WebP, the cv2 probe gives (0, 0), load_batch raises; a lossy
+  still image and animation read as cv2 reads them (WebP part 2's decoder,
+  whose own tests are test_torch_port_webp_lossy.py);
 - each VP8L feature held also to libwebp itself (Pillow's bundled libwebp
   through ctypes, alpha included) and to the pixels written: the 16
   predictor modes, colour caches of 1 to 11 bits, colour indexing at every
@@ -33,7 +35,6 @@ from pathlib import Path
 
 import cv2
 import numpy as np
-import PIL
 import pytest
 import torch
 from PIL import Image
@@ -66,9 +67,7 @@ CONTAINER_REFUSED = ("webp_cut.png", "webp_canvas_14x10.png",
 
 def _libwebp():
     """Pillow's bundled libwebp (its decoder, the readers' own)."""
-    libs = Path(PIL.__file__).resolve().parent.parent / "pillow.libs"
-    ctypes.CDLL(str(next(libs.glob("libsharpyuv*"))), mode=ctypes.RTLD_GLOBAL)
-    lib = ctypes.CDLL(str(next(libs.glob("libwebp-*"))))
+    lib = cases._libwebp()
     lib.WebPDecodeRGBA.restype = ctypes.POINTER(ctypes.c_uint8)
     lib.WebPDecodeRGBA.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                    ctypes.POINTER(ctypes.c_int),
@@ -369,11 +368,11 @@ def test_raw_vp8l_stream_and_file_size_limit(tmp_path):
     assert _reads_as_reference(p) == "pil"
 
 
-def test_lossy_image_raises_naming_webp(tmp_path):
-    """Where the image a reader would decode is lossy (a still VP8X of a
-    "VP8 " chunk, an animation whose first frame is), the reader paths
-    raise naming WebP, as for Pillow's default file; the cv2 probe gives
-    (0, 0)."""
+def test_lossy_image_decodes_as_cv2(tmp_path):
+    """Where the image a reader decodes is lossy (a still VP8X of a "VP8 "
+    chunk, an animation whose first frame is, the second lossless), the
+    reader paths read it as cv2 does (its lossy decode, WebP part 2), as
+    for Pillow's default file; both probes give its size."""
     rng = np.random.default_rng(62)
     buf = io.BytesIO()
     Image.fromarray(cases.smooth(rng, 8, 8)).save(buf, "WEBP")
@@ -388,13 +387,11 @@ def test_lossy_image_raises_naming_webp(tmp_path):
     for name, data in files.items():
         p = tmp_path / name
         p.write_bytes(data)
-        assert cv2.imread(str(p)) is not None
-        for call in (lambda: native.decode(str(p)),
-                     lambda: native.load_batch([str(p)], SIZE),
-                     lambda: native.probe([str(p)])):
-            with pytest.raises(RuntimeError, match="holds WebP data"):
-                call()
-        assert native.probe([str(p)], reader="cv2").tolist() == [[0, 0]]
+        want = cv2.imread(str(p))[:, :, ::-1]
+        np.testing.assert_array_equal(native.decode(str(p)), want)
+        assert native.load_batch([str(p)], SIZE).shape == (1, SIZE, SIZE, 3)
+        for reader in ("port", "cv2"):
+            assert native.probe([str(p)], reader=reader).tolist() == [[8, 8]]
 
 
 # the canvases of header-only animations (one 1 x 1 frame) at cv2's limits

@@ -1,6 +1,6 @@
 """The port's image IO: ``tsrio.cpp``, ``jpeg.cpp``, ``formats.cpp``,
-``gif.cpp``, ``hdr.cpp``, ``tiff.cpp`` and ``webp.cpp`` bound with
-``ctypes``.
+``gif.cpp``, ``hdr.cpp``, ``tiff.cpp``, ``webp.cpp`` and ``vp8.cpp``
+bound with ``ctypes``.
 
 The port's own copy of ``tsr_tpu/native`` and its only codec (no module of
 the port imports cv2 or PIL, and the library links nothing but zlib). It
@@ -22,11 +22,13 @@ CCITT RLE, group 3, group 4, RLE/W, JPEG or ThunderScan, SGILog's LogL and
 LogLuv as cv2 reads them, or a compression that names no codec,
 orientations as cv2 applies them, else as PIL does; Pillow's 32-bit,
 float, 16-bit signed and 12-bit modes and old-style JPEG as PIL reads
-them); lossless WebP (the RIFF container, a still image or an
-animation's first frame on its zeroed canvas, VP8L with every transform,
-colour cache and prefix code; a raw VP8L stream, the EXIF orientation and
-cv2's 32-byte and 64 MiB limits as cv2 reads them, the files under 32
-bytes as PIL reads them); JPEG
+them); WebP (the RIFF container, a still image or an animation's first
+frame on its zeroed canvas; lossless VP8L with every transform, colour
+cache and prefix code; lossy VP8 with its segments, loop filters, token
+partitions and ALPH chunk, upsampled as libwebp upsamples it; a raw VP8L
+stream, a raw VP8 stream whose first partition ends inside 32 bytes, the
+EXIF orientation and cv2's 32-byte and 64 MiB limits as cv2 reads them,
+the files under 32 bytes as PIL reads them); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
 or corrupt as libjpeg recovers it, FF FF 00 in entropy data as
 libjpeg-turbo's fast and slow Huffman passes read it, lossless); EXIF
@@ -34,8 +36,8 @@ orientation applied as
 cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
-port does not decode (:data:`FORMATS`: lossy WebP, JPEG 2000, AVIF, and
-TIFF of another layout: LZMA or ZSTD compression, Pillow's LAB...), or
+port does not decode (:data:`FORMATS`: JPEG 2000, AVIF, and TIFF of
+another layout: LZMA or ZSTD compression, Pillow's LAB...), or
 that only
 PIL reads and the port does not decode (PCX, SGI, ICO/CUR, DDS, QOI, ICNS,
 MSP, IM, SPIDER, told by Pillow's own checks of the first bytes), raises
@@ -80,7 +82,7 @@ from tsr_tpu_torch.kernels import _build
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp",
            _HERE / "gif.cpp", _HERE / "hdr.cpp", _HERE / "tiff.cpp",
-           _HERE / "webp.cpp")
+           _HERE / "webp.cpp", _HERE / "vp8.cpp")
 HEADERS = (_HERE / "codec.h",)
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
@@ -100,8 +102,8 @@ FEATURES = (
 # the formats cv2.imread reads and the port does not decode, told by their
 # signatures, then those only PIL reads (by Pillow's own checks of the first
 # bytes), in codec.h's order after FEATURES
-FORMATS = ("TIFF", "WebP", "JPEG 2000", "AVIF", "PCX", "SGI", "ICO/CUR",
-           "DDS", "QOI", "ICNS", "MSP", "IM", "SPIDER")
+FORMATS = ("TIFF", "JPEG 2000", "AVIF", "PCX", "SGI", "ICO/CUR", "DDS",
+           "QOI", "ICNS", "MSP", "IM", "SPIDER")
 _READERS = {"port": 0, "cv2": 1}
 _RESIZE_MODES = {"cv2": 0, "pil": 1}
 
@@ -166,6 +168,10 @@ def _lib() -> ctypes.CDLL:
             lib.tsrio_write_batch.argtypes = [
                 ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int]
+            lib.tsrio_webp_lossy_planes.restype = ctypes.c_int
+            lib.tsrio_webp_lossy_planes.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, u8p,
+                ctypes.c_size_t, ctypes.POINTER(ctypes.c_int)]
             _LIB = lib
         return _LIB
 
@@ -319,16 +325,21 @@ def probe(paths: Sequence[str], threads: int = 8, reader: str = "port",
       depth, ThunderScan of other than 4 bits, SGILog of other than LogL
       or LogLuv data), and an orientation of 1-4 (5-8 give None
       but for a square image; the port decodes them as PIL does, rotated);
-    - WebP (``RIFF`` ``WEBP``, or a raw VP8L stream): 32 bytes or more and
-      at most 64 MiB, the first 32 accepted by WebPGetFeatures; a still
-      image (libwebp's header parse over the whole file, its VP8L data
-      allowed to run on past its chunk) or an animation (WebPDemux: every
-      chunk and frame, a frame inside its canvas), then the VP8L stream
-      (each prefix code complete, every backward reference inside the
-      image, no read past the data); the EXIF orientation applied where
+    - WebP (``RIFF`` ``WEBP``, or a raw VP8L or VP8 stream): 32 bytes or
+      more and at most 64 MiB, the first 32 accepted by WebPGetFeatures (a
+      raw VP8 stream's first partition must end inside them); a still
+      image (libwebp's header parse over the whole file, its VP8L data or
+      last VP8 token partition allowed to run on past its chunk) or an
+      animation (WebPDemux: every chunk and frame, a frame inside its
+      canvas), then the VP8L stream (each prefix code complete, every
+      backward reference inside the image, no read past the data) or the
+      VP8 frame (a key frame, its partitions inside the data, no mode row
+      or macroblock past the end of its partition) and its ALPH chunk
+      (the header byte's method, pre-processing and reserved bits; the raw
+      size, or a VP8L stream as above); the EXIF orientation applied where
       WebPDemux accepts the file and the VP8X flag stores the chunk;
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
-      does not decode it: lossy WebP among them).
+      does not decode it).
 
     A header whose size imread's validateInputImageSize refuses (a side of
     0 or past 2^20, more than 2^30 pixels; checked once the format's own

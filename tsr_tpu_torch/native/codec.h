@@ -1,8 +1,9 @@
 // codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp, gif.cpp, hdr.cpp,
-// tiff.cpp and webp.cpp share: the decoded image, the image-size rules, the
-// status codes a decode or a header probe returns, the JPEG codec's entry
-// points, the PNG/PNM/PFM/PAM/BMP/Sun raster, GIF, Radiance HDR, TIFF and
-// WebP readers and the EXIF orientation JPEG, PNG, TIFF and WebP carry.
+// tiff.cpp, webp.cpp and vp8.cpp share: the decoded image, the image-size
+// rules, the status codes a decode or a header probe returns, the JPEG
+// codec's entry points, the PNG/PNM/PFM/PAM/BMP/Sun raster, GIF, Radiance
+// HDR, TIFF and WebP readers, the VP8 decoder and the EXIF orientation
+// JPEG, PNG, TIFF and WebP carry.
 #pragma once
 
 #include <cmath>
@@ -64,20 +65,19 @@ enum Status : int {
   kLosslessArithmetic = -4,  // lossless JPEG, arithmetic coded (SOF11)
   kLosslessColor = -5,       // lossless JPEG in YCbCr or YCCK
   kTiff = -6,
-  kWebp = -7,  // a lossy (VP8) image: the port decodes lossless WebP alone
-  kJpeg2000 = -8,
-  kAvif = -9,
+  kJpeg2000 = -7,
+  kAvif = -8,
   // formats only PIL reads, which the library does not decode (told by
   // Pillow's own checks of their first bytes)
-  kPcx = -10,
-  kSgi = -11,
-  kIco = -12,  // ICO or CUR
-  kDds = -13,
-  kQoi = -14,
-  kIcns = -15,
-  kMsp = -16,
-  kIm = -17,
-  kSpider = -18,
+  kPcx = -9,
+  kSgi = -10,
+  kIco = -11,  // ICO or CUR
+  kDds = -12,
+  kQoi = -13,
+  kIcns = -14,
+  kMsp = -15,
+  kIm = -16,
+  kSpider = -17,
 };
 
 // True where `data` starts as a JPEG file does (SOI, then a marker).
@@ -162,17 +162,15 @@ int ojpeg_decode(const uint8_t* data, size_t n, const std::vector<size_t>& bound
 // tiff.cpp, webp.cpp): kOk with the (h, w) it gives in dims (EXIF
 // orientation applied) and, with img, its pixels as RGB; kUnreadable where
 // cv2.imread gives None, kRaises where it raises (the reference's readers
-// then raise too, so PIL is not tried), kTiff for a TIFF layout and kWebp
-// for a lossy WebP image cv2 reads and the port does not decode. `head`
-// reads the header alone.
+// then raise too, so PIL is not tried), kTiff for a TIFF layout cv2 reads
+// and the port does not decode. `head` reads the header alone.
 int read_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // The same formats as PIL's Image.open(path).convert("RGB") reads them
 // (no EXIF orientation but a TIFF's; of PFM the gray "Pf" alone; no
 // Radiance HDR): kOk, kUnreadable where PIL raises (past Pillow's size
-// limit too), kTiff for a TIFF layout and kWebp for a lossy WebP image PIL
-// may read and the port does not decode. `head` reads the header alone
-// (not of a PNG).
+// limit too), kTiff for a TIFF layout PIL may read and the port does not
+// decode. `head` reads the header alone (not of a PNG).
 int read_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 
 // GIF's first frame as cv2.imread reads it (OpenCV's own decoder) and as
@@ -206,18 +204,42 @@ int tiff_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int probe_tiff(FILE* f, int* dims);
 
 // WebP (the RIFF container: a still image, an animation's first frame on
-// its zeroed canvas; lossless VP8L data) as cv2.imread reads it (OpenCV's
-// WebPDecoder over libwebp: 32 bytes or more, a raw VP8L stream too, the
-// EXIF chunk's orientation) and as PIL's WebPImagePlugin and
-// convert("RGB") read it (WebPAnimDecoder, no orientation), webp.cpp; the
-// arguments and results of read_cv2 and read_pil, kWebp for a lossy image.
-// is_webp_data: a RIFF "WEBP" signature or a VP8L stream's first byte and
-// version. probe_webp: (h, w) of an open file, its chunks walked by
-// seeking (cv2's rules, else PIL's), or a Status.
+// its zeroed canvas; lossless VP8L data, or lossy VP8 data with its ALPH
+// chunk) as cv2.imread reads it (OpenCV's WebPDecoder over libwebp: 32
+// bytes or more, a raw VP8L or VP8 stream too, the EXIF chunk's
+// orientation) and as PIL's WebPImagePlugin and convert("RGB") read it
+// (WebPAnimDecoder, no orientation), webp.cpp; the arguments and results
+// of read_cv2 and read_pil. is_webp_data: a RIFF "WEBP" signature, a VP8L
+// stream's first byte and version, or 32 bytes libwebp's WebPGetFeatures
+// accepts (cv2's signature check: a raw VP8 stream among them).
+// probe_webp: (h, w) of an open file, its chunks walked by seeking (cv2's
+// rules, else PIL's), or a Status. webp_lossy_planes (for tests): the
+// lossy image of a file cv2 decodes as a still image, through libwebp's
+// steps one by one (`filter`: the loop filter, else bypass_filtering;
+// `rgb`: RGB with the fancy upsampler or, without `fancy`, point-sampled
+// chroma, else the Y, U and V planes one after another, cropped), into
+// `out` of `cap` bytes; its (h, w) into dims; false where it fails.
 bool is_webp_data(const uint8_t* data, size_t n);
 int webp_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int webp_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int probe_webp(FILE* f, int* dims);
+bool webp_lossy_planes(const uint8_t* data, size_t n, bool filter, bool rgb,
+                       bool fancy, uint8_t* out, size_t cap, int* dims);
+
+// A VP8 key frame (lossy WebP) as libwebp decodes it (vp8.cpp): the YUV
+// 4:2:0 planes, each padded to whole macroblocks (y_stride 16 and
+// uv_stride 8 pixels a macroblock column), the picture w x h at their
+// top-left. vp8_decode: `data` from the frame tag to the end of the data
+// libwebp hands the decoder; `filter` false skips the loop filter (its
+// bypass_filtering); false where libwebp fails. vp8_rgb: the picture as
+// RGB (`stride` bytes a row) through libwebp's fancy upsampler, or with
+// each chroma sample on its 2 x 2 pixels (`fancy` false).
+struct Vp8Planes {
+  int w = 0, h = 0, y_stride = 0, uv_stride = 0;
+  std::vector<uint8_t> y, u, v;
+};
+bool vp8_decode(const uint8_t* data, size_t n, bool filter, Vp8Planes& out);
+void vp8_rgb(const Vp8Planes& f, bool fancy, uint8_t* rgb, size_t stride);
 
 // The Status of a format cv2.imread reads and the library does not decode
 // (kJpeg2000, kAvif), or of one only PIL reads (kPcx ... kSpider), from the

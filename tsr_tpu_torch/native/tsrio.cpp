@@ -10,14 +10,14 @@
 //   - PNG, PNM (P1-P6, ASCII and binary), PFM, PAM (P7), BMP (palette,
 //     16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core header) and Sun
 //     raster: formats.cpp; GIF (the first frame): gif.cpp; Radiance HDR:
-//     hdr.cpp; TIFF: tiff.cpp; lossless WebP (a still image or an
-//     animation's first frame): webp.cpp; each with cv2's reader and PIL's
-//     copied (PIL reads no HDR), damaged files included;
+//     hdr.cpp; TIFF: tiff.cpp; WebP (a still image or an animation's first
+//     frame, lossless or lossy): webp.cpp and vp8.cpp; each with cv2's
+//     reader and PIL's copied (PIL reads no HDR), damaged files included;
 //   - JPEG: jpeg.cpp (baseline, progressive and arithmetic coded, CMYK and
 //     YCCK, damaged data as libjpeg recovers it, EXIF orientation; lossless
 //     JPEG as PIL reads it, where the reference falls back to PIL).
 // A file of a format cv2 reads and the port does not decode (TIFF of
-// another layout, lossy WebP, JPEG 2000, AVIF) fails with a Status naming it
+// another layout, JPEG 2000, AVIF) fails with a Status naming it
 // (codec.h), and one on which cv2.imread raises with kRaises.
 // Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
 // (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
@@ -53,6 +53,10 @@
 //     Threaded encode+write of n uint8 RGB images, image i of dims[2i] rows
 //     and dims[2i+1] columns at data[i]; format 0 is PNG, 1 PPM, 2 JPEG,
 //     3 BMP.
+//   tsrio_webp_lossy_planes(data, n, flags, out, cap, dims) -> 1 or 0
+//     For tests: a lossy WebP still image's decode, step by step
+//     (codec.h's webp_lossy_planes; flags 1 the loop filter, 2 RGB, 4 the
+//     fancy upsampler).
 //
 // Resize matches cv2.INTER_LINEAR (half-pixel centers, clamped edges), or
 // bit for bit PIL's Image.resize(..., BILINEAR) (resize_pil).
@@ -694,5 +698,17 @@ int tsrio_decode(const char* path, int* dims, void** handle,
 
 // Frees an image tsrio_decode handed over.
 void tsrio_release(void* handle) { delete static_cast<Image*>(handle); }
+
+// A lossy WebP still image's planes or RGB (codec.h's webp_lossy_planes)
+// into out (cap bytes), its (h, w) into dims; 1 on success, else 0.
+int tsrio_webp_lossy_planes(const uint8_t* data, size_t n, int flags,
+                            uint8_t* out, size_t cap, int* dims) {
+  try {
+    return tsrio::webp_lossy_planes(data, n, flags & 1, flags & 2, flags & 4,
+                                    out, cap, dims);
+  } catch (const std::exception&) {
+    return 0;
+  }
+}
 
 }  // extern "C"

@@ -1,5 +1,7 @@
-// webp.cpp — WebP's RIFF container and its lossless image (VP8L) as
-// cv2.imread and PIL's Image.open(...).convert("RGB") read them.
+// webp.cpp — WebP's RIFF container, its lossless image (VP8L) and the
+// alpha of its lossy one (ALPH) as cv2.imread and PIL's
+// Image.open(...).convert("RGB") read them; the lossy image itself (VP8)
+// is vp8.cpp's.
 //
 // Both readers sit on libwebp 1.6 (OpenCV 5's build and Pillow 12's
 // bundle), and this file copies the parts of it they reach:
@@ -17,9 +19,17 @@
 //     BuildHuffmanTable refuses them), backward references over the
 //     120-entry distance map, and the bit reader's end-of-stream rule (a
 //     decode fails once it has read past its buffer; a buffer under 8
-//     bytes reads as zeros up to 64 bits).
+//     bytes reads as zeros up to 64 bits);
+//   - a lossy image's ALPH chunk as alpha_dec.c decodes it, its alpha then
+//     dropped: the header byte's checks, the raw size, or a VP8L image
+//     stream at the frame's size (whose end-of-stream rule is looser on
+//     the 8-bit path libwebp takes for a palette of alpha levels); the
+//     last ALPH chunk before "VP8 " in WebPDecode's parse, the one a frame
+//     holds in WebPDemux's (a still image's only where the VP8X flag says
+//     so).
 // cv2 (OpenCV 5's WebPDecoder): a file of 32 bytes or more whose first 32
-// bytes WebPGetFeatures accepts (a RIFF WEBP file, or a raw VP8L stream),
+// bytes WebPGetFeatures accepts (a RIFF WEBP file, a raw VP8L stream, a raw
+// VP8 stream whose first partition ends inside them),
 // of at most 64 MiB; a still image through WebPDecode over the whole file
 // (the VP8L data may run on past its chunk), an animation (the VP8X flag)
 // through WebPAnimDecoder; imread's size rule on the first 32 bytes'
@@ -27,8 +37,7 @@
 // accepts the file and stores the chunk (the VP8X EXIF flag).
 // PIL (WebPImagePlugin): a RIFF WEBP file whose first chunk is "VP8 ",
 // "VP8L" or "VP8X", any size, through WebPAnimDecoder; no orientation;
-// Pillow's size rule on the canvas. Both drop alpha; an image that is
-// lossy ("VP8 ") gives kWebp, which the port does not decode.
+// Pillow's size rule on the canvas. Both drop alpha.
 
 #include <algorithm>
 #include <array>
@@ -123,6 +132,8 @@ struct Features {
 struct Headers {
   uint64_t offset = 0;  // the VP8/VP8L payload, from the data's start
   bool lossless = false;
+  bool alpha = false;  // an ALPH chunk: its payload's place and size
+  uint64_t alpha_off = 0, alpha_size = 0;
 };
 
 // VP8LGetInfo on `left` bytes at `p` (at least VP8L_FRAME_HEADER_SIZE):
@@ -219,6 +230,11 @@ int parse_headers(const Src& s, uint64_t p, uint64_t size, Features* ft,
       if (riff_size > 0 && total > riff_size) return features(kVpBitstream);
       if (s.tag(p, "VP8 ") || s.tag(p, "VP8L")) break;
       if (left < disk) return features(kVpNotEnough);
+      if (hd && s.tag(p, "ALPH")) {  // the last one before the image wins
+        hd->alpha = true;
+        hd->alpha_off = p + kChunkHeader;
+        hd->alpha_size = chunk;
+      }
       p += disk;
       left -= disk;
     }
@@ -864,6 +880,9 @@ class Vp8l {
   Vp8l(const uint8_t* d, size_t n) : br_(d, n) {}
   // The image's sides and ARGB pixels; false where libwebp fails.
   bool decode(int* w, int* h, std::vector<uint32_t>& argb);
+  // An ALPH chunk's image stream (no header) of w x h pixels; false where
+  // libwebp fails (VP8LDecodeAlphaHeader, VP8LDecodeAlphaImageStream).
+  bool decode_alpha(int w, int h);
 
  private:
   bool stream(int xsize, int ysize, bool level0, std::vector<uint32_t>* out);
@@ -872,12 +891,13 @@ class Vp8l {
   bool read_code_lengths(const int* cl, int num_symbols);
   bool data(uint32_t* px, int w, int h, int cache_bits,
             const std::vector<Group>& groups, int meta_bits,
-            const std::vector<uint32_t>& meta);
+            const std::vector<uint32_t>& meta, bool alpha8);
   void inverse(const Transform& t, const uint32_t* in, uint32_t* out) const;
 
   Bits br_;
   std::vector<Transform> transforms_;
   unsigned seen_ = 0;
+  bool alpha_ = false;
   std::vector<int> lens_ = std::vector<int>(kNumLiteral + kNumLength +
                                             (1 << kMaxCacheBits));
 };
@@ -957,9 +977,12 @@ bool Vp8l::read_transform(int* xsize, int ysize) {
   return ok;
 }
 
+// The entropy-coded pixels. `alpha8`: DecodeAlphaData's rule, which fails
+// on a read past the data only before the last pixel (DecodeImageData's
+// fails on any).
 bool Vp8l::data(uint32_t* px, int w, int h, int cache_bits,
                 const std::vector<Group>& groups, int meta_bits,
-                const std::vector<uint32_t>& meta) {
+                const std::vector<uint32_t>& meta, bool alpha8) {
   const int64_t n = int64_t{w} * h;
   std::vector<uint32_t> cache(cache_bits ? size_t{1} << cache_bits : 0, 0);
   const int shift = 32 - cache_bits;
@@ -972,12 +995,12 @@ bool Vp8l::data(uint32_t* px, int w, int h, int cache_bits,
                                 (x >> meta_bits)]]
                   : groups[0];
     const int code = read_symbol(g.t[0].data(), br_);
-    if (br_.eos()) return false;
+    if (br_.eos() && !alpha8) return false;
     if (code < kNumLiteral) {
       const uint32_t r = read_symbol(g.t[1].data(), br_);
       const uint32_t b = read_symbol(g.t[2].data(), br_);
       const uint32_t a = read_symbol(g.t[3].data(), br_);
-      if (br_.eos()) return false;
+      if (br_.eos() && (!alpha8 || pos + 1 < n)) return false;
       px[pos++] = a << 24 | r << 16 | uint32_t(code) << 8 | b;
       if (++x >= w) {
         x = 0;
@@ -999,10 +1022,11 @@ bool Vp8l::data(uint32_t* px, int w, int h, int cache_bits,
         dist = int64_t{kPlane[dist_code - 1][1]} * w + kPlane[dist_code - 1][0];
         if (dist < 1) dist = 1;
       }
-      if (br_.eos()) return false;
+      if (br_.eos() && !alpha8) return false;
       if (pos < dist || n - pos < length) return false;
       for (int i = 0; i < length; i++) px[pos + i] = px[pos + i - dist];
       pos += length;
+      if (br_.eos() && pos < n) return false;
       x += length;
       while (x >= w) {
         x -= w;
@@ -1018,7 +1042,7 @@ bool Vp8l::data(uint32_t* px, int w, int h, int cache_bits,
       }
     }
   }
-  return !br_.eos();
+  return alpha8 || !br_.eos();
 }
 
 // DecodeImageStream: `level0` reads the transforms and may read meta codes;
@@ -1074,7 +1098,14 @@ bool Vp8l::stream(int xsize, int ysize, bool level0,
   const size_t total = size_t(txsize) * ysize;
   std::unique_ptr<uint32_t[]> px(new (std::nothrow) uint32_t[total]);
   if (!px) return false;
-  if (!data(px.get(), txsize, ysize, cache_bits, groups, meta_bits, meta))
+  // Is8bOptimizable: an alpha stream of colour indexing alone, no cache and
+  // one symbol in each red, blue and alpha code
+  bool alpha8 = alpha_ && level0 && transforms_.size() == 1 &&
+                transforms_[0].type == 3 && cache_bits == 0;
+  for (const Group& g : groups)
+    for (int j : {1, 2, 3}) alpha8 = alpha8 && g.t[j][0].bits == 0;
+  if (!data(px.get(), txsize, ysize, cache_bits, groups, meta_bits, meta,
+            alpha8))
     return false;
   if (!level0) {
     out->assign(px.get(), px.get() + total);
@@ -1157,6 +1188,12 @@ void Vp8l::inverse(const Transform& t, const uint32_t* in,
   }
 }
 
+bool Vp8l::decode_alpha(int w, int h) {
+  alpha_ = true;
+  std::vector<uint32_t> argb;
+  return stream(w, h, true, &argb);
+}
+
 bool Vp8l::decode(int* w, int* h, std::vector<uint32_t>& argb) {
   if (br_.read(8) != 0x2f) return false;
   *w = static_cast<int>(br_.read(14)) + 1;
@@ -1172,10 +1209,22 @@ bool Vp8l::decode(int* w, int* h, std::vector<uint32_t>& argb) {
 struct Layout {
   int canvas_w = 0, canvas_h = 0;  // the image, or an animation's canvas
   int x = 0, y = 0, w = 0, h = 0;  // the first frame on the canvas
-  uint64_t payload = 0, length = 0;  // the VP8L bit reader's buffer
+  uint64_t payload = 0, length = 0;  // the decoder's data
   bool lossless = true;
+  bool alpha = false;  // a lossy image's ALPH payload
+  uint64_t alpha_off = 0, alpha_size = 0;
   int orientation = 1;
 };
+
+// The headers' findings for the decoder of the data at `off` onwards.
+void take_headers(const Headers& hd, uint64_t off, uint64_t size, Layout& l) {
+  l.payload = off + hd.offset;
+  l.length = size - hd.offset;
+  l.lossless = hd.lossless;
+  l.alpha = hd.alpha;
+  l.alpha_off = hd.alpha_off;
+  l.alpha_size = hd.alpha_size;
+}
 
 // WebPDecode of the frame payload at `off` (WebPAnimDecoderGetNext): the
 // features (data short of them refused), then the headers.
@@ -1185,9 +1234,7 @@ bool frame_decode_layout(const Src& s, uint64_t off, uint64_t size,
   if (parse_headers(s, off, size, &ft, nullptr) != kVpOk) return false;
   Headers hd;
   if (parse_headers(s, off, size, nullptr, &hd) != kVpOk) return false;
-  l.payload = off + hd.offset;
-  l.length = size - hd.offset;
-  l.lossless = hd.lossless;
+  take_headers(hd, off, size, l);
   return true;
 }
 
@@ -1229,8 +1276,7 @@ int exif_orientation(const Src& s, Demux& dm, bool parsed) {
 }
 
 // cv2.imread's WebPDecoder: kOk with the layout, kUnreadable where it
-// gives None, kRaises where imread raises (its size rule), kWebp for a
-// lossy image.
+// gives None, kRaises where imread raises (its size rule).
 int cv2_layout(const Src& s, Layout& l) {
   const uint64_t n = s.size();
   if (n < kCv2Header) return kUnreadable;
@@ -1251,17 +1297,14 @@ int cv2_layout(const Src& s, Layout& l) {
     if (parse_headers(s, 0, n, nullptr, &hd) != kVpOk) return kUnreadable;
     l.canvas_w = l.w = ft.w;
     l.canvas_h = l.h = ft.h;
-    l.payload = hd.offset;
-    l.length = n - hd.offset;
-    l.lossless = hd.lossless;
+    take_headers(hd, 0, n, l);
   }
-  if (!l.lossless) return kWebp;
   l.orientation = exif_orientation(s, dm, ft.animation);
   return kOk;
 }
 
 // PIL's WebPImagePlugin (its _accept, then WebPAnimDecoder): kOk with the
-// layout, kUnreadable, or kWebp for a lossy image.
+// layout, or kUnreadable.
 int pil_layout(const Src& s, Layout& l) {
   if (s.size() < 16 || !s.tag(0, "RIFF") || !s.tag(8, "WEBP") ||
       !(s.tag(12, "VP8 ") || s.tag(12, "VP8L") || s.tag(12, "VP8X")))
@@ -1270,11 +1313,36 @@ int pil_layout(const Src& s, Layout& l) {
   if (!anim_new(s, dm, l) || !pil_size_ok(l.canvas_w, l.canvas_h) ||
       !first_frame(s, dm, l))
     return kUnreadable;
-  return l.lossless ? kOk : kWebp;
+  return kOk;
+}
+
+// alpha_dec.c's ALPHInit and ALPHDecode on an ALPH payload of a w x h
+// frame: true where they succeed (the alpha itself is dropped).
+bool alpha_decodes(const uint8_t* a, uint64_t n, int w, int h) {
+  if (n <= 1) return false;
+  const int method = a[0] & 3, pre_processing = (a[0] >> 4) & 3;
+  if (method > 1 || pre_processing > 1 || (a[0] >> 6) != 0) return false;
+  if (method == 0) return n - 1 >= uint64_t(w) * h;
+  return Vp8l(a + 1, n - 1).decode_alpha(w, h);
 }
 
 // The first frame on its zeroed canvas as RGB, oriented.
 int render(const uint8_t* d, const Layout& l, Image& img) {
+  if (!l.lossless) {
+    Vp8Planes f;
+    if (!vp8_decode(d + l.payload, l.length, true, f) || f.w != l.w ||
+        f.h != l.h)
+      return kUnreadable;
+    if (l.alpha && !alpha_decodes(d + l.alpha_off, l.alpha_size, f.w, f.h))
+      return kUnreadable;
+    img.w = l.canvas_w;
+    img.h = l.canvas_h;
+    img.rgb.assign(size_t(img.w) * img.h * 3, 0);
+    vp8_rgb(f, true, &img.rgb[(size_t(l.y) * img.w + l.x) * 3],
+            size_t(img.w) * 3);
+    apply_orientation(img, l.orientation);
+    return kOk;
+  }
   int w, h;
   std::vector<uint32_t> argb;
   Vp8l dec(d + l.payload, l.length);
@@ -1317,9 +1385,19 @@ int finish(const uint8_t* d, int st, const Layout& l, Image* img, int* dims,
 }  // namespace
 
 bool is_webp_data(const uint8_t* d, size_t n) {
-  return (n >= 12 && !std::memcmp(d, "RIFF", 4) &&
-          !std::memcmp(d + 8, "WEBP", 4)) ||
-         (n >= 5 && d[0] == 0x2f && (d[4] >> 5) == 0);
+  if ((n >= 12 && !std::memcmp(d, "RIFF", 4) &&
+       !std::memcmp(d + 8, "WEBP", 4)) ||
+      (n >= 5 && d[0] == 0x2f && (d[4] >> 5) == 0))
+    return true;
+  // cv2's signature check: WebPGetFeatures on the first 32 bytes
+  if (n < kCv2Header) return false;
+  try {
+    const MemSrc h32(d, kCv2Header);
+    Features ft;
+    return parse_headers(h32, 0, kCv2Header, &ft, nullptr) == kVpOk;
+  } catch (const Short&) {
+    return false;
+  }
 }
 
 int webp_cv2(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
@@ -1339,6 +1417,36 @@ int webp_pil(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     return finish(d, pil_layout(s, l), l, img, dims, head);
   } catch (const Short&) {
     return kUnreadable;
+  }
+}
+
+bool webp_lossy_planes(const uint8_t* d, size_t n, bool filter, bool rgb,
+                       bool fancy, uint8_t* out, size_t cap, int* dims) {
+  try {
+    const MemSrc s(d, n);
+    Layout l;
+    if (cv2_layout(s, l) != kOk || l.lossless || l.w != l.canvas_w)
+      return false;
+    Vp8Planes f;
+    if (!vp8_decode(d + l.payload, l.length, filter, f)) return false;
+    const size_t w = f.w, h = f.h, uw = (w + 1) / 2, uh = (h + 1) / 2;
+    dims[0] = f.h;
+    dims[1] = f.w;
+    if (rgb) {
+      if (cap < w * h * 3) return false;
+      vp8_rgb(f, fancy, out, w * 3);
+      return true;
+    }
+    if (cap < w * h + 2 * uw * uh) return false;
+    for (size_t y = 0; y < h; y++)
+      std::memcpy(out + y * w, &f.y[y * f.y_stride], w);
+    for (size_t y = 0; y < uh; y++) {
+      std::memcpy(out + w * h + y * uw, &f.u[y * f.uv_stride], uw);
+      std::memcpy(out + w * h + uw * uh + y * uw, &f.v[y * f.uv_stride], uw);
+    }
+    return true;
+  } catch (const Short&) {
+    return false;
   }
 }
 
