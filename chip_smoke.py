@@ -184,19 +184,21 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    PIL resize backend, which runs the host path as the reference does)
    and ``evaluate_directory`` over the readable files with phase 3's
    models. A ``jpeg_features:`` JSON line.
-13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR, TIFF
-   and WebP (lossless and lossy) files cv2 reads and the port once
-   refused, and the damaged ones cv2 gives None for
+13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR, TIFF,
+   WebP (lossless and lossy) and JPEG 2000 (part 1) files cv2 reads and
+   the port once refused, and the damaged ones cv2 gives None for
    (``image_formats_phase``), from the committed fixtures
-   (``tests/data/images``, ``tests/data/webp``, ``tests/data/webp_lossy``):
-   each decoded equal to its ``expected.npz`` (cv2's pixels, or PIL's for
-   the damaged files, the gray PFM, the 28-byte WebP and the ALPH damage
-   PIL reads past) and probed as cv2 reads it, the rest raising (AVIF,
-   JPEG 2000 and TIFF data named); a 640 x 480 VP8L file built at run
-   time (``webp_built``) decoded equal to its source and the committed
-   640 x 480 lossy file to cv2's digest, with their decode rates; host
-   decode rates by format, GIF, Sun raster, PFM, HDR and lossless and
-   lossy WebP among them; the whole-file probe of
+   (``tests/data/images``, ``tests/data/webp``, ``tests/data/webp_lossy``,
+   ``tests/data/jpeg2000``): each decoded equal to its ``expected.npz``
+   (cv2's pixels, or PIL's for the damaged files, the gray PFM, the
+   28-byte WebP, the ALPH damage PIL reads past and the JPEG 2000 files
+   only PIL reads) and probed as cv2 reads it, the rest raising (AVIF,
+   JPEG 2000 of a feature part 1 leaves out and TIFF data named); a 640 x
+   480 VP8L file built at run time (``webp_built``) decoded equal to its
+   source and the committed 640 x 480 lossy WebP and 9/7 JPEG 2000 files
+   to cv2's digests, with their decode rates; host decode rates by
+   format, GIF, Sun raster, PFM, HDR, lossless and lossy WebP and JPEG
+   2000 among them; the whole-file probe of
    generate_tree's skip rule timed on phase 5's .ppm and phase 11's .png
    trees; ``generate_tree`` on the fixtures plus the skip files for blur,
    compound and blur_rand (launch counts zeroed just before and read just
@@ -359,8 +361,9 @@ C11_DIGESTS = {
     38404: "edec3c4e6be3d7358bb679d19ad385e51178d350ab42a09555fb56af2f28c60c"}
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
-# at the top, the files it gives None for (and AVIF and JPEG 2000 data and
-# a ZSTD TIFF, which the port does not decode) under skip/
+# at the top, the files it gives None for (and AVIF data, JPEG 2000 files
+# of features part 1 leaves out and a ZSTD TIFF, which the port does not
+# decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
@@ -389,7 +392,7 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_ccitt": ("tiff_group4", "tiff_ccitt"),
                 "tiff_thunder_sgilog": ("tiff_2c_",),
                 "tiff_modes": ("tiff_modes_",), "webp": ("webp_",),
-                "webp_lossy": ("webp_lossy_",)}
+                "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -489,10 +492,20 @@ WEBP_LOSSY_BIG = "webp_lossy_640x480_q75.jpg"
 WEBP_LOSSY_BIG_SIZE = (480, 640)
 WEBP_LOSSY_BIG_DIGEST = (
     "7167baf6b5cbb9eec9960d98d5dfeadc6be2ae84e36993acf7dfa4e4439be92f")
+# phase 13's JPEG 2000 (part 1): the fixtures of tests/data/jpeg2000
+# (make_fixtures.py) as for WEBP_FIXTURES, among them a 640 x 480 lossy
+# 9/7 file of Pillow's writer, checked by the SHA-256 of cv2.imread's RGB
+# and decoded WEBP_BUILT_DECODES times a timed pass
+JPEG2000_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / (
+    "jpeg2000")
+JPEG2000_BIG = "j2k_640x480_97.jpg"
+JPEG2000_BIG_SIZE = (480, 640)
+JPEG2000_BIG_DIGEST = (
+    "a750f3dcfdbef03e534f95a7d41d2baca8af1342541697a4cbe3b7bcb680131d")
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
                 "tiff": ("tiff",), "webp": ("webp_",),
-                "webp_lossy": ("webp_lossy_",)}
+                "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",)}
 # C9 and C10 in phase 13: a PNG past the old 64 Mpx cap, and headers whose
 # size makes cv2.imread raise (built at run time from zlib and struct)
 BIG_PNG_SIDE = 8200
@@ -5248,7 +5261,7 @@ def webp_fixture_checks(root, n_pil, digests=None):
     cases = sorted(p for p in root.iterdir() if p.suffix in IMAGE_SUFFIXES)
     skips = sorted((root / "skip").iterdir())
     check(len(cases) == int(want["generate_tree_written"]) >= 40,
-          f"{len(cases)} WebP fixtures in {root.name}")
+          f"{len(cases)} fixtures in {root.name}")
     for p in cases:
         img = native.decode(str(p))
         if p.name in digests:
@@ -5257,7 +5270,7 @@ def webp_fixture_checks(root, n_pil, digests=None):
                   "(its digest)")
         else:
             check(np.array_equal(img, want[f"decoded__{p.name}"]),
-                  f"WebP fixture {p.name} decodes unlike cv2.imread")
+                  f"fixture {p.name} decodes unlike cv2.imread")
         for reader in ("cv2", "port"):
             check(native.probe([str(p)], reader=reader).tolist()
                   == [list(img.shape[:2])], f"{p.name}: probe {reader}")
@@ -5279,7 +5292,7 @@ def webp_fixture_checks(root, n_pil, digests=None):
             check("failed to decode" in str(e), f"skip/{p.name}: {e}")
         else:
             check(False, f"skip/{p.name} decoded; cv2 and PIL refuse it")
-    check(len(pil_read) == n_pil, f"WebP files PIL reads: {pil_read}")
+    check(len(pil_read) == n_pil, f"{root.name} files PIL reads: {pil_read}")
     return cases, skips, pil_read
 
 
@@ -5336,6 +5349,24 @@ def webp_lossy_checks():
         "cv2_reads": len(cases), "skip": len(skips),
         "skip_pil_reads": len(pil_read), "big": decode_rate(
             WEBP_LOSSY_FIXTURES / WEBP_LOSSY_BIG, *WEBP_LOSSY_BIG_SIZE)}
+
+
+def jpeg2000_checks():
+    """JPEG 2000 part 1 in phase 13: the fixtures of tests/data/jpeg2000
+    (webp_fixture_checks: the JP2 file and the raw codestream, 5/3 and 9/7,
+    layers, the five progression orders, precincts, tiles and tile-parts,
+    SOP and EPH, 1-4 components of 8 to 16 bits, each equal to cv2's
+    pixels; the ten skip/ files PIL reads, an image offset, precisions
+    under 8 and signed samples among them; the damaged ones refused; the
+    640 x 480 9/7 file, JPEG2000_BIG, held to JPEG2000_BIG_DIGEST), and the
+    big file's decode_rate. Returns (the fixtures cv2 reads, the skip/
+    files, those PIL reads, the numbers for phase 13's line)."""
+    cases, skips, pil_read = webp_fixture_checks(
+        JPEG2000_FIXTURES, 10, {JPEG2000_BIG: JPEG2000_BIG_DIGEST})
+    return cases, skips, pil_read, {
+        "cv2_reads": len(cases), "skip": len(skips),
+        "skip_pil_reads": len(pil_read), "big": decode_rate(
+            JPEG2000_FIXTURES / JPEG2000_BIG, *JPEG2000_BIG_SIZE)}
 
 
 def built_tiff_checks(work):
@@ -5473,18 +5504,21 @@ def image_size_checks(dev, work):
 
 def image_formats_phase(dev, resunet, judge, rows, work):
     """Phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance
-    HDR, TIFF and WebP (lossless and lossy) files cv2 reads and the port
-    once refused (C5, C6, C7), and the damaged ones cv2 gives None for
+    HDR, TIFF, WebP (lossless and lossy) and JPEG 2000 files cv2 reads and
+    the port once refused (C5, C6, C7), and the damaged ones cv2 gives None
+    for
     (C4), from the committed fixtures (the card's machine has neither cv2
     nor PIL), in ``work``: each top-level fixture decoded equal to
     ``expected.npz`` and probed as cv2 reads it; each skip/ file probed
     (0, 0) as cv2 refuses it, decoded as PIL where PIL reads it (the gray
     PFM, the TIFFs of orientation 5 to 8 and of 2 and 4-bit gray among
-    them), raising otherwise (naming AVIF, JPEG 2000 and ZSTD TIFF data);
-    the WebP fixtures and the built VP8L file (webp_checks) and the lossy
-    WebP fixtures with the 640 x 480 file (webp_lossy_checks), which join
-    the trees below; host decode rates by group (TIFF by layout, CCITT
-    among them, lossless and lossy WebP); the
+    them), raising otherwise (naming AVIF, JPEG 2000 of a feature part 1
+    leaves out and ZSTD TIFF data); the WebP fixtures and the built VP8L
+    file (webp_checks), the lossy WebP fixtures with the 640 x 480 file
+    (webp_lossy_checks) and the JPEG 2000 fixtures with theirs
+    (jpeg2000_checks), which join the trees below; host decode rates by
+    group (TIFF by layout, CCITT among them, lossless and lossy WebP, JPEG
+    2000); the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
     generate_tree on the fixture tree for IMAGE_KINDS (launch counts zeroed
     just before and read just after each call, the written count the
@@ -5553,9 +5587,18 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           f"PIL or failing; the {WEBP_LOSSY_BIG_SIZE[1]} x "
           f"{WEBP_LOSSY_BIG_SIZE[0]} quality-75 file equal to cv2's digest, "
           f"its decode rate on one host thread beside {result['card']}")
-    cases = cases + webp_cases + lossy_cases
-    skips = skips + webp_skips + lossy_skips
-    pil_read += webp_pil + lossy_pil
+    t0 = time.perf_counter()
+    j2k_cases, j2k_skips, j2k_pil, result["jpeg2000"] = jpeg2000_checks()
+    result["jpeg2000"]["seconds"] = time.perf_counter() - t0
+    print("JPEG 2000 (part 1: the JP2 file and the raw codestream): "
+          + json.dumps(result["jpeg2000"]) + ": fixtures equal to their "
+          "expected.npz, skip/ files refused by the cv2 probe, decoded as "
+          f"PIL or failing; the {JPEG2000_BIG_SIZE[1]} x "
+          f"{JPEG2000_BIG_SIZE[0]} lossy 9/7 file equal to cv2's digest, its "
+          f"decode rate on one host thread beside {result['card']}")
+    cases = cases + webp_cases + lossy_cases + j2k_cases
+    skips = skips + webp_skips + lossy_skips + j2k_skips
+    pil_read += webp_pil + lossy_pil + j2k_pil
     result["fixtures"] = {
         "cv2_reads": len(cases), "skip": len(skips),
         "skip_pil_reads": len(pil_read), "foreign": len(IMAGE_FOREIGN)}
@@ -5595,7 +5638,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           + json.dumps(result["built_tiff_modes"]))
     groups = {g: [str(p) for p in cases + built_2c + built_modes
                   if p.name.startswith(prefixes)
-                  and p.name != WEBP_LOSSY_BIG]
+                  and p.name not in (WEBP_LOSSY_BIG, JPEG2000_BIG)]
               for g, prefixes in IMAGE_GROUPS.items()}
     layouts = {q for g, paths in groups.items() if g.startswith("tiff_")
               for q in paths}
@@ -5639,7 +5682,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_bytes(p.read_bytes())
     written = int(want["generate_tree_written"]) + len(built_2c) + len(
-        webp_cases) + len(lossy_cases)
+        webp_cases) + len(lossy_cases) + len(j2k_cases)
     mixed_files = offline.tree_files(str(mixed))
     dims = native.probe([str(p) for p in mixed_files], reader="cv2")
     kept = [p for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]

@@ -6,10 +6,11 @@ phase into this directory: the cases of ``tests/data/image_cases.py``
 
 - ``<case>``: CASES, files cv2.imread reads;
 - ``skip/<case>``: SKIP_CASES, files cv2.imread gives None for (cut,
-  corrupt, a refused variant), some of which PIL reads; and FOREIGN, AVIF,
-  JPEG 2000 and WebP data under .png and .jpg names (what cv2 reads and
-  the port does not decode) and a ZSTD-compressed TIFF (what PIL reads
-  and the port does not decode);
+  corrupt, a refused variant), some of which PIL reads; and FOREIGN, AVIF
+  data and JPEG 2000 files of features the port's decoder leaves out (a
+  POC marker, a code-block style) under .png and .jpg names (what cv2
+  reads and the port does not decode) and a ZSTD-compressed TIFF (what PIL
+  reads and the port does not decode);
 - ``expected.npz``: ``decoded__<case>`` = what the reference's readers give
   for each CASES file as RGB (``cv2.imread``; the pixels cv2 leaves
   unwritten, see ``cv2_written``, set to 0), ``decoded_skip__<case>`` =
@@ -51,15 +52,20 @@ image_cases = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(image_cases)
 globals().update({name: getattr(image_cases, name) for name in dir(image_cases)
                   if name.endswith(("cases", "_SEED"))})
+_spec = importlib.util.spec_from_file_location(
+    "jpeg2000_cases", Path(__file__).resolve().parents[1] / "jpeg2000_cases.py")
+jpeg2000_cases = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(jpeg2000_cases)
 
 
 # ---------------------------------------------------------------- cases
 
 
 def foreign(rng):
-    """AVIF and JPEG 2000 data (a JP2 file and a raw codestream) under .png
-    and .jpg names, and Pillow's ZSTD-compressed TIFF (a TIFF layout the
-    port does not decode)."""
+    """AVIF data and JPEG 2000 files of features the port's decoder leaves
+    out (a JP2 file with a POC marker, a raw codestream of code-block style
+    1) under .png and .jpg names, and Pillow's ZSTD-compressed TIFF (a TIFF
+    layout the port does not decode)."""
     out = {}
     out["tiff_zstd.png"] = pil_tiff(smooth(np.random.default_rng(
         TIFF2C_SEED + 1), 4, 6), "RGB", compression="zstd")
@@ -71,14 +77,11 @@ def foreign(rng):
             ok, enc = cv2.imencode(".avif", img[:, :, ::-1])
             assert ok
             out[name] = enc.tobytes()
-            continue
-        buf = io.BytesIO()
-        if name == "j2k.png":  # a raw codestream, cut small: the directory's
-            # size is bounded
-            Image.fromarray(img[:8, :8]).save(buf, fmt, no_jp2=True)
-        else:
-            Image.fromarray(img).save(buf, fmt)
-        out[name] = buf.getvalue()
+        elif name == "jp2.jpg":
+            out[name] = jpeg2000_cases.insert_poc(jpeg2000_cases.pil_j2k(img))
+        else:  # small: the directory's size is bounded
+            out[name] = jpeg2000_cases.opj_encode(img[:8, :8], numres=2,
+                                                  mode=1)
     return out
 
 

@@ -1,0 +1,552 @@
+"""The JPEG 2000 cases of ``tests/data/jpeg2000/make_fixtures.py`` and of
+``tests/test_torch_port_jpeg2000.py``, and the writers they are made with:
+
+- cv2's writer (``cv2.imencode(".jp2")``: a JP2 file, LRCP, one layer, 5
+  levels, 64 x 64 code-blocks, the reversible 5/3, lossy through its rate
+  unless IMWRITE_JPEG2000_COMPRESSION_X1000 is 1000);
+- Pillow's (``Image.save(..., "JPEG2000", ...)``: every option it has);
+- OpenJPEG's own encoder, the libopenjp2 Pillow bundles, through ctypes
+  (``opj_encode``: SOP and EPH markers, code-block styles, progression
+  orders, layers), and its decoder (``opj_components``: the components
+  before either reader converts them);
+- byte edits of a codestream (``add_sop``, ``split_tile_parts``,
+  ``insert_poc``, ``set_byte``, ...).
+
+Each ``*_cases`` function gives ``{name: bytes}`` from the seeded stream it
+is handed: ``cases`` the files cv2.imread reads, ``skip_cases`` those it
+gives None for (some of which PIL reads), ``unsupported_cases`` files of
+the features part 1 leaves out, by feature.
+"""
+
+import ctypes
+import glob
+import io
+import os
+import struct
+import tempfile
+from pathlib import Path
+
+import cv2
+import numpy as np
+from PIL import Image
+
+JPEG2000_SEED = 24  # the JPEG 2000 files draw from their own stream
+BIG_SIZE = (480, 640)  # the file phase 13 of chip_smoke.py times
+
+
+# ------------------------------------------------------------ the writers
+
+def smooth(rng, h, w, amp=3):
+    """A gradient with grain: what a lossy coder meets in a photograph."""
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
+                    (x + y) * 255 // max(h + w - 2, 1)], -1).astype(int)
+    img += rng.integers(-amp, amp + 1, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def cv2_j2k(img, x1000=None):
+    """cv2's JP2 of an RGB (or gray, or uint16) image."""
+    arr = img[:, :, ::-1] if img.ndim == 3 and img.shape[2] >= 3 else img
+    if arr.ndim == 3 and arr.shape[2] == 4:
+        arr = img[:, :, [2, 1, 0, 3]]
+    params = [] if x1000 is None else [
+        cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, x1000]
+    ok, enc = cv2.imencode(".jp2", np.ascontiguousarray(arr), params)
+    assert ok
+    return enc.tobytes()
+
+
+def pil_j2k(img, mode=None, **kw):
+    """Pillow's JPEG 2000 of ``img`` (converted to ``mode``)."""
+    im = Image.fromarray(img)
+    if mode is not None:
+        im = im.convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, "JPEG2000", **kw)
+    return buf.getvalue()
+
+
+def libopenjp2():
+    """The libopenjp2 Pillow bundles (its Python module loaded first, so
+    the library's own dependencies resolve)."""
+    import PIL
+    from PIL import _imaging  # noqa: F401
+    libs = glob.glob(str(Path(PIL.__file__).resolve().parents[1]
+                         / "pillow.libs" / "libopenjp2-*.so*"))
+    assert libs, "Pillow bundles no libopenjp2"
+    lib = ctypes.CDLL(libs[0])
+    lib.opj_create_decompress.restype = ctypes.c_void_p
+    lib.opj_create_compress.restype = ctypes.c_void_p
+    lib.opj_stream_create_default_file_stream.restype = ctypes.c_void_p
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p,
+                                                          ctypes.c_int]
+    for f in ("opj_setup_decoder", "opj_read_header", "opj_decode",
+              "opj_setup_encoder", "opj_start_compress", "opj_encode",
+              "opj_end_compress"):
+        getattr(lib, f).restype = ctypes.c_int
+    lib.opj_setup_decoder.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.opj_read_header.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.POINTER(_Image))]
+    lib.opj_decode.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.POINTER(_Image)]
+    lib.opj_image_create.restype = ctypes.POINTER(_Image)
+    lib.opj_image_create.argtypes = [ctypes.c_uint32,
+                                     ctypes.POINTER(_CompParam), ctypes.c_int]
+    lib.opj_setup_encoder.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.POINTER(_Image)]
+    lib.opj_start_compress.argtypes = [ctypes.c_void_p, ctypes.POINTER(_Image),
+                                       ctypes.c_void_p]
+    lib.opj_encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.opj_end_compress.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.opj_image_destroy.argtypes = [ctypes.POINTER(_Image)]
+    lib.opj_stream_destroy.argtypes = [ctypes.c_void_p]
+    lib.opj_destroy_codec.argtypes = [ctypes.c_void_p]
+    lib.opj_set_default_decoder_parameters.argtypes = [ctypes.c_void_p]
+    lib.opj_set_default_encoder_parameters.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+class _Comp(ctypes.Structure):  # opj_image_comp_t
+    _fields_ = [(n, ctypes.c_uint32) for n in (
+        "dx dy w h x0 y0 prec bpp sgnd resno_decoded factor".split())] + [
+        ("data", ctypes.POINTER(ctypes.c_int32)), ("alpha", ctypes.c_uint16)]
+
+
+class _Image(ctypes.Structure):  # opj_image_t
+    _fields_ = [(n, ctypes.c_uint32) for n in "x0 y0 x1 y1 numcomps".split()] \
+        + [("color_space", ctypes.c_int), ("comps", ctypes.POINTER(_Comp)),
+           ("icc", ctypes.c_void_p), ("icc_len", ctypes.c_uint32)]
+
+
+class _CompParam(ctypes.Structure):  # opj_image_cmptparm_t
+    _fields_ = [(n, ctypes.c_uint32) for n in "dx dy w h x0 y0 prec bpp sgnd"
+                .split()]
+
+
+# byte offsets into opj_cparameters_t (OpenJPEG 2.5, x86-64)
+_CPARAM = dict(cp_disto_alloc=20, csty=48, prog_order=52, tcp_numlayers=4796,
+               tcp_rates=4800, numresolution=5600, cblockw_init=5604,
+               cblockh_init=5608, mode=5612, irreversible=5616)
+
+
+def _temp(suffix):
+    fd, path = tempfile.mkstemp(suffix=suffix)
+    os.close(fd)
+    return path
+
+
+def opj_encode(img, numres=3, csty=0, mode=0, prog=0, irreversible=0,
+               rates=(), cblk=None):
+    """OpenJPEG's raw codestream of a uint8 image (gray or RGB): csty 2
+    writes SOP markers, 4 EPH markers; mode the code-block style; prog the
+    progression order (0 LRCP ... 4 CPRL); rates one compression ratio a
+    layer."""
+    lib = libopenjp2()
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, nc = img.shape
+    parms = (_CompParam * nc)(*[_CompParam(1, 1, w, h, 0, 0, 8, 8, 0)
+                                 for _ in range(nc)])
+    im = lib.opj_image_create(nc, parms, 1 if nc >= 3 else 2)
+    c = im.contents
+    c.x0, c.y0, c.x1, c.y1 = 0, 0, w, h
+    for k in range(nc):
+        np.ctypeslib.as_array(c.comps[k].data, (h, w))[:] = img[:, :, k]
+    p = ctypes.create_string_buffer(1 << 16)
+    lib.opj_set_default_encoder_parameters(p)
+    for name, v in (("csty", csty), ("mode", mode), ("prog_order", prog),
+                    ("irreversible", irreversible),
+                    ("numresolution", numres)):
+        struct.pack_into("<i", p, _CPARAM[name], v)
+    if cblk is not None:
+        struct.pack_into("<ii", p, _CPARAM["cblockw_init"], *cblk)
+    if rates:
+        struct.pack_into("<i", p, _CPARAM["tcp_numlayers"], len(rates))
+        struct.pack_into(f"<{len(rates)}f", p, _CPARAM["tcp_rates"], *rates)
+        struct.pack_into("<i", p, _CPARAM["cp_disto_alloc"], 1)
+    codec = lib.opj_create_compress(0)
+    path = _temp(".j2k")
+    try:
+        assert lib.opj_setup_encoder(codec, p, im)
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        ok = (lib.opj_start_compress(codec, im, stream)
+              and lib.opj_encode(codec, stream)
+              and lib.opj_end_compress(codec, stream))
+        lib.opj_stream_destroy(stream)
+        assert ok
+        return Path(path).read_bytes()
+    finally:
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(im)
+        os.unlink(path)
+
+
+def opj_components(data):
+    """What opj_decode gives for ``data`` (strict, OpenJPEG 2.5's default):
+    ``(x0, y0, [int32 [h, w] per component])``, or None where it fails."""
+    lib = libopenjp2()
+    path = _temp(".jp2")
+    Path(path).write_bytes(data)
+    jp2 = data[:4] == b"\0\0\0\x0c"
+    codec = lib.opj_create_decompress(2 if jp2 else 0)
+    p = ctypes.create_string_buffer(1 << 16)
+    lib.opj_set_default_decoder_parameters(p)
+    lib.opj_setup_decoder(codec, p)
+    stream = lib.opj_stream_create_default_file_stream(path.encode(), 1)
+    img = ctypes.POINTER(_Image)()
+    try:
+        if not (lib.opj_read_header(stream, codec, ctypes.byref(img))
+                and lib.opj_decode(codec, stream, img)):
+            return None
+        c = img.contents
+        return c.x0, c.y0, [
+            np.ctypeslib.as_array(c.comps[k].data,
+                                  (c.comps[k].h, c.comps[k].w)).copy()
+            for k in range(c.numcomps)]
+    finally:
+        if img:
+            lib.opj_image_destroy(img)
+        lib.opj_stream_destroy(stream)
+        lib.opj_destroy_codec(codec)
+        os.unlink(path)
+
+
+# ----------------------------------------------------------- byte edits
+
+def codestream_at(data):
+    """Where the codestream starts (SOC)."""
+    return data.find(b"\xff\x4f\xff\x51")
+
+
+def main_markers(data):
+    """[(offset, marker, segment body)] of the main header."""
+    p = codestream_at(data) + 2
+    out = []
+    while True:
+        m, n = struct.unpack(">HH", data[p:p + 4])
+        if m == 0xFF90:
+            return out
+        out.append((p, m, data[p + 4:p + 2 + n]))
+        p += 2 + n
+
+
+def parse(cs):
+    """A raw codestream: (main header, [[Isot, TPsot, TNsot, [(marker,
+    body)], data]], what follows the last tile-part)."""
+    p = 2
+    while struct.unpack(">H", cs[p:p + 2])[0] != 0xFF90:
+        p += 2 + struct.unpack(">H", cs[p + 2:p + 4])[0]
+    main, parts = cs[:p], []
+    while cs[p:p + 2] == b"\xff\x90":
+        isot, psot, tp, tn = struct.unpack(">HIBB", cs[p + 4:p + 12])
+        end = p + psot if psot else len(cs) - 2
+        q, marks = p + 12, []
+        while cs[q:q + 2] != b"\xff\x93":
+            m, n = struct.unpack(">HH", cs[q:q + 4])
+            marks.append((m, cs[q + 4:q + 2 + n]))
+            q += 2 + n
+        parts.append([isot, tp, tn, marks, cs[q + 2:end]])
+        p = end
+    return main, parts, cs[p:]
+
+
+def emit(main, parts, tail, psot_zero_last=False):
+    out = bytearray(main)
+    for i, (isot, tp, tn, marks, data) in enumerate(parts):
+        body = b"".join(struct.pack(">HH", m, len(b) + 2) + b
+                        for m, b in marks)
+        psot = 0 if psot_zero_last and i == len(parts) - 1 else (
+            14 + len(body) + len(data))
+        out += struct.pack(">HHHIBB", 0xFF90, 10, isot, psot, tp, tn)
+        out += body + b"\xff\x93" + data
+    return bytes(out + tail)
+
+
+def split_tile_parts(cs, rng, parts=3, tnsot=True, interleave=True,
+                     psot_zero_last=False):
+    """Each tile's data cut into up to ``parts`` tile-parts at random bytes
+    (OpenJPEG joins them before it decodes), TNsot given or 0, the tiles'
+    tile-parts interleaved, the last one's Psot 0 if asked."""
+    main, old, tail = parse(cs)
+    queues = {}
+    for isot, _, _, marks, data in old:
+        q = queues.setdefault(isot, [[], b""])
+        q[0] += [m for m in marks if m[0] != 0xFF58]  # PLT is dropped
+        q[1] += data
+    pending = {}
+    for t, (marks, data) in queues.items():
+        k = min(parts, len(data))
+        cuts = sorted(rng.choice(np.arange(1, len(data)), k - 1,
+                                 replace=False).tolist()) if k > 1 else []
+        pieces = [data[a:b] for a, b in zip([0] + cuts, cuts + [len(data)])]
+        pending[t] = [[t, i, len(pieces) if tnsot else 0,
+                       marks if i == 0 else [], pc]
+                      for i, pc in enumerate(pieces)]
+    out = []
+    while any(pending.values()):
+        ready = sorted(t for t in pending if pending[t])
+        t = ready[int(rng.integers(len(ready)))] if interleave else ready[0]
+        out.append(pending[t].pop(0))
+    return emit(main, out, tail, psot_zero_last)
+
+
+def add_sop(cs):
+    """SOP markers before each packet (their lengths from the PLT markers
+    Pillow's ``plt=True`` writes, which are dropped) and COD's SOP bit."""
+    main, parts, tail = parse(cs)
+    main = bytearray(main)
+    at = main.find(b"\xff\x52")
+    main[at + 4] |= 2
+    n, new = 0, []
+    for isot, tp, tn, marks, data in parts:
+        lens, v = [], 0
+        for m, b in marks:
+            if m == 0xFF58:
+                for x in b[1:]:
+                    v = v << 7 | x & 0x7F
+                    if not x & 0x80:
+                        lens.append(v)
+                        v = 0
+        out, p = bytearray(), 0
+        for length in lens:
+            out += struct.pack(">HHH", 0xFF91, 4, n & 0xFFFF)
+            out += data[p:p + length]
+            p += length
+            n += 1
+        new.append([isot, tp, tn, [mb for mb in marks if mb[0] != 0xFF58],
+                    bytes(out + data[p:])])
+    return emit(bytes(main), new, tail)
+
+
+def insert_main(data, marker, body):
+    """A marker segment added to the main header, after COD."""
+    p, body_cod = next((p, b) for p, m, b in main_markers(data)
+                       if m == 0xFF52)
+    at = p + 4 + len(body_cod)
+    seg = struct.pack(">HH", marker, len(body) + 2) + body
+    return data[:at] + seg + data[at:]
+
+
+def cod_fields(data):
+    """(Scod, progression, layers, MCT, levels, cblk w, cblk h, style,
+    transform) of the main COD."""
+    body = next(b for p, m, b in main_markers(data) if m == 0xFF52)
+    return struct.unpack(">BBHBBBBBB", body[:10])
+
+
+def insert_poc(data):
+    """A POC marker that restates the COD's own progression: the same
+    packets in the same order."""
+    scod, prog, layers, mct, levels, *_ = cod_fields(data)
+    ncomp = struct.unpack(">H", next(
+        b for p, m, b in main_markers(data) if m == 0xFF51)[34:36])[0]
+    return insert_main(data, 0xFF5F, struct.pack(
+        ">BBHBBB", 0, 0, layers, levels + 1, ncomp, prog))
+
+
+def set_byte(data, offset, value):
+    out = bytearray(data)
+    out[offset] = value
+    return bytes(out)
+
+
+def siz_component(data, comp):
+    """The offset of a component's Ssiz byte."""
+    return codestream_at(data) + 4 + 2 + 2 + 32 + 2 + 3 * comp
+
+
+def with_box(data, box, after=b"jp2h"):
+    """A JP2 file with ``box`` (its bytes) inside the jp2h box, last."""
+    at = data.find(after) - 4
+    n = struct.unpack(">I", data[at:at + 4])[0]
+    head = data[:at] + struct.pack(">I", n + len(box)) + data[at + 4:at + n]
+    return head + box + data[at + n:]
+
+
+def box(kind, body):
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def set_colr(data, enumcs, meth=1):
+    """The JP2 colr box's method and enumerated colour space."""
+    at = data.find(b"colr") + 4
+    out = bytearray(data)
+    out[at] = meth
+    out[at + 3:at + 7] = struct.pack(">I", enumcs)
+    return bytes(out)
+
+
+def without_box(data, kind):
+    """A JP2 file with a box inside jp2h dropped."""
+    at = data.find(kind) - 4
+    n = struct.unpack(">I", data[at:at + 4])[0]
+    h = data.find(b"jp2h") - 4
+    hn = struct.unpack(">I", data[h:h + 4])[0]
+    out = data[:h] + struct.pack(">I", hn - n) + data[h + 4:at] + data[at + n:]
+    return out
+
+
+# --------------------------------------------------------------- the cases
+
+def cases(rng):
+    """The files cv2.imread reads: every writer option of part 1."""
+    img = smooth(rng, 33, 41)  # cv2 writes 5 levels: 32 pixels or more a side
+    out = {
+        "j2k_cv2_default.jpg": cv2_j2k(img),
+        "j2k_cv2_lossless.png": cv2_j2k(img, 1000),
+        "j2k_cv2_x100.jpg": cv2_j2k(img, 100),
+        "j2k_cv2_gray.png": cv2_j2k(img[:, :, 1]),
+        "j2k_cv2_rgba.png": cv2_j2k(np.dstack([img, img[:, :, :1]])),
+        "j2k_cv2_u16.png": cv2_j2k(img.astype(np.uint16) * 201),
+        "j2k_cv2_gray_u16.png": cv2_j2k(img[:, :, 0].astype(np.uint16) * 257),
+    }
+    img = img[:19, :23]  # the other writers' files are smaller
+    out.update({
+        "j2k_pil_lossless.png": pil_j2k(img),
+        "j2k_pil_97.jpg": pil_j2k(img, irreversible=True,
+                                  quality_mode="rates", quality_layers=[12]),
+        "j2k_pil_97_lossless_rate.jpg": pil_j2k(img, irreversible=True),
+        "j2k_pil_rates_2_layers.jpg": pil_j2k(img, quality_mode="rates",
+                                              quality_layers=[30, 8]),
+        "j2k_pil_db_2_layers.jpg": pil_j2k(img, quality_mode="dB",
+                                           quality_layers=[28, 40]),
+        "j2k_pil_tiles_16.png": pil_j2k(img, tile_size=(16, 16)),
+        "j2k_pil_tiles_97.jpg": pil_j2k(img, tile_size=(20, 12),
+                                        tile_offset=(0, 0), irreversible=True,
+                                        quality_mode="rates",
+                                        quality_layers=[10]),
+        "j2k_pil_cblk_8x32.png": pil_j2k(img, codeblock_size=(8, 32)),
+        "j2k_pil_cblk_4x4.png": pil_j2k(img, codeblock_size=(4, 4)),
+        "j2k_pil_cblk_64x4.jpg": pil_j2k(img, codeblock_size=(64, 4),
+                                         irreversible=True),
+        "j2k_pil_mct_1.png": pil_j2k(img, mct=1),
+        "j2k_pil_plt_comment.png": pil_j2k(img, plt=True, comment="a comment"),
+        "j2k_pil_gray.png": pil_j2k(img, "L"),
+        "j2k_pil_la.png": pil_j2k(img, "LA"),
+        "j2k_pil_rgba.png": pil_j2k(img, "RGBA"),
+        "j2k_pil_raw.jpg": pil_j2k(img, no_jp2=True),
+        "j2k_pil_i16.png": pil_j2k(img[:, :, 0].astype(np.uint16) * 257 + 3,
+                                   "I;16"),
+        "j2k_pil_1x1.png": pil_j2k(img[:1, :1]),
+        "j2k_pil_1x13.png": pil_j2k(img[:1, :13], num_resolutions=1),
+        "j2k_pil_13x1.jpg": pil_j2k(img[:13, :1], irreversible=True),
+        "j2k_pil_5x3_97.jpg": pil_j2k(img[:5, :3], irreversible=True,
+                                      num_resolutions=2),
+    })
+    for order in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+        out[f"j2k_pil_{order.lower()}_precincts_16.png"] = pil_j2k(
+            img, mct=1, progression=order, precinct_size=(16, 16),
+            num_resolutions=3, quality_mode="rates", quality_layers=[20, 4])
+    out["j2k_pil_precincts_32x8.jpg"] = pil_j2k(
+        img, progression="RPCL", precinct_size=(32, 8), num_resolutions=3,
+        irreversible=True)
+    raw = pil_j2k(img, no_jp2=True, plt=True, tile_size=(12, 8),
+                  quality_mode="rates", quality_layers=[10, 3])
+    out["j2k_sop_from_plt.png"] = add_sop(raw)
+    out["j2k_tile_parts.png"] = split_tile_parts(raw, rng)
+    out["j2k_tile_parts_tnsot_0.png"] = split_tile_parts(raw, rng, tnsot=False)
+    out["j2k_tile_parts_psot_0.png"] = split_tile_parts(
+        raw, rng, interleave=False, psot_zero_last=True)
+    out["j2k_opj_sop_eph.png"] = opj_encode(img, csty=6, prog=1,
+                                            rates=(20, 4))
+    out["j2k_opj_eph_97.jpg"] = opj_encode(img, csty=4, prog=3, irreversible=1,
+                                           numres=4)
+    out["j2k_opj_sop_cprl.png"] = opj_encode(img, csty=2, prog=4,
+                                             cblk=(16, 8))
+    lossless = out["j2k_pil_lossless.png"]
+    out["j2k_precision_12.png"] = set_byte(
+        set_byte(set_byte(lossless, siz_component(lossless, 0), 11),
+                 siz_component(lossless, 1), 11), siz_component(lossless, 2), 11)
+    out["j2k_levels_9.png"] = set_byte(
+        lossless, next(p for p, m, b in main_markers(lossless)
+                       if m == 0xFF52) + 4 + 5, 9)
+    out["j2k_trailing_bytes.jpg"] = out["j2k_cv2_default.jpg"] + b"\0" * 9
+    # a gray 9/7 file in generate_tree buckets no other format's file
+    # brings (phase 13 holds B2 and B3 there)
+    wide = smooth(rng, 70, 200, amp=2)[:, :, 1]
+    out["j2k_pil_gray_97_70x200.jpg"] = pil_j2k(
+        wide, irreversible=True, quality_mode="rates", quality_layers=[25])
+    out["j2k_no_colr_rgb.png"] = without_box(out["j2k_pil_lossless.png"],
+                                             b"colr")
+    return out
+
+
+def skip_cases(rng):
+    """The files cv2.imread gives None for: those PIL reads (an image
+    offset, a raw codestream of 1 or 2 components, precisions under 8,
+    signed samples, a gray JP2 without its colr box) and the damaged
+    files both refuse."""
+    img = smooth(rng, 15, 19)
+    lossless = pil_j2k(img)
+    lossy = pil_j2k(img, irreversible=True, quality_mode="rates",
+                    quality_layers=[8])
+    out = {
+        "j2k_offset_tiles.png": pil_j2k(img, offset=(5, 7), tile_size=(8, 8)),
+        "j2k_offset.jpg": pil_j2k(img, offset=(3, 1), tile_size=(30, 20),
+                                  irreversible=True),
+        "j2k_raw_gray.png": pil_j2k(img, "L", no_jp2=True),
+        "j2k_raw_la.png": pil_j2k(img, "LA", no_jp2=True),
+        "j2k_raw_i16.png": pil_j2k(img[:, :, 0].astype(np.uint16) * 300,
+                                   "I;16", no_jp2=True),
+        "j2k_signed.png": pil_j2k(img, signed=True),
+        "j2k_no_colr_gray.png": without_box(pil_j2k(img, "L"), b"colr"),
+        "j2k_cut_half.jpg": lossy[:len(lossy) // 2],
+        "j2k_cut_2.jpg": lossy[:-2],
+        "j2k_cut_40.jpg": lossy[:-40],
+        "j2k_eph_flag_without_markers.png": set_byte(
+            lossless, next(p for p, m, b in main_markers(lossless)
+                           if m == 0xFF52) + 4, 4),
+        "j2k_ihdr_height.png": set_byte(lossless, lossless.find(b"ihdr") + 7,
+                                        22),
+        "j2k_tile_part_index.png": _wrong_tile_part(pil_j2k(img, no_jp2=True)),
+    }
+    for bits in (1, 4, 7):
+        data = lossless
+        for c in range(3):
+            data = set_byte(data, siz_component(data, c), bits - 1)
+        out[f"j2k_precision_{bits}.png"] = data
+    return out
+
+
+def _wrong_tile_part(cs):
+    """A tile-part whose TPsot is 1 where 0 is due."""
+    main, parts, tail = parse(cs)
+    parts[0][1] = 1
+    parts[0][2] = 2
+    return emit(main, parts, tail)
+
+
+def unsupported_cases(rng):
+    """{name: (bytes, feature)}: valid files of the features part 1 leaves
+    out, each of which raises naming JPEG 2000."""
+    img = smooth(rng, 21, 26)
+    jp2 = pil_j2k(img)
+    raw = pil_j2k(img, no_jp2=True)
+    out = {"poc.jpg": (insert_poc(jp2), "POC")}
+    for style in (1, 2, 4, 8, 16, 32):
+        out[f"cblk_style_{style}.png"] = (
+            opj_encode(img, mode=style), "code-block style")
+    sub = set_byte(raw, siz_component(raw, 1) + 1, 2)
+    out["subsampled.png"] = (sub, "sub-sampled components")
+    out["colr_sycc.png"] = (set_colr(jp2, 18), "sYCC")
+    out["colr_icc.png"] = (set_colr(jp2, 0, meth=2), "ICC")
+    out["cdef_swap.png"] = (with_box(jp2, box(b"cdef", struct.pack(
+        ">H9H", 3, 0, 0, 2, 1, 0, 1, 2, 0, 3))), "cdef")
+    out["pclr.png"] = (with_box(pil_j2k(img, "L"), box(
+        b"pclr", struct.pack(">HB", 2, 3) + b"\x07\x07\x07" + bytes(6))),
+        "pclr")
+    out["rgn.png"] = (insert_main(raw, 0xFF5E, b"\x00\x00\x02"), "RGN")
+    out["cap.png"] = (insert_main(raw, 0xFF50, b"\x00\x02\x00\x00\x00\x00"),
+                      "HTJ2K")
+    return out
+
+
+def build_big(rng):
+    """The 640 x 480 gradient-and-grain image and Pillow's lossy 9/7 JP2 of
+    it at a 40:1 rate."""
+    h, w = BIG_SIZE
+    img = smooth(rng, h, w, amp=3)
+    return img, pil_j2k(img, irreversible=True, quality_mode="rates",
+                        quality_layers=[40])

@@ -1,6 +1,6 @@
 """The port's image IO: ``tsrio.cpp``, ``jpeg.cpp``, ``formats.cpp``,
-``gif.cpp``, ``hdr.cpp``, ``tiff.cpp``, ``webp.cpp`` and ``vp8.cpp``
-bound with ``ctypes``.
+``gif.cpp``, ``hdr.cpp``, ``tiff.cpp``, ``webp.cpp``, ``vp8.cpp`` and
+``jpeg2000.cpp`` bound with ``ctypes``.
 
 The port's own copy of ``tsr_tpu/native`` and its only codec (no module of
 the port imports cv2 or PIL, and the library links nothing but zlib). It
@@ -28,7 +28,12 @@ cache and prefix code; lossy VP8 with its segments, loop filters, token
 partitions and ALPH chunk, upsampled as libwebp upsamples it; a raw VP8L
 stream, a raw VP8 stream whose first partition ends inside 32 bytes, the
 EXIF orientation and cv2's 32-byte and 64 MiB limits as cv2 reads them,
-the files under 32 bytes as PIL reads them); JPEG
+the files under 32 bytes as PIL reads them); JPEG 2000 part 1 (a JP2
+file or a raw codestream: lossless 5/3 and lossy 9/7, tiles and
+tile-parts, layers, the five progression orders, precincts, code-block
+style 0, SOP and EPH, 1-4 components of 1-16 bits, as OpenJPEG 2.5
+decodes it for cv2, which refuses signed samples, precisions under 8 and
+an image offset, and for PIL); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
 or corrupt as libjpeg recovers it, FF FF 00 in entropy data as
 libjpeg-turbo's fast and slow Huffman passes read it, lossless); EXIF
@@ -36,8 +41,9 @@ orientation applied as
 cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
-port does not decode (:data:`FORMATS`: JPEG 2000, AVIF, and TIFF of
-another layout: LZMA or ZSTD compression, Pillow's LAB...), or
+port does not decode (:data:`FORMATS`: JPEG 2000 of a feature part 1
+leaves out, AVIF, and TIFF of another layout: LZMA or ZSTD compression,
+Pillow's LAB...), or
 that only
 PIL reads and the port does not decode (PCX, SGI, ICO/CUR, DDS, QOI, ICNS,
 MSP, IM, SPIDER, told by Pillow's own checks of the first bytes), raises
@@ -82,7 +88,7 @@ from tsr_tpu_torch.kernels import _build
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp",
            _HERE / "gif.cpp", _HERE / "hdr.cpp", _HERE / "tiff.cpp",
-           _HERE / "webp.cpp", _HERE / "vp8.cpp")
+           _HERE / "webp.cpp", _HERE / "vp8.cpp", _HERE / "jpeg2000.cpp")
 HEADERS = (_HERE / "codec.h",)
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
@@ -172,6 +178,11 @@ def _lib() -> ctypes.CDLL:
             lib.tsrio_webp_lossy_planes.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, u8p,
                 ctypes.c_size_t, ctypes.POINTER(ctypes.c_int)]
+            lib.tsrio_jpeg2000_planes.restype = ctypes.c_int
+            lib.tsrio_jpeg2000_planes.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_int32), ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_int)]
             _LIB = lib
         return _LIB
 
@@ -338,6 +349,11 @@ def probe(paths: Sequence[str], threads: int = 8, reader: str = "port",
       (the header byte's method, pre-processing and reserved bits; the raw
       size, or a VP8L stream as above); the EXIF orientation applied where
       WebPDemux accepts the file and the VP8X flag stores the chunk;
+    - JPEG 2000 (a JP2 file or a raw codestream): OpenJPEG 2.5's strict
+      reading of the JP2 boxes, the main header, every tile-part and
+      packet, then cv2's rules (no signed component, a precision of 8 or
+      more, no image offset, 3 components or more unless the colour space
+      is gray);
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
       does not decode it).
 

@@ -1,9 +1,9 @@
 // codec.h — what tsrio.cpp, jpeg.cpp, formats.cpp, gif.cpp, hdr.cpp,
-// tiff.cpp, webp.cpp and vp8.cpp share: the decoded image, the image-size
-// rules, the status codes a decode or a header probe returns, the JPEG
+// tiff.cpp, webp.cpp, vp8.cpp and jpeg2000.cpp share: the decoded image,
+// the image-size rules, the status codes a decode or a header probe returns, the JPEG
 // codec's entry points, the PNG/PNM/PFM/PAM/BMP/Sun raster, GIF, Radiance
-// HDR, TIFF and WebP readers, the VP8 decoder and the EXIF orientation
-// JPEG, PNG, TIFF and WebP carry.
+// HDR, TIFF, WebP and JPEG 2000 readers, the VP8 decoder and the EXIF
+// orientation JPEG, PNG, TIFF and WebP carry.
 #pragma once
 
 #include <cmath>
@@ -241,8 +241,22 @@ struct Vp8Planes {
 bool vp8_decode(const uint8_t* data, size_t n, bool filter, Vp8Planes& out);
 void vp8_rgb(const Vp8Planes& f, bool fancy, uint8_t* rgb, size_t stride);
 
+// JPEG 2000 (a JP2 file or a raw codestream), part 1 of the format, as
+// cv2.imread reads it (OpenCV 5's Jpeg2KOpjDecoder over OpenJPEG 2.5) and as
+// PIL's Jpeg2KImagePlugin and convert("RGB") read it (jpeg2000.cpp); the
+// arguments and results of read_cv2 and read_pil, kJpeg2000 for a feature
+// part 1 leaves out. is_jpeg2000_data: the JP2 signature box or SOC + SIZ.
+bool is_jpeg2000_data(const uint8_t* data, size_t n);
+int jpeg2000_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+int jpeg2000_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
+// For tests: the components opj_decode gives (each (h, w) int32 plane one
+// after another into `out` of `cap` values; info: components, h, w, and the
+// image offset x0, y0); false where OpenJPEG fails or part 1 stops.
+bool jpeg2000_planes(const uint8_t* data, size_t n, int32_t* out, size_t cap,
+                     int* info);
+
 // The Status of a format cv2.imread reads and the library does not decode
-// (kJpeg2000, kAvif), or of one only PIL reads (kPcx ... kSpider), from the
+// (kAvif; kJpeg2000 comes from jpeg2000.cpp), or of one only PIL reads (kPcx ... kSpider), from the
 // file's first bytes; kUnreadable for any other.
 int foreign_format(const uint8_t* data, size_t n);
 

@@ -1809,8 +1809,6 @@ int foreign(const uint8_t* d, size_t n) {
   auto at = [&](size_t o, const char* s, size_t k) {
     return n >= o + k && !std::memcmp(d + o, s, k);
   };
-  if (at(0, "\0\0\0\x0cjP  \r\n\x87\n", 12) || at(0, "\xff\x4f\xff\x51", 4))
-    return kJpeg2000;
   if (at(4, "ftyp", 4) && (at(8, "avif", 4) || at(8, "avis", 4)))
     return kAvif;
   // Pillow's _accept checks (IM and SPIDER: the header checks of _open)
@@ -1851,6 +1849,7 @@ int read_cv2(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
     if (is_hdr_data(d, n)) return hdr_cv2(d, n, img, out, head);
     if (is_tiff_data(d, n)) return tiff_cv2(d, n, img, out, head);
     if (is_webp_data(d, n)) return webp_cv2(d, n, img, out, head);
+    if (is_jpeg2000_data(d, n)) return jpeg2000_cv2(d, n, img, out, head);
   } catch (const Eof&) {
   }
   return kUnreadable;
@@ -1867,6 +1866,7 @@ int read_pil(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   if (is_gif_data(d, n)) return gif_pil(d, n, img, out, head);
   if (is_tiff_data(d, n)) return tiff_pil(d, n, img, out, head);
   if (is_webp_data(d, n)) return webp_pil(d, n, img, out, head);
+  if (is_jpeg2000_data(d, n)) return jpeg2000_pil(d, n, img, out, head);
   return kUnreadable;
 }
 

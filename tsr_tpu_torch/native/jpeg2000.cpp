@@ -1,0 +1,2175 @@
+// jpeg2000.cpp — JPEG 2000 (the JP2 file and the raw codestream) as
+// cv2.imread reads it (OpenCV 5's Jpeg2KOpjDecoder over OpenJPEG 2.5's
+// opj_decode) and as PIL's Jpeg2KImagePlugin and convert("RGB") read it
+// (Jpeg2KDecode.c over OpenJPEG's tile API), part 1 of the format:
+//
+// - the JP2 boxes that reach the codestream and its colour (jP, ftyp,
+//   jp2h with ihdr, colr, bpcc and cdef, jp2c), by opj_jp2_read_header's
+//   rules; the raw codestream;
+// - the main and tile-part headers (SIZ, COD, COC, QCD, QCC, COM, TLM,
+//   PLM, PLT, CRG, SOT/SOD, EOC) and the tile-part stream by
+//   opj_j2k_read_header_procedure / opj_j2k_read_tile_header /
+//   opj_j2k_decode_tiles, with their refusals;
+// - tier 2 (tag trees, packet headers over quality layers, SOP and EPH)
+//   in the five progression orders, default and custom precincts;
+// - tier 1 (the MQ decoder and the three coding passes of code-block
+//   style 0) with OpenJPEG's half-step reconstruction;
+// - dequantisation (none, scalar derived, scalar expounded), the inverse
+//   5/3 in integers and the inverse 9/7 in float with OpenJPEG's constants
+//   and order of operations, RCT and ICT, and the DC level shift with
+//   lrintf and the clamp.
+//
+// What part 1 leaves out raises naming JPEG 2000 (kJpeg2000): code-block
+// styles other than 0, POC, PPM/PPT, RGN, sub-sampled components, HTJ2K
+// (a CAP marker), the pclr/cmap boxes, a cdef other than the identity, and
+// a colr other than sRGB or gray.
+
+#include <algorithm>
+#include <cmath>
+#include <cstring>
+#include <memory>
+#include <vector>
+
+#include "codec.h"
+
+namespace tsrio {
+namespace {
+
+struct Fail {};         // OpenJPEG fails: the reader gives None / raises
+struct Unsupported {};  // a feature part 1 leaves out (kJpeg2000)
+
+[[noreturn]] void fail() { throw Fail{}; }
+[[noreturn]] void unsupported() { throw Unsupported{}; }
+
+uint32_t be16(const uint8_t* p) { return uint32_t{p[0]} << 8 | p[1]; }
+uint32_t be32(const uint8_t* p) {
+  return uint32_t{p[0]} << 24 | uint32_t{p[1]} << 16 | uint32_t{p[2]} << 8 |
+         p[3];
+}
+
+int ceildivpow2(int64_t a, int b) {
+  return static_cast<int>((a + (int64_t{1} << b) - 1) >> b);
+}
+int floordivpow2(int a, int b) { return a >> b; }
+int floorlog2(uint32_t a) {
+  int l = 0;
+  while (a > 1) {
+    a >>= 1;
+    l++;
+  }
+  return l;
+}
+
+// OpenJPEG's stream over the file's bytes: reads past the end come short.
+struct Stream {
+  const uint8_t* d;
+  size_t n, pos = 0;
+  size_t left() const { return n - pos; }
+  bool read(uint8_t* out, size_t k) {
+    if (left() < k) {
+      pos = n;
+      return false;
+    }
+    std::memcpy(out, d + pos, k);
+    pos += k;
+    return true;
+  }
+  bool read16(uint32_t& v) {
+    uint8_t b[2];
+    if (!read(b, 2)) return false;
+    v = be16(b);
+    return true;
+  }
+};
+
+// ------------------------------------------------------------ JP2 boxes
+
+enum ColorSpace { kCsUnknown = -1, kCsUnspecified = 0, kCsSrgb = 1, kCsGray = 2 };
+
+struct Jp2Info {
+  bool jp2 = false;
+  size_t codestream = 0;  // where the codestream starts
+  uint32_t w = 0, h = 0, nc = 0, bpc = 0;
+  uint32_t enumcs = 0;
+  bool has_colr = false;
+  int cdef = 0;  // the channels a cdef box defines (0: none)
+};
+
+// opj_jp2_read_header_procedure with the handlers of the boxes part 1
+// reads (jP, ftyp, jp2h: ihdr, colr, bpcc, cdef; pclr and cmap are left
+// out): up to the jp2c box (`after` false), or over the boxes that follow
+// the codestream (opj_jp2_end_decompress, `after` true).
+class Jp2Boxes {
+ public:
+  explicit Jp2Boxes(Jp2Info& info) : info_(info) {}
+
+  void walk(const uint8_t* d, size_t n, size_t pos, bool after) {
+    for (;;) {
+      if (n - pos < 8) return;  // no box header: the walk ends
+      uint64_t len = be32(d + pos);
+      const uint32_t type = be32(d + pos + 4);
+      uint32_t hlen = 8;
+      if (len == 1) {
+        if (n - pos < 16 || be32(d + pos + 8) != 0) return;
+        len = be32(d + pos + 12);
+        hlen = 16;
+      }
+      pos += hlen;
+      if (len == 0) len = 8 + (n - pos);  // the last box: to the end
+      if (type == kJp2c) {
+        if (!(state_ & kHeader)) fail();  // "bad placed jpeg codestream"
+        if (!after) info_.codestream = pos;
+        return;
+      }
+      if (len < hlen) fail();  // "invalid box size"
+      const uint64_t size = len - hlen;
+      const bool main = type == kJp || type == kFtyp || type == kJp2h;
+      if (main || img_box_type(type)) {
+        if (!main && !(state_ & kHeader)) {  // misplaced before jp2h: skipped
+          if (size > n - pos) fail();
+          pos += size;
+          continue;
+        }
+        if (size > n - pos) fail();  // "Invalid box size"
+        const uint8_t* p = d + pos;
+        if (type == kJp) {
+          if (state_ != 0) fail();
+          if (size != 4 || be32(p) != 0x0d0a870a) fail();
+          state_ |= kSig;
+        } else if (type == kFtyp) {
+          if (state_ != kSig) fail();
+          if (size < 8 || (size - 8) % 4 != 0) fail();
+          state_ |= kFtypState;
+        } else if (type == kJp2h) {
+          read_jp2h(p, size);
+        } else {
+          img_box(type, p, static_cast<uint32_t>(size));
+        }
+        pos += size;
+      } else {
+        if (!(state_ & kSig) || !(state_ & kFtypState)) fail();
+        if (size > n - pos) {
+          if (after) return;  // the skip fails past the codestream
+          fail();
+        }
+        pos += size;
+      }
+    }
+  }
+
+ private:
+  enum { kSig = 1, kFtypState = 2, kHeader = 4 };
+  static constexpr uint32_t kJp = 0x6a502020, kFtyp = 0x66747970,
+      kJp2h = 0x6a703268, kJp2c = 0x6a703263, kIhdr = 0x69686472,
+      kColr = 0x636f6c72, kBpcc = 0x62706363, kPclr = 0x70636c72,
+      kCmap = 0x636d6170, kCdef = 0x63646566;
+
+  static bool img_box_type(uint32_t t) {
+    return t == kIhdr || t == kColr || t == kBpcc || t == kPclr ||
+           t == kCmap || t == kCdef;
+  }
+
+  void read_jp2h(const uint8_t* p, uint64_t size) {
+    if ((state_ & kFtypState) != kFtypState) fail();
+    bool has_ihdr = false;
+    while (size > 0) {
+      if (size < 8) fail();
+      uint64_t blen = be32(p);
+      const uint32_t btype = be32(p + 4);
+      uint32_t bh = 8;
+      if (blen == 1) {
+        if (size < 16 || be32(p + 8) != 0) fail();
+        blen = be32(p + 12);
+        bh = 16;
+      }
+      if (blen == 0 || blen < bh || blen > size) fail();
+      if (img_box_type(btype)) img_box(btype, p + bh, static_cast<uint32_t>(blen - bh));
+      if (btype == kIhdr) has_ihdr = true;
+      p += blen;
+      size -= blen;
+    }
+    if (!has_ihdr) fail();  // "no 'ihdr' box"
+    state_ |= kHeader;
+  }
+
+  void img_box(uint32_t t, const uint8_t* p, uint32_t size) {
+    Jp2Info& info = info_;
+    if (t == kIhdr) {
+      if (info.nc != 0) return;  // "Ignoring ihdr box. First ihdr box already read"
+      if (size != 14) fail();
+      info.h = be32(p);
+      info.w = be32(p + 4);
+      info.nc = be16(p + 8);
+      if (info.nc - 1u >= 16384u) fail();
+      info.bpc = p[10];
+      if (info.w < 1 || info.h < 1) fail();  // "Wrong values for: w h numcomps (ihdr)"
+    } else if (t == kColr) {
+      if (size < 3) fail();
+      if (info.has_colr) return;  // the first colr box holds
+      const uint8_t meth = p[0];
+      if (meth == 1) {
+        if (size < 7) fail();
+        info.enumcs = be32(p + 3);
+        info.has_colr = true;
+      } else if (meth == 2) {
+        unsupported();  // an ICC profile
+      }
+      // any other method: "not a regular value", the box is ignored
+    } else if (t == kBpcc) {
+      if (size != info.nc) fail();  // "Bad BPCC header box (bad size)"
+    } else if (t == kPclr || t == kCmap) {
+      unsupported();
+    } else if (t == kCdef) {
+      // the identity with at most one alpha channel last (Pillow's LA and
+      // RGBA): the components keep their order and only the alpha flag,
+      // which neither reader uses, changes
+      if (info.cdef) fail();  // at most one cdef box
+      if (size < 2) fail();
+      const uint32_t cn = be16(p);
+      if (cn == 0 || size < 2 + 6 * cn) fail();
+      info.cdef = static_cast<int>(cn);
+      for (uint32_t i = 0; i < cn; i++) {
+        const uint8_t* e = p + 2 + 6 * i;
+        const uint32_t c = be16(e), typ = be16(e + 2), asoc = be16(e + 4);
+        const bool colour = c == i && typ == 0 && asoc == i + 1;
+        const bool alpha = c == i && i == cn - 1 && i > 0 && typ == 1 && asoc == 0;
+        if (!colour && !alpha) unsupported();
+      }
+    }
+  }
+
+  Jp2Info& info_;
+  int state_ = 0;
+};
+
+// --------------------------------------------------------- the codestream
+
+constexpr int kMaxBands = 97;
+
+struct StepSize {
+  int expn = 0, mant = 0;
+};
+
+struct Tccp {  // one component's coding parameters
+  int csty = 0, numres = 0, cblkw = 0, cblkh = 0, cblksty = 0, qmfbid = 0;
+  int qntsty = 0, numgbits = 0;
+  int prcw[33] = {}, prch[33] = {};
+  StepSize steps[kMaxBands];
+};
+
+struct Tcp {  // one tile's coding parameters and data
+  int csty = 0, prg = 0, numlayers = 0, mct = 0;
+  bool cod = false;
+  std::vector<Tccp> tccps;
+  int current_part = -1, nb_parts = 0;
+  bool has_data = false;
+  std::vector<uint8_t> data;
+};
+
+struct CompInfo {
+  int dx = 1, dy = 1, prec = 8, sgnd = 0;
+};
+
+struct Codestream {
+  int x0 = 0, y0 = 0, x1 = 0, y1 = 0;  // the image on the reference grid
+  int tx0 = 0, ty0 = 0, tdx = 0, tdy = 0, tw = 0, th = 0;
+  std::vector<CompInfo> comps;
+  Tcp def;  // the main header's
+  std::vector<Tcp> tcps;
+};
+
+// j2k's decoder states
+enum { kMhSoc = 1, kMhSiz = 2, kMh = 4, kTphSot = 8, kTph = 16,
+       kNeoc = 64, kData = 128, kEoc = 256 };
+
+enum Marker : uint32_t {
+  kSOC = 0xff4f, kSIZ = 0xff51, kCOD = 0xff52, kCOC = 0xff53, kTLM = 0xff55,
+  kPLM = 0xff57, kPLT = 0xff58, kQCD = 0xff5c, kQCC = 0xff5d, kRGN = 0xff5e,
+  kPOC = 0xff5f, kPPM = 0xff60, kPPT = 0xff61, kCRG = 0xff63, kCOM = 0xff64,
+  kCAP = 0xff50, kCPF = 0xff59, kCBD = 0xff78, kMCT = 0xff74, kMCC = 0xff75,
+  kMCO = 0xff77, kSOT = 0xff90, kSOP = 0xff91, kSOD = 0xff93, kEOC = 0xffd9,
+};
+
+// The states a marker may appear in (opj_j2k_memory_marker_handler_tab);
+// 0 for one without a handler (the unknown marker's entry, MH | TPH).
+int marker_states(uint32_t m, bool& known) {
+  known = true;
+  switch (m) {
+    case kSOT: return kMh | kTphSot;
+    case kCOD: case kCOC: case kRGN: case kQCD: case kQCC: case kPOC:
+    case kCOM: case kMCT: case kMCC: case kMCO:
+      return kMh | kTph;
+    case kSIZ: return kMhSiz;
+    case kTLM: case kPLM: case kPPM: case kCRG: case kCBD: case kCAP:
+    case kCPF:
+      return kMh;
+    case kPLT: case kPPT: return kTph;
+    case kSOP: return 0;  // allowed nowhere a marker segment is read
+    default:
+      known = false;
+      return kMh | kTph;
+  }
+}
+
+void read_siz(Codestream& cs, const uint8_t* p, uint32_t size,
+              const Jp2Info& jp2) {
+  if (size < 36 || size % 3 != 0) fail();
+  const uint32_t nb_comp = (size - 36) / 3;
+  const uint32_t x1 = be32(p + 2), y1 = be32(p + 6), x0 = be32(p + 10),
+                 y0 = be32(p + 14), tdx = be32(p + 18), tdy = be32(p + 22),
+                 tx0 = be32(p + 26), ty0 = be32(p + 30), csiz = be16(p + 34);
+  if (csiz != nb_comp || csiz == 0 || csiz > 16384) fail();
+  // part 1 reads 1-4 components; more is left to later parts
+  if (x0 >= x1 || y0 >= y1) fail();
+  // "Error with SIZ marker: IHDR w h vs. SIZ w h"
+  if (jp2.w > 0 && jp2.h > 0 && (jp2.w != x1 - x0 || jp2.h != y1 - y0)) fail();
+  if (tdx == 0 || tdy == 0) fail();
+  if (tx0 > x0 || ty0 > y0 || uint64_t{tx0} + tdx <= x0 ||
+      uint64_t{ty0} + tdy <= y0)
+    fail();
+  if (x1 > 0x7fffffffu || y1 > 0x7fffffffu) fail();
+  cs.comps.resize(csiz);
+  for (uint32_t i = 0; i < csiz; i++) {
+    const uint8_t* c = p + 36 + 3 * i;
+    CompInfo& ci = cs.comps[i];
+    ci.prec = (c[0] & 0x7f) + 1;
+    ci.sgnd = c[0] >> 7;
+    ci.dx = c[1];
+    ci.dy = c[2];
+    if (ci.dx < 1 || ci.dy < 1) fail();
+    if (ci.prec > 31) fail();
+  }
+  const uint64_t tw = (uint64_t{x1} - tx0 + tdx - 1) / tdx;
+  const uint64_t th = (uint64_t{y1} - ty0 + tdy - 1) / tdy;
+  if (tw == 0 || th == 0 || tw > 65535 / th) fail();
+  for (const CompInfo& ci : cs.comps)
+    if (ci.dx != 1 || ci.dy != 1) unsupported();
+  if (csiz > 4) unsupported();
+  cs.x0 = static_cast<int>(x0);
+  cs.y0 = static_cast<int>(y0);
+  cs.x1 = static_cast<int>(x1);
+  cs.y1 = static_cast<int>(y1);
+  cs.tx0 = static_cast<int>(tx0);
+  cs.ty0 = static_cast<int>(ty0);
+  cs.tdx = static_cast<int>(std::min<uint32_t>(tdx, 0x7fffffffu));
+  cs.tdy = static_cast<int>(std::min<uint32_t>(tdy, 0x7fffffffu));
+  cs.tw = static_cast<int>(tw);
+  cs.th = static_cast<int>(th);
+  cs.def.tccps.assign(csiz, Tccp{});
+}
+
+// opj_j2k_read_SPCod_SPCoc: reads into `t`, returns the bytes read.
+uint32_t read_spcod(Tccp& t, int csty, const uint8_t* p, uint32_t size) {
+  if (size < 5) fail();
+  t.numres = p[0] + 1;
+  if (t.numres > 33) fail();
+  t.cblkw = p[1] + 2;
+  t.cblkh = p[2] + 2;
+  if (t.cblkw > 10 || t.cblkh > 10 || t.cblkw + t.cblkh > 12) fail();
+  t.cblksty = p[3];
+  if (t.cblksty & 0x80) fail();  // mixed HT code-blocks
+  t.qmfbid = p[4];
+  if (t.qmfbid > 1) fail();
+  uint32_t used = 5;
+  t.csty = csty & 1;
+  if (t.csty) {
+    if (size - 5 < static_cast<uint32_t>(t.numres)) fail();
+    for (int i = 0; i < t.numres; i++) {
+      const uint8_t v = p[5 + i];
+      if (i != 0 && ((v & 0xf) == 0 || (v >> 4) == 0)) fail();
+      t.prcw[i] = v & 0xf;
+      t.prch[i] = v >> 4;
+    }
+    used += t.numres;
+  } else {
+    for (int i = 0; i < t.numres; i++) t.prcw[i] = t.prch[i] = 15;
+  }
+  if (t.cblksty != 0) unsupported();
+  return used;
+}
+
+// opj_j2k_read_SQcd_SQcc: reads into `t`, returns the bytes read.
+uint32_t read_sqcd(Tccp& t, const uint8_t* p, uint32_t size) {
+  if (size < 1) fail();
+  t.qntsty = p[0] & 0x1f;
+  t.numgbits = p[0] >> 5;
+  uint32_t nb;
+  if (t.qntsty == 1) {
+    nb = 1;
+  } else {
+    nb = t.qntsty == 0 ? size - 1 : (size - 1) / 2;
+    if (nb > kMaxBands) {
+      // "number of subbands is greater to OPJ_J2K_MAXBANDS": the rest is skipped
+    }
+  }
+  uint32_t used = 1;
+  if (t.qntsty == 0) {
+    if (size - 1 < nb) fail();
+    for (uint32_t b = 0; b < nb; b++) {
+      if (b < kMaxBands) {
+        t.steps[b].expn = p[1 + b] >> 3;
+        t.steps[b].mant = 0;
+      }
+    }
+    used += nb;
+  } else {
+    if (size - 1 < 2 * nb) fail();
+    for (uint32_t b = 0; b < nb; b++) {
+      const uint32_t v = be16(p + 1 + 2 * b);
+      if (b < kMaxBands) {
+        t.steps[b].expn = v >> 11;
+        t.steps[b].mant = v & 0x7ff;
+      }
+    }
+    used += 2 * nb;
+  }
+  if (t.qntsty == 1) {
+    for (int b = 1; b < kMaxBands; b++) {
+      const int e = t.steps[0].expn - (b - 1) / 3;
+      t.steps[b].expn = e > 0 ? e : 0;
+      t.steps[b].mant = t.steps[0].mant;
+    }
+  }
+  return used;
+}
+
+void read_cod(Tcp& tcp, const uint8_t* p, uint32_t size) {
+  if (tcp.cod) fail();  // "No more than one COD marker per tile"
+  tcp.cod = true;
+  if (size < 5) fail();
+  const int csty = p[0];
+  if (csty & ~7) fail();  // "Unknown Scod value in COD marker"
+  const int prg = p[1];
+  if (prg > 4) fail();
+  const int layers = static_cast<int>(be16(p + 2));
+  if (layers < 1) fail();
+  const int mct = p[4];
+  if (mct > 1) fail();
+  tcp.csty = csty;
+  tcp.prg = prg;
+  tcp.numlayers = layers;
+  tcp.mct = mct;
+  Tccp& t0 = tcp.tccps[0];
+  const uint32_t used = read_spcod(t0, csty, p + 5, size - 5);
+  if (used != size - 5) fail();
+  for (size_t c = 1; c < tcp.tccps.size(); c++) {
+    Tccp& t = tcp.tccps[c];
+    t.csty = t0.csty;
+    t.numres = t0.numres;
+    t.cblkw = t0.cblkw;
+    t.cblkh = t0.cblkh;
+    t.cblksty = t0.cblksty;
+    t.qmfbid = t0.qmfbid;
+    std::memcpy(t.prcw, t0.prcw, sizeof t.prcw);
+    std::memcpy(t.prch, t0.prch, sizeof t.prch);
+  }
+}
+
+int comp_index(const Codestream& cs, const uint8_t*& p, uint32_t& size) {
+  const bool two = cs.comps.size() > 256;
+  if (size < (two ? 2u : 1u)) fail();
+  const uint32_t c = two ? be16(p) : p[0];
+  p += two ? 2 : 1;
+  size -= two ? 2 : 1;
+  if (c >= cs.comps.size()) fail();
+  return static_cast<int>(c);
+}
+
+void read_coc(const Codestream& cs, Tcp& tcp, const uint8_t* p, uint32_t size) {
+  const int c = comp_index(cs, p, size);
+  if (size < 1) fail();
+  const int csty = p[0];
+  if (read_spcod(tcp.tccps[c], csty, p + 1, size - 1) != size - 1) fail();
+}
+
+void read_qcd(Tcp& tcp, const uint8_t* p, uint32_t size) {
+  if (read_sqcd(tcp.tccps[0], p, size) != size) fail();
+  for (size_t c = 1; c < tcp.tccps.size(); c++) {
+    Tccp& t = tcp.tccps[c];
+    t.qntsty = tcp.tccps[0].qntsty;
+    t.numgbits = tcp.tccps[0].numgbits;
+    std::memcpy(t.steps, tcp.tccps[0].steps, sizeof t.steps);
+  }
+}
+
+void read_qcc(const Codestream& cs, Tcp& tcp, const uint8_t* p, uint32_t size) {
+  const int c = comp_index(cs, p, size);
+  if (read_sqcd(tcp.tccps[c], p, size) != size) fail();
+}
+
+// A marker segment's handler, main header or tile-part header (`tcp`).
+void read_segment(Codestream& cs, Tcp& tcp, uint32_t m, const uint8_t* p,
+                  uint32_t size) {
+  switch (m) {
+    case kCOD: read_cod(tcp, p, size); break;
+    case kCOC: read_coc(cs, tcp, p, size); break;
+    case kQCD: read_qcd(tcp, p, size); break;
+    case kQCC: read_qcc(cs, tcp, p, size); break;
+    case kCOM:
+      break;
+    case kCRG:
+      if (size != cs.comps.size() * 4) fail();
+      break;
+    case kTLM:
+      if (size < 2) fail();
+      {
+        const int st = (p[1] >> 4) & 3, sp = (p[1] >> 6) & 1;
+        if (st == 3) fail();
+        const uint32_t quanta = st + (sp ? 4 : 2);
+        if ((size - 2) % quanta != 0) fail();
+      }
+      break;
+    case kPLM:
+      if (size < 1) fail();
+      break;
+    case kPLT:
+      if (size < 1) fail();
+      {
+        // each length ends on a byte without its high bit
+        bool open = false;
+        for (uint32_t i = 1; i < size; i++) open = (p[i] & 0x80) != 0;
+        if (open) fail();
+      }
+      break;
+    default:  // POC, PPM, PPT, RGN, CAP, CBD, CPF, MCT, MCC, MCO
+      unsupported();
+  }
+}
+
+// opj_j2k_read_header_procedure: SOC, then marker segments up to the first
+// SOT (whose marker the stream has read); `cs.tcps` become the main
+// header's.
+void read_main_header(Stream& s, Codestream& cs, int& state,
+                      const Jp2Info& jp2) {
+  uint32_t m;
+  if (!s.read16(m) || m != kSOC) fail();
+  state = kMhSiz;
+  if (!s.read16(m)) fail();
+  bool has_siz = false, has_cod = false, has_qcd = false;
+  std::vector<uint8_t> seg;
+  while (m != kSOT) {
+    if (m < 0xff00) fail();
+    bool known;
+    int states = marker_states(m, known);
+    if (!known) {
+      // opj_j2k_read_unk: two bytes at a time up to a known marker allowed
+      // where the decoder stands
+      for (;;) {
+        uint32_t u;
+        if (!s.read16(u)) fail();
+        if (u < 0xff00) continue;
+        bool k2;
+        const int st2 = marker_states(u, k2);
+        if (!(state & st2)) fail();
+        if (k2) {
+          m = u;
+          states = st2;
+          break;
+        }
+      }
+      if (m == kSOT) break;
+    }
+    if (m == kSIZ) has_siz = true;
+    if (m == kCOD) has_cod = true;
+    if (m == kQCD) has_qcd = true;
+    if (!(state & states)) fail();
+    uint32_t len;
+    if (!s.read16(len)) fail();
+    if (len < 2) fail();
+    len -= 2;
+    seg.resize(len + 1);
+    if (!s.read(seg.data(), len)) fail();
+    if (m == kSIZ) {
+      read_siz(cs, seg.data(), len, jp2);
+      state = kMh;
+    } else {
+      if (cs.comps.empty()) fail();
+      read_segment(cs, cs.def, m, seg.data(), len);
+    }
+    if (!s.read16(m)) fail();
+  }
+  if (!has_siz || !has_cod || !has_qcd) fail();
+  Tcp tile = cs.def;
+  tile.cod = false;
+  cs.tcps.assign(static_cast<size_t>(cs.tw) * cs.th, tile);
+  state = kTphSot;
+}
+
+
+// ------------------------------------------------------------- tier 2
+
+// opj_bio: a packet header's bits, a 0xFF byte followed by 7 bits; past the
+// end the bits read 0 and the position stays.
+struct Bio {
+  const uint8_t *start, *end, *bp;
+  uint32_t buf = 0;
+  int ct = 0;
+  Bio(const uint8_t* p, size_t n) : start(p), end(p + n), bp(p) {}
+  void bytein() {
+    buf = (buf << 8) & 0xffff;
+    ct = buf == 0xff00 ? 7 : 8;
+    if (bp < end) buf |= *bp++;
+  }
+  uint32_t bit() {
+    if (ct == 0) bytein();
+    ct--;
+    return (buf >> ct) & 1;
+  }
+  uint32_t read(int n) {
+    uint32_t v = 0;
+    for (int i = n - 1; i >= 0; i--) v |= bit() << i;
+    return v;
+  }
+  void inalign() {
+    if ((buf & 0xff) == 0xff) bytein();
+    ct = 0;
+  }
+  size_t numbytes() const { return static_cast<size_t>(bp - start); }
+};
+
+// opj_tgt: a tag tree over w x h leaves (parents by halving, row-major
+// level after level).
+struct TagTree {
+  std::vector<int> parent, value, low;
+  void init(int w, int h) {
+    parent.clear();
+    std::vector<int> lw{w}, lh{h};
+    int n;
+    size_t total = 0;
+    do {
+      n = lw.back() * lh.back();
+      total += n;
+      lw.push_back((lw.back() + 1) / 2);
+      lh.push_back((lh.back() + 1) / 2);
+    } while (n > 1);
+    parent.assign(total, -1);
+    size_t base = 0;
+    for (size_t l = 0; l + 2 < lw.size(); l++) {
+      const size_t next = base + static_cast<size_t>(lw[l]) * lh[l];
+      for (int j = 0; j < lh[l]; j++)
+        for (int i = 0; i < lw[l]; i++)
+          parent[base + static_cast<size_t>(j) * lw[l] + i] =
+              static_cast<int>(next + static_cast<size_t>(j / 2) * lw[l + 1] + i / 2);
+      base = next;
+    }
+    value.assign(total, 999);
+    low.assign(total, 0);
+  }
+  bool decode(Bio& bio, int leaf, int threshold) {
+    int stk[32], sp = 0;
+    int node = leaf;
+    while (parent[node] >= 0) {
+      stk[sp++] = node;
+      node = parent[node];
+    }
+    int lo = 0;
+    for (;;) {
+      if (lo > low[node]) {
+        low[node] = lo;
+      } else {
+        lo = low[node];
+      }
+      while (lo < threshold && lo < value[node]) {
+        if (bio.bit()) {
+          value[node] = lo;
+        } else {
+          ++lo;
+        }
+      }
+      low[node] = lo;
+      if (sp == 0) break;
+      node = stk[--sp];
+    }
+    return value[node] < threshold;
+  }
+};
+
+struct Seg {
+  int numpasses = 0, maxpasses = 109, numnewpasses = 0;
+  uint32_t newlen = 0;
+  std::vector<uint8_t> data;
+};
+
+struct Cblk {
+  int x0, y0, x1, y1;
+  int numbps = 0, numlenbits = 0, numnewpasses = 0, numsegs = 0;
+  std::vector<Seg> segs;
+};
+
+struct Prc {
+  int x0, y0, x1, y1, cw = 0, ch = 0;
+  std::vector<Cblk> cblks;
+  TagTree incl, imsb;
+};
+
+struct Band {
+  int bandno = 0, x0 = 0, y0 = 0, x1 = 0, y1 = 0, numbps = 0;
+  float stepsize = 0;
+  std::vector<Prc> prcs;
+  bool empty() const { return x1 - x0 == 0 || y1 - y0 == 0; }
+};
+
+struct Res {
+  int x0, y0, x1, y1, pw = 0, ph = 0, pdx = 0, pdy = 0, numbands = 0;
+  Band bands[3];
+};
+
+struct TileComp {
+  int x0, y0, x1, y1, numres = 0;
+  std::vector<Res> res;
+  std::vector<int32_t> idata;  // the 5/3's coefficients, then the samples
+  std::vector<float> fdata;    // the 9/7's coefficients
+  int w() const { return x1 - x0; }
+  int h() const { return y1 - y0; }
+};
+
+// opj_tcd_init_tile for a decode: resolutions, bands, precincts and
+// code-blocks of each component of the tile at (tx0, ty0)-(tx1, ty1).
+void init_tile(const Codestream& cs, const Tcp& tcp, int tx0, int ty0,
+               int tx1, int ty1, std::vector<TileComp>& tile) {
+  tile.assign(cs.comps.size(), TileComp{});
+  for (size_t c = 0; c < cs.comps.size(); c++) {
+    const Tccp& tccp = tcp.tccps[c];
+    TileComp& tc = tile[c];
+    tc.x0 = tx0;
+    tc.y0 = ty0;
+    tc.x1 = tx1;
+    tc.y1 = ty1;
+    tc.numres = tccp.numres;
+    tc.res.resize(tc.numres);
+    const size_t area = static_cast<size_t>(tc.w()) * tc.h();
+    if (tccp.qmfbid == 1)
+      tc.idata.assign(area, 0);
+    else
+      tc.fdata.assign(area, 0.0f);
+    const int prec = cs.comps[c].prec;
+    int level = tc.numres;
+    int step = 0;
+    for (int r = 0; r < tc.numres; r++) {
+      --level;
+      Res& res = tc.res[r];
+      res.x0 = ceildivpow2(tc.x0, level);
+      res.y0 = ceildivpow2(tc.y0, level);
+      res.x1 = ceildivpow2(tc.x1, level);
+      res.y1 = ceildivpow2(tc.y1, level);
+      res.pdx = tccp.prcw[r];
+      res.pdy = tccp.prch[r];
+      const int tlx = floordivpow2(res.x0, res.pdx) << res.pdx;
+      const int tly = floordivpow2(res.y0, res.pdy) << res.pdy;
+      const int64_t brx = int64_t{ceildivpow2(res.x1, res.pdx)} << res.pdx;
+      const int64_t bry = int64_t{ceildivpow2(res.y1, res.pdy)} << res.pdy;
+      if (brx > 0x7fffffff || bry > 0x7fffffff) fail();
+      res.pw = res.x0 == res.x1 ? 0 : static_cast<int>((brx - tlx) >> res.pdx);
+      res.ph = res.y0 == res.y1 ? 0 : static_cast<int>((bry - tly) >> res.pdy);
+      if (int64_t{res.pw} * res.ph > (int64_t{1} << 26)) fail();
+      int cbgx, cbgy, cbgw, cbgh;
+      if (r == 0) {
+        cbgx = tlx;
+        cbgy = tly;
+        cbgw = res.pdx;
+        cbgh = res.pdy;
+        res.numbands = 1;
+      } else {
+        cbgx = ceildivpow2(tlx, 1);
+        cbgy = ceildivpow2(tly, 1);
+        cbgw = res.pdx - 1;
+        cbgh = res.pdy - 1;
+        res.numbands = 3;
+      }
+      const int cbw = std::min(tccp.cblkw, cbgw), cbh = std::min(tccp.cblkh, cbgh);
+      for (int b = 0; b < res.numbands; b++, step++) {
+        Band& band = res.bands[b];
+        if (r == 0) {
+          band.bandno = 0;
+          band.x0 = ceildivpow2(tc.x0, level);
+          band.y0 = ceildivpow2(tc.y0, level);
+          band.x1 = ceildivpow2(tc.x1, level);
+          band.y1 = ceildivpow2(tc.y1, level);
+        } else {
+          band.bandno = b + 1;
+          const int xob = band.bandno & 1, yob = band.bandno >> 1;
+          band.x0 = ceildivpow2(tc.x0 - (int64_t{xob} << level), level + 1);
+          band.y0 = ceildivpow2(tc.y0 - (int64_t{yob} << level), level + 1);
+          band.x1 = ceildivpow2(tc.x1 - (int64_t{xob} << level), level + 1);
+          band.y1 = ceildivpow2(tc.y1 - (int64_t{yob} << level), level + 1);
+        }
+        const StepSize& ss = tccp.steps[std::min(step, kMaxBands - 1)];
+        // BUG_WEIRD_TWO_INVK: the 9/7 decoder's gain is 0 for every band
+        const int gain = tccp.qmfbid == 0 ? 0 : band.bandno == 0 ? 0
+                         : band.bandno == 3 ? 2 : 1;
+        const int rb = prec + gain;
+        band.stepsize = static_cast<float>(
+            (1.0 + ss.mant / 2048.0) * std::pow(2.0, rb - ss.expn));
+        band.numbps = ss.expn + tccp.numgbits - 1;
+        if (band.empty()) continue;
+        band.prcs.resize(static_cast<size_t>(res.pw) * res.ph);
+        for (int p = 0; p < res.pw * res.ph; p++) {
+          Prc& prc = band.prcs[p];
+          const int sx = cbgx + (p % res.pw) * (1 << cbgw);
+          const int sy = cbgy + (p / res.pw) * (1 << cbgh);
+          prc.x0 = std::max(sx, band.x0);
+          prc.y0 = std::max(sy, band.y0);
+          prc.x1 = std::min(sx + (1 << cbgw), band.x1);
+          prc.y1 = std::min(sy + (1 << cbgh), band.y1);
+          const int tcx = floordivpow2(prc.x0, cbw) << cbw;
+          const int tcy = floordivpow2(prc.y0, cbh) << cbh;
+          const int bcx = ceildivpow2(prc.x1, cbw) << cbw;
+          const int bcy = ceildivpow2(prc.y1, cbh) << cbh;
+          prc.cw = prc.x1 > prc.x0 ? (bcx - tcx) >> cbw : 0;
+          prc.ch = prc.y1 > prc.y0 ? (bcy - tcy) >> cbh : 0;
+          if (prc.cw == 0 || prc.ch == 0) {
+            prc.cw = prc.ch = 0;
+            continue;
+          }
+          prc.incl.init(prc.cw, prc.ch);
+          prc.imsb.init(prc.cw, prc.ch);
+          prc.cblks.resize(static_cast<size_t>(prc.cw) * prc.ch);
+          for (int k = 0; k < prc.cw * prc.ch; k++) {
+            Cblk& cb = prc.cblks[k];
+            const int cx = tcx + (k % prc.cw) * (1 << cbw);
+            const int cy = tcy + (k / prc.cw) * (1 << cbh);
+            cb.x0 = std::max(cx, prc.x0);
+            cb.y0 = std::max(cy, prc.y0);
+            cb.x1 = std::min(cx + (1 << cbw), prc.x1);
+            cb.y1 = std::min(cy + (1 << cbh), prc.y1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// opj_t2_decode_packet: one packet's header then its data, from `d` with
+// `n` bytes left in the tile; returns the bytes it took.
+size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
+                   int resno, int precno, int layno, const uint8_t* d,
+                   size_t n) {
+  Res& res = tile[compno].res[resno];
+  const uint8_t* cur = d;
+  // SOP
+  if (tcp.csty & 2) {
+    if (n >= 6 && cur[0] == 0xff && cur[1] == 0x91) cur += 6;
+  }
+  size_t remaining = n - static_cast<size_t>(cur - d);
+  Bio bio(cur, remaining);
+  const bool present = bio.bit();
+  // EPH: required after every packet header, an empty packet's too
+  auto eph = [&](const uint8_t*& h) {
+    if (tcp.csty & 4) {
+      const size_t used = static_cast<size_t>(h - cur);
+      if (remaining - used < 2) fail();  // "Not enough space for required EPH"
+      if (h[0] != 0xff || h[1] != 0x92) fail();  // "Expected EPH marker"
+      h += 2;
+    }
+  };
+  if (!present) {
+    bio.inalign();
+    const uint8_t* h = cur + bio.numbytes();
+    eph(h);
+    return static_cast<size_t>(h - d);
+  }
+  for (int b = 0; b < res.numbands; b++) {
+    Band& band = res.bands[b];
+    if (band.empty()) continue;
+    if (precno >= static_cast<int>(band.prcs.size())) fail();
+    Prc& prc = band.prcs[precno];
+    for (int k = 0; k < prc.cw * prc.ch; k++) {
+      Cblk& cb = prc.cblks[k];
+      bool included;
+      if (cb.numsegs == 0)
+        included = prc.incl.decode(bio, k, layno + 1);
+      else
+        included = bio.bit();
+      if (!included) {
+        cb.numnewpasses = 0;
+        continue;
+      }
+      if (cb.numsegs == 0) {
+        int i = 0;
+        while (!prc.imsb.decode(bio, k, i)) {
+          if (++i > 2048) fail();
+        }
+        cb.numbps = band.numbps + 1 - i;
+        cb.numlenbits = 3;
+      }
+      // opj_t2_getnumpasses
+      int np;
+      if (!bio.bit()) {
+        np = 1;
+      } else if (!bio.bit()) {
+        np = 2;
+      } else {
+        const int t2 = static_cast<int>(bio.read(2));
+        if (t2 != 3) {
+          np = 3 + t2;
+        } else {
+          const int t5 = static_cast<int>(bio.read(5));
+          np = t5 != 31 ? 6 + t5 : 37 + static_cast<int>(bio.read(7));
+        }
+      }
+      cb.numnewpasses = np;
+      // opj_t2_getcommacode
+      int inc = 0;
+      while (bio.bit()) inc++;
+      cb.numlenbits += inc;
+      size_t segno;
+      if (cb.numsegs == 0) {
+        segno = 0;
+        cb.segs.assign(1, Seg{});
+      } else {
+        segno = cb.numsegs - 1;
+        if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses) {
+          ++segno;
+          if (cb.segs.size() <= segno) cb.segs.resize(segno + 1);
+          cb.segs[segno] = Seg{};
+        }
+      }
+      int left = np;
+      do {
+        Seg& sg = cb.segs[segno];
+        sg.numnewpasses = std::min(sg.maxpasses - sg.numpasses, left);
+        const int bits = cb.numlenbits + floorlog2(static_cast<uint32_t>(sg.numnewpasses));
+        if (bits > 32) fail();
+        sg.newlen = bio.read(bits);
+        left -= sg.numnewpasses;
+        if (left > 0) {
+          ++segno;
+          if (cb.segs.size() <= segno) cb.segs.resize(segno + 1);
+          cb.segs[segno] = Seg{};
+        }
+      } while (left > 0);
+    }
+  }
+  bio.inalign();
+  const uint8_t* h = cur + bio.numbytes();
+  eph(h);
+  // opj_t2_read_packet_data
+  const uint8_t* end = d + n;
+  for (int b = 0; b < res.numbands; b++) {
+    Band& band = res.bands[b];
+    if (band.empty()) continue;
+    Prc& prc = band.prcs[precno];
+    for (Cblk& cb : prc.cblks) {
+      if (!cb.numnewpasses) continue;
+      size_t segno;
+      if (!cb.numsegs) {
+        segno = 0;
+        ++cb.numsegs;
+      } else {
+        segno = cb.numsegs - 1;
+        if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses) {
+          ++segno;
+          ++cb.numsegs;
+        }
+      }
+      do {
+        Seg& sg = cb.segs[segno];
+        if (sg.newlen > static_cast<size_t>(end - h)) fail();  // "segment too long"
+        sg.data.insert(sg.data.end(), h, h + sg.newlen);
+        h += sg.newlen;
+        sg.numpasses += sg.numnewpasses;
+        cb.numnewpasses -= sg.numnewpasses;
+        if (cb.numnewpasses > 0) {
+          ++segno;
+          ++cb.numsegs;
+        }
+      } while (cb.numnewpasses > 0);
+    }
+  }
+  return static_cast<size_t>(h - d);
+}
+
+// opj_pi_next_*: the packets of a tile in its progression order, each once.
+void decode_packets(const Tcp& tcp, int tx0, int ty0, int tx1, int ty1,
+                    std::vector<TileComp>& tile,
+                    const std::vector<uint8_t>& data) {
+  const int nc = static_cast<int>(tile.size());
+  const int layers = tcp.numlayers;
+  int maxres = 0, maxprec = 0;
+  for (const TileComp& tc : tile) {
+    maxres = std::max(maxres, tc.numres);
+    for (const Res& r : tc.res) maxprec = std::max(maxprec, r.pw * r.ph);
+  }
+  std::vector<uint8_t> include(static_cast<size_t>(layers) * maxres * nc *
+                                   std::max(maxprec, 1), 0);
+  size_t pos = 0;
+  auto packet = [&](int c, int r, int p, int l) {
+    const size_t idx = ((static_cast<size_t>(l) * maxres + r) * nc + c) *
+                           std::max(maxprec, 1) + p;
+    if (include[idx]) return;
+    include[idx] = 1;
+    pos += read_packet(tcp, tile, c, r, p, l, data.data() + pos,
+                       data.size() - pos);
+  };
+  // a position progression's step and its precinct at (x, y)
+  auto step = [&](int c0, int c1, uint32_t& dx, uint32_t& dy) {
+    dx = dy = 0;
+    for (int c = c0; c < c1; c++) {
+      const TileComp& tc = tile[c];
+      for (int r = 0; r < tc.numres; r++) {
+        const int ex = tc.res[r].pdx + tc.numres - 1 - r;
+        const int ey = tc.res[r].pdy + tc.numres - 1 - r;
+        if (ex < 32) dx = dx ? std::min(dx, 1u << ex) : 1u << ex;
+        if (ey < 32) dy = dy ? std::min(dy, 1u << ey) : 1u << ey;
+      }
+    }
+    if (dx == 0 || dy == 0) fail();
+  };
+  auto at = [&](int c, int r, uint32_t x, uint32_t y) {
+    const TileComp& tc = tile[c];
+    if (r >= tc.numres) return;
+    const Res& res = tc.res[r];
+    const int level = tc.numres - 1 - r;
+    auto cdiv = [](uint64_t a, uint64_t b) { return static_cast<uint32_t>((a + b - 1) / b); };
+    const uint32_t trx0 = cdiv(static_cast<uint32_t>(tx0), uint64_t{1} << level);
+    const uint32_t try0 = cdiv(static_cast<uint32_t>(ty0), uint64_t{1} << level);
+    const uint32_t trx1 = cdiv(static_cast<uint32_t>(tx1), uint64_t{1} << level);
+    const uint32_t try1 = cdiv(static_cast<uint32_t>(ty1), uint64_t{1} << level);
+    const int rpx = res.pdx + level, rpy = res.pdy + level;
+    if (rpx >= 31 || rpy >= 31) return;
+    if (!((y % (1u << rpy)) == 0 ||
+          (y == static_cast<uint32_t>(ty0) && ((uint64_t{try0} << level) % (1u << rpy)))))
+      return;
+    if (!((x % (1u << rpx)) == 0 ||
+          (x == static_cast<uint32_t>(tx0) && ((uint64_t{trx0} << level) % (1u << rpx)))))
+      return;
+    if (res.pw == 0 || res.ph == 0) return;
+    if (trx0 == trx1 || try0 == try1) return;
+    const uint32_t prci = (cdiv(x, uint64_t{1} << level) >> res.pdx) - (trx0 >> res.pdx);
+    const uint32_t prcj = (cdiv(y, uint64_t{1} << level) >> res.pdy) - (try0 >> res.pdy);
+    const uint32_t p = prci + prcj * static_cast<uint32_t>(res.pw);
+    if (p >= static_cast<uint32_t>(std::max(maxprec, 1))) fail();
+    for (int l = 0; l < layers; l++) packet(c, r, static_cast<int>(p), l);
+  };
+  const uint32_t ux0 = static_cast<uint32_t>(tx0), uy0 = static_cast<uint32_t>(ty0);
+  const uint32_t ux1 = static_cast<uint32_t>(tx1), uy1 = static_cast<uint32_t>(ty1);
+  uint32_t dx, dy;
+  switch (tcp.prg) {
+    case 0:  // LRCP
+      for (int l = 0; l < layers; l++)
+        for (int r = 0; r < maxres; r++)
+          for (int c = 0; c < nc; c++) {
+            if (r >= tile[c].numres) continue;
+            const Res& res = tile[c].res[r];
+            for (int p = 0; p < res.pw * res.ph; p++) packet(c, r, p, l);
+          }
+      break;
+    case 1:  // RLCP
+      for (int r = 0; r < maxres; r++)
+        for (int l = 0; l < layers; l++)
+          for (int c = 0; c < nc; c++) {
+            if (r >= tile[c].numres) continue;
+            const Res& res = tile[c].res[r];
+            for (int p = 0; p < res.pw * res.ph; p++) packet(c, r, p, l);
+          }
+      break;
+    case 2:  // RPCL
+      step(0, nc, dx, dy);
+      for (int r = 0; r < maxres; r++)
+        for (uint32_t y = uy0; y < uy1; y += dy - (y % dy))
+          for (uint32_t x = ux0; x < ux1; x += dx - (x % dx))
+            for (int c = 0; c < nc; c++) at(c, r, x, y);
+      break;
+    case 3:  // PCRL
+      step(0, nc, dx, dy);
+      for (uint32_t y = uy0; y < uy1; y += dy - (y % dy))
+        for (uint32_t x = ux0; x < ux1; x += dx - (x % dx))
+          for (int c = 0; c < nc; c++)
+            for (int r = 0; r < tile[c].numres; r++) at(c, r, x, y);
+      break;
+    default:  // CPRL
+      for (int c = 0; c < nc; c++) {
+        step(c, c + 1, dx, dy);
+        for (uint32_t y = uy0; y < uy1; y += dy - (y % dy))
+          for (uint32_t x = ux0; x < ux1; x += dx - (x % dx))
+            for (int r = 0; r < tile[c].numres; r++) at(c, r, x, y);
+      }
+  }
+}
+
+// ------------------------------------------------------------- tier 1
+
+struct MqState {
+  uint16_t qe;
+  uint8_t nmps, nlps, sw;
+};
+constexpr MqState kMq[47] = {
+    {0x5601, 1, 1, 1},   {0x3401, 2, 6, 0},   {0x1801, 3, 9, 0},
+    {0x0AC1, 4, 12, 0},  {0x0521, 5, 29, 0},  {0x0221, 38, 33, 0},
+    {0x5601, 7, 6, 1},   {0x5401, 8, 14, 0},  {0x4801, 9, 14, 0},
+    {0x3801, 10, 14, 0}, {0x3001, 11, 17, 0}, {0x2401, 12, 18, 0},
+    {0x1C01, 13, 20, 0}, {0x1601, 29, 21, 0}, {0x5601, 15, 14, 1},
+    {0x5401, 16, 14, 0}, {0x5101, 17, 15, 0}, {0x4801, 18, 16, 0},
+    {0x3801, 19, 17, 0}, {0x3401, 20, 18, 0}, {0x3001, 21, 19, 0},
+    {0x2801, 22, 19, 0}, {0x2401, 23, 20, 0}, {0x2201, 24, 21, 0},
+    {0x1C01, 25, 22, 0}, {0x1801, 26, 23, 0}, {0x1601, 27, 24, 0},
+    {0x1401, 28, 25, 0}, {0x1201, 29, 26, 0}, {0x1101, 30, 27, 0},
+    {0x0AC1, 31, 28, 0}, {0x09C1, 32, 29, 0}, {0x08A1, 33, 30, 0},
+    {0x0521, 34, 31, 0}, {0x0441, 35, 32, 0}, {0x02A1, 36, 33, 0},
+    {0x0221, 37, 34, 0}, {0x0141, 38, 35, 0}, {0x0111, 39, 36, 0},
+    {0x0085, 40, 37, 0}, {0x0049, 41, 38, 0}, {0x0025, 42, 39, 0},
+    {0x0015, 43, 40, 0}, {0x0009, 44, 41, 0}, {0x0005, 45, 42, 0},
+    {0x0001, 45, 43, 0}, {0x5601, 46, 46, 0},
+};
+
+// The MQ decoder (opj_mqc, Annex C), over a segment that OpenJPEG ends with
+// an artificial FF FF marker.
+struct Mq {
+  const uint8_t* bp;
+  uint32_t a = 0, c = 0;
+  int ct = 0;
+  uint8_t state[19], mps[19];
+  std::vector<uint8_t> buf;
+  void reset_contexts() {
+    std::memset(state, 0, sizeof state);
+    std::memset(mps, 0, sizeof mps);
+    state[18] = 46;  // uniform
+    state[17] = 3;   // run length
+    state[0] = 4;    // zero coding, no significant neighbour
+  }
+  void bytein() {
+    if (*bp == 0xff) {
+      if (bp[1] > 0x8f) {
+        c += 0xff00;
+        ct = 8;
+      } else {
+        bp++;
+        c += uint32_t{*bp} << 9;
+        ct = 7;
+      }
+    } else {
+      bp++;
+      c += uint32_t{*bp} << 8;
+      ct = 8;
+    }
+  }
+  void init(const uint8_t* d, size_t n) {
+    buf.assign(d, d + n);
+    buf.push_back(0xff);
+    buf.push_back(0xff);
+    bp = buf.data();
+    c = n == 0 ? 0xffu << 16 : uint32_t{*bp} << 16;
+    bytein();
+    c <<= 7;
+    ct -= 7;
+    a = 0x8000;
+  }
+  void renorm() {
+    do {
+      if (ct == 0) bytein();
+      a <<= 1;
+      c <<= 1;
+      ct--;
+    } while (a < 0x8000);
+  }
+  int decode(int cx) {
+    const MqState& s = kMq[state[cx]];
+    const uint32_t qe = s.qe;
+    int d;
+    a -= qe;
+    if ((c >> 16) < qe) {
+      if (a < qe) {
+        d = mps[cx];
+        state[cx] = s.nmps;
+      } else {
+        d = 1 - mps[cx];
+        if (s.sw) mps[cx] = static_cast<uint8_t>(1 - mps[cx]);
+        state[cx] = s.nlps;
+      }
+      a = qe;
+      renorm();
+    } else {
+      c -= qe << 16;
+      if ((a & 0x8000) == 0) {
+        if (a < qe) {
+          d = 1 - mps[cx];
+          if (s.sw) mps[cx] = static_cast<uint8_t>(1 - mps[cx]);
+          state[cx] = s.nlps;
+        } else {
+          d = mps[cx];
+          state[cx] = s.nmps;
+        }
+        renorm();
+      } else {
+        d = mps[cx];
+      }
+    }
+    return d;
+  }
+};
+
+// The contexts of Annex D by a coefficient's neighbourhood word: bits 0-7
+// its W, E, N, S, NW, NE, SW and SE neighbours' significance, bits 8-11 the
+// W, E, N and S neighbours' signs (1: negative).
+enum : uint16_t {
+  kW = 1, kE = 2, kN = 4, kS = 8, kNW = 16, kNE = 32, kSW = 64, kSE = 128,
+  kNeighbours = 0xff, kWNeg = 256, kENeg = 512, kNNeg = 1024, kSNeg = 2048,
+  kSig = 1 << 12, kVisit = 1 << 13, kRefined = 1 << 14,
+};
+
+struct T1Tables {
+  uint8_t zc[4][256];      // by orientation and neighbour significance
+  uint8_t sc[256], sx[256];  // by (W, E, N, S significance, their signs)
+  T1Tables() {
+    for (int o = 0; o < 4; o++)
+      for (int m = 0; m < 256; m++) {
+        int h = !!(m & kW) + !!(m & kE), v = !!(m & kN) + !!(m & kS);
+        const int d = !!(m & kNW) + !!(m & kNE) + !!(m & kSW) + !!(m & kSE);
+        int c;
+        if (o == 3) {
+          const int hv = h + v;
+          c = d >= 3 ? 8 : d == 2 ? (hv >= 1 ? 7 : 6)
+              : d == 1 ? (hv >= 2 ? 5 : hv == 1 ? 4 : 3)
+              : hv >= 2 ? 2 : hv == 1 ? 1 : 0;
+        } else {
+          if (o == 1) std::swap(h, v);  // HL: vertical neighbours lead
+          c = h == 2 ? 8 : h == 1 ? (v >= 1 ? 7 : d >= 1 ? 6 : 5)
+              : v == 2 ? 4 : v == 1 ? 3 : d >= 2 ? 2 : d == 1 ? 1 : 0;
+        }
+        zc[o][m] = static_cast<uint8_t>(c);
+      }
+    // Table D.3: rows by H (-1, 0, 1), columns by V (-1, 0, 1)
+    static const int ctx[3][3] = {{13, 12, 11}, {10, 9, 10}, {11, 12, 13}};
+    for (int m = 0; m < 256; m++) {
+      auto part = [&](int sig, int neg) { return (m & sig) ? ((m & neg) ? -1 : 1) : 0; };
+      const int h = std::clamp(part(1, 16) + part(2, 32), -1, 1);
+      const int v = std::clamp(part(4, 64) + part(8, 128), -1, 1);
+      sc[m] = static_cast<uint8_t>(ctx[h + 1][v + 1]);
+      sx[m] = (h == -1 || (h == 0 && v == -1)) ? 1 : 0;
+    }
+  }
+};
+
+// One code-block's coefficients through the three passes (Annex D), in
+// OpenJPEG's doubled scale: a coefficient that becomes significant at
+// bit-plane p holds 3 << p (half a step above its bit), each refinement
+// moves it by half its current step.
+class T1 {
+ public:
+  T1(int w, int h, int orient) : w_(w), h_(h), fw_(w + 2),
+      zc_(tables().zc[orient]),
+      flags_(static_cast<size_t>(w + 2) * (h + 2), 0),
+      data_(static_cast<size_t>(w) * h, 0) {}
+
+  std::vector<int32_t>& decode(const Cblk& cb) {
+    int bpno = cb.numbps;  // bpno_plus_one
+    if (bpno >= 31) fail();
+    int passtype = 2;
+    mq_.reset_contexts();
+    for (int s = 0; s < cb.numsegs; s++) {
+      const Seg& sg = cb.segs[s];
+      mq_.init(sg.data.data(), sg.data.size());
+      for (int p = 0; p < sg.numpasses && bpno >= 1; p++) {
+        if (passtype == 0)
+          sigpass(bpno);
+        else if (passtype == 1)
+          refpass(bpno);
+        else
+          clnpass(bpno);
+        if (++passtype == 3) {
+          passtype = 0;
+          bpno--;
+        }
+      }
+    }
+    return data_;
+  }
+
+ private:
+  static const T1Tables& tables() {
+    static const T1Tables t;
+    return t;
+  }
+  uint16_t* f(int x, int y) { return &flags_[static_cast<size_t>(y + 1) * fw_ + x + 1]; }
+  int32_t& v(int x, int y) { return data_[static_cast<size_t>(y) * w_ + x]; }
+
+  int sign(uint16_t g) {
+    const int m = (g & 0xf) | ((g >> 4) & 0xf0);
+    return mq_.decode(tables().sc[m]) ^ tables().sx[m];
+  }
+  void set_significant(int x, int y, uint16_t* g, int neg, int oneplushalf) {
+    v(x, y) = neg ? -oneplushalf : oneplushalf;
+    *g |= kSig;
+    const int s = fw_;
+    g[-1] |= static_cast<uint16_t>(kE | (neg ? kENeg : 0));
+    g[1] |= static_cast<uint16_t>(kW | (neg ? kWNeg : 0));
+    g[-s] |= static_cast<uint16_t>(kS | (neg ? kSNeg : 0));
+    g[s] |= static_cast<uint16_t>(kN | (neg ? kNNeg : 0));
+    g[-s - 1] |= kSE;
+    g[-s + 1] |= kSW;
+    g[s - 1] |= kNE;
+    g[s + 1] |= kNW;
+  }
+
+  void sigpass(int bpno) {
+    const int one = 1 << bpno, oneplushalf = one | (one >> 1);
+    for (int k = 0; k < h_; k += 4)
+      for (int x = 0; x < w_; x++)
+        for (int y = k; y < std::min(k + 4, h_); y++) {
+          uint16_t* g = f(x, y);
+          if ((*g & kSig) || !(*g & kNeighbours)) continue;
+          if (mq_.decode(zc_[*g & kNeighbours]))
+            set_significant(x, y, g, sign(*g), oneplushalf);
+          *g |= kVisit;
+        }
+  }
+  void refpass(int bpno) {
+    const int poshalf = (1 << bpno) >> 1;
+    for (int k = 0; k < h_; k += 4)
+      for (int x = 0; x < w_; x++)
+        for (int y = k; y < std::min(k + 4, h_); y++) {
+          uint16_t* g = f(x, y);
+          if ((*g & (kSig | kVisit)) != kSig) continue;
+          const int cx = (*g & kRefined) ? 16 : (*g & kNeighbours) ? 15 : 14;
+          const int bit = mq_.decode(cx);
+          int32_t& c = v(x, y);
+          c += (bit ^ (c < 0)) ? poshalf : -poshalf;
+          *g |= kRefined;
+        }
+  }
+  void clnpass(int bpno) {
+    const int one = 1 << bpno, oneplushalf = one | (one >> 1);
+    constexpr uint16_t kBusy = kNeighbours | kSig | kVisit;
+    for (int k = 0; k < h_; k += 4)
+      for (int x = 0; x < w_; x++) {
+        int y = k;
+        if (k + 4 <= h_ && !(*f(x, k) & kBusy) && !(*f(x, k + 1) & kBusy) &&
+            !(*f(x, k + 2) & kBusy) && !(*f(x, k + 3) & kBusy)) {
+          if (!mq_.decode(17)) continue;
+          int run = mq_.decode(18) << 1;
+          run |= mq_.decode(18);
+          y = k + run;
+          uint16_t* g = f(x, y);
+          set_significant(x, y, g, sign(*g), oneplushalf);
+          y++;
+        }
+        for (; y < std::min(k + 4, h_); y++) {
+          uint16_t* g = f(x, y);
+          if (*g & (kSig | kVisit)) continue;
+          if (mq_.decode(zc_[*g & kNeighbours]))
+            set_significant(x, y, g, sign(*g), oneplushalf);
+        }
+      }
+    for (uint16_t& g : flags_) g &= static_cast<uint16_t>(~kVisit);
+  }
+
+  int w_, h_, fw_;
+  const uint8_t* zc_;
+  std::vector<uint16_t> flags_;
+  std::vector<int32_t> data_;
+  Mq mq_;
+};
+
+// ------------------------------------------------------------ transforms
+
+int mirror(int k, int n) {
+  if (k < 0) k = -k;
+  if (k >= n) k = 2 * n - 2 - k;
+  return k;
+}
+
+// The inverse 5/3 of one interleaved line (cas: the line starts with a
+// high-pass sample).
+void idwt53(int32_t* x, int n, int cas) {
+  if (n == 1) {
+    if (cas) x[0] /= 2;
+    return;
+  }
+  for (int i = cas; i < n; i += 2)
+    x[i] -= (x[mirror(i - 1, n)] + x[mirror(i + 1, n)] + 2) >> 2;
+  for (int i = 1 - cas; i < n; i += 2)
+    x[i] += (x[mirror(i - 1, n)] + x[mirror(i + 1, n)]) >> 1;
+}
+
+// The inverse 9/7 of one line as opj_v8dwt_decode computes it: lows times
+// K, highs times 2/K's historic 1.625732422, then the four lifting steps,
+// each x + ((left + right) * c) in float.
+void idwt97(float* x, int n, int cas) {
+  if (n == 1) return;
+  constexpr float kK = 1.230174105f, kTwoInvK = 1.625732422f;
+  constexpr float kAlpha = -1.586134342f, kBeta = -0.052980118f,
+                  kGamma = 0.882911075f, kDelta = 0.443506852f;
+  for (int i = cas; i < n; i += 2) x[i] = x[i] * kK;
+  for (int i = 1 - cas; i < n; i += 2) x[i] = x[i] * kTwoInvK;
+  auto lift = [&](int first, float c) {
+    for (int i = first; i < n; i += 2)
+      x[i] = x[i] + ((x[mirror(i - 1, n)] + x[mirror(i + 1, n)]) * c);
+  };
+  lift(cas, -kDelta);
+  lift(1 - cas, -kGamma);
+  lift(cas, -kBeta);
+  lift(1 - cas, -kAlpha);
+}
+
+template <typename T, typename F>
+void idwt2d(TileComp& tc, T* buf, F line) {
+  const int stride = tc.w();
+  std::vector<T> tmp;
+  for (int r = 1; r < tc.numres; r++) {
+    const Res& lo = tc.res[r - 1];
+    const Res& res = tc.res[r];
+    const int rw = res.x1 - res.x0, rh = res.y1 - res.y0;
+    const int snh = lo.x1 - lo.x0, snv = lo.y1 - lo.y0;
+    const int cash = res.x0 & 1, casv = res.y0 & 1;
+    tmp.resize(std::max(rw, rh));
+    if (rw > 0)
+      for (int y = 0; y < rh; y++) {
+        T* row = buf + static_cast<size_t>(y) * stride;
+        for (int i = 0; i < snh; i++) tmp[2 * i + cash] = row[i];
+        for (int i = 0; i < rw - snh; i++) tmp[2 * i + 1 - cash] = row[snh + i];
+        line(tmp.data(), rw, cash);
+        std::copy(tmp.begin(), tmp.begin() + rw, row);
+      }
+    if (rh > 0)
+      for (int x = 0; x < rw; x++) {
+        T* col = buf + x;
+        for (int i = 0; i < snv; i++) tmp[2 * i + casv] = col[static_cast<size_t>(i) * stride];
+        for (int i = 0; i < rh - snv; i++)
+          tmp[2 * i + 1 - casv] = col[static_cast<size_t>(snv + i) * stride];
+        line(tmp.data(), rh, casv);
+        for (int i = 0; i < rh; i++) col[static_cast<size_t>(i) * stride] = tmp[i];
+      }
+  }
+}
+
+// opj_tcd_decode_tile: tier 2, tier 1, the inverse transforms, the MCT and
+// the DC level shift; the samples land in each component's idata.
+void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno,
+                 std::vector<TileComp>& tile) {
+  const int p = tileno % cs.tw, q = tileno / cs.tw;
+  const int tx0 = static_cast<int>(std::max<int64_t>(cs.tx0 + int64_t{p} * cs.tdx, cs.x0));
+  const int ty0 = static_cast<int>(std::max<int64_t>(cs.ty0 + int64_t{q} * cs.tdy, cs.y0));
+  const int tx1 = static_cast<int>(std::min<int64_t>(cs.tx0 + int64_t{p + 1} * cs.tdx, cs.x1));
+  const int ty1 = static_cast<int>(std::min<int64_t>(cs.ty0 + int64_t{q + 1} * cs.tdy, cs.y1));
+  if (tx0 >= tx1 || ty0 >= ty1) fail();
+  if (int64_t{tx1 - tx0} * (ty1 - ty0) * static_cast<int64_t>(cs.comps.size()) >
+      (int64_t{1} << 31))
+    fail();
+  init_tile(cs, tcp, tx0, ty0, tx1, ty1, tile);
+  decode_packets(tcp, tx0, ty0, tx1, ty1, tile, tcp.data);
+  for (size_t c = 0; c < tile.size(); c++) {
+    TileComp& tc = tile[c];
+    const Tccp& tccp = tcp.tccps[c];
+    const int stride = tc.w();
+    for (int r = 0; r < tc.numres; r++) {
+      Res& res = tc.res[r];
+      for (int b = 0; b < res.numbands; b++) {
+        Band& band = res.bands[b];
+        if (band.empty()) continue;
+        for (Prc& prc : band.prcs)
+          for (Cblk& cb : prc.cblks) {
+            const int w = cb.x1 - cb.x0, h = cb.y1 - cb.y0;
+            if (w <= 0 || h <= 0) continue;
+            T1 t1(w, h, band.bandno);
+            const std::vector<int32_t>& d = t1.decode(cb);
+            int x = cb.x0 - band.x0, y = cb.y0 - band.y0;
+            if (band.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
+            if (band.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
+            if (tccp.qmfbid == 1) {
+              for (int j = 0; j < h; j++)
+                for (int i = 0; i < w; i++)
+                  tc.idata[static_cast<size_t>(y + j) * stride + x + i] =
+                      d[static_cast<size_t>(j) * w + i] / 2;
+            } else {
+              const float step = 0.5f * band.stepsize;
+              for (int j = 0; j < h; j++)
+                for (int i = 0; i < w; i++)
+                  tc.fdata[static_cast<size_t>(y + j) * stride + x + i] =
+                      static_cast<float>(d[static_cast<size_t>(j) * w + i]) * step;
+            }
+          }
+      }
+    }
+    if (tccp.qmfbid == 1)
+      idwt2d(tc, tc.idata.data(), idwt53);
+    else
+      idwt2d(tc, tc.fdata.data(), idwt97);
+  }
+  const size_t area = static_cast<size_t>(tx1 - tx0) * (ty1 - ty0);
+  if (tcp.mct == 1 && tile.size() >= 3) {
+    const int q0 = tcp.tccps[0].qmfbid;
+    if (tcp.tccps[1].qmfbid != q0 || tcp.tccps[2].qmfbid != q0) unsupported();
+    if (q0 == 1) {
+      int32_t *c0 = tile[0].idata.data(), *c1 = tile[1].idata.data(),
+              *c2 = tile[2].idata.data();
+      for (size_t i = 0; i < area; i++) {
+        const int32_t y = c0[i], u = c1[i], v = c2[i];
+        const int32_t g = y - ((u + v) >> 2);
+        c0[i] = v + g;
+        c1[i] = g;
+        c2[i] = u + g;
+      }
+    } else {
+      float *c0 = tile[0].fdata.data(), *c1 = tile[1].fdata.data(),
+            *c2 = tile[2].fdata.data();
+      for (size_t i = 0; i < area; i++) {
+        const float y = c0[i], u = c1[i], v = c2[i];
+        const float r = y + (v * 1.402f);
+        float g = y - (u * 0.34413f);
+        g = g - (v * 0.71414f);
+        const float b = y + (u * 1.772f);
+        c0[i] = r;
+        c1[i] = g;
+        c2[i] = b;
+      }
+    }
+  }
+  for (size_t c = 0; c < tile.size(); c++) {
+    TileComp& tc = tile[c];
+    const CompInfo& ci = cs.comps[c];
+    const int32_t lo = ci.sgnd ? -(1 << (ci.prec - 1)) : 0;
+    const int32_t hi = ci.sgnd ? (1 << (ci.prec - 1)) - 1
+                               : static_cast<int32_t>((int64_t{1} << ci.prec) - 1);
+    const int32_t shift = ci.sgnd ? 0 : 1 << (ci.prec - 1);
+    if (tcp.tccps[c].qmfbid == 1) {
+      for (int32_t& v : tc.idata)
+        v = static_cast<int32_t>(std::clamp<int64_t>(int64_t{v} + shift, lo, hi));
+    } else {
+      tc.idata.resize(area);
+      for (size_t i = 0; i < area; i++) {
+        const float v = tc.fdata[i];
+        int32_t out;
+        if (v > static_cast<float>(INT32_MAX)) {
+          out = hi;
+        } else if (v < static_cast<float>(INT32_MIN)) {
+          out = lo;
+        } else {
+          out = static_cast<int32_t>(std::clamp<int64_t>(
+              static_cast<int64_t>(std::lrintf(v)) + shift, lo, hi));
+        }
+        tc.idata[i] = out;
+      }
+      std::vector<float>().swap(tc.fdata);
+    }
+  }
+}
+
+// ------------------------------------------------------ the tile stream
+
+// opj_j2k's decoder over the codestream: the main header, then tile-parts
+// read and tiles decoded as opj_j2k_read_tile_header and
+// opj_j2k_decode_tiles take them (strict mode, OpenJPEG 2.5's default).
+class J2k {
+ public:
+  Jp2Info jp2;
+  Codestream cs;
+  int color_space = kCsUnspecified;
+
+  // The JP2 boxes (a file that starts with the JP2 signature) and the main
+  // header; throws Fail where opj_read_header fails.
+  void read_header(const uint8_t* d, size_t n) {
+    if (n >= 12 && !std::memcmp(d, "\0\0\0\x0cjP  \r\n\x87\n", 12)) {
+      jp2.jp2 = true;
+      boxes_.walk(d, n, 0, false);
+      if (jp2.codestream == 0) fail();
+      const uint32_t e = jp2.enumcs;
+      if (jp2.has_colr && (e == 12 || e == 14 || e == 18 || e == 24))
+        unsupported();  // CMYK, CIELab, sYCC, eYCC
+      color_space = !jp2.has_colr ? kCsUnknown : e == 16 ? kCsSrgb
+                    : e == 17 ? kCsGray : kCsUnknown;
+    }
+    s_ = Stream{d + jp2.codestream, n - jp2.codestream};
+    read_main_header(s_, cs, state_, jp2);
+    if (jp2.cdef && static_cast<size_t>(jp2.cdef) != cs.comps.size()) unsupported();
+  }
+
+  // Every tile (opj_decode over cv2's file stream: it stops after the last
+  // tile; Pillow's tile API, `tile_api`, over a stream without seek, reads
+  // on to the codestream's end), each handed to `put` once decoded.
+  template <typename Put>
+  void decode(bool tile_api, Put put) {
+    seekable_ = !tile_api;
+    const int ntiles = cs.tw * cs.th;
+    int nb_read = 0;
+    std::vector<TileComp> tile;
+    for (;;) {
+      int tileno;
+      if (!read_tile_header(tileno)) break;
+      Tcp& tcp = cs.tcps[tileno];
+      if (!tcp.has_data) fail();
+      decode_tile(cs, tcp, tileno, tile);
+      put(tile);
+      std::vector<uint8_t>().swap(tcp.data);
+      tcp.has_data = false;
+      can_decode_ = false;
+      state_ &= ~kData;
+      if (!(s_.left() == 0 && state_ == kNeoc) && state_ != kEoc) {
+        uint32_t m;
+        if (!s_.read16(m)) fail();  // "Stream too short"
+        if (m == kEOC) {
+          current_ = 0;
+          state_ = kEoc;
+        } else if (m != kSOT) {
+          if (s_.left() != 0) fail();  // "Stream too short, expected SOT"
+          state_ = kNeoc;  // "Stream does not end with EOC"
+        }
+      }
+      if (tile_api) continue;  // the next opj_read_tile_header decides
+      if (s_.left() == 0 && state_ == kNeoc) break;
+      if (++nb_read == ntiles) break;
+    }
+  }
+
+  // opj_jp2_end_decompress: the boxes after the codestream.
+  void end_jp2(const uint8_t* d, size_t n) {
+    boxes_.walk(d, n, jp2.codestream + s_.pos, true);
+  }
+
+ private:
+  bool read_tile_header(int& tileno) {
+    uint32_t marker = kSOT;
+    if (state_ == kEoc)
+      marker = kEOC;
+    else if (state_ != kTphSot)
+      fail();
+    std::vector<uint8_t> seg;
+    while (!can_decode_ && marker != kEOC) {
+      while (marker != kSOD) {
+        if (s_.left() == 0) {
+          state_ = kNeoc;
+          break;
+        }
+        uint32_t size;
+        if (!s_.read16(size)) fail();
+        if (size < 2) fail();  // "Inconsistent marker size"
+        if (marker == 0x8080 && s_.left() == 0) {
+          state_ = kNeoc;
+          break;
+        }
+        if ((state_ & kTph) && sot_length_ != 0) {
+          if (sot_length_ < size + 2) fail();
+          sot_length_ -= size + 2;
+        }
+        size -= 2;
+        bool known;
+        const int states = marker_states(marker, known);
+        if (!(state_ & states)) fail();  // "Marker is not compliant with its position"
+        seg.resize(size + 1);
+        if (!s_.read(seg.data(), size)) fail();
+        if (!known) fail();  // "Not sure how that happened."
+        if (marker == kSOT)
+          read_sot(seg.data(), size);
+        else
+          read_segment(cs, cs.tcps[current_], marker, seg.data(), size);
+        if (!s_.read16(marker)) fail();
+      }
+      if (s_.left() == 0 && state_ == kNeoc) break;
+      read_sod();
+      if (can_decode_ && !correction_checked_) {
+        correction_checked_ = true;
+        // skipped where the tile declares a single tile-part, and on a
+        // stream without seek (Pillow's)
+        if (seekable_ && cs.tcps[current_].nb_parts != 1 &&
+            correction_needed()) {
+          for (Tcp& t : cs.tcps)
+            if (t.nb_parts) t.nb_parts += 1;
+          nb_parts_correction_ = 1;
+          can_decode_ = false;
+        }
+      }
+      if (!can_decode_ && !s_.read16(marker)) {
+        // the last tile's tile-part with TPsot 0 and TNsot 0 and no EOC
+        // (non-conformant SPOT6 files): the first such tile is decoded
+        const int ntiles = cs.tw * cs.th;
+        if (current_ + 1 == ntiles) {
+          int t = 0;
+          while (t < ntiles && !(cs.tcps[t].current_part == 0 &&
+                                 cs.tcps[t].nb_parts == 0))
+            ++t;
+          if (t < ntiles) {
+            current_ = t;
+            marker = kEOC;
+            state_ = kEoc;
+            break;
+          }
+        }
+        fail();  // "Stream too short"
+      }
+    }
+    if (marker == kEOC && state_ != kEoc) {
+      current_ = 0;
+      state_ = kEoc;
+    }
+    if (!can_decode_) {
+      const int ntiles = cs.tw * cs.th;
+      while (current_ < ntiles && !cs.tcps[current_].has_data) ++current_;
+      if (current_ == ntiles) return false;
+    }
+    tileno = current_;
+    state_ |= kData;
+    return true;
+  }
+
+  void read_sot(const uint8_t* p, uint32_t size) {
+    if (size != 8) fail();
+    const uint32_t tile = be16(p), psot = be32(p + 2);
+    const uint32_t part = p[6];
+    uint32_t parts = p[7];
+    if (tile >= static_cast<uint32_t>(cs.tw * cs.th)) fail();
+    current_ = static_cast<int>(tile);
+    Tcp& tcp = cs.tcps[tile];
+    if (tcp.current_part + 1 != static_cast<int>(part)) fail();
+    tcp.current_part = static_cast<int>(part);
+    if (psot != 0 && psot < 14 && psot != 12) fail();
+    if (psot == 0) last_tile_part_ = true;
+    if (tcp.nb_parts != 0 && part >= static_cast<uint32_t>(tcp.nb_parts)) fail();
+    if (parts != 0) {
+      parts += nb_parts_correction_;
+      if (part >= parts) fail();
+      tcp.nb_parts = static_cast<int>(parts);
+    }
+    if (tcp.nb_parts && tcp.nb_parts == static_cast<int>(part) + 1) can_decode_ = true;
+    sot_length_ = last_tile_part_ ? 0 : psot - 12;
+    state_ = kTph;
+  }
+
+  void read_sod() {
+    Tcp& tcp = cs.tcps[current_];
+    if (last_tile_part_) {
+      const int64_t l = static_cast<int64_t>(s_.left()) - 2;
+      sot_length_ = static_cast<uint32_t>(l);
+    } else if (sot_length_ >= 2) {
+      sot_length_ -= 2;
+    }
+    size_t got = 0;
+    if (sot_length_) {
+      if (sot_length_ > s_.left()) fail();  // "Tile part length size inconsistent"
+      tcp.data.insert(tcp.data.end(), s_.d + s_.pos, s_.d + s_.pos + sot_length_);
+      s_.pos += sot_length_;
+      got = sot_length_;
+      tcp.has_data = true;
+    }
+    state_ = got != sot_length_ ? kNeoc : kTphSot;
+  }
+
+  // opj_j2k_need_nb_tile_parts_correction: a later tile-part of the tile
+  // just completed whose TPsot equals its TNsot.
+  bool correction_needed() {
+    size_t pos = s_.pos;
+    for (;;) {
+      if (s_.n - pos < 2) return false;
+      if (be16(s_.d + pos) != kSOT) return false;
+      pos += 2;
+      if (s_.n - pos < 2) fail();  // "Stream too short"
+      if (be16(s_.d + pos) != 10) fail();  // "Inconsistent marker size"
+      pos += 2;
+      if (s_.n - pos < 8) fail();
+      const uint8_t* p = s_.d + pos;
+      pos += 8;
+      const uint32_t tile = be16(p), psot = be32(p + 2), part = p[6],
+                     parts = p[7];
+      if (static_cast<int>(tile) == current_) return part == parts;
+      if (psot < 14) return false;
+      if (s_.n - pos < psot - 12) return false;
+      pos += psot - 12;
+    }
+  }
+
+  Jp2Boxes boxes_{jp2};
+  Stream s_{nullptr, 0};
+  int state_ = 0, current_ = 0, nb_parts_correction_ = 0;
+  bool can_decode_ = false, last_tile_part_ = false, correction_checked_ = false;
+  bool seekable_ = true;
+  uint32_t sot_length_ = 0;
+};
+
+bool is_j2k(const uint8_t* d, size_t n) {
+  return (n >= 12 && !std::memcmp(d, "\0\0\0\x0cjP  \r\n\x87\n", 12)) ||
+         (n >= 4 && !std::memcmp(d, "\xff\x4f\xff\x51", 4));
+}
+
+// ---------------------------------------------------------- the readers
+
+// The components opj_decode gives, each (x1 - x0) x (y1 - y0) on the grid
+// (opj_j2k_update_image_data; a tile never decoded stays 0).
+struct Planes {
+  int x0, y0, w, h;
+  std::vector<std::vector<int32_t>> comps;
+};
+
+void decode_planes(J2k& j, Planes& out) {
+  out.x0 = j.cs.x0;
+  out.y0 = j.cs.y0;
+  out.w = j.cs.x1 - j.cs.x0;
+  out.h = j.cs.y1 - j.cs.y0;
+  out.comps.assign(j.cs.comps.size(), std::vector<int32_t>());
+  j.decode(false, [&](const std::vector<TileComp>& tile) {
+    for (size_t c = 0; c < tile.size(); c++) {
+      std::vector<int32_t>& dst = out.comps[c];
+      if (dst.empty()) dst.assign(static_cast<size_t>(out.w) * out.h, 0);
+      const TileComp& tc = tile[c];
+      for (int y = 0; y < tc.h(); y++)
+        std::copy(tc.idata.begin() + static_cast<size_t>(y) * tc.w(),
+                  tc.idata.begin() + static_cast<size_t>(y + 1) * tc.w(),
+                  dst.begin() + static_cast<size_t>(tc.y0 - out.y0 + y) * out.w +
+                      (tc.x0 - out.x0));
+    }
+  });
+  for (auto& c : out.comps)
+    if (c.empty()) fail();  // "Failed to decode all used components"
+}
+
+// OpenCV 5's Jpeg2KOpjDecoder under cv2.imread's IMREAD_COLOR: readHeader
+// (no signed component, a precision of 8 or more), imread's size rule,
+// then readData (opj_decode, the colour space: sRGB, gray, or unknown and
+// unspecified taken for sRGB; no image offset) and the copy of comps 2, 1,
+// 0 (gray: comp 0 three times), each sample >> (max precision - 8) cast to
+// 8 bits.
+int read_cv2_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
+  J2k j;
+  try {
+    j.read_header(d, n);
+  } catch (const Fail&) {
+    return kUnreadable;
+  }
+  int maxprec = 0;
+  for (const CompInfo& c : j.cs.comps) {
+    if (c.sgnd) return kUnreadable;
+    maxprec = std::max(maxprec, c.prec);
+  }
+  if (maxprec < 8) return kUnreadable;
+  const int64_t w = int64_t{j.cs.x1} - j.cs.x0, h = int64_t{j.cs.y1} - j.cs.y0;
+  if (!cv2_size_ok(w, h)) return kRaises;
+  const bool gray = j.color_space == kCsGray;
+  const int nc = static_cast<int>(j.cs.comps.size());
+  if (!gray && nc < 3) return kUnreadable;  // sRGB needs 3 components
+  if (j.cs.x0 != 0 || j.cs.y0 != 0) return kUnreadable;  // "tiles are not supported"
+  dims[0] = static_cast<int>(h);
+  dims[1] = static_cast<int>(w);
+  if (head) return kOk;
+  Planes pl;
+  try {
+    decode_planes(j, pl);
+  } catch (const Fail&) {
+    return kUnreadable;
+  }
+  if (!img) return kOk;
+  const int shift = maxprec > 8 ? maxprec - 8 : 0;
+  img->w = pl.w;
+  img->h = pl.h;
+  img->rgb.resize(static_cast<size_t>(pl.w) * pl.h * 3);
+  const size_t area = static_cast<size_t>(pl.w) * pl.h;
+  for (int c = 0; c < 3; c++) {
+    const std::vector<int32_t>& src = pl.comps[gray ? 0 : c];
+    uint8_t* out = img->rgb.data() + c;
+    for (size_t i = 0; i < area; i++) out[3 * i] = static_cast<uint8_t>(src[i] >> shift);
+  }
+  return kOk;
+}
+
+// Pillow's Jpeg2KImagePlugin._open: the size and mode (L, I;16, LA, RGB,
+// RGBA; CMYK and a palette are left out) from the SIZ marker or the JP2
+// header boxes, then _parse_comment's walk of the main header's markers.
+struct PilHeader {
+  int w = 0, h = 0;
+  enum Mode { kNone, kL, kI16, kLA, kRGB, kRGBA } mode = kNone;
+};
+
+struct PilFile {
+  const uint8_t* d;
+  size_t n, pos = 0;
+  std::vector<uint8_t> read(size_t k) {  // fp.read(k): short at the end
+    const size_t got = std::min(k, pos < n ? n - pos : 0);
+    std::vector<uint8_t> out(d + std::min(pos, n), d + std::min(pos, n) + got);
+    pos += got;
+    return out;
+  }
+  std::vector<uint8_t> exact(size_t k) {
+    std::vector<uint8_t> v = read(k);
+    if (v.size() < k) fail();
+    return v;
+  }
+};
+
+void pil_parse_comment(PilFile& f) {
+  for (;;) {
+    const std::vector<uint8_t> m = f.read(2);
+    if (m.empty()) break;
+    if (m.size() < 2) fail();  // marker[1]: IndexError
+    if (m[1] == 0x90 || m[1] == 0xd9) break;
+    const std::vector<uint8_t> h = f.exact(2);
+    const int64_t length = be16(h.data());
+    if (m[1] == 0x64) break;
+    const int64_t to = static_cast<int64_t>(f.pos) + length - 2;
+    if (to < 0) fail();
+    f.pos = static_cast<size_t>(to);
+  }
+}
+
+// BoxReader over bytes [start, start + length) (length < 0: the file).
+struct PilBoxes {
+  PilFile& f;
+  size_t start;
+  int64_t length;
+  int64_t remaining = -1;
+  int64_t tell() const { return static_cast<int64_t>(f.pos - start); }
+  bool can_read(int64_t k) const {
+    if (length >= 0 && tell() + k > length) return false;
+    if (remaining >= 0) return k <= remaining;
+    return true;
+  }
+  std::vector<uint8_t> bytes(int64_t k) {
+    if (!can_read(k)) fail();  // "Not enough data in header"
+    std::vector<uint8_t> v = f.read(static_cast<size_t>(k));
+    if (static_cast<int64_t>(v.size()) < k) fail();
+    if (remaining > 0) remaining -= k;
+    return v;
+  }
+  bool has_next() const { return length < 0 || tell() + remaining < length; }
+  uint32_t next() {
+    if (remaining > 0) f.pos += static_cast<size_t>(remaining);
+    remaining = -1;
+    const std::vector<uint8_t> h = bytes(8);
+    uint64_t lbox = be32(h.data());
+    int hlen = 8;
+    if (lbox == 1) {
+      const std::vector<uint8_t> x = bytes(8);
+      lbox = uint64_t{be32(x.data())} << 32 | be32(x.data() + 4);
+      hlen = 16;
+    }
+    if (lbox < static_cast<uint64_t>(hlen) || lbox > (uint64_t{1} << 62) ||
+        !can_read(static_cast<int64_t>(lbox) - hlen))
+      fail();  // "Invalid header length"
+    remaining = static_cast<int64_t>(lbox) - hlen;
+    return be32(h.data() + 4);
+  }
+};
+
+void pil_open(const uint8_t* d, size_t n, PilHeader& out) {
+  PilFile f{d, n};
+  const std::vector<uint8_t> sig = f.read(4);
+  if (sig.size() == 4 && !std::memcmp(sig.data(), "\xff\x4f\xff\x51", 4)) {
+    const std::vector<uint8_t> hdr = f.read(2);
+    if (hdr.size() < 2) fail();
+    const uint32_t lsiz = be16(hdr.data());
+    std::vector<uint8_t> siz = hdr;
+    const int64_t more = int64_t{lsiz} - 2;
+    if (more > 0) {
+      const std::vector<uint8_t> rest = f.read(static_cast<size_t>(more));
+      siz.insert(siz.end(), rest.begin(), rest.end());
+    } else if (more < 0) {
+      fail();  // fp.read(-k) reads the rest, then the unpack fails first
+    }
+    if (siz.size() < 38) fail();
+    const int64_t xsiz = be32(&siz[4]), ysiz = be32(&siz[8]),
+                  xo = be32(&siz[12]), yo = be32(&siz[16]);
+    const uint32_t csiz = be16(&siz[36]);
+    out.w = static_cast<int>(std::clamp<int64_t>(xsiz - xo, -1, 1 << 30));
+    out.h = static_cast<int>(std::clamp<int64_t>(ysiz - yo, -1, 1 << 30));
+    if (csiz == 1) {
+      if (siz.size() < 39) fail();
+      out.mode = (siz[38] & 0x7f) + 1 > 8 ? PilHeader::kI16 : PilHeader::kL;
+    } else if (csiz == 2) {
+      out.mode = PilHeader::kLA;
+    } else if (csiz == 3) {
+      out.mode = PilHeader::kRGB;
+    } else if (csiz == 4) {
+      out.mode = PilHeader::kRGBA;
+    } else {
+      fail();
+    }
+    pil_parse_comment(f);
+  } else {
+    const std::vector<uint8_t> rest = f.read(8);
+    std::vector<uint8_t> s12 = sig;
+    s12.insert(s12.end(), rest.begin(), rest.end());
+    if (s12.size() != 12 || std::memcmp(s12.data(), "\0\0\0\x0cjP  \r\n\x87\n", 12))
+      fail();
+    PilBoxes top{f, 0, -1};
+    std::vector<uint8_t> header;
+    for (;;) {
+      const uint32_t t = top.next();
+      if (t == 0x6a703268) {  // jp2h
+        header = top.bytes(top.remaining);
+        break;
+      }
+      if (t == 0x66747970) top.bytes(4);  // ftyp's brand
+    }
+    PilFile hf{header.data(), header.size()};
+    PilBoxes hb{hf, 0, static_cast<int64_t>(header.size())};
+    bool has_size = false;
+    int nc = 0;
+    while (hb.has_next()) {
+      const uint32_t t = hb.next();
+      if (t == 0x69686472) {  // ihdr
+        const std::vector<uint8_t> v = hb.bytes(11);
+        out.h = static_cast<int>(std::min<uint32_t>(be32(&v[0]), 1u << 30));
+        out.w = static_cast<int>(std::min<uint32_t>(be32(&v[4]), 1u << 30));
+        nc = static_cast<int>(be16(&v[8]));
+        const int bpc = v[10];
+        has_size = true;
+        if (nc == 1 && (bpc & 0x7f) > 8)
+          out.mode = PilHeader::kI16;
+        else if (nc == 1)
+          out.mode = PilHeader::kL;
+        else if (nc == 2)
+          out.mode = PilHeader::kLA;
+        else if (nc == 3)
+          out.mode = PilHeader::kRGB;
+        else if (nc == 4)
+          out.mode = PilHeader::kRGBA;
+      } else if (t == 0x636f6c72 && nc == 4) {  // colr
+        const std::vector<uint8_t> v = hb.bytes(7);
+        if (v[0] == 1 && be32(&v[3]) == 12) unsupported();  // CMYK
+      } else if (t == 0x70636c72 &&
+                 (out.mode == PilHeader::kL || out.mode == PilHeader::kLA)) {
+        unsupported();  // a palette
+      } else if (t == 0x72657320) {  // res
+        const std::vector<uint8_t> r = hb.bytes(hb.remaining);
+        PilFile rf{r.data(), r.size()};
+        PilBoxes rb{rf, 0, static_cast<int64_t>(r.size())};
+        while (rb.has_next()) {
+          if (rb.next() == 0x72657363) {  // resc
+            rb.bytes(10);
+            break;
+          }
+        }
+      }
+    }
+    if (!has_size || out.mode == PilHeader::kNone) fail();  // "Malformed JP2 header"
+    const std::vector<uint8_t> next = f.read(12);
+    if (next.size() >= 8 &&
+        !std::memcmp(next.data() + next.size() - 8, "jp2c\xff\x4f\xff\x51", 8)) {
+      const std::vector<uint8_t> hdr = f.exact(2);
+      const int64_t to = static_cast<int64_t>(f.pos) + int64_t{be16(hdr.data())} - 2;
+      if (to < 0) fail();
+      f.pos = static_cast<size_t>(to);
+      pil_parse_comment(f);
+    }
+  }
+  if (out.w <= 0 || out.h <= 0) fail();  // "not identified by this driver"
+  if (!pil_size_ok(out.w, out.h)) fail();
+}
+
+// Jpeg2KDecode.c's j2ku_shift on an unsigned sample word.
+uint32_t pil_shift(uint32_t x, int n) { return n < 0 ? x >> -n : x << n; }
+
+// Pillow's decoder (Jpeg2KDecode.c: the checks, the unpacker its table
+// picks, tile by tile) and convert("RGB").
+int read_pil_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
+  PilHeader ph;
+  J2k j;
+  try {
+    pil_open(d, n, ph);
+    dims[0] = ph.h;
+    dims[1] = ph.w;
+    if (head) return kOk;
+    j.read_header(d, n);
+  } catch (const Fail&) {
+    return kUnreadable;
+  }
+  const int nc = static_cast<int>(j.cs.comps.size());
+  int cs = j.color_space;
+  if (cs == kCsUnspecified || cs == kCsUnknown) cs = nc <= 2 ? kCsGray : kCsSrgb;
+  // the unpacker table: (mode, colour space, components)
+  enum Unpack { kNoUnpack, kGrayL, kGrayI, kGrayALA, kGrayRGB, kSrgbRGB };
+  Unpack u = kNoUnpack;
+  using M = PilHeader;
+  if (ph.mode == M::kL && cs == kCsGray && nc == 1) u = kGrayL;
+  if (ph.mode == M::kI16 && cs == kCsGray && nc == 1) u = kGrayI;
+  if (ph.mode == M::kLA && cs == kCsGray && nc == 2) u = kGrayALA;
+  if (ph.mode == M::kRGB && cs == kCsGray && (nc == 1 || nc == 2)) u = kGrayRGB;
+  if (ph.mode == M::kRGB && cs == kCsSrgb && (nc == 3 || nc == 4)) u = kSrgbRGB;
+  if (ph.mode == M::kRGBA && cs == kCsGray && nc == 1) u = kGrayRGB;
+  if (ph.mode == M::kRGBA && cs == kCsGray && nc == 2) u = kGrayALA;
+  if (ph.mode == M::kRGBA && cs == kCsSrgb && (nc == 3 || nc == 4)) u = kSrgbRGB;
+  if (u == kNoUnpack) return kUnreadable;
+  std::vector<uint8_t> rgb(static_cast<size_t>(ph.w) * ph.h * 3, 0);
+  try {
+    j.decode(true, [&](const std::vector<TileComp>& tile) {
+      const TileComp& t0 = tile[0];
+      if (t0.x0 < j.cs.x0 || t0.y0 < j.cs.y0 ||
+          int64_t{t0.x1} - j.cs.x0 > ph.w || int64_t{t0.y1} - j.cs.y0 > ph.h)
+        fail();  // the tile lies outside the image
+      const int ncomp = u == kSrgbRGB ? 3 : 1;
+      for (int c = 0; c < ncomp; c++) {
+        const CompInfo& ci = j.cs.comps[c];
+        int shift = (u == kGrayI ? 16 : 8) - ci.prec;
+        uint32_t offset = ci.sgnd ? 1u << (ci.prec - 1) : 0;
+        int csiz = (ci.prec + 7) >> 3;
+        if (csiz == 3) csiz = 4;
+        if (shift < 0) offset += 1u << (-shift - 1);
+        const uint32_t mask = csiz == 1 ? 0xffu : csiz == 2 ? 0xffffu : 0xffffffffu;
+        const TileComp& tc = tile[c];
+        for (int y = 0; y < tc.h(); y++)
+          for (int x = 0; x < tc.w(); x++) {
+            const uint32_t word =
+                static_cast<uint32_t>(tc.idata[static_cast<size_t>(y) * tc.w() + x]) & mask;
+            const uint32_t v = pil_shift(offset + word, shift);
+            uint8_t b;
+            if (u == kGrayI) {
+              const uint16_t v16 = static_cast<uint16_t>(v);
+              b = v16 > 255 ? 255 : static_cast<uint8_t>(v16);  // I;16 -> RGB
+            } else {
+              b = static_cast<uint8_t>(v);
+            }
+            uint8_t* px = &rgb[(static_cast<size_t>(tc.y0 - j.cs.y0 + y) * ph.w +
+                                (tc.x0 - j.cs.x0 + x)) * 3];
+            if (ncomp == 1)
+              px[0] = px[1] = px[2] = b;
+            else
+              px[c] = b;
+          }
+      }
+    });
+    if (j.jp2.jp2) j.end_jp2(d, n);
+  } catch (const Fail&) {
+    return kUnreadable;
+  }
+  if (img) {
+    img->w = ph.w;
+    img->h = ph.h;
+    img->rgb.swap(rgb);
+  }
+  return kOk;
+}
+
+}  // namespace
+
+bool jpeg2000_planes(const uint8_t* data, size_t n, int32_t* out, size_t cap,
+                     int* info) {
+  try {
+    J2k j;
+    j.read_header(data, n);
+    Planes pl;
+    decode_planes(j, pl);
+    const size_t area = static_cast<size_t>(pl.w) * pl.h;
+    if (area * pl.comps.size() > cap) return false;
+    for (size_t c = 0; c < pl.comps.size(); c++)
+      std::copy(pl.comps[c].begin(), pl.comps[c].end(), out + c * area);
+    info[0] = static_cast<int>(pl.comps.size());
+    info[1] = pl.h;
+    info[2] = pl.w;
+    info[3] = pl.x0;
+    info[4] = pl.y0;
+    return true;
+  } catch (const Fail&) {
+    return false;
+  } catch (const Unsupported&) {
+    return false;
+  }
+}
+
+bool is_jpeg2000_data(const uint8_t* data, size_t n) { return is_j2k(data, n); }
+
+int jpeg2000_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head) {
+  try {
+    return read_cv2_j2k(data, n, img, dims, head);
+  } catch (const Unsupported&) {
+    return kJpeg2000;
+  } catch (const Fail&) {
+    return kUnreadable;
+  }
+}
+
+int jpeg2000_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head) {
+  try {
+    return read_pil_j2k(data, n, img, dims, head);
+  } catch (const Unsupported&) {
+    return kJpeg2000;
+  } catch (const Fail&) {
+    return kUnreadable;
+  }
+}
+
+}  // namespace tsrio

@@ -11,13 +11,14 @@
 //     16/24/32-bit, BI_BITFIELDS, RLE8/RLE4, the OS/2 core header) and Sun
 //     raster: formats.cpp; GIF (the first frame): gif.cpp; Radiance HDR:
 //     hdr.cpp; TIFF: tiff.cpp; WebP (a still image or an animation's first
-//     frame, lossless or lossy): webp.cpp and vp8.cpp; each with cv2's
+//     frame, lossless or lossy): webp.cpp and vp8.cpp; JPEG 2000 (the JP2
+//     file and the raw codestream, part 1): jpeg2000.cpp; each with cv2's
 //     reader and PIL's copied (PIL reads no HDR), damaged files included;
 //   - JPEG: jpeg.cpp (baseline, progressive and arithmetic coded, CMYK and
 //     YCCK, damaged data as libjpeg recovers it, EXIF orientation; lossless
 //     JPEG as PIL reads it, where the reference falls back to PIL).
 // A file of a format cv2 reads and the port does not decode (TIFF of
-// another layout, JPEG 2000, AVIF) fails with a Status naming it
+// another layout, JPEG 2000 beyond part 1, AVIF) fails with a Status naming it
 // (codec.h), and one on which cv2.imread raises with kRaises.
 // Encoded, with cv2.imwrite's bytes where cv2 writes the format: PNG
 // (8-bit RGB, zlib level 1, filter 0; lossless, so pixel-equal to cv2's
@@ -57,6 +58,10 @@
 //     For tests: a lossy WebP still image's decode, step by step
 //     (codec.h's webp_lossy_planes; flags 1 the loop filter, 2 RGB, 4 the
 //     fancy upsampler).
+//   tsrio_jpeg2000_planes(data, n, out, cap, info) -> 1 or 0
+//     For tests: a JPEG 2000 file's components as OpenJPEG's opj_decode
+//     gives them, before either reader converts them (codec.h's
+//     jpeg2000_planes).
 //
 // Resize matches cv2.INTER_LINEAR (half-pixel centers, clamped edges), or
 // bit for bit PIL's Image.resize(..., BILINEAR) (resize_pil).
@@ -459,8 +464,9 @@ int decode_file(const char* path, Image& img) {
 
 // (h, w) as the file decodes. By header: a JPEG's markers up to its first
 // scan (however long its APP segments), PNG's IHDR and any eXIf before
-// IDAT, a TIFF's IFD or a WebP's chunks wherever they lie, or the
-// PNM/PAM/BMP header as cv2 parses it (else as PIL does).
+// IDAT, a TIFF's IFD or a WebP's chunks wherever they lie, a JPEG 2000
+// file's ihdr and SIZ (the whole file where they lie past the first 64
+// KiB), or the PNM/PAM/BMP header as cv2 parses it (else as PIL does).
 // With cv2_reader, from the whole file as cv2.imread reads it, short of
 // the pixels (check_jpeg, read_cv2). A failure writes (0, its Status).
 int probe_one(const char* path, int* dims, bool cv2_reader) {
@@ -496,10 +502,18 @@ int probe_one(const char* path, int* dims, bool cv2_reader) {
   } else {
     static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
     const bool png = buf.size() >= 8 && !std::memcmp(buf.data(), sig, 8);
-    const std::vector<uint8_t> head = png ? png_head(f) : buf;
+    std::vector<uint8_t> head = png ? png_head(f) : buf;
     st = tsrio::read_cv2(head.data(), head.size(), nullptr, hw, true);
     if (st == tsrio::kUnreadable)
       st = tsrio::read_pil(head.data(), head.size(), nullptr, hw, true);
+    if (st == tsrio::kUnreadable && buf.size() == 65536 &&
+        tsrio::is_jpeg2000_data(buf.data(), buf.size()) &&
+        read_file(path, head)) {
+      // JP2 boxes or a main header that run past the first 64 KiB
+      st = tsrio::read_cv2(head.data(), head.size(), nullptr, hw, true);
+      if (st == tsrio::kUnreadable)
+        st = tsrio::read_pil(head.data(), head.size(), nullptr, hw, true);
+    }
     if (st == tsrio::kUnreadable)
       st = tsrio::foreign_format(buf.data(), buf.size());
   }
@@ -706,6 +720,17 @@ int tsrio_webp_lossy_planes(const uint8_t* data, size_t n, int flags,
   try {
     return tsrio::webp_lossy_planes(data, n, flags & 1, flags & 2, flags & 4,
                                     out, cap, dims);
+  } catch (const std::exception&) {
+    return 0;
+  }
+}
+
+// A JPEG 2000 file's components (codec.h's jpeg2000_planes) into out
+// (cap int32 values), (components, h, w, x0, y0) into info; 1 on success.
+int tsrio_jpeg2000_planes(const uint8_t* data, size_t n, int32_t* out,
+                          size_t cap, int* info) {
+  try {
+    return tsrio::jpeg2000_planes(data, n, out, cap, info);
   } catch (const std::exception&) {
     return 0;
   }
