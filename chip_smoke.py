@@ -185,7 +185,7 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    and ``evaluate_directory`` over the readable files with phase 3's
    models. A ``jpeg_features:`` JSON line.
 13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR, TIFF,
-   WebP (lossless and lossy) and JPEG 2000 (part 1) files cv2 reads and
+   WebP (lossless and lossy) and JPEG 2000 (parts 1 and 2) files cv2 reads and
    the port once refused, and the damaged ones cv2 gives None for
    (``image_formats_phase``), from the committed fixtures
    (``tests/data/images``, ``tests/data/webp``, ``tests/data/webp_lossy``,
@@ -193,10 +193,12 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    (cv2's pixels, or PIL's for the damaged files, the gray PFM, the
    28-byte WebP, the ALPH damage PIL reads past and the JPEG 2000 files
    only PIL reads) and probed as cv2 reads it, the rest raising (AVIF,
-   JPEG 2000 of a feature part 1 leaves out and TIFF data named); a 640 x
-   480 VP8L file built at run time (``webp_built``) decoded equal to its
-   source and the committed 640 x 480 lossy WebP and 9/7 JPEG 2000 files
-   to cv2's digests, with their decode rates; host decode rates by
+   JPEG 2000 of a feature the port leaves out and TIFF data named); a 640
+   x 480 VP8L file built at run time (``webp_built``) decoded equal to its
+   source, the committed 640 x 480 lossy WebP and 9/7 JPEG 2000 files and
+   a 640 x 480 9/7 JPEG 2000 file built at run time (``j2k_built``: style
+   63, a POC, PPT) to cv2's digests, with their decode rates; host decode
+   rates by
    format, GIF, Sun raster, PFM, HDR, lossless and lossy WebP and JPEG
    2000 among them; the whole-file probe of
    generate_tree's skip rule timed on phase 5's .ppm and phase 11's .png
@@ -228,6 +230,7 @@ import os
 import re
 import runpy
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -362,8 +365,8 @@ C11_DIGESTS = {
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
 # at the top, the files it gives None for (and AVIF data, JPEG 2000 files
-# of features part 1 leaves out and a ZSTD TIFF, which the port does not
-# decode) under skip/
+# of features the port leaves out, an sYCC colr box and a CAP marker, and
+# a ZSTD TIFF, which the port does not decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
@@ -392,7 +395,8 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_ccitt": ("tiff_group4", "tiff_ccitt"),
                 "tiff_thunder_sgilog": ("tiff_2c_",),
                 "tiff_modes": ("tiff_modes_",), "webp": ("webp_",),
-                "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",)}
+                "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",),
+                "jpeg2000_part2": ("j2k2_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -492,7 +496,7 @@ WEBP_LOSSY_BIG = "webp_lossy_640x480_q75.jpg"
 WEBP_LOSSY_BIG_SIZE = (480, 640)
 WEBP_LOSSY_BIG_DIGEST = (
     "7167baf6b5cbb9eec9960d98d5dfeadc6be2ae84e36993acf7dfa4e4439be92f")
-# phase 13's JPEG 2000 (part 1): the fixtures of tests/data/jpeg2000
+# phase 13's JPEG 2000: the fixtures of tests/data/jpeg2000
 # (make_fixtures.py) as for WEBP_FIXTURES, among them a 640 x 480 lossy
 # 9/7 file of Pillow's writer, checked by the SHA-256 of cv2.imread's RGB
 # and decoded WEBP_BUILT_DECODES times a timed pass
@@ -502,10 +506,25 @@ JPEG2000_BIG = "j2k_640x480_97.jpg"
 JPEG2000_BIG_SIZE = (480, 640)
 JPEG2000_BIG_DIGEST = (
     "a750f3dcfdbef03e534f95a7d41d2baca8af1342541697a4cbe3b7bcb680131d")
+# phase 13's JPEG 2000 part 2: the j2k2_ fixtures of JPEG2000_FIXTURES
+# (code-block styles, POC, PPM and PPT, RGN; group and slice
+# "jpeg2000_part2"), and a file built at run time by j2k_bytes from
+# JPEG2000_BIG's source (j2k_source: the gradient and grain of
+# tests/data/jpeg2000_cases.py's build_big, from JPEG2000_SOURCE_SEED):
+# 9/7, code-block style 63 (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM)
+# over three layers, a POC of three entries, every packet header in PPT
+# markers; held to JPEG2000_BUILT_DIGEST (SHA-256 of cv2.imread's RGB,
+# which tests/test_torch_port_jpeg2000_part2.py checks) and decoded
+# WEBP_BUILT_DECODES times a timed pass
+JPEG2000_SOURCE_SEED = 25
+JPEG2000_BUILT = "j2k_built_style63_poc_ppt.jpg"
+JPEG2000_BUILT_DIGEST = (
+    "f21990e576e86caac1259a9243d17f7583c3421974e2a0e6afb31fd7f423e7f5")
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
                 "tiff": ("tiff",), "webp": ("webp_",),
-                "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",)}
+                "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",),
+                "jpeg2000_part2": ("j2k2_",)}
 # C9 and C10 in phase 13: a PNG past the old 64 Mpx cap, and headers whose
 # size makes cv2.imread raise (built at run time from zlib and struct)
 BIG_PNG_SIDE = 8200
@@ -5139,6 +5158,563 @@ def webp_built():
     return img, webp_riff([(b"VP8L", payload)])
 
 
+# ---------------------------------------------- a JPEG 2000 encoder
+# phase 13's built JPEG 2000 file (j2k_built): ITU-T T.800's encoder in
+# numpy and plain Python (the card's machine has no OpenJPEG): the forward
+# 9/7 and ICT, scalar expounded quantisation, tier 1 under any code-block
+# style with TERMALL (the MQ coder of Annex C, raw bypass segments, VSC,
+# RESET, SEGSYM), tier 2 with tag trees, quality layers, a POC and PPT.
+
+J2K_MQ = (  # (Qe, NMPS, NLPS, SWITCH) of Annex C's Table C.2
+    (0x5601, 1, 1, 1), (0x3401, 2, 6, 0), (0x1801, 3, 9, 0),
+    (0x0AC1, 4, 12, 0), (0x0521, 5, 29, 0), (0x0221, 38, 33, 0),
+    (0x5601, 7, 6, 1), (0x5401, 8, 14, 0), (0x4801, 9, 14, 0),
+    (0x3801, 10, 14, 0), (0x3001, 11, 17, 0), (0x2401, 12, 18, 0),
+    (0x1C01, 13, 20, 0), (0x1601, 29, 21, 0), (0x5601, 15, 14, 1),
+    (0x5401, 16, 14, 0), (0x5101, 17, 15, 0), (0x4801, 18, 16, 0),
+    (0x3801, 19, 17, 0), (0x3401, 20, 18, 0), (0x3001, 21, 19, 0),
+    (0x2801, 22, 19, 0), (0x2401, 23, 20, 0), (0x2201, 24, 21, 0),
+    (0x1C01, 25, 22, 0), (0x1801, 26, 23, 0), (0x1601, 27, 24, 0),
+    (0x1401, 28, 25, 0), (0x1201, 29, 26, 0), (0x1101, 30, 27, 0),
+    (0x0AC1, 31, 28, 0), (0x09C1, 32, 29, 0), (0x08A1, 33, 30, 0),
+    (0x0521, 34, 31, 0), (0x0441, 35, 32, 0), (0x02A1, 36, 33, 0),
+    (0x0221, 37, 34, 0), (0x0141, 38, 35, 0), (0x0111, 39, 36, 0),
+    (0x0085, 40, 37, 0), (0x0049, 41, 38, 0), (0x0025, 42, 39, 0),
+    (0x0015, 43, 40, 0), (0x0009, 44, 41, 0), (0x0005, 45, 42, 0),
+    (0x0001, 45, 43, 0), (0x5601, 46, 46, 0))
+
+
+def _j2k_tables():
+    """Annex D's context tables by neighbourhood word (as the port's
+    jpeg2000.cpp builds them): zero coding by orientation, sign context
+    and its XOR bit."""
+    zc = [[0] * 256 for _ in range(4)]
+    for o in range(4):
+        for m in range(256):
+            h = (m & 1 > 0) + (m & 2 > 0)
+            v = (m & 4 > 0) + (m & 8 > 0)
+            d = sum(m & b > 0 for b in (16, 32, 64, 128))
+            if o == 3:
+                hv = h + v
+                c = (8 if d >= 3 else (7 if hv >= 1 else 6) if d == 2 else
+                     (5 if hv >= 2 else 4 if hv == 1 else 3) if d == 1 else
+                     2 if hv >= 2 else 1 if hv == 1 else 0)
+            else:
+                if o == 1:
+                    h, v = v, h
+                c = (8 if h == 2 else (7 if v >= 1 else 6 if d >= 1 else 5)
+                     if h == 1 else 4 if v == 2 else 3 if v == 1 else
+                     2 if d >= 2 else 1 if d == 1 else 0)
+            zc[o][m] = c
+    sc, sx = [0] * 256, [0] * 256
+    ctx = ((13, 12, 11), (10, 9, 10), (11, 12, 13))
+    for m in range(256):
+        def part(sig, neg):
+            return (-1 if m & neg else 1) if m & sig else 0
+        h = max(-1, min(1, part(1, 16) + part(2, 32)))
+        v = max(-1, min(1, part(4, 64) + part(8, 128)))
+        sc[m] = ctx[h + 1][v + 1]
+        sx[m] = 1 if h == -1 or (h == 0 and v == -1) else 0
+    return zc, sc, sx
+
+
+class J2kMq:
+    """The MQ encoder (Annex C, software conventions: INITENC, ENCODE,
+    FLUSH), one terminated segment at a time."""
+
+    def __init__(self):
+        self.reset_contexts()
+
+    def reset_contexts(self):
+        self.state = [0] * 19
+        self.mps = [0] * 19
+        self.state[18], self.state[17], self.state[0] = 46, 3, 4
+
+    def start(self):
+        self.a, self.c, self.ct = 0x8000, 0, 12
+        self.out = bytearray([0])  # the byte before the segment
+
+    def _byteout(self):
+        out = self.out
+        if out[-1] == 0xFF:
+            out.append(self.c >> 20)
+            self.c &= 0xFFFFF
+            self.ct = 7
+        elif not self.c & 0x8000000:
+            out.append(self.c >> 19)
+            self.c &= 0x7FFFF
+            self.ct = 8
+        else:
+            out[-1] += 1
+            if out[-1] == 0xFF:
+                self.c &= 0x7FFFFFF
+                out.append(self.c >> 20)
+                self.c &= 0xFFFFF
+                self.ct = 7
+            else:
+                out.append((self.c >> 19) & 0xFF)
+                self.c &= 0x7FFFF
+                self.ct = 8
+
+    def encode(self, d, cx):
+        qe, nmps, nlps, sw = J2K_MQ[self.state[cx]]
+        self.a -= qe
+        if d == self.mps[cx]:
+            if self.a & 0x8000:
+                self.c += qe
+                return
+            if self.a < qe:
+                self.a = qe
+            else:
+                self.c += qe
+            self.state[cx] = nmps
+        else:
+            if self.a < qe:
+                self.c += qe
+            else:
+                self.a = qe
+            if sw:
+                self.mps[cx] ^= 1
+            self.state[cx] = nlps
+        while True:  # RENORME
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._byteout()
+            if self.a & 0x8000:
+                break
+
+    def flush(self):
+        t = self.c + self.a
+        self.c |= 0xFFFF
+        if self.c >= t:
+            self.c -= 0x8000
+        self.c <<= self.ct
+        self._byteout()
+        self.c <<= self.ct
+        self._byteout()
+        out = bytes(self.out[1:])
+        return out[:-1] if out.endswith(b"\xff") else out
+
+
+def j2k_raw_bytes(bits):
+    """The bypass mode's raw segment: bits MSB first, 7 of them in a byte
+    after 0xFF, the last byte padded 0, 1, 0, ...; a last 0xFF dropped
+    (the decoder's artificial marker reads the same)."""
+    out, cur, ct = bytearray(), 0, 8
+    for b in bits:
+        ct -= 1
+        cur |= b << ct
+        if ct == 0:
+            out.append(cur)
+            ct = 7 if cur == 0xFF else 8
+            cur = 0
+    if ct < 8 and not (ct == 7 and out and out[-1] == 0xFF and cur == 0):
+        pad = 0
+        while ct > 0:
+            ct -= 1
+            cur |= pad << ct
+            pad ^= 1
+        out.append(cur)
+    if out.endswith(b"\xff"):
+        out = out[:-1]
+    return bytes(out)
+
+
+J2K_ZC, J2K_SC, J2K_SX = _j2k_tables()
+# a coefficient's flag word: bits 0-7 its W, E, N, S, NW, NE, SW, SE
+# neighbours' significance, 8-11 the W, E, N, S neighbours' signs
+_KW, _KE, _KN, _KS, _KNW, _KNE, _KSW, _KSE = 1, 2, 4, 8, 16, 32, 64, 128
+_KWNEG, _KENEG, _KNNEG, _KSNEG = 256, 512, 1024, 2048
+_KSIG, _KVISIT, _KREF = 1 << 12, 1 << 13, 1 << 14
+
+
+def j2k_t1_encode(mag, neg, orient, style, segsym_value=0b1010):
+    """One code-block's coding passes (its magnitudes and signs, row-major
+    lists of w x h) under code-block ``style`` with TERMALL: each pass
+    terminated on its own (MQ or, under BYPASS, raw). Returns (the bit-planes
+    P, [each pass's bytes])."""
+    h, w = len(mag), len(mag[0])
+    top = max(max(r) for r in mag)
+    if top == 0:
+        return 0, []
+    nbits = top.bit_length()
+    fw = w + 2
+    flags = [0] * (fw * (h + 2))
+    zc = J2K_ZC[orient]
+    vsc = style & 8
+    mq = J2kMq()
+    passes = []
+
+    def setsig(x, y, g, sgn):
+        flags[g] |= _KSIG
+        flags[g - 1] |= _KE | (_KENEG if sgn else 0)
+        flags[g + 1] |= _KW | (_KWNEG if sgn else 0)
+        if not (vsc and y % 4 == 0):
+            flags[g - fw] |= _KS | (_KSNEG if sgn else 0)
+            flags[g - fw - 1] |= _KSE
+            flags[g - fw + 1] |= _KSW
+        flags[g + fw] |= _KN | (_KNNEG if sgn else 0)
+        flags[g + fw - 1] |= _KNE
+        flags[g + fw + 1] |= _KNW
+
+    def sign_mq(g, sgn):
+        f = flags[g]
+        m = (f & 15) | ((f >> 4) & 0xF0)
+        mq.encode(sgn ^ J2K_SX[m], J2K_SC[m])
+
+    order = [(x, y) for k in range(0, h, 4) for x in range(w)
+             for y in range(k, min(k + 4, h))]
+    passtype, plane, npass = 2, nbits - 1, 0
+    while plane >= 0:
+        raw = (style & 1) and npass >= 10 and passtype < 2
+        bits = []
+        if not raw:
+            mq.start()
+        if passtype == 0:
+            for x, y in order:
+                g = (y + 1) * fw + x + 1
+                f = flags[g]
+                if f & _KSIG or not f & 0xFF:
+                    continue
+                bit = (mag[y][x] >> plane) & 1
+                if raw:
+                    bits.append(bit)
+                    if bit:
+                        bits.append(neg[y][x])
+                        setsig(x, y, g, neg[y][x])
+                else:
+                    mq.encode(bit, zc[f & 0xFF])
+                    if bit:
+                        sign_mq(g, neg[y][x])
+                        setsig(x, y, g, neg[y][x])
+                flags[g] |= _KVISIT
+        elif passtype == 1:
+            for x, y in order:
+                g = (y + 1) * fw + x + 1
+                f = flags[g]
+                if f & (_KSIG | _KVISIT) != _KSIG:
+                    continue
+                bit = (mag[y][x] >> plane) & 1
+                if raw:
+                    bits.append(bit)
+                else:
+                    mq.encode(bit, 16 if f & _KREF else 15 if f & 0xFF else 14)
+                flags[g] |= _KREF
+        else:
+            busy = _KSIG | _KVISIT | 0xFF
+            for k in range(0, h, 4):
+                for x in range(w):
+                    y = k
+                    if k + 4 <= h and not any(
+                            flags[(k + j + 1) * fw + x + 1] & busy
+                            for j in range(4)):
+                        run = next((j for j in range(4)
+                                    if (mag[k + j][x] >> plane) & 1), 4)
+                        if run == 4:
+                            mq.encode(0, 17)
+                            continue
+                        mq.encode(1, 17)
+                        mq.encode(run >> 1, 18)
+                        mq.encode(run & 1, 18)
+                        y = k + run
+                        g = (y + 1) * fw + x + 1
+                        sign_mq(g, neg[y][x])
+                        setsig(x, y, g, neg[y][x])
+                        y += 1
+                    for y in range(y, min(k + 4, h)):
+                        g = (y + 1) * fw + x + 1
+                        f = flags[g]
+                        if f & (_KSIG | _KVISIT):
+                            continue
+                        bit = (mag[y][x] >> plane) & 1
+                        mq.encode(bit, zc[f & 0xFF])
+                        if bit:
+                            sign_mq(g, neg[y][x])
+                            setsig(x, y, g, neg[y][x])
+            for i in range(len(flags)):
+                flags[i] &= ~_KVISIT
+            if style & 32:
+                for j in range(3, -1, -1):
+                    mq.encode((segsym_value >> j) & 1, 18)
+        passes.append(j2k_raw_bytes(bits) if raw else mq.flush())
+        if style & 2 and not raw:
+            mq.reset_contexts()
+        npass += 1
+        passtype += 1
+        if passtype == 3:
+            passtype = 0
+            plane -= 1
+    return nbits, passes
+
+
+J2K_K, J2K_TWO_INV_K = 1.230174105, 1.625732422
+
+
+def _j2k_lift97(x):
+    """The forward 9/7 of each row of ``x`` (float64 [n, m], m > 1): the
+    lifting steps with symmetric extension, then lows / K and highs / the
+    decoder's 2 / K. Returns (lows, highs)."""
+    import numpy as np
+    a, b, g, d = -1.586134342, -0.052980118, 0.882911075, 0.443506852
+    e, o = x[:, 0::2].copy(), x[:, 1::2].copy()
+    ne, no = e.shape[1], o.shape[1]
+
+    def odd(c):
+        nxt = np.concatenate([e[:, 1:], e[:, -1:]], 1)[:, :no] if ne == no \
+            else e[:, 1:no + 1]
+        o[:] += c * (e[:, :no] + nxt)
+
+    def even(c):
+        prev = np.concatenate([o[:, :1], o], 1)[:, :ne]
+        cur = o if ne == no else np.concatenate([o, o[:, -1:]], 1)
+        e[:] += c * (prev + cur)
+    odd(a)
+    even(b)
+    odd(g)
+    even(d)
+    return e / J2K_K, o / J2K_TWO_INV_K
+
+
+def j2k_fdwt97(x, levels):
+    """``levels`` forward 9/7 decompositions of ``x`` (float64 [h, w]) in
+    place, each level's LL at the top left, HL right of it, LH below, HH
+    below right."""
+    h, w = x.shape
+    for _ in range(levels):
+        if w > 1:
+            lo, hi = _j2k_lift97(x[:h, :w])
+            x[:h, :lo.shape[1]], x[:h, lo.shape[1]:w] = lo, hi
+        if h > 1:
+            lo, hi = _j2k_lift97(x[:h, :w].T.copy())
+            x[:lo.shape[1], :w], x[lo.shape[1]:h, :w] = lo.T, hi.T
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return x
+
+
+class _J2kTagTree:
+    """opj_tgt for the encoder: leaves' values, each node the least of its
+    children, opj_tgt_encode's low/known state kept across layers."""
+
+    def __init__(self, w, h, values):
+        self.parent, self.value = [], []
+        sizes = [(w, h)]
+        while sizes[-1][0] * sizes[-1][1] > 1:
+            sw, sh = sizes[-1]
+            sizes.append(((sw + 1) // 2, (sh + 1) // 2))
+        base = 0
+        for li, (sw, sh) in enumerate(sizes):
+            nxt = base + sw * sh
+            for j in range(sh):
+                for i in range(sw):
+                    self.parent.append(
+                        nxt + (j // 2) * sizes[li + 1][0] + i // 2
+                        if li + 1 < len(sizes) else -1)
+            base = nxt
+        self.value = [10 ** 6] * len(self.parent)
+        for k, v in enumerate(values):
+            n = k
+            while n >= 0:
+                self.value[n] = min(self.value[n], v)
+                n = self.parent[n]
+        self.low = [0] * len(self.parent)
+        self.known = [False] * len(self.parent)
+
+    def encode(self, bits, leaf, threshold):
+        stk, node = [], leaf
+        while self.parent[node] >= 0:
+            stk.append(node)
+            node = self.parent[node]
+        low = 0
+        while True:
+            if low > self.low[node]:
+                self.low[node] = low
+            else:
+                low = self.low[node]
+            while low < threshold:
+                if low >= self.value[node]:
+                    if not self.known[node]:
+                        bits.append(1)
+                        self.known[node] = True
+                    break
+                bits.append(0)
+                low += 1
+            self.low[node] = low
+            if not stk:
+                break
+            node = stk.pop()
+
+
+def _j2k_bio(bits):
+    """A packet header's bytes: 7 bits in a byte after 0xFF, zeros to the
+    end, and a byte more after a last 0xFF (opj_bio_flush)."""
+    out, cur, ct = bytearray(), 0, 8
+    for b in bits:
+        if ct == 0:
+            out.append(cur)
+            ct, cur = (7 if cur == 0xFF else 8), 0
+        ct -= 1
+        cur |= b << ct
+    out.append(cur)
+    if cur == 0xFF:
+        out.append(0)
+    return bytes(out)
+
+
+def _j2k_numpasses(bits, n):
+    for v, k in ((0, 1) if n == 1 else (2, 2) if n == 2 else
+                 (0xC | (n - 3), 4) if n <= 5 else (0x1E0 | (n - 6), 9)
+                 if n <= 36 else (0xFF80 | (n - 37), 16),):
+        bits.extend((v >> i) & 1 for i in range(k - 1, -1, -1))
+
+
+def j2k_poc_order(entries, layers, levels, ncomp):
+    """The (layer, resolution, component) of each packet OpenJPEG reads
+    under POC ``entries`` in a tile of one precinct a resolution (every
+    position progression then visits its one position once): each entry's
+    order over layers [0, LYEpoc), resolutions [RSpoc, REpoc) and
+    components [CSpoc, CEpoc), a packet read once."""
+    seen, out = set(), []
+    for r0, c0, l1, r1, c1, prg in entries:
+        l1, r1, c1 = min(l1, layers), min(r1, levels + 1), min(c1, ncomp)
+        loops = {0: "lrc", 1: "rlc", 2: "rcl", 3: "crl", 4: "crl"}.get(prg)
+        if c0 >= ncomp or loops is None:
+            continue
+        span = {"l": range(l1), "r": range(r0, r1), "c": range(c0, c1)}
+        for i in span[loops[0]]:
+            for j in span[loops[1]]:
+                for k in span[loops[2]]:
+                    key = dict(zip(loops, (i, j, k)))
+                    p = (key["l"], key["r"], key["c"])
+                    if p not in seen:
+                        seen.add(p)
+                        out.append(p)
+    return out
+
+
+def j2k_bytes(img, levels=5, style=63, segsym_value=0b1010):
+    """A raw JPEG 2000 codestream of an RGB uint8 image: 9/7 with the ICT,
+    ``levels`` decompositions, every band quantised with a step of 1, 64 x
+    64 code-blocks of ``style`` (TERMALL always: each pass its own
+    segment), the passes of each code-block split over three quality
+    layers, one tile of one tile-part, one precinct a resolution, a POC of
+    three entries in the main header that reorders the packets, and every
+    packet header in PPT markers of the tile-part header; cleanup passes
+    end with the segmentation symbol ``segsym_value`` under SEGSYM."""
+    import numpy as np
+    h, w, nc = img.shape
+    layers = 3
+    style |= 4  # every pass is terminated on its own
+    x = img.astype(np.float64) - 128
+    r, g, b_ = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    comps = [0.299 * r + 0.587 * g + 0.114 * b_,
+             -0.16875 * r - 0.33126 * g + 0.5 * b_,
+             0.5 * r - 0.41869 * g - 0.08131 * b_]
+    for c in comps:
+        j2k_fdwt97(c, levels)
+    # the bands of each resolution: (decomposition level, bandno, x0, y0,
+    # w, h) in the transformed array, in the decoder's order
+    dims = [(h, w)]
+    for _ in range(levels):
+        dims.append(((dims[-1][0] + 1) // 2, (dims[-1][1] + 1) // 2))
+    bands = [[(levels, 0, 0, 0, dims[levels][1], dims[levels][0])]]
+    for d in range(levels, 0, -1):
+        (lh, lw), (fh, fw) = dims[d], dims[d - 1]
+        bands.append([(d, 1, lw, 0, fw - lw, lh), (d, 2, 0, lh, lw, fh - lh),
+                      (d, 3, lw, lh, fw - lw, fh - lh)])
+    # scalar expounded quantisation of step (1 + mant / 2048) 2^(8 - expn)
+    # (the 9/7 decoder's gain is 0 in every band): mant 0 and expn 8, a
+    # step of 1, and 2 guard bits leave 9 magnitude bit-planes
+    qcd, mb = [8 << 11] * (3 * levels + 1), 9
+    # tier 1: every code-block's passes, (c, r) -> [(cw, ch, [(P, passes)
+    # of each code-block]) of each band]
+    blocks = {}
+    for r, res in enumerate(bands):
+        for _, bandno, bx, by, bw, bh in res:
+            cw, ch = -(-bw // 64), -(-bh // 64)
+            for c in range(nc):
+                q = np.trunc(comps[c][by:by + bh, bx:bx + bw]).astype(np.int64)
+                assert np.abs(q).max(initial=0) < 2 ** mb
+                mag, neg = np.abs(q), (q < 0).astype(np.int64)
+                cbs = []
+                for j in range(ch):
+                    for i in range(cw):
+                        m = mag[j * 64:(j + 1) * 64, i * 64:(i + 1) * 64]
+                        s = neg[j * 64:(j + 1) * 64, i * 64:(i + 1) * 64]
+                        cbs.append(j2k_t1_encode(m.tolist(), s.tolist(),
+                                                 bandno, style, segsym_value))
+                blocks.setdefault((c, r), []).append((cw, ch, cbs))
+    # tier 2: each packet's header and body, the tag trees of each
+    # precinct kept over its layers
+    state = {}
+    for key, bl in blocks.items():
+        st = []
+        for cw, ch, cbs in bl:
+            cuts = [[len(passes) * l // layers for l in range(layers + 1)]
+                    for _, passes in cbs]
+            first = [next((l for l in range(layers) if cu[l + 1] > cu[l]),
+                          layers) for cu in cuts]
+            st.append(dict(cbs=cbs, cuts=cuts, lenbits=[3] * len(cbs),
+                           incl=_J2kTagTree(cw, ch, first), first=first,
+                           imsb=_J2kTagTree(cw, ch, [mb - p for p, _ in cbs])))
+        state[key] = st
+
+    def packet(l, r, c):
+        bits, body = [], bytearray()
+        any_data = any(s["cuts"][i][l + 1] > s["cuts"][i][l]
+                       for s in state[(c, r)] for i in range(len(s["cbs"])))
+        if not any_data:
+            return _j2k_bio([0]), b""
+        bits.append(1)
+        for s in state[(c, r)]:
+            for i, (_, passes) in enumerate(s["cbs"]):
+                a, z = s["cuts"][i][l], s["cuts"][i][l + 1]
+                if s["first"][i] >= l:
+                    s["incl"].encode(bits, i, l + 1)
+                else:
+                    bits.append(1 if z > a else 0)
+                if z == a:
+                    continue
+                if s["first"][i] == l:
+                    s["imsb"].encode(bits, i, 999)
+                _j2k_numpasses(bits, z - a)
+                lens = [len(p) for p in passes[a:z]]
+                need = max(v.bit_length() for v in lens)
+                inc = max(0, need - s["lenbits"][i])
+                bits.extend([1] * inc + [0])
+                s["lenbits"][i] += inc
+                for v in lens:
+                    bits.extend((v >> t) & 1
+                                for t in range(s["lenbits"][i] - 1, -1, -1))
+                body += b"".join(passes[a:z])
+        return _j2k_bio(bits), bytes(body)
+
+    entries = [(0, 0, layers, 1, nc, 1), (1, 0, 1, levels + 1, nc, 4),
+               (0, 0, layers, levels + 1, nc, 0)]
+    heads, data = bytearray(), bytearray()
+    for l, r, c in j2k_poc_order(entries, layers, levels, nc):
+        hd, bd = packet(l, r, c)
+        heads += hd
+        data += bd
+
+    def seg(m, body):
+        return struct.pack(">HH", m, len(body) + 2) + body
+    siz = struct.pack(">HIIIIIIIIH", 0, w, h, 0, 0, w, h, 0, 0, nc) + bytes(
+        [7, 1, 1] * nc)
+    cod = struct.pack(">BBHBBBBBB", 0, 0, layers, 1, levels, 4, 4, style, 0)
+    main = (b"\xff\x4f" + seg(0xFF51, siz) + seg(0xFF52, cod)
+            + seg(0xFF5C, bytes([2 << 5 | 2]) + struct.pack(
+                f">{len(qcd)}H", *qcd))
+            + seg(0xFF5F, b"".join(struct.pack(">BBHBBB", *e)
+                                   for e in entries)))
+    ppt = b"".join(seg(0xFF61, bytes([z]) + bytes(heads[i:i + 65000]))
+                   for z, i in enumerate(range(0, len(heads), 65000)))
+    psot = 12 + len(ppt) + 2 + len(data)
+    return (main + struct.pack(">HHHIBB", 0xFF90, 10, 0, psot, 0, 1) + ppt
+            + b"\xff\x93" + bytes(data) + b"\xff\xd9")
+
+
 def tiff_mode_bytes(kind, h, w, rng, work):
     """A TIFF of ``kind`` (TIFF_MODES_FILES) of ``h`` x ``w`` pixels, its
     samples drawn from ``rng``: little-endian uncompressed strips of 5 rows
@@ -5352,21 +5928,78 @@ def webp_lossy_checks():
 
 
 def jpeg2000_checks():
-    """JPEG 2000 part 1 in phase 13: the fixtures of tests/data/jpeg2000
+    """JPEG 2000 in phase 13: the fixtures of tests/data/jpeg2000
     (webp_fixture_checks: the JP2 file and the raw codestream, 5/3 and 9/7,
     layers, the five progression orders, precincts, tiles and tile-parts,
-    SOP and EPH, 1-4 components of 8 to 16 bits, each equal to cv2's
-    pixels; the ten skip/ files PIL reads, an image offset, precisions
-    under 8 and signed samples among them; the damaged ones refused; the
-    640 x 480 9/7 file, JPEG2000_BIG, held to JPEG2000_BIG_DIGEST), and the
-    big file's decode_rate. Returns (the fixtures cv2 reads, the skip/
-    files, those PIL reads, the numbers for phase 13's line)."""
+    SOP and EPH, 1-4 components of 8 to 16 bits; part 2's j2k2_ files of
+    code-block styles, POC, PPM, PPT and RGN; each equal to cv2's pixels;
+    the 13 skip/ files PIL reads, an image offset, precisions under 8,
+    signed samples and raw gray codestreams of part 2's features among
+    them; the damaged ones refused; the 640 x 480 9/7 file, JPEG2000_BIG,
+    held to JPEG2000_BIG_DIGEST), and the big file's decode_rate. Returns
+    (the fixtures cv2 reads, the skip/ files, those PIL reads, the numbers
+    for phase 13's line)."""
     cases, skips, pil_read = webp_fixture_checks(
-        JPEG2000_FIXTURES, 10, {JPEG2000_BIG: JPEG2000_BIG_DIGEST})
+        JPEG2000_FIXTURES, 13, {JPEG2000_BIG: JPEG2000_BIG_DIGEST})
     return cases, skips, pil_read, {
         "cv2_reads": len(cases), "skip": len(skips),
         "skip_pil_reads": len(pil_read), "big": decode_rate(
             JPEG2000_FIXTURES / JPEG2000_BIG, *JPEG2000_BIG_SIZE)}
+
+
+def j2k_source():
+    """JPEG2000_BIG's source image: JPEG2000_BIG_SIZE of gradients with
+    grain of -3 to 3 from JPEG2000_SOURCE_SEED."""
+    import numpy as np
+    rng = np.random.default_rng(JPEG2000_SOURCE_SEED)
+    h, w = JPEG2000_BIG_SIZE
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([x * 255 // (w - 1), y * 255 // (h - 1),
+                    (x + y) * 255 // (h + w - 2)], -1).astype(int)
+    img += rng.integers(-3, 4, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def j2k_built():
+    """(the RGB source, the file) of phase 13's built JPEG 2000 file: the
+    raw codestream j2k_bytes writes of j2k_source (9/7, style 63, three
+    layers, a POC, PPT)."""
+    img = j2k_source()
+    return img, j2k_bytes(img)
+
+
+def jpeg2000_part2_checks(work, cases, skips, pil_read):
+    """JPEG 2000 part 2 in phase 13: the counts of its fixtures among
+    jpeg2000_checks' (``cases``, ``skips``, ``pil_read``), and the file
+    j2k_built makes (in ``work``) held to JPEG2000_BUILT_DIGEST, probed at
+    its size by both probes, within 3 LSB RMS of its source, and its
+    decode_rate. Returns the numbers for phase 13's line."""
+    import hashlib
+    import numpy as np
+    from tsr_tpu_torch import native
+    out = {key: sum(p.name.startswith("j2k2_") for p in files)
+           for key, files in (("cv2_reads", cases), ("skip", skips),
+                              ("skip_pil_reads", pil_read))}
+    check(out["cv2_reads"] >= 15 and out["skip_pil_reads"] == 3,
+          f"JPEG 2000 part 2 fixtures: {out}")
+    t0 = time.perf_counter()
+    img, data = j2k_built()
+    out["write_s"] = time.perf_counter() - t0
+    out["bytes"] = len(data)
+    path = work / "built_jpeg2000" / JPEG2000_BUILT
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
+    got = native.decode(str(path))
+    check(hashlib.sha256(got.tobytes()).hexdigest() == JPEG2000_BUILT_DIGEST,
+          "the built JPEG 2000 file decodes unlike cv2.imread (its digest)")
+    out["rms_to_source"] = float(np.sqrt(np.mean(
+        (got.astype(np.float64) - img) ** 2)))
+    check(out["rms_to_source"] < 3.0, f"the built JPEG 2000 file: {out}")
+    for reader in ("cv2", "port"):
+        check(native.probe([str(path)], reader=reader).tolist()
+              == [list(JPEG2000_BIG_SIZE)], f"built JPEG 2000: probe {reader}")
+    out["built"] = decode_rate(path, *JPEG2000_BIG_SIZE)
+    return out
 
 
 def built_tiff_checks(work):
@@ -5512,11 +6145,12 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     ``expected.npz`` and probed as cv2 reads it; each skip/ file probed
     (0, 0) as cv2 refuses it, decoded as PIL where PIL reads it (the gray
     PFM, the TIFFs of orientation 5 to 8 and of 2 and 4-bit gray among
-    them), raising otherwise (naming AVIF, JPEG 2000 of a feature part 1
+    them), raising otherwise (naming AVIF, JPEG 2000 of a feature the port
     leaves out and ZSTD TIFF data); the WebP fixtures and the built VP8L
     file (webp_checks), the lossy WebP fixtures with the 640 x 480 file
     (webp_lossy_checks) and the JPEG 2000 fixtures with theirs
-    (jpeg2000_checks), which join the trees below; host decode rates by
+    (jpeg2000_checks), which join the trees below, and part 2's built
+    file (jpeg2000_part2_checks); host decode rates by
     group (TIFF by layout, CCITT among them, lossless and lossy WebP, JPEG
     2000); the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
@@ -5590,12 +6224,23 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     t0 = time.perf_counter()
     j2k_cases, j2k_skips, j2k_pil, result["jpeg2000"] = jpeg2000_checks()
     result["jpeg2000"]["seconds"] = time.perf_counter() - t0
-    print("JPEG 2000 (part 1: the JP2 file and the raw codestream): "
+    print("JPEG 2000 (the JP2 file and the raw codestream): "
           + json.dumps(result["jpeg2000"]) + ": fixtures equal to their "
           "expected.npz, skip/ files refused by the cv2 probe, decoded as "
           f"PIL or failing; the {JPEG2000_BIG_SIZE[1]} x "
           f"{JPEG2000_BIG_SIZE[0]} lossy 9/7 file equal to cv2's digest, its "
           f"decode rate on one host thread beside {result['card']}")
+    t0 = time.perf_counter()
+    result["jpeg2000_part2"] = jpeg2000_part2_checks(work, j2k_cases,
+                                                     j2k_skips, j2k_pil)
+    result["jpeg2000_part2"]["seconds"] = time.perf_counter() - t0
+    print("JPEG 2000 part 2 (code-block styles, POC, PPM/PPT, RGN): "
+          + json.dumps(result["jpeg2000_part2"]) + ": the j2k2_ fixtures "
+          f"among those above; the built {JPEG2000_BIG_SIZE[1]} x "
+          f"{JPEG2000_BIG_SIZE[0]} 9/7 file of style 63 with a POC and PPT "
+          "equal to cv2's digest, its decode rate "
+          f"({result['jpeg2000_part2']['built']['megapixels_per_sec']:.2f} "
+          f"MP/s) on one host thread beside {result['card']}")
     cases = cases + webp_cases + lossy_cases + j2k_cases
     skips = skips + webp_skips + lossy_skips + j2k_skips
     pil_read += webp_pil + lossy_pil + j2k_pil

@@ -1,8 +1,9 @@
 """Writes the JPEG 2000 fixtures of ``tests/test_torch_port_jpeg2000.py``
 and of ``chip_smoke.py``'s image formats phase into this directory: the
 cases of ``tests/data/jpeg2000_cases.py`` (``cases``, ``skip_cases``, from
-JPEG2000_SEED), made with cv2's and Pillow's writers, OpenJPEG's encoder
-through ctypes and byte edits of their codestreams:
+JPEG2000_SEED; part 2's ``part2_cases``, ``part2_skip_cases``, named
+``j2k2_*``, from JPEG2000_SEED + 3), made with cv2's and Pillow's writers,
+OpenJPEG's encoder through ctypes and byte edits of their codestreams:
 
 - ``<case>``: files cv2.imread reads;
 - ``skip/<case>``: files cv2.imread gives None for, some of which PIL
@@ -54,8 +55,14 @@ def build_big():
 
 
 def _cases():
+    """Part 1's cases from JPEG2000_SEED, part 2's from a stream of their
+    own (JPEG2000_SEED + 3), so that neither moves the other's bytes."""
     rng = np.random.default_rng(cases_module.JPEG2000_SEED)
-    return cases_module.cases(rng), cases_module.skip_cases(rng)
+    cases, skips = cases_module.cases(rng), cases_module.skip_cases(rng)
+    rng = np.random.default_rng(cases_module.JPEG2000_SEED + 3)
+    cases.update(cases_module.part2_cases(rng))
+    skips.update(cases_module.part2_skip_cases(rng))
+    return cases, skips
 
 
 def make(out: Path = HERE) -> dict:

@@ -7,19 +7,24 @@
 - Pillow's (``Image.save(..., "JPEG2000", ...)``: every option it has);
 - OpenJPEG's own encoder, the libopenjp2 Pillow bundles, through ctypes
   (``opj_encode``: SOP and EPH markers, code-block styles, progression
-  orders, layers), and its decoder (``opj_components``: the components
-  before either reader converts them);
+  orders, layers, tiles, a region of interest), and its
+  decoder (``opj_components``: the components before either reader
+  converts them);
 - byte edits of a codestream (``add_sop``, ``split_tile_parts``,
-  ``insert_poc``, ``set_byte``, ...).
+  ``insert_poc``, ``set_byte``, ``to_ppt``, ``to_ppm``,
+  ``to_tile_headers``, ``reorder_poc``, ...).
 
 Each ``*_cases`` function gives ``{name: bytes}`` from the seeded stream it
 is handed: ``cases`` the files cv2.imread reads, ``skip_cases`` those it
-gives None for (some of which PIL reads), ``unsupported_cases`` files of
-the features part 1 leaves out, by feature.
+gives None for (some of which PIL reads), ``part2_cases`` and
+``part2_skip_cases`` the same for part 2's features (code-block styles,
+POC, PPM and PPT, RGN), ``unsupported_cases`` files of the features the
+port leaves out, by feature.
 """
 
 import ctypes
 import glob
+import importlib.util
 import io
 import os
 import struct
@@ -29,6 +34,13 @@ from pathlib import Path
 import cv2
 import numpy as np
 from PIL import Image
+
+# the JPEG 2000 writer phase 13 of chip_smoke.py runs on the card, and the
+# POC packet order it shares with reorder_poc
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[2] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 JPEG2000_SEED = 24  # the JPEG 2000 files draw from their own stream
 BIG_SIZE = (480, 640)  # the file phase 13 of chip_smoke.py times
@@ -125,9 +137,10 @@ class _CompParam(ctypes.Structure):  # opj_image_cmptparm_t
 
 
 # byte offsets into opj_cparameters_t (OpenJPEG 2.5, x86-64)
-_CPARAM = dict(cp_disto_alloc=20, csty=48, prog_order=52, tcp_numlayers=4796,
-               tcp_rates=4800, numresolution=5600, cblockw_init=5604,
-               cblockh_init=5608, mode=5612, irreversible=5616)
+_CPARAM = dict(tile_size_on=0, cp_tdx=12, cp_disto_alloc=20, csty=48,
+               prog_order=52, tcp_numlayers=4796, tcp_rates=4800,
+               numresolution=5600, cblockw_init=5604, cblockh_init=5608,
+               mode=5612, irreversible=5616, roi_compno=5620, roi_shift=5624)
 
 
 def _temp(suffix):
@@ -137,11 +150,13 @@ def _temp(suffix):
 
 
 def opj_encode(img, numres=3, csty=0, mode=0, prog=0, irreversible=0,
-               rates=(), cblk=None):
+               rates=(), cblk=None, tile=None, roi=None):
     """OpenJPEG's raw codestream of a uint8 image (gray or RGB): csty 2
     writes SOP markers, 4 EPH markers; mode the code-block style; prog the
     progression order (0 LRCP ... 4 CPRL); rates one compression ratio a
-    layer."""
+    layer; tile (w, h) tiles; roi (component, shift) a max-shift region of
+    interest over the whole component, written as an RGN marker in the
+    main header."""
     lib = libopenjp2()
     img = np.asarray(img)
     if img.ndim == 2:
@@ -166,6 +181,11 @@ def opj_encode(img, numres=3, csty=0, mode=0, prog=0, irreversible=0,
         struct.pack_into("<i", p, _CPARAM["tcp_numlayers"], len(rates))
         struct.pack_into(f"<{len(rates)}f", p, _CPARAM["tcp_rates"], *rates)
         struct.pack_into("<i", p, _CPARAM["cp_disto_alloc"], 1)
+    if tile is not None:
+        struct.pack_into("<i", p, _CPARAM["tile_size_on"], 1)
+        struct.pack_into("<ii", p, _CPARAM["cp_tdx"], *tile)
+    if roi is not None:
+        struct.pack_into("<ii", p, _CPARAM["roi_compno"], *roi)
     codec = lib.opj_create_compress(0)
     path = _temp(".j2k")
     try:
@@ -336,14 +356,140 @@ def cod_fields(data):
     return struct.unpack(">BBHBBBBBB", body[:10])
 
 
-def insert_poc(data):
-    """A POC marker that restates the COD's own progression: the same
-    packets in the same order."""
-    scod, prog, layers, mct, levels, *_ = cod_fields(data)
+def poc_body(entries):
+    """A POC marker's body of (RSpoc, CSpoc, LYEpoc, REpoc, CEpoc, Ppoc)
+    entries (fewer than 257 components: one byte a component index)."""
+    return b"".join(struct.pack(">BBHBBB", *e) for e in entries)
+
+
+def insert_poc(data, entries):
+    """A POC marker of ``entries`` in the main header."""
+    return insert_main(data, 0xFF5F, poc_body(entries))
+
+
+_SOT = b"\xff\x90\x00\x0a"  # ends a main header for main_markers
+
+
+def to_tile_headers(cs, marker):
+    """A raw codestream with the main header's ``marker`` segments copied
+    into every tile's first tile-part header and dropped from the main
+    header."""
+    main, parts, tail = parse(cs)
+    segs = [b for _, m, b in main_markers(main + _SOT) if m == marker]
+    main = b"".join([main[:2]] + [
+        struct.pack(">HH", m, len(b) + 2) + b
+        for _, m, b in main_markers(main + _SOT) if m != marker])
+    seen = set()
+    for part in parts:
+        if part[0] not in seen:
+            seen.add(part[0])
+            part[3] = part[3] + [(marker, b) for b in segs]
+    return emit(main, parts, tail)
+
+
+def packets(data):
+    """The packets of a tile's data in a stream with SOP and EPH markers:
+    [(SOP, header up to and with its EPH, body)] (FF 91 and FF 92 appear
+    nowhere else: a header or code-block byte after 0xFF stays under
+    0x90)."""
+    starts = [i for i in range(len(data) - 1)
+              if data[i] == 0xFF and data[i + 1] == 0x91]
+    out = []
+    for a, b in zip(starts, starts[1:] + [len(data)]):
+        e = data.index(b"\xff\x92", a + 6) + 2
+        out.append((data[a:a + 6], data[a + 6:e], data[e:b]))
+    return out
+
+
+def _headers_out(cs, sop=True):
+    """(main header, parts, tail, [headers of each tile-part]): a SOP and
+    EPH stream's packet headers (each with its EPH) taken out of the
+    tile-part data, SOP markers kept or dropped with COD's SOP bit."""
+    main, parts, tail = parse(cs)
+    main = bytearray(main)
+    if not sop:
+        main[main.find(b"\xff\x52") + 4] &= ~2
+    heads = []
+    for part in parts:
+        pk = packets(part[4])
+        heads.append([h for _, h, _ in pk])
+        part[4] = b"".join((s if sop else b"") + body for s, _, body in pk)
+    return bytes(main), parts, tail, heads
+
+
+def _chunks(data, size):
+    return [data[i:i + size] for i in range(0, len(data), size)] or [b""]
+
+
+def to_ppt(cs, size=65000, sop=True, order=None):
+    """The packet headers of each tile-part (SOP and EPH stream) moved into
+    PPT markers of at most ``size`` bytes in its header, Zppt counting on
+    over a tile's tile-parts; ``order`` permutes where each tile-part's
+    markers stand in its header (OpenJPEG reads them by Zppt)."""
+    main, parts, tail, heads = _headers_out(cs, sop)
+    z = {}
+    for part, hs in zip(parts, heads):
+        marks = []
+        for chunk in _chunks(b"".join(hs), size):
+            k = z.get(part[0], 0)
+            z[part[0]] = k + 1
+            marks.append((0xFF61, bytes([k]) + chunk))
+        if order is not None:
+            marks = [marks[i % len(marks)] for i in order(len(marks))]
+        part[3] = part[3] + marks
+    return emit(main, parts, tail)
+
+
+def to_ppm(cs, size=65000, sop=True, nppm=None, split_nppm=False):
+    """The packet headers of every tile-part (SOP and EPH stream) moved
+    into PPM markers of the main header: Nppm then the headers, tile-part
+    after tile-part, cut into markers of at most ``size`` bytes (the
+    headers of an Nppm may run on into the next marker; an Nppm field
+    itself only with ``split_nppm``, which OpenJPEG refuses); ``nppm``
+    rewrites the counts (OpenJPEG joins the headers and drops them)."""
+    main, parts, tail, heads = _headers_out(cs, sop)
+    runs = [b"".join(hs) for hs in heads]
+    counts = nppm(runs) if nppm else [len(r) for r in runs]
+    body = b"".join(struct.pack(">I", n) + r for n, r in zip(counts, runs))
+    fields, at = [], 0
+    for r in runs:
+        fields.append(at)
+        at += 4 + len(r)
+    chunks, at = [], 0
+    while at < len(body):
+        end = min(at + size, len(body))
+        if not split_nppm:
+            end = next((f for f in fields if at < f < end < f + 4), end)
+        chunks.append(body[at:end])
+        at = end
+    main = main + _SOT
+    for z, chunk in reversed(list(enumerate(chunks or [b""]))):
+        main = insert_main(main, 0xFF60, bytes([z]) + chunk)
+    return emit(main[:-len(_SOT)], parts, tail)
+
+
+def reorder_poc(cs, entries, where="main"):
+    """A raw LRCP codestream of one tile, one tile-part and one precinct a
+    resolution, with SOP and EPH markers, given a POC of ``entries`` (in
+    the main header or the tile-part header) and its packets moved into
+    the order the POC reads them: packets no entry reaches are dropped."""
+    scod, prog, layers, mct, levels, *_ = cod_fields(cs)
     ncomp = struct.unpack(">H", next(
-        b for p, m, b in main_markers(data) if m == 0xFF51)[34:36])[0]
-    return insert_main(data, 0xFF5F, struct.pack(
-        ">BBHBBB", 0, 0, layers, levels + 1, ncomp, prog))
+        b for p, m, b in main_markers(cs) if m == 0xFF51)[34:36])[0]
+    assert prog == 0
+    main, parts, tail = parse(cs)
+    assert len(parts) == 1
+    pk = packets(parts[0][4])
+    lrc = [(l, r, c) for l in range(layers) for r in range(levels + 1)
+           for c in range(ncomp)]
+    assert len(pk) == len(lrc)
+    by = dict(zip(lrc, pk))
+    parts[0][4] = b"".join(b"".join(by[k]) for k in chip_smoke.j2k_poc_order(
+        entries, layers, levels, ncomp))
+    if where == "tile":
+        parts[0][3] = parts[0][3] + [(0xFF5F, poc_body(entries))]
+        return emit(main, parts, tail)
+    return emit(insert_poc(main + _SOT, entries)[:-len(_SOT)], parts, tail)
 
 
 def set_byte(data, offset, value):
@@ -518,16 +664,109 @@ def _wrong_tile_part(cs):
     return emit(main, parts, tail)
 
 
+def _entries(layers, levels, ncomp):
+    """Three POC entries that change the order and cover every packet:
+    resolution 0 of every layer (RLCP), layer 0 of the rest by component
+    (CPRL), then what remains (LRCP)."""
+    return [(0, 0, layers, 1, ncomp, 1), (1, 0, 1, levels + 1, ncomp, 4),
+            (0, 0, layers, levels + 1, ncomp, 0)]
+
+
+def part2_cases(rng):
+    """Part 2's files cv2.imread reads: code-block styles alone and
+    together over layers, POC in the main and a tile-part header (several
+    entries, packets no entry reaches), PPM over tile-parts and markers,
+    PPT over tiles, RGN in the main and tile-part headers, and a 9/7 file
+    of every part 2 feature in a generate_tree bucket no other fixture
+    brings."""
+    img = smooth(rng, 19, 23)
+    out = {
+        "j2k2_style_63_97_3_layers.jpg": opj_encode(
+            img, mode=63, irreversible=1, rates=(40, 20, 10)),
+        "j2k2_style_5_2_layers.png": opj_encode(img, mode=5, rates=(20, 5)),
+        "j2k2_bypass_sop_eph_3_layers.png": opj_encode(
+            img, mode=1, csty=6, rates=(30, 10, 3), numres=2),
+        "j2k2_termall_97_3_layers.jpg": opj_encode(
+            img, mode=4, irreversible=1, rates=(30, 10, 3)),
+        "j2k2_reset_vsc_segsym.png": opj_encode(img, mode=42, cblk=(8, 8)),
+        "j2k2_pterm_cprl.png": opj_encode(img, mode=16, prog=4,
+                                          rates=(12, 4)),
+    }
+    sop = opj_encode(img, csty=6, rates=(30, 10, 3))
+    out["j2k2_poc_main_3_entries.png"] = reorder_poc(sop, _entries(3, 2, 3))
+    out["j2k2_poc_tile_uncovered.png"] = reorder_poc(
+        sop, [(0, 0, 3, 2, 3, 1), (0, 1, 3, 2, 3, 4)], "tile")
+    lossy = opj_encode(img, csty=6, irreversible=1, rates=(30, 10, 3))
+    out["j2k2_poc_tile_97.jpg"] = reorder_poc(lossy, _entries(3, 2, 3),
+                                              "tile")
+    tiled = opj_encode(img, csty=6, rates=(20, 6), tile=(12, 8))
+    out["j2k2_ppm_tile_parts.png"] = split_tile_parts(
+        to_ppm(tiled, size=60), rng, interleave=False)
+    out["j2k2_ppt_tiles_97.jpg"] = to_ppt(
+        opj_encode(img, csty=6, irreversible=1, rates=(25,), tile=(16, 12),
+                   mode=63), size=24, order=lambda n: range(n - 1, -1, -1))
+    out["j2k2_ppt_no_sop.png"] = to_ppt(sop, sop=False)
+    out["j2k2_rgn_roi.png"] = opj_encode(img, roi=(0, 5))
+    out["j2k2_rgn_tiles_97.jpg"] = to_tile_headers(opj_encode(
+        img, roi=(2, 3), irreversible=1, tile=(16, 8), rates=(15,)), 0xFF5E)
+    wide = smooth(rng, 70, 100, amp=1)
+    big = opj_encode(wide, csty=6, mode=63, irreversible=1, rates=(60, 30, 20),
+                     numres=3)
+    out["j2k2_all_features_70x100.jpg"] = to_ppt(
+        reorder_poc(big, _entries(3, 2, 3), "tile"), size=200)
+    return out
+
+
+def part2_skip_cases(rng):
+    """Part 2's files cv2.imread gives None for: raw gray codestreams of
+    its features, which PIL reads, and damaged ones both readers refuse (a
+    PPT beside a PPM, a Zppt or Zppm twice, an Nppm past its headers, 32
+    POC entries, a POC of a broken length, an RGN shift past 30 bit-planes
+    or of a component past the last, an Nppm field cut across two PPM
+    markers)."""
+    img = smooth(rng, 15, 19)
+    gray = img[:, :, 1]
+    sop = opj_encode(img, csty=6, rates=(20, 5))
+    ppt = to_ppt(sop, size=30)
+    main, parts, tail = parse(ppt)
+    twice = [list(p) for p in parts]
+    twice[0][3] = twice[0][3] + [twice[0][3][-1]]
+    entries = [(0, 0, 2, 3, 3, 0)] * 32
+    out = {
+        "j2k2_raw_gray_style_63.png": opj_encode(gray, mode=63, rates=(8, 2)),
+        "j2k2_raw_gray_poc_uncovered.png": reorder_poc(
+            opj_encode(gray, csty=6, rates=(8, 2)), [(0, 0, 2, 2, 1, 1)]),
+        "j2k2_raw_gray_ppm_rgn.png": to_ppm(
+            opj_encode(gray, csty=6, roi=(0, 4), rates=(6,)), size=20),
+        "j2k2_ppt_beside_ppm.png": insert_main(ppt, 0xFF60,
+                                               b"\0\0\0\0\0"),
+        "j2k2_zppt_twice.png": emit(main, twice, tail),
+        "j2k2_zppm_twice.png": insert_main(to_ppm(sop), 0xFF60,
+                                           b"\0\0\0\0\0"),
+        "j2k2_nppm_past_headers.png": to_ppm(
+            sop, nppm=lambda runs: [len(runs[0]) + 7]),
+        "j2k2_nppm_across_markers.png": to_ppm(
+            opj_encode(img, csty=6, tile=(8, 8), rates=(10,)), size=23,
+            split_nppm=True),
+        "j2k2_poc_32_entries.png": insert_poc(sop, entries),
+        "j2k2_poc_length.png": insert_main(sop, 0xFF5F,
+                                           poc_body(entries[:1]) + b"\0"),
+        "j2k2_rgn_shift_31.png": insert_main(sop, 0xFF5E, b"\0\0\x1f"),
+        "j2k2_rgn_component_3.png": insert_main(sop, 0xFF5E, b"\3\0\2"),
+    }
+    return out
+
+
 def unsupported_cases(rng):
-    """{name: (bytes, feature)}: valid files of the features part 1 leaves
-    out, each of which raises naming JPEG 2000."""
+    """{name: (bytes, feature)}: valid files of the features the port
+    leaves out, each of which raises naming JPEG 2000: sub-sampled
+    components (8d), sYCC, an ICC profile, CIELab and CMYK colr boxes, a
+    cdef that moves channels, a palette with and without its cmap (8e),
+    HTJ2K's CAP marker (8f)."""
     img = smooth(rng, 21, 26)
     jp2 = pil_j2k(img)
     raw = pil_j2k(img, no_jp2=True)
-    out = {"poc.jpg": (insert_poc(jp2), "POC")}
-    for style in (1, 2, 4, 8, 16, 32):
-        out[f"cblk_style_{style}.png"] = (
-            opj_encode(img, mode=style), "code-block style")
+    out = {}
     sub = set_byte(raw, siz_component(raw, 1) + 1, 2)
     out["subsampled.png"] = (sub, "sub-sampled components")
     out["colr_sycc.png"] = (set_colr(jp2, 18), "sYCC")
@@ -537,9 +776,16 @@ def unsupported_cases(rng):
     out["pclr.png"] = (with_box(pil_j2k(img, "L"), box(
         b"pclr", struct.pack(">HB", 2, 3) + b"\x07\x07\x07" + bytes(6))),
         "pclr")
-    out["rgn.png"] = (insert_main(raw, 0xFF5E, b"\x00\x00\x02"), "RGN")
     out["cap.png"] = (insert_main(raw, 0xFF50, b"\x00\x02\x00\x00\x00\x00"),
                       "HTJ2K")
+    palette = bytes((np.arange(256 * 3) * 37 % 256).astype(np.uint8))
+    out["cmap.png"] = (with_box(with_box(pil_j2k(img, "L"), box(
+        b"pclr", struct.pack(">HB", 256, 3) + b"\x07\x07\x07" + palette)),
+        box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, i)
+                              for i in range(3)))), "cmap")
+    out["colr_cielab.png"] = (set_colr(jp2, 14), "CIELab")
+    out["colr_cmyk.png"] = (set_colr(pil_j2k(np.dstack(
+        [img, img[:, :, :1]]), "RGBA"), 12), "CMYK")
     return out
 
 

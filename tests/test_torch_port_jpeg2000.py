@@ -17,7 +17,7 @@ refused as both refuse), max diff 0:
   bundled libopenjp2 through ctypes), before either reader converts them;
 - the header probe, for every fixture and reader path, at decode's size;
 - cv2's and PIL's conversions of 16-bit and signed samples;
-- the features part 1 leaves out raising naming JPEG 2000;
+- the features the port leaves out raising naming JPEG 2000;
 - every cut point of three fixtures and seeded byte mutations;
 - generate_tree, restore_tree and evaluate_directory against tsr_tpu's on
   a tree of JPEG 2000 files.
@@ -89,8 +89,11 @@ def port_components(data):
 
 
 def unsupported_feature(data):
-    """The feature part 1 leaves out that ``data`` uses, by its headers
-    (JP2 boxes, the main and tile-part headers), or None."""
+    """The feature the port leaves out (ROADMAP items 8d-8f) that ``data``
+    uses, by its headers (JP2 boxes, the main and first tile-part headers),
+    or None: a palette or its cmap, a colr other than sRGB or gray, a cdef
+    that moves channels, sub-sampled components or more than four, HT
+    code-blocks, a CAP, CPF, CBD, MCT, MCC or MCO marker."""
     at = cases.codestream_at(data)
     if at < 0:
         return None
@@ -118,18 +121,17 @@ def unsupported_feature(data):
         m = int.from_bytes(data[p:p + 2], "big")
         n = int.from_bytes(data[p + 2:p + 4], "big")
         body = data[p + 4:p + 2 + n]
-        if m in (0xFF5F, 0xFF60, 0xFF61, 0xFF5E, 0xFF50, 0xFF59, 0xFF78,
-                 0xFF74, 0xFF75, 0xFF77):
+        if m in (0xFF50, 0xFF59, 0xFF78, 0xFF74, 0xFF75, 0xFF77):
             return hex(m)
         if m == 0xFF51 and len(body) >= 36:
             comps = body[36:]
             if any(comps[i + 1] != 1 or comps[i + 2] != 1
                    for i in range(0, len(comps) - 2, 3)) or len(comps) > 12:
                 return "components"
-        if m == 0xFF52 and len(body) >= 9 and body[8]:
-            return "code-block style"
-        if m == 0xFF53 and len(body) >= 6 and body[5]:
-            return "code-block style"
+        if m == 0xFF52 and len(body) >= 9 and body[8] & 0x40:
+            return "HT code-blocks"
+        if m == 0xFF53 and len(body) >= 6 and body[5] & 0x40:
+            return "HT code-blocks"
         if m in (0xFF93, 0xFF90) or n < 2:
             if m == 0xFF90:
                 p += 12
@@ -143,7 +145,7 @@ def _reads_as_reference(path):
     """probe(reader="cv2") gives cv2's (h, w), (0, 0) where cv2 gives None
     and marks a raise; decode equals cv2, else PIL, max diff 0, else raises
     "failed to decode"; it names JPEG 2000 only for a file of a feature
-    part 1 leaves out. Where a reader reads, the header probe gives its
+    the port leaves out. Where a reader reads, the header probe gives its
     size. Returns the reader ("named" for such a file)."""
     data = Path(path).read_bytes()
     reader, want = _reference(path)
@@ -236,8 +238,9 @@ def test_committed_fixtures_equal_cv2_and_pil(tmp_path):
     assert {readers[n] for n in CASES + (BIG,)} == {"cv2"}
     assert sorted(n for n in SKIPS if readers[n] == "pil") == sorted(
         PIL_SKIPS)
-    assert len(PIL_SKIPS) == 10 and all(readers[n] == "none" for n in SKIPS
-                                        if n not in PIL_SKIPS)
+    part2 = [n for n in PIL_SKIPS if n.startswith("j2k2_")]
+    assert len(PIL_SKIPS) - len(part2) == 10 and len(part2) == 3
+    assert all(readers[n] == "none" for n in SKIPS if n not in PIL_SKIPS)
     img, data = make_fixtures.build_big()
     assert (FIXTURES / BIG).read_bytes() == data
     ref = cv2.imread(str(FIXTURES / BIG))[:, :, ::-1].copy()
@@ -410,10 +413,11 @@ UNSUPPORTED = cases.unsupported_cases(np.random.default_rng(
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_feature_raises_naming_jpeg2000(tmp_path, name):
-    """A valid file of a feature part 1 leaves out (POC, code-block styles
-    1-32, sub-sampled components, sYCC, an ICC profile, a cdef that moves
-    channels, a palette, RGN, HTJ2K's CAP) raises naming JPEG 2000 on
-    every reader path; the cv2 probe refuses it; the reference reads it."""
+    """A valid file of a feature the port leaves out (sub-sampled
+    components, sYCC, an ICC profile, CIELab and CMYK colr boxes, a cdef
+    that moves channels, a palette with or without its cmap, HTJ2K's CAP)
+    raises naming JPEG 2000 on every reader path; the cv2 probe refuses
+    it; the reference reads it."""
     data, feature = UNSUPPORTED[name]
     p = tmp_path / name
     p.write_bytes(data)
@@ -489,8 +493,8 @@ def test_byte_mutations_read_as_reference(tmp_path, seed):
     random value, one to four of them) over the smaller fixtures cv2 reads
     (480 in all; headers, packet headers and code-block data among them):
     the port reads or refuses exactly where the reference does, with its
-    pixels, or names JPEG 2000 for a file the mutation gave a feature part
-    1 leaves out."""
+    pixels, or names JPEG 2000 for a file the mutation gave a feature the
+    port leaves out."""
     rng = np.random.default_rng(6000 + seed)
     p = tmp_path / "mut.png"
     for _ in range(60):
@@ -508,8 +512,8 @@ def test_header_byte_mutations_read_as_reference(tmp_path):
     """Every byte of a small JP2 file's boxes and main header set to 0,
     0xFF, its bit 7 or bit 0 flipped: the port reads or refuses exactly
     where the reference does (the JP2 box rules, IHDR against SIZ, the
-    marker segments' checks, EPH without markers), or names JPEG 2000 for
-    a feature part 1 leaves out."""
+    marker segments' checks, EPH without markers, code-block styles), or
+    names JPEG 2000 for a feature the port leaves out."""
     data = _path("j2k_pil_rates_2_layers.jpg").read_bytes()
     end = data.find(b"\xff\x90") + 14
     p = tmp_path / "head.png"

@@ -1,28 +1,30 @@
 // jpeg2000.cpp — JPEG 2000 (the JP2 file and the raw codestream) as
 // cv2.imread reads it (OpenCV 5's Jpeg2KOpjDecoder over OpenJPEG 2.5's
 // opj_decode) and as PIL's Jpeg2KImagePlugin and convert("RGB") read it
-// (Jpeg2KDecode.c over OpenJPEG's tile API), part 1 of the format:
+// (Jpeg2KDecode.c over OpenJPEG's tile API):
 //
 // - the JP2 boxes that reach the codestream and its colour (jP, ftyp,
 //   jp2h with ihdr, colr, bpcc and cdef, jp2c), by opj_jp2_read_header's
 //   rules; the raw codestream;
-// - the main and tile-part headers (SIZ, COD, COC, QCD, QCC, COM, TLM,
-//   PLM, PLT, CRG, SOT/SOD, EOC) and the tile-part stream by
+// - the main and tile-part headers (SIZ, COD, COC, QCD, QCC, RGN, POC, PPM,
+//   PPT, COM, TLM, PLM, PLT, CRG, SOT/SOD, EOC) and the tile-part stream by
 //   opj_j2k_read_header_procedure / opj_j2k_read_tile_header /
 //   opj_j2k_decode_tiles, with their refusals;
-// - tier 2 (tag trees, packet headers over quality layers, SOP and EPH)
-//   in the five progression orders, default and custom precincts;
-// - tier 1 (the MQ decoder and the three coding passes of code-block
-//   style 0) with OpenJPEG's half-step reconstruction;
+// - tier 2 (tag trees, packet headers over quality layers, SOP and EPH,
+//   headers gathered from PPM or PPT markers) in the five progression
+//   orders and their POC changes, default and custom precincts;
+// - tier 1 (the MQ decoder, the raw decoder of the bypass mode and the
+//   three coding passes under every code-block style: BYPASS, RESET,
+//   TERMALL, VSC, PTERM, SEGSYM) with OpenJPEG's half-step reconstruction
+//   and its max-shift ROI scaling;
 // - dequantisation (none, scalar derived, scalar expounded), the inverse
 //   5/3 in integers and the inverse 9/7 in float with OpenJPEG's constants
 //   and order of operations, RCT and ICT, and the DC level shift with
 //   lrintf and the clamp.
 //
-// What part 1 leaves out raises naming JPEG 2000 (kJpeg2000): code-block
-// styles other than 0, POC, PPM/PPT, RGN, sub-sampled components, HTJ2K
-// (a CAP marker), the pclr/cmap boxes, a cdef other than the identity, and
-// a colr other than sRGB or gray.
+// What the port leaves out raises naming JPEG 2000 (kJpeg2000): sub-sampled
+// components, HTJ2K (a CAP marker, HT code-blocks), the pclr/cmap boxes, a
+// cdef other than the identity, and a colr other than sRGB or gray.
 
 #include <algorithm>
 #include <cmath>
@@ -36,7 +38,7 @@ namespace tsrio {
 namespace {
 
 struct Fail {};         // OpenJPEG fails: the reader gives None / raises
-struct Unsupported {};  // a feature part 1 leaves out (kJpeg2000)
+struct Unsupported {};  // a feature the port leaves out (kJpeg2000)
 
 [[noreturn]] void fail() { throw Fail{}; }
 [[noreturn]] void unsupported() { throw Unsupported{}; }
@@ -95,7 +97,7 @@ struct Jp2Info {
   int cdef = 0;  // the channels a cdef box defines (0: none)
 };
 
-// opj_jp2_read_header_procedure with the handlers of the boxes part 1
+// opj_jp2_read_header_procedure with the handlers of the boxes the port
 // reads (jP, ftyp, jp2h: ihdr, colr, bpcc, cdef; pclr and cmap are left
 // out): up to the jp2c box (`after` false), or over the boxes that follow
 // the codestream (opj_jp2_end_decompress, `after` true).
@@ -252,15 +254,50 @@ struct StepSize {
 
 struct Tccp {  // one component's coding parameters
   int csty = 0, numres = 0, cblkw = 0, cblkh = 0, cblksty = 0, qmfbid = 0;
-  int qntsty = 0, numgbits = 0;
+  int qntsty = 0, numgbits = 0, roishift = 0;
   int prcw[33] = {}, prch[33] = {};
   StepSize steps[kMaxBands];
 };
 
+// The code-block styles (SPcod's fourth byte, J2K_CCP_CBLKSTY_*)
+enum : int { kLazy = 1, kReset = 2, kTermAll = 4, kVsc = 8, kPterm = 16,
+             kSegSym = 32, kHt = 64, kHtMixed = 128 };
+
+// One progression order change (opj_poc_t as opj_j2k_read_poc fills it):
+// packets of layers [0, layno1), resolutions [resno0, resno1), components
+// [compno0, compno1) in order prg.
+struct Poc {
+  int resno0 = 0, compno0 = 0, layno1 = 0, resno1 = 0, compno1 = 0, prg = 0;
+};
+
+// Packet headers gathered from PPM or PPT markers: the markers by their Z
+// index while the header is read (an empty slot: no marker), then the
+// headers merged, read from `pos` on.
+struct HeaderStore {
+  std::vector<std::vector<uint8_t>> markers;
+  std::vector<char> present;
+  std::vector<uint8_t> data;
+  size_t pos = 0;
+  void add(const uint8_t* p, uint32_t size) {
+    const uint8_t z = p[0];
+    if (present.size() <= z) {
+      present.resize(z + 1u, 0);
+      markers.resize(z + 1u);
+    }
+    if (present[z]) fail();  // "Zppm %u already read" / "Zppt %u already read"
+    present[z] = 1;
+    markers[z].assign(p + 1, p + size);
+  }
+};
+
 struct Tcp {  // one tile's coding parameters and data
-  int csty = 0, prg = 0, numlayers = 0, mct = 0;
+  int csty = 0, prg = 0, numlayers = 0, mct = 0;  // prg -1: unknown
   bool cod = false;
   std::vector<Tccp> tccps;
+  bool poc = false;
+  std::vector<Poc> pocs;
+  bool ppt = false;
+  HeaderStore ppt_store;
   int current_part = -1, nb_parts = 0;
   bool has_data = false;
   std::vector<uint8_t> data;
@@ -276,6 +313,11 @@ struct Codestream {
   std::vector<CompInfo> comps;
   Tcp def;  // the main header's
   std::vector<Tcp> tcps;
+  // each component's resno_decoded: the highest resolution of a packet
+  // read so far, over every tile
+  std::vector<int> resno_decoded;
+  bool ppm = false;
+  HeaderStore ppm_store;
 };
 
 // j2k's decoder states
@@ -319,7 +361,7 @@ void read_siz(Codestream& cs, const uint8_t* p, uint32_t size,
                  y0 = be32(p + 14), tdx = be32(p + 18), tdy = be32(p + 22),
                  tx0 = be32(p + 26), ty0 = be32(p + 30), csiz = be16(p + 34);
   if (csiz != nb_comp || csiz == 0 || csiz > 16384) fail();
-  // part 1 reads 1-4 components; more is left to later parts
+  // the port reads 1-4 components
   if (x0 >= x1 || y0 >= y1) fail();
   // "Error with SIZ marker: IHDR w h vs. SIZ w h"
   if (jp2.w > 0 && jp2.h > 0 && (jp2.w != x1 - x0 || jp2.h != y1 - y0)) fail();
@@ -356,6 +398,7 @@ void read_siz(Codestream& cs, const uint8_t* p, uint32_t size,
   cs.tw = static_cast<int>(tw);
   cs.th = static_cast<int>(th);
   cs.def.tccps.assign(csiz, Tccp{});
+  cs.resno_decoded.assign(csiz, 0);
 }
 
 // opj_j2k_read_SPCod_SPCoc: reads into `t`, returns the bytes read.
@@ -367,7 +410,7 @@ uint32_t read_spcod(Tccp& t, int csty, const uint8_t* p, uint32_t size) {
   t.cblkh = p[2] + 2;
   if (t.cblkw > 10 || t.cblkh > 10 || t.cblkw + t.cblkh > 12) fail();
   t.cblksty = p[3];
-  if (t.cblksty & 0x80) fail();  // mixed HT code-blocks
+  if (t.cblksty & kHtMixed) fail();  // "Unsupported Mixed HT code-block style"
   t.qmfbid = p[4];
   if (t.qmfbid > 1) fail();
   uint32_t used = 5;
@@ -384,7 +427,7 @@ uint32_t read_spcod(Tccp& t, int csty, const uint8_t* p, uint32_t size) {
   } else {
     for (int i = 0; i < t.numres; i++) t.prcw[i] = t.prch[i] = 15;
   }
-  if (t.cblksty != 0) unsupported();
+  if (t.cblksty & kHt) unsupported();  // HT code-blocks (HTJ2K)
   return used;
 }
 
@@ -439,8 +482,8 @@ void read_cod(Tcp& tcp, const uint8_t* p, uint32_t size) {
   if (size < 5) fail();
   const int csty = p[0];
   if (csty & ~7) fail();  // "Unknown Scod value in COD marker"
-  const int prg = p[1];
-  if (prg > 4) fail();
+  int prg = p[1];
+  if (prg > 4) prg = -1;  // "Unknown progression order": fails at decode
   const int layers = static_cast<int>(be16(p + 2));
   if (layers < 1) fail();
   const int mct = p[4];
@@ -497,10 +540,97 @@ void read_qcc(const Codestream& cs, Tcp& tcp, const uint8_t* p, uint32_t size) {
   if (read_sqcd(tcp.tccps[c], p, size) != size) fail();
 }
 
+// opj_j2k_read_poc: entries appended to those `tcp` holds (a tile's own
+// follow those it took from the main header), LYEpoc clamped to the layers
+// known when the marker is read and CEpoc to the components.
+void read_poc(const Codestream& cs, Tcp& tcp, const uint8_t* p, uint32_t size) {
+  const uint32_t nc = static_cast<uint32_t>(cs.comps.size());
+  const uint32_t room = nc <= 256 ? 1 : 2, chunk = 5 + 2 * room;
+  const uint32_t nb = size / chunk;
+  if (nb == 0 || size % chunk != 0) fail();  // "Error reading POC marker"
+  const size_t old = tcp.poc ? tcp.pocs.size() : 0;
+  if (old + nb >= 32) fail();  // "Too many POCs"
+  tcp.poc = true;
+  tcp.pocs.resize(old);
+  auto rd = [&](uint32_t k) {
+    uint32_t v = 0;
+    for (uint32_t i = 0; i < k; i++) v = v << 8 | *p++;
+    return v;
+  };
+  for (uint32_t i = 0; i < nb; i++) {
+    Poc e;
+    e.resno0 = static_cast<int>(rd(1));
+    e.compno0 = static_cast<int>(rd(room));
+    e.layno1 = static_cast<int>(std::min<uint32_t>(rd(2), static_cast<uint32_t>(tcp.numlayers)));
+    e.resno1 = static_cast<int>(rd(1));
+    e.compno1 = static_cast<int>(std::min(rd(room), nc));
+    e.prg = static_cast<int>(rd(1));
+    tcp.pocs.push_back(e);
+  }
+}
+
+// opj_j2k_read_rgn: Srgn is not checked; SPrgn is the component's shift.
+void read_rgn(const Codestream& cs, Tcp& tcp, const uint8_t* p, uint32_t size) {
+  const bool two = cs.comps.size() > 256;
+  if (size != (two ? 4u : 3u)) fail();  // "Error reading RGN marker"
+  const uint32_t c = two ? be16(p) : p[0];
+  if (c >= cs.comps.size()) fail();  // "bad component number in RGN"
+  tcp.tccps[c].roishift = p[two ? 3 : 2];
+}
+
+// opj_j2k_merge_ppm: the Nppm-counted runs of every PPM marker in Zppm
+// order (absent indices skipped) joined into one store, the counts dropped;
+// a run may continue into the next marker.
+void merge_ppm(HeaderStore& st) {
+  uint64_t remaining = 0;
+  std::vector<uint8_t>& out = st.data;
+  for (size_t z = 0; z < st.markers.size(); z++) {
+    if (!st.present[z]) continue;
+    const std::vector<uint8_t>& m = st.markers[z];
+    size_t at = static_cast<size_t>(std::min<uint64_t>(remaining, m.size()));
+    out.insert(out.end(), m.begin(), m.begin() + static_cast<std::ptrdiff_t>(at));
+    remaining -= at;
+    while (at < m.size()) {
+      if (m.size() - at < 4) fail();  // "Not enough bytes to read Nppm"
+      const uint32_t nppm = be32(m.data() + at);
+      at += 4;
+      if (out.size() + uint64_t{nppm} + remaining > 0xffffffffu) fail();  // "Too large value for Nppm"
+      const size_t k = static_cast<size_t>(std::min<uint64_t>(nppm, m.size() - at));
+      out.insert(out.end(), m.begin() + static_cast<std::ptrdiff_t>(at),
+                 m.begin() + static_cast<std::ptrdiff_t>(at + k));
+      at += k;
+      remaining = nppm - k;
+    }
+  }
+  if (remaining != 0) fail();  // "Corrupted PPM markers"
+  if (out.empty()) fail();  // opj_malloc(0) gives NULL: "Not enough memory"
+  st.markers.clear();
+}
+
+// opj_j2k_merge_ppt: the tile's PPT markers in Zppt order joined.
+void merge_ppt(HeaderStore& st) {
+  for (size_t z = 0; z < st.markers.size(); z++)
+    if (st.present[z]) st.data.insert(st.data.end(), st.markers[z].begin(), st.markers[z].end());
+  st.markers.clear();
+}
+
 // A marker segment's handler, main header or tile-part header (`tcp`).
 void read_segment(Codestream& cs, Tcp& tcp, uint32_t m, const uint8_t* p,
                   uint32_t size) {
   switch (m) {
+    case kPOC: read_poc(cs, tcp, p, size); break;
+    case kRGN: read_rgn(cs, tcp, p, size); break;
+    case kPPM:
+      if (size < 2) fail();  // "Error reading PPM marker"
+      cs.ppm = true;
+      cs.ppm_store.add(p, size);
+      break;
+    case kPPT:
+      if (size < 2) fail();  // "Error reading PPT marker"
+      if (cs.ppm) fail();  // "packet header have been previously found in the main header"
+      tcp.ppt = true;
+      tcp.ppt_store.add(p, size);
+      break;
     case kCOD: read_cod(tcp, p, size); break;
     case kCOC: read_coc(cs, tcp, p, size); break;
     case kQCD: read_qcd(tcp, p, size); break;
@@ -531,7 +661,7 @@ void read_segment(Codestream& cs, Tcp& tcp, uint32_t m, const uint8_t* p,
         if (open) fail();
       }
       break;
-    default:  // POC, PPM, PPT, RGN, CAP, CBD, CPF, MCT, MCC, MCO
+    default:  // CAP, CBD, CPF, MCT, MCC, MCO
       unsupported();
   }
 }
@@ -589,6 +719,7 @@ void read_main_header(Stream& s, Codestream& cs, int& state,
     if (!s.read16(m)) fail();
   }
   if (!has_siz || !has_cod || !has_qcd) fail();
+  if (cs.ppm) merge_ppm(cs.ppm_store);  // "Failed to merge PPM data"
   Tcp tile = cs.def;
   tile.cod = false;
   cs.tcps.assign(static_cast<size_t>(cs.tw) * cs.th, tile);
@@ -696,6 +827,23 @@ struct Cblk {
   std::vector<Seg> segs;
 };
 
+// opj_t2_init_seg: a new segment's pass count by the code-block style: one
+// pass under TERMALL; under BYPASS 10 first, then 2 and 1 in turn; else
+// 109.
+void init_seg(Cblk& cb, size_t index, int cblksty, bool first) {
+  if (cb.segs.size() <= index) cb.segs.resize(index + 1);
+  Seg& sg = cb.segs[index];
+  sg = Seg{};
+  if (cblksty & kTermAll) {
+    sg.maxpasses = 1;
+  } else if (cblksty & kLazy) {
+    const int prev = first ? 0 : cb.segs[index - 1].maxpasses;
+    sg.maxpasses = first ? 10 : (prev == 1 || prev == 10) ? 2 : 1;
+  } else {
+    sg.maxpasses = 109;
+  }
+}
+
 struct Prc {
   int x0, y0, x1, y1, cw = 0, ch = 0;
   std::vector<Cblk> cblks;
@@ -716,11 +864,15 @@ struct Res {
 
 struct TileComp {
   int x0, y0, x1, y1, numres = 0;
+  int rd = 0;  // the resolution decoded: its samples at the top left
   std::vector<Res> res;
   std::vector<int32_t> idata;  // the 5/3's coefficients, then the samples
   std::vector<float> fdata;    // the 9/7's coefficients
   int w() const { return x1 - x0; }
   int h() const { return y1 - y0; }
+  const Res& out() const { return res[rd]; }
+  int out_w() const { return out().x1 - out().x0; }
+  int out_h() const { return out().y1 - out().y0; }
 };
 
 // opj_tcd_init_tile for a decode: resolutions, bands, precincts and
@@ -840,34 +992,40 @@ void init_tile(const Codestream& cs, const Tcp& tcp, int tx0, int ty0,
 }
 
 // opj_t2_decode_packet: one packet's header then its data, from `d` with
-// `n` bytes left in the tile; returns the bytes it took.
+// `n` bytes left in the tile; returns the bytes it took. The header comes
+// from `store` (PPM or PPT) where there is one, the SOP marker and the
+// data from `d`.
 size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
                    int resno, int precno, int layno, const uint8_t* d,
-                   size_t n) {
+                   size_t n, HeaderStore* store) {
   Res& res = tile[compno].res[resno];
+  const int cblksty = tcp.tccps[compno].cblksty;
   const uint8_t* cur = d;
   // SOP
   if (tcp.csty & 2) {
     if (n >= 6 && cur[0] == 0xff && cur[1] == 0x91) cur += 6;
   }
-  size_t remaining = n - static_cast<size_t>(cur - d);
-  Bio bio(cur, remaining);
+  const uint8_t* hstart = store ? store->data.data() + store->pos : cur;
+  const size_t remaining = store ? store->data.size() - store->pos
+                                 : n - static_cast<size_t>(cur - d);
+  Bio bio(hstart, remaining);
   const bool present = bio.bit();
-  // EPH: required after every packet header, an empty packet's too
-  auto eph = [&](const uint8_t*& h) {
+  // the header's end: its EPH, required after every packet header, an
+  // empty packet's too; the store moves past it, or the data begins there
+  auto header_end = [&]() {
+    bio.inalign();
+    const uint8_t* h = hstart + bio.numbytes();
     if (tcp.csty & 4) {
-      const size_t used = static_cast<size_t>(h - cur);
+      const size_t used = static_cast<size_t>(h - hstart);
       if (remaining - used < 2) fail();  // "Not enough space for required EPH"
       if (h[0] != 0xff || h[1] != 0x92) fail();  // "Expected EPH marker"
       h += 2;
     }
+    if (!store) return h;
+    store->pos += static_cast<size_t>(h - hstart);
+    return cur;
   };
-  if (!present) {
-    bio.inalign();
-    const uint8_t* h = cur + bio.numbytes();
-    eph(h);
-    return static_cast<size_t>(h - d);
-  }
+  if (!present) return static_cast<size_t>(header_end() - d);
   for (int b = 0; b < res.numbands; b++) {
     Band& band = res.bands[b];
     if (band.empty()) continue;
@@ -915,14 +1073,11 @@ size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
       size_t segno;
       if (cb.numsegs == 0) {
         segno = 0;
-        cb.segs.assign(1, Seg{});
+        init_seg(cb, 0, cblksty, true);
       } else {
         segno = cb.numsegs - 1;
-        if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses) {
-          ++segno;
-          if (cb.segs.size() <= segno) cb.segs.resize(segno + 1);
-          cb.segs[segno] = Seg{};
-        }
+        if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses)
+          init_seg(cb, ++segno, cblksty, false);
       }
       int left = np;
       do {
@@ -932,17 +1087,11 @@ size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
         if (bits > 32) fail();
         sg.newlen = bio.read(bits);
         left -= sg.numnewpasses;
-        if (left > 0) {
-          ++segno;
-          if (cb.segs.size() <= segno) cb.segs.resize(segno + 1);
-          cb.segs[segno] = Seg{};
-        }
+        if (left > 0) init_seg(cb, ++segno, cblksty, false);
       } while (left > 0);
     }
   }
-  bio.inalign();
-  const uint8_t* h = cur + bio.numbytes();
-  eph(h);
+  const uint8_t* h = header_end();
   // opj_t2_read_packet_data
   const uint8_t* end = d + n;
   for (int b = 0; b < res.numbands; b++) {
@@ -979,10 +1128,17 @@ size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
   return static_cast<size_t>(h - d);
 }
 
-// opj_pi_next_*: the packets of a tile in its progression order, each once.
+// opj_pi_create_decode / opj_pi_next_*: the packets of a tile, each once
+// (one include table across the entries): the COD's progression over every
+// packet, or each POC entry's in turn (opj_pi_update_decode_poc: layers from
+// 0, no bound on REpoc; CEpoc was clamped to the components, so an entry
+// whose CSpoc lies past them reaches none). An entry whose order is not one
+// of the five brings no packet; a COD order that is not one of them fails
+// the tile.
 void decode_packets(const Tcp& tcp, int tx0, int ty0, int tx1, int ty1,
                     std::vector<TileComp>& tile,
-                    const std::vector<uint8_t>& data) {
+                    const std::vector<uint8_t>& data, HeaderStore* store,
+                    std::vector<int>& resno_decoded) {
   const int nc = static_cast<int>(tile.size());
   const int layers = tcp.numlayers;
   int maxres = 0, maxprec = 0;
@@ -999,9 +1155,10 @@ void decode_packets(const Tcp& tcp, int tx0, int ty0, int tx1, int ty1,
     if (include[idx]) return;
     include[idx] = 1;
     pos += read_packet(tcp, tile, c, r, p, l, data.data() + pos,
-                       data.size() - pos);
+                       data.size() - pos, store);
+    resno_decoded[c] = std::max(resno_decoded[c], r);
   };
-  // a position progression's step and its precinct at (x, y)
+  // a position progression's step over components [c0, c1)
   auto step = [&](int c0, int c1, uint32_t& dx, uint32_t& dy) {
     dx = dy = 0;
     for (int c = c0; c < c1; c++) {
@@ -1013,9 +1170,10 @@ void decode_packets(const Tcp& tcp, int tx0, int ty0, int tx1, int ty1,
         if (ey < 32) dy = dy ? std::min(dy, 1u << ey) : 1u << ey;
       }
     }
-    if (dx == 0 || dy == 0) fail();
+    return dx != 0 && dy != 0;
   };
-  auto at = [&](int c, int r, uint32_t x, uint32_t y) {
+  // the packets of layers [0, layno1) of the precinct at (x, y)
+  auto at = [&](int c, int r, uint32_t x, uint32_t y, int layno1) {
     const TileComp& tc = tile[c];
     if (r >= tc.numres) return;
     const Res& res = tc.res[r];
@@ -1039,51 +1197,66 @@ void decode_packets(const Tcp& tcp, int tx0, int ty0, int tx1, int ty1,
     const uint32_t prcj = (cdiv(y, uint64_t{1} << level) >> res.pdy) - (try0 >> res.pdy);
     const uint32_t p = prci + prcj * static_cast<uint32_t>(res.pw);
     if (p >= static_cast<uint32_t>(std::max(maxprec, 1))) fail();
-    for (int l = 0; l < layers; l++) packet(c, r, static_cast<int>(p), l);
+    for (int l = 0; l < layno1; l++) packet(c, r, static_cast<int>(p), l);
   };
   const uint32_t ux0 = static_cast<uint32_t>(tx0), uy0 = static_cast<uint32_t>(ty0);
   const uint32_t ux1 = static_cast<uint32_t>(tx1), uy1 = static_cast<uint32_t>(ty1);
-  uint32_t dx, dy;
-  switch (tcp.prg) {
-    case 0:  // LRCP
-      for (int l = 0; l < layers; l++)
-        for (int r = 0; r < maxres; r++)
-          for (int c = 0; c < nc; c++) {
-            if (r >= tile[c].numres) continue;
-            const Res& res = tile[c].res[r];
-            for (int p = 0; p < res.pw * res.ph; p++) packet(c, r, p, l);
-          }
-      break;
-    case 1:  // RLCP
-      for (int r = 0; r < maxres; r++)
-        for (int l = 0; l < layers; l++)
-          for (int c = 0; c < nc; c++) {
-            if (r >= tile[c].numres) continue;
-            const Res& res = tile[c].res[r];
-            for (int p = 0; p < res.pw * res.ph; p++) packet(c, r, p, l);
-          }
-      break;
-    case 2:  // RPCL
-      step(0, nc, dx, dy);
-      for (int r = 0; r < maxres; r++)
+  std::vector<Poc> entries;
+  if (tcp.poc) {
+    entries = tcp.pocs;
+    for (Poc& e : entries) e.layno1 = std::min(e.layno1, layers);
+  } else {
+    entries.push_back(Poc{0, 0, layers, maxres, nc, tcp.prg});
+  }
+  for (const Poc& e : entries) {
+    if (e.prg < 0) fail();  // OPJ_PROG_UNKNOWN
+    uint32_t dx, dy;
+    switch (e.prg) {
+      case 0:  // LRCP
+        for (int l = 0; l < e.layno1; l++)
+          for (int r = e.resno0; r < e.resno1; r++)
+            for (int c = e.compno0; c < e.compno1; c++) {
+              if (r >= tile[c].numres) continue;
+              const Res& res = tile[c].res[r];
+              for (int p = 0; p < res.pw * res.ph; p++) packet(c, r, p, l);
+            }
+        break;
+      case 1:  // RLCP
+        for (int r = e.resno0; r < e.resno1; r++)
+          for (int l = 0; l < e.layno1; l++)
+            for (int c = e.compno0; c < e.compno1; c++) {
+              if (r >= tile[c].numres) continue;
+              const Res& res = tile[c].res[r];
+              for (int p = 0; p < res.pw * res.ph; p++) packet(c, r, p, l);
+            }
+        break;
+      case 2:  // RPCL
+        if (!step(0, nc, dx, dy)) break;
+        for (int r = e.resno0; r < e.resno1; r++)
+          for (uint32_t y = uy0; y < uy1; y += dy - (y % dy))
+            for (uint32_t x = ux0; x < ux1; x += dx - (x % dx))
+              for (int c = e.compno0; c < e.compno1; c++) at(c, r, x, y, e.layno1);
+        break;
+      case 3:  // PCRL
+        if (!step(0, nc, dx, dy)) break;
         for (uint32_t y = uy0; y < uy1; y += dy - (y % dy))
           for (uint32_t x = ux0; x < ux1; x += dx - (x % dx))
-            for (int c = 0; c < nc; c++) at(c, r, x, y);
-      break;
-    case 3:  // PCRL
-      step(0, nc, dx, dy);
-      for (uint32_t y = uy0; y < uy1; y += dy - (y % dy))
-        for (uint32_t x = ux0; x < ux1; x += dx - (x % dx))
-          for (int c = 0; c < nc; c++)
-            for (int r = 0; r < tile[c].numres; r++) at(c, r, x, y);
-      break;
-    default:  // CPRL
-      for (int c = 0; c < nc; c++) {
-        step(c, c + 1, dx, dy);
-        for (uint32_t y = uy0; y < uy1; y += dy - (y % dy))
-          for (uint32_t x = ux0; x < ux1; x += dx - (x % dx))
-            for (int r = 0; r < tile[c].numres; r++) at(c, r, x, y);
-      }
+            for (int c = e.compno0; c < e.compno1; c++)
+              for (int r = e.resno0; r < std::min(e.resno1, tile[c].numres); r++)
+                at(c, r, x, y, e.layno1);
+        break;
+      case 4:  // CPRL
+        for (int c = e.compno0; c < e.compno1; c++) {
+          if (!step(c, c + 1, dx, dy)) break;
+          for (uint32_t y = uy0; y < uy1; y += dy - (y % dy))
+            for (uint32_t x = ux0; x < ux1; x += dx - (x % dx))
+              for (int r = e.resno0; r < std::min(e.resno1, tile[c].numres); r++)
+                at(c, r, x, y, e.layno1);
+        }
+        break;
+      default:  // opj_pi_next: no packet
+        break;
+    }
   }
 }
 
@@ -1153,6 +1326,34 @@ struct Mq {
     c <<= 7;
     ct -= 7;
     a = 0x8000;
+  }
+  // opj_mqc_raw_init_dec / opj_mqc_raw_decode: the bypass mode's raw bits,
+  // 7 of them in a byte that follows 0xFF; a 0xFF followed by a byte above
+  // 0x8F (the artificial marker among them) reads as ones from there on.
+  void raw_init(const uint8_t* d, size_t n) {
+    buf.assign(d, d + n);
+    buf.push_back(0xff);
+    buf.push_back(0xff);
+    bp = buf.data();
+    c = 0;
+    ct = 0;
+  }
+  int raw() {
+    if (ct == 0) {
+      if (c == 0xff) {
+        if (*bp > 0x8f) {
+          ct = 8;
+        } else {
+          c = *bp++;
+          ct = 7;
+        }
+      } else {
+        c = *bp++;
+        ct = 8;
+      }
+    }
+    ct--;
+    return static_cast<int>((c >> ct) & 1);
   }
   void renorm() {
     do {
@@ -1243,29 +1444,39 @@ struct T1Tables {
 // One code-block's coefficients through the three passes (Annex D), in
 // OpenJPEG's doubled scale: a coefficient that becomes significant at
 // bit-plane p holds 3 << p (half a step above its bit), each refinement
-// moves it by half its current step.
+// moves it by half its current step. The code-block style (opj_t1_decode_
+// cblk): under BYPASS a segment that starts with a significance pass at
+// least 4 bit-planes below the block's first is raw; RESET resets the
+// contexts after each MQ pass; VSC hides a stripe's next row from its last;
+// SEGSYM reads 4 uniform symbols after each cleanup pass and ignores them;
+// PTERM changes nothing (OpenJPEG's check of it only warns).
 class T1 {
  public:
-  T1(int w, int h, int orient) : w_(w), h_(h), fw_(w + 2),
-      zc_(tables().zc[orient]),
+  T1(int w, int h, int orient, int cblksty) : w_(w), h_(h), fw_(w + 2),
+      sty_(cblksty), zc_(tables().zc[orient]),
       flags_(static_cast<size_t>(w + 2) * (h + 2), 0),
       data_(static_cast<size_t>(w) * h, 0) {}
 
-  std::vector<int32_t>& decode(const Cblk& cb) {
-    int bpno = cb.numbps;  // bpno_plus_one
-    if (bpno >= 31) fail();
+  std::vector<int32_t>& decode(const Cblk& cb, int roishift) {
+    int bpno = roishift + cb.numbps;  // bpno_plus_one
+    if (bpno >= 31) fail();  // "unsupported bpno_plus_one"
     int passtype = 2;
     mq_.reset_contexts();
     for (int s = 0; s < cb.numsegs; s++) {
       const Seg& sg = cb.segs[s];
-      mq_.init(sg.data.data(), sg.data.size());
+      const bool raw = bpno <= cb.numbps - 4 && passtype < 2 && (sty_ & kLazy);
+      if (raw)
+        mq_.raw_init(sg.data.data(), sg.data.size());
+      else
+        mq_.init(sg.data.data(), sg.data.size());
       for (int p = 0; p < sg.numpasses && bpno >= 1; p++) {
         if (passtype == 0)
-          sigpass(bpno);
+          sigpass(bpno, raw);
         else if (passtype == 1)
-          refpass(bpno);
+          refpass(bpno, raw);
         else
           clnpass(bpno);
+        if ((sty_ & kReset) && !raw) mq_.reset_contexts();
         if (++passtype == 3) {
           passtype = 0;
           bpno--;
@@ -1293,27 +1504,32 @@ class T1 {
     const int s = fw_;
     g[-1] |= static_cast<uint16_t>(kE | (neg ? kENeg : 0));
     g[1] |= static_cast<uint16_t>(kW | (neg ? kWNeg : 0));
-    g[-s] |= static_cast<uint16_t>(kS | (neg ? kSNeg : 0));
+    if (!((sty_ & kVsc) && y % 4 == 0)) {  // the stripe above sees it
+      g[-s] |= static_cast<uint16_t>(kS | (neg ? kSNeg : 0));
+      g[-s - 1] |= kSE;
+      g[-s + 1] |= kSW;
+    }
     g[s] |= static_cast<uint16_t>(kN | (neg ? kNNeg : 0));
-    g[-s - 1] |= kSE;
-    g[-s + 1] |= kSW;
     g[s - 1] |= kNE;
     g[s + 1] |= kNW;
   }
 
-  void sigpass(int bpno) {
+  void sigpass(int bpno, bool raw) {
     const int one = 1 << bpno, oneplushalf = one | (one >> 1);
     for (int k = 0; k < h_; k += 4)
       for (int x = 0; x < w_; x++)
         for (int y = k; y < std::min(k + 4, h_); y++) {
           uint16_t* g = f(x, y);
           if ((*g & kSig) || !(*g & kNeighbours)) continue;
-          if (mq_.decode(zc_[*g & kNeighbours]))
+          if (raw) {
+            if (mq_.raw()) set_significant(x, y, g, mq_.raw(), oneplushalf);
+          } else if (mq_.decode(zc_[*g & kNeighbours])) {
             set_significant(x, y, g, sign(*g), oneplushalf);
+          }
           *g |= kVisit;
         }
   }
-  void refpass(int bpno) {
+  void refpass(int bpno, bool raw) {
     const int poshalf = (1 << bpno) >> 1;
     for (int k = 0; k < h_; k += 4)
       for (int x = 0; x < w_; x++)
@@ -1321,7 +1537,7 @@ class T1 {
           uint16_t* g = f(x, y);
           if ((*g & (kSig | kVisit)) != kSig) continue;
           const int cx = (*g & kRefined) ? 16 : (*g & kNeighbours) ? 15 : 14;
-          const int bit = mq_.decode(cx);
+          const int bit = raw ? mq_.raw() : mq_.decode(cx);
           int32_t& c = v(x, y);
           c += (bit ^ (c < 0)) ? poshalf : -poshalf;
           *g |= kRefined;
@@ -1351,9 +1567,11 @@ class T1 {
         }
       }
     for (uint16_t& g : flags_) g &= static_cast<uint16_t>(~kVisit);
+    if (sty_ & kSegSym)
+      for (int i = 0; i < 4; i++) mq_.decode(18);
   }
 
-  int w_, h_, fw_;
+  int w_, h_, fw_, sty_;
   const uint8_t* zc_;
   std::vector<uint16_t> flags_;
   std::vector<int32_t> data_;
@@ -1401,11 +1619,13 @@ void idwt97(float* x, int n, int cas) {
   lift(1 - cas, -kAlpha);
 }
 
+// The inverse transform up to resolution tc.rd (opj_dwt_decode with
+// resno_decoded + 1 resolutions).
 template <typename T, typename F>
 void idwt2d(TileComp& tc, T* buf, F line) {
   const int stride = tc.w();
   std::vector<T> tmp;
-  for (int r = 1; r < tc.numres; r++) {
+  for (int r = 1; r <= tc.rd; r++) {
     const Res& lo = tc.res[r - 1];
     const Res& res = tc.res[r];
     const int rw = res.x1 - res.x0, rh = res.y1 - res.y0;
@@ -1433,9 +1653,11 @@ void idwt2d(TileComp& tc, T* buf, F line) {
 }
 
 // opj_tcd_decode_tile: tier 2, tier 1, the inverse transforms, the MCT and
-// the DC level shift; the samples land in each component's idata.
-void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno,
-                 std::vector<TileComp>& tile) {
+// the DC level shift; the samples land in each component's idata, those of
+// resolution rd (every resolution where every packet was read) at its top
+// left, zeros around them.
+void decode_tile(Codestream& cs, const Tcp& tcp, int tileno,
+                 std::vector<TileComp>& tile, HeaderStore* store) {
   const int p = tileno % cs.tw, q = tileno / cs.tw;
   const int tx0 = static_cast<int>(std::max<int64_t>(cs.tx0 + int64_t{p} * cs.tdx, cs.x0));
   const int ty0 = static_cast<int>(std::max<int64_t>(cs.ty0 + int64_t{q} * cs.tdy, cs.y0));
@@ -1446,10 +1668,13 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno,
       (int64_t{1} << 31))
     fail();
   init_tile(cs, tcp, tx0, ty0, tx1, ty1, tile);
-  decode_packets(tcp, tx0, ty0, tx1, ty1, tile, tcp.data);
+  decode_packets(tcp, tx0, ty0, tx1, ty1, tile, tcp.data, store,
+                 cs.resno_decoded);
   for (size_t c = 0; c < tile.size(); c++) {
     TileComp& tc = tile[c];
     const Tccp& tccp = tcp.tccps[c];
+    tc.rd = cs.resno_decoded[c];
+    if (tc.rd >= tc.numres) fail();  // past this tile's resolutions
     const int stride = tc.w();
     for (int r = 0; r < tc.numres; r++) {
       Res& res = tc.res[r];
@@ -1460,8 +1685,19 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno,
           for (Cblk& cb : prc.cblks) {
             const int w = cb.x1 - cb.x0, h = cb.y1 - cb.y0;
             if (w <= 0 || h <= 0) continue;
-            T1 t1(w, h, band.bandno);
-            const std::vector<int32_t>& d = t1.decode(cb);
+            T1 t1(w, h, band.bandno, tccp.cblksty);
+            std::vector<int32_t>& d = t1.decode(cb, tccp.roishift);
+            // opj_t1_clbl_decode_processor's ROI: magnitudes at or above
+            // 1 << roishift scaled down by it (every one zeroed past 30)
+            if (tccp.roishift >= 31) {
+              std::fill(d.begin(), d.end(), 0);
+            } else if (tccp.roishift) {
+              const int32_t thresh = int32_t{1} << tccp.roishift;
+              for (int32_t& q : d) {
+                const int32_t mag = q < 0 ? -q : q;
+                if (mag >= thresh) q = q < 0 ? -(mag >> tccp.roishift) : mag >> tccp.roishift;
+              }
+            }
             int x = cb.x0 - band.x0, y = cb.y0 - band.y0;
             if (band.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
             if (band.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
@@ -1521,24 +1757,30 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno,
     const int32_t hi = ci.sgnd ? (1 << (ci.prec - 1)) - 1
                                : static_cast<int32_t>((int64_t{1} << ci.prec) - 1);
     const int32_t shift = ci.sgnd ? 0 : 1 << (ci.prec - 1);
+    const int ow = tc.out_w(), oh = tc.out_h(), stride = tc.w();
     if (tcp.tccps[c].qmfbid == 1) {
-      for (int32_t& v : tc.idata)
-        v = static_cast<int32_t>(std::clamp<int64_t>(int64_t{v} + shift, lo, hi));
-    } else {
-      tc.idata.resize(area);
-      for (size_t i = 0; i < area; i++) {
-        const float v = tc.fdata[i];
-        int32_t out;
-        if (v > static_cast<float>(INT32_MAX)) {
-          out = hi;
-        } else if (v < static_cast<float>(INT32_MIN)) {
-          out = lo;
-        } else {
-          out = static_cast<int32_t>(std::clamp<int64_t>(
-              static_cast<int64_t>(std::lrintf(v)) + shift, lo, hi));
+      for (int y = 0; y < oh; y++)
+        for (int x = 0; x < ow; x++) {
+          int32_t& v = tc.idata[static_cast<size_t>(y) * stride + x];
+          v = static_cast<int32_t>(std::clamp<int64_t>(int64_t{v} + shift, lo, hi));
         }
-        tc.idata[i] = out;
-      }
+    } else {
+      tc.idata.assign(area, 0);
+      for (int y = 0; y < oh; y++)
+        for (int x = 0; x < ow; x++) {
+          const size_t i = static_cast<size_t>(y) * stride + x;
+          const float v = tc.fdata[i];
+          int32_t out;
+          if (v > static_cast<float>(INT32_MAX)) {
+            out = hi;
+          } else if (v < static_cast<float>(INT32_MIN)) {
+            out = lo;
+          } else {
+            out = static_cast<int32_t>(std::clamp<int64_t>(
+                static_cast<int64_t>(std::lrintf(v)) + shift, lo, hi));
+          }
+          tc.idata[i] = out;
+        }
       std::vector<float>().swap(tc.fdata);
     }
   }
@@ -1587,7 +1829,9 @@ class J2k {
       if (!read_tile_header(tileno)) break;
       Tcp& tcp = cs.tcps[tileno];
       if (!tcp.has_data) fail();
-      decode_tile(cs, tcp, tileno, tile);
+      if (tcp.ppt) merge_ppt(tcp.ppt_store);
+      decode_tile(cs, tcp, tileno, tile,
+                  cs.ppm ? &cs.ppm_store : tcp.ppt ? &tcp.ppt_store : nullptr);
       put(tile);
       std::vector<uint8_t>().swap(tcp.data);
       tcp.has_data = false;
@@ -1797,12 +2041,20 @@ void decode_planes(J2k& j, Planes& out) {
     for (size_t c = 0; c < tile.size(); c++) {
       std::vector<int32_t>& dst = out.comps[c];
       if (dst.empty()) dst.assign(static_cast<size_t>(out.w) * out.h, 0);
+      // opj_j2k_update_image_data: the decoded resolution's samples at its
+      // own coordinates on the grid, cut to the image
       const TileComp& tc = tile[c];
-      for (int y = 0; y < tc.h(); y++)
-        std::copy(tc.idata.begin() + static_cast<size_t>(y) * tc.w(),
-                  tc.idata.begin() + static_cast<size_t>(y + 1) * tc.w(),
-                  dst.begin() + static_cast<size_t>(tc.y0 - out.y0 + y) * out.w +
-                      (tc.x0 - out.x0));
+      const Res& r = tc.out();
+      for (int y = 0; y < tc.out_h(); y++) {
+        const int64_t dy = int64_t{r.y0} + y - out.y0;
+        if (dy < 0 || dy >= out.h) continue;
+        for (int x = 0; x < tc.out_w(); x++) {
+          const int64_t dx = int64_t{r.x0} + x - out.x0;
+          if (dx < 0 || dx >= out.w) continue;
+          dst[static_cast<size_t>(dy) * out.w + static_cast<size_t>(dx)] =
+              tc.idata[static_cast<size_t>(y) * tc.w() + x];
+        }
+      }
     }
   });
   for (auto& c : out.comps)
@@ -2075,26 +2327,47 @@ int read_pil_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   if (ph.mode == M::kRGBA && cs == kCsSrgb && (nc == 3 || nc == 4)) u = kSrgbRGB;
   if (u == kNoUnpack) return kUnreadable;
   std::vector<uint8_t> rgb(static_cast<size_t>(ph.w) * ph.h * 3, 0);
+  // Jpeg2KDecode.c's tile buffer, zeros for each tile:
+  // opj_tcd_update_tile_data packs each component's decoded samples into
+  // it, the unpacker reads it as whole-tile planes
+  std::vector<uint8_t> tbuf;
   try {
     j.decode(true, [&](const std::vector<TileComp>& tile) {
       const TileComp& t0 = tile[0];
       if (t0.x0 < j.cs.x0 || t0.y0 < j.cs.y0 ||
           int64_t{t0.x1} - j.cs.x0 > ph.w || int64_t{t0.y1} - j.cs.y0 > ph.h)
         fail();  // the tile lies outside the image
+      const size_t tw = static_cast<size_t>(t0.w()), th = static_cast<size_t>(t0.h());
+      std::vector<size_t> csiz(tile.size()), plane(tile.size());
+      size_t need = 0;
+      for (size_t c = 0; c < tile.size(); c++) {
+        csiz[c] = static_cast<size_t>((j.cs.comps[c].prec + 7) >> 3);
+        if (csiz[c] == 3) csiz[c] = 4;
+        plane[c] = need;
+        need += csiz[c] * tw * th;
+      }
+      tbuf.assign(need, 0);
+      size_t at = 0;
+      for (size_t c = 0; c < tile.size(); c++) {
+        const TileComp& tc = tile[c];
+        for (int y = 0; y < tc.out_h(); y++)
+          for (int x = 0; x < tc.out_w(); x++) {
+            const uint32_t v = static_cast<uint32_t>(tc.idata[static_cast<size_t>(y) * tc.w() + x]);
+            for (size_t k = 0; k < csiz[c]; k++) tbuf[at++] = static_cast<uint8_t>(v >> (8 * k));
+          }
+      }
       const int ncomp = u == kSrgbRGB ? 3 : 1;
       for (int c = 0; c < ncomp; c++) {
         const CompInfo& ci = j.cs.comps[c];
         int shift = (u == kGrayI ? 16 : 8) - ci.prec;
         uint32_t offset = ci.sgnd ? 1u << (ci.prec - 1) : 0;
-        int csiz = (ci.prec + 7) >> 3;
-        if (csiz == 3) csiz = 4;
         if (shift < 0) offset += 1u << (-shift - 1);
-        const uint32_t mask = csiz == 1 ? 0xffu : csiz == 2 ? 0xffffu : 0xffffffffu;
-        const TileComp& tc = tile[c];
-        for (int y = 0; y < tc.h(); y++)
-          for (int x = 0; x < tc.w(); x++) {
-            const uint32_t word =
-                static_cast<uint32_t>(tc.idata[static_cast<size_t>(y) * tc.w() + x]) & mask;
+        const size_t bytes = csiz[c];
+        for (size_t y = 0; y < th; y++)
+          for (size_t x = 0; x < tw; x++) {
+            const uint8_t* q = &tbuf[plane[c] + (y * tw + x) * bytes];
+            uint32_t word = 0;
+            for (size_t k = 0; k < bytes; k++) word |= uint32_t{q[k]} << (8 * k);
             const uint32_t v = pil_shift(offset + word, shift);
             uint8_t b;
             if (u == kGrayI) {
@@ -2103,8 +2376,8 @@ int read_pil_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
             } else {
               b = static_cast<uint8_t>(v);
             }
-            uint8_t* px = &rgb[(static_cast<size_t>(tc.y0 - j.cs.y0 + y) * ph.w +
-                                (tc.x0 - j.cs.x0 + x)) * 3];
+            uint8_t* px = &rgb[((t0.y0 - j.cs.y0 + y) * static_cast<size_t>(ph.w) +
+                                (t0.x0 - j.cs.x0 + x)) * 3];
             if (ncomp == 1)
               px[0] = px[1] = px[2] = b;
             else
