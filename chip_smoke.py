@@ -185,19 +185,24 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    and ``evaluate_directory`` over the readable files with phase 3's
    models. A ``jpeg_features:`` JSON line.
 13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR, TIFF,
-   WebP (lossless and lossy) and JPEG 2000 (parts 1 and 2) files cv2 reads and
+   WebP (lossless and lossy) and JPEG 2000 (parts 1 to 3: the colour
+   boxes among them) files cv2 reads and
    the port once refused, and the damaged ones cv2 gives None for
    (``image_formats_phase``), from the committed fixtures
    (``tests/data/images``, ``tests/data/webp``, ``tests/data/webp_lossy``,
-   ``tests/data/jpeg2000``): each decoded equal to its ``expected.npz``
+   ``tests/data/jpeg2000``, ``tests/data/jpeg2000_colour``): each decoded
+   equal to its ``expected.npz``
    (cv2's pixels, or PIL's for the damaged files, the gray PFM, the
    28-byte WebP, the ALPH damage PIL reads past and the JPEG 2000 files
-   only PIL reads) and probed as cv2 reads it, the rest raising (AVIF,
+   only PIL reads, CMYK and a palette among them) and probed as cv2 reads
+   it, the rest raising (AVIF,
    JPEG 2000 of a feature the port leaves out and TIFF data named); a 640
    x 480 VP8L file built at run time (``webp_built``) decoded equal to its
    source, the committed 640 x 480 lossy WebP and 9/7 JPEG 2000 files and
-   a 640 x 480 9/7 JPEG 2000 file built at run time (``j2k_built``: style
-   63, a POC, PPT) to cv2's digests, with their decode rates; host decode
+   two 640 x 480 9/7 JPEG 2000 files built at run time (``j2k_built``:
+   style 63, a POC, PPT; ``j2k_colour_built``: an sYCC colr box and a
+   cdef that moves channels) to cv2's digests, with their decode rates;
+   host decode
    rates by
    format, GIF, Sun raster, PFM, HDR, lossless and lossy WebP and JPEG
    2000 among them; the whole-file probe of
@@ -365,8 +370,8 @@ C11_DIGESTS = {
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
 # at the top, the files it gives None for (and AVIF data, JPEG 2000 files
-# of features the port leaves out, an sYCC colr box and a CAP marker, and
-# a ZSTD TIFF, which the port does not decode) under skip/
+# of a feature the port leaves out, a CAP marker in a JP2 file and in a raw
+# codestream, and a ZSTD TIFF, which the port does not decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
@@ -396,7 +401,7 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_thunder_sgilog": ("tiff_2c_",),
                 "tiff_modes": ("tiff_modes_",), "webp": ("webp_",),
                 "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",),
-                "jpeg2000_part2": ("j2k2_",)}
+                "jpeg2000_part2": ("j2k2_",), "jpeg2000_colour": ("j2k3_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -520,11 +525,24 @@ JPEG2000_SOURCE_SEED = 25
 JPEG2000_BUILT = "j2k_built_style63_poc_ppt.jpg"
 JPEG2000_BUILT_DIGEST = (
     "f21990e576e86caac1259a9243d17f7583c3421974e2a0e6afb31fd7f423e7f5")
+# phase 13's JPEG 2000 part 3 (the colour boxes): the j2k3_ fixtures of
+# tests/data/jpeg2000_colour (group and slice "jpeg2000_colour"; 3 of its
+# skip/ files PIL reads), and a file built at run time by j2k_colour_built
+# from j2k_source (9/7, an sYCC colr box, a cdef that moves channels), held
+# to JPEG2000_COLOUR_DIGEST (SHA-256 of cv2.imread's RGB, which
+# tests/test_torch_port_jpeg2000_colour.py checks) and decoded
+# WEBP_BUILT_DECODES times a timed pass
+JPEG2000_COLOUR_FIXTURES = Path(__file__).resolve().parent / "tests" / (
+    "data") / "jpeg2000_colour"
+JPEG2000_COLOUR_PIL_READS = 3
+JPEG2000_COLOUR_BUILT = "j2k3_built_sycc_cdef.jpg"
+JPEG2000_COLOUR_DIGEST = (
+    "55aa62e5e57f89b3f127d076b409f93970e646c03055d0ec826dcbc023d3d8a2")
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
                 "tiff": ("tiff",), "webp": ("webp_",),
                 "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",),
-                "jpeg2000_part2": ("j2k2_",)}
+                "jpeg2000_part2": ("j2k2_",), "jpeg2000_colour": ("j2k3_",)}
 # C9 and C10 in phase 13: a PNG past the old 64 Mpx cap, and headers whose
 # size makes cv2.imread raise (built at run time from zlib and struct)
 BIG_PNG_SIDE = 8200
@@ -5593,8 +5611,9 @@ def j2k_poc_order(entries, layers, levels, ncomp):
     return out
 
 
-def j2k_bytes(img, levels=5, style=63, segsym_value=0b1010):
-    """A raw JPEG 2000 codestream of an RGB uint8 image: 9/7 with the ICT,
+def j2k_bytes(img, levels=5, style=63, segsym_value=0b1010, mct=True):
+    """A raw JPEG 2000 codestream of an RGB uint8 image: 9/7 with the ICT
+    (``mct``; without it each channel is coded as it is),
     ``levels`` decompositions, every band quantised with a step of 1, 64 x
     64 code-blocks of ``style`` (TERMALL always: each pass its own
     segment), the passes of each code-block split over three quality
@@ -5610,7 +5629,8 @@ def j2k_bytes(img, levels=5, style=63, segsym_value=0b1010):
     r, g, b_ = x[:, :, 0], x[:, :, 1], x[:, :, 2]
     comps = [0.299 * r + 0.587 * g + 0.114 * b_,
              -0.16875 * r - 0.33126 * g + 0.5 * b_,
-             0.5 * r - 0.41869 * g - 0.08131 * b_]
+             0.5 * r - 0.41869 * g - 0.08131 * b_] if mct else [
+                 x[:, :, c].copy() for c in range(nc)]
     for c in comps:
         j2k_fdwt97(c, levels)
     # the bands of each resolution: (decomposition level, bandno, x0, y0,
@@ -5702,7 +5722,8 @@ def j2k_bytes(img, levels=5, style=63, segsym_value=0b1010):
         return struct.pack(">HH", m, len(body) + 2) + body
     siz = struct.pack(">HIIIIIIIIH", 0, w, h, 0, 0, w, h, 0, 0, nc) + bytes(
         [7, 1, 1] * nc)
-    cod = struct.pack(">BBHBBBBBB", 0, 0, layers, 1, levels, 4, 4, style, 0)
+    cod = struct.pack(">BBHBBBBBB", 0, 0, layers, int(mct), levels, 4, 4,
+                      style, 0)
     main = (b"\xff\x4f" + seg(0xFF51, siz) + seg(0xFF52, cod)
             + seg(0xFF5C, bytes([2 << 5 | 2]) + struct.pack(
                 f">{len(qcd)}H", *qcd))
@@ -5713,6 +5734,39 @@ def j2k_bytes(img, levels=5, style=63, segsym_value=0b1010):
     psot = 12 + len(ppt) + 2 + len(data)
     return (main + struct.pack(">HHHIBB", 0xFF90, 10, 0, psot, 0, 1) + ppt
             + b"\xff\x93" + bytes(data) + b"\xff\xd9")
+
+
+def jp2_file(codestream, h, w, nc, boxes=b"", enumcs=16):
+    """A JP2 file around a raw ``codestream`` of ``nc`` 8-bit components:
+    the signature and ftyp boxes, jp2h (ihdr, a colr box of ``enumcs``,
+    then ``boxes``, whole header boxes), jp2c."""
+    def box(kind, body):
+        return struct.pack(">I4s", 8 + len(body), kind) + body
+    head = (box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, 7, 7, 0, 0))
+            + box(b"colr", struct.pack(">BBBI", 1, 0, 0, enumcs)) + boxes)
+    return (box(b"jP  ", b"\r\n\x87\n") + box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + box(b"jp2h", head) + box(b"jp2c", codestream))
+
+
+def j2k_colour_built():
+    """(the RGB source, the file) of phase 13's built JPEG 2000 colour-box
+    file: j2k_source turned to full-range BT.601 YCbCr (sYCC's own
+    matrix), stored Y, Cr, Cb and coded by j2k_bytes without the ICT, in a
+    JP2 file of an sYCC colr box whose cdef moves channels 1 and 2 back to
+    Y, Cb, Cr."""
+    import numpy as np
+    img = j2k_source()
+    rgb = img.astype(np.float64)
+    r, g, b = rgb[:, :, 0], rgb[:, :, 1], rgb[:, :, 2]
+    ycc = np.stack([0.299 * r + 0.587 * g + 0.114 * b,
+                    0.5 * r - 0.418688 * g - 0.081312 * b + 128,
+                    -0.168736 * r - 0.331264 * g + 0.5 * b + 128], -1)
+    stored = np.clip(np.rint(ycc), 0, 255).astype(np.uint8)
+    h, w, _ = img.shape
+    cdef = struct.pack(">H9H", 3, 0, 0, 1, 1, 0, 3, 2, 0, 2)
+    return img, jp2_file(j2k_bytes(stored, mct=False), h, w, 3,
+                         struct.pack(">I4s", 8 + len(cdef), b"cdef") + cdef,
+                         enumcs=18)
 
 
 def tiff_mode_bytes(kind, h, w, rng, work):
@@ -5821,8 +5875,9 @@ def built_tiff_modes_checks(work):
     return [p for n, p in files.items() if n.startswith("tiff_modes_")], out
 
 
-def webp_fixture_checks(root, n_pil, digests=None):
-    """The WebP fixtures of ``root`` (the card's machine has no cv2 or PIL):
+def webp_fixture_checks(root, n_pil, digests=None, min_cases=40):
+    """The WebP fixtures of ``root`` (the card's machine has no cv2 or PIL;
+    ``min_cases`` of them at least):
     each top-level fixture decoded equal to its expected.npz (those named
     in ``digests`` to the SHA-256 of cv2's pixels given there) and probed
     at that size by both probes; each skip/ file (0, 0) by the cv2 probe,
@@ -5836,7 +5891,7 @@ def webp_fixture_checks(root, n_pil, digests=None):
     want = np.load(root / "expected.npz")
     cases = sorted(p for p in root.iterdir() if p.suffix in IMAGE_SUFFIXES)
     skips = sorted((root / "skip").iterdir())
-    check(len(cases) == int(want["generate_tree_written"]) >= 40,
+    check(len(cases) == int(want["generate_tree_written"]) >= min_cases,
           f"{len(cases)} fixtures in {root.name}")
     for p in cases:
         img = native.decode(str(p))
@@ -6000,6 +6055,39 @@ def jpeg2000_part2_checks(work, cases, skips, pil_read):
               == [list(JPEG2000_BIG_SIZE)], f"built JPEG 2000: probe {reader}")
     out["built"] = decode_rate(path, *JPEG2000_BIG_SIZE)
     return out
+
+
+def jpeg2000_colour_checks(work):
+    """JPEG 2000 part 3 in phase 13: the j2k3_ fixtures of
+    tests/data/jpeg2000_colour (webp_fixture_checks: sYCC, ICC, CIELab, a
+    gray colr on 3 components, cdef boxes that move channels, palettes
+    with and without their cmap, each equal to cv2's pixels; CMYK, a
+    palette and sYCC PIL reads; boxes both refuse), and the file
+    j2k_colour_built makes (in ``work``) held to JPEG2000_COLOUR_DIGEST,
+    probed at its size by both probes, with its decode_rate. Returns (the
+    fixtures cv2 reads, the skip/ files, those PIL reads, the numbers for
+    phase 13's line)."""
+    import hashlib
+    from tsr_tpu_torch import native
+    cases, skips, pil_read = webp_fixture_checks(
+        JPEG2000_COLOUR_FIXTURES, JPEG2000_COLOUR_PIL_READS, min_cases=10)
+    out = {"cv2_reads": len(cases), "skip": len(skips),
+           "skip_pil_reads": len(pil_read)}
+    t0 = time.perf_counter()
+    _, data = j2k_colour_built()
+    out["write_s"] = time.perf_counter() - t0
+    path = work / "built_jpeg2000" / JPEG2000_COLOUR_BUILT
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
+    got = native.decode(str(path))
+    check(hashlib.sha256(got.tobytes()).hexdigest() == JPEG2000_COLOUR_DIGEST,
+          "the built sYCC JPEG 2000 file decodes unlike cv2.imread (its "
+          "digest)")
+    for reader in ("cv2", "port"):
+        check(native.probe([str(path)], reader=reader).tolist()
+              == [list(JPEG2000_BIG_SIZE)], f"built sYCC file: probe {reader}")
+    out["built"] = decode_rate(path, *JPEG2000_BIG_SIZE)
+    return cases, skips, pil_read, out
 
 
 def built_tiff_checks(work):
@@ -6241,9 +6329,22 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           "equal to cv2's digest, its decode rate "
           f"({result['jpeg2000_part2']['built']['megapixels_per_sec']:.2f} "
           f"MP/s) on one host thread beside {result['card']}")
-    cases = cases + webp_cases + lossy_cases + j2k_cases
-    skips = skips + webp_skips + lossy_skips + j2k_skips
-    pil_read += webp_pil + lossy_pil + j2k_pil
+    t0 = time.perf_counter()
+    j2k3_cases, j2k3_skips, j2k3_pil, result["jpeg2000_colour"] = (
+        jpeg2000_colour_checks(work))
+    result["jpeg2000_colour"]["seconds"] = time.perf_counter() - t0
+    print("JPEG 2000 part 3 (the colour boxes: sYCC, ICC, CIELab, CMYK, "
+          "pclr/cmap, cdef): " + json.dumps(result["jpeg2000_colour"])
+          + ": the j2k3_ fixtures equal to their expected.npz, skip/ files "
+          "refused by the cv2 probe, decoded as PIL or failing; the built "
+          f"{JPEG2000_BIG_SIZE[1]} x {JPEG2000_BIG_SIZE[0]} 9/7 file of an "
+          "sYCC colr box and a cdef that moves channels equal to cv2's "
+          "digest, its decode rate "
+          f"({result['jpeg2000_colour']['built']['megapixels_per_sec']:.2f} "
+          f"MP/s) on one host thread beside {result['card']}")
+    cases = cases + webp_cases + lossy_cases + j2k_cases + j2k3_cases
+    skips = skips + webp_skips + lossy_skips + j2k_skips + j2k3_skips
+    pil_read += webp_pil + lossy_pil + j2k_pil + j2k3_pil
     result["fixtures"] = {
         "cv2_reads": len(cases), "skip": len(skips),
         "skip_pil_reads": len(pil_read), "foreign": len(IMAGE_FOREIGN)}
@@ -6327,7 +6428,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_bytes(p.read_bytes())
     written = int(want["generate_tree_written"]) + len(built_2c) + len(
-        webp_cases) + len(lossy_cases) + len(j2k_cases)
+        webp_cases) + len(lossy_cases) + len(j2k_cases) + len(j2k3_cases)
     mixed_files = offline.tree_files(str(mixed))
     dims = native.probe([str(p) for p in mixed_files], reader="cv2")
     kept = [p for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]

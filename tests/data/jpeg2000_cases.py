@@ -524,6 +524,56 @@ def set_colr(data, enumcs, meth=1):
     return bytes(out)
 
 
+def with_colr(data, body):
+    """A JP2 file with its colr box's body replaced by ``body``."""
+    at = data.find(b"colr") - 4
+    n = struct.unpack(">I", data[at:at + 4])[0]
+    h = data.find(b"jp2h") - 4
+    hn = struct.unpack(">I", data[h:h + 4])[0]
+    new = box(b"colr", body)
+    out = data[:at] + new + data[at + n:]
+    return out[:h] + struct.pack(">I", hn - n + len(new)) + out[h + 4:]
+
+
+def pclr_box(entries, bits=None, ne=None):
+    """A pclr box of ``entries`` (rows of one value a palette column),
+    ``bits`` each column's Bi as stored (its precision - 1, bit 7 the
+    sign; 7 by default), each value written in the (precision + 7) // 8
+    bytes (at most 4) OpenJPEG reads; ``ne`` the NE field (the row count by
+    default)."""
+    entries = [list(e) for e in entries]
+    npc = len(entries[0]) if entries else len(bits)
+    bits = [7] * npc if bits is None else list(bits)
+    body = struct.pack(">HB", len(entries) if ne is None else ne, npc)
+    body += bytes(bits)
+    for row in entries:
+        for b, v in zip(bits, row):
+            body += int(v).to_bytes(min(((b & 0x7F) + 8) >> 3, 4), "big")
+    return box(b"pclr", body)
+
+
+def cmap_box(entries):
+    """A cmap box of (CMP, MTYP, PCOL) entries."""
+    return box(b"cmap", b"".join(struct.pack(">HBB", *e) for e in entries))
+
+
+def cdef_box(entries):
+    """A cdef box of (Cn, Typ, Asoc) entries."""
+    return box(b"cdef", struct.pack(">H", len(entries)) + b"".join(
+        struct.pack(">HHH", *e) for e in entries))
+
+
+def with_precision(data, bits, signed=False):
+    """Every component's Ssiz set to ``bits`` (and the sign), the samples
+    left as coded."""
+    at = codestream_at(data)
+    n = struct.unpack(">H", data[at + 40:at + 42])[0]
+    for c in range(n):
+        data = set_byte(data, siz_component(data, c),
+                        (0x80 if signed else 0) | (bits - 1))
+    return data
+
+
 def without_box(data, kind):
     """A JP2 file with a box inside jp2h dropped."""
     at = data.find(kind) - 4
@@ -757,35 +807,85 @@ def part2_skip_cases(rng):
     return out
 
 
+def colour_cases(rng):
+    """Part 3's files cv2.imread reads: the colour boxes. sYCC (9/7, and
+    12-bit samples, which cv2 shifts to 8 bits before its YUV matrix), an
+    ICC profile and CIELab (taken for sRGB), a gray colr on 3 components,
+    cdef boxes that move channels (reversed; comp 0 an opacity channel,
+    which OpenJPEG's swap loop leaves last), a pclr box without its cmap
+    (dropped), palettes with their cmap (indices past NE clamped, MTYP 0
+    and 1 mixed, a gray colr that copies palette column 0), and a 10 x 180
+    palette image in a generate_tree bucket no other fixture brings."""
+    img = smooth(rng, 9, 11, amp=1)
+    gray = pil_j2k(img, "L")
+    ramp = np.tile(np.arange(11, dtype=np.uint8) * 23, (9, 1))
+    index = pil_j2k(ramp, "L")
+    pal = [(k * 17 % 256, 255 - k * 9, k * 61 % 256) for k in range(9)]
+    out = {
+        "j2k3_sycc_97.jpg": set_colr(pil_j2k(img, irreversible=True), 18),
+        "j2k3_sycc_12bit.png": set_colr(with_precision(pil_j2k(img), 12),
+                                        18),
+        "j2k3_icc.png": with_colr(pil_j2k(img), b"\x02\0\0" + bytes(40)),
+        "j2k3_cielab_35.png": with_colr(pil_j2k(img), b"\x01\0\0\0\0\0\x0e"
+                                        + bytes(28)),
+        "j2k3_gray_colr_rgb.png": set_colr(pil_j2k(img), 17),
+        "j2k3_cdef_reverse.png": with_box(pil_j2k(img), cdef_box(
+            [(0, 0, 3), (1, 0, 2), (2, 0, 1)])),
+        "j2k3_cdef_alpha_first.png": with_box(pil_j2k(img), cdef_box(
+            [(0, 1, 0), (1, 0, 1), (2, 0, 2)])),
+        "j2k3_pclr_no_cmap_gray.png": with_box(gray, pclr_box(pal)),
+        "j2k3_cmap_gray.png": with_box(with_box(index, pclr_box(pal)),
+                                       cmap_box([(0, 1, i) for i in range(3)])),
+        "j2k3_cmap_mixed_mtyp.png": with_box(with_box(
+            set_colr(index, 16), pclr_box(pal, bits=[3, 7, 7])),
+            cmap_box([(0, 0, 0), (0, 1, 1), (0, 1, 2)])),
+    }
+    wide = np.tile(np.arange(180, dtype=np.uint8) // 12, (10, 1))
+    out["j2k3_pclr_10x180.png"] = with_box(with_box(
+        set_colr(pil_j2k(wide, "L"), 16), pclr_box(pal[:5] * 4)),
+        cmap_box([(0, 1, i) for i in range(3)]))
+    return out
+
+
+def colour_skip_cases(rng):
+    """Part 3's files cv2.imread gives None for: CMYK, a pclr box without
+    its cmap under sRGB (cv2 finds one component; PIL reads mode P through
+    its own palette), sYCC with an image offset (PIL's sYCC conversion);
+    and boxes both readers refuse: a pclr of no entries, a cmap past the
+    palette's columns."""
+    img = smooth(rng, 9, 11, amp=1)
+    gray = pil_j2k(img, "L")
+    pal = [(k * 29 % 256, k * 7, 255 - k * 13) for k in range(12)]
+    return {
+        "j2k3_cmyk.png": set_colr(pil_j2k(np.dstack(
+            [img, img[:, :, :1]]), "RGBA"), 12),
+        "j2k3_pclr_no_cmap_srgb.png": with_box(set_colr(gray, 16),
+                                               pclr_box(pal)),
+        "j2k3_sycc_offset.jpg": set_colr(pil_j2k(
+            img, offset=(3, 1), tile_size=(20, 20), irreversible=True), 18),
+        "j2k3_pclr_ne_0.png": with_box(gray, pclr_box([], bits=[7] * 3)),
+        "j2k3_cmap_past_palette.png": with_box(with_box(gray, pclr_box(pal)),
+                                               cmap_box([(0, 1, 0), (0, 1, 1),
+                                                         (0, 1, 3)])),
+    }
+
+
 def unsupported_cases(rng):
     """{name: (bytes, feature)}: valid files of the features the port
     leaves out, each of which raises naming JPEG 2000: sub-sampled
-    components (8d), sYCC, an ICC profile, CIELab and CMYK colr boxes, a
-    cdef that moves channels, a palette with and without its cmap (8e),
-    HTJ2K's CAP marker (8f)."""
+    components in a raw codestream and in a JP2 file with an sYCC colr
+    (8d), HTJ2K's CAP marker in a raw codestream and a JP2 file (8f)."""
     img = smooth(rng, 21, 26)
     jp2 = pil_j2k(img)
     raw = pil_j2k(img, no_jp2=True)
     out = {}
     sub = set_byte(raw, siz_component(raw, 1) + 1, 2)
     out["subsampled.png"] = (sub, "sub-sampled components")
-    out["colr_sycc.png"] = (set_colr(jp2, 18), "sYCC")
-    out["colr_icc.png"] = (set_colr(jp2, 0, meth=2), "ICC")
-    out["cdef_swap.png"] = (with_box(jp2, box(b"cdef", struct.pack(
-        ">H9H", 3, 0, 0, 2, 1, 0, 1, 2, 0, 3))), "cdef")
-    out["pclr.png"] = (with_box(pil_j2k(img, "L"), box(
-        b"pclr", struct.pack(">HB", 2, 3) + b"\x07\x07\x07" + bytes(6))),
-        "pclr")
-    out["cap.png"] = (insert_main(raw, 0xFF50, b"\x00\x02\x00\x00\x00\x00"),
-                      "HTJ2K")
-    palette = bytes((np.arange(256 * 3) * 37 % 256).astype(np.uint8))
-    out["cmap.png"] = (with_box(with_box(pil_j2k(img, "L"), box(
-        b"pclr", struct.pack(">HB", 256, 3) + b"\x07\x07\x07" + palette)),
-        box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, i)
-                              for i in range(3)))), "cmap")
-    out["colr_cielab.png"] = (set_colr(jp2, 14), "CIELab")
-    out["colr_cmyk.png"] = (set_colr(pil_j2k(np.dstack(
-        [img, img[:, :, :1]]), "RGBA"), 12), "CMYK")
+    out["subsampled_sycc.png"] = (set_colr(set_byte(
+        jp2, siz_component(jp2, 1) + 1, 2), 18), "sub-sampled components")
+    cap = b"\x00\x02\x00\x00\x00\x00"
+    out["cap.png"] = (insert_main(raw, 0xFF50, cap), "HTJ2K")
+    out["jp2_cap.png"] = (insert_main(jp2, 0xFF50, cap), "HTJ2K")
     return out
 
 

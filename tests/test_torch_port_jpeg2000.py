@@ -89,33 +89,13 @@ def port_components(data):
 
 
 def unsupported_feature(data):
-    """The feature the port leaves out (ROADMAP items 8d-8f) that ``data``
-    uses, by its headers (JP2 boxes, the main and first tile-part headers),
-    or None: a palette or its cmap, a colr other than sRGB or gray, a cdef
-    that moves channels, sub-sampled components or more than four, HT
-    code-blocks, a CAP, CPF, CBD, MCT, MCC or MCO marker."""
+    """The feature the port leaves out (ROADMAP items 8d and 8f) that
+    ``data`` uses, by its main and first tile-part headers, or None:
+    sub-sampled components, HT code-blocks, a CAP, CPF, CBD, MCT, MCC or
+    MCO marker."""
     at = cases.codestream_at(data)
     if at < 0:
         return None
-    if at > 0:
-        head = data[:at]
-        for kind in (b"pclr", b"cmap"):
-            if kind in head:
-                return kind.decode()
-        c = head.find(b"colr")
-        if c >= 0 and len(head) >= c + 11 and (
-                head[c + 4] == 2 or int.from_bytes(head[c + 7:c + 11], "big")
-                in (12, 14, 18, 24)):
-            return "colr"
-        d = head.find(b"cdef")
-        if d >= 0 and len(head) >= d + 6:
-            n = int.from_bytes(head[d + 4:d + 6], "big")
-            entries = [tuple(int.from_bytes(head[e + 2 * k:e + 2 * k + 2],
-                                            "big") for k in range(3))
-                       for e in range(d + 6, d + 6 + 6 * n, 6)]
-            if any(e not in ((i, 0, i + 1), (i, 1, 0))
-                   for i, e in enumerate(entries)):
-                return "cdef"
     p = at + 2
     while p + 4 <= len(data):
         m = int.from_bytes(data[p:p + 2], "big")
@@ -126,8 +106,8 @@ def unsupported_feature(data):
         if m == 0xFF51 and len(body) >= 36:
             comps = body[36:]
             if any(comps[i + 1] != 1 or comps[i + 2] != 1
-                   for i in range(0, len(comps) - 2, 3)) or len(comps) > 12:
-                return "components"
+                   for i in range(0, len(comps) - 2, 3)):
+                return "sub-sampled components"
         if m == 0xFF52 and len(body) >= 9 and body[8] & 0x40:
             return "HT code-blocks"
         if m == 0xFF53 and len(body) >= 6 and body[5] & 0x40:
@@ -414,10 +394,9 @@ UNSUPPORTED = cases.unsupported_cases(np.random.default_rng(
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_feature_raises_naming_jpeg2000(tmp_path, name):
     """A valid file of a feature the port leaves out (sub-sampled
-    components, sYCC, an ICC profile, CIELab and CMYK colr boxes, a cdef
-    that moves channels, a palette with or without its cmap, HTJ2K's CAP)
-    raises naming JPEG 2000 on every reader path; the cv2 probe refuses
-    it; the reference reads it."""
+    components in a raw codestream and in an sYCC JP2 file, HTJ2K's CAP in
+    both) raises naming JPEG 2000 on every reader path; the cv2 probe
+    refuses it; the reference reads it."""
     data, feature = UNSUPPORTED[name]
     p = tmp_path / name
     p.write_bytes(data)

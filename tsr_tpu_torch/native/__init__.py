@@ -28,12 +28,16 @@ cache and prefix code; lossy VP8 with its segments, loop filters, token
 partitions and ALPH chunk, upsampled as libwebp upsamples it; a raw VP8L
 stream, a raw VP8 stream whose first partition ends inside 32 bytes, the
 EXIF orientation and cv2's 32-byte and 64 MiB limits as cv2 reads them,
-the files under 32 bytes as PIL reads them); JPEG 2000 part 1 (a JP2
-file or a raw codestream: lossless 5/3 and lossy 9/7, tiles and
-tile-parts, layers, the five progression orders, precincts, code-block
-style 0, SOP and EPH, 1-4 components of 1-16 bits, as OpenJPEG 2.5
-decodes it for cv2, which refuses signed samples, precisions under 8 and
-an image offset, and for PIL); JPEG
+the files under 32 bytes as PIL reads them); JPEG 2000 (a JP2 file or a
+raw codestream: lossless 5/3 and lossy 9/7, tiles and tile-parts, layers,
+the five progression orders and POC, precincts, every code-block style,
+SOP and EPH, PPM and PPT, RGN, components of 1-16 bits; the JP2 colour
+boxes: pclr and cmap, cdef, sYCC, ICC, CIELab and CMYK colr; as OpenJPEG
+2.5 decodes it for cv2, which refuses signed samples, precisions under 8,
+an image offset, more than 4 components, CMYK and eYCC, and reads sYCC
+through its own YUV matrix, and for PIL, which reads CMYK, its own
+palette and sYCC where cv2 does not; sub-sampled components and HTJ2K
+are left out); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
 or corrupt as libjpeg recovers it, FF FF 00 in entropy data as
 libjpeg-turbo's fast and slow Huffman passes read it, lossless); EXIF
@@ -41,8 +45,8 @@ orientation applied as
 cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
-port does not decode (:data:`FORMATS`: JPEG 2000 of a feature part 1
-leaves out, AVIF, and TIFF of another layout: LZMA or ZSTD compression,
+port does not decode (:data:`FORMATS`: JPEG 2000 of sub-sampled
+components or HTJ2K, AVIF, and TIFF of another layout: LZMA or ZSTD compression,
 Pillow's LAB...), or
 that only
 PIL reads and the port does not decode (PCX, SGI, ICO/CUR, DDS, QOI, ICNS,
@@ -351,9 +355,10 @@ def probe(paths: Sequence[str], threads: int = 8, reader: str = "port",
       WebPDemux accepts the file and the VP8X flag stores the chunk;
     - JPEG 2000 (a JP2 file or a raw codestream): OpenJPEG 2.5's strict
       reading of the JP2 boxes, the main header, every tile-part and
-      packet, then cv2's rules (no signed component, a precision of 8 or
-      more, no image offset, 3 components or more unless the colour space
-      is gray);
+      packet, and its checks of the cdef and cmap boxes, then cv2's rules
+      (1-4 components, none signed, a precision of 8 or more, no image
+      offset, no CMYK or eYCC colour space, 3 components or more after
+      the palette unless the colour space is gray);
     - any format of :data:`FORMATS` is refused (cv2 reads it; the port
       does not decode it).
 

@@ -6,6 +6,7 @@
 // orientation JPEG, PNG, TIFF and WebP carry.
 #pragma once
 
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -41,6 +42,16 @@ inline uint8_t cv2_u8(float v) {
   if (!(v > -2147483648.0f && v < 2147483648.0f)) return 0;
   const float r = std::nearbyint(v);
   return r <= 0.0f ? 0 : r >= 255.0f ? 255 : static_cast<uint8_t>(r);
+}
+
+// Pillow's cmyk2rgb (Convert.c), which convert("RGB") of a CMYK image
+// runs: nk - round(v nk / 255) for each of C, M, Y, with nk = 255 - K.
+inline void cmyk_to_rgb(int c, int m, int y, int k, uint8_t* o) {
+  const int nk = 255 - k, v[3] = {c, m, y};
+  for (int i = 0; i < 3; i++) {
+    const int tmp = v[i] * nk + 128;
+    o[i] = static_cast<uint8_t>(std::clamp(nk - (((tmp >> 8) + tmp) >> 8), 0, 255));
+  }
 }
 
 // A decode's or a probe's outcome. kOk and kUnreadable (not an image the
@@ -241,17 +252,19 @@ struct Vp8Planes {
 bool vp8_decode(const uint8_t* data, size_t n, bool filter, Vp8Planes& out);
 void vp8_rgb(const Vp8Planes& f, bool fancy, uint8_t* rgb, size_t stride);
 
-// JPEG 2000 (a JP2 file or a raw codestream), part 1 of the format, as
-// cv2.imread reads it (OpenCV 5's Jpeg2KOpjDecoder over OpenJPEG 2.5) and as
-// PIL's Jpeg2KImagePlugin and convert("RGB") read it (jpeg2000.cpp); the
-// arguments and results of read_cv2 and read_pil, kJpeg2000 for a feature
-// part 1 leaves out. is_jpeg2000_data: the JP2 signature box or SOC + SIZ.
+// JPEG 2000 (a JP2 file or a raw codestream), part 1 of the format with its
+// JP2 colour boxes, as cv2.imread reads it (OpenCV 5's Jpeg2KOpjDecoder
+// over OpenJPEG 2.5) and as PIL's Jpeg2KImagePlugin and convert("RGB")
+// read it (jpeg2000.cpp); the arguments and results of read_cv2 and
+// read_pil, kJpeg2000 for a feature the port leaves out (sub-sampled
+// components, HTJ2K). is_jpeg2000_data: the JP2 signature box or SOC + SIZ.
 bool is_jpeg2000_data(const uint8_t* data, size_t n);
 int jpeg2000_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int jpeg2000_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
-// For tests: the components opj_decode gives (each (h, w) int32 plane one
-// after another into `out` of `cap` values; info: components, h, w, and the
-// image offset x0, y0); false where OpenJPEG fails or part 1 stops.
+// For tests: the components opj_decode gives, the JP2 colour boxes applied
+// (each (h, w) int32 plane one after another into `out` of `cap` values;
+// info: components, h, w, and the image offset x0, y0); false where
+// OpenJPEG fails or the port stops.
 bool jpeg2000_planes(const uint8_t* data, size_t n, int32_t* out, size_t cap,
                      int* info);
 

@@ -4,8 +4,8 @@
 // (Jpeg2KDecode.c over OpenJPEG's tile API):
 //
 // - the JP2 boxes that reach the codestream and its colour (jP, ftyp,
-//   jp2h with ihdr, colr, bpcc and cdef, jp2c), by opj_jp2_read_header's
-//   rules; the raw codestream;
+//   jp2h with ihdr, colr, bpcc, pclr, cmap and cdef, jp2c), by
+//   opj_jp2_read_header's rules; the raw codestream;
 // - the main and tile-part headers (SIZ, COD, COC, QCD, QCC, RGN, POC, PPM,
 //   PPT, COM, TLM, PLM, PLT, CRG, SOT/SOD, EOC) and the tile-part stream by
 //   opj_j2k_read_header_procedure / opj_j2k_read_tile_header /
@@ -20,15 +20,20 @@
 // - dequantisation (none, scalar derived, scalar expounded), the inverse
 //   5/3 in integers and the inverse 9/7 in float with OpenJPEG's constants
 //   and order of operations, RCT and ICT, and the DC level shift with
-//   lrintf and the clamp.
+//   lrintf and the clamp;
+// - the colour boxes as opj_jp2_decode applies them (opj_jp2_check_color,
+//   opj_jp2_apply_pclr, opj_jp2_apply_cdef) and each reader's colour
+//   space: cv2's sRGB, gray and sYCC (its own COLOR_YUV2BGR), Pillow's
+//   unpackers (P and PA through its palette, sYCC, CMYK through cmyk2rgb).
 //
 // What the port leaves out raises naming JPEG 2000 (kJpeg2000): sub-sampled
-// components, HTJ2K (a CAP marker, HT code-blocks), the pclr/cmap boxes, a
-// cdef other than the identity, and a colr other than sRGB or gray.
+// components (ROADMAP 8d) and HTJ2K (a CAP, CPF, CBD, MCT, MCC or MCO
+// marker, HT code-blocks: 8f). Partial decodes (8g) are not offered.
 
 #include <algorithm>
 #include <cmath>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <vector>
 
@@ -86,21 +91,43 @@ struct Stream {
 
 // ------------------------------------------------------------ JP2 boxes
 
-enum ColorSpace { kCsUnknown = -1, kCsUnspecified = 0, kCsSrgb = 1, kCsGray = 2 };
+// opj_image_t's colour spaces (OPJ_CLRSPC_*), from the colr box's EnumCS
+enum ColorSpace { kCsUnknown = -1, kCsUnspecified = 0, kCsSrgb = 1, kCsGray = 2,
+                  kCsSycc = 3, kCsEycc = 4, kCsCmyk = 5 };
+
+// The pclr box (opj_jp2_pclr_t) and its cmap entries, as read.
+struct Palette {
+  int ne = 0, npc = 0;
+  std::vector<uint32_t> entries;  // ne rows of npc values
+  bool has_cmap = false;
+  struct Map {
+    uint32_t cmp = 0;
+    uint8_t mtyp = 0, pcol = 0;
+  };
+  std::vector<Map> cmap;  // npc entries
+};
+
+// A cdef entry (opj_jp2_cdef_info_t).
+struct ChannelDef {
+  uint32_t cn = 0, typ = 0, asoc = 0;
+};
 
 struct Jp2Info {
-  bool jp2 = false;
+  bool jp2 = false, has_jp2h = false;
   size_t codestream = 0;  // where the codestream starts
   uint32_t w = 0, h = 0, nc = 0, bpc = 0;
   uint32_t enumcs = 0;
   bool has_colr = false;
-  int cdef = 0;  // the channels a cdef box defines (0: none)
+  bool has_pclr = false;
+  Palette pclr;
+  bool has_cdef = false;
+  std::vector<ChannelDef> cdef;
 };
 
-// opj_jp2_read_header_procedure with the handlers of the boxes the port
-// reads (jP, ftyp, jp2h: ihdr, colr, bpcc, cdef; pclr and cmap are left
-// out): up to the jp2c box (`after` false), or over the boxes that follow
-// the codestream (opj_jp2_end_decompress, `after` true).
+// opj_jp2_read_header_procedure with the handlers of the JP2 header boxes
+// (jP, ftyp, jp2h: ihdr, colr, bpcc, pclr, cmap, cdef): up to the jp2c box
+// (`after` false), or over the boxes that follow the codestream
+// (opj_jp2_end_decompress, `after` true).
 class Jp2Boxes {
  public:
   explicit Jp2Boxes(Jp2Info& info) : info_(info) {}
@@ -130,6 +157,7 @@ class Jp2Boxes {
         if (!main && !(state_ & kHeader)) {  // misplaced before jp2h: skipped
           if (size > n - pos) fail();
           pos += size;
+          state_ |= kUnknown;
           continue;
         }
         if (size > n - pos) fail();  // "Invalid box size"
@@ -150,6 +178,7 @@ class Jp2Boxes {
         pos += size;
       } else {
         if (!(state_ & kSig) || !(state_ & kFtypState)) fail();
+        state_ |= kUnknown;
         if (size > n - pos) {
           if (after) return;  // the skip fails past the codestream
           fail();
@@ -160,7 +189,10 @@ class Jp2Boxes {
   }
 
  private:
-  enum { kSig = 1, kFtypState = 2, kHeader = 4 };
+  // JP2_STATE_*: a box skipped (unknown, or misplaced before jp2h) sets
+  // every bit, JP2_STATE_UNKNOWN, so that header boxes found after it
+  // outside jp2h are read
+  enum { kSig = 1, kFtypState = 2, kHeader = 4, kUnknown = 0x7fffffff };
   static constexpr uint32_t kJp = 0x6a502020, kFtyp = 0x66747970,
       kJp2h = 0x6a703268, kJp2c = 0x6a703263, kIhdr = 0x69686472,
       kColr = 0x636f6c72, kBpcc = 0x62706363, kPclr = 0x70636c72,
@@ -192,6 +224,7 @@ class Jp2Boxes {
     }
     if (!has_ihdr) fail();  // "no 'ihdr' box"
     state_ |= kHeader;
+    info_.has_jp2h = true;
   }
 
   void img_box(uint32_t t, const uint8_t* p, uint32_t size) {
@@ -205,37 +238,68 @@ class Jp2Boxes {
       if (info.nc - 1u >= 16384u) fail();
       info.bpc = p[10];
       if (info.w < 1 || info.h < 1) fail();  // "Wrong values for: w h numcomps (ihdr)"
-    } else if (t == kColr) {
+    } else if (t == kColr) {  // opj_jp2_read_colr
       if (size < 3) fail();
       if (info.has_colr) return;  // the first colr box holds
       const uint8_t meth = p[0];
       if (meth == 1) {
         if (size < 7) fail();
+        // a CIELab body of 35 bytes carries its ranges and offsets, one of
+        // any other size (7 or not) takes the defaults: neither reader
+        // uses them
         info.enumcs = be32(p + 3);
         info.has_colr = true;
       } else if (meth == 2) {
-        unsupported();  // an ICC profile
+        // an ICC profile, which neither reader applies; opj_calloc of an
+        // empty one gives NULL
+        if (size == 3) fail();
+        info.has_colr = true;
       }
       // any other method: "not a regular value", the box is ignored
     } else if (t == kBpcc) {
       if (size != info.nc) fail();  // "Bad BPCC header box (bad size)"
-    } else if (t == kPclr || t == kCmap) {
-      unsupported();
-    } else if (t == kCdef) {
-      // the identity with at most one alpha channel last (Pillow's LA and
-      // RGBA): the components keep their order and only the alpha flag,
-      // which neither reader uses, changes
-      if (info.cdef) fail();  // at most one cdef box
+    } else if (t == kPclr) {  // opj_jp2_read_pclr
+      if (info.has_pclr || size < 3) fail();
+      Palette& pl = info.pclr;
+      pl.ne = static_cast<int>(be16(p));
+      if (pl.ne == 0 || pl.ne > 1024) fail();  // "Invalid PCLR box. Reports %d entries"
+      pl.npc = p[2];
+      if (pl.npc == 0) fail();  // "Reports 0 palette columns"
+      if (size < 3u + pl.npc) fail();
+      info.has_pclr = true;
+      // each entry in the bytes of its column's precision (Bi), 4 at most;
+      // neither reader looks at the precision or sign the columns give
+      size_t at = 3u + pl.npc;
+      pl.entries.resize(static_cast<size_t>(pl.ne) * pl.npc);
+      for (size_t k = 0; k < pl.entries.size(); k++) {
+        const size_t bytes = std::min(((p[3 + k % pl.npc] & 0x7f) + 8) >> 3, 4);
+        if (size < at + bytes) fail();
+        uint32_t v = 0;
+        for (size_t b = 0; b < bytes; b++) v = v << 8 | p[at + b];
+        pl.entries[k] = v;
+        at += bytes;
+      }
+    } else if (t == kCmap) {  // opj_jp2_read_cmap
+      if (!info.has_pclr) fail();  // "Need to read a PCLR box before the CMAP box"
+      Palette& pl = info.pclr;
+      if (pl.has_cmap) fail();  // "Only one CMAP box is allowed"
+      if (size < 4u * pl.npc) fail();  // "Insufficient data for CMAP box"
+      pl.cmap.resize(pl.npc);
+      for (int i = 0; i < pl.npc; i++) {
+        const uint8_t* e = p + 4 * i;
+        pl.cmap[i] = {be16(e), e[2], e[3]};
+      }
+      pl.has_cmap = true;
+    } else if (t == kCdef) {  // opj_jp2_read_cdef
+      if (info.has_cdef) fail();  // at most one cdef box
       if (size < 2) fail();
       const uint32_t cn = be16(p);
       if (cn == 0 || size < 2 + 6 * cn) fail();
-      info.cdef = static_cast<int>(cn);
+      info.has_cdef = true;
+      info.cdef.resize(cn);
       for (uint32_t i = 0; i < cn; i++) {
         const uint8_t* e = p + 2 + 6 * i;
-        const uint32_t c = be16(e), typ = be16(e + 2), asoc = be16(e + 4);
-        const bool colour = c == i && typ == 0 && asoc == i + 1;
-        const bool alpha = c == i && i == cn - 1 && i > 0 && typ == 1 && asoc == 0;
-        if (!colour && !alpha) unsupported();
+        info.cdef[i] = {be16(e), be16(e + 2), be16(e + 4)};
       }
     }
   }
@@ -361,7 +425,6 @@ void read_siz(Codestream& cs, const uint8_t* p, uint32_t size,
                  y0 = be32(p + 14), tdx = be32(p + 18), tdy = be32(p + 22),
                  tx0 = be32(p + 26), ty0 = be32(p + 30), csiz = be16(p + 34);
   if (csiz != nb_comp || csiz == 0 || csiz > 16384) fail();
-  // the port reads 1-4 components
   if (x0 >= x1 || y0 >= y1) fail();
   // "Error with SIZ marker: IHDR w h vs. SIZ w h"
   if (jp2.w > 0 && jp2.h > 0 && (jp2.w != x1 - x0 || jp2.h != y1 - y0)) fail();
@@ -386,7 +449,6 @@ void read_siz(Codestream& cs, const uint8_t* p, uint32_t size,
   if (tw == 0 || th == 0 || tw > 65535 / th) fail();
   for (const CompInfo& ci : cs.comps)
     if (ci.dx != 1 || ci.dy != 1) unsupported();
-  if (csiz > 4) unsupported();
   cs.x0 = static_cast<int>(x0);
   cs.y0 = static_cast<int>(y0);
   cs.x1 = static_cast<int>(x1);
@@ -1803,16 +1865,15 @@ class J2k {
     if (n >= 12 && !std::memcmp(d, "\0\0\0\x0cjP  \r\n\x87\n", 12)) {
       jp2.jp2 = true;
       boxes_.walk(d, n, 0, false);
-      if (jp2.codestream == 0) fail();
+      if (jp2.codestream == 0 || !jp2.has_jp2h) fail();  // "JP2H box missing"
+      // opj_jp2_read_header: CIELab, an ICC profile and any other EnumCS
+      // are unknown
       const uint32_t e = jp2.enumcs;
-      if (jp2.has_colr && (e == 12 || e == 14 || e == 18 || e == 24))
-        unsupported();  // CMYK, CIELab, sYCC, eYCC
-      color_space = !jp2.has_colr ? kCsUnknown : e == 16 ? kCsSrgb
-                    : e == 17 ? kCsGray : kCsUnknown;
+      color_space = e == 16 ? kCsSrgb : e == 17 ? kCsGray : e == 18 ? kCsSycc
+                    : e == 24 ? kCsEycc : e == 12 ? kCsCmyk : kCsUnknown;
     }
     s_ = Stream{d + jp2.codestream, n - jp2.codestream};
     read_main_header(s_, cs, state_, jp2);
-    if (jp2.cdef && static_cast<size_t>(jp2.cdef) != cs.comps.size()) unsupported();
   }
 
   // Every tile (opj_decode over cv2's file stream: it stops after the last
@@ -2031,6 +2092,100 @@ struct Planes {
   std::vector<std::vector<int32_t>> comps;
 };
 
+// opj_jp2_check_color over an image of `numcomps` components: false where
+// OpenJPEG refuses the cdef and cmap boxes. A cmap of a one-component image
+// that leaves a palette column unused is rewritten to map every column
+// ("Component mapping seems wrong. Trying to correct.").
+bool check_color(Jp2Info& jp2, size_t numcomps) {
+  Palette& pl = jp2.pclr;
+  const bool mapped = jp2.has_pclr && pl.has_cmap;
+  if (jp2.has_cdef) {
+    // cdef names the channels after the palette where a cmap is given
+    const size_t nch = mapped ? static_cast<size_t>(pl.npc) : numcomps;
+    for (const ChannelDef& c : jp2.cdef) {
+      if (c.cn >= nch) return false;  // "Invalid component index"
+      if (c.asoc == 65535) continue;
+      if (c.asoc > 0 && c.asoc - 1 >= nch) return false;
+    }
+    for (size_t k = nch; k > 0; k--) {  // "Incomplete channel definitions"
+      bool found = false;
+      for (const ChannelDef& c : jp2.cdef) found |= c.cn == k - 1;
+      if (!found) return false;
+    }
+  }
+  if (mapped) {
+    const int nch = pl.npc;
+    bool sane = true;
+    for (const Palette::Map& m : pl.cmap)
+      if (m.cmp >= numcomps) sane = false;  // "Invalid component index"
+    std::vector<char> used(nch, 0);
+    for (int i = 0; i < nch; i++) {
+      const Palette::Map& m = pl.cmap[i];
+      if ((m.mtyp != 0 && m.mtyp != 1) ||   // "Invalid value for cmap[%d].mtyp"
+          m.pcol >= nch ||                  // "Invalid component/palette index"
+          (used[m.pcol] && m.mtyp == 1) ||  // "Component %d is mapped twice"
+          (m.mtyp == 0 && m.pcol != 0) ||   // "Direct use at #%d however pcol=%d"
+          (m.mtyp == 1 && m.pcol != i))     // "Implementation limitation"
+        sane = false;
+      else
+        used[m.pcol] = 1;
+    }
+    for (int i = 0; i < nch; i++)
+      if (!used[i] && pl.cmap[i].mtyp != 0) sane = false;  // "doesn't have a mapping"
+    if (sane && numcomps == 1 &&
+        std::find(used.begin(), used.end(), 0) != used.end())
+      for (int i = 0; i < nch; i++) pl.cmap[i] = {pl.cmap[i].cmp, 1, static_cast<uint8_t>(i)};
+    if (!sane) return false;
+  }
+  return true;
+}
+
+// What opj_jp2_decode does to the decoded components: opj_jp2_check_color
+// (Fail where it refuses), a pclr box without its cmap dropped, else
+// opj_jp2_apply_pclr (an index clamped to the palette, MTYP 0 components
+// passed through), then opj_jp2_apply_cdef's swaps, in its order.
+void jp2_colour(Jp2Info& jp2, Planes& pl) {
+  if (!check_color(jp2, pl.comps.size())) fail();
+  if (jp2.has_pclr && jp2.pclr.has_cmap) {
+    const Palette& p = jp2.pclr;
+    const int top = p.ne - 1;
+    std::vector<std::vector<int32_t>> out(p.npc);
+    for (int i = 0; i < p.npc; i++) {
+      const std::vector<int32_t>& src = pl.comps[p.cmap[i].cmp];
+      if (p.cmap[i].mtyp == 0) {
+        out[i] = src;
+        continue;
+      }
+      out[i].resize(src.size());
+      for (size_t k = 0; k < src.size(); k++) {
+        const int idx = std::clamp(src[k], 0, top);
+        out[i][k] = static_cast<int32_t>(p.entries[static_cast<size_t>(idx) * p.npc + i]);
+      }
+    }
+    pl.comps.swap(out);
+  }
+  if (jp2.has_cdef) {
+    std::vector<ChannelDef> info = jp2.cdef;
+    const size_t nc = pl.comps.size();
+    for (size_t i = 0; i < info.size(); i++) {
+      const uint32_t cn = info[i].cn, asoc = info[i].asoc;
+      if (cn >= nc) continue;                      // "opj_jp2_apply_cdef: cn=%d"
+      if (asoc == 0 || asoc == 65535) continue;   // the alpha flag only
+      const uint32_t acn = asoc - 1;
+      if (acn >= nc) continue;                     // "opj_jp2_apply_cdef: acn=%d"
+      if (cn != acn && info[i].typ == 0) {  // only a colour channel moves
+        pl.comps[cn].swap(pl.comps[acn]);
+        for (size_t k = i + 1; k < info.size(); k++) {
+          if (info[k].cn == cn)
+            info[k].cn = acn;
+          else if (info[k].cn == acn)
+            info[k].cn = cn;
+        }
+      }
+    }
+  }
+}
+
 void decode_planes(J2k& j, Planes& out) {
   out.x0 = j.cs.x0;
   out.y0 = j.cs.y0;
@@ -2059,14 +2214,29 @@ void decode_planes(J2k& j, Planes& out) {
   });
   for (auto& c : out.comps)
     if (c.empty()) fail();  // "Failed to decode all used components"
+  if (j.jp2.jp2) jp2_colour(j.jp2, out);
+}
+
+// OpenCV's COLOR_YUV2BGR on 8-bit samples (YCrCb2RGB_i with its YUV
+// coefficients, 14-bit fixed point), as RGB.
+void cv2_yuv_rgb(int y, int u, int v, uint8_t* o) {
+  auto descale = [](int x) { return (x + (1 << 13)) >> 14; };
+  const int b = y + descale((u - 128) * 33292);
+  const int g = y + descale((u - 128) * -6472 + (v - 128) * -9519);
+  const int r = y + descale((v - 128) * 18678);
+  o[0] = static_cast<uint8_t>(std::clamp(r, 0, 255));
+  o[1] = static_cast<uint8_t>(std::clamp(g, 0, 255));
+  o[2] = static_cast<uint8_t>(std::clamp(b, 0, 255));
 }
 
 // OpenCV 5's Jpeg2KOpjDecoder under cv2.imread's IMREAD_COLOR: readHeader
-// (no signed component, a precision of 8 or more), imread's size rule,
-// then readData (opj_decode, the colour space: sRGB, gray, or unknown and
-// unspecified taken for sRGB; no image offset) and the copy of comps 2, 1,
-// 0 (gray: comp 0 three times), each sample >> (max precision - 8) cast to
-// 8 bits.
+// on the codestream's components (1-4 of them, none signed, a precision of
+// 8 or more), imread's size rule, then readData: opj_decode (the JP2 colour
+// boxes applied: pclr and cmap, cdef), the colour space (sRGB, and unknown
+// and unspecified taken for sRGB: comps 2, 1, 0 of 3 or more; gray: comp 0
+// three times, also after a palette made 3; sYCC: comps 0-2 of 3 or more
+// through COLOR_YUV2BGR; CMYK, eYCC: refused), no image offset, each
+// sample >> (the header's max precision - 8) cast to 8 bits.
 int read_cv2_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   J2k j;
   try {
@@ -2074,6 +2244,8 @@ int read_cv2_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   } catch (const Fail&) {
     return kUnreadable;
   }
+  const size_t ncomp = j.cs.comps.size();
+  if (ncomp > 4) return kUnreadable;  // "Unsupported number of components"
   int maxprec = 0;
   for (const CompInfo& c : j.cs.comps) {
     if (c.sgnd) return kUnreadable;
@@ -2082,9 +2254,14 @@ int read_cv2_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   if (maxprec < 8) return kUnreadable;
   const int64_t w = int64_t{j.cs.x1} - j.cs.x0, h = int64_t{j.cs.y1} - j.cs.y0;
   if (!cv2_size_ok(w, h)) return kRaises;
-  const bool gray = j.color_space == kCsGray;
-  const int nc = static_cast<int>(j.cs.comps.size());
-  if (!gray && nc < 3) return kUnreadable;  // sRGB needs 3 components
+  // readData: what opj_decode's colour boxes leave (check_color refuses
+  // from the header alone), then the colour space
+  if (j.jp2.jp2 && !check_color(j.jp2, ncomp)) return kUnreadable;
+  const Palette& pal = j.jp2.pclr;
+  const size_t nc = j.jp2.has_pclr && pal.has_cmap ? static_cast<size_t>(pal.npc) : ncomp;
+  const int cs = j.color_space;
+  if (cs == kCsCmyk || cs == kCsEycc) return kUnreadable;  // "Unsupported color space"
+  if (cs != kCsGray && nc < 3) return kUnreadable;  // "unsupported conversion"
   if (j.cs.x0 != 0 || j.cs.y0 != 0) return kUnreadable;  // "tiles are not supported"
   dims[0] = static_cast<int>(h);
   dims[1] = static_cast<int>(w);
@@ -2101,20 +2278,30 @@ int read_cv2_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   img->h = pl.h;
   img->rgb.resize(static_cast<size_t>(pl.w) * pl.h * 3);
   const size_t area = static_cast<size_t>(pl.w) * pl.h;
+  const bool gray = cs == kCsGray;
   for (int c = 0; c < 3; c++) {
     const std::vector<int32_t>& src = pl.comps[gray ? 0 : c];
     uint8_t* out = img->rgb.data() + c;
     for (size_t i = 0; i < area; i++) out[3 * i] = static_cast<uint8_t>(src[i] >> shift);
   }
+  if (cs == kCsSycc)
+    for (size_t i = 0; i < area; i++) {
+      uint8_t* px = &img->rgb[3 * i];
+      cv2_yuv_rgb(px[0], px[1], px[2], px);
+    }
   return kOk;
 }
 
 // Pillow's Jpeg2KImagePlugin._open: the size and mode (L, I;16, LA, RGB,
-// RGBA; CMYK and a palette are left out) from the SIZ marker or the JP2
-// header boxes, then _parse_comment's walk of the main header's markers.
+// RGBA, CMYK, and P or PA with the palette it makes of a pclr box) from the
+// SIZ marker or the JP2 header boxes, then _parse_comment's walk of the
+// main header's markers.
 struct PilHeader {
   int w = 0, h = 0;
-  enum Mode { kNone, kL, kI16, kLA, kRGB, kRGBA } mode = kNone;
+  enum Mode { kNone, kL, kI16, kLA, kRGB, kRGBA, kCmyk, kP, kPA } mode = kNone;
+  // P and PA: the image palette's RGB by index after Image.load's
+  // putpalette (black past the colours the pclr box gave)
+  uint8_t palette[256][3] = {};
 };
 
 struct PilFile {
@@ -2186,6 +2373,34 @@ struct PilBoxes {
     return be32(h.data() + 4);
   }
 };
+
+// _parse_jp2_header's pclr palette: ImagePalette.getcolor of each entry
+// (one byte a column, whatever its Bi; a colour seen before keeps its
+// index, a new one is written at len(palette) // len(mode), over the bytes
+// there if any), then putpalette's unpack of whole RGB or RGBA entries.
+void pil_palette(PilBoxes& hb, int ne, int npc, PilHeader& out) {
+  const size_t mlen = npc == 4 ? 4 : 3;
+  std::vector<uint8_t> pal;
+  std::map<std::vector<uint8_t>, int> colors;
+  for (int i = 0; i < ne; i++) {
+    const std::vector<uint8_t> c = hb.bytes(npc);
+    if (colors.count(c)) continue;
+    const size_t index = pal.size() / mlen;
+    if (index >= 256) fail();  // "cannot allocate more than 256 colors"
+    colors[c] = static_cast<int>(index);
+    if (index * mlen < pal.size()) {
+      std::vector<uint8_t> next(pal.begin(), pal.begin() + index * mlen);
+      next.insert(next.end(), c.begin(), c.end());
+      if (index * mlen + mlen < pal.size())
+        next.insert(next.end(), pal.begin() + index * mlen + mlen, pal.end());
+      pal.swap(next);
+    } else {
+      pal.insert(pal.end(), c.begin(), c.end());
+    }
+  }
+  for (size_t k = 0; k < pal.size() / mlen; k++)
+    std::memcpy(out.palette[k], &pal[k * mlen], 3);
+}
 
 void pil_open(const uint8_t* d, size_t n, PilHeader& out) {
   PilFile f{d, n};
@@ -2260,12 +2475,19 @@ void pil_open(const uint8_t* d, size_t n, PilHeader& out) {
           out.mode = PilHeader::kRGB;
         else if (nc == 4)
           out.mode = PilHeader::kRGBA;
-      } else if (t == 0x636f6c72 && nc == 4) {  // colr
+      } else if (t == 0x636f6c72 && nc == 4) {  // colr: every one counts
         const std::vector<uint8_t> v = hb.bytes(7);
-        if (v[0] == 1 && be32(&v[3]) == 12) unsupported();  // CMYK
+        if (v[0] == 1 && be32(&v[3]) == 12) out.mode = PilHeader::kCmyk;
       } else if (t == 0x70636c72 &&
                  (out.mode == PilHeader::kL || out.mode == PilHeader::kLA)) {
-        unsupported();  // a palette
+        const std::vector<uint8_t> v = hb.bytes(3);
+        const int ne = static_cast<int>(be16(v.data())), npc = v[2];
+        int maxbits = 0;  // Bi as stored, the sign bit with it
+        for (uint8_t b : hb.bytes(npc)) maxbits = std::max<int>(maxbits, b);
+        if (maxbits <= 8) {
+          pil_palette(hb, ne, npc, out);
+          out.mode = out.mode == PilHeader::kL ? PilHeader::kP : PilHeader::kPA;
+        }
       } else if (t == 0x72657320) {  // res
         const std::vector<uint8_t> r = hb.bytes(hb.remaining);
         PilFile rf{r.data(), r.size()};
@@ -2293,6 +2515,29 @@ void pil_open(const uint8_t* d, size_t n, PilHeader& out) {
   if (!pil_size_ok(out.w, out.h)) fail();
 }
 
+// Pillow's ImagingConvertYCbCr2RGB (ConvertYCbCr.c: tables of
+// int(c * 64 * (i - 128) + 0.5), then >> 6), which j2ku_sycc_rgb runs.
+void pil_ycbcr_rgb(int y, int cb, int cr, uint8_t* o) {
+  struct Tables {
+    int r_cr[256], g_cb[256], g_cr[256], b_cb[256];
+    Tables() {
+      for (int i = 0; i < 256; i++) {
+        r_cr[i] = static_cast<int>(1.402 * 64 * (i - 128) + 0.5);
+        g_cb[i] = static_cast<int>(-0.34414 * 64 * (i - 128) + 0.5);
+        g_cr[i] = static_cast<int>(-0.71414 * 64 * (i - 128) + 0.5);
+        b_cb[i] = static_cast<int>(1.772 * 64 * (i - 128) + 0.5);
+      }
+    }
+  };
+  static const Tables t;
+  const int r = y + (t.r_cr[cr] >> 6);
+  const int g = y + ((t.g_cb[cb] + t.g_cr[cr]) >> 6);
+  const int b = y + (t.b_cb[cb] >> 6);
+  o[0] = static_cast<uint8_t>(std::clamp(r, 0, 255));
+  o[1] = static_cast<uint8_t>(std::clamp(g, 0, 255));
+  o[2] = static_cast<uint8_t>(std::clamp(b, 0, 255));
+}
+
 // Jpeg2KDecode.c's j2ku_shift on an unsigned sample word.
 uint32_t pil_shift(uint32_t x, int n) { return n < 0 ? x >> -n : x << n; }
 
@@ -2313,20 +2558,38 @@ int read_pil_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
   const int nc = static_cast<int>(j.cs.comps.size());
   int cs = j.color_space;
   if (cs == kCsUnspecified || cs == kCsUnknown) cs = nc <= 2 ? kCsGray : kCsSrgb;
-  // the unpacker table: (mode, colour space, components)
-  enum Unpack { kNoUnpack, kGrayL, kGrayI, kGrayALA, kGrayRGB, kSrgbRGB };
+  // the unpacker table: (mode, colour space, components); P and PA unpack
+  // their indices as L and LA do, CMYK its four components as RGBA does
+  enum Unpack { kNoUnpack, kGrayL, kGrayI, kGrayALA, kGrayRGB, kSrgbRGB,
+                kSyccRGB, kCmykRGB };
   Unpack u = kNoUnpack;
   using M = PilHeader;
+  const bool rgb3 = nc == 3 || nc == 4;
   if (ph.mode == M::kL && cs == kCsGray && nc == 1) u = kGrayL;
+  if (ph.mode == M::kP && cs == kCsSrgb && nc == 1) u = kGrayL;
+  if (ph.mode == M::kPA && cs == kCsSrgb && nc == 2) u = kGrayALA;
   if (ph.mode == M::kI16 && cs == kCsGray && nc == 1) u = kGrayI;
   if (ph.mode == M::kLA && cs == kCsGray && nc == 2) u = kGrayALA;
   if (ph.mode == M::kRGB && cs == kCsGray && (nc == 1 || nc == 2)) u = kGrayRGB;
-  if (ph.mode == M::kRGB && cs == kCsSrgb && (nc == 3 || nc == 4)) u = kSrgbRGB;
+  if (ph.mode == M::kRGB && cs == kCsSrgb && rgb3) u = kSrgbRGB;
+  if (ph.mode == M::kRGB && cs == kCsSycc && rgb3) u = kSyccRGB;
   if (ph.mode == M::kRGBA && cs == kCsGray && nc == 1) u = kGrayRGB;
   if (ph.mode == M::kRGBA && cs == kCsGray && nc == 2) u = kGrayALA;
-  if (ph.mode == M::kRGBA && cs == kCsSrgb && (nc == 3 || nc == 4)) u = kSrgbRGB;
+  if (ph.mode == M::kRGBA && cs == kCsSrgb && rgb3) u = kSrgbRGB;
+  if (ph.mode == M::kRGBA && cs == kCsGray && nc == 4) u = kSrgbRGB;
+  if (ph.mode == M::kRGBA && cs == kCsSycc && rgb3) u = kSyccRGB;
+  if (ph.mode == M::kCmyk && cs == kCsCmyk && nc == 4) u = kCmykRGB;
   if (u == kNoUnpack) return kUnreadable;
-  std::vector<uint8_t> rgb(static_cast<size_t>(ph.w) * ph.h * 3, 0);
+  const bool paletted = ph.mode == M::kP || ph.mode == M::kPA;
+  // what convert("RGB") makes of the image's zeros where no tile writes
+  uint8_t blank[3] = {0, 0, 0};
+  if (paletted) std::memcpy(blank, ph.palette[0], 3);
+  if (u == kCmykRGB) cmyk_to_rgb(0, 0, 0, 0, blank);
+  std::vector<uint8_t> rgb(static_cast<size_t>(ph.w) * ph.h * 3);
+  for (size_t i = 0; i < rgb.size(); i++) rgb[i] = blank[i % 3];
+  const int ncomp = u == kCmykRGB ? 4 : u == kSrgbRGB || u == kSyccRGB ? 3 : 1;
+  // kGrayRGB's image as Pillow holds it, 4 bytes a pixel
+  std::vector<uint8_t> im4(u == kGrayRGB ? rgb.size() / 3 * 4 : 0, 0);
   // Jpeg2KDecode.c's tile buffer, zeros for each tile:
   // opj_tcd_update_tile_data packs each component's decoded samples into
   // it, the unpacker reads it as whole-tile planes
@@ -2356,39 +2619,57 @@ int read_pil_j2k(const uint8_t* d, size_t n, Image* img, int* dims, bool head) {
             for (size_t k = 0; k < csiz[c]; k++) tbuf[at++] = static_cast<uint8_t>(v >> (8 * k));
           }
       }
-      const int ncomp = u == kSrgbRGB ? 3 : 1;
+      int shift[4];
+      uint32_t offset[4];
       for (int c = 0; c < ncomp; c++) {
         const CompInfo& ci = j.cs.comps[c];
-        int shift = (u == kGrayI ? 16 : 8) - ci.prec;
-        uint32_t offset = ci.sgnd ? 1u << (ci.prec - 1) : 0;
-        if (shift < 0) offset += 1u << (-shift - 1);
-        const size_t bytes = csiz[c];
-        for (size_t y = 0; y < th; y++)
-          for (size_t x = 0; x < tw; x++) {
+        shift[c] = (u == kGrayI ? 16 : 8) - ci.prec;
+        offset[c] = ci.sgnd ? 1u << (ci.prec - 1) : 0;
+        if (shift[c] < 0) offset[c] += 1u << (-shift[c] - 1);
+      }
+      for (size_t y = 0; y < th; y++)
+        for (size_t x = 0; x < tw; x++) {
+          uint8_t b[4];
+          for (int c = 0; c < ncomp; c++) {
+            const size_t bytes = csiz[c];
             const uint8_t* q = &tbuf[plane[c] + (y * tw + x) * bytes];
             uint32_t word = 0;
             for (size_t k = 0; k < bytes; k++) word |= uint32_t{q[k]} << (8 * k);
-            const uint32_t v = pil_shift(offset + word, shift);
-            uint8_t b;
+            const uint32_t v = pil_shift(offset[c] + word, shift[c]);
             if (u == kGrayI) {
               const uint16_t v16 = static_cast<uint16_t>(v);
-              b = v16 > 255 ? 255 : static_cast<uint8_t>(v16);  // I;16 -> RGB
+              b[c] = v16 > 255 ? 255 : static_cast<uint8_t>(v16);  // I;16 -> RGB
             } else {
-              b = static_cast<uint8_t>(v);
+              b[c] = static_cast<uint8_t>(v);
             }
-            uint8_t* px = &rgb[((t0.y0 - j.cs.y0 + y) * static_cast<size_t>(ph.w) +
-                                (t0.x0 - j.cs.x0 + x)) * 3];
-            if (ncomp == 1)
-              px[0] = px[1] = px[2] = b;
-            else
-              px[c] = b;
           }
-      }
+          const size_t row = t0.y0 - j.cs.y0 + y, x0 = t0.x0 - j.cs.x0;
+          if (u == kGrayRGB) {
+            // j2ku_gray_rgb steps its 4-byte pixels from byte x0 of the
+            // row, not from pixel x0: (v, v, v, 255) at x0 + 4x
+            uint8_t* q = &im4[row * ph.w * 4 + x0 + 4 * x];
+            q[0] = q[1] = q[2] = b[0];
+            q[3] = 255;
+            continue;
+          }
+          uint8_t* px = &rgb[(row * static_cast<size_t>(ph.w) + x0 + x) * 3];
+          if (paletted)
+            std::memcpy(px, ph.palette[b[0]], 3);
+          else if (ncomp == 1)
+            px[0] = px[1] = px[2] = b[0];
+          else if (u == kSyccRGB)
+            pil_ycbcr_rgb(b[0], b[1], b[2], px);
+          else if (u == kCmykRGB)
+            cmyk_to_rgb(b[0], b[1], b[2], b[3], px);
+          else
+            std::memcpy(px, b, 3);
+        }
     });
     if (j.jp2.jp2) j.end_jp2(d, n);
   } catch (const Fail&) {
     return kUnreadable;
   }
+  for (size_t i = 0; i < im4.size() / 4; i++) std::memcpy(&rgb[3 * i], &im4[4 * i], 3);
   if (img) {
     img->w = ph.w;
     img->h = ph.h;

@@ -3735,12 +3735,8 @@ void to_rgb(const std::string& mode, const Px& px, const std::vector<uint8_t>& p
     }
   } else if (mode == "RGB" || mode == "RGBA") {
     for (int k = 0; k < 3; k++) o[k] = static_cast<uint8_t>(px.v[k]);
-  } else if (mode == "CMYK") {  // cmyk2rgb: nk - round(v nk / 255)
-    const int nk = 255 - px.v[3];
-    for (int k = 0; k < 3; k++) {
-      const int tmp = px.v[k] * nk + 128;
-      o[k] = static_cast<uint8_t>(std::clamp(nk - (((tmp >> 8) + tmp) >> 8), 0, 255));
-    }
+  } else if (mode == "CMYK") {
+    cmyk_to_rgb(px.v[0], px.v[1], px.v[2], px.v[3], o);
   } else if (mode == "I") {  // clipped
     o[0] = o[1] = o[2] = static_cast<uint8_t>(std::clamp(px.i, 0, 255));
   } else if (mode == "F") {  // clipped, truncated; NaN gives 0
