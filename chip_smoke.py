@@ -185,12 +185,13 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    and ``evaluate_directory`` over the readable files with phase 3's
    models. A ``jpeg_features:`` JSON line.
 13. The PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR, TIFF,
-   WebP (lossless and lossy) and JPEG 2000 (parts 1 to 3: the colour
-   boxes among them) files cv2 reads and
+   WebP (lossless and lossy) and JPEG 2000 (parts 1 to 4: the colour
+   boxes and HTJ2K among them) files cv2 reads and
    the port once refused, and the damaged ones cv2 gives None for
    (``image_formats_phase``), from the committed fixtures
    (``tests/data/images``, ``tests/data/webp``, ``tests/data/webp_lossy``,
-   ``tests/data/jpeg2000``, ``tests/data/jpeg2000_colour``): each decoded
+   ``tests/data/jpeg2000``, ``tests/data/jpeg2000_colour``,
+   ``tests/data/jpeg2000_ht``): each decoded
    equal to its ``expected.npz``
    (cv2's pixels, or PIL's for the damaged files, the gray PFM, the
    28-byte WebP, the ALPH damage PIL reads past and the JPEG 2000 files
@@ -198,7 +199,8 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    it, the rest raising (AVIF,
    JPEG 2000 of a feature the port leaves out and TIFF data named); a 640
    x 480 VP8L file built at run time (``webp_built``) decoded equal to its
-   source, the committed 640 x 480 lossy WebP and 9/7 JPEG 2000 files and
+   source, the committed 640 x 480 lossy WebP, 9/7 JPEG 2000 and 9/7
+   HTJ2K files and
    two 640 x 480 9/7 JPEG 2000 files built at run time (``j2k_built``:
    style 63, a POC, PPT; ``j2k_colour_built``: an sYCC colr box and a
    cdef that moves channels) to cv2's digests, with their decode rates;
@@ -370,8 +372,9 @@ C11_DIGESTS = {
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
 # at the top, the files it gives None for (and AVIF data, JPEG 2000 files
-# of a feature the port leaves out, a CAP marker in a JP2 file and in a raw
-# codestream, and a ZSTD TIFF, which the port does not decode) under skip/
+# of a feature the port leaves out, Part 2's MCO marker in a JP2 file and
+# in a raw codestream, and a ZSTD TIFF, which the port does not decode)
+# under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
@@ -401,7 +404,8 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_thunder_sgilog": ("tiff_2c_",),
                 "tiff_modes": ("tiff_modes_",), "webp": ("webp_",),
                 "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",),
-                "jpeg2000_part2": ("j2k2_",), "jpeg2000_colour": ("j2k3_",)}
+                "jpeg2000_part2": ("j2k2_",), "jpeg2000_colour": ("j2k3_",),
+                "jpeg2000_ht": ("j2k4_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -538,11 +542,25 @@ JPEG2000_COLOUR_PIL_READS = 3
 JPEG2000_COLOUR_BUILT = "j2k3_built_sycc_cdef.jpg"
 JPEG2000_COLOUR_DIGEST = (
     "55aa62e5e57f89b3f127d076b409f93970e646c03055d0ec826dcbc023d3d8a2")
+# phase 13's JPEG 2000 part 4 (HTJ2K): the j2k4_ fixtures of
+# tests/data/jpeg2000_ht (group and slice "jpeg2000_ht"; 3 of its skip/
+# files PIL reads), among them JPEG2000_HT_BIG, j2k_source in a JP2 file of
+# 64 x 64 HT code-blocks (the 9/7, the ICT; tests/data/jpeg2000_cases.py's
+# ht_big), held to JPEG2000_HT_DIGEST (SHA-256 of cv2.imread's RGB, which
+# tests/test_torch_port_jpeg2000_ht.py checks) and decoded
+# WEBP_BUILT_DECODES times a timed pass beside JPEG2000_BIG in one call
+JPEG2000_HT_FIXTURES = Path(__file__).resolve().parent / "tests" / (
+    "data") / "jpeg2000_ht"
+JPEG2000_HT_BIG = "j2k4_640x480_97.jpg"
+JPEG2000_HT_PIL_READS = 3
+JPEG2000_HT_DIGEST = (
+    "f21990e576e86caac1259a9243d17f7583c3421974e2a0e6afb31fd7f423e7f5")
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
                 "tiff": ("tiff",), "webp": ("webp_",),
                 "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",),
-                "jpeg2000_part2": ("j2k2_",), "jpeg2000_colour": ("j2k3_",)}
+                "jpeg2000_part2": ("j2k2_",), "jpeg2000_colour": ("j2k3_",),
+                "jpeg2000_ht": ("j2k4_",)}
 # C9 and C10 in phase 13: a PNG past the old 64 Mpx cap, and headers whose
 # size makes cv2.imread raise (built at run time from zlib and struct)
 BIG_PNG_SIDE = 8200
@@ -6090,6 +6108,30 @@ def jpeg2000_colour_checks(work):
     return cases, skips, pil_read, out
 
 
+def jpeg2000_ht_checks():
+    """JPEG 2000 part 4 (HTJ2K) in phase 13: the j2k4_ fixtures of
+    tests/data/jpeg2000_ht (webp_fixture_checks: HT code-blocks of the 5/3
+    and 9/7, RCT and ICT, gray of 12 bits, code-blocks of 64 x 64, 16 x 64
+    and 4 x 1024, tiles, layers, RPCL and CPRL, SOP and EPH, SigProp and
+    MagRef passes, a cdef box, CAP and CPF on a part 1 file, each equal to
+    cv2's pixels; the signed, offset and raw gray files PIL reads; RGN with
+    HT, the mixed style, 4 passes and an Scup of 4080 refused; the 640 x
+    480 file JPEG2000_HT_BIG held to JPEG2000_HT_DIGEST), and the big
+    file's decode_rate beside JPEG2000_BIG's, timed in turn. Returns (the
+    fixtures cv2 reads, the skip/ files, those PIL reads, the numbers for
+    phase 13's line)."""
+    cases, skips, pil_read = webp_fixture_checks(
+        JPEG2000_HT_FIXTURES, JPEG2000_HT_PIL_READS,
+        {JPEG2000_HT_BIG: JPEG2000_HT_DIGEST}, min_cases=10)
+    return cases, skips, pil_read, {
+        "cv2_reads": len(cases), "skip": len(skips),
+        "skip_pil_reads": len(pil_read),
+        "big": decode_rate(JPEG2000_HT_FIXTURES / JPEG2000_HT_BIG,
+                           *JPEG2000_BIG_SIZE),
+        "part1_big": decode_rate(JPEG2000_FIXTURES / JPEG2000_BIG,
+                                 *JPEG2000_BIG_SIZE)}
+
+
 def built_tiff_checks(work):
     """TIFF parts 2a and 2b on files built here: a little-endian BigTIFF of
     deflate strips and a big-endian tiled file (16 x 16 deflate tiles, edge
@@ -6237,8 +6279,9 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     leaves out and ZSTD TIFF data); the WebP fixtures and the built VP8L
     file (webp_checks), the lossy WebP fixtures with the 640 x 480 file
     (webp_lossy_checks) and the JPEG 2000 fixtures with theirs
-    (jpeg2000_checks), which join the trees below, and part 2's built
-    file (jpeg2000_part2_checks); host decode rates by
+    (jpeg2000_checks, jpeg2000_colour_checks, jpeg2000_ht_checks: HTJ2K's
+    640 x 480 file timed beside part 1's), which join the trees below,
+    and part 2's built file (jpeg2000_part2_checks); host decode rates by
     group (TIFF by layout, CCITT among them, lossless and lossy WebP, JPEG
     2000); the
     whole-file probe's cost on phase 5's .ppm and phase 11's .png trees;
@@ -6342,9 +6385,25 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           "digest, its decode rate "
           f"({result['jpeg2000_colour']['built']['megapixels_per_sec']:.2f} "
           f"MP/s) on one host thread beside {result['card']}")
-    cases = cases + webp_cases + lossy_cases + j2k_cases + j2k3_cases
-    skips = skips + webp_skips + lossy_skips + j2k_skips + j2k3_skips
-    pil_read += webp_pil + lossy_pil + j2k_pil + j2k3_pil
+    t0 = time.perf_counter()
+    j2k4_cases, j2k4_skips, j2k4_pil, result["jpeg2000_ht"] = (
+        jpeg2000_ht_checks())
+    result["jpeg2000_ht"]["seconds"] = time.perf_counter() - t0
+    print("JPEG 2000 part 4 (HTJ2K: HT code-blocks, CAP and CPF): "
+          + json.dumps(result["jpeg2000_ht"]) + ": the j2k4_ fixtures equal "
+          "to their expected.npz, skip/ files refused by the cv2 probe, "
+          f"decoded as PIL or failing; the {JPEG2000_BIG_SIZE[1]} x "
+          f"{JPEG2000_BIG_SIZE[0]} 9/7 HTJ2K file equal to cv2's digest, its "
+          "decode rate "
+          f"({result['jpeg2000_ht']['big']['megapixels_per_sec']:.2f} MP/s) "
+          "beside the part 1 9/7 file's "
+          f"({result['jpeg2000_ht']['part1_big']['megapixels_per_sec']:.2f} "
+          f"MP/s) on one host thread, beside {result['card']}")
+    cases = (cases + webp_cases + lossy_cases + j2k_cases + j2k3_cases
+             + j2k4_cases)
+    skips = (skips + webp_skips + lossy_skips + j2k_skips + j2k3_skips
+             + j2k4_skips)
+    pil_read += webp_pil + lossy_pil + j2k_pil + j2k3_pil + j2k4_pil
     result["fixtures"] = {
         "cv2_reads": len(cases), "skip": len(skips),
         "skip_pil_reads": len(pil_read), "foreign": len(IMAGE_FOREIGN)}
@@ -6384,7 +6443,8 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           + json.dumps(result["built_tiff_modes"]))
     groups = {g: [str(p) for p in cases + built_2c + built_modes
                   if p.name.startswith(prefixes)
-                  and p.name not in (WEBP_LOSSY_BIG, JPEG2000_BIG)]
+                  and p.name not in (WEBP_LOSSY_BIG, JPEG2000_BIG,
+                                     JPEG2000_HT_BIG)]
               for g, prefixes in IMAGE_GROUPS.items()}
     layouts = {q for g, paths in groups.items() if g.startswith("tiff_")
               for q in paths}
@@ -6428,7 +6488,8 @@ def image_formats_phase(dev, resunet, judge, rows, work):
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_bytes(p.read_bytes())
     written = int(want["generate_tree_written"]) + len(built_2c) + len(
-        webp_cases) + len(lossy_cases) + len(j2k_cases) + len(j2k3_cases)
+        webp_cases) + len(lossy_cases) + len(j2k_cases) + len(j2k3_cases) + (
+        len(j2k4_cases))
     mixed_files = offline.tree_files(str(mixed))
     dims = native.probe([str(p) for p in mixed_files], reader="cv2")
     kept = [p for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]

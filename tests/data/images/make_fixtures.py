@@ -8,7 +8,7 @@ phase into this directory: the cases of ``tests/data/image_cases.py``
 - ``skip/<case>``: SKIP_CASES, files cv2.imread gives None for (cut,
   corrupt, a refused variant), some of which PIL reads; and FOREIGN, AVIF
   data and JPEG 2000 files of a feature the port's decoder leaves out
-  (HTJ2K's CAP marker) under .png and .jpg names (what cv2
+  (Part 2's MCO marker) under .png and .jpg names (what cv2
   reads and the port does not decode) and a ZSTD-compressed TIFF (what PIL
   reads and the port does not decode);
 - ``expected.npz``: ``decoded__<case>`` = what the reference's readers give
@@ -63,9 +63,9 @@ _spec.loader.exec_module(jpeg2000_cases)
 
 def foreign(rng):
     """AVIF data and JPEG 2000 files of a feature the port's decoder leaves
-    out (HTJ2K's CAP marker in a JP2 file and in a raw codestream) under
-    .png and .jpg names, and Pillow's ZSTD-compressed TIFF (a TIFF layout
-    the port does not decode)."""
+    out (Part 2's MCO marker, a multi-component transform, in a JP2 file
+    and in a raw codestream) under .png and .jpg names, and Pillow's
+    ZSTD-compressed TIFF (a TIFF layout the port does not decode)."""
     out = {}
     out["tiff_zstd.png"] = pil_tiff(smooth(np.random.default_rng(
         TIFF2C_SEED + 1), 4, 6), "RGB", compression="zstd")
@@ -79,12 +79,12 @@ def foreign(rng):
             out[name] = enc.tobytes()
         elif name == "jp2.jpg":
             out[name] = jpeg2000_cases.insert_main(
-                jpeg2000_cases.pil_j2k(img), 0xFF50,
-                b"\x00\x02\x00\x00\x00\x00")
+                jpeg2000_cases.pil_j2k(img), 0xFF77,
+                jpeg2000_cases.MCO_BODY)
         else:  # small: the directory's size is bounded
             out[name] = jpeg2000_cases.insert_main(
-                jpeg2000_cases.opj_encode(img[:8, :8], numres=2), 0xFF50,
-                b"\x00\x02\x00\x00\x00\x00")
+                jpeg2000_cases.opj_encode(img[:8, :8], numres=2), 0xFF77,
+                jpeg2000_cases.MCO_BODY)
     return out
 
 

@@ -18,8 +18,10 @@ Each ``*_cases`` function gives ``{name: bytes}`` from the seeded stream it
 is handed: ``cases`` the files cv2.imread reads, ``skip_cases`` those it
 gives None for (some of which PIL reads), ``part2_cases`` and
 ``part2_skip_cases`` the same for part 2's features (code-block styles,
-POC, PPM and PPT, RGN), ``unsupported_cases`` files of the features the
-port leaves out, by feature.
+POC, PPM and PPT, RGN), ``colour_cases`` and ``colour_skip_cases`` for
+part 3's colour boxes, ``ht_cases`` and ``ht_skip_cases`` for part 4's
+HTJ2K (written by ``tests/data/htj2k_encode.py``), ``unsupported_cases``
+files of the features the port leaves out, by feature.
 """
 
 import ctypes
@@ -27,6 +29,7 @@ import glob
 import importlib.util
 import io
 import os
+import random
 import struct
 import tempfile
 from pathlib import Path
@@ -41,6 +44,11 @@ _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[2] / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
+# the HTJ2K writer of the part 4 cases
+_spec = importlib.util.spec_from_file_location(
+    "htj2k_encode", Path(__file__).resolve().parent / "htj2k_encode.py")
+ht = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(ht)
 
 JPEG2000_SEED = 24  # the JPEG 2000 files draw from their own stream
 BIG_SIZE = (480, 640)  # the file phase 13 of chip_smoke.py times
@@ -203,14 +211,26 @@ def opj_encode(img, numres=3, csty=0, mode=0, prog=0, irreversible=0,
         os.unlink(path)
 
 
-def opj_components(data):
+_MESSAGE = ctypes.CFUNCTYPE(None, ctypes.c_char_p, ctypes.c_void_p)
+
+
+def opj_components(data, messages=None):
     """What opj_decode gives for ``data`` (strict, OpenJPEG 2.5's default):
-    ``(x0, y0, [int32 [h, w] per component])``, or None where it fails."""
+    ``(x0, y0, [int32 [h, w] per component])``, or None where it fails;
+    OpenJPEG's error and warning messages appended to ``messages`` (a
+    list) if one is given."""
     lib = libopenjp2()
     path = _temp(".jp2")
     Path(path).write_bytes(data)
     jp2 = data[:4] == b"\0\0\0\x0c"
     codec = lib.opj_create_decompress(2 if jp2 else 0)
+    if messages is not None:
+        handler = _MESSAGE(lambda m, _: messages.append(
+            m.decode("latin-1").strip()))
+        for f in ("opj_set_error_handler", "opj_set_warning_handler"):
+            getattr(lib, f).argtypes = [ctypes.c_void_p, _MESSAGE,
+                                        ctypes.c_void_p]
+            getattr(lib, f)(codec, handler, None)
     p = ctypes.create_string_buffer(1 << 16)
     lib.opj_set_default_decoder_parameters(p)
     lib.opj_setup_decoder(codec, p)
@@ -870,11 +890,18 @@ def colour_skip_cases(rng):
     }
 
 
+# Part 2's multi-component transform markers the port leaves out (8h),
+# which cv2 reads: CBD of 3 components of depth 7 each, MCO of no stage
+CBD_BODY = b"\x00\x03\x07\x07\x07"
+MCO_BODY = b"\x00"
+
+
 def unsupported_cases(rng):
     """{name: (bytes, feature)}: valid files of the features the port
     leaves out, each of which raises naming JPEG 2000: sub-sampled
     components in a raw codestream and in a JP2 file with an sYCC colr
-    (8d), HTJ2K's CAP marker in a raw codestream and a JP2 file (8f)."""
+    (8d), Part 2's CBD marker in a raw codestream and its MCO marker in a
+    JP2 file (8h)."""
     img = smooth(rng, 21, 26)
     jp2 = pil_j2k(img)
     raw = pil_j2k(img, no_jp2=True)
@@ -883,10 +910,96 @@ def unsupported_cases(rng):
     out["subsampled.png"] = (sub, "sub-sampled components")
     out["subsampled_sycc.png"] = (set_colr(set_byte(
         jp2, siz_component(jp2, 1) + 1, 2), 18), "sub-sampled components")
-    cap = b"\x00\x02\x00\x00\x00\x00"
-    out["cap.png"] = (insert_main(raw, 0xFF50, cap), "HTJ2K")
-    out["jp2_cap.png"] = (insert_main(jp2, 0xFF50, cap), "HTJ2K")
+    out["cbd.png"] = (insert_main(raw, 0xFF78, CBD_BODY), "Part 2 CBD")
+    out["jp2_mco.png"] = (insert_main(jp2, 0xFF77, MCO_BODY), "Part 2 MCO")
     return out
+
+
+HT_BIG_STEP = 1.0  # the 9/7 step of the 640 x 480 HTJ2K file
+
+
+def ht_big():
+    """The 640 x 480 HTJ2K file phase 13 of chip_smoke.py times: JPEG2000_
+    BIG's source (chip_smoke.j2k_source) in a JP2 file, the 9/7 of 5 levels
+    and step HT_BIG_STEP, the ICT, 64 x 64 code-blocks, CAP."""
+    return ht.encode(chip_smoke.j2k_source(), levels=5, reversible=False,
+                     step=HT_BIG_STEP, cblk=(64, 64), jp2=True)
+
+
+def with_scup(data, scup):
+    """A code-block's cleanup segment with its Scup field set."""
+    d = bytearray(data)
+    d[-1] = (scup >> 4) & 0xFF
+    d[-2] = (d[-2] & 0xF0) | (scup & 0xF)
+    return bytes(d)
+
+
+def ht_cases(rng):
+    """Part 4's files cv2.imread reads: HTJ2K of the test encoder (5/3 and
+    RCT, 9/7 and ICT, gray of 12 bits, code-blocks of 64 x 64, 16 x 64 and
+    4 x 1024, tiles and 3 layers in RPCL and CPRL, SOP and EPH, the raw
+    codestream and JP2 with a cdef box, SigProp and MagRef passes of random
+    bytes under VSC), CAP and CPF markers on Pillow's part 1 file, and a
+    150 x 12 file in generate_tree buckets no other fixture brings."""
+    img = smooth(rng, 19, 23)
+    gray12 = (smooth(rng, 17, 21)[:, :, 0].astype(np.uint16) * 16
+              + rng.integers(0, 16, (17, 21)))
+    r = random.Random(int(rng.integers(1 << 30)))
+    out = {
+        "j2k4_53_rct.png": ht.encode(img, levels=2, jp2=True),
+        "j2k4_97_ict.jpg": ht.encode(img, levels=3, reversible=False,
+                                     step=0.75, jp2=True),
+        "j2k4_gray_12bit.png": ht.encode(gray12, levels=2, precision=12,
+                                         jp2=True),
+        "j2k4_cblk_16x64_tiles_rpcl.png": ht.encode(
+            img, levels=1, cblk=(16, 64), tile=(16, 12), layers=3,
+            progression="RPCL", jp2=True),
+        "j2k4_cblk_4x1024_cprl.jpg": ht.encode(
+            img, levels=2, reversible=False, step=1.5, cblk=(4, 1024),
+            progression="CPRL", layers=2, jp2=True),
+        "j2k4_raw_sop_eph.jpg": ht.encode(img, levels=2, reversible=False,
+                                          step=1.0, sop=True, eph=True),
+        "j2k4_cdef_swap.png": with_box(ht.encode(img, levels=1, jp2=True),
+                                       cdef_box([(0, 0, 3), (1, 0, 2),
+                                                 (2, 0, 1)])),
+        "j2k4_refine_sigprop.png": ht.encode(
+            img, levels=1, plane=1, refine=ht.random_refine((1,), (2, 9)),
+            rng=r, jp2=True),
+        "j2k4_refine_magref_vsc.png": ht.encode(
+            img, levels=1, plane=1, style=8, refine=ht.random_refine(
+                (2,), (2, 9)), rng=r, jp2=True),
+        "j2k4_cap_cpf_part1.png": insert_main(insert_main(
+            pil_j2k(img), 0xFF59, b"\x00\x01"), 0xFF50, ht.CAP_BODY),
+        "j2k4_150x12_97.jpg": ht.encode(smooth(rng, 150, 12, amp=6),
+                                        levels=2, reversible=False, step=2.0,
+                                        cblk=(16, 16), jp2=True),
+    }
+    return out
+
+
+def ht_skip_cases(rng):
+    """Part 4's files cv2.imread gives None for: HTJ2K that PIL reads
+    (signed samples, an image offset, a raw gray codestream) and files both
+    readers refuse (an RGN marker with HT code-blocks, the mixed HT style,
+    4 passes in a code-block, an Scup of 4080)."""
+    img = smooth(rng, 15, 18)
+    gray = img[:, :, 1]
+    r = random.Random(int(rng.integers(1 << 30)))
+    raw = ht.encode(img, levels=1)
+    cod = next(p for p, m, b in main_markers(raw) if m == 0xFF52) + 4
+    return {
+        "j2k4_signed.png": ht.encode(img, levels=1, signed=True, jp2=True),
+        "j2k4_offset_tiles.jpg": ht.encode(img, levels=1, offset=(5, 3),
+                                           tile=(12, 10), reversible=False,
+                                           jp2=True),
+        "j2k4_raw_gray.png": ht.encode(gray, levels=2),
+        "j2k4_rgn.png": insert_main(raw, 0xFF5E, b"\0\0\x02"),
+        "j2k4_mixed_style.png": set_byte(raw, cod + 8, 0xC0),
+        "j2k4_4_passes.png": ht.encode(img, levels=1, plane=1, refine=(
+            ht.random_refine((3,), (3, 6))), rng=r),
+        "j2k4_scup_4080.png": ht.encode(img, levels=1, mutate=lambda k, d: (
+            with_scup(d, 4080))),
+    }
 
 
 def build_big(rng):

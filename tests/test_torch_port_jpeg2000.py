@@ -89,10 +89,9 @@ def port_components(data):
 
 
 def unsupported_feature(data):
-    """The feature the port leaves out (ROADMAP items 8d and 8f) that
+    """The feature the port leaves out (ROADMAP items 8d and 8h) that
     ``data`` uses, by its main and first tile-part headers, or None:
-    sub-sampled components, HT code-blocks, a CAP, CPF, CBD, MCT, MCC or
-    MCO marker."""
+    sub-sampled components, Part 2's CBD, MCT, MCC or MCO marker."""
     at = cases.codestream_at(data)
     if at < 0:
         return None
@@ -101,17 +100,13 @@ def unsupported_feature(data):
         m = int.from_bytes(data[p:p + 2], "big")
         n = int.from_bytes(data[p + 2:p + 4], "big")
         body = data[p + 4:p + 2 + n]
-        if m in (0xFF50, 0xFF59, 0xFF78, 0xFF74, 0xFF75, 0xFF77):
+        if m in (0xFF78, 0xFF74, 0xFF75, 0xFF77):
             return hex(m)
         if m == 0xFF51 and len(body) >= 36:
             comps = body[36:]
             if any(comps[i + 1] != 1 or comps[i + 2] != 1
                    for i in range(0, len(comps) - 2, 3)):
                 return "sub-sampled components"
-        if m == 0xFF52 and len(body) >= 9 and body[8] & 0x40:
-            return "HT code-blocks"
-        if m == 0xFF53 and len(body) >= 6 and body[5] & 0x40:
-            return "HT code-blocks"
         if m in (0xFF93, 0xFF90) or n < 2:
             if m == 0xFF90:
                 p += 12
@@ -394,9 +389,10 @@ UNSUPPORTED = cases.unsupported_cases(np.random.default_rng(
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_feature_raises_naming_jpeg2000(tmp_path, name):
     """A valid file of a feature the port leaves out (sub-sampled
-    components in a raw codestream and in an sYCC JP2 file, HTJ2K's CAP in
-    both) raises naming JPEG 2000 on every reader path; the cv2 probe
-    refuses it; the reference reads it."""
+    components in a raw codestream and in an sYCC JP2 file, Part 2's CBD
+    marker in the one and its MCO marker in the other) raises naming JPEG
+    2000 on every reader path; the cv2 probe refuses it; the reference
+    reads it."""
     data, feature = UNSUPPORTED[name]
     p = tmp_path / name
     p.write_bytes(data)

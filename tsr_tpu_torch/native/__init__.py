@@ -32,12 +32,14 @@ the files under 32 bytes as PIL reads them); JPEG 2000 (a JP2 file or a
 raw codestream: lossless 5/3 and lossy 9/7, tiles and tile-parts, layers,
 the five progression orders and POC, precincts, every code-block style,
 SOP and EPH, PPM and PPT, RGN, components of 1-16 bits; the JP2 colour
-boxes: pclr and cmap, cdef, sYCC, ICC, CIELab and CMYK colr; as OpenJPEG
-2.5 decodes it for cv2, which refuses signed samples, precisions under 8,
-an image offset, more than 4 components, CMYK and eYCC, and reads sYCC
-through its own YUV matrix, and for PIL, which reads CMYK, its own
-palette and sYCC where cv2 does not; sub-sampled components and HTJ2K
-are left out); JPEG
+boxes: pclr and cmap, cdef, sYCC, ICC, CIELab and CMYK colr; HTJ2K's HT
+code-blocks, their cleanup, SigProp and MagRef passes, and the CAP and CPF
+markers; as OpenJPEG 2.5 decodes it for cv2, which refuses signed
+samples, precisions under 8, an image offset, more than 4 components,
+CMYK and eYCC, and reads sYCC through its own YUV matrix, and for PIL,
+which reads CMYK, its own palette and sYCC where cv2 does not; sub-sampled
+components and Part 2's multi-component transform (the CBD, MCT, MCC and
+MCO markers) are left out); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
 or corrupt as libjpeg recovers it, FF FF 00 in entropy data as
 libjpeg-turbo's fast and slow Huffman passes read it, lossless); EXIF
@@ -46,7 +48,8 @@ cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
 port does not decode (:data:`FORMATS`: JPEG 2000 of sub-sampled
-components or HTJ2K, AVIF, and TIFF of another layout: LZMA or ZSTD compression,
+components or Part 2's multi-component transform, AVIF, and TIFF of
+another layout: LZMA or ZSTD compression,
 Pillow's LAB...), or
 that only
 PIL reads and the port does not decode (PCX, SGI, ICO/CUR, DDS, QOI, ICNS,
@@ -93,7 +96,7 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "tsrio.cpp", _HERE / "jpeg.cpp", _HERE / "formats.cpp",
            _HERE / "gif.cpp", _HERE / "hdr.cpp", _HERE / "tiff.cpp",
            _HERE / "webp.cpp", _HERE / "vp8.cpp", _HERE / "jpeg2000.cpp")
-HEADERS = (_HERE / "codec.h",)
+HEADERS = (_HERE / "codec.h", _HERE / "ht_tables.h")
 BUILD_DIR = _build.BUILD_DIR.parent / "tsr_tpu_torch_native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
              "-ffp-contract=off")

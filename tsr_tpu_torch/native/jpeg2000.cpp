@@ -16,7 +16,10 @@
 // - tier 1 (the MQ decoder, the raw decoder of the bypass mode and the
 //   three coding passes under every code-block style: BYPASS, RESET,
 //   TERMALL, VSC, PTERM, SEGSYM) with OpenJPEG's half-step reconstruction
-//   and its max-shift ROI scaling;
+//   and its max-shift ROI scaling; HTJ2K's HT code-blocks (ITU-T T.814:
+//   the cleanup pass's MEL, VLC, UVLC and MagSgn streams, the SigProp and
+//   MagRef passes) by opj_t1_ht_decode_cblk, the CAP and CPF markers read
+//   and left aside as OpenJPEG leaves them;
 // - dequantisation (none, scalar derived, scalar expounded), the inverse
 //   5/3 in integers and the inverse 9/7 in float with OpenJPEG's constants
 //   and order of operations, RCT and ICT, and the DC level shift with
@@ -27,8 +30,10 @@
 //   unpackers (P and PA through its palette, sYCC, CMYK through cmyk2rgb).
 //
 // What the port leaves out raises naming JPEG 2000 (kJpeg2000): sub-sampled
-// components (ROADMAP 8d) and HTJ2K (a CAP, CPF, CBD, MCT, MCC or MCO
-// marker, HT code-blocks: 8f). Partial decodes (8g) are not offered.
+// components (ROADMAP 8d) and Part 2's multi-component transform (a CBD,
+// MCT, MCC or MCO marker: 8h). Partial decodes (8g) are not offered,
+// except where an HT code-block's own rules stop its refinement passes and
+// the decode goes on, as OpenJPEG's does.
 
 #include <algorithm>
 #include <cmath>
@@ -38,6 +43,7 @@
 #include <vector>
 
 #include "codec.h"
+#include "ht_tables.h"
 
 namespace tsrio {
 namespace {
@@ -489,7 +495,6 @@ uint32_t read_spcod(Tccp& t, int csty, const uint8_t* p, uint32_t size) {
   } else {
     for (int i = 0; i < t.numres; i++) t.prcw[i] = t.prch[i] = 15;
   }
-  if (t.cblksty & kHt) unsupported();  // HT code-blocks (HTJ2K)
   return used;
 }
 
@@ -723,7 +728,10 @@ void read_segment(Codestream& cs, Tcp& tcp, uint32_t m, const uint8_t* p,
         if (open) fail();
       }
       break;
-    default:  // CAP, CBD, CPF, MCT, MCC, MCO
+    case kCAP:
+    case kCPF:  // opj_j2k_read_cap and opj_j2k_read_cpf read nothing
+      break;
+    default:  // CBD, MCT, MCC, MCO: Part 2's multi-component transform
       unsupported();
   }
 }
@@ -886,12 +894,19 @@ struct Seg {
 struct Cblk {
   int x0, y0, x1, y1;
   int numbps = 0, numlenbits = 0, numnewpasses = 0, numsegs = 0;
+  // the HT decoder's: the band's bit-planes when the block is first
+  // included (Mb), its data's pieces (one a segment a packet, empty ones
+  // too) and where the first lies in the tile's data
+  uint32_t mb = 0;
+  int numchunks = 0;
+  size_t chunk0 = 0;
   std::vector<Seg> segs;
 };
 
 // opj_t2_init_seg: a new segment's pass count by the code-block style: one
 // pass under TERMALL; under BYPASS 10 first, then 2 and 1 in turn; else
-// 109.
+// 109. The HT style changes none of it (opj_t2_read_packet_header's HT
+// branch sets each segment's new passes itself).
 void init_seg(Cblk& cb, size_t index, int cblksty, bool first) {
   if (cb.segs.size() <= index) cb.segs.resize(index + 1);
   Seg& sg = cb.segs[index];
@@ -1054,12 +1069,12 @@ void init_tile(const Codestream& cs, const Tcp& tcp, int tx0, int ty0,
 }
 
 // opj_t2_decode_packet: one packet's header then its data, from `d` with
-// `n` bytes left in the tile; returns the bytes it took. The header comes
-// from `store` (PPM or PPT) where there is one, the SOP marker and the
-// data from `d`.
+// `n` bytes left in the tile (whose data starts at `base`); returns the
+// bytes it took. The header comes from `store` (PPM or PPT) where there is
+// one, the SOP marker and the data from `d`.
 size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
-                   int resno, int precno, int layno, const uint8_t* d,
-                   size_t n, HeaderStore* store) {
+                   int resno, int precno, int layno, const uint8_t* base,
+                   const uint8_t* d, size_t n, HeaderStore* store) {
   Res& res = tile[compno].res[resno];
   const int cblksty = tcp.tccps[compno].cblksty;
   const uint8_t* cur = d;
@@ -1109,6 +1124,7 @@ size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
         while (!prc.imsb.decode(bio, k, i)) {
           if (++i > 2048) fail();
         }
+        cb.mb = static_cast<uint32_t>(band.numbps);
         cb.numbps = band.numbps + 1 - i;
         cb.numlenbits = 3;
       }
@@ -1144,7 +1160,12 @@ size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
       int left = np;
       do {
         Seg& sg = cb.segs[segno];
-        sg.numnewpasses = std::min(sg.maxpasses - sg.numpasses, left);
+        // an HT block: the first segment takes one pass (the cleanup), any
+        // later one all that are left, whatever its maxpasses
+        if (cblksty & kHt)
+          sg.numnewpasses = segno == 0 ? 1 : left;
+        else
+          sg.numnewpasses = std::min(sg.maxpasses - sg.numpasses, left);
         const int bits = cb.numlenbits + floorlog2(static_cast<uint32_t>(sg.numnewpasses));
         if (bits > 32) fail();
         sg.newlen = bio.read(bits);
@@ -1176,6 +1197,7 @@ size_t read_packet(const Tcp& tcp, std::vector<TileComp>& tile, int compno,
       do {
         Seg& sg = cb.segs[segno];
         if (sg.newlen > static_cast<size_t>(end - h)) fail();  // "segment too long"
+        if (cb.numchunks++ == 0) cb.chunk0 = static_cast<size_t>(h - base);
         sg.data.insert(sg.data.end(), h, h + sg.newlen);
         h += sg.newlen;
         sg.numpasses += sg.numnewpasses;
@@ -1216,7 +1238,7 @@ void decode_packets(const Tcp& tcp, int tx0, int ty0, int tx1, int ty1,
                            std::max(maxprec, 1) + p;
     if (include[idx]) return;
     include[idx] = 1;
-    pos += read_packet(tcp, tile, c, r, p, l, data.data() + pos,
+    pos += read_packet(tcp, tile, c, r, p, l, data.data(), data.data() + pos,
                        data.size() - pos, store);
     resno_decoded[c] = std::max(resno_decoded[c], r);
   };
@@ -1640,6 +1662,731 @@ class T1 {
   Mq mq_;
 };
 
+// ------------------------------------------------------------ HT tier 1
+
+uint32_t le32(const uint8_t* p) {
+  return uint32_t{p[0]} | uint32_t{p[1]} << 8 | uint32_t{p[2]} << 16 |
+         uint32_t{p[3]} << 24;
+}
+
+// The bit readers of OpenJPEG's ht_dec.c over a code-block's bytes `b`.
+// Each first reads one byte at a time up to a 4-byte boundary of the
+// block's address (`align`: that address mod 4), then 4 bytes at a time;
+// only MEL's first bytes check anything, so only there does the address
+// change the outcome.
+
+// The MEL decoder (dec_mel_t: mel_init, mel_read, mel_decode,
+// mel_get_run): runs of zero events, forward from Lcup - Scup over Scup - 1
+// bytes, the last ORed with 0xF, 0xFF past them; after 0xFF a byte gives 7
+// bits, its MSB ORed onto the bit before.
+struct HtMel {
+  const uint8_t* b;
+  int pos = 0, size = 0, k = 0, num_runs = 0;
+  int bits = 0;
+  bool unstuff = false;
+  uint64_t tmp = 0, runs = 0;
+
+  // false: "Incorrect MEL segment sequence" (a byte above 0x8F after an
+  // 0xFF among the first 4 - address % 4)
+  bool init(const uint8_t* data, int lcup, int scup, int align) {
+    b = data;
+    pos = lcup - scup;
+    size = scup - 1;
+    const int num = 4 - ((align + pos) & 3);
+    for (int i = 0; i < num; ++i) {
+      if (unstuff && b[pos] > 0x8f) return false;
+      uint64_t d = size > 0 ? b[pos] : 0xff;
+      if (size == 1) d |= 0xf;
+      pos += size-- > 0;
+      const int d_bits = 8 - unstuff;
+      tmp = (tmp << d_bits) | d;
+      bits += d_bits;
+      unstuff = (d & 0xff) == 0xff;
+    }
+    tmp <<= (64 - bits);
+    return true;
+  }
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0xffffffffu;
+    if (size > 4) {
+      val = le32(b + pos);
+      pos += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      while (size > 1) {
+        const uint32_t v = b[pos++], m = ~(0xffu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+      const uint32_t v = b[pos++] | 0xfu, m = ~(0xffu << i);
+      val = (val & m) | (v << i);
+      --size;
+    }
+    int nbits = 32 - unstuff;
+    uint32_t t = val & 0xff;
+    bool u = (val & 0xff) == 0xff;
+    nbits -= u;
+    t = t << (8 - u);
+    t |= (val >> 8) & 0xff;
+    u = ((val >> 8) & 0xff) == 0xff;
+    nbits -= u;
+    t = t << (8 - u);
+    t |= (val >> 16) & 0xff;
+    u = ((val >> 16) & 0xff) == 0xff;
+    nbits -= u;
+    t = t << (8 - u);
+    t |= (val >> 24) & 0xff;
+    unstuff = ((val >> 24) & 0xff) == 0xff;
+    tmp |= uint64_t{t} << (64 - nbits - bits);
+    bits += nbits;
+  }
+  void decode() {
+    static const int kExp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    if (bits < 6) read();
+    while (bits >= 6 && num_runs < 8) {
+      int eval = kExp[k];
+      int run;
+      if (tmp & (uint64_t{1} << 63)) {
+        run = (1 << eval) - 1;
+        k = k + 1 < 12 ? k + 1 : 12;
+        tmp <<= 1;
+        bits -= 1;
+        run = run << 1;
+      } else {
+        run = static_cast<int>(tmp >> (63 - eval)) & ((1 << eval) - 1);
+        k = k - 1 > 0 ? k - 1 : 0;
+        tmp <<= eval + 1;
+        bits -= eval + 1;
+        run = (run << 1) + 1;
+      }
+      eval = num_runs * 7;
+      runs &= ~(uint64_t{0x3f} << eval);
+      runs |= static_cast<uint64_t>(run) << eval;
+      num_runs++;
+    }
+  }
+  int get_run() {
+    if (num_runs == 0) decode();
+    const int t = static_cast<int>(runs & 0x7f);
+    runs >>= 7;
+    num_runs--;
+    return t;
+  }
+};
+
+// The reverse readers (rev_struct_t): the VLC stream backward from Lcup - 3
+// (rev_init, its first half byte the upper nibble at Lcup - 2) and the
+// MagRef stream backward from the refinement segment's end (rev_init_mrp);
+// zeros past their bytes; after a byte above 0x8F one whose 7 low bits are
+// all set gives 7 bits.
+struct HtRev {
+  const uint8_t* b;
+  int pos = 0, size = 0;
+  uint32_t bits = 0;
+  bool unstuff = false;
+  uint64_t tmp = 0;
+
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0;
+    if (size > 3) {
+      val = le32(b + pos - 3);
+      pos -= 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 24;
+      while (size > 0) {
+        val |= uint32_t{b[pos--]} << i;
+        --size;
+        i -= 8;
+      }
+    }
+    uint32_t t = val >> 24;
+    uint32_t nbits = 8u - ((unstuff && ((val >> 24) & 0x7f) == 0x7f) ? 1u : 0u);
+    bool u = (val >> 24) > 0x8f;
+    t |= ((val >> 16) & 0xff) << nbits;
+    nbits += 8u - ((u && ((val >> 16) & 0x7f) == 0x7f) ? 1u : 0u);
+    u = ((val >> 16) & 0xff) > 0x8f;
+    t |= ((val >> 8) & 0xff) << nbits;
+    nbits += 8u - ((u && ((val >> 8) & 0x7f) == 0x7f) ? 1u : 0u);
+    u = ((val >> 8) & 0xff) > 0x8f;
+    t |= (val & 0xff) << nbits;
+    nbits += 8u - ((u && (val & 0x7f) == 0x7f) ? 1u : 0u);
+    u = (val & 0xff) > 0x8f;
+    tmp |= uint64_t{t} << bits;
+    bits += nbits;
+    unstuff = u;
+  }
+  void init_vlc(const uint8_t* data, int lcup, int scup, int align) {
+    b = data;
+    pos = lcup - 2;
+    size = scup - 2;
+    const uint32_t d = b[pos--];
+    tmp = d >> 4;
+    bits = 4 - ((tmp & 7) == 7);
+    unstuff = (d | 0xf) > 0x8f;
+    const int num = 1 + ((align + pos) & 3);
+    const int tnum = num < size ? num : size;
+    for (int i = 0; i < tnum; ++i) {
+      const uint64_t v = b[pos--];
+      const uint32_t d_bits = 8u - ((unstuff && (v & 0x7f) == 0x7f) ? 1u : 0u);
+      tmp |= v << bits;
+      bits += d_bits;
+      unstuff = v > 0x8f;
+    }
+    size -= tnum;
+    read();
+  }
+  void init_mrp(const uint8_t* data, int lcup, int len2, int align) {
+    b = data;
+    pos = lcup + len2 - 1;
+    size = len2;
+    unstuff = true;
+    const int num = 1 + ((align + pos) & 3);
+    for (int i = 0; i < num; ++i) {
+      const uint64_t v = size-- > 0 ? b[pos--] : 0;
+      const uint32_t d_bits = 8u - ((unstuff && (v & 0x7f) == 0x7f) ? 1u : 0u);
+      tmp |= v << bits;
+      bits += d_bits;
+      unstuff = v > 0x8f;
+    }
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return static_cast<uint32_t>(tmp);
+  }
+  uint32_t advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+    return static_cast<uint32_t>(tmp);
+  }
+};
+
+// The forward reader (frwd_struct_t): MagSgn from the block's start over
+// Lcup - Scup bytes, 0xFF past them; SigProp from the refinement segment's
+// start, zeros past it; after 0xFF a byte gives 7 bits.
+struct HtFrwd {
+  const uint8_t* b;
+  int pos = 0, size = 0;
+  uint32_t bits = 0, x = 0;
+  bool unstuff = false;
+  uint64_t tmp = 0;
+
+  void read() {
+    uint32_t val;
+    if (size > 3) {
+      val = le32(b + pos);
+      pos += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      val = x != 0 ? 0xffffffffu : 0;
+      while (size > 0) {
+        const uint32_t v = b[pos++], m = ~(0xffu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+    } else {
+      val = x != 0 ? 0xffffffffu : 0;
+    }
+    uint32_t nbits = 8u - (unstuff ? 1u : 0u);
+    uint32_t t = val & 0xff;
+    bool u = (val & 0xff) == 0xff;
+    t |= ((val >> 8) & 0xff) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    u = ((val >> 8) & 0xff) == 0xff;
+    t |= ((val >> 16) & 0xff) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    u = ((val >> 16) & 0xff) == 0xff;
+    t |= ((val >> 24) & 0xff) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    unstuff = ((val >> 24) & 0xff) == 0xff;
+    tmp |= uint64_t{t} << bits;
+    bits += nbits;
+  }
+  void init(const uint8_t* data, int start, int n, uint32_t fill, int align) {
+    b = data;
+    pos = start;
+    size = n;
+    x = fill;
+    const int num = 4 - ((align + start) & 3);
+    for (int i = 0; i < num; ++i) {
+      const uint64_t d = size-- > 0 ? b[pos++] : x;
+      tmp |= d << bits;
+      bits += 8u - (unstuff ? 1u : 0u);
+      unstuff = (d & 0xff) == 0xff;
+    }
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return static_cast<uint32_t>(tmp);
+  }
+  void advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+  }
+};
+
+// The UVLC prefix codes by their next 3 bits (LSB first): the prefix's
+// length (bits 0-1), the suffix's length (bits 2-4), u_pfx (bits 5-7).
+constexpr uint8_t kUvlc[8] = {
+    3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5), 2 | (0 << 2) | (2 << 5),
+    1 | (0 << 2) | (1 << 5), 3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5),
+    2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+
+// decode_init_uvlc: u + kappa (1) of a quad pair of the first row pair by
+// its u_off bits (`mode` 1, 2, 3; 4 where both are set and the MEL event is
+// 1, which adds 2); with both set and the first prefix past 2 the second
+// quad's u is one bit. Returns the bits taken.
+uint32_t decode_init_uvlc(uint32_t vlc, uint32_t mode, uint32_t* u) {
+  uint32_t consumed = 0;
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    uint32_t d = kUvlc[vlc & 7];
+    vlc >>= d & 3;
+    consumed += d & 3;
+    const uint32_t suffix = (d >> 2) & 7;
+    consumed += suffix;
+    d = (d >> 5) + (vlc & ((1u << suffix) - 1));
+    u[0] = mode == 1 ? d + 1 : 1;
+    u[1] = mode == 1 ? 1 : d + 1;
+  } else if (mode == 3) {
+    uint32_t d1 = kUvlc[vlc & 7];
+    vlc >>= d1 & 3;
+    consumed += d1 & 3;
+    if ((d1 & 3) > 2) {
+      u[1] = (vlc & 1) + 1 + 1;
+      ++consumed;
+      vlc >>= 1;
+      const uint32_t suffix = (d1 >> 2) & 7;
+      consumed += suffix;
+      d1 = (d1 >> 5) + (vlc & ((1u << suffix) - 1));
+      u[0] = d1 + 1;
+    } else {
+      uint32_t d2 = kUvlc[vlc & 7];
+      vlc >>= d2 & 3;
+      consumed += d2 & 3;
+      uint32_t suffix = (d1 >> 2) & 7;
+      consumed += suffix;
+      d1 = (d1 >> 5) + (vlc & ((1u << suffix) - 1));
+      u[0] = d1 + 1;
+      vlc >>= suffix;
+      suffix = (d2 >> 2) & 7;
+      consumed += suffix;
+      d2 = (d2 >> 5) + (vlc & ((1u << suffix) - 1));
+      u[1] = d2 + 1;
+    }
+  } else if (mode == 4) {
+    uint32_t d1 = kUvlc[vlc & 7];
+    vlc >>= d1 & 3;
+    consumed += d1 & 3;
+    uint32_t d2 = kUvlc[vlc & 7];
+    vlc >>= d2 & 3;
+    consumed += d2 & 3;
+    uint32_t suffix = (d1 >> 2) & 7;
+    consumed += suffix;
+    d1 = (d1 >> 5) + (vlc & ((1u << suffix) - 1));
+    u[0] = d1 + 3;
+    vlc >>= suffix;
+    suffix = (d2 >> 2) & 7;
+    consumed += suffix;
+    d2 = (d2 >> 5) + (vlc & ((1u << suffix) - 1));
+    u[1] = d2 + 3;
+  }
+  return consumed;
+}
+
+// decode_noninit_uvlc: the same for the later row pairs (no MEL event, no
+// one-bit rule).
+uint32_t decode_noninit_uvlc(uint32_t vlc, uint32_t mode, uint32_t* u) {
+  uint32_t consumed = 0;
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    uint32_t d = kUvlc[vlc & 7];
+    vlc >>= d & 3;
+    consumed += d & 3;
+    const uint32_t suffix = (d >> 2) & 7;
+    consumed += suffix;
+    d = (d >> 5) + (vlc & ((1u << suffix) - 1));
+    u[0] = mode == 1 ? d + 1 : 1;
+    u[1] = mode == 1 ? 1 : d + 1;
+  } else if (mode == 3) {
+    uint32_t d1 = kUvlc[vlc & 7];
+    vlc >>= d1 & 3;
+    consumed += d1 & 3;
+    uint32_t d2 = kUvlc[vlc & 7];
+    vlc >>= d2 & 3;
+    consumed += d2 & 3;
+    uint32_t suffix = (d1 >> 2) & 7;
+    consumed += suffix;
+    d1 = (d1 >> 5) + (vlc & ((1u << suffix) - 1));
+    u[0] = d1 + 1;
+    vlc >>= suffix;
+    suffix = (d2 >> 2) & 7;
+    consumed += suffix;
+    d2 = (d2 >> 5) + (vlc & ((1u << suffix) - 1));
+    u[1] = d2 + 1;
+  }
+  return consumed;
+}
+
+uint32_t popcount32(uint32_t v) { return static_cast<uint32_t>(__builtin_popcount(v)); }
+uint32_t bit_length(uint32_t v) { return 32u - static_cast<uint32_t>(__builtin_clz(v)); }
+
+// One HT code-block (opj_t1_ht_decode_cblk), in OpenJPEG's doubled scale
+// like T1's: a cleanup sample of magnitude mu holds (2 mu + 1) << (p - 1)
+// for p = numbps, the refinement passes working one bit-plane lower, sign
+// and magnitude until the end. Fail() where OpenJPEG fails the decode: ROI,
+// more than 3 passes, Mb over 30, more zero bit-planes than Mb, the
+// segments' lengths, Scup, the MEL stream's first bytes, a U_q past the
+// zero bit-planes + 1, a VLC codeword that makes a sample outside the
+// block significant. The refinement passes are dropped and the block
+// decoded on (OpenJPEG only warns) where the second segment is empty or
+// the zero bit-planes equal Mb.
+//
+// OpenJPEG runs the SigProp and MagRef passes of each stripe of 4 rows
+// inside the cleanup's loop, once the rows below it are decoded; they read
+// streams of their own and only the cleanup's significance, so here they
+// run after it, stripe by stripe in the same order, over every stripe's
+// significance kept (sigma: 4 rows a nibble, 8 columns a word).
+class HtBlock {
+ public:
+  HtBlock(int w, int h, int cblksty)
+      : w_(w), h_(h), causal_((cblksty & kVsc) != 0),
+        stripes_((h + 3) / 4), data_(static_cast<size_t>(w) * h, 0),
+        sigma_(static_cast<size_t>(stripes_ + 1) * kWords, 0),
+        mbr_(static_cast<size_t>(stripes_ + 1) * kWords, 0) {}
+
+  std::vector<int32_t>& decode(const Cblk& cb, int roishift) {
+    if (roishift != 0) fail();  // "We do not support ROI in decoding HT codeblocks"
+    const uint32_t mb = cb.mb;
+    if (mb == 0) return data_;
+    const uint32_t zero_bplanes = mb + 1 - static_cast<uint32_t>(cb.numbps);
+    if (cb.numchunks == 0) return data_;
+    // every piece of the block's data, in the order they came; a block of
+    // one piece is read in place in the tile's data, one of more in a
+    // buffer of its own (malloc'd, its address a multiple of 4)
+    std::vector<uint8_t> coded;
+    for (int s = 0; s < cb.numsegs; s++)
+      coded.insert(coded.end(), cb.segs[s].data.begin(), cb.segs[s].data.end());
+    const int align = cb.numchunks == 1 ? static_cast<int>(cb.chunk0 & 3) : 0;
+    const uint32_t cblk_len = static_cast<uint32_t>(coded.size());
+    const auto seg_len = [&](int k) {
+      return k < cb.numsegs ? static_cast<uint32_t>(cb.segs[k].data.size()) : 0u;
+    };
+    uint32_t num_passes = cb.numsegs > 0 ? static_cast<uint32_t>(cb.segs[0].numpasses) : 0;
+    num_passes += cb.numsegs > 1 ? static_cast<uint32_t>(cb.segs[1].numpasses) : 0;
+    const uint32_t lengths1 = num_passes > 0 ? seg_len(0) : 0;
+    const uint32_t lengths2 = num_passes > 1 ? seg_len(1) : 0;
+    if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // "zero length for 2nd ... pass"
+    if (num_passes > 3) fail();  // "more than 3 coding passes in an HT codeblock"
+    if (mb > 30) fail();         // "32 bits are not enough"
+    if (zero_bplanes > mb) fail();  // "There are %d zero bitplanes in %d bitplanes"
+    if (zero_bplanes == mb && num_passes > 1) num_passes = 1;  // "only the cleanup pass"
+    const uint32_t p = static_cast<uint32_t>(cb.numbps);
+    if (lengths1 < 2 || lengths1 > cblk_len || lengths1 + lengths2 > cblk_len)
+      fail();  // "Invalid codeblock length values"
+    const uint8_t* cd = coded.data();
+    const int lcup = static_cast<int>(lengths1);
+    const int scup = (int{cd[lcup - 1]} << 4) + (cd[lcup - 2] & 0xf);
+    if (scup < 2 || scup > lcup || scup > 4079) fail();  // "2 <= Scup <= min(Lcup, 4079)"
+    HtMel mel;
+    if (!mel.init(cd, lcup, scup, align)) fail();  // "Incorrect MEL segment sequence"
+    HtRev vlc;
+    vlc.init_vlc(cd, lcup, scup, align);
+    HtFrwd magsgn;
+    magsgn.init(cd, 0, lcup - scup, 0xff, align);
+    HtFrwd sigprop;
+    HtRev magref;
+    if (num_passes > 1) sigprop.init(cd, lcup, static_cast<int>(lengths2), 0, align);
+    if (num_passes > 2) magref.init_mrp(cd, lcup, static_cast<int>(lengths2), align);
+    cleanup(mel, vlc, magsgn, p, zero_bplanes + 1);
+    if (num_passes > 1) {
+      for (int s = 0; s < stripes_; s++) {
+        if (num_passes > 2) magref_pass(magref, s, p);
+        membership(s);
+      }
+      for (int s = 0; s < stripes_; s++) sigprop_pass(sigprop, s, p);
+    }
+    for (int32_t& v : data_) {
+      const uint32_t u = static_cast<uint32_t>(v);
+      const int32_t mag = static_cast<int32_t>(u & 0x7fffffffu);
+      v = (u & 0x80000000u) ? -mag : mag;
+    }
+    return data_;
+  }
+
+ private:
+  static constexpr int kWords = 132;  // a stripe's words of 8 columns, and room
+
+  uint32_t get(int x, int y) const {
+    return static_cast<uint32_t>(data_[static_cast<size_t>(y) * w_ + x]);
+  }
+  void set(int x, int y, uint32_t v) {
+    data_[static_cast<size_t>(y) * w_ + x] = static_cast<int32_t>(v);
+  }
+  uint32_t* sig(int s) { return &sigma_[static_cast<size_t>(s) * kWords]; }
+  uint32_t* mbr(int s) { return &mbr_[static_cast<size_t>(s) * kWords]; }
+
+  // a significant sample's MagSgn bits: m_n of them (the sign their LSB),
+  // e_1 above them, the bin's centre below; `k` the sample's place in its
+  // quad (0-3, column by column). Returns v_n.
+  static uint32_t magsgn(HtFrwd& ms, uint32_t qinf, int k, uint32_t uq,
+                         uint32_t p, uint32_t& out) {
+    const uint32_t ms_val = ms.fetch();
+    const uint32_t m_n = uq - ((qinf >> (12 + k)) & 1);
+    ms.advance(m_n);
+    uint32_t v_n = ms_val & ((1u << m_n) - 1);
+    v_n |= ((qinf >> (8 + k)) & 1) << m_n;
+    v_n |= 1;
+    out = (ms_val << 31) | ((v_n + 2) << (p - 1));
+    return v_n;
+  }
+
+  // The cleanup pass, a row pair at a time: the first (kHtVlc0, a MEL
+  // event for a zero context and for two u_off, decode_init_uvlc), then
+  // the rest (kHtVlc1, contexts and kappa from the line state: a byte a
+  // quad of the row above, bit 7 sigma^NW | sigma^N, below it max(E^NW,
+  // E^N)).
+  void cleanup(HtMel& mel, HtRev& vlc, HtFrwd& ms, uint32_t p,
+               uint32_t zero_bplanes_p1) {
+    int run = mel.get_run();
+    uint8_t* const ls = line_state_;
+    for (int y = 0; y < h_; y += 2) {
+      const bool initial = y == 0;
+      uint32_t* sg = sig(y >> 2);
+      uint8_t* lsp = ls;
+      uint8_t ls0 = lsp[0];
+      lsp[0] = 0;
+      uint32_t c_q = 0;
+      for (int x = 0; x < w_; x += 4) {
+        uint32_t qinf[2] = {0, 0}, u_q[2];
+        const uint16_t* tbl = initial ? kHtVlc0 : kHtVlc1;
+        uint32_t vlc_val = vlc.fetch();
+        for (int q = 0; q < 2; q++) {
+          if (q == 1 && x + 2 >= w_) break;
+          if (!initial) {
+            c_q |= (q == 0 ? ls0 : lsp[1]) >> 7;
+            c_q |= (lsp[q + 1] >> 5) & 0x4;
+          }
+          qinf[q] = tbl[(c_q << 7) | (vlc_val & 0x7f)];
+          if (c_q == 0) {  // a MEL event: 1 keeps the codeword
+            run -= 2;
+            qinf[q] = run == -1 ? qinf[q] : 0;
+            if (run < 0) run = mel.get_run();
+          }
+          c_q = initial ? ((qinf[q] & 0x10) >> 4) | ((qinf[q] & 0xe0) >> 5)
+                        : ((qinf[q] & 0x40) >> 5) | ((qinf[q] & 0x80) >> 6);
+          vlc_val = vlc.advance(qinf[q] & 0x7);
+        }
+        const uint32_t shift = ((x & 4) ? 16u : 0u) + static_cast<uint32_t>(y & 2);
+        sg[x >> 3] |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xc0) >> 2)) << shift;
+        sg[x >> 3] |= ((qinf[1] & 0x30) | ((qinf[1] & 0xc0) << 2)) << (4 + shift);
+        uint32_t mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+        if (initial) {
+          if (mode == 3) {  // both u_off: a MEL event, 1 adds 2 to each u
+            run -= 2;
+            mode += run == -1 ? 1 : 0;
+            if (run < 0) run = mel.get_run();
+          }
+          vlc_val = vlc.advance(decode_init_uvlc(vlc_val, mode, u_q));
+          if (u_q[0] > zero_bplanes_p1 || u_q[1] > zero_bplanes_p1)
+            fail();  // "U_q is larger than zero bitplanes + 1"
+        } else {
+          vlc_val = vlc.advance(decode_noninit_uvlc(vlc_val, mode, u_q));
+          // kappa of a quad of two or more significant samples:
+          // max(E^NW, E^N, E^NE, E^NF) - 1 past 1
+          if ((qinf[0] & 0xf0) & ((qinf[0] & 0xf0) - 1)) {
+            const uint32_t e = std::max<uint32_t>(ls0 & 0x7f, lsp[1] & 0x7f);
+            u_q[0] += e > 2 ? e - 2 : 0;
+          }
+          if ((qinf[1] & 0xf0) & ((qinf[1] & 0xf0) - 1)) {
+            const uint32_t e = std::max<uint32_t>(lsp[1] & 0x7f, lsp[2] & 0x7f);
+            u_q[1] += e > 2 ? e - 2 : 0;
+          }
+          if (u_q[0] > zero_bplanes_p1 || u_q[1] > zero_bplanes_p1)
+            fail();  // "U_q islarger than bitplanes + 1"
+          ls0 = lsp[2];
+          lsp[1] = lsp[2] = 0;
+        }
+        uint32_t locs = 0xff;
+        if (x + 4 > w_) locs >>= (x + 4 - w_) << 1;
+        if (y + 2 > h_) locs &= 0x55;
+        if ((((qinf[0] & 0xf0) >> 4) | (qinf[1] & 0xf0)) & ~locs)
+          fail();  // "VLC code produces significant samples outside the codeblock area"
+        // the samples column by column, (x, y), (x, y + 1), (x + 1, y), ...;
+        // the second row's exponents E = bit_length(v_n) into the line
+        // state: max(E^NW, E^N) at a quad's first column, E^NW at its second
+        for (int col = 0; col < 4; col++) {
+          const uint32_t qi = qinf[col >> 1];
+          const int k = 2 * (col & 1);  // the column's top sample in its quad
+          const uint32_t at = 1u << (2 * col);
+          uint32_t v;
+          if (qi & (0x10u << k)) {
+            magsgn(ms, qi, k, u_q[col >> 1], p, v);
+            set(x + col, y, v);
+          } else if (locs & at) {
+            set(x + col, y, 0);
+          }
+          if (qi & (0x20u << k)) {
+            const uint32_t e = bit_length(magsgn(ms, qi, k + 1, u_q[col >> 1], p, v));
+            set(x + col, y + 1, v);
+            const uint32_t t = col & 1 ? 0 : lsp[0] & 0x7f;
+            lsp[0] = static_cast<uint8_t>(0x80 | (t > e ? t : e));
+          } else if (locs & (at << 1)) {
+            set(x + col, y + 1, 0);
+          }
+          if (!(col & 1)) ++lsp;
+        }
+      }
+    }
+  }
+
+  // MagRef over stripe s (rows 4s..): a bit a cleanup-significant sample,
+  // 8 columns at a time, column by column; 0 takes the bin's centre back
+  // down, both add half of it.
+  void magref_pass(HtRev& mrp, int s, uint32_t p) {
+    const uint32_t half = 1u << (p - 2);
+    const uint32_t* cur = sig(s);
+    for (int i = 0; i < w_; i += 8) {
+      uint32_t cwd = mrp.fetch();
+      const uint32_t sg = *cur++;
+      if (sg)
+        for (int j = 0; j < 8; j++)
+          for (int r = 0; r < 4; r++) {
+            if (!(sg & (1u << (4 * j + r)))) continue;
+            const int x = i + j, y = 4 * s + r;
+            uint32_t v = get(x, y);
+            v ^= (1 - (cwd & 1)) << (p - 1);
+            v |= half;
+            set(x, y, v);
+            cwd >>= 1;
+          }
+      mrp.advance(popcount32(sg));
+    }
+  }
+
+  // a stripe's membership within itself: the 8 neighbours of its
+  // significant samples, less those samples
+  void membership(int s) {
+    const uint32_t* sg = sig(s);
+    uint32_t* m = mbr(s);
+    uint32_t prev = 0;
+    for (int i = 0; i < w_; i += 8, m++, sg++) {
+      m[0] = sg[0];
+      m[0] |= prev >> 28;
+      m[0] |= sg[0] << 4;
+      m[0] |= sg[0] >> 4;
+      m[0] |= sg[1] << 28;
+      prev = sg[0];
+      const uint32_t t = m[0];
+      uint32_t z = m[0];
+      z |= (t & 0x77777777u) << 1;
+      z |= (t & 0xeeeeeeeeu) >> 1;
+      m[0] = z & ~sg[0];
+    }
+  }
+
+  // SigProp over stripe s: the stripe below's cleanup significance joins
+  // its membership (not under VSC), then 4 columns at a time a bit for
+  // each member (column by column; one that becomes significant spreads
+  // to the members after it) and the signs of the new ones; the new ones
+  // and the stripe's own spread to the next stripe's top row.
+  void sigprop_pass(HtFrwd& spp, int s, uint32_t p) {
+    const int y0 = 4 * s, rows = std::min(4, h_ - y0);
+    const uint32_t pattern = rows == 4 ? 0xffffffffu : rows == 3 ? 0x77777777u
+                             : rows == 2 ? 0x33333333u : 0x11111111u;
+    if (s + 1 < stripes_) {
+      uint32_t prev = 0;
+      uint32_t *cur_sig = sig(s), *cur_mbr = mbr(s), *nxt_sig = sig(s + 1);
+      for (int i = 0; i < w_; i += 8, cur_mbr++, cur_sig++, nxt_sig++) {
+        uint32_t t = nxt_sig[0];
+        t |= prev >> 28;
+        t |= nxt_sig[0] << 4;
+        t |= nxt_sig[0] >> 4;
+        t |= nxt_sig[1] << 28;
+        prev = nxt_sig[0];
+        if (!causal_) cur_mbr[0] |= (t & 0x11111111u) << 3;
+        cur_mbr[0] &= ~cur_sig[0];
+      }
+    }
+    const uint32_t val = 3u << (p - 2);
+    uint32_t *cur_sig = sig(s), *cur_mbr = mbr(s);
+    uint32_t *nxt_sig = sig(s + 1), *nxt_mbr = mbr(s + 1);
+    for (int i = 0; i < w_; i += 8, cur_sig++, cur_mbr++, nxt_sig++, nxt_mbr++) {
+      uint32_t members = *cur_mbr & pattern;
+      uint32_t new_sig = 0;
+      if (members) {
+        for (int n = 0; n < 8; n += 4) {
+          uint32_t cwd = spp.fetch();
+          uint32_t cnt = 0;
+          const uint32_t inv_sig = ~cur_sig[0] & pattern;
+          const int end = n + 4 + i < w_ ? n + 4 : w_ - i;
+          for (int j = n; j < end; ++j) {
+            if (((0xfu << (4 * j)) & members) == 0) continue;
+            static const uint32_t kSpread[4] = {0x32u, 0x74u, 0xe8u, 0xc0u};
+            for (int r = 0; r < 4; r++) {
+              const uint32_t sample = 1u << (4 * j + r);
+              if (!(members & sample)) continue;
+              if (cwd & 1) {
+                new_sig |= sample;
+                members |= (kSpread[r] << (j * 4)) & inv_sig;
+              }
+              cwd >>= 1;
+              ++cnt;
+            }
+          }
+          if (new_sig & (0xffffu << (4 * n))) {
+            for (int j = n; j < end; ++j) {
+              if (((0xfu << (4 * j)) & new_sig) == 0) continue;
+              for (int r = 0; r < 4; r++) {
+                if (!(new_sig & (1u << (4 * j + r)))) continue;
+                const int x = i + j, y = y0 + r;
+                set(x, y, get(x, y) | ((cwd & 1) << 31) | val);
+                cwd >>= 1;
+                ++cnt;
+              }
+            }
+          }
+          spp.advance(cnt);
+          if (n == 4) {  // the next 8 columns' first
+            uint32_t t = new_sig >> 28;
+            t |= ((t & 0xe) >> 1) | ((t & 7) << 1);
+            cur_mbr[1] |= t & ~cur_sig[1];
+          }
+        }
+      }
+      new_sig |= cur_sig[0];
+      const uint32_t ux = (new_sig & 0x88888888u) >> 3;
+      const uint32_t tx = ux | (ux << 4) | (ux >> 4);
+      if (i > 0) nxt_mbr[-1] |= (ux << 28) & ~nxt_sig[-1];
+      nxt_mbr[0] |= tx & ~nxt_sig[0];
+      nxt_mbr[1] |= (ux >> 28) & ~nxt_sig[1];
+    }
+  }
+
+  int w_, h_;
+  bool causal_;
+  int stripes_;
+  std::vector<int32_t> data_;
+  std::vector<uint32_t> sigma_, mbr_;  // a stripe's kWords each, one spare
+  uint8_t line_state_[528] = {};
+};
+
 // ------------------------------------------------------------ transforms
 
 int mirror(int k, int n) {
@@ -1747,8 +2494,16 @@ void decode_tile(Codestream& cs, const Tcp& tcp, int tileno,
           for (Cblk& cb : prc.cblks) {
             const int w = cb.x1 - cb.x0, h = cb.y1 - cb.y0;
             if (w <= 0 || h <= 0) continue;
-            T1 t1(w, h, band.bandno, tccp.cblksty);
-            std::vector<int32_t>& d = t1.decode(cb, tccp.roishift);
+            // opj_t1_clbl_decode_processor: the HT decoder for a block of
+            // the HT style, T1 for the rest
+            std::unique_ptr<HtBlock> ht;
+            std::unique_ptr<T1> t1;
+            if (tccp.cblksty & kHt)
+              ht = std::make_unique<HtBlock>(w, h, tccp.cblksty);
+            else
+              t1 = std::make_unique<T1>(w, h, band.bandno, tccp.cblksty);
+            std::vector<int32_t>& d = ht ? ht->decode(cb, tccp.roishift)
+                                         : t1->decode(cb, tccp.roishift);
             // opj_t1_clbl_decode_processor's ROI: magnitudes at or above
             // 1 << roishift scaled down by it (every one zeroed past 30)
             if (tccp.roishift >= 31) {
