@@ -372,9 +372,9 @@ C11_DIGESTS = {
 # phase 13: the PNG, PNM, PAM, BMP, GIF, Sun raster, PFM, Radiance HDR and
 # TIFF files of tests/data/images (make_fixtures.py): the variants cv2 reads
 # at the top, the files it gives None for (and AVIF data, JPEG 2000 files
-# of a feature the port leaves out, Part 2's MCO marker in a JP2 file and
-# in a raw codestream, and a ZSTD TIFF, which the port does not decode)
-# under skip/
+# of the feature the port leaves out, sub-sampled components in a JP2 file
+# and in a raw codestream, and a ZSTD TIFF, which the port does not
+# decode) under skip/
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_SUFFIXES = (".ppm", ".png", ".jpg", ".jpeg", ".bmp")
 IMAGE_FOREIGN = {"avif.png": "AVIF", "jp2.jpg": "JPEG 2000",
@@ -405,7 +405,7 @@ IMAGE_GROUPS = {"pnm_ascii": ("p1_", "p2_", "p3_"), "pnm_binary": ("p4_",
                 "tiff_modes": ("tiff_modes_",), "webp": ("webp_",),
                 "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",),
                 "jpeg2000_part2": ("j2k2_",), "jpeg2000_colour": ("j2k3_",),
-                "jpeg2000_ht": ("j2k4_",)}
+                "jpeg2000_ht": ("j2k4_",), "jpeg2000_mct": ("j2k5_",)}
 # phase 13's TIFF files built at run time (no cv2 or PIL there): a BigTIFF
 # of deflate strips, a big-endian tiled file and a JPEG-compressed YCbCr
 # file (4:2:0 streams), each of this RGB size and rows a strip, decoded
@@ -555,12 +555,19 @@ JPEG2000_HT_BIG = "j2k4_640x480_97.jpg"
 JPEG2000_HT_PIL_READS = 3
 JPEG2000_HT_DIGEST = (
     "f21990e576e86caac1259a9243d17f7583c3421974e2a0e6afb31fd7f423e7f5")
+# phase 13's JPEG 2000 part 5 (Part 2's CBD, MCT, MCC and MCO markers): the
+# j2k5_ fixtures of tests/data/jpeg2000_mct (group and slice
+# "jpeg2000_mct"; 3 of its skip/ files PIL reads), a 100 x 14 file among
+# them in generate_tree buckets no other fixture brings
+JPEG2000_MCT_FIXTURES = Path(__file__).resolve().parent / "tests" / (
+    "data") / "jpeg2000_mct"
+JPEG2000_MCT_PIL_READS = 3
 # the slices of C7 by file-name prefix, counted apart in phase 13's line
 IMAGE_SLICES = {"gif_sun": ("gif_", "sun_"), "pfm_hdr": ("pfm", "hdr_"),
                 "tiff": ("tiff",), "webp": ("webp_",),
                 "webp_lossy": ("webp_lossy_",), "jpeg2000": ("j2k_",),
                 "jpeg2000_part2": ("j2k2_",), "jpeg2000_colour": ("j2k3_",),
-                "jpeg2000_ht": ("j2k4_",)}
+                "jpeg2000_ht": ("j2k4_",), "jpeg2000_mct": ("j2k5_",)}
 # C9 and C10 in phase 13: a PNG past the old 64 Mpx cap, and headers whose
 # size makes cv2.imread raise (built at run time from zlib and struct)
 BIG_PNG_SIDE = 8200
@@ -6132,6 +6139,25 @@ def jpeg2000_ht_checks():
                                  *JPEG2000_BIG_SIZE)}
 
 
+def jpeg2000_mct_checks():
+    """JPEG 2000 part 5 (Part 2's multi-component markers) in phase 13: the
+    j2k5_ fixtures of tests/data/jpeg2000_mct (webp_fixture_checks: MCO
+    stages over offset arrays of int16, int32, float32 and float64, MCO of
+    no stage, two stages or an unknown one, the MCC segments OpenJPEG only
+    warns about, decorrelation matrices never applied, an MCO in one
+    tile's tile-part header, CBD at depths 8, 12 and 16, OpenJPEG's own
+    opj_set_MCT output, each equal to cv2's pixels; a CBD of depth 6, a
+    signed CBD and a raw gray codestream PIL reads; a CBD of the wrong
+    count, an MCC naming a missing array, a matrix and an offset array of
+    the wrong size refused). Returns (the fixtures cv2 reads, the skip/
+    files, those PIL reads, the numbers for phase 13's line)."""
+    cases, skips, pil_read = webp_fixture_checks(
+        JPEG2000_MCT_FIXTURES, JPEG2000_MCT_PIL_READS, min_cases=20)
+    return cases, skips, pil_read, {
+        "cv2_reads": len(cases), "skip": len(skips),
+        "skip_pil_reads": len(pil_read)}
+
+
 def built_tiff_checks(work):
     """TIFF parts 2a and 2b on files built here: a little-endian BigTIFF of
     deflate strips and a big-endian tiled file (16 x 16 deflate tiles, edge
@@ -6399,11 +6425,20 @@ def image_formats_phase(dev, resunet, judge, rows, work):
           "beside the part 1 9/7 file's "
           f"({result['jpeg2000_ht']['part1_big']['megapixels_per_sec']:.2f} "
           f"MP/s) on one host thread, beside {result['card']}")
+    t0 = time.perf_counter()
+    j2k5_cases, j2k5_skips, j2k5_pil, result["jpeg2000_mct"] = (
+        jpeg2000_mct_checks())
+    result["jpeg2000_mct"]["seconds"] = time.perf_counter() - t0
+    print("JPEG 2000 part 5 (Part 2's CBD, MCT, MCC and MCO markers): "
+          + json.dumps(result["jpeg2000_mct"]) + ": the j2k5_ fixtures equal "
+          "to their expected.npz, skip/ files refused by the cv2 probe, "
+          "decoded as PIL or failing")
     cases = (cases + webp_cases + lossy_cases + j2k_cases + j2k3_cases
-             + j2k4_cases)
+             + j2k4_cases + j2k5_cases)
     skips = (skips + webp_skips + lossy_skips + j2k_skips + j2k3_skips
-             + j2k4_skips)
-    pil_read += webp_pil + lossy_pil + j2k_pil + j2k3_pil + j2k4_pil
+             + j2k4_skips + j2k5_skips)
+    pil_read += (webp_pil + lossy_pil + j2k_pil + j2k3_pil + j2k4_pil
+                 + j2k5_pil)
     result["fixtures"] = {
         "cv2_reads": len(cases), "skip": len(skips),
         "skip_pil_reads": len(pil_read), "foreign": len(IMAGE_FOREIGN)}
@@ -6489,7 +6524,7 @@ def image_formats_phase(dev, resunet, judge, rows, work):
         out.write_bytes(p.read_bytes())
     written = int(want["generate_tree_written"]) + len(built_2c) + len(
         webp_cases) + len(lossy_cases) + len(j2k_cases) + len(j2k3_cases) + (
-        len(j2k4_cases))
+        len(j2k4_cases)) + len(j2k5_cases)
     mixed_files = offline.tree_files(str(mixed))
     dims = native.probe([str(p) for p in mixed_files], reader="cv2")
     kept = [p for p, d in zip(mixed_files, dims.tolist()) if d[0] > 0]
@@ -6530,23 +6565,37 @@ def image_formats_phase(dev, resunet, judge, rows, work):
               f"generate_tree {kind} log: {lines}")
         check(counts == want_counts, f"generate_tree {kind} launched "
               f"{counts}, expected {want_counts}")
-        n_files = len(list((root / kind).glob("*/*")))
-        check(n_files == written, f"generate_tree {kind}: {n_files} files")
+        outs = list((root / kind).glob("*/*"))
+        check(len(outs) == written, f"generate_tree {kind}: {len(outs)} files")
         for k, v in counts.items():
             launches[k] += v
+        # each slice's files written, and those of its files the reference
+        # skips
+        by_slice = {}
+        for name, prefixes in IMAGE_SLICES.items():
+            mine = sum(p.name.startswith(prefixes) for p in mixed_files)
+            out_n = sum(p.name.startswith(prefixes) for p in outs)
+            want_n = sum(p.name.startswith(prefixes) for p in kept)
+            check(out_n == want_n, f"generate_tree {kind} wrote {out_n} "
+                  f"{name} files; the reference writes {want_n}")
+            by_slice[name] = {"written": out_n, "skipped": mine - out_n}
         gen[kind] = dict(images_per_sec=n / dt, seconds=dt, written=n,
                          skipped=skipped, batches=n_batches,
-                         buckets=len(buckets), launches=counts)
+                         buckets=len(buckets), launches=counts,
+                         by_slice=by_slice)
         print(f"generate_tree {kind} on the image fixtures: {n} written, "
               f"{skipped} skipped as the reference skips them, "
               f"{n / dt:.1f} images/s, {n_batches} batches, B2 "
               f"{counts['blur_sparse']} / B3 {counts['blur_dense']} "
-              "launches")
+              "launches; by slice " + json.dumps(by_slice))
     result["generate_tree"] = gen
     check(launches["blur_sparse"] > 0 and launches["blur_dense"] > 0,
           "B2 and B3 launched on the image formats path")
-    # the buckets only each slice's files bring: B3 and B2 are held at the
-    # first batch of every bucket below, these among them
+    # the buckets only each slice's files bring, each with its images and
+    # the launches of its batches (B3 for blur and compound, B2 for
+    # blur_rand: one a batch of TREE_BATCH, counted in all above): B3 and
+    # B2 are held at the first batch of every bucket below, these among
+    # them
     result["slice_buckets"] = {}
     for name, prefixes in IMAGE_SLICES.items():
         this_slice = [p.name.startswith(prefixes)
@@ -6558,9 +6607,11 @@ def image_formats_phase(dev, resunet, judge, rows, work):
                                 halo)
             rest = tree_buckets([s for s, m in zip(sides, this_slice)
                                  if not m], halo)
-            result["slice_buckets"][name][kind] = sorted(
-                list(b) for b in set(mine) - set(rest))
-    print("buckets only each slice's files bring: "
+            result["slice_buckets"][name][kind] = [
+                [list(b), mine[b], -(-mine[b] // TREE_BATCH)]
+                for b in sorted(set(mine) - set(rest))]
+    print("buckets only each slice's files bring ([bucket, images, B3 "
+          "launches for blur and compound, B2 for blur_rand]): "
           + json.dumps(result["slice_buckets"]))
     check_blur_at_buckets(dev, kept, rows, key="image_format_times")
 

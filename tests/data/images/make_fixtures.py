@@ -7,10 +7,10 @@ phase into this directory: the cases of ``tests/data/image_cases.py``
 - ``<case>``: CASES, files cv2.imread reads;
 - ``skip/<case>``: SKIP_CASES, files cv2.imread gives None for (cut,
   corrupt, a refused variant), some of which PIL reads; and FOREIGN, AVIF
-  data and JPEG 2000 files of a feature the port's decoder leaves out
-  (Part 2's MCO marker) under .png and .jpg names (what cv2
-  reads and the port does not decode) and a ZSTD-compressed TIFF (what PIL
-  reads and the port does not decode);
+  data (what cv2 reads and the port does not decode), JPEG 2000 files of
+  the feature the port's decoder leaves out (sub-sampled components) under
+  .png and .jpg names, and a ZSTD-compressed TIFF (what PIL reads and the
+  port does not decode);
 - ``expected.npz``: ``decoded__<case>`` = what the reference's readers give
   for each CASES file as RGB (``cv2.imread``; the pixels cv2 leaves
   unwritten, see ``cv2_written``, set to 0), ``decoded_skip__<case>`` =
@@ -62,10 +62,10 @@ _spec.loader.exec_module(jpeg2000_cases)
 
 
 def foreign(rng):
-    """AVIF data and JPEG 2000 files of a feature the port's decoder leaves
-    out (Part 2's MCO marker, a multi-component transform, in a JP2 file
-    and in a raw codestream) under .png and .jpg names, and Pillow's
-    ZSTD-compressed TIFF (a TIFF layout the port does not decode)."""
+    """AVIF data and JPEG 2000 files of the feature the port's decoder
+    leaves out (sub-sampled components, in a JP2 file and in a raw
+    codestream) under .png and .jpg names, and Pillow's ZSTD-compressed
+    TIFF (a TIFF layout the port does not decode)."""
     out = {}
     out["tiff_zstd.png"] = pil_tiff(smooth(np.random.default_rng(
         TIFF2C_SEED + 1), 4, 6), "RGB", compression="zstd")
@@ -78,13 +78,10 @@ def foreign(rng):
             assert ok
             out[name] = enc.tobytes()
         elif name == "jp2.jpg":
-            out[name] = jpeg2000_cases.insert_main(
-                jpeg2000_cases.pil_j2k(img), 0xFF77,
-                jpeg2000_cases.MCO_BODY)
+            out[name] = jpeg2000_cases.subsampled(jpeg2000_cases.pil_j2k(img))
         else:  # small: the directory's size is bounded
-            out[name] = jpeg2000_cases.insert_main(
-                jpeg2000_cases.opj_encode(img[:8, :8], numres=2), 0xFF77,
-                jpeg2000_cases.MCO_BODY)
+            out[name] = jpeg2000_cases.subsampled(
+                jpeg2000_cases.opj_encode(img[:8, :8], numres=2))
     return out
 
 

@@ -20,8 +20,9 @@ gives None for (some of which PIL reads), ``part2_cases`` and
 ``part2_skip_cases`` the same for part 2's features (code-block styles,
 POC, PPM and PPT, RGN), ``colour_cases`` and ``colour_skip_cases`` for
 part 3's colour boxes, ``ht_cases`` and ``ht_skip_cases`` for part 4's
-HTJ2K (written by ``tests/data/htj2k_encode.py``), ``unsupported_cases``
-files of the features the port leaves out, by feature.
+HTJ2K (written by ``tests/data/htj2k_encode.py``), ``mct_cases`` and
+``mct_skip_cases`` for part 5's multi-component markers (CBD, MCT, MCC,
+MCO), ``unsupported_cases`` files of the feature the port leaves out.
 """
 
 import ctypes
@@ -119,6 +120,9 @@ def libopenjp2():
                                        ctypes.c_void_p]
     lib.opj_encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.opj_end_compress.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.opj_set_MCT.restype = ctypes.c_int
+    lib.opj_set_MCT.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+                                ctypes.POINTER(ctypes.c_int32), ctypes.c_uint32]
     lib.opj_image_destroy.argtypes = [ctypes.POINTER(_Image)]
     lib.opj_stream_destroy.argtypes = [ctypes.c_void_p]
     lib.opj_destroy_codec.argtypes = [ctypes.c_void_p]
@@ -158,13 +162,15 @@ def _temp(suffix):
 
 
 def opj_encode(img, numres=3, csty=0, mode=0, prog=0, irreversible=0,
-               rates=(), cblk=None, tile=None, roi=None):
+               rates=(), cblk=None, tile=None, roi=None, mct=None):
     """OpenJPEG's raw codestream of a uint8 image (gray or RGB): csty 2
     writes SOP markers, 4 EPH markers; mode the code-block style; prog the
     progression order (0 LRCP ... 4 CPRL); rates one compression ratio a
     layer; tile (w, h) tiles; roi (component, shift) a max-shift region of
     interest over the whole component, written as an RGN marker in the
-    main header."""
+    main header; mct (matrix, DC shifts) opj_set_MCT's array-based
+    transform (the 9/7, CBD, MCT, MCC and MCO markers, COD's MCT byte 2,
+    which decoders refuse)."""
     lib = libopenjp2()
     img = np.asarray(img)
     if img.ndim == 2:
@@ -194,6 +200,10 @@ def opj_encode(img, numres=3, csty=0, mode=0, prog=0, irreversible=0,
         struct.pack_into("<ii", p, _CPARAM["cp_tdx"], *tile)
     if roi is not None:
         struct.pack_into("<ii", p, _CPARAM["roi_compno"], *roi)
+    if mct is not None:
+        matrix, shifts = mct
+        assert lib.opj_set_MCT(p, (ctypes.c_float * (nc * nc))(*matrix),
+                               (ctypes.c_int32 * nc)(*shifts), nc)
     codec = lib.opj_create_compress(0)
     path = _temp(".j2k")
     try:
@@ -890,29 +900,220 @@ def colour_skip_cases(rng):
     }
 
 
-# Part 2's multi-component transform markers the port leaves out (8h),
-# which cv2 reads: CBD of 3 components of depth 7 each, MCO of no stage
+# Part 2's multi-component markers: CBD of 3 components of depth 8 each
+# (the file's own), MCO of no stage
 CBD_BODY = b"\x00\x03\x07\x07\x07"
 MCO_BODY = b"\x00"
+CBD, MCT, MCC, MCO = 0xFF78, 0xFF74, 0xFF75, 0xFF77
+ELEMENTS = {"int16": (0, ">h"), "int32": (1, ">i"), "float32": (2, ">f"),
+            "float64": (3, ">d")}  # an MCT array's element types
+
+
+def cbd_body(depths, signed=False, count=None):
+    """A CBD marker's body: Ncbd (the depths' count unless ``count``),
+    then each component's depth - 1, bit 7 the sign."""
+    return struct.pack(">H", len(depths) if count is None else count) + bytes(
+        (0x80 if signed else 0) | (d - 1) for d in depths)
+
+
+def mct_body(index, values, element="int16", array=2, zmct=0, ymct=0):
+    """An MCT marker's body: Zmct, Imct (``index``, the array type: 1
+    decorrelation, 2 offset; the element type), Ymct, ``values`` packed as
+    ``element`` (or raw bytes)."""
+    code, fmt = ELEMENTS[element]
+    data = values if isinstance(values, bytes) else b"".join(
+        struct.pack(fmt, v) for v in values)
+    return struct.pack(">HHH", zmct, index | array << 8 | code << 10,
+                       ymct) + data
+
+
+def mcc_body(index, ncomp, deco=0, offset=0, zmcc=0, ymcc=0, collections=1,
+             xmcc=1, wide=False, order=None, wcount=None, extra=b""):
+    """An MCC marker's body of one array-based collection over components
+    0 .. ncomp - 1 (``order`` other indices, ``wcount`` another output
+    count, ``wide`` 2-byte indices), Tmcc naming the decorrelation and
+    offset arrays (0: none), ``extra`` bytes after it; ``collections`` is
+    Qmcc as written (0 writes no collection)."""
+    body = struct.pack(">HBHH", zmcc, index, ymcc, collections)
+    if collections == 0:
+        return body + extra
+    order = list(range(ncomp)) if order is None else list(order)
+    wcount = ncomp if wcount is None else wcount
+    flag, fmt = (0x8000, ">H") if wide else (0, ">B")
+    body += struct.pack(">BH", xmcc, flag | ncomp) + b"".join(
+        struct.pack(fmt, i) for i in order)
+    body += struct.pack(">H", flag | wcount) + b"".join(
+        struct.pack(fmt, i) for i in range(wcount))
+    return body + (deco | offset << 8 | 1 << 16).to_bytes(3, "big") + extra
+
+
+def mco_body(*stages):
+    """An MCO marker's body: the stage count, then each stage's MCC
+    index."""
+    return bytes([len(stages)]) + bytes(stages)
+
+
+def with_segments(data, segments):
+    """``segments`` ([(marker, body)]) added to the main header after COD,
+    in their order."""
+    for marker, body in reversed(segments):
+        data = insert_main(data, marker, body)
+    return data
+
+
+def in_tile_part(cs, tile, segments):
+    """A raw codestream with ``segments`` ([(marker, body)]) added to the
+    first tile-part header of tile ``tile``."""
+    main, parts, tail = parse(cs)
+    part = next(p for p in parts if p[0] == tile)
+    part[3] = part[3] + list(segments)
+    return emit(main, parts, tail)
+
+
+def subsampled(data, comp=1):
+    """A file whose component ``comp`` is sub-sampled 2 x horizontally in
+    SIZ (the data left as coded)."""
+    return set_byte(data, siz_component(data, comp) + 1, 2)
 
 
 def unsupported_cases(rng):
-    """{name: (bytes, feature)}: valid files of the features the port
+    """{name: (bytes, feature)}: valid files of the feature the port
     leaves out, each of which raises naming JPEG 2000: sub-sampled
     components in a raw codestream and in a JP2 file with an sYCC colr
-    (8d), Part 2's CBD marker in a raw codestream and its MCO marker in a
-    JP2 file (8h)."""
+    (8d)."""
     img = smooth(rng, 21, 26)
     jp2 = pil_j2k(img)
     raw = pil_j2k(img, no_jp2=True)
-    out = {}
-    sub = set_byte(raw, siz_component(raw, 1) + 1, 2)
-    out["subsampled.png"] = (sub, "sub-sampled components")
-    out["subsampled_sycc.png"] = (set_colr(set_byte(
-        jp2, siz_component(jp2, 1) + 1, 2), 18), "sub-sampled components")
-    out["cbd.png"] = (insert_main(raw, 0xFF78, CBD_BODY), "Part 2 CBD")
-    out["jp2_mco.png"] = (insert_main(jp2, 0xFF77, MCO_BODY), "Part 2 MCO")
+    return {"subsampled.png": (subsampled(raw), "sub-sampled components"),
+            "subsampled_sycc.png": (set_colr(subsampled(jp2), 18),
+                                    "sub-sampled components")}
+
+
+def _offsets(base, element, values, ncomp=3):
+    """``base`` with an offset array of ``values`` (index 1), a collection
+    of every component naming it (index 2) and an MCO of that stage."""
+    return with_segments(base, [(MCT, mct_body(1, values, element)),
+                                (MCC, mcc_body(2, ncomp, offset=1)),
+                                (MCO, mco_body(2))])
+
+
+def _matrix(base, diagonal):
+    """``base`` with a float32 decorrelation matrix of ``diagonal``
+    (index 1), int16 offsets of 128 (index 2), their collection (index
+    3) and an MCO of it."""
+    m = [diagonal[i] if i == j else 0.0 for i in range(3) for j in range(3)]
+    return with_segments(base, [
+        (MCT, mct_body(1, m, "float32", array=1)),
+        (MCT, mct_body(2, [128] * 3)), (MCC, mcc_body(3, 3, 1, 2)),
+        (MCO, mco_body(3))])
+
+
+def _warned(base, **kw):
+    """``base`` with int16 offsets (index 1), an MCC of index 2 that
+    OpenJPEG only warns about (``kw`` to mcc_body) and an MCO naming it:
+    the collection is not kept, so the stage zeroes the DC level shift."""
+    return with_segments(base, [(MCT, mct_body(1, [3, 4, 5])),
+                                (MCC, mcc_body(2, 3, offset=1, **kw)),
+                                (MCO, mco_body(2))])
+
+
+def mct_cases(rng):
+    """Part 2's multi-component files cv2.imread reads: MCO stages over
+    offset arrays of each element type (int16, read unsigned; int32;
+    float32 and float64, truncated) in raw codestreams and JP2 files, 5/3
+    and 9/7; an MCO of no stage, of two stages (ignored), of an unknown
+    stage; each MCC OpenJPEG only warns about, an MCC over 2 of 3
+    components, an MCT of Zmct 1; identity and diag(2, 1, 1) matrices
+    (never applied); a tiled file with an MCO in one tile's tile-part
+    header and one whose tiles name the main header's collection; CBD at
+    depths 8, 12 (on the 9/7, whose steps it scales) and 16; OpenJPEG's
+    own opj_set_MCT output with COD's MCT byte set to 1 and to 0; and a
+    100 x 14 file in generate_tree buckets no other fixture brings."""
+    img = smooth(rng, 17, 21, amp=6)
+    raw = pil_j2k(img, no_jp2=True)
+    raw97 = pil_j2k(img, no_jp2=True, irreversible=True)
+    jp2 = pil_j2k(img)
+    jp2_97 = pil_j2k(img, irreversible=True)
+    small = pil_j2k(img[:9, :11], no_jp2=True)
+    tiled = pil_j2k(img, no_jp2=True, tile_size=(12, 12))
+    out = {
+        "j2k5_mco_no_stage.png": with_segments(raw, [(MCO, mco_body())]),
+        "j2k5_jp2_mco_no_stage_97.jpg": with_segments(jp2_97,
+                                                      [(MCO, mco_body())]),
+        "j2k5_offsets_int16.png": _offsets(raw, "int16", [5, 6, 7]),
+        "j2k5_offsets_int16_negative.png": _offsets(raw, "int16",
+                                                    [-5, 120, 0]),
+        "j2k5_offsets_int32_jp2.png": _offsets(jp2, "int32", [140, -3, 100]),
+        "j2k5_offsets_float32_97.jpg": _offsets(raw97, "float32",
+                                                [10.5, -20.25, 30.0]),
+        "j2k5_offsets_float64_jp2_97.jpg": _offsets(jp2_97, "float64",
+                                                    [127.9, 128.5, -0.75]),
+        "j2k5_mco_two_stages.png": with_segments(raw, [
+            (MCO, mco_body(1, 2))]),
+        "j2k5_mco_unknown_stage.png": with_segments(raw, [
+            (MCT, mct_body(1, [5, 6, 7])), (MCC, mcc_body(2, 3, offset=1)),
+            (MCO, mco_body(9))]),
+        "j2k5_mcc_zmcc.png": _warned(small, zmcc=1),
+        "j2k5_mcc_ymcc.png": _warned(small, ymcc=1),
+        "j2k5_mcc_two_collections.png": _warned(small, collections=2),
+        "j2k5_mcc_xmcc_0.png": _warned(small, xmcc=0),
+        "j2k5_mcc_counts_differ.png": _warned(small, wcount=2),
+        "j2k5_mcc_shuffled.png": _warned(small, order=[0, 2, 1]),
+        "j2k5_mcc_2_of_3.png": with_segments(small, [
+            (MCT, mct_body(1, [3, 4])), (MCC, mcc_body(2, 2, offset=1)),
+            (MCO, mco_body(2))]),
+        "j2k5_mct_zmct_then_mco.png": with_segments(small, [
+            (MCT, mct_body(1, [3, 4, 5], zmct=1)), (MCO, mco_body())]),
+        "j2k5_matrix_identity.png": _matrix(small, (1.0, 1.0, 1.0)),
+        "j2k5_matrix_diag_2_1_1.png": _matrix(small, (2.0, 1.0, 1.0)),
+        "j2k5_tile_part_mco.png": in_tile_part(tiled, 0,
+                                               [(MCO, mco_body())]),
+        "j2k5_tiles_name_main_collection.png": in_tile_part(
+            in_tile_part(with_segments(tiled, [
+                (MCT, mct_body(1, [100, 110, 120], "int32")),
+                (MCC, mcc_body(2, 3, offset=1))]), 1, [(MCO, mco_body(2))]),
+            3, [(MCT, mct_body(1, [60, 70, 80])), (MCO, mco_body(2))]),
+        "j2k5_cbd_8.png": with_segments(raw, [(CBD, cbd_body([8] * 3))]),
+        "j2k5_cbd_12_97.jpg": with_segments(raw97,
+                                            [(CBD, cbd_body([12] * 3))]),
+        "j2k5_cbd_16_jp2.png": with_segments(jp2, [(CBD, cbd_body([16] * 3))]),
+    }
+    mct = ([1, 0, 0, 0, 1, 0, 0, 0, 1], [128, 128, 128])
+    opj = opj_encode(img, mct=mct)
+    cod = next(p for p, m, b in main_markers(opj) if m == 0xFF52) + 8
+    out["j2k5_opj_set_mct_1.jpg"] = set_byte(opj, cod, 1)
+    out["j2k5_opj_set_mct_0.jpg"] = set_byte(opj, cod, 0)
+    tall = smooth(rng, 100, 14, amp=4)
+    out["j2k5_100x14_offsets_97.jpg"] = _offsets(
+        pil_j2k(tall, irreversible=True, quality_mode="rates",
+                quality_layers=[8]), "float64", [120.25, 140.0, 128.0])
     return out
+
+
+def mct_skip_cases(rng):
+    """Part 2's multi-component files cv2.imread gives None for: a CBD of
+    depth 6 and a signed CBD, and a raw gray codestream with an offset
+    array, which PIL reads; files both readers refuse: a CBD of the wrong
+    count, an MCC naming an array no MCT holds, a decorrelation matrix and
+    an offset array of the wrong size."""
+    img = smooth(rng, 11, 13, amp=6)
+    raw = pil_j2k(img, no_jp2=True)
+    return {
+        "j2k5_cbd_6.png": with_segments(raw, [(CBD, cbd_body([6] * 3))]),
+        "j2k5_cbd_signed.png": with_segments(raw, [
+            (CBD, cbd_body([8] * 3, signed=True))]),
+        "j2k5_raw_gray_offsets.png": _offsets(
+            pil_j2k(img[:, :, 1], no_jp2=True), "int16", [90], ncomp=1),
+        "j2k5_cbd_count.png": with_segments(raw, [
+            (CBD, cbd_body([8] * 3, count=2))]),
+        "j2k5_mcc_missing_array.png": with_segments(raw, [
+            (MCT, mct_body(1, [3, 4, 5])), (MCC, mcc_body(2, 3, offset=4)),
+            (MCO, mco_body(2))]),
+        "j2k5_matrix_size.png": with_segments(raw, [
+            (MCT, mct_body(1, [1.0] * 8, "float32", array=1)),
+            (MCC, mcc_body(2, 3, deco=1)), (MCO, mco_body(2))]),
+        "j2k5_offset_size.png": _offsets(raw, "int32", [1, 2]),
+    }
 
 
 HT_BIG_STEP = 1.0  # the 9/7 step of the 640 x 480 HTJ2K file

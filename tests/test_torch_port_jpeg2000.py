@@ -17,7 +17,8 @@ refused as both refuse), max diff 0:
   bundled libopenjp2 through ctypes), before either reader converts them;
 - the header probe, for every fixture and reader path, at decode's size;
 - cv2's and PIL's conversions of 16-bit and signed samples;
-- the features the port leaves out raising naming JPEG 2000;
+- the feature the port leaves out (sub-sampled components) raising naming
+  JPEG 2000;
 - every cut point of three fixtures and seeded byte mutations;
 - generate_tree, restore_tree and evaluate_directory against tsr_tpu's on
   a tree of JPEG 2000 files.
@@ -89,9 +90,8 @@ def port_components(data):
 
 
 def unsupported_feature(data):
-    """The feature the port leaves out (ROADMAP items 8d and 8h) that
-    ``data`` uses, by its main and first tile-part headers, or None:
-    sub-sampled components, Part 2's CBD, MCT, MCC or MCO marker."""
+    """The feature the port leaves out (ROADMAP item 8d) that ``data``
+    uses, by its headers, or None: sub-sampled components."""
     at = cases.codestream_at(data)
     if at < 0:
         return None
@@ -100,8 +100,6 @@ def unsupported_feature(data):
         m = int.from_bytes(data[p:p + 2], "big")
         n = int.from_bytes(data[p + 2:p + 4], "big")
         body = data[p + 4:p + 2 + n]
-        if m in (0xFF78, 0xFF74, 0xFF75, 0xFF77):
-            return hex(m)
         if m == 0xFF51 and len(body) >= 36:
             comps = body[36:]
             if any(comps[i + 1] != 1 or comps[i + 2] != 1
@@ -388,11 +386,10 @@ UNSUPPORTED = cases.unsupported_cases(np.random.default_rng(
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_feature_raises_naming_jpeg2000(tmp_path, name):
-    """A valid file of a feature the port leaves out (sub-sampled
-    components in a raw codestream and in an sYCC JP2 file, Part 2's CBD
-    marker in the one and its MCO marker in the other) raises naming JPEG
-    2000 on every reader path; the cv2 probe refuses it; the reference
-    reads it."""
+    """A valid file of the feature the port leaves out (sub-sampled
+    components in a raw codestream and in an sYCC JP2 file) raises naming
+    JPEG 2000 on every reader path; the cv2 probe refuses it; the
+    reference reads it."""
     data, feature = UNSUPPORTED[name]
     p = tmp_path / name
     p.write_bytes(data)

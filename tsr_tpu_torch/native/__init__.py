@@ -34,12 +34,13 @@ the five progression orders and POC, precincts, every code-block style,
 SOP and EPH, PPM and PPT, RGN, components of 1-16 bits; the JP2 colour
 boxes: pclr and cmap, cdef, sYCC, ICC, CIELab and CMYK colr; HTJ2K's HT
 code-blocks, their cleanup, SigProp and MagRef passes, and the CAP and CPF
-markers; as OpenJPEG 2.5 decodes it for cv2, which refuses signed
+markers; Part 2's CBD, MCT, MCC and MCO markers, whose offset arrays set
+each tile's DC level shift; as OpenJPEG 2.5 decodes it for cv2, which
+refuses signed
 samples, precisions under 8, an image offset, more than 4 components,
 CMYK and eYCC, and reads sYCC through its own YUV matrix, and for PIL,
 which reads CMYK, its own palette and sYCC where cv2 does not; sub-sampled
-components and Part 2's multi-component transform (the CBD, MCT, MCC and
-MCO markers) are left out); JPEG
+components are left out); JPEG
 (baseline, progressive and arithmetic coded, CMYK and YCCK, data cut short
 or corrupt as libjpeg recovers it, FF FF 00 in entropy data as
 libjpeg-turbo's fast and slow Huffman passes read it, lossless); EXIF
@@ -48,7 +49,7 @@ cv2 applies it, in PNG's eXIf too. Damaged files read as cv2 or PIL read
 them (``formats.cpp``, ``gif.cpp`` and ``tiff.cpp`` copy both readers,
 ``hdr.cpp`` cv2's: PIL reads no HDR). Data of a format cv2 reads and the
 port does not decode (:data:`FORMATS`: JPEG 2000 of sub-sampled
-components or Part 2's multi-component transform, AVIF, and TIFF of
+components, AVIF, and TIFF of
 another layout: LZMA or ZSTD compression,
 Pillow's LAB...), or
 that only

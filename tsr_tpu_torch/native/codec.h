@@ -253,12 +253,12 @@ bool vp8_decode(const uint8_t* data, size_t n, bool filter, Vp8Planes& out);
 void vp8_rgb(const Vp8Planes& f, bool fancy, uint8_t* rgb, size_t stride);
 
 // JPEG 2000 (a JP2 file or a raw codestream), part 1 of the format with its
-// JP2 colour boxes and HTJ2K's HT code-blocks, as cv2.imread reads it
-// (OpenCV 5's Jpeg2KOpjDecoder over OpenJPEG 2.5) and as PIL's
-// Jpeg2KImagePlugin and convert("RGB") read it (jpeg2000.cpp); the
-// arguments and results of read_cv2 and read_pil, kJpeg2000 for a feature
-// the port leaves out (sub-sampled components, Part 2's multi-component
-// transform). is_jpeg2000_data: the JP2 signature box or SOC + SIZ.
+// JP2 colour boxes, HTJ2K's HT code-blocks and Part 2's multi-component
+// markers, as cv2.imread reads it (OpenCV 5's Jpeg2KOpjDecoder over
+// OpenJPEG 2.5) and as PIL's Jpeg2KImagePlugin and convert("RGB") read it
+// (jpeg2000.cpp); the arguments and results of read_cv2 and read_pil,
+// kJpeg2000 for a feature the port leaves out (sub-sampled components).
+// is_jpeg2000_data: the JP2 signature box or SOC + SIZ.
 bool is_jpeg2000_data(const uint8_t* data, size_t n);
 int jpeg2000_cv2(const uint8_t* data, size_t n, Image* img, int* dims, bool head);
 int jpeg2000_pil(const uint8_t* data, size_t n, Image* img, int* dims, bool head);

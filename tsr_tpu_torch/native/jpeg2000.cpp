@@ -10,6 +10,11 @@
 //   PPT, COM, TLM, PLM, PLT, CRG, SOT/SOD, EOC) and the tile-part stream by
 //   opj_j2k_read_header_procedure / opj_j2k_read_tile_header /
 //   opj_j2k_decode_tiles, with their refusals;
+// - Part 2's multi-component markers as OpenJPEG keeps them: CBD's depths
+//   and signs, the MCT arrays and MCC collections of the main header and
+//   each tile, and an MCO stage's offset array as the tile's DC level
+//   shifts (its decorrelation matrix is checked and never applied: COD's
+//   MCT byte is 0 or 1);
 // - tier 2 (tag trees, packet headers over quality layers, SOP and EPH,
 //   headers gathered from PPM or PPT markers) in the five progression
 //   orders and their POC changes, default and custom precincts;
@@ -30,8 +35,7 @@
 //   unpackers (P and PA through its palette, sYCC, CMYK through cmyk2rgb).
 //
 // What the port leaves out raises naming JPEG 2000 (kJpeg2000): sub-sampled
-// components (ROADMAP 8d) and Part 2's multi-component transform (a CBD,
-// MCT, MCC or MCO marker: 8h). Partial decodes (8g) are not offered,
+// components (ROADMAP 8d). Partial decodes (8g) are not offered,
 // except where an HT code-block's own rules stop its refinement passes and
 // the decode goes on, as OpenJPEG's does.
 
@@ -325,6 +329,7 @@ struct StepSize {
 struct Tccp {  // one component's coding parameters
   int csty = 0, numres = 0, cblkw = 0, cblkh = 0, cblksty = 0, qmfbid = 0;
   int qntsty = 0, numgbits = 0, roishift = 0;
+  int32_t dc_shift = 0;  // m_dc_level_shift: SIZ's 1 << (prec - 1), or an MCO's
   int prcw[33] = {}, prch[33] = {};
   StepSize steps[kMaxBands];
 };
@@ -360,10 +365,32 @@ struct HeaderStore {
   }
 };
 
+// An MCT marker's array (opj_mct_data_t): its Imct index, its element
+// type (0 int16, 1 int32, 2 float32, 3 float64) and its bytes.
+struct MctArray {
+  int index = 0, element = 0;
+  std::vector<uint8_t> data;
+};
+
+// An MCC marker's collection (opj_simple_mcc_decorrelation_data_t): its
+// Imcc index, its component count and its decorrelation and offset arrays
+// (positions in Tcp::mct_arrays, -1 for none).
+struct MccCollection {
+  int index = 0, nb_comps = 0, deco = -1, offset = -1;
+};
+
+constexpr size_t kMccSlots = 10;  // OPJ_J2K_MCC_DEFAULT_NB_RECORDS
+constexpr size_t kElementSize[4] = {2, 4, 4, 8};  // MCT_ELEMENT_SIZE
+
 struct Tcp {  // one tile's coding parameters and data
   int csty = 0, prg = 0, numlayers = 0, mct = 0;  // prg -1: unknown
   bool cod = false;
   std::vector<Tccp> tccps;
+  std::vector<MctArray> mct_arrays;
+  // OpenJPEG's MCC slots: the first nb_mcc are collections; a slot past
+  // them keeps what a segment that only warned wrote into it
+  std::vector<MccCollection> mcc;
+  size_t nb_mcc = 0;
   bool poc = false;
   std::vector<Poc> pocs;
   bool ppt = false;
@@ -466,6 +493,9 @@ void read_siz(Codestream& cs, const uint8_t* p, uint32_t size,
   cs.tw = static_cast<int>(tw);
   cs.th = static_cast<int>(th);
   cs.def.tccps.assign(csiz, Tccp{});
+  for (uint32_t i = 0; i < csiz; i++)  // "set up default dc level shift"
+    if (!cs.comps[i].sgnd) cs.def.tccps[i].dc_shift = int32_t{1} << (cs.comps[i].prec - 1);
+  cs.def.mcc.assign(kMccSlots, MccCollection{});
   cs.resno_decoded.assign(csiz, 0);
 }
 
@@ -681,6 +711,145 @@ void merge_ppt(HeaderStore& st) {
   st.markers.clear();
 }
 
+// opj_j2k_read_cbd: each component's depth and sign (the DC level shift
+// stays SIZ's).
+void read_cbd(Codestream& cs, const uint8_t* p, uint32_t size) {
+  const size_t nc = cs.comps.size();
+  if (size != nc + 2 || be16(p) != nc) fail();  // "Crror reading CBD marker"
+  for (size_t c = 0; c < nc; c++) {
+    cs.comps[c].prec = (p[2 + c] & 0x7f) + 1;
+    cs.comps[c].sgnd = p[2 + c] >> 7;
+    if (cs.comps[c].prec > 31) fail();
+  }
+}
+
+// opj_j2k_read_mct: Zmct, Imct (index, array type, element type), Ymct, the
+// array; a segment of Zmct or Ymct not 0 only warns (the latter after the
+// array of its index is emptied).
+void read_mct(Tcp& tcp, const uint8_t* p, uint32_t size) {
+  if (size < 2) fail();
+  if (be16(p) != 0) return;  // "Cannot take in charge mct data within multiple MCT records"
+  if (size <= 6) fail();
+  const uint32_t imct = be16(p + 2);
+  const int index = static_cast<int>(imct & 0xff);
+  size_t i = 0;
+  while (i < tcp.mct_arrays.size() && tcp.mct_arrays[i].index != index) ++i;
+  if (i == tcp.mct_arrays.size()) tcp.mct_arrays.emplace_back();
+  MctArray& a = tcp.mct_arrays[i];
+  a.data.clear();
+  a.index = index;
+  a.element = static_cast<int>((imct >> 10) & 3);
+  if (be16(p + 4) != 0) return;  // "Cannot take in charge multiple MCT markers"
+  a.data.assign(p + 6, p + size);
+}
+
+// opj_j2k_read_mcc: one array-based collection of components in order
+// (Cmcc and Wmcc of 1 or 2 bytes an index), its Tmcc's decorrelation and
+// offset indices (0: none) found among the MCT arrays or failing. What it
+// cannot take (Zmcc or Ymcc not 0, more than one collection, Xmcc not 1,
+// counts that differ, shuffled indices) only warns, leaving what it wrote
+// into the slot.
+void read_mcc(Tcp& tcp, const uint8_t* p, uint32_t size) {
+  if (size < 2) fail();
+  if (be16(p) != 0) return;  // "Cannot take in charge multiple data spanning"
+  if (size < 7) fail();
+  const int index = p[2];
+  size_t i = 0;
+  while (i < tcp.nb_mcc && tcp.mcc[i].index != index) ++i;
+  const bool fresh = i == tcp.nb_mcc;
+  if (fresh && tcp.nb_mcc == tcp.mcc.size()) tcp.mcc.resize(tcp.mcc.size() + kMccSlots);
+  MccCollection& r = tcp.mcc[i];
+  r.index = index;
+  if (be16(p + 3) != 0) return;  // Ymcc: "multiple data spanning"
+  const uint32_t collections = be16(p + 5);
+  if (collections > 1) return;  // "Cannot take in charge multiple collections"
+  p += 7;
+  size -= 7;
+  auto in_order = [&](uint32_t width) {  // Cmcc / Wmcc: 0, 1, 2, ...
+    for (int j = 0; j < r.nb_comps; j++, p += width)
+      if ((width == 2 ? be16(p) : p[0]) != static_cast<uint32_t>(j)) return false;
+    return true;
+  };
+  auto array = [&](uint32_t at) {
+    if (at == 0) return -1;
+    for (size_t k = 0; k < tcp.mct_arrays.size(); k++)
+      if (tcp.mct_arrays[k].index == static_cast<int>(at)) return static_cast<int>(k);
+    fail();  // "Error reading MCC marker"
+  };
+  for (uint32_t k = 0; k < collections; k++) {
+    if (size < 3) fail();
+    if (p[0] != 1) return;  // "collections other than array decorrelation"
+    uint32_t n = be16(p + 1);
+    p += 3;
+    size -= 3;
+    uint32_t width = 1 + (n >> 15);
+    r.nb_comps = static_cast<int>(n & 0x7fff);
+    if (size < width * r.nb_comps + 2) fail();
+    size -= width * r.nb_comps + 2;
+    if (!in_order(width)) return;  // "collections with indix shuffle"
+    n = be16(p);
+    p += 2;
+    width = 1 + (n >> 15);
+    if (static_cast<int>(n & 0x7fff) != r.nb_comps) return;  // "without same number of indixes"
+    if (size < width * r.nb_comps + 3) fail();
+    size -= width * r.nb_comps + 3;
+    if (!in_order(width)) return;
+    const uint32_t t = uint32_t{p[0]} << 16 | uint32_t{p[1]} << 8 | p[2];
+    r.deco = array(t & 0xff);
+    r.offset = array((t >> 8) & 0xff);
+  }
+  if (size != 0) fail();
+  if (fresh) tcp.nb_mcc++;
+}
+
+// j2k_mct_read_functions_to_int32: an offset array's element. int16 is read
+// unsigned; a float is truncated as x86-64's cvttss2si / cvttsd2si does
+// (0x80000000 where it leaves int32's range).
+int32_t mct_element(const MctArray& a, size_t k) {
+  const uint8_t* q = a.data.data() + k * kElementSize[a.element];
+  if (a.element == 0) return static_cast<int32_t>(be16(q));
+  if (a.element == 1) return static_cast<int32_t>(be32(q));
+  double v;
+  if (a.element == 2) {
+    float f;
+    const uint32_t bits = be32(q);
+    std::memcpy(&f, &bits, 4);
+    v = f;
+  } else {
+    const uint64_t bits = uint64_t{be32(q)} << 32 | be32(q + 4);
+    std::memcpy(&v, &bits, 8);
+  }
+  if (!(v > -2147483649.0 && v < 2147483648.0)) return INT32_MIN;
+  return static_cast<int32_t>(v);
+}
+
+// opj_j2k_read_mco and opj_j2k_add_mct: one stage (more only warn), every
+// DC level shift zeroed, then the stage's collection applied: its offset
+// array becomes the shifts, its decorrelation matrix is only checked (only
+// opj_tcd_mct_decode's MCT 2 branch reads it). add_mct's search never steps
+// past the first collection, and a collection of another component count
+// is discarded.
+void read_mco(const Codestream& cs, Tcp& tcp, const uint8_t* p, uint32_t size) {
+  if (size < 1) fail();
+  const uint32_t stages = p[0];
+  if (stages > 1) return;  // "Cannot take in charge multiple transformation stages."
+  if (size != stages + 1) fail();
+  for (Tccp& t : tcp.tccps) t.dc_shift = 0;
+  if (stages == 0 || tcp.nb_mcc == 0 || tcp.mcc[0].index != p[1]) return;
+  const MccCollection& r = tcp.mcc[0];
+  const size_t nc = cs.comps.size();
+  if (static_cast<size_t>(r.nb_comps) != nc) return;
+  if (r.deco >= 0) {
+    const MctArray& a = tcp.mct_arrays[r.deco];
+    if (a.data.size() != kElementSize[a.element] * nc * nc) fail();
+  }
+  if (r.offset >= 0) {
+    const MctArray& a = tcp.mct_arrays[r.offset];
+    if (a.data.size() != kElementSize[a.element] * nc) fail();
+    for (size_t c = 0; c < nc; c++) tcp.tccps[c].dc_shift = mct_element(a, c);
+  }
+}
+
 // A marker segment's handler, main header or tile-part header (`tcp`).
 void read_segment(Codestream& cs, Tcp& tcp, uint32_t m, const uint8_t* p,
                   uint32_t size) {
@@ -731,8 +900,10 @@ void read_segment(Codestream& cs, Tcp& tcp, uint32_t m, const uint8_t* p,
     case kCAP:
     case kCPF:  // opj_j2k_read_cap and opj_j2k_read_cpf read nothing
       break;
-    default:  // CBD, MCT, MCC, MCO: Part 2's multi-component transform
-      unsupported();
+    case kCBD: read_cbd(cs, p, size); break;
+    case kMCT: read_mct(tcp, p, size); break;
+    case kMCC: read_mcc(tcp, p, size); break;
+    case kMCO: read_mco(cs, tcp, p, size); break;
   }
 }
 
@@ -2573,13 +2744,16 @@ void decode_tile(Codestream& cs, const Tcp& tcp, int tileno,
     const int32_t lo = ci.sgnd ? -(1 << (ci.prec - 1)) : 0;
     const int32_t hi = ci.sgnd ? (1 << (ci.prec - 1)) - 1
                                : static_cast<int32_t>((int64_t{1} << ci.prec) - 1);
-    const int32_t shift = ci.sgnd ? 0 : 1 << (ci.prec - 1);
+    const int32_t shift = tcp.tccps[c].dc_shift;
     const int ow = tc.out_w(), oh = tc.out_h(), stride = tc.w();
     if (tcp.tccps[c].qmfbid == 1) {
+      // the 5/3's sum in int32, wrapping as OpenJPEG's does
       for (int y = 0; y < oh; y++)
         for (int x = 0; x < ow; x++) {
           int32_t& v = tc.idata[static_cast<size_t>(y) * stride + x];
-          v = static_cast<int32_t>(std::clamp<int64_t>(int64_t{v} + shift, lo, hi));
+          v = std::clamp(static_cast<int32_t>(static_cast<uint32_t>(v) +
+                                              static_cast<uint32_t>(shift)),
+                         lo, hi);
         }
     } else {
       tc.idata.assign(area, 0);
