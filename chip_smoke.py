@@ -213,12 +213,22 @@ card, ``nvcc`` and the repository; it imports nothing of JAX.
    compound and blur_rand (launch counts zeroed just before and read just
    after each call; the written count the reference's) with B3/B2 held at
    its buckets; ``restore_tree`` and ``evaluate_directory`` over the
-   readable files in both resize modes. An ``image_formats:`` JSON line.
+   readable files in both resize modes; then the ``tiff_scanline`` group
+   (``tiff_scanline_checks``): three 16384 x 15700 single-strip TIFFs
+   built at run time that cv2 reads through its scanline branch, the
+   MINISWHITE and orientation-3 ones equal to cv2's digests, the
+   half-deflate one refused, the decode rate and a decode-only child's
+   peak RSS, and the MINISWHITE one through ``generate_tree`` (blur and
+   blur_rand: one B3 and one B2 launch at ``[1, 15712, 16384, 3]``, each
+   held against its plain version there), ``restore_tree`` and
+   ``evaluate_directory`` in a tree of its own. An ``image_formats:``
+   JSON line.
 14. One JSON line of the kernels (with ``launches_trees``,
    ``tree_shapes``, ``launches_cascade``, ``cascade_shapes``,
    ``launches_judge``, ``launches_int8``, ``launches_cli``,
    ``launches_mesh``, ``launches_jpeg``, ``launches_jpeg_features``,
-   ``launches_image_formats`` and ``image_format_times``), the card's
+   ``launches_image_formats``, ``image_format_times``,
+   ``launches_tiff_scanline`` and ``tiff_scanline_times``), the card's
    line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -284,7 +294,8 @@ UMAP_SAMPLES = 100           # script 12's --samples-per-mode
 # then 512 x 8 chunks, best of 3) and the unified trainer's checkpoints
 INT8_BATCH = 64
 INT8_STEP_ITERS = 5          # CUDA-event window of the batch-64 step
-INT8_BENCH_BATCH, INT8_BENCH_CHUNKS, INT8_BENCH_REPS = 512, 8, 3
+# the bench-shape passes: best of 2 after a warm-up (they spread < 0.2 %)
+INT8_BENCH_BATCH, INT8_BENCH_CHUNKS, INT8_BENCH_REPS = 512, 8, 2
 UNIFIED_CKPT_EPOCHS = 2
 # the CLI phase: the Quickstart on the README's synthetic tree (43 classes x
 # 8 images at GTSRB-like native sizes), one epoch each, at full width and
@@ -481,6 +492,24 @@ TIFF_MODES_DIGESTS = {
         "7a5a6e4916d9066261f1d340d87d06b69d6f2daa1081022824d0054f8b3ad556",
     "rate_modes_ojpeg.png":
         "e8b6c8ed757629e9255d0e12f44d98ffd34619a683d230ac2d1c59ad6d3734c4"}
+# and single-strip TIFFs whose RGBA buffer (4 bytes a pixel) reaches 95 %
+# of 1 GiB, which cv2 reads through its scanline branch (TIFF part 2d),
+# built by scanline_tiff at this (h, w), 4 h w = 1.03e9 bytes: {name:
+# (photometric, orientation, the deflate stream cut at half)}; the cut one
+# cv2 gives None for, TIFF_SCANLINE_DIGESTS the SHA-256 of cv2.imread's RGB
+# pixels of the others (tests/test_torch_port_tiff_scanline.py checks
+# them against cv2), decoded this many times a timed pass
+TIFF_SCANLINE_SIZE = (15700, 16384)
+TIFF_SCANLINE_FILES = {
+    "tiff_scanline_miniswhite.jpg": (0, 1, False),
+    "tiff_scanline_orientation3.jpg": (1, 3, False),
+    "tiff_scanline_half_deflate.jpg": (1, 1, True)}
+TIFF_SCANLINE_DIGESTS = {  # both as stored, so one digest
+    "tiff_scanline_miniswhite.jpg":
+        "3401b9557ae8ecdbb91d1ed486ddf5ae5948e46e8c2fe5686910e751efcbf36b",
+    "tiff_scanline_orientation3.jpg":
+        "3401b9557ae8ecdbb91d1ed486ddf5ae5948e46e8c2fe5686910e751efcbf36b"}
+TIFF_SCANLINE_DECODES = 3
 # and a fax page (T.4's 1728 pixels a row, fine mode's 2292 rows, one
 # strip, MINISWHITE) as group 4 and as group 3 2-D (K = 4), written by
 # fax_code's T.6 and T.4 coder
@@ -4545,6 +4574,235 @@ def built_tiff_2c_checks(work):
     return [p for n, p in files.items() if n.startswith("tiff_2c_")], out
 
 
+def scanline_rows(w, y0, y1, spp=1, bits=8, big=False):
+    """Rows [y0, y1) of the scanline group's samples, [rows, w, spp]:
+    (7 x + 3 y + 50 k) mod 256 (at 16 bits the high byte, with (5 x + 11 y
+    + k) mod 256 the low one), in the file's byte order. They repeat every
+    256 rows."""
+    import numpy as np
+
+    def mod256(a, b, c):  # (a x + b y + c k) mod 256, summed in uint8
+        def term(n, start, stop):
+            return ((n * np.arange(start, stop)) & 255).astype(np.uint8)
+        return (term(a, 0, w)[None, :, None] + term(b, y0, y1)[:, None, None]
+                + term(c, 0, spp)[None, None, :])
+    v = mod256(7, 3, 50)
+    if bits == 16:
+        v = (v.astype(np.uint16) << 8) | mod256(5, 11, 1)
+        return v.astype(">u2" if big else "<u2")
+    return v
+
+
+def scanline_deflate(h, block_of, period=256):
+    """One zlib stream of ``h`` rows, those of rows [y0, y1) the bytes
+    ``block_of(y0, y1)`` (rows that repeat every ``period``): the first
+    block compressed once as raw deflate ended by Z_FULL_FLUSH, so that its
+    bytes stand for every repeat, the rest of the rows after them, the
+    Adler-32 of all rows at the end. Seconds, where zlib.compress of the
+    rows takes many."""
+    import zlib
+    n = min(h, period)
+    block = block_of(0, n)
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    body = co.compress(block) + co.flush(zlib.Z_FULL_FLUSH)
+    repeats, rest = divmod(h, n)
+    adler = 1
+    for _ in range(repeats):
+        adler = zlib.adler32(block, adler)
+    tail = block[:rest * (len(block) // n)]
+    adler = zlib.adler32(tail, adler)
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    return (b"\x78\x9c" + body * repeats + co.compress(tail) + co.flush()
+            + struct.pack(">I", adler))
+
+
+def scanline_tiff(w, h, spp=1, bits=8, photometric=1, tags=None, data=None,
+                  compression=8, big=False):
+    """A TIFF of one strip of the whole image (RowsPerStrip ``h``) of
+    scanline_rows' samples: deflate (scanline_deflate), uncompressed with
+    ``compression`` 1, or the strip ``data`` under ``compression``;
+    ``tags`` {tag: (type, values)} added or replaced, or left out where
+    None."""
+    if data is None:
+        def rows_of(y0, y1):
+            return scanline_rows(w, y0, y1, spp, bits, big).tobytes()
+        data = (scanline_deflate(h, rows_of) if compression == 8 else
+                b"".join(rows_of(y, min(h, y + 256))
+                         for y in range(0, h, 256)))
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+               259: (3, [compression]), 262: (3, [photometric]),
+               273: (4, None), 277: (3, [spp]), 278: (4, [h]),
+               279: (4, [len(data)])}
+    entries.update(tags or {})
+    return tiff_layout({t: v for t, v in entries.items() if v is not None},
+                       [data], big=big)
+
+
+def tiff_scanline_files(root):
+    """{name: path} of phase 13's scanline group in ``root``
+    (TIFF_SCANLINE_FILES at TIFF_SCANLINE_SIZE)."""
+    h, w = TIFF_SCANLINE_SIZE
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    data = scanline_deflate(h, lambda y0, y1: scanline_rows(
+        w, y0, y1).tobytes())
+    for name, (photometric, orientation, cut) in TIFF_SCANLINE_FILES.items():
+        out[name] = root / name
+        out[name].write_bytes(scanline_tiff(
+            w, h, photometric=photometric,
+            data=data[:len(data) // 2] if cut else data,
+            tags={274: (3, [orientation])}))
+    return out
+
+
+# a child process that only decodes: its RSS after the import and its peak,
+# VmHWM (its own memory map's high-water mark: Linux carries ru_maxrss
+# across exec, so a child's would hold its parent's RSS at fork) where
+# /proc has it, else VmRSS read every millisecond through the decode (the
+# peak, the C image and its copy both held, lasts the copy)
+SCANLINE_RSS_CHILD = """
+import json, sys, threading, time
+from tsr_tpu_torch import native
+def status(key):
+    for ln in open("/proc/self/status"):
+        if ln.startswith(key + ":"):
+            return int(ln.split()[1]) * 1024
+native._lib()
+rss = status("VmRSS")
+polled, done = [rss], threading.Event()
+def poll():
+    while not done.is_set():
+        polled.append(status("VmRSS"))
+        time.sleep(0.001)
+watch = threading.Thread(target=poll)
+watch.start()
+img = native.decode(sys.argv[1])
+done.set()
+watch.join()
+hwm = status("VmHWM")
+print(json.dumps({"rss_after_import": rss, "output_bytes": img.nbytes,
+                  "peak_rss": hwm or max(polled),
+                  "peak_from": "VmHWM" if hwm else "VmRSS polled"}))
+"""
+
+
+def tiff_scanline_checks(dev, resunet, judge, rows, work):
+    """The scanline group (TIFF part 2d) on files built here
+    (tiff_scanline_files; the card's machine has no cv2): the MINISWHITE
+    and orientation-3 files decoded to their TIFF_SCANLINE_DIGESTS (as
+    stored: no inversion, no flip) and probed at their size by both
+    readers, the half-deflate file probed (0, 0) by the cv2 reader with its
+    decode raising; the MINISWHITE file's decode time (best of
+    TIFF_SCANLINE_DECODES) and the peak RSS of a child that only decodes
+    it, held to twice the output plus the file plus 64 MiB; then, in a
+    tree of its own, generate_tree for blur and blur_rand (launch counts
+    zeroed just before and read just after each call: one B3 and one B2
+    batch at the new bucket), restore_tree and evaluate_directory, and B3
+    and B2 held against filter2d_plain at that bucket (check_blur_at_buckets:
+    the tiff_scanline_times of the B2 and B3 rows). Sets each row's
+    launches_tiff_scanline; returns (the numbers for phase 13's line, the
+    launches)."""
+    import hashlib
+    import numpy as np
+    import torch
+    from tsr_tpu_torch import eval as teval
+    from tsr_tpu_torch import infer, native, offline
+    from tsr_tpu_torch.kernels import _build
+    h, w = TIFF_SCANLINE_SIZE
+    t0 = time.perf_counter()
+    files = tiff_scanline_files(work / "tiff_scanline" / "files")
+    out = {"write_s": time.perf_counter() - t0,
+           "file_bytes": {n: p.stat().st_size for n, p in files.items()}}
+    for name, p in files.items():
+        if name in TIFF_SCANLINE_DIGESTS:
+            img = native.decode(str(p))
+            check(img.shape == (h, w, 3) and hashlib.sha256(
+                img.tobytes()).hexdigest() == TIFF_SCANLINE_DIGESTS[name],
+                f"{name} decodes unlike cv2.imread")
+            del img
+            for reader in ("port", "cv2"):
+                check(native.probe([str(p)], reader=reader).tolist()
+                      == [[h, w]], f"{name}: probe({reader!r})")
+            continue
+        check(native.probe([str(p)], reader="cv2").tolist() == [[0, 0]],
+              f"{name}: probe(reader='cv2') reads what cv2 refuses")
+        try:
+            native.decode(str(p))
+        except RuntimeError as e:
+            check("failed to decode" in str(e), f"{name}: {e}")
+        else:
+            check(False, f"{name} decoded; cv2 and PIL refuse it")
+    ms_file = files["tiff_scanline_miniswhite.jpg"]
+    best = math.inf
+    for _ in range(TIFF_SCANLINE_DECODES):
+        t0 = time.perf_counter()
+        native.decode(str(ms_file))
+        best = min(best, time.perf_counter() - t0)
+    out["decode"] = {"seconds": best, "megapixels_per_sec": h * w / best / 1e6}
+    proc = subprocess.run([sys.executable, "-c", SCANLINE_RSS_CHILD,
+                           str(ms_file)], capture_output=True, text=True,
+                          cwd=str(REPO), timeout=300)
+    check(proc.returncode == 0, f"decode child failed: {proc.stderr[-2000:]}")
+    rss = json.loads(proc.stdout.strip().splitlines()[-1])
+    grown = rss["peak_rss"] - rss["rss_after_import"]
+    allowed = 2 * rss["output_bytes"] + ms_file.stat().st_size + 64 * 2**20
+    check(grown <= allowed, f"decode child grew by {grown} bytes; allowed "
+          f"{allowed}")
+    out["decode_rss"] = dict(rss, grown=grown, allowed=allowed)
+
+    tree = work / "tiff_scanline" / "tree"
+    (tree / "c0").mkdir(parents=True, exist_ok=True)
+    shutil.copy(ms_file, tree / "c0" / ms_file.name)
+    launches = {"blur_sparse": 0, "blur_dense": 0, "fog_noise": 0}
+    gen = {}
+    for kind in ("blur", "blur_rand"):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = offline.generate_tree(str(tree),
+                                  str(work / "tiff_scanline" / kind), kind,
+                                  seed=SEED, batch_size=TREE_BATCH,
+                                  log=lambda line: None, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        want = {"blur_dense": int(kind == "blur"),
+                "blur_sparse": int(kind == "blur_rand"), "fog_noise": 0}
+        check(n == 1 and counts == want, f"generate_tree {kind}: {n} "
+              f"written, launches {counts}, expected {want}")
+        written = next((work / "tiff_scanline" / kind).glob("*/*"))
+        check(tuple(native.probe([str(written)])[0]) == (h, w),
+              f"generate_tree {kind} wrote {written.name} at another size")
+        for k, v in counts.items():
+            launches[k] += v
+        gen[kind] = {"seconds": dt, "launches": counts,
+                     "bucket": [offline._bucket_with_room(
+                         s, offline.HALO.get(kind, 0)) for s in (h, w)]}
+    out["generate_tree"] = gen
+    quiet = lambda line: None  # noqa: E731
+    _build.reset_launch_counts()
+    res = infer.restore_tree(resunet, str(tree), str(work / "tiff_scanline"
+                                                     / "restored"),
+                             clean_dir=str(tree), batch_size=BATCH, size=SIZE,
+                             log=quiet, device=dev)
+    check(res["images"] == 1 and math.isfinite(res["psnr"]),
+          f"restore_tree: {res}")
+    ev = teval.evaluate_directory(judge, str(tree), batch_size=BATCH,
+                                  size=SIZE, restorer=resunet, device=dev)
+    check(ev["n"] == 1 and math.isfinite(ev["confidence"]),
+          f"evaluate_directory: {ev}")
+    check(sum(_build.launch_counts().values()) == 0,
+          "the walks launch no blur or B1 kernel")
+    out["restore_tree"] = {k: res[k] for k in ("psnr", "ssim")}
+    out["evaluate_directory"] = {k: ev[k] for k in ("top1", "confidence")}
+    check_blur_at_buckets(dev, [ms_file], rows, key="tiff_scanline_times")
+    for row in rows:
+        row["launches_tiff_scanline"] = launches[{
+            "B1": "fog_noise", "B2": "blur_sparse",
+            "B3": "blur_dense"}[row["name"][:2]]]
+    return out, launches
+
+
 def jpeg_segments(stream):
     """A JPEG stream's marker segments up to its first scan, [(marker,
     payload past the length)], then ("data", the bytes after the SOS
@@ -6661,6 +6919,18 @@ def image_formats_phase(dev, resunet, judge, rows, work):
     print(f"built fax page ({FAX_PAGE[1]} x {FAX_PAGE[0]}, group 4 and "
           f"group 3 2-D, equal to its bitmap, one host thread, beside "
           f"{result['card']}): " + json.dumps(result["built_ccitt"]))
+    t0 = time.perf_counter()
+    result["tiff_scanline"], scanline = tiff_scanline_checks(
+        dev, resunet, judge, rows, work)
+    result["tiff_scanline"]["seconds"] = time.perf_counter() - t0
+    for k, v in scanline.items():
+        launches[k] += v
+    print(f"TIFF scanline branch ({TIFF_SCANLINE_SIZE[1]} x "
+          f"{TIFF_SCANLINE_SIZE[0]} single deflate strips, MINISWHITE and "
+          f"orientation 3 equal to cv2.imread's digests, the half stream "
+          f"refused; decode on one host thread, peak RSS of a child that "
+          f"only decodes, beside {result['card']}): "
+          + json.dumps(result["tiff_scanline"]))
     result["launches"] = launches
     result["phase_seconds"] = time.perf_counter() - t_phase
     print("image_formats: " + json.dumps(result))
@@ -6865,6 +7135,7 @@ def run(dev) -> None:
         row["launches_jpeg"] = jpeg_counts[key]
         row["launches_jpeg_features"] = feature_counts[key]
         row["launches_image_formats"] = format_counts[key]
+        row.setdefault("launches_tiff_scanline", 0)
         row.setdefault("cascade_shapes", [])
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -20,16 +20,28 @@
 //     subsampling from the first frame where the tag is missing; OpenCV's
 //     build does not chop a large strip into smaller ones); OpenCV then
 //     needs the Photometric tag, samples of 1, 8 or 16 bits (4 of a
-//     palette), at most 4 a pixel, a codec its build has, and what
-//     libtiff's RGBA reader accepts, and reads each strip or tile through
-//     TIFFReadRGBAStrip / TIFFReadRGBATile (CCITT through libtiff's fax
-//     decoders, FaxDecoder, their no-EOL mode kept from chunk to chunk in
-//     the reader's order; SGILog at the 8-bit data format the reader sets,
-//     LogL as gray and LogLuv as RGB, whatever samples cv2's header sees
-//     of LogLuv). The reader's put routines are
-//     copied with their pointer arithmetic (gray and palette rows skip bytes
-//     where RGB rows skip pixels, which reads the edge tiles of some layouts
-//     askew) and tables: a 16-bit gray sample's high byte, an RGB one's
+//     palette) and at most 4 a pixel, and reads the image in one of two
+//     ways. Its scanline branch (scanline_branch, read_scanlines) takes
+//     the image where the RGBA buffer of a strip, 4 bytes a pixel, reaches
+//     1020054732 bytes (95 % of 1 GiB: about 255 M pixels, whatever the
+//     samples' size) and that strip is the whole image, of 1, 3 or 4
+//     samples (4: one ExtraSamples value, associated alpha; without the
+//     tag, None) of 8 or 16 bits, MINISWHITE, MINISBLACK or RGB,
+//     contiguous: TIFFReadScanline a row at a time (none, PackBits, LZW
+//     and deflate streamed with the predictor per row, JPEG a whole frame),
+//     the rows as stored (MINISWHITE not inverted, no orientation but
+//     imread's turn of a square 5-8, a 16-bit sample's high byte, gray to
+//     three channels, alpha dropped), and any row that fails gives None.
+//     Everything else needs a codec its build has, what libtiff's RGBA
+//     reader accepts and an RGBA buffer under 1 GiB, and reads each strip
+//     or tile through TIFFReadRGBAStrip / TIFFReadRGBATile (CCITT through
+//     libtiff's fax decoders, FaxDecoder, their no-EOL mode kept from chunk
+//     to chunk in the reader's order; SGILog at the 8-bit data format the
+//     reader sets, LogL as gray and LogLuv as RGB, whatever samples cv2's
+//     header sees of LogLuv). The reader's put routines are copied with
+//     their pointer arithmetic (gray and palette rows skip bytes where RGB
+//     rows skip pixels, which reads the edge tiles of some layouts askew)
+//     and tables: a 16-bit gray sample's high byte, an RGB one's
 //     (v + 128) / 257, unassociated alpha premultiplied (v x a + 127) / 255,
 //     separate gray planes read as RGB (MINISWHITE not inverted), CMYK as k
 //     (255 - C) / 255 with k = 255 - K, YCbCr through TIFFYCbCrToRGBInit's
@@ -37,9 +49,10 @@
 //     conversion to XYZ and its sRGB display's gamma table. JPEG strips and
 //     tiles go through libtiff's JPEG codec (jpeg_chunk, with jpeg.cpp's
 //     TiffJpeg): contiguous YCbCr turned to RGB by libjpeg, everything else
-//     as stored. It refuses the image where the first plane's chunk cannot
-//     be read (a byte count of 0, past the end of the file, an uncompressed
-//     tile of the wrong size, a JPEG stream libtiff's checks refuse), but
+//     as stored. The RGBA path refuses the image where the first plane's
+//     chunk cannot be read (a byte count of 0, past the end of the file, an
+//     uncompressed tile of the wrong size, a JPEG stream libtiff's checks
+//     refuse), but
 //     keeps what a damaged chunk decoded before its error (the rest 0, the
 //     predictor not applied, the bytes unswapped); a number that names no
 //     codec decodes nothing, so reads as zeros. Orientations 2-4 flip the
@@ -81,6 +94,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <optional>
 #include <string>
 #include <vector>
 
@@ -115,7 +129,8 @@ bool part1_compression(int c) {
 // ZSTD, WebP). Every other number but part 1's, CCITT's (2, 3, 4, 32771),
 // JPEG (7), NeXT (32766), ThunderScan (32809) and SGILog's (34676, 34677)
 // names no codec: libtiff opens the file, its strips decode to nothing
-// ("decoding is not implemented") and the image reads as zeros.
+// ("decoding is not implemented") and the image reads as zeros through the
+// RGBA reader (None through the scanline branch, whose row reads fail).
 bool not_configured(int c) {
   return c == 6 || c == 32909 || c == 34661 || c == 34887 || c == 34925 ||
          c == 50000 || c == 50001;
@@ -258,6 +273,7 @@ struct Dir {
   uint16_t spp = 1, bps = 1, compression = 1, photometric = 0, planar = 1;
   uint16_t orientation = 1, predictor = 1, fillorder = 1, sampleformat = 1;
   uint16_t extrasamples = 0, sampleinfo0 = 0;  // the first ExtraSamples value
+  bool extra_set = false;  // the ExtraSamples tag read (FIELD_EXTRASAMPLES)
   uint16_t inkset = 1;
   uint32_t group3 = 0;  // Group3Options (Compression 3 only)
   // YCbCrSubsampling (2, 2 without the tag; JPEG's fixup may set it from
@@ -986,6 +1002,7 @@ bool read_dir(Dir& t) {
           if (x > 2 && x != 999) return false;
         t.extrasamples = static_cast<uint16_t>(a.size());
         t.sampleinfo0 = a.empty() ? 0 : a[0] == 999 ? 2 : static_cast<uint16_t>(a[0]);
+        t.extra_set = true;
         e.ignore = true;
         break;
       }
@@ -1246,9 +1263,13 @@ bool read_dir(Dir& t) {
 
 // ------------------------------------------------------------ decoders
 
-// PackBitsDecode over a whole strip: false on its error (the bytes written
-// before it stay, the rest 0).
-bool packbits(const uint8_t* in, size_t cc, uint8_t* op, size_t occ) {
+// PackBitsDecode: `occ` bytes at op from the cc bytes at `in` (both
+// advanced past what it reads), as libtiff decodes a strip, or one of its
+// rows where it is read by scanlines: a run longer than what is left of the
+// call is cut short and the rest of it dropped, a header byte with nothing
+// after it ends the call. False where the call falls short (the bytes
+// written stay, the rest as they were).
+bool packbits(const uint8_t*& in, size_t& cc, uint8_t* op, size_t occ) {
   while (cc > 0 && occ > 0) {
     long n = static_cast<int8_t>(*in++);
     cc--;
@@ -1276,136 +1297,181 @@ bool packbits(const uint8_t* in, size_t cc, uint8_t* op, size_t occ) {
   return occ == 0;
 }
 
-// libtiff's LZW decoders over a whole strip: MSB-first codes with the
-// early width change, or, with `compat`, old-style LSB-first codes. False
-// on an error; the bytes written before it stay, the rest 0.
-bool lzw(const uint8_t* in, size_t cc, uint8_t* op, size_t occ, bool compat) {
-  constexpr int kClear = 256, kEoi = 257, kFirst = 258, kSize = 4096;
+// libtiff's LZW decoders (LZWDecode, LZWDecodeCompat): MSB-first codes with
+// the early width change, or, with `compat`, old-style LSB-first codes. The
+// state lasts from call to call, as it does from row to row of a strip
+// read by scanlines: a string that does not fit in one call is finished by
+// the next. A call fails on an error, or where the data ends before it is
+// full (the bytes written before it stay, the rest as they were).
+class Lzw {
+ public:
+  Lzw(const uint8_t* in, size_t cc, bool compat)
+      : in_(in), bitsleft_(uint64_t{cc} * 8), compat_(compat),
+        bump_(compat ? 0 : 1), tab_(kSize) {
+    for (int i = 0; i < 256; i++)
+      tab_[i] = {-1, 1, static_cast<uint8_t>(i), static_cast<uint8_t>(i)};
+  }
+
+  bool decode(uint8_t* op, size_t occ) {
+    if (pending_ >= 0) {  // the rest of the last call's string
+      const size_t len = tab_[pending_].length;
+      if (len - done_ > occ) {
+        put(pending_, done_, done_ + occ, op);
+        done_ += occ;
+        return true;
+      }
+      put(pending_, done_, len, op);
+      op += len - done_;
+      occ -= len - done_;
+      pending_ = -1;
+    }
+    while (occ > 0) {
+      int code = next();
+      if (code < 0) return false;  // the data ends before an EOI code
+      if (code == kEoi) break;
+      if (code == kClear) {
+        free_ent_ = kFirst;
+        nbits_ = 9;
+        maxcode_ = (1 << nbits_) - 1 - bump_;
+        do {
+          code = next();
+          if (code < 0) return false;
+        } while (code == kClear);
+        if (code == kEoi) break;
+        if (code > kEoi) return false;
+        *op++ = static_cast<uint8_t>(code);
+        occ--;
+        old_ = code;
+        continue;
+      }
+      // the table is full, or the code not yet in it
+      if (free_ent_ < 0 || free_ent_ >= kSize) return false;
+      if (code >= kFirst && code > free_ent_) return false;
+      Code& e = tab_[free_ent_];
+      e.next = old_;
+      e.firstchar = tab_[old_].firstchar;
+      e.length = static_cast<uint16_t>(tab_[old_].length + 1);
+      e.value = code < free_ent_ ? tab_[code].firstchar : tab_[old_].firstchar;
+      if (++free_ent_ > maxcode_) {
+        if (++nbits_ > 12) nbits_ = 12;
+        maxcode_ = (1 << nbits_) - 1 - bump_;
+        if (free_ent_ >= kSize && !compat_) free_ent_ = -1;
+      }
+      old_ = code;
+      if (code < 256) {
+        *op++ = static_cast<uint8_t>(code);
+        occ--;
+        continue;
+      }
+      const size_t len = tab_[code].length;
+      if (len == 0) return false;
+      if (len > occ) {  // the part that fits; the next call finishes it
+        put(code, 0, occ, op);
+        pending_ = code;
+        done_ = occ;
+        return true;
+      }
+      put(code, 0, len, op);
+      op += len;
+      occ -= len;
+    }
+    return occ == 0;
+  }
+
+ private:
+  static constexpr int kClear = 256, kEoi = 257, kFirst = 258, kSize = 4096;
   struct Code {
     int next;  // -1: none
     uint16_t length;
     uint8_t value, firstchar;
   };
-  std::vector<Code> tab(kSize);
-  for (int i = 0; i < 256; i++) tab[i] = {-1, 1, static_cast<uint8_t>(i),
-                                          static_cast<uint8_t>(i)};
-  int nbits = 9;
-  uint64_t bitsleft = uint64_t{cc} * 8;
-  uint64_t data = 0;
-  int have = 0;
-  size_t pos = 0;
+
   // the next code, or -1 where the data ends first
-  auto next = [&]() -> int {
-    if (bitsleft < static_cast<uint64_t>(nbits)) return -1;
-    bitsleft -= nbits;
-    while (have < nbits) {
-      if (compat) data |= uint64_t{in[pos++]} << have;
-      else data = (data << 8) | in[pos++];
-      have += 8;
+  int next() {
+    if (bitsleft_ < static_cast<uint64_t>(nbits_)) return -1;
+    bitsleft_ -= nbits_;
+    while (have_ < nbits_) {
+      if (compat_) data_ |= uint64_t{in_[pos_++]} << have_;
+      else data_ = (data_ << 8) | in_[pos_++];
+      have_ += 8;
     }
     int code;
-    if (compat) {
-      code = static_cast<int>(data & ((1u << nbits) - 1));
-      data >>= nbits;
+    if (compat_) {
+      code = static_cast<int>(data_ & ((1u << nbits_) - 1));
+      data_ >>= nbits_;
     } else {
-      code = static_cast<int>((data >> (have - nbits)) & ((1u << nbits) - 1));
+      code = static_cast<int>((data_ >> (have_ - nbits_)) & ((1u << nbits_) - 1));
     }
-    have -= nbits;
+    have_ -= nbits_;
     return code;
-  };
+  }
+
+  // bytes [a, b) of `code`'s string at op
+  void put(int code, size_t a, size_t b, uint8_t* op) const {
+    int k = code;
+    for (size_t i = tab_[code].length; i > b; i--) k = tab_[k].next;
+    for (size_t i = b; i-- > a && k >= 0;) {
+      op[i - a] = tab_[k].value;
+      k = tab_[k].next;
+    }
+  }
+
+  const uint8_t* in_;
+  uint64_t bitsleft_;
+  const bool compat_;
   // the width grows when the next entry passes maxcode (one entry later in
   // the old-style decoder, once a clear code has set it); until the first
   // clear code there is no table (-1): any other code is an error
-  const int bump = compat ? 0 : 1;
-  int free_ent = -1, maxcode = (1 << nbits) - 2;
-  int old = 0;  // the previous code's entry (entry 0 at the start)
-  auto put_string = [&](int code) {
-    const Code& c = tab[code];
-    if (c.length > occ) {  // the part that fits
-      int k = code;
-      while (tab[k].length > occ) k = tab[k].next;
-      for (size_t i = occ; i-- > 0;) {
-        op[i] = tab[k].value;
-        k = tab[k].next;
-      }
-      occ = 0;
-      return;
-    }
-    int k = code;
-    for (size_t i = c.length; i-- > 0 && k >= 0;) {
-      op[i] = tab[k].value;
-      k = tab[k].next;
-    }
-    op += c.length;
-    occ -= c.length;
-  };
-  while (occ > 0) {
-    int code = next();
-    if (code < 0) return false;  // the data ends before an EOI code
-    if (code == kEoi) break;
-    if (code == kClear) {
-      free_ent = kFirst;
-      nbits = 9;
-      maxcode = (1 << nbits) - 1 - bump;
-      do {
-        code = next();
-        if (code < 0) return false;
-      } while (code == kClear);
-      if (code == kEoi) break;
-      if (code > kEoi) return false;
-      *op++ = static_cast<uint8_t>(code);
-      occ--;
-      old = code;
-      continue;
-    }
-    if (free_ent < 0 || free_ent >= kSize) return false;  // the table is full
-    if (code >= kFirst && code > free_ent) return false;  // not yet in it
-    Code& e = tab[free_ent];
-    e.next = old;
-    e.firstchar = tab[old].firstchar;
-    e.length = static_cast<uint16_t>(tab[old].length + 1);
-    e.value = code < free_ent ? tab[code].firstchar : tab[old].firstchar;
-    if (++free_ent > maxcode) {
-      if (++nbits > 12) nbits = 12;
-      maxcode = (1 << nbits) - 1 - bump;
-      if (free_ent >= kSize && !compat) free_ent = -1;
-    }
-    old = code;
-    if (code >= 256) {
-      if (tab[code].length == 0) return false;
-      put_string(code);
-    } else {
-      *op++ = static_cast<uint8_t>(code);
-      occ--;
-    }
-  }
-  return occ == 0;
-}
+  const int bump_;
+  std::vector<Code> tab_;
+  int nbits_ = 9, free_ent_ = -1, maxcode_ = (1 << 9) - 2;
+  int old_ = 0;  // the previous code's entry (entry 0 at the start)
+  uint64_t data_ = 0;
+  int have_ = 0;
+  size_t pos_ = 0;
+  int pending_ = -1;  // a string the last call cut short, and its bytes out
+  size_t done_ = 0;
+};
 
-// ZIPDecode: inflate with Z_PARTIAL_FLUSH until the strip is full.
-bool deflate_strip(const uint8_t* in, size_t cc, uint8_t* op, size_t occ) {
-  z_stream zs;
-  std::memset(&zs, 0, sizeof(zs));
-  if (inflateInit(&zs) != Z_OK) return false;
-  zs.next_in = const_cast<uint8_t*>(in);
-  zs.next_out = op;
-  bool ok = true;
-  do {
-    zs.avail_in = static_cast<uInt>(std::min<size_t>(cc, 0xFFFFFFFFu));
-    zs.avail_out = static_cast<uInt>(std::min<size_t>(occ, 0xFFFFFFFEu));
-    const uInt in0 = zs.avail_in, out0 = zs.avail_out;
-    const int st = inflate(&zs, Z_PARTIAL_FLUSH);
-    cc -= in0 - zs.avail_in;
-    occ -= out0 - zs.avail_out;
-    if (st == Z_STREAM_END) break;
-    if (st != Z_OK) {
-      ok = false;
-      break;
-    }
-  } while (occ > 0);
-  inflateEnd(&zs);
-  return ok && occ == 0;
-}
+// ZIPDecode: inflate with Z_PARTIAL_FLUSH until `occ` bytes are out. The
+// stream lasts from call to call, as it does from row to row of a strip
+// read by scanlines; inflate goes on through what needs no output once the
+// call is full (a block's end, the next block's header, the Adler-32 check),
+// and fails the call where that data is bad.
+class Inflate {
+ public:
+  Inflate(const uint8_t* in, size_t cc) : cc_(cc) {
+    std::memset(&zs_, 0, sizeof(zs_));
+    init_ = inflateInit(&zs_) == Z_OK;
+    zs_.next_in = const_cast<uint8_t*>(in);
+  }
+  ~Inflate() {
+    if (init_) inflateEnd(&zs_);
+  }
+  Inflate(const Inflate&) = delete;
+  Inflate& operator=(const Inflate&) = delete;
+
+  bool decode(uint8_t* op, size_t occ) {
+    if (!init_) return false;
+    zs_.next_out = op;
+    do {
+      zs_.avail_in = static_cast<uInt>(std::min<size_t>(cc_, 0xFFFFFFFFu));
+      zs_.avail_out = static_cast<uInt>(std::min<size_t>(occ, 0xFFFFFFFEu));
+      const uInt in0 = zs_.avail_in, out0 = zs_.avail_out;
+      const int st = inflate(&zs_, Z_PARTIAL_FLUSH);
+      cc_ -= in0 - zs_.avail_in;
+      occ -= out0 - zs_.avail_out;
+      if (st == Z_STREAM_END) break;
+      if (st != Z_OK) return false;
+    } while (occ > 0);
+    return occ == 0;
+  }
+
+ private:
+  z_stream zs_;
+  size_t cc_;
+  bool init_ = false;
+};
 
 uint8_t reversed(uint8_t b) {
   b = static_cast<uint8_t>((b & 0xF0) >> 4 | (b & 0x0F) << 4);
@@ -2217,13 +2283,51 @@ void hor_acc(uint8_t* out, size_t occ, size_t row, size_t stride) {
   }
 }
 
+// What libtiff does to the rows a decoder gives (tif_postdecode and the
+// predictor's decodepfunc): 16, 32 and 64-bit samples of a big-endian file
+// swapped to the host's order and the horizontal predictor applied row by
+// row, or the floating-point predictor (which gives the host's order
+// itself); uncompressed and PackBits data take no predictor.
+void postdecode(const Dir& t, uint8_t* out, size_t occ) {
+  const bool predicted = t.compression != 1 && t.compression != 32773;
+  const size_t row = t.chunk_row, stride = t.planar == 2 ? 1 : t.spp;
+  if (predicted && t.predictor == 3) {
+    // fpAcc: each row's bytes accumulated `stride` apart, then its byte
+    // planes (most significant first) gathered into samples of the
+    // host's order; no swap follows
+    const size_t bytes = t.bps / 8;
+    std::vector<uint8_t> tmp(row);
+    for (size_t r = 0; r + row <= occ; r += row) {
+      uint8_t* p = out + r;
+      for (size_t i = stride; i < row; i++)
+        p[i] = static_cast<uint8_t>(p[i] + p[i - stride]);
+      std::memcpy(tmp.data(), p, row);
+      const size_t count = row / bytes;
+      for (size_t k = 0; k < count; k++)
+        for (size_t b = 0; b < bytes; b++)
+          p[bytes * k + b] = tmp[(bytes - b - 1) * count + k];
+    }
+    return;
+  }
+  // samples of a big-endian file swapped to the host's order
+  if (t.src.be && (t.bps == 16 || t.bps == 32 || t.bps == 64)) {
+    const size_t unit = t.bps / 8;
+    for (size_t i = 0; i + unit <= occ; i += unit) std::reverse(out + i, out + i + unit);
+  }
+  if (predicted && t.predictor == 2) {
+    switch (t.bps) {  // horAcc8 / 16 / 32 / 64
+      case 8: hor_acc<uint8_t>(out, occ, row, stride); break;
+      case 16: hor_acc<uint16_t>(out, occ, row, stride); break;
+      case 32: hor_acc<uint32_t>(out, occ, row, stride); break;
+      default: hor_acc<uint64_t>(out, occ, row, stride); break;
+    }
+  }
+}
+
 // One strip's or tile's bytes as libtiff's decoder gives them: false on a
 // decoder error (what it wrote stays, unswapped; PackBits, LZW and deflate
 // zero the rest, an uncompressed chunk too short or a number that names no
-// codec leave the buffer as it was), else 16, 32 and 64-bit samples of a
-// big-endian file swapped to the host's order and the horizontal predictor
-// applied row by row, or the floating-point predictor (which gives the
-// host's order itself).
+// codec leave the buffer as it was), else postdecode's.
 bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
                   size_t occ, bool compat, bool odd = false,
                   FaxCodec* state = nullptr) {
@@ -2244,17 +2348,19 @@ bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
       if (ok) std::memcpy(out, in, occ);
       break;
     // the others zero what they leave undecoded
-    case 32773:
+    case 32773: {
       std::memset(out, 0, occ);
-      ok = packbits(in, cc, out, occ);
+      const uint8_t* p = in;
+      ok = packbits(p, cc, out, occ);
       break;
+    }
     case 5:
       std::memset(out, 0, occ);
-      ok = lzw(in, cc, out, occ, compat);
+      ok = Lzw(in, cc, compat).decode(out, occ);
       break;
     case 8: case 32946:
       std::memset(out, 0, occ);
-      ok = deflate_strip(in, cc, out, occ);
+      ok = Inflate(in, cc).decode(out, occ);
       break;
     case 32809:  // strips alone ("ThunderScan tile decoding is not
                  // implemented": a tile is left as it was)
@@ -2266,39 +2372,7 @@ bool decode_chunk(const Dir& t, const uint8_t* in, size_t cc, uint8_t* out,
     default: ok = false; break;  // no codec: "decoding is not implemented"
   }
   if (!ok) return false;
-  const bool predicted = t.compression != 1 && t.compression != 32773;
-  const size_t row = t.chunk_row, stride = t.planar == 2 ? 1 : t.spp;
-  if (predicted && t.predictor == 3) {
-    // fpAcc: each row's bytes accumulated `stride` apart, then its byte
-    // planes (most significant first) gathered into samples of the
-    // host's order; no swap follows
-    const size_t bytes = t.bps / 8;
-    std::vector<uint8_t> tmp(row);
-    for (size_t r = 0; r + row <= occ; r += row) {
-      uint8_t* p = out + r;
-      for (size_t i = stride; i < row; i++)
-        p[i] = static_cast<uint8_t>(p[i] + p[i - stride]);
-      std::memcpy(tmp.data(), p, row);
-      const size_t count = row / bytes;
-      for (size_t k = 0; k < count; k++)
-        for (size_t b = 0; b < bytes; b++)
-          p[bytes * k + b] = tmp[(bytes - b - 1) * count + k];
-    }
-    return true;
-  }
-  // samples of a big-endian file swapped to the host's order
-  if (t.src.be && (t.bps == 16 || t.bps == 32 || t.bps == 64)) {
-    const size_t unit = t.bps / 8;
-    for (size_t i = 0; i + unit <= occ; i += unit) std::reverse(out + i, out + i + unit);
-  }
-  if (predicted && t.predictor == 2) {
-    switch (t.bps) {  // horAcc8 / 16 / 32 / 64
-      case 8: hor_acc<uint8_t>(out, occ, row, stride); break;
-      case 16: hor_acc<uint16_t>(out, occ, row, stride); break;
-      case 32: hor_acc<uint32_t>(out, occ, row, stride); break;
-      default: hor_acc<uint64_t>(out, occ, row, stride); break;
-    }
-  }
+  postdecode(t, out, occ);
   return true;
 }
 
@@ -3218,7 +3292,135 @@ bool read_all(Rgba& g, uint64_t tile_w, uint64_t tile_h, Image* img) {
   return true;
 }
 
+// ------------------------------------------- OpenCV's scanline branch
+
+// TiffDecoder::readData's test for its scanline branch, made before
+// TIFFRGBAImageOK where the RGBA buffer of a strip or tile, 4 bytes a
+// pixel, reaches 95 % of 1 GiB (1020054732 bytes, whatever the samples'
+// size): one strip of the whole image (RowsPerStrip absent, 0xFFFFFFFF or
+// the height, not more), 1, 3 or 4 samples of 8 or 16 bits, MINISWHITE,
+// MINISBLACK or RGB, contiguous, and 4 samples only with one ExtraSamples
+// value, associated alpha. 1: the branch; 0: the RGBA reader; -1: None (4
+// samples without the ExtraSamples tag: TIFFGetField fails, whatever
+// libtiff made of the samples).
+int scanline_branch(const Dir& t, uint64_t tile_w, uint64_t tile_h) {
+  if (4 * tile_w * tile_h < uint64_t{1020054732}) return 0;
+  if (t.tiled || (t.spp != 1 && t.spp != 3 && t.spp != 4)) return 0;
+  if ((t.bps != 8 && t.bps != 16) || tile_h != t.h) return 0;
+  if (t.photometric > 2 || t.planar == 2) return 0;
+  if (t.spp != 4) return 1;
+  if (!t.extra_set) return -1;
+  return t.extrasamples == 1 && t.sampleinfo0 == 1 ? 1 : 0;
+}
+
+// The branch's reading: TIFFReadScanline of each row in turn into one
+// row's buffer, then OpenCV's copy of it into row y of img (gray to three
+// channels, the first three samples else; a 16-bit sample's high byte): no
+// orientation, MINISWHITE as stored, alpha dropped. The strip is filled
+// once (TIFFFillStrip: the byte count's checks, the file's own bytes or a
+// copy with the bits reversed), then decoded a row at a time, each row's
+// bytes swapped and predicted on their own (postdecode). A row that fails
+// fails the image; what follows the last row is read only as far as the
+// codec reads past a full row (inflate's block ends and check). JPEG goes
+// through the whole frame at once (jpeg_chunk), and fails where the frame
+// is shorter than the image (a narrower frame's rows end in zeros here, in
+// whatever OpenCV's row buffer held there). Without img the rows are
+// decoded and dropped.
+bool read_scanlines(const Dir& t, Image* img) {
+  uint64_t off, bc;
+  if (!chunk_at(t, 0, off, bc)) return false;
+  std::vector<uint8_t> copy;
+  const uint8_t* in = t.src.d ? t.src.d + off : nullptr;
+  if (!in || bits_reversed(t)) {
+    if (!chunk_bytes(t, 0, copy)) return false;
+    in = copy.data();
+  }
+  size_t cc = bc;
+  const size_t line = t.scanline, spp = t.spp;
+  std::vector<uint8_t> row(line), frame;
+  JpegCodec jc;
+  std::optional<Lzw> lzw;
+  std::optional<Inflate> zip;
+  switch (t.compression) {
+    case 1: case 32773: break;
+    case 5: lzw.emplace(in, cc, lzw_compat(t)); break;
+    case 8: case 32946: zip.emplace(in, cc); break;
+    case 7: {
+      int dims[2] = {0, 0};
+      frame.assign(t.h * line, 0);
+      if (jpeg_chunk(jc, t, 0, in, cc, frame.data(), frame.size(), dims) < 0 ||
+          static_cast<uint64_t>(dims[1]) < t.h)
+        return false;
+      break;
+    }
+    default: return false;  // no codec, or one OpenCV's build leaves out
+  }
+  set_image(img, static_cast<int>(t.w), static_cast<int>(t.h));
+  for (uint64_t y = 0; y < t.h; y++) {
+    uint8_t* r = row.data();
+    switch (t.compression) {
+      case 1:  // DumpModeDecode: the whole row or a failure
+        if (cc < line) return false;
+        r = const_cast<uint8_t*>(in);
+        in += line;
+        cc -= line;
+        break;
+      case 32773:
+        if (!packbits(in, cc, r, line)) return false;
+        break;
+      case 5:
+        if (!lzw->decode(r, line)) return false;
+        break;
+      case 7:
+        r = frame.data() + y * line;
+        break;
+      default:
+        if (!zip->decode(r, line)) return false;
+        break;
+    }
+    if (!img) continue;
+    if (r != row.data()) {
+      std::memcpy(row.data(), r, line);
+      r = row.data();
+    }
+    postdecode(t, r, line);
+    uint8_t* out = &img->rgb[y * t.w * 3];
+    if (t.bps == 16) {  // each sample's high byte, in place
+      for (size_t k = 0; k < t.w * spp; k++) {
+        uint16_t v;
+        std::memcpy(&v, r + 2 * k, 2);
+        r[k] = static_cast<uint8_t>(v >> 8);
+      }
+    }
+    if (spp == 3) {
+      std::memcpy(out, r, t.w * 3);
+    } else {
+      for (size_t x = 0; x < t.w; x++) {
+        const uint8_t* s = r + x * spp;
+        out[3 * x] = s[0];
+        out[3 * x + 1] = spp == 1 ? s[0] : s[1];
+        out[3 * x + 2] = spp == 1 ? s[0] : s[2];
+      }
+    }
+  }
+  return true;
+}
+
 // ------------------------------------------------------------------ cv2
+
+// imread's turn of a square image of orientation 5-8 after the decoder:
+// transposed (5, 7) or anti-transposed (6, 8), in place.
+void transpose(Image& img, int orientation) {
+  const size_t n = static_cast<size_t>(img.w);
+  uint8_t* p = img.rgb.data();
+  for (size_t y = 0; y < n; y++)
+    for (size_t x = orientation % 2 ? y + 1 : 0; x < n; x++) {
+      const size_t a = y * n + x;
+      const size_t b = orientation % 2 ? x * n + y : (n - 1 - x) * n + (n - 1 - y);
+      if (orientation % 2 == 0 && b <= a) continue;
+      for (int c = 0; c < 3; c++) std::swap(p[3 * a + c], p[3 * b + c]);
+    }
+}
 
 int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
   Dir t;
@@ -3243,6 +3445,17 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
   if (tile_w == 0) tile_w = t.w;
   if (tile_h == 0) tile_h = t.h;
   if (tile_w > (1u << 24) || tile_h > (1u << 24)) return kUnreadable;
+  const int branch = scanline_branch(t, tile_w, tile_h);
+  if (branch < 0) return kUnreadable;
+  if (branch) {
+    if (t.orientation >= 5 && t.w != t.h) return kUnreadable;
+    dims[0] = static_cast<int>(t.h);
+    dims[1] = static_cast<int>(t.w);
+    if (head) return kOk;
+    if (!read_scanlines(t, img)) return kUnreadable;
+    if (img && t.orientation >= 5) transpose(*img, t.orientation);
+    return kOk;
+  }
   // TIFFRGBAImageOK and TIFFRGBAImageBegin
   if (not_configured(t.compression)) return kUnreadable;
   if (b != 1 && b != 2 && b != 4 && b != 8 && b != 16) return kUnreadable;
@@ -3298,16 +3511,7 @@ int cv2_impl(const Src& src, Image* img, int* dims, bool head) {
   dims[1] = static_cast<int>(t.w);
   if (head) return kOk;
   if (!read_all(g, tile_w, tile_h, img)) return kUnreadable;
-  if (img && t.orientation >= 5) {  // transposed (5, 7) or anti-transposed
-    const Image in = *img;
-    const size_t n = t.w;
-    for (size_t y = 0; y < n; y++)
-      for (size_t x = 0; x < n; x++) {
-        const size_t from = t.orientation % 2 ? x * n + y
-                                              : (n - 1 - x) * n + (n - 1 - y);
-        std::memcpy(&img->rgb[3 * (y * n + x)], &in.rgb[3 * from], 3);
-      }
-  }
+  if (img && t.orientation >= 5) transpose(*img, t.orientation);
   return kOk;
 }
 
@@ -3832,11 +4036,14 @@ int pil_impl(const Src& src, Image* img, int* dims, bool head) {
         (t.compression == comp && (comp != 32809 || t.bps != 4)))
       return kUnreadable;
   }
-  if (!decoded_mode(mode)) return kTiff;
+  // a mode or codec the port does not decode, past Image.open's
+  // DecompressionBombError, which comes first
+  const int not_decoded = pil_size_ok(w, h) ? kTiff : kUnreadable;
+  if (!decoded_mode(mode)) return not_decoded;
   const bool raw = comp == 1;
   if (!raw && !part1_compression(static_cast<int>(comp)) && comp != 6 &&
       comp != 7 && !fax_codec(static_cast<int>(comp)) && comp != 32809)
-    return kTiff;
+    return not_decoded;
   const int bps_count = (photo == 2 || photo == 6 || photo == 8 ? 3 : photo == 5 ? 4 : 1) +
                         static_cast<int>(extra.size());
   int64_t bps_sum = 0;
